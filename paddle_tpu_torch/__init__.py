@@ -1,0 +1,13 @@
+"""paddle_tpu_torch: the PyTorch/CUDA port of paddle_tpu for NVIDIA Hopper.
+
+`paddle_tpu` (JAX, TPU) is the reference this package is held against.
+The port grows slice by slice; this slice serves GPT through the paged
+continuous-batching `serving.Engine`, with the paged-attention decode
+kernel written by hand for Hopper (`kernels/csrc/paged_attention.cu`).
+
+Nothing here imports ``jax`` or ``paddle_tpu``. Entry points run on
+``cuda`` unless the caller passes ``device="cpu"`` (see `device`).
+"""
+from .device import DTYPES, resolve_device, resolve_dtype
+
+__all__ = ["DTYPES", "resolve_device", "resolve_dtype"]

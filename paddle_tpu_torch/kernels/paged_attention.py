@@ -1,0 +1,180 @@
+"""Paged attention for decode: the Hopper kernel and its plain version.
+
+Counterpart: ``paddle_tpu/kernels/paged_attention.py``. The TPU kernel
+there, ``_paged_attn_kernel`` (:120, launched by ``fused_paged_attention``
+:179), is replaced by the hand-written CUDA kernel in
+``csrc/paged_attention.cu`` (unquantized pools; the int8/fp8 variant is
+later work). The source's header note says how it works and what
+bounds it.
+
+- `fused_paged_attention`: the kernel wrapper (CUDA tensors only).
+- `paged_attention_reference`: the plain PyTorch version, computing the
+  same ``(out, lse)``; the CPU path and the on-card comparison use it.
+- `paged_decode_attention`: the dispatcher with the contract of
+  ``paddle_tpu.kernels.paged_attention.paged_decode_attention``
+  (:271-305): ``qh [N, H, W, D]`` -> context ``[N, W, H*D]``.
+
+Semantics shared by the kernel and its plain version: query ``j`` of row
+``n`` attends logical column ``c`` when ``c <= steps[n] + j`` and
+``valid_cols[n, c] != 0``; a masked score is ``-1e30``. Only the pages
+that hold a column ``<= steps[n] + W - 1`` are read. A row with at least
+one readable column gets exactly the TPU kernel's result; a row with
+none (a parked serving slot) gets the uniform average of the columns
+it read — finite, and never read by the engine — where the TPU kernel
+averaged over every page of the table.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import _build, count_launch, runs_plain
+from .paged_kv import gather_pages
+
+_KERNEL = "paged_attention"
+_MASKED = -1e30
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_fn = None
+
+
+def _kernel_fn():
+    """``(launch, error_string)``: the C entry points, with their argument
+    types declared (pointers and the stream as ``c_void_p``, so ctypes
+    does not cut them to 32 bits)."""
+    global _fn
+    if _fn is None:
+        lib = _build.load(_KERNEL)
+        fn = lib.ptt_paged_attention
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        err_str = lib.ptt_error_string
+        err_str.argtypes = [ctypes.c_int]
+        err_str.restype = ctypes.c_char_p
+        _fn = (fn, err_str)
+    return _fn
+
+
+def _check(cond: bool, msg: str):
+    if not cond:
+        raise ValueError(f"fused_paged_attention: {msg}")
+
+
+def fused_paged_attention(qh, pool_k, pool_v, block_table, steps,
+                          valid_cols):
+    """Launch the Hopper kernel: qh ``[N, H, W, D]`` against pools
+    ``[P, H, ps, D]`` through ``block_table [N, Pmax]`` (int32), with
+    ``steps [N]`` and ``valid_cols [N, Pmax*ps]`` (int32). Returns
+    ``(out [N, H, W, D] in qh's dtype, lse [N, H, W] f32)``.
+
+    Takes CUDA tensors only, all contiguous and on one device; q and
+    both pools share one dtype (float32 or bfloat16); ``D`` is 64 or
+    128 and ``ps % 8 == 0``. Anything else raises, quantized (int8,
+    fp8) pools included."""
+    _check(qh.device.type == "cuda", f"needs CUDA tensors, got {qh.device}")
+    dev = qh.device
+    tensors = dict(qh=qh, pool_k=pool_k, pool_v=pool_v,
+                   block_table=block_table, steps=steps,
+                   valid_cols=valid_cols)
+    for name, t in tensors.items():
+        _check(t.device == dev, f"{name} is on {t.device}, qh on {dev}")
+        _check(t.is_contiguous(), f"{name} must be contiguous")
+    _check(qh.dim() == 4, f"qh must be [N, H, W, D], got {tuple(qh.shape)}")
+    n, h, w, d = qh.shape
+    _check(pool_k.dim() == 4 and pool_k.shape == pool_v.shape,
+           f"pools must share one [P, H, ps, D] shape, got "
+           f"{tuple(pool_k.shape)} and {tuple(pool_v.shape)}")
+    _check(pool_k.shape[1] == h and pool_k.shape[3] == d,
+           f"pool heads/head_dim {tuple(pool_k.shape[1::2])} != q's "
+           f"{(h, d)}")
+    ps = pool_k.shape[2]
+    _check(d in (64, 128), f"head_dim must be 64 or 128, got {d}")
+    _check(ps % 8 == 0, f"page_size must be a multiple of 8, got {ps}")
+    _check(qh.dtype in _DTYPE_CODES,
+           f"q dtype must be float32 or bfloat16, got {qh.dtype}")
+    _check(pool_k.dtype == qh.dtype and pool_v.dtype == qh.dtype,
+           f"pools must have q's dtype {qh.dtype}, got {pool_k.dtype}/"
+           f"{pool_v.dtype} (quantized pools are not served by this "
+           "kernel)")
+    _check(block_table.dim() == 2 and block_table.shape[0] == n
+           and block_table.dtype == torch.int32,
+           "block_table must be int32 [N, Pmax]")
+    pmax = block_table.shape[1]
+    _check(steps.shape == (n,) and steps.dtype == torch.int32,
+           "steps must be int32 [N]")
+    _check(valid_cols.shape == (n, pmax * ps)
+           and valid_cols.dtype == torch.int32,
+           f"valid_cols must be int32 [N, Pmax*ps] = {(n, pmax * ps)}")
+    for name in ("qh", "pool_k", "pool_v"):
+        _check(tensors[name].data_ptr() % 16 == 0,
+               f"{name} must be 16-byte aligned")
+    out = torch.empty_like(qh)
+    lse = torch.empty((n, h, w), dtype=torch.float32, device=dev)
+    fn, err_str = _kernel_fn()
+    err = fn(qh.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+             block_table.data_ptr(), steps.data_ptr(), valid_cols.data_ptr(),
+             out.data_ptr(), lse.data_ptr(), n, h, w, d, ps, pmax,
+             _DTYPE_CODES[qh.dtype], dev.index,
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
+                           f"error {err} ({err_str(err).decode()})")
+    count_launch(_KERNEL)
+    return out, lse
+
+
+def paged_attention_reference(qh, pool_k, pool_v, block_table, steps,
+                              valid_cols):
+    """The plain PyTorch version of `fused_paged_attention`: the
+    `gather_pages` view plus the masked softmax, in f32, with the
+    kernel's semantics (module docstring). Returns ``(out, lse)``."""
+    n, h, w, d = qh.shape
+    ps, pmax = pool_k.shape[2], block_table.shape[1]
+    dev = qh.device
+    view_k = gather_pages(pool_k, block_table).float()   # [N, H, L, D]
+    view_v = gather_pages(pool_v, block_table).float()
+    s = torch.einsum("nhwd,nhld->nhwl", qh.float(), view_k) / math.sqrt(d)
+    cols = torch.arange(pmax * ps, device=dev)
+    st = steps.to(dev).long()
+    cur = st[:, None] + torch.arange(w, device=dev)[None, :]      # [N, W]
+    valid = ((cols[None, None, :] <= cur[:, :, None])
+             & (valid_cols.to(dev) != 0)[:, None, :])             # [N, W, L]
+    s = s.masked_fill(~valid[:, None], _MASKED)
+    n_read = ((st + w - 1) // ps + 1).clamp(1, pmax)
+    read = cols[None, :] < (n_read * ps)[:, None]                 # [N, L]
+    s = s.masked_fill(~read[:, None, None, :], float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("nhwl,nhld->nhwd", p, view_v) / l
+    return out.to(qh.dtype), (m + torch.log(l))[..., 0]
+
+
+def paged_decode_attention(qh, pool_k, pool_v, block_table, steps,
+                           head_dim, valid_cols=None):
+    """The decode dispatcher: ``qh [N, H, W, D]`` (W = 1 plain decode)
+    -> context ``[N, W, H*D]``. A CPU ``qh`` runs the plain version; a
+    CUDA ``qh`` launches the kernel (or the wrapper raises)."""
+    n, h, w, d = qh.shape
+    if int(head_dim) != d:
+        raise ValueError(f"head_dim {head_dim} != q's last dim {d}")
+    if valid_cols is None:
+        lp = block_table.shape[1] * pool_k.shape[2]
+        valid_cols = torch.ones((n, lp), dtype=torch.int32,
+                                device=qh.device)
+    if runs_plain(qh, _KERNEL):
+        out, _ = paged_attention_reference(qh, pool_k, pool_v, block_table,
+                                           steps, valid_cols)
+    else:
+        out, _ = fused_paged_attention(
+            qh.contiguous(), pool_k, pool_v,
+            block_table.to(torch.int32).contiguous(),
+            steps.to(torch.int32).contiguous(),
+            valid_cols.to(torch.int32).contiguous())
+    return out.permute(0, 2, 1, 3).reshape(n, w, h * d)
+
+
+__all__ = ["fused_paged_attention", "paged_attention_reference",
+           "paged_decode_attention"]

@@ -1,0 +1,54 @@
+"""Load a ``paddle_tpu`` GPT state dict into the port's model.
+
+The port keeps ``paddle_tpu``'s parameter names and layouts (`models.gpt`:
+``Linear`` weights stay ``[in, out]``, qkv columns stay pair-major), so
+the conversion is a checked copy: every parameter of the model must be
+in the state dict with its exact shape, and nothing else may be, apart
+from the per-layer ``qkv_layout`` markers.
+
+A ``qkv_layout`` marker (value 1) says the qkv columns are pair-major. A
+state dict without it holds head-major columns (``[q(H*d)|k|v]``, the
+layout of checkpoints saved before pair-major, ``gpt.py:766-795``);
+this loader refuses it instead of computing wrong attention.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def load_paddle_tpu_state_dict(model, arrays: dict):
+    """Copy ``arrays`` (``paddle_tpu`` ``state_dict()`` as numpy arrays,
+    keyed by name) into ``model`` (a `GPTForPretraining`), cast to the
+    model's dtype on the model's device. Returns ``model``."""
+    arrays = dict(arrays)
+    for i in range(model.config.num_hidden_layers):
+        key = f"gpt.h.{i}.attn.qkv_layout"
+        marker = arrays.pop(key, None)
+        if marker is None:
+            raise ValueError(
+                f"state dict has no '{key}' marker: its qkv columns are "
+                "head-major, and this loader only takes pair-major "
+                "checkpoints (repack them with paddle_tpu's "
+                "repack_qkv_weight_to_pair_major first)")
+        if int(np.asarray(marker)) != 1:
+            raise ValueError(f"'{key}' = {int(np.asarray(marker))}: unknown "
+                             "qkv layout (1 = pair-major)")
+    params = dict(model.named_parameters())
+    missing = sorted(set(params) - set(arrays))
+    unexpected = sorted(set(arrays) - set(params))
+    if missing or unexpected:
+        raise ValueError(f"state dict does not match the model: missing "
+                         f"{missing}, unexpected {unexpected}")
+    with torch.no_grad():
+        for name, p in params.items():
+            a = np.asarray(arrays[name])
+            if tuple(a.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {tuple(a.shape)} != model "
+                                 f"{tuple(p.shape)}")
+            p.copy_(torch.from_numpy(np.array(a)).to(device=p.device,
+                                                      dtype=p.dtype))
+    return model
+
+
+__all__ = ["load_paddle_tpu_state_dict"]

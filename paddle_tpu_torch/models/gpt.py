@@ -1,0 +1,359 @@
+"""GPT decoder-only language models: the serving slice.
+
+Counterpart: ``paddle_tpu/models/gpt.py``. This slice ports what the
+paged serving engine runs: the masked prompt pass (`GPTModel.prefill`)
+and the one-token-per-slot paged decode step
+(`GPTModel.decode_slots_paged`), plus the weight-tied LM head and the
+cache/pool constructors. Training (the flash-kernel forward and
+backward) is a later slice.
+
+Two layouts are kept from the reference so that a ``paddle_tpu``
+state dict loads key for key (`models.convert`):
+
+- `Linear` stores ``W`` as ``[in, out]`` and computes ``x @ W + b``
+  (``paddle_tpu/nn/functional/common.py:23``), instead of
+  ``nn.Linear``'s ``[out, in]``.
+- The fused qkv projection's output columns are PAIR-MAJOR
+  (``[pair0: q(2d)|k(2d)|v(2d), pair1: ...]``, one whole group for an
+  odd head count); `unpack_qkv_pair_major` is the one place that reads
+  it (``gpt.py:725-738``).
+
+The model is inference-only here: parameters do not require grad and
+dropout is absent (the engine serves in eval mode).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..device import resolve_device, resolve_dtype
+from ..kernels import paged_kv
+from ..kernels.paged_attention import paged_decode_attention
+from ..nn.functional import mt_attention_core
+
+
+@dataclass
+class GPTConfig:
+    vocab_size: int = 50304            # padded to a multiple of 128
+    hidden_size: int = 768
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    intermediate_size: int = 3072
+    max_position_embeddings: int = 1024
+    hidden_dropout_prob: float = 0.1
+    attention_probs_dropout_prob: float = 0.1
+    initializer_range: float = 0.02
+    layer_norm_epsilon: float = 1e-5
+    use_flash_attention: bool = True
+
+    @property
+    def head_dim(self):
+        return self.hidden_size // self.num_attention_heads
+
+    def num_params(self, include_embeddings=True):
+        h, l, v = self.hidden_size, self.num_hidden_layers, self.vocab_size
+        per_layer = 4 * h * h + 2 * h * self.intermediate_size
+        n = l * per_layer
+        if include_embeddings:
+            n += v * h + self.max_position_embeddings * h
+        return n
+
+
+GPT_CONFIGS = {
+    # name: (vocab, hidden, layers, heads, ffn, max_pos)
+    "gpt2-124m": GPTConfig(50304, 768, 12, 12, 3072, 1024),
+    "gpt2-medium": GPTConfig(50304, 1024, 24, 16, 4096, 1024),
+    "gpt2-large": GPTConfig(50304, 1280, 36, 20, 5120, 1024),
+    "gpt3-1.3b": GPTConfig(50304, 2048, 24, 16, 8192, 2048),
+    "gpt3-2.7b": GPTConfig(50304, 2560, 32, 32, 10240, 2048),
+    "gpt3-6.7b": GPTConfig(50304, 4096, 32, 32, 16384, 2048),
+    "gpt3-13b": GPTConfig(50304, 5120, 40, 40, 20480, 2048),
+    # tiny config for tests / dry runs
+    "gpt-test": GPTConfig(256, 64, 2, 4, 128, 64, use_flash_attention=False),
+}
+
+
+def gpt_config(name: str) -> GPTConfig:
+    return GPT_CONFIGS[name]
+
+
+class Linear(nn.Module):
+    """``y = x @ W + b`` with ``W [in, out]`` (paddle_tpu's layout)."""
+
+    def __init__(self, in_features, out_features, *, device, dtype):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(
+            in_features, out_features, device=device, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(out_features, device=device,
+                                             dtype=dtype))
+
+    def forward(self, x):
+        return x @ self.weight + self.bias
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm computed in float32 and cast back to the input dtype
+    (``paddle_tpu/nn/functional/norm.py:19-39``)."""
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), self.normalized_shape,
+                            self.weight.float(), self.bias.float(),
+                            self.eps).to(x.dtype)
+
+
+def unpack_qkv_pair_major(qkv, n_heads, head_dim):
+    """Inverse of the pair-major qkv packing: ``[B, S, 3*H*D]`` -> three
+    head-major ``[B, S, H, D]`` tensors."""
+    b, s = qkv.shape[0], qkv.shape[1]
+    pairs = n_heads // 2 if n_heads % 2 == 0 else 1
+    per = n_heads // pairs
+    x5 = qkv.reshape(b, s, pairs, 3, per * head_dim)
+    return tuple(x5[:, :, :, i].reshape(b, s, n_heads, head_dim)
+                 for i in range(3))
+
+
+class GPTAttention(nn.Module):
+    """Causal self-attention with one fused (pair-major) qkv projection."""
+
+    def __init__(self, config: GPTConfig, *, device, dtype):
+        super().__init__()
+        h = config.hidden_size
+        self.num_heads = config.num_attention_heads
+        self.head_dim = config.head_dim
+        self.qkv_proj = Linear(h, 3 * h, device=device, dtype=dtype)
+        self.out_proj = Linear(h, h, device=device, dtype=dtype)
+
+    def _heads(self, x):
+        """x -> head-major q, k, v ``[B, H, S, D]``."""
+        q, k, v = unpack_qkv_pair_major(self.qkv_proj(x), self.num_heads,
+                                        self.head_dim)
+        return (q.permute(0, 2, 1, 3), k.permute(0, 2, 1, 3),
+                v.permute(0, 2, 1, 3))
+
+    def forward_prefill(self, x, k_cache, v_cache, pad_mask=None):
+        """Prompt pass: causal attention over ``x [B, S, h]`` and the
+        prompt K/V written into cache columns ``[0, S)`` in place.
+        ``pad_mask [B, S]`` (1 = real token) excludes left-pad columns
+        from every query's view. This is the reference's masked branch
+        (``gpt.py:228-245``), which the engine always takes."""
+        s = x.shape[1]
+        qh, kh, vh = self._heads(x)
+        k_cache[:, :, :s] = kh.to(k_cache.dtype)
+        v_cache[:, :, :s] = vh.to(v_cache.dtype)
+        ar = torch.arange(s, device=x.device)
+        valid = (ar[None, :] <= ar[:, None])[None, None]
+        if pad_mask is not None:
+            valid = valid & (pad_mask != 0)[:, None, None, :]
+        ctx = mt_attention_core(qh, kh, vh, self.head_dim, valid_mask=valid)
+        return self.out_proj(ctx)
+
+    def forward_decode_slots_paged(self, x, pool_k, pool_v, block_table,
+                                   steps, valid_cols=None):
+        """One token per slot over the paged pool: row ``s`` writes its
+        K/V into page ``block_table[s, steps[s] // ps]`` at in-page
+        column ``steps[s] % ps`` (in place) and attends through
+        `paged_decode_attention` — the Hopper kernel on a card."""
+        qh, kh, vh = self._heads(x)                        # [B, H, 1, D]
+        ps = pool_k.shape[2]
+        pages = block_table.long().gather(
+            1, (steps.long() // ps)[:, None])[:, 0]
+        offs = steps.long() % ps
+        paged_kv.write_token_pages(pool_k, pages, offs, kh[:, :, 0])
+        paged_kv.write_token_pages(pool_v, pages, offs, vh[:, :, 0])
+        ctx = paged_decode_attention(qh, pool_k, pool_v, block_table, steps,
+                                     self.head_dim, valid_cols=valid_cols)
+        return self.out_proj(ctx)
+
+
+class GPTMLP(nn.Module):
+    def __init__(self, config: GPTConfig, *, device, dtype):
+        super().__init__()
+        self.fc_in = Linear(config.hidden_size, config.intermediate_size,
+                            device=device, dtype=dtype)
+        self.fc_out = Linear(config.intermediate_size, config.hidden_size,
+                             device=device, dtype=dtype)
+
+    def forward(self, x):
+        return self.fc_out(F.gelu(self.fc_in(x), approximate="tanh"))
+
+
+class GPTDecoderLayer(nn.Module):
+    """Pre-LN transformer block (GPT-2 style)."""
+
+    def __init__(self, config: GPTConfig, *, device, dtype):
+        super().__init__()
+        eps = config.layer_norm_epsilon
+        kw = dict(device=device, dtype=dtype)
+        self.ln_1 = LayerNorm(config.hidden_size, eps=eps, **kw)
+        self.attn = GPTAttention(config, **kw)
+        self.ln_2 = LayerNorm(config.hidden_size, eps=eps, **kw)
+        self.mlp = GPTMLP(config, **kw)
+
+    def forward_prefill(self, x, k_cache, v_cache, pad_mask=None):
+        x = x + self.attn.forward_prefill(self.ln_1(x), k_cache, v_cache,
+                                          pad_mask=pad_mask)
+        return x + self.mlp(self.ln_2(x))
+
+    def forward_decode_slots_paged(self, x, pool_k, pool_v, block_table,
+                                   steps, valid_cols=None):
+        x = x + self.attn.forward_decode_slots_paged(
+            self.ln_1(x), pool_k, pool_v, block_table, steps,
+            valid_cols=valid_cols)
+        return x + self.mlp(self.ln_2(x))
+
+
+class GPTEmbeddings(nn.Module):
+    def __init__(self, config: GPTConfig, *, device, dtype):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.word_embeddings = nn.Embedding(config.vocab_size,
+                                            config.hidden_size, **kw)
+        self.position_embeddings = nn.Embedding(
+            config.max_position_embeddings, config.hidden_size, **kw)
+
+    def forward(self, input_ids, position_ids):
+        return (self.word_embeddings(input_ids.long())
+                + self.position_embeddings(position_ids.long()))
+
+
+class GPTModel(nn.Module):
+    """Backbone: embeddings + N decoder layers + final LN."""
+
+    def __init__(self, config: GPTConfig, *, device, dtype):
+        super().__init__()
+        self.config = config
+        kw = dict(device=device, dtype=dtype)
+        self.embeddings = GPTEmbeddings(config, **kw)
+        self.h = nn.ModuleList([GPTDecoderLayer(config, **kw)
+                                for _ in range(config.num_hidden_layers)])
+        self.ln_f = LayerNorm(config.hidden_size,
+                              eps=config.layer_norm_epsilon, **kw)
+
+    def prefill(self, input_ids, caches, pad_mask=None):
+        """Prompt pass over per-layer ``[B, H, >=S, D]`` caches (written in
+        place). ``pad_mask [B, S]``: left-padded rows — pad columns are
+        masked and position ids restart at each row's first real token
+        (``cumsum(pad_mask) - 1`` clipped at 0). Returns the hidden
+        states ``[B, S, h]``."""
+        b, s = input_ids.shape
+        if pad_mask is None:
+            pos = torch.arange(s, device=input_ids.device).expand(b, s)
+        else:
+            pos = (pad_mask.long().cumsum(dim=1) - 1).clamp(min=0)
+        x = self.embeddings(input_ids, pos)
+        for layer, (kc, vc) in zip(self.h, caches):
+            x = layer.forward_prefill(x, kc, vc, pad_mask=pad_mask)
+        return self.ln_f(x)
+
+    def decode_slots_paged(self, token_ids, steps, pools, block_table,
+                           pads=None, valid_cols=None):
+        """One token per slot at per-row logical columns ``steps [B]``
+        over the per-layer ``[(k_pool, v_pool), ...]`` (written in place;
+        one ``block_table [B, max_pages]`` for every layer). Position
+        ids are ``steps - pads`` clipped at 0. Returns ``[B, 1, h]``."""
+        b = token_ids.shape[0]
+        pos = steps.long() if pads is None else steps.long() - pads.long()
+        x = self.embeddings(token_ids, pos.clamp(min=0).reshape(b, 1))
+        for layer, (pk, pv) in zip(self.h, pools):
+            x = layer.forward_decode_slots_paged(x, pk, pv, block_table,
+                                                 steps, valid_cols=valid_cols)
+        return self.ln_f(x)
+
+
+class GPTForPretraining(nn.Module):
+    """GPT with the LM head tied to the word embedding.
+
+    ``config``: a `GPTConfig` or a `GPT_CONFIGS` name. ``device``:
+    ``None`` means ``cuda`` (raises without a GPU; pass ``"cpu"`` for
+    the CPU). Weights are random from ``seed`` (normal with the config's
+    ``initializer_range``, zero biases, unit LayerNorm scales), made on
+    the target device; `models.convert` loads real ones."""
+
+    def __init__(self, config, *, device=None, dtype="float32", seed=0):
+        super().__init__()
+        if isinstance(config, str):
+            config = gpt_config(config)
+        dev = resolve_device(device)
+        self.gpt = GPTModel(config, device=dev, dtype=resolve_dtype(dtype))
+        self._init_weights(seed)
+        self.requires_grad_(False)
+        self.eval()
+
+    @property
+    def config(self) -> GPTConfig:
+        return self.gpt.config
+
+    @property
+    def device(self) -> torch.device:
+        return self.gpt.embeddings.word_embeddings.weight.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.gpt.embeddings.word_embeddings.weight.dtype
+
+    @torch.no_grad()
+    def _init_weights(self, seed):
+        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        std = self.config.initializer_range
+        for mod in self.modules():
+            if isinstance(mod, (Linear, nn.Embedding)):
+                mod.weight.normal_(0.0, std, generator=gen)
+            if isinstance(mod, Linear):
+                mod.bias.zero_()
+            elif isinstance(mod, nn.LayerNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+
+    def _logits(self, hidden):
+        """The weight-tied LM head, the only logits projection
+        (``gpt.py:1266-1270``)."""
+        return hidden @ self.gpt.embeddings.word_embeddings.weight.T
+
+    def gen_static_cache(self, batch_size, max_len, dtype=None):
+        """Per-layer ``(k, v)`` caches ``[batch, heads, max_len, head_dim]``
+        of zeros."""
+        cfg = self.config
+        if max_len > cfg.max_position_embeddings:
+            raise ValueError(
+                f"prompt + max_new_tokens = {max_len} exceeds "
+                f"max_position_embeddings {cfg.max_position_embeddings}")
+        shape = (batch_size, cfg.num_attention_heads, max_len, cfg.head_dim)
+        return self._zeros_per_layer(shape, dtype)
+
+    def gen_page_pool(self, pages, page_size, dtype=None):
+        """Per-layer ``(k, v)`` page pools ``[pages, heads, page_size,
+        head_dim]`` of zeros."""
+        cfg = self.config
+        shape = (int(pages), cfg.num_attention_heads, int(page_size),
+                 cfg.head_dim)
+        return self._zeros_per_layer(shape, dtype)
+
+    def _zeros_per_layer(self, shape, dtype):
+        dt = self.dtype if dtype is None else resolve_dtype(dtype)
+        return [(torch.zeros(shape, dtype=dt, device=self.device),
+                 torch.zeros(shape, dtype=dt, device=self.device))
+                for _ in range(self.config.num_hidden_layers)]
+
+    def prefill(self, input_ids, caches, pad_mask=None):
+        """Logits of the last position ``[B, 1, V]`` (under left padding
+        every row's newest real token) and the written caches."""
+        hidden = self.gpt.prefill(input_ids, caches, pad_mask=pad_mask)
+        return self._logits(hidden[:, -1:]), caches
+
+    def decode_slots_paged(self, token_ids, steps, pools, block_table,
+                           pads=None, valid_cols=None):
+        """Logits ``[B, 1, V]`` of one paged decode step (pools written in
+        place)."""
+        hidden = self.gpt.decode_slots_paged(token_ids, steps, pools,
+                                             block_table, pads=pads,
+                                             valid_cols=valid_cols)
+        return self._logits(hidden)
+
+
+__all__ = ["GPTConfig", "GPT_CONFIGS", "gpt_config", "Linear", "LayerNorm",
+           "unpack_qkv_pair_major", "GPTAttention", "GPTMLP",
+           "GPTDecoderLayer", "GPTEmbeddings", "GPTModel",
+           "GPTForPretraining"]
