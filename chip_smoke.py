@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of paddle_tpu_torch on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--seed N] [--layers L]
+    python3 chip_smoke.py [--seed N]
 
 Phases, in order; any failure exits non-zero:
 
@@ -14,8 +14,8 @@ Phases, in order; any failure exits non-zero:
    shape beside the plain version's, a PyTorch library call computing
    the same function (timed here only; the port never calls it) and the
    least time the card could take (its bound);
-4. engine phase: gpt3-1.3b at full width (and full depth unless
-   ``--layers`` cuts it), bf16, random weights from ``--seed``, served by
+4. engine phase: gpt3-1.3b at full width and depth, bf16, random
+   weights from ``--seed``, served by
    the paged `Engine` (8 slots, page 16, max_len 640, buckets 128/512)
    under staggered traffic. Launch counts are zeroed just before the run
    and read just after: every kernel of the path must have launched
@@ -34,7 +34,6 @@ and exits 1.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import os
 import subprocess
@@ -48,6 +47,10 @@ F32_FLOPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 TOL_F32 = dict(atol=1e-4, rtol=0.0)
 TOL_BF16_OUT = dict(atol=2e-2, rtol=2e-2)
 TOL_BF16_LSE = dict(atol=1e-3, rtol=0.0)
+# at the engine's decode shape |out| is about 0.07 (a softmax over ~500
+# random scores), so bf16 out is held to a few bf16 ulps there, and the
+# same inputs in float32 to TOL_F32
+TOL_BF16_OUT_DECODE = dict(atol=2e-3, rtol=0.0)
 TEACHER_GAP = 0.05               # bf16 near-ties the teacher check allows
 
 # engine phase: the serving configuration and its traffic
@@ -124,6 +127,33 @@ def paged_case(n, h, w, d, ps, pmax, dtype, seed, steps=None, pads=None):
     return q, pool_k, pool_v, bt, steps.contiguous(), vc.contiguous()
 
 
+def paged_work(bt, steps, vc, w, h, d, el):
+    """Bytes and flops one paged-attention call needs on this data. A
+    row needs the pages that hold a readable column (``valid_cols != 0``
+    and at most ``steps + w - 1``); a page of left padding alone cannot
+    change the row's result and is not counted (a row with no readable
+    column needs every page up to its cursor). Bytes: those pages' K and
+    V once, their block-table entries, the valid_cols up to the cursor,
+    steps, q, out and lse. Flops: q.k and p.v over the pages' columns."""
+    ps = PAGE
+    n = bt.shape[0]
+    pages = cols_read = 0
+    for s, v in zip(steps.tolist(), vc.cpu()):
+        last = min(s + w - 1, v.shape[0] - 1)
+        live = v[:last + 1].nonzero().flatten()
+        if live.numel():
+            pages += len(set((live // ps).tolist()))
+        else:
+            pages += last // ps + 1
+        cols_read += last + 1
+    nbytes = (pages * ps * h * d * 2 * el      # K and V pages
+              + 2 * n * h * w * d * el         # q in, out
+              + n * h * w * 4                  # lse
+              + pages * 4 + n * 4 + cols_read * 4)
+    flops = 4 * w * h * d * pages * ps
+    return nbytes, flops
+
+
 def kernel_phase(torch, pa):
     """Kernel against plain version on the card, then timing at the
     engine's decode shape. Returns the paged-attention record."""
@@ -167,9 +197,22 @@ def kernel_phase(torch, pa):
     args = copies[0]
     out, _ = pa.fused_paged_attention(*args)
     ref, _ = pa.paged_attention_reference(*args)
+    # the same inputs before their rounding to bf16, in float32
+    args32 = paged_case(n, h, 1, d, PAGE, pmax, torch.float32, seed=0,
+                        steps=steps, pads=pads)
+    out32, lse32 = pa.fused_paged_attention(*args32)
+    ref32, ref_lse32 = pa.paged_attention_reference(*args32)
     torch.cuda.synchronize()
     max_err = (out.float() - ref.float()).abs().max().item()
-    torch.testing.assert_close(out.float(), ref.float(), **TOL_BF16_OUT)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               **TOL_BF16_OUT_DECODE)
+    torch.testing.assert_close(out32, ref32, **TOL_F32)
+    torch.testing.assert_close(lse32, ref_lse32, **TOL_F32)
+    err32 = max((out32 - ref32).abs().max().item(),
+                (lse32 - ref_lse32).abs().max().item())
+    print(f"  decode shape: bf16 max|out-ref| {max_err:.3e} (atol "
+          f"{TOL_BF16_OUT_DECODE['atol']}), float32 max|out/lse-ref| "
+          f"{err32:.3e} (atol {TOL_F32['atol']})  ok")
 
     it = iter(range(10 ** 9))
 
@@ -190,20 +233,13 @@ def kernel_phase(torch, pa):
         F.scaled_dot_product_attention(q, k, v, attn_mask=m)
 
     library_ms = time_ms(library, 200)
-    # the bound: live pages read once (W = 1: pages up to steps // ps),
-    # plus q/out/lse and the indices read
-    el = 2
-    n_read = [min(pmax, s // PAGE + 1) for s in steps]
-    cols = sum(n_read) * PAGE
-    nbytes = (cols * h * d * 2 * el + 2 * n * h * d * el + n * h * 4
-              + sum(n_read) * 4 + n * 4 + cols * 4)
-    flops = 4 * h * d * cols
+    nbytes, flops = paged_work(*args[3:], w=1, h=h, d=d, el=2)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
     bound_ms = max(t_bytes, t_ops) * 1e3
     print(f"  decode shape N={n} H={h} W=1 D={d} ps={PAGE} Pmax={pmax} "
-          f"bf16, steps {steps}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-          f"ms, SDPA over the gathered view {library_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({nbytes} bytes, {flops} flops)")
+          f"bf16, steps {steps}, pads {pads}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, SDPA over the gathered view {library_ms:.4f} "
+          f"ms, bound {bound_ms:.4f} ms ({nbytes} bytes, {flops} flops)")
     return {"name": "paged_attention", "route": "cuda",
             "source": "paddle_tpu_torch/kernels/csrc/paged_attention.cu",
             "replaces": "paddle_tpu/kernels/paged_attention.py:120",
@@ -214,14 +250,12 @@ def kernel_phase(torch, pa):
 
 
 # ---------------------------------------------------------------- engine
-def engine_phase(torch, seed, layers):
+def engine_phase(torch, seed):
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.models.gpt import GPTForPretraining, gpt_config
     from paddle_tpu_torch.serving import Engine
 
     cfg = gpt_config(MODEL)
-    if layers is not None:
-        cfg = dataclasses.replace(cfg, num_hidden_layers=int(layers))
     t = time.perf_counter()
     model = GPTForPretraining(cfg, dtype="bfloat16", seed=seed)
     torch.cuda.synchronize()
@@ -261,7 +295,7 @@ def engine_phase(torch, seed, layers):
     check(s.kv_pages_in_use == 0 and s.kv_pages_free == s.kv_pages_total,
           f"pages did not return to the pool: {s}")
     want = s.decode_steps * cfg.num_hidden_layers
-    check(counts["paged_attention"] == want == s.paged_attention_launches,
+    check(counts["paged_attention"] == want,
           f"paged_attention launched {counts['paged_attention']} times, "
           f"decode_steps x layers = {want}")
     for name, c in counts.items():
@@ -343,8 +377,6 @@ def profile_decode(torch, eng, prompts, steps=8):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--layers", type=int, default=None,
-                    help="cut the model's depth (default: full depth)")
     args = ap.parse_args(argv)
 
     import torch
@@ -374,7 +406,7 @@ def main(argv=None) -> int:
     record = kernel_phase(torch, pa)
 
     print("[4] engine phase")
-    counts = engine_phase(torch, args.seed, args.layers)
+    counts = engine_phase(torch, args.seed)
     record["launches"] = counts[record["name"]]
 
     print(json.dumps({"kernels": [record]}))

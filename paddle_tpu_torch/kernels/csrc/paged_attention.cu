@@ -24,13 +24,16 @@
 // pages past the cursor are never loaded.
 //
 // Bound on the H100: memory. Per call it must read the live pages once,
-// about sum_n ceil((steps[n]+W)/ps)*ps * H * D * 2 (K and V) * bytes, at
+// at most sum_n ceil((steps[n]+W)/ps)*ps * H * D * 2 (K and V) * bytes, at
 // 3.35 TB/s; the arithmetic (4*W*D flops per column) is far below the
-// card's rate. The design answers that bound by reading only live pages,
-// each exactly once per (row, head, query tile), with 16-byte loads
-// (neighbouring threads on neighbouring addresses) into shared memory.
-// Split-K over pages (flash-decoding), cp.async/TMA page streaming and a
-// larger query tile are later work.
+// card's rate. A page that holds only left padding (valid_cols all 0)
+// cannot change a row that has a readable column, so the least the call
+// needs leaves such pages out. The design answers that bound by reading
+// no page past the cursor, each page it reads exactly once per (row,
+// head, query tile), with 16-byte loads (neighbouring threads on
+// neighbouring addresses) into shared memory. It still reads the pages
+// of left padding; skipping them, split-K over pages (flash-decoding),
+// cp.async/TMA page streaming and a larger query tile are later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -102,7 +102,6 @@ class Engine:
                    else (max(1, int(max_len) // 2),))
         self.scheduler = SlotScheduler(self.slots, buckets, int(max_len))
         self.metrics = EngineMetrics()
-        self._paged_attention_launches = 0
         self._tokens = np.zeros((self.slots,), np.int64)
         self._slot_req: list[Request | None] = [None] * self.slots
         self._next_rid = 0
@@ -225,7 +224,8 @@ class Engine:
             kv_pages_in_use=self.kv.pages_in_use,
             kv_pages_free=self.kv.pages_free,
             kv_slot_pages=self.kv.slot_page_counts(),
-            paged_attention_launches=self._paged_attention_launches)
+            paged_attention_launches=kernel_launch_counts()[
+                "paged_attention"])
 
     # -- internals -------------------------------------------------------
     def _check_alive(self):
@@ -272,15 +272,12 @@ class Engine:
     def _decode_once(self):
         samplers = [self._sampler(r) for r in self._slot_req]
         t0 = time.perf_counter()
-        before = kernel_launch_counts()["paged_attention"]
         tok = paged_decode_step(
             self.model, self.kv.caches, self._dev(self._tokens),
             self._dev(self.kv.steps), self._dev(self.kv.pads),
             self._dev(self.kv.valid_cols), self._dev(self.kv.block_table),
             samplers, self.top_k).cpu().numpy()
         self.metrics.decode_step_s.append(time.perf_counter() - t0)
-        self._paged_attention_launches += (
-            kernel_launch_counts()["paged_attention"] - before)
         self.metrics.decode_steps += 1
         for slot, req in enumerate(self._slot_req):
             if req is None:

@@ -30,6 +30,8 @@ class EngineStats:
     kv_slot_pages: tuple
     ttft_p50: float | None
     decode_step_p50: float | None
+    #: the process-wide `kernels.kernel_launch_counts` entry (launches
+    #: since its last reset, by every engine), not a per-engine count
     paged_attention_launches: int
 
 
