@@ -10,21 +10,32 @@ Phases, in order; any failure exits non-zero:
 2. build every CUDA kernel of the port from ``paddle_tpu_torch/kernels/
    csrc`` (one nvcc per source, in parallel);
 3. kernel phase: each kernel against its plain PyTorch version on the
-   card, at the stated tolerances; then its time at the serving decode
-   shape beside the plain version's, a PyTorch library call computing
-   the same function (timed here only; the port never calls it) and the
-   least time the card could take (its bound);
+   card, at the stated tolerances; then its time at the main path's
+   shape (paged attention: the serving decode shape; the flash kernels:
+   the training shape B8 S1024 H16 D128 bf16 causal) beside the plain
+   version's, a PyTorch library call computing the same function (timed
+   here only; the port never calls it) and the least time the card
+   could take (its bound);
 4. engine phase: gpt3-1.3b at full width and depth, bf16, random
    weights from ``--seed``, served by
    the paged `Engine` (8 slots, page 16, max_len 640, buckets 128/512)
    under staggered traffic. Launch counts are zeroed just before the run
-   and read just after: every kernel of the path must have launched
-   (paged attention exactly decode_steps x layers times). Every request
+   and read just after: paged attention must have launched exactly
+   decode_steps x layers times. Every request
    completes, every page returns to the pool, and a teacher-forced
    full-sequence forward with plain attention, of a float32 copy of the
    weights, agrees with each emitted token unless its logit is within
    0.05 of the reference's top one. Then a few full decode steps run
-   under torch.profiler: the device's busy share and the top kernels.
+   under torch.profiler: the device's busy share and the top kernels;
+5. training phase: gpt3-1.3b at full width and depth trains through
+   `SpmdTrainStep` (b8 x s1024 from ``--seed``, dropout 0, bf16 params
+   and AdamW moments, lr 1e-4, wd 0.01). The bf16 model's loss and
+   grads agree with a float32 copy of its weights run through the plain
+   attention branch; after one warm-up step, the launch counts are
+   zeroed and five timed steps run: both flash kernels launch exactly
+   steps x layers times, every loss is finite and the first lies within
+   0.5 of ln(vocab). It prints tokens/s, step ms p50, peak memory and
+   MFU, then two steps under torch.profiler.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device":
@@ -34,7 +45,9 @@ and exits 1.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -42,6 +55,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 # kernel-phase tolerances: f32 differs only by summation order; bf16
 # outputs are rounded to bf16 (lse stays f32 in both versions)
 TOL_F32 = dict(atol=1e-4, rtol=0.0)
@@ -52,10 +66,30 @@ TOL_BF16_LSE = dict(atol=1e-3, rtol=0.0)
 # same inputs in float32 to TOL_F32
 TOL_BF16_OUT_DECODE = dict(atol=2e-3, rtol=0.0)
 TEACHER_GAP = 0.05               # bf16 near-ties the teacher check allows
+# flash kernels against their plain versions, bf16: the kernel rounds
+# p*keep (against a running max) and ds to bf16 where the plain version
+# rounds them against the global max, then sums them in another order.
+# Each element of o and dqkv is held to a few bf16 ulps (2^-8) of its own
+# scale (`flash_scale`), never of the tensor's largest value: a 5% error
+# on any one row is about 13 such ulps and fails
+BF16_ULPS_O, BF16_ULPS_DQKV = 8, 8
+# the scale's floor, as a share of the tensor's rms: only rows that
+# cancel to about 0 in both versions (causal row 0's dq) sit on it
+FLASH_SCALE_FLOOR = 1 / 64
+FLASH_SEED = 20260               # the dropout seed of the kernel phase
 
 # engine phase: the serving configuration and its traffic
 MODEL = "gpt3-1.3b"
 SLOTS, PAGE, MAX_LEN, BUCKETS, MAX_NEW = 8, 16, 640, (128, 512), 32
+# training phase: the flagship configuration of bench.py:76-133
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR, TRAIN_WD = 8, 1024, 5, 1e-4, 0.01
+# the bf16 model against a float32 copy of its weights (plain attention):
+# bf16 rounds every activation to 8 significant bits over 24 layers.
+# Read on one H100 at seed 0: loss rel 2.0e-05, grad cosine >= 0.99985.
+# The loss at random init is about ln(V) + 0.4 for any attention, so the
+# grads carry the check: a 20% error on a quarter of the rows of a
+# checked grad costs about 0.2^2 / 4 / 2 = 5e-3 of cosine
+REF_LOSS_RTOL, REF_GRAD_COS = 1e-3, 0.999
 PROMPT_LENS = (20, 75, 130, 190, 250, 310, 370, 430, 480, 500)
 SUBMIT_AT_STEP = (0, 0, 0, 0, 2, 2, 2, 5, 5, 5)
 
@@ -132,20 +166,22 @@ def paged_work(bt, steps, vc, w, h, d, el):
     row needs the pages that hold a readable column (``valid_cols != 0``
     and at most ``steps + w - 1``); a page of left padding alone cannot
     change the row's result and is not counted (a row with no readable
-    column needs every page up to its cursor). Bytes: those pages' K and
-    V once, their block-table entries, the valid_cols up to the cursor,
-    steps, q, out and lse. Flops: q.k and p.v over the pages' columns."""
+    column averages every page of its table, so it needs them all).
+    Bytes: those pages' K and V once, their block-table entries, the
+    valid_cols read, steps, q, out and lse. Flops: q.k and p.v over the
+    pages' columns."""
     ps = PAGE
-    n = bt.shape[0]
+    n, pmax = bt.shape
     pages = cols_read = 0
     for s, v in zip(steps.tolist(), vc.cpu()):
         last = min(s + w - 1, v.shape[0] - 1)
         live = v[:last + 1].nonzero().flatten()
         if live.numel():
             pages += len(set((live // ps).tolist()))
+            cols_read += last + 1
         else:
-            pages += last // ps + 1
-        cols_read += last + 1
+            pages += pmax
+            cols_read += pmax * ps
     nbytes = (pages * ps * h * d * 2 * el      # K and V pages
               + 2 * n * h * w * d * el         # q in, out
               + n * h * w * 4                  # lse
@@ -249,6 +285,171 @@ def kernel_phase(torch, pa):
             "library_ms": library_ms}
 
 
+def flash_ulps(x, ref, d):
+    """``|x - ref|`` of each element in bf16 ulps (2^-8) of its scale:
+    the largest of its own ``|ref|``, the rms of its row (one head's
+    ``d`` values at one position, which all sum the same rounded
+    products) and FLASH_SCALE_FLOOR x the tensor's rms. Returns the
+    largest reading and the mean ``|ref|`` (the typical value)."""
+    import torch
+
+    r = ref.float().reshape(-1, d)
+    scale = torch.maximum(r.abs(),
+                          r.square().mean(dim=1, keepdim=True).sqrt())
+    scale = scale.clamp(min=FLASH_SCALE_FLOOR * r.square().mean().sqrt()
+                        .item())
+    ulps = (x.float().reshape(-1, d) - r).abs() / (scale * 2.0 ** -8)
+    return ulps.max().item(), r.abs().mean().item()
+
+
+def flash_case(b, s, h, d, dtype, seed):
+    """``(qkv [b, s, 3hd], do [b, s, hd])`` of standard normals on the
+    card, in ``dtype``."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn((b, s, 3 * h * d), generator=g, device="cuda")
+    do = torch.randn((b, s, h * d), generator=g, device="cuda")
+    return qkv.to(dtype), do.to(dtype)
+
+
+def flash_compare(torch, fa, qkv, do, h, causal, p, seed_t):
+    """Both flash kernels against their plain versions on one input.
+    The backward of each gets the plain forward's ``o`` and ``lse``, so
+    it is compared on the same inputs. lse (float32 math in both) is
+    held to TOL_F32; so are o and dqkv in float32. In bfloat16, o and
+    dqkv are held to BF16_ULPS_O / BF16_ULPS_DQKV of each element's scale
+    (`flash_ulps`), and beside that reading stands a control: how far
+    bf16 rounding alone moves the plain version (its float32 run on the
+    same inputs against its bf16 run). Returns a line of the readings."""
+    d = qkv.shape[-1] // (3 * h)
+    o, lse = fa.flash_attention_qkv_fwd(qkv, h, causal, p, seed_t)
+    ro, rlse = fa.flash_qkv_reference(qkv, h, causal, p, seed_t)
+    dqkv = fa.flash_attention_qkv_bwd(qkv, do, ro, rlse, h, causal, p,
+                                      seed_t)
+    rdqkv = fa.flash_qkv_bwd_reference(qkv, do, ro, rlse, h, causal, p,
+                                       seed_t)
+    torch.cuda.synchronize()
+    err = {"o": (o.float() - ro.float()).abs().max().item(),
+           "dqkv": (dqkv.float() - rdqkv.float()).abs().max().item()}
+    torch.testing.assert_close(lse, rlse, **TOL_F32)
+    line = f"max|lse-ref| {(lse - rlse).abs().max().item():.3e}"
+    if qkv.dtype == torch.float32:
+        torch.testing.assert_close(o, ro, **TOL_F32)
+        torch.testing.assert_close(dqkv, rdqkv, **TOL_F32)
+        return err, (f"max|o-ref| {err['o']:.3e}, {line}, max|dqkv-ref| "
+                     f"{err['dqkv']:.3e} (atol {TOL_F32['atol']})")
+    ctrl_o, _ = fa.flash_qkv_reference(qkv.float(), h, causal, p, seed_t)
+    ctrl_d = fa.flash_qkv_bwd_reference(qkv.float(), do.float(), ro.float(),
+                                        rlse, h, causal, p, seed_t)
+    parts = [line]
+    for name, x, ref, ctrl, limit in (("o", o, ro, ctrl_o, BF16_ULPS_O),
+                                      ("dqkv", dqkv, rdqkv, ctrl_d,
+                                       BF16_ULPS_DQKV)):
+        ulps, typical = flash_ulps(x, ref, d)
+        ctrl_ulps, _ = flash_ulps(ctrl, ref, d)
+        reading = (f"{name}: max|diff| {err[name]:.3e}, {ulps:.3f} ulps of "
+                   f"its scale (limit {limit}; bf16 rounding control "
+                   f"{ctrl_ulps:.3f}; mean|ref| {typical:.3e})")
+        check(ulps <= limit, f"flash {reading}")
+        parts.append(reading)
+    return err, "; ".join(parts)
+
+
+def flash_kernel_phase(torch):
+    """Flash kernels (rows 6-7) against their plain versions on the card,
+    f32 and bf16, D 64 and 128, causal and full, dropout 0 and 0.1; then
+    at the training shape (bf16, causal, no dropout) agreement and time
+    beside the plain versions, SDPA over the unpacked head-major q/k/v
+    (timed only; the port never calls it) and the bound. Returns the
+    forward's and the backward's records."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models.gpt import unpack_qkv_pair_major
+
+    seed_t = torch.tensor([FLASH_SEED], dtype=torch.int32, device="cuda")
+    for d in (64, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                for p in (0.0, 0.1):
+                    qkv, do = flash_case(2, 256, 4, d, dtype, seed=d + int(
+                        causal) + int(10 * p))
+                    _, line = flash_compare(torch, fa, qkv, do, 4, causal,
+                                            p, seed_t)
+                    print(f"  flash_attention_qkv D={d} {str(dtype)[6:]} "
+                          f"{'causal' if causal else 'full'} p={p}: {line}"
+                          "  ok")
+
+    b, s, h, d = TRAIN_B, TRAIN_S, 16, 128
+    el = 2
+    # two input copies of 100 MB of qkv (+ do, o, lse) each: more than
+    # the 50 MB L2
+    copies = [flash_case(b, s, h, d, torch.bfloat16, seed=i) for i in (1, 2)]
+    saved = [fa.flash_attention_qkv_fwd(q, h, True) for q, _ in copies]
+    err, line = flash_compare(torch, fa, *copies[0], h, True, 0.0, None)
+    print(f"  training shape B={b} S={s} H={h} D={d} bf16 causal: {line}  ok")
+    it = iter(range(10 ** 9))
+
+    def fwd():
+        fa.flash_attention_qkv_fwd(copies[next(it) % 2][0], h, True)
+
+    def bwd():
+        i = next(it) % 2
+        fa.flash_attention_qkv_bwd(copies[i][0], copies[i][1], *saved[i], h,
+                                   True)
+
+    fwd_ms, bwd_ms = time_ms(fwd, 10), time_ms(bwd, 5)
+    qkv, do = copies[0]
+    plain_fwd = time_ms(lambda: fa.flash_qkv_reference(qkv, h, True), 3, 1)
+    plain_bwd = time_ms(lambda: fa.flash_qkv_bwd_reference(
+        qkv, do, *saved[0], h, True), 3, 1)
+    heads = [[t.transpose(1, 2).contiguous()
+              for t in unpack_qkv_pair_major(q, h, d)] for q, _ in copies]
+    dos = [g.reshape(b, s, h, d).transpose(1, 2).contiguous()
+           for _, g in copies]
+
+    def lib_fwd():
+        q, k, v = heads[next(it) % 2]
+        F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    leaves = [[t.detach().requires_grad_(True) for t in hs] for hs in heads]
+
+    def lib_fwd_bwd():
+        i = next(it) % 2
+        F.scaled_dot_product_attention(*leaves[i], is_causal=True).backward(
+            dos[i])
+
+    lib_f = time_ms(lib_fwd, 10)
+    lib_fb = time_ms(lib_fwd_bwd, 5)
+    io = b * s * h * d * el                      # one [B, S, H*D] tensor
+    lse_bytes = b * h * s * 4
+    attn = b * h * s * s * d // 2                # causal: half the pairs
+    records = []
+    for name, ms, plain, lib, nbytes, flops, line in (
+            ("flash_attention_qkv_fwd", fwd_ms, plain_fwd, lib_f,
+             3 * io + io + lse_bytes, 4 * attn, 849),
+            ("flash_attention_qkv_bwd", bwd_ms, plain_bwd, lib_fb - lib_f,
+             3 * io + 2 * io + lse_bytes + 3 * io, 10 * attn, 876)):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        print(f"  {name} at B={b} S={s} H={h} D={d} bf16 causal: kernel "
+              f"{ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({nbytes} bytes, {flops} flops)")
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/flash_attention_qkv.cu",
+            "replaces": f"paddle_tpu/kernels/flash_attention.py:{line}",
+            "max_abs_err": err["o" if name.endswith("fwd") else "dqkv"],
+            "ms": ms,
+            "plain_ms": plain, "bound_ms": bound_ms,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib})
+    print(f"  SDPA forward+backward {lib_fb:.4f} ms, forward {lib_f:.4f} ms "
+          "(its backward alone: the difference)")
+    return records
+
+
 # ---------------------------------------------------------------- engine
 def engine_phase(torch, seed):
     from paddle_tpu_torch import kernels
@@ -298,19 +499,20 @@ def engine_phase(torch, seed):
     check(counts["paged_attention"] == want,
           f"paged_attention launched {counts['paged_attention']} times, "
           f"decode_steps x layers = {want}")
-    for name, c in counts.items():
-        check(c > 0, f"kernel {name} never launched on the main path")
+    check(counts["flash_attention_qkv_fwd"] == 0
+          and counts["flash_attention_qkv_bwd"] == 0,
+          f"serving launched a training kernel: {counts}")
     print(f"  served {len(prompts)} requests (prompts {PROMPT_LENS}, "
           f"max_new {MAX_NEW}) in {wall:.3f} s: {s.prefill_steps} prefills,"
           f" {s.decode_steps} decode steps, {s.tokens_generated} tokens")
-    print(f"  launches {counts} = decode_steps x layers")
+    print(f"  launches {counts}: paged_attention = decode_steps x layers")
 
     print(f"  TTFT p50 {s.ttft_p50 * 1e3:.3f} ms, decode "
           f"{s.decode_step_p50 * 1e3:.3f} ms/step (p50), "
           f"{s.tokens_generated / wall:.1f} tokens/s")
     teacher_check(torch, model, prompts, outs)
     profile_decode(torch, Engine(model, **kw), prompts)
-    return counts
+    return {"paged_attention": counts["paged_attention"]}
 
 
 def teacher_check(torch, model, prompts, outs):
@@ -345,33 +547,172 @@ def teacher_check(torch, model, prompts, outs):
 
 def profile_decode(torch, eng, prompts, steps=8):
     """Where a decode step's time goes: ``steps`` steps of a full engine
-    (every slot active) under torch.profiler; prints the device's busy
-    share of the wall time and the kernels that take the most of it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    (every slot active) under torch.profiler."""
     for p in prompts[:SLOTS]:
         eng.submit(p, max_new_tokens=MAX_NEW)
     eng.step()                            # admits every slot, one decode
+    profile_steps(torch, eng.step, steps, "full decode steps")
+
+
+def profile_steps(torch, fn, steps, what):
+    """``steps`` calls of ``fn`` under torch.profiler: prints the device's
+    busy share of the wall time and the kernels that take the most of
+    it. Returns ``(wall ms/step, busy ms/step)``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            eng.step()
+            fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [(e.self_device_time_total, e.key)
                for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_us = sum(t for t, _ in kernels)
-    print(f"  profile of {steps} full decode steps: wall "
+    print(f"  profile of {steps} {what}: wall "
           f"{wall_us / steps / 1e3:.3f} ms/step, device busy "
           f"{busy_us / steps / 1e3:.3f} ms/step "
           f"({100 * busy_us / wall_us:.1f}% of wall)")
     for t, key in sorted(kernels, reverse=True)[:6]:
         share = 100 * t / busy_us if busy_us else 0.0
         print(f"    {t / steps / 1e3:8.4f} ms/step {share:5.1f}%  {key[:90]}")
+    return wall_us / steps / 1e3, busy_us / steps / 1e3
+
+
+# ---------------------------------------------------------------- training
+def train_phase(torch, seed, card):
+    """gpt3-1.3b at full width and depth trains through `SpmdTrainStep`
+    on the card (bench.py's flagship configuration): b8 x s1024 of
+    token ids from ``seed``, dropout 0, bf16 params and bf16 AdamW
+    moments. First the float32-reference check, then one warm-up step
+    and TRAIN_STEPS timed steps with the launch counts zeroed just
+    before them, then two steps under the profiler. Returns the flash
+    kernels' launch counts of the timed steps."""
+    import dataclasses
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.distributed import SpmdTrainStep, gpt_loss_fn
+    from paddle_tpu_torch.models.gpt import GPTForPretraining, gpt_config
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = dataclasses.replace(gpt_config(MODEL), hidden_dropout_prob=0.0,
+                              attention_probs_dropout_prob=0.0)
+    gc.collect()                 # what the earlier phases left in cycles
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    model = GPTForPretraining(cfg, dtype="bfloat16", seed=seed)
+    model.train()
+    step = SpmdTrainStep(model, gpt_loss_fn,
+                         AdamW(learning_rate=TRAIN_LR, weight_decay=TRAIN_WD))
+    params, opt_state = step.init(slot_dtype="bfloat16")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = [torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S + 1),
+                            generator=g, device="cuda")
+              for _ in range(TRAIN_STEPS + 3)]
+    batches = [{"input_ids": t[:, :-1], "labels": t[:, 1:]} for t in tokens]
+    print(f"  {MODEL}: {cfg.num_hidden_layers} layers, h={cfg.hidden_size}, "
+          f"{cfg.num_attention_heads} heads, d={cfg.head_dim}, dropout 0; "
+          f"b{TRAIN_B} x s{TRAIN_S}, bf16 params, bf16 AdamW moments, lr "
+          f"{TRAIN_LR}, wd {TRAIN_WD}")
+    float32_reference_check(torch, step, params, batches[0], cfg, seed)
+
+    loss, params, opt_state = step(params, opt_state, batches[0], 0)
+    first = loss.item()
+    check(abs(first - math.log(cfg.vocab_size)) < 0.5,
+          f"first loss {first} is not within 0.5 of ln(V) = "
+          f"{math.log(cfg.vocab_size):.4f}")
+    kernels.reset_kernel_launch_counts()
+    times, losses = [], [first]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(1, TRAIN_STEPS + 1):
+        ts = time.perf_counter()
+        loss, params, opt_state = step(params, opt_state, batches[i], i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - ts)
+        losses.append(loss.item())
+    wall = time.perf_counter() - t0
+    counts = kernels.kernel_launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = TRAIN_STEPS * cfg.num_hidden_layers
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    for name in ("flash_attention_qkv_fwd", "flash_attention_qkv_bwd"):
+        check(counts[name] == want, f"{name} launched {counts[name]} times, "
+              f"steps x layers = {want}")
+    check(counts["paged_attention"] == 0, f"training launched paged "
+          f"attention: {counts}")
+    tok_s = TRAIN_B * TRAIN_S * TRAIN_STEPS / wall
+    flops_per_tok = (6 * cfg.num_params(include_embeddings=False)
+                     + 12 * cfg.num_hidden_layers * cfg.hidden_size
+                     * TRAIN_S)
+    mfu = tok_s * flops_per_tok / BF16_FLOPS_PER_S
+    p50 = sorted(times)[len(times) // 2] * 1e3
+    print(f"  losses {[round(x, 4) for x in losses]} (first within 0.5 of "
+          f"ln(V) = {math.log(cfg.vocab_size):.4f}, all finite)")
+    print(f"  launches {counts}: flash fwd = bwd = steps x layers = {want}")
+    print(f"  {card}: {tok_s:.1f} tokens/s, step {p50:.3f} ms p50 (steps "
+          f"{[round(t * 1e3, 3) for t in times]} ms), peak memory "
+          f"{peak / 2 ** 30:.3f} GiB (max_memory_allocated; "
+          f"{before / 2 ** 30:.3f} GiB held before the phase), MFU {mfu:.4f} "
+          f"({flops_per_tok} flops/token over 989 TFLOP/s)")
+    it = iter(range(100))
+
+    def one():
+        nonlocal params, opt_state
+        i = next(it) % len(batches)
+        _, params, opt_state = step(params, opt_state, batches[i], 100 + i)
+
+    profile_steps(torch, one, 2, "training steps")
+    return {k: counts[k] for k in ("flash_attention_qkv_fwd",
+                                   "flash_attention_qkv_bwd")}
+
+
+def float32_reference_check(torch, step, params, batch, cfg, seed):
+    """On the batch's first two sequences, the bf16 model's loss and
+    grads against a float32 copy of the same weights run through the
+    plain (composed) attention branch: loss within REF_LOSS_RTOL, and
+    cosine similarity at least REF_GRAD_COS for the qkv_proj and fc_in
+    weight grads of the first and last layer."""
+    import dataclasses
+
+    from paddle_tpu_torch.distributed import SpmdTrainStep, gpt_loss_fn
+    from paddle_tpu_torch.models.gpt import GPTForPretraining
+    from paddle_tpu_torch.optimizer import AdamW
+
+    two = {k: v[:2] for k, v in batch.items()}
+    last = cfg.num_hidden_layers - 1
+    names = [f"gpt.h.{i}.{m}.weight" for i in (0, last)
+             for m in ("attn.qkv_proj", "mlp.fc_in")]
+    loss, grads = step.loss_and_grads(params, two, 0)
+    grads = {n: grads[n].float() for n in names}
+    ref = GPTForPretraining(dataclasses.replace(cfg, use_flash_attention=False),
+                            dtype="float32", seed=seed)
+    ref.train()
+    ref_params = dict(ref.named_parameters())
+    with torch.no_grad():
+        for n, p in ref_params.items():
+            p.copy_(params[n])
+    ref_step = SpmdTrainStep(ref, gpt_loss_fn, AdamW())
+    ref_loss, ref_grads = ref_step.loss_and_grads(ref_params, two, 0)
+    ref_grads = {n: ref_grads[n] for n in names}
+    rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+    cos = {n: torch.nn.functional.cosine_similarity(
+        grads[n].flatten(), ref_grads[n].flatten(), dim=0).item()
+        for n in names}
+    del ref, ref_params, ref_step, ref_grads, grads
+    torch.cuda.empty_cache()
+    check(rel <= REF_LOSS_RTOL, f"bf16 loss {loss.item()} vs float32 "
+          f"{ref_loss.item()}: relative difference {rel}")
+    check(min(cos.values()) >= REF_GRAD_COS, f"grad cosine {cos}")
+    print(f"  float32 reference (plain attention, 2 sequences): loss "
+          f"{loss.item():.5f} vs {ref_loss.item():.5f} (rel {rel:.2e} <= "
+          f"{REF_LOSS_RTOL}); grad cosine "
+          + ", ".join(f"{n[6:-7]} {c:.5f}" for n, c in cos.items())
+          + f" (>= {REF_GRAD_COS})  ok")
 
 
 def main(argv=None) -> int:
@@ -403,13 +744,15 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t:.1f} s")
 
     print("[3] kernel phase")
-    record = kernel_phase(torch, pa)
-
+    records = [kernel_phase(torch, pa), *flash_kernel_phase(torch)]
     print("[4] engine phase")
-    counts = engine_phase(torch, args.seed)
-    record["launches"] = counts[record["name"]]
+    launches = engine_phase(torch, args.seed)
+    print("[5] training phase")
+    launches.update(train_phase(torch, args.seed, card))
+    for rec in records:
+        rec["launches"] = launches[rec["name"]]
 
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,7 +17,8 @@ from __future__ import annotations
 import torch
 
 #: launches per kernel since the last `reset_kernel_launch_counts`
-_LAUNCHES = {"paged_attention": 0}
+_LAUNCHES = {"paged_attention": 0, "flash_attention_qkv_fwd": 0,
+             "flash_attention_qkv_bwd": 0}
 
 
 def kernel_launch_counts() -> dict:
@@ -45,5 +46,23 @@ def runs_plain(t: torch.Tensor, kernel: str) -> bool:
     raise RuntimeError(f"{kernel}: no kernel for device {t.device}")
 
 
+def flash_attention_qkv_enabled(qkv, n_heads, attn_mask, dropout_p) -> bool:
+    """Gate of the pair-major qkv flash path, the reference's own
+    (``paddle_tpu/kernels/__init__.py:188-213`` with Pallas available):
+    ``qkv [B, S, 3*H*D]``, no mask, ``0 <= dropout_p < 1``,
+    ``S % 128 == 0``, and ``packed_supported`` (``flash_attention.py:
+    1183``: ``d in (64, 128)``, even H, ``S <= 2048``). It does not look
+    at the device: on the CPU the flash branch runs the plain version."""
+    if attn_mask is not None:
+        return False
+    if not 0.0 <= dropout_p < 1.0:
+        return False
+    if qkv.dim() != 3 or qkv.shape[-1] % (3 * n_heads):
+        return False
+    s, d = qkv.shape[1], qkv.shape[-1] // (3 * n_heads)
+    return (s % 128 == 0 and s <= 2048 and d in (64, 128)
+            and n_heads % 2 == 0)
+
+
 __all__ = ["kernel_launch_counts", "reset_kernel_launch_counts",
-           "count_launch", "runs_plain"]
+           "count_launch", "runs_plain", "flash_attention_qkv_enabled"]

@@ -1,0 +1,1065 @@
+// Pair-major qkv flash attention for Hopper (sm_90a), plain C interface.
+//
+// Replaces the TPU kernels paddle_tpu/kernels/flash_attention.py:849
+// `_fwd_qkv_kernel` (launched by `_fwd_qkv`, :905) and :876
+// `_bwd_qkv_kernel` (launched by `_bwd_qkv`, :936).
+//
+// What they compute, as the TPU kernels do (`_packed_head_attn` :821-837,
+// `_packed_head_attn_bwd` :488-533): the input is the fused projection
+// qkv [B,S,3*H*D] in PAIR-MAJOR packing, read as it is: pair p's q at
+// columns 6Dp + [0,2D), k at 6Dp + [2D,4D), v at 6Dp + [4D,6D), head h of
+// the pair at offset hD inside each. Scores are q.k * scale in f32
+// (scale = 1/sqrt(D), passed in), causal-masked to -1e30 (not -inf). The
+// forward writes o [B,S,H*D] in the input dtype and lse [B,H,S] in f32:
+// l sums the RAW p, o = (p*keep).v / max(l, 1e-30), lse = m +
+// log(max(l, 1e-30)), and p*keep is rounded to the input dtype before the
+// product. The backward recomputes p = exp(s - lse) and, with delta =
+// rowsum(dO*O) in f32, forms dv = (p*keep)^T dO, dp = (dO v^T)*keep,
+// ds = p*(dp - delta)*scale rounded to the input dtype, dk = ds^T q,
+// dq = ds k, written pair-major into one dqkv [B,S,3*H*D].
+//
+// Dropout: keep/scale is the reference's interpret-mode hash
+// (`_hash_keep_scale`, :101-116) of (seed, (b, pair, head), global query
+// row, global key column), computed per element from global coordinates in
+// both passes, so the masks agree bit for bit with the plain version and
+// with paddle_tpu's interpret mode. (On the TPU itself the reference draws
+// from the hardware PRNG, which nothing can reproduce.)
+//
+// How it differs from the TPU kernels: those hold a whole sequence per
+// (b, pair) block in VMEM (s <= 2048). Here every block owns one 64-row
+// tile and streams the other side through shared memory:
+// - forward: one block per (b, head, 64-query tile), K/V tiles streamed,
+//   online softmax (running max and sum, accumulator rescaled), causal
+//   tiles past the diagonal skipped;
+// - backward: a pre-pass for delta, a dk/dv pass (block per 64-key tile,
+//   looping over the query tiles at or after it) and a dq pass (block per
+//   query tile, looping over the key tiles up to it), both recomputing P
+//   from lse. S and dP are thus computed twice (7 tile products where the
+//   TPU's one-block backward does 5).
+// Two implementations of that design share the contract:
+// - bf16 (the training path): the products on the tensor cores with
+//   mma.sync m16n8k16 (bf16 in, f32 accumulate), 4 warps of 16 rows, bf16
+//   tiles in shared memory (operands that are needed transposed are stored
+//   a second time, transposed), the scores kept in registers and turned
+//   into the next product's operand there;
+// - f32: the products on f32 FMAs from shared memory (padded rows so that
+//   row and column reads hit distinct banks), 256 threads of 4 x (D/16)
+//   outputs each: the tensor cores have no exact f32 mode.
+//
+// Bound on the H100: at the training shape (B8 S1024 H16 D128, causal,
+// bf16) the forward moves 135 MB (qkv in, o and lse out; 0.040 ms at 3.35
+// TB/s) for 4*B*H*S^2*D/2 = 34.4 GFLOP (0.035 ms at 989 TFLOP/s): memory
+// and compute are close, and at S=2048 the products dominate; the backward
+// is bound by its 85.9 GFLOP (0.087 ms). The design answers the products
+// with the tensor cores and never writes the [S,S] scores out; what it
+// leaves is latency: no copy/compute overlap (cp.async or TMA), mma.sync
+// instead of wgmma, one block of 4 warps per tile, and the recomputed S and
+// dP in the backward (ROADMAP B1).
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+constexpr int kThreads = 256;         // f32 path, delta pre-pass: 16 x 16
+constexpr int kTile = 64;             // query and key tile
+constexpr int kTM = kTile / 16;       // tile rows per thread (ty + 16 i)
+constexpr int kLS = kTile + 1;        // padded row stride of a score tile
+constexpr float kMasked = -1e30f;     // the TPU kernel's _NEG_INF
+
+// `_mix32` (:90-98): uint32 hash-combine of the seed with (b, pair, head).
+__device__ __forceinline__ uint32_t mix32(uint32_t x, uint32_t a, uint32_t b,
+                                          uint32_t c) {
+  x ^= a + 0x9E3779B9u + (x << 6) + (x >> 2);
+  x ^= b + 0x9E3779B9u + (x << 6) + (x >> 2);
+  x ^= c + 0x9E3779B9u + (x << 6) + (x >> 2);
+  return x;
+}
+
+// `_hash_keep_scale` (:101-116) at one (row, col): 1/keep or 0.
+__device__ __forceinline__ float keep_scale(uint32_t base, uint32_t row,
+                                            uint32_t col, float keep,
+                                            float inv_keep) {
+  uint32_t x = base + row * 0x9E3779B1u + col * 0x85EBCA77u;
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  const float u = (float)(x >> 8) * 5.9604644775390625e-08f;  // 2^-24
+  return u < keep ? inv_keep : 0.f;
+}
+
+struct Geometry {
+  int b, hg, pair, hh;
+  int64_t ld3;       // row stride of qkv / dqkv: 3*H*D
+  int64_t ld;        // row stride of o / do: H*D
+  int64_t qcol;      // this head's q column; k at +2D, v at +4D
+};
+
+template <int D>
+__device__ __forceinline__ Geometry geometry(int H) {
+  Geometry g;
+  g.hg = blockIdx.y;
+  g.b = blockIdx.z;
+  g.pair = g.hg >> 1;
+  g.hh = g.hg & 1;
+  g.ld = (int64_t)H * D;
+  g.ld3 = 3 * g.ld;
+  g.qcol = (int64_t)g.pair * 6 * D + g.hh * D;
+  return g;
+}
+
+// ------------------------------------------------------- f32: plain FMAs
+// A [64, D] f32 tile (rows `ld` elements apart in global memory) into
+// shared memory with row stride D + 1, 16 bytes a load.
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          int64_t ld) {
+  constexpr int kPerRow = D / 4;
+  for (int i = threadIdx.x; i < kTile * kPerRow; i += kThreads) {
+    const int r = i / kPerRow, c = (i % kPerRow) * 4;
+    const float4 v = *reinterpret_cast<const float4*>(src + r * ld + c);
+    float* d = dst + r * (D + 1) + c;
+    d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
+  }
+}
+
+// acc[i][j] += sum_k A(ty + 16i, k) * B(k, tx + 16j), A and B in shared
+// memory with element (m, k) of A at A[m*SAM + k*SAK] and (k, n) of B at
+// B[k*SBK + n*SBN]. With the padded strides every warp reads at most two
+// addresses of A (a broadcast) and 16 distinct banks of B.
+template <int TN, int K, int SAM, int SAK, int SBK, int SBN>
+__device__ __forceinline__ void tile_product(float (&acc)[kTM][TN],
+                                             const float* __restrict__ A,
+                                             const float* __restrict__ B,
+                                             int ty, int tx) {
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    float a[kTM], b[TN];
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) a[i] = A[(ty + 16 * i) * SAM + k * SAK];
+#pragma unroll
+    for (int j = 0; j < TN; ++j) b[j] = B[k * SBK + (tx + 16 * j) * SBN];
+#pragma unroll
+    for (int i = 0; i < kTM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  }
+}
+
+// Reductions over the 16 threads of one tile row (one half-warp).
+__device__ __forceinline__ float row_max(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const float* __restrict__ qkv,
+                 const int32_t* __restrict__ seed, float* __restrict__ out,
+                 float* __restrict__ lse, int S, int H, int causal,
+                 int use_drop, float keep, float scale) {
+  constexpr int LD = D + 1, TD = D / 16;
+  extern __shared__ float smem[];
+  float* Qs = smem;
+  float* Ks = Qs + kTile * LD;
+  float* Vs = Ks + kTile * LD;
+  float* Ps = Vs + kTile * LD;
+
+  const Geometry g = geometry<D>(H);
+  const int nq = S / kTile;
+  const int qt = nq - 1 - blockIdx.x;    // the longest causal rows first
+  const int q0 = qt * kTile;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const float* base = qkv + (int64_t)g.b * S * g.ld3;
+  const uint32_t hbase =
+      use_drop ? mix32((uint32_t)seed[0], g.b, g.pair, g.hh) : 0u;
+  const float inv_keep = 1.0f / keep;
+
+  load_tile<D>(Qs, base + (int64_t)q0 * g.ld3 + g.qcol, g.ld3);
+  float m[kTM], l[kTM], acc[kTM][TD];
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    m[i] = kMasked;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < TD; ++j) acc[i][j] = 0.f;
+  }
+
+  const int nk = causal ? qt + 1 : nq;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * kTile;
+    __syncthreads();  // the previous K/V/P tiles are consumed
+    load_tile<D>(Ks, base + (int64_t)k0 * g.ld3 + g.qcol + 2 * D, g.ld3);
+    load_tile<D>(Vs, base + (int64_t)k0 * g.ld3 + g.qcol + 4 * D, g.ld3);
+    __syncthreads();
+    float s[kTM][4];
+#pragma unroll
+    for (int i = 0; i < kTM; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    tile_product<4, D, LD, 1, 1, LD>(s, Qs, Ks, ty, tx);
+    const bool diag = causal && kt == qt;
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) {
+      const int r = ty + 16 * i;
+      float mx = kMasked;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        s[i][j] = (diag && c > r) ? kMasked : s[i][j] * scale;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], row_max(mx));
+      const float alpha = expf(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        float p = expf(s[i][j] - m_new);
+        sum += p;
+        if (use_drop) p *= keep_scale(hbase, q0 + r, k0 + c, keep, inv_keep);
+        Ps[r * kLS + c] = p;
+      }
+      l[i] = l[i] * alpha + row_sum(sum);
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < TD; ++j) acc[i][j] *= alpha;
+    }
+    __syncthreads();
+    tile_product<TD, kTile, kLS, 1, LD, 1>(acc, Ps, Vs, ty, tx);
+  }
+
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    const int r = ty + 16 * i;
+    const float lc = fmaxf(l[i], 1e-30f);
+    float* orow =
+        out + ((int64_t)g.b * S + q0 + r) * g.ld + (int64_t)g.hg * D;
+#pragma unroll
+    for (int j = 0; j < TD; ++j) orow[tx + 16 * j] = acc[i][j] / lc;
+    if (tx == 0)
+      lse[((int64_t)g.b * H + g.hg) * S + q0 + r] = m[i] + logf(lc);
+  }
+}
+
+// The scores of one (query tile, key tile) pair turned into P*keep and
+// dS in shared memory. s and dp hold
+// Q K^T and dO V^T of the tile in the (ty + 16i, tx + 16j) layout.
+__device__ __forceinline__ void probs_and_dscores(
+    const float (&s)[kTM][4], const float (&dp)[kTM][4], const float* lse_r,
+    const float* delta_r, float* Ps, float* dSs, int q0, int k0, bool diag,
+    float scale, int use_drop, uint32_t hbase, float keep, float inv_keep,
+    int ty, int tx) {
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    const int r = ty + 16 * i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = tx + 16 * j;
+      const float sv = (diag && c > r) ? kMasked : s[i][j] * scale;
+      const float p = expf(sv - lse_r[i]);
+      const float ks =
+          use_drop ? keep_scale(hbase, q0 + r, k0 + c, keep, inv_keep) : 1.f;
+      if (Ps != nullptr) Ps[r * kLS + c] = p * ks;
+      dSs[r * kLS + c] = p * (dp[i][j] * ks - delta_r[i]) * scale;
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_kernel(const float* __restrict__ qkv,
+                      const float* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      const int32_t* __restrict__ seed,
+                      float* __restrict__ dqkv, int S, int H, int causal,
+                      int use_drop, float keep, float scale) {
+  constexpr int LD = D + 1, TD = D / 16;
+  extern __shared__ float smem[];
+  float* Ks = smem;
+  float* Vs = Ks + kTile * LD;
+  float* Qs = Vs + kTile * LD;
+  float* dOs = Qs + kTile * LD;
+  float* Ps = dOs + kTile * LD;
+  float* dSs = Ps + kTile * kLS;
+
+  const Geometry g = geometry<D>(H);
+  const int nq = S / kTile;
+  const int kt = blockIdx.x;             // the most query tiles first
+  const int k0 = kt * kTile;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const float* base = qkv + (int64_t)g.b * S * g.ld3;
+  const float* dbase = dout + (int64_t)g.b * S * g.ld + (int64_t)g.hg * D;
+  const float* lse_h = lse + ((int64_t)g.b * H + g.hg) * S;
+  const float* delta_h = delta + ((int64_t)g.b * H + g.hg) * S;
+  const uint32_t hbase =
+      use_drop ? mix32((uint32_t)seed[0], g.b, g.pair, g.hh) : 0u;
+  const float inv_keep = 1.0f / keep;
+
+  load_tile<D>(Ks, base + (int64_t)k0 * g.ld3 + g.qcol + 2 * D, g.ld3);
+  load_tile<D>(Vs, base + (int64_t)k0 * g.ld3 + g.qcol + 4 * D, g.ld3);
+  float dk[kTM][TD], dv[kTM][TD];
+#pragma unroll
+  for (int i = 0; i < kTM; ++i)
+#pragma unroll
+    for (int j = 0; j < TD; ++j) dk[i][j] = dv[i][j] = 0.f;
+
+  for (int qt = causal ? kt : 0; qt < nq; ++qt) {
+    const int q0 = qt * kTile;
+    __syncthreads();  // the previous Q/dO/P/dS tiles are consumed
+    load_tile<D>(Qs, base + (int64_t)q0 * g.ld3 + g.qcol, g.ld3);
+    load_tile<D>(dOs, dbase + (int64_t)q0 * g.ld, g.ld);
+    __syncthreads();
+    float s[kTM][4], dp[kTM][4], lse_r[kTM], delta_r[kTM];
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) {
+      lse_r[i] = lse_h[q0 + ty + 16 * i];
+      delta_r[i] = delta_h[q0 + ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    }
+    tile_product<4, D, LD, 1, 1, LD>(s, Qs, Ks, ty, tx);
+    tile_product<4, D, LD, 1, 1, LD>(dp, dOs, Vs, ty, tx);
+    probs_and_dscores(s, dp, lse_r, delta_r, Ps, dSs, q0, k0,
+                      causal && qt == kt, scale, use_drop, hbase, keep,
+                      inv_keep, ty, tx);
+    __syncthreads();
+    // dV[k][d] += sum_q Pd[q][k] dO[q][d];  dK[k][d] += sum_q dS[q][k] Q[q][d]
+    tile_product<TD, kTile, 1, kLS, LD, 1>(dv, Ps, dOs, ty, tx);
+    tile_product<TD, kTile, 1, kLS, LD, 1>(dk, dSs, Qs, ty, tx);
+  }
+
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    float* row =
+        dqkv + ((int64_t)g.b * S + k0 + ty + 16 * i) * g.ld3 + g.qcol;
+#pragma unroll
+    for (int j = 0; j < TD; ++j) {
+      row[2 * D + tx + 16 * j] = dk[i][j];
+      row[4 * D + tx + 16 * j] = dv[i][j];
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const float* __restrict__ qkv,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    const int32_t* __restrict__ seed,
+                    float* __restrict__ dqkv, int S, int H, int causal,
+                    int use_drop, float keep, float scale) {
+  constexpr int LD = D + 1, TD = D / 16;
+  extern __shared__ float smem[];
+  float* Qs = smem;
+  float* dOs = Qs + kTile * LD;
+  float* Ks = dOs + kTile * LD;
+  float* Vs = Ks + kTile * LD;
+  float* dSs = Vs + kTile * LD;
+
+  const Geometry g = geometry<D>(H);
+  const int nq = S / kTile;
+  const int qt = nq - 1 - blockIdx.x;    // the longest causal rows first
+  const int q0 = qt * kTile;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const float* base = qkv + (int64_t)g.b * S * g.ld3;
+  const float* lse_h = lse + ((int64_t)g.b * H + g.hg) * S;
+  const float* delta_h = delta + ((int64_t)g.b * H + g.hg) * S;
+  const uint32_t hbase =
+      use_drop ? mix32((uint32_t)seed[0], g.b, g.pair, g.hh) : 0u;
+  const float inv_keep = 1.0f / keep;
+
+  load_tile<D>(Qs, base + (int64_t)q0 * g.ld3 + g.qcol, g.ld3);
+  load_tile<D>(dOs, dout + ((int64_t)g.b * S + q0) * g.ld +
+                           (int64_t)g.hg * D, g.ld);
+  float dq[kTM][TD], lse_r[kTM], delta_r[kTM];
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    lse_r[i] = lse_h[q0 + ty + 16 * i];
+    delta_r[i] = delta_h[q0 + ty + 16 * i];
+#pragma unroll
+    for (int j = 0; j < TD; ++j) dq[i][j] = 0.f;
+  }
+
+  const int nk = causal ? qt + 1 : nq;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * kTile;
+    __syncthreads();  // the previous K/V/dS tiles are consumed
+    load_tile<D>(Ks, base + (int64_t)k0 * g.ld3 + g.qcol + 2 * D, g.ld3);
+    load_tile<D>(Vs, base + (int64_t)k0 * g.ld3 + g.qcol + 4 * D, g.ld3);
+    __syncthreads();
+    float s[kTM][4], dp[kTM][4];
+#pragma unroll
+    for (int i = 0; i < kTM; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    tile_product<4, D, LD, 1, 1, LD>(s, Qs, Ks, ty, tx);
+    tile_product<4, D, LD, 1, 1, LD>(dp, dOs, Vs, ty, tx);
+    probs_and_dscores(s, dp, lse_r, delta_r, nullptr, dSs, q0, k0,
+                      causal && qt == kt, scale, use_drop, hbase, keep,
+                      inv_keep, ty, tx);
+    __syncthreads();
+    // dQ[q][d] += sum_k dS[q][k] K[k][d]
+    tile_product<TD, kTile, kLS, 1, LD, 1>(dq, dSs, Ks, ty, tx);
+  }
+
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    float* row =
+        dqkv + ((int64_t)g.b * S + q0 + ty + 16 * i) * g.ld3 + g.qcol;
+#pragma unroll
+    for (int j = 0; j < TD; ++j) row[tx + 16 * j] = dq[i][j];
+  }
+}
+
+// ------------------------------------------------- both: the delta pre-pass
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+// delta[b, h, s] = sum_d dO * O, one warp per (b, s, h) row.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_delta_kernel(const T* __restrict__ dout, const T* __restrict__ o,
+                   float* __restrict__ delta, int B, int S, int H) {
+  const int64_t row =
+      (int64_t)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  if (row >= (int64_t)B * S * H) return;
+  const int lane = threadIdx.x & 31;
+  const int hg = (int)(row % H);
+  const int64_t bs = row / H;
+  const int64_t off = bs * H * D + (int64_t)hg * D;
+  float acc = 0.f;
+#pragma unroll
+  for (int d = lane; d < D; d += 32)
+    acc += to_f32(dout[off + d]) * to_f32(o[off + d]);
+#pragma unroll
+  for (int k = 16; k > 0; k >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, k);
+  if (lane == 0) {
+    const int64_t b = bs / S, s = bs % S;
+    delta[(b * H + hg) * S + s] = acc;
+  }
+}
+
+// ------------------------------------------------- bf16: the tensor cores
+// mma.sync m16n8k16, bf16 in, f32 accumulate. Each of 4 warps owns 16
+// rows of its block's 64-row tile. Operands come from bf16 tiles in
+// shared memory whose contraction dimension is contiguous, rows padded by
+// 8 elements so the 8 rows x 4 words of a fragment load hit 32 distinct
+// banks; an operand needed with its other dimension contiguous is stored
+// a second time, transposed. The f32 results of one product become the
+// bf16 A operand of the next in registers (P for P.V, dS for dS.K).
+using bf16 = __nv_bfloat16;
+constexpr int kThreadsTC = 128;       // 4 warps x 16 rows
+constexpr int kPad = 8;               // row padding of bf16 tiles
+constexpr int kBQ = 32;               // query rows per step of the dk/dv pass
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+// A fragment (16 x 16) of a tile stored [m][k] with row stride ld.
+__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* t, int ld,
+                                       int m0, int k0, int gi, int qi) {
+  const bf16* p = t + (m0 + gi) * ld + k0 + 2 * qi;
+  a[0] = ld32(p);
+  a[1] = ld32(p + 8 * ld);
+  a[2] = ld32(p + 8);
+  a[3] = ld32(p + 8 * ld + 8);
+}
+// B fragment (k 16 x n 8) of a tile stored [n][k] with row stride ld.
+__device__ __forceinline__ void frag_b(uint32_t (&b)[2], const bf16* t, int ld,
+                                       int n0, int k0, int gi, int qi) {
+  const bf16* p = t + (n0 + gi) * ld + k0 + 2 * qi;
+  b[0] = ld32(p);
+  b[1] = ld32(p + 8);
+}
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+// The A fragment of columns [16k, 16k + 16) of a 16-row f32 result held as
+// C fragments c[n] (n-tiles of 8 columns), rounded to bf16.
+template <int N>
+__device__ __forceinline__ void as_a(uint32_t (&a)[4], const float (&c)[N][4],
+                                     int k) {
+  a[0] = pack_bf16(c[2 * k][0], c[2 * k][1]);
+  a[1] = pack_bf16(c[2 * k][2], c[2 * k][3]);
+  a[2] = pack_bf16(c[2 * k + 1][0], c[2 * k + 1][1]);
+  a[3] = pack_bf16(c[2 * k + 1][2], c[2 * k + 1][3]);
+}
+// Reductions over the 4 threads that share a fragment row.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+// ROWS x D from global (row stride ld) into shared [ROWS][D + kPad].
+template <int D, int ROWS>
+__device__ __forceinline__ void copy_tile(bf16* dst, const bf16* src,
+                                          int64_t ld) {
+  constexpr int kPer = D / 8;
+  for (int i = threadIdx.x; i < ROWS * kPer; i += kThreadsTC) {
+    const int r = i / kPer, c = (i % kPer) * 8;
+    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + c) =
+        *reinterpret_cast<const uint4*>(src + r * ld + c);
+  }
+}
+// The same tile transposed into shared [D][ROWS + kPad]; a warp takes 32
+// rows of one 8-column chunk, so its stores land on consecutive halves.
+template <int D, int ROWS>
+__device__ __forceinline__ void copy_tile_t(bf16* dst, const bf16* src,
+                                            int64_t ld) {
+  for (int i = threadIdx.x; i < ROWS * (D / 8); i += kThreadsTC) {
+    const int r = i % ROWS, c = (i / ROWS) * 8;
+    const uint4 v = *reinterpret_cast<const uint4*>(src + r * ld + c);
+    const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) dst[(c + j) * (ROWS + kPad) + r] = e[j];
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsTC)
+flash_fwd_tc_kernel(const bf16* __restrict__ qkv,
+                    const int32_t* __restrict__ seed, bf16* __restrict__ out,
+                    float* __restrict__ lse, int S, int H, int causal,
+                    int use_drop, float keep, float scale) {
+  constexpr int LD = D + kPad, LT = kTile + kPad, KD = D / 16, ND = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);     // [64][LD]
+  bf16* Ks = Qs + kTile * LD;                        // [64][LD]
+  bf16* Vt = Ks + kTile * LD;                        // [D][LT]
+
+  const Geometry g = geometry<D>(H);
+  const int nq = S / kTile;
+  const int qt = nq - 1 - blockIdx.x;    // the longest causal rows first
+  const int q0 = qt * kTile;
+  const int lane = threadIdx.x & 31, gi = lane >> 2, qi = lane & 3;
+  const int r0 = (threadIdx.x >> 5) * 16;
+  const bf16* base = qkv + (int64_t)g.b * S * g.ld3;
+  const uint32_t hbase =
+      use_drop ? mix32((uint32_t)seed[0], g.b, g.pair, g.hh) : 0u;
+  const float inv_keep = 1.0f / keep;
+
+  copy_tile<D, kTile>(Qs, base + (int64_t)q0 * g.ld3 + g.qcol, g.ld3);
+  __syncthreads();
+  uint32_t qa[KD][4];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk) frag_a(qa[kk], Qs, LD, r0, kk * 16, gi, qi);
+  float o[ND][4], m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+
+  const int nk = causal ? qt + 1 : nq;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * kTile;
+    __syncthreads();  // the previous K/V tiles are consumed
+    copy_tile<D, kTile>(Ks, base + (int64_t)k0 * g.ld3 + g.qcol + 2 * D, g.ld3);
+    copy_tile_t<D, kTile>(Vt, base + (int64_t)k0 * g.ld3 + g.qcol + 4 * D,
+                          g.ld3);
+    __syncthreads();
+    float s[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        uint32_t b[2];
+        frag_b(b, Ks, LD, n * 8, kk * 16, gi, qi);
+        mma(s[n], qa[kk], b);
+      }
+    const bool diag = causal && kt == qt;
+    float mx[2] = {kMasked, kMasked};
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = r0 + gi + 8 * (e >> 1), c = n * 8 + 2 * qi + (e & 1);
+        s[n][e] = (diag && c > r) ? kMasked : s[n][e] * scale;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+      }
+    float alpha[2], m_new[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m_new[h] = fmaxf(m[h], quad_max(mx[h]));
+      alpha[h] = expf(m[h] - m_new[h]);
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = expf(s[n][e] - m_new[e >> 1]);
+        sum[e >> 1] += p;
+        if (use_drop)
+          p *= keep_scale(hbase, q0 + r0 + gi + 8 * (e >> 1),
+                          k0 + n * 8 + 2 * qi + (e & 1), keep, inv_keep);
+        s[n][e] = p;
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] = l[h] * alpha[h] + quad_sum(sum[h]);
+      m[h] = m_new[h];
+    }
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      uint32_t pa[4];
+      as_a(pa, s, kk);
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        uint32_t b[2];
+        frag_b(b, Vt, LT, n * 8, kk * 16, gi, qi);
+        mma(o[n], pa, b);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + r0 + gi + 8 * h;
+    const float lc = fmaxf(l[h], 1e-30f);
+    bf16* orow = out + ((int64_t)g.b * S + row) * g.ld + (int64_t)g.hg * D;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * qi) =
+          pack_bf16(o[n][2 * h] / lc, o[n][2 * h + 1] / lc);
+    if (qi == 0) lse[((int64_t)g.b * H + g.hg) * S + row] = m[h] + logf(lc);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsTC)
+flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ qkv,
+                         const bf16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         const int32_t* __restrict__ seed,
+                         bf16* __restrict__ dqkv, int S, int H, int causal,
+                         int use_drop, float keep, float scale) {
+  constexpr int LD = D + kPad, LQ = kBQ + kPad, KD = D / 16, ND = D / 8,
+                NQ = kBQ / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);     // [64][LD]
+  bf16* Vs = Ks + kTile * LD;                        // [64][LD]
+  bf16* Qs = Vs + kTile * LD;                        // [kBQ][LD]
+  bf16* dOs = Qs + kBQ * LD;                         // [kBQ][LD]
+  bf16* Qt = dOs + kBQ * LD;                         // [D][LQ]
+  bf16* dOt = Qt + D * LQ;                           // [D][LQ]
+  float* lse_s = reinterpret_cast<float*>(dOt + D * LQ);
+  float* delta_s = lse_s + kBQ;
+
+  const Geometry g = geometry<D>(H);
+  const int k0 = blockIdx.x * kTile;     // the most query tiles first
+  const int lane = threadIdx.x & 31, gi = lane >> 2, qi = lane & 3;
+  const int r0 = (threadIdx.x >> 5) * 16;
+  const bf16* base = qkv + (int64_t)g.b * S * g.ld3;
+  const bf16* dbase = dout + (int64_t)g.b * S * g.ld + (int64_t)g.hg * D;
+  const float* lse_h = lse + ((int64_t)g.b * H + g.hg) * S;
+  const float* delta_h = delta + ((int64_t)g.b * H + g.hg) * S;
+  const uint32_t hbase =
+      use_drop ? mix32((uint32_t)seed[0], g.b, g.pair, g.hh) : 0u;
+  const float inv_keep = 1.0f / keep;
+
+  copy_tile<D, kTile>(Ks, base + (int64_t)k0 * g.ld3 + g.qcol + 2 * D, g.ld3);
+  copy_tile<D, kTile>(Vs, base + (int64_t)k0 * g.ld3 + g.qcol + 4 * D, g.ld3);
+  float dk[ND][4], dv[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  for (int q0 = causal ? k0 : 0; q0 < S; q0 += kBQ) {
+    __syncthreads();  // the previous Q/dO tiles are consumed
+    copy_tile<D, kBQ>(Qs, base + (int64_t)q0 * g.ld3 + g.qcol, g.ld3);
+    copy_tile_t<D, kBQ>(Qt, base + (int64_t)q0 * g.ld3 + g.qcol, g.ld3);
+    copy_tile<D, kBQ>(dOs, dbase + (int64_t)q0 * g.ld, g.ld);
+    copy_tile_t<D, kBQ>(dOt, dbase + (int64_t)q0 * g.ld, g.ld);
+    if (threadIdx.x < kBQ) {
+      lse_s[threadIdx.x] = lse_h[q0 + threadIdx.x];
+      delta_s[threadIdx.x] = delta_h[q0 + threadIdx.x];
+    }
+    __syncthreads();
+    // S^T = K Q^T and dP^T = V dO^T: rows are keys, columns queries
+    float st[NQ][4], dpt[NQ][4];
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t ak[4], av[4];
+      frag_a(ak, Ks, LD, r0, kk * 16, gi, qi);
+      frag_a(av, Vs, LD, r0, kk * 16, gi, qi);
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+        uint32_t b[2];
+        frag_b(b, Qs, LD, n * 8, kk * 16, gi, qi);
+        mma(st[n], ak, b);
+        frag_b(b, dOs, LD, n * 8, kk * 16, gi, qi);
+        mma(dpt[n], av, b);
+      }
+    }
+    const bool mask = causal && q0 < k0 + kTile;
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + r0 + gi + 8 * (e >> 1);
+        const int ql = n * 8 + 2 * qi + (e & 1), q = q0 + ql;
+        const float sv = (mask && key > q) ? kMasked : st[n][e] * scale;
+        const float p = expf(sv - lse_s[ql]);
+        const float ks =
+            use_drop ? keep_scale(hbase, q, key, keep, inv_keep) : 1.f;
+        st[n][e] = p * ks;                                      // P*keep
+        dpt[n][e] = p * (dpt[n][e] * ks - delta_s[ql]) * scale;  // dS
+      }
+    // dV += (P*keep)^T dO, dK += dS^T Q (contraction over the queries)
+#pragma unroll
+    for (int kk = 0; kk < kBQ / 16; ++kk) {
+      uint32_t pa[4], da[4];
+      as_a(pa, st, kk);
+      as_a(da, dpt, kk);
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        uint32_t b[2];
+        frag_b(b, dOt, LQ, n * 8, kk * 16, gi, qi);
+        mma(dv[n], pa, b);
+        frag_b(b, Qt, LQ, n * 8, kk * 16, gi, qi);
+        mma(dk[n], da, b);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    bf16* row = dqkv + ((int64_t)g.b * S + k0 + r0 + gi + 8 * h) * g.ld3 +
+                g.qcol;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      *reinterpret_cast<uint32_t*>(row + 2 * D + n * 8 + 2 * qi) =
+          pack_bf16(dk[n][2 * h], dk[n][2 * h + 1]);
+      *reinterpret_cast<uint32_t*>(row + 4 * D + n * 8 + 2 * qi) =
+          pack_bf16(dv[n][2 * h], dv[n][2 * h + 1]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsTC)
+flash_bwd_dq_tc_kernel(const bf16* __restrict__ qkv,
+                       const bf16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       const int32_t* __restrict__ seed,
+                       bf16* __restrict__ dqkv, int S, int H, int causal,
+                       int use_drop, float keep, float scale) {
+  constexpr int LD = D + kPad, LT = kTile + kPad, KD = D / 16, ND = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);     // [64][LD]
+  bf16* dOs = Qs + kTile * LD;                       // [64][LD]
+  bf16* Ks = dOs + kTile * LD;                       // [64][LD]
+  bf16* Vs = Ks + kTile * LD;                        // [64][LD]
+  bf16* Kt = Vs + kTile * LD;                        // [D][LT]
+
+  const Geometry g = geometry<D>(H);
+  const int nq = S / kTile;
+  const int qt = nq - 1 - blockIdx.x;    // the longest causal rows first
+  const int q0 = qt * kTile;
+  const int lane = threadIdx.x & 31, gi = lane >> 2, qi = lane & 3;
+  const int r0 = (threadIdx.x >> 5) * 16;
+  const bf16* base = qkv + (int64_t)g.b * S * g.ld3;
+  const float* lse_h = lse + ((int64_t)g.b * H + g.hg) * S;
+  const float* delta_h = delta + ((int64_t)g.b * H + g.hg) * S;
+  const uint32_t hbase =
+      use_drop ? mix32((uint32_t)seed[0], g.b, g.pair, g.hh) : 0u;
+  const float inv_keep = 1.0f / keep;
+
+  copy_tile<D, kTile>(Qs, base + (int64_t)q0 * g.ld3 + g.qcol, g.ld3);
+  copy_tile<D, kTile>(dOs, dout + ((int64_t)g.b * S + q0) * g.ld +
+                               (int64_t)g.hg * D, g.ld);
+  float lse_r[2], delta_r[2], dq[ND][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    lse_r[h] = lse_h[q0 + r0 + gi + 8 * h];
+    delta_r[h] = delta_h[q0 + r0 + gi + 8 * h];
+  }
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+
+  const int nk = causal ? qt + 1 : nq;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * kTile;
+    __syncthreads();  // the previous K/V tiles are consumed
+    copy_tile<D, kTile>(Ks, base + (int64_t)k0 * g.ld3 + g.qcol + 2 * D, g.ld3);
+    copy_tile<D, kTile>(Vs, base + (int64_t)k0 * g.ld3 + g.qcol + 4 * D, g.ld3);
+    copy_tile_t<D, kTile>(Kt, base + (int64_t)k0 * g.ld3 + g.qcol + 2 * D,
+                          g.ld3);
+    __syncthreads();
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t aq[4], ad[4];
+      frag_a(aq, Qs, LD, r0, kk * 16, gi, qi);
+      frag_a(ad, dOs, LD, r0, kk * 16, gi, qi);
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        uint32_t b[2];
+        frag_b(b, Ks, LD, n * 8, kk * 16, gi, qi);
+        mma(s[n], aq, b);
+        frag_b(b, Vs, LD, n * 8, kk * 16, gi, qi);
+        mma(dp[n], ad, b);
+      }
+    }
+    const bool diag = causal && kt == qt;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = r0 + gi + 8 * (e >> 1), c = n * 8 + 2 * qi + (e & 1);
+        const float sv = (diag && c > r) ? kMasked : s[n][e] * scale;
+        const float p = expf(sv - lse_r[e >> 1]);
+        const float ks = use_drop ? keep_scale(hbase, q0 + r, k0 + c, keep,
+                                               inv_keep)
+                                  : 1.f;
+        s[n][e] = p * (dp[n][e] * ks - delta_r[e >> 1]) * scale;   // dS
+      }
+    // dQ += dS K (contraction over the keys)
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      uint32_t da[4];
+      as_a(da, s, kk);
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        uint32_t b[2];
+        frag_b(b, Kt, LT, n * 8, kk * 16, gi, qi);
+        mma(dq[n], da, b);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    bf16* row = dqkv + ((int64_t)g.b * S + q0 + r0 + gi + 8 * h) * g.ld3 +
+                g.qcol;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<uint32_t*>(row + n * 8 + 2 * qi) =
+          pack_bf16(dq[n][2 * h], dq[n][2 * h + 1]);
+  }
+}
+
+template <int D>
+constexpr size_t fwd_tc_smem() {
+  return (2 * kTile * (D + kPad) + D * (kTile + kPad)) * sizeof(bf16);
+}
+template <int D>
+constexpr size_t dkdv_tc_smem() {
+  return (2 * kTile * (D + kPad) + 2 * kBQ * (D + kPad) +
+          2 * D * (kBQ + kPad)) * sizeof(bf16) + 2 * kBQ * sizeof(float);
+}
+template <int D>
+constexpr size_t dq_tc_smem() {
+  return (4 * kTile * (D + kPad) + D * (kTile + kPad)) * sizeof(bf16);
+}
+
+template <int D>
+constexpr size_t fwd_smem() {
+  return (3 * kTile * (D + 1) + kTile * kLS) * sizeof(float);
+}
+template <int D>
+constexpr size_t dkdv_smem() {
+  return (4 * kTile * (D + 1) + 2 * kTile * kLS) * sizeof(float);
+}
+template <int D>
+constexpr size_t dq_smem() {
+  return (4 * kTile * (D + 1) + kTile * kLS) * sizeof(float);
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <typename T, int D>
+cudaError_t launch_fwd(const void* qkv, const void* seed, void* out, void* lse,
+                       int B, int S, int H, int causal, int use_drop,
+                       float keep, float scale, cudaStream_t stream) {
+  const dim3 grid(S / kTile, H, B);
+  const int32_t* sd = static_cast<const int32_t*>(seed);
+  float* l = static_cast<float*>(lse);
+  cudaError_t err;
+  if constexpr (std::is_same<T, bf16>::value) {
+    auto k = flash_fwd_tc_kernel<D>;
+    if ((err = allow_smem(k, fwd_tc_smem<D>())) != cudaSuccess) return err;
+    k<<<grid, kThreadsTC, fwd_tc_smem<D>(), stream>>>(
+        static_cast<const bf16*>(qkv), sd, static_cast<bf16*>(out), l, S, H,
+        causal, use_drop, keep, scale);
+  } else {
+    auto k = flash_fwd_kernel<D>;
+    if ((err = allow_smem(k, fwd_smem<D>())) != cudaSuccess) return err;
+    k<<<grid, kThreads, fwd_smem<D>(), stream>>>(
+        static_cast<const T*>(qkv), sd, static_cast<T*>(out), l, S, H, causal,
+        use_drop, keep, scale);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_bwd(const void* qkv, const void* dout, const void* o,
+                       const void* lse, const void* seed, void* delta,
+                       void* dqkv, int B, int S, int H, int causal,
+                       int use_drop, float keep, float scale,
+                       cudaStream_t stream) {
+  const T* q = static_cast<const T*>(qkv);
+  const T* d = static_cast<const T*>(dout);
+  const float* l = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  const int32_t* sd = static_cast<const int32_t*>(seed);
+  T* dx = static_cast<T*>(dqkv);
+  const int64_t rows = (int64_t)B * S * H;
+  const int warps = kThreads / 32;
+  flash_delta_kernel<T, D><<<(unsigned)((rows + warps - 1) / warps), kThreads,
+                              0, stream>>>(d, static_cast<const T*>(o), dl, B,
+                                           S, H);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid(S / kTile, H, B);
+  if constexpr (std::is_same<T, bf16>::value) {
+    auto kv = flash_bwd_dkdv_tc_kernel<D>;
+    auto kq = flash_bwd_dq_tc_kernel<D>;
+    if ((err = allow_smem(kv, dkdv_tc_smem<D>())) != cudaSuccess) return err;
+    if ((err = allow_smem(kq, dq_tc_smem<D>())) != cudaSuccess) return err;
+    kv<<<grid, kThreadsTC, dkdv_tc_smem<D>(), stream>>>(
+        q, d, l, dl, sd, dx, S, H, causal, use_drop, keep, scale);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    kq<<<grid, kThreadsTC, dq_tc_smem<D>(), stream>>>(
+        q, d, l, dl, sd, dx, S, H, causal, use_drop, keep, scale);
+  } else {
+    auto kv = flash_bwd_dkdv_kernel<D>;
+    auto kq = flash_bwd_dq_kernel<D>;
+    if ((err = allow_smem(kv, dkdv_smem<D>())) != cudaSuccess) return err;
+    if ((err = allow_smem(kq, dq_smem<D>())) != cudaSuccess) return err;
+    kv<<<grid, kThreads, dkdv_smem<D>(), stream>>>(
+        q, d, l, dl, sd, dx, S, H, causal, use_drop, keep, scale);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    kq<<<grid, kThreads, dq_smem<D>(), stream>>>(
+        q, d, l, dl, sd, dx, S, H, causal, use_drop, keep, scale);
+  }
+  return cudaGetLastError();
+}
+
+bool valid_shape(int B, int S, int H, int D) {
+  return B >= 1 && S >= kTile && S % kTile == 0 && H >= 2 && H % 2 == 0 &&
+         (D == 64 || D == 128);
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (qkv, o and dqkv share it). seed: an
+// int32 on the device, read only when use_drop != 0. keep = 1 - dropout_p
+// and scale = 1/sqrt(D), both rounded to f32 by the caller. Returns the
+// CUDA error of the launch (0 = launched). The caller checks shapes,
+// dtypes, contiguity and 16-byte alignment.
+extern "C" int ptt_flash_qkv_fwd(const void* qkv, const void* seed, void* out,
+                                 void* lse, int B, int S, int H, int D,
+                                 int causal, int use_drop, float keep,
+                                 float scale, int dtype, int device,
+                                 void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!valid_shape(B, S, H, D) || (use_drop && seed == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && D == 64)
+    err = launch_fwd<float, 64>(qkv, seed, out, lse, B, S, H, causal, use_drop,
+                                keep, scale, s);
+  else if (dtype == 0 && D == 128)
+    err = launch_fwd<float, 128>(qkv, seed, out, lse, B, S, H, causal,
+                                 use_drop, keep, scale, s);
+  else if (dtype == 1 && D == 64)
+    err = launch_fwd<__nv_bfloat16, 64>(qkv, seed, out, lse, B, S, H, causal,
+                                        use_drop, keep, scale, s);
+  else if (dtype == 1 && D == 128)
+    err = launch_fwd<__nv_bfloat16, 128>(qkv, seed, out, lse, B, S, H, causal,
+                                         use_drop, keep, scale, s);
+  else
+    err = cudaErrorInvalidValue;
+  return (int)err;
+}
+
+// The backward: delta pre-pass, dk/dv pass, dq pass, on one stream.
+// delta: f32 [B, H, S] scratch allocated by the caller. dqkv is written
+// in full (every q, k and v column of every head).
+extern "C" int ptt_flash_qkv_bwd(const void* qkv, const void* dout,
+                                 const void* o, const void* lse,
+                                 const void* seed, void* delta, void* dqkv,
+                                 int B, int S, int H, int D, int causal,
+                                 int use_drop, float keep, float scale,
+                                 int dtype, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!valid_shape(B, S, H, D) || (use_drop && seed == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && D == 64)
+    err = launch_bwd<float, 64>(qkv, dout, o, lse, seed, delta, dqkv, B, S, H,
+                                causal, use_drop, keep, scale, s);
+  else if (dtype == 0 && D == 128)
+    err = launch_bwd<float, 128>(qkv, dout, o, lse, seed, delta, dqkv, B, S, H,
+                                 causal, use_drop, keep, scale, s);
+  else if (dtype == 1 && D == 64)
+    err = launch_bwd<__nv_bfloat16, 64>(qkv, dout, o, lse, seed, delta, dqkv,
+                                        B, S, H, causal, use_drop, keep, scale,
+                                        s);
+  else if (dtype == 1 && D == 128)
+    err = launch_bwd<__nv_bfloat16, 128>(qkv, dout, o, lse, seed, delta, dqkv,
+                                         B, S, H, causal, use_drop, keep,
+                                         scale, s);
+  else
+    err = cudaErrorInvalidValue;
+  return (int)err;
+}
+
+extern "C" const char* ptt_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

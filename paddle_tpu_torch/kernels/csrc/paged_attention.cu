@@ -10,8 +10,8 @@
 // c / ps, in-page column c % ps) when c <= steps[n] + j and
 // valid_cols[n, c] != 0. Scores are q.k / sqrt(D) in f32; a masked score
 // is -1e30 (not -inf), so a row with no readable column gets the uniform
-// average of the columns it read instead of NaN — parked serving slots,
-// whose block-table rows all name the sentinel page, rely on that.
+// average of every column of its table instead of NaN — parked serving
+// slots, whose block-table rows all name the sentinel page, rely on that.
 // Accumulation is f32 with online softmax; out [N,H,W,D] is written in the
 // query dtype and lse [N,H,W] = m + log(l) in f32.
 //
@@ -21,7 +21,10 @@
 // owns an (n, h) pair (and a tile of up to 4 queries) and loops over that
 // row's pages itself, reading block_table[n, p] directly (no scalar
 // prefetch). It reads only the pages that hold a column <= steps[n]+W-1:
-// pages past the cursor are never loaded.
+// a page past the cursor adds exactly nothing (exp(-1e30 - m) = 0) to a
+// query that has a readable column. A query with none (m still -1e30 at
+// the cursor) gets the TPU kernel's uniform average over every page of
+// the table, so for such a tile the block keeps walking to Pmax.
 //
 // Bound on the H100: memory. Per call it must read the live pages once,
 // at most sum_n ceil((steps[n]+W)/ps)*ps * H * D * 2 (K and V) * bytes, at
@@ -112,7 +115,8 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
 #pragma unroll
   for (int i = 0; i < kPer; ++i) acc[i] = 0.f;
 
-  for (int p = 0; p < n_read; ++p) {
+  int p_end = n_read;
+  for (int p = 0; p < p_end; ++p) {
     const int64_t base = (int64_t)bt[p] * page_stride + (int64_t)h * head_stride;
     for (int c0 = 0; c0 < ps; c0 += chunk) {
       __syncthreads();  // the previous chunk is consumed; q_s/m_s are set
@@ -169,6 +173,13 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
           acc[i] = a;
         }
       }
+    }
+    if (p == n_read - 1) {
+      // m_s was last written before the barrier ahead of the P.V update,
+      // so every thread reads the same values here
+      bool none = false;
+      for (int w = 0; w < wt; ++w) none |= m_s[w] == kMasked;
+      if (none) p_end = pmax;
     }
   }
   __syncthreads();

@@ -14,14 +14,15 @@ bounds it.
   ``paddle_tpu.kernels.paged_attention.paged_decode_attention``
   (:271-305): ``qh [N, H, W, D]`` -> context ``[N, W, H*D]``.
 
-Semantics shared by the kernel and its plain version: query ``j`` of row
-``n`` attends logical column ``c`` when ``c <= steps[n] + j`` and
-``valid_cols[n, c] != 0``; a masked score is ``-1e30``. Only the pages
-that hold a column ``<= steps[n] + W - 1`` are read. A row with at least
-one readable column gets exactly the TPU kernel's result; a row with
-none (a parked serving slot) gets the uniform average of the columns
-it read — finite, and never read by the engine — where the TPU kernel
-averaged over every page of the table.
+Semantics shared by the kernel and its plain version, the TPU kernel's:
+query ``j`` of row ``n`` attends logical column ``c`` when
+``c <= steps[n] + j`` and ``valid_cols[n, c] != 0``; a masked score is
+``-1e30``, so a query with no readable column (a parked serving slot)
+gets the uniform average over every column of its table — finite, and
+never read by the engine. The kernel reads only the pages up to the
+cursor (the rest add exactly nothing) unless a query found no readable
+column there; the plain version is the masked softmax over the whole
+table.
 """
 from __future__ import annotations
 
@@ -131,20 +132,17 @@ def paged_attention_reference(qh, pool_k, pool_v, block_table, steps,
     `gather_pages` view plus the masked softmax, in f32, with the
     kernel's semantics (module docstring). Returns ``(out, lse)``."""
     n, h, w, d = qh.shape
-    ps, pmax = pool_k.shape[2], block_table.shape[1]
+    lp = pool_k.shape[2] * block_table.shape[1]
     dev = qh.device
     view_k = gather_pages(pool_k, block_table).float()   # [N, H, L, D]
     view_v = gather_pages(pool_v, block_table).float()
     s = torch.einsum("nhwd,nhld->nhwl", qh.float(), view_k) / math.sqrt(d)
-    cols = torch.arange(pmax * ps, device=dev)
+    cols = torch.arange(lp, device=dev)
     st = steps.to(dev).long()
     cur = st[:, None] + torch.arange(w, device=dev)[None, :]      # [N, W]
     valid = ((cols[None, None, :] <= cur[:, :, None])
              & (valid_cols.to(dev) != 0)[:, None, :])             # [N, W, L]
     s = s.masked_fill(~valid[:, None], _MASKED)
-    n_read = ((st + w - 1) // ps + 1).clamp(1, pmax)
-    read = cols[None, :] < (n_read * ps)[:, None]                 # [N, L]
-    s = s.masked_fill(~read[:, None, None, :], float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)

@@ -1,4 +1,8 @@
-"""Load a ``paddle_tpu`` GPT state dict into the port's model.
+"""Move GPT weights between ``paddle_tpu`` and the port.
+
+`load_paddle_tpu_state_dict` loads a ``paddle_tpu`` state dict into the
+port's model; `export_paddle_tpu_state_dict` is its inverse (the port's
+parameters as numpy arrays under the reference's names).
 
 The port keeps ``paddle_tpu``'s parameter names and layouts (`models.gpt`:
 ``Linear`` weights stay ``[in, out]``, qkv columns stay pair-major), so
@@ -51,4 +55,25 @@ def load_paddle_tpu_state_dict(model, arrays: dict):
     return model
 
 
-__all__ = ["load_paddle_tpu_state_dict"]
+def export_paddle_tpu_state_dict(model_or_params) -> dict:
+    """The port's parameters as numpy arrays under ``paddle_tpu``'s names,
+    plus the per-layer ``qkv_layout`` markers (1 = pair-major), so that
+    `load_paddle_tpu_state_dict` (or paddle_tpu's ``set_state_dict``)
+    takes them back. ``model_or_params``: a `GPTForPretraining`, or a
+    name -> tensor dict (a train step's params). bfloat16 values come
+    out as float32 (numpy has no bfloat16)."""
+    params = (model_or_params if isinstance(model_or_params, dict)
+              else dict(model_or_params.named_parameters()))
+    layers = {int(n.split(".")[2]) for n in params if n.startswith("gpt.h.")}
+    out = {}
+    for name, t in params.items():
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        out[name] = t.numpy().copy()
+    for i in layers:
+        out[f"gpt.h.{i}.attn.qkv_layout"] = np.asarray(1, np.int32)
+    return out
+
+
+__all__ = ["load_paddle_tpu_state_dict", "export_paddle_tpu_state_dict"]

@@ -1,11 +1,17 @@
-"""GPT decoder-only language models: the serving slice.
+"""GPT decoder-only language models: training and paged serving.
 
-Counterpart: ``paddle_tpu/models/gpt.py``. This slice ports what the
-paged serving engine runs: the masked prompt pass (`GPTModel.prefill`)
-and the one-token-per-slot paged decode step
-(`GPTModel.decode_slots_paged`), plus the weight-tied LM head and the
-cache/pool constructors. Training (the flash-kernel forward and
-backward) is a later slice.
+Counterpart: ``paddle_tpu/models/gpt.py``. Ported so far:
+
+- training (``forward`` of every block, :104-174, :808-874, :951-1025,
+  :1272-1278; `GPTPretrainingCriterion`, :1389-1397): dropout modules,
+  and the attention's flash branch, which feeds the fused qkv projection
+  as it is to `kernels.flash_attention.flash_attention_qkv` (the Hopper
+  kernels on a card) under the reference's own conditions, else the
+  composed branch (`nn.functional.scaled_dot_product_attention`);
+- serving, as the paged engine runs it: the masked prompt pass
+  (`GPTModel.prefill`) and the one-token-per-slot paged decode step
+  (`GPTModel.decode_slots_paged`), plus the weight-tied LM head and the
+  cache/pool constructors.
 
 Two layouts are kept from the reference so that a ``paddle_tpu``
 state dict loads key for key (`models.convert`):
@@ -18,8 +24,10 @@ state dict loads key for key (`models.convert`):
   odd head count); `unpack_qkv_pair_major` is the one place that reads
   it (``gpt.py:725-738``).
 
-The model is inference-only here: parameters do not require grad and
-dropout is absent (the engine serves in eval mode).
+A model is built in eval mode with parameters that do not require grad
+(the engine serves it as it is). Training runs it through
+`distributed.SpmdTrainStep`, which swaps in parameter tensors of its own
+(``torch.func.functional_call``); call ``model.train()`` for dropout.
 """
 from __future__ import annotations
 
@@ -30,9 +38,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device, resolve_dtype
-from ..kernels import paged_kv
+from ..kernels import flash_attention_qkv_enabled, paged_kv
+from ..kernels.flash_attention import flash_attention_qkv
 from ..kernels.paged_attention import paged_decode_attention
-from ..nn.functional import mt_attention_core
+from ..nn import Dropout
+from ..nn.functional import (cross_entropy, mt_attention_core,
+                             scaled_dot_product_attention)
 
 
 @dataclass
@@ -125,6 +136,38 @@ class GPTAttention(nn.Module):
         self.head_dim = config.head_dim
         self.qkv_proj = Linear(h, 3 * h, device=device, dtype=dtype)
         self.out_proj = Linear(h, h, device=device, dtype=dtype)
+        self.attn_dropout_p = config.attention_probs_dropout_prob
+        self.use_flash = config.use_flash_attention
+        self.resid_dropout = Dropout(config.hidden_dropout_prob)
+
+    def forward(self, x, attn_mask=None):
+        """Training and full-sequence attention over ``x [B, S, h]``:
+        causal without a mask, else ``attn_mask`` (bool or additive).
+
+        With ``use_flash_attention``, no mask and a shape the gate takes,
+        the projection feeds `flash_attention_qkv` as it is (``gpt.py:
+        136-148``). On a CUDA tensor that the gate refuses, the
+        reference would run its general flash kernels (B2), which are not
+        ported: that raises instead of running attention another way."""
+        b, s, h = x.shape
+        dropout_p = self.attn_dropout_p if self.training else 0.0
+        qkv = self.qkv_proj(x)
+        if self.use_flash and flash_attention_qkv_enabled(
+                qkv, self.num_heads, attn_mask, dropout_p):
+            out = flash_attention_qkv(qkv, self.num_heads, is_causal=True,
+                                      dropout_p=dropout_p)
+            return self.resid_dropout(self.out_proj(out))
+        if self.use_flash and qkv.device.type == "cuda":
+            raise NotImplementedError(
+                f"use_flash_attention with attn_mask={attn_mask is not None}"
+                f", S={s}, H={self.num_heads}, D={self.head_dim}: the "
+                "reference runs its general [B,S,H,D] flash kernels here, "
+                "which are a later slice (ROADMAP B2)")
+        q, k, v = unpack_qkv_pair_major(qkv, self.num_heads, self.head_dim)
+        out = scaled_dot_product_attention(
+            q, k, v, attn_mask=attn_mask, dropout_p=dropout_p,
+            is_causal=attn_mask is None, training=self.training)
+        return self.resid_dropout(self.out_proj(out.reshape(b, s, h)))
 
     def _heads(self, x):
         """x -> head-major q, k, v ``[B, H, S, D]``."""
@@ -175,9 +218,11 @@ class GPTMLP(nn.Module):
                             device=device, dtype=dtype)
         self.fc_out = Linear(config.intermediate_size, config.hidden_size,
                              device=device, dtype=dtype)
+        self.dropout = Dropout(config.hidden_dropout_prob)
 
     def forward(self, x):
-        return self.fc_out(F.gelu(self.fc_in(x), approximate="tanh"))
+        return self.dropout(self.fc_out(F.gelu(self.fc_in(x),
+                                               approximate="tanh")))
 
 
 class GPTDecoderLayer(nn.Module):
@@ -191,6 +236,10 @@ class GPTDecoderLayer(nn.Module):
         self.attn = GPTAttention(config, **kw)
         self.ln_2 = LayerNorm(config.hidden_size, eps=eps, **kw)
         self.mlp = GPTMLP(config, **kw)
+
+    def forward(self, x, attn_mask=None):
+        x = x + self.attn(self.ln_1(x), attn_mask=attn_mask)
+        return x + self.mlp(self.ln_2(x))
 
     def forward_prefill(self, x, k_cache, v_cache, pad_mask=None):
         x = x + self.attn.forward_prefill(self.ln_1(x), k_cache, v_cache,
@@ -213,10 +262,17 @@ class GPTEmbeddings(nn.Module):
                                             config.hidden_size, **kw)
         self.position_embeddings = nn.Embedding(
             config.max_position_embeddings, config.hidden_size, **kw)
+        self.dropout = Dropout(config.hidden_dropout_prob)
 
-    def forward(self, input_ids, position_ids):
-        return (self.word_embeddings(input_ids.long())
-                + self.position_embeddings(position_ids.long()))
+    def forward(self, input_ids, position_ids=None):
+        """Word plus position embeddings, then dropout. Positions default
+        to ``0..S-1`` for every row."""
+        if position_ids is None:
+            b, s = input_ids.shape
+            position_ids = torch.arange(s, device=input_ids.device).expand(
+                b, s)
+        return self.dropout(self.word_embeddings(input_ids.long())
+                            + self.position_embeddings(position_ids.long()))
 
 
 class GPTModel(nn.Module):
@@ -231,6 +287,20 @@ class GPTModel(nn.Module):
                                 for _ in range(config.num_hidden_layers)])
         self.ln_f = LayerNorm(config.hidden_size,
                               eps=config.layer_norm_epsilon, **kw)
+
+    def forward(self, input_ids, position_ids=None, attn_mask=None,
+                caches=None):
+        """Hidden states ``[B, S, h]`` of a full sequence. The concat-grow
+        ``caches`` path of the reference is a later slice (ROADMAP A7);
+        serving uses `prefill` and `decode_slots_paged`."""
+        if caches is not None:
+            raise NotImplementedError(
+                "GPTModel.forward(caches=...) is a later slice (ROADMAP "
+                "A7); serve through prefill/decode_slots_paged")
+        x = self.embeddings(input_ids, position_ids)
+        for layer in self.h:
+            x = layer(x, attn_mask=attn_mask)
+        return self.ln_f(x)
 
     def prefill(self, input_ids, caches, pad_mask=None):
         """Prompt pass over per-layer ``[B, H, >=S, D]`` caches (written in
@@ -312,6 +382,12 @@ class GPTForPretraining(nn.Module):
         (``gpt.py:1266-1270``)."""
         return hidden @ self.gpt.embeddings.word_embeddings.weight.T
 
+    def forward(self, input_ids, position_ids=None, attn_mask=None,
+                caches=None):
+        """Logits ``[B, S, V]`` of a full sequence (tied head)."""
+        return self._logits(self.gpt(input_ids, position_ids, attn_mask,
+                                     caches))
+
     def gen_static_cache(self, batch_size, max_len, dtype=None):
         """Per-layer ``(k, v)`` caches ``[batch, heads, max_len, head_dim]``
         of zeros."""
@@ -353,7 +429,18 @@ class GPTForPretraining(nn.Module):
         return self._logits(hidden)
 
 
+class GPTPretrainingCriterion(nn.Module):
+    """Next-token cross entropy with an optional loss mask."""
+
+    def forward(self, logits, labels, loss_mask=None):
+        loss = cross_entropy(logits, labels, reduction="none")
+        if loss_mask is not None:
+            mask = loss_mask.reshape(loss.shape).to(loss.dtype)
+            return (loss * mask).sum() / mask.sum().clamp(min=1.0)
+        return loss.mean()
+
+
 __all__ = ["GPTConfig", "GPT_CONFIGS", "gpt_config", "Linear", "LayerNorm",
            "unpack_qkv_pair_major", "GPTAttention", "GPTMLP",
            "GPTDecoderLayer", "GPTEmbeddings", "GPTModel",
-           "GPTForPretraining"]
+           "GPTForPretraining", "GPTPretrainingCriterion"]

@@ -28,7 +28,16 @@ MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.device",
            "paddle_tpu_torch.models.gpt", "paddle_tpu_torch.models.convert",
            "paddle_tpu_torch.models.generation", "paddle_tpu_torch.serving",
            "paddle_tpu_torch.serving.engine",
-           "paddle_tpu_torch.serving.compiled"]
+           "paddle_tpu_torch.serving.compiled",
+           "paddle_tpu_torch.core", "paddle_tpu_torch.core.random",
+           "paddle_tpu_torch.kernels.flash_attention",
+           "paddle_tpu_torch.kernels.fused_ce", "paddle_tpu_torch.nn",
+           "paddle_tpu_torch.nn.clip", "paddle_tpu_torch.nn.layer",
+           "paddle_tpu_torch.optimizer",
+           "paddle_tpu_torch.optimizer.optimizer",
+           "paddle_tpu_torch.optimizer.optimizers",
+           "paddle_tpu_torch.distributed",
+           "paddle_tpu_torch.distributed.spmd"]
 
 
 def test_import_pulls_in_no_jax_and_no_paddle_tpu():
@@ -77,6 +86,21 @@ def test_resolve_device_raises_without_gpu(no_gpu):
 def test_model_raises_without_device_and_gpu(no_gpu):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         GPTForPretraining("gpt-test")
+
+
+def test_train_step_runs_where_the_model_is():
+    """The trainer has no device of its own: its params live with the
+    model (cuda unless the model was built with device='cpu')."""
+    from paddle_tpu_torch.distributed import SpmdTrainStep, gpt_loss_fn
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = GPTForPretraining("gpt-test", device="cpu")
+    params, state = SpmdTrainStep(model, gpt_loss_fn, AdamW()).init(
+        dtype="bfloat16", slot_dtype="bfloat16")
+    assert {p.device.type for p in params.values()} == {"cpu"}
+    assert {p.dtype for p in params.values()} == {torch.bfloat16}
+    assert state["slots"]["gpt.ln_f.weight"]["moment1"].dtype \
+        == torch.bfloat16
 
 
 def test_engine_raises_without_device_and_gpu(no_gpu):

@@ -92,9 +92,33 @@ def test_decode_dispatcher_matches_gather_oracle(ps, w):
     assert kernels.kernel_launch_counts()["paged_attention"] == before
 
 
+@pytest.mark.parametrize("w", [1, 3])
+def test_fully_masked_row_matches_the_tpu_kernel(interpret_kernel, w):
+    """A row with no readable column up to its cursor, on distinct pages,
+    gets the TPU kernel's result: the average over every page of its
+    table. With W=3 the last query has one readable column (its own),
+    the first two none."""
+    q, pk, pv, bt, st, vc = _case(8, w, seed=40 + w)
+    st[1] = 5
+    vc[1] = 0
+    if w == 3:
+        vc[1, st[1] + 2] = 1
+    j_out, j_lse = jpa.fused_paged_attention(q, pk, pv, bt, st, vc, 64)
+    out, lse = paged_attention_reference(*_t(q, pk, pv, bt, st, vc))
+    np.testing.assert_allclose(out.numpy(), np.asarray(j_out), atol=ATOL,
+                               rtol=0)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(j_lse), atol=ATOL,
+                               rtol=0)
+    mean = jkv.gather_pages(pv, bt)[1].mean(axis=1)            # [H, D]
+    for j in range(2 if w == 3 else 1):
+        np.testing.assert_allclose(out[1, :, j].numpy(), mean, atol=ATOL,
+                                   rtol=0)
+
+
 def test_parked_row_reads_only_the_sentinel_page():
-    """A parked serving slot (cursor 0, row on the sentinel page, nothing
-    readable) reads one page and averages it: finite, never NaN."""
+    """A parked serving slot (cursor 0, every table entry the sentinel
+    page, nothing readable) averages the sentinel page: finite, never
+    NaN, and the TPU kernel's result."""
     q, pk, pv, bt, st, vc = _case(8, 1, seed=7)
     sentinel = pk.shape[0] - 1
     bt[2], st[2], vc[2] = sentinel, 0, 0
