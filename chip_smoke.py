@@ -11,11 +11,13 @@ Phases, in order; any failure exits non-zero:
    csrc`` (one nvcc per source, in parallel);
 3. kernel phase: each kernel against its plain PyTorch version on the
    card, at the stated tolerances; then its time at the main path's
-   shape (paged attention: the serving decode shape; the flash kernels:
-   the training shape B8 S1024 H16 D128 bf16 causal) beside the plain
-   version's, a PyTorch library call computing the same function (timed
-   here only; the port never calls it) and the least time the card
-   could take (its bound);
+   shape (paged attention: the serving decode shape; the qkv flash
+   kernels: GPT's training shape B8 S1024 H16 D128 bf16 causal; the
+   general flash kernels: BERT-large's B8 S512 H16 D64 bf16 with a
+   key-padding mask and dropout 0.1, and the backward at S=2048 causal)
+   beside the plain version's, a PyTorch library call computing the same
+   function (timed here only; the port never calls it) and the least
+   time the card could take (its bound);
 4. engine phase: gpt3-1.3b at full width and depth, bf16, random
    weights from ``--seed``, served by
    the paged `Engine` (8 slots, page 16, max_len 640, buckets 128/512)
@@ -35,6 +37,17 @@ Phases, in order; any failure exits non-zero:
    zeroed and five timed steps run: both flash kernels launch exactly
    steps x layers times, every loss is finite and the first lies within
    0.5 of ln(vocab). It prints tokens/s, step ms p50, peak memory and
+   MFU, then two steps under torch.profiler;
+6. BERT phase: bert-large at full width and depth pretrains through
+   `SpmdTrainStep` on padded batches (b8 x s512, per-row lengths in
+   [384, 512) as a [B, 1, 1, S] key-padding mask, MLM on 15% of the real
+   positions plus NSP, dropout 0.1, bf16 params and moments). On two
+   sequences at dropout 0 the bf16 model (attention in the general flash
+   kernels) agrees with a float32 copy whose attention is composed; then
+   one warm-up step and five timed steps in which both general flash
+   kernels launch exactly steps x layers times and no other attention
+   kernel runs, every loss is finite and the first MLM loss lies within
+   0.5 of ln(vocab). It prints tokens/s, step ms p50, peak memory and
    MFU, then two steps under torch.profiler.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's
@@ -45,6 +58,7 @@ and exits 1.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -90,6 +104,11 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR, TRAIN_WD = 8, 1024, 5, 1e-4, 0.01
 # grads carry the check: a 20% error on a quarter of the rows of a
 # checked grad costs about 0.2^2 / 4 / 2 = 5e-3 of cosine
 REF_LOSS_RTOL, REF_GRAD_COS = 1e-3, 0.999
+# BERT phase: bert-large pretraining on padded batches (the repo's
+# BASELINE row 4, benchmarks/exp_flash_mask_dropout.py:10-13): b8 x s512,
+# per-row lengths in [384, 512), MLM labels on 15% of the real positions
+BERT_MODEL, BERT_B, BERT_S, BERT_MIN_LEN, BERT_MLM = ("bert-large", 8, 512,
+                                                      384, 0.15)
 PROMPT_LENS = (20, 75, 130, 190, 250, 310, 370, 430, 480, 500)
 SUBMIT_AT_STEP = (0, 0, 0, 0, 2, 2, 2, 5, 5, 5)
 
@@ -450,6 +469,225 @@ def flash_kernel_phase(torch):
     return records
 
 
+# ------------------------------------------------- general flash (B2)
+def general_case(b, s_q, s_k, h, d, dtype, seed):
+    """``(q, k, v, do)`` of standard normals on the card in ``dtype``:
+    q and do ``[b, s_q, h, d]``, k and v ``[b, s_k, h, d]``."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shapes = ((b, s_q, h, d), (b, s_k, h, d), (b, s_k, h, d), (b, s_q, h, d))
+    return [torch.randn(sh, generator=g, device="cuda").to(dtype)
+            for sh in shapes]
+
+
+def key_padding(torch, b, s, seed):
+    """BERT's batch mask: per-row lengths in [384, 512) from ``seed``
+    (`benchmarks/exp_flash_mask_dropout.py:113-114`), as the bool
+    ``[B, 1, 1, S]`` key-padding mask and the lengths."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lens = torch.randint(BERT_MIN_LEN, s, (b,), generator=g, device="cuda")
+    mask = torch.arange(s, device="cuda")[None, :] < lens[:, None]
+    return mask[:, None, None, :], lens
+
+
+def general_compare(torch, fa, q, k, v, do, causal, bias, p, seed_t):
+    """The B2 kernels against their plain versions on one input, as
+    `flash_compare` holds B1: the backward of each gets the plain
+    forward's o and lse; lse at TOL_F32; o, dq, dk, dv at TOL_F32 in
+    float32 and at 8 bf16 ulps of each element's scale in bfloat16, with
+    the bf16-rounding control beside. Returns ``(max |o - ref|, max
+    |d(q, k, v) - ref|, line)``."""
+    kw = dict(bias=bias, dropout_p=p, seed=seed_t)
+    d = q.shape[-1]
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, **kw)
+    ro, rlse = fa.flash_reference(q, k, v, causal, **kw)
+    grads = fa.flash_attention_bwd(q, k, v, ro, rlse, do, causal, **kw)
+    rgrads = fa.flash_bwd_reference(q, k, v, ro, rlse, do, causal, **kw)
+    torch.cuda.synchronize()
+    err_o = (o.float() - ro.float()).abs().max().item()
+    err_g = max((a.float() - r.float()).abs().max().item()
+                for a, r in zip(grads, rgrads))
+    torch.testing.assert_close(lse, rlse, **TOL_F32)
+    parts = [f"max|lse-ref| {(lse - rlse).abs().max().item():.3e}"]
+    if q.dtype == torch.float32:
+        for x, ref in zip((o, *grads), (ro, *rgrads)):
+            torch.testing.assert_close(x, ref, **TOL_F32)
+        parts.append(f"max|o-ref| {err_o:.3e}, max|d(q,k,v)-ref| "
+                     f"{err_g:.3e} (atol {TOL_F32['atol']})")
+        return err_o, err_g, "; ".join(parts)
+    f32 = [t.float() for t in (q, k, v, do)]
+    ctrl_o, _ = fa.flash_reference(*f32[:3], causal, **kw)
+    ctrl_g = fa.flash_bwd_reference(*f32[:3], ro.float(), rlse, f32[3],
+                                    causal, **kw)
+    for name, x, ref, ctrl in (("o", o, ro, ctrl_o),
+                               *zip(("dq", "dk", "dv"), grads, rgrads,
+                                    ctrl_g)):
+        ulps, typical = flash_ulps(x, ref, d)
+        ctrl_ulps, _ = flash_ulps(ctrl, ref, d)
+        reading = (f"{name} {ulps:.3f} ulps (control {ctrl_ulps:.3f}; "
+                   f"mean|ref| {typical:.3e})")
+        check(ulps <= BF16_ULPS_O, f"flash_attention {reading} over the "
+              f"limit of {BF16_ULPS_O}")
+        parts.append(reading)
+    return err_o, err_g, "; ".join(parts)
+
+
+def general_work(b, s_q, s_k, h, d, pairs, k_rows, el, bias_bytes):
+    """``((bytes, flops) forward, (bytes, flops) backward)`` that the B2
+    kernels need on this data: ``pairs`` visible (query, key) pairs of
+    one head summed over the batch, ``k_rows`` key rows that some query
+    sees (only those of k and v need reading). Forward: q, those k and v
+    rows and the bias read, o and lse written; 4*D flops a pair (q.k and
+    p.v). Backward: q, those k and v rows, o, dO, lse and the bias read,
+    dq, dk and dv written in full; 10*D flops a pair."""
+    row = h * d * el
+    q_side = b * s_q * row
+    kv_read = 2 * k_rows * row
+    lse = b * h * s_q * 4
+    fwd = (q_side + kv_read + bias_bytes + q_side + lse, 4 * d * h * pairs)
+    bwd = (3 * q_side + kv_read + lse + bias_bytes + q_side
+           + 2 * b * s_k * row, 10 * d * h * pairs)
+    return fwd, bwd
+
+
+def general_flash_phase(torch):
+    """B2 kernels against their plain versions on the card, cases:
+    (a) BERT-large's training shape B8 S512 H16 D64 bf16 with a
+    [B,1,1,S] key-padding mask (lengths in [384, 512)) and dropout 0.1;
+    (b) S=2048 H8 D128 bf16 causal with dropout 0.1, the reference's
+    two-block regime (its 1024-blocks place the hash); (c) Sq=128 Sk=384
+    causal with an additive [Sq, Sk] bias, f32; (d) S=200 with one fully
+    masked row, f32. Then (a) forward and backward and (b) backward
+    timed beside the plain versions, SDPA (timed only; the port never
+    calls it) and the bound. Returns the forward's and backward's
+    records at (a)."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    seed_t = torch.tensor([FLASH_SEED], dtype=torch.int32, device="cuda")
+    bf = torch.bfloat16
+    mask_a, lens = key_padding(torch, BERT_B, BERT_S, 1)
+    bias_a = fa.normalize_mask_bias(mask_a)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    bias_c = torch.randn((128, 384), generator=g, device="cuda")[None] * 2
+    mask_d = torch.ones((2, 1, 200, 200), dtype=torch.bool, device="cuda")
+    mask_d[1, 0, 7] = False                       # query row 7 sees nothing
+    cases = {
+        "a": ((BERT_B, BERT_S, BERT_S, 16, 64, bf), False, bias_a, 0.1),
+        "b": ((2, 2048, 2048, 8, 128, bf), True, None, 0.1),
+        "c": ((2, 128, 384, 4, 64, torch.float32), True, bias_c, 0.0),
+        "d": ((2, 200, 200, 3, 128, torch.float32), False,
+              fa.normalize_mask_bias(mask_d), 0.1),
+    }
+    errs = {}
+    for name, (shape, causal, bias, p) in cases.items():
+        q, k, v, do = general_case(*shape, seed=ord(name))
+        err_o, err_g, line = general_compare(torch, fa, q, k, v, do, causal,
+                                             bias, p, seed_t)
+        errs[name] = (err_o, err_g)
+        print(f"  flash_attention ({name}) B,Sq,Sk,H,D={shape[:5]} "
+              f"{str(shape[5])[6:]} {'causal' if causal else 'full'} "
+              f"bias {None if bias is None else tuple(bias.shape)} p={p}: "
+              f"{line}  ok")
+
+    # timing: three input copies of (a) (34 MB each) and (b) (42 MB each)
+    # cycled past the 50 MB L2
+    it = iter(range(10 ** 9))
+    ta = [general_case(BERT_B, BERT_S, BERT_S, 16, 64, bf, seed=i)
+          for i in range(3)]
+    tb = [general_case(2, 2048, 2048, 8, 128, bf, seed=10 + i)
+          for i in range(3)]
+    kw_a = dict(bias=bias_a, dropout_p=0.1, seed=seed_t)
+    kw_b = dict(dropout_p=0.1, seed=seed_t)
+    saved_a = [fa.flash_attention_fwd(*t[:3], False, **kw_a) for t in ta]
+    saved_b = [fa.flash_attention_fwd(*t[:3], True, **kw_b) for t in tb]
+
+    def fwd_a():
+        fa.flash_attention_fwd(*ta[next(it) % 3][:3], False, **kw_a)
+
+    def bwd_a():
+        i = next(it) % 3
+        fa.flash_attention_bwd(*ta[i][:3], *saved_a[i], ta[i][3], False,
+                               **kw_a)
+
+    def bwd_b():
+        i = next(it) % 3
+        fa.flash_attention_bwd(*tb[i][:3], *saved_b[i], tb[i][3], True,
+                               **kw_b)
+
+    ms = {"fwd_a": time_ms(fwd_a, 20), "bwd_a": time_ms(bwd_a, 10),
+          "bwd_b": time_ms(bwd_b, 5)}
+    qa, ka, va, doa = ta[0]
+    qb, kb, vb, dob = tb[0]
+    plain = {
+        "fwd_a": time_ms(lambda: fa.flash_reference(qa, ka, va, False,
+                                                    **kw_a), 3, 1),
+        "bwd_a": time_ms(lambda: fa.flash_bwd_reference(
+            qa, ka, va, *saved_a[0], doa, False, **kw_a), 3, 1),
+        "bwd_b": time_ms(lambda: fa.flash_bwd_reference(
+            qb, kb, vb, *saved_b[0], dob, True, **kw_b), 2, 1)}
+
+    # SDPA on [B, H, S, D] with the float bias as attn_mask, dropout 0.1
+    def heads(ts):
+        return [[x.transpose(1, 2).detach().requires_grad_(True)
+                 for x in t[:3]] + [t[3].transpose(1, 2)] for t in ts]
+
+    ha, hb = heads(ta), heads(tb)
+    sdpa_mask = bias_a[:, None].to(bf)            # [B, 1, 1, S]
+
+    def lib(hs, causal, mask, backward):
+        def run():
+            q, k, v, do = hs[next(it) % 3]
+            out = F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, dropout_p=0.1, is_causal=causal)
+            if backward:
+                out.backward(do)
+        return run
+
+    lib_fa = time_ms(lib(ha, False, sdpa_mask, False), 20)
+    lib_fba = time_ms(lib(ha, False, sdpa_mask, True), 10)
+    lib_fb = time_ms(lib(hb, True, None, False), 5)
+    lib_fbb = time_ms(lib(hb, True, None, True), 5)
+    library = {"fwd_a": lib_fa, "bwd_a": lib_fba - lib_fa,
+               "bwd_b": lib_fbb - lib_fb}
+
+    k_rows_a = int(lens.sum().item())             # keys some query sees
+    pairs_a = BERT_S * k_rows_a
+    work_a = general_work(BERT_B, BERT_S, BERT_S, 16, 64, pairs_a, k_rows_a,
+                          2, BERT_B * BERT_S * 4)
+    work_b = general_work(2, 2048, 2048, 8, 128, 2 * 2048 * 2049 // 2,
+                          2 * 2048, 2, 0)
+    label = {"a": "(a) B8 S512 H16 D64 key-padding",
+             "b": "(b) B2 S2048 H8 D128 causal"}
+    bounds = {}
+    for key, (nbytes, flops) in (("fwd_a", work_a[0]), ("bwd_a", work_a[1]),
+                                 ("bwd_b", work_b[1])):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+        bounds[key] = (max(t_bytes, t_ops) * 1e3,
+                       "bytes" if t_bytes >= t_ops else "operations")
+        print(f"  flash_attention {key[:3]} at {label[key[-1]]}"
+              f" bf16 p=0.1: kernel {ms[key]:.4f} ms, plain {plain[key]:.4f}"
+              f" ms, SDPA {library[key]:.4f} ms, bound {bounds[key][0]:.4f} "
+              f"ms ({bounds[key][1]}; {nbytes} bytes, {flops} flops)")
+    print(f"  SDPA forward+backward (a) {lib_fba:.4f} ms, (b) {lib_fbb:.4f} "
+          f"ms; forward (a) {lib_fa:.4f} ms, (b) {lib_fb:.4f} ms (its "
+          "backward alone: the difference)")
+    records = []
+    for name, key, err, line in (
+            ("flash_attention_fwd", "fwd_a", errs["a"][0], 207),
+            ("flash_attention_bwd", "bwd_a", errs["a"][1], 536)):
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/flash_attention.cu",
+            "replaces": f"paddle_tpu/kernels/flash_attention.py:{line}",
+            "max_abs_err": err, "ms": ms[key], "plain_ms": plain[key],
+            "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
+            "library_ms": library[key]})
+    return records
+
+
 # ---------------------------------------------------------------- engine
 def engine_phase(torch, seed):
     from paddle_tpu_torch import kernels
@@ -499,8 +737,7 @@ def engine_phase(torch, seed):
     check(counts["paged_attention"] == want,
           f"paged_attention launched {counts['paged_attention']} times, "
           f"decode_steps x layers = {want}")
-    check(counts["flash_attention_qkv_fwd"] == 0
-          and counts["flash_attention_qkv_bwd"] == 0,
+    check(all(v == 0 for k, v in counts.items() if k != "paged_attention"),
           f"serving launched a training kernel: {counts}")
     print(f"  served {len(prompts)} requests (prompts {PROMPT_LENS}, "
           f"max_new {MAX_NEW}) in {wall:.3f} s: {s.prefill_steps} prefills,"
@@ -643,8 +880,9 @@ def train_phase(torch, seed, card):
     for name in ("flash_attention_qkv_fwd", "flash_attention_qkv_bwd"):
         check(counts[name] == want, f"{name} launched {counts[name]} times, "
               f"steps x layers = {want}")
-    check(counts["paged_attention"] == 0, f"training launched paged "
-          f"attention: {counts}")
+    for name in ("paged_attention", "flash_attention_fwd",
+                 "flash_attention_bwd"):
+        check(counts[name] == 0, f"GPT training launched {name}: {counts}")
     tok_s = TRAIN_B * TRAIN_S * TRAIN_STEPS / wall
     flops_per_tok = (6 * cfg.num_params(include_embeddings=False)
                      + 12 * cfg.num_hidden_layers * cfg.hidden_size
@@ -715,6 +953,208 @@ def float32_reference_check(torch, step, params, batch, cfg, seed):
           + f" (>= {REF_GRAD_COS})  ok")
 
 
+# ---------------------------------------------------------------- BERT
+def bert_batch(torch, cfg, g):
+    """One pretraining batch on the card from generator ``g``: token ids
+    in [0, V) (pad id 0 past each row's length), the bool [B, 1, 1, S]
+    key-padding mask, MLM labels (the token) on 15% of the real
+    positions and -100 elsewhere, random NSP labels."""
+    lens = torch.randint(BERT_MIN_LEN, BERT_S, (BERT_B,), generator=g,
+                         device="cuda")
+    real = torch.arange(BERT_S, device="cuda")[None, :] < lens[:, None]
+    ids = torch.randint(0, cfg.vocab_size, (BERT_B, BERT_S), generator=g,
+                        device="cuda") * real
+    pick = real & (torch.rand((BERT_B, BERT_S), generator=g, device="cuda")
+                   < BERT_MLM)
+    return {"input_ids": ids, "attention_mask": real[:, None, None, :],
+            "mlm_labels": torch.where(pick, ids, torch.full_like(ids, -100)),
+            "nsp_labels": torch.randint(0, 2, (BERT_B,), generator=g,
+                                        device="cuda")}
+
+
+def bert_loss_fn(model, state, batch, parts=None):
+    """MLM cross-entropy (ignore_index -100) plus NSP cross-entropy of
+    `BertForPretraining` run with ``state``; each part is appended to
+    ``parts`` when given."""
+    from torch.func import functional_call
+
+    from paddle_tpu_torch.nn.functional import cross_entropy
+
+    logits, nsp = functional_call(model, state, (batch["input_ids"],),
+                                  {"attention_mask": batch["attention_mask"]})
+    mlm = cross_entropy(logits, batch["mlm_labels"], ignore_index=-100)
+    nsp_loss = cross_entropy(nsp, batch["nsp_labels"])
+    if parts is not None:
+        parts.append((mlm.detach(), nsp_loss.detach()))
+    return mlm + nsp_loss
+
+
+def bert_phase(torch, seed, card):
+    """bert-large at full width and depth pretrains through
+    `SpmdTrainStep` on padded batches (b8 x s512, lengths in [384, 512),
+    dropout 0.1 hidden and attention, bf16 params and AdamW moments, lr
+    1e-4, wd 0.01). First the float32-reference check at dropout 0, then
+    one warm-up step and TRAIN_STEPS timed steps with the launch counts
+    zeroed just before them, then two steps under the profiler. Returns
+    the B2 kernels' launch counts of the timed steps."""
+    import functools
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.distributed import SpmdTrainStep
+    from paddle_tpu_torch.models.bert import BertForPretraining, bert_config
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = bert_config(BERT_MODEL)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    model = BertForPretraining(cfg, dtype="bfloat16", seed=seed)
+    parts = []
+    step = SpmdTrainStep(model, functools.partial(bert_loss_fn, parts=parts),
+                         AdamW(learning_rate=TRAIN_LR, weight_decay=TRAIN_WD))
+    params, opt_state = step.init(slot_dtype="bfloat16")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    batches = [bert_batch(torch, cfg, g) for _ in range(TRAIN_STEPS + 3)]
+    print(f"  {BERT_MODEL}: {cfg.num_hidden_layers} layers, h="
+          f"{cfg.hidden_size}, {cfg.num_attention_heads} heads, d="
+          f"{cfg.head_dim}, ffn {cfg.intermediate_size}, vocab "
+          f"{cfg.vocab_size}, dropout {cfg.hidden_dropout_prob} hidden and "
+          f"{cfg.attention_probs_dropout_prob} attention; b{BERT_B} x "
+          f"s{BERT_S}, lengths in [{BERT_MIN_LEN}, {BERT_S}), MLM on "
+          f"{BERT_MLM:.0%} of real positions; bf16 params and AdamW "
+          f"moments, lr {TRAIN_LR}, wd {TRAIN_WD}")
+    bert_reference_check(torch, step, params, batches[0], cfg, seed)
+
+    model.train()
+    parts.clear()
+    loss, params, opt_state = step(params, opt_state, batches[0], 0)
+    first_mlm = parts[0][0].item()
+    check(abs(first_mlm - math.log(cfg.vocab_size)) < 0.5,
+          f"first MLM loss {first_mlm} is not within 0.5 of ln(V) = "
+          f"{math.log(cfg.vocab_size):.4f}")
+    kernels.reset_kernel_launch_counts()
+    times, losses = [], [loss.item()]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(1, TRAIN_STEPS + 1):
+        ts = time.perf_counter()
+        loss, params, opt_state = step(params, opt_state, batches[i], i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - ts)
+        losses.append(loss.item())
+    wall = time.perf_counter() - t0
+    counts = kernels.kernel_launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = TRAIN_STEPS * cfg.num_hidden_layers
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        check(counts[name] == want, f"{name} launched {counts[name]} times, "
+              f"steps x layers = {want}")
+    for name in ("paged_attention", "flash_attention_qkv_fwd",
+                 "flash_attention_qkv_bwd"):
+        check(counts[name] == 0, f"BERT training launched {name}: {counts}")
+    tok_s = BERT_B * BERT_S * TRAIN_STEPS / wall
+    flops_per_tok = (6 * cfg.num_params(include_embeddings=False)
+                     + 12 * cfg.num_hidden_layers * cfg.hidden_size * BERT_S)
+    mfu = tok_s * flops_per_tok / BF16_FLOPS_PER_S
+    p50 = sorted(times)[len(times) // 2] * 1e3
+    print(f"  losses {[round(x, 4) for x in losses]} (MLM + NSP; first MLM "
+          f"{first_mlm:.4f} within 0.5 of ln(V) = "
+          f"{math.log(cfg.vocab_size):.4f}, all finite)")
+    print(f"  launches {counts}: B2 fwd = bwd = steps x layers = {want}")
+    print(f"  {card}: {tok_s:.1f} tokens/s (padding included), step "
+          f"{p50:.3f} ms p50 (steps {[round(t * 1e3, 3) for t in times]} ms),"
+          f" peak memory {peak / 2 ** 30:.3f} GiB (max_memory_allocated; "
+          f"{before / 2 ** 30:.3f} GiB held before the phase), MFU {mfu:.4f} "
+          f"({flops_per_tok} flops/token over 989 TFLOP/s)")
+    it = iter(range(100))
+
+    def one():
+        nonlocal params, opt_state
+        i = next(it) % len(batches)
+        _, params, opt_state = step(params, opt_state, batches[i], 100 + i)
+
+    profile_steps(torch, one, 2, "BERT training steps")
+    return {k: counts[k] for k in ("flash_attention_fwd",
+                                   "flash_attention_bwd")}
+
+
+@contextlib.contextmanager
+def plain_flash(torch):
+    """The general flash branch through its plain versions on the card:
+    the reference's rounding points, no kernel (a control only)."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    saved = fa.runs_plain
+    fa.runs_plain = lambda t, kernel: True
+    try:
+        yield
+    finally:
+        fa.runs_plain = saved
+
+
+def bert_reference_check(torch, step, params, batch, cfg, seed):
+    """On the batch's first two sequences at dropout 0 (eval mode), the
+    bf16 model's loss and grads (attention in B2) against a float32 copy
+    of the same weights whose attention runs the composition
+    (``use_flash=False``): loss within REF_LOSS_RTOL; cosine at least
+    REF_GRAD_COS for the q_proj weight grad of the first layer and the
+    v_proj and linear1 weight grads of the first and last layers.
+
+    Layer 23's q_proj grad is printed, not held: it passes only through
+    ``ds = p*(dp - delta)``, and at random init the deep layers' values
+    share a large common part, so ``dp - delta`` cancels and amplifies
+    the bf16 rounding of O inside the reference's ``delta =
+    rowsum(dO*O)``. Beside the kernels' reading stands a control, the
+    same bf16 model through the plain versions (the reference's own
+    rounding points)."""
+    from paddle_tpu_torch.distributed import SpmdTrainStep
+    from paddle_tpu_torch.models.bert import BertForPretraining
+    from paddle_tpu_torch.optimizer import AdamW
+
+    two = {k: v[:2] for k, v in batch.items()}
+    last = cfg.num_hidden_layers - 1
+    layer = "bert.encoder_layers.{}.{}.weight".format
+    held = [layer(0, "self_attn.q_proj")] + [
+        layer(i, m) for i in (0, last)
+        for m in ("self_attn.v_proj", "linear1")]
+    shown = layer(last, "self_attn.q_proj")
+    step.model.eval()
+    loss, grads = step.loss_and_grads(params, two, 0)
+    grads = {n: grads[n].float() for n in held + [shown]}
+    with plain_flash(torch):
+        ctrl = step.loss_and_grads(params, two, 0)[1][shown].float()
+    ref = BertForPretraining(cfg, dtype="float32", seed=seed)
+    for layer_ in ref.bert.encoder_layers:
+        layer_.self_attn.use_flash = False
+    ref_params = dict(ref.named_parameters())
+    with torch.no_grad():
+        for n, p in ref_params.items():
+            p.copy_(params[n])
+    ref_step = SpmdTrainStep(ref, bert_loss_fn, AdamW())
+    ref_loss, ref_grads = ref_step.loss_and_grads(ref_params, two, 0)
+
+    def cosine(a, n):
+        return torch.nn.functional.cosine_similarity(
+            a.flatten(), ref_grads[n].flatten(), dim=0).item()
+
+    rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+    cos = {n: cosine(grads[n], n) for n in held}
+    shown_cos, ctrl_cos = cosine(grads[shown], shown), cosine(ctrl, shown)
+    del ref, ref_params, ref_step, ref_grads, grads, ctrl
+    torch.cuda.empty_cache()
+    check(rel <= REF_LOSS_RTOL, f"bf16 loss {loss.item()} vs float32 "
+          f"{ref_loss.item()}: relative difference {rel}")
+    check(min(cos.values()) >= REF_GRAD_COS, f"grad cosine {cos}")
+    print(f"  float32 reference (composed attention, 2 sequences, dropout "
+          f"0): loss {loss.item():.5f} vs {ref_loss.item():.5f} (rel "
+          f"{rel:.2e} <= {REF_LOSS_RTOL}); grad cosine "
+          + ", ".join(f"{n[20:-7]} {c:.5f}" for n, c in cos.items())
+          + f" (>= {REF_GRAD_COS})  ok; {shown[20:-7]} {shown_cos:.5f} "
+          f"(not held; the plain versions' control {ctrl_cos:.5f})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -744,11 +1184,14 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t:.1f} s")
 
     print("[3] kernel phase")
-    records = [kernel_phase(torch, pa), *flash_kernel_phase(torch)]
+    records = [kernel_phase(torch, pa), *flash_kernel_phase(torch),
+               *general_flash_phase(torch)]
     print("[4] engine phase")
     launches = engine_phase(torch, args.seed)
     print("[5] training phase")
     launches.update(train_phase(torch, args.seed, card))
+    print("[6] BERT phase")
+    launches.update(bert_phase(torch, args.seed, card))
     for rec in records:
         rec["launches"] = launches[rec["name"]]
 

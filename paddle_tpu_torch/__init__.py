@@ -1,9 +1,11 @@
 """paddle_tpu_torch: the PyTorch/CUDA port of paddle_tpu for NVIDIA Hopper.
 
 `paddle_tpu` (JAX, TPU) is the reference this package is held against.
-The port grows slice by slice; this slice serves GPT through the paged
-continuous-batching `serving.Engine`, with the paged-attention decode
-kernel written by hand for Hopper (`kernels/csrc/paged_attention.cu`).
+The port grows slice by slice. It serves GPT through the paged
+continuous-batching `serving.Engine`, trains GPT and pretrains BERT
+through `distributed.SpmdTrainStep`; attention runs in kernels written by
+hand for Hopper (`kernels/csrc/`: paged decode attention, the pair-major
+qkv flash kernels, the general [B,S,H,D] flash kernels).
 
 Nothing here imports ``jax`` or ``paddle_tpu``. Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"`` (see `device`).

@@ -18,7 +18,8 @@ import torch
 
 #: launches per kernel since the last `reset_kernel_launch_counts`
 _LAUNCHES = {"paged_attention": 0, "flash_attention_qkv_fwd": 0,
-             "flash_attention_qkv_bwd": 0}
+             "flash_attention_qkv_bwd": 0, "flash_attention_fwd": 0,
+             "flash_attention_bwd": 0}
 
 
 def kernel_launch_counts() -> dict:
@@ -64,5 +65,42 @@ def flash_attention_qkv_enabled(qkv, n_heads, attn_mask, dropout_p) -> bool:
             and n_heads % 2 == 0)
 
 
+def _mask_supported(mask, query, key) -> bool:
+    """``_mask_fallback_reason`` (``paddle_tpu/kernels/__init__.py:
+    100-128``) is None: a mask that needs no gradient, broadcast over
+    heads, of shape ``[B|1, 1, Sq|1, Sk]``, ``[1, Sq|1, Sk]`` or
+    ``[Sq|1, Sk]`` (`flash_attention.normalize_mask_bias` takes these)."""
+    if mask.requires_grad:
+        return False
+    b, s_q, s_k = query.shape[0], query.shape[1], key.shape[1]
+    shape = tuple(mask.shape)
+    if len(shape) == 4:
+        return (shape[1] == 1 and shape[0] in (1, b)
+                and shape[2] in (1, s_q) and shape[3] == s_k)
+    if len(shape) == 3:
+        return shape[0] == 1 and shape[1] in (1, s_q) and shape[2] == s_k
+    if len(shape) == 2:
+        return shape[0] in (1, s_q) and shape[1] == s_k
+    return False
+
+
+def flash_attention_enabled(query, key, attn_mask, dropout_p) -> bool:
+    """Gate of the general ``[B, S, H, D]`` flash path, the reference's
+    own (``paddle_tpu/kernels/__init__.py:131-162`` with Pallas
+    available): 4-D query, ``0 <= dropout_p < 1``, a mask the kernels
+    stream (`_mask_supported`), and ``S_q % 128 == 0 and S_k % 128 ==
+    0`` (``FLAGS_flash_nonmultiple_seq`` is False by default,
+    ``utils/flags.py:64``). Where it refuses, the caller composes, as the
+    reference does. It does not look at the device."""
+    if query.dim() != 4:
+        return False
+    if not 0.0 <= dropout_p < 1.0:
+        return False
+    if attn_mask is not None and not _mask_supported(attn_mask, query, key):
+        return False
+    return query.shape[1] % 128 == 0 and key.shape[1] % 128 == 0
+
+
 __all__ = ["kernel_launch_counts", "reset_kernel_launch_counts",
-           "count_launch", "runs_plain", "flash_attention_qkv_enabled"]
+           "count_launch", "runs_plain", "flash_attention_qkv_enabled",
+           "flash_attention_enabled"]

@@ -6,11 +6,11 @@ into ``kernels/_build/lib<name>-<hash>.so`` with::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o lib<name>-<hash>.so <name>.cu
 
-at first use. The hash covers the source and the flags, so an edited
-source builds anew and an unchanged one loads the library already
-built. `build_all` starts one ``nvcc`` per source, all at once, and
-waits for all of them. A build or load failure raises; nothing falls
-back.
+at first use. The hash covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header builds
+anew and an unchanged one loads the library already built.
+`build_all` starts one ``nvcc`` per source, all at once, and waits for
+all of them. A build or load failure raises; nothing falls back.
 """
 from __future__ import annotations
 
@@ -50,9 +50,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        src = f.read()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    files = [name + ".cu"] + sorted(f for f in os.listdir(CSRC)
+                                    if f.endswith(".cuh"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in files:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            h.update(fh.read())
+    digest = h.hexdigest()
     return os.path.join(BUILD_DIR, f"lib{name}-{digest[:16]}.so")
 
 

@@ -1,10 +1,12 @@
-"""Pair-major qkv flash attention: the Hopper kernels and their plain versions.
+"""Flash attention: the Hopper kernels and their plain versions.
 
-Counterpart: ``paddle_tpu/kernels/flash_attention.py``. The TPU kernels
+Counterpart: ``paddle_tpu/kernels/flash_attention.py``. Two families of
+TPU kernels there are replaced by hand-written CUDA kernels here; the
+header note of each source says how they work and what bounds them.
+
+B1, the pair-major qkv kernels (``csrc/flash_attention_qkv.cu``):
 ``_fwd_qkv_kernel`` (:849, launched by ``_fwd_qkv`` :905) and
-``_bwd_qkv_kernel`` (:876, launched by ``_bwd_qkv`` :936) are replaced by
-the hand-written CUDA kernels in ``csrc/flash_attention_qkv.cu``; its
-header note says how they work and what bounds them.
+``_bwd_qkv_kernel`` (:876, launched by ``_bwd_qkv`` :936).
 
 - `flash_attention_qkv_fwd` / `flash_attention_qkv_bwd`: the kernel
   wrappers (CUDA tensors only).
@@ -13,27 +15,44 @@ header note says how they work and what bounds them.
 - `flash_attention_qkv`: the dispatcher with the contract of
   ``paddle_tpu.kernels.flash_attention.flash_attention_qkv`` (:994),
   differentiable through `_FlashQKV`.
+- `flash_attention_qkv3` (:1167): the which-major ``[q|k|v]`` variant,
+  its plain version only (B1's math on the repacked projection); its
+  kernels are ROADMAP B5 and a CUDA tensor raises.
 
-The contract the kernels and plain versions share:
+B2, the general ``[B, S, H, D]`` kernels (``csrc/flash_attention.cu``):
+``_fwd_kernel`` (:207, via ``_fwd`` :319), ``_merged_bwd_kernel`` (:536,
+via ``_bwd_merged`` :575), ``_dq_kernel`` (:375) and ``_dkdv_kernel``
+(:427, both via ``_bwd`` :622). One backward covers the last three: the
+TPU's merged/split choice is a VMEM artifact.
 
-- ``qkv [B, S, 3*H*D]`` is the PAIR-MAJOR fused projection: pair ``p``'s
-  q at columns ``6Dp + [0, 2D)``, k at ``6Dp + [2D, 4D)``, v at
-  ``6Dp + [4D, 6D)``, head ``h`` of the pair at offset ``hD`` inside
-  each (:861-864). ``o [B, S, H*D]`` is in qkv's dtype; ``lse [B, H, S]``
-  is float32 (the TPU kernel's 8-row broadcast is a tiling artifact);
-  ``dqkv`` is written pair-major into one ``[B, S, 3*H*D]`` tensor.
-- Numerics of ``_packed_head_attn`` (:821-837): scale ``1/sqrt(D)``, the
-  causal mask at ``-1e30``, the denominator ``l`` summed over the raw
-  ``p`` (before dropout), ``o = (p*keep) v / max(l, 1e-30)``,
-  ``lse = m + log(max(l, 1e-30))``; ``p*keep`` is rounded to v's dtype
-  before the product. Backward (``_packed_head_attn_bwd`` :488-533):
-  ``delta = rowsum(dO*O)``, ``p = exp(s - lse)``, ``dv = (p*keep)^T dO``,
-  ``dp = (dO v^T)*keep``, ``ds = p*(dp - delta)*scale`` rounded to q's
-  dtype, ``dk = ds^T q``, ``dq = ds k``.
+- `flash_attention_fwd` / `flash_attention_bwd`: the kernel wrappers.
+- `flash_reference` / `flash_bwd_reference`: the plain versions.
+- `flash_attention`: the entry with the contract of
+  ``flash_attention_fwd`` (:1219-1286), differentiable through `_Flash`;
+  `normalize_mask_bias` (:173-200) and `pick_block` (:1211-1216) are the
+  reference's mask and block rules.
+
+The contract every kernel and plain version here shares:
+
+- Numerics of ``_packed_head_attn`` / ``_fwd_kernel``: ``s = q.k *
+  scale`` in float32 (scale ``1/sqrt(D)`` of the real D), an additive
+  bias added (B2), causal positions (bottom-right aligned, ``off = S_k -
+  S_q``) and keys past S_k replaced by ``-1e30``; the denominator ``l``
+  summed over the raw ``p`` (before dropout), ``o = (p*keep) v /
+  max(l, 1e-30)``, ``lse = m + log(max(l, 1e-30))``; ``p*keep`` is
+  rounded to v's dtype before the product. Backward
+  (``_packed_head_attn_bwd`` :488-533): ``delta = rowsum(dO*O)``,
+  ``p = exp(s - lse)``, ``dv = (p*keep)^T dO``, ``dp = (dO v^T)*keep``,
+  ``ds = p*(dp - delta)*scale`` rounded to q's dtype, ``dk = ds^T q``,
+  ``dq = ds k``. A mask bias gets no gradient (:744-752).
+- ``lse`` is float32 ``[B, H, S_q]`` (the TPU kernels' 8-row broadcast
+  is a tiling artifact).
 - Dropout keeps an element where ``hash_keep_scale`` says so: the
-  reference's interpret-mode hash (:90-116) of (seed, (b, pair, head),
-  global query row, global key column), bit for bit. Kept elements are
-  scaled by ``1/(1-p)``.
+  reference's interpret-mode hash (:90-116), bit for bit. B1 hashes
+  (seed, (b, pair, head)) over the whole sequence; B2 hashes (seed,
+  (b*H + h, row // bq, col // bk)) at (row % bq, col % bk), with the
+  reference's block sizes ``bq``, ``bk`` (`pick_block`). Kept elements
+  are scaled by ``1/(1-p)``.
 """
 from __future__ import annotations
 
@@ -83,7 +102,14 @@ def hash_keep_scale(seed, ids, shape, dropout_p, device=None):
     base = mix32(seed, *ids)
     rows = torch.arange(shape[0], dtype=torch.int64, device=device)[:, None]
     cols = torch.arange(shape[1], dtype=torch.int64, device=device)[None, :]
-    x = (base + _mul32(rows, 0x9E3779B1) + _mul32(cols, 0x85EBCA77)) & _M32
+    return _keep_of(base + _mul32(rows, 0x9E3779B1)
+                    + _mul32(cols, 0x85EBCA77), dropout_p)
+
+
+def _keep_of(x, dropout_p):
+    """The avalanche and threshold of ``_hash_keep_scale`` on int64
+    ``x = base + row*C1 + col*C2`` (not yet reduced mod 2**32)."""
+    x = x & _M32
     x = x ^ (x >> 16)
     x = _mul32(x, 0x7FEB352D)
     x = x ^ (x >> 15)
@@ -95,14 +121,36 @@ def hash_keep_scale(seed, ids, shape, dropout_p, device=None):
                        torch.zeros_like(keep))
 
 
+def _seed_int(seed) -> int:
+    return int(seed.reshape(-1)[0]) if torch.is_tensor(seed) else int(seed)
+
+
 def _keep_tiles(seed, b, n_heads, s, dropout_p, device):
     """Keep/scale tiles of every (batch, head): ``[B, H, S, S]`` float32,
     ids ``(b, pair, head-in-pair)`` over the whole sequence (:865)."""
-    seed = int(seed.reshape(-1)[0]) if torch.is_tensor(seed) else int(seed)
+    seed = _seed_int(seed)
     return torch.stack([torch.stack([
         hash_keep_scale(seed, (bi, hg // 2, hg % 2), (s, s), dropout_p,
                         device) for hg in range(n_heads)])
         for bi in range(b)])
+
+
+def _block_keep(seed, n_bh, s_q, s_k, bq, bk, dropout_p, device):
+    """B2's keep/scale of every score, ``[B*H, S_q, S_k]`` float32: score
+    (r, c) of head ``i = b*H + h`` takes the tile of ids ``(i, r // bq,
+    c // bk)`` at ``(r % bq, c % bk)`` (``_fwd_kernel`` :256; the merged
+    backward's ``(i, 0, 0)``, :563, is the same when one block covers the
+    sequence)."""
+    x = torch.full((n_bh, 1, 1), _seed_int(seed) & _M32, dtype=torch.int64,
+                   device=device)
+    r = torch.arange(s_q, dtype=torch.int64, device=device)
+    c = torch.arange(s_k, dtype=torch.int64, device=device)
+    for t in (torch.arange(n_bh, dtype=torch.int64, device=device)[:, None,
+                                                                   None],
+              (r // bq)[None, :, None], (c // bk)[None, None, :]):
+        x = x ^ ((t + 0x9E3779B9 + ((x << 6) & _M32) + (x >> 2)) & _M32)
+    return _keep_of(x + _mul32(r % bq, 0x9E3779B1)[None, :, None]
+                    + _mul32(c % bk, 0x85EBCA77)[None, None, :], dropout_p)
 
 
 # ----------------------------------------------------------- plain versions
@@ -116,11 +164,17 @@ def _heads(qkv, n_heads):
             .float() for i in range(3)]
 
 
-def _scores(q, k, scale, causal):
+def _scores(q, k, scale, causal, bias=None):
+    """``q.k * scale`` over head-major ``[B, H, S, D]`` float32 tensors,
+    plus the ``[Bm, Sqm, Sk]`` bias, then ``-1e30`` past the bottom-right
+    causal diagonal."""
     sc = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    if bias is not None:
+        sc = sc + bias[:, None]
     if causal:
-        s = sc.shape[-1]
-        tri = torch.ones((s, s), dtype=torch.bool, device=sc.device).tril()
+        s_q, s_k = sc.shape[-2], sc.shape[-1]
+        tri = torch.ones((s_q, s_k), dtype=torch.bool,
+                         device=sc.device).tril(s_k - s_q)
         sc = sc.masked_fill(~tri, _MASKED)
     return sc
 
@@ -231,10 +285,10 @@ def _check_qkv(kernel, qkv, n_heads, dropout_p, seed):
     return b, s, d
 
 
-def _raise_on(err, kernel):
+def _raise_on(err, kernel, err_str):
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}"
-                           f" ({_kernel_fns()[2](err).decode()})")
+                           f" ({err_str(err).decode()})")
 
 
 def flash_attention_qkv_fwd(qkv, n_heads, causal, dropout_p=0.0, seed=None):
@@ -246,14 +300,14 @@ def flash_attention_qkv_fwd(qkv, n_heads, causal, dropout_p=0.0, seed=None):
     o = torch.empty((b, s, n_heads * d), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((b, n_heads, s), dtype=torch.float32,
                       device=qkv.device)
-    fwd, _, _ = _kernel_fns()
+    fwd, _, err_str = _kernel_fns()
     err = fwd(qkv.data_ptr(), seed.data_ptr() if dropout_p else None,
               o.data_ptr(), lse.data_ptr(), b, s, n_heads, d, int(causal),
               int(dropout_p > 0), float(np.float32(1.0 - dropout_p)),
               float(np.float32(1.0 / math.sqrt(d))), _DTYPE_CODES[qkv.dtype],
               qkv.device.index, torch.cuda.current_stream(qkv.device)
               .cuda_stream)
-    _raise_on(err, _FWD)
+    _raise_on(err, _FWD, err_str)
     count_launch(_FWD)
     return o, lse
 
@@ -278,7 +332,7 @@ def flash_attention_qkv_bwd(qkv, do, o, lse, n_heads, causal, dropout_p=0.0,
     delta = torch.empty((b, n_heads, s), dtype=torch.float32,
                         device=qkv.device)
     dqkv = torch.empty_like(qkv)
-    _, bwd, _ = _kernel_fns()
+    _, bwd, err_str = _kernel_fns()
     err = bwd(qkv.data_ptr(), do.data_ptr(), o.data_ptr(), lse.data_ptr(),
               seed.data_ptr() if dropout_p else None, delta.data_ptr(),
               dqkv.data_ptr(), b, s, n_heads, d, int(causal),
@@ -286,7 +340,7 @@ def flash_attention_qkv_bwd(qkv, do, o, lse, n_heads, causal, dropout_p=0.0,
               float(np.float32(1.0 / math.sqrt(d))), _DTYPE_CODES[qkv.dtype],
               qkv.device.index, torch.cuda.current_stream(qkv.device)
               .cuda_stream)
-    _raise_on(err, _BWD)
+    _raise_on(err, _BWD, err_str)
     count_launch(_BWD)
     return dqkv
 
@@ -322,6 +376,19 @@ class _FlashQKV(torch.autograd.Function):
         return dqkv, None, None, None, None
 
 
+def _seed_tensor(seed, generator, device, dropout_p):
+    """The int32 ``[1]`` dropout seed on ``device`` (None without
+    dropout): ``seed`` (an int or a tensor) or, when None, a draw from
+    ``generator`` (default: the current `core.random` generator)."""
+    if dropout_p <= 0.0:
+        return None
+    if seed is None:
+        return _random.flash_seed(generator
+                                  or _random.current_generator(device))
+    return torch.as_tensor(seed).reshape(-1)[:1].to(device=device,
+                                                    dtype=torch.int32)
+
+
 def flash_attention_qkv(qkv, n_heads, is_causal=False, dropout_p=0.0,
                         seed=None, generator=None):
     """Flash attention straight off the pair-major fused projection
@@ -330,20 +397,338 @@ def flash_attention_qkv(qkv, n_heads, is_causal=False, dropout_p=0.0,
     wrappers raise). ``dropout_p``: in-kernel attention dropout, seeded
     by ``seed`` (an int or an int32 tensor) or, when None, by a draw
     from ``generator`` (default: the current `core.random` generator)."""
-    seed_t = None
-    if dropout_p > 0.0:
-        if seed is None:
-            gen = generator or _random.current_generator(qkv.device)
-            seed_t = _random.flash_seed(gen)
-        else:
-            seed_t = torch.as_tensor(seed).reshape(-1)[:1].to(
-                device=qkv.device, dtype=torch.int32)
+    seed_t = _seed_tensor(seed, generator, qkv.device, dropout_p)
     if not runs_plain(qkv, _FWD):
         qkv = qkv.contiguous()
     return _FlashQKV.apply(qkv, seed_t, int(n_heads), bool(is_causal),
                            float(dropout_p))
 
 
+def flash_attention_qkv3(qkv, n_heads, is_causal=False, dropout_p=0.0,
+                         seed=None, generator=None):
+    """Flash attention on a WHICH-major fused projection ``[B, S, 3*H*D]``
+    (``[q|k|v]`` regions, head ``h`` at columns ``hD`` of each) ->
+    ``[B, S, H*D]``: ``flash_attention_qkv3`` (:1167), whose kernels
+    (:1018, :1044) are B1's computation with the same ids (b, pair,
+    head). Only its plain version is ported: the projection is repacked
+    pair-major and runs B1's plain math. On a CUDA tensor it raises; the
+    Hopper kernels are ROADMAP B5."""
+    if not runs_plain(qkv, "flash_attention_qkv3"):
+        raise NotImplementedError(
+            "flash_attention_qkv3 on a CUDA tensor: the which-major qkv "
+            "kernels are a later slice (ROADMAP B5)")
+    b, s, hd3 = qkv.shape
+    d = hd3 // (3 * n_heads)
+    pair_major = qkv.reshape(b, s, 3, n_heads // 2, 2 * d).transpose(2, 3)
+    return flash_attention_qkv(pair_major.reshape(b, s, hd3), n_heads,
+                               is_causal, dropout_p, seed, generator)
+
+
+# =================================================== B2: [B, S, H, D]
+_GEN_SOURCE = "flash_attention"
+_GEN_FWD = "flash_attention_fwd"
+_GEN_BWD = "flash_attention_bwd"
+DEFAULT_BLOCK = 1024        # the reference's DEFAULT_BLOCK_Q/K (:39-40)
+_gen_fns = None
+
+
+def normalize_mask_bias(mask):
+    """``_normalize_mask_bias`` (:173-200): a mask of shape ``[B|1, 1,
+    Sq|1, Sk]``, ``[1, Sq|1, Sk]`` or ``[Sq|1, Sk]`` as the additive
+    float32 bias ``[Bm, Sqm, Sk]``; a bool mask (True = attend) becomes
+    0 / -1e9. A head-varying mask raises: the sdpa gate sends it to the
+    composition, and a direct caller must not get head 0's mask applied
+    to every head."""
+    if mask.dim() == 4:
+        if mask.shape[1] != 1:
+            raise ValueError(
+                "flash attention masks must broadcast over heads (4D shape "
+                f"[B|1, 1, Sq|1, Sk]); got head dim {mask.shape[1]} in "
+                f"{tuple(mask.shape)}. Per-head masks need the composition "
+                "(scaled_dot_product_attention routes them there)")
+        mask = mask[:, 0]
+    elif mask.dim() == 2:
+        mask = mask[None]
+    elif mask.dim() != 3:
+        raise ValueError(f"unsupported attention mask ndim {mask.dim()} "
+                         "(expected 2, 3 or 4)")
+    if mask.dtype == torch.bool:
+        zero = torch.zeros((), dtype=torch.float32, device=mask.device)
+        return torch.where(mask, zero, zero - 1e9)
+    return mask.float()
+
+
+def pick_block(limit, seq):
+    """``_pick_block`` (:1211-1216): the largest multiple of 128 that
+    divides ``seq`` and is at most ``limit`` (128 at least)."""
+    cand = min(limit, seq) // 128 * 128
+    while cand > 128 and seq % cand:
+        cand -= 128
+    return max(cand, 128)
+
+
+def _blocks(s_q, s_k, block_q=DEFAULT_BLOCK, block_k=DEFAULT_BLOCK):
+    """The reference's block sizes for these lengths (:1250-1252): the
+    tiling that places B2's dropout hash."""
+    return (pick_block(block_q, -(-s_q // 128) * 128),
+            pick_block(block_k, -(-s_k // 128) * 128))
+
+
+def flash_reference(q, k, v, causal, bias=None, dropout_p=0.0, seed=None,
+                    bq=None, bk=None, scale=None):
+    """The plain version of `flash_attention_fwd`, in float32: ``(o [B,
+    Sq, H, D] in q's dtype, lse [B, H, Sq] float32)``. ``bias``: float32
+    ``[Bm, Sqm, Sk]``; ``bq``/``bk``: the reference's blocks (default:
+    its default tiling); ``scale``: default ``1/sqrt(D)``."""
+    b, s_q, h, d = q.shape
+    s_k = k.shape[1]
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    qh, kh, vh = (t.float().transpose(1, 2) for t in (q, k, v))
+    sc = _scores(qh, kh, scale, causal, bias)
+    m = sc.amax(dim=-1, keepdim=True)
+    p = torch.exp(sc - m)
+    l = p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
+    if dropout_p:
+        dbq, dbk = _blocks(s_q, s_k)
+        p = p * _block_keep(seed, b * h, s_q, s_k, bq or dbq, bk or dbk,
+                            dropout_p, q.device).reshape(b, h, s_q, s_k)
+    p = p.to(v.dtype).float()
+    o = torch.einsum("bhqk,bhkd->bhqd", p, vh) / l
+    lse = (m + torch.log(l))[..., 0]
+    return o.transpose(1, 2).contiguous().to(q.dtype), lse
+
+
+def flash_bwd_reference(q, k, v, o, lse, do, causal, bias=None,
+                        dropout_p=0.0, seed=None, bq=None, bk=None,
+                        scale=None):
+    """The plain version of `flash_attention_bwd`, in float32: ``(dq, dk,
+    dv)`` shaped and typed as ``q``, ``k``, ``v``."""
+    b, s_q, h, d = q.shape
+    s_k = k.shape[1]
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    qh, kh, vh, dof, of = (t.float().transpose(1, 2)
+                           for t in (q, k, v, do, o))
+    delta = (dof * of).sum(dim=-1, keepdim=True)
+    p = torch.exp(_scores(qh, kh, scale, causal, bias) - lse[..., None])
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vh)
+    pd = p
+    if dropout_p:
+        dbq, dbk = _blocks(s_q, s_k)
+        keep = _block_keep(seed, b * h, s_q, s_k, bq or dbq, bk or dbk,
+                           dropout_p, q.device).reshape(b, h, s_q, s_k)
+        pd = p * keep
+        dp = dp * keep
+    dv = torch.einsum("bhqk,bhqd->bhkd", pd.to(do.dtype).float(), dof)
+    ds = (p * (dp - delta) * scale).to(q.dtype).float()
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qh)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kh)
+    return tuple(t.transpose(1, 2).contiguous().to(ref.dtype)
+                 for t, ref in ((dq, q), (dk, k), (dv, v)))
+
+
+def _gen_kernel_fns():
+    """``(fwd, bwd, error_string)`` of ``csrc/flash_attention.cu``."""
+    global _gen_fns
+    if _gen_fns is None:
+        lib = _build.load(_GEN_SOURCE)
+        # B, Sq, Sk, H, D, bias_b, bias_q, causal, use_drop; keep, scale;
+        # bq, bk, dtype, device
+        shape = [ctypes.c_int] * 9 + [ctypes.c_float] * 2 + [ctypes.c_int] * 4
+        fwd = lib.ptt_flash_fwd
+        fwd.argtypes = [ctypes.c_void_p] * 7 + shape + [ctypes.c_void_p]
+        fwd.restype = ctypes.c_int
+        bwd = lib.ptt_flash_bwd
+        bwd.argtypes = [ctypes.c_void_p] * 12 + shape + [ctypes.c_void_p]
+        bwd.restype = ctypes.c_int
+        err_str = lib.ptt_error_string
+        err_str.argtypes = [ctypes.c_int]
+        err_str.restype = ctypes.c_char_p
+        _gen_fns = (fwd, bwd, err_str)
+    return _gen_fns
+
+
+def _check_general(kernel, q, k, v, bias, dropout_p, seed, bq, bk):
+    """Device, dtype, shape and layout checks shared by both wrappers;
+    returns ``(b, s_q, s_k, h, d)``."""
+    _check(q.device.type == "cuda", kernel,
+           f"needs CUDA tensors, got {q.device}")
+    _check(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, kernel,
+           "q, k and v must be [B, S, H, D]")
+    b, s_q, h, d = q.shape
+    s_k = k.shape[1]
+    _check(tuple(k.shape) == (b, s_k, h, d) and v.shape == k.shape, kernel,
+           f"k and v must be [{b}, S_k, {h}, {d}], got {tuple(k.shape)} "
+           f"and {tuple(v.shape)}")
+    _check(d in (64, 128), kernel, f"head_dim must be 64 or 128, got {d}")
+    _check(q.dtype in _DTYPE_CODES and k.dtype == q.dtype
+           and v.dtype == q.dtype, kernel,
+           f"q, k and v must share float32 or bfloat16, got {q.dtype}, "
+           f"{k.dtype}, {v.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check(t.device == q.device and t.is_contiguous()
+               and t.data_ptr() % 16 == 0, kernel,
+               f"{name} must be contiguous, 16-byte aligned, on {q.device}")
+    if bias is not None:
+        _check(bias.device == q.device and bias.dtype == torch.float32
+               and bias.dim() == 3 and bias.is_contiguous()
+               and bias.shape[0] in (1, b) and bias.shape[1] in (1, s_q)
+               and bias.shape[2] == s_k, kernel,
+               f"bias must be contiguous float32 [1|{b}, 1|{s_q}, {s_k}] "
+               f"on {q.device}, got {bias.dtype} {tuple(bias.shape)}")
+    _check(0.0 <= dropout_p < 1.0, kernel,
+           f"dropout_p must lie in [0, 1), got {dropout_p}")
+    if dropout_p:
+        _check(seed is not None and seed.device == q.device
+               and seed.dtype == torch.int32 and seed.numel() >= 1, kernel,
+               "dropout needs an int32 seed tensor on q's device")
+        _check(bq % 128 == 0 and bk % 128 == 0 and bq > 0 and bk > 0,
+               kernel, f"bq and bk must be multiples of 128, got {bq}, {bk}")
+    return b, s_q, s_k, h, d
+
+
+def _shape_args(b, s_q, s_k, h, d, bias, causal, dropout_p, bq, bk, scale,
+                dtype, device):
+    return (b, s_q, s_k, h, d,
+            1 if bias is None else bias.shape[0],
+            1 if bias is None else bias.shape[1], int(causal),
+            int(dropout_p > 0), float(np.float32(1.0 - dropout_p)),
+            float(np.float32(scale)), bq, bk, _DTYPE_CODES[dtype],
+            device.index, torch.cuda.current_stream(device).cuda_stream)
+
+
+def flash_attention_fwd(q, k, v, causal, bias=None, dropout_p=0.0, seed=None,
+                        bq=None, bk=None, scale=None):
+    """Launch the forward kernel: q ``[B, Sq, H, D]``, k and v ``[B, Sk,
+    H, D]`` (CUDA, contiguous, float32 or bfloat16; D 64 or 128, any
+    lengths). ``bias``: contiguous float32 ``[1|B, 1|Sq, Sk]``;
+    ``seed``: int32 ``[1]`` on the same device when ``dropout_p > 0``;
+    ``bq``/``bk``: the reference's blocks (default: its default tiling);
+    ``scale``: default ``1/sqrt(D)``. Returns ``(o [B, Sq, H, D], lse [B,
+    H, Sq])``."""
+    dbq, dbk = _blocks(q.shape[1], k.shape[1])
+    bq, bk = bq or dbq, bk or dbk
+    b, s_q, s_k, h, d = _check_general(_GEN_FWD, q, k, v, bias, dropout_p,
+                                       seed, bq, bk)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
+    fwd, _, err_str = _gen_kernel_fns()
+    err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+              None if bias is None else bias.data_ptr(),
+              seed.data_ptr() if dropout_p else None, o.data_ptr(),
+              lse.data_ptr(),
+              *_shape_args(b, s_q, s_k, h, d, bias, causal, dropout_p, bq,
+                           bk, scale, q.dtype, q.device))
+    _raise_on(err, _GEN_FWD, err_str)
+    count_launch(_GEN_FWD)
+    return o, lse
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal, bias=None,
+                        dropout_p=0.0, seed=None, bq=None, bk=None,
+                        scale=None):
+    """Launch the backward kernels: ``(dq, dk, dv)`` from the forward's
+    inputs, ``o``, ``lse`` and the cotangent ``do`` (q's shape and
+    dtype). One call runs the ``delta = rowsum(dO*O)`` pre-pass, the
+    dk/dv pass and the dq pass; it counts as one launch."""
+    dbq, dbk = _blocks(q.shape[1], k.shape[1])
+    bq, bk = bq or dbq, bk or dbk
+    b, s_q, s_k, h, d = _check_general(_GEN_BWD, q, k, v, bias, dropout_p,
+                                       seed, bq, bk)
+    for name, t, shape, dt in (("do", do, q.shape, q.dtype),
+                               ("o", o, q.shape, q.dtype),
+                               ("lse", lse, (b, h, s_q), torch.float32)):
+        _check(t.device == q.device and tuple(t.shape) == tuple(shape)
+               and t.dtype == dt and t.is_contiguous()
+               and t.data_ptr() % 16 == 0, _GEN_BWD,
+               f"{name} must be contiguous 16-byte aligned {dt} "
+               f"{tuple(shape)} on {q.device}, got {t.dtype} "
+               f"{tuple(t.shape)} on {t.device}")
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    delta = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    _, bwd, err_str = _gen_kernel_fns()
+    err = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+              do.data_ptr(), lse.data_ptr(),
+              None if bias is None else bias.data_ptr(),
+              seed.data_ptr() if dropout_p else None, delta.data_ptr(),
+              dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+              *_shape_args(b, s_q, s_k, h, d, bias, causal, dropout_p, bq,
+                           bk, scale, q.dtype, q.device))
+    _raise_on(err, _GEN_BWD, err_str)
+    count_launch(_GEN_BWD)
+    return dq, dk, dv
+
+
+class _Flash(torch.autograd.Function):
+    """``custom_vjp`` of ``_flash`` (:728-755): forward saves ``(q, k, v,
+    bias, seed, o, lse)``, backward recomputes P from lse; the bias gets
+    no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, seed, causal, dropout_p, bq, bk, scale):
+        args = (causal, bias, dropout_p, seed, bq, bk, scale)
+        if runs_plain(q, _GEN_FWD):
+            o, lse = flash_reference(q, k, v, *args)
+        else:
+            o, lse = flash_attention_fwd(q, k, v, *args)
+        ctx.save_for_backward(q, k, v, bias, seed, o, lse)
+        ctx.cfg = (causal, dropout_p, bq, bk, scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias, seed, o, lse = ctx.saved_tensors
+        causal, dropout_p, bq, bk, scale = ctx.cfg
+        do = do.to(q.dtype).contiguous()
+        args = (causal, bias, dropout_p, seed, bq, bk, scale)
+        if runs_plain(q, _GEN_BWD):
+            grads = flash_bwd_reference(q, k, v, o, lse, do, *args)
+        else:
+            grads = flash_attention_bwd(q, k, v, o, lse, do, *args)
+        return (*grads, None, None, None, None, None, None, None)
+
+
+def flash_attention(query, key, value, is_causal=False, attn_mask=None,
+                    dropout_p=0.0, seed=None, block_q=DEFAULT_BLOCK,
+                    block_k=DEFAULT_BLOCK, generator=None):
+    """Flash attention on ``[B, S, H, D]`` -> ``[B, Sq, H, D]``,
+    differentiable in q, k and v (``flash_attention_fwd`` :1219). A CPU
+    tensor runs the plain version; a CUDA tensor launches the kernels (or
+    the wrappers raise). Any lengths; causal masking is bottom-right
+    aligned. ``attn_mask``: bool (True = attend) or additive, of a shape
+    `normalize_mask_bias` takes; it gets no gradient. ``dropout_p``:
+    in-kernel attention dropout, seeded by ``seed`` (an int or an int32
+    tensor) or, when None, by a draw from ``generator`` (default: the
+    current `core.random` generator). ``block_q``/``block_k`` place the
+    dropout hash as the reference's blocks do. On a card a head_dim below
+    64 (or between 64 and 128) is zero-padded to 64 (128) for the kernel;
+    above 128 it raises."""
+    b, s_q, h, d = query.shape
+    if d > 128:
+        raise NotImplementedError(
+            f"flash_attention with head_dim {d} > 128: the kernels take D "
+            "up to 128; larger heads are B2's remainder (ROADMAP B2)")
+    bq, bk = _blocks(s_q, key.shape[1], block_q, block_k)
+    bias = None
+    if attn_mask is not None:
+        bias = normalize_mask_bias(attn_mask.detach()).to(query.device)
+    seed_t = _seed_tensor(seed, generator, query.device, dropout_p)
+    scale = 1.0 / math.sqrt(d)
+    cfg = (bool(is_causal), float(dropout_p), bq, bk, scale)
+    if runs_plain(query, _GEN_FWD):
+        return _Flash.apply(query, key, value, bias, seed_t, *cfg)
+    dp = 64 if d <= 64 else 128
+    q, k, v = (torch.nn.functional.pad(t, (0, dp - d)) if dp != d
+               else t.contiguous() for t in (query, key, value))
+    out = _Flash.apply(q, k, v, None if bias is None else bias.contiguous(),
+                       seed_t, *cfg)
+    return out[..., :d] if dp != d else out
+
+
 __all__ = ["mix32", "hash_keep_scale", "flash_qkv_reference",
            "flash_qkv_bwd_reference", "flash_attention_qkv_fwd",
-           "flash_attention_qkv_bwd", "flash_attention_qkv"]
+           "flash_attention_qkv_bwd", "flash_attention_qkv",
+           "flash_attention_qkv3", "normalize_mask_bias", "pick_block",
+           "flash_reference", "flash_bwd_reference", "flash_attention_fwd",
+           "flash_attention_bwd", "flash_attention"]

@@ -1,19 +1,22 @@
-"""Move GPT weights between ``paddle_tpu`` and the port.
+"""Move GPT and BERT weights between ``paddle_tpu`` and the port.
 
 `load_paddle_tpu_state_dict` loads a ``paddle_tpu`` state dict into the
 port's model; `export_paddle_tpu_state_dict` is its inverse (the port's
 parameters as numpy arrays under the reference's names).
 
-The port keeps ``paddle_tpu``'s parameter names and layouts (`models.gpt`:
-``Linear`` weights stay ``[in, out]``, qkv columns stay pair-major), so
-the conversion is a checked copy: every parameter of the model must be
-in the state dict with its exact shape, and nothing else may be, apart
-from the per-layer ``qkv_layout`` markers.
+The port keeps ``paddle_tpu``'s parameter names and layouts (``Linear``
+weights stay ``[in, out]``, GPT's qkv columns stay pair-major), so the
+conversion is a checked copy: every parameter of the model must be in
+the state dict with its exact shape, and nothing else may be, apart
+from GPT's per-layer ``qkv_layout`` markers. A tied parameter (BERT's
+MLM decoder is its word embedding) is one tensor, listed once under its
+first name in both packages, and is copied once.
 
-A ``qkv_layout`` marker (value 1) says the qkv columns are pair-major. A
-state dict without it holds head-major columns (``[q(H*d)|k|v]``, the
-layout of checkpoints saved before pair-major, ``gpt.py:766-795``);
-this loader refuses it instead of computing wrong attention.
+A GPT ``qkv_layout`` marker (value 1) says the qkv columns are
+pair-major. A state dict without it holds head-major columns
+(``[q(H*d)|k|v]``, the layout of checkpoints saved before pair-major,
+``gpt.py:766-795``); this loader refuses it instead of computing wrong
+attention.
 """
 from __future__ import annotations
 
@@ -21,12 +24,19 @@ import numpy as np
 import torch
 
 
+def _gpt_layers(names) -> set:
+    """Indices of the GPT decoder layers among parameter names."""
+    return {int(n.split(".")[2]) for n in names if n.startswith("gpt.h.")}
+
+
 def load_paddle_tpu_state_dict(model, arrays: dict):
     """Copy ``arrays`` (``paddle_tpu`` ``state_dict()`` as numpy arrays,
-    keyed by name) into ``model`` (a `GPTForPretraining`), cast to the
-    model's dtype on the model's device. Returns ``model``."""
+    keyed by name) into ``model`` (a `GPTForPretraining` or a BERT
+    model), cast to the model's dtype on the model's device. Returns
+    ``model``."""
     arrays = dict(arrays)
-    for i in range(model.config.num_hidden_layers):
+    params = dict(model.named_parameters())
+    for i in sorted(_gpt_layers(params)):
         key = f"gpt.h.{i}.attn.qkv_layout"
         marker = arrays.pop(key, None)
         if marker is None:
@@ -38,7 +48,6 @@ def load_paddle_tpu_state_dict(model, arrays: dict):
         if int(np.asarray(marker)) != 1:
             raise ValueError(f"'{key}' = {int(np.asarray(marker))}: unknown "
                              "qkv layout (1 = pair-major)")
-    params = dict(model.named_parameters())
     missing = sorted(set(params) - set(arrays))
     unexpected = sorted(set(arrays) - set(params))
     if missing or unexpected:
@@ -57,14 +66,14 @@ def load_paddle_tpu_state_dict(model, arrays: dict):
 
 def export_paddle_tpu_state_dict(model_or_params) -> dict:
     """The port's parameters as numpy arrays under ``paddle_tpu``'s names,
-    plus the per-layer ``qkv_layout`` markers (1 = pair-major), so that
+    plus GPT's per-layer ``qkv_layout`` markers (1 = pair-major), so that
     `load_paddle_tpu_state_dict` (or paddle_tpu's ``set_state_dict``)
-    takes them back. ``model_or_params``: a `GPTForPretraining`, or a
-    name -> tensor dict (a train step's params). bfloat16 values come
-    out as float32 (numpy has no bfloat16)."""
+    takes them back. ``model_or_params``: a model, or a name -> tensor
+    dict (a train step's params). bfloat16 values come out as float32
+    (numpy has no bfloat16)."""
     params = (model_or_params if isinstance(model_or_params, dict)
               else dict(model_or_params.named_parameters()))
-    layers = {int(n.split(".")[2]) for n in params if n.startswith("gpt.h.")}
+    layers = _gpt_layers(params)
     out = {}
     for name, t in params.items():
         t = t.detach().cpu()

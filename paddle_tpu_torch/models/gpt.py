@@ -6,8 +6,10 @@ Counterpart: ``paddle_tpu/models/gpt.py``. Ported so far:
   :1272-1278; `GPTPretrainingCriterion`, :1389-1397): dropout modules,
   and the attention's flash branch, which feeds the fused qkv projection
   as it is to `kernels.flash_attention.flash_attention_qkv` (the Hopper
-  kernels on a card) under the reference's own conditions, else the
-  composed branch (`nn.functional.scaled_dot_product_attention`);
+  kernels on a card) under the reference's own conditions, else
+  `nn.functional.scaled_dot_product_attention` (the general flash
+  kernels where its gate takes the mask and shape, else the
+  composition);
 - serving, as the paged engine runs it: the masked prompt pass
   (`GPTModel.prefill`) and the one-token-per-slot paged decode step
   (`GPTModel.decode_slots_paged`), plus the weight-tied LM head and the
@@ -16,9 +18,7 @@ Counterpart: ``paddle_tpu/models/gpt.py``. Ported so far:
 Two layouts are kept from the reference so that a ``paddle_tpu``
 state dict loads key for key (`models.convert`):
 
-- `Linear` stores ``W`` as ``[in, out]`` and computes ``x @ W + b``
-  (``paddle_tpu/nn/functional/common.py:23``), instead of
-  ``nn.Linear``'s ``[out, in]``.
+- `nn.Linear` stores ``W`` as ``[in, out]`` (paddle_tpu's layout).
 - The fused qkv projection's output columns are PAIR-MAJOR
   (``[pair0: q(2d)|k(2d)|v(2d), pair1: ...]``, one whole group for an
   odd head count); `unpack_qkv_pair_major` is the one place that reads
@@ -41,7 +41,7 @@ from ..device import resolve_device, resolve_dtype
 from ..kernels import flash_attention_qkv_enabled, paged_kv
 from ..kernels.flash_attention import flash_attention_qkv
 from ..kernels.paged_attention import paged_decode_attention
-from ..nn import Dropout
+from ..nn import Dropout, Embedding, LayerNorm, Linear, init_weights
 from ..nn.functional import (cross_entropy, mt_attention_core,
                              scaled_dot_product_attention)
 
@@ -91,30 +91,6 @@ def gpt_config(name: str) -> GPTConfig:
     return GPT_CONFIGS[name]
 
 
-class Linear(nn.Module):
-    """``y = x @ W + b`` with ``W [in, out]`` (paddle_tpu's layout)."""
-
-    def __init__(self, in_features, out_features, *, device, dtype):
-        super().__init__()
-        self.weight = nn.Parameter(torch.empty(
-            in_features, out_features, device=device, dtype=dtype))
-        self.bias = nn.Parameter(torch.zeros(out_features, device=device,
-                                             dtype=dtype))
-
-    def forward(self, x):
-        return x @ self.weight + self.bias
-
-
-class LayerNorm(nn.LayerNorm):
-    """LayerNorm computed in float32 and cast back to the input dtype
-    (``paddle_tpu/nn/functional/norm.py:19-39``)."""
-
-    def forward(self, x):
-        return F.layer_norm(x.float(), self.normalized_shape,
-                            self.weight.float(), self.bias.float(),
-                            self.eps).to(x.dtype)
-
-
 def unpack_qkv_pair_major(qkv, n_heads, head_dim):
     """Inverse of the pair-major qkv packing: ``[B, S, 3*H*D]`` -> three
     head-major ``[B, S, H, D]`` tensors."""
@@ -146,9 +122,10 @@ class GPTAttention(nn.Module):
 
         With ``use_flash_attention``, no mask and a shape the gate takes,
         the projection feeds `flash_attention_qkv` as it is (``gpt.py:
-        136-148``). On a CUDA tensor that the gate refuses, the
-        reference would run its general flash kernels (B2), which are not
-        ported: that raises instead of running attention another way."""
+        136-148``). Otherwise the unpacked q, k, v go to
+        `scaled_dot_product_attention` with ``use_flash`` (:149-171):
+        with a mask or a shape the qkv gate refuses, the general flash
+        kernels where that gate takes them, else the composition."""
         b, s, h = x.shape
         dropout_p = self.attn_dropout_p if self.training else 0.0
         qkv = self.qkv_proj(x)
@@ -157,16 +134,11 @@ class GPTAttention(nn.Module):
             out = flash_attention_qkv(qkv, self.num_heads, is_causal=True,
                                       dropout_p=dropout_p)
             return self.resid_dropout(self.out_proj(out))
-        if self.use_flash and qkv.device.type == "cuda":
-            raise NotImplementedError(
-                f"use_flash_attention with attn_mask={attn_mask is not None}"
-                f", S={s}, H={self.num_heads}, D={self.head_dim}: the "
-                "reference runs its general [B,S,H,D] flash kernels here, "
-                "which are a later slice (ROADMAP B2)")
         q, k, v = unpack_qkv_pair_major(qkv, self.num_heads, self.head_dim)
         out = scaled_dot_product_attention(
             q, k, v, attn_mask=attn_mask, dropout_p=dropout_p,
-            is_causal=attn_mask is None, training=self.training)
+            is_causal=attn_mask is None, training=self.training,
+            use_flash=self.use_flash)
         return self.resid_dropout(self.out_proj(out.reshape(b, s, h)))
 
     def _heads(self, x):
@@ -232,9 +204,9 @@ class GPTDecoderLayer(nn.Module):
         super().__init__()
         eps = config.layer_norm_epsilon
         kw = dict(device=device, dtype=dtype)
-        self.ln_1 = LayerNorm(config.hidden_size, eps=eps, **kw)
+        self.ln_1 = LayerNorm(config.hidden_size, epsilon=eps, **kw)
         self.attn = GPTAttention(config, **kw)
-        self.ln_2 = LayerNorm(config.hidden_size, eps=eps, **kw)
+        self.ln_2 = LayerNorm(config.hidden_size, epsilon=eps, **kw)
         self.mlp = GPTMLP(config, **kw)
 
     def forward(self, x, attn_mask=None):
@@ -258,9 +230,9 @@ class GPTEmbeddings(nn.Module):
     def __init__(self, config: GPTConfig, *, device, dtype):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
-        self.word_embeddings = nn.Embedding(config.vocab_size,
-                                            config.hidden_size, **kw)
-        self.position_embeddings = nn.Embedding(
+        self.word_embeddings = Embedding(config.vocab_size,
+                                         config.hidden_size, **kw)
+        self.position_embeddings = Embedding(
             config.max_position_embeddings, config.hidden_size, **kw)
         self.dropout = Dropout(config.hidden_dropout_prob)
 
@@ -271,8 +243,8 @@ class GPTEmbeddings(nn.Module):
             b, s = input_ids.shape
             position_ids = torch.arange(s, device=input_ids.device).expand(
                 b, s)
-        return self.dropout(self.word_embeddings(input_ids.long())
-                            + self.position_embeddings(position_ids.long()))
+        return self.dropout(self.word_embeddings(input_ids)
+                            + self.position_embeddings(position_ids))
 
 
 class GPTModel(nn.Module):
@@ -286,7 +258,7 @@ class GPTModel(nn.Module):
         self.h = nn.ModuleList([GPTDecoderLayer(config, **kw)
                                 for _ in range(config.num_hidden_layers)])
         self.ln_f = LayerNorm(config.hidden_size,
-                              eps=config.layer_norm_epsilon, **kw)
+                              epsilon=config.layer_norm_epsilon, **kw)
 
     def forward(self, input_ids, position_ids=None, attn_mask=None,
                 caches=None):
@@ -348,7 +320,7 @@ class GPTForPretraining(nn.Module):
             config = gpt_config(config)
         dev = resolve_device(device)
         self.gpt = GPTModel(config, device=dev, dtype=resolve_dtype(dtype))
-        self._init_weights(seed)
+        init_weights(self, seed, config.initializer_range)
         self.requires_grad_(False)
         self.eval()
 
@@ -363,19 +335,6 @@ class GPTForPretraining(nn.Module):
     @property
     def dtype(self) -> torch.dtype:
         return self.gpt.embeddings.word_embeddings.weight.dtype
-
-    @torch.no_grad()
-    def _init_weights(self, seed):
-        gen = torch.Generator(device=self.device).manual_seed(int(seed))
-        std = self.config.initializer_range
-        for mod in self.modules():
-            if isinstance(mod, (Linear, nn.Embedding)):
-                mod.weight.normal_(0.0, std, generator=gen)
-            if isinstance(mod, Linear):
-                mod.bias.zero_()
-            elif isinstance(mod, nn.LayerNorm):
-                mod.weight.fill_(1.0)
-                mod.bias.zero_()
 
     def _logits(self, hidden):
         """The weight-tied LM head, the only logits projection
@@ -440,7 +399,6 @@ class GPTPretrainingCriterion(nn.Module):
         return loss.mean()
 
 
-__all__ = ["GPTConfig", "GPT_CONFIGS", "gpt_config", "Linear", "LayerNorm",
-           "unpack_qkv_pair_major", "GPTAttention", "GPTMLP",
-           "GPTDecoderLayer", "GPTEmbeddings", "GPTModel",
+__all__ = ["GPTConfig", "GPT_CONFIGS", "gpt_config", "unpack_qkv_pair_major",
+           "GPTAttention", "GPTMLP", "GPTDecoderLayer", "GPTEmbeddings", "GPTModel",
            "GPTForPretraining", "GPTPretrainingCriterion"]

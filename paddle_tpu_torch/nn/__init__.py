@@ -1,7 +1,14 @@
-"""Neural-network pieces of the port: `functional`, `Dropout`, global-norm
-clipping (`clip`)."""
+"""Neural-network pieces of the port: `functional`, the layers with
+paddle_tpu's layouts (`Linear`, `Embedding`, `LayerNorm`, `Dropout`),
+the transformer layers (`MultiHeadAttention`, `TransformerEncoderLayer`)
+and global-norm clipping (`clip`)."""
 from . import functional
 from .clip import ClipGradByGlobalNorm
+from .common import Embedding, Linear, init_weights
 from .layer import Dropout
+from .norm import LayerNorm
+from .transformer import MultiHeadAttention, TransformerEncoderLayer
 
-__all__ = ["functional", "ClipGradByGlobalNorm", "Dropout"]
+__all__ = ["functional", "ClipGradByGlobalNorm", "Dropout", "Embedding",
+           "LayerNorm", "Linear", "MultiHeadAttention",
+           "TransformerEncoderLayer", "init_weights"]

@@ -1,4 +1,4 @@
-"""Functional pieces the GPT slices need.
+"""Functional pieces the GPT and BERT slices need.
 
 - `mt_attention_core` is the torch copy of
   ``paddle_tpu/incubate/nn/functional.py:200-222`` ``_mt_attention_core``,
@@ -7,11 +7,15 @@
   ``finfo(float32).min / 2``, softmax in float32, then a cast back to the
   query dtype before ``P . V``. The engine's prefill attention runs here
   (the JAX package computes it outside any Pallas kernel too).
-- `scaled_dot_product_attention` is the composition of
-  ``paddle_tpu/nn/functional/common.py:283-310`` (the branch GPT's
-  attention takes without flash): scores in the query dtype times
-  ``1/sqrt(D)``, a causal or boolean mask at ``-1e9``, softmax in
-  float32 cast back, dropout on the probabilities.
+- `scaled_dot_product_attention` is ``paddle_tpu/nn/functional/
+  common.py:258-310``: with ``use_flash`` and a shape and mask the gate
+  takes (`kernels.flash_attention_enabled`), the general flash kernels
+  (`kernels.flash_attention.flash_attention`: the Hopper kernels on a
+  card, their plain version on the CPU); otherwise the composition:
+  scores in the query dtype times ``1/sqrt(D)``, a causal or boolean
+  mask at ``-1e9``, softmax in float32 cast back, dropout on the
+  probabilities.
+- `gelu` (exact erf by default, ``activation.py:31``) and `relu`.
 - `dropout` (``common.py:31``, upscale_in_train) and `cross_entropy`
   (``nn/functional/loss.py:27-93``, hard labels to the fused
   softmax-CE of `kernels.fused_ce` on the reference's conditions).
@@ -25,7 +29,19 @@ import math
 import torch
 
 from ..core import random as _random
+from ..kernels import flash_attention_enabled
+from ..kernels.flash_attention import flash_attention
 from ..kernels.fused_ce import softmax_ce_logits
+
+
+def gelu(x, approximate=False):
+    """GELU, exact (erf) unless ``approximate`` (tanh)."""
+    return torch.nn.functional.gelu(
+        x, approximate="tanh" if approximate else "none")
+
+
+def relu(x):
+    return torch.relu(x)
 
 
 def mt_attention_core(q, keys, vals, head_dim, valid_mask=None):
@@ -62,11 +78,19 @@ def dropout(x, p=0.5, training=True, generator=None):
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
-                                 training=True, generator=None):
-    """The reference's composed attention over ``[B, S, H, D]`` tensors
-    (paddle layout) -> ``[B, S, H, D]``. ``attn_mask``: bool (True =
-    attend) or additive, broadcastable to ``[B, H, Sq, Sk]``. The causal
-    mask is bottom-right aligned."""
+                                 training=True, use_flash=True,
+                                 generator=None):
+    """Attention over ``[B, S, H, D]`` tensors (paddle layout) -> ``[B,
+    Sq, H, D]``. ``attn_mask``: bool (True = attend) or additive,
+    broadcastable to ``[B, H, Sq, Sk]``. The causal mask is bottom-right
+    aligned. Dropout applies only when ``training``. With ``use_flash``
+    and what the flash gate takes, the flash kernels run; otherwise the
+    composition."""
+    eff_p = dropout_p if training else 0.0
+    if use_flash and flash_attention_enabled(query, key, attn_mask, eff_p):
+        return flash_attention(query, key, value, is_causal=is_causal,
+                               attn_mask=attn_mask, dropout_p=eff_p,
+                               generator=generator)
     q, k, v = (t.transpose(1, 2) for t in (query, key, value))
     scores = torch.einsum("bhqd,bhkd->bhqk", q, k) * (
         1.0 / math.sqrt(query.shape[-1]))
@@ -155,5 +179,5 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
     return _reduce(loss, reduction)
 
 
-__all__ = ["mt_attention_core", "dropout", "scaled_dot_product_attention",
-           "cross_entropy"]
+__all__ = ["gelu", "relu", "mt_attention_core", "dropout",
+           "scaled_dot_product_attention", "cross_entropy"]

@@ -37,7 +37,9 @@ MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.device",
            "paddle_tpu_torch.optimizer.optimizer",
            "paddle_tpu_torch.optimizer.optimizers",
            "paddle_tpu_torch.distributed",
-           "paddle_tpu_torch.distributed.spmd"]
+           "paddle_tpu_torch.distributed.spmd",
+           "paddle_tpu_torch.nn.common", "paddle_tpu_torch.nn.norm",
+           "paddle_tpu_torch.nn.transformer", "paddle_tpu_torch.models.bert"]
 
 
 def test_import_pulls_in_no_jax_and_no_paddle_tpu():

@@ -343,9 +343,11 @@ def test_init_hands_back_the_models_own_parameters():
 
 
 def test_gpt_forward_without_flash_gate_runs_composed_on_cpu():
-    """A flash config whose shape the gate refuses (S=64) runs the
-    composed branch on the CPU, the reference's branch there; a mask
-    does too. Both agree with the flash branch where it applies."""
+    """A flash config whose shape the qkv gate refuses (S=64) runs the
+    composed branch, as the reference does there; a mask at S=128 takes
+    the general flash branch (its plain version on the CPU), as the
+    reference does. Both agree with the qkv flash branch where it
+    applies."""
     model = GPTForPretraining(GPTConfig(**FLASH_CFG), device="cpu", seed=1)
     ids = torch.from_numpy(np.random.default_rng(2).integers(0, 256, (1, 128)))
     flash = model(ids)
