@@ -11,13 +11,19 @@ Phases, in order; any failure exits non-zero:
    csrc`` (one nvcc per source, in parallel);
 3. kernel phase: each kernel against its plain PyTorch version on the
    card, at the stated tolerances; then its time at the main path's
-   shape (paged attention: the serving decode shape; the qkv flash
-   kernels: GPT's training shape B8 S1024 H16 D128 bf16 causal; the
-   general flash kernels: BERT-large's B8 S512 H16 D64 bf16 with a
-   key-padding mask and dropout 0.1, and the backward at S=2048 causal)
-   beside the plain version's, a PyTorch library call computing the same
-   function (timed here only; the port never calls it) and the least
-   time the card could take (its bound);
+   shape (paged attention: the serving decode shape; the pair-major qkv
+   flash kernels: GPT's training shape B8 S1024 H16 D128 bf16 causal,
+   and the fused BERT's B8 S512 H16 D64 full, checked there too; the
+   general flash kernels:
+   BERT-large's B8 S512 H16 D64 bf16 with a key-padding mask and dropout
+   0.1, and the backward at S=2048 causal; the which-major qkv3 flash
+   kernels: BERT-large's unmasked B8 S512 H16 D64 bf16 with dropout 0.1,
+   also held bit for bit against the pair-major ones on the repacked
+   projection; the fused LayerNorm kernels through their entry
+   ``_ln_maybe_fused``, then at BERT-large's [4096, 1024] bf16 rows with
+   a residual) beside the plain version's, a PyTorch library call
+   computing the same function (timed here only; the port never calls
+   it) and the least time the card could take (its bound);
 4. engine phase: gpt3-1.3b at full width and depth, bf16, random
    weights from ``--seed``, served by
    the paged `Engine` (8 slots, page 16, max_len 640, buckets 128/512)
@@ -48,7 +54,14 @@ Phases, in order; any failure exits non-zero:
    kernels launch exactly steps x layers times and no other attention
    kernel runs, every loss is finite and the first MLM loss lies within
    0.5 of ln(vocab). It prints tokens/s, step ms p50, peak memory and
-   MFU, then two steps under torch.profiler.
+   MFU, then two steps under torch.profiler;
+7. BERT unmasked phase, unfused: the same run on full-length batches
+   (every row 512 real tokens, no mask; BASELINE row 4), every layer's
+   attention in the qkv-direct branch: the which-major qkv3 kernels
+   launch exactly steps x layers times each and no other kernel runs;
+8. BERT unmasked phase, fused: the same batches through
+   ``BertModel(fuse=True)``: the pair-major qkv kernels on the shuffled
+   ``qkv_weight`` launch steps x layers times each, no other kernel.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device":
@@ -75,6 +88,9 @@ BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 TOL_F32 = dict(atol=1e-4, rtol=0.0)
 TOL_BF16_OUT = dict(atol=2e-2, rtol=2e-2)
 TOL_BF16_LSE = dict(atol=1e-3, rtol=0.0)
+# LayerNorm's dg and db, f32: column sums over 512 rows of values of
+# order 1, in another order
+TOL_LN_SUMS = dict(atol=1e-3, rtol=1e-4)
 # at the engine's decode shape |out| is about 0.07 (a softmax over ~500
 # random scores), so bf16 out is held to a few bf16 ulps there, and the
 # same inputs in float32 to TOL_F32
@@ -91,6 +107,7 @@ BF16_ULPS_O, BF16_ULPS_DQKV = 8, 8
 # cancel to about 0 in both versions (causal row 0's dq) sit on it
 FLASH_SCALE_FLOOR = 1 / 64
 FLASH_SEED = 20260               # the dropout seed of the kernel phase
+SLEEP_CYCLES = 100_000_000       # about 50 ms at the H100's clock
 
 # engine phase: the serving configuration and its traffic
 MODEL = "gpt3-1.3b"
@@ -127,7 +144,12 @@ def nvidia_smi_line() -> str:
 
 
 def time_ms(fn, iters, warmup=3):
-    """Mean device time of ``fn()`` over ``iters`` calls (CUDA events)."""
+    """Mean device time of ``fn()`` over ``iters`` calls (CUDA events).
+    The calls are queued behind a sleep kernel, so the card runs them
+    back to back and the host's time to issue them (a wrapper's Python
+    checks, autograd) does not enter while the sleep lasts (a ``fn`` that
+    waits for the card itself, as the plain versions that read the
+    dropout seed do, is paced by the host whatever the sleep)."""
     import torch
 
     for _ in range(warmup):
@@ -135,6 +157,7 @@ def time_ms(fn, iters, warmup=3):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -332,35 +355,47 @@ def flash_case(b, s, h, d, dtype, seed):
     return qkv.to(dtype), do.to(dtype)
 
 
-def flash_compare(torch, fa, qkv, do, h, causal, p, seed_t):
-    """Both flash kernels against their plain versions on one input.
-    The backward of each gets the plain forward's ``o`` and ``lse``, so
-    it is compared on the same inputs. lse (float32 math in both) is
-    held to TOL_F32; so are o and dqkv in float32. In bfloat16, o and
-    dqkv are held to BF16_ULPS_O / BF16_ULPS_DQKV of each element's scale
-    (`flash_ulps`), and beside that reading stands a control: how far
-    bf16 rounding alone moves the plain version (its float32 run on the
-    same inputs against its bf16 run). Returns a line of the readings."""
+def qkv_fns(fa, layout):
+    """``(kernel fwd, plain fwd, kernel bwd, plain bwd)`` of the qkv flash
+    kernels of one layout: "pair" (B1) or "which" (B5)."""
+    if layout == "pair":
+        return (fa.flash_attention_qkv_fwd, fa.flash_qkv_reference,
+                fa.flash_attention_qkv_bwd, fa.flash_qkv_bwd_reference)
+    return (fa.flash_attention_qkv3_fwd, fa.flash_qkv3_reference,
+            fa.flash_attention_qkv3_bwd, fa.flash_qkv3_bwd_reference)
+
+
+def flash_compare(torch, fns, qkv, do, h, causal, p, seed_t):
+    """Both qkv flash kernels of one layout (`qkv_fns`) against their
+    plain versions on one input. The backward of each gets the plain
+    forward's ``o`` and ``lse``, so it is compared on the same inputs.
+    lse (float32 math in both) is held to TOL_F32; so are o and dqkv in
+    float32. In bfloat16, o and dqkv are held to BF16_ULPS_O /
+    BF16_ULPS_DQKV of each element's scale (`flash_ulps`), and beside
+    that reading stands a control: how far bf16 rounding alone moves the
+    plain version (its float32 run on the same inputs against its bf16
+    run). Returns the errors, a line of the readings and the kernels'
+    ``(o, lse, dqkv)``."""
+    kernel_fwd, plain_fwd, kernel_bwd, plain_bwd = fns
     d = qkv.shape[-1] // (3 * h)
-    o, lse = fa.flash_attention_qkv_fwd(qkv, h, causal, p, seed_t)
-    ro, rlse = fa.flash_qkv_reference(qkv, h, causal, p, seed_t)
-    dqkv = fa.flash_attention_qkv_bwd(qkv, do, ro, rlse, h, causal, p,
-                                      seed_t)
-    rdqkv = fa.flash_qkv_bwd_reference(qkv, do, ro, rlse, h, causal, p,
-                                       seed_t)
+    o, lse = kernel_fwd(qkv, h, causal, p, seed_t)
+    ro, rlse = plain_fwd(qkv, h, causal, p, seed_t)
+    dqkv = kernel_bwd(qkv, do, ro, rlse, h, causal, p, seed_t)
+    rdqkv = plain_bwd(qkv, do, ro, rlse, h, causal, p, seed_t)
     torch.cuda.synchronize()
     err = {"o": (o.float() - ro.float()).abs().max().item(),
            "dqkv": (dqkv.float() - rdqkv.float()).abs().max().item()}
     torch.testing.assert_close(lse, rlse, **TOL_F32)
     line = f"max|lse-ref| {(lse - rlse).abs().max().item():.3e}"
+    outs = (o, lse, dqkv)
     if qkv.dtype == torch.float32:
         torch.testing.assert_close(o, ro, **TOL_F32)
         torch.testing.assert_close(dqkv, rdqkv, **TOL_F32)
         return err, (f"max|o-ref| {err['o']:.3e}, {line}, max|dqkv-ref| "
-                     f"{err['dqkv']:.3e} (atol {TOL_F32['atol']})")
-    ctrl_o, _ = fa.flash_qkv_reference(qkv.float(), h, causal, p, seed_t)
-    ctrl_d = fa.flash_qkv_bwd_reference(qkv.float(), do.float(), ro.float(),
-                                        rlse, h, causal, p, seed_t)
+                     f"{err['dqkv']:.3e} (atol {TOL_F32['atol']})"), outs
+    ctrl_o, _ = plain_fwd(qkv.float(), h, causal, p, seed_t)
+    ctrl_d = plain_bwd(qkv.float(), do.float(), ro.float(), rlse, h, causal,
+                       p, seed_t)
     parts = [line]
     for name, x, ref, ctrl, limit in (("o", o, ro, ctrl_o, BF16_ULPS_O),
                                       ("dqkv", dqkv, rdqkv, ctrl_d,
@@ -372,7 +407,7 @@ def flash_compare(torch, fa, qkv, do, h, causal, p, seed_t):
                    f"{ctrl_ulps:.3f}; mean|ref| {typical:.3e})")
         check(ulps <= limit, f"flash {reading}")
         parts.append(reading)
-    return err, "; ".join(parts)
+    return err, "; ".join(parts), outs
 
 
 def flash_kernel_phase(torch):
@@ -394,8 +429,9 @@ def flash_kernel_phase(torch):
                 for p in (0.0, 0.1):
                     qkv, do = flash_case(2, 256, 4, d, dtype, seed=d + int(
                         causal) + int(10 * p))
-                    _, line = flash_compare(torch, fa, qkv, do, 4, causal,
-                                            p, seed_t)
+                    _, line, _ = flash_compare(torch, qkv_fns(fa, "pair"),
+                                               qkv, do, 4, causal, p,
+                                               seed_t)
                     print(f"  flash_attention_qkv D={d} {str(dtype)[6:]} "
                           f"{'causal' if causal else 'full'} p={p}: {line}"
                           "  ok")
@@ -406,7 +442,8 @@ def flash_kernel_phase(torch):
     # the 50 MB L2
     copies = [flash_case(b, s, h, d, torch.bfloat16, seed=i) for i in (1, 2)]
     saved = [fa.flash_attention_qkv_fwd(q, h, True) for q, _ in copies]
-    err, line = flash_compare(torch, fa, *copies[0], h, True, 0.0, None)
+    err, line, _ = flash_compare(torch, qkv_fns(fa, "pair"), *copies[0], h,
+                                 True, 0.0, None)
     print(f"  training shape B={b} S={s} H={h} D={d} bf16 causal: {line}  ok")
     it = iter(range(10 ** 9))
 
@@ -688,6 +725,314 @@ def general_flash_phase(torch):
     return records
 
 
+# ------------------------------------------------- which-major qkv3 (B5)
+def qkv_work(b, s, h, d, el):
+    """``((bytes, flops) forward, (bytes, flops) backward)`` of a qkv
+    flash call without a mask, full (every pair visible). Forward: qkv
+    read, o and lse written; 4*D flops a pair. Backward: qkv, o, dO and
+    lse read, dqkv written; 10*D flops a pair."""
+    io = b * s * h * d * el                       # one [B, S, H*D] tensor
+    lse = b * h * s * 4
+    pairs = b * h * s * s
+    return ((3 * io + io + lse, 4 * d * pairs),
+            (3 * io + 2 * io + lse + 3 * io, 10 * d * pairs))
+
+
+def qkv3_kernel_phase(torch):
+    """B5 (rows 8-9) against its plain versions on the card: f32 and
+    bf16, D 64 and 128, causal and full, dropout 0 and 0.1, at B2 S256 H4,
+    with B1's tolerances (`flash_compare`), and against B1's kernels on
+    the repacked (pair-major) projection, bit for bit: the same kernels
+    at other column offsets give the same values and drop the same
+    elements. Then at BERT-large's shape (B8 S512 H16 D64 bf16, full,
+    dropout 0.1): agreement, time beside the plain versions, SDPA on the
+    unpacked [B, H, S, D] tensors with dropout 0.1 (timed only; the port
+    never calls it) and the bound; and B1 at the same shape (the fused
+    BERT's): against its plain versions, bit for bit against B5, timed.
+    Returns the forward's and the backward's records."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    seed_t = torch.tensor([FLASH_SEED], dtype=torch.int32, device="cuda")
+    three, pair = qkv_fns(fa, "which"), qkv_fns(fa, "pair")
+    for d in (64, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                for p in (0.0, 0.1):
+                    qkv, do = flash_case(2, 256, 4, d, dtype, seed=300 + d
+                                         + int(causal) + int(10 * p))
+                    _, line, (o, lse, dqkv) = flash_compare(
+                        torch, three, qkv, do, 4, causal, p, seed_t)
+                    ro, rlse = fa.flash_qkv3_reference(qkv, 4, causal, p,
+                                                       seed_t)
+                    qp = fa._which_to_pair(qkv, 4).contiguous()
+                    o1, lse1 = fa.flash_attention_qkv_fwd(qp, 4, causal, p,
+                                                          seed_t)
+                    d1 = fa.flash_attention_qkv_bwd(qp, do, ro, rlse, 4,
+                                                    causal, p, seed_t)
+                    same = (torch.equal(o, o1) and torch.equal(lse, lse1)
+                            and torch.equal(dqkv, fa._pair_to_which(d1, 4)))
+                    check(same, f"qkv3 D={d} {dtype} causal={causal} p={p}:"
+                          " B5 differs from B1 on the repacked projection")
+                    print(f"  flash_attention_qkv3 D={d} {str(dtype)[6:]} "
+                          f"{'causal' if causal else 'full'} p={p}: {line}; "
+                          "o, lse, dqkv bitwise B1's on the repacked "
+                          "projection  ok")
+
+    b, s, h, d = BERT_B, BERT_S, 16, 64
+    bf, p = torch.bfloat16, 0.1
+    # three input copies of 25 MB of qkv (+ do, o, lse) each: past the L2
+    copies = [flash_case(b, s, h, d, bf, seed=40 + i) for i in range(3)]
+    err, line, (o, lse, dqkv) = flash_compare(torch, three, *copies[0], h,
+                                              False, p, seed_t)
+    print(f"  BERT shape B={b} S={s} H={h} D={d} bf16 full p={p}: {line}  ok")
+    pairs_in = [fa._which_to_pair(q, h).contiguous() for q, _ in copies]
+    # B1 at the fused BERT's shape: against its plain versions, and bit
+    # for bit against B5 on the same (repacked) inputs
+    _, line1, (o1, lse1, d1) = flash_compare(torch, pair, pairs_in[0],
+                                             copies[0][1], h, False, p, seed_t)
+    same = (torch.equal(o, o1) and torch.equal(lse, lse1)
+            and torch.equal(dqkv, fa._pair_to_which(d1, h)))
+    check(same, "B1 differs from B5 at the fused BERT's shape")
+    print(f"  flash_attention_qkv (B1) at the same shape, the fused BERT's: "
+          f"{line1}; o, lse, dqkv bitwise B5's  ok")
+    saved = [fa.flash_attention_qkv3_fwd(q, h, False, p, seed_t)
+             for q, _ in copies]
+    saved1 = [fa.flash_attention_qkv_fwd(q, h, False, p, seed_t)
+              for q in pairs_in]
+    it = iter(range(10 ** 9))
+
+    def fwd(kernel, inputs):
+        def run():
+            kernel(inputs[next(it) % 3], h, False, p, seed_t)
+        return run
+
+    def bwd(kernel, inputs, outs):
+        def run():
+            i = next(it) % 3
+            kernel(inputs[i], copies[i][1], *outs[i], h, False, p, seed_t)
+        return run
+
+    qkvs = [q for q, _ in copies]
+    ms = {"fwd": time_ms(fwd(fa.flash_attention_qkv3_fwd, qkvs), 20),
+          "bwd": time_ms(bwd(fa.flash_attention_qkv3_bwd, qkvs, saved), 10)}
+    b1_ms = {"fwd": time_ms(fwd(fa.flash_attention_qkv_fwd, pairs_in), 20),
+             "bwd": time_ms(bwd(fa.flash_attention_qkv_bwd, pairs_in,
+                                saved1), 10)}
+    qkv, do = copies[0]
+    plain = {"fwd": time_ms(lambda: fa.flash_qkv3_reference(
+        qkv, h, False, p, seed_t), 3, 1),
+        "bwd": time_ms(lambda: fa.flash_qkv3_bwd_reference(
+            qkv, do, *saved[0], h, False, p, seed_t), 3, 1)}
+    # SDPA on [B, H, S, D], dropout 0.1
+    heads = [[t.contiguous().requires_grad_(True)
+              for t in q.reshape(b, s, 3, h, d).permute(2, 0, 3, 1, 4)]
+             for q in qkvs]
+    dos = [g.reshape(b, s, h, d).transpose(1, 2).contiguous()
+           for _, g in copies]
+
+    def lib(backward):
+        def run():
+            i = next(it) % 3
+            out = F.scaled_dot_product_attention(*heads[i], dropout_p=p)
+            if backward:
+                out.backward(dos[i])
+        return run
+
+    lib_f, lib_fb = time_ms(lib(False), 20), time_ms(lib(True), 10)
+    library = {"fwd": lib_f, "bwd": lib_fb - lib_f}
+    work = dict(zip(("fwd", "bwd"), qkv_work(b, s, h, d, 2)))
+    records = []
+    for key, line_no in (("fwd", 1018), ("bwd", 1044)):
+        nbytes, flops = work[key]
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        name = f"flash_attention_qkv3_{key}"
+        print(f"  {name} at B={b} S={s} H={h} D={d} bf16 full p={p}: kernel "
+              f"{ms[key]:.4f} ms, plain {plain[key]:.4f} ms, SDPA "
+              f"{library[key]:.4f} ms, bound {bound_ms:.4f} ms ({bound_by};"
+              f" {nbytes} bytes, {flops} flops)")
+        print(f"  flash_attention_qkv_{key} (B1) at the same shape, the "
+              f"fused BERT's: kernel {b1_ms[key]:.4f} ms, bound "
+              f"{bound_ms:.4f} ms")
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/flash_attention_qkv.cu",
+            "replaces": f"paddle_tpu/kernels/flash_attention.py:{line_no}",
+            "max_abs_err": err["o" if key == "fwd" else "dqkv"],
+            "ms": ms[key], "plain_ms": plain[key], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library[key]})
+    print(f"  SDPA forward+backward {lib_fb:.4f} ms, forward {lib_f:.4f} ms "
+          "(its backward alone: the difference)")
+    return records
+
+
+# ------------------------------------------------- fused LayerNorm (B6)
+@contextlib.contextmanager
+def plain_kernels(torch):
+    """Every flash and LayerNorm wrapper through its plain version on the
+    card: the reference's numerics, no kernel (a control only)."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import fused_ln as fl
+
+    saved = fa.runs_plain, fl.runs_plain
+    fa.runs_plain = fl.runs_plain = lambda t, kernel: True
+    try:
+        yield
+    finally:
+        fa.runs_plain, fl.runs_plain = saved
+
+
+def ln_case(torch, n, m, dtype, seed, residual):
+    """``(x, residual or None, g, b, dy)`` on the card: rows of standard
+    normals shifted by 0.5, g about 1 and b about 0, in ``dtype``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x, r, dy = (torch.randn((n, m), generator=g, device="cuda") + 0.5
+                for _ in range(3))
+    w = 1 + 0.5 * torch.randn(m, generator=g, device="cuda")
+    b = torch.randn(m, generator=g, device="cuda")
+    return (x.to(dtype), r.to(dtype) if residual else None, w.to(dtype),
+            b.to(dtype), dy.to(dtype))
+
+
+def ln_work(n, m, el, residual):
+    """``((bytes, flops) forward, (bytes, flops) backward)`` of the fused
+    LayerNorm on ``[n, m]`` rows of ``el``-byte values. Forward: x (and
+    the residual) read, g and b (f32) read, y written, mean and rstd
+    written; about 8 flops an element. Backward: x (and the residual), dy,
+    g, mean and rstd read, dx written (the residual's gradient is the
+    same tensor), dg and db written; about 14 flops an element."""
+    rows = n * m * el
+    ins = rows * (2 if residual else 1)
+    stats = 2 * n * 4
+    return ((ins + 2 * m * 4 + rows + stats, 8 * n * m),
+            (ins + rows + m * 4 + stats + rows + 2 * m * 4, 14 * n * m))
+
+
+def fused_ln_phase(torch):
+    """B6 (rows 10-11) through its entry, ``incubate.nn.functional.
+    _ln_maybe_fused``, on the card: f32 and bf16, with and without a
+    residual, y, dx, d(residual), dg and db against the same entry run
+    through the plain versions (TOL_F32 / TOL_LN_SUMS in float32,
+    TOL_BF16_OUT in bfloat16, where both round the same float32 math to
+    bf16). No layer calls the entry (nor in the reference), so its
+    launches are those of these calls. Then the kernels at BERT-large's
+    rows ([8*512, 1024] bf16 with a residual) beside the plain versions,
+    the library's two calls ``x + r`` then ``F.layer_norm`` (timed only)
+    and the bound. Returns the forward's and the backward's records."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.kernels import fused_ln as fl
+
+    eps = 1e-5
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    launched = {"fused_ln_fwd": 0, "fused_ln_bwd": 0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for residual in (True, False):
+            case = ln_case(torch, 512, 1024, dtype, 7 + residual, residual)
+            outs = []
+            for plain in (False, True):
+                leaves = [None if t is None else
+                          t.detach().clone().requires_grad_(True)
+                          for t in case[:4]]
+                x, r, w, b = leaves
+                with plain_kernels(torch) if plain else \
+                        contextlib.nullcontext():
+                    before = kernels.kernel_launch_counts()
+                    y = IF._ln_maybe_fused(x, w, b, eps, residual=r)
+                    y.backward(case[4])
+                    torch.cuda.synchronize()
+                    after = kernels.kernel_launch_counts()
+                if not plain:
+                    for k in launched:
+                        launched[k] += after[k] - before[k]
+                        check(after[k] - before[k] == 1,
+                              f"_ln_maybe_fused launched {k} "
+                              f"{after[k] - before[k]} times, not once")
+                outs.append([y] + [t.grad for t in leaves if t is not None])
+            names = ["y", "dx"] + (["dres"] if residual else []) + ["dg",
+                                                                    "db"]
+            parts = []
+            for name, a, ref in zip(names, *outs):
+                if dtype == torch.bfloat16:
+                    tol = TOL_BF16_OUT
+                else:
+                    tol = TOL_LN_SUMS if name in ("dg", "db") else TOL_F32
+                torch.testing.assert_close(a.float(), ref.float(), **tol)
+                e = (a.float() - ref.float()).abs().max().item()
+                key = "fwd" if name == "y" else "bwd"
+                worst[key] = max(worst[key], e)
+                parts.append(f"{name} {e:.3e}")
+            print(f"  _ln_maybe_fused [512, 1024] {str(dtype)[6:]} "
+                  f"{'with' if residual else 'without'} residual: max|diff| "
+                  + ", ".join(parts) + "  ok")
+
+    n, m, bf = BERT_B * BERT_S, 1024, torch.bfloat16
+    # four copies of 17 MB of x and residual (+ dy): past the 50 MB L2
+    copies = [ln_case(torch, n, m, bf, 20 + i, True) for i in range(4)]
+    w32, b32 = copies[0][2].float(), copies[0][3].float()
+    saved = [fl.fused_ln_fwd(c[0], c[1], w32, b32, eps) for c in copies]
+    it = iter(range(10 ** 9))
+
+    def fwd():
+        c = copies[next(it) % 4]
+        fl.fused_ln_fwd(c[0], c[1], w32, b32, eps)
+
+    def bwd():
+        i = next(it) % 4
+        c = copies[i]
+        fl.fused_ln_bwd(c[0], c[1], w32, *saved[i][1:], c[4])
+
+    ms = {"fwd": time_ms(fwd, 50), "bwd": time_ms(bwd, 50)}
+    x, r, _, _, dy = copies[0]
+    plain = {"fwd": time_ms(lambda: fl.fused_ln_reference(x, r, w32, b32,
+                                                          eps), 5, 1),
+             "bwd": time_ms(lambda: fl.fused_ln_bwd_reference(
+                 x, r, w32, *saved[0][1:], dy), 5, 1)}
+    leaves = [[t.detach().requires_grad_(True) for t in c[:4]]
+              for c in copies]
+
+    def lib(backward):
+        def run():
+            i = next(it) % 4
+            xl, rl, wl, bl = leaves[i]
+            y = F.layer_norm(xl + rl, (m,), wl, bl, eps)
+            if backward:
+                y.backward(copies[i][4])
+        return run
+
+    lib_f, lib_fb = time_ms(lib(False), 50), time_ms(lib(True), 20)
+    library = {"fwd": lib_f, "bwd": lib_fb - lib_f}
+    work = dict(zip(("fwd", "bwd"), ln_work(n, m, 2, True)))
+    records = []
+    for key, line_no in (("fwd", 45), ("bwd", 62)):
+        nbytes, flops = work[key]
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        name = f"fused_ln_{key}"
+        print(f"  {name} at [{n}, {m}] bf16 with residual: kernel "
+              f"{ms[key]:.4f} ms, plain {plain[key]:.4f} ms, library "
+              f"(x + r then F.layer_norm, two calls) {library[key]:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}; {nbytes} bytes, "
+              f"{flops} flops)")
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/fused_ln.cu",
+            "replaces": f"paddle_tpu/kernels/fused_ln.py:{line_no}",
+            "max_abs_err": worst[key], "ms": ms[key], "plain_ms": plain[key],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library[key]})
+    print(f"  library forward+backward {lib_fb:.4f} ms, forward "
+          f"{lib_f:.4f} ms (its backward alone: the difference); launches "
+          f"through the entry {launched} (no main path runs it)")
+    return records, launched
+
+
 # ---------------------------------------------------------------- engine
 def engine_phase(torch, seed):
     from paddle_tpu_torch import kernels
@@ -954,34 +1299,60 @@ def float32_reference_check(torch, step, params, batch, cfg, seed):
 
 
 # ---------------------------------------------------------------- BERT
-def bert_batch(torch, cfg, g):
+# the three BERT-large runs: masked batches through the unfused layers
+# (B2), and full-length unmasked batches (BASELINE row 4,
+# benchmarks/bench_bert_fused.py:33-43) through the unfused layers (the
+# qkv-direct branch: B5) and through BertModel(fuse=True) (B1 on the
+# pair-major weight shuffle). "kernels": the attention kernels the timed
+# steps must launch exactly steps x layers times; every other kernel must
+# not launch
+BERT_VARIANTS = {
+    "masked": dict(fuse=False, masked=True, label="B2",
+                   kernels=("flash_attention_fwd", "flash_attention_bwd")),
+    "unfused": dict(fuse=False, masked=False, label="B5",
+                    kernels=("flash_attention_qkv3_fwd",
+                             "flash_attention_qkv3_bwd")),
+    "fused": dict(fuse=True, masked=False, label="B1",
+                  kernels=("flash_attention_qkv_fwd",
+                           "flash_attention_qkv_bwd")),
+}
+
+
+def bert_batch(torch, cfg, g, masked=True):
     """One pretraining batch on the card from generator ``g``: token ids
-    in [0, V) (pad id 0 past each row's length), the bool [B, 1, 1, S]
-    key-padding mask, MLM labels (the token) on 15% of the real
-    positions and -100 elsewhere, random NSP labels."""
-    lens = torch.randint(BERT_MIN_LEN, BERT_S, (BERT_B,), generator=g,
-                         device="cuda")
+    in [0, V), MLM labels (the token) on 15% of the real positions and
+    -100 elsewhere, random NSP labels. ``masked``: per-row lengths in
+    [384, 512) (pad id 0 past each) and the bool [B, 1, 1, S] key-padding
+    mask; else every row 512 real tokens and no mask."""
+    lens = (torch.randint(BERT_MIN_LEN, BERT_S, (BERT_B,), generator=g,
+                          device="cuda") if masked else
+            torch.full((BERT_B,), BERT_S, device="cuda"))
     real = torch.arange(BERT_S, device="cuda")[None, :] < lens[:, None]
     ids = torch.randint(0, cfg.vocab_size, (BERT_B, BERT_S), generator=g,
                         device="cuda") * real
     pick = real & (torch.rand((BERT_B, BERT_S), generator=g, device="cuda")
                    < BERT_MLM)
-    return {"input_ids": ids, "attention_mask": real[:, None, None, :],
-            "mlm_labels": torch.where(pick, ids, torch.full_like(ids, -100)),
-            "nsp_labels": torch.randint(0, 2, (BERT_B,), generator=g,
-                                        device="cuda")}
+    batch = {"input_ids": ids,
+             "mlm_labels": torch.where(pick, ids, torch.full_like(ids, -100)),
+             "nsp_labels": torch.randint(0, 2, (BERT_B,), generator=g,
+                                         device="cuda")}
+    if masked:
+        batch["attention_mask"] = real[:, None, None, :]
+    return batch
 
 
 def bert_loss_fn(model, state, batch, parts=None):
     """MLM cross-entropy (ignore_index -100) plus NSP cross-entropy of
-    `BertForPretraining` run with ``state``; each part is appended to
-    ``parts`` when given."""
+    `BertForPretraining` run with ``state`` (and the batch's
+    attention_mask, when it has one); each part is appended to ``parts``
+    when given."""
     from torch.func import functional_call
 
     from paddle_tpu_torch.nn.functional import cross_entropy
 
-    logits, nsp = functional_call(model, state, (batch["input_ids"],),
-                                  {"attention_mask": batch["attention_mask"]})
+    logits, nsp = functional_call(
+        model, state, (batch["input_ids"],),
+        {"attention_mask": batch.get("attention_mask")})
     mlm = cross_entropy(logits, batch["mlm_labels"], ignore_index=-100)
     nsp_loss = cross_entropy(nsp, batch["nsp_labels"])
     if parts is not None:
@@ -989,42 +1360,59 @@ def bert_loss_fn(model, state, batch, parts=None):
     return mlm + nsp_loss
 
 
-def bert_phase(torch, seed, card):
+def bert_model(cfg, variant, dtype, seed):
+    """The variant's `BertForPretraining`, drawn from ``seed``."""
+    from paddle_tpu_torch.models.bert import BertForPretraining
+
+    return BertForPretraining(cfg, fuse=BERT_VARIANTS[variant]["fuse"],
+                              dtype=dtype, seed=seed)
+
+
+def bert_phase(torch, seed, card, variant):
     """bert-large at full width and depth pretrains through
-    `SpmdTrainStep` on padded batches (b8 x s512, lengths in [384, 512),
-    dropout 0.1 hidden and attention, bf16 params and AdamW moments, lr
-    1e-4, wd 0.01). First the float32-reference check at dropout 0, then
-    one warm-up step and TRAIN_STEPS timed steps with the launch counts
-    zeroed just before them, then two steps under the profiler. Returns
-    the B2 kernels' launch counts of the timed steps."""
+    `SpmdTrainStep` (b8 x s512, MLM + NSP, dropout 0.1 hidden and
+    attention, bf16 params and AdamW moments, lr 1e-4, wd 0.01) in one of
+    BERT_VARIANTS: masked batches (lengths in [384, 512)) or full-length
+    unmasked ones, unfused or fused. First the float32-reference check at
+    dropout 0, then one warm-up step and TRAIN_STEPS timed steps with the
+    launch counts zeroed just before them, then two steps under the
+    profiler. Returns the variant's kernels' launch counts of the timed
+    steps."""
     import functools
 
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.distributed import SpmdTrainStep
-    from paddle_tpu_torch.models.bert import BertForPretraining, bert_config
+    from paddle_tpu_torch.models.bert import bert_config
     from paddle_tpu_torch.optimizer import AdamW
 
+    v = BERT_VARIANTS[variant]
     cfg = bert_config(BERT_MODEL)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
-    model = BertForPretraining(cfg, dtype="bfloat16", seed=seed)
+    model = bert_model(cfg, variant, "bfloat16", seed)
     parts = []
     step = SpmdTrainStep(model, functools.partial(bert_loss_fn, parts=parts),
                          AdamW(learning_rate=TRAIN_LR, weight_decay=TRAIN_WD))
     params, opt_state = step.init(slot_dtype="bfloat16")
     g = torch.Generator(device="cuda").manual_seed(seed)
-    batches = [bert_batch(torch, cfg, g) for _ in range(TRAIN_STEPS + 3)]
-    print(f"  {BERT_MODEL}: {cfg.num_hidden_layers} layers, h="
+    batches = [bert_batch(torch, cfg, g, v["masked"])
+               for _ in range(TRAIN_STEPS + 3)]
+    rows = (f"lengths in [{BERT_MIN_LEN}, {BERT_S}), MLM on {BERT_MLM:.0%} "
+            "of real positions" if v["masked"] else
+            f"every row {BERT_S} real tokens, no mask, MLM on "
+            f"{BERT_MLM:.0%} of positions")
+    layers = "fused layers (fuse=True)" if v["fuse"] else "unfused layers"
+    print(f"  {BERT_MODEL}, {layers}: {cfg.num_hidden_layers} layers, h="
           f"{cfg.hidden_size}, {cfg.num_attention_heads} heads, d="
           f"{cfg.head_dim}, ffn {cfg.intermediate_size}, vocab "
           f"{cfg.vocab_size}, dropout {cfg.hidden_dropout_prob} hidden and "
           f"{cfg.attention_probs_dropout_prob} attention; b{BERT_B} x "
-          f"s{BERT_S}, lengths in [{BERT_MIN_LEN}, {BERT_S}), MLM on "
-          f"{BERT_MLM:.0%} of real positions; bf16 params and AdamW "
-          f"moments, lr {TRAIN_LR}, wd {TRAIN_WD}")
-    bert_reference_check(torch, step, params, batches[0], cfg, seed)
+          f"s{BERT_S}, {rows}; bf16 params and AdamW moments, lr "
+          f"{TRAIN_LR}, wd {TRAIN_WD}")
+    bert_reference_check(torch, step, params, batches[0], cfg, seed,
+                         variant)
 
     model.train()
     parts.clear()
@@ -1048,12 +1436,12 @@ def bert_phase(torch, seed, card):
     peak = torch.cuda.max_memory_allocated()
     want = TRAIN_STEPS * cfg.num_hidden_layers
     check(all(math.isfinite(x) for x in losses), f"losses {losses}")
-    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+    for name in v["kernels"]:
         check(counts[name] == want, f"{name} launched {counts[name]} times, "
               f"steps x layers = {want}")
-    for name in ("paged_attention", "flash_attention_qkv_fwd",
-                 "flash_attention_qkv_bwd"):
-        check(counts[name] == 0, f"BERT training launched {name}: {counts}")
+    for name, n in counts.items():
+        check(name in v["kernels"] or n == 0,
+              f"BERT ({variant}) launched {name}: {counts}")
     tok_s = BERT_B * BERT_S * TRAIN_STEPS / wall
     flops_per_tok = (6 * cfg.num_params(include_embeddings=False)
                      + 12 * cfg.num_hidden_layers * cfg.hidden_size * BERT_S)
@@ -1062,8 +1450,10 @@ def bert_phase(torch, seed, card):
     print(f"  losses {[round(x, 4) for x in losses]} (MLM + NSP; first MLM "
           f"{first_mlm:.4f} within 0.5 of ln(V) = "
           f"{math.log(cfg.vocab_size):.4f}, all finite)")
-    print(f"  launches {counts}: B2 fwd = bwd = steps x layers = {want}")
-    print(f"  {card}: {tok_s:.1f} tokens/s (padding included), step "
+    print(f"  launches {counts}: {v['label']} fwd = bwd = steps x layers = "
+          f"{want}, every other kernel 0")
+    print(f"  {card}: {tok_s:.1f} tokens/s"
+          f"{' (padding included)' if v['masked'] else ''}, step "
           f"{p50:.3f} ms p50 (steps {[round(t * 1e3, 3) for t in times]} ms),"
           f" peak memory {peak / 2 ** 30:.3f} GiB (max_memory_allocated; "
           f"{before / 2 ** 30:.3f} GiB held before the phase), MFU {mfu:.4f} "
@@ -1075,34 +1465,42 @@ def bert_phase(torch, seed, card):
         i = next(it) % len(batches)
         _, params, opt_state = step(params, opt_state, batches[i], 100 + i)
 
-    profile_steps(torch, one, 2, "BERT training steps")
-    return {k: counts[k] for k in ("flash_attention_fwd",
-                                   "flash_attention_bwd")}
+    profile_steps(torch, one, 2, f"BERT training steps ({variant})")
+    return {k: counts[k] for k in v["kernels"]}
 
 
-@contextlib.contextmanager
-def plain_flash(torch):
-    """The general flash branch through its plain versions on the card:
-    the reference's rounding points, no kernel (a control only)."""
-    from paddle_tpu_torch.kernels import flash_attention as fa
+def bert_grads_held(cfg, variant):
+    """``(held, shown)``: the weight grads the float32 check holds, as
+    (label, name, index into the parameter's first dim or None), and the
+    one it prints. Unfused: layer 0's q_proj, v_proj and linear1 of
+    layers 0 and 23; shown: layer 23's q_proj. Fused: the q and v slices
+    of layer 0's qkv_weight, the v slice and ffn.linear1_weight of layer
+    23; shown: layer 23's q slice."""
+    last = cfg.num_hidden_layers - 1
+    name = "bert.encoder_layers.{}.{}".format
+    if not BERT_VARIANTS[variant]["fuse"]:
+        held = [(f"{i}.{m}", name(i, f"{m}.weight"), None)
+                for i, m in [(0, "self_attn.q_proj")] + [
+                    (i, m) for i in (0, last)
+                    for m in ("self_attn.v_proj", "linear1")]]
+        return held, (f"{last}.self_attn.q_proj",
+                      name(last, "self_attn.q_proj.weight"), None)
+    qkv = "fused_attn.qkv_weight"
+    held = [("0.q", name(0, qkv), 0), ("0.v", name(0, qkv), 2),
+            ("0.ffn.linear1", name(0, "ffn.linear1_weight"), None),
+            (f"{last}.v", name(last, qkv), 2),
+            (f"{last}.ffn.linear1", name(last, "ffn.linear1_weight"), None)]
+    return held, (f"{last}.q", name(last, qkv), 0)
 
-    saved = fa.runs_plain
-    fa.runs_plain = lambda t, kernel: True
-    try:
-        yield
-    finally:
-        fa.runs_plain = saved
 
-
-def bert_reference_check(torch, step, params, batch, cfg, seed):
+def bert_reference_check(torch, step, params, batch, cfg, seed, variant):
     """On the batch's first two sequences at dropout 0 (eval mode), the
-    bf16 model's loss and grads (attention in B2) against a float32 copy
-    of the same weights whose attention runs the composition
-    (``use_flash=False``): loss within REF_LOSS_RTOL; cosine at least
-    REF_GRAD_COS for the q_proj weight grad of the first layer and the
-    v_proj and linear1 weight grads of the first and last layers.
+    bf16 model's loss and grads (attention in the variant's kernels)
+    against a float32 copy of the same weights whose attention runs the
+    composition (``use_flash=False``): loss within REF_LOSS_RTOL; cosine
+    at least REF_GRAD_COS for the grads `bert_grads_held` names.
 
-    Layer 23's q_proj grad is printed, not held: it passes only through
+    Layer 23's q grad is printed, not held: it passes only through
     ``ds = p*(dp - delta)``, and at random init the deep layers' values
     share a large common part, so ``dp - delta`` cancels and amplifies
     the bf16 rounding of O inside the reference's ``delta =
@@ -1110,39 +1508,43 @@ def bert_reference_check(torch, step, params, batch, cfg, seed):
     same bf16 model through the plain versions (the reference's own
     rounding points)."""
     from paddle_tpu_torch.distributed import SpmdTrainStep
-    from paddle_tpu_torch.models.bert import BertForPretraining
     from paddle_tpu_torch.optimizer import AdamW
 
     two = {k: v[:2] for k, v in batch.items()}
-    last = cfg.num_hidden_layers - 1
-    layer = "bert.encoder_layers.{}.{}.weight".format
-    held = [layer(0, "self_attn.q_proj")] + [
-        layer(i, m) for i in (0, last)
-        for m in ("self_attn.v_proj", "linear1")]
-    shown = layer(last, "self_attn.q_proj")
+    held, shown = bert_grads_held(cfg, variant)
+
+    def pick(grads, entry):
+        g = grads[entry[1]]
+        return (g if entry[2] is None else g[entry[2]]).float()
+
     step.model.eval()
     loss, grads = step.loss_and_grads(params, two, 0)
-    grads = {n: grads[n].float() for n in held + [shown]}
-    with plain_flash(torch):
-        ctrl = step.loss_and_grads(params, two, 0)[1][shown].float()
-    ref = BertForPretraining(cfg, dtype="float32", seed=seed)
-    for layer_ in ref.bert.encoder_layers:
-        layer_.self_attn.use_flash = False
+    got = {e[0]: pick(grads, e) for e in held + [shown]}
+    del grads
+    with plain_kernels(torch):
+        ctrl = pick(step.loss_and_grads(params, two, 0)[1], shown)
+    ref = bert_model(cfg, variant, "float32", seed)
+    for layer in ref.bert.encoder_layers:
+        attn = layer.fused_attn if BERT_VARIANTS[variant]["fuse"] \
+            else layer.self_attn
+        attn.use_flash = False
     ref_params = dict(ref.named_parameters())
     with torch.no_grad():
         for n, p in ref_params.items():
             p.copy_(params[n])
     ref_step = SpmdTrainStep(ref, bert_loss_fn, AdamW())
     ref_loss, ref_grads = ref_step.loss_and_grads(ref_params, two, 0)
+    want = {e[0]: pick(ref_grads, e) for e in held + [shown]}
 
-    def cosine(a, n):
+    def cosine(a, label):
         return torch.nn.functional.cosine_similarity(
-            a.flatten(), ref_grads[n].flatten(), dim=0).item()
+            a.flatten(), want[label].flatten(), dim=0).item()
 
     rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
-    cos = {n: cosine(grads[n], n) for n in held}
-    shown_cos, ctrl_cos = cosine(grads[shown], shown), cosine(ctrl, shown)
-    del ref, ref_params, ref_step, ref_grads, grads, ctrl
+    cos = {e[0]: cosine(got[e[0]], e[0]) for e in held}
+    shown_cos, ctrl_cos = cosine(got[shown[0]], shown[0]), cosine(ctrl,
+                                                                 shown[0])
+    del ref, ref_params, ref_step, ref_grads, got, want, ctrl
     torch.cuda.empty_cache()
     check(rel <= REF_LOSS_RTOL, f"bf16 loss {loss.item()} vs float32 "
           f"{ref_loss.item()}: relative difference {rel}")
@@ -1150,8 +1552,8 @@ def bert_reference_check(torch, step, params, batch, cfg, seed):
     print(f"  float32 reference (composed attention, 2 sequences, dropout "
           f"0): loss {loss.item():.5f} vs {ref_loss.item():.5f} (rel "
           f"{rel:.2e} <= {REF_LOSS_RTOL}); grad cosine "
-          + ", ".join(f"{n[20:-7]} {c:.5f}" for n, c in cos.items())
-          + f" (>= {REF_GRAD_COS})  ok; {shown[20:-7]} {shown_cos:.5f} "
+          + ", ".join(f"{k} {c:.5f}" for k, c in cos.items())
+          + f" (>= {REF_GRAD_COS})  ok; {shown[0]} {shown_cos:.5f} "
           f"(not held; the plain versions' control {ctrl_cos:.5f})")
 
 
@@ -1185,13 +1587,21 @@ def main(argv=None) -> int:
 
     print("[3] kernel phase")
     records = [kernel_phase(torch, pa), *flash_kernel_phase(torch),
-               *general_flash_phase(torch)]
+               *general_flash_phase(torch), *qkv3_kernel_phase(torch)]
+    ln_records, launches = fused_ln_phase(torch)
+    records += ln_records
     print("[4] engine phase")
-    launches = engine_phase(torch, args.seed)
+    launches.update(engine_phase(torch, args.seed))
     print("[5] training phase")
     launches.update(train_phase(torch, args.seed, card))
-    print("[6] BERT phase")
-    launches.update(bert_phase(torch, args.seed, card))
+    print("[6] BERT phase (masked, B2)")
+    launches.update(bert_phase(torch, args.seed, card, "masked"))
+    print("[7] BERT unmasked phase, unfused layers (B5)")
+    launches.update(bert_phase(torch, args.seed, card, "unfused"))
+    print("[8] BERT unmasked phase, fused layers (B1)")
+    fused = bert_phase(torch, args.seed, card, "fused")
+    print(f"  (B1's launches in the kernel line are GPT training's; the "
+          f"fused BERT's were {fused})")
     for rec in records:
         rec["launches"] = launches[rec["name"]]
 

@@ -11,7 +11,8 @@ name -> array dicts; here the same contract runs eagerly:
 - ``step(params, opt_state, batch, key) -> (loss, params, opt_state)``
   runs the loss through ``torch.func.functional_call`` with the dict's
   tensors, differentiates it with ``torch.autograd`` and applies the
-  optimizer. ``key`` seeds this step's generator (`core.random`): every
+  optimizer (a parameter the loss does not read gets a zero gradient).
+  ``key`` seeds this step's generator (`core.random`): every
   dropout mask and flash seed of the step is drawn from it. torch has no
   donation, so params and opt_state are updated in place and returned.
 - ``amp="bfloat16"`` is the reference's O2 cast (:488-499): float32
@@ -85,7 +86,11 @@ class SpmdTrainStep:
         dev = next(iter(leaves.values())).device
         with _random.rng_guard(_random.step_generator(key, dev)):
             loss = self._loss_fn(self.model, state, batch).float()
-        grads = torch.autograd.grad(loss, list(leaves.values()))
+        # a parameter the loss never reads (a post-LN fused layer's
+        # pre_ln_scale, ffn._ln1_*) gets a zero gradient, as jax.grad
+        # gives it in the reference: AdamW's decoupled decay still moves it
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    allow_unused=True, materialize_grads=True)
         return loss.detach(), dict(zip(self._names, grads))
 
     def __call__(self, params, opt_state, batch, key):

@@ -1,14 +1,27 @@
-// Pair-major qkv flash attention for Hopper (sm_90a), plain C interface.
+// qkv flash attention for Hopper (sm_90a), plain C interface, in the two
+// column layouts of the fused projection.
 //
-// Replaces the TPU kernels paddle_tpu/kernels/flash_attention.py:849
-// `_fwd_qkv_kernel` (launched by `_fwd_qkv`, :905) and :876
-// `_bwd_qkv_kernel` (launched by `_bwd_qkv`, :936).
+// Replaces the TPU kernels paddle_tpu/kernels/flash_attention.py:
+// - B1, pair-major: :849 `_fwd_qkv_kernel` (launched by `_fwd_qkv`, :905)
+//   and :876 `_bwd_qkv_kernel` (launched by `_bwd_qkv`, :936);
+// - B5, which-major: :1018 `_fwd_qkv3_kernel` (launched by `_fwd_qkv3`,
+//   :1071) and :1044 `_bwd_qkv3_kernel` (launched by `_bwd_qkv3`, :1107).
+// The two compute the same thing and differ only in where a head's
+// columns lie, so one set of kernels serves both with the layout as a
+// template parameter (`Geometry`).
 //
 // What they compute, as the TPU kernels do (`_packed_head_attn` :821-837,
 // `_packed_head_attn_bwd` :488-533): the input is the fused projection
-// qkv [B,S,3*H*D] in PAIR-MAJOR packing, read as it is: pair p's q at
-// columns 6Dp + [0,2D), k at 6Dp + [2D,4D), v at 6Dp + [4D,6D), head h of
-// the pair at offset hD inside each. Scores are q.k * scale in f32
+// qkv [B,S,3*H*D], read as it lies, in one of two packings:
+// - PAIR-MAJOR (B1): pair p's q at columns 6Dp + [0,2D), k at
+//   6Dp + [2D,4D), v at 6Dp + [4D,6D), head h of the pair at offset hD
+//   inside each;
+// - WHICH-MAJOR (B5): q of head h at columns hD, k at HD + hD, v at
+//   2HD + hD (the reference reads these regions through three views of
+//   one array); the backward writes dq, dk and dv into one which-major
+//   dqkv, the reference's concatenate([dq, dk, dv], -1) (:1144) done in
+//   place.
+// The row stride is 3HD in both. Scores are q.k * scale in f32
 // (scale = 1/sqrt(D), passed in), causal-masked to -1e30 (not -inf). The
 // forward writes o [B,S,H*D] in the input dtype and lse [B,H,S] in f32:
 // l sums the RAW p, o = (p*keep).v / max(l, 1e-30), lse = m +
@@ -16,14 +29,16 @@
 // product. The backward recomputes p = exp(s - lse) and, with delta =
 // rowsum(dO*O) in f32, forms dv = (p*keep)^T dO, dp = (dO v^T)*keep,
 // ds = p*(dp - delta)*scale rounded to the input dtype, dk = ds^T q,
-// dq = ds k, written pair-major into one dqkv [B,S,3*H*D].
+// dq = ds k, written into one dqkv [B,S,3*H*D] in the input's layout.
 //
 // Dropout: keep/scale is the reference's interpret-mode hash
 // (`_hash_keep_scale`, :101-116) of (seed, (b, pair, head), global query
 // row, global key column), computed per element from global coordinates in
 // both passes, so the masks agree bit for bit with the plain version and
-// with paddle_tpu's interpret mode. (On the TPU itself the reference draws
-// from the hardware PRNG, which nothing can reproduce.)
+// with paddle_tpu's interpret mode. B5 hashes the same ids (:1031, :1057),
+// so a head keeps the same elements in both layouts. (On the TPU itself
+// the reference draws from the hardware PRNG, which nothing can
+// reproduce.)
 //
 // How it differs from the TPU kernels: those hold a whole sequence per
 // (b, pair) block in VMEM (s <= 2048). Here every block owns one 64-row
@@ -55,6 +70,14 @@
 // leaves is latency: no copy/compute overlap (cp.async or TMA), mma.sync
 // instead of wgmma, one block of 4 warps per tile, and the recomputed S and
 // dP in the backward (ROADMAP B1).
+//
+// B5 at BERT-large's shape (B8 S512 H16 D64, full, bf16): the forward moves
+// 33.8 MB (qkv in, o and lse out; 0.0101 ms) for 4*B*H*S^2*D = 8.59 GFLOP
+// (0.0087 ms), so it is bound by its bytes; the backward moves 67.4 MB
+// (0.0201 ms) for 21.5 GFLOP (0.0217 ms), bound by its products. Each tile
+// row of one head is 128 bytes (D=64 bf16) at a 6 KB row stride, read as
+// 16-byte pieces, as B1's pair-major rows are: the layout costs nothing
+// more, and the design leaves what B1's leaves.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,14 +90,18 @@ namespace {
 
 using namespace flash;
 
+// Column layout of the fused projection qkv [B,S,3*H*D] (and of dqkv).
+constexpr int kPairMajor = 0;    // B1: [pair: q|k|v] x H/2, each 2D wide
+constexpr int kWhichMajor = 1;   // B5: [q|k|v] regions, each H*D wide
+
 struct Geometry {
   int b, hg, pair, hh;
   int64_t ld3;       // row stride of qkv / dqkv: 3*H*D
   int64_t ld;        // row stride of o / do: H*D
-  int64_t qcol;      // this head's q column; k at +2D, v at +4D
+  int64_t qcol, kcol, vcol;   // this head's q, k and v columns
 };
 
-template <int D>
+template <int D, int L>
 __device__ __forceinline__ Geometry geometry(int H) {
   Geometry g;
   g.hg = blockIdx.y;
@@ -83,11 +110,19 @@ __device__ __forceinline__ Geometry geometry(int H) {
   g.hh = g.hg & 1;
   g.ld = (int64_t)H * D;
   g.ld3 = 3 * g.ld;
-  g.qcol = (int64_t)g.pair * 6 * D + g.hh * D;
+  if (L == kPairMajor) {
+    g.qcol = (int64_t)g.pair * 6 * D + g.hh * D;
+    g.kcol = g.qcol + 2 * D;
+    g.vcol = g.qcol + 4 * D;
+  } else {
+    g.qcol = (int64_t)g.hg * D;
+    g.kcol = g.ld + g.qcol;
+    g.vcol = 2 * g.ld + g.qcol;
+  }
   return g;
 }
 
-template <int D>
+template <int D, int L>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ qkv,
                  const int32_t* __restrict__ seed, float* __restrict__ out,
@@ -100,7 +135,7 @@ flash_fwd_kernel(const float* __restrict__ qkv,
   float* Vs = Ks + kTile * LD;
   float* Ps = Vs + kTile * LD;
 
-  const Geometry g = geometry<D>(H);
+  const Geometry g = geometry<D, L>(H);
   const int nq = S / kTile;
   const int qt = nq - 1 - blockIdx.x;    // the longest causal rows first
   const int q0 = qt * kTile;
@@ -124,8 +159,8 @@ flash_fwd_kernel(const float* __restrict__ qkv,
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the previous K/V/P tiles are consumed
-    load_tile<D>(Ks, base + (int64_t)k0 * g.ld3 + g.qcol + 2 * D, g.ld3, kTile);
-    load_tile<D>(Vs, base + (int64_t)k0 * g.ld3 + g.qcol + 4 * D, g.ld3, kTile);
+    load_tile<D>(Ks, base + (int64_t)k0 * g.ld3 + g.kcol, g.ld3, kTile);
+    load_tile<D>(Vs, base + (int64_t)k0 * g.ld3 + g.vcol, g.ld3, kTile);
     __syncthreads();
     float s[kTM][4];
 #pragma unroll
@@ -201,7 +236,7 @@ __device__ __forceinline__ void probs_and_dscores(
   }
 }
 
-template <int D>
+template <int D, int L>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_kernel(const float* __restrict__ qkv,
                       const float* __restrict__ dout,
@@ -219,7 +254,7 @@ flash_bwd_dkdv_kernel(const float* __restrict__ qkv,
   float* Ps = dOs + kTile * LD;
   float* dSs = Ps + kTile * kLS;
 
-  const Geometry g = geometry<D>(H);
+  const Geometry g = geometry<D, L>(H);
   const int nq = S / kTile;
   const int kt = blockIdx.x;             // the most query tiles first
   const int k0 = kt * kTile;
@@ -232,8 +267,8 @@ flash_bwd_dkdv_kernel(const float* __restrict__ qkv,
       use_drop ? mix32((uint32_t)seed[0], g.b, g.pair, g.hh) : 0u;
   const float inv_keep = 1.0f / keep;
 
-  load_tile<D>(Ks, base + (int64_t)k0 * g.ld3 + g.qcol + 2 * D, g.ld3, kTile);
-  load_tile<D>(Vs, base + (int64_t)k0 * g.ld3 + g.qcol + 4 * D, g.ld3, kTile);
+  load_tile<D>(Ks, base + (int64_t)k0 * g.ld3 + g.kcol, g.ld3, kTile);
+  load_tile<D>(Vs, base + (int64_t)k0 * g.ld3 + g.vcol, g.ld3, kTile);
   float dk[kTM][TD], dv[kTM][TD];
 #pragma unroll
   for (int i = 0; i < kTM; ++i)
@@ -267,17 +302,16 @@ flash_bwd_dkdv_kernel(const float* __restrict__ qkv,
 
 #pragma unroll
   for (int i = 0; i < kTM; ++i) {
-    float* row =
-        dqkv + ((int64_t)g.b * S + k0 + ty + 16 * i) * g.ld3 + g.qcol;
+    float* row = dqkv + ((int64_t)g.b * S + k0 + ty + 16 * i) * g.ld3;
 #pragma unroll
     for (int j = 0; j < TD; ++j) {
-      row[2 * D + tx + 16 * j] = dk[i][j];
-      row[4 * D + tx + 16 * j] = dv[i][j];
+      row[g.kcol + tx + 16 * j] = dk[i][j];
+      row[g.vcol + tx + 16 * j] = dv[i][j];
     }
   }
 }
 
-template <int D>
+template <int D, int L>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const float* __restrict__ qkv,
                     const float* __restrict__ dout,
@@ -294,7 +328,7 @@ flash_bwd_dq_kernel(const float* __restrict__ qkv,
   float* Vs = Ks + kTile * LD;
   float* dSs = Vs + kTile * LD;
 
-  const Geometry g = geometry<D>(H);
+  const Geometry g = geometry<D, L>(H);
   const int nq = S / kTile;
   const int qt = nq - 1 - blockIdx.x;    // the longest causal rows first
   const int q0 = qt * kTile;
@@ -322,8 +356,8 @@ flash_bwd_dq_kernel(const float* __restrict__ qkv,
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the previous K/V/dS tiles are consumed
-    load_tile<D>(Ks, base + (int64_t)k0 * g.ld3 + g.qcol + 2 * D, g.ld3, kTile);
-    load_tile<D>(Vs, base + (int64_t)k0 * g.ld3 + g.qcol + 4 * D, g.ld3, kTile);
+    load_tile<D>(Ks, base + (int64_t)k0 * g.ld3 + g.kcol, g.ld3, kTile);
+    load_tile<D>(Vs, base + (int64_t)k0 * g.ld3 + g.vcol, g.ld3, kTile);
     __syncthreads();
     float s[kTM][4], dp[kTM][4];
 #pragma unroll
@@ -349,7 +383,7 @@ flash_bwd_dq_kernel(const float* __restrict__ qkv,
   }
 }
 
-template <int D>
+template <int D, int L>
 __global__ void __launch_bounds__(kThreadsTC)
 flash_fwd_tc_kernel(const bf16* __restrict__ qkv,
                     const int32_t* __restrict__ seed, bf16* __restrict__ out,
@@ -361,7 +395,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ qkv,
   bf16* Ks = Qs + kTile * LD;                        // [64][LD]
   bf16* Vt = Ks + kTile * LD;                        // [D][LT]
 
-  const Geometry g = geometry<D>(H);
+  const Geometry g = geometry<D, L>(H);
   const int nq = S / kTile;
   const int qt = nq - 1 - blockIdx.x;    // the longest causal rows first
   const int q0 = qt * kTile;
@@ -387,8 +421,8 @@ flash_fwd_tc_kernel(const bf16* __restrict__ qkv,
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the previous K/V tiles are consumed
-    copy_tile<D, kTile>(Ks, base + (int64_t)k0 * g.ld3 + g.qcol + 2 * D, g.ld3, kTile);
-    copy_tile_t<D, kTile>(Vt, base + (int64_t)k0 * g.ld3 + g.qcol + 4 * D,
+    copy_tile<D, kTile>(Ks, base + (int64_t)k0 * g.ld3 + g.kcol, g.ld3, kTile);
+    copy_tile_t<D, kTile>(Vt, base + (int64_t)k0 * g.ld3 + g.vcol,
                           g.ld3, kTile);
     __syncthreads();
     float s[8][4];
@@ -466,7 +500,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ qkv,
   }
 }
 
-template <int D>
+template <int D, int L>
 __global__ void __launch_bounds__(kThreadsTC)
 flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ qkv,
                          const bf16* __restrict__ dout,
@@ -487,7 +521,7 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ qkv,
   float* lse_s = reinterpret_cast<float*>(dOt + D * LQ);
   float* delta_s = lse_s + kBQ;
 
-  const Geometry g = geometry<D>(H);
+  const Geometry g = geometry<D, L>(H);
   const int k0 = blockIdx.x * kTile;     // the most query tiles first
   const int lane = threadIdx.x & 31, gi = lane >> 2, qi = lane & 3;
   const int r0 = (threadIdx.x >> 5) * 16;
@@ -499,8 +533,8 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ qkv,
       use_drop ? mix32((uint32_t)seed[0], g.b, g.pair, g.hh) : 0u;
   const float inv_keep = 1.0f / keep;
 
-  copy_tile<D, kTile>(Ks, base + (int64_t)k0 * g.ld3 + g.qcol + 2 * D, g.ld3, kTile);
-  copy_tile<D, kTile>(Vs, base + (int64_t)k0 * g.ld3 + g.qcol + 4 * D, g.ld3, kTile);
+  copy_tile<D, kTile>(Ks, base + (int64_t)k0 * g.ld3 + g.kcol, g.ld3, kTile);
+  copy_tile<D, kTile>(Vs, base + (int64_t)k0 * g.ld3 + g.vcol, g.ld3, kTile);
   float dk[ND][4], dv[ND][4];
 #pragma unroll
   for (int n = 0; n < ND; ++n)
@@ -571,19 +605,18 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ qkv,
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    bf16* row = dqkv + ((int64_t)g.b * S + k0 + r0 + gi + 8 * h) * g.ld3 +
-                g.qcol;
+    bf16* row = dqkv + ((int64_t)g.b * S + k0 + r0 + gi + 8 * h) * g.ld3;
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
-      *reinterpret_cast<uint32_t*>(row + 2 * D + n * 8 + 2 * qi) =
+      *reinterpret_cast<uint32_t*>(row + g.kcol + n * 8 + 2 * qi) =
           pack_bf16(dk[n][2 * h], dk[n][2 * h + 1]);
-      *reinterpret_cast<uint32_t*>(row + 4 * D + n * 8 + 2 * qi) =
+      *reinterpret_cast<uint32_t*>(row + g.vcol + n * 8 + 2 * qi) =
           pack_bf16(dv[n][2 * h], dv[n][2 * h + 1]);
     }
   }
 }
 
-template <int D>
+template <int D, int L>
 __global__ void __launch_bounds__(kThreadsTC)
 flash_bwd_dq_tc_kernel(const bf16* __restrict__ qkv,
                        const bf16* __restrict__ dout,
@@ -600,7 +633,7 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ qkv,
   bf16* Vs = Ks + kTile * LD;                        // [64][LD]
   bf16* Kt = Vs + kTile * LD;                        // [D][LT]
 
-  const Geometry g = geometry<D>(H);
+  const Geometry g = geometry<D, L>(H);
   const int nq = S / kTile;
   const int qt = nq - 1 - blockIdx.x;    // the longest causal rows first
   const int q0 = qt * kTile;
@@ -631,9 +664,9 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ qkv,
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the previous K/V tiles are consumed
-    copy_tile<D, kTile>(Ks, base + (int64_t)k0 * g.ld3 + g.qcol + 2 * D, g.ld3, kTile);
-    copy_tile<D, kTile>(Vs, base + (int64_t)k0 * g.ld3 + g.qcol + 4 * D, g.ld3, kTile);
-    copy_tile_t<D, kTile>(Kt, base + (int64_t)k0 * g.ld3 + g.qcol + 2 * D,
+    copy_tile<D, kTile>(Ks, base + (int64_t)k0 * g.ld3 + g.kcol, g.ld3, kTile);
+    copy_tile<D, kTile>(Vs, base + (int64_t)k0 * g.ld3 + g.vcol, g.ld3, kTile);
+    copy_tile_t<D, kTile>(Kt, base + (int64_t)k0 * g.ld3 + g.kcol,
                           g.ld3, kTile);
     __syncthreads();
     float s[8][4], dp[8][4];
@@ -693,7 +726,7 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ qkv,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int L>
 cudaError_t launch_fwd(const void* qkv, const void* seed, void* out, void* lse,
                        int B, int S, int H, int causal, int use_drop,
                        float keep, float scale, cudaStream_t stream) {
@@ -702,13 +735,13 @@ cudaError_t launch_fwd(const void* qkv, const void* seed, void* out, void* lse,
   float* l = static_cast<float*>(lse);
   cudaError_t err;
   if constexpr (std::is_same<T, bf16>::value) {
-    auto k = flash_fwd_tc_kernel<D>;
+    auto k = flash_fwd_tc_kernel<D, L>;
     if ((err = allow_smem(k, fwd_tc_smem<D>())) != cudaSuccess) return err;
     k<<<grid, kThreadsTC, fwd_tc_smem<D>(), stream>>>(
         static_cast<const bf16*>(qkv), sd, static_cast<bf16*>(out), l, S, H,
         causal, use_drop, keep, scale);
   } else {
-    auto k = flash_fwd_kernel<D>;
+    auto k = flash_fwd_kernel<D, L>;
     if ((err = allow_smem(k, fwd_smem<D>())) != cudaSuccess) return err;
     k<<<grid, kThreads, fwd_smem<D>(), stream>>>(
         static_cast<const T*>(qkv), sd, static_cast<T*>(out), l, S, H, causal,
@@ -717,7 +750,7 @@ cudaError_t launch_fwd(const void* qkv, const void* seed, void* out, void* lse,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, int L>
 cudaError_t launch_bwd(const void* qkv, const void* dout, const void* o,
                        const void* lse, const void* seed, void* delta,
                        void* dqkv, int B, int S, int H, int causal,
@@ -734,8 +767,8 @@ cudaError_t launch_bwd(const void* qkv, const void* dout, const void* o,
   if (err != cudaSuccess) return err;
   const dim3 grid(S / kTile, H, B);
   if constexpr (std::is_same<T, bf16>::value) {
-    auto kv = flash_bwd_dkdv_tc_kernel<D>;
-    auto kq = flash_bwd_dq_tc_kernel<D>;
+    auto kv = flash_bwd_dkdv_tc_kernel<D, L>;
+    auto kq = flash_bwd_dq_tc_kernel<D, L>;
     if ((err = allow_smem(kv, dkdv_tc_smem<D>())) != cudaSuccess) return err;
     if ((err = allow_smem(kq, dq_tc_smem<D>())) != cudaSuccess) return err;
     kv<<<grid, kThreadsTC, dkdv_tc_smem<D>(), stream>>>(
@@ -744,8 +777,8 @@ cudaError_t launch_bwd(const void* qkv, const void* dout, const void* o,
     kq<<<grid, kThreadsTC, dq_tc_smem<D>(), stream>>>(
         q, d, l, dl, sd, dx, S, H, causal, use_drop, keep, scale);
   } else {
-    auto kv = flash_bwd_dkdv_kernel<D>;
-    auto kq = flash_bwd_dq_kernel<D>;
+    auto kv = flash_bwd_dkdv_kernel<D, L>;
+    auto kq = flash_bwd_dq_kernel<D, L>;
     if ((err = allow_smem(kv, dkdv_smem<D>())) != cudaSuccess) return err;
     if ((err = allow_smem(kq, dq_smem<D>())) != cudaSuccess) return err;
     kv<<<grid, kThreads, dkdv_smem<D>(), stream>>>(
@@ -762,71 +795,110 @@ bool valid_shape(int B, int S, int H, int D) {
          (D == 64 || D == 128);
 }
 
+// The C entries of one layout: shape checks, then the (dtype, D) instance.
+template <int L>
+int fwd_entry(const void* qkv, const void* seed, void* out, void* lse, int B,
+              int S, int H, int D, int causal, int use_drop, float keep,
+              float scale, int dtype, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!valid_shape(B, S, H, D) || (use_drop && seed == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && D == 64)
+    err = launch_fwd<float, 64, L>(qkv, seed, out, lse, B, S, H, causal,
+                                   use_drop, keep, scale, s);
+  else if (dtype == 0 && D == 128)
+    err = launch_fwd<float, 128, L>(qkv, seed, out, lse, B, S, H, causal,
+                                    use_drop, keep, scale, s);
+  else if (dtype == 1 && D == 64)
+    err = launch_fwd<bf16, 64, L>(qkv, seed, out, lse, B, S, H, causal,
+                                  use_drop, keep, scale, s);
+  else if (dtype == 1 && D == 128)
+    err = launch_fwd<bf16, 128, L>(qkv, seed, out, lse, B, S, H, causal,
+                                   use_drop, keep, scale, s);
+  else
+    err = cudaErrorInvalidValue;
+  return (int)err;
+}
+
+template <int L>
+int bwd_entry(const void* qkv, const void* dout, const void* o,
+              const void* lse, const void* seed, void* delta, void* dqkv,
+              int B, int S, int H, int D, int causal, int use_drop,
+              float keep, float scale, int dtype, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!valid_shape(B, S, H, D) || (use_drop && seed == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && D == 64)
+    err = launch_bwd<float, 64, L>(qkv, dout, o, lse, seed, delta, dqkv, B, S,
+                                   H, causal, use_drop, keep, scale, s);
+  else if (dtype == 0 && D == 128)
+    err = launch_bwd<float, 128, L>(qkv, dout, o, lse, seed, delta, dqkv, B,
+                                    S, H, causal, use_drop, keep, scale, s);
+  else if (dtype == 1 && D == 64)
+    err = launch_bwd<bf16, 64, L>(qkv, dout, o, lse, seed, delta, dqkv, B, S,
+                                  H, causal, use_drop, keep, scale, s);
+  else if (dtype == 1 && D == 128)
+    err = launch_bwd<bf16, 128, L>(qkv, dout, o, lse, seed, delta, dqkv, B, S,
+                                   H, causal, use_drop, keep, scale, s);
+  else
+    err = cudaErrorInvalidValue;
+  return (int)err;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (qkv, o and dqkv share it). seed: an
 // int32 on the device, read only when use_drop != 0. keep = 1 - dropout_p
 // and scale = 1/sqrt(D), both rounded to f32 by the caller. Returns the
 // CUDA error of the launch (0 = launched). The caller checks shapes,
-// dtypes, contiguity and 16-byte alignment.
+// dtypes, contiguity and 16-byte alignment. `qkv` entries take the
+// pair-major projection (B1), `qkv3` entries the which-major one (B5).
 extern "C" int ptt_flash_qkv_fwd(const void* qkv, const void* seed, void* out,
                                  void* lse, int B, int S, int H, int D,
                                  int causal, int use_drop, float keep,
                                  float scale, int dtype, int device,
                                  void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (!valid_shape(B, S, H, D) || (use_drop && seed == nullptr))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64)
-    err = launch_fwd<float, 64>(qkv, seed, out, lse, B, S, H, causal, use_drop,
-                                keep, scale, s);
-  else if (dtype == 0 && D == 128)
-    err = launch_fwd<float, 128>(qkv, seed, out, lse, B, S, H, causal,
-                                 use_drop, keep, scale, s);
-  else if (dtype == 1 && D == 64)
-    err = launch_fwd<__nv_bfloat16, 64>(qkv, seed, out, lse, B, S, H, causal,
-                                        use_drop, keep, scale, s);
-  else if (dtype == 1 && D == 128)
-    err = launch_fwd<__nv_bfloat16, 128>(qkv, seed, out, lse, B, S, H, causal,
-                                         use_drop, keep, scale, s);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+  return fwd_entry<kPairMajor>(qkv, seed, out, lse, B, S, H, D, causal,
+                               use_drop, keep, scale, dtype, device, stream);
+}
+
+extern "C" int ptt_flash_qkv3_fwd(const void* qkv, const void* seed,
+                                  void* out, void* lse, int B, int S, int H,
+                                  int D, int causal, int use_drop, float keep,
+                                  float scale, int dtype, int device,
+                                  void* stream) {
+  return fwd_entry<kWhichMajor>(qkv, seed, out, lse, B, S, H, D, causal,
+                                use_drop, keep, scale, dtype, device, stream);
 }
 
 // The backward: delta pre-pass, dk/dv pass, dq pass, on one stream.
-// delta: f32 [B, H, S] scratch allocated by the caller. dqkv is written
-// in full (every q, k and v column of every head).
+// delta: f32 [B, H, S] scratch allocated by the caller. dqkv (in the
+// input's layout) is written in full: every q, k and v column of every
+// head.
 extern "C" int ptt_flash_qkv_bwd(const void* qkv, const void* dout,
                                  const void* o, const void* lse,
                                  const void* seed, void* delta, void* dqkv,
                                  int B, int S, int H, int D, int causal,
                                  int use_drop, float keep, float scale,
                                  int dtype, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (!valid_shape(B, S, H, D) || (use_drop && seed == nullptr))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64)
-    err = launch_bwd<float, 64>(qkv, dout, o, lse, seed, delta, dqkv, B, S, H,
-                                causal, use_drop, keep, scale, s);
-  else if (dtype == 0 && D == 128)
-    err = launch_bwd<float, 128>(qkv, dout, o, lse, seed, delta, dqkv, B, S, H,
-                                 causal, use_drop, keep, scale, s);
-  else if (dtype == 1 && D == 64)
-    err = launch_bwd<__nv_bfloat16, 64>(qkv, dout, o, lse, seed, delta, dqkv,
-                                        B, S, H, causal, use_drop, keep, scale,
-                                        s);
-  else if (dtype == 1 && D == 128)
-    err = launch_bwd<__nv_bfloat16, 128>(qkv, dout, o, lse, seed, delta, dqkv,
-                                         B, S, H, causal, use_drop, keep,
-                                         scale, s);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+  return bwd_entry<kPairMajor>(qkv, dout, o, lse, seed, delta, dqkv, B, S, H,
+                               D, causal, use_drop, keep, scale, dtype,
+                               device, stream);
+}
+
+extern "C" int ptt_flash_qkv3_bwd(const void* qkv, const void* dout,
+                                  const void* o, const void* lse,
+                                  const void* seed, void* delta, void* dqkv,
+                                  int B, int S, int H, int D, int causal,
+                                  int use_drop, float keep, float scale,
+                                  int dtype, int device, void* stream) {
+  return bwd_entry<kWhichMajor>(qkv, dout, o, lse, seed, delta, dqkv, B, S, H,
+                                D, causal, use_drop, keep, scale, dtype,
+                                device, stream);
 }
 
 extern "C" const char* ptt_error_string(int code) {

@@ -1,6 +1,6 @@
 """Flash attention: the Hopper kernels and their plain versions.
 
-Counterpart: ``paddle_tpu/kernels/flash_attention.py``. Two families of
+Counterpart: ``paddle_tpu/kernels/flash_attention.py``. Three families of
 TPU kernels there are replaced by hand-written CUDA kernels here; the
 header note of each source says how they work and what bounds them.
 
@@ -15,9 +15,18 @@ B1, the pair-major qkv kernels (``csrc/flash_attention_qkv.cu``):
 - `flash_attention_qkv`: the dispatcher with the contract of
   ``paddle_tpu.kernels.flash_attention.flash_attention_qkv`` (:994),
   differentiable through `_FlashQKV`.
-- `flash_attention_qkv3` (:1167): the which-major ``[q|k|v]`` variant,
-  its plain version only (B1's math on the repacked projection); its
-  kernels are ROADMAP B5 and a CUDA tensor raises.
+
+B5, the which-major qkv3 kernels (the same source, the layout a template
+parameter): ``_fwd_qkv3_kernel`` (:1018, via ``_fwd_qkv3`` :1071) and
+``_bwd_qkv3_kernel`` (:1044, via ``_bwd_qkv3`` :1107).
+
+- `flash_attention_qkv3_fwd` / `flash_attention_qkv3_bwd`: the kernel
+  wrappers, reading the ``[q|k|v]`` projection as it lies and writing a
+  which-major ``dqkv``.
+- `flash_qkv3_reference` / `flash_qkv3_bwd_reference`: the plain
+  versions (B1's plain math on the repacked projection).
+- `flash_attention_qkv3` (:1167), differentiable through `_FlashQKV3`,
+  and `flash_attention_packed` (:1194).
 
 B2, the general ``[B, S, H, D]`` kernels (``csrc/flash_attention.cu``):
 ``_fwd_kernel`` (:207, via ``_fwd`` :319), ``_merged_bwd_kernel`` (:536,
@@ -68,6 +77,8 @@ from ..core import random as _random
 _SOURCE = "flash_attention_qkv"
 _FWD = "flash_attention_qkv_fwd"
 _BWD = "flash_attention_qkv_bwd"
+_FWD3 = "flash_attention_qkv3_fwd"
+_BWD3 = "flash_attention_qkv3_bwd"
 _MASKED = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _M32 = 0xFFFFFFFF
@@ -228,27 +239,64 @@ def flash_qkv_bwd_reference(qkv, do, o, lse, n_heads, causal, dropout_p=0.0,
     return torch.stack(parts, dim=3).reshape(b, s, hd3).to(qkv.dtype)
 
 
+def _which_to_pair(qkv, n_heads):
+    """Which-major ``[B, S, 3HD]`` (``[q|k|v]`` regions) -> pair-major
+    (``[pair: q|k|v]``), a copy."""
+    b, s, hd3 = qkv.shape
+    d = hd3 // (3 * n_heads)
+    return (qkv.reshape(b, s, 3, n_heads // 2, 2 * d).transpose(2, 3)
+            .reshape(b, s, hd3))
+
+
+def _pair_to_which(qkv, n_heads):
+    """The inverse of `_which_to_pair`."""
+    b, s, hd3 = qkv.shape
+    d = hd3 // (3 * n_heads)
+    return (qkv.reshape(b, s, n_heads // 2, 3, 2 * d).transpose(2, 3)
+            .reshape(b, s, hd3))
+
+
+def flash_qkv3_reference(qkv, n_heads, causal, dropout_p=0.0, seed=None):
+    """The plain version of `flash_attention_qkv3_fwd`: B1's plain math on
+    the repacked projection (the two kernels compute the same function
+    with the same dropout ids). ``(o [B, S, H*D], lse [B, H, S]
+    float32)``."""
+    return flash_qkv_reference(_which_to_pair(qkv, n_heads), n_heads, causal,
+                               dropout_p, seed)
+
+
+def flash_qkv3_bwd_reference(qkv, do, o, lse, n_heads, causal, dropout_p=0.0,
+                             seed=None):
+    """The plain version of `flash_attention_qkv3_bwd`: ``dqkv [B, S,
+    3*H*D]`` which-major (``[dq|dk|dv]``), in qkv's dtype."""
+    dqkv = flash_qkv_bwd_reference(_which_to_pair(qkv, n_heads), do, o, lse,
+                                   n_heads, causal, dropout_p, seed)
+    return _pair_to_which(dqkv, n_heads)
+
+
 # ---------------------------------------------------------- kernel wrappers
+_ENTRIES = {_FWD: "ptt_flash_qkv_fwd", _BWD: "ptt_flash_qkv_bwd",
+            _FWD3: "ptt_flash_qkv3_fwd", _BWD3: "ptt_flash_qkv3_bwd"}
+
+
 def _kernel_fns():
-    """``(fwd, bwd, error_string)``: the C entry points with their
-    argument types declared (pointers and the stream as ``c_void_p``)."""
+    """``({kernel: C entry}, error_string)``, the argument types declared
+    (pointers and the stream as ``c_void_p``)."""
     global _fns
     if _fns is None:
         lib = _build.load(_SOURCE)
-        fwd = lib.ptt_flash_qkv_fwd
-        fwd.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                        + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
-                        + [ctypes.c_void_p])
-        fwd.restype = ctypes.c_int
-        bwd = lib.ptt_flash_qkv_bwd
-        bwd.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-                        + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
-                        + [ctypes.c_void_p])
-        bwd.restype = ctypes.c_int
+        shape = [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
+        fns = {}
+        for kernel, entry in _ENTRIES.items():
+            fn = getattr(lib, entry)
+            n_ptr = 4 if kernel in (_FWD, _FWD3) else 7
+            fn.argtypes = [ctypes.c_void_p] * n_ptr + shape + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            fns[kernel] = fn
         err_str = lib.ptt_error_string
         err_str.argtypes = [ctypes.c_int]
         err_str.restype = ctypes.c_char_p
-        _fns = (fwd, bwd, err_str)
+        _fns = (fns, err_str)
     return _fns
 
 
@@ -258,7 +306,7 @@ def _check(cond, kernel, msg):
 
 
 def _check_qkv(kernel, qkv, n_heads, dropout_p, seed):
-    """Shape, dtype and device checks shared by both wrappers; returns
+    """Shape, dtype and device checks shared by the qkv wrappers; returns
     ``(b, s, d)``."""
     _check(qkv.device.type == "cuda", kernel,
            f"needs CUDA tensors, got {qkv.device}")
@@ -291,25 +339,59 @@ def _raise_on(err, kernel, err_str):
                            f" ({err_str(err).decode()})")
 
 
-def flash_attention_qkv_fwd(qkv, n_heads, causal, dropout_p=0.0, seed=None):
-    """Launch the forward kernel on ``qkv [B, S, 3*H*D]`` (CUDA,
-    contiguous, float32 or bfloat16; D 64 or 128, H even, S a multiple
-    of 64). ``seed``: int32 ``[1]`` tensor on the same device, needed
-    when ``dropout_p > 0``. Returns ``(o [B, S, H*D], lse [B, H, S])``."""
-    b, s, d = _check_qkv(_FWD, qkv, n_heads, dropout_p, seed)
+def _launch_fwd(kernel, qkv, n_heads, causal, dropout_p, seed):
+    """One forward launch of ``kernel`` (`_FWD` or `_FWD3`)."""
+    b, s, d = _check_qkv(kernel, qkv, n_heads, dropout_p, seed)
     o = torch.empty((b, s, n_heads * d), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((b, n_heads, s), dtype=torch.float32,
                       device=qkv.device)
-    fwd, _, err_str = _kernel_fns()
-    err = fwd(qkv.data_ptr(), seed.data_ptr() if dropout_p else None,
-              o.data_ptr(), lse.data_ptr(), b, s, n_heads, d, int(causal),
-              int(dropout_p > 0), float(np.float32(1.0 - dropout_p)),
-              float(np.float32(1.0 / math.sqrt(d))), _DTYPE_CODES[qkv.dtype],
-              qkv.device.index, torch.cuda.current_stream(qkv.device)
-              .cuda_stream)
-    _raise_on(err, _FWD, err_str)
-    count_launch(_FWD)
+    fns, err_str = _kernel_fns()
+    err = fns[kernel](
+        qkv.data_ptr(), seed.data_ptr() if dropout_p else None, o.data_ptr(),
+        lse.data_ptr(), b, s, n_heads, d, int(causal), int(dropout_p > 0),
+        float(np.float32(1.0 - dropout_p)),
+        float(np.float32(1.0 / math.sqrt(d))), _DTYPE_CODES[qkv.dtype],
+        qkv.device.index, torch.cuda.current_stream(qkv.device).cuda_stream)
+    _raise_on(err, kernel, err_str)
+    count_launch(kernel)
     return o, lse
+
+
+def _launch_bwd(kernel, qkv, do, o, lse, n_heads, causal, dropout_p, seed):
+    """One backward launch of ``kernel`` (`_BWD` or `_BWD3`)."""
+    b, s, d = _check_qkv(kernel, qkv, n_heads, dropout_p, seed)
+    for name, t, shape, dt in (("do", do, (b, s, n_heads * d), qkv.dtype),
+                               ("o", o, (b, s, n_heads * d), qkv.dtype),
+                               ("lse", lse, (b, n_heads, s), torch.float32)):
+        _check(t.device == qkv.device and tuple(t.shape) == shape
+               and t.dtype == dt and t.is_contiguous(), kernel,
+               f"{name} must be contiguous {dt} {shape} on {qkv.device}, got "
+               f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    _check(do.data_ptr() % 16 == 0 and o.data_ptr() % 16 == 0, kernel,
+           "do and o must be 16-byte aligned")
+    delta = torch.empty((b, n_heads, s), dtype=torch.float32,
+                        device=qkv.device)
+    dqkv = torch.empty_like(qkv)
+    fns, err_str = _kernel_fns()
+    err = fns[kernel](
+        qkv.data_ptr(), do.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        seed.data_ptr() if dropout_p else None, delta.data_ptr(),
+        dqkv.data_ptr(), b, s, n_heads, d, int(causal), int(dropout_p > 0),
+        float(np.float32(1.0 - dropout_p)),
+        float(np.float32(1.0 / math.sqrt(d))), _DTYPE_CODES[qkv.dtype],
+        qkv.device.index, torch.cuda.current_stream(qkv.device).cuda_stream)
+    _raise_on(err, kernel, err_str)
+    count_launch(kernel)
+    return dqkv
+
+
+def flash_attention_qkv_fwd(qkv, n_heads, causal, dropout_p=0.0, seed=None):
+    """Launch the forward kernel on the pair-major ``qkv [B, S, 3*H*D]``
+    (CUDA, contiguous, float32 or bfloat16; D 64 or 128, H even, S a
+    multiple of 64). ``seed``: int32 ``[1]`` tensor on the same device,
+    needed when ``dropout_p > 0``. Returns ``(o [B, S, H*D], lse [B, H,
+    S])``."""
+    return _launch_fwd(_FWD, qkv, n_heads, causal, dropout_p, seed)
 
 
 def flash_attention_qkv_bwd(qkv, do, o, lse, n_heads, causal, dropout_p=0.0,
@@ -319,61 +401,81 @@ def flash_attention_qkv_bwd(qkv, do, o, lse, n_heads, causal, dropout_p=0.0,
     cotangent ``do [B, S, H*D]`` (qkv's dtype). One call runs the
     ``delta = rowsum(dO*O)`` pre-pass, the dk/dv pass and the dq pass;
     it counts as one launch of the backward."""
-    b, s, d = _check_qkv(_BWD, qkv, n_heads, dropout_p, seed)
-    for name, t, shape, dt in (("do", do, (b, s, n_heads * d), qkv.dtype),
-                               ("o", o, (b, s, n_heads * d), qkv.dtype),
-                               ("lse", lse, (b, n_heads, s), torch.float32)):
-        _check(t.device == qkv.device and tuple(t.shape) == shape
-               and t.dtype == dt and t.is_contiguous(), _BWD,
-               f"{name} must be contiguous {dt} {shape} on {qkv.device}, got "
-               f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    _check(do.data_ptr() % 16 == 0 and o.data_ptr() % 16 == 0, _BWD,
-           "do and o must be 16-byte aligned")
-    delta = torch.empty((b, n_heads, s), dtype=torch.float32,
-                        device=qkv.device)
-    dqkv = torch.empty_like(qkv)
-    _, bwd, err_str = _kernel_fns()
-    err = bwd(qkv.data_ptr(), do.data_ptr(), o.data_ptr(), lse.data_ptr(),
-              seed.data_ptr() if dropout_p else None, delta.data_ptr(),
-              dqkv.data_ptr(), b, s, n_heads, d, int(causal),
-              int(dropout_p > 0), float(np.float32(1.0 - dropout_p)),
-              float(np.float32(1.0 / math.sqrt(d))), _DTYPE_CODES[qkv.dtype],
-              qkv.device.index, torch.cuda.current_stream(qkv.device)
-              .cuda_stream)
-    _raise_on(err, _BWD, err_str)
-    count_launch(_BWD)
-    return dqkv
+    return _launch_bwd(_BWD, qkv, do, o, lse, n_heads, causal, dropout_p,
+                       seed)
+
+
+def flash_attention_qkv3_fwd(qkv, n_heads, causal, dropout_p=0.0, seed=None):
+    """`flash_attention_qkv_fwd` on the WHICH-major ``qkv [B, S, 3*H*D]``
+    (``[q|k|v]`` regions), read as it lies."""
+    return _launch_fwd(_FWD3, qkv, n_heads, causal, dropout_p, seed)
+
+
+def flash_attention_qkv3_bwd(qkv, do, o, lse, n_heads, causal, dropout_p=0.0,
+                             seed=None):
+    """`flash_attention_qkv_bwd` on the which-major ``qkv``: ``dqkv`` is
+    which-major too (``[dq|dk|dv]``, written in place of the reference's
+    concatenate)."""
+    return _launch_bwd(_BWD3, qkv, do, o, lse, n_heads, causal, dropout_p,
+                       seed)
 
 
 # ----------------------------------------------------------------- autograd
+#: per layout: (forward kernel, backward kernel, plain forward, plain
+#: backward, kernel forward, kernel backward)
+_VARIANTS = {
+    "pair": (_FWD, _BWD, flash_qkv_reference, flash_qkv_bwd_reference,
+             flash_attention_qkv_fwd, flash_attention_qkv_bwd),
+    "which": (_FWD3, _BWD3, flash_qkv3_reference, flash_qkv3_bwd_reference,
+              flash_attention_qkv3_fwd, flash_attention_qkv3_bwd),
+}
+
+
+def _qkv_forward(ctx, layout, qkv, seed, n_heads, causal, dropout_p):
+    fwd_k, _, plain_fwd, _, kernel_fwd, _ = _VARIANTS[layout]
+    run = plain_fwd if runs_plain(qkv, fwd_k) else kernel_fwd
+    o, lse = run(qkv, n_heads, causal, dropout_p, seed)
+    ctx.save_for_backward(qkv, o, lse, seed)
+    ctx.cfg = (n_heads, causal, dropout_p)
+    return o
+
+
+def _qkv_backward(ctx, layout, do):
+    _, bwd_k, _, plain_bwd, _, kernel_bwd = _VARIANTS[layout]
+    qkv, o, lse, seed = ctx.saved_tensors
+    n_heads, causal, dropout_p = ctx.cfg
+    do = do.to(qkv.dtype).contiguous()
+    run = plain_bwd if runs_plain(qkv, bwd_k) else kernel_bwd
+    dqkv = run(qkv, do, o, lse, n_heads, causal, dropout_p, seed)
+    return dqkv, None, None, None, None
+
+
 class _FlashQKV(torch.autograd.Function):
     """``custom_vjp`` of ``_flash_qkv_p`` (:974-985): forward saves
     ``(qkv, o, lse, seed)``, backward recomputes P from lse."""
 
     @staticmethod
     def forward(ctx, qkv, seed, n_heads, causal, dropout_p):
-        if runs_plain(qkv, _FWD):
-            o, lse = flash_qkv_reference(qkv, n_heads, causal, dropout_p,
-                                         seed)
-        else:
-            o, lse = flash_attention_qkv_fwd(qkv, n_heads, causal,
-                                             dropout_p, seed)
-        ctx.save_for_backward(qkv, o, lse, seed)
-        ctx.cfg = (n_heads, causal, dropout_p)
-        return o
+        return _qkv_forward(ctx, "pair", qkv, seed, n_heads, causal,
+                            dropout_p)
 
     @staticmethod
     def backward(ctx, do):
-        qkv, o, lse, seed = ctx.saved_tensors
-        n_heads, causal, dropout_p = ctx.cfg
-        do = do.to(qkv.dtype).contiguous()
-        if runs_plain(qkv, _BWD):
-            dqkv = flash_qkv_bwd_reference(qkv, do, o, lse, n_heads, causal,
-                                           dropout_p, seed)
-        else:
-            dqkv = flash_attention_qkv_bwd(qkv, do, o, lse, n_heads, causal,
-                                           dropout_p, seed)
-        return dqkv, None, None, None, None
+        return _qkv_backward(ctx, "pair", do)
+
+
+class _FlashQKV3(torch.autograd.Function):
+    """``custom_vjp`` of ``_flash_qkv3_p`` (:1147-1158), the same contract
+    on the which-major projection."""
+
+    @staticmethod
+    def forward(ctx, qkv, seed, n_heads, causal, dropout_p):
+        return _qkv_forward(ctx, "which", qkv, seed, n_heads, causal,
+                            dropout_p)
+
+    @staticmethod
+    def backward(ctx, do):
+        return _qkv_backward(ctx, "which", do)
 
 
 def _seed_tensor(seed, generator, device, dropout_p):
@@ -389,6 +491,15 @@ def _seed_tensor(seed, generator, device, dropout_p):
                                                     dtype=torch.int32)
 
 
+def _apply_qkv(fn, kernel, qkv, n_heads, is_causal, dropout_p, seed,
+               generator):
+    seed_t = _seed_tensor(seed, generator, qkv.device, dropout_p)
+    if not runs_plain(qkv, kernel):
+        qkv = qkv.contiguous()
+    return fn.apply(qkv, seed_t, int(n_heads), bool(is_causal),
+                    float(dropout_p))
+
+
 def flash_attention_qkv(qkv, n_heads, is_causal=False, dropout_p=0.0,
                         seed=None, generator=None):
     """Flash attention straight off the pair-major fused projection
@@ -397,31 +508,36 @@ def flash_attention_qkv(qkv, n_heads, is_causal=False, dropout_p=0.0,
     wrappers raise). ``dropout_p``: in-kernel attention dropout, seeded
     by ``seed`` (an int or an int32 tensor) or, when None, by a draw
     from ``generator`` (default: the current `core.random` generator)."""
-    seed_t = _seed_tensor(seed, generator, qkv.device, dropout_p)
-    if not runs_plain(qkv, _FWD):
-        qkv = qkv.contiguous()
-    return _FlashQKV.apply(qkv, seed_t, int(n_heads), bool(is_causal),
-                           float(dropout_p))
+    return _apply_qkv(_FlashQKV, _FWD, qkv, n_heads, is_causal, dropout_p,
+                      seed, generator)
 
 
 def flash_attention_qkv3(qkv, n_heads, is_causal=False, dropout_p=0.0,
                          seed=None, generator=None):
     """Flash attention on a WHICH-major fused projection ``[B, S, 3*H*D]``
     (``[q|k|v]`` regions, head ``h`` at columns ``hD`` of each) ->
-    ``[B, S, H*D]``: ``flash_attention_qkv3`` (:1167), whose kernels
-    (:1018, :1044) are B1's computation with the same ids (b, pair,
-    head). Only its plain version is ported: the projection is repacked
-    pair-major and runs B1's plain math. On a CUDA tensor it raises; the
-    Hopper kernels are ROADMAP B5."""
-    if not runs_plain(qkv, "flash_attention_qkv3"):
-        raise NotImplementedError(
-            "flash_attention_qkv3 on a CUDA tensor: the which-major qkv "
-            "kernels are a later slice (ROADMAP B5)")
-    b, s, hd3 = qkv.shape
-    d = hd3 // (3 * n_heads)
-    pair_major = qkv.reshape(b, s, 3, n_heads // 2, 2 * d).transpose(2, 3)
-    return flash_attention_qkv(pair_major.reshape(b, s, hd3), n_heads,
-                               is_causal, dropout_p, seed, generator)
+    ``[B, S, H*D]``, differentiable (``flash_attention_qkv3`` :1167). A
+    CUDA tensor launches the B5 kernels on the projection as it lies; a
+    CPU tensor runs the plain version. Dropout as in
+    `flash_attention_qkv`, with the same ids: a head drops the same
+    elements in both layouts."""
+    return _apply_qkv(_FlashQKV3, _FWD3, qkv, n_heads, is_causal, dropout_p,
+                      seed, generator)
+
+
+def packed_supported(s_q, s_k, n_heads, d):
+    """``packed_supported`` (:1183-1191): the shapes the qkv kernels take
+    (self-attention, ``S <= 2048``, D 64 or 128, an even head count)."""
+    return s_q == s_k and s_q <= 2048 and d in (64, 128) and n_heads % 2 == 0
+
+
+def flash_attention_packed(query, key, value, n_heads, is_causal=False):
+    """Flash attention on the projection layout ``[B, S, H*D]`` (D 64 or
+    128; :1194-1208): the three projections are concatenated into the
+    which-major layout and run through `flash_attention_qkv3`. Where the
+    projections come from one fused matmul, call that directly."""
+    return flash_attention_qkv3(torch.cat([query, key, value], dim=-1),
+                                n_heads, is_causal)
 
 
 # =================================================== B2: [B, S, H, D]
@@ -729,6 +845,9 @@ def flash_attention(query, key, value, is_causal=False, attn_mask=None,
 __all__ = ["mix32", "hash_keep_scale", "flash_qkv_reference",
            "flash_qkv_bwd_reference", "flash_attention_qkv_fwd",
            "flash_attention_qkv_bwd", "flash_attention_qkv",
-           "flash_attention_qkv3", "normalize_mask_bias", "pick_block",
+           "flash_qkv3_reference", "flash_qkv3_bwd_reference",
+           "flash_attention_qkv3_fwd", "flash_attention_qkv3_bwd",
+           "flash_attention_qkv3", "packed_supported",
+           "flash_attention_packed", "normalize_mask_bias", "pick_block",
            "flash_reference", "flash_bwd_reference", "flash_attention_fwd",
            "flash_attention_bwd", "flash_attention"]

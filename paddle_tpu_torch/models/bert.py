@@ -1,13 +1,20 @@
 """BERT/ERNIE-style bidirectional encoders: pretraining and classification.
 
-Counterpart: ``paddle_tpu/models/bert.py``. A masked batch (an
-``attention_mask`` of shape ``[B, 1, 1, S]``, bool key padding or
-additive) runs each encoder layer's attention through
-``nn.functional.scaled_dot_product_attention``, which takes the general
-flash kernels (ROADMAP B2; the Hopper kernels on a card) where its gate
-does. An unmasked batch at ``S % 128 == 0`` takes the qkv-direct branch
-of `nn.MultiHeadAttention`, whose kernels are ROADMAP B5 (a CUDA tensor
-raises there). ``fuse=True`` (the incubate fused layers) is ROADMAP A13.
+Counterpart: ``paddle_tpu/models/bert.py``. Each encoder layer's
+attention takes one of the port's kernels under the reference's gates
+(the Hopper kernels on a card, their plain versions on the CPU):
+
+- unfused layers (`nn.TransformerEncoderLayer`): a masked batch (an
+  ``attention_mask`` of shape ``[B, 1, 1, S]``, bool key padding or
+  additive) runs ``nn.functional.scaled_dot_product_attention`` into the
+  general flash kernels (B2); an unmasked batch at ``S % 128 == 0`` takes
+  the qkv-direct branch of `nn.MultiHeadAttention`, the which-major qkv3
+  kernels (B5);
+- ``fuse=True`` (`incubate.nn.FusedTransformerEncoderLayer`, reference
+  :88-97): an unmasked batch runs the pair-major qkv kernels (B1) on a
+  pair-major shuffle of ``qkv_weight``, a masked one B2. Its layers drop
+  activations too (``act_dropout_rate`` defaults to the hidden dropout),
+  where the unfused ones do not.
 
 The reference's parameter names and layouts are kept (``Linear`` weights
 ``[in, out]``), so a ``paddle_tpu`` state dict loads key for key
@@ -29,6 +36,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device, resolve_dtype
+from ..incubate.nn import FusedTransformerEncoderLayer
 from ..nn import (Dropout, Embedding, LayerNorm, Linear,
                   TransformerEncoderLayer, init_weights)
 from ..nn import functional as F
@@ -123,30 +131,35 @@ def _resolve(config, device, dtype):
 
 class BertModel(nn.Module):
     """Embeddings, ``num_hidden_layers`` post-LN encoder layers (GELU,
-    LayerNorm eps 1e-5, ``act_dropout`` 0) and the pooler ``tanh(Linear(
-    x[:, 0]))``. ``config``: a `BertConfig` or a `BERT_CONFIGS` name.
-    ``device``: ``None`` means ``cuda`` (raises without a GPU). Weights
-    are random from ``seed``; `models.convert` loads real ones."""
+    LayerNorm eps 1e-5; unfused: ``act_dropout`` 0; ``fuse=True``: the
+    fused layers) and the pooler ``tanh(Linear(x[:, 0]))``. ``config``:
+    a `BertConfig` or a `BERT_CONFIGS` name. ``device``: ``None`` means
+    ``cuda`` (raises without a GPU). Weights are random from ``seed``;
+    `models.convert` loads real ones."""
 
     def __init__(self, config, fuse=False, *, device=None, dtype="float32",
                  seed=0):
         super().__init__()
-        if fuse:
-            raise NotImplementedError(
-                "BertModel(fuse=True) runs the incubate fused layers, a "
-                "later slice (ROADMAP A13)")
         cfg, dev, dt = _resolve(config, device, dtype)
         self.config = cfg
         kw = dict(device=dev, dtype=dt)
         self.embeddings = BertEmbeddings(cfg, **kw)
-        self.encoder_layers = nn.ModuleList([
-            TransformerEncoderLayer(
+        if fuse:
+            layers = [FusedTransformerEncoderLayer(
+                cfg.hidden_size, cfg.num_attention_heads,
+                cfg.intermediate_size, dropout_rate=cfg.hidden_dropout_prob,
+                activation=cfg.hidden_act,
+                attn_dropout_rate=cfg.attention_probs_dropout_prob, **kw)
+                for _ in range(cfg.num_hidden_layers)]
+        else:
+            layers = [TransformerEncoderLayer(
                 cfg.hidden_size, cfg.num_attention_heads,
                 cfg.intermediate_size, dropout=cfg.hidden_dropout_prob,
                 activation=cfg.hidden_act,
                 attn_dropout=cfg.attention_probs_dropout_prob,
                 act_dropout=0.0, **kw)
-            for _ in range(cfg.num_hidden_layers)])
+                for _ in range(cfg.num_hidden_layers)]
+        self.encoder_layers = nn.ModuleList(layers)
         self.pooler_dense = Linear(cfg.hidden_size, cfg.hidden_size, **kw)
         _init_weights(self, seed, cfg.initializer_range)
 
@@ -183,11 +196,16 @@ class BertPretrainingHeads(nn.Module):
 
 class BertForPretraining(nn.Module):
     """`BertModel` plus `BertPretrainingHeads`: ``forward`` returns the
-    MLM logits ``[B, S, V]`` and the NSP logits ``[B, 2]``."""
+    MLM logits ``[B, S, V]`` and the NSP logits ``[B, 2]``. ``config``,
+    ``fuse``, ``device``, ``dtype`` as for `BertModel` (the reference
+    takes the `BertModel` itself); the whole model is drawn from ``seed``
+    by one generator, the heads after the encoder."""
 
-    def __init__(self, config, *, device=None, dtype="float32", seed=0):
+    def __init__(self, config, fuse=False, *, device=None, dtype="float32",
+                 seed=0):
         super().__init__()
-        self.bert = BertModel(config, device=device, dtype=dtype, seed=seed)
+        self.bert = BertModel(config, fuse, device=device, dtype=dtype,
+                              seed=seed)
         cfg = self.bert.config
         w = self.bert.embeddings.word_embeddings.weight
         self.cls = BertPretrainingHeads(cfg, w, device=w.device,

@@ -5,7 +5,8 @@ port's model; `export_paddle_tpu_state_dict` is its inverse (the port's
 parameters as numpy arrays under the reference's names).
 
 The port keeps ``paddle_tpu``'s parameter names and layouts (``Linear``
-weights stay ``[in, out]``, GPT's qkv columns stay pair-major), so the
+weights stay ``[in, out]``, GPT's qkv columns stay pair-major, the fused
+BERT layers keep ``qkv_weight [3, H, D, M]`` and ``ffn._ln1_scale``), so the
 conversion is a checked copy: every parameter of the model must be in
 the state dict with its exact shape, and nothing else may be, apart
 from GPT's per-layer ``qkv_layout`` markers. A tied parameter (BERT's

@@ -16,6 +16,8 @@
   mask at ``-1e9``, softmax in float32 cast back, dropout on the
   probabilities.
 - `gelu` (exact erf by default, ``activation.py:31``) and `relu`.
+- `layer_norm` (``nn/functional/norm.py:19-39``): statistics and affine
+  in float32 whatever the input dtype, the result cast back.
 - `dropout` (``common.py:31``, upscale_in_train) and `cross_entropy`
   (``nn/functional/loss.py:27-93``, hard labels to the fused
   softmax-CE of `kernels.fused_ce` on the reference's conditions).
@@ -61,6 +63,17 @@ def mt_attention_core(q, keys, vals, head_dim, valid_mask=None):
     ctx = torch.einsum("bhsl,bhld->bhsd", w, vals)
     b, h, s, d = ctx.shape
     return ctx.permute(0, 2, 1, 3).reshape(b, s, h * d)
+
+
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
+    """LayerNorm over the last ``len(normalized_shape)`` dims in float32,
+    cast back to x's dtype; ``weight``/``bias`` may be None."""
+    if isinstance(normalized_shape, int):
+        normalized_shape = (normalized_shape,)
+    return torch.nn.functional.layer_norm(
+        x.float(), tuple(normalized_shape),
+        None if weight is None else weight.float(),
+        None if bias is None else bias.float(), epsilon).to(x.dtype)
 
 
 def dropout(x, p=0.5, training=True, generator=None):
@@ -179,5 +192,5 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
     return _reduce(loss, reduction)
 
 
-__all__ = ["gelu", "relu", "mt_attention_core", "dropout",
+__all__ = ["gelu", "relu", "layer_norm", "mt_attention_core", "dropout",
            "scaled_dot_product_attention", "cross_entropy"]

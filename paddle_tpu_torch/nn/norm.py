@@ -2,8 +2,9 @@
 (``paddle_tpu/nn/norm.py:20-45``, ``nn/functional/norm.py:19-39``)."""
 from __future__ import annotations
 
-import torch.nn.functional as F
 from torch import nn
+
+from . import functional as F
 
 
 class LayerNorm(nn.LayerNorm):
@@ -16,9 +17,8 @@ class LayerNorm(nn.LayerNorm):
                          dtype=dtype)
 
     def forward(self, x):
-        return F.layer_norm(x.float(), self.normalized_shape,
-                            self.weight.float(), self.bias.float(),
-                            self.eps).to(x.dtype)
+        return F.layer_norm(x, self.normalized_shape, self.weight,
+                            self.bias, self.eps)
 
 
 __all__ = ["LayerNorm"]

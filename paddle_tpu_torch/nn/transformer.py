@@ -6,8 +6,9 @@ reference's two branches under its own conditions:
 
 - self-attention with no mask and a shape ``_qkv_direct_enabled`` takes
   (:95-124) runs one fused ``[h, 3h]`` projection into
-  `kernels.flash_attention.flash_attention_qkv3`. Only its plain version
-  is ported: on a CUDA tensor it raises (ROADMAP B5);
+  `kernels.flash_attention.flash_attention_qkv3`: on a card the
+  which-major qkv3 kernels (ROADMAP B5) read that projection as it lies;
+  on the CPU their plain version runs;
 - everything else runs ``nn.functional.scaled_dot_product_attention``,
   which takes the general flash kernels where its gate does (a masked
   BERT on a card runs the Hopper kernels of ROADMAP B2).
@@ -21,7 +22,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..kernels.flash_attention import flash_attention_qkv3
+from ..kernels.flash_attention import flash_attention_qkv3, packed_supported
 from . import functional as F
 from .common import Linear
 from .layer import Dropout
@@ -74,8 +75,8 @@ class MultiHeadAttention(nn.Module):
         if not 0.0 <= self.dropout < 1.0:
             return False
         s = query.shape[1]
-        return (s % 128 == 0 and s <= 2048 and self.head_dim in (64, 128)
-                and self.num_heads % 2 == 0)
+        return s % 128 == 0 and packed_supported(s, s, self.num_heads,
+                                                 self.head_dim)
 
     def forward(self, query, key=None, value=None, attn_mask=None,
                 cache=None):

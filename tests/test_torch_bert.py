@@ -25,7 +25,8 @@ port runs its plain versions on the CPU. Checked:
   (about 1e-9) is what Adam normalises into steps of about lr; their
   grads are held at 1e-6 of 0 instead;
 - the state-dict round trip with the tied embedding, and the arguments
-  of later slices raising by name.
+  of later slices raising by name (a CUDA tensor in the qkv3 entry goes
+  to the kernel wrapper, never to the plain version).
 """
 import importlib
 
@@ -76,10 +77,24 @@ QKV3_CFG = dict(CFG, hidden_size=128)
 
 @pytest.fixture
 def pallas_interpret(monkeypatch):
+    """paddle_tpu's Pallas kernels in interpret mode with their gates
+    open. Its fallback counters are process-wide, and another test in
+    the same worker may have left a count: they are reset before the
+    test (which asserts them empty) and after it."""
     monkeypatch.setattr(jfa, "_INTERPRET", True)
     monkeypatch.setattr(jkernels, "pallas_available", lambda: True)
+    jkernels.reset_kernel_fallback_counters()
     yield
     jkernels.reset_kernel_fallback_counters()
+
+
+def test_fixture_clears_a_fallback_count_left_by_an_earlier_test(request):
+    """The reference's fallback registry is process-wide: a count left by
+    an earlier test in the same worker must not reach the tests that
+    assert it empty."""
+    jkernels._note_fallback("flash_attention", "left by an earlier test")
+    request.getfixturevalue("pallas_interpret")
+    assert jkernels.kernel_fallback_counters() == {}
 
 
 def _both(cfg, seed=7):
@@ -250,12 +265,14 @@ def test_sequence_classification_head_shapes():
 @pytest.mark.parametrize("what", ["fuse", "qkv3_cuda", "d_over_128",
                                   "need_weights", "cache"])
 def test_later_slice_arguments_raise(what, monkeypatch):
-    if what == "fuse":
+    if what == "fuse":            # the fused BERT's serving cache
+        layer = BertModel(BertConfig(**QKV3_CFG), fuse=True,
+                          device="cpu").encoder_layers[0]
         with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-            BertModel(BertConfig(**CFG), fuse=True, device="cpu")
-    elif what == "qkv3_cuda":     # a CUDA tensor: no ported kernel yet
+            layer(torch.zeros((1, 128, 128)), cache=object())
+    elif what == "qkv3_cuda":     # a CUDA tensor goes to the B5 wrapper
         monkeypatch.setattr(pfa, "runs_plain", lambda t, k: False)
-        with pytest.raises(NotImplementedError, match="ROADMAP B5"):
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
             pfa.flash_attention_qkv3(torch.zeros((1, 128, 3 * 128)), 2)
     elif what == "d_over_128":
         x = torch.zeros((1, 128, 2, 256))

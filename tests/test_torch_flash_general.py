@@ -52,9 +52,12 @@ def interpret_kernel(monkeypatch):
 
 @pytest.fixture
 def pallas_interpret(monkeypatch):
-    """...and its gates open, as on a TPU."""
+    """...and its gates open, as on a TPU. The reference's fallback
+    counters are process-wide (another test in the worker may have left
+    a count), so they are reset before the test as well as after."""
     monkeypatch.setattr(jfa, "_INTERPRET", True)
     monkeypatch.setattr(jkernels, "pallas_available", lambda: True)
+    jkernels.reset_kernel_fallback_counters()
     yield
     jkernels.reset_kernel_fallback_counters()
 

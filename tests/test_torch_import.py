@@ -39,7 +39,11 @@ MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.device",
            "paddle_tpu_torch.distributed",
            "paddle_tpu_torch.distributed.spmd",
            "paddle_tpu_torch.nn.common", "paddle_tpu_torch.nn.norm",
-           "paddle_tpu_torch.nn.transformer", "paddle_tpu_torch.models.bert"]
+           "paddle_tpu_torch.nn.transformer", "paddle_tpu_torch.models.bert",
+           "paddle_tpu_torch.kernels.fused_ln", "paddle_tpu_torch.incubate",
+           "paddle_tpu_torch.incubate.nn",
+           "paddle_tpu_torch.incubate.nn.functional",
+           "paddle_tpu_torch.incubate.nn.layers"]
 
 
 def test_import_pulls_in_no_jax_and_no_paddle_tpu():

@@ -1,12 +1,14 @@
-"""The port's general flash kernels against their plain versions, on a
-card.
+"""The port's general flash, qkv3 flash and fused LayerNorm kernels
+against their plain versions, on a card.
 
 These tests need a CUDA device and skip without one (marker ``cuda``).
 They import neither jax nor paddle_tpu, so they run where the port runs:
 ``python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m
 cuda`` (``--noconftest``: tests/conftest.py sets up jax for the parity
-tests). chip_smoke.py holds every kernel at the main paths' shapes; this
-is a quick check at a padded, masked, causal shape with dropout.
+tests). chip_smoke.py holds every kernel at the main paths' shapes; these
+are quick checks at small shapes: the general kernels at a padded,
+masked, causal shape with dropout, the qkv3 kernels with dropout, the
+LayerNorm kernels with and without a residual.
 """
 import pytest
 import torch
@@ -43,3 +45,98 @@ def test_kernels_match_the_plain_versions_on_a_card(dtype):
         torch.testing.assert_close(a.float(), r.float(), **tol)
     counts = kernels.kernel_launch_counts()
     assert counts["flash_attention_fwd"] == counts["flash_attention_bwd"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_qkv3_kernels_match_the_plain_versions_on_a_card(dtype):
+    """The which-major qkv3 kernels (B5) against their plain versions with
+    dropout, f32 at 1e-4, bf16 at 2e-2, and against B1 on the repacked
+    projection bit for bit (same kernels, other column offsets)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the Hopper kernels run only on "
+                    "the card")
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    h, d = 4, 64
+    qkv = torch.randn((2, 256, 3 * h * d), generator=g, device="cuda").to(dt)
+    do = torch.randn((2, 256, h * d), generator=g, device="cuda").to(dt)
+    seed = torch.tensor([9], dtype=torch.int32, device="cuda")
+    kernels.reset_kernel_launch_counts()
+    o, lse = pfa.flash_attention_qkv3_fwd(qkv, h, False, 0.1, seed)
+    ro, rlse = pfa.flash_qkv3_reference(qkv, h, False, 0.1, seed)
+    dqkv = pfa.flash_attention_qkv3_bwd(qkv, do, ro, rlse, h, False, 0.1,
+                                        seed)
+    rdqkv = pfa.flash_qkv3_bwd_reference(qkv, do, ro, rlse, h, False, 0.1,
+                                         seed)
+    tol = dict(atol=1e-4, rtol=0) if dtype == "float32" else \
+        dict(atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=0)
+    for a, r in ((o, ro), (dqkv, rdqkv)):
+        torch.testing.assert_close(a.float(), r.float(), **tol)
+    pair = pfa._which_to_pair(qkv, h).contiguous()
+    o1, lse1 = pfa.flash_attention_qkv_fwd(pair, h, False, 0.1, seed)
+    d1 = pfa.flash_attention_qkv_bwd(pair, do, ro, rlse, h, False, 0.1, seed)
+    assert torch.equal(o, o1) and torch.equal(lse, lse1)
+    assert torch.equal(dqkv, pfa._pair_to_which(d1, h))
+    counts = kernels.kernel_launch_counts()
+    assert counts["flash_attention_qkv3_fwd"] == 1
+    assert counts["flash_attention_qkv3_bwd"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("residual", [True, False])
+def test_fused_ln_kernels_match_the_plain_versions_on_a_card(dtype,
+                                                             residual):
+    """The fused LayerNorm kernels (B6) against their plain versions: y
+    and dx at 1e-4 (f32) or 2e-2 (bf16: values of order 1 rounded to
+    bf16), mean and rstd at 1e-4, dg and db (sums over 256 rows) at
+    1e-3 relative; each launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the Hopper kernels run only on "
+                    "the card")
+    from paddle_tpu_torch.kernels import fused_ln as pfl
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x, r, dy = (torch.randn((256, 384), generator=g, device="cuda").to(dt)
+                for _ in range(3))
+    w, b = (torch.randn(384, generator=g, device="cuda") for _ in range(2))
+    r = r if residual else None
+    kernels.reset_kernel_launch_counts()
+    y, mean, rstd = pfl.fused_ln_fwd(x, r, w, b, 1e-5)
+    ry, rmean, rrstd = pfl.fused_ln_reference(x, r, w, b, 1e-5)
+    dx, dg, db = pfl.fused_ln_bwd(x, r, w, rmean, rrstd, dy)
+    rdx, rdg, rdb = pfl.fused_ln_bwd_reference(x, r, w, rmean, rrstd, dy)
+    tol = dict(atol=1e-4, rtol=0) if dtype == "float32" else \
+        dict(atol=2e-2, rtol=2e-2)
+    for a, ref in ((y, ry), (dx, rdx)):
+        torch.testing.assert_close(a.float(), ref.float(), **tol)
+    for a, ref in ((mean, rmean), (rstd, rrstd)):
+        torch.testing.assert_close(a, ref, atol=1e-4, rtol=0)
+    for a, ref in ((dg, rdg), (db, rdb)):
+        torch.testing.assert_close(a, ref, atol=1e-3, rtol=1e-3)
+    counts = kernels.kernel_launch_counts()
+    assert counts["fused_ln_fwd"] == counts["fused_ln_bwd"] == 1
+
+
+@pytest.mark.cuda
+def test_fused_ln_wrappers_refuse_an_unaligned_weight():
+    """The kernels read g and b as 16-byte vectors: a float32 weight
+    view at an unaligned offset is refused before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the Hopper kernels run only on "
+                    "the card")
+    from paddle_tpu_torch.kernels import fused_ln as pfl
+
+    x = torch.randn((128, 128), device="cuda")
+    w = torch.ones(129, device="cuda")[1:]
+    b = torch.zeros(128, device="cuda")
+    kernels.reset_kernel_launch_counts()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        pfl.fused_ln_fwd(x, None, w, b, 1e-5)
+    mean = rstd = torch.ones(128, device="cuda")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        pfl.fused_ln_bwd(x, None, w, mean, rstd, x)
+    assert kernels.kernel_launch_counts()["fused_ln_fwd"] == 0
