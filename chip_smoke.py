@@ -10,8 +10,11 @@ Phases, in order; any failure exits non-zero:
 2. build every CUDA kernel of the port from ``paddle_tpu_torch/kernels/
    csrc`` (one nvcc per source, in parallel);
 3. kernel phase: each kernel against its plain PyTorch version on the
-   card, at the stated tolerances; then its time at the main path's
-   shape (paged attention: the serving decode shape; the pair-major qkv
+   card, at the stated tolerances (paged attention on float pools and
+   on int8 and fp8 pages with f32 scales, W 1, 4 and 5); then its time
+   at the main path's shape (paged attention: the serving decode shape
+   with bf16, int8 and fp8 pages at W=1 and W=5, its library call SDPA
+   over the gathered view, dequantized beforehand; the pair-major qkv
    flash kernels: GPT's training shape B8 S1024 H16 D128 bf16 causal,
    and the fused BERT's B8 S512 H16 D64 full, checked there too; the
    general flash kernels:
@@ -61,7 +64,19 @@ Phases, in order; any failure exits non-zero:
    launch exactly steps x layers times each and no other kernel runs;
 8. BERT unmasked phase, fused: the same batches through
    ``BertModel(fuse=True)``: the pair-major qkv kernels on the shuffled
-   ``qkv_weight`` launch steps x layers times each, no other kernel.
+   ``qkv_weight`` launch steps x layers times each, no other kernel;
+9. quantized speculative serving: gpt3-1.3b, bf16, phase 4's engine
+   and traffic with 1-byte KV pages: (a) int8 pages, all greedy, once
+   with spec_k=0 and once with spec_k=4 (verify windows of 5 queries);
+   (b) fp8 pages, spec_k=4, the odd requests sampled. The quantized
+   kernel launches exactly decode steps x layers times per run and no
+   other kernel runs; every request completes and every page returns;
+   greedy tokens agree with a float32 teacher-forced forward whose
+   attention reads K/V through the same quantization round trip (the
+   first token against plain K/V), unless within 0.05 of its top logit;
+   the spec_k=4 streams equal the spec_k=0 ones but at such a near-tie.
+   Per run: drafted and accepted tokens, TTFT, decode ms/step,
+   tokens/s, pool bytes and pages, and a profile of full steps.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device":
@@ -96,6 +111,8 @@ TOL_LN_SUMS = dict(atol=1e-3, rtol=1e-4)
 # same inputs in float32 to TOL_F32
 TOL_BF16_OUT_DECODE = dict(atol=2e-3, rtol=0.0)
 TEACHER_GAP = 0.05               # bf16 near-ties the teacher check allows
+# the quantized pages: kv_quant mode -> page dtype name in torch
+QUANT_DTYPES = {"int8": "int8", "fp8": "float8_e4m3fn"}
 # flash kernels against their plain versions, bf16: the kernel rounds
 # p*keep (against a running max) and ds to bf16 where the plain version
 # rounds them against the global max, then sums them in another order.
@@ -112,6 +129,7 @@ SLEEP_CYCLES = 100_000_000       # about 50 ms at the H100's clock
 # engine phase: the serving configuration and its traffic
 MODEL = "gpt3-1.3b"
 SLOTS, PAGE, MAX_LEN, BUCKETS, MAX_NEW = 8, 16, 640, (128, 512), 32
+SPEC_K = 4                       # phase 9's verify window: k + 1 = 5 lanes
 # training phase: the flagship configuration of bench.py:76-133
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR, TRAIN_WD = 8, 1024, 5, 1e-4, 0.01
 # the bf16 model against a float32 copy of its weights (plain attention):
@@ -203,15 +221,16 @@ def paged_case(n, h, w, d, ps, pmax, dtype, seed, steps=None, pads=None):
     return q, pool_k, pool_v, bt, steps.contiguous(), vc.contiguous()
 
 
-def paged_work(bt, steps, vc, w, h, d, el):
+def paged_work(bt, steps, vc, w, h, d, el, page_el=None):
     """Bytes and flops one paged-attention call needs on this data. A
     row needs the pages that hold a readable column (``valid_cols != 0``
     and at most ``steps + w - 1``); a page of left padding alone cannot
     change the row's result and is not counted (a row with no readable
     column averages every page of its table, so it needs them all).
-    Bytes: those pages' K and V once, their block-table entries, the
-    valid_cols read, steps, q, out and lse. Flops: q.k and p.v over the
-    pages' columns."""
+    Bytes: those pages' K and V once (``page_el`` bytes an element; a
+    1-byte page adds its column's f32 scale), their block-table entries,
+    the valid_cols read, steps, q, out and lse (q and out ``el`` bytes an
+    element). Flops: q.k and p.v over the pages' columns."""
     ps = PAGE
     n, pmax = bt.shape
     pages = cols_read = 0
@@ -224,7 +243,9 @@ def paged_work(bt, steps, vc, w, h, d, el):
         else:
             pages += pmax
             cols_read += pmax * ps
-    nbytes = (pages * ps * h * d * 2 * el      # K and V pages
+    page_el = el if page_el is None else page_el
+    per_col = d * page_el + (4 if page_el == 1 else 0)
+    nbytes = (pages * ps * h * 2 * per_col     # K and V pages (+ scales)
               + 2 * n * h * w * d * el         # q in, out
               + n * h * w * 4                  # lse
               + pages * 4 + n * 4 + cols_read * 4)
@@ -232,99 +253,153 @@ def paged_work(bt, steps, vc, w, h, d, el):
     return nbytes, flops
 
 
+def quantize_case(torch, args, mode):
+    """A `paged_case` with its pools quantized as the engine writes them
+    (`paged_kv.quantize_tokens`: int8 or fp8 e4m3 pages, f32 scales).
+    Returns ``(args, kwargs)`` of the kernel and its plain version."""
+    from paddle_tpu_torch.kernels.paged_kv import quantize_tokens
+
+    dt = getattr(torch, QUANT_DTYPES[mode])
+    q, pk, pv, bt, st, vc = args
+    (pk, ks), (pv, vs) = (quantize_tokens(p, dt) for p in (pk, pv))
+    return (q, pk, pv, bt, st, vc), dict(k_scale=ks, v_scale=vs)
+
+
+def paged_checks(torch, pa):
+    """The paged kernel against its plain version on toy shapes (6 rows
+    x 8 heads, 8 pages a row; ragged steps, left pads, a fully masked
+    row, a row parked on the sentinel): float pools (q and pages f32 or
+    bf16) and quantized ones (int8 and fp8 pages, q f32 or bf16), D 64
+    and 128, W 1, 4 and 5, page size 16 and 32 for the quantized ones.
+    Both dequantize in f32, so f32 holds to TOL_F32 and bf16 out to
+    TOL_BF16_OUT, lse to TOL_BF16_LSE."""
+    cases = [(d, dtype, w, PAGE, None) for d in (64, 128)
+             for dtype in (torch.float32, torch.bfloat16) for w in (1, 4, 5)]
+    cases += [(d, dtype, w, ps, mode) for mode in QUANT_DTYPES
+              for d in (64, 128) for dtype in (torch.float32, torch.bfloat16)
+              for w in (1, 4, 5) for ps in (16, 32)]
+    for d, dtype, w, ps, mode in cases:
+        args = paged_case(6, 8, w, d, ps, 8, dtype, seed=100 + d + w + ps)
+        kw = {}
+        if mode is not None:
+            args, kw = quantize_case(torch, args, mode)
+        out, lse = pa.fused_paged_attention(*args, **kw)
+        ref_out, ref_lse = pa.paged_attention_reference(*args, **kw)
+        torch.cuda.synchronize()
+        if dtype == torch.float32:
+            tol_o, tol_l = TOL_F32, TOL_F32
+        else:
+            tol_o, tol_l = TOL_BF16_OUT, TOL_BF16_LSE
+        torch.testing.assert_close(out.float(), ref_out.float(), **tol_o)
+        torch.testing.assert_close(lse, ref_lse, **tol_l)
+        check(torch.isfinite(out.float()).all().item(), "non-finite out")
+        err_o = (out.float() - ref_out.float()).abs().max().item()
+        err_l = (lse - ref_lse).abs().max().item()
+        pages = mode or "float"
+        print(f"  paged_attention {pages} pages D={d} q {str(dtype)[6:]} "
+              f"W={w} ps={ps}: max|out-ref| {err_o:.3e}  max|lse-ref| "
+              f"{err_l:.3e}  ok")
+
+
 def kernel_phase(torch, pa):
-    """Kernel against plain version on the card, then timing at the
-    engine's decode shape. Returns the paged-attention record."""
+    """The paged kernel against its plain version on the card, then its
+    time at the engine's decode shape: bf16, int8 and fp8 pages, at W=1
+    (a decode step) and W=5 (a k=4 verify window). Returns the records
+    of the float, int8 and fp8 kernels (float at W=1, the quantized
+    ones at W=5, as their main paths run them)."""
     import torch.nn.functional as F
 
-    from paddle_tpu_torch.kernels.paged_kv import gather_pages
+    from paddle_tpu_torch.kernels.paged_kv import gather_pages, gather_scales
 
-    worst = {}
-    for d in (64, 128):
-        for dtype in (torch.float32, torch.bfloat16):
-            for w in (1, 4):
-                args = paged_case(6, 8, w, d, PAGE, 8, dtype,
-                                  seed=100 + d + w)
-                out, lse = pa.fused_paged_attention(*args)
-                ref_out, ref_lse = pa.paged_attention_reference(*args)
-                torch.cuda.synchronize()
-                if dtype == torch.float32:
-                    tol_o, tol_l = TOL_F32, TOL_F32
-                else:
-                    tol_o, tol_l = TOL_BF16_OUT, TOL_BF16_LSE
-                torch.testing.assert_close(out.float(), ref_out.float(),
-                                           **tol_o)
-                torch.testing.assert_close(lse, ref_lse, **tol_l)
-                err_o = (out.float() - ref_out.float()).abs().max().item()
-                err_l = (lse - ref_lse).abs().max().item()
-                name = f"D={d} {str(dtype)[6:]} W={w}"
-                worst[name] = (err_o, err_l)
-                print(f"  paged_attention {name}: max|out-ref| {err_o:.3e}"
-                      f"  max|lse-ref| {err_l:.3e}  ok")
-
-    # the engine's decode shape: 8 slots x 16 heads, W=1, D=128, bf16,
-    # 40 pages of 16 per slot (max_len 640), each slot 16 tokens into
-    # decode after a prompt from PROMPT_LENS in its bucket
+    paged_checks(torch, pa)
+    # the engine's decode shape: 8 slots x 16 heads, D=128, bf16 q, 40
+    # pages of 16 per slot (max_len 640), each slot 16 tokens into decode
+    # after a prompt from PROMPT_LENS in its bucket
     n, h, d, pmax = SLOTS, 16, 128, MAX_LEN // PAGE
     buckets = [min(b for b in BUCKETS if b >= p) for p in PROMPT_LENS[:n]]
     steps = [b + 16 for b in buckets]
     pads = [b - p for b, p in zip(buckets, PROMPT_LENS[:n])]
-    copies = [paged_case(n, h, 1, d, PAGE, pmax, torch.bfloat16,
-                         seed=i, steps=steps, pads=pads)
-              for i in range(4)]          # 4 x 42 MB of pools > the L2
-    args = copies[0]
-    out, _ = pa.fused_paged_attention(*args)
-    ref, _ = pa.paged_attention_reference(*args)
-    # the same inputs before their rounding to bf16, in float32
-    args32 = paged_case(n, h, 1, d, PAGE, pmax, torch.float32, seed=0,
-                        steps=steps, pads=pads)
-    out32, lse32 = pa.fused_paged_attention(*args32)
-    ref32, ref_lse32 = pa.paged_attention_reference(*args32)
-    torch.cuda.synchronize()
-    max_err = (out.float() - ref.float()).abs().max().item()
-    torch.testing.assert_close(out.float(), ref.float(),
-                               **TOL_BF16_OUT_DECODE)
-    torch.testing.assert_close(out32, ref32, **TOL_F32)
-    torch.testing.assert_close(lse32, ref_lse32, **TOL_F32)
-    err32 = max((out32 - ref32).abs().max().item(),
-                (lse32 - ref_lse32).abs().max().item())
-    print(f"  decode shape: bf16 max|out-ref| {max_err:.3e} (atol "
-          f"{TOL_BF16_OUT_DECODE['atol']}), float32 max|out/lse-ref| "
-          f"{err32:.3e} (atol {TOL_F32['atol']})  ok")
-
-    it = iter(range(10 ** 9))
-
-    def kernel():
-        pa.fused_paged_attention(*copies[next(it) % 4])
-
-    ms = time_ms(kernel, 200)
-    plain_ms = time_ms(lambda: pa.paged_attention_reference(*args), 20)
+    records = {}
     lp = pmax * PAGE
-    dense = []
-    for q, pk, pv, bt, st, vc in copies:
-        mask = ((torch.arange(lp, device="cuda")[None, :]
-                 <= st.long()[:, None]) & (vc != 0))[:, None, None, :]
-        dense.append((q, gather_pages(pk, bt), gather_pages(pv, bt), mask))
+    for pages, w in (("bf16", 1), ("int8", 1), ("fp8", 1), ("bf16", 5),
+                     ("int8", 5), ("fp8", 5)):
+        quant = pages != "bf16"
+        cases = []
+        for i in range(4):              # 4 x 21-42 MB of pools > the L2
+            args = paged_case(n, h, w, d, PAGE, pmax, torch.bfloat16,
+                              seed=i, steps=steps, pads=pads)
+            cases.append(quantize_case(torch, args, pages) if quant
+                         else (args, {}))
+        args, kw = cases[0]
+        out, _ = pa.fused_paged_attention(*args, **kw)
+        ref, _ = pa.paged_attention_reference(*args, **kw)
+        # the same inputs before their rounding to bf16, in float32
+        args32 = paged_case(n, h, w, d, PAGE, pmax, torch.float32, seed=0,
+                            steps=steps, pads=pads)
+        kw32 = {}
+        if quant:
+            args32, kw32 = quantize_case(torch, args32, pages)
+        out32, lse32 = pa.fused_paged_attention(*args32, **kw32)
+        ref32, ref_lse32 = pa.paged_attention_reference(*args32, **kw32)
+        torch.cuda.synchronize()
+        max_err = (out.float() - ref.float()).abs().max().item()
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   **TOL_BF16_OUT_DECODE)
+        torch.testing.assert_close(out32, ref32, **TOL_F32)
+        torch.testing.assert_close(lse32, ref_lse32, **TOL_F32)
+        err32 = max((out32 - ref32).abs().max().item(),
+                    (lse32 - ref_lse32).abs().max().item())
+        it = iter(range(10 ** 9))
 
-    def library():
-        q, k, v, m = dense[next(it) % 4]
-        F.scaled_dot_product_attention(q, k, v, attn_mask=m)
+        def kernel():
+            a, k = cases[next(it) % 4]
+            pa.fused_paged_attention(*a, **k)
 
-    library_ms = time_ms(library, 200)
-    nbytes, flops = paged_work(*args[3:], w=1, h=h, d=d, el=2)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
-    bound_ms = max(t_bytes, t_ops) * 1e3
-    print(f"  decode shape N={n} H={h} W=1 D={d} ps={PAGE} Pmax={pmax} "
-          f"bf16, steps {steps}, pads {pads}: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, SDPA over the gathered view {library_ms:.4f} "
-          f"ms, bound {bound_ms:.4f} ms ({nbytes} bytes, {flops} flops)")
-    return {"name": "paged_attention", "route": "cuda",
-            "source": "paddle_tpu_torch/kernels/csrc/paged_attention.cu",
-            "replaces": "paddle_tpu/kernels/paged_attention.py:120",
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms}
+        ms = time_ms(kernel, 200)
+        plain_ms = time_ms(lambda: pa.paged_attention_reference(*args, **kw),
+                           20)
+        # library: SDPA over the gathered view, dequantized beforehand
+        dense = []
+        for (q, pk, pv, bt, st, vc), k in cases:
+            cols = torch.arange(lp, device="cuda")
+            cur = st.long()[:, None] + torch.arange(w, device="cuda")
+            mask = ((cols[None, None, :] <= cur[:, :, None])
+                    & (vc != 0)[:, None, :])[:, None]
+            vk, vv = gather_pages(pk, bt), gather_pages(pv, bt)
+            if quant:
+                vk = vk.float() * gather_scales(k["k_scale"], bt)[..., None]
+                vv = vv.float() * gather_scales(k["v_scale"], bt)[..., None]
+            dense.append((q, vk.to(q.dtype), vv.to(q.dtype), mask))
+
+        def library():
+            q, k, v, m = dense[next(it) % 4]
+            F.scaled_dot_product_attention(q, k, v, attn_mask=m)
+
+        library_ms = time_ms(library, 200)
+        nbytes, flops = paged_work(*args[3:], w=w, h=h, d=d, el=2,
+                                   page_el=1 if quant else 2)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        print(f"  decode shape N={n} H={h} W={w} D={d} ps={PAGE} Pmax={pmax} "
+              f"{pages} pages, bf16 q, steps {steps}, pads {pads}: bf16 "
+              f"max|out-ref| {max_err:.3e} (atol "
+              f"{TOL_BF16_OUT_DECODE['atol']}), float32 max|out/lse-ref| "
+              f"{err32:.3e} (atol {TOL_F32['atol']}); kernel {ms:.5f} ms, "
+              f"plain {plain_ms:.5f} ms, SDPA over the "
+              f"{'pre-dequantized ' if quant else ''}gathered view "
+              f"{library_ms:.5f} ms, bound {bound_ms:.5f} ms ({nbytes} "
+              f"bytes, {flops} flops)")
+        name = "paged_attention" + ("_" + pages if quant else "")
+        if w == (5 if quant else 1):
+            records[name] = {
+                "name": name, "route": "cuda",
+                "source": "paddle_tpu_torch/kernels/csrc/paged_attention.cu",
+                "replaces": "paddle_tpu/kernels/paged_attention.py:120",
+                "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": library_ms}
+    return list(records.values())
 
 
 def flash_ulps(x, ref, d):
@@ -856,7 +931,8 @@ def qkv3_kernel_phase(torch):
               f" {nbytes} bytes, {flops} flops)")
         print(f"  flash_attention_qkv_{key} (B1) at the same shape, the "
               f"fused BERT's: kernel {b1_ms[key]:.4f} ms, bound "
-              f"{bound_ms:.4f} ms")
+              f"{bound_ms:.4f} ms, library {library[key]:.4f} ms (the SDPA "
+              "call above: the same function on the same inputs)")
         records.append({
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/kernels/csrc/flash_attention_qkv.cu",
@@ -1035,7 +1111,6 @@ def fused_ln_phase(torch):
 
 # ---------------------------------------------------------------- engine
 def engine_phase(torch, seed):
-    from paddle_tpu_torch import kernels
     from paddle_tpu_torch.models.gpt import GPTForPretraining, gpt_config
     from paddle_tpu_torch.serving import Engine
 
@@ -1054,30 +1129,8 @@ def engine_phase(torch, seed):
     del warm
     torch.cuda.synchronize()
 
-    g = torch.Generator().manual_seed(seed)
-    prompts = [torch.randint(1, cfg.vocab_size, (p,), generator=g).tolist()
-               for p in PROMPT_LENS]
-    eng = Engine(model, **kw)
-    handles = [None] * len(prompts)
-    kernels.reset_kernel_launch_counts()
-    t0 = time.perf_counter()
-    step = 0
-    while step <= max(SUBMIT_AT_STEP) or eng.stats().active_slots \
-            or eng.stats().queue_depth:
-        for i, at in enumerate(SUBMIT_AT_STEP):
-            if at == step:
-                handles[i] = eng.submit(prompts[i], max_new_tokens=MAX_NEW)
-        eng.step()
-        step += 1
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = kernels.kernel_launch_counts()
-    s = eng.stats()
-    outs = [h.result() for h in handles]
-    check(s.completed == len(prompts) and all(
-        len(o) == MAX_NEW for o in outs), f"not every request completed: {s}")
-    check(s.kv_pages_in_use == 0 and s.kv_pages_free == s.kv_pages_total,
-          f"pages did not return to the pool: {s}")
+    prompts = phase_prompts(torch, cfg, seed)
+    outs, s, wall, counts = serve_traffic(torch, Engine(model, **kw), prompts)
     want = s.decode_steps * cfg.num_hidden_layers
     check(counts["paged_attention"] == want,
           f"paged_attention launched {counts['paged_attention']} times, "
@@ -1095,6 +1148,49 @@ def engine_phase(torch, seed):
     teacher_check(torch, model, prompts, outs)
     profile_decode(torch, Engine(model, **kw), prompts)
     return {"paged_attention": counts["paged_attention"]}
+
+
+def phase_prompts(torch, cfg, seed):
+    """The serving phases' prompts: PROMPT_LENS tokens each, from
+    ``seed``."""
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randint(1, cfg.vocab_size, (p,), generator=g).tolist()
+            for p in PROMPT_LENS]
+
+
+def serve_traffic(torch, eng, prompts, sampled=()):
+    """The serving phases' traffic through ``eng``: request ``i`` is
+    submitted at step SUBMIT_AT_STEP[i], greedy, or sampled at
+    temperature 1 with seed ``1000 + i`` when ``i`` is in ``sampled``.
+    Launch counts are zeroed just before and read just after. Checks
+    that every request completes and every page returns; returns
+    ``(outputs, stats, wall seconds, launch counts)``."""
+    from paddle_tpu_torch import kernels
+
+    handles = [None] * len(prompts)
+    kernels.reset_kernel_launch_counts()
+    t0 = time.perf_counter()
+    step = 0
+    while step <= max(SUBMIT_AT_STEP) or eng.stats().active_slots \
+            or eng.stats().queue_depth:
+        for i, at in enumerate(SUBMIT_AT_STEP):
+            if at == step:
+                kw = (dict(decode_strategy="sampling", temperature=1.0,
+                           seed=1000 + i) if i in sampled else {})
+                handles[i] = eng.submit(prompts[i], max_new_tokens=MAX_NEW,
+                                        **kw)
+        eng.step()
+        step += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.kernel_launch_counts()
+    s = eng.stats()
+    outs = [h.result() for h in handles]
+    check(s.completed == len(prompts) and all(
+        len(o) == MAX_NEW for o in outs), f"not every request completed: {s}")
+    check(s.kv_pages_in_use == 0 and s.kv_pages_free == s.kv_pages_total,
+          f"pages did not return to the pool: {s}")
+    return outs, s, wall, counts
 
 
 def teacher_check(torch, model, prompts, outs):
@@ -1162,6 +1258,14 @@ def profile_steps(torch, fn, steps, what):
     for t, key in sorted(kernels, reverse=True)[:6]:
         share = 100 * t / busy_us if busy_us else 0.0
         print(f"    {t / steps / 1e3:8.4f} ms/step {share:5.1f}%  {key[:90]}")
+    host = [e for e in prof.key_averages() if e.device_type != DeviceType.CUDA]
+    launches = sum(e.count for e in host
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx"))
+    top = sorted(host, key=lambda e: -e.self_cpu_time_total)[:4]
+    print(f"    host: {launches / steps:.0f} kernel launches/step; most "
+          "self CPU time: " + ", ".join(
+              f"{e.key} {e.self_cpu_time_total / steps / 1e3:.3f} ms"
+              for e in top))
     return wall_us / steps / 1e3, busy_us / steps / 1e3
 
 
@@ -1557,6 +1661,171 @@ def bert_reference_check(torch, step, params, batch, cfg, seed, variant):
           f"(not held; the plain versions' control {ctrl_cos:.5f})")
 
 
+# ------------------------------------------- quantized speculative serving
+def quant_teacher_logits(torch, ref, prompt, out, dtype):
+    """Teacher-forced float32 logits ``[len(out), V]`` of ``ref`` at every
+    generated position of one request, as the quantized engine computes
+    them: the first token from a plain prompt pass (prefill attends its
+    float local cache), every later one from attention over K/V passed
+    through the pages' `quantize_tokens` round trip, the prompt's K/V
+    from that prompt pass, the generated tokens' from their own layers;
+    composed attention (`mt_attention_core`)."""
+    from paddle_tpu_torch.kernels.paged_kv import quantize_tokens
+    from paddle_tpu_torch.nn.functional import mt_attention_core
+
+    def round_trip(x):
+        q, sc = quantize_tokens(x, dtype)
+        return q.float() * sc[..., None]
+
+    gpt, dev = ref.gpt, ref.device
+    n_p, n_o = len(prompt), len(out)
+    caches = ref.gen_static_cache(1, n_p)
+    first = ref._logits(gpt.prefill(torch.tensor([prompt], device=dev),
+                                    caches)[0, -1:])
+    if n_o == 1:
+        return first
+    tok = torch.tensor([out[:-1]], device=dev)
+    pos = torch.arange(n_p, n_p + n_o - 1, device=dev)[None]
+    x = gpt.embeddings(tok, pos)
+    cols = torch.arange(n_p + n_o - 1, device=dev)
+    valid = (cols[None, :] <= pos[0][:, None])[None, None]
+    for layer, (kc, vc) in zip(gpt.h, caches):
+        qh, kh, vh = layer.attn._heads(layer.ln_1(x))
+        keys = round_trip(torch.cat([kc, kh], dim=2))
+        vals = round_trip(torch.cat([vc, vh], dim=2))
+        ctx = mt_attention_core(qh, keys, vals, layer.attn.head_dim,
+                                valid_mask=valid)
+        x = x + layer.attn.out_proj(ctx)
+        x = x + layer.mlp(layer.ln_2(x))
+    return torch.cat([first, ref._logits(gpt.ln_f(x)[0])])
+
+
+def quant_teacher(torch, model, prompts, runs, mode):
+    """Holds every greedy request of ``runs`` (``[(label, outs,
+    greedy request indices)]``) against `quant_teacher_logits` of a
+    float32 copy of ``model``: each emitted token is the teacher's argmax
+    or trails its top logit by less than TEACHER_GAP. Returns the
+    teacher's logits of each request of the first run, for the spec
+    against no-spec comparison."""
+    from paddle_tpu_torch.models.gpt import GPTForPretraining
+
+    ref = GPTForPretraining(model.config, dtype="float32")
+    ref.load_state_dict(model.state_dict())          # casts bf16 -> f32
+    dtype = getattr(torch, QUANT_DTYPES[mode])
+    first_logits = {}
+    with torch.inference_mode():
+        for r, (label, outs, greedy) in enumerate(runs):
+            worst, near, n = 0.0, 0, 0
+            for i in greedy:
+                logits = quant_teacher_logits(torch, ref, prompts[i],
+                                              outs[i], dtype)
+                if r == 0:
+                    first_logits[i] = logits
+                top = logits.argmax(dim=-1)
+                got = torch.tensor(outs[i], device=ref.device)
+                gap = (logits.gather(1, top[:, None])
+                       - logits.gather(1, got[:, None]))[:, 0]
+                near += int((top != got).sum())
+                worst = max(worst, gap.max().item())
+                n += len(outs[i])
+            check(worst < TEACHER_GAP, f"{label}: an emitted token trails "
+                  f"the quantized teacher's top logit by {worst}")
+            print(f"  {label}: teacher-forced check ok (float32, K/V through "
+                  f"the {mode} round trip; the first token against plain "
+                  f"K/V): {near} of {n} greedy tokens differ from its argmax,"
+                  f" all within {worst:.4f} < {TEACHER_GAP} of its top logit")
+    del ref
+    return first_logits
+
+
+def spec_against_plain(torch, plain, spec, logits):
+    """The spec_k=4 streams against the spec_k=0 streams of the same int8
+    engine: equal, or diverging first at a position where the teacher
+    (on the common prefix) puts the two tokens within TEACHER_GAP of each
+    other; the rest of such a request is not compared."""
+    diverged = []
+    for i, (a, b) in enumerate(zip(plain, spec)):
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        gap = abs(logits[i][j, a[j]] - logits[i][j, b[j]]).item()
+        check(gap < TEACHER_GAP, f"request {i}: spec_k=4 and spec_k=0 "
+              f"diverge at token {j} ({b[j]} vs {a[j]}), {gap} apart on "
+              "the teacher")
+        diverged.append((i, j, round(gap, 5)))
+    print(f"  spec_k=4 against spec_k=0 (int8): {len(plain) - len(diverged)}"
+          f" of {len(plain)} streams equal; diverged (request, token, "
+          f"teacher gap < {TEACHER_GAP}): {diverged}")
+
+
+def spec_phase(torch, seed):
+    """Phase 9: gpt3-1.3b, bf16, served by the paged Engine with 1-byte
+    KV pages and k = 4 verify windows (8 slots, page 16, max_len 640,
+    buckets 128/512; phase 4's traffic). (a) int8 pages, all greedy,
+    spec_k=0 then spec_k=4; (b) fp8 pages, spec_k=4, the odd requests
+    sampled (temperature 1, fixed seeds). Per run: every request
+    completes and every page returns; the quantized kernel launched
+    exactly decode steps x layers times (a verify step is one W=5 launch
+    a layer), no other kernel. Greedy tokens against the quantized
+    teacher; spec_k=4 against spec_k=0. Returns the launch counts of the
+    int8 (spec_k=4) and fp8 runs."""
+    from paddle_tpu_torch.models.gpt import GPTForPretraining, gpt_config
+    from paddle_tpu_torch.serving import Engine
+
+    cfg = gpt_config(MODEL)
+    model = GPTForPretraining(cfg, dtype="bfloat16", seed=seed)
+    kw = dict(slots=SLOTS, page_size=PAGE, max_len=MAX_LEN,
+              prefill_buckets=BUCKETS)
+    prompts = phase_prompts(torch, cfg, seed)
+    everyone = range(len(prompts))
+    sampled = tuple(i for i in everyone if i % 2)
+    runs, launches = {}, {}
+    for label, mode, k, samp in (("int8 spec_k=0", "int8", 0, ()),
+                                 ("int8 spec_k=4", "int8", SPEC_K, ()),
+                                 ("fp8 spec_k=4", "fp8", SPEC_K, sampled)):
+        warm = Engine(model, kv_quant=mode, spec_k=k, **kw)
+        warm.submit(list(range(1, 30)), max_new_tokens=8).result()
+        del warm
+        eng = Engine(model, kv_quant=mode, spec_k=k, **kw)
+        outs, s, wall, counts = serve_traffic(torch, eng, prompts, samp)
+        name = "paged_attention_" + mode
+        want = s.decode_steps * cfg.num_hidden_layers
+        check(counts[name] == want, f"{label}: {name} launched "
+              f"{counts[name]} times, decode_steps x layers = {want}")
+        check(all(v == 0 for n, v in counts.items() if n != name),
+              f"{label}: another kernel launched: {counts}")
+        launches[name] = counts[name]
+        rate = (f"{s.spec_accept_rate:.4f}" if s.spec_accept_rate is not None
+                else "n/a")
+        print(f"  {label}: {len(prompts)} requests in {wall:.3f} s, "
+              f"{s.prefill_steps} prefills, {s.decode_steps} decode steps, "
+              f"{s.tokens_generated} tokens; drafted {s.spec_draft_tokens} "
+              f"(greedy {s.spec_drafted_greedy}, sampled "
+              f"{s.spec_drafted_sampled}), accepted "
+              f"{s.spec_accepted_tokens} (greedy {s.spec_accepted_greedy}, "
+              f"sampled {s.spec_accepted_sampled}), accept rate {rate}; "
+              f"TTFT p50 {s.ttft_p50 * 1e3:.3f} ms, decode "
+              f"{s.decode_step_p50 * 1e3:.3f} ms/step (p50), "
+              f"{s.tokens_generated / wall:.1f} tokens/s; pool "
+              f"{s.kv_pool_bytes} bytes, {s.kv_pages_total} pages + the "
+              f"sentinel ({s.kv_bytes_per_token:.1f} bytes a token)")
+        print(f"  launches {counts}: {name} = decode_steps x layers")
+        runs[label] = (outs, [i for i in everyone if i not in samp])
+        profile_decode(torch, Engine(model, kv_quant=mode, spec_k=k, **kw),
+                       prompts)
+    logits = quant_teacher(torch, model, prompts, [
+        (label, *runs[label]) for label in ("int8 spec_k=0",
+                                            "int8 spec_k=4")], "int8")
+    spec_against_plain(torch, runs["int8 spec_k=0"][0],
+                       runs["int8 spec_k=4"][0], logits)
+    quant_teacher(torch, model, prompts,
+                  [("fp8 spec_k=4", *runs["fp8 spec_k=4"])], "fp8")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1586,7 +1855,7 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t:.1f} s")
 
     print("[3] kernel phase")
-    records = [kernel_phase(torch, pa), *flash_kernel_phase(torch),
+    records = [*kernel_phase(torch, pa), *flash_kernel_phase(torch),
                *general_flash_phase(torch), *qkv3_kernel_phase(torch)]
     ln_records, launches = fused_ln_phase(torch)
     records += ln_records
@@ -1602,6 +1871,8 @@ def main(argv=None) -> int:
     fused = bert_phase(torch, args.seed, card, "fused")
     print(f"  (B1's launches in the kernel line are GPT training's; the "
           f"fused BERT's were {fused})")
+    print("[9] quantized speculative serving phase (int8/fp8 pages, k=4)")
+    launches.update(spec_phase(torch, args.seed))
     for rec in records:
         rec["launches"] = launches[rec["name"]]
 

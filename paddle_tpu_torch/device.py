@@ -19,6 +19,15 @@ DTYPES = {
     "bfloat16": torch.bfloat16,
 }
 
+#: dtypes a KV page pool may store: the model dtypes plus the 1-byte
+#: quantized pages of ``Engine(kv_quant="int8" | "fp8")``, which ride
+#: with f32 scales
+PAGE_DTYPES = {
+    **DTYPES,
+    "int8": torch.int8,
+    "float8_e4m3fn": torch.float8_e4m3fn,
+}
+
 
 def resolve_device(device=None) -> torch.device:
     """``None`` -> ``cuda`` (raises when no GPU is visible); anything
@@ -36,18 +45,19 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def resolve_dtype(dtype) -> torch.dtype:
-    """A dtype name from `DTYPES` or a torch dtype -> torch dtype."""
+def resolve_dtype(dtype, table=DTYPES) -> torch.dtype:
+    """A dtype name from ``table`` (default `DTYPES`; `PAGE_DTYPES` for
+    a page pool) or a torch dtype -> torch dtype."""
     if isinstance(dtype, torch.dtype):
-        if dtype not in DTYPES.values():
+        if dtype not in table.values():
             raise ValueError(f"unsupported dtype {dtype}; use one of "
-                             f"{sorted(DTYPES)}")
+                             f"{sorted(table)}")
         return dtype
     try:
-        return DTYPES[str(dtype)]
+        return table[str(dtype)]
     except KeyError:
         raise ValueError(f"unsupported dtype {dtype!r}; use one of "
-                         f"{sorted(DTYPES)}") from None
+                         f"{sorted(table)}") from None
 
 
-__all__ = ["DTYPES", "resolve_device", "resolve_dtype"]
+__all__ = ["DTYPES", "PAGE_DTYPES", "resolve_device", "resolve_dtype"]

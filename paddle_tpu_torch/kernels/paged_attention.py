@@ -1,28 +1,35 @@
-"""Paged attention for decode: the Hopper kernel and its plain version.
+"""Paged attention for decode and verify: the Hopper kernel and its plain
+version.
 
 Counterpart: ``paddle_tpu/kernels/paged_attention.py``. The TPU kernel
 there, ``_paged_attn_kernel`` (:120, launched by ``fused_paged_attention``
 :179), is replaced by the hand-written CUDA kernel in
-``csrc/paged_attention.cu`` (unquantized pools; the int8/fp8 variant is
-later work). The source's header note says how it works and what
-bounds it.
+``csrc/paged_attention.cu``, in both of its forms: float pools, and
+quantized pools of 1-byte pages (int8 or fp8 e4m3) with per-(page, head,
+in-page column) f32 scales ``[P, H, ps]``, dequantized in the kernel. The
+source's header note says how it works and what bounds it.
 
 - `fused_paged_attention`: the kernel wrapper (CUDA tensors only).
 - `paged_attention_reference`: the plain PyTorch version, computing the
   same ``(out, lse)``; the CPU path and the on-card comparison use it.
 - `paged_decode_attention`: the dispatcher with the contract of
   ``paddle_tpu.kernels.paged_attention.paged_decode_attention``
-  (:271-305): ``qh [N, H, W, D]`` -> context ``[N, W, H*D]``.
+  (:271-305): ``qh [N, H, W, D]`` -> context ``[N, W, H*D]``, W = 1 for
+  a decode step and k + 1 for a speculative verify window.
 
 Semantics shared by the kernel and its plain version, the TPU kernel's:
 query ``j`` of row ``n`` attends logical column ``c`` when
 ``c <= steps[n] + j`` and ``valid_cols[n, c] != 0``; a masked score is
 ``-1e30``, so a query with no readable column (a parked serving slot)
 gets the uniform average over every column of its table — finite, and
-never read by the engine. The kernel reads only the pages up to the
-cursor (the rest add exactly nothing) unless a query found no readable
-column there; the plain version is the masked softmax over the whole
-table.
+never read by the engine. A quantized page dequantizes as
+``page.float() * scale`` in f32 (the TPU kernel's :146-147). The kernel
+reads only the pages up to the cursor that hold a readable column (the
+rest add exactly nothing) unless a query found no readable column there;
+the plain version is the masked softmax over the whole table.
+
+Launch counts: ``paged_attention`` for float pools,
+``paged_attention_int8`` and ``paged_attention_fp8`` for quantized ones.
 """
 from __future__ import annotations
 
@@ -32,11 +39,14 @@ import math
 import torch
 
 from . import _build, count_launch, runs_plain
-from .paged_kv import gather_pages
+from .paged_kv import gather_pages, gather_scales
 
 _KERNEL = "paged_attention"
 _MASKED = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: quantized page dtype -> (the C entry's page code, launch-count name)
+_QUANT_PAGES = {torch.int8: (1, "paged_attention_int8"),
+                torch.float8_e4m3fn: (2, "paged_attention_fp8")}
 _fn = None
 
 
@@ -48,7 +58,7 @@ def _kernel_fn():
     if _fn is None:
         lib = _build.load(_KERNEL)
         fn = lib.ptt_paged_attention
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         err_str = lib.ptt_error_string
@@ -64,21 +74,30 @@ def _check(cond: bool, msg: str):
 
 
 def fused_paged_attention(qh, pool_k, pool_v, block_table, steps,
-                          valid_cols):
+                          valid_cols, k_scale=None, v_scale=None):
     """Launch the Hopper kernel: qh ``[N, H, W, D]`` against pools
     ``[P, H, ps, D]`` through ``block_table [N, Pmax]`` (int32), with
     ``steps [N]`` and ``valid_cols [N, Pmax*ps]`` (int32). Returns
     ``(out [N, H, W, D] in qh's dtype, lse [N, H, W] f32)``.
 
-    Takes CUDA tensors only, all contiguous and on one device; q and
-    both pools share one dtype (float32 or bfloat16); ``D`` is 64 or
-    128 and ``ps % 8 == 0``. Anything else raises, quantized (int8,
-    fp8) pools included."""
+    Takes CUDA tensors only, all contiguous and on one device; q is
+    float32 or bfloat16; the pools either share q's dtype (no scales) or
+    are both int8 or both float8_e4m3fn with ``k_scale``/``v_scale``
+    ``[P, H, ps]`` float32; ``D`` is 64 or 128 and ``ps % 8 == 0``.
+    Anything else raises."""
     _check(qh.device.type == "cuda", f"needs CUDA tensors, got {qh.device}")
     dev = qh.device
+    quant = pool_k.dtype in _QUANT_PAGES
     tensors = dict(qh=qh, pool_k=pool_k, pool_v=pool_v,
                    block_table=block_table, steps=steps,
                    valid_cols=valid_cols)
+    if quant:
+        _check(k_scale is not None and v_scale is not None,
+               f"{pool_k.dtype} pools need k_scale and v_scale")
+        tensors.update(k_scale=k_scale, v_scale=v_scale)
+    else:
+        _check(k_scale is None and v_scale is None,
+               f"scales were passed with {pool_k.dtype} pools")
     for name, t in tensors.items():
         _check(t.device == dev, f"{name} is on {t.device}, qh on {dev}")
         _check(t.is_contiguous(), f"{name} must be contiguous")
@@ -95,10 +114,22 @@ def fused_paged_attention(qh, pool_k, pool_v, block_table, steps,
     _check(ps % 8 == 0, f"page_size must be a multiple of 8, got {ps}")
     _check(qh.dtype in _DTYPE_CODES,
            f"q dtype must be float32 or bfloat16, got {qh.dtype}")
-    _check(pool_k.dtype == qh.dtype and pool_v.dtype == qh.dtype,
-           f"pools must have q's dtype {qh.dtype}, got {pool_k.dtype}/"
-           f"{pool_v.dtype} (quantized pools are not served by this "
-           "kernel)")
+    _check(pool_v.dtype == pool_k.dtype,
+           f"pools differ in dtype: {pool_k.dtype}/{pool_v.dtype}")
+    if quant:
+        page_code, counter = _QUANT_PAGES[pool_k.dtype]
+        for name in ("k_scale", "v_scale"):
+            sc = tensors[name]
+            _check(sc.dtype == torch.float32
+                   and tuple(sc.shape) == tuple(pool_k.shape[:3]),
+                   f"{name} must be float32 [P, H, ps] = "
+                   f"{tuple(pool_k.shape[:3])}, got {sc.dtype} "
+                   f"{tuple(sc.shape)}")
+    else:
+        _check(pool_k.dtype == qh.dtype,
+               f"pools must have q's dtype {qh.dtype} or be int8 / "
+               f"float8_e4m3fn with scales, got {pool_k.dtype}")
+        page_code, counter = 0, _KERNEL
     _check(block_table.dim() == 2 and block_table.shape[0] == n
            and block_table.dtype == torch.int32,
            "block_table must be int32 [N, Pmax]")
@@ -115,27 +146,33 @@ def fused_paged_attention(qh, pool_k, pool_v, block_table, steps,
     lse = torch.empty((n, h, w), dtype=torch.float32, device=dev)
     fn, err_str = _kernel_fn()
     err = fn(qh.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+             k_scale.data_ptr() if quant else None,
+             v_scale.data_ptr() if quant else None,
              block_table.data_ptr(), steps.data_ptr(), valid_cols.data_ptr(),
              out.data_ptr(), lse.data_ptr(), n, h, w, d, ps, pmax,
-             _DTYPE_CODES[qh.dtype], dev.index,
+             _DTYPE_CODES[qh.dtype], page_code, dev.index,
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err} ({err_str(err).decode()})")
-    count_launch(_KERNEL)
+    count_launch(counter)
     return out, lse
 
 
 def paged_attention_reference(qh, pool_k, pool_v, block_table, steps,
-                              valid_cols):
+                              valid_cols, k_scale=None, v_scale=None):
     """The plain PyTorch version of `fused_paged_attention`: the
-    `gather_pages` view plus the masked softmax, in f32, with the
-    kernel's semantics (module docstring). Returns ``(out, lse)``."""
+    `gather_pages` view (dequantized as ``page.float() * scale`` when
+    scales are given) plus the masked softmax, in f32, with the kernel's
+    semantics (module docstring). Returns ``(out, lse)``."""
     n, h, w, d = qh.shape
     lp = pool_k.shape[2] * block_table.shape[1]
     dev = qh.device
     view_k = gather_pages(pool_k, block_table).float()   # [N, H, L, D]
     view_v = gather_pages(pool_v, block_table).float()
+    if k_scale is not None:
+        view_k = view_k * gather_scales(k_scale, block_table)[..., None]
+        view_v = view_v * gather_scales(v_scale, block_table)[..., None]
     s = torch.einsum("nhwd,nhld->nhwl", qh.float(), view_k) / math.sqrt(d)
     cols = torch.arange(lp, device=dev)
     st = steps.to(dev).long()
@@ -151,10 +188,13 @@ def paged_attention_reference(qh, pool_k, pool_v, block_table, steps,
 
 
 def paged_decode_attention(qh, pool_k, pool_v, block_table, steps,
-                           head_dim, valid_cols=None):
-    """The decode dispatcher: ``qh [N, H, W, D]`` (W = 1 plain decode)
-    -> context ``[N, W, H*D]``. A CPU ``qh`` runs the plain version; a
-    CUDA ``qh`` launches the kernel (or the wrapper raises)."""
+                           head_dim, valid_cols=None, k_scale=None,
+                           v_scale=None):
+    """The decode/verify dispatcher: ``qh [N, H, W, D]`` (W = 1 plain
+    decode, W = k + 1 verify window) -> context ``[N, W, H*D]``;
+    ``k_scale``/``v_scale`` ride with quantized pools. A CPU ``qh`` runs
+    the plain version; a CUDA ``qh`` launches the kernel (or the wrapper
+    raises)."""
     n, h, w, d = qh.shape
     if int(head_dim) != d:
         raise ValueError(f"head_dim {head_dim} != q's last dim {d}")
@@ -164,13 +204,14 @@ def paged_decode_attention(qh, pool_k, pool_v, block_table, steps,
                                 device=qh.device)
     if runs_plain(qh, _KERNEL):
         out, _ = paged_attention_reference(qh, pool_k, pool_v, block_table,
-                                           steps, valid_cols)
+                                           steps, valid_cols, k_scale,
+                                           v_scale)
     else:
         out, _ = fused_paged_attention(
             qh.contiguous(), pool_k, pool_v,
             block_table.to(torch.int32).contiguous(),
             steps.to(torch.int32).contiguous(),
-            valid_cols.to(torch.int32).contiguous())
+            valid_cols.to(torch.int32).contiguous(), k_scale, v_scale)
     return out.permute(0, 2, 1, 3).reshape(n, w, h * d)
 
 

@@ -1,11 +1,20 @@
 """Paged KV-cache primitives: page arithmetic, the dense gather and the
 page writers.
 
-Counterpart: ``paddle_tpu/kernels/paged_kv.py:43-134``. There these are
+Counterpart: ``paddle_tpu/kernels/paged_kv.py:43-228``. There these are
 XLA compositions (gather/scatter), not Pallas kernels, so here they stay
 plain torch indexing. The JAX versions return new pools; the writers
 here update the pool IN PLACE (``index_put_``), which saves a copy of a
 pool that holds the whole serving KV cache.
+
+Quantized pools (``kv_quant="int8"`` or ``"fp8"``) store 1-byte pages
+(int8 or ``float8_e4m3fn``) beside f32 scale arrays ``[P, H, ps]``: one
+scale per (page, head, in-page column), i.e. per written token and head,
+fixed at write time, so a resident token is never requantized. Each
+``_q`` writer puts the data and the scale rows at the same slots; the
+paged-attention kernel dequantizes (``page.float() * scale``). fp8
+pages are moved (gathered, scattered, padded) as their uint8 bits, so no
+indexing kernel needs to know the fp8 type.
 
 A pool is ``[P, H, ps, D]`` (one per layer and per K/V); a block table
 ``[N, Pmax]`` int maps row ``n``'s logical page ``i`` to physical page
@@ -22,11 +31,16 @@ def pages_for(n_cols: int, page_size: int) -> int:
     return -(-int(n_cols) // int(page_size))
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """An fp8 tensor as its uint8 bits (a view); anything else as is."""
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
 def gather_pages(pool: torch.Tensor, block_table: torch.Tensor):
     """The dense logical view of each row: pool ``[P, H, ps, D]``,
     block_table ``[N, Pmax]`` -> ``[N, H, Pmax*ps, D]``. Used by the
     plain version of the paged-attention kernel only."""
-    v = pool[block_table.long()]                 # [N, Pmax, H, ps, D]
+    v = _bits(pool)[block_table.long()].view(pool.dtype)  # [N,Pmax,H,ps,D]
     v = v.permute(0, 2, 1, 3, 4)                 # [N, H, Pmax, ps, D]
     n, h = v.shape[0], v.shape[1]
     return v.reshape(n, h, -1, pool.shape[-1])
@@ -34,8 +48,9 @@ def gather_pages(pool: torch.Tensor, block_table: torch.Tensor):
 
 def write_token_pages(pool: torch.Tensor, pages: torch.Tensor,
                       offsets: torch.Tensor, val: torch.Tensor):
-    """Write one token per row into its own page, in place: pages and
-    offsets ``[N]`` (physical page and in-page column per row), val
+    """Write tokens into their pages, in place: pages and offsets ``[N]``
+    (the physical page and in-page column of each token: one per slot
+    for a decode step, a flat `tail_page_targets` for a window), val
     ``[N, H, D]``. Returns ``pool``."""
     pool[pages.long(), :, offsets.long()] = val.to(pool.dtype)
     return pool
@@ -63,5 +78,113 @@ def scatter_prompt_pages(pool: torch.Tensor, page_rows: torch.Tensor,
     return pool
 
 
-__all__ = ["pages_for", "gather_pages", "write_token_pages",
-           "scatter_prompt_pages"]
+def scatter_tail_pages(pool: torch.Tensor, block_table: torch.Tensor,
+                       col0: torch.Tensor, local: torch.Tensor):
+    """Write ``local [n, H, s, D]`` token-wise through the block table, in
+    place: token ``j`` of row ``r`` lands at logical column ``col0[r] +
+    j`` (`tail_page_targets`: columns past the row's logical window go to
+    the sentinel page). Returns ``pool``."""
+    n, h, s, d = local.shape
+    pages, offs = tail_page_targets(block_table, col0, s, pool.shape[2],
+                                    pool.shape[0] - 1)
+    return write_token_pages(pool, pages, offs,
+                             local.permute(0, 2, 1, 3).reshape(n * s, h, d))
+
+
+def tail_page_targets(block_table, col0, s: int, page_size: int,
+                      sentinel: int):
+    """Flat ``(pages, offsets)`` ``[n * s]`` of an ``[n, s]``-token tail at
+    logical columns ``col0 + j``, row-major: the one copy of the window
+    and sentinel arithmetic (``paged_kv.py:160-175``). Columns past the
+    row's logical window go to page ``sentinel`` (the pool's last page),
+    never to the row's own last page, where they would land on live K/V.
+    The speculative verify window writes its lanes here, and a decode
+    step its one token (``s = 1``); the float and the quantized writers
+    take the same targets, so data and scale rows land together."""
+    cols = (col0.to(torch.int64)[:, None]
+            + torch.arange(s, device=col0.device)[None, :])
+    in_window = cols < block_table.shape[1] * page_size
+    pages = block_table.long().gather(
+        1, torch.where(in_window, cols // page_size, 0))
+    pages = torch.where(in_window, pages, sentinel)
+    return pages.reshape(-1), (cols % page_size).reshape(-1)
+
+
+#: e4m3fn's largest finite value
+_FP8_E4M3FN_MAX = 448.0
+
+
+def quantize_tokens(val: torch.Tensor, dtype=torch.int8):
+    """Symmetric per-token quantization: ``val [..., D]`` -> ``(q [...,
+    D] in dtype, scale [...] f32)``, one scale per leading index (per
+    token and head). int8: ``scale = max|v| / 127``, round half to even,
+    clip to +-127. ``float8_e4m3fn``: ``scale = max|v| / 448`` and a
+    plain cast (round to nearest even; the scaled values lie within the
+    format). An all-zero token keeps scale 0 and dequantizes to zeros."""
+    a = val.float()
+    if dtype == torch.float8_e4m3fn:
+        s = a.abs().amax(dim=-1) / _FP8_E4M3FN_MAX
+        safe = torch.where(s > 0, s, 1.0)
+        return (a / safe[..., None]).to(dtype), s
+    if dtype != torch.int8:
+        raise ValueError(f"quantized pages are int8 or float8_e4m3fn, "
+                         f"got {dtype}")
+    s = a.abs().amax(dim=-1) / 127.0
+    safe = torch.where(s > 0, s, 1.0)
+    q = torch.clamp(torch.round(a / safe[..., None]), -127, 127)
+    return q.to(torch.int8), s
+
+
+def gather_scales(scale: torch.Tensor, block_table: torch.Tensor):
+    """The logical scale view: scale ``[P, H, ps]``, block_table ``[N,
+    Pmax]`` -> ``[N, H, Pmax*ps]``, the companion of `gather_pages` (the
+    plain version of the kernel only)."""
+    v = scale[block_table.long()].permute(0, 2, 1, 3)   # [N, H, Pmax, ps]
+    return v.reshape(v.shape[0], v.shape[1], -1)
+
+
+def write_token_pages_q(pool, scale, pages, offsets, val):
+    """Quantized `write_token_pages`, in place: each token's data into
+    ``pool`` and its per-head scales into ``scale`` at the same (page,
+    column) slots. Returns ``(pool, scale)``."""
+    q, s = quantize_tokens(val, pool.dtype)          # [N, H, D], [N, H]
+    pages, offsets = pages.long(), offsets.long()
+    _bits(pool)[pages, :, offsets] = _bits(q)
+    scale[pages, :, offsets] = s
+    return pool, scale
+
+
+def scatter_prompt_pages_q(pool, scale, page_rows, local, page_size: int):
+    """Quantized `scatter_prompt_pages`, in place: the zero-padded tail
+    of the last page quantizes to (0, scale 0), which dequantizes to the
+    float writer's zeros. Returns ``(pool, scale)``."""
+    n, h, bucket, d = local.shape
+    q, s = quantize_tokens(local, pool.dtype)        # [n,H,B,D], [n,H,B]
+    q = _bits(q)
+    pb = pages_for(bucket, page_size)
+    pad = pb * page_size - bucket
+    if pad:
+        q = torch.cat([q, q.new_zeros((n, h, pad, d))], dim=2)
+        s = torch.cat([s, s.new_zeros((n, h, pad))], dim=2)
+    tiles = q.reshape(n, h, pb, page_size, d).permute(0, 2, 1, 3, 4)
+    stiles = s.reshape(n, h, pb, page_size).permute(0, 2, 1, 3)
+    rows = page_rows[:, :pb].reshape(-1).long()
+    _bits(pool)[rows] = tiles.reshape(n * pb, h, page_size, d)
+    scale[rows] = stiles.reshape(n * pb, h, page_size)
+    return pool, scale
+
+
+def scatter_tail_pages_q(pool, scale, block_table, col0, local):
+    """Quantized `scatter_tail_pages`, in place, with the same targets
+    for the data and the scales. Returns ``(pool, scale)``."""
+    n, h, s, d = local.shape
+    pages, offs = tail_page_targets(block_table, col0, s, pool.shape[2],
+                                    pool.shape[0] - 1)
+    return write_token_pages_q(pool, scale, pages, offs,
+                               local.permute(0, 2, 1, 3).reshape(n * s, h, d))
+
+
+__all__ = ["pages_for", "gather_pages", "gather_scales", "quantize_tokens",
+           "write_token_pages", "write_token_pages_q", "scatter_prompt_pages",
+           "scatter_prompt_pages_q", "scatter_tail_pages",
+           "scatter_tail_pages_q", "tail_page_targets"]

@@ -2,10 +2,12 @@
 temperature / top-k / top-p sampling.
 
 Counterparts: ``paddle_tpu/models/generation.py:32-67`` (the filters)
-and ``paddle_tpu/serving/compiled.py:69-84`` (per-slot selection). The
-filters keep the reference's value-threshold semantics (tokens tying
-the threshold all survive). Random draws come from an explicit
-`torch.Generator` per request, so a sampled request is reproducible from
+and ``paddle_tpu/serving/compiled.py:69-166`` (per-slot selection, and
+its speculative window form `_select_tokens_window` with the lane-wise
+probabilities of `_verify_probs_window`). The filters keep the
+reference's value-threshold semantics (tokens tying the threshold all
+survive). Random draws come from an explicit `torch.Generator` per
+request, one draw per step, so a sampled request is reproducible from
 its seed whatever shares its batch; they are not JAX's PRNG streams, so
 sampled tokens match the reference in distribution only.
 """
@@ -34,28 +36,56 @@ def filter_top_p(logits, p):
     return logits.masked_fill(logits < thr, float("-inf"))
 
 
+def _sampled_probs(l32, samplers, top_k):
+    """``(rows, probs)``: the sampled rows of ``l32 [S, ..., V]`` and
+    their filtered softmax ``[len(rows), ..., V]`` (``/ temperature``,
+    then top-k, then top-p, per row), or ``([], None)``."""
+    rows = [s for s, smp in enumerate(samplers) if smp is not None]
+    if not rows:
+        return rows, None
+    dev = l32.device
+    idx = torch.tensor(rows, device=dev)
+    lanes = l32[idx]
+    v = lanes.shape[-1]
+    per = lanes[0].numel() // v                  # lanes per row
+    temps = torch.tensor([samplers[s][0] for s in rows], device=dev)
+    top_ps = torch.tensor([samplers[s][1] for s in rows], device=dev)
+    lt = lanes.reshape(-1, v) / temps.repeat_interleave(per)[:, None]
+    if top_k and top_k > 0:
+        lt = filter_top_k(lt, top_k)
+    lt = filter_top_p(lt, top_ps.repeat_interleave(per)[:, None])
+    return rows, torch.softmax(lt, dim=-1).reshape(lanes.shape)
+
+
 def select_tokens(l32, samplers, top_k: int = 0):
     """logits ``[S, V]`` float32 -> ``[S]`` int64 next tokens.
 
     ``samplers[s]`` is None for a greedy row, else ``(temperature,
     top_p, generator)``; ``top_k`` (0 = off) applies to every sampled
     row, as the engine configures it."""
+    tok, _ = select_tokens_window(l32[:, None], samplers, top_k,
+                                  [0] * l32.shape[0])
+    return tok[:, 0]
+
+
+def select_tokens_window(l32, samplers, top_k, lanes):
+    """logits ``[S, W, V]`` float32 of a verify window -> ``(tok [S, W]
+    int64, probs)``.
+
+    Every lane of a greedy row takes its argmax. A sampled row draws ONE
+    token, at lane ``lanes[s]`` (its draft count: the lane whose draw is
+    the bonus token when every draft is accepted), from its own
+    generator, exactly as `select_tokens` draws a decode step's token;
+    its other lanes hold the argmax and are not read. ``probs [n, W, V]``
+    are the sampled rows' filtered softmax per lane, in slot order (None
+    without a sampled row): the modified rejection test reads them."""
     tok = l32.argmax(dim=-1)
-    rows = [s for s, smp in enumerate(samplers) if smp is not None]
-    if not rows:
-        return tok
-    dev = l32.device
-    idx = torch.tensor(rows, device=dev)
-    temps = torch.tensor([samplers[s][0] for s in rows], device=dev)
-    top_ps = torch.tensor([samplers[s][1] for s in rows], device=dev)
-    lt = l32[idx] / temps[:, None]
-    if top_k and top_k > 0:
-        lt = filter_top_k(lt, top_k)
-    lt = filter_top_p(lt, top_ps[:, None])
-    probs = torch.softmax(lt, dim=-1)
+    rows, probs = _sampled_probs(l32, samplers, top_k)
     for j, s in enumerate(rows):
-        tok[s] = torch.multinomial(probs[j], 1, generator=samplers[s][2])[0]
-    return tok
+        tok[s, lanes[s]] = torch.multinomial(
+            probs[j, lanes[s]], 1, generator=samplers[s][2])[0]
+    return tok, probs
 
 
-__all__ = ["filter_top_k", "filter_top_p", "select_tokens"]
+__all__ = ["filter_top_k", "filter_top_p", "select_tokens",
+           "select_tokens_window"]

@@ -11,9 +11,11 @@ Counterpart: ``paddle_tpu/models/gpt.py``. Ported so far:
   kernels where its gate takes the mask and shape, else the
   composition);
 - serving, as the paged engine runs it: the masked prompt pass
-  (`GPTModel.prefill`) and the one-token-per-slot paged decode step
-  (`GPTModel.decode_slots_paged`), plus the weight-tied LM head and the
-  cache/pool constructors.
+  (`GPTModel.prefill`), the one-token-per-slot paged decode step
+  (`GPTModel.decode_slots_paged`) and the speculative verify window of
+  ``W = k + 1`` tokens per slot (`GPTModel.verify_slots_paged`), over
+  float or quantized (int8 / fp8 pages with f32 scales) pools, plus the
+  weight-tied LM head and the cache/pool/scale constructors.
 
 Two layouts are kept from the reference so that a ``paddle_tpu``
 state dict loads key for key (`models.convert`):
@@ -37,7 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..device import resolve_device, resolve_dtype
+from ..device import PAGE_DTYPES, resolve_device, resolve_dtype
 from ..kernels import flash_attention_qkv_enabled, paged_kv
 from ..kernels.flash_attention import flash_attention_qkv
 from ..kernels.paged_attention import paged_decode_attention
@@ -165,22 +167,37 @@ class GPTAttention(nn.Module):
         ctx = mt_attention_core(qh, kh, vh, self.head_dim, valid_mask=valid)
         return self.out_proj(ctx)
 
-    def forward_decode_slots_paged(self, x, pool_k, pool_v, block_table,
-                                   steps, valid_cols=None):
-        """One token per slot over the paged pool: row ``s`` writes its
-        K/V into page ``block_table[s, steps[s] // ps]`` at in-page
-        column ``steps[s] % ps`` (in place) and attends through
-        `paged_decode_attention` — the Hopper kernel on a card."""
-        qh, kh, vh = self._heads(x)                        # [B, H, 1, D]
-        ps = pool_k.shape[2]
-        pages = block_table.long().gather(
-            1, (steps.long() // ps)[:, None])[:, 0]
-        offs = steps.long() % ps
-        paged_kv.write_token_pages(pool_k, pages, offs, kh[:, :, 0])
-        paged_kv.write_token_pages(pool_v, pages, offs, vh[:, :, 0])
-        ctx = paged_decode_attention(qh, pool_k, pool_v, block_table, steps,
-                                     self.head_dim, valid_cols=valid_cols)
-        return self.out_proj(ctx)
+    def forward_slots_paged(self, x, pool_k, pool_v, block_table, steps,
+                            targets, valid_cols=None, k_scale=None,
+                            v_scale=None):
+        """W tokens per slot over the paged pool, ``x [B, W, h]`` (W = 1
+        a decode step, ``gpt.py:450-517``; W = k + 1 a speculative verify
+        window, :399-448): lane ``j`` of row ``s`` writes its K/V at
+        logical column ``steps[s] + j`` (in place, to the flat page and
+        in-page column of ``targets``, `paged_kv.tail_page_targets`;
+        quantized at write when ``k_scale``/``v_scale`` ride with 1-byte
+        pools) and attends the columns up to its own through
+        `paged_decode_attention`, all W lanes in one call: the Hopper
+        kernel on a card, which dequantizes in the kernel. A verify
+        window writes only the slot's own reserved pages past its
+        cursor, so a rejected lane is rolled back by the cursor alone."""
+        b, w = x.shape[0], x.shape[1]
+        q, k, v = unpack_qkv_pair_major(self.qkv_proj(x), self.num_heads,
+                                        self.head_dim)     # [B, W, H, D]
+        flat = (b * w, self.num_heads, self.head_dim)
+        if k_scale is None:
+            paged_kv.write_token_pages(pool_k, *targets, k.reshape(flat))
+            paged_kv.write_token_pages(pool_v, *targets, v.reshape(flat))
+        else:
+            paged_kv.write_token_pages_q(pool_k, k_scale, *targets,
+                                         k.reshape(flat))
+            paged_kv.write_token_pages_q(pool_v, v_scale, *targets,
+                                         v.reshape(flat))
+        ctx = paged_decode_attention(q.permute(0, 2, 1, 3), pool_k, pool_v,
+                                     block_table, steps, self.head_dim,
+                                     valid_cols=valid_cols, k_scale=k_scale,
+                                     v_scale=v_scale)
+        return self.out_proj(ctx.reshape(b, w, -1))
 
 
 class GPTMLP(nn.Module):
@@ -218,11 +235,12 @@ class GPTDecoderLayer(nn.Module):
                                           pad_mask=pad_mask)
         return x + self.mlp(self.ln_2(x))
 
-    def forward_decode_slots_paged(self, x, pool_k, pool_v, block_table,
-                                   steps, valid_cols=None):
-        x = x + self.attn.forward_decode_slots_paged(
-            self.ln_1(x), pool_k, pool_v, block_table, steps,
-            valid_cols=valid_cols)
+    def forward_slots_paged(self, x, pool_k, pool_v, block_table, steps,
+                            targets, valid_cols=None, k_scale=None,
+                            v_scale=None):
+        x = x + self.attn.forward_slots_paged(
+            self.ln_1(x), pool_k, pool_v, block_table, steps, targets,
+            valid_cols=valid_cols, k_scale=k_scale, v_scale=v_scale)
         return x + self.mlp(self.ln_2(x))
 
 
@@ -291,17 +309,41 @@ class GPTModel(nn.Module):
         return self.ln_f(x)
 
     def decode_slots_paged(self, token_ids, steps, pools, block_table,
-                           pads=None, valid_cols=None):
+                           pads=None, valid_cols=None, scales=None):
         """One token per slot at per-row logical columns ``steps [B]``
         over the per-layer ``[(k_pool, v_pool), ...]`` (written in place;
-        one ``block_table [B, max_pages]`` for every layer). Position
-        ids are ``steps - pads`` clipped at 0. Returns ``[B, 1, h]``."""
-        b = token_ids.shape[0]
+        one ``block_table [B, max_pages]`` for every layer). ``scales``:
+        the per-layer ``[(k_scale, v_scale), ...]`` of a quantized pool,
+        written in place beside it. Position ids are ``steps - pads``
+        clipped at 0. Returns ``[B, 1, h]``: the verify window of one
+        lane."""
+        return self.verify_slots_paged(token_ids, steps, pools, block_table,
+                                       pads, valid_cols, scales)
+
+    def verify_slots_paged(self, token_ids, steps, pools, block_table,
+                           pads=None, valid_cols=None, scales=None):
+        """The speculative verify window over the paged pool
+        (``gpt.py:1129-1156``): ``token_ids [B, W]`` holds each slot's
+        pending token (lane 0) and up to ``W - 1`` drafted ones; lane
+        ``j`` sits at column ``steps[s] + j`` with position id
+        ``steps[s] - pads[s] + j``, the positions W sequential
+        `decode_slots_paged` calls would give it. Returns the hidden
+        states of all W lanes ``[B, W, h]``. Every layer writes the same
+        page slots, so their targets are computed once."""
+        b, w = token_ids.shape
         pos = steps.long() if pads is None else steps.long() - pads.long()
-        x = self.embeddings(token_ids, pos.clamp(min=0).reshape(b, 1))
-        for layer, (pk, pv) in zip(self.h, pools):
-            x = layer.forward_decode_slots_paged(x, pk, pv, block_table,
-                                                 steps, valid_cols=valid_cols)
+        pos = (pos.clamp(min=0)[:, None]
+               + torch.arange(w, device=token_ids.device)[None, :])
+        x = self.embeddings(token_ids, pos)
+        pool0 = pools[0][0]
+        targets = paged_kv.tail_page_targets(block_table, steps, w,
+                                             pool0.shape[2],
+                                             pool0.shape[0] - 1)
+        for i, (layer, (pk, pv)) in enumerate(zip(self.h, pools)):
+            ks, vs = (None, None) if scales is None else scales[i]
+            x = layer.forward_slots_paged(x, pk, pv, block_table, steps,
+                                          targets, valid_cols=valid_cols,
+                                          k_scale=ks, v_scale=vs)
         return self.ln_f(x)
 
 
@@ -356,18 +398,30 @@ class GPTForPretraining(nn.Module):
                 f"prompt + max_new_tokens = {max_len} exceeds "
                 f"max_position_embeddings {cfg.max_position_embeddings}")
         shape = (batch_size, cfg.num_attention_heads, max_len, cfg.head_dim)
-        return self._zeros_per_layer(shape, dtype)
+        return self._zeros_per_layer(
+            shape, self.dtype if dtype is None else resolve_dtype(dtype))
 
     def gen_page_pool(self, pages, page_size, dtype=None):
         """Per-layer ``(k, v)`` page pools ``[pages, heads, page_size,
-        head_dim]`` of zeros."""
+        head_dim]`` of zeros, in the model dtype or ``dtype`` (a
+        `device.PAGE_DTYPES` name: int8 and float8_e4m3fn for quantized
+        pools)."""
         cfg = self.config
         shape = (int(pages), cfg.num_attention_heads, int(page_size),
                  cfg.head_dim)
-        return self._zeros_per_layer(shape, dtype)
+        return self._zeros_per_layer(
+            shape, self.dtype if dtype is None
+            else resolve_dtype(dtype, PAGE_DTYPES))
 
-    def _zeros_per_layer(self, shape, dtype):
-        dt = self.dtype if dtype is None else resolve_dtype(dtype)
+    def gen_page_scales(self, pages, page_size):
+        """Per-layer ``(k_scale, v_scale)`` ``[pages, heads, page_size]``
+        f32 zeros for a quantized page pool, one scale per (page, head,
+        in-page column): an unwritten slot dequantizes to zeros."""
+        cfg = self.config
+        shape = (int(pages), cfg.num_attention_heads, int(page_size))
+        return self._zeros_per_layer(shape, torch.float32)
+
+    def _zeros_per_layer(self, shape, dt):
         return [(torch.zeros(shape, dtype=dt, device=self.device),
                  torch.zeros(shape, dtype=dt, device=self.device))
                 for _ in range(self.config.num_hidden_layers)]
@@ -379,13 +433,20 @@ class GPTForPretraining(nn.Module):
         return self._logits(hidden[:, -1:]), caches
 
     def decode_slots_paged(self, token_ids, steps, pools, block_table,
-                           pads=None, valid_cols=None):
-        """Logits ``[B, 1, V]`` of one paged decode step (pools written in
-        place)."""
-        hidden = self.gpt.decode_slots_paged(token_ids, steps, pools,
-                                             block_table, pads=pads,
-                                             valid_cols=valid_cols)
-        return self._logits(hidden)
+                           pads=None, valid_cols=None, scales=None):
+        """Logits ``[B, 1, V]`` of one paged decode step (pools, and the
+        scales of a quantized pool, written in place)."""
+        return self._logits(self.gpt.decode_slots_paged(
+            token_ids, steps, pools, block_table, pads=pads,
+            valid_cols=valid_cols, scales=scales))
+
+    def verify_slots_paged(self, token_ids, steps, pools, block_table,
+                           pads=None, valid_cols=None, scales=None):
+        """Logits ``[B, W, V]`` of one paged verify window (pools and
+        scales written in place)."""
+        return self._logits(self.gpt.verify_slots_paged(
+            token_ids, steps, pools, block_table, pads=pads,
+            valid_cols=valid_cols, scales=scales))
 
 
 class GPTPretrainingCriterion(nn.Module):

@@ -1,9 +1,10 @@
 """The continuous-batching serving engine over the paged KV pool.
 
 Counterpart: ``paddle_tpu/serving/engine.py`` (``Engine(kv_mode="paged")``;
-submit/step semantics of :757-927, admission of :1536-1630, decode of
-:2252-2291, emit/release of :2647-2717). This slice ports the
-cooperative paged engine:
+submit/step semantics of :757-927, the page budget of :1429-1530,
+admission of :1536-1630, decode of :2252-2291, the speculative step of
+:2293-2552, emit/release of :2647-2717). The port has the cooperative
+paged engine:
 
 - `submit` queues a request and returns a `RequestHandle`;
 - `step` admits queued requests FCFS into free slots — each prompt is
@@ -12,11 +13,25 @@ cooperative paged engine:
   active or parked, rides (parked slots write to the sentinel page);
 - a request that finds the pool exhausted stays queued at the head
   until a release returns pages; EOS or the token budget frees the slot
-  and its pages at once.
+  and its pages at once;
+- ``kv_quant="int8"`` or ``"fp8"`` stores the pool as 1-byte pages with
+  per-token f32 scales: prefill attends its float local cache and
+  quantizes into the pages, every decode or verify write quantizes, and
+  the attention kernel dequantizes;
+- ``spec_k=k`` replaces the decode step by a verify step of ``k + 1``
+  lanes per slot: an n-gram drafter (`speculative.NgramDrafter`,
+  suffix n-grams up to ``spec_ngram`` tokens) proposes up to ``k``
+  tokens per slot on the host, one pass scores them all, and the
+  longest accepted prefix plus one token of the target's own is
+  emitted. Greedy requests accept by argmax agreement (token-identical
+  to ``spec_k=0``); sampled ones by modified rejection sampling
+  (distributed exactly as ``spec_k=0``). Every slot budgets ``k`` more
+  columns (``bucket + max_new + k <= max_len``, and its pages).
 
-On a card the decode step's attention is the Hopper paged-attention
-kernel (`kernels.paged_attention`); on the CPU its plain version.
-Arguments of features that later slices bring raise
+On a card the attention of every decode and verify step is the Hopper
+paged-attention kernel (`kernels.paged_attention`, at ``W = 1`` or ``k
++ 1`` queries per slot, reading float or 1-byte pages); on the CPU its
+plain version. Arguments of features that later slices bring raise
 `NotImplementedError` naming the feature.
 """
 from __future__ import annotations
@@ -28,20 +43,26 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import kernel_launch_counts
-from .compiled import paged_decode_step, paged_prefill_step
+from .compiled import paged_prefill_step, paged_verify_step
 from .metrics import EngineMetrics
 from .paged import PagedKVCache
 from .request import (CANCELLED, DECODING, FINISHED, QUEUED, Request,
                       RequestHandle, SamplingParams)
 from .scheduler import SlotScheduler
+from .speculative import NgramDrafter, longest_accept, normalize_draft
+
+#: the launch-count names of the paged kernel (float, int8, fp8 pools)
+_PAGED_KERNELS = ("paged_attention", "paged_attention_int8",
+                  "paged_attention_fp8")
 
 #: Engine arguments of later slices: name -> (the value that means
 #: "off", the ROADMAP queue-A feature that brings it)
 _LATER = {
     "prefix_cache": (False, "A8 prefix cache"),
-    "spec_k": (0, "A8 speculative decoding"),
+    "draft_model": (None, "A8 draft-model speculation"),
+    "spec_adaptive": (False, "A8 adaptive spec_k"),
+    "spec_k_max": (None, "A8 adaptive spec_k"),
     "chunk_tokens": (None, "A8 chunked prefill"),
-    "kv_quant": (None, "A8 quantized KV pages (with kernel B3 int8/fp8)"),
     "weight_quant": (None, "A7 int8 weight quantization"),
     "mesh": (None, "A12 distributed serving"),
     "role": ("both", "A10 disaggregated serving"),
@@ -67,13 +88,17 @@ class Engine:
     ceil(max_len / page_size)`` pages, the dense-equivalent size).
     ``top_k``: top-k of every sampled request (0 = off). ``seed``:
     seeds the generator of a sampled request submitted without one.
-    ``device``: ``None`` means ``cuda`` (raises without a GPU); it must
-    be the model's device.
+    ``kv_quant``: None, ``"int8"`` or ``"fp8"`` (1-byte pages with f32
+    scales). ``spec_k``: draft tokens per verify step (0 = plain
+    decode); ``spec_ngram``: the longest suffix n-gram the drafter
+    matches. ``device``: ``None`` means ``cuda`` (raises without a GPU);
+    it must be the model's device.
     """
 
     def __init__(self, model, slots=4, max_len=None, prefill_buckets=None,
                  page_size=16, kv_pages=None, top_k=0, seed=0, device=None,
-                 kv_mode="paged", **later):
+                 kv_mode="paged", kv_quant=None, spec_k=0, spec_ngram=3,
+                 **later):
         for name, value in later.items():
             if name not in _LATER:
                 raise TypeError(f"Engine() got an unexpected argument "
@@ -92,15 +117,24 @@ class Engine:
         if model.device != self.device:
             raise ValueError(f"the model is on {model.device}, the engine "
                              f"on {self.device}: move one of them")
+        if int(spec_k) < 0:
+            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
         self.model = model.eval()
         self.slots = int(slots)
         self.top_k = int(top_k)
         self._seed = int(seed)
+        #: verify lanes past the pending token (0 = plain decode)
+        self.spec_k = int(spec_k)
+        self._drafter = (NgramDrafter(max_ngram=int(spec_ngram))
+                         if self.spec_k else None)
+        self._vocab = int(model.config.vocab_size)
         self.kv = PagedKVCache(model, self.slots, int(max_len),
-                               page_size=int(page_size), pages=kv_pages)
+                               page_size=int(page_size), pages=kv_pages,
+                               kv_quant=kv_quant)
         buckets = (prefill_buckets if prefill_buckets is not None
                    else (max(1, int(max_len) // 2),))
-        self.scheduler = SlotScheduler(self.slots, buckets, int(max_len))
+        self.scheduler = SlotScheduler(self.slots, buckets, int(max_len),
+                                       spec_cols=self.spec_k)
         self.metrics = EngineMetrics()
         self._tokens = np.zeros((self.slots,), np.int64)
         self._slot_req: list[Request | None] = [None] * self.slots
@@ -127,11 +161,14 @@ class Engine:
         req = self._prepare(rid, prompt_ids, max_new_tokens, eos_token_id,
                             decode_strategy, temperature, top_k, top_p, seed)
         bucket = self.scheduler.validate(req)
-        need = self.kv.pages_needed(bucket, req.max_new_tokens)
+        need = self.kv.pages_needed(bucket, req.max_new_tokens,
+                                    extra_cols=self.spec_k)
         if need > self.kv.pages_total:
+            spec = (f" + {self.spec_k} speculative verify lanes"
+                    if self.spec_k else "")
             raise ValueError(
                 f"request needs {need} KV pages (bucket {bucket} + "
-                f"{req.max_new_tokens} new tokens at page_size "
+                f"{req.max_new_tokens} new tokens{spec} at page_size "
                 f"{self.kv.page_size}) but the pool holds "
                 f"{self.kv.pages_total} — raise kv_pages or lower "
                 "max_new_tokens")
@@ -178,6 +215,7 @@ class Engine:
                       eos_token_id, params)
         if not params.greedy:
             s = int(seed) if seed is not None else self._seed * 1_000_003 + rid
+            req.seed = s
             req.generator = torch.Generator(device=self.device).manual_seed(s)
         return req
 
@@ -193,7 +231,8 @@ class Engine:
                     if req is None:
                         break
                     if not self.kv.try_reserve(req.slot, req.bucket,
-                                               req.max_new_tokens):
+                                               req.max_new_tokens,
+                                               extra_cols=self.spec_k):
                         # pool exhausted: back to the queue head until a
                         # release returns pages (no neighbour is touched)
                         self.metrics.kv_pages_exhausted += 1
@@ -216,6 +255,7 @@ class Engine:
 
     def stats(self):
         """`metrics.EngineStats` snapshot."""
+        counts = kernel_launch_counts()
         return self.metrics.snapshot(
             queue_depth=self.scheduler.queue_depth,
             active_slots=self.kv.occupancy,
@@ -224,8 +264,11 @@ class Engine:
             kv_pages_in_use=self.kv.pages_in_use,
             kv_pages_free=self.kv.pages_free,
             kv_slot_pages=self.kv.slot_page_counts(),
-            paged_attention_launches=kernel_launch_counts()[
-                "paged_attention"])
+            kv_quant=self.kv.kv_quant,
+            kv_pool_bytes=self.kv.memory_bytes(),
+            kv_bytes_per_token=self.kv.bytes_per_page() / self.kv.page_size,
+            spec_k=self.spec_k,
+            paged_attention_launches=sum(counts[k] for k in _PAGED_KERNELS))
 
     # -- internals -------------------------------------------------------
     def _check_alive(self):
@@ -260,7 +303,7 @@ class Engine:
         tok = paged_prefill_step(
             self.model, self.kv.caches, self._dev(ids), self._dev(amask),
             self._dev(self.kv.block_table[[slot]]), self.kv.page_size,
-            [self._sampler(req)], self.top_k)
+            [self._sampler(req)], self.top_k, scales=self.kv.scales)
         tok = int(tok[0])
         self.kv.occupy(slot, bucket, req.prompt_len)
         self._slot_req[slot] = req
@@ -270,21 +313,181 @@ class Engine:
         self._emit(req, tok)
 
     def _decode_once(self):
-        samplers = [self._sampler(r) for r in self._slot_req]
+        """One decode step over all slots, active or parked (``engine.py:
+        2252-2291``); with ``spec_k > 0`` a speculative verify step
+        (:2293-2443): draft up to k tokens per slot on the host, score
+        all ``k + 1`` lanes of every slot in one pass, accept the longest
+        draft prefix (greedy: argmax agreement; sampled: modified
+        rejection, `_accept_sampled`) and emit it plus one token of the
+        target's own, one at a time through `_emit`, so an EOS inside
+        the accepted window ends the request there. With ``spec_k = 0``
+        it is the same step at one lane: no draft, one token a slot.
+        Rollback is the cursor alone: a rejected lane's K/V lies past it,
+        in the slot's own pages, until the next window overwrites it. The
+        ``[S, W, V]`` probabilities stay on the device; only ``[S, W]``
+        operands and the rows of rejected lanes come to the host.
+        ``decode_step_s`` times the step from drafting to the accept
+        decisions."""
         t0 = time.perf_counter()
-        tok = paged_decode_step(
-            self.model, self.kv.caches, self._dev(self._tokens),
+        w = self.spec_k + 1
+        toks = np.zeros((self.slots, w), np.int64)
+        toks[:, 0] = self._tokens
+        n_draft = np.zeros((self.slots,), np.int64)
+        qs: list = [None] * self.slots
+        for slot, req in enumerate(self._slot_req):
+            if req is None:
+                continue
+            # never draft past the request's token budget
+            kd = min(self.spec_k, req.max_new_tokens - len(req.emitted) - 1)
+            if kd <= 0:
+                continue
+            d, q = self._draft_for(req, kd)
+            if len(d):
+                toks[slot, 1:1 + len(d)] = d
+                n_draft[slot] = len(d)
+                qs[slot] = q
+        samplers = [self._sampler(r) for r in self._slot_req]
+        tok, probs = paged_verify_step(
+            self.model, self.kv.caches, self._dev(toks),
             self._dev(self.kv.steps), self._dev(self.kv.pads),
             self._dev(self.kv.valid_cols), self._dev(self.kv.block_table),
-            samplers, self.top_k).cpu().numpy()
+            samplers, n_draft.tolist(), self.top_k, scales=self.kv.scales)
+        out = tok.cpu().numpy()
+        emits = {}
+        sampled = [s for s, smp in enumerate(samplers) if smp is not None]
+        drafting = [j for j, s in enumerate(sampled) if n_draft[s]]
+        if drafting:
+            emits = self._accept_sampled(sampled, drafting, toks, n_draft,
+                                         qs, out, probs)
         self.metrics.decode_step_s.append(time.perf_counter() - t0)
         self.metrics.decode_steps += 1
         for slot, req in enumerate(self._slot_req):
             if req is None:
                 continue
-            self.kv.advance(slot)
-            self._tokens[slot] = tok[slot]
-            self._emit(req, int(tok[slot]))
+            nd = int(n_draft[slot])
+            if slot in emits:
+                acc, emit = emits[slot]
+            else:
+                acc = longest_accept(toks[slot], out[slot], nd)
+                emit = [int(out[slot, j]) for j in range(acc + 1)]
+            if nd:
+                self.metrics.note_spec(
+                    "greedy" if req.params.greedy else "sampled", nd, acc)
+            for t in emit:
+                self.kv.advance(slot)
+                self._tokens[slot] = t
+                self._emit(req, t)
+                if req.done or self._slot_req[slot] is not req:
+                    break           # EOS, budget or cancel inside the window
+
+    def _draft_for(self, req: Request, kd: int):
+        """One slot's proposal -> ``(tokens [m <= kd], q)``. A greedy
+        request takes the drafter's most recent continuation (argmax
+        acceptance needs no q); a sampled one its `draft_with_q`
+        proposal, sampled with a generator seeded by the request's
+        (seed, counter), so drafts reproduce per request."""
+        ctx = np.concatenate([req.prompt, np.asarray(req.emitted, np.int64)])
+        if req.params.greedy:
+            out = self._drafter.draft(ctx, kd)
+        else:
+            out = self._drafter.draft_with_q(ctx, kd, self._vocab,
+                                             seed=self._spec_seed(req, 0))
+        return normalize_draft(out, kd)
+
+    @staticmethod
+    def _spec_seed(req: Request, tag: int):
+        """Seed of one of a sampled request's host streams at its current
+        step: tag 0 the drafts, 1 the accept uniforms, 2 the residual
+        uniforms, each a function of (seed, counter) alone."""
+        return (int(req.seed) % 2 ** 64, int(req.counter), tag)
+
+    @staticmethod
+    def _q_at(q, i: int, d: int) -> float:
+        """The proposal probability of draft ``i``'s token ``d`` (q None:
+        a point mass)."""
+        if q is None:
+            return 1.0
+        if q.ndim == 1:
+            return float(q[i])
+        return float(q[i, d]) if d < q.shape[1] else 0.0
+
+    def _accept_sampled(self, sampled, drafting, toks, n_draft, qs, out,
+                        probs):
+        """Modified rejection sampling over the sampled slots that drafted
+        (``engine.py:2490-2552``; Chen et al. 2023, Leviathan et al.
+        2023, Thm 1) -> ``{slot: (accepted, tokens to emit)}``.
+
+        ``probs [len(sampled), W, V]`` are those slots' filtered softmax
+        per lane; ``drafting`` indexes its rows. Lane ``j``'s draft ``d``
+        is accepted when ``u * q(d) < p(d)``, ``p`` the previous lane's
+        probability of ``d`` and ``u`` an accept uniform of the
+        request's (seed, counter). With every draft accepted the bonus is
+        the window's own draw at lane ``nd``, from the request's
+        generator; at the first rejection it is sampled from the
+        normalized residual ``max(0, p - q)`` of the rejected lane (its
+        ``[V]`` row comes over in one gather with the other rejections')
+        by inverse CDF on a residual uniform."""
+        rows = torch.tensor(drafting, device=probs.device)
+        lanes = [sampled[j] for j in drafting]
+        nxt = self._dev(toks[lanes, 1:])                    # [n, W-1]
+        p_tok = probs[rows, :-1].gather(2, nxt[..., None])[..., 0]
+        p_tok = p_tok.double().cpu().numpy()                # [n, W-1]
+        accs, u_res = {}, {}
+        for i, slot in enumerate(lanes):
+            req, nd = self._slot_req[slot], int(n_draft[slot])
+            u_acc = np.random.default_rng(self._spec_seed(req, 1)).random(nd)
+            acc = 0
+            while acc < nd:
+                qd = self._q_at(qs[slot], acc, int(toks[slot, acc + 1]))
+                if u_acc[acc] * qd < p_tok[i, acc]:
+                    acc += 1
+                else:
+                    break
+            accs[slot] = acc
+            if acc < nd:
+                u_res[slot] = (i, np.random.default_rng(
+                    self._spec_seed(req, 2)).random())
+        resid = {}
+        if u_res:
+            need = list(u_res)
+            ri = torch.tensor([drafting[u_res[s][0]] for s in need],
+                              device=probs.device)
+            pos = torch.tensor([accs[s] for s in need], device=probs.device)
+            prow = probs[ri, pos].double().cpu().numpy()    # [n_rej, V]
+            for r, slot in enumerate(need):
+                resid[slot] = self._residual_token(
+                    qs[slot], accs[slot], int(toks[slot, accs[slot] + 1]),
+                    prow[r], u_res[slot][1])
+        emits = {}
+        for slot in lanes:
+            acc, nd = accs[slot], int(n_draft[slot])
+            emit = [int(t) for t in toks[slot, 1:acc + 1]]
+            emit.append(int(out[slot, nd]) if acc == nd else resid[slot])
+            emits[slot] = (acc, emit)
+        return emits
+
+    @staticmethod
+    def _residual_token(q, pos: int, d: int, p, u: float) -> int:
+        """The token after a rejection at draft ``pos`` (token ``d``):
+        inverse CDF of the normalized residual ``max(0, p - q)`` at
+        uniform ``u``. A dense ``q [m, V]`` subtracts the whole proposal;
+        a point mass (q None) removes ``d``; a scalar ``q [m]`` only
+        ``d``'s mass. A residual with no mass left (float noise where q
+        covers p) samples ``p`` itself, still the target's
+        distribution."""
+        r = p.copy()
+        if q is None:
+            r[d] = 0.0
+        elif q.ndim == 1:
+            r[d] = max(0.0, r[d] - float(q[pos]))
+        else:
+            m = min(len(p), q.shape[1])
+            r[:m] = np.maximum(p[:m] - q[pos, :m], 0.0)
+        if float(r.sum()) <= 0.0:
+            r = p
+        c = np.cumsum(r)
+        return int(min(np.searchsorted(c, u * c[-1], side="right"),
+                       len(c) - 1))
 
     def _emit(self, req: Request, tok: int):
         """Deliver one token; finish on EOS, the budget or a cancel."""
@@ -295,6 +498,7 @@ class Engine:
         if not req.emitted:
             self.metrics.ttft_s.append(time.perf_counter() - req.submit_time)
         req.emitted.append(tok)
+        req.counter += 1
         self.metrics.tokens_generated += 1
         hit_eos = (req.eos_token_id is not None
                    and tok == int(req.eos_token_id))

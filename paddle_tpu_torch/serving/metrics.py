@@ -1,7 +1,8 @@
 """Engine counters and the `EngineStats` snapshot.
 
-Counterpart: ``paddle_tpu/serving/metrics.py``, reduced to what this
-slice's engine counts. Times are host wall-clock seconds around work that
+Counterpart: ``paddle_tpu/serving/metrics.py``, reduced to what the
+port's engine counts (the speculative counters of :95-119 and the pool
+bytes of :62-70 included). Times are host wall-clock seconds around work that
 ends in a device sync (the token reaches the host), so they measure the
 whole step, host and device.
 """
@@ -30,9 +31,28 @@ class EngineStats:
     kv_slot_pages: tuple
     ttft_p50: float | None
     decode_step_p50: float | None
-    #: the process-wide `kernels.kernel_launch_counts` entry (launches
-    #: since its last reset, by every engine), not a per-engine count
+    #: the process-wide `kernels.kernel_launch_counts` entries of the
+    #: paged kernel, float and quantized pools together (launches since
+    #: their last reset, by every engine), not a per-engine count
     paged_attention_launches: int
+    #: None, "int8" or "fp8": the pool's page storage
+    kv_quant: str | None
+    #: the pool's device bytes at the stored dtype, sentinel included
+    kv_pool_bytes: int
+    #: device bytes per cached token (all layers, K and V, scales)
+    kv_bytes_per_token: float
+    #: the verify window's draft length (0 = speculation off)
+    spec_k: int
+    #: drafted tokens proposed to the verify window, greedy and sampled
+    spec_draft_tokens: int
+    #: drafted tokens the target accepted
+    spec_accepted_tokens: int
+    #: accepted / drafted (None before any draft)
+    spec_accept_rate: float | None
+    spec_drafted_greedy: int
+    spec_drafted_sampled: int
+    spec_accepted_greedy: int
+    spec_accepted_sampled: int
 
 
 @dataclass
@@ -47,12 +67,27 @@ class EngineMetrics:
     kv_pages_exhausted: int = 0
     ttft_s: list = field(default_factory=list)
     decode_step_s: list = field(default_factory=list)
+    #: (drafted, accepted) per verify lane kind: "greedy" lanes accept by
+    #: argmax agreement, "sampled" ones by modified rejection
+    spec: dict = field(default_factory=lambda: {"greedy": [0, 0],
+                                                "sampled": [0, 0]})
+
+    def note_spec(self, mode: str, drafted: int, accepted: int):
+        """One drafting slot's verify window."""
+        self.spec[mode][0] += int(drafted)
+        self.spec[mode][1] += int(accepted)
 
     def snapshot(self, **gauges) -> EngineStats:
         def p50(xs):
             return float(np.median(xs)) if xs else None
 
+        (dg, ag), (ds, as_) = self.spec["greedy"], self.spec["sampled"]
+        drafted, accepted = dg + ds, ag + as_
         return EngineStats(
+            spec_draft_tokens=drafted, spec_accepted_tokens=accepted,
+            spec_accept_rate=accepted / drafted if drafted else None,
+            spec_drafted_greedy=dg, spec_drafted_sampled=ds,
+            spec_accepted_greedy=ag, spec_accepted_sampled=as_,
             submitted=self.submitted, prefill_steps=self.prefill_steps,
             decode_steps=self.decode_steps, completed=self.completed,
             cancelled=self.cancelled,

@@ -51,8 +51,14 @@ class Request:
     #: set by cancel() and never cleared
     cancel_requested: bool = False
     handle: "RequestHandle | None" = None
-    #: `torch.Generator` of a sampled request (None when greedy)
+    #: `torch.Generator` of a sampled request (None when greedy): one
+    #: draw per decode or verify step
     generator: "object" = None
+    #: the sampled request's seed (None when greedy); the speculative
+    #: drafts and accept uniforms derive from (seed, counter)
+    seed: int | None = None
+    #: tokens sampled so far (the sampling step index)
+    counter: int = 0
     emitted: list = field(default_factory=list)
     submit_time: float = field(default_factory=time.perf_counter)
 

@@ -1,13 +1,14 @@
 """Iteration-level (continuous) scheduler: queue -> free slots.
 
 Counterpart: ``paddle_tpu/serving/scheduler.py``, without the timeline
-marks and the speculative columns. Every engine iteration first admits
+marks. Every engine iteration first admits
 queued requests into free slots (bucketed prefill), then runs one decode
 step for all slots; finished slots recycle at once. Admission is FCFS:
 it pops in arrival order and stops at the first request with no free
 slot, or (paged pool exhausted) puts that request back at the head.
 Requests are validated at submit (prompt fits a bucket, bucket +
-max_new fits the cache), so admission cannot fail on shape later.
+max_new, plus the ``spec_k`` verify lanes every step writes past the
+cursor, fits the cache), so admission cannot fail on shape later.
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ from .request import CANCELLED, QUEUED, Request
 
 
 class SlotScheduler:
-    def __init__(self, slots: int, buckets, max_len: int):
+    def __init__(self, slots: int, buckets, max_len: int,
+                 spec_cols: int = 0):
         self.buckets = tuple(sorted(int(b) for b in buckets))
         if not self.buckets:
             raise ValueError("prefill_buckets must be non-empty")
@@ -26,6 +28,10 @@ class SlotScheduler:
                 f"largest prefill bucket {self.buckets[-1]} exceeds the "
                 f"cache max_len {max_len}")
         self.max_len = int(max_len)
+        #: columns every slot may write past its token budget: the
+        #: speculative verify window (Engine(spec_k=k) writes k lanes
+        #: past the cursor on every step, the last one included)
+        self.spec_cols = int(spec_cols)
         self._free = deque(range(slots))
         self._queue: deque[Request] = deque()
 
@@ -40,12 +46,14 @@ class SlotScheduler:
 
     def validate(self, req: Request) -> int:
         bucket = self.bucket_for(req.prompt_len)
-        need = bucket + req.max_new_tokens
+        need = bucket + req.max_new_tokens + self.spec_cols
         if need > self.max_len:
+            spec = (f" + {self.spec_cols} speculative verify lanes "
+                    f"(spec_k)" if self.spec_cols else "")
             raise ValueError(
                 f"prompt bucket {bucket} + max_new_tokens "
-                f"{req.max_new_tokens} = {need} exceeds the engine's "
-                f"max_len {self.max_len}")
+                f"{req.max_new_tokens}{spec} = {need} exceeds the "
+                f"engine's max_len {self.max_len}")
         return bucket
 
     def enqueue(self, req: Request):

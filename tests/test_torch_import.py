@@ -140,8 +140,9 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(kv_mode="slots"), dict(prefix_cache=True), dict(spec_k=2),
-    dict(chunk_tokens=8), dict(kv_quant="int8"), dict(weight_quant="int8"),
+    dict(kv_mode="slots"), dict(prefix_cache=True),
+    dict(draft_model=lambda ctx, k: []), dict(chunk_tokens=8),
+    dict(spec_adaptive=True), dict(weight_quant="int8"),
     dict(mesh=object()), dict(role="prefill"), dict(kv_pool=object()),
     dict(default_deadline_s=1.0), dict(max_queue=4)],
     ids=lambda kw: next(iter(kw)))

@@ -1,5 +1,5 @@
-"""The port's general flash, qkv3 flash and fused LayerNorm kernels
-against their plain versions, on a card.
+"""The port's general flash, qkv3 flash, fused LayerNorm and paged
+attention kernels against their plain versions, on a card.
 
 These tests need a CUDA device and skip without one (marker ``cuda``).
 They import neither jax nor paddle_tpu, so they run where the port runs:
@@ -8,7 +8,8 @@ cuda`` (``--noconftest``: tests/conftest.py sets up jax for the parity
 tests). chip_smoke.py holds every kernel at the main paths' shapes; these
 are quick checks at small shapes: the general kernels at a padded,
 masked, causal shape with dropout, the qkv3 kernels with dropout, the
-LayerNorm kernels with and without a residual.
+LayerNorm kernels with and without a residual, the paged kernel on
+bf16, int8 and fp8 pools at W in {1, 4, 5}.
 """
 import pytest
 import torch
@@ -140,3 +141,73 @@ def test_fused_ln_wrappers_refuse_an_unaligned_weight():
     with pytest.raises(ValueError, match="16-byte aligned"):
         pfl.fused_ln_bwd(x, None, w, mean, rstd, x)
     assert kernels.kernel_launch_counts()["fused_ln_fwd"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pages", ["bfloat16", "int8", "fp8"])
+@pytest.mark.parametrize("w", [1, 4, 5])
+def test_paged_kernel_matches_the_plain_version_on_a_card(pages, w):
+    """The paged-attention kernel on float and quantized (int8, fp8 e4m3
+    with f32 scales) pools, bf16 queries, at W in {1, 4, 5} (a 5-query
+    verify window takes one 8-query tile), against its plain version:
+    out at 2e-2 (bf16 rounding of values of order 1; both dequantize in
+    f32), lse at 1e-3; rows with left pads, a row with no readable
+    column, a row parked on the sentinel; each launch counted under its
+    pool's name."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the Hopper kernels run only on "
+                    "the card")
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.kernels import paged_kv
+
+    g = torch.Generator(device="cuda").manual_seed(w)
+    n, h, d, ps, pmax = 4, 4, 128, 16, 6
+    pools = [torch.randn((n * pmax + 1, h, ps, d), generator=g,
+                         device="cuda") for _ in range(2)]
+    scales = None
+    if pages == "bfloat16":
+        pools = [p.to(torch.bfloat16) for p in pools]
+    else:
+        dt = torch.int8 if pages == "int8" else torch.float8_e4m3fn
+        pools, scales = zip(*(paged_kv.quantize_tokens(p, dt) for p in pools))
+    bt = torch.randperm(n * pmax, generator=g, device="cuda").reshape(
+        n, pmax).to(torch.int32)
+    steps = torch.tensor([40, 70, 3, 0], dtype=torch.int32, device="cuda")
+    vc = torch.ones((n, pmax * ps), dtype=torch.int32, device="cuda")
+    vc[0, :20] = 0                               # left pads: page 0 skipped
+    vc[1] = 0                                    # no readable column
+    bt[3], vc[3] = n * pmax, 0                   # parked on the sentinel
+    q = torch.randn((n, h, w, d), generator=g, device="cuda").to(
+        torch.bfloat16)
+    args = (q, *pools, bt, steps, vc)
+    kw = {} if scales is None else dict(k_scale=scales[0], v_scale=scales[1])
+    kernels.reset_kernel_launch_counts()
+    out, lse = pa.fused_paged_attention(*args, **kw)
+    ref, ref_lse = pa.paged_attention_reference(*args, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+    name = {"bfloat16": "paged_attention", "int8": "paged_attention_int8",
+            "fp8": "paged_attention_fp8"}[pages]
+    counts = kernels.kernel_launch_counts()
+    assert counts[name] == 1
+    assert sum(v for k, v in counts.items() if k.startswith("paged")) == 1
+
+
+@pytest.mark.cuda
+def test_paged_wrapper_refuses_quantized_pools_without_scales():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the Hopper kernels run only on "
+                    "the card")
+    from paddle_tpu_torch.kernels import paged_attention as pa
+
+    q = torch.zeros((1, 1, 1, 64), device="cuda")
+    pool = torch.zeros((2, 1, 8, 64), dtype=torch.int8, device="cuda")
+    bt = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
+    st = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    vc = torch.ones((1, 8), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="need k_scale"):
+        pa.fused_paged_attention(q, pool, pool, bt, st, vc)
+    fpool = torch.zeros((2, 1, 8, 64), device="cuda")
+    sc = torch.zeros((2, 1, 8), device="cuda")
+    with pytest.raises(ValueError, match="scales were passed"):
+        pa.fused_paged_attention(q, fpool, fpool, bt, st, vc, sc, sc)
