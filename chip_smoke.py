@@ -14,7 +14,9 @@ Phases, in order; any failure exits non-zero:
    on int8 and fp8 pages with f32 scales, W 1, 4 and 5); then its time
    at the main path's shape (paged attention: the serving decode shape
    with bf16, int8 and fp8 pages at W=1 and W=5, its library call SDPA
-   over the gathered view, dequantized beforehand; the pair-major qkv
+   over the gathered view, dequantized beforehand; the beam's tail read
+   `paged_tail_segment` at phase 10's beam shape, N=32 H=16 D=128 Pg=8,
+   on bf16 and int8 pages at gen columns 127 and 40; the pair-major qkv
    flash kernels: GPT's training shape B8 S1024 H16 D128 bf16 causal,
    and the fused BERT's B8 S512 H16 D64 full, checked there too; the
    general flash kernels:
@@ -76,7 +78,23 @@ Phases, in order; any failure exits non-zero:
    first token against plain K/V), unless within 0.05 of its top logit;
    the spec_k=4 streams equal the spec_k=0 ones but at such a near-tie.
    Per run: drafted and accepted tokens, TTFT, decode ms/step,
-   tokens/s, pool bytes and pages, and a profile of full steps.
+   tokens/s, pool bytes and pages, and a profile of full steps;
+10. generation phase: gpt3-1.3b, bf16, `generate()` at the JAX
+   package's decode benchmark shape (b8 x prompt 1024, dense, random
+   ids from ``--seed``): (a) greedy + 128: B1's forward launches exactly
+   layers times (the flash prefill) and nothing else; a float32 teacher
+   agrees with every token but at a near-tie; (b) beam search, K=4,
+   paged, + 128, no EOS: the tail read launches exactly (128 - 1) x
+   layers times, each a bf16 paged-kernel launch, no other paged
+   variant; (c) the same on the gather oracle; (b) against (c) in
+   float32 at b2 x 128 + 16: identical, or parting where the two
+   candidates' log-probs differ by less than 1e-4; (d) the paged beam on
+   int8 tail pages, + 32: (32 - 1) x layers int8 launches, all through
+   the tail; (e) greedy on weight-only int8 weights, + 32, against a
+   float32 teacher on the dequantized weights, then the paged Engine
+   with and without weight_quant on phase 4's traffic. Per arm: prefill
+   ms, decode ms per step, tokens/s, launches; a profile of (b) and (c)
+   (busy share, launches a step, top kernels); (d)'s pool bytes.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device":
@@ -110,6 +128,11 @@ TOL_LN_SUMS = dict(atol=1e-3, rtol=1e-4)
 # random scores), so bf16 out is held to a few bf16 ulps there, and the
 # same inputs in float32 to TOL_F32
 TOL_BF16_OUT_DECODE = dict(atol=2e-3, rtol=0.0)
+# the beam's tail read softmaxes as few as 41 columns, so |out| reaches
+# about 0.7, where one bf16 ulp (2^-8 of the value) is 0.0039: both
+# versions round the same float32 math (held to TOL_F32) to bf16 and
+# may land one ulp of each element's own value apart
+TOL_BF16_OUT_TAIL = dict(atol=2e-3, rtol=2.0 ** -8)
 TEACHER_GAP = 0.05               # bf16 near-ties the teacher check allows
 # the quantized pages: kv_quant mode -> page dtype name in torch
 QUANT_DTYPES = {"int8": "int8", "fp8": "float8_e4m3fn"}
@@ -146,6 +169,15 @@ BERT_MODEL, BERT_B, BERT_S, BERT_MIN_LEN, BERT_MLM = ("bert-large", 8, 512,
                                                       384, 0.15)
 PROMPT_LENS = (20, 75, 130, 190, 250, 310, 370, 430, 480, 500)
 SUBMIT_AT_STEP = (0, 0, 0, 0, 2, 2, 2, 5, 5, 5)
+# generation phase: the JAX package's decode benchmark shapes
+# (benchmarks/bench_decode.py:436-448) at full depth: b8 x prompt 1024
+# (dense) + 128 new, beam 4; the int8 arms with 32 new
+GEN_B, GEN_PROMPT, GEN_NEW, GEN_BEAMS, GEN_SHORT = 8, 1024, 128, 4, 32
+# the paged beam against the gather oracle in float32 (TF32 off), at
+# full depth on a smaller batch: identical tokens unless, where they
+# part, the two candidates' log-probs differ by less than BEAM_GAP
+GEN_AB_B, GEN_AB_PROMPT, GEN_AB_NEW, BEAM_GAP = 2, 128, 16, 1e-4
+GEN_PROFILE_STEPS = 8
 
 
 def check(cond, msg):
@@ -400,6 +432,126 @@ def kernel_phase(torch, pa):
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": library_ms}
     return list(records.values())
+
+
+def tail_case(torch, n, h, d, pg, dtype, seed):
+    """Inputs of one beam tail read on the card: ``q [n, h, d]`` and two
+    pools of ``n * pg`` pages (PAGE columns each) under a shuffled block
+    table, as the paged beam lays out ``n = B*K`` beams."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    pool_k, pool_v = (torch.randn((n * pg, h, PAGE, d), generator=g,
+                                  device="cuda").to(dtype) for _ in range(2))
+    bt = torch.randperm(n * pg, generator=g, device="cuda").reshape(
+        n, pg).to(torch.int32)
+    q = torch.randn((n, h, d), generator=g, device="cuda").to(dtype)
+    return q, pool_k, pool_v, bt
+
+
+def tail_kernel_phase(torch, pa):
+    """The beam's tail read (`paged_tail_segment`: the paged kernel at
+    W=1, one cursor for every row, all columns valid) at phase 10's beam
+    shape: N = 8 x 4 beams, H=16, D=128, ps=16, Pg=8 (127 gen columns).
+    On bf16 and int8 pages, at gen column 127 (a full tail) and 40 (mid
+    page), its ``(out, lse)`` against the plain version (bf16 out at
+    TOL_BF16_OUT_TAIL, the same inputs in float32 at TOL_F32); then
+    its time at gen column 127 beside the plain version's, SDPA over the
+    gathered tail view (int8 pages dequantized beforehand) and its
+    bound. Returns the bf16 record."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels.paged_kv import (gather_pages,
+                                                   gather_scales)
+
+    n, h, d, pg = GEN_B * GEN_BEAMS, 16, 128, 8
+    record = None
+    for pages in ("bf16", "int8"):
+        quant = pages == "int8"
+        for j in (127, 40):
+            cases = []
+            for i in range(4):              # 4 x 33.5 MB of bf16 pools > L2
+                args = tail_case(torch, n, h, d, pg, torch.bfloat16, seed=i)
+                kw = {}
+                if quant:
+                    (_, pk, pv, _, _, _), kw = quantize_case(
+                        torch, (None, *args[1:3], None, None, None), pages)
+                    args = (args[0], pk, pv, args[3])
+                cases.append((args, kw))
+            args, kw = cases[0]
+            out, lse = pa.paged_tail_segment(*args, j, d, **kw)
+            ref, ref_lse = pa.paged_tail_segment(
+                *(a.cpu() for a in args), j, d,
+                **{k: v.cpu() for k, v in kw.items()})
+            a32 = tail_case(torch, n, h, d, pg, torch.float32, seed=0)
+            kw32 = {}
+            if quant:
+                (_, pk, pv, _, _, _), kw32 = quantize_case(
+                    torch, (None, *a32[1:3], None, None, None), pages)
+                a32 = (a32[0], pk, pv, a32[3])
+            out32, lse32 = pa.paged_tail_segment(*a32, j, d, **kw32)
+            ref32, ref_lse32 = pa.paged_tail_segment(
+                *(a.cpu() for a in a32), j, d,
+                **{k: v.cpu() for k, v in kw32.items()})
+            torch.cuda.synchronize()
+            max_err = (out.float().cpu() - ref.float()).abs().max().item()
+            torch.testing.assert_close(out.float().cpu(), ref.float(),
+                                       **TOL_BF16_OUT_TAIL)
+            torch.testing.assert_close(lse.cpu(), ref_lse, **TOL_BF16_LSE)
+            torch.testing.assert_close(out32.cpu(), ref32, **TOL_F32)
+            torch.testing.assert_close(lse32.cpu(), ref_lse32, **TOL_F32)
+            err32 = max((out32.cpu() - ref32).abs().max().item(),
+                        (lse32.cpu() - ref_lse32).abs().max().item())
+            line = (f"  paged_tail_segment N={n} H={h} D={d} ps={PAGE} "
+                    f"Pg={pg} {pages} pages, gen column {j}: bf16 "
+                    f"max|out-ref| {max_err:.3e} ({TOL_BF16_OUT_TAIL}), "
+                    f"float32 max|out/lse-ref| {err32:.3e}")
+            if j != 127:
+                print(line + "  ok")
+                continue
+            it = iter(range(10 ** 9))
+
+            def kernel():
+                a, k = cases[next(it) % 4]
+                pa.paged_tail_segment(*a, j, d, **k)
+
+            ms = time_ms(kernel, 200)
+            steps = torch.full((n,), j, dtype=torch.int32, device="cuda")
+            vc = torch.ones((n, pg * PAGE), dtype=torch.int32, device="cuda")
+            q4 = args[0][:, :, None, :]
+            plain_ms = time_ms(lambda: pa.paged_attention_reference(
+                q4, args[1], args[2], args[3], steps, vc, **kw), 20)
+            dense = []
+            for (q, pk, pv, bt), k in cases:
+                vk, vv = gather_pages(pk, bt), gather_pages(pv, bt)
+                if quant:
+                    vk = vk.float() * gather_scales(k["k_scale"], bt)[..., None]
+                    vv = vv.float() * gather_scales(k["v_scale"], bt)[..., None]
+                dense.append((q[:, :, None, :], vk.to(q.dtype),
+                              vv.to(q.dtype)))
+
+            def library():
+                q, k, v = dense[next(it) % 4]
+                F.scaled_dot_product_attention(q, k, v)
+
+            library_ms = time_ms(library, 200)
+            nbytes, flops = paged_work(args[3], steps, vc, w=1, h=h, d=d,
+                                       el=2, page_el=1 if quant else 2)
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+            bound_ms = max(t_bytes, t_ops) * 1e3
+            print(f"{line}; kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
+                  f"SDPA over the {'pre-dequantized ' if quant else ''}"
+                  f"gathered tail {library_ms:.5f} ms, bound {bound_ms:.5f} "
+                  f"ms ({nbytes} bytes, {flops} flops)")
+            if not quant:
+                record = {
+                    "name": "paged_tail_segment", "route": "cuda",
+                    "source": "paddle_tpu_torch/kernels/csrc/"
+                              "paged_attention.cu",
+                    "replaces": "paddle_tpu/kernels/paged_attention.py:308",
+                    "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms,
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                    "library_ms": library_ms}
+    return record
 
 
 def flash_ulps(x, ref, d):
@@ -900,6 +1052,10 @@ def qkv3_kernel_phase(torch):
         qkv, h, False, p, seed_t), 3, 1),
         "bwd": time_ms(lambda: fa.flash_qkv3_bwd_reference(
             qkv, do, *saved[0], h, False, p, seed_t), 3, 1)}
+    b1_plain = {"fwd": time_ms(lambda: fa.flash_qkv_reference(
+        pairs_in[0], h, False, p, seed_t), 3, 1),
+        "bwd": time_ms(lambda: fa.flash_qkv_bwd_reference(
+            pairs_in[0], do, *saved1[0], h, False, p, seed_t), 3, 1)}
     # SDPA on [B, H, S, D], dropout 0.1
     heads = [[t.contiguous().requires_grad_(True)
               for t in q.reshape(b, s, 3, h, d).permute(2, 0, 3, 1, 4)]
@@ -930,9 +1086,10 @@ def qkv3_kernel_phase(torch):
               f"{library[key]:.4f} ms, bound {bound_ms:.4f} ms ({bound_by};"
               f" {nbytes} bytes, {flops} flops)")
         print(f"  flash_attention_qkv_{key} (B1) at the same shape, the "
-              f"fused BERT's: kernel {b1_ms[key]:.4f} ms, bound "
-              f"{bound_ms:.4f} ms, library {library[key]:.4f} ms (the SDPA "
-              "call above: the same function on the same inputs)")
+              f"fused BERT's: kernel {b1_ms[key]:.4f} ms, plain "
+              f"{b1_plain[key]:.4f} ms, bound {bound_ms:.4f} ms, library "
+              f"{library[key]:.4f} ms (the SDPA call above: the same "
+              "function on the same inputs)")
         records.append({
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/kernels/csrc/flash_attention_qkv.cu",
@@ -1193,15 +1350,13 @@ def serve_traffic(torch, eng, prompts, sampled=()):
     return outs, s, wall, counts
 
 
-def teacher_check(torch, model, prompts, outs):
+def teacher_check(torch, model, prompts, outs, state=None):
     """One full-sequence forward per request, with plain attention, of a
-    float32 copy of the served weights on prompt + output: at every
-    generated position the emitted token must be the reference's argmax,
-    or trail its top logit by less than TEACHER_GAP (a bf16 near-tie)."""
-    from paddle_tpu_torch.models.gpt import GPTForPretraining
-
-    ref = GPTForPretraining(model.config, dtype="float32")
-    ref.load_state_dict(model.state_dict())          # casts bf16 -> f32
+    float32 copy of the served weights (or of ``state``) on prompt +
+    output: at every generated position the emitted token must be the
+    reference's argmax, or trail its top logit by less than TEACHER_GAP
+    (a bf16 near-tie)."""
+    ref = float32_copy(torch, model, state)
     worst, near = 0.0, 0
     with torch.inference_mode():
         for p, o in zip(prompts, outs):
@@ -1236,36 +1391,21 @@ def profile_steps(torch, fn, steps, what):
     """``steps`` calls of ``fn`` under torch.profiler: prints the device's
     busy share of the wall time and the kernels that take the most of
     it. Returns ``(wall ms/step, busy ms/step)``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    def run():
         for _ in range(steps):
             fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [(e.self_device_time_total, e.key)
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    busy_us = sum(t for t, _ in kernels)
+
+    wall_us, busy_us, per, launches, host = profile_totals(torch, run)
     print(f"  profile of {steps} {what}: wall "
           f"{wall_us / steps / 1e3:.3f} ms/step, device busy "
           f"{busy_us / steps / 1e3:.3f} ms/step "
           f"({100 * busy_us / wall_us:.1f}% of wall)")
-    for t, key in sorted(kernels, reverse=True)[:6]:
+    for key, t in sorted(per.items(), key=lambda kv: -kv[1])[:6]:
         share = 100 * t / busy_us if busy_us else 0.0
         print(f"    {t / steps / 1e3:8.4f} ms/step {share:5.1f}%  {key[:90]}")
-    host = [e for e in prof.key_averages() if e.device_type != DeviceType.CUDA]
-    launches = sum(e.count for e in host
-                   if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx"))
-    top = sorted(host, key=lambda e: -e.self_cpu_time_total)[:4]
     print(f"    host: {launches / steps:.0f} kernel launches/step; most "
           "self CPU time: " + ", ".join(
-              f"{e.key} {e.self_cpu_time_total / steps / 1e3:.3f} ms"
-              for e in top))
+              f"{key} {t / steps / 1e3:.3f} ms" for key, t in host))
     return wall_us / steps / 1e3, busy_us / steps / 1e3
 
 
@@ -1826,6 +1966,318 @@ def spec_phase(torch, seed):
     return launches
 
 
+# ------------------------------------------------------------ generation
+def gen_prompts(torch, cfg, seed, b, s):
+    """``[b, s]`` prompt ids from ``seed`` on the card."""
+    g = torch.Generator().manual_seed(seed + 7)
+    return torch.randint(1, cfg.vocab_size, (b, s), generator=g).cuda()
+
+
+def only_launched(counts, want, label):
+    """``counts`` holds exactly the non-zero launch counts of ``want``."""
+    got = {k: v for k, v in counts.items() if v}
+    check(got == want, f"{label}: launches {got}, expected {want}")
+
+
+def timed_generate(torch, model, ids, **kw):
+    """One `generate` call after a short warm-up at the same shapes
+    (cuBLAS handles, allocator): launch counts zeroed just before the
+    timed call and read just after. Returns ``(out, wall s, counts)``."""
+    from paddle_tpu_torch import kernels
+
+    model.generate(ids, **{**kw, "max_new_tokens": 3})
+    torch.cuda.synchronize()
+    kernels.reset_kernel_launch_counts()
+    t0 = time.perf_counter()
+    out = model.generate(ids, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.kernel_launch_counts()
+    return out, wall, counts
+
+
+def prefill_ms(torch, model, ids):
+    """Device-synchronised wall ms of one prompt pass (after a warm-up)."""
+    b, s = ids.shape
+    with torch.inference_mode():
+        for _ in range(2):
+            caches = model.gen_static_cache(b, s)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.prefill(ids, caches)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+    del caches
+    return ms
+
+
+def profile_totals(torch, fn):
+    """``fn()`` under torch.profiler: ``(wall us, device busy us, {kernel:
+    device us}, kernel launches, [(host op, self CPU us)] of the four
+    host ops with the most self CPU time)``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    per = {}
+    host = []
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            per[e.key] = per.get(e.key, 0.0) + e.self_device_time_total
+        else:
+            host.append(e)
+    launches = sum(e.count for e in host
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx"))
+    top = sorted(host, key=lambda e: -e.self_cpu_time_total)[:4]
+    return (wall_us, sum(per.values()), per, launches,
+            [(e.key, e.self_cpu_time_total) for e in top])
+
+
+def profile_generate(torch, model, ids, what, run, step_ms,
+                     steps=GEN_PROFILE_STEPS):
+    """Where a decode step's time goes: ``run(steps + 1)`` (a generation
+    of ``steps + 1`` tokens) under torch.profiler, less a profiled
+    prompt pass alone, over ``steps``: wall and device busy ms a step,
+    the busy share of the profiled step and of the unprofiled one
+    (``step_ms``; the profiler's host cost inflates the wall), launches
+    a step and the kernels that take the most device time."""
+    b, s = ids.shape
+
+    def prefill():
+        with torch.inference_mode():
+            model.prefill(ids, model.gen_static_cache(b, s))
+
+    run(steps + 1)                                        # warm-up
+    p_wall, p_busy, p_per, p_launch, _ = profile_totals(torch, prefill)
+    g_wall, g_busy, g_per, g_launch, _ = profile_totals(
+        torch, lambda: run(steps + 1))
+    wall, busy = (g_wall - p_wall) / steps, (g_busy - p_busy) / steps
+    print(f"  profile of {what}, {steps} decode steps (a generation of "
+          f"{steps + 1} tokens less a prompt pass): wall {wall / 1e3:.3f} "
+          f"ms/step, device busy {busy / 1e3:.3f} ms/step "
+          f"({100 * busy / wall:.1f}% of the profiled wall, "
+          f"{100 * busy / 1e3 / step_ms:.1f}% of the timed step's "
+          f"{step_ms:.3f} ms), {(g_launch - p_launch) / steps:.0f} kernel "
+          "launches/step")
+    per = {k: (v - p_per.get(k, 0.0)) / steps for k, v in g_per.items()}
+    for key, t in sorted(per.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"    {t / 1e3:8.4f} ms/step {100 * t / busy:5.1f}%  {key[:90]}")
+    return wall / 1e3, busy / 1e3
+
+
+def float32_copy(torch, model, state=None):
+    """A float32 copy of ``model``'s weights (or of ``state``) whose
+    attention composes (no flash branch): the teachers' model."""
+    import dataclasses
+
+    from paddle_tpu_torch.models.gpt import GPTForPretraining
+
+    ref = GPTForPretraining(dataclasses.replace(model.config,
+                                                use_flash_attention=False),
+                            dtype="float32")
+    ref.load_state_dict(model.state_dict() if state is None else state)
+    return ref
+
+
+def parting_gap(torch, ref, ids, a, b):
+    """Where rows of ``a`` and ``b`` (``[B, T]`` continuations of ``ids``)
+    first part: ``[(row, column, |log p(a_t) - log p(b_t)|)]`` under the
+    float32 teacher ``ref`` on their common prefix (the gap of the two
+    candidates' cumulative log-probs there)."""
+    gaps = []
+    with torch.inference_mode():
+        for r in range(a.shape[0]):
+            diff = (a[r] != b[r]).nonzero()
+            if not diff.numel():
+                continue
+            t = int(diff[0])
+            seq = torch.cat([ids[r], a[r, :t]])[None]
+            logits = ref._logits(ref.gpt.prefill(
+                seq, ref.gen_static_cache(1, seq.shape[1]))[0, -1])
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            gaps.append((r, t, abs(logp[a[r, t]] - logp[b[r, t]]).item()))
+    return gaps
+
+
+def gen_phase(torch, seed):
+    """Phase 10: `generate()` on gpt3-1.3b at full width and depth, bf16,
+    random weights from ``seed``, b8 x prompt 1024 (dense) from the
+    seed. (a) greedy, 128 new: B1's forward launches exactly ``layers``
+    times (the flash prefill), nothing else; a float32 teacher agrees
+    with every token but at a near-tie. (b) beam 4, paged, 128 new, no
+    EOS: the tail kernel launches (new - 1) x layers times, each one a
+    bf16 paged launch, and no other paged kernel. (c) the same on the
+    gather oracle: no paged launch; (b) against (c) in float32 at b2 x
+    128 + 16 (identical, or parting at a log-prob gap < BEAM_GAP). (d)
+    the paged beam on int8 tail pages, 32 new: (new - 1) x layers int8
+    launches, all through the tail. (e) greedy on weight-only int8, 32
+    new, against a float32 teacher on the dequantized weights; the paged
+    Engine on the same weights serves phase 4's traffic. Returns the
+    tail's launches of (b)."""
+    from paddle_tpu_torch.models.gpt import GPTForPretraining, gpt_config
+    from paddle_tpu_torch.serving import Engine
+
+    cfg = gpt_config(MODEL)
+    layers = cfg.num_hidden_layers
+    model = GPTForPretraining(cfg, dtype="bfloat16", seed=seed)
+    ids = gen_prompts(torch, cfg, seed, GEN_B, GEN_PROMPT)
+    plist = ids.tolist()
+    pf_ms = prefill_ms(torch, model, ids)
+
+    # (a) greedy
+    out, wall, counts = timed_generate(torch, model, ids,
+                                       max_new_tokens=GEN_NEW)
+    only_launched(counts, {"flash_attention_qkv_fwd": layers}, "(a) greedy")
+    check(out.shape == (GEN_B, GEN_NEW), f"(a) output {tuple(out.shape)}")
+    dec = (wall * 1e3 - pf_ms) / (GEN_NEW - 1)
+    print(f"  (a) greedy b{GEN_B} x {GEN_PROMPT} + {GEN_NEW}: prefill "
+          f"{pf_ms:.3f} ms, decode {dec:.3f} ms/token (a step of "
+          f"{GEN_B} rows), {GEN_B * GEN_NEW / wall:.1f} tokens/s "
+          f"({wall:.3f} s); launches {counts}")
+    teacher_check(torch, model, plist, out.tolist())
+    greedy = out
+
+    # (b) the paged beam, (c) the gather oracle
+    beam = dict(max_new_tokens=GEN_NEW, decode_strategy="beam_search",
+                num_beams=GEN_BEAMS)
+    outs = {}
+    for label, kv in (("(b) beam, paged", "paged"),
+                      ("(c) beam, gather", "gather")):
+        out, wall, counts = timed_generate(torch, model, ids, beam_kv=kv,
+                                           **beam)
+        want = {"flash_attention_qkv_fwd": layers}
+        if kv == "paged":
+            tail = (GEN_NEW - 1) * layers
+            want.update(paged_tail_segment=tail, paged_attention=tail)
+            tail_launches = counts["paged_tail_segment"]
+        only_launched(counts, want, label)
+        check(out.shape == (GEN_B, GEN_NEW), f"{label}: output shape")
+        dec = (wall * 1e3 - pf_ms) / (GEN_NEW - 1)
+        print(f"  {label} K={GEN_BEAMS} b{GEN_B} x {GEN_PROMPT} + "
+              f"{GEN_NEW}: decode {dec:.3f} ms/step, "
+              f"{GEN_B * GEN_NEW / wall:.1f} tokens/s of best beams "
+              f"({wall:.3f} s, prefill {pf_ms:.3f} ms); launches {counts}")
+        profile_generate(
+            torch, model, ids, label,
+            lambda m, kv=kv: model.generate(ids, beam_kv=kv, **{
+                **beam, "max_new_tokens": m}), dec)
+        outs[kv] = out
+        gc.collect()
+        torch.cuda.empty_cache()
+    same = [r for r in range(GEN_B) if torch.equal(outs["paged"][r],
+                                                   outs["gather"][r])]
+    print(f"  (b) against (c) in bf16: {len(same)} of {GEN_B} rows equal "
+          "(not held: bf16 rounds the two layouts' sums apart)")
+
+    ref = float32_copy(torch, model)
+    ab_ids = ids[:GEN_AB_B, :GEN_AB_PROMPT].contiguous()
+    ab = dict(max_new_tokens=GEN_AB_NEW, decode_strategy="beam_search",
+              num_beams=GEN_BEAMS)
+    a = ref.generate(ab_ids, beam_kv="paged", **ab)
+    b = ref.generate(ab_ids, beam_kv="gather", **ab)
+    gaps = parting_gap(torch, ref, ab_ids, a, b)
+    check(all(g < BEAM_GAP for _, _, g in gaps),
+          f"paged and gather beams part at a log-prob gap >= {BEAM_GAP}: "
+          f"{gaps}")
+    print(f"  (b) against (c) in float32 (TF32 off), b{GEN_AB_B} x "
+          f"{GEN_AB_PROMPT} + {GEN_AB_NEW}, K={GEN_BEAMS}: "
+          f"{GEN_AB_B - len(gaps)} of {GEN_AB_B} rows identical; parted "
+          f"(row, column, log-prob gap < {BEAM_GAP}): {gaps}")
+    del ref, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the paged beam on int8 tail pages
+    from paddle_tpu_torch import kernels
+
+    def int8_tail(new):
+        with torch.inference_mode():
+            return model._build_beam_fn(GEN_B, GEN_PROMPT, new, GEN_BEAMS,
+                                        None, None, 0.0, kv_quant="int8")(ids)
+
+    int8_tail(GEN_SHORT)                   # warm-up at the same shapes
+    torch.cuda.synchronize()
+    kernels.reset_kernel_launch_counts()
+    t0 = time.perf_counter()
+    out = int8_tail(GEN_SHORT)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.kernel_launch_counts()
+    tail = (GEN_SHORT - 1) * layers
+    only_launched(counts, {"flash_attention_qkv_fwd": layers,
+                           "paged_tail_segment": tail,
+                           "paged_attention_int8": tail}, "(d) int8 tail")
+    pages = GEN_B * GEN_BEAMS * -(-(GEN_SHORT - 1) // PAGE)
+    per_page = 16 * PAGE * (cfg.head_dim + 4)          # int8 data + f32 scale
+    pool_bytes = layers * 2 * pages * per_page
+    match = sum(torch.equal(out[r], outs["paged"][r, :GEN_SHORT])
+                for r in range(GEN_B))
+    dec = (wall * 1e3 - pf_ms) / (GEN_SHORT - 1)
+    print(f"  (d) beam, paged, int8 tail pages, b{GEN_B} x {GEN_PROMPT} + "
+          f"{GEN_SHORT}: {wall:.3f} s, decode {dec:.3f} ms/step; tail pool "
+          f"{pool_bytes} bytes ({pages} pages a layer and K/V, scales in; "
+          f"bf16 pages {layers * 2 * pages * 16 * PAGE * cfg.head_dim * 2}); "
+          f"{match} of {GEN_B} rows' best beams equal (b)'s first "
+          f"{GEN_SHORT} tokens; launches {counts}")
+    profile_generate(torch, model, ids, "(d) beam, paged, int8 tail pages",
+                     int8_tail, dec)
+
+    # (e) weight-only int8
+    quant = model.serving_weights("int8")
+    stored = sum(q.numel() + 4 * sc.numel() for q, sc, _ in quant.values())
+    stored += sum(p.numel() * p.element_size()
+                  for n, p in model.named_parameters() if n not in quant)
+    full = sum(p.numel() * p.element_size() for p in model.parameters())
+    out, wall, counts = timed_generate(torch, model, ids,
+                                       max_new_tokens=GEN_SHORT,
+                                       weight_quant="int8")
+    only_launched(counts, {"flash_attention_qkv_fwd": layers},
+                  "(e) weight-only int8")
+    t_dq = time.perf_counter()
+    with model.dequantized(quant):
+        torch.cuda.synchronize()
+        dq_ms = (time.perf_counter() - t_dq) * 1e3
+        state = {n: p.detach().clone()
+                 for n, p in model.state_dict().items()}
+    print(f"  (e) greedy, weight-only int8, b{GEN_B} x {GEN_PROMPT} + "
+          f"{GEN_SHORT}: stored weights {stored} bytes (bf16 {full}); "
+          f"{wall:.3f} s, decode {(wall * 1e3 - pf_ms) / (GEN_SHORT - 1):.3f}"
+          f" ms/token with the dequantization once a call ({dq_ms:.3f} ms); "
+          f"greedy bf16 agrees on "
+          f"{sum(torch.equal(out[r], greedy[r, :GEN_SHORT]) for r in range(GEN_B))}"
+          f" of {GEN_B} rows")
+    teacher_check(torch, model, plist, out.tolist(), state)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    kw = dict(slots=SLOTS, page_size=PAGE, max_len=MAX_LEN,
+              prefill_buckets=BUCKETS)
+    prompts = phase_prompts(torch, cfg, seed)
+    for wq in (None, "int8"):
+        warm = Engine(model, weight_quant=wq, **kw)
+        warm.submit(list(range(1, 30)), max_new_tokens=2).result()
+        del warm
+        _, s, wall, counts = serve_traffic(
+            torch, Engine(model, weight_quant=wq, **kw), prompts)
+        check(counts["paged_attention"] == s.decode_steps * layers,
+              f"engine weight_quant={wq}: {counts}")
+        print(f"  (e) Engine(weight_quant={wq!r}), phase 4's traffic: "
+              f"{s.decode_steps} decode steps, decode "
+              f"{s.decode_step_p50 * 1e3:.3f} ms/step (p50), TTFT p50 "
+              f"{s.ttft_p50 * 1e3:.3f} ms, {s.tokens_generated / wall:.1f} "
+              f"tokens/s")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"paged_tail_segment": tail_launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1855,8 +2307,9 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t:.1f} s")
 
     print("[3] kernel phase")
-    records = [*kernel_phase(torch, pa), *flash_kernel_phase(torch),
-               *general_flash_phase(torch), *qkv3_kernel_phase(torch)]
+    records = [*kernel_phase(torch, pa), tail_kernel_phase(torch, pa),
+               *flash_kernel_phase(torch), *general_flash_phase(torch),
+               *qkv3_kernel_phase(torch)]
     ln_records, launches = fused_ln_phase(torch)
     records += ln_records
     print("[4] engine phase")
@@ -1873,6 +2326,9 @@ def main(argv=None) -> int:
           f"fused BERT's were {fused})")
     print("[9] quantized speculative serving phase (int8/fp8 pages, k=4)")
     launches.update(spec_phase(torch, args.seed))
+    print("[10] generation phase (greedy, beam paged/gather, int8 tail "
+          "pages, weight-only int8)")
+    launches.update(gen_phase(torch, args.seed))
     for rec in records:
         rec["launches"] = launches[rec["name"]]
 

@@ -16,6 +16,11 @@ source's header note says how it works and what bounds it.
   ``paddle_tpu.kernels.paged_attention.paged_decode_attention``
   (:271-305): ``qh [N, H, W, D]`` -> context ``[N, W, H*D]``, W = 1 for
   a decode step and k + 1 for a speculative verify window.
+- `paged_tail_segment`: the beam search's generated-tail read (:308-342),
+  the same kernel at W = 1 with one cursor for every row, returning the
+  normalized ``(out, lse)`` segment that `merge_attention_segments`
+  (:358-369, plain torch: XLA in the reference too) combines with the
+  shared prompt segment.
 
 Semantics shared by the kernel and its plain version, the TPU kernel's:
 query ``j`` of row ``n`` attends logical column ``c`` when
@@ -29,7 +34,8 @@ rest add exactly nothing) unless a query found no readable column there;
 the plain version is the masked softmax over the whole table.
 
 Launch counts: ``paged_attention`` for float pools,
-``paged_attention_int8`` and ``paged_attention_fp8`` for quantized ones.
+``paged_attention_int8`` and ``paged_attention_fp8`` for quantized ones;
+a launch through `paged_tail_segment` also counts ``paged_tail_segment``.
 """
 from __future__ import annotations
 
@@ -215,5 +221,51 @@ def paged_decode_attention(qh, pool_k, pool_v, block_table, steps,
     return out.permute(0, 2, 1, 3).reshape(n, w, h * d)
 
 
+def paged_tail_segment(qh, pool_k, pool_v, block_table, gen_col, head_dim,
+                       k_scale=None, v_scale=None):
+    """The beam's generated-tail read as a normalized segment
+    (``paddle_tpu/kernels/paged_attention.py:308-342``): row ``n`` of
+    ``qh [N, H, D]`` attends its own pages through ``block_table [N,
+    Pg]`` at gen columns ``[0, gen_col]`` (an int: every beam sits at
+    the same cursor). Returns ``(out [N, H, D] in qh's dtype, lse [N, H]
+    f32)``. It is the paged kernel at W = 1 with ``steps = gen_col`` for
+    every row and ``valid_cols`` all ones (:322-328); a CPU ``qh`` runs
+    `paged_attention_reference` at the same arguments. ``k_scale`` /
+    ``v_scale`` ride with 1-byte pools."""
+    n, h, d = qh.shape
+    if int(head_dim) != d:
+        raise ValueError(f"head_dim {head_dim} != q's last dim {d}")
+    lg = block_table.shape[1] * pool_k.shape[2]
+    dev = qh.device
+    steps = torch.full((n,), int(gen_col), dtype=torch.int32, device=dev)
+    valid_cols = torch.ones((n, lg), dtype=torch.int32, device=dev)
+    q4 = qh[:, :, None, :]
+    if runs_plain(qh, _KERNEL):
+        out, lse = paged_attention_reference(q4, pool_k, pool_v, block_table,
+                                             steps, valid_cols, k_scale,
+                                             v_scale)
+    else:
+        out, lse = fused_paged_attention(
+            q4.contiguous(), pool_k, pool_v,
+            block_table.to(torch.int32).contiguous(), steps, valid_cols,
+            k_scale, v_scale)
+        count_launch("paged_tail_segment")
+    return out[:, :, 0], lse[:, :, 0]
+
+
+def merge_attention_segments(o1, lse1, o2, lse2):
+    """The two-way flash merge of normalized attention segments
+    (``paddle_tpu/kernels/paged_attention.py:358-369``): each ``o_i
+    [..., D]`` is softmax-normalized over its own columns and ``lse_i
+    [...]`` is their logsumexp. In f32; the result in ``o1``'s dtype."""
+    m = torch.maximum(lse1, lse2)
+    w1 = torch.exp(lse1 - m)
+    w2 = torch.exp(lse2 - m)
+    o = (o1.float() * w1[..., None] + o2.float() * w2[..., None]) / (
+        w1 + w2)[..., None]
+    return o.to(o1.dtype)
+
+
 __all__ = ["fused_paged_attention", "paged_attention_reference",
-           "paged_decode_attention"]
+           "paged_decode_attention", "paged_tail_segment",
+           "merge_attention_segments"]

@@ -1,5 +1,5 @@
-"""Paged KV-cache primitives: page arithmetic, the dense gather and the
-page writers.
+"""Paged KV-cache primitives: page arithmetic, the dense gather, the
+page writers, the beam's page copy and its one-softmax oracle.
 
 Counterpart: ``paddle_tpu/kernels/paged_kv.py:43-228``. There these are
 XLA compositions (gather/scatter), not Pallas kernels, so here they stay
@@ -184,7 +184,62 @@ def scatter_tail_pages_q(pool, scale, block_table, col0, local):
                                local.permute(0, 2, 1, 3).reshape(n * s, h, d))
 
 
+def copy_pages(pool, dst, src, scale=None):
+    """``pool[dst] = pool[src]`` in place, whole pages: every read is
+    made against the pool before the copy (the indexed read copies
+    first), so simultaneous copies permute consistently. A 1-byte pool's
+    ``scale`` rows move in the same motion. The paged beam's copy-on-
+    write of each beam's partial page (``paddle_tpu/models/
+    generation.py:1054-1072``)."""
+    bits = _bits(pool)
+    bits[dst] = bits[src]
+    if scale is not None:
+        scale[dst] = scale[src]
+    return pool
+
+
+def beam_shared_attention(qh, ctx_k, ctx_v, gen_k, gen_v, head_dim,
+                          ctx_valid=None, gen_valid=None):
+    """Two-segment beam attention as ONE softmax over the concatenated
+    columns (``paddle_tpu/kernels/paged_kv.py:255-312``): the shared
+    prompt ``ctx_k/v [B, H, Sc, D]``, contracted once per batch row
+    against all K beams, and each beam's dense tail view ``gen_k/v [B*K,
+    H, Lg, D]``. ``qh [B*K, H, D]``; ``ctx_valid`` ``[B, Sc]`` masks left
+    padding; ``gen_valid`` ``[Lg]`` or ``[B*K, Lg]`` the unwritten tail.
+    Returns ``[B*K, 1, H*D]``. It is the reference's oracle of the paged
+    beam: the port uses it in tests only, and on a card the beam's tail
+    always goes through `paged_attention.paged_tail_segment`."""
+    b, h, sc = ctx_k.shape[0], ctx_k.shape[1], ctx_k.shape[2]
+    n = qh.shape[0]
+    k_beams = n // b
+    qb = qh.reshape(b, k_beams, h, qh.shape[-1])
+    scale = torch.tensor(float(head_dim), dtype=qh.dtype,
+                         device=qh.device).sqrt()
+    s_ctx = torch.einsum("bkhd,bhld->bkhl", qb, ctx_k.to(qh.dtype)) / scale
+    s_gen = torch.einsum("nhd,nhld->nhl", qh, gen_k.to(qh.dtype)) / scale
+    lg = s_gen.shape[-1]
+    s_gen = s_gen.reshape(b, k_beams, h, lg)
+    s32 = torch.cat([s_ctx, s_gen], dim=-1).float()
+    if ctx_valid is not None or gen_valid is not None:
+        dev = qh.device
+        cv = (torch.ones((b, sc), dtype=torch.bool, device=dev)
+              if ctx_valid is None else ctx_valid != 0)
+        cv = cv[:, None, None, :].expand(b, k_beams, 1, sc)
+        gv = (torch.ones((n, lg), dtype=torch.bool, device=dev)
+              if gen_valid is None
+              else (gen_valid != 0).reshape(-1, lg).expand(n, lg))
+        valid = torch.cat([cv, gv.reshape(b, k_beams, 1, lg)], dim=-1)
+        s32 = s32.masked_fill(~valid, torch.finfo(torch.float32).min / 2)
+    w = torch.softmax(s32, dim=-1).to(qh.dtype)
+    o_ctx = torch.einsum("bkhl,bhld->bkhd", w[..., :sc], ctx_v.to(qh.dtype))
+    o_gen = torch.einsum("nhl,nhld->nhd", w[..., sc:].reshape(n, h, lg),
+                         gen_v.to(qh.dtype))
+    o = o_ctx.reshape(n, h, -1) + o_gen
+    return o.reshape(n, 1, h * o.shape[-1])
+
+
 __all__ = ["pages_for", "gather_pages", "gather_scales", "quantize_tokens",
            "write_token_pages", "write_token_pages_q", "scatter_prompt_pages",
            "scatter_prompt_pages_q", "scatter_tail_pages",
-           "scatter_tail_pages_q", "tail_page_targets"]
+           "scatter_tail_pages_q", "tail_page_targets", "copy_pages",
+           "beam_shared_attention"]

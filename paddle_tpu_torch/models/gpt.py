@@ -1,4 +1,5 @@
-"""GPT decoder-only language models: training and paged serving.
+"""GPT decoder-only language models: training, generation and paged
+serving.
 
 Counterpart: ``paddle_tpu/models/gpt.py``. Ported so far:
 
@@ -15,7 +16,14 @@ Counterpart: ``paddle_tpu/models/gpt.py``. Ported so far:
   (`GPTModel.decode_slots_paged`) and the speculative verify window of
   ``W = k + 1`` tokens per slot (`GPTModel.verify_slots_paged`), over
   float or quantized (int8 / fp8 pages with f32 scales) pools, plus the
-  weight-tied LM head and the cache/pool/scale constructors.
+  weight-tied LM head and the cache/pool/scale constructors;
+- generation, as `models.generation.GenerationMixin.generate` runs it:
+  the prompt pass with the reference's unmasked flash branch (a pad-free
+  prompt the qkv gate takes), the static-cache decode step
+  (`GPTModel.decode_step`), the paged beam step with a shared prompt
+  segment and per-beam tail pages (`GPTModel.decode_beam_paged`, the
+  tail through `kernels.paged_attention.paged_tail_segment`), and the
+  concat-grow ``forward(caches=)``.
 
 Two layouts are kept from the reference so that a ``paddle_tpu``
 state dict loads key for key (`models.convert`):
@@ -42,10 +50,13 @@ from torch import nn
 from ..device import PAGE_DTYPES, resolve_device, resolve_dtype
 from ..kernels import flash_attention_qkv_enabled, paged_kv
 from ..kernels.flash_attention import flash_attention_qkv
-from ..kernels.paged_attention import paged_decode_attention
+from ..kernels.paged_attention import (merge_attention_segments,
+                                       paged_decode_attention,
+                                       paged_tail_segment)
 from ..nn import Dropout, Embedding, LayerNorm, Linear, init_weights
 from ..nn.functional import (cross_entropy, mt_attention_core,
                              scaled_dot_product_attention)
+from .generation import GenerationMixin
 
 
 @dataclass
@@ -118,30 +129,39 @@ class GPTAttention(nn.Module):
         self.use_flash = config.use_flash_attention
         self.resid_dropout = Dropout(config.hidden_dropout_prob)
 
-    def forward(self, x, attn_mask=None):
+    def forward(self, x, attn_mask=None, cache=None):
         """Training and full-sequence attention over ``x [B, S, h]``:
         causal without a mask, else ``attn_mask`` (bool or additive).
 
-        With ``use_flash_attention``, no mask and a shape the gate takes,
-        the projection feeds `flash_attention_qkv` as it is (``gpt.py:
-        136-148``). Otherwise the unpacked q, k, v go to
+        With ``use_flash_attention``, no mask, no cache and a shape the
+        gate takes, the projection feeds `flash_attention_qkv` as it is
+        (``gpt.py:136-148``). Otherwise the unpacked q, k, v go to
         `scaled_dot_product_attention` with ``use_flash`` (:149-171):
         with a mask or a shape the qkv gate refuses, the general flash
-        kernels where that gate takes them, else the composition."""
+        kernels where that gate takes them, else the composition.
+
+        ``cache``: the concat-grow ``(k, v)`` cache ``[B, past, H, D]``
+        (:162-174): the new K/V are appended along the sequence axis, the
+        causal mask is bottom-right aligned, and the call returns ``(out,
+        (k, v))``."""
         b, s, h = x.shape
         dropout_p = self.attn_dropout_p if self.training else 0.0
         qkv = self.qkv_proj(x)
-        if self.use_flash and flash_attention_qkv_enabled(
+        if cache is None and self.use_flash and flash_attention_qkv_enabled(
                 qkv, self.num_heads, attn_mask, dropout_p):
             out = flash_attention_qkv(qkv, self.num_heads, is_causal=True,
                                       dropout_p=dropout_p)
             return self.resid_dropout(self.out_proj(out))
         q, k, v = unpack_qkv_pair_major(qkv, self.num_heads, self.head_dim)
+        if cache is not None:
+            k = torch.cat([cache[0], k], dim=1)
+            v = torch.cat([cache[1], v], dim=1)
         out = scaled_dot_product_attention(
             q, k, v, attn_mask=attn_mask, dropout_p=dropout_p,
             is_causal=attn_mask is None, training=self.training,
             use_flash=self.use_flash)
-        return self.resid_dropout(self.out_proj(out.reshape(b, s, h)))
+        out = self.resid_dropout(self.out_proj(out.reshape(b, s, h)))
+        return out if cache is None else (out, (k, v))
 
     def _heads(self, x):
         """x -> head-major q, k, v ``[B, H, S, D]``."""
@@ -152,20 +172,109 @@ class GPTAttention(nn.Module):
 
     def forward_prefill(self, x, k_cache, v_cache, pad_mask=None):
         """Prompt pass: causal attention over ``x [B, S, h]`` and the
-        prompt K/V written into cache columns ``[0, S)`` in place.
-        ``pad_mask [B, S]`` (1 = real token) excludes left-pad columns
-        from every query's view. This is the reference's masked branch
-        (``gpt.py:228-245``), which the engine always takes."""
+        prompt K/V written into cache columns ``[0, S)`` in place
+        (``gpt.py:183-247``). A pad-free prompt whose shape the qkv gate
+        takes (``S % 128 == 0``) attends through `flash_attention_qkv`
+        (the unmasked branch, :216-227: the Hopper kernel on a card).
+        Otherwise ``pad_mask [B, S]`` (1 = real token), when given,
+        excludes left-pad columns from every query's view, in composed
+        attention (the masked branch, :228-245, which the engine always
+        takes)."""
         s = x.shape[1]
-        qh, kh, vh = self._heads(x)
+        qkv = self.qkv_proj(x)
+        q, k, v = unpack_qkv_pair_major(qkv, self.num_heads, self.head_dim)
+        kh, vh = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
         k_cache[:, :, :s] = kh.to(k_cache.dtype)
         v_cache[:, :, :s] = vh.to(v_cache.dtype)
+        if (pad_mask is None and self.use_flash
+                and flash_attention_qkv_enabled(qkv, self.num_heads, None,
+                                                0.0)):
+            return self.out_proj(flash_attention_qkv(qkv, self.num_heads,
+                                                     is_causal=True))
         ar = torch.arange(s, device=x.device)
         valid = (ar[None, :] <= ar[:, None])[None, None]
         if pad_mask is not None:
             valid = valid & (pad_mask != 0)[:, None, None, :]
-        ctx = mt_attention_core(qh, kh, vh, self.head_dim, valid_mask=valid)
+        ctx = mt_attention_core(q.permute(0, 2, 1, 3), kh, vh,
+                                self.head_dim, valid_mask=valid)
         return self.out_proj(ctx)
+
+    def forward_decode(self, x, k_cache, v_cache, step, valid_cols=None):
+        """One token per row at the shared cache column ``step`` (an int;
+        ``gpt.py:249-291``): its K/V are written there in place and it
+        attends columns ``[0, step]``, minus those ``valid_cols [B,
+        max_len]`` marks 0 (a left-padded prompt's pad columns). Composed
+        attention, as in the reference."""
+        t = int(step)
+        if t >= k_cache.shape[2]:
+            raise ValueError(f"decode step {t} out of range for cache "
+                             f"max_len {k_cache.shape[2]}")
+        b = x.shape[0]
+        q, k, v = unpack_qkv_pair_major(self.qkv_proj(x), self.num_heads,
+                                        self.head_dim)     # [B, 1, H, D]
+        k_cache[:, :, t] = k[:, 0].to(k_cache.dtype)
+        v_cache[:, :, t] = v[:, 0].to(v_cache.dtype)
+        qh = q.permute(0, 2, 1, 3)
+        valid = (None if valid_cols is None
+                 else (valid_cols[:, :t + 1] != 0)[:, None, None, :])
+        ctx = mt_attention_core(qh, k_cache[:, :, :t + 1].to(qh.dtype),
+                                v_cache[:, :, :t + 1].to(qh.dtype),
+                                self.head_dim, valid_mask=valid)
+        return self.out_proj(ctx.reshape(b, 1, -1))
+
+    def _ctx_segment(self, qh, ctx_k, ctx_v, pad_mask):
+        """The beam's shared prompt segment as a normalized ``(out [N, H,
+        D], lse [N, H])`` pair (``gpt.py:629-654``): each batch row's
+        prompt K/V ``[B, H, Sp, D]`` is contracted once against all K
+        beams of the row, softmaxed over the prompt columns alone
+        (``pad_mask [B, Sp]`` masks left padding with -1e30)."""
+        n, h, d = qh.shape
+        b, sc = ctx_k.shape[0], ctx_k.shape[2]
+        qb = qh.reshape(b, n // b, h, d)
+        scale = torch.tensor(float(self.head_dim), dtype=qh.dtype,
+                             device=qh.device).sqrt()
+        s32 = (torch.einsum("bkhd,bhld->bkhl", qb, ctx_k.to(qh.dtype))
+               / scale).float()
+        if pad_mask is not None:
+            s32 = s32.masked_fill((pad_mask == 0)[:, None, None, :], -1e30)
+        m = s32.amax(dim=-1)                                 # [B, K, H]
+        p = torch.exp(s32 - m[..., None])
+        l = p.sum(dim=-1)
+        o = torch.einsum("bkhl,bhld->bkhd", (p / l[..., None]).to(qh.dtype),
+                         ctx_v.to(qh.dtype))
+        return o.reshape(n, h, d), (m + torch.log(l)).reshape(n, h)
+
+    def forward_decode_beam_paged(self, x, ctx_k, ctx_v, pool_k, pool_v,
+                                  block_table, gen_col, pad_mask=None,
+                                  k_scale=None, v_scale=None):
+        """One beam-decode token per row of ``x [N = B*K, 1, h]`` over the
+        paged beam layout (``gpt.py:596-722``): the prompt K/V ``ctx_k/v
+        [B, H, Sp, D]`` is stored once per batch row and shared by its K
+        beams; each beam's generated tail lives in its pages of ``pool_k
+        / pool_v`` through ``block_table [N, Pg]``. The token's K/V are
+        written at gen column ``gen_col`` (an int) in place, quantized
+        when ``k_scale``/``v_scale`` ride with 1-byte pools; the tail is
+        read by `paged_tail_segment` (the Hopper kernel on a card) and
+        merged with `_ctx_segment` by `merge_attention_segments`."""
+        n = x.shape[0]
+        q, k, v = unpack_qkv_pair_major(self.qkv_proj(x), self.num_heads,
+                                        self.head_dim)     # [N, 1, H, D]
+        qh, kh, vh = q[:, 0], k[:, 0], v[:, 0]
+        j, ps = int(gen_col), pool_k.shape[2]
+        pages = block_table[:, j // ps]
+        offs = torch.full_like(pages, j % ps)
+        if k_scale is None:
+            paged_kv.write_token_pages(pool_k, pages, offs, kh)
+            paged_kv.write_token_pages(pool_v, pages, offs, vh)
+        else:
+            paged_kv.write_token_pages_q(pool_k, k_scale, pages, offs, kh)
+            paged_kv.write_token_pages_q(pool_v, v_scale, pages, offs, vh)
+        o_ctx, lse_ctx = self._ctx_segment(qh, ctx_k, ctx_v, pad_mask)
+        o_gen, lse_gen = paged_tail_segment(
+            qh, pool_k, pool_v, block_table, j, self.head_dim,
+            k_scale=k_scale, v_scale=v_scale)
+        o = merge_attention_segments(o_ctx, lse_ctx, o_gen, lse_gen)
+        return self.out_proj(o.reshape(n, 1, -1))
 
     def forward_slots_paged(self, x, pool_k, pool_v, block_table, steps,
                             targets, valid_cols=None, k_scale=None,
@@ -226,13 +335,32 @@ class GPTDecoderLayer(nn.Module):
         self.ln_2 = LayerNorm(config.hidden_size, epsilon=eps, **kw)
         self.mlp = GPTMLP(config, **kw)
 
-    def forward(self, x, attn_mask=None):
-        x = x + self.attn(self.ln_1(x), attn_mask=attn_mask)
-        return x + self.mlp(self.ln_2(x))
+    def forward(self, x, attn_mask=None, cache=None):
+        """``x`` after the block; with ``cache`` (the concat-grow ``(k,
+        v)``), ``(x, new_cache)``."""
+        out = self.attn(self.ln_1(x), attn_mask=attn_mask, cache=cache)
+        if cache is not None:
+            out, cache = out
+        x = x + out
+        x = x + self.mlp(self.ln_2(x))
+        return x if cache is None else (x, cache)
 
     def forward_prefill(self, x, k_cache, v_cache, pad_mask=None):
         x = x + self.attn.forward_prefill(self.ln_1(x), k_cache, v_cache,
                                           pad_mask=pad_mask)
+        return x + self.mlp(self.ln_2(x))
+
+    def forward_decode(self, x, k_cache, v_cache, step, valid_cols=None):
+        x = x + self.attn.forward_decode(self.ln_1(x), k_cache, v_cache,
+                                         step, valid_cols=valid_cols)
+        return x + self.mlp(self.ln_2(x))
+
+    def forward_decode_beam_paged(self, x, ctx_k, ctx_v, pool_k, pool_v,
+                                  block_table, gen_col, pad_mask=None,
+                                  k_scale=None, v_scale=None):
+        x = x + self.attn.forward_decode_beam_paged(
+            self.ln_1(x), ctx_k, ctx_v, pool_k, pool_v, block_table,
+            gen_col, pad_mask=pad_mask, k_scale=k_scale, v_scale=v_scale)
         return x + self.mlp(self.ln_2(x))
 
     def forward_slots_paged(self, x, pool_k, pool_v, block_table, steps,
@@ -280,17 +408,26 @@ class GPTModel(nn.Module):
 
     def forward(self, input_ids, position_ids=None, attn_mask=None,
                 caches=None):
-        """Hidden states ``[B, S, h]`` of a full sequence. The concat-grow
-        ``caches`` path of the reference is a later slice (ROADMAP A7);
-        serving uses `prefill` and `decode_slots_paged`."""
-        if caches is not None:
-            raise NotImplementedError(
-                "GPTModel.forward(caches=...) is a later slice (ROADMAP "
-                "A7); serve through prefill/decode_slots_paged")
+        """Hidden states ``[B, S, h]`` of a full sequence. With ``caches``
+        (per-layer concat-grow ``(k, v)`` ``[B, past, H, D]``, e.g.
+        `GPTForPretraining.gen_cache`; ``gpt.py:1007-1025``) the positions
+        continue at ``past`` and the call returns ``(hidden,
+        new_caches)``."""
+        if caches is not None and position_ids is None:
+            b, s = input_ids.shape
+            past = caches[0][0].shape[1]
+            position_ids = torch.arange(past, past + s,
+                                        device=input_ids.device).expand(b, s)
         x = self.embeddings(input_ids, position_ids)
-        for layer in self.h:
-            x = layer(x, attn_mask=attn_mask)
-        return self.ln_f(x)
+        if caches is None:
+            for layer in self.h:
+                x = layer(x, attn_mask=attn_mask)
+            return self.ln_f(x)
+        new_caches = []
+        for layer, cache in zip(self.h, caches):
+            x, cache = layer(x, attn_mask=attn_mask, cache=cache)
+            new_caches.append(cache)
+        return self.ln_f(x), new_caches
 
     def prefill(self, input_ids, caches, pad_mask=None):
         """Prompt pass over per-layer ``[B, H, >=S, D]`` caches (written in
@@ -306,6 +443,52 @@ class GPTModel(nn.Module):
         x = self.embeddings(input_ids, pos)
         for layer, (kc, vc) in zip(self.h, caches):
             x = layer.forward_prefill(x, kc, vc, pad_mask=pad_mask)
+        return self.ln_f(x)
+
+    @staticmethod
+    def _decode_positions(token_ids, step, pads):
+        """Position ids ``[B, 1]`` of tokens at the shared cache column
+        ``step``: ``step - pads`` clipped at 0 (left-padded rows)."""
+        b = token_ids.shape[0]
+        pos = torch.full((b,), int(step), dtype=torch.long,
+                         device=token_ids.device)
+        if pads is not None:
+            pos = (pos - pads.long()).clamp(min=0)
+        return pos[:, None]
+
+    def decode_step(self, token_ids, step, caches, pads=None,
+                    valid_cols=None):
+        """One token per row ``token_ids [B, 1]`` at the shared cache
+        column ``step`` (an int) over the static caches ``[B, H, max_len,
+        D]`` (written in place; ``gpt.py:1044-1063``). ``pads [B]``
+        shifts position ids of left-padded rows; ``valid_cols [B,
+        max_len]`` masks their pad columns. Returns ``[B, 1, h]``."""
+        x = self.embeddings(token_ids,
+                            self._decode_positions(token_ids, step, pads))
+        for layer, (kc, vc) in zip(self.h, caches):
+            x = layer.forward_decode(x, kc, vc, step, valid_cols=valid_cols)
+        return self.ln_f(x)
+
+    def decode_beam_paged(self, token_ids, step, ctx_caches, pools,
+                          block_table, gen_col, pads=None, pad_mask=None,
+                          scales=None):
+        """One beam-decode token per row of ``token_ids [B*K, 1]`` over
+        the paged beam layout (``gpt.py:1219-1253``): ``ctx_caches`` the
+        per-layer shared prompt K/V ``[B, H, Sp, D]``, ``pools`` the
+        per-layer tail pools, ``block_table [B*K, Pg]`` the beams' page
+        map (one for every layer), ``gen_col`` the gen column written
+        and ``step`` the absolute position (ints). ``pads [B*K]`` shifts
+        position ids; ``pad_mask [B, Sp]`` masks a left-padded prompt;
+        ``scales`` the per-layer ``(k_scale, v_scale)`` of 1-byte pools.
+        Pools and scales are written in place. Returns ``[B*K, 1, h]``."""
+        x = self.embeddings(token_ids,
+                            self._decode_positions(token_ids, step, pads))
+        for i, (layer, (ck, cv), (pk, pv)) in enumerate(
+                zip(self.h, ctx_caches, pools)):
+            ks, vs = (None, None) if scales is None else scales[i]
+            x = layer.forward_decode_beam_paged(
+                x, ck, cv, pk, pv, block_table, gen_col, pad_mask=pad_mask,
+                k_scale=ks, v_scale=vs)
         return self.ln_f(x)
 
     def decode_slots_paged(self, token_ids, steps, pools, block_table,
@@ -347,8 +530,9 @@ class GPTModel(nn.Module):
         return self.ln_f(x)
 
 
-class GPTForPretraining(nn.Module):
-    """GPT with the LM head tied to the word embedding.
+class GPTForPretraining(GenerationMixin, nn.Module):
+    """GPT with the LM head tied to the word embedding; `generate` comes
+    from `models.generation.GenerationMixin`.
 
     ``config``: a `GPTConfig` or a `GPT_CONFIGS` name. ``device``:
     ``None`` means ``cuda`` (raises without a GPU; pass ``"cpu"`` for
@@ -385,9 +569,20 @@ class GPTForPretraining(nn.Module):
 
     def forward(self, input_ids, position_ids=None, attn_mask=None,
                 caches=None):
-        """Logits ``[B, S, V]`` of a full sequence (tied head)."""
-        return self._logits(self.gpt(input_ids, position_ids, attn_mask,
-                                     caches))
+        """Logits ``[B, S, V]`` of a full sequence (tied head); with
+        ``caches``, ``(logits, new_caches)`` (``gpt.py:1272-1278``)."""
+        out = self.gpt(input_ids, position_ids, attn_mask, caches)
+        if caches is None:
+            return self._logits(out)
+        return self._logits(out[0]), out[1]
+
+    def gen_cache(self, batch_size):
+        """Empty per-layer concat-grow caches ``[batch, 0, heads,
+        head_dim]`` for ``forward(caches=)`` (``gpt.py:1280-1287``)."""
+        cfg = self.config
+        return self._zeros_per_layer(
+            (batch_size, 0, cfg.num_attention_heads, cfg.head_dim),
+            self.dtype)
 
     def gen_static_cache(self, batch_size, max_len, dtype=None):
         """Per-layer ``(k, v)`` caches ``[batch, heads, max_len, head_dim]``
@@ -431,6 +626,23 @@ class GPTForPretraining(nn.Module):
         every row's newest real token) and the written caches."""
         hidden = self.gpt.prefill(input_ids, caches, pad_mask=pad_mask)
         return self._logits(hidden[:, -1:]), caches
+
+    def decode_step(self, token_ids, step, caches, pads=None,
+                    valid_cols=None):
+        """Logits ``[B, 1, V]`` of one static-cache decode step and the
+        caches (written in place; ``gpt.py:1309-1314``)."""
+        return self._logits(self.gpt.decode_step(
+            token_ids, step, caches, pads=pads,
+            valid_cols=valid_cols)), caches
+
+    def decode_beam_paged(self, token_ids, step, ctx_caches, pools,
+                          block_table, gen_col, pads=None, pad_mask=None,
+                          scales=None):
+        """Logits ``[B*K, 1, V]`` of one paged beam-decode step (pools and
+        scales written in place; ``gpt.py:1380-1386``)."""
+        return self._logits(self.gpt.decode_beam_paged(
+            token_ids, step, ctx_caches, pools, block_table, gen_col,
+            pads=pads, pad_mask=pad_mask, scales=scales))
 
     def decode_slots_paged(self, token_ids, steps, pools, block_table,
                            pads=None, valid_cols=None, scales=None):

@@ -18,6 +18,8 @@ paged engine:
   per-token f32 scales: prefill attends its float local cache and
   quantizes into the pages, every decode or verify write quantizes, and
   the attention kernel dequantizes;
+- ``weight_quant="int8"`` serves weight-only int8 weights, dequantized
+  once per `step` (the model's `dequantized` scope);
 - ``spec_k=k`` replaces the decode step by a verify step of ``k + 1``
   lanes per slot: an n-gram drafter (`speculative.NgramDrafter`,
   suffix n-grams up to ``spec_ngram`` tokens) proposes up to ``k``
@@ -45,7 +47,7 @@ from ..device import resolve_device
 from ..kernels import kernel_launch_counts
 from .compiled import paged_prefill_step, paged_verify_step
 from .metrics import EngineMetrics
-from .paged import PagedKVCache
+from .paged import PagedKVCache, pages_in_budget
 from .request import (CANCELLED, DECODING, FINISHED, QUEUED, Request,
                       RequestHandle, SamplingParams)
 from .scheduler import SlotScheduler
@@ -63,12 +65,21 @@ _LATER = {
     "spec_adaptive": (False, "A8 adaptive spec_k"),
     "spec_k_max": (None, "A8 adaptive spec_k"),
     "chunk_tokens": (None, "A8 chunked prefill"),
-    "weight_quant": (None, "A7 int8 weight quantization"),
     "mesh": (None, "A12 distributed serving"),
+    "sharding_rule": (None, "A12 distributed serving"),
     "role": ("both", "A10 disaggregated serving"),
     "kv_pool": (None, "A10 disaggregated serving"),
-    "default_deadline_s": (None, "A8 deadlines and bounded admission"),
-    "max_queue": (None, "A8 deadlines and bounded admission"),
+    "engine_id": (None, "A10 serving fleet (replica identity)"),
+    "fault_injector": (None, "A10 serving fleet (fault injection)"),
+    "default_deadline_s": (None, "A8.6 deadlines and bounded admission"),
+    "max_queue": (None, "A8.6 deadlines and bounded admission"),
+    "shed_policy": ("refuse", "A8.6 deadlines and bounded admission"),
+    "admission_retries": (64, "A8.6 deadlines and bounded admission"),
+    "profiler": (None, "A9 observability (profiler)"),
+    "observability_port": (None, "A9 observability (server endpoints)"),
+    "flight_recorder": (None, "A9 observability (flight recorder)"),
+    "slo": (None, "A9 observability (SLO tracking)"),
+    "dtype": (None, "A2 scaffold (serving dtype)"),
 }
 
 
@@ -89,16 +100,24 @@ class Engine:
     ``top_k``: top-k of every sampled request (0 = off). ``seed``:
     seeds the generator of a sampled request submitted without one.
     ``kv_quant``: None, ``"int8"`` or ``"fp8"`` (1-byte pages with f32
-    scales). ``spec_k``: draft tokens per verify step (0 = plain
-    decode); ``spec_ngram``: the longest suffix n-gram the drafter
-    matches. ``device``: ``None`` means ``cuda`` (raises without a GPU);
-    it must be the model's device.
+    scales). ``kv_pool_bytes``: size the pool by a byte budget instead
+    of ``kv_pages`` (`paged.pages_in_budget`, ``engine.py:414-430``).
+    ``spec_k``: draft tokens per verify step (0 = plain decode);
+    ``spec_ngram``: the longest suffix n-gram the drafter matches.
+    ``weight_quant="int8"``: weight-only int8 serving, the quantizer of
+    `GenerationMixin.generate` (`models.generation.quantize_state_int8`,
+    cached on the model); every `step` dequantizes the weights it runs
+    on, as the reference's step executable does. ``kv_mode``: None or
+    ``"paged"``, the one mode the port has (the reference's None picks
+    slots without a paged feature: ROADMAP A8.2). ``device``: ``None``
+    means ``cuda`` (raises without a GPU); it must be the model's
+    device.
     """
 
     def __init__(self, model, slots=4, max_len=None, prefill_buckets=None,
                  page_size=16, kv_pages=None, top_k=0, seed=0, device=None,
-                 kv_mode="paged", kv_quant=None, spec_k=0, spec_ngram=3,
-                 **later):
+                 kv_mode=None, kv_quant=None, spec_k=0, spec_ngram=3,
+                 kv_pool_bytes=None, weight_quant=None, **later):
         for name, value in later.items():
             if name not in _LATER:
                 raise TypeError(f"Engine() got an unexpected argument "
@@ -106,7 +125,7 @@ class Engine:
             off, feature = _LATER[name]
             if value != off:
                 raise _later(f"Engine({name}=...): {feature}")
-        if kv_mode != "paged":
+        if kv_mode not in (None, "paged"):
             raise _later(f"Engine(kv_mode={kv_mode!r}): A8 dense slot "
                          "cache")
         if max_len is None:
@@ -119,6 +138,17 @@ class Engine:
                              f"on {self.device}: move one of them")
         if int(spec_k) < 0:
             raise ValueError(f"spec_k must be >= 0, got {spec_k}")
+        if kv_pool_bytes is not None:
+            if kv_pages is not None:
+                raise ValueError(
+                    "pass kv_pages or kv_pool_bytes, not both: "
+                    "kv_pool_bytes derives the page count from the byte "
+                    "budget")
+            kv_pages = pages_in_budget(model, kv_pool_bytes,
+                                       page_size=int(page_size),
+                                       kv_quant=kv_quant)
+        #: the quantized weights of ``weight_quant`` (None: as they are)
+        self._qweights = model.serving_weights(weight_quant)
         self.model = model.eval()
         self.slots = int(slots)
         self.top_k = int(top_k)
@@ -224,7 +254,8 @@ class Engine:
         then one decode step over all slots. False when fully idle."""
         self._check_alive()
         try:
-            with torch.inference_mode():
+            with torch.inference_mode(), \
+                    self.model.dequantized(self._qweights):
                 did = False
                 while True:
                     req = self.scheduler.next_admission()

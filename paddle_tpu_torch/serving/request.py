@@ -93,17 +93,32 @@ class RequestHandle:
         frees its slot and pages at once."""
         self._engine._cancel(self._req)
 
-    def tokens(self):
+    def tokens(self, timeout=None):
         """Iterate the generated ids as the engine emits them, stepping
-        the engine while the next one is not there yet."""
+        the engine while the next one is not there yet (the reference's
+        cooperative mode, ``paddle_tpu/serving/request.py:263-312``).
+
+        ``timeout`` (seconds) bounds the wait for the NEXT token: when
+        neither a token nor a terminal state has come within it, checked
+        between engine steps, the iterator raises `TimeoutError`. The
+        request keeps its place; a later `tokens` or `result` call picks
+        the stream up again."""
         i = 0
+        last_progress = time.monotonic()
         while True:
             while i < len(self._req.emitted):
+                last_progress = time.monotonic()
                 yield self._req.emitted[i]
                 i += 1
             if self._closed:
                 self._raise_if_failed()
                 return
+            if (timeout is not None
+                    and time.monotonic() - last_progress > timeout):
+                raise TimeoutError(
+                    f"request {self._req.rid}: no token or terminal state "
+                    f"within {timeout}s ({len(self._req.emitted)} tokens "
+                    "so far)")
             if not self._engine.step():
                 raise RuntimeError(
                     f"request {self._req.rid} is unfinished but the engine "
@@ -119,9 +134,11 @@ class RequestHandle:
             f"in flight ({len(self._req.emitted)} tokens emitted)"
         ) from self._error
 
-    def result(self) -> list:
-        """The whole continuation (an EOS token, when hit, included)."""
-        for _ in self.tokens():
+    def result(self, timeout=None) -> list:
+        """The whole continuation (an EOS token, when hit, included).
+        ``timeout`` bounds each wait for a token, as in `tokens`
+        (``request.py:333-345``)."""
+        for _ in self.tokens(timeout=timeout):
             pass
         return list(self._req.emitted)
 

@@ -1,12 +1,18 @@
 """The port stands alone: importing paddle_tpu_torch pulls in neither
 jax nor paddle_tpu, its entry points refuse to run without a device
 when no GPU is visible, arguments of later slices are refused by name,
-and chip_smoke.py prints no result without a card."""
+and chip_smoke.py prints no result without a card. The signature walks
+hold every parameter of the reference's `Engine`, `RequestHandle` and
+`generate` against the port: taken at its default, and at another value
+served or refused with `NotImplementedError` naming a ROADMAP queue-A
+item."""
+import inspect
 import os
 import re
 import shutil
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -142,9 +148,9 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 @pytest.mark.parametrize("kw", [
     dict(kv_mode="slots"), dict(prefix_cache=True),
     dict(draft_model=lambda ctx, k: []), dict(chunk_tokens=8),
-    dict(spec_adaptive=True), dict(weight_quant="int8"),
-    dict(mesh=object()), dict(role="prefill"), dict(kv_pool=object()),
-    dict(default_deadline_s=1.0), dict(max_queue=4)],
+    dict(spec_adaptive=True), dict(mesh=object()), dict(role="prefill"),
+    dict(kv_pool=object()), dict(default_deadline_s=1.0),
+    dict(max_queue=4)],
     ids=lambda kw: next(iter(kw)))
 def test_engine_later_slice_arguments_raise(kw):
     model = GPTForPretraining("gpt-test", device="cpu")
@@ -177,3 +183,142 @@ def test_chip_smoke_prints_no_result_without_a_card(tmp_path):
                              capture_output=True, text=True, timeout=120)
         assert res.returncode != 0
         assert '"ok"' not in res.stdout
+
+
+# -- signature walks over the reference's surfaces --------------------------
+def _reference_params(fn, skip=()):
+    return [p for p in inspect.signature(fn).parameters.values()
+            if p.name not in ("self",) + tuple(skip)
+            and p.kind not in (p.VAR_POSITIONAL, p.VAR_KEYWORD)]
+
+
+def _served_or_named(call):
+    """``call()`` is served, or refused with NotImplementedError naming a
+    queue-A item (``A<n>``)."""
+    try:
+        call()
+    except NotImplementedError as exc:
+        assert re.search(r"\bA\d+", str(exc)), str(exc)
+
+
+#: a value other than the default for every reference Engine parameter
+ENGINE_OTHER = dict(
+    slots=2, max_len=24, prefill_buckets=(8,), top_k=5, weight_quant="int8",
+    mesh=object(), sharding_rule=object(), dtype="float32",
+    profiler=object(), seed=3, kv_mode="slots", page_size=8, kv_pages=20,
+    prefix_cache=True, engine_id="e1", role="prefill", kv_pool=object(),
+    default_deadline_s=1.0, max_queue=4, shed_policy="shed_newest",
+    admission_retries=3, fault_injector=object(), spec_k=2, spec_ngram=2,
+    draft_model=lambda ctx, k: [], spec_adaptive=True, spec_k_max=4,
+    observability_port=0, flight_recorder=object(), kv_quant="int8",
+    kv_pool_bytes=1 << 20, slo=object(), chunk_tokens=8)
+
+
+def _jax_engine_params():
+    from paddle_tpu.serving import Engine as JaxEngine
+
+    return _reference_params(JaxEngine.__init__, skip=("model",))
+
+
+@pytest.mark.parametrize("param", _jax_engine_params(), ids=lambda p: p.name)
+def test_engine_takes_every_reference_parameter(param):
+    model = GPTForPretraining("gpt-test", device="cpu")
+    base = dict(max_len=16, device="cpu")
+
+    def serve(**kw):
+        eng = Engine(model, **{**base, **kw})
+        assert len(eng.submit([1, 2, 3], max_new_tokens=2).result()) == 2
+
+    if param.name != "max_len":          # None: required in both packages
+        serve(**{param.name: param.default})
+    assert param.name in ENGINE_OTHER, f"no other value for {param.name}"
+    _served_or_named(lambda: serve(**{param.name: ENGINE_OTHER[param.name]}))
+
+
+def test_engine_kv_pool_bytes_matches_reference_pages_in_budget():
+    """``Engine(kv_pool_bytes=...)`` holds the reference's
+    `pages_in_budget` page count on bf16, int8 and fp8 pools, and keeps
+    its refusal of a page count given beside it."""
+    from paddle_tpu.models.gpt import GPTForPretraining as JaxGPT
+    from paddle_tpu.models.gpt import GPTModel as JaxGPTModel
+    from paddle_tpu.models.gpt import gpt_config as jax_gpt_config
+    from paddle_tpu.serving.paged import pages_in_budget
+
+    jax_model = JaxGPT(JaxGPTModel(jax_gpt_config("gpt-test")))
+    model = GPTForPretraining("gpt-test", device="cpu", dtype="bfloat16")
+    for budget in (1 << 20, 3_000_000):
+        for q in (None, "int8", "fp8"):
+            want = pages_in_budget(jax_model, budget, page_size=16,
+                                   dtype="bfloat16", kv_quant=q)
+            eng = Engine(model, max_len=16, device="cpu", kv_quant=q,
+                         kv_pool_bytes=budget)
+            assert eng.kv.pages_total == want, (budget, q)
+            assert eng.stats().kv_pool_bytes <= budget
+    with pytest.raises(ValueError, match="not both"):
+        Engine(model, max_len=16, device="cpu", kv_pool_bytes=1 << 20,
+               kv_pages=8)
+
+
+@pytest.mark.parametrize("method", ["tokens", "result"])
+def test_request_handle_takes_every_reference_parameter(method):
+    from paddle_tpu.serving.request import RequestHandle as JaxHandle
+
+    model = GPTForPretraining("gpt-test", device="cpu")
+    params = _reference_params(getattr(JaxHandle, method))
+    assert [p.name for p in params] == ["timeout"]
+    for value in (None, 30.0):
+        eng = Engine(model, max_len=16, device="cpu")
+        handle = eng.submit([1, 2, 3], max_new_tokens=3)
+        out = getattr(handle, method)(timeout=value)
+        assert len(list(out)) == 3
+
+
+def test_request_timeout_between_steps_and_resume():
+    """A step that brings no token within ``timeout`` raises TimeoutError
+    from `tokens`/`result`; the request keeps its place and a later call
+    finishes it."""
+    model = GPTForPretraining("gpt-test", device="cpu")
+    eng = Engine(model, max_len=16, device="cpu")
+    handle = eng.submit([1, 2, 3], max_new_tokens=3)
+    real_step = eng.step
+
+    def slow_idle_step():
+        time.sleep(0.05)
+        return True
+
+    eng.step = slow_idle_step
+    with pytest.raises(TimeoutError, match="no token"):
+        handle.result(timeout=0.01)
+    eng.step = real_step
+    assert len(handle.result(timeout=30.0)) == 3
+
+
+#: a value other than the default for every reference generate parameter
+GENERATE_OTHER = dict(
+    max_new_tokens=3, decode_strategy="sampling", temperature=0.7, top_k=5,
+    top_p=0.9, eos_token_id=3, pad_token_id=0, seed=1, mesh=object(),
+    sharding_rule=object(), weight_quant="int8",
+    attention_mask=[[0, 1, 1], [1, 1, 1]], num_beams=2, length_penalty=1.0,
+    stream_callback=lambda col: None, beam_kv="gather")
+
+
+def _jax_generate_params():
+    from paddle_tpu.models.generation import GenerationMixin as JaxMixin
+
+    return _reference_params(JaxMixin.generate, skip=("input_ids",))
+
+
+@pytest.mark.parametrize("param", _jax_generate_params(),
+                         ids=lambda p: p.name)
+def test_generate_takes_every_reference_parameter(param):
+    model = GPTForPretraining("gpt-test", device="cpu")
+    ids = [[5, 6, 7], [8, 9, 10]]
+    base = dict(max_new_tokens=2)
+
+    def run(**kw):
+        out = model.generate(ids, **{**base, **kw})
+        assert out.shape[0] == 2 and out.dtype == torch.int64
+
+    run(**{param.name: param.default})
+    assert param.name in GENERATE_OTHER, f"no other value for {param.name}"
+    _served_or_named(lambda: run(**{param.name: GENERATE_OTHER[param.name]}))

@@ -9,7 +9,8 @@ tests). chip_smoke.py holds every kernel at the main paths' shapes; these
 are quick checks at small shapes: the general kernels at a padded,
 masked, causal shape with dropout, the qkv3 kernels with dropout, the
 LayerNorm kernels with and without a residual, the paged kernel on
-bf16, int8 and fp8 pools at W in {1, 4, 5}.
+bf16, int8 and fp8 pools at W in {1, 4, 5}, and the beam's tail read
+through it (`paged_tail_segment`) on bf16 and int8 pages.
 """
 import pytest
 import torch
@@ -211,3 +212,50 @@ def test_paged_wrapper_refuses_quantized_pools_without_scales():
     sc = torch.zeros((2, 1, 8), device="cuda")
     with pytest.raises(ValueError, match="scales were passed"):
         pa.fused_paged_attention(q, fpool, fpool, bt, st, vc, sc, sc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pages", ["bfloat16", "int8"])
+@pytest.mark.parametrize("gen_col", [0, 7, 16, 47])
+def test_paged_tail_segment_matches_the_plain_version_on_a_card(pages,
+                                                               gen_col):
+    """The beam's tail read through the paged kernel (W = 1, every row at
+    gen column ``gen_col``, all columns valid) against the same
+    dispatcher on CPU copies of its inputs (its plain version): out at
+    2e-2, lse at 1e-3, on bf16 and int8 pages; gen column 0 is a tail of
+    one column. Each launch counts once under ``paged_tail_segment`` and
+    once under the pool's kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the Hopper kernels run only on "
+                    "the card")
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.kernels import paged_kv
+
+    g = torch.Generator(device="cuda").manual_seed(gen_col)
+    n, h, d, ps, pg = 8, 4, 128, 16, 3
+    pools = [torch.randn((n * pg, h, ps, d), generator=g, device="cuda")
+             for _ in range(2)]
+    kw = {}
+    if pages == "bfloat16":
+        pools = [p.to(torch.bfloat16) for p in pools]
+    else:
+        pools, scales = zip(*(paged_kv.quantize_tokens(p, torch.int8)
+                              for p in pools))
+        kw = dict(k_scale=scales[0], v_scale=scales[1])
+    bt = torch.randperm(n * pg, generator=g, device="cuda").reshape(
+        n, pg).to(torch.int32)
+    q = torch.randn((n, h, d), generator=g, device="cuda").to(torch.bfloat16)
+    kernels.reset_kernel_launch_counts()
+    out, lse = pa.paged_tail_segment(q, *pools, bt, gen_col, d, **kw)
+    counts = kernels.kernel_launch_counts()
+    ref, ref_lse = pa.paged_tail_segment(
+        q.cpu(), *(p.cpu() for p in pools), bt.cpu(), gen_col, d,
+        **{k: v.cpu() for k, v in kw.items()})
+    assert out.shape == (n, h, d) and lse.shape == (n, h)
+    torch.testing.assert_close(out.float().cpu(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse.cpu(), ref_lse, atol=1e-3, rtol=0)
+    name = "paged_attention" if pages == "bfloat16" else \
+        "paged_attention_int8"
+    assert counts["paged_tail_segment"] == counts[name] == 1
+    assert sum(v for k, v in counts.items() if k.startswith("paged")) == 2

@@ -355,5 +355,8 @@ def test_gpt_forward_without_flash_gate_runs_composed_on_cpu():
     masked = model(ids, attn_mask=causal)
     torch.testing.assert_close(flash, masked, atol=1e-5, rtol=0)
     assert model(ids[:, :64]).shape == (1, 64, 256)
-    with pytest.raises(NotImplementedError, match="A7"):
-        model(ids, caches=[])
+    # the concat-grow cache path (ported with generation) takes the
+    # composed branch and agrees as well
+    cached, caches = model(ids, caches=model.gen_cache(1))
+    torch.testing.assert_close(cached, flash, atol=1e-5, rtol=0)
+    assert tuple(caches[0][0].shape) == (1, 128, 2, 64)
