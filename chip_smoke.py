@@ -8,12 +8,19 @@ Phases, in order; any failure exits non-zero:
 1. the card's name and power limit, torch and CUDA versions; TF32 off
    for float32 matmuls and convolutions;
 2. build every CUDA kernel of the port from ``paddle_tpu_torch/kernels/
-   csrc`` (one nvcc per source, in parallel);
+   csrc`` (one nvcc per source, in parallel), printing each source's
+   build seconds and ptxas's registers, shared memory and spills of
+   every kernel;
 3. kernel phase: each kernel against its plain PyTorch version on the
    card, at the stated tolerances (paged attention on float pools and
-   on int8 and fp8 pages with f32 scales, W 1, 4 and 5); then its time
+   on int8 and fp8 pages with f32 scales, W 1, 4 and 5, and the rows
+   that exercise its split page walk at W 1, 3 and 5: readable only in
+   the first split, cursor 0, parked on the sentinel, nothing readable,
+   only the last query readable, a window across two splits; the qkv
+   forward also at S=320, a half-full last query block); then its time
    at the main path's shape (paged attention: the serving decode shape
-   with bf16, int8 and fp8 pages at W=1 and W=5, its library call SDPA
+   with bf16, int8 and fp8 pages at W=1 and W=5, printed with the split
+   count it chose and the blocks it launched, its library call SDPA
    over the gathered view, dequantized beforehand; the beam's tail read
    `paged_tail_segment` at phase 10's beam shape, N=32 H=16 D=128 Pg=8,
    on bf16 and int8 pages at gen columns 127 and 40; the pair-major qkv
@@ -333,6 +340,77 @@ def paged_checks(torch, pa):
               f"{err_l:.3e}  ok")
 
 
+def split_case(torch, w, dtype, seed):
+    """Inputs of one paged call whose rows exercise the split page walk
+    (N=8, H=4, D=128, ps=16, Pmax=40: `plan_splits` cuts the table into
+    4-page splits on an H100): row 0 readable only in its first split,
+    its cursor on the last column; row 1 at cursor 0; row 2 parked on
+    the sentinel page; row 3 with no readable column, its cursor on the
+    last column (every page of every split averaged); row 4 whose last
+    query alone has a readable column (its own cursor column); row 5
+    whose window straddles the boundary of splits 0 and 1 (columns 62
+    to 62 + w - 1); rows 6-7 ragged with left pads."""
+    n, h, d, pmax = 8, 4, 128, 40
+    lp = pmax * PAGE
+    steps = [lp - w, 0, 0, lp - w, 300, 62, 200, 450]
+    pads = [0, 0, 0, 0, 0, 0, 37, 151]
+    q, pk, pv, bt, st, vc = paged_case(n, h, w, d, PAGE, pmax, dtype, seed,
+                                       steps=steps, pads=pads)
+    vc[0, 4 * PAGE:] = 0                  # readable in split 0 alone
+    bt[2] = pk.shape[0] - 1               # parked on the sentinel page
+    vc[2] = 0
+    vc[3] = 0
+    vc[4] = 0
+    vc[4, 300 + w - 1] = 1                # only the last query reads
+    return q, pk, pv, bt, st, vc.contiguous()
+
+
+def paged_split_checks(torch, pa):
+    """The split page walk and its in-launch merge against the plain
+    version on `split_case`'s rows: W 1, 3 and 5; float pages (f32 q and
+    pages at TOL_F32, bf16 at TOL_BF16_OUT / TOL_BF16_LSE) and int8 and
+    fp8 pages (q f32 and bf16). Each line names the split count."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for w in (1, 3, 5):
+        for mode in (None, "int8", "fp8"):
+            for dtype in (torch.float32, torch.bfloat16):
+                args = split_case(torch, w, dtype, seed=700 + w)
+                kw = {}
+                if mode is not None:
+                    args, kw = quantize_case(torch, args, mode)
+                out, lse = pa.fused_paged_attention(*args, **kw)
+                ref, ref_lse = pa.paged_attention_reference(*args, **kw)
+                torch.cuda.synchronize()
+                f32 = dtype == torch.float32
+                torch.testing.assert_close(
+                    out.float(), ref.float(),
+                    **(TOL_F32 if f32 else TOL_BF16_OUT))
+                torch.testing.assert_close(
+                    lse, ref_lse, **(TOL_F32 if f32 else TOL_BF16_LSE))
+                check(torch.isfinite(out.float()).all().item(),
+                      "non-finite out")
+                n, h, _, d = args[0].shape
+                splits, pps = pa.plan_splits(n, h, w, args[3].shape[1],
+                                             PAGE, sms)
+                err_o = (out.float() - ref.float()).abs().max().item()
+                err_l = (lse - ref_lse).abs().max().item()
+                print(f"  paged split cases W={w} {mode or 'float'} pages q "
+                      f"{str(dtype)[6:]}: {splits} splits of {pps} pages; "
+                      f"max|out-ref| {err_o:.3e}  max|lse-ref| {err_l:.3e}"
+                      "  ok")
+
+
+def split_plan_line(pa, n, h, w, pmax):
+    """The kernel's split count and the blocks one call launches."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits, pps = pa.plan_splits(n, h, w, pmax, PAGE, sms)
+    blocks = n * h * -(-w // pa.query_tile(w)) * splits
+    return (f"{splits} splits of {pps} pages, {blocks} blocks on {sms} "
+            "SMs")
+
+
 def kernel_phase(torch, pa):
     """The paged kernel against its plain version on the card, then its
     time at the engine's decode shape: bf16, int8 and fp8 pages, at W=1
@@ -344,6 +422,7 @@ def kernel_phase(torch, pa):
     from paddle_tpu_torch.kernels.paged_kv import gather_pages, gather_scales
 
     paged_checks(torch, pa)
+    paged_split_checks(torch, pa)
     # the engine's decode shape: 8 slots x 16 heads, D=128, bf16 q, 40
     # pages of 16 per slot (max_len 640), each slot 16 tokens into decode
     # after a prompt from PROMPT_LENS in its bucket
@@ -420,7 +499,7 @@ def kernel_phase(torch, pa):
               f"plain {plain_ms:.5f} ms, SDPA over the "
               f"{'pre-dequantized ' if quant else ''}gathered view "
               f"{library_ms:.5f} ms, bound {bound_ms:.5f} ms ({nbytes} "
-              f"bytes, {flops} flops)")
+              f"bytes, {flops} flops); {split_plan_line(pa, n, h, w, pmax)}")
         name = "paged_attention" + ("_" + pages if quant else "")
         if w == (5 if quant else 1):
             records[name] = {
@@ -540,7 +619,8 @@ def tail_kernel_phase(torch, pa):
             print(f"{line}; kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
                   f"SDPA over the {'pre-dequantized ' if quant else ''}"
                   f"gathered tail {library_ms:.5f} ms, bound {bound_ms:.5f} "
-                  f"ms ({nbytes} bytes, {flops} flops)")
+                  f"ms ({nbytes} bytes, {flops} flops); "
+                  f"{split_plan_line(pa, n, h, 1, pg)}")
             if not quant:
                 record = {
                     "name": "paged_tail_segment", "route": "cuda",
@@ -662,6 +742,15 @@ def flash_kernel_phase(torch):
                     print(f"  flash_attention_qkv D={d} {str(dtype)[6:]} "
                           f"{'causal' if causal else 'full'} p={p}: {line}"
                           "  ok")
+    # S = 320: the forward's last 128-query block holds 64 rows, so its
+    # second consumer warpgroup reads no query
+    for d in (64, 128):
+        for causal in (True, False):
+            qkv, do = flash_case(2, 320, 4, d, torch.bfloat16, seed=50 + d)
+            _, line, _ = flash_compare(torch, qkv_fns(fa, "pair"), qkv, do,
+                                       4, causal, 0.1, seed_t)
+            print(f"  flash_attention_qkv S=320 D={d} bfloat16 "
+                  f"{'causal' if causal else 'full'} p=0.1: {line}  ok")
 
     b, s, h, d = TRAIN_B, TRAIN_S, 16, 128
     el = 2
@@ -2278,6 +2367,30 @@ def gen_phase(torch, seed):
     return {"paged_tail_segment": tail_launches}
 
 
+def print_build_report(name, report):
+    """One source's build seconds, then for each kernel ptxas's register,
+    shared-memory and spill lines, joined on one line."""
+    lines = report.splitlines()
+    print(f"  {name}.cu: {lines[0] if lines else 'not built here'}")
+    kernel = None
+    for ln in lines[1:]:
+        if "Compiling entry function" in ln:
+            kernel, spill = ln.split("'")[1], ""
+        elif kernel and "Function properties" not in ln and (
+                "spill" in ln or "Used" in ln):
+            if "spill" in ln:
+                spill = ln.strip()
+                continue
+            try:
+                shown = subprocess.run(["c++filt", kernel], text=True,
+                                       capture_output=True,
+                                       timeout=10).stdout.strip()
+            except OSError:
+                shown = kernel
+            print(f"    {shown}: {ln.split(':', 1)[1].strip()}; {spill}")
+            kernel = None
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2304,7 +2417,10 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     _build.build_all()
     print(f"[2] built {_build.sources()} for sm_90a in "
-          f"{time.perf_counter() - t:.1f} s")
+          f"{time.perf_counter() - t:.1f} s (one nvcc a source, in "
+          "parallel)")
+    for name in _build.sources():
+        print_build_report(name, _build.build_report(name))
 
     print("[3] kernel phase")
     records = [*kernel_phase(torch, pa), tail_kernel_phase(torch, pa),

@@ -4,11 +4,14 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 into ``kernels/_build/lib<name>-<hash>.so`` with::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o lib<name>-<hash>.so <name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o lib<name>-<hash>.so <name>.cu
 
 at first use. The hash covers the source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source or header builds
-anew and an unchanged one loads the library already built.
+anew and an unchanged one loads the library already built. The
+compiler's output (ptxas's registers, shared memory and spills of every
+kernel) and the build's seconds are kept beside the library as
+``lib<name>-<hash>.so.log``; `build_report` reads them.
 `build_all` starts one ``nvcc`` per source, all at once, and waits for
 all of them. A build or load failure raises; nothing falls back.
 """
@@ -20,12 +23,13 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -70,16 +74,29 @@ def _start(name: str):
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
+    return proc, tmp, out, time.perf_counter()
 
 
 def _finish(name: str, job):
-    proc, tmp, out = job
+    proc, tmp, out, t0 = job
     log, _ = proc.communicate()
+    seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on csrc/{name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
+    with open(out + ".log", "w") as fh:
+        fh.write(f"build seconds {seconds:.1f}\n{log}")
     os.replace(tmp, out)   # atomic: a reader never sees a partial .so
+
+
+def build_report(name: str) -> str:
+    """The build's seconds and ptxas's lines for ``csrc/<name>.cu`` as
+    built (empty when it has not been built here)."""
+    path = _lib_path(name) + ".log"
+    if not os.path.exists(path):
+        return ""
+    with open(path) as fh:
+        return fh.read()
 
 
 def build_all(names=None):
@@ -107,4 +124,5 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build_all", "load", "sources"]
+__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build_all", "build_report",
+           "load", "sources"]

@@ -41,22 +41,39 @@
 // reproduce.)
 //
 // How it differs from the TPU kernels: those hold a whole sequence per
-// (b, pair) block in VMEM (s <= 2048). Here every block owns one 64-row
-// tile and streams the other side through shared memory:
-// - forward: one block per (b, head, 64-query tile), K/V tiles streamed,
+// (b, pair) block in VMEM (s <= 2048). Here every block owns one query
+// or key tile and streams the other side through shared memory:
+// - forward: 128-query tiles (64 in the f32 path), K/V tiles streamed,
 //   online softmax (running max and sum, accumulator rescaled), causal
-//   tiles past the diagonal skipped;
+//   tiles past the diagonal skipped, the longest causal rows first;
 // - backward: a pre-pass for delta, a dk/dv pass (block per 64-key tile,
 //   looping over the query tiles at or after it) and a dq pass (block per
 //   query tile, looping over the key tiles up to it), both recomputing P
 //   from lse. S and dP are thus computed twice (7 tile products where the
 //   TPU's one-block backward does 5).
 // Two implementations of that design share the contract:
-// - bf16 (the training path): the products on the tensor cores with
-//   mma.sync m16n8k16 (bf16 in, f32 accumulate), 4 warps of 16 rows, bf16
-//   tiles in shared memory (operands that are needed transposed are stored
-//   a second time, transposed), the scores kept in registers and turned
-//   into the next product's operand there;
+// - bf16 (the training path), forward: Hopper's warpgroup products fed by
+//   TMA (`flash_fwd_wg_kernel`). A block of 128 queries has three
+//   warpgroups: one producer warp issues TMA loads of the head's K and V
+//   tiles of 128 keys (64 rows x 64 columns a box, 128-byte swizzle,
+//   through one tensor map over qkv as a 2-D [B*S, 3HD] array, the
+//   head's columns from `Geometry`, so both layouts share the map) into
+//   a ring of 2 (D=128) or 3 (D=64) stages with full and empty
+//   mbarriers; two consumer warpgroups of 64 rows each run S = Q.K^T as
+//   wgmma m64n128k16 from shared memory, keep the
+//   online softmax on the accumulator fragments (each warp's 16 rows in
+//   the mma.sync C layout), and add P.V as wgmma with P in registers and
+//   V read through a transposed descriptor: no transposed copy of V.
+//   The scores are kept in log2 units (scale * log2(e) folded in), so
+//   each exponential is one ex2. The grid is persistent (one block an
+//   SM, tiles longest first, round robin) and Q is double-buffered, so
+//   the producer loads the next tile while the consumers finish this
+//   one. setmaxnreg hands the producer's registers to the consumers;
+// - bf16 backward: the products on the tensor cores with mma.sync
+//   m16n8k16 (bf16 in, f32 accumulate), 4 warps of 16 rows, bf16 tiles in
+//   shared memory (operands that are needed transposed are stored a second
+//   time, transposed), the scores kept in registers and turned into the
+//   next product's operand there;
 // - f32: the products on f32 FMAs from shared memory (padded rows so that
 //   row and column reads hit distinct banks), 256 threads of 4 x (D/16)
 //   outputs each: the tensor cores have no exact f32 mode.
@@ -66,10 +83,11 @@
 // TB/s) for 4*B*H*S^2*D/2 = 34.4 GFLOP (0.035 ms at 989 TFLOP/s): memory
 // and compute are close, and at S=2048 the products dominate; the backward
 // is bound by its 85.9 GFLOP (0.087 ms). The design answers the products
-// with the tensor cores and never writes the [S,S] scores out; what it
-// leaves is latency: no copy/compute overlap (cp.async or TMA), mma.sync
-// instead of wgmma, one block of 4 warps per tile, and the recomputed S and
-// dP in the backward (ROADMAP B1).
+// with the tensor cores and never writes the [S,S] scores out. The forward
+// overlaps its loads with its products (TMA ring, warp specialisation) on
+// wgmma; the backward still leaves latency: no copy/compute overlap,
+// mma.sync instead of wgmma, one block of 4 warps per tile, and the
+// recomputed S and dP (ROADMAP B1).
 //
 // B5 at BERT-large's shape (B8 S512 H16 D64, full, bf16): the forward moves
 // 33.8 MB (qkv in, o and lse out; 0.0101 ms) for 4*B*H*S^2*D = 8.59 GFLOP
@@ -85,6 +103,7 @@
 #include <type_traits>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -102,10 +121,10 @@ struct Geometry {
 };
 
 template <int D, int L>
-__device__ __forceinline__ Geometry geometry(int H) {
+__device__ __forceinline__ Geometry geometry(int H, int hg, int b) {
   Geometry g;
-  g.hg = blockIdx.y;
-  g.b = blockIdx.z;
+  g.hg = hg;
+  g.b = b;
   g.pair = g.hg >> 1;
   g.hh = g.hg & 1;
   g.ld = (int64_t)H * D;
@@ -120,6 +139,12 @@ __device__ __forceinline__ Geometry geometry(int H) {
     g.vcol = 2 * g.ld + g.qcol;
   }
   return g;
+}
+
+// The block's own head: (head, batch) = (blockIdx.y, blockIdx.z).
+template <int D, int L>
+__device__ __forceinline__ Geometry geometry(int H) {
+  return geometry<D, L>(H, blockIdx.y, blockIdx.z);
 }
 
 template <int D, int L>
@@ -383,120 +408,282 @@ flash_bwd_dq_kernel(const float* __restrict__ qkv,
   }
 }
 
+// The bf16 forward on Hopper: a 128-query block of three warpgroups. A
+// producer warp streams the head's 128-key K and V tiles by TMA into a
+// ring of `fwd_wg_stages` stages; two consumer warpgroups, 64 query rows
+// each, compute
+// S = Q.K^T with wgmma from shared memory, keep the online softmax on the
+// accumulator fragments, and add P.V with P in registers as the A operand
+// and V read through a transposed (MN-major) descriptor.
+//
+// The grid is persistent: one block an SM walks 128-query tiles, longest
+// causal rows first, and Q is double-buffered, so the producer loads the
+// next tile's Q and K/V while the consumers finish this one.
+//
+// Shared memory: Q [2 tiles][2][D/64][64 rows][64 cols], then per stage
+// K and V [D/64][128 rows][64 cols], every 64 x 64 box (8 KB) as the TMA
+// writes it with the 128-byte swizzle, which the wgmma descriptors read
+// back.
+constexpr int kRowsW = 64;             // rows of a consumer warpgroup
+constexpr int kKeysW = 128;            // keys of a K/V tile
+constexpr int kThreadsW = 384;         // producer + 2 consumer warpgroups
+constexpr int kBox = 64;               // TMA box: 64 rows x 64 bf16 columns
+constexpr int kBoxBytes = kBox * kBox * 2;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// 2^x on the special-function unit (inputs far below -126 give 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// K/V ring stages: 2 of 64 KB at D=128, 3 of 32 KB at D=64
+template <int D>
+__host__ __device__ constexpr int fwd_wg_stages() {
+  return D == 128 ? 2 : 3;
+}
+template <int D>
+constexpr size_t fwd_wg_smem() {
+  return 1024 + (size_t)(4 + 4 * fwd_wg_stages<D>()) * (D / kBox) *
+                    kBoxBytes;
+}
+
+// One 128-query tile of the persistent grid: tiles are numbered longest
+// causal rows first (all heads' last query tile, then the one before...)
+struct FwdTile {
+  int qt, hg, b;
+};
+__device__ __forceinline__ FwdTile fwd_tile(int t, int nq, int H, int B) {
+  const int j = t / (H * B), r = t % (H * B);
+  return {nq - 1 - j, r % H, r / H};
+}
+
 template <int D, int L>
-__global__ void __launch_bounds__(kThreadsTC)
-flash_fwd_tc_kernel(const bf16* __restrict__ qkv,
+__global__ void __launch_bounds__(kThreadsW, 1)
+flash_fwd_wg_kernel(const __grid_constant__ CUtensorMap qkv_map,
                     const int32_t* __restrict__ seed, bf16* __restrict__ out,
-                    float* __restrict__ lse, int S, int H, int causal,
+                    float* __restrict__ lse, int B, int S, int H, int causal,
                     int use_drop, float keep, float scale) {
-  constexpr int LD = D + kPad, LT = kTile + kPad, KD = D / 16, ND = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);     // [64][LD]
-  bf16* Ks = Qs + kTile * LD;                        // [64][LD]
-  bf16* Vt = Ks + kTile * LD;                        // [D][LT]
+  using namespace hopper;
+  constexpr int NB = D / kBox;          // boxes across a head's columns
+  constexpr int ND = D / 8;             // 8-column n-tiles of O
+  constexpr int NS = kKeysW / 8;        // 8-column n-tiles of S
+  constexpr int kStagesW = fwd_wg_stages<D>();
+  constexpr int kTileBytes = NB * kBoxBytes;          // 64 rows x D
+  constexpr int kSlabBytes = 2 * kBoxBytes;           // 128 keys x 64 cols
+  constexpr int kKVBytes = NB * kSlabBytes;           // 128 keys x D
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full_bar[kStagesW], empty_bar[kStagesW];
+  __shared__ __align__(8) uint64_t qfull_bar[2], qempty_bar[2];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* Qs = smem;                         // [2 tiles][2][NB]
+  unsigned char* KVs = smem + 4 * kTileBytes;  // [stage][K|V][NB slabs]
 
-  const Geometry g = geometry<D, L>(H);
-  const int nq = S / kTile;
-  const int qt = nq - 1 - blockIdx.x;    // the longest causal rows first
-  const int q0 = qt * kTile;
-  const int lane = threadIdx.x & 31, gi = lane >> 2, qi = lane & 3;
-  const int r0 = (threadIdx.x >> 5) * 16;
-  const bf16* base = qkv + (int64_t)g.b * S * g.ld3;
-  const uint32_t hbase =
-      use_drop ? mix32((uint32_t)seed[0], g.b, g.pair, g.hh) : 0u;
-  const float inv_keep = 1.0f / keep;
+  const int nq = (S + 2 * kRowsW - 1) / (2 * kRowsW);
+  const int tiles = nq * H * B;
+  // key tiles; a last partial one (S % 128 == 64) masks its columns
+  // past S
+  const int nk_all = (S + kKeysW - 1) / kKeysW;
+  const int wg = threadIdx.x / 128;
 
-  copy_tile<D, kTile>(Qs, base + (int64_t)q0 * g.ld3 + g.qcol, g.ld3, kTile);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStagesW; ++s) {
+      mbar_init(&full_bar[s], 1);
+      mbar_init(&empty_bar[s], 2 * 4);   // one arrival a consumer warp
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&qfull_bar[i], 1);
+      mbar_init(&qempty_bar[i], 2 * 4);
+    }
+    mbar_init_fence();
+  }
   __syncthreads();
-  uint32_t qa[KD][4];
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk) frag_a(qa[kk], Qs, LD, r0, kk * 16, gi, qi);
-  float o[ND][4], m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
 
-  const int nk = causal ? qt + 1 : nq;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // the previous K/V tiles are consumed
-    copy_tile<D, kTile>(Ks, base + (int64_t)k0 * g.ld3 + g.kcol, g.ld3, kTile);
-    copy_tile_t<D, kTile>(Vt, base + (int64_t)k0 * g.ld3 + g.vcol,
-                          g.ld3, kTile);
-    __syncthreads();
-    float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk)
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        uint32_t b[2];
-        frag_b(b, Ks, LD, n * 8, kk * 16, gi, qi);
-        mma(s[n], qa[kk], b);
-      }
-    const bool diag = causal && kt == qt;
-    float mx[2] = {kMasked, kMasked};
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = r0 + gi + 8 * (e >> 1), c = n * 8 + 2 * qi + (e & 1);
-        s[n][e] = (diag && c > r) ? kMasked : s[n][e] * scale;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-      }
-    float alpha[2], m_new[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      m_new[h] = fmaxf(m[h], quad_max(mx[h]));
-      alpha[h] = expf(m[h] - m_new[h]);
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float p = expf(s[n][e] - m_new[e >> 1]);
-        sum[e >> 1] += p;
-        if (use_drop)
-          p *= keep_scale(hbase, q0 + r0 + gi + 8 * (e >> 1),
-                          k0 + n * 8 + 2 * qi + (e & 1), keep, inv_keep);
-        s[n][e] = p;
-      }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      l[h] = l[h] * alpha[h] + quad_sum(sum[h]);
-      m[h] = m_new[h];
-    }
-#pragma unroll
-    for (int n = 0; n < ND; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t pa[4];
-      as_a(pa, s, kk);
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        uint32_t b[2];
-        frag_b(b, Vt, LT, n * 8, kk * 16, gi, qi);
-        mma(o[n], pa, b);
+  if (wg == 0) {
+    // ---------------------------------------------------------- producer
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      int it = 0;                          // K/V tiles issued so far
+      int n = 0;                           // query tiles of this block
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++n) {
+        const FwdTile f = fwd_tile(t, nq, H, B);
+        const Geometry g = geometry<D, L>(H, f.hg, f.b);
+        const int q0 = f.qt * 2 * kRowsW, row0 = f.b * S;
+        const int nk = causal ? f.qt + 1 : nk_all;
+        const int active = min(2, (S - q0) / kRowsW);
+        const int qb = n & 1;
+        mbar_wait(&qempty_bar[qb], ((n >> 1) & 1) ^ 1);
+        mbar_expect_tx(&qfull_bar[qb], active * kTileBytes);
+        for (int c = 0; c < active; ++c)
+          for (int j = 0; j < NB; ++j)
+            tma_load_2d(Qs + ((qb * 2 + c) * NB + j) * kBoxBytes, &qkv_map,
+                        &qfull_bar[qb], (int)g.qcol + j * kBox,
+                        row0 + q0 + c * kRowsW);
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int s = it % kStagesW;
+          mbar_wait(&empty_bar[s], ((it / kStagesW) & 1) ^ 1);
+          mbar_expect_tx(&full_bar[s], 2 * kKVBytes);
+          unsigned char* Ks = KVs + s * 2 * kKVBytes;
+          unsigned char* Vs = Ks + kKVBytes;
+          // each 64-column slab: two 64-row boxes, one after the other
+          for (int j = 0; j < NB; ++j)
+            for (int r = 0; r < 2; ++r) {
+              const int row = row0 + kt * kKeysW + r * kBox;
+              tma_load_2d(Ks + j * kSlabBytes + r * kBoxBytes, &qkv_map,
+                          &full_bar[s], (int)g.kcol + j * kBox, row);
+              tma_load_2d(Vs + j * kSlabBytes + r * kBoxBytes, &qkv_map,
+                          &full_bar[s], (int)g.vcol + j * kBox, row);
+            }
+        }
       }
     }
+    return;
   }
 
+  // ------------------------------------------------------------ consumers
+  setmaxnreg_inc<232>();
+  const int c = wg - 1;                  // this warpgroup's 64 rows
+  const int t_in = threadIdx.x - 128 * wg;
+  const int lane = t_in & 31, gi = lane >> 2, qi = lane & 3;
+  const int r0 = (t_in >> 5) * 16;       // this warp's rows in the 64
+  const float inv_keep = 1.0f / keep;
+  const float scale_l2 = scale * kLog2e;
+  const uint32_t seed0 = use_drop ? (uint32_t)seed[0] : 0u;
+  int it = 0, n = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++n) {
+    const FwdTile f = fwd_tile(t, nq, H, B);
+    const Geometry g = geometry<D, L>(H, f.hg, f.b);
+    const int q0 = f.qt * 2 * kRowsW;
+    const int nk = causal ? f.qt + 1 : nk_all;
+    const int my_q0 = q0 + c * kRowsW;
+    const bool live = c < min(2, (S - q0) / kRowsW);
+    const int my_nk = live ? nk : 0;
+    const uint32_t hbase = use_drop ? mix32(seed0, g.b, g.pair, g.hh) : 0u;
+    const int qb = n & 1;
+    const unsigned char* Qc = Qs + (qb * 2 + c) * kTileBytes;
+
+    float o[ND][4], m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = q0 + r0 + gi + 8 * h;
-    const float lc = fmaxf(l[h], 1e-30f);
-    bf16* orow = out + ((int64_t)g.b * S + row) * g.ld + (int64_t)g.hg * D;
+    for (int j = 0; j < ND; ++j)
 #pragma unroll
-    for (int n = 0; n < ND; ++n)
-      *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * qi) =
-          pack_bf16(o[n][2 * h] / lc, o[n][2 * h + 1] / lc);
-    if (qi == 0) lse[((int64_t)g.b * H + g.hg) * S + row] = m[h] + logf(lc);
+      for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+    if (live) mbar_wait(&qfull_bar[qb], (n >> 1) & 1);
+
+    for (int kt = 0; kt < nk; ++kt, ++it) {
+      const int s = it % kStagesW;
+      mbar_wait(&full_bar[s], (it / kStagesW) & 1);
+      if (kt < my_nk) {
+        const unsigned char* Ks = KVs + s * 2 * kKVBytes;
+        const unsigned char* Vs = Ks + kKVBytes;
+        const int k0 = kt * kKeysW;
+        float sc[NS][4];
+        // S = Q.K^T: 16-column steps of the head dim, 32 bytes apart
+        // inside a box's swizzled 128-byte rows
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+          wgmma_ss_n128(sc, desc_sw128(Qc + off, 16, 1024),
+                        desc_sw128(Ks + (kk / 4) * kSlabBytes + (kk % 4) * 32,
+                                   16, 1024),
+                        kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait0();
+        reg_fence(sc);
+        // scores in log2 units (s * scale * log2(e)), so that each
+        // exponential is one ex2; only the last tile is masked (causally,
+        // and past S)
+        float mx[2] = {kMasked, kMasked};
+        if (kt == nk - 1 && (causal || k0 + kKeysW > S)) {
+          const int lim_c = S - 1 - k0;          // last column in S
+#pragma unroll
+          for (int j = 0; j < NS; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int row = my_q0 + r0 + gi + 8 * (e >> 1) - k0;
+              const int col = j * 8 + 2 * qi + (e & 1);
+              const bool cut = col > lim_c || (causal && col > row);
+              sc[j][e] = cut ? kMasked : sc[j][e] * scale_l2;
+              mx[e >> 1] = fmaxf(mx[e >> 1], sc[j][e]);
+            }
+        } else {
+#pragma unroll
+          for (int j = 0; j < NS; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              sc[j][e] *= scale_l2;
+              mx[e >> 1] = fmaxf(mx[e >> 1], sc[j][e]);
+            }
+        }
+        float alpha[2], m_new[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          m_new[h] = fmaxf(m[h], quad_max(mx[h]));
+          alpha[h] = ex2(m[h] - m_new[h]);
+        }
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = ex2(sc[j][e] - m_new[e >> 1]);
+            sum[e >> 1] += p;
+            if (use_drop)
+              p *= keep_scale(hbase, my_q0 + r0 + gi + 8 * (e >> 1),
+                              k0 + j * 8 + 2 * qi + (e & 1), keep, inv_keep);
+            sc[j][e] = p;
+          }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          l[h] = l[h] * alpha[h] + quad_sum(sum[h]);
+          m[h] = m_new[h];
+        }
+#pragma unroll
+        for (int j = 0; j < ND; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
+        // O += P.V: 16 keys a step, V's rows 16 x 128 bytes apart; the
+        // second 64 columns of a 128-wide head lie one slab further
+        uint32_t pa[NS / 2][4];
+#pragma unroll
+        for (int kk = 0; kk < NS / 2; ++kk) as_a(pa[kk], sc, kk);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < NS / 2; ++kk) {
+          const uint64_t dv =
+              desc_sw128(Vs + kk * 16 * 128, kSlabBytes, 1024);
+          if constexpr (D == 64)
+            wgmma_rs_n64(o, pa[kk], dv);
+          else
+            wgmma_rs_n128(o, pa[kk], dv);
+        }
+        wgmma_commit();
+        wgmma_wait0();
+        reg_fence(o);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty_bar[s]);
+    }
+    // this tile's Q is read: the producer may load the tile after next
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&qempty_bar[qb]);
+    if (!live) continue;
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = my_q0 + r0 + gi + 8 * h;
+      const float lc = fmaxf(l[h], 1e-30f);
+      bf16* orow = out + ((int64_t)g.b * S + row) * g.ld + (int64_t)g.hg * D;
+#pragma unroll
+      for (int j = 0; j < ND; ++j)
+        *reinterpret_cast<uint32_t*>(orow + j * 8 + 2 * qi) =
+            pack_bf16(o[j][2 * h] / lc, o[j][2 * h + 1] / lc);
+      if (qi == 0)
+        lse[((int64_t)g.b * H + g.hg) * S + row] = m[h] * kLn2 + logf(lc);
+    }
   }
 }
 
@@ -726,6 +913,48 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ qkv,
   }
 }
 
+// The TMA map of the fused projection as a 2-D bf16 array [B*S, 3*H*D]
+// (row stride 6HD bytes, a multiple of 16 for D in {64, 128}) in 64 x 64
+// boxes with the 128-byte swizzle. `cuTensorMapEncodeTiled` is reached
+// through the runtime's entry-point query, so the library links no
+// libcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+cudaError_t qkv_tensor_map(CUtensorMap* map, const void* qkv, int B, int S,
+                           int H, int D) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                              cudaEnableDefault, &q);
+#endif
+    if (err != cudaSuccess) return err;
+    if (q != cudaDriverEntryPointSuccess || fn == nullptr)
+      return cudaErrorNotSupported;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)3 * H * D, (cuuint64_t)B * S};
+  const cuuint64_t strides[1] = {(cuuint64_t)3 * H * D * sizeof(bf16)};
+  const cuuint32_t box[2] = {kBox, kBox};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(qkv), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 template <typename T, int D, int L>
 cudaError_t launch_fwd(const void* qkv, const void* seed, void* out, void* lse,
                        int B, int S, int H, int causal, int use_drop,
@@ -735,11 +964,20 @@ cudaError_t launch_fwd(const void* qkv, const void* seed, void* out, void* lse,
   float* l = static_cast<float*>(lse);
   cudaError_t err;
   if constexpr (std::is_same<T, bf16>::value) {
-    auto k = flash_fwd_tc_kernel<D, L>;
-    if ((err = allow_smem(k, fwd_tc_smem<D>())) != cudaSuccess) return err;
-    k<<<grid, kThreadsTC, fwd_tc_smem<D>(), stream>>>(
-        static_cast<const bf16*>(qkv), sd, static_cast<bf16*>(out), l, S, H,
-        causal, use_drop, keep, scale);
+    CUtensorMap map;
+    if ((err = qkv_tensor_map(&map, qkv, B, S, H, D)) != cudaSuccess)
+      return err;
+    auto k = flash_fwd_wg_kernel<D, L>;
+    if ((err = allow_smem(k, fwd_wg_smem<D>())) != cudaSuccess) return err;
+    int dev = 0, sms = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess)
+      return err;
+    const int tiles = (S + 2 * kRowsW - 1) / (2 * kRowsW) * H * B;
+    k<<<min(tiles, sms), kThreadsW, fwd_wg_smem<D>(), stream>>>(
+        map, sd, static_cast<bf16*>(out), l, B, S, H, causal, use_drop, keep,
+        scale);
   } else {
     auto k = flash_fwd_kernel<D, L>;
     if ((err = allow_smem(k, fwd_smem<D>())) != cudaSuccess) return err;

@@ -1,5 +1,5 @@
 // Paged-attention decode/verify kernel for Hopper (sm_90a), plain C
-// interface.
+// interface: flash-decoding, the page walk split across blocks.
 //
 // Replaces the TPU kernel paddle_tpu/kernels/paged_attention.py:120
 // `_paged_attn_kernel` (launched by `fused_paged_attention`, :179), in both
@@ -17,11 +17,11 @@
 // verify window. Query j of row n attends logical column c (page c / ps,
 // in-page column c % ps) when c <= steps[n] + j and valid_cols[n, c] != 0.
 // Scores are q.k / sqrt(D) in f32; a masked score is -1e30 (not -inf), so
-// a row with no readable column gets the uniform average of every column
-// of its table instead of NaN: parked serving slots, whose block-table
-// rows all name the sentinel page, rely on that. Accumulation is f32 with
-// online softmax; out [N,H,W,D] is written in the query dtype and
-// lse [N,H,W] = m + log(l) in f32.
+// a query with no readable column gets the uniform average of every
+// column of its table instead of NaN: parked serving slots, whose
+// block-table rows all name the sentinel page, rely on that. Accumulation
+// is f32 with online softmax; out [N,H,W,D] is written in the query dtype
+// and lse [N,H,W] = m + log(l) in f32.
 //
 // One difference from the reference's own fp8 path: its gather oracle
 // rounds the dequantized view to q's dtype before attending (:268), while
@@ -29,31 +29,53 @@
 // With bf16 queries on the card the two differ by that rounding; in f32
 // they agree.
 //
-// How it differs from the TPU kernel: the TPU grid is (n, h, page) with
-// the page axis sequential and the softmax state carried in VMEM scratch
-// across grid steps. GPU blocks run in no order, so here one thread block
-// owns an (n, h) pair and a tile of up to WT queries (WT = 4, or 8 for a
-// window of 5 to 8 queries, so a k+1 = 5 verify window runs one block per
-// (row, head)) and loops over that row's pages itself, reading
-// block_table[n, p] directly (no scalar prefetch). It reads only the pages
-// that hold a column <= steps[n]+W-1 and a column valid_cols marks
-// readable: a page past the cursor or of left padding alone adds exactly
-// nothing (exp(-1e30 - m) = 0, or alpha = 0 once a readable column
-// arrives) to a query that has a readable column. A tile with a query
-// that has none (m still -1e30 at the cursor) starts again at page 0 and
-// walks every page of the table, skipping nothing: the TPU kernel's
-// uniform average.
-//
 // Bound on the H100: memory. Per call it must read the live pages once:
 // H * ps * D * 2 (K and V) * page bytes per page, plus, for a quantized
 // pool, H * ps * 4 * 2 bytes of scales, at 3.35 TB/s; the arithmetic
-// (4*W*D flops per column) is far below the card's rate. The design
-// answers that bound by reading each live page exactly once per (row,
-// head, query tile), with 16-byte loads (neighbouring threads on
-// neighbouring addresses; 16 one-byte elements per load for a quantized
-// pool) into shared memory as f32, each column's scale read once per
-// chunk. Split-K over pages (flash-decoding) and cp.async/TMA page
-// streaming are later work.
+// (4*W*D flops per column) is far below the card's rate. At the engine's
+// shape (N=8 rows x H=16 heads) one block per (row, head) fills 128 of the
+// 132 SMs with one block each, so the call lasts as long as the longest
+// row's serial page walk. The design, for this card:
+//
+// - Split-K over pages (flash-decoding). The grid is (N*H, W tiles,
+//   splits); split s owns the contiguous table range [s*pps, (s+1)*pps).
+//   The wrapper picks the split count from the shapes and the SM count
+//   alone (`plan_splits` in kernels/paged_attention.py), never from
+//   steps or valid_cols, so choosing it never waits for the card.
+// - Inside a split the 4 warps take the range's pages round robin and
+//   work independently, each with its own running max and sum per query
+//   and its own accumulator: no block barrier in the walk. A warp reads
+//   the valid_cols of 32 of its pages at once (one ballot says which hold
+//   a readable column up to the tile's cursor) and the block-table
+//   entries with them, and skips the rest: a page past the cursor or of
+//   left padding alone adds exactly nothing to a query that has a
+//   readable column. The 4 warps merge once, at the end of the split.
+// - Page loads are asynchronous: each warp streams 16-column chunks of
+//   its (page, head) slabs ([ps, D], contiguous in the pool) with 16-byte
+//   cp.async copies into its own 2-stage shared-memory ring (K, V, their
+//   scales and the chunk's valid_cols), so the next chunk is in flight
+//   while the warp computes on the current one.
+// - Scores: each lane holds D/32 of the query's and the key's
+//   coordinates; one reduce-scatter of 16 shuffles leaves every lane
+//   with the whole dot product of one of the chunk's 16 columns (two
+//   lanes a column), where 16 warp reductions would take 80. P.V
+//   broadcasts each column's weight from its lane.
+// - The combine stays in the same launch. Every split writes its
+//   unnormalised f32 partial (o, m, l) per query to a workspace; the last
+//   split of a (row.head, W tile) to finish, known from an atomic ticket
+//   taken after a __threadfence(), merges them with the flash rule
+//   (M = max m, weights exp(m - M)) and resets the ticket to 0 for the
+//   next call. One wrapper call stays one launch.
+// - A query with no readable column: every block of the tile first scans
+//   the row's valid_cols up to the tile's first cursor (block-wide, 16
+//   bytes a load). When that query has none, every split walks all of its
+//   pages, skipping nothing and ignoring the cursor for the walk; the
+//   masked scores then all equal -1e30, each split's partial is the plain
+//   sum of its V columns with l its column count, and the merge's weights
+//   are all exp(0) = 1: the uniform average over every column of the
+//   table, as the TPU kernel gives. The mask itself is unchanged, so a
+//   later query of the same tile that does have readable columns gets its
+//   masked softmax (its masked columns weigh exp(-1e30 - m) = 0).
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
@@ -63,256 +85,419 @@ namespace {
 
 constexpr int kThreads = 128;           // 4 warps per block
 constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 16;              // largest column chunk in shared memory
+constexpr int kStages = 2;              // a warp's ring of chunks
 constexpr float kMasked = -1e30f;       // the TPU kernel's _NEG_INF
+constexpr unsigned kAll = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(int8_t x) {
+  return static_cast<float>(x);
+}
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);
 }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-// One 16-byte load of page elements, widened to f32 in shared memory. The
-// 1-byte forms dequantize with the column's scale; the float forms take
-// no scale.
-__device__ __forceinline__ void load16(const float* src, float* dst, float) {
-  const float4 v = *reinterpret_cast<const float4*>(src);
-  dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
-}
-__device__ __forceinline__ void load16(const __nv_bfloat16* src, float* dst,
-                                       float) {
-  const uint4 v = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+// VD consecutive page elements (VD * sizeof(T) bytes, aligned to that) in
+// f32, times `scale` (1 for float pages).
+template <typename T, int VD>
+__device__ __forceinline__ void load_row(const T* src, float scale,
+                                         float (&x)[VD]) {
+  struct alignas(VD * sizeof(T)) Vec { T e[VD]; };
+  const Vec v = *reinterpret_cast<const Vec*>(src);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
+  for (int i = 0; i < VD; ++i) x[i] = to_f32(v.e[i]) * scale;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// v[c] holds this lane's part of column c's dot product. Afterwards v[0]
+// holds the whole warp's sum for column lane / (32 / C): each halving
+// stage (OFF = 16, 8, ...) sends the half of the columns the partner
+// keeps (C - 1 shuffles in all), then the R = 32 / C lanes of one column
+// add up. The stages are templates, so every index into v is a constant
+// and v stays in registers.
+template <int C, int HALF, int OFF>
+__device__ __forceinline__ void reduce_stage(float (&v)[C], int lane) {
+  const bool upper = (lane & OFF) != 0;
+#pragma unroll
+  for (int i = 0; i < HALF; ++i) {
+    const float send = upper ? v[i] : v[i + HALF];
+    const float keep = upper ? v[i + HALF] : v[i];
+    v[i] = keep + __shfl_xor_sync(kAll, send, OFF);
   }
+  if constexpr (HALF > 1) reduce_stage<C, HALF / 2, OFF / 2>(v, lane);
 }
-__device__ __forceinline__ void load16(const int8_t* src, float* dst,
-                                       float scale) {
-  const int4 v = *reinterpret_cast<const int4*>(src);
-  const int8_t* b = reinterpret_cast<const int8_t*>(&v);
+template <int C>
+__device__ __forceinline__ float reduce_scatter(float (&v)[C], int lane) {
+  reduce_stage<C, C / 2, 16>(v, lane);
+  float x = v[0];
 #pragma unroll
-  for (int i = 0; i < 16; ++i) dst[i] = static_cast<float>(b[i]) * scale;
+  for (int o = 16 / C; o >= 1; o >>= 1) x += __shfl_xor_sync(kAll, x, o);
+  return x;
 }
-__device__ __forceinline__ void load16(const __nv_fp8_e4m3* src, float* dst,
-                                       float scale) {
-  const uint4 v = *reinterpret_cast<const uint4*>(src);
-  const __nv_fp8_e4m3* b = reinterpret_cast<const __nv_fp8_e4m3*>(&v);
-#pragma unroll
-  for (int i = 0; i < 16; ++i) dst[i] = static_cast<float>(b[i]) * scale;
-}
+
+struct Params {
+  const void *q, *pk, *pv;
+  const float *ks, *vs;
+  const int32_t *bt, *st, *vc;
+  void* out;
+  float* lse;
+  float* part_o;     // [N*H*W, splits, D] unnormalised partial out
+  float* part_ml;    // [N*H*W, splits, 2] partial (m, l)
+  int32_t* tickets;  // [N*H*tiles], 0 between calls
+  int H, W, ps, pmax, pps;
+};
+
+// Layout of one ring stage in shared memory: K and V chunks [C][D] in the
+// page type, then (1-byte pages) their C scales each, then the chunk's C
+// valid_cols entries.
+template <typename TP, int D, int C>
+struct Stage {
+  static constexpr bool kQuant = sizeof(TP) == 1;
+  static constexpr int kKV = C * D * (int)sizeof(TP);
+  static constexpr int kScales = 2 * kKV;
+  static constexpr int kVc = kScales + (kQuant ? 2 * C * 4 : 0);
+  static constexpr int kBytes = kVc + C * 4;
+};
+
+// The pages of one warp inside its split: candidates p0 + warp + k*kWarps
+// below p_end; `next` yields the live ones in order with their physical
+// page, 32 candidates per ballot.
+struct PageWalk {
+  int first, end, lim, ps, base;
+  bool all;
+  uint32_t mask;
+  int phys;                 // this lane's candidate's physical page
+  const int32_t *bt, *vc;
+
+  __device__ __forceinline__ void scan(int lane) {
+    const int p = first + (base + lane) * kWarps;
+    bool live = p < end;
+    phys = live ? __ldg(bt + p) : 0;     // in flight beside the scan
+    if (live && !all) {
+      // any readable column in [p*ps, min(p*ps + ps, lim + 1))
+      const int c0 = p * ps, c1 = min(c0 + ps, lim + 1);
+      bool any = false;
+      for (int c = c0; c < c1; c += 4) {
+        const int4 v = __ldg(reinterpret_cast<const int4*>(vc + c));
+        any |= (v.x != 0) | ((c + 1 < c1) & (v.y != 0)) |
+               ((c + 2 < c1) & (v.z != 0)) | ((c + 3 < c1) & (v.w != 0));
+      }
+      live = any;
+    }
+    mask = __ballot_sync(kAll, live);
+  }
+  // the next live page (-1 when none), its physical page in `ph`
+  __device__ __forceinline__ int next(int lane, int& ph) {
+    while (mask == 0) {
+      base += 32;
+      if (first + base * kWarps >= end) return -1;
+      scan(lane);
+    }
+    const int bit = __ffs(mask) - 1;
+    mask &= mask - 1;
+    ph = __shfl_sync(kAll, phys, bit);
+    return first + (base + bit) * kWarps;
+  }
+};
 
 // TQ: query/out type (float, bf16). TP: page type (TQ, int8_t or
-// __nv_fp8_e4m3; the 1-byte types read k_scale/v_scale). D: head dim.
-// WT: queries per block.
-template <typename TQ, typename TP, int D, int WT>
+// __nv_fp8_e4m3; the 1-byte types read the scales). D: head dim. WT:
+// queries per block. C: columns per ring chunk (16, or 8 when ps % 16).
+template <typename TQ, typename TP, int D, int WT, int C>
 __global__ void __launch_bounds__(kThreads)
-paged_attn_kernel(const TQ* __restrict__ q, const TP* __restrict__ pool_k,
-                  const TP* __restrict__ pool_v,
-                  const float* __restrict__ k_scale,
-                  const float* __restrict__ v_scale,
-                  const int32_t* __restrict__ block_table,
-                  const int32_t* __restrict__ steps,
-                  const int32_t* __restrict__ valid_cols,
-                  TQ* __restrict__ out, float* __restrict__ lse,
-                  int H, int W, int ps, int pmax, int chunk) {
-  constexpr bool kQuant = sizeof(TP) == 1;
-  constexpr int kVec = 16 / sizeof(TP);              // elements per load
-  constexpr int kPer = WT * D / kThreads;            // acc slots per thread
-  static_assert(WT * D % kThreads == 0, "query tile must fill the block");
-  __shared__ __align__(16) float q_s[WT][D];
-  __shared__ __align__(16) float k_s[kChunk][D];
-  __shared__ __align__(16) float v_s[kChunk][D];
-  __shared__ float p_s[WT][kChunk];                  // scores, then weights
-  __shared__ float m_s[WT], l_s[WT], a_s[WT];
-  __shared__ float ksc_s[kChunk], vsc_s[kChunk];     // the chunk's scales
+paged_attn_kernel(const Params a) {
+  using St = Stage<TP, D, C>;
+  constexpr bool kQuant = St::kQuant;
+  constexpr int VD = D / 32;             // coordinates a lane holds
+  constexpr int R = 32 / C;              // lanes holding one column's score
+  constexpr int kChunk16 = St::kKV / 16;  // 16-byte copies of a K chunk
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int last_s;
 
-  const int nh = blockIdx.x;                         // n * H + h
+  const int nh = blockIdx.x, tile = blockIdx.y, split = blockIdx.z;
+  const int S = gridDim.z, tiles = gridDim.y;
+  const int H = a.H, W = a.W, ps = a.ps, pmax = a.pmax;
   const int n = nh / H, h = nh % H;
-  const int w0 = blockIdx.y * WT;
-  const int wt = min(WT, W - w0);
+  const int w0 = tile * WT, wt = min(WT, W - w0);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lp = pmax * ps;
+  const int step = a.st[n];
+  const int32_t* vc = a.vc + (int64_t)n * lp;
 
-  const int step = steps[n];
-  const int n_read = max(1, min(pmax, (step + W - 1) / ps + 1));
-  const int32_t* bt = block_table + (int64_t)n * pmax;
-  const int32_t* vc = valid_cols + (int64_t)n * pmax * ps;
-  const int64_t head_stride = (int64_t)ps * D;
-  const int64_t page_stride = (int64_t)H * head_stride;
-  const float scale = sqrtf((float)D);
-
-  const TQ* qrow = q + ((int64_t)nh * W + w0) * D;
-  for (int i = tid; i < wt * D; i += kThreads)
-    q_s[i / D][i % D] = to_f32(qrow[i]);
-  if (tid < WT) {
-    m_s[tid] = kMasked;
-    l_s[tid] = 0.f;
+  // does the tile's first query have a readable column? (later queries
+  // see a superset of its columns)
+  int any = 0;
+  const int lim0 = min(step + w0, lp - 1);
+  for (int c = tid * 4; c <= lim0; c += kThreads * 4) {
+    const int4 v = __ldg(reinterpret_cast<const int4*>(vc + c));
+    any |= (v.x != 0) | ((c + 1 <= lim0) & (v.y != 0)) |
+           ((c + 2 <= lim0) & (v.z != 0)) | ((c + 3 <= lim0) & (v.w != 0));
   }
-  float acc[kPer];
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) acc[i] = 0.f;
+  const bool uniform = __syncthreads_or(any) == 0;
 
-  // first pass: pages up to the cursor that hold a readable column;
-  // a tile with a query that found none walks the whole table again
-  bool first_pass = true;
-  int p_end = n_read;
-  for (int p = 0; p < p_end; ++p) {
-    bool live = true;
-    if (first_pass) {
-      int any = 0;
-      for (int c = tid; c < ps; c += kThreads) any |= vc[p * ps + c] != 0;
-      live = __syncthreads_or(any) != 0;
+  const int p0 = split * a.pps, p1 = min(pmax, p0 + a.pps);
+  const int lim = step + w0 + wt - 1;    // the tile's last cursor
+  const int p_end = uniform ? p1 : min(p1, lim / ps + 1);
+
+  float qv[WT][VD], acc[WT][VD], m[WT], l[WT];
+  const TQ* qrow = static_cast<const TQ*>(a.q) + ((int64_t)nh * W + w0) * D;
+#pragma unroll
+  for (int w = 0; w < WT; ++w) {
+    m[w] = kMasked;
+    l[w] = 0.f;
+#pragma unroll
+    for (int i = 0; i < VD; ++i) {
+      qv[w][i] = w < wt ? to_f32(qrow[w * D + lane * VD + i]) : 0.f;
+      acc[w][i] = 0.f;
     }
-    if (live) {
-      const int64_t base =
-          (int64_t)bt[p] * page_stride + (int64_t)h * head_stride;
-      const int64_t sbase = ((int64_t)bt[p] * H + h) * ps;
-      for (int c0 = 0; c0 < ps; c0 += chunk) {
-        __syncthreads();  // the previous chunk is consumed; q_s/m_s are set
-        if constexpr (kQuant) {
-          if (tid < chunk) {
-            ksc_s[tid] = k_scale[sbase + c0 + tid];
-            vsc_s[tid] = v_scale[sbase + c0 + tid];
-          }
-          __syncthreads();
-        }
-        const TP* ks = pool_k + base + (int64_t)c0 * D;
-        const TP* vs = pool_v + base + (int64_t)c0 * D;
-        for (int i = tid; i < chunk * D / kVec; i += kThreads) {
-          const int c = i * kVec / D;
-          load16(ks + i * kVec, &k_s[0][0] + i * kVec,
-                 kQuant ? ksc_s[c] : 1.f);
-          load16(vs + i * kVec, &v_s[0][0] + i * kVec,
-                 kQuant ? vsc_s[c] : 1.f);
-        }
-        __syncthreads();
-        // scores: warp `warp` owns columns warp, warp + 4, ...; lanes split D
-        const int col0 = p * ps + c0;
-        for (int c = warp; c < chunk; c += kWarps) {
-          const int col = col0 + c;
-          const bool readable = vc[col] != 0;
-          for (int w = 0; w < wt; ++w) {
-            float part = 0.f;
+  }
+
+  unsigned char* ring = smem + warp * kStages * St::kBytes;
+  const int64_t head_stride = (int64_t)ps * D;
+  const TP* pool_k = static_cast<const TP*>(a.pk);
+  const TP* pool_v = static_cast<const TP*>(a.pv);
+  const int cpp = ps / C;                // chunks a page
+  const float inv_scale = 1.f / sqrtf((float)D);
+
+  auto issue = [&](int stage, int page, int phys, int chunk) {
+    unsigned char* dst = ring + stage * St::kBytes;
+    if (page >= 0) {
+      const int64_t slab = ((int64_t)phys * H + h) * head_stride +
+                           (int64_t)chunk * C * D;
+      const unsigned char* ks =
+          reinterpret_cast<const unsigned char*>(pool_k + slab);
+      const unsigned char* vs =
+          reinterpret_cast<const unsigned char*>(pool_v + slab);
+      for (int i = lane; i < kChunk16; i += 32) {
+        cp_async16(dst + i * 16, ks + i * 16);
+        cp_async16(dst + St::kKV + i * 16, vs + i * 16);
+      }
+      constexpr int kQ = C / 4;          // 16-byte pieces of C ints/floats
+      const int64_t sc = ((int64_t)phys * H + h) * ps + chunk * C;
+      if constexpr (kQuant) {
+        if (lane < kQ)
+          cp_async16(dst + St::kScales + lane * 16, a.ks + sc + lane * 4);
+        else if (lane < 2 * kQ)
+          cp_async16(dst + St::kScales + C * 4 + (lane - kQ) * 16,
+                     a.vs + sc + (lane - kQ) * 4);
+      }
+      if (lane >= 2 * kQ && lane < 3 * kQ)
+        cp_async16(dst + St::kVc + (lane - 2 * kQ) * 16,
+                   vc + page * ps + chunk * C + (lane - 2 * kQ) * 4);
+    }
+    cp_async_commit();
+  };
+
+  PageWalk walk{split * a.pps + warp, p_end, lim, ps, 0, uniform, 0u, 0,
+                a.bt + (int64_t)n * pmax, vc};
+  walk.scan(lane);
+  int cur_page, cur_phys = 0, cur_chunk = 0;
+  int nxt_page, nxt_phys = 0, nxt_chunk = 0;
+  cur_page = walk.next(lane, cur_phys);
+  issue(0, cur_page, cur_phys, 0);
+  nxt_page = cur_page;
+  nxt_phys = cur_phys;
+  if (nxt_page >= 0 && ++nxt_chunk == cpp) {
+    nxt_chunk = 0;
+    nxt_page = walk.next(lane, nxt_phys);
+  }
+  issue(1, nxt_page, nxt_phys, nxt_chunk);
+
+  for (int stage = 0; cur_page >= 0; stage ^= 1) {
+    cp_async_wait1();
+    __syncwarp();
+    const unsigned char* buf = ring + stage * St::kBytes;
+    const TP* k_s = reinterpret_cast<const TP*>(buf);
+    const TP* v_s = reinterpret_cast<const TP*>(buf + St::kKV);
+    const float* ksc = reinterpret_cast<const float*>(buf + St::kScales);
+    const float* vsc = ksc + C;
+    const int32_t* vc_s = reinterpret_cast<const int32_t*>(buf + St::kVc);
+    const int col = cur_page * ps + cur_chunk * C + lane / R;
+    const bool readable = vc_s[lane / R] != 0;
+    float pw[WT];
 #pragma unroll
-            for (int d = lane; d < D; d += 32) part += q_s[w][d] * k_s[c][d];
+    for (int w = 0; w < WT; ++w) {
+      pw[w] = 0.f;
+      if (w < wt) {
+        float part[C];
 #pragma unroll
-            for (int off = 16; off > 0; off >>= 1)
-              part += __shfl_xor_sync(0xffffffffu, part, off);
-            if (lane == 0)
-              p_s[w][c] = (readable && col <= step + w0 + w) ? part / scale
-                                                             : kMasked;
-          }
-        }
-        __syncthreads();
-        // online softmax: one thread per query of the tile
-        if (tid < wt) {
-          const float m_prev = m_s[tid];
-          float m_new = m_prev;
-          for (int c = 0; c < chunk; ++c) m_new = fmaxf(m_new, p_s[tid][c]);
-          float sum = 0.f;
-          for (int c = 0; c < chunk; ++c) {
-            const float e = expf(p_s[tid][c] - m_new);
-            p_s[tid][c] = e;
-            sum += e;
-          }
-          const float alpha = expf(m_prev - m_new);
-          l_s[tid] = l_s[tid] * alpha + sum;
-          m_s[tid] = m_new;
-          a_s[tid] = alpha;
-        }
-        __syncthreads();
-        // acc = acc * alpha + P . V; thread slot i holds (w, d) = divmod(idx, D)
+        for (int c = 0; c < C; ++c) {
+          float kf[VD];
+          load_row<TP, VD>(k_s + c * D + lane * VD, kQuant ? ksc[c] : 1.f,
+                           kf);
+          float s = 0.f;
 #pragma unroll
-        for (int i = 0; i < kPer; ++i) {
-          const int idx = tid + i * kThreads;
-          const int w = idx / D, d = idx % D;
-          if (w < wt) {
-            float a = acc[i] * a_s[w];
-            for (int c = 0; c < chunk; ++c) a += p_s[w][c] * v_s[c][d];
-            acc[i] = a;
-          }
+          for (int i = 0; i < VD; ++i) s = fmaf(qv[w][i], kf[i], s);
+          part[c] = s;
         }
+        float sc = reduce_scatter<C>(part, lane) * inv_scale;
+        if (!(readable && col <= step + w0 + w)) sc = kMasked;
+        float cmax = sc;
+#pragma unroll
+        for (int o = 16; o >= R; o >>= 1)
+          cmax = fmaxf(cmax, __shfl_xor_sync(kAll, cmax, o));
+        const float m_new = fmaxf(m[w], cmax);
+        const float alpha = expf(m[w] - m_new);
+        const float p = expf(sc - m_new);
+        l[w] = l[w] * alpha + (lane % R == 0 ? p : 0.f);
+        m[w] = m_new;
+#pragma unroll
+        for (int i = 0; i < VD; ++i) acc[w][i] *= alpha;
+        pw[w] = p;
       }
     }
-    if (first_pass && p == n_read - 1) {
-      // m_s was last written before a barrier every thread has passed
-      // since (the one ahead of the P.V update, or a later page's
-      // __syncthreads_or), so every thread reads the same values here
-      bool none = false;
-      for (int w = 0; w < wt; ++w) none |= m_s[w] == kMasked;
-      if (none) {
-        __syncthreads();  // every thread has read m_s
 #pragma unroll
-        for (int i = 0; i < kPer; ++i) acc[i] = 0.f;
-        if (tid < WT) {
-          m_s[tid] = kMasked;
-          l_s[tid] = 0.f;
-        }
-        first_pass = false;
-        p_end = pmax;
-        p = -1;  // again from page 0, skipping nothing
+    for (int c = 0; c < C; ++c) {
+      float vf[VD];
+      load_row<TP, VD>(v_s + c * D + lane * VD, kQuant ? vsc[c] : 1.f, vf);
+#pragma unroll
+      for (int w = 0; w < WT; ++w) {
+        const float pc = __shfl_sync(kAll, pw[w], c * R);
+#pragma unroll
+        for (int i = 0; i < VD; ++i) acc[w][i] = fmaf(pc, vf[i], acc[w][i]);
       }
+    }
+    __syncwarp();  // every lane has read the stage before it is refilled
+    cur_page = nxt_page;
+    cur_phys = nxt_phys;
+    cur_chunk = nxt_chunk;
+    if (nxt_page >= 0 && ++nxt_chunk == cpp) {
+      nxt_chunk = 0;
+      nxt_page = walk.next(lane, nxt_phys);
+    }
+    issue(stage, nxt_page, nxt_phys, nxt_chunk);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+
+  // merge the 4 warps' states through shared memory (the rings are done)
+#pragma unroll
+  for (int w = 0; w < WT; ++w)
+#pragma unroll
+    for (int o = 16; o >= 1; o >>= 1) l[w] += __shfl_xor_sync(kAll, l[w], o);
+  __syncthreads();
+  float* o_s = reinterpret_cast<float*>(smem);        // [kWarps][WT][D]
+  float* ml_s = o_s + kWarps * WT * D;                 // [kWarps][WT][2]
+#pragma unroll
+  for (int w = 0; w < WT; ++w) {
+#pragma unroll
+    for (int i = 0; i < VD; ++i)
+      o_s[(warp * WT + w) * D + lane * VD + i] = acc[w][i];
+    if (lane == 0) {
+      ml_s[(warp * WT + w) * 2] = m[w];
+      ml_s[(warp * WT + w) * 2 + 1] = l[w];
     }
   }
   __syncthreads();
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int idx = tid + i * kThreads;
+  const int64_t q_base = (int64_t)nh * W + w0;
+  for (int idx = tid; idx < wt * D; idx += kThreads) {
     const int w = idx / D, d = idx % D;
-    if (w < wt)
-      store(out + ((int64_t)nh * W + w0 + w) * D + d, acc[i] / l_s[w]);
+    float mx = kMasked;
+#pragma unroll
+    for (int k = 0; k < kWarps; ++k) mx = fmaxf(mx, ml_s[(k * WT + w) * 2]);
+    float o = 0.f, lsum = 0.f;
+#pragma unroll
+    for (int k = 0; k < kWarps; ++k) {
+      const float e = expf(ml_s[(k * WT + w) * 2] - mx);
+      o += e * o_s[(k * WT + w) * D + d];
+      lsum += e * ml_s[(k * WT + w) * 2 + 1];
+    }
+    const int64_t part = (q_base + w) * S + split;
+    a.part_o[part * D + d] = o;
+    if (d == 0) {
+      a.part_ml[part * 2] = mx;
+      a.part_ml[part * 2 + 1] = lsum;
+    }
   }
-  if (tid < wt) lse[(int64_t)nh * W + w0 + tid] = m_s[tid] + logf(l_s[tid]);
+
+  // the last split of this (row.head, tile) to finish merges the partials
+  __threadfence();
+  __syncthreads();
+  int32_t* ticket = a.tickets + (int64_t)nh * tiles + tile;
+  if (tid == 0) last_s = S == 1 || atomicAdd(ticket, 1) == S - 1;
+  __syncthreads();
+  if (!last_s) return;
+  __threadfence();
+  for (int idx = tid; idx < wt * D; idx += kThreads) {
+    const int w = idx / D, d = idx % D;
+    const int64_t part = (q_base + w) * S;
+    float mx = kMasked;
+    for (int s = 0; s < S; ++s)
+      mx = fmaxf(mx, __ldcg(a.part_ml + (part + s) * 2));
+    float o = 0.f, lsum = 0.f;
+    for (int s = 0; s < S; ++s) {
+      const float e = expf(__ldcg(a.part_ml + (part + s) * 2) - mx);
+      o += e * __ldcg(a.part_o + (part + s) * D + d);
+      lsum += e * __ldcg(a.part_ml + (part + s) * 2 + 1);
+    }
+    store(static_cast<TQ*>(a.out) + (q_base + w) * D + d, o / lsum);
+    if (d == 0) a.lse[q_base + w] = mx + logf(lsum);
+  }
+  if (tid == 0 && S > 1) *ticket = 0;
 }
 
-struct Args {
-  const void *q, *pk, *pv, *ks, *vs, *bt, *st, *vc;
-  void *out, *lse;
-  int N, H, W, D, ps, pmax;
-  cudaStream_t stream;
-};
-
-template <typename TQ, typename TP, int D, int WT>
-void launch(const Args& a) {
-  const dim3 grid(a.N * a.H, (a.W + WT - 1) / WT);
-  const int chunk = a.ps % kChunk == 0 ? kChunk : 8;
-  paged_attn_kernel<TQ, TP, D, WT><<<grid, kThreads, 0, a.stream>>>(
-      static_cast<const TQ*>(a.q), static_cast<const TP*>(a.pk),
-      static_cast<const TP*>(a.pv), static_cast<const float*>(a.ks),
-      static_cast<const float*>(a.vs), static_cast<const int32_t*>(a.bt),
-      static_cast<const int32_t*>(a.st), static_cast<const int32_t*>(a.vc),
-      static_cast<TQ*>(a.out), static_cast<float*>(a.lse), a.H, a.W, a.ps,
-      a.pmax, chunk);
+template <typename TQ, typename TP, int D, int WT, int C>
+cudaError_t launch(const Params& a, int N, int splits, cudaStream_t stream) {
+  using St = Stage<TP, D, C>;
+  const dim3 grid(N * a.H, (a.W + WT - 1) / WT, splits);
+  const size_t ring = (size_t)kWarps * kStages * St::kBytes;
+  const size_t merge = (size_t)kWarps * WT * (D + 2) * sizeof(float);
+  const size_t bytes = ring > merge ? ring : merge;
+  auto k = paged_attn_kernel<TQ, TP, D, WT, C>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+  }
+  k<<<grid, kThreads, bytes, stream>>>(a);
+  return cudaGetLastError();
 }
 
 // D in {64, 128}; a window of up to 4 queries takes 4-query tiles, a
-// longer one 8-query tiles
+// longer one 8-query tiles; 16-column chunks, or 8 when ps % 16 != 0
+template <typename TQ, typename TP, int D>
+cudaError_t dispatch_tile(const Params& a, int N, int S, cudaStream_t st) {
+  const bool wide = a.W > 4, c16 = a.ps % 16 == 0;
+  if (wide)
+    return c16 ? launch<TQ, TP, D, 8, 16>(a, N, S, st)
+               : launch<TQ, TP, D, 8, 8>(a, N, S, st);
+  return c16 ? launch<TQ, TP, D, 4, 16>(a, N, S, st)
+             : launch<TQ, TP, D, 4, 8>(a, N, S, st);
+}
+
 template <typename TQ, typename TP>
-bool dispatch(const Args& a) {
-  const bool wide = a.W > 4;
-  if (a.D == 64) {
-    wide ? launch<TQ, TP, 64, 8>(a) : launch<TQ, TP, 64, 4>(a);
-  } else if (a.D == 128) {
-    wide ? launch<TQ, TP, 128, 8>(a) : launch<TQ, TP, 128, 4>(a);
-  } else {
-    return false;
-  }
-  return true;
+cudaError_t dispatch(const Params& a, int N, int D, int S, cudaStream_t st) {
+  if (D == 64) return dispatch_tile<TQ, TP, 64>(a, N, S, st);
+  if (D == 128) return dispatch_tile<TQ, TP, 128>(a, N, S, st);
+  return cudaErrorInvalidValue;
 }
 
 template <typename TQ>
-bool dispatch_pages(const Args& a, int pdtype) {
+cudaError_t dispatch_pages(const Params& a, int N, int D, int S, int pdtype,
+                           cudaStream_t st) {
   switch (pdtype) {
-    case 0: return dispatch<TQ, TQ>(a);
-    case 1: return dispatch<TQ, int8_t>(a);
-    case 2: return dispatch<TQ, __nv_fp8_e4m3>(a);
-    default: return false;
+    case 0: return dispatch<TQ, TQ>(a, N, D, S, st);
+    case 1: return dispatch<TQ, int8_t>(a, N, D, S, st);
+    case 2: return dispatch<TQ, __nv_fp8_e4m3>(a, N, D, S, st);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -320,33 +505,55 @@ bool dispatch_pages(const Args& a, int pdtype) {
 
 // qdtype: 0 = float32, 1 = bfloat16 (q and out). pdtype: 0 = pages in q's
 // dtype (k_scale and v_scale unused, may be null), 1 = int8 pages, 2 = fp8
-// e4m3 pages (both with f32 scales [P, H, ps]). Returns the CUDA error of
-// the launch (0 = launched). The caller checks shapes, dtypes, contiguity
-// and alignment; ps % 8 == 0, D in {64, 128}.
-extern "C" int ptt_paged_attention(const void* q, const void* pool_k,
-                                   const void* pool_v, const void* k_scale,
-                                   const void* v_scale,
-                                   const void* block_table, const void* steps,
-                                   const void* valid_cols, void* out,
-                                   void* lse, int N, int H, int W, int D,
-                                   int ps, int pmax, int qdtype, int pdtype,
-                                   int device, void* stream) {
+// e4m3 pages (both with f32 scales [P, H, ps]). splits x pps covers the
+// table (splits = ceil(pmax / pps)). part_o: f32 [N*H*W, splits, D] and
+// part_ml: f32 [N*H*W, splits, 2] scratch; tickets: int32 [N*H*tiles]
+// (tiles = ceil(W / 4) for W <= 4, else ceil(W / 8)), all 0 before the
+// call and left 0 after it. Returns the CUDA error of the launch (0 =
+// launched). The caller checks shapes, dtypes, contiguity and alignment;
+// ps % 8 == 0, D in {64, 128}.
+extern "C" int ptt_paged_attention(
+    const void* q, const void* pool_k, const void* pool_v,
+    const void* k_scale, const void* v_scale, const void* block_table,
+    const void* steps, const void* valid_cols, void* out, void* lse,
+    void* part_o, void* part_ml, void* tickets, int N, int H, int W, int D,
+    int ps, int pmax, int splits, int pps, int qdtype, int pdtype,
+    int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (ps % 8 != 0 || N < 1 || H < 1 || W < 1 || pmax < 1)
+  if (ps % 8 != 0 || N < 1 || H < 1 || W < 1 || pmax < 1 || splits < 1 ||
+      pps < 1 || (int64_t)splits * pps < pmax ||
+      (int64_t)(splits - 1) * pps >= pmax)
     return (int)cudaErrorInvalidValue;
   if (pdtype != 0 && (k_scale == nullptr || v_scale == nullptr))
     return (int)cudaErrorInvalidValue;
-  const Args a{q,     pool_k, pool_v, k_scale, v_scale, block_table,
-               steps, valid_cols, out, lse, N, H, W, D, ps, pmax,
-               static_cast<cudaStream_t>(stream)};
-  bool ok = false;
+  Params a;
+  a.q = q;
+  a.pk = pool_k;
+  a.pv = pool_v;
+  a.ks = static_cast<const float*>(k_scale);
+  a.vs = static_cast<const float*>(v_scale);
+  a.bt = static_cast<const int32_t*>(block_table);
+  a.st = static_cast<const int32_t*>(steps);
+  a.vc = static_cast<const int32_t*>(valid_cols);
+  a.out = out;
+  a.lse = static_cast<float*>(lse);
+  a.part_o = static_cast<float*>(part_o);
+  a.part_ml = static_cast<float*>(part_ml);
+  a.tickets = static_cast<int32_t*>(tickets);
+  a.H = H;
+  a.W = W;
+  a.ps = ps;
+  a.pmax = pmax;
+  a.pps = pps;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (qdtype == 0)
-    ok = dispatch_pages<float>(a, pdtype);
+    err = dispatch_pages<float>(a, N, D, splits, pdtype, st);
   else if (qdtype == 1)
-    ok = dispatch_pages<__nv_bfloat16>(a, pdtype);
-  if (!ok) return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    err = dispatch_pages<__nv_bfloat16>(a, N, D, splits, pdtype, st);
+  else
+    err = cudaErrorInvalidValue;
+  return (int)err;
 }
 
 extern "C" const char* ptt_error_string(int code) {

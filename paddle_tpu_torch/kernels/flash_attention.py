@@ -817,14 +817,15 @@ def flash_attention(query, key, value, is_causal=False, attn_mask=None,
     in-kernel attention dropout, seeded by ``seed`` (an int or an int32
     tensor) or, when None, by a draw from ``generator`` (default: the
     current `core.random` generator). ``block_q``/``block_k`` place the
-    dropout hash as the reference's blocks do. On a card a head_dim below
-    64 (or between 64 and 128) is zero-padded to 64 (128) for the kernel;
-    above 128 it raises."""
+    dropout hash as the reference's blocks do. The CPU's plain version
+    takes any head_dim. On a card a head_dim below 64 (or between 64 and
+    128) is zero-padded to 64 (128) for the kernel; above 128 it raises."""
     b, s_q, h, d = query.shape
-    if d > 128:
+    if d > 128 and not runs_plain(query, _GEN_FWD):
         raise NotImplementedError(
-            f"flash_attention with head_dim {d} > 128: the kernels take D "
-            "up to 128; larger heads are B2's remainder (ROADMAP B2)")
+            f"flash_attention with head_dim {d} > 128 on {query.device}: the "
+            "kernels take D up to 128; larger heads are B2's remainder "
+            "(ROADMAP B2)")
     bq, bk = _blocks(s_q, key.shape[1], block_q, block_k)
     bias = None
     if attn_mask is not None:

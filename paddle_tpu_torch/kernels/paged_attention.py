@@ -33,6 +33,13 @@ reads only the pages up to the cursor that hold a readable column (the
 rest add exactly nothing) unless a query found no readable column there;
 the plain version is the masked softmax over the whole table.
 
+The kernel splits each row's page walk across blocks (flash-decoding):
+`plan_splits` picks the split count from the shapes and the card's SM
+count alone, each split writes an f32 partial to a workspace, and the
+last split of a (row, head, query tile) to finish merges them in the
+same launch, found with an atomic ticket in a per-(device, stream)
+int32 buffer that the kernel leaves at 0 (`_tickets`).
+
 Launch counts: ``paged_attention`` for float pools,
 ``paged_attention_int8`` and ``paged_attention_fp8`` for quantized ones;
 a launch through `paged_tail_segment` also counts ``paged_tail_segment``.
@@ -53,7 +60,57 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: quantized page dtype -> (the C entry's page code, launch-count name)
 _QUANT_PAGES = {torch.int8: (1, "paged_attention_int8"),
                 torch.float8_e4m3fn: (2, "paged_attention_fp8")}
+#: queries a block of the kernel takes: 4, or 8 for a window of 5 to 8
+_TILE_SMALL, _TILE_WIDE = 4, 8
+#: the planner aims for this many blocks per SM ...
+_BLOCKS_PER_SM = 4
+#: ... and gives every split at least this many columns
+_MIN_SPLIT_COLS = 64
 _fn = None
+_sm_counts: dict[int, int] = {}
+_ticket_bufs: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def query_tile(w: int) -> int:
+    """Queries one block of the kernel takes for a window of ``w``."""
+    return _TILE_WIDE if w > _TILE_SMALL else _TILE_SMALL
+
+
+def plan_splits(n: int, h: int, w: int, pmax: int, ps: int,
+                sm_count: int) -> tuple[int, int]:
+    """``(splits, pages_per_split)`` of one kernel call, from the shapes
+    and the card's SM count only (never from ``steps`` or
+    ``valid_cols``: reading them would wait for the card). Split ``s``
+    owns table pages ``[s * pps, min((s + 1) * pps, pmax))``; every page
+    falls in exactly one split and no split is empty. The count aims for
+    ``_BLOCKS_PER_SM`` blocks on every SM, with at least
+    ``_MIN_SPLIT_COLS`` columns a split."""
+    tiles = -(-w // query_tile(w))
+    want = -(-_BLOCKS_PER_SM * sm_count // (n * h * tiles))
+    most = max(1, pmax // -(-_MIN_SPLIT_COLS // ps))
+    pps = -(-pmax // max(1, min(want, most)))
+    return -(-pmax // pps), pps
+
+
+def _sm_count(dev: torch.device) -> int:
+    if dev.index not in _sm_counts:
+        _sm_counts[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return _sm_counts[dev.index]
+
+
+def _tickets(dev: torch.device, stream, size: int) -> torch.Tensor:
+    """The combine's int32 tickets for launches on ``stream``: zeroed
+    when made, and every launch leaves them at 0. One buffer per
+    (device, stream), so launches on two streams never share a ticket; a
+    larger call takes a new, larger buffer (the caching allocator keeps
+    the old one for the launches already queued on the stream)."""
+    key = (dev.index, stream.cuda_stream)
+    buf = _ticket_bufs.get(key)
+    if buf is None or buf.numel() < size:
+        buf = torch.zeros(max(size, 1024), dtype=torch.int32, device=dev)
+        _ticket_bufs[key] = buf
+    return buf
 
 
 def _kernel_fn():
@@ -64,7 +121,7 @@ def _kernel_fn():
     if _fn is None:
         lib = _build.load(_KERNEL)
         fn = lib.ptt_paged_attention
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [
+        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 11 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         err_str = lib.ptt_error_string
@@ -145,19 +202,30 @@ def fused_paged_attention(qh, pool_k, pool_v, block_table, steps,
     _check(valid_cols.shape == (n, pmax * ps)
            and valid_cols.dtype == torch.int32,
            f"valid_cols must be int32 [N, Pmax*ps] = {(n, pmax * ps)}")
-    for name in ("qh", "pool_k", "pool_v"):
-        _check(tensors[name].data_ptr() % 16 == 0,
-               f"{name} must be 16-byte aligned")
+    # read in 16-byte pieces (cp.async, vector loads)
+    for name in ("qh", "pool_k", "pool_v", "valid_cols", "k_scale",
+                 "v_scale"):
+        if name in tensors:
+            _check(tensors[name].data_ptr() % 16 == 0,
+                   f"{name} must be 16-byte aligned")
     out = torch.empty_like(qh)
     lse = torch.empty((n, h, w), dtype=torch.float32, device=dev)
+    splits, pps = plan_splits(n, h, w, pmax, ps, _sm_count(dev))
+    part_o = torch.empty((n * h * w, splits, d), dtype=torch.float32,
+                         device=dev)
+    part_ml = torch.empty((n * h * w, splits, 2), dtype=torch.float32,
+                          device=dev)
+    stream = torch.cuda.current_stream(dev)
+    tickets = _tickets(dev, stream, n * h * -(-w // query_tile(w)))
     fn, err_str = _kernel_fn()
     err = fn(qh.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
              k_scale.data_ptr() if quant else None,
              v_scale.data_ptr() if quant else None,
              block_table.data_ptr(), steps.data_ptr(), valid_cols.data_ptr(),
-             out.data_ptr(), lse.data_ptr(), n, h, w, d, ps, pmax,
-             _DTYPE_CODES[qh.dtype], page_code, dev.index,
-             torch.cuda.current_stream(dev).cuda_stream)
+             out.data_ptr(), lse.data_ptr(), part_o.data_ptr(),
+             part_ml.data_ptr(), tickets.data_ptr(), n, h, w, d, ps, pmax,
+             splits, pps, _DTYPE_CODES[qh.dtype], page_code, dev.index,
+             stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err} ({err_str(err).decode()})")
@@ -266,6 +334,7 @@ def merge_attention_segments(o1, lse1, o2, lse2):
     return o.to(o1.dtype)
 
 
-__all__ = ["fused_paged_attention", "paged_attention_reference",
+__all__ = ["plan_splits", "query_tile", "fused_paged_attention",
+           "paged_attention_reference",
            "paged_decode_attention", "paged_tail_segment",
            "merge_attention_segments"]

@@ -274,8 +274,10 @@ def test_later_slice_arguments_raise(what, monkeypatch):
         monkeypatch.setattr(pfa, "runs_plain", lambda t, k: False)
         with pytest.raises(ValueError, match="needs CUDA tensors"):
             pfa.flash_attention_qkv3(torch.zeros((1, 128, 3 * 128)), 2)
-    elif what == "d_over_128":
+    elif what == "d_over_128":    # where the kernels would run (a card)
         x = torch.zeros((1, 128, 2, 256))
+        assert F.scaled_dot_product_attention(x, x, x).shape == x.shape
+        monkeypatch.setattr(pfa, "runs_plain", lambda t, k: False)
         with pytest.raises(NotImplementedError, match="ROADMAP B2"):
             F.scaled_dot_product_attention(x, x, x)
     elif what == "need_weights":

@@ -200,8 +200,15 @@ def test_pick_block_matches_the_reference():
             assert pfa.pick_block(limit, seq) == jfa._pick_block(limit, seq)
 
 
-def test_head_dim_over_128_raises():
+def test_head_dim_over_128_raises(monkeypatch):
+    """Heads wider than 128 raise where the kernels would run (a CUDA
+    tensor: here the dispatch rule is patched to take the kernel branch)
+    and take the plain version on a CPU tensor, as the reference
+    composes (tests/test_torch_head_dim.py holds the values)."""
     x = torch.zeros((1, 128, 1, 192))
+    out = pfa.flash_attention(x, x, x)
+    assert out.shape == x.shape
+    monkeypatch.setattr(pfa, "runs_plain", lambda t, kernel: False)
     with pytest.raises(NotImplementedError, match="ROADMAP B2"):
         pfa.flash_attention(x, x, x)
 

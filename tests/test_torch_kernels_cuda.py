@@ -9,8 +9,12 @@ tests). chip_smoke.py holds every kernel at the main paths' shapes; these
 are quick checks at small shapes: the general kernels at a padded,
 masked, causal shape with dropout, the qkv3 kernels with dropout, the
 LayerNorm kernels with and without a residual, the paged kernel on
-bf16, int8 and fp8 pools at W in {1, 4, 5}, and the beam's tail read
-through it (`paged_tail_segment`) on bf16 and int8 pages.
+bf16, int8 and fp8 pools at W in {1, 4, 5}, its split page walk (rows
+that live in one split, at cursor 0, parked, unreadable, a window across
+two splits) at W in {1, 3, 5}, the beam's tail read through it
+(`paged_tail_segment`) on bf16 and int8 pages, the qkv forward on
+warpgroup products (B1 and B5, D 64 and 128, a half-full last query
+block) and the head_dim > 128 refusal on a card.
 """
 import pytest
 import torch
@@ -259,3 +263,100 @@ def test_paged_tail_segment_matches_the_plain_version_on_a_card(pages,
         "paged_attention_int8"
     assert counts["paged_tail_segment"] == counts[name] == 1
     assert sum(v for k, v in counts.items() if k.startswith("paged")) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pages", ["float32", "bfloat16", "int8", "fp8"])
+@pytest.mark.parametrize("w", [1, 3, 5])
+def test_paged_split_walk_matches_the_plain_version_on_a_card(pages, w):
+    """The split page walk (`plan_splits` cuts this table into 2-page
+    splits) against the plain version: a row readable only in its first
+    split, a row at cursor 0, a row parked on the sentinel, a row with
+    no readable column, a row whose last query alone reads (its own
+    cursor column), a window straddling splits 0 and 1; f32 queries and
+    pages at 1e-4, bf16 queries at 2e-2 (out) and 1e-3 (lse). Two calls
+    in a row agree bit for bit: the combine's tickets are back at 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the Hopper kernels run only on "
+                    "the card")
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.kernels import paged_kv
+
+    g = torch.Generator(device="cuda").manual_seed(10 + w)
+    n, h, d, ps, pmax = 6, 2, 64, 16, 12
+    qdt = torch.float32 if pages == "float32" else torch.bfloat16
+    pools = [torch.randn((n * pmax + 1, h, ps, d), generator=g,
+                         device="cuda") for _ in range(2)]
+    kw = {}
+    if pages in ("float32", "bfloat16"):
+        pools = [p.to(qdt) for p in pools]
+    else:
+        dt = torch.int8 if pages == "int8" else torch.float8_e4m3fn
+        pools, scales = zip(*(paged_kv.quantize_tokens(p, dt) for p in pools))
+        kw = dict(k_scale=scales[0], v_scale=scales[1])
+    splits, pps = pa.plan_splits(n, h, w, pmax, ps,
+                                 torch.cuda.get_device_properties(0)
+                                 .multi_processor_count)
+    assert splits > 2
+    lp = pmax * ps
+    bt = torch.randperm(n * pmax, generator=g, device="cuda").reshape(
+        n, pmax).to(torch.int32)
+    edge = pps * ps                          # first column of split 1
+    steps = torch.tensor([lp - w, 0, 0, lp - w, 100, edge - 2],
+                         dtype=torch.int32, device="cuda")
+    vc = torch.ones((n, lp), dtype=torch.int32, device="cuda")
+    vc[0, edge:] = 0
+    bt[2], vc[2] = n * pmax, 0
+    vc[3] = 0
+    vc[4] = 0
+    vc[4, 100 + w - 1] = 1
+    q = torch.randn((n, h, w, d), generator=g, device="cuda").to(qdt)
+    args = (q, *pools, bt, steps, vc)
+    out, lse = pa.fused_paged_attention(*args, **kw)
+    again, lse2 = pa.fused_paged_attention(*args, **kw)
+    ref, ref_lse = pa.paged_attention_reference(*args, **kw)
+    tol_o = dict(atol=1e-4, rtol=0) if qdt == torch.float32 else \
+        dict(atol=2e-2, rtol=2e-2)
+    tol_l = dict(atol=1e-4, rtol=0) if qdt == torch.float32 else \
+        dict(atol=1e-3, rtol=0)
+    torch.testing.assert_close(out.float(), ref.float(), **tol_o)
+    torch.testing.assert_close(lse, ref_lse, **tol_l)
+    assert torch.equal(out, again) and torch.equal(lse, lse2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [256, 320])
+def test_qkv_forward_on_wgmma_matches_the_plain_version(d, causal, s):
+    """B1's and B5's bf16 forward (warpgroup products on TMA-loaded
+    tiles) against the plain version with dropout 0.1: o at 2e-2, lse at
+    1e-4; S = 320 leaves the last 128-query block half full. B5 equals
+    B1 on the repacked projection bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the Hopper kernels run only on "
+                    "the card")
+    g = torch.Generator(device="cuda").manual_seed(d + s)
+    h = 4
+    qkv = torch.randn((2, s, 3 * h * d), generator=g, device="cuda").to(
+        torch.bfloat16)
+    seed = torch.tensor([11], dtype=torch.int32, device="cuda")
+    o, lse = pfa.flash_attention_qkv_fwd(qkv, h, causal, 0.1, seed)
+    ro, rlse = pfa.flash_qkv_reference(qkv, h, causal, 0.1, seed)
+    torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=0)
+    torch.testing.assert_close(o.float(), ro.float(), atol=2e-2, rtol=2e-2)
+    which = pfa._pair_to_which(qkv, h).contiguous()
+    o3, lse3 = pfa.flash_attention_qkv3_fwd(which, h, causal, 0.1, seed)
+    assert torch.equal(o3, o) and torch.equal(lse3, lse)
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_head_dim_above_128_on_a_card():
+    """A CUDA tensor with head_dim 256 raises (ROADMAP B2): no plain or
+    library fallback on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the Hopper kernels run only on "
+                    "the card")
+    q = torch.zeros((1, 128, 2, 256), device="cuda")
+    with pytest.raises(NotImplementedError, match="ROADMAP B2"):
+        pfa.flash_attention(q, q, q)
