@@ -26,9 +26,11 @@ Phases, in order; any failure exits non-zero:
    on bf16 and int8 pages at gen columns 127 and 40; the pair-major qkv
    flash kernels: GPT's training shape B8 S1024 H16 D128 bf16 causal,
    and the fused BERT's B8 S512 H16 D64 full, checked there too; the
-   general flash kernels:
-   BERT-large's B8 S512 H16 D64 bf16 with a key-padding mask and dropout
-   0.1, and the backward at S=2048 causal; the which-major qkv3 flash
+   general flash kernels, held at nine shapes (bf16 edges among them:
+   Sq != Sk causal, lengths that are not multiples of 128, a full
+   bias, a fully masked row), timed at BERT-large's B8 S512 H16 D64 bf16
+   with a key-padding mask and dropout 0.1 and at S=2048 causal, forward
+   and backward; the which-major qkv3 flash
    kernels: BERT-large's unmasked B8 S512 H16 D64 bf16 with dropout 0.1,
    also held bit for bit against the pair-major ones on the repacked
    projection; the fused LayerNorm kernels through their entry
@@ -66,7 +68,8 @@ Phases, in order; any failure exits non-zero:
    kernels launch exactly steps x layers times and no other attention
    kernel runs, every loss is finite and the first MLM loss lies within
    0.5 of ln(vocab). It prints tokens/s, step ms p50, peak memory and
-   MFU, then two steps under torch.profiler;
+   MFU, then two steps under torch.profiler, with the general flash
+   kernels' device time a step;
 7. BERT unmasked phase, unfused: the same run on full-length batches
    (every row 512 real tokens, no mask; BASELINE row 4), every layer's
    attention in the qkv-direct branch: the which-major qkv3 kernels
@@ -154,6 +157,10 @@ BF16_ULPS_O, BF16_ULPS_DQKV = 8, 8
 # cancel to about 0 in both versions (causal row 0's dq) sit on it
 FLASH_SCALE_FLOOR = 1 / 64
 FLASH_SEED = 20260               # the dropout seed of the kernel phase
+# B2's bf16 kernels by their names in a profile (csrc/flash_attention.cu;
+# the delta pre-pass is flash_common.cuh's, which B2 alone runs in phase 6)
+B2_KERNELS = ("::fwd_wg_kernel<", "::bwd_wg_kernel<", "flash_delta_kernel<",
+              "::bwd_dq_round_kernel(")
 SLEEP_CYCLES = 100_000_000       # about 50 ms at the H100's clock
 
 # engine phase: the serving configuration and its traffic
@@ -911,10 +918,13 @@ def general_flash_phase(torch):
     (b) S=2048 H8 D128 bf16 causal with dropout 0.1, the reference's
     two-block regime (its 1024-blocks place the hash); (c) Sq=128 Sk=384
     causal with an additive [Sq, Sk] bias, f32; (d) S=200 with one fully
-    masked row, f32. Then (a) forward and backward and (b) backward
-    timed beside the plain versions, SDPA (timed only; the port never
-    calls it) and the bound. Returns the forward's and backward's
-    records at (a)."""
+    masked row, f32; then the bf16 kernels' edges: (e) Sq=128 Sk=384
+    causal, dropout; (f) S=200 key padding, dropout; (g) S=320 D128
+    causal, dropout; (h) Sq=256 Sk=320 with a full [B,Sq,Sk] bias; (i)
+    (d)'s fully masked row in bf16, D128, no dropout. Then the forward
+    and backward at (a) and at (b) timed beside the plain versions, SDPA
+    (timed only; the port never calls it) and the bound. Returns the
+    forward's and backward's records at (a)."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.kernels import flash_attention as fa
@@ -927,12 +937,26 @@ def general_flash_phase(torch):
     bias_c = torch.randn((128, 384), generator=g, device="cuda")[None] * 2
     mask_d = torch.ones((2, 1, 200, 200), dtype=torch.bool, device="cuda")
     mask_d[1, 0, 7] = False                       # query row 7 sees nothing
+    mask_f = torch.arange(200, device="cuda")[None, :] < torch.tensor(
+        [[130], [187]], device="cuda")
+    bias_h = torch.randn((2, 256, 320), generator=g, device="cuda") * 2
     cases = {
         "a": ((BERT_B, BERT_S, BERT_S, 16, 64, bf), False, bias_a, 0.1),
         "b": ((2, 2048, 2048, 8, 128, bf), True, None, 0.1),
         "c": ((2, 128, 384, 4, 64, torch.float32), True, bias_c, 0.0),
         "d": ((2, 200, 200, 3, 128, torch.float32), False,
               fa.normalize_mask_bias(mask_d), 0.1),
+        # bf16 edges of the TMA/wgmma kernels: Sq != Sk causal; Sk not a
+        # multiple of 128 (a partial last key tile and query tile) with
+        # key padding; D=128 with dropout at S=320; a full [B,Sq,Sk]
+        # bias; a fully masked row at D=128 without dropout
+        "e": ((2, 128, 384, 4, 64, bf), True, None, 0.1),
+        "f": ((2, 200, 200, 4, 64, bf), False,
+              fa.normalize_mask_bias(mask_f[:, None, None, :]), 0.1),
+        "g": ((2, 320, 320, 4, 128, bf), True, None, 0.1),
+        "h": ((2, 256, 320, 4, 64, bf), False, bias_h, 0.0),
+        "i": ((2, 200, 200, 3, 128, bf), False,
+              fa.normalize_mask_bias(mask_d), 0.0),
     }
     errs = {}
     for name, (shape, causal, bias, p) in cases.items():
@@ -965,13 +989,27 @@ def general_flash_phase(torch):
         fa.flash_attention_bwd(*ta[i][:3], *saved_a[i], ta[i][3], False,
                                **kw_a)
 
+    def fwd_b():
+        fa.flash_attention_fwd(*tb[next(it) % 3][:3], True, **kw_b)
+
     def bwd_b():
         i = next(it) % 3
         fa.flash_attention_bwd(*tb[i][:3], *saved_b[i], tb[i][3], True,
                                **kw_b)
 
     ms = {"fwd_a": time_ms(fwd_a, 20), "bwd_a": time_ms(bwd_a, 10),
-          "bwd_b": time_ms(bwd_b, 5)}
+          "fwd_b": time_ms(fwd_b, 10), "bwd_b": time_ms(bwd_b, 5)}
+    # (a) without dropout: the dropout hash's share of the kernels' time
+    kw_a0 = dict(bias=bias_a)
+    saved_a0 = [fa.flash_attention_fwd(*t[:3], False, **kw_a0) for t in ta]
+
+    def bwd_a0():
+        i = next(it) % 3
+        fa.flash_attention_bwd(*ta[i][:3], *saved_a0[i], ta[i][3], False,
+                               **kw_a0)
+
+    no_drop = (time_ms(lambda: fa.flash_attention_fwd(
+        *ta[next(it) % 3][:3], False, **kw_a0), 20), time_ms(bwd_a0, 10))
     qa, ka, va, doa = ta[0]
     qb, kb, vb, dob = tb[0]
     plain = {
@@ -979,6 +1017,8 @@ def general_flash_phase(torch):
                                                     **kw_a), 3, 1),
         "bwd_a": time_ms(lambda: fa.flash_bwd_reference(
             qa, ka, va, *saved_a[0], doa, False, **kw_a), 3, 1),
+        "fwd_b": time_ms(lambda: fa.flash_reference(qb, kb, vb, True,
+                                                    **kw_b), 2, 1),
         "bwd_b": time_ms(lambda: fa.flash_bwd_reference(
             qb, kb, vb, *saved_b[0], dob, True, **kw_b), 2, 1)}
 
@@ -1003,7 +1043,7 @@ def general_flash_phase(torch):
     lib_fba = time_ms(lib(ha, False, sdpa_mask, True), 10)
     lib_fb = time_ms(lib(hb, True, None, False), 5)
     lib_fbb = time_ms(lib(hb, True, None, True), 5)
-    library = {"fwd_a": lib_fa, "bwd_a": lib_fba - lib_fa,
+    library = {"fwd_a": lib_fa, "bwd_a": lib_fba - lib_fa, "fwd_b": lib_fb,
                "bwd_b": lib_fbb - lib_fb}
 
     k_rows_a = int(lens.sum().item())             # keys some query sees
@@ -1016,7 +1056,7 @@ def general_flash_phase(torch):
              "b": "(b) B2 S2048 H8 D128 causal"}
     bounds = {}
     for key, (nbytes, flops) in (("fwd_a", work_a[0]), ("bwd_a", work_a[1]),
-                                 ("bwd_b", work_b[1])):
+                                 ("fwd_b", work_b[0]), ("bwd_b", work_b[1])):
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
         bounds[key] = (max(t_bytes, t_ops) * 1e3,
                        "bytes" if t_bytes >= t_ops else "operations")
@@ -1027,6 +1067,9 @@ def general_flash_phase(torch):
     print(f"  SDPA forward+backward (a) {lib_fba:.4f} ms, (b) {lib_fbb:.4f} "
           f"ms; forward (a) {lib_fa:.4f} ms, (b) {lib_fb:.4f} ms (its "
           "backward alone: the difference)")
+    print(f"  flash_attention at (a) without dropout: fwd {no_drop[0]:.4f} "
+          f"ms, bwd {no_drop[1]:.4f} ms (the dropout hash's cost: the "
+          "difference from p=0.1)")
     records = []
     for name, key, err, line in (
             ("flash_attention_fwd", "fwd_a", errs["a"][0], 207),
@@ -1476,10 +1519,12 @@ def profile_decode(torch, eng, prompts, steps=8):
     profile_steps(torch, eng.step, steps, "full decode steps")
 
 
-def profile_steps(torch, fn, steps, what):
+def profile_steps(torch, fn, steps, what, families=None):
     """``steps`` calls of ``fn`` under torch.profiler: prints the device's
-    busy share of the wall time and the kernels that take the most of
-    it. Returns ``(wall ms/step, busy ms/step)``."""
+    busy share of the wall time, the kernels that take the most of it
+    and, for each of ``families`` (label -> substrings of kernel names),
+    the device time of the kernels it names. Returns ``(wall ms/step,
+    busy ms/step)``."""
     def run():
         for _ in range(steps):
             fn()
@@ -1492,6 +1537,11 @@ def profile_steps(torch, fn, steps, what):
     for key, t in sorted(per.items(), key=lambda kv: -kv[1])[:6]:
         share = 100 * t / busy_us if busy_us else 0.0
         print(f"    {t / steps / 1e3:8.4f} ms/step {share:5.1f}%  {key[:90]}")
+    for label, parts in (families or {}).items():
+        t = sum(v for k, v in per.items() if any(x in k for x in parts))
+        share = 100 * t / busy_us if busy_us else 0.0
+        print(f"    {label}: {t / steps / 1e3:.4f} ms/step ({share:.1f}% of "
+              "device busy)")
     print(f"    host: {launches / steps:.0f} kernel launches/step; most "
           "self CPU time: " + ", ".join(
               f"{key} {t / steps / 1e3:.3f} ms" for key, t in host))
@@ -1798,7 +1848,12 @@ def bert_phase(torch, seed, card, variant):
         i = next(it) % len(batches)
         _, params, opt_state = step(params, opt_state, batches[i], 100 + i)
 
-    profile_steps(torch, one, 2, f"BERT training steps ({variant})")
+    families = {"B2 kernels (general flash, bf16: forward, backward, its "
+                "pre- and post-pass)": B2_KERNELS,
+                "of which the backward's pre- and post-pass": B2_KERNELS[2:],
+                } if v["masked"] else None
+    profile_steps(torch, one, 2, f"BERT training steps ({variant})",
+                  families)
     return {k: counts[k] for k in v["kernels"]}
 
 

@@ -34,8 +34,9 @@
 // Dropout: keep/scale is the reference's interpret-mode hash
 // (`_hash_keep_scale`, :101-116) of (seed, (b, pair, head), global query
 // row, global key column), computed per element from global coordinates in
-// both passes, so the masks agree bit for bit with the plain version and
-// with paddle_tpu's interpret mode. B5 hashes the same ids (:1031, :1057),
+// both passes and compared through the integer threshold (`keep_threshold`,
+// flash_common.cuh), so the masks agree bit for bit with the plain version
+// and with paddle_tpu's interpret mode. B5 hashes the same ids (:1031, :1057),
 // so a head keeps the same elements in both layouts. (On the TPU itself
 // the reference draws from the hardware PRNG, which nothing can
 // reproduce.)
@@ -168,6 +169,7 @@ flash_fwd_kernel(const float* __restrict__ qkv,
   const float* base = qkv + (int64_t)g.b * S * g.ld3;
   const uint32_t hbase =
       use_drop ? mix32((uint32_t)seed[0], g.b, g.pair, g.hh) : 0u;
+  const uint32_t thr = keep_threshold(keep);
   const float inv_keep = 1.0f / keep;
 
   load_tile<D>(Qs, base + (int64_t)q0 * g.ld3 + g.qcol, g.ld3, kTile);
@@ -212,7 +214,7 @@ flash_fwd_kernel(const float* __restrict__ qkv,
         const int c = tx + 16 * j;
         float p = expf(s[i][j] - m_new);
         sum += p;
-        if (use_drop) p *= keep_scale(hbase, q0 + r, k0 + c, keep, inv_keep);
+        if (use_drop) p *= keep_scale(hbase, q0 + r, k0 + c, thr, inv_keep);
         Ps[r * kLS + c] = p;
       }
       l[i] = l[i] * alpha + row_sum(sum);
@@ -243,7 +245,7 @@ flash_fwd_kernel(const float* __restrict__ qkv,
 __device__ __forceinline__ void probs_and_dscores(
     const float (&s)[kTM][4], const float (&dp)[kTM][4], const float* lse_r,
     const float* delta_r, float* Ps, float* dSs, int q0, int k0, bool diag,
-    float scale, int use_drop, uint32_t hbase, float keep, float inv_keep,
+    float scale, int use_drop, uint32_t hbase, uint32_t thr, float inv_keep,
     int ty, int tx) {
 #pragma unroll
   for (int i = 0; i < kTM; ++i) {
@@ -254,7 +256,7 @@ __device__ __forceinline__ void probs_and_dscores(
       const float sv = (diag && c > r) ? kMasked : s[i][j] * scale;
       const float p = expf(sv - lse_r[i]);
       const float ks =
-          use_drop ? keep_scale(hbase, q0 + r, k0 + c, keep, inv_keep) : 1.f;
+          use_drop ? keep_scale(hbase, q0 + r, k0 + c, thr, inv_keep) : 1.f;
       if (Ps != nullptr) Ps[r * kLS + c] = p * ks;
       dSs[r * kLS + c] = p * (dp[i][j] * ks - delta_r[i]) * scale;
     }
@@ -290,6 +292,7 @@ flash_bwd_dkdv_kernel(const float* __restrict__ qkv,
   const float* delta_h = delta + ((int64_t)g.b * H + g.hg) * S;
   const uint32_t hbase =
       use_drop ? mix32((uint32_t)seed[0], g.b, g.pair, g.hh) : 0u;
+  const uint32_t thr = keep_threshold(keep);
   const float inv_keep = 1.0f / keep;
 
   load_tile<D>(Ks, base + (int64_t)k0 * g.ld3 + g.kcol, g.ld3, kTile);
@@ -317,7 +320,7 @@ flash_bwd_dkdv_kernel(const float* __restrict__ qkv,
     tile_product<4, D, LD, 1, 1, LD>(s, Qs, Ks, ty, tx);
     tile_product<4, D, LD, 1, 1, LD>(dp, dOs, Vs, ty, tx);
     probs_and_dscores(s, dp, lse_r, delta_r, Ps, dSs, q0, k0,
-                      causal && qt == kt, scale, use_drop, hbase, keep,
+                      causal && qt == kt, scale, use_drop, hbase, thr,
                       inv_keep, ty, tx);
     __syncthreads();
     // dV[k][d] += sum_q Pd[q][k] dO[q][d];  dK[k][d] += sum_q dS[q][k] Q[q][d]
@@ -363,6 +366,7 @@ flash_bwd_dq_kernel(const float* __restrict__ qkv,
   const float* delta_h = delta + ((int64_t)g.b * H + g.hg) * S;
   const uint32_t hbase =
       use_drop ? mix32((uint32_t)seed[0], g.b, g.pair, g.hh) : 0u;
+  const uint32_t thr = keep_threshold(keep);
   const float inv_keep = 1.0f / keep;
 
   load_tile<D>(Qs, base + (int64_t)q0 * g.ld3 + g.qcol, g.ld3, kTile);
@@ -392,7 +396,7 @@ flash_bwd_dq_kernel(const float* __restrict__ qkv,
     tile_product<4, D, LD, 1, 1, LD>(s, Qs, Ks, ty, tx);
     tile_product<4, D, LD, 1, 1, LD>(dp, dOs, Vs, ty, tx);
     probs_and_dscores(s, dp, lse_r, delta_r, nullptr, dSs, q0, k0,
-                      causal && qt == kt, scale, use_drop, hbase, keep,
+                      causal && qt == kt, scale, use_drop, hbase, thr,
                       inv_keep, ty, tx);
     __syncthreads();
     // dQ[q][d] += sum_k dS[q][k] K[k][d]
@@ -427,17 +431,11 @@ flash_bwd_dq_kernel(const float* __restrict__ qkv,
 constexpr int kRowsW = 64;             // rows of a consumer warpgroup
 constexpr int kKeysW = 128;            // keys of a K/V tile
 constexpr int kThreadsW = 384;         // producer + 2 consumer warpgroups
-constexpr int kBox = 64;               // TMA box: 64 rows x 64 bf16 columns
-constexpr int kBoxBytes = kBox * kBox * 2;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-// 2^x on the special-function unit (inputs far below -126 give 0).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
+using hopper::ex2;
+using hopper::kBox;                    // TMA box: 64 rows x 64 bf16 columns
+using hopper::kBoxBytes;
+using hopper::kLn2;
+using hopper::kLog2e;
 
 // K/V ring stages: 2 of 64 KB at D=128, 3 of 32 KB at D=64
 template <int D>
@@ -549,6 +547,7 @@ flash_fwd_wg_kernel(const __grid_constant__ CUtensorMap qkv_map,
   const int t_in = threadIdx.x - 128 * wg;
   const int lane = t_in & 31, gi = lane >> 2, qi = lane & 3;
   const int r0 = (t_in >> 5) * 16;       // this warp's rows in the 64
+  const uint32_t thr = keep_threshold(keep);
   const float inv_keep = 1.0f / keep;
   const float scale_l2 = scale * kLog2e;
   const uint32_t seed0 = use_drop ? (uint32_t)seed[0] : 0u;
@@ -633,7 +632,7 @@ flash_fwd_wg_kernel(const __grid_constant__ CUtensorMap qkv_map,
             sum[e >> 1] += p;
             if (use_drop)
               p *= keep_scale(hbase, my_q0 + r0 + gi + 8 * (e >> 1),
-                              k0 + j * 8 + 2 * qi + (e & 1), keep, inv_keep);
+                              k0 + j * 8 + 2 * qi + (e & 1), thr, inv_keep);
             sc[j][e] = p;
           }
 #pragma unroll
@@ -718,6 +717,7 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ qkv,
   const float* delta_h = delta + ((int64_t)g.b * H + g.hg) * S;
   const uint32_t hbase =
       use_drop ? mix32((uint32_t)seed[0], g.b, g.pair, g.hh) : 0u;
+  const uint32_t thr = keep_threshold(keep);
   const float inv_keep = 1.0f / keep;
 
   copy_tile<D, kTile>(Ks, base + (int64_t)k0 * g.ld3 + g.kcol, g.ld3, kTile);
@@ -769,7 +769,7 @@ flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ qkv,
         const float sv = (mask && key > q) ? kMasked : st[n][e] * scale;
         const float p = expf(sv - lse_s[ql]);
         const float ks =
-            use_drop ? keep_scale(hbase, q, key, keep, inv_keep) : 1.f;
+            use_drop ? keep_scale(hbase, q, key, thr, inv_keep) : 1.f;
         st[n][e] = p * ks;                                      // P*keep
         dpt[n][e] = p * (dpt[n][e] * ks - delta_s[ql]) * scale;  // dS
       }
@@ -831,6 +831,7 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ qkv,
   const float* delta_h = delta + ((int64_t)g.b * H + g.hg) * S;
   const uint32_t hbase =
       use_drop ? mix32((uint32_t)seed[0], g.b, g.pair, g.hh) : 0u;
+  const uint32_t thr = keep_threshold(keep);
   const float inv_keep = 1.0f / keep;
 
   copy_tile<D, kTile>(Qs, base + (int64_t)q0 * g.ld3 + g.qcol, g.ld3, kTile);
@@ -883,7 +884,7 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ qkv,
         const int r = r0 + gi + 8 * (e >> 1), c = n * 8 + 2 * qi + (e & 1);
         const float sv = (diag && c > r) ? kMasked : s[n][e] * scale;
         const float p = expf(sv - lse_r[e >> 1]);
-        const float ks = use_drop ? keep_scale(hbase, q0 + r, k0 + c, keep,
+        const float ks = use_drop ? keep_scale(hbase, q0 + r, k0 + c, thr,
                                                inv_keep)
                                   : 1.f;
         s[n][e] = p * (dp[n][e] * ks - delta_r[e >> 1]) * scale;   // dS
@@ -915,44 +916,11 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ qkv,
 
 // The TMA map of the fused projection as a 2-D bf16 array [B*S, 3*H*D]
 // (row stride 6HD bytes, a multiple of 16 for D in {64, 128}) in 64 x 64
-// boxes with the 128-byte swizzle. `cuTensorMapEncodeTiled` is reached
-// through the runtime's entry-point query, so the library links no
-// libcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
+// boxes with the 128-byte swizzle.
 cudaError_t qkv_tensor_map(CUtensorMap* map, const void* qkv, int B, int S,
                            int H, int D) {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
-                                              cudaEnableDefault, &q);
-#endif
-    if (err != cudaSuccess) return err;
-    if (q != cudaDriverEntryPointSuccess || fn == nullptr)
-      return cudaErrorNotSupported;
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
-  const cuuint64_t dims[2] = {(cuuint64_t)3 * H * D, (cuuint64_t)B * S};
-  const cuuint64_t strides[1] = {(cuuint64_t)3 * H * D * sizeof(bf16)};
-  const cuuint32_t box[2] = {kBox, kBox};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(qkv), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return hopper::tensor_map_2d(map, qkv, (int64_t)B * S, (int64_t)3 * H * D,
+                               (int64_t)3 * H * D);
 }
 
 template <typename T, int D, int L>

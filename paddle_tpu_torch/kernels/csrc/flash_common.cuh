@@ -1,10 +1,12 @@
 // Pieces shared by the flash attention kernels (flash_attention_qkv.cu and
-// flash_attention.cu): the reference's dropout hash, the f32 FMA tile
-// product, the bf16 mma.sync fragments, tile copies and the delta pre-pass.
+// flash_attention.cu): the reference's dropout hash (and its integer keep
+// threshold), the f32 FMA tile product, the bf16 mma.sync fragments, tile
+// copies and the delta pre-pass.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace flash {
@@ -25,18 +27,34 @@ __device__ __forceinline__ uint32_t mix32(uint32_t x, uint32_t a, uint32_t b,
   return x;
 }
 
-// `_hash_keep_scale` (:101-116) at one tile-relative (row, col): 1/keep or 0.
-__device__ __forceinline__ float keep_scale(uint32_t base, uint32_t row,
-                                            uint32_t col, float keep,
-                                            float inv_keep) {
+// `_hash_keep_scale` (:101-116) at one tile-relative (row, col): the
+// hash's top 24 bits, whose u = bits * 2^-24 the reference compares with
+// keep.
+__device__ __forceinline__ uint32_t hash24(uint32_t base, uint32_t row,
+                                           uint32_t col) {
   uint32_t x = base + row * 0x9E3779B1u + col * 0x85EBCA77u;
   x ^= x >> 16;
   x *= 0x7FEB352Du;
   x ^= x >> 15;
   x *= 0x846CA68Bu;
   x ^= x >> 16;
-  const float u = (float)(x >> 8) * 5.9604644775390625e-08f;  // 2^-24
-  return u < keep ? inv_keep : 0.f;
+  return x >> 8;
+}
+
+// The integer form of the reference's compare: bits * 2^-24 < keep exactly
+// when bits < ceil(keep * 2^24). Both products are exact in f32 (bits <
+// 2^24; scaling by a power of two), and for an integer n, n < x holds
+// exactly when n < ceil(x); so the mask is bit for bit the reference's,
+// with no int-to-float conversion per element. Formed once per kernel.
+__device__ __forceinline__ uint32_t keep_threshold(float keep) {
+  return (uint32_t)ceilf(keep * 16777216.0f);
+}
+
+// The same element's 1/keep or 0, with thr = keep_threshold(keep).
+__device__ __forceinline__ float keep_scale(uint32_t base, uint32_t row,
+                                            uint32_t col, uint32_t thr,
+                                            float inv_keep) {
+  return hash24(base, row, col) < thr ? inv_keep : 0.f;
 }
 
 // ------------------------------------------------------- f32: plain FMAs
@@ -100,11 +118,13 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 // delta[b, h, s] = sum_d dO * O over o and dO [B, S, H, D], one warp per
-// (b, s, h) row.
+// (b, s, h) row; with `zero` (an f32 [B, S, H, D] accumulator, the
+// general bf16 backward's dq) the row is zeroed there too.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_delta_kernel(const T* __restrict__ dout, const T* __restrict__ o,
-                   float* __restrict__ delta, int B, int S, int H) {
+                   float* __restrict__ delta, float* __restrict__ zero, int B,
+                   int S, int H) {
   const int64_t row =
       (int64_t)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
   if (row >= (int64_t)B * S * H) return;
@@ -116,6 +136,9 @@ flash_delta_kernel(const T* __restrict__ dout, const T* __restrict__ o,
 #pragma unroll
   for (int d = lane; d < D; d += 32)
     acc += to_f32(dout[off + d]) * to_f32(o[off + d]);
+  if (zero != nullptr)
+#pragma unroll
+    for (int d = lane; d < D; d += 32) zero[off + d] = 0.f;
 #pragma unroll
   for (int k = 16; k > 0; k >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, k);
   if (lane == 0) {
@@ -126,11 +149,11 @@ flash_delta_kernel(const T* __restrict__ dout, const T* __restrict__ o,
 
 template <typename T, int D>
 cudaError_t launch_delta(const T* dout, const T* o, float* delta, int B, int S,
-                         int H, cudaStream_t stream) {
+                         int H, cudaStream_t stream, float* zero = nullptr) {
   const int64_t rows = (int64_t)B * S * H;
   const int warps = kThreads / 32;
   flash_delta_kernel<T, D><<<(unsigned)((rows + warps - 1) / warps), kThreads,
-                              0, stream>>>(dout, o, delta, B, S, H);
+                              0, stream>>>(dout, o, delta, zero, B, S, H);
   return cudaGetLastError();
 }
 
@@ -227,10 +250,6 @@ __device__ __forceinline__ void copy_tile_t(bf16* dst, const bf16* src,
 }
 
 // ------------------------------------------------------- shared memory
-template <int D>
-constexpr size_t fwd_tc_smem() {
-  return (2 * kTile * (D + kPad) + D * (kTile + kPad)) * sizeof(bf16);
-}
 template <int D>
 constexpr size_t dkdv_tc_smem() {
   return (2 * kTile * (D + kPad) + 2 * kBQ * (D + kPad) +

@@ -117,16 +117,31 @@ def hash_keep_scale(seed, ids, shape, dropout_p, device=None):
                     + _mul32(cols, 0x85EBCA77), dropout_p)
 
 
-def _keep_of(x, dropout_p):
-    """The avalanche and threshold of ``_hash_keep_scale`` on int64
-    ``x = base + row*C1 + col*C2`` (not yet reduced mod 2**32)."""
+def _hash24(x):
+    """The avalanche of ``_hash_keep_scale`` on int64 ``x = base +
+    row*C1 + col*C2`` (not yet reduced mod 2**32): its top 24 bits."""
     x = x & _M32
     x = x ^ (x >> 16)
     x = _mul32(x, 0x7FEB352D)
     x = x ^ (x >> 15)
     x = _mul32(x, 0x846CA68B)
     x = x ^ (x >> 16)
-    u = (x >> 8).to(torch.float32) * np.float32(2.0 ** -24)
+    return x >> 8
+
+
+def keep_threshold(dropout_p) -> int:
+    """The integer keep threshold of the B2 kernels
+    (``keep_threshold`` in ``csrc/flash_common.cuh``): ``bits * 2**-24 <
+    keep`` exactly when ``bits < ceil(keep * 2**24)``, keep = ``1 - p``
+    rounded to float32."""
+    return math.ceil(float(np.float32(1.0 - dropout_p)) * 2.0 ** 24)
+
+
+def _keep_of(x, dropout_p):
+    """The keep/scale of ``_hash_keep_scale`` on int64 ``x = base +
+    row*C1 + col*C2``: ``u = bits * 2**-24`` compared with keep in
+    float32, as the reference does."""
+    u = _hash24(x).to(torch.float32) * np.float32(2.0 ** -24)
     keep = torch.tensor(np.float32(1.0 - dropout_p), device=x.device)
     return torch.where(u < keep, torch.ones_like(keep) / keep,
                        torch.zeros_like(keep))
@@ -654,7 +669,7 @@ def _gen_kernel_fns():
         fwd.argtypes = [ctypes.c_void_p] * 7 + shape + [ctypes.c_void_p]
         fwd.restype = ctypes.c_int
         bwd = lib.ptt_flash_bwd
-        bwd.argtypes = [ctypes.c_void_p] * 12 + shape + [ctypes.c_void_p]
+        bwd.argtypes = [ctypes.c_void_p] * 13 + shape + [ctypes.c_void_p]
         bwd.restype = ctypes.c_int
         err_str = lib.ptt_error_string
         err_str.argtypes = [ctypes.c_int]
@@ -745,8 +760,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal, bias=None,
                         scale=None):
     """Launch the backward kernels: ``(dq, dk, dv)`` from the forward's
     inputs, ``o``, ``lse`` and the cotangent ``do`` (q's shape and
-    dtype). One call runs the ``delta = rowsum(dO*O)`` pre-pass, the
-    dk/dv pass and the dq pass; it counts as one launch."""
+    dtype). One call counts as one launch. bfloat16: a pre-pass (``delta
+    = rowsum(dO*O)``, the float32 dq accumulator zeroed), the one-pass
+    kernel over key blocks (dk, dv, and dq added into the accumulator)
+    and a post-pass rounding dq; float32: the delta pre-pass, a dk/dv
+    pass and a dq pass."""
     dbq, dbk = _blocks(q.shape[1], k.shape[1])
     bq, bk = bq or dbq, bk or dbk
     b, s_q, s_k, h, d = _check_general(_GEN_BWD, q, k, v, bias, dropout_p,
@@ -762,12 +780,15 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal, bias=None,
                f"{tuple(t.shape)} on {t.device}")
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     delta = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
+    dq_acc = (torch.empty(q.shape, dtype=torch.float32, device=q.device)
+              if q.dtype == torch.bfloat16 else None)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     _, bwd, err_str = _gen_kernel_fns()
     err = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
               do.data_ptr(), lse.data_ptr(),
               None if bias is None else bias.data_ptr(),
               seed.data_ptr() if dropout_p else None, delta.data_ptr(),
+              None if dq_acc is None else dq_acc.data_ptr(),
               dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
               *_shape_args(b, s_q, s_k, h, d, bias, causal, dropout_p, bq,
                            bk, scale, q.dtype, q.device))
@@ -843,7 +864,8 @@ def flash_attention(query, key, value, is_causal=False, attn_mask=None,
     return out[..., :d] if dp != d else out
 
 
-__all__ = ["mix32", "hash_keep_scale", "flash_qkv_reference",
+__all__ = ["mix32", "hash_keep_scale", "keep_threshold",
+           "flash_qkv_reference",
            "flash_qkv_bwd_reference", "flash_attention_qkv_fwd",
            "flash_attention_qkv_bwd", "flash_attention_qkv",
            "flash_qkv3_reference", "flash_qkv3_bwd_reference",
