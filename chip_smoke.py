@@ -24,7 +24,10 @@ Phases, in order; any failure exits non-zero:
    over the gathered view, dequantized beforehand; the beam's tail read
    `paged_tail_segment` at phase 10's beam shape, N=32 H=16 D=128 Pg=8,
    on bf16 and int8 pages at gen columns 127 and 40; the pair-major qkv
-   flash kernels: GPT's training shape B8 S1024 H16 D128 bf16 causal,
+   flash kernels (their backward is the general kernels', held at p=0
+   against the general backward on the unpacked views: dk and dv bit
+   for bit, dq within 8 bf16 ulps): GPT's training shape B8 S1024 H16
+   D128 bf16 causal, beside the general forward on the unpacked q/k/v,
    and the fused BERT's B8 S512 H16 D64 full, checked there too; the
    general flash kernels, held at nine shapes (bf16 edges among them:
    Sq != Sk causal, lengths that are not multiples of 128, a full
@@ -32,8 +35,9 @@ Phases, in order; any failure exits non-zero:
    with a key-padding mask and dropout 0.1 and at S=2048 causal, forward
    and backward; the which-major qkv3 flash
    kernels: BERT-large's unmasked B8 S512 H16 D64 bf16 with dropout 0.1,
-   also held bit for bit against the pair-major ones on the repacked
-   projection; the fused LayerNorm kernels through their entry
+   also held against the pair-major ones on the repacked projection (bit
+   for bit but bf16 dq, whose atomics sum in a varying order: 8 ulps);
+   the fused LayerNorm kernels through their entry
    ``_ln_maybe_fused``, then at BERT-large's [4096, 1024] bf16 rows with
    a residual) beside the plain version's, a PyTorch library call
    computing the same function (timed here only; the port never calls
@@ -158,9 +162,17 @@ BF16_ULPS_O, BF16_ULPS_DQKV = 8, 8
 FLASH_SCALE_FLOOR = 1 / 64
 FLASH_SEED = 20260               # the dropout seed of the kernel phase
 # B2's bf16 kernels by their names in a profile (csrc/flash_attention.cu;
-# the delta pre-pass is flash_common.cuh's, which B2 alone runs in phase 6)
+# the delta pre-pass is flash_common.cuh's): its forward, then the
+# backward that B1 and B5 run too, with its pre- and post-pass
 B2_KERNELS = ("::fwd_wg_kernel<", "::bwd_wg_kernel<", "flash_delta_kernel<",
-              "::bwd_dq_round_kernel(")
+              "::bwd_dq_round_kernel<")
+# B1's and B5's bf16 kernels: the qkv forward (csrc/flash_attention_qkv.cu)
+# and B2's backward
+QKV_KERNELS = ("::flash_fwd_wg_kernel<", *B2_KERNELS[1:])
+# the backward's times before it moved onto B2's kernel (PERF.md §6, the
+# mma.sync kernels' last readings: PR 8's final run; the fused BERT's
+# shape PR 7's), printed beside the new ones
+OLD_BWD_MS = {"gpt": 1.2530, "fused_bert": 0.3978, "qkv3": 0.3901}
 SLEEP_CYCLES = 100_000_000       # about 50 ms at the H100's clock
 
 # engine phase: the serving configuration and its traffic
@@ -724,13 +736,53 @@ def flash_compare(torch, fns, qkv, do, h, causal, p, seed_t):
     return err, "; ".join(parts), outs
 
 
+def grads_agree(torch, what, mine, theirs, d):
+    """``(dq, dk, dv)`` of the one backward kernel read through two
+    layouts: dk and dv bit for bit, and dq too in float32; in bfloat16
+    dq sums its key blocks by atomics in an order that varies, so it is
+    held to BF16_ULPS_DQKV of each element's scale (`flash_ulps`).
+    Returns the reading."""
+    check(torch.equal(mine[1], theirs[1]) and torch.equal(mine[2], theirs[2]),
+          f"{what}: dk or dv differs")
+    if mine[0].dtype == torch.float32:
+        check(torch.equal(mine[0], theirs[0]), f"{what}: dq differs")
+        return "dq, dk, dv bitwise"
+    ulps, _ = flash_ulps(mine[0], theirs[0], d)
+    check(ulps <= BF16_ULPS_DQKV, f"{what}: dq {ulps:.3f} ulps apart (limit "
+          f"{BF16_ULPS_DQKV})")
+    return f"dk, dv bitwise, dq {ulps:.3f} ulps apart (limit {BF16_ULPS_DQKV})"
+
+
+def qkv_against_general(torch, fa, qkv, do, h, causal):
+    """B1's backward on the pair-major ``qkv`` against B2's
+    (`flash_attention_bwd`) on its three unpacked views, at p=0, both
+    given the plain forward's o and lse: one kernel at other columns
+    (`grads_agree`). Returns a line of the readings."""
+    from paddle_tpu_torch.models.gpt import unpack_qkv_pair_major
+
+    b, s, hd3 = qkv.shape
+    d = hd3 // (3 * h)
+    o, lse = fa.flash_qkv_reference(qkv, h, causal)
+    dqkv = fa.flash_attention_qkv_bwd(qkv, do, o, lse, h, causal)
+    views = [t.contiguous() for t in unpack_qkv_pair_major(qkv, h, d)]
+    grads = fa.flash_attention_bwd(*views, o.reshape(b, s, h, d), lse,
+                                   do.reshape(b, s, h, d), causal)
+    torch.cuda.synchronize()
+    label = "B1's backward against B2's on the unpacked views"
+    return label + ": " + grads_agree(
+        torch, f"{label}, D={d} {str(qkv.dtype)[6:]} causal={causal}",
+        unpack_qkv_pair_major(dqkv, h, d), grads, d)
+
+
 def flash_kernel_phase(torch):
     """Flash kernels (rows 6-7) against their plain versions on the card,
-    f32 and bf16, D 64 and 128, causal and full, dropout 0 and 0.1; then
-    at the training shape (bf16, causal, no dropout) agreement and time
-    beside the plain versions, SDPA over the unpacked head-major q/k/v
-    (timed only; the port never calls it) and the bound. Returns the
-    forward's and the backward's records."""
+    f32 and bf16, D 64 and 128, causal and full, dropout 0 and 0.1; at
+    p=0 B1's backward also against B2's on the unpacked views
+    (`qkv_against_general`). Then at the training shape (bf16, causal, no
+    dropout) agreement, B1 against B2 again, and time beside the plain
+    versions, SDPA over the unpacked head-major q/k/v (timed only; the
+    port never calls it), the bound, and B2's forward over the unpacked
+    q/k/v. Returns the forward's and the backward's records."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.kernels import flash_attention as fa
@@ -746,6 +798,9 @@ def flash_kernel_phase(torch):
                     _, line, _ = flash_compare(torch, qkv_fns(fa, "pair"),
                                                qkv, do, 4, causal, p,
                                                seed_t)
+                    if p == 0.0:
+                        line += "; " + qkv_against_general(torch, fa, qkv, do,
+                                                           4, causal)
                     print(f"  flash_attention_qkv D={d} {str(dtype)[6:]} "
                           f"{'causal' if causal else 'full'} p={p}: {line}"
                           "  ok")
@@ -767,6 +822,7 @@ def flash_kernel_phase(torch):
     saved = [fa.flash_attention_qkv_fwd(q, h, True) for q, _ in copies]
     err, line, _ = flash_compare(torch, qkv_fns(fa, "pair"), *copies[0], h,
                                  True, 0.0, None)
+    line += "; " + qkv_against_general(torch, fa, *copies[0], h, True)
     print(f"  training shape B={b} S={s} H={h} D={d} bf16 causal: {line}  ok")
     it = iter(range(10 ** 9))
 
@@ -801,23 +857,32 @@ def flash_kernel_phase(torch):
 
     lib_f = time_ms(lib_fwd, 10)
     lib_fb = time_ms(lib_fwd_bwd, 5)
+    # B2's forward over the unpacked [B, S, H, D] q/k/v: would moving
+    # B1's forward onto B2's template pay (timed only)
+    views = [[t.contiguous() for t in unpack_qkv_pair_major(q, h, d)]
+             for q, _ in copies]
+    b2_fwd = time_ms(lambda: fa.flash_attention_fwd(*views[next(it) % 2],
+                                                    True), 10)
     io = b * s * h * d * el                      # one [B, S, H*D] tensor
     lse_bytes = b * h * s * 4
     attn = b * h * s * s * d // 2                # causal: half the pairs
     records = []
-    for name, ms, plain, lib, nbytes, flops, line in (
+    for name, ms, plain, lib, nbytes, flops, line, src in (
             ("flash_attention_qkv_fwd", fwd_ms, plain_fwd, lib_f,
-             3 * io + io + lse_bytes, 4 * attn, 849),
+             3 * io + io + lse_bytes, 4 * attn, 849, "flash_attention_qkv"),
             ("flash_attention_qkv_bwd", bwd_ms, plain_bwd, lib_fb - lib_f,
-             3 * io + 2 * io + lse_bytes + 3 * io, 10 * attn, 876)):
+             3 * io + 2 * io + lse_bytes + 3 * io, 10 * attn, 876,
+             "flash_attention")):
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
         bound_ms = max(t_bytes, t_ops) * 1e3
+        before = (f", before {OLD_BWD_MS['gpt']:.4f} ms (mma.sync, "
+                  "PERF.md)" if name.endswith("bwd") else "")
         print(f"  {name} at B={b} S={s} H={h} D={d} bf16 causal: kernel "
-              f"{ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({nbytes} bytes, {flops} flops)")
+              f"{ms:.4f} ms{before}, plain {plain:.4f} ms, SDPA {lib:.4f} "
+              f"ms, bound {bound_ms:.4f} ms ({nbytes} bytes, {flops} flops)")
         records.append({
             "name": name, "route": "cuda",
-            "source": "paddle_tpu_torch/kernels/csrc/flash_attention_qkv.cu",
+            "source": f"paddle_tpu_torch/kernels/csrc/{src}.cu",
             "replaces": f"paddle_tpu/kernels/flash_attention.py:{line}",
             "max_abs_err": err["o" if name.endswith("fwd") else "dqkv"],
             "ms": ms,
@@ -826,6 +891,9 @@ def flash_kernel_phase(torch):
             "library_ms": lib})
     print(f"  SDPA forward+backward {lib_fb:.4f} ms, forward {lib_f:.4f} ms "
           "(its backward alone: the difference)")
+    print(f"  flash_attention_fwd (B2's forward) on the unpacked q/k/v at "
+          f"the same shape: {b2_fwd:.4f} ms, beside B1's forward "
+          f"{fwd_ms:.4f} ms and SDPA's {lib_f:.4f} ms")
     return records
 
 
@@ -1097,18 +1165,36 @@ def qkv_work(b, s, h, d, el):
             (3 * io + 2 * io + lse + 3 * io, 10 * d * pairs))
 
 
+def qkv3_against_qkv(torch, fa, outs, outs1, h):
+    """B5's ``(o, lse, dqkv)`` against B1's ``outs1`` on the repacked
+    (pair-major) projection: the same kernels at other column offsets
+    give the same values and drop the same elements, so o and lse agree
+    bit for bit, and the gradients as `grads_agree` holds them (bf16 dq
+    also against its plain version, in `flash_compare`). Returns a line
+    of the readings."""
+    o, lse, dqkv = outs
+    o1, lse1, d1 = outs1
+    hd = dqkv.shape[-1] // 3
+    what = (f"qkv3 {str(dqkv.dtype)[6:]} D={hd // h}: B5 against B1 on the "
+            "repacked projection")
+    check(torch.equal(o, o1) and torch.equal(lse, lse1),
+          f"{what}: o or lse differs")
+    return "o, lse bitwise B1's on the repacked projection; " + grads_agree(
+        torch, what, dqkv.split(hd, dim=-1),
+        fa._pair_to_which(d1, h).split(hd, dim=-1), hd // h)
+
+
 def qkv3_kernel_phase(torch):
     """B5 (rows 8-9) against its plain versions on the card: f32 and
     bf16, D 64 and 128, causal and full, dropout 0 and 0.1, at B2 S256 H4,
     with B1's tolerances (`flash_compare`), and against B1's kernels on
-    the repacked (pair-major) projection, bit for bit: the same kernels
-    at other column offsets give the same values and drop the same
-    elements. Then at BERT-large's shape (B8 S512 H16 D64 bf16, full,
-    dropout 0.1): agreement, time beside the plain versions, SDPA on the
-    unpacked [B, H, S, D] tensors with dropout 0.1 (timed only; the port
-    never calls it) and the bound; and B1 at the same shape (the fused
-    BERT's): against its plain versions, bit for bit against B5, timed.
-    Returns the forward's and the backward's records."""
+    the repacked (pair-major) projection (`qkv3_against_qkv`). Then at
+    BERT-large's shape (B8 S512 H16 D64 bf16, full, dropout 0.1):
+    agreement, time beside the plain versions, SDPA on the unpacked [B,
+    H, S, D] tensors with dropout 0.1 (timed only; the port never calls
+    it) and the bound; and B1 at the same shape (the fused BERT's):
+    against its plain versions and against B5, timed. Returns the
+    forward's and the backward's records."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.kernels import flash_attention as fa
@@ -1130,14 +1216,11 @@ def qkv3_kernel_phase(torch):
                                                           seed_t)
                     d1 = fa.flash_attention_qkv_bwd(qp, do, ro, rlse, 4,
                                                     causal, p, seed_t)
-                    same = (torch.equal(o, o1) and torch.equal(lse, lse1)
-                            and torch.equal(dqkv, fa._pair_to_which(d1, 4)))
-                    check(same, f"qkv3 D={d} {dtype} causal={causal} p={p}:"
-                          " B5 differs from B1 on the repacked projection")
+                    line1 = qkv3_against_qkv(torch, fa, (o, lse, dqkv),
+                                             (o1, lse1, d1), 4)
                     print(f"  flash_attention_qkv3 D={d} {str(dtype)[6:]} "
                           f"{'causal' if causal else 'full'} p={p}: {line}; "
-                          "o, lse, dqkv bitwise B1's on the repacked "
-                          "projection  ok")
+                          f"{line1}  ok")
 
     b, s, h, d = BERT_B, BERT_S, 16, 64
     bf, p = torch.bfloat16, 0.1
@@ -1149,13 +1232,11 @@ def qkv3_kernel_phase(torch):
     pairs_in = [fa._which_to_pair(q, h).contiguous() for q, _ in copies]
     # B1 at the fused BERT's shape: against its plain versions, and bit
     # for bit against B5 on the same (repacked) inputs
-    _, line1, (o1, lse1, d1) = flash_compare(torch, pair, pairs_in[0],
-                                             copies[0][1], h, False, p, seed_t)
-    same = (torch.equal(o, o1) and torch.equal(lse, lse1)
-            and torch.equal(dqkv, fa._pair_to_which(d1, h)))
-    check(same, "B1 differs from B5 at the fused BERT's shape")
+    _, line1, outs1 = flash_compare(torch, pair, pairs_in[0], copies[0][1],
+                                    h, False, p, seed_t)
+    line2 = qkv3_against_qkv(torch, fa, (o, lse, dqkv), outs1, h)
     print(f"  flash_attention_qkv (B1) at the same shape, the fused BERT's: "
-          f"{line1}; o, lse, dqkv bitwise B5's  ok")
+          f"{line1}; B5's against it: {line2}  ok")
     saved = [fa.flash_attention_qkv3_fwd(q, h, False, p, seed_t)
              for q, _ in copies]
     saved1 = [fa.flash_attention_qkv_fwd(q, h, False, p, seed_t)
@@ -1213,18 +1294,24 @@ def qkv3_kernel_phase(torch):
         bound_ms = max(t_bytes, t_ops) * 1e3
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
         name = f"flash_attention_qkv3_{key}"
+        bwd = key == "bwd"
+        before = (f", before {OLD_BWD_MS['qkv3']:.4f} ms (mma.sync, "
+                  "PERF.md)" if bwd else "")
+        before1 = (f", before {OLD_BWD_MS['fused_bert']:.4f} ms (mma.sync, "
+                   "PERF.md)" if bwd else "")
         print(f"  {name} at B={b} S={s} H={h} D={d} bf16 full p={p}: kernel "
-              f"{ms[key]:.4f} ms, plain {plain[key]:.4f} ms, SDPA "
+              f"{ms[key]:.4f} ms{before}, plain {plain[key]:.4f} ms, SDPA "
               f"{library[key]:.4f} ms, bound {bound_ms:.4f} ms ({bound_by};"
               f" {nbytes} bytes, {flops} flops)")
         print(f"  flash_attention_qkv_{key} (B1) at the same shape, the "
-              f"fused BERT's: kernel {b1_ms[key]:.4f} ms, plain "
+              f"fused BERT's: kernel {b1_ms[key]:.4f} ms{before1}, plain "
               f"{b1_plain[key]:.4f} ms, bound {bound_ms:.4f} ms, library "
               f"{library[key]:.4f} ms (the SDPA call above: the same "
               "function on the same inputs)")
+        src = "flash_attention" if bwd else "flash_attention_qkv"
         records.append({
             "name": name, "route": "cuda",
-            "source": "paddle_tpu_torch/kernels/csrc/flash_attention_qkv.cu",
+            "source": f"paddle_tpu_torch/kernels/csrc/{src}.cu",
             "replaces": f"paddle_tpu/kernels/flash_attention.py:{line_no}",
             "max_abs_err": err["o" if key == "fwd" else "dqkv"],
             "ms": ms[key], "plain_ms": plain[key], "bound_ms": bound_ms,
@@ -1548,6 +1635,15 @@ def profile_steps(torch, fn, steps, what, families=None):
     return wall_us / steps / 1e3, busy_us / steps / 1e3
 
 
+def qkv_families(label):
+    """The profile's kernel families of B1 or B5 (``label``): the qkv
+    forward and B2's backward with its pre- and post-pass."""
+    return {f"{label} kernels (qkv forward; B2's backward, its pre- and "
+            "post-pass)": QKV_KERNELS,
+            "of which the backward (bwd_wg_kernel)": QKV_KERNELS[1:2],
+            "and its pre- and post-pass": QKV_KERNELS[2:]}
+
+
 # ---------------------------------------------------------------- training
 def train_phase(torch, seed, card):
     """gpt3-1.3b at full width and depth trains through `SpmdTrainStep`
@@ -1632,7 +1728,7 @@ def train_phase(torch, seed, card):
         i = next(it) % len(batches)
         _, params, opt_state = step(params, opt_state, batches[i], 100 + i)
 
-    profile_steps(torch, one, 2, "training steps")
+    profile_steps(torch, one, 2, "training steps", qkv_families("B1"))
     return {k: counts[k] for k in ("flash_attention_qkv_fwd",
                                    "flash_attention_qkv_bwd")}
 
@@ -1851,7 +1947,7 @@ def bert_phase(torch, seed, card, variant):
     families = {"B2 kernels (general flash, bf16: forward, backward, its "
                 "pre- and post-pass)": B2_KERNELS,
                 "of which the backward's pre- and post-pass": B2_KERNELS[2:],
-                } if v["masked"] else None
+                } if v["masked"] else qkv_families(v["label"])
     profile_steps(torch, one, 2, f"BERT training steps ({variant})",
                   families)
     return {k: counts[k] for k in v["kernels"]}

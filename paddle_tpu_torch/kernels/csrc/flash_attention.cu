@@ -9,10 +9,23 @@
 // artifact; all of them compute the same dq, dk and dv
 // (`_packed_head_attn_bwd`, :488-533).
 //
+// The backward also serves the qkv kernels' backwards, B1's `_bwd_qkv`
+// (:936, body :876) and B5's `_bwd_qkv3` (:1107, body :1044), over the
+// fused projection qkv [B,S,3*H*D] as it lies (`ptt_flash_qkv_bwd`):
+// q, k and v are read, and dq, dk and dv written, through a row stride
+// (ldq for q and dq, ldk for the rest) and a rule from head to column
+// that the caller fills, head h's columns at (h / group) * gstride +
+// (h % group) * D plus qcol, kcol or vcol. Separate tensors: stride H*D,
+// group 1, gstride D, offsets 0. Pair-major qkv (B1): stride 3HD, group
+// 2, gstride 6D, offsets 0, 2D, 4D. Which-major qkv (B5): stride 3HD,
+// group 1, gstride D, offsets 0, HD, 2HD. o, dO, lse and delta keep the
+// layouts below. The qkv kernels' dropout ids are per head (below).
+//
 // What they compute, as the TPU kernels do:
 // - q [B,Sq,H,D], k and v [B,Sk,H,D], read through strides (row stride
-//   H*D, head stride D; no [B*H,S,D] transpose). D is 64 or 128 (the
-//   caller zero-pads a smaller D); any Sq, Sk >= 1.
+//   H*D, head stride D; no [B*H,S,D] transpose), or the projection
+//   above. D is 64 or 128 (the caller zero-pads a smaller D); any Sq,
+//   Sk >= 1.
 // - s = (q.k) * scale in f32 (scale = 1/sqrt(real D), passed in); the
 //   additive f32 bias [Bm,Sqm,Sk] is ADDED (Bm in {1,B}, Sqm in {1,Sq}:
 //   batch index b when Bm == B else 0, row q when Sqm == Sq else 0; a
@@ -32,7 +45,10 @@
 //   bq and bk are the REFERENCE's block sizes (`_pick_block`, :1211), not
 //   these kernels' tiles; the caller passes them. They are multiples of
 //   128, so none of these kernels' 64- or 128-row tiles straddles one of
-//   their blocks and the ids hold per tile. Computed per element from
+//   their blocks and the ids hold per tile. The qkv kernels' ids
+//   (`head_ids`) are (b, h >> 1, h & 1) at global (q, c), in both
+//   layouts (:865, :890, :1031, :1057): one block of origin (0, 0).
+//   Computed per element from
 //   global coordinates, so the masks agree bit for bit with the plain
 //   version and with paddle_tpu's interpret mode. These kernels compare
 //   the hash's top 24 bits with the integer threshold ceil(keep * 2^24)
@@ -41,7 +57,7 @@
 //   nothing reproduces.)
 //
 // Design. bf16 (the training path) runs on Hopper's warpgroup products
-// fed by TMA (tensor maps over q, k, v and dO as 2-D [B*S, H*D] arrays,
+// fed by TMA (tensor maps over q, k, v and dO as 2-D [B*S, row] arrays,
 // 64 x 64 boxes, 128-byte swizzle; rows that leak into the next batch are
 // replaced past Sk or have p = 0 past Sq; rows past the array read 0):
 // - forward (`fwd_wg_kernel`), flash_attention_qkv.cu's template: a
@@ -89,10 +105,15 @@
 // flops per pair (19.0 GFLOP, 0.0192 ms): both bytes-bound. With dropout,
 // the hash (about 12 integer operations a score) is a floor beside them:
 // 33.5M scores a pass at 64 integer lanes an SM is about 0.027 ms, which
-// the products can only overlap. What the design leaves: both consumer
-// groups softmax at the same time (no ping-pong) and each waits for its
-// own products, the backward's one block an SM, dQ's atomics and its
-// pre- and post-pass, and key tiles that are wholly padding still
+// the products can only overlap. Over the qkv projection, the backward
+// at GPT's training shape (B8 S1024 H16 D128, causal) moves qkv, o, dO,
+// lse and dqkv (269 MB, 0.080 ms) for 10*D per causal pair and head
+// (85.9 GFLOP, 0.087 ms), and at the unmasked BERT's (B8 S512 H16 D64,
+// full) 67.4 MB (0.0201 ms) for 21.5 GFLOP (0.0217 ms): both bound by
+// their products, the bytes close behind. What the design leaves: both
+// consumer groups softmax at the same time (no ping-pong) and each waits
+// for its own products, the backward's one block an SM, dQ's atomics and
+// its pre- and post-pass, and key tiles that are wholly padding still
 // computed (ROADMAP B2).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -110,9 +131,9 @@ using namespace flash;
 
 // Everything a kernel reads, passed by value.
 struct Params {
-  const void* q;        // [B, Sq, H, D]
-  const void* k;        // [B, Sk, H, D]
-  const void* v;        // [B, Sk, H, D]
+  const void* q;        // [B, Sq, H, D], or the fused projection
+  const void* k;        // [B, Sk, H, D], or the same projection
+  const void* v;        // [B, Sk, H, D], or the same projection
   const void* o;        // backward: the forward's output [B, Sq, H, D]
   const void* dout;     // backward: [B, Sq, H, D]
   const float* lse;     // backward: [B, H, Sq]
@@ -121,29 +142,42 @@ struct Params {
   const int32_t* seed;  // [1], read when use_drop
   void* out;            // forward: [B, Sq, H, D]
   float* lse_out;       // forward: [B, H, Sq]
-  void* dq;             // backward outputs, shaped as q, k, v
+  void* dq;             // backward outputs, laid out as q, k, v
   void* dk;
   void* dv;
   float* dq_acc;        // bf16 backward: f32 dq scratch [B, Sq, H, D]
+  int64_t ldq, ldk;     // row strides of q and dq; of k, v, dk and dv
+  int group, gstride;   // head h's columns there: (h / group) * gstride
+  int qcol, kcol, vcol; //   + (h % group) * D, plus qcol, kcol or vcol
+  int head_ids;         // dropout ids (b, h >> 1, h & 1) (the qkv kernels)
   int B, Sq, Sk, H, bias_b, bias_q, causal, off, use_drop, bq, bk;
   float keep, scale;
 };
 
-// One (b, h) head: element offsets of (b, 0, h, 0) in the query-side
-// tensors (q, o, dO, dq) and the key-side ones (k, v, dk, dv).
+// Head h's first column in q, k, v, dq, dk and dv, before the q, k or v
+// offset.
+__device__ __forceinline__ int head_col(const Params& p, int h, int D) {
+  return (h / p.group) * p.gstride + (h % p.group) * D;
+}
+
+// One (b, h) head: element offsets of (b, row 0, h) in q and dq, k and dk,
+// v and dv, and in o, dO and the forward's out (row stride ldo = H*D).
 struct Head {
-  int b, bh;
-  int64_t ld, qoff, koff;
+  int b, h, bh;
+  int64_t ldo, q, k, v, o;
 };
 
 __device__ __forceinline__ Head head(const Params& p, int D) {
   Head g;
-  const int h = blockIdx.y;
+  g.h = blockIdx.y;
   g.b = blockIdx.z;
-  g.bh = g.b * p.H + h;
-  g.ld = (int64_t)p.H * D;
-  g.qoff = (int64_t)g.b * p.Sq * g.ld + (int64_t)h * D;
-  g.koff = (int64_t)g.b * p.Sk * g.ld + (int64_t)h * D;
+  g.bh = g.b * p.H + g.h;
+  g.ldo = (int64_t)p.H * D;
+  const int col = head_col(p, g.h, D);
+  g.q = (int64_t)g.b * p.Sq * p.ldq + col + p.qcol;
+  g.k = (int64_t)g.b * p.Sk * p.ldk + col + p.kcol;
+  g.v = (int64_t)g.b * p.Sk * p.ldk + col + p.vcol;
+  g.o = (int64_t)g.b * p.Sq * g.ldo + (int64_t)g.h * D;
   return g;
 }
 
@@ -162,8 +196,9 @@ __device__ __forceinline__ float score(float qk, const Params& p, int b,
 }
 
 // Dropout of one (query tile, key tile) pair: the hash base of the
-// reference block that holds it and that block's origin; an element is
-// kept where its hash's top 24 bits lie under the integer threshold
+// reference block that holds it and that block's origin (with head_ids,
+// the head's one block at (0, 0)); an element is kept where its hash's
+// top 24 bits lie under the integer threshold
 // (`keep_threshold`, the reference's float compare bit for bit). `Keep`
 // holds what does not depend on the tile, formed once per thread.
 struct Keep {
@@ -182,10 +217,12 @@ struct Drop {
   }
 };
 __device__ __forceinline__ Drop tile_drop(const Params& p, const Keep& kc,
-                                          int bh, int q0, int k0) {
+                                          int b, int h, int q0, int k0) {
+  if (p.head_ids)
+    return {p.use_drop ? mix32(kc.seed, b, h >> 1, h & 1) : 0u, kc.thr, 0, 0};
   const int qb = q0 / p.bq, kb = k0 / p.bk;
-  return {p.use_drop ? mix32(kc.seed, bh, qb, kb) : 0u, kc.thr, qb * p.bq,
-          kb * p.bk};
+  return {p.use_drop ? mix32(kc.seed, b * p.H + h, qb, kb) : 0u, kc.thr,
+          qb * p.bq, kb * p.bk};
 }
 
 // Key tiles the query tile [q0, q0 + 64) needs: all, or under causal
@@ -215,12 +252,12 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(const Params p) {
   const Head g = head(p, D);
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;  // longest rows first
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const float* qb = static_cast<const float*>(p.q) + g.qoff;
-  const float* kb = static_cast<const float*>(p.k) + g.koff;
-  const float* vb = static_cast<const float*>(p.v) + g.koff;
+  const float* qb = static_cast<const float*>(p.q) + g.q;
+  const float* kb = static_cast<const float*>(p.k) + g.k;
+  const float* vb = static_cast<const float*>(p.v) + g.v;
   const Keep kc = keep_consts(p);
 
-  load_tile<D>(Qs, qb + q0 * g.ld, g.ld, p.Sq - q0);
+  load_tile<D>(Qs, qb + q0 * p.ldq, p.ldq, p.Sq - q0);
   float m[kTM], l[kTM], acc[kTM][TD];
 #pragma unroll
   for (int i = 0; i < kTM; ++i) {
@@ -234,8 +271,8 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(const Params p) {
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the previous K/V/P tiles are consumed
-    load_tile<D>(Ks, kb + k0 * g.ld, g.ld, p.Sk - k0);
-    load_tile<D>(Vs, vb + k0 * g.ld, g.ld, p.Sk - k0);
+    load_tile<D>(Ks, kb + k0 * p.ldk, p.ldk, p.Sk - k0);
+    load_tile<D>(Vs, vb + k0 * p.ldk, p.ldk, p.Sk - k0);
     __syncthreads();
     float s[kTM][4];
 #pragma unroll
@@ -243,7 +280,7 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(const Params p) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
     tile_product<4, D, LD, 1, 1, LD>(s, Qs, Ks, ty, tx);
-    const Drop dr = tile_drop(p, kc, g.bh, q0, k0);
+    const Drop dr = tile_drop(p, kc, g.b, g.h, q0, k0);
 #pragma unroll
     for (int i = 0; i < kTM; ++i) {
       const int r = ty + 16 * i;
@@ -273,14 +310,14 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(const Params p) {
     tile_product<TD, kTile, kLS, 1, LD, 1>(acc, Ps, Vs, ty, tx);
   }
 
-  float* out = static_cast<float*>(p.out) + g.qoff;
+  float* out = static_cast<float*>(p.out) + g.o;
 #pragma unroll
   for (int i = 0; i < kTM; ++i) {
     const int r = q0 + ty + 16 * i;
     if (r >= p.Sq) continue;
     const float lc = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < TD; ++j) out[r * g.ld + tx + 16 * j] = acc[i][j] / lc;
+    for (int j = 0; j < TD; ++j) out[r * g.ldo + tx + 16 * j] = acc[i][j] / lc;
     if (tx == 0) p.lse_out[(int64_t)g.bh * p.Sq + r] = m[i] + logf(lc);
   }
 }
@@ -300,7 +337,7 @@ __device__ __forceinline__ void probs_and_dscores(
     const float (&s)[kTM][4], const float (&dp)[kTM][4], const float* lse_r,
     const float* delta_r, float* Ps, float* dSs, const Params& p,
     const Head& g, int q0, int k0, const Keep& kc, int ty, int tx) {
-  const Drop dr = tile_drop(p, kc, g.bh, q0, k0);
+  const Drop dr = tile_drop(p, kc, g.b, g.h, q0, k0);
 #pragma unroll
   for (int i = 0; i < kTM; ++i) {
     const int r = ty + 16 * i;
@@ -331,13 +368,13 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(const Params p) {
   const Head g = head(p, D);
   const int k0 = blockIdx.x * kTile;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const float* qb = static_cast<const float*>(p.q) + g.qoff;
-  const float* dob = static_cast<const float*>(p.dout) + g.qoff;
+  const float* qb = static_cast<const float*>(p.q) + g.q;
+  const float* dob = static_cast<const float*>(p.dout) + g.o;
   const Keep kc = keep_consts(p);
 
-  load_tile<D>(Ks, static_cast<const float*>(p.k) + g.koff + k0 * g.ld, g.ld,
+  load_tile<D>(Ks, static_cast<const float*>(p.k) + g.k + k0 * p.ldk, p.ldk,
                p.Sk - k0);
-  load_tile<D>(Vs, static_cast<const float*>(p.v) + g.koff + k0 * g.ld, g.ld,
+  load_tile<D>(Vs, static_cast<const float*>(p.v) + g.v + k0 * p.ldk, p.ldk,
                p.Sk - k0);
   float dk[kTM][TD], dv[kTM][TD];
 #pragma unroll
@@ -347,8 +384,8 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(const Params p) {
 
   for (int q0 = first_query(p, k0) / kTile * kTile; q0 < p.Sq; q0 += kTile) {
     __syncthreads();  // the previous Q/dO/P/dS tiles are consumed
-    load_tile<D>(Qs, qb + q0 * g.ld, g.ld, p.Sq - q0);
-    load_tile<D>(dOs, dob + q0 * g.ld, g.ld, p.Sq - q0);
+    load_tile<D>(Qs, qb + q0 * p.ldq, p.ldq, p.Sq - q0);
+    load_tile<D>(dOs, dob + q0 * g.ldo, g.ldo, p.Sq - q0);
     __syncthreads();
     float s[kTM][4], dp[kTM][4], lse_r[kTM], delta_r[kTM];
 #pragma unroll
@@ -367,16 +404,16 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(const Params p) {
     tile_product<TD, kTile, 1, kLS, LD, 1>(dk, dSs, Qs, ty, tx);
   }
 
-  float* dkb = static_cast<float*>(p.dk) + g.koff;
-  float* dvb = static_cast<float*>(p.dv) + g.koff;
+  float* dkb = static_cast<float*>(p.dk) + g.k;
+  float* dvb = static_cast<float*>(p.dv) + g.v;
 #pragma unroll
   for (int i = 0; i < kTM; ++i) {
     const int r = k0 + ty + 16 * i;
     if (r >= p.Sk) continue;
 #pragma unroll
     for (int j = 0; j < TD; ++j) {
-      dkb[r * g.ld + tx + 16 * j] = dk[i][j];
-      dvb[r * g.ld + tx + 16 * j] = dv[i][j];
+      dkb[r * p.ldk + tx + 16 * j] = dk[i][j];
+      dvb[r * p.ldk + tx + 16 * j] = dv[i][j];
     }
   }
 }
@@ -394,14 +431,14 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Params p) {
   const Head g = head(p, D);
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;  // longest rows first
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const float* kb = static_cast<const float*>(p.k) + g.koff;
-  const float* vb = static_cast<const float*>(p.v) + g.koff;
+  const float* kb = static_cast<const float*>(p.k) + g.k;
+  const float* vb = static_cast<const float*>(p.v) + g.v;
   const Keep kc = keep_consts(p);
 
-  load_tile<D>(Qs, static_cast<const float*>(p.q) + g.qoff + q0 * g.ld, g.ld,
+  load_tile<D>(Qs, static_cast<const float*>(p.q) + g.q + q0 * p.ldq, p.ldq,
                p.Sq - q0);
-  load_tile<D>(dOs, static_cast<const float*>(p.dout) + g.qoff + q0 * g.ld,
-               g.ld, p.Sq - q0);
+  load_tile<D>(dOs, static_cast<const float*>(p.dout) + g.o + q0 * g.ldo,
+               g.ldo, p.Sq - q0);
   float dq[kTM][TD], lse_r[kTM], delta_r[kTM];
 #pragma unroll
   for (int i = 0; i < kTM; ++i) {
@@ -414,8 +451,8 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Params p) {
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the previous K/V/dS tiles are consumed
-    load_tile<D>(Ks, kb + k0 * g.ld, g.ld, p.Sk - k0);
-    load_tile<D>(Vs, vb + k0 * g.ld, g.ld, p.Sk - k0);
+    load_tile<D>(Ks, kb + k0 * p.ldk, p.ldk, p.Sk - k0);
+    load_tile<D>(Vs, vb + k0 * p.ldk, p.ldk, p.Sk - k0);
     __syncthreads();
     float s[kTM][4], dp[kTM][4];
 #pragma unroll
@@ -431,13 +468,13 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Params p) {
     tile_product<TD, kTile, kLS, 1, LD, 1>(dq, dSs, Ks, ty, tx);
   }
 
-  float* dqb = static_cast<float*>(p.dq) + g.qoff;
+  float* dqb = static_cast<float*>(p.dq) + g.q;
 #pragma unroll
   for (int i = 0; i < kTM; ++i) {
     const int r = q0 + ty + 16 * i;
     if (r >= p.Sq) continue;
 #pragma unroll
-    for (int j = 0; j < TD; ++j) dqb[r * g.ld + tx + 16 * j] = dq[i][j];
+    for (int j = 0; j < TD; ++j) dqb[r * p.ldq + tx + 16 * j] = dq[i][j];
   }
 }
 
@@ -453,10 +490,12 @@ constexpr int kKeysW = 128;       // keys of a forward K/V tile; of a
 constexpr int kThreadsW = 384;    // producer + 2 consumer warpgroups
 constexpr int kSlabBytes = 2 * kBoxBytes;   // 128 rows x 64 columns
 
-// The call's tensor maps: q and dO as 2-D [B*Sq, H*D], k and v as
-// [B*Sk, H*D] (the head's columns at h*D), 64 x 64 boxes, 128-byte
-// swizzle. Rows past a batch's end read the next batch's rows (their
-// scores are replaced or their p is 0) and rows past the array read 0.
+// The call's tensor maps: q as a 2-D [B*Sq, ldq] array, k and v as
+// [B*Sk, ldk] (a head's columns by `head_col`; over the fused projection
+// the three maps are one), dO as [B*Sq, H*D] (columns h*D), 64 x 64
+// boxes, 128-byte swizzle. Rows past a batch's end read the next batch's
+// rows (their scores are replaced or their p is 0) and rows past the
+// array read 0.
 struct Maps {
   CUtensorMap q, k, v, dout;
 };
@@ -637,6 +676,7 @@ fwd_wg_kernel(const __grid_constant__ Maps maps, const Params p) {
         const int q0 = f.qt * 2 * kRowsW;
         const int nk = fwd_key_tiles(p, q0);
         const int qb = n & 1;
+        const int col = head_col(p, f.h, D);
         // the warp waits together; lane 0 issues the copies
         mbar_wait(&qempty_bar[qb], ((n >> 1) & 1) ^ 1);
         if (lane == 0) {
@@ -645,7 +685,7 @@ fwd_wg_kernel(const __grid_constant__ Maps maps, const Params p) {
           for (int c = 0; c < active; ++c)
             for (int j = 0; j < NB; ++j)
               tma_load_2d(Qs + ((qb * 2 + c) * NB + j) * kBoxBytes, &maps.q,
-                          &qfull_bar[qb], f.h * D + j * kBox,
+                          &qfull_bar[qb], col + p.qcol + j * kBox,
                           f.b * p.Sq + q0 + c * kRowsW);
         }
         __syncwarp();
@@ -661,9 +701,9 @@ fwd_wg_kernel(const __grid_constant__ Maps maps, const Params p) {
               for (int r = 0; r < 2; ++r) {
                 const int row = f.b * p.Sk + kt * kKeysW + r * kBox;
                 tma_load_2d(Ks + j * kSlabBytes + r * kBoxBytes, &maps.k,
-                            &full_bar[s], f.h * D + j * kBox, row);
+                            &full_bar[s], col + p.kcol + j * kBox, row);
                 tma_load_2d(Vs + j * kSlabBytes + r * kBoxBytes, &maps.v,
-                            &full_bar[s], f.h * D + j * kBox, row);
+                            &full_bar[s], col + p.vcol + j * kBox, row);
               }
           }
           __syncwarp();
@@ -751,7 +791,7 @@ fwd_wg_kernel(const __grid_constant__ Maps maps, const Params p) {
           alpha[h] = ex2((m[h] - m_new[h]) * kLog2e);
         }
         if (p.use_drop)
-          fwd_probs<true>(sc, sum, m_new, tile_drop(p, kc, bh, q0, k0),
+          fwd_probs<true>(sc, sum, m_new, tile_drop(p, kc, f.b, f.h, q0, k0),
                           kc.inv, row, k0, qi);
         else
           fwd_probs<false>(sc, sum, m_new, Drop{}, 1.f, row, k0, qi);
@@ -929,15 +969,16 @@ bwd_wg_kernel(const __grid_constant__ Maps maps, const Params p) {
     setmaxnreg_dec<40>();
     if (threadIdx.x < 32) {
       const int lane = threadIdx.x;
+      const int col = head_col(p, h, D);
       if (lane == 0) {
         mbar_expect_tx(&kv_bar, 2 * kKVBytes);
         for (int j = 0; j < NB; ++j)
           for (int r = 0; r < 2; ++r) {
             const int row = b * p.Sk + k0 + r * kBox;
             tma_load_2d(Ks + j * kSlabBytes + r * kBoxBytes, &maps.k, &kv_bar,
-                        h * D + j * kBox, row);
+                        col + p.kcol + j * kBox, row);
             tma_load_2d(Vs + j * kSlabBytes + r * kBoxBytes, &maps.v, &kv_bar,
-                        h * D + j * kBox, row);
+                        col + p.vcol + j * kBox, row);
           }
       }
       __syncwarp();
@@ -955,7 +996,7 @@ bwd_wg_kernel(const __grid_constant__ Maps maps, const Params p) {
           mbar_expect_tx(&full_bar[s], 2 * kTileBytes);
           for (int j = 0; j < NB; ++j) {
             tma_load_2d(Qr + j * kBoxBytes, &maps.q, &full_bar[s],
-                        h * D + j * kBox, b * p.Sq + q0);
+                        col + p.qcol + j * kBox, b * p.Sq + q0);
             tma_load_2d(Qr + kTileBytes + j * kBoxBytes, &maps.dout,
                         &full_bar[s], h * D + j * kBox, b * p.Sq + q0);
           }
@@ -1033,7 +1074,7 @@ bwd_wg_kernel(const __grid_constant__ Maps maps, const Params p) {
     // P^T while dP^T is in flight: p = exp(s - lse), and the keep bits
     // (the general form only where the tile needs it, as in the forward)
     const bool cut = cut_keys || (p.causal && p.off + q0 < k0 + kKeysW - 1);
-    const Drop dr = tile_drop(p, kc, bh, q0, k0);
+    const Drop dr = tile_drop(p, kc, b, h, q0, k0);
     const float* lse_t = lse_s[s];
     uint32_t keep_bits;
     if (cut || br.full)
@@ -1127,46 +1168,55 @@ bwd_wg_kernel(const __grid_constant__ Maps maps, const Params p) {
     }
   }
 
-  const int64_t ld = (int64_t)p.H * D;
-  bf16* dkb = static_cast<bf16*>(p.dk) + (int64_t)b * p.Sk * ld + h * D;
-  bf16* dvb = static_cast<bf16*>(p.dv) + (int64_t)b * p.Sk * ld + h * D;
+  // dK and dV at k's row stride and this head's columns
+  const int64_t kv0 = (int64_t)b * p.Sk * p.ldk + head_col(p, h, D);
+  bf16* dkb = static_cast<bf16*>(p.dk) + kv0 + p.kcol;
+  bf16* dvb = static_cast<bf16*>(p.dv) + kv0 + p.vcol;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int kc = key[hh];
     if (kc >= p.Sk) continue;
 #pragma unroll
     for (int j = 0; j < ND; ++j) {
-      *reinterpret_cast<uint32_t*>(dkb + kc * ld + j * 8 + 2 * qi) =
+      *reinterpret_cast<uint32_t*>(dkb + kc * p.ldk + j * 8 + 2 * qi) =
           pack_bf16(dk[j][2 * hh], dk[j][2 * hh + 1]);
-      *reinterpret_cast<uint32_t*>(dvb + kc * ld + j * 8 + 2 * qi) =
+      *reinterpret_cast<uint32_t*>(dvb + kc * p.ldk + j * 8 + 2 * qi) =
           pack_bf16(dv[j][2 * hh], dv[j][2 * hh + 1]);
     }
   }
 }
 
-// The post-pass: dq = the f32 accumulator rounded to bf16, 4 a thread.
+// The post-pass: dq = the f32 accumulator [B, Sq, H, D] rounded to bf16,
+// at q's row stride and head columns; a block a row, 4 values a thread.
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-bwd_dq_round_kernel(const float4* __restrict__ dq_acc,
-                    uint2* __restrict__ dq, int64_t n4) {
-  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n4) return;
-  const float4 v = dq_acc[i];
-  dq[i] = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+bwd_dq_round_kernel(const Params p) {
+  const int64_t row = blockIdx.x;            // b * Sq + q
+  const float4* acc =
+      reinterpret_cast<const float4*>(p.dq_acc + row * p.H * D);
+  bf16* dq = static_cast<bf16*>(p.dq) + row * p.ldq + p.qcol;
+  for (int i = threadIdx.x; i < p.H * (D / 4); i += kThreads) {
+    const int h = i / (D / 4), c = (i % (D / 4)) * 4;
+    const float4 v = acc[i];
+    *reinterpret_cast<uint2*>(dq + head_col(p, h, D) + c) =
+        make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+  }
 }
 
 // ------------------------------------------------------------- launches
-// The call's tensor maps (dout unused by the forward).
+// The call's tensor maps (dout unused by the forward): q, k and v as
+// [B*S, ldq | ldk] (over the fused projection, each the whole of it).
 cudaError_t make_maps(Maps* m, const Params& p, int D) {
   const int64_t ld = (int64_t)p.H * D;
   cudaError_t err;
-  if ((err = hopper::tensor_map_2d(&m->q, p.q, (int64_t)p.B * p.Sq, ld, ld)) !=
-      cudaSuccess)
+  if ((err = hopper::tensor_map_2d(&m->q, p.q, (int64_t)p.B * p.Sq, p.ldq,
+                                   p.ldq)) != cudaSuccess)
     return err;
-  if ((err = hopper::tensor_map_2d(&m->k, p.k, (int64_t)p.B * p.Sk, ld, ld)) !=
-      cudaSuccess)
+  if ((err = hopper::tensor_map_2d(&m->k, p.k, (int64_t)p.B * p.Sk, p.ldk,
+                                   p.ldk)) != cudaSuccess)
     return err;
-  if ((err = hopper::tensor_map_2d(&m->v, p.v, (int64_t)p.B * p.Sk, ld, ld)) !=
-      cudaSuccess)
+  if ((err = hopper::tensor_map_2d(&m->v, p.v, (int64_t)p.B * p.Sk, p.ldk,
+                                   p.ldk)) != cudaSuccess)
     return err;
   if (p.dout == nullptr) {
     m->dout = m->q;
@@ -1215,11 +1265,8 @@ cudaError_t launch_bwd(const Params& p, cudaStream_t stream) {
     const dim3 grid(p.H, p.B, (p.Sk + kKeysW - 1) / kKeysW);
     k<<<grid, kThreadsW, bwd_wg_smem<D>(), stream>>>(maps, p);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    const int64_t n4 = (int64_t)p.B * p.Sq * p.H * D / 4;
-    bwd_dq_round_kernel<<<(unsigned)((n4 + kThreads - 1) / kThreads),
-                          kThreads, 0, stream>>>(
-        reinterpret_cast<const float4*>(p.dq_acc),
-        static_cast<uint2*>(p.dq), n4);
+    bwd_dq_round_kernel<D>
+        <<<(unsigned)((int64_t)p.B * p.Sq), kThreads, 0, stream>>>(p);
   } else {
     if ((err = launch_delta<T, D>(static_cast<const T*>(p.dout),
                                   static_cast<const T*>(p.o), p.delta, p.B,
@@ -1239,7 +1286,8 @@ cudaError_t launch_bwd(const Params& p, cudaStream_t stream) {
 }
 
 // Fills the shape fields and checks them; false on a shape the kernels do
-// not take.
+// not take. The layout fields (strides, the head rule, head_ids) are set
+// before.
 bool set_shape(Params& p, int B, int Sq, int Sk, int H, int D, int bias_b,
                int bias_q, int causal, int use_drop, float keep, float scale,
                int bq, int bk) {
@@ -1251,11 +1299,29 @@ bool set_shape(Params& p, int B, int Sq, int Sk, int H, int D, int bias_b,
   const bool bias_ok = p.bias == nullptr ||
                        ((bias_b == 1 || bias_b == B) &&
                         (bias_q == 1 || bias_q == Sq));
-  const bool drop_ok = !use_drop || (p.seed != nullptr && bq > 0 &&
-                                     bk > 0 && bq % kKeysW == 0 &&
-                                     bk % kKeysW == 0);
+  const bool blocks_ok = p.head_ids || (bq > 0 && bk > 0 &&
+                                        bq % kKeysW == 0 && bk % kKeysW == 0);
+  const bool drop_ok = !use_drop || (p.seed != nullptr && blocks_ok);
   return B >= 1 && H >= 1 && Sq >= 1 && Sk >= 1 && (D == 64 || D == 128) &&
-         bias_ok && drop_ok;
+         p.group >= 1 && bias_ok && drop_ok;
+}
+
+// The layout of separate [B, S, H, D] tensors: row stride H*D, head h at
+// h*D.
+void separate_heads(Params& p, int H, int D) {
+  p.ldq = p.ldk = (int64_t)H * D;
+  p.group = 1;
+  p.gstride = D;
+}
+
+// The backward's dispatch on (dtype, D); bf16 needs dq_acc.
+int launch_bwd_of(const Params& p, int D, int dtype, cudaStream_t s) {
+  if (dtype == 1 && p.dq_acc == nullptr) return (int)cudaErrorInvalidValue;
+  if (dtype == 0 && D == 64) return (int)launch_bwd<float, 64>(p, s);
+  if (dtype == 0 && D == 128) return (int)launch_bwd<float, 128>(p, s);
+  if (dtype == 1 && D == 64) return (int)launch_bwd<bf16, 64>(p, s);
+  if (dtype == 1 && D == 128) return (int)launch_bwd<bf16, 128>(p, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -1281,6 +1347,7 @@ extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
   p.seed = static_cast<const int32_t*>(seed);
   p.out = out;
   p.lse_out = static_cast<float*>(lse);
+  separate_heads(p, H, D);
   if (!set_shape(p, B, Sq, Sk, H, D, bias_b, bias_q, causal, use_drop, keep,
                  scale, bq, bk))
     return (int)cudaErrorInvalidValue;
@@ -1316,16 +1383,47 @@ extern "C" int ptt_flash_bwd(const void* q, const void* k, const void* v,
   p.seed = static_cast<const int32_t*>(seed);
   p.dq = dq; p.dk = dk; p.dv = dv;
   p.dq_acc = static_cast<float*>(dq_acc);
+  separate_heads(p, H, D);
   if (!set_shape(p, B, Sq, Sk, H, D, bias_b, bias_q, causal, use_drop, keep,
                  scale, bq, bk))
     return (int)cudaErrorInvalidValue;
-  if (dtype == 1 && dq_acc == nullptr) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64) return (int)launch_bwd<float, 64>(p, s);
-  if (dtype == 0 && D == 128) return (int)launch_bwd<float, 128>(p, s);
-  if (dtype == 1 && D == 64) return (int)launch_bwd<bf16, 64>(p, s);
-  if (dtype == 1 && D == 128) return (int)launch_bwd<bf16, 128>(p, s);
-  return (int)cudaErrorInvalidValue;
+  return launch_bwd_of(p, D, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// The qkv kernels' backward (B1 pair-major, B5 which-major) on the fused
+// projection qkv [B, S, 3*H*D] as it lies: the same kernels as
+// `ptt_flash_bwd`, self-attention (Sq = Sk = S), no bias, the qkv
+// kernels' dropout ids. Head h's q, k and v columns are (h / group) *
+// gstride + (h % group) * D plus qcol, kcol and vcol, which the caller
+// computes for its layout; dqkv [B, S, 3*H*D] is written in full in the
+// same layout. o and dout are [B, S, H*D], lse [B, H, S]; delta and
+// dq_acc as for `ptt_flash_bwd`.
+extern "C" int ptt_flash_qkv_bwd(const void* qkv, const void* dout,
+                                 const void* o, const void* lse,
+                                 const void* seed, void* delta, void* dq_acc,
+                                 void* dqkv, int B, int S, int H, int D,
+                                 int group, int gstride, int qcol, int kcol,
+                                 int vcol, int causal, int use_drop,
+                                 float keep, float scale, int dtype,
+                                 int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  Params p = {};
+  p.q = p.k = p.v = qkv;
+  p.o = o; p.dout = dout;
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<float*>(delta);
+  p.seed = static_cast<const int32_t*>(seed);
+  p.dq = p.dk = p.dv = dqkv;
+  p.dq_acc = static_cast<float*>(dq_acc);
+  p.ldq = p.ldk = (int64_t)3 * H * D;
+  p.group = group; p.gstride = gstride;
+  p.qcol = qcol; p.kcol = kcol; p.vcol = vcol;
+  p.head_ids = 1;
+  if (!set_shape(p, B, S, S, H, D, 1, 1, causal, use_drop, keep, scale, 0,
+                 0))
+    return (int)cudaErrorInvalidValue;
+  return launch_bwd_of(p, D, dtype, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* ptt_error_string(int code) {

@@ -1,60 +1,51 @@
-// qkv flash attention for Hopper (sm_90a), plain C interface, in the two
-// column layouts of the fused projection.
+// qkv flash attention forward for Hopper (sm_90a), plain C interface, in
+// the two column layouts of the fused projection.
 //
-// Replaces the TPU kernels paddle_tpu/kernels/flash_attention.py:
-// - B1, pair-major: :849 `_fwd_qkv_kernel` (launched by `_fwd_qkv`, :905)
-//   and :876 `_bwd_qkv_kernel` (launched by `_bwd_qkv`, :936);
+// Replaces the forward TPU kernels of paddle_tpu/kernels/flash_attention.py:
+// - B1, pair-major: :849 `_fwd_qkv_kernel` (launched by `_fwd_qkv`, :905);
 // - B5, which-major: :1018 `_fwd_qkv3_kernel` (launched by `_fwd_qkv3`,
-//   :1071) and :1044 `_bwd_qkv3_kernel` (launched by `_bwd_qkv3`, :1107).
-// The two compute the same thing and differ only in where a head's
-// columns lie, so one set of kernels serves both with the layout as a
-// template parameter (`Geometry`).
+//   :1071).
+// Their backwards (`_bwd_qkv` :936, `_bwd_qkv3` :1107) run in
+// flash_attention.cu: the general kernels' one-pass backward, reading this
+// projection through a row stride and a head-to-column rule that the
+// wrapper fills (`ptt_flash_qkv_bwd`; `qkv_columns` in
+// kernels/flash_attention.py). The two forwards compute the same thing
+// and differ only in where a head's columns lie, so one set of kernels
+// serves both with the layout as a template parameter (`Geometry`).
 //
-// What they compute, as the TPU kernels do (`_packed_head_attn` :821-837,
-// `_packed_head_attn_bwd` :488-533): the input is the fused projection
-// qkv [B,S,3*H*D], read as it lies, in one of two packings:
+// What they compute, as the TPU kernels do (`_packed_head_attn` :821-837):
+// the input is the fused projection qkv [B,S,3*H*D], read as it lies, in
+// one of two packings:
 // - PAIR-MAJOR (B1): pair p's q at columns 6Dp + [0,2D), k at
 //   6Dp + [2D,4D), v at 6Dp + [4D,6D), head h of the pair at offset hD
 //   inside each;
 // - WHICH-MAJOR (B5): q of head h at columns hD, k at HD + hD, v at
 //   2HD + hD (the reference reads these regions through three views of
-//   one array); the backward writes dq, dk and dv into one which-major
-//   dqkv, the reference's concatenate([dq, dk, dv], -1) (:1144) done in
-//   place.
+//   one array).
 // The row stride is 3HD in both. Scores are q.k * scale in f32
 // (scale = 1/sqrt(D), passed in), causal-masked to -1e30 (not -inf). The
 // forward writes o [B,S,H*D] in the input dtype and lse [B,H,S] in f32:
 // l sums the RAW p, o = (p*keep).v / max(l, 1e-30), lse = m +
 // log(max(l, 1e-30)), and p*keep is rounded to the input dtype before the
-// product. The backward recomputes p = exp(s - lse) and, with delta =
-// rowsum(dO*O) in f32, forms dv = (p*keep)^T dO, dp = (dO v^T)*keep,
-// ds = p*(dp - delta)*scale rounded to the input dtype, dk = ds^T q,
-// dq = ds k, written into one dqkv [B,S,3*H*D] in the input's layout.
+// product.
 //
 // Dropout: keep/scale is the reference's interpret-mode hash
 // (`_hash_keep_scale`, :101-116) of (seed, (b, pair, head), global query
-// row, global key column), computed per element from global coordinates in
-// both passes and compared through the integer threshold (`keep_threshold`,
+// row, global key column), computed per element from global coordinates
+// and compared through the integer threshold (`keep_threshold`,
 // flash_common.cuh), so the masks agree bit for bit with the plain version
-// and with paddle_tpu's interpret mode. B5 hashes the same ids (:1031, :1057),
-// so a head keeps the same elements in both layouts. (On the TPU itself
-// the reference draws from the hardware PRNG, which nothing can
-// reproduce.)
+// and with paddle_tpu's interpret mode. B5 hashes the same ids (:1031), so
+// a head keeps the same elements in both layouts, and the backward in
+// flash_attention.cu hashes them too (`head_ids`). (On the TPU itself the
+// reference draws from the hardware PRNG, which nothing can reproduce.)
 //
 // How it differs from the TPU kernels: those hold a whole sequence per
 // (b, pair) block in VMEM (s <= 2048). Here every block owns one query
-// or key tile and streams the other side through shared memory:
-// - forward: 128-query tiles (64 in the f32 path), K/V tiles streamed,
-//   online softmax (running max and sum, accumulator rescaled), causal
-//   tiles past the diagonal skipped, the longest causal rows first;
-// - backward: a pre-pass for delta, a dk/dv pass (block per 64-key tile,
-//   looping over the query tiles at or after it) and a dq pass (block per
-//   query tile, looping over the key tiles up to it), both recomputing P
-//   from lse. S and dP are thus computed twice (7 tile products where the
-//   TPU's one-block backward does 5).
-// Two implementations of that design share the contract:
-// - bf16 (the training path), forward: Hopper's warpgroup products fed by
-//   TMA (`flash_fwd_wg_kernel`). A block of 128 queries has three
+// tile and streams K/V tiles through shared memory with an online softmax
+// (running max and sum, accumulator rescaled), causal tiles past the
+// diagonal skipped, the longest causal rows first. Two implementations:
+// - bf16 (the training path): Hopper's warpgroup products fed by TMA
+//   (`flash_fwd_wg_kernel`). A block of 128 queries has three
 //   warpgroups: one producer warp issues TMA loads of the head's K and V
 //   tiles of 128 keys (64 rows x 64 columns a box, 128-byte swizzle,
 //   through one tensor map over qkv as a 2-D [B*S, 3HD] array, the
@@ -70,11 +61,6 @@
 //   SM, tiles longest first, round robin) and Q is double-buffered, so
 //   the producer loads the next tile while the consumers finish this
 //   one. setmaxnreg hands the producer's registers to the consumers;
-// - bf16 backward: the products on the tensor cores with mma.sync
-//   m16n8k16 (bf16 in, f32 accumulate), 4 warps of 16 rows, bf16 tiles in
-//   shared memory (operands that are needed transposed are stored a second
-//   time, transposed), the scores kept in registers and turned into the
-//   next product's operand there;
 // - f32: the products on f32 FMAs from shared memory (padded rows so that
 //   row and column reads hit distinct banks), 256 threads of 4 x (D/16)
 //   outputs each: the tensor cores have no exact f32 mode.
@@ -82,21 +68,14 @@
 // Bound on the H100: at the training shape (B8 S1024 H16 D128, causal,
 // bf16) the forward moves 135 MB (qkv in, o and lse out; 0.040 ms at 3.35
 // TB/s) for 4*B*H*S^2*D/2 = 34.4 GFLOP (0.035 ms at 989 TFLOP/s): memory
-// and compute are close, and at S=2048 the products dominate; the backward
-// is bound by its 85.9 GFLOP (0.087 ms). The design answers the products
-// with the tensor cores and never writes the [S,S] scores out. The forward
-// overlaps its loads with its products (TMA ring, warp specialisation) on
-// wgmma; the backward still leaves latency: no copy/compute overlap,
-// mma.sync instead of wgmma, one block of 4 warps per tile, and the
-// recomputed S and dP (ROADMAP B1).
-//
-// B5 at BERT-large's shape (B8 S512 H16 D64, full, bf16): the forward moves
-// 33.8 MB (qkv in, o and lse out; 0.0101 ms) for 4*B*H*S^2*D = 8.59 GFLOP
-// (0.0087 ms), so it is bound by its bytes; the backward moves 67.4 MB
-// (0.0201 ms) for 21.5 GFLOP (0.0217 ms), bound by its products. Each tile
-// row of one head is 128 bytes (D=64 bf16) at a 6 KB row stride, read as
-// 16-byte pieces, as B1's pair-major rows are: the layout costs nothing
-// more, and the design leaves what B1's leaves.
+// and compute are close, and at S=2048 the products dominate. The design
+// answers the products with the tensor cores, never writes the [S,S]
+// scores out, and overlaps its loads with its products (TMA ring, warp
+// specialisation). B5 at BERT-large's shape (B8 S512 H16 D64, full, bf16)
+// moves 33.8 MB (qkv in, o and lse out; 0.0101 ms) for 4*B*H*S^2*D = 8.59
+// GFLOP (0.0087 ms), so it is bound by its bytes. Each tile row of one
+// head is 128 bytes (D=64 bf16) at a 6 KB row stride, read as 64-column
+// TMA boxes, as B1's pair-major rows are: the layout costs nothing more.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -110,14 +89,16 @@ namespace {
 
 using namespace flash;
 
-// Column layout of the fused projection qkv [B,S,3*H*D] (and of dqkv).
+// Column layout of the fused projection qkv [B,S,3*H*D]. The backward's
+// wrapper states the same rule as (group, stride, offsets)
+// (`qkv_columns`), and the CPU tests hold that against the reference.
 constexpr int kPairMajor = 0;    // B1: [pair: q|k|v] x H/2, each 2D wide
 constexpr int kWhichMajor = 1;   // B5: [q|k|v] regions, each H*D wide
 
 struct Geometry {
   int b, hg, pair, hh;
-  int64_t ld3;       // row stride of qkv / dqkv: 3*H*D
-  int64_t ld;        // row stride of o / do: H*D
+  int64_t ld3;       // row stride of qkv: 3*H*D
+  int64_t ld;        // row stride of o: H*D
   int64_t qcol, kcol, vcol;   // this head's q, k and v columns
 };
 
@@ -236,179 +217,6 @@ flash_fwd_kernel(const float* __restrict__ qkv,
     for (int j = 0; j < TD; ++j) orow[tx + 16 * j] = acc[i][j] / lc;
     if (tx == 0)
       lse[((int64_t)g.b * H + g.hg) * S + q0 + r] = m[i] + logf(lc);
-  }
-}
-
-// The scores of one (query tile, key tile) pair turned into P*keep and
-// dS in shared memory. s and dp hold
-// Q K^T and dO V^T of the tile in the (ty + 16i, tx + 16j) layout.
-__device__ __forceinline__ void probs_and_dscores(
-    const float (&s)[kTM][4], const float (&dp)[kTM][4], const float* lse_r,
-    const float* delta_r, float* Ps, float* dSs, int q0, int k0, bool diag,
-    float scale, int use_drop, uint32_t hbase, uint32_t thr, float inv_keep,
-    int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int r = ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx + 16 * j;
-      const float sv = (diag && c > r) ? kMasked : s[i][j] * scale;
-      const float p = expf(sv - lse_r[i]);
-      const float ks =
-          use_drop ? keep_scale(hbase, q0 + r, k0 + c, thr, inv_keep) : 1.f;
-      if (Ps != nullptr) Ps[r * kLS + c] = p * ks;
-      dSs[r * kLS + c] = p * (dp[i][j] * ks - delta_r[i]) * scale;
-    }
-  }
-}
-
-template <int D, int L>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const float* __restrict__ qkv,
-                      const float* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta,
-                      const int32_t* __restrict__ seed,
-                      float* __restrict__ dqkv, int S, int H, int causal,
-                      int use_drop, float keep, float scale) {
-  constexpr int LD = D + 1, TD = D / 16;
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + kTile * LD;
-  float* Qs = Vs + kTile * LD;
-  float* dOs = Qs + kTile * LD;
-  float* Ps = dOs + kTile * LD;
-  float* dSs = Ps + kTile * kLS;
-
-  const Geometry g = geometry<D, L>(H);
-  const int nq = S / kTile;
-  const int kt = blockIdx.x;             // the most query tiles first
-  const int k0 = kt * kTile;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const float* base = qkv + (int64_t)g.b * S * g.ld3;
-  const float* dbase = dout + (int64_t)g.b * S * g.ld + (int64_t)g.hg * D;
-  const float* lse_h = lse + ((int64_t)g.b * H + g.hg) * S;
-  const float* delta_h = delta + ((int64_t)g.b * H + g.hg) * S;
-  const uint32_t hbase =
-      use_drop ? mix32((uint32_t)seed[0], g.b, g.pair, g.hh) : 0u;
-  const uint32_t thr = keep_threshold(keep);
-  const float inv_keep = 1.0f / keep;
-
-  load_tile<D>(Ks, base + (int64_t)k0 * g.ld3 + g.kcol, g.ld3, kTile);
-  load_tile<D>(Vs, base + (int64_t)k0 * g.ld3 + g.vcol, g.ld3, kTile);
-  float dk[kTM][TD], dv[kTM][TD];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < TD; ++j) dk[i][j] = dv[i][j] = 0.f;
-
-  for (int qt = causal ? kt : 0; qt < nq; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();  // the previous Q/dO/P/dS tiles are consumed
-    load_tile<D>(Qs, base + (int64_t)q0 * g.ld3 + g.qcol, g.ld3, kTile);
-    load_tile<D>(dOs, dbase + (int64_t)q0 * g.ld, g.ld, kTile);
-    __syncthreads();
-    float s[kTM][4], dp[kTM][4], lse_r[kTM], delta_r[kTM];
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      lse_r[i] = lse_h[q0 + ty + 16 * i];
-      delta_r[i] = delta_h[q0 + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    }
-    tile_product<4, D, LD, 1, 1, LD>(s, Qs, Ks, ty, tx);
-    tile_product<4, D, LD, 1, 1, LD>(dp, dOs, Vs, ty, tx);
-    probs_and_dscores(s, dp, lse_r, delta_r, Ps, dSs, q0, k0,
-                      causal && qt == kt, scale, use_drop, hbase, thr,
-                      inv_keep, ty, tx);
-    __syncthreads();
-    // dV[k][d] += sum_q Pd[q][k] dO[q][d];  dK[k][d] += sum_q dS[q][k] Q[q][d]
-    tile_product<TD, kTile, 1, kLS, LD, 1>(dv, Ps, dOs, ty, tx);
-    tile_product<TD, kTile, 1, kLS, LD, 1>(dk, dSs, Qs, ty, tx);
-  }
-
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    float* row = dqkv + ((int64_t)g.b * S + k0 + ty + 16 * i) * g.ld3;
-#pragma unroll
-    for (int j = 0; j < TD; ++j) {
-      row[g.kcol + tx + 16 * j] = dk[i][j];
-      row[g.vcol + tx + 16 * j] = dv[i][j];
-    }
-  }
-}
-
-template <int D, int L>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const float* __restrict__ qkv,
-                    const float* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta,
-                    const int32_t* __restrict__ seed,
-                    float* __restrict__ dqkv, int S, int H, int causal,
-                    int use_drop, float keep, float scale) {
-  constexpr int LD = D + 1, TD = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + kTile * LD;
-  float* Ks = dOs + kTile * LD;
-  float* Vs = Ks + kTile * LD;
-  float* dSs = Vs + kTile * LD;
-
-  const Geometry g = geometry<D, L>(H);
-  const int nq = S / kTile;
-  const int qt = nq - 1 - blockIdx.x;    // the longest causal rows first
-  const int q0 = qt * kTile;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const float* base = qkv + (int64_t)g.b * S * g.ld3;
-  const float* lse_h = lse + ((int64_t)g.b * H + g.hg) * S;
-  const float* delta_h = delta + ((int64_t)g.b * H + g.hg) * S;
-  const uint32_t hbase =
-      use_drop ? mix32((uint32_t)seed[0], g.b, g.pair, g.hh) : 0u;
-  const uint32_t thr = keep_threshold(keep);
-  const float inv_keep = 1.0f / keep;
-
-  load_tile<D>(Qs, base + (int64_t)q0 * g.ld3 + g.qcol, g.ld3, kTile);
-  load_tile<D>(dOs, dout + ((int64_t)g.b * S + q0) * g.ld +
-                           (int64_t)g.hg * D, g.ld, kTile);
-  float dq[kTM][TD], lse_r[kTM], delta_r[kTM];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    lse_r[i] = lse_h[q0 + ty + 16 * i];
-    delta_r[i] = delta_h[q0 + ty + 16 * i];
-#pragma unroll
-    for (int j = 0; j < TD; ++j) dq[i][j] = 0.f;
-  }
-
-  const int nk = causal ? qt + 1 : nq;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // the previous K/V/dS tiles are consumed
-    load_tile<D>(Ks, base + (int64_t)k0 * g.ld3 + g.kcol, g.ld3, kTile);
-    load_tile<D>(Vs, base + (int64_t)k0 * g.ld3 + g.vcol, g.ld3, kTile);
-    __syncthreads();
-    float s[kTM][4], dp[kTM][4];
-#pragma unroll
-    for (int i = 0; i < kTM; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    tile_product<4, D, LD, 1, 1, LD>(s, Qs, Ks, ty, tx);
-    tile_product<4, D, LD, 1, 1, LD>(dp, dOs, Vs, ty, tx);
-    probs_and_dscores(s, dp, lse_r, delta_r, nullptr, dSs, q0, k0,
-                      causal && qt == kt, scale, use_drop, hbase, thr,
-                      inv_keep, ty, tx);
-    __syncthreads();
-    // dQ[q][d] += sum_k dS[q][k] K[k][d]
-    tile_product<TD, kTile, kLS, 1, LD, 1>(dq, dSs, Ks, ty, tx);
-  }
-
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    float* row =
-        dqkv + ((int64_t)g.b * S + q0 + ty + 16 * i) * g.ld3 + g.qcol;
-#pragma unroll
-    for (int j = 0; j < TD; ++j) row[tx + 16 * j] = dq[i][j];
   }
 }
 
@@ -686,234 +494,6 @@ flash_fwd_wg_kernel(const __grid_constant__ CUtensorMap qkv_map,
   }
 }
 
-template <int D, int L>
-__global__ void __launch_bounds__(kThreadsTC)
-flash_bwd_dkdv_tc_kernel(const bf16* __restrict__ qkv,
-                         const bf16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         const int32_t* __restrict__ seed,
-                         bf16* __restrict__ dqkv, int S, int H, int causal,
-                         int use_drop, float keep, float scale) {
-  constexpr int LD = D + kPad, LQ = kBQ + kPad, KD = D / 16, ND = D / 8,
-                NQ = kBQ / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);     // [64][LD]
-  bf16* Vs = Ks + kTile * LD;                        // [64][LD]
-  bf16* Qs = Vs + kTile * LD;                        // [kBQ][LD]
-  bf16* dOs = Qs + kBQ * LD;                         // [kBQ][LD]
-  bf16* Qt = dOs + kBQ * LD;                         // [D][LQ]
-  bf16* dOt = Qt + D * LQ;                           // [D][LQ]
-  float* lse_s = reinterpret_cast<float*>(dOt + D * LQ);
-  float* delta_s = lse_s + kBQ;
-
-  const Geometry g = geometry<D, L>(H);
-  const int k0 = blockIdx.x * kTile;     // the most query tiles first
-  const int lane = threadIdx.x & 31, gi = lane >> 2, qi = lane & 3;
-  const int r0 = (threadIdx.x >> 5) * 16;
-  const bf16* base = qkv + (int64_t)g.b * S * g.ld3;
-  const bf16* dbase = dout + (int64_t)g.b * S * g.ld + (int64_t)g.hg * D;
-  const float* lse_h = lse + ((int64_t)g.b * H + g.hg) * S;
-  const float* delta_h = delta + ((int64_t)g.b * H + g.hg) * S;
-  const uint32_t hbase =
-      use_drop ? mix32((uint32_t)seed[0], g.b, g.pair, g.hh) : 0u;
-  const uint32_t thr = keep_threshold(keep);
-  const float inv_keep = 1.0f / keep;
-
-  copy_tile<D, kTile>(Ks, base + (int64_t)k0 * g.ld3 + g.kcol, g.ld3, kTile);
-  copy_tile<D, kTile>(Vs, base + (int64_t)k0 * g.ld3 + g.vcol, g.ld3, kTile);
-  float dk[ND][4], dv[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-
-  for (int q0 = causal ? k0 : 0; q0 < S; q0 += kBQ) {
-    __syncthreads();  // the previous Q/dO tiles are consumed
-    copy_tile<D, kBQ>(Qs, base + (int64_t)q0 * g.ld3 + g.qcol, g.ld3, kBQ);
-    copy_tile_t<D, kBQ>(Qt, base + (int64_t)q0 * g.ld3 + g.qcol, g.ld3, kBQ);
-    copy_tile<D, kBQ>(dOs, dbase + (int64_t)q0 * g.ld, g.ld, kBQ);
-    copy_tile_t<D, kBQ>(dOt, dbase + (int64_t)q0 * g.ld, g.ld, kBQ);
-    if (threadIdx.x < kBQ) {
-      lse_s[threadIdx.x] = lse_h[q0 + threadIdx.x];
-      delta_s[threadIdx.x] = delta_h[q0 + threadIdx.x];
-    }
-    __syncthreads();
-    // S^T = K Q^T and dP^T = V dO^T: rows are keys, columns queries
-    float st[NQ][4], dpt[NQ][4];
-#pragma unroll
-    for (int n = 0; n < NQ; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t ak[4], av[4];
-      frag_a(ak, Ks, LD, r0, kk * 16, gi, qi);
-      frag_a(av, Vs, LD, r0, kk * 16, gi, qi);
-#pragma unroll
-      for (int n = 0; n < NQ; ++n) {
-        uint32_t b[2];
-        frag_b(b, Qs, LD, n * 8, kk * 16, gi, qi);
-        mma(st[n], ak, b);
-        frag_b(b, dOs, LD, n * 8, kk * 16, gi, qi);
-        mma(dpt[n], av, b);
-      }
-    }
-    const bool mask = causal && q0 < k0 + kTile;
-#pragma unroll
-    for (int n = 0; n < NQ; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + r0 + gi + 8 * (e >> 1);
-        const int ql = n * 8 + 2 * qi + (e & 1), q = q0 + ql;
-        const float sv = (mask && key > q) ? kMasked : st[n][e] * scale;
-        const float p = expf(sv - lse_s[ql]);
-        const float ks =
-            use_drop ? keep_scale(hbase, q, key, thr, inv_keep) : 1.f;
-        st[n][e] = p * ks;                                      // P*keep
-        dpt[n][e] = p * (dpt[n][e] * ks - delta_s[ql]) * scale;  // dS
-      }
-    // dV += (P*keep)^T dO, dK += dS^T Q (contraction over the queries)
-#pragma unroll
-    for (int kk = 0; kk < kBQ / 16; ++kk) {
-      uint32_t pa[4], da[4];
-      as_a(pa, st, kk);
-      as_a(da, dpt, kk);
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        uint32_t b[2];
-        frag_b(b, dOt, LQ, n * 8, kk * 16, gi, qi);
-        mma(dv[n], pa, b);
-        frag_b(b, Qt, LQ, n * 8, kk * 16, gi, qi);
-        mma(dk[n], da, b);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    bf16* row = dqkv + ((int64_t)g.b * S + k0 + r0 + gi + 8 * h) * g.ld3;
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      *reinterpret_cast<uint32_t*>(row + g.kcol + n * 8 + 2 * qi) =
-          pack_bf16(dk[n][2 * h], dk[n][2 * h + 1]);
-      *reinterpret_cast<uint32_t*>(row + g.vcol + n * 8 + 2 * qi) =
-          pack_bf16(dv[n][2 * h], dv[n][2 * h + 1]);
-    }
-  }
-}
-
-template <int D, int L>
-__global__ void __launch_bounds__(kThreadsTC)
-flash_bwd_dq_tc_kernel(const bf16* __restrict__ qkv,
-                       const bf16* __restrict__ dout,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ delta,
-                       const int32_t* __restrict__ seed,
-                       bf16* __restrict__ dqkv, int S, int H, int causal,
-                       int use_drop, float keep, float scale) {
-  constexpr int LD = D + kPad, LT = kTile + kPad, KD = D / 16, ND = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);     // [64][LD]
-  bf16* dOs = Qs + kTile * LD;                       // [64][LD]
-  bf16* Ks = dOs + kTile * LD;                       // [64][LD]
-  bf16* Vs = Ks + kTile * LD;                        // [64][LD]
-  bf16* Kt = Vs + kTile * LD;                        // [D][LT]
-
-  const Geometry g = geometry<D, L>(H);
-  const int nq = S / kTile;
-  const int qt = nq - 1 - blockIdx.x;    // the longest causal rows first
-  const int q0 = qt * kTile;
-  const int lane = threadIdx.x & 31, gi = lane >> 2, qi = lane & 3;
-  const int r0 = (threadIdx.x >> 5) * 16;
-  const bf16* base = qkv + (int64_t)g.b * S * g.ld3;
-  const float* lse_h = lse + ((int64_t)g.b * H + g.hg) * S;
-  const float* delta_h = delta + ((int64_t)g.b * H + g.hg) * S;
-  const uint32_t hbase =
-      use_drop ? mix32((uint32_t)seed[0], g.b, g.pair, g.hh) : 0u;
-  const uint32_t thr = keep_threshold(keep);
-  const float inv_keep = 1.0f / keep;
-
-  copy_tile<D, kTile>(Qs, base + (int64_t)q0 * g.ld3 + g.qcol, g.ld3, kTile);
-  copy_tile<D, kTile>(dOs, dout + ((int64_t)g.b * S + q0) * g.ld +
-                               (int64_t)g.hg * D, g.ld, kTile);
-  float lse_r[2], delta_r[2], dq[ND][4];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    lse_r[h] = lse_h[q0 + r0 + gi + 8 * h];
-    delta_r[h] = delta_h[q0 + r0 + gi + 8 * h];
-  }
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
-
-  const int nk = causal ? qt + 1 : nq;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // the previous K/V tiles are consumed
-    copy_tile<D, kTile>(Ks, base + (int64_t)k0 * g.ld3 + g.kcol, g.ld3, kTile);
-    copy_tile<D, kTile>(Vs, base + (int64_t)k0 * g.ld3 + g.vcol, g.ld3, kTile);
-    copy_tile_t<D, kTile>(Kt, base + (int64_t)k0 * g.ld3 + g.kcol,
-                          g.ld3, kTile);
-    __syncthreads();
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t aq[4], ad[4];
-      frag_a(aq, Qs, LD, r0, kk * 16, gi, qi);
-      frag_a(ad, dOs, LD, r0, kk * 16, gi, qi);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        uint32_t b[2];
-        frag_b(b, Ks, LD, n * 8, kk * 16, gi, qi);
-        mma(s[n], aq, b);
-        frag_b(b, Vs, LD, n * 8, kk * 16, gi, qi);
-        mma(dp[n], ad, b);
-      }
-    }
-    const bool diag = causal && kt == qt;
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = r0 + gi + 8 * (e >> 1), c = n * 8 + 2 * qi + (e & 1);
-        const float sv = (diag && c > r) ? kMasked : s[n][e] * scale;
-        const float p = expf(sv - lse_r[e >> 1]);
-        const float ks = use_drop ? keep_scale(hbase, q0 + r, k0 + c, thr,
-                                               inv_keep)
-                                  : 1.f;
-        s[n][e] = p * (dp[n][e] * ks - delta_r[e >> 1]) * scale;   // dS
-      }
-    // dQ += dS K (contraction over the keys)
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t da[4];
-      as_a(da, s, kk);
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        uint32_t b[2];
-        frag_b(b, Kt, LT, n * 8, kk * 16, gi, qi);
-        mma(dq[n], da, b);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    bf16* row = dqkv + ((int64_t)g.b * S + q0 + r0 + gi + 8 * h) * g.ld3 +
-                g.qcol;
-#pragma unroll
-    for (int n = 0; n < ND; ++n)
-      *reinterpret_cast<uint32_t*>(row + n * 8 + 2 * qi) =
-          pack_bf16(dq[n][2 * h], dq[n][2 * h + 1]);
-  }
-}
-
 // The TMA map of the fused projection as a 2-D bf16 array [B*S, 3*H*D]
 // (row stride 6HD bytes, a multiple of 16 for D in {64, 128}) in 64 x 64
 // boxes with the 128-byte swizzle.
@@ -956,46 +536,6 @@ cudaError_t launch_fwd(const void* qkv, const void* seed, void* out, void* lse,
   return cudaGetLastError();
 }
 
-template <typename T, int D, int L>
-cudaError_t launch_bwd(const void* qkv, const void* dout, const void* o,
-                       const void* lse, const void* seed, void* delta,
-                       void* dqkv, int B, int S, int H, int causal,
-                       int use_drop, float keep, float scale,
-                       cudaStream_t stream) {
-  const T* q = static_cast<const T*>(qkv);
-  const T* d = static_cast<const T*>(dout);
-  const float* l = static_cast<const float*>(lse);
-  float* dl = static_cast<float*>(delta);
-  const int32_t* sd = static_cast<const int32_t*>(seed);
-  T* dx = static_cast<T*>(dqkv);
-  cudaError_t err =
-      launch_delta<T, D>(d, static_cast<const T*>(o), dl, B, S, H, stream);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(S / kTile, H, B);
-  if constexpr (std::is_same<T, bf16>::value) {
-    auto kv = flash_bwd_dkdv_tc_kernel<D, L>;
-    auto kq = flash_bwd_dq_tc_kernel<D, L>;
-    if ((err = allow_smem(kv, dkdv_tc_smem<D>())) != cudaSuccess) return err;
-    if ((err = allow_smem(kq, dq_tc_smem<D>())) != cudaSuccess) return err;
-    kv<<<grid, kThreadsTC, dkdv_tc_smem<D>(), stream>>>(
-        q, d, l, dl, sd, dx, S, H, causal, use_drop, keep, scale);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    kq<<<grid, kThreadsTC, dq_tc_smem<D>(), stream>>>(
-        q, d, l, dl, sd, dx, S, H, causal, use_drop, keep, scale);
-  } else {
-    auto kv = flash_bwd_dkdv_kernel<D, L>;
-    auto kq = flash_bwd_dq_kernel<D, L>;
-    if ((err = allow_smem(kv, dkdv_smem<D>())) != cudaSuccess) return err;
-    if ((err = allow_smem(kq, dq_smem<D>())) != cudaSuccess) return err;
-    kv<<<grid, kThreads, dkdv_smem<D>(), stream>>>(
-        q, d, l, dl, sd, dx, S, H, causal, use_drop, keep, scale);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    kq<<<grid, kThreads, dq_smem<D>(), stream>>>(
-        q, d, l, dl, sd, dx, S, H, causal, use_drop, keep, scale);
-  }
-  return cudaGetLastError();
-}
-
 bool valid_shape(int B, int S, int H, int D) {
   return B >= 1 && S >= kTile && S % kTile == 0 && H >= 2 && H % 2 == 0 &&
          (D == 64 || D == 128);
@@ -1028,33 +568,6 @@ int fwd_entry(const void* qkv, const void* seed, void* out, void* lse, int B,
   return (int)err;
 }
 
-template <int L>
-int bwd_entry(const void* qkv, const void* dout, const void* o,
-              const void* lse, const void* seed, void* delta, void* dqkv,
-              int B, int S, int H, int D, int causal, int use_drop,
-              float keep, float scale, int dtype, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (!valid_shape(B, S, H, D) || (use_drop && seed == nullptr))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64)
-    err = launch_bwd<float, 64, L>(qkv, dout, o, lse, seed, delta, dqkv, B, S,
-                                   H, causal, use_drop, keep, scale, s);
-  else if (dtype == 0 && D == 128)
-    err = launch_bwd<float, 128, L>(qkv, dout, o, lse, seed, delta, dqkv, B,
-                                    S, H, causal, use_drop, keep, scale, s);
-  else if (dtype == 1 && D == 64)
-    err = launch_bwd<bf16, 64, L>(qkv, dout, o, lse, seed, delta, dqkv, B, S,
-                                  H, causal, use_drop, keep, scale, s);
-  else if (dtype == 1 && D == 128)
-    err = launch_bwd<bf16, 128, L>(qkv, dout, o, lse, seed, delta, dqkv, B, S,
-                                   H, causal, use_drop, keep, scale, s);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
-}
-
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (qkv, o and dqkv share it). seed: an
@@ -1079,32 +592,6 @@ extern "C" int ptt_flash_qkv3_fwd(const void* qkv, const void* seed,
                                   void* stream) {
   return fwd_entry<kWhichMajor>(qkv, seed, out, lse, B, S, H, D, causal,
                                 use_drop, keep, scale, dtype, device, stream);
-}
-
-// The backward: delta pre-pass, dk/dv pass, dq pass, on one stream.
-// delta: f32 [B, H, S] scratch allocated by the caller. dqkv (in the
-// input's layout) is written in full: every q, k and v column of every
-// head.
-extern "C" int ptt_flash_qkv_bwd(const void* qkv, const void* dout,
-                                 const void* o, const void* lse,
-                                 const void* seed, void* delta, void* dqkv,
-                                 int B, int S, int H, int D, int causal,
-                                 int use_drop, float keep, float scale,
-                                 int dtype, int device, void* stream) {
-  return bwd_entry<kPairMajor>(qkv, dout, o, lse, seed, delta, dqkv, B, S, H,
-                               D, causal, use_drop, keep, scale, dtype,
-                               device, stream);
-}
-
-extern "C" int ptt_flash_qkv3_bwd(const void* qkv, const void* dout,
-                                  const void* o, const void* lse,
-                                  const void* seed, void* delta, void* dqkv,
-                                  int B, int S, int H, int D, int causal,
-                                  int use_drop, float keep, float scale,
-                                  int dtype, int device, void* stream) {
-  return bwd_entry<kWhichMajor>(qkv, dout, o, lse, seed, delta, dqkv, B, S, H,
-                                D, causal, use_drop, keep, scale, dtype,
-                                device, stream);
 }
 
 extern "C" const char* ptt_error_string(int code) {

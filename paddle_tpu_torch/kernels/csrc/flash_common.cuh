@@ -1,7 +1,7 @@
 // Pieces shared by the flash attention kernels (flash_attention_qkv.cu and
 // flash_attention.cu): the reference's dropout hash (and its integer keep
-// threshold), the f32 FMA tile product, the bf16 mma.sync fragments, tile
-// copies and the delta pre-pass.
+// threshold), the f32 FMA tile product, the bf16 fragment helpers and the
+// delta pre-pass.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -157,49 +157,17 @@ cudaError_t launch_delta(const T* dout, const T* o, float* delta, int B, int S,
   return cudaGetLastError();
 }
 
-// ------------------------------------------------- bf16: the tensor cores
-// mma.sync m16n8k16, bf16 in, f32 accumulate. Each of 4 warps owns 16
-// rows of its block's 64-row tile. Operands come from bf16 tiles in
-// shared memory whose contraction dimension is contiguous, rows padded by
-// 8 elements so the 8 rows x 4 words of a fragment load hit 32 distinct
-// banks; an operand needed with its other dimension contiguous is stored
-// a second time, transposed. The f32 results of one product become the
-// bf16 A operand of the next in registers (P for P.V, dS for dS.K).
+// ------------------------------------------------- bf16: the fragments
+// The warpgroup products' accumulator holds each warp's 16 rows in the
+// mma.sync m16n8 C layout (row gi or gi + 8, columns 2qi and 2qi + 1 of
+// each 8-column n-tile), and their register A operand is the mma.sync A
+// fragment: the f32 results of one product become the bf16 A operand of
+// the next in registers (P for P.V, dS^T for dK).
 using bf16 = __nv_bfloat16;
-constexpr int kThreadsTC = 128;       // 4 warps x 16 rows
-constexpr int kPad = 8;               // row padding of bf16 tiles
-constexpr int kBQ = 32;               // query rows per step of the dk/dv pass
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-// A fragment (16 x 16) of a tile stored [m][k] with row stride ld.
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* t, int ld,
-                                       int m0, int k0, int gi, int qi) {
-  const bf16* p = t + (m0 + gi) * ld + k0 + 2 * qi;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ld);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ld + 8);
-}
-// B fragment (k 16 x n 8) of a tile stored [n][k] with row stride ld.
-__device__ __forceinline__ void frag_b(uint32_t (&b)[2], const bf16* t, int ld,
-                                       int n0, int k0, int gi, int qi) {
-  const bf16* p = t + (n0 + gi) * ld + k0 + 2 * qi;
-  b[0] = ld32(p);
-  b[1] = ld32(p + 8);
-}
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 // The A fragment of columns [16k, 16k + 16) of a 16-row f32 result held as
 // C fragments c[n] (n-tiles of 8 columns), rounded to bf16.
@@ -220,45 +188,8 @@ __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
-// ROWS x D from global (row stride ld) into shared [ROWS][D + kPad]; rows
-// at or past `nvalid` are zeros.
-template <int D, int ROWS>
-__device__ __forceinline__ void copy_tile(bf16* dst, const bf16* src,
-                                          int64_t ld, int nvalid) {
-  constexpr int kPer = D / 8;
-  for (int i = threadIdx.x; i < ROWS * kPer; i += kThreadsTC) {
-    const int r = i / kPer, c = (i % kPer) * 8;
-    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + c) =
-        r < nvalid ? *reinterpret_cast<const uint4*>(src + r * ld + c)
-                   : make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-// The same tile transposed into shared [D][ROWS + kPad]; a warp takes 32
-// rows of one 8-column chunk, so its stores land on consecutive halves.
-template <int D, int ROWS>
-__device__ __forceinline__ void copy_tile_t(bf16* dst, const bf16* src,
-                                            int64_t ld, int nvalid) {
-  for (int i = threadIdx.x; i < ROWS * (D / 8); i += kThreadsTC) {
-    const int r = i % ROWS, c = (i / ROWS) * 8;
-    const uint4 v = r < nvalid
-                        ? *reinterpret_cast<const uint4*>(src + r * ld + c)
-                        : make_uint4(0u, 0u, 0u, 0u);
-    const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) dst[(c + j) * (ROWS + kPad) + r] = e[j];
-  }
-}
 
 // ------------------------------------------------------- shared memory
-template <int D>
-constexpr size_t dkdv_tc_smem() {
-  return (2 * kTile * (D + kPad) + 2 * kBQ * (D + kPad) +
-          2 * D * (kBQ + kPad)) * sizeof(bf16) + 2 * kBQ * sizeof(float);
-}
-template <int D>
-constexpr size_t dq_tc_smem() {
-  return (4 * kTile * (D + kPad) + D * (kTile + kPad)) * sizeof(bf16);
-}
 template <int D>
 constexpr size_t fwd_smem() {
   return (3 * kTile * (D + 1) + kTile * kLS) * sizeof(float);

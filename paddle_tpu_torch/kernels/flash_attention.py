@@ -4,9 +4,11 @@ Counterpart: ``paddle_tpu/kernels/flash_attention.py``. Three families of
 TPU kernels there are replaced by hand-written CUDA kernels here; the
 header note of each source says how they work and what bounds them.
 
-B1, the pair-major qkv kernels (``csrc/flash_attention_qkv.cu``):
-``_fwd_qkv_kernel`` (:849, launched by ``_fwd_qkv`` :905) and
-``_bwd_qkv_kernel`` (:876, launched by ``_bwd_qkv`` :936).
+B1, the pair-major qkv kernels: ``_fwd_qkv_kernel`` (:849, launched by
+``_fwd_qkv`` :905) in ``csrc/flash_attention_qkv.cu``; ``_bwd_qkv_kernel``
+(:876, launched by ``_bwd_qkv`` :936) by B2's backward in
+``csrc/flash_attention.cu``, over the projection as it lies, its columns
+from `qkv_columns`.
 
 - `flash_attention_qkv_fwd` / `flash_attention_qkv_bwd`: the kernel
   wrappers (CUDA tensors only).
@@ -16,8 +18,9 @@ B1, the pair-major qkv kernels (``csrc/flash_attention_qkv.cu``):
   ``paddle_tpu.kernels.flash_attention.flash_attention_qkv`` (:994),
   differentiable through `_FlashQKV`.
 
-B5, the which-major qkv3 kernels (the same source, the layout a template
-parameter): ``_fwd_qkv3_kernel`` (:1018, via ``_fwd_qkv3`` :1071) and
+B5, the which-major qkv3 kernels (the same sources, the layout a
+template parameter of the forward and a column rule of the backward):
+``_fwd_qkv3_kernel`` (:1018, via ``_fwd_qkv3`` :1071) and
 ``_bwd_qkv3_kernel`` (:1044, via ``_bwd_qkv3`` :1107).
 
 - `flash_attention_qkv3_fwd` / `flash_attention_qkv3_bwd`: the kernel
@@ -57,8 +60,8 @@ The contract every kernel and plain version here shares:
 - ``lse`` is float32 ``[B, H, S_q]`` (the TPU kernels' 8-row broadcast
   is a tiling artifact).
 - Dropout keeps an element where ``hash_keep_scale`` says so: the
-  reference's interpret-mode hash (:90-116), bit for bit. B1 hashes
-  (seed, (b, pair, head)) over the whole sequence; B2 hashes (seed,
+  reference's interpret-mode hash (:90-116), bit for bit. B1 and B5
+  hash (seed, `qkv_drop_ids`) over the whole sequence; B2 hashes (seed,
   (b*H + h, row // bq, col // bk)) at (row % bq, col % bk), with the
   reference's block sizes ``bq``, ``bk`` (`pick_block`). Kept elements
   are scaled by ``1/(1-p)``.
@@ -151,12 +154,21 @@ def _seed_int(seed) -> int:
     return int(seed.reshape(-1)[0]) if torch.is_tensor(seed) else int(seed)
 
 
+def qkv_drop_ids(b, h):
+    """The qkv kernels' dropout ids of head ``h`` of batch row ``b``,
+    ``(b, pair, head in pair)``, as ``_fwd_qkv_kernel`` and
+    ``_fwd_qkv3_kernel`` hash them (:865, :1031) for head ``2*pair +
+    head``; the backward kernel forms the same (``tile_drop`` with
+    ``head_ids`` in ``csrc/flash_attention.cu``)."""
+    return b, h // 2, h % 2
+
+
 def _keep_tiles(seed, b, n_heads, s, dropout_p, device):
     """Keep/scale tiles of every (batch, head): ``[B, H, S, S]`` float32,
-    ids ``(b, pair, head-in-pair)`` over the whole sequence (:865)."""
+    ids `qkv_drop_ids` over the whole sequence."""
     seed = _seed_int(seed)
     return torch.stack([torch.stack([
-        hash_keep_scale(seed, (bi, hg // 2, hg % 2), (s, s), dropout_p,
+        hash_keep_scale(seed, qkv_drop_ids(bi, hg), (s, s), dropout_p,
                         device) for hg in range(n_heads)])
         for bi in range(b)])
 
@@ -290,13 +302,26 @@ def flash_qkv3_bwd_reference(qkv, do, o, lse, n_heads, causal, dropout_p=0.0,
 
 
 # ---------------------------------------------------------- kernel wrappers
-_ENTRIES = {_FWD: "ptt_flash_qkv_fwd", _BWD: "ptt_flash_qkv_bwd",
-            _FWD3: "ptt_flash_qkv3_fwd", _BWD3: "ptt_flash_qkv3_bwd"}
+_ENTRIES = {_FWD: "ptt_flash_qkv_fwd", _FWD3: "ptt_flash_qkv3_fwd"}
+_LAYOUTS = {_BWD: "pair", _BWD3: "which"}
+
+
+def qkv_columns(layout, n_heads, d):
+    """Where each head's q, k and v lie in the fused projection ``[B, S,
+    3*H*D]`` (and in its gradient), as the backward kernel takes them:
+    ``(group, stride, q, k, v)``, head ``h``'s columns starting at ``(h //
+    group) * stride + (h % group) * d`` plus ``q``, ``k`` or ``v``.
+    ``layout`` "pair" (B1, ``[pair: q|k|v]``: heads in pairs 6d apart, q,
+    k and v 2d apart in a pair) or "which" (B5, ``[q|k|v]`` regions H*d
+    wide, heads d apart)."""
+    if layout == "pair":
+        return 2, 6 * d, 0, 2 * d, 4 * d
+    return 1, d, 0, n_heads * d, 2 * n_heads * d
 
 
 def _kernel_fns():
-    """``({kernel: C entry}, error_string)``, the argument types declared
-    (pointers and the stream as ``c_void_p``)."""
+    """``({kernel: C entry}, error_string)`` of the qkv forwards, the
+    argument types declared (pointers and the stream as ``c_void_p``)."""
     global _fns
     if _fns is None:
         lib = _build.load(_SOURCE)
@@ -304,8 +329,7 @@ def _kernel_fns():
         fns = {}
         for kernel, entry in _ENTRIES.items():
             fn = getattr(lib, entry)
-            n_ptr = 4 if kernel in (_FWD, _FWD3) else 7
-            fn.argtypes = [ctypes.c_void_p] * n_ptr + shape + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 4 + shape + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             fns[kernel] = fn
         err_str = lib.ptt_error_string
@@ -373,7 +397,11 @@ def _launch_fwd(kernel, qkv, n_heads, causal, dropout_p, seed):
 
 
 def _launch_bwd(kernel, qkv, do, o, lse, n_heads, causal, dropout_p, seed):
-    """One backward launch of ``kernel`` (`_BWD` or `_BWD3`)."""
+    """One backward launch of ``kernel`` (`_BWD` or `_BWD3`): B2's
+    backward (``ptt_flash_qkv_bwd``) over the projection as it lies, its
+    columns from `qkv_columns`. bfloat16: the delta pre-pass (the
+    float32 dq accumulator zeroed), the one-pass kernel and the dq
+    post-pass; float32: delta, then dk/dv, then dq."""
     b, s, d = _check_qkv(kernel, qkv, n_heads, dropout_p, seed)
     for name, t, shape, dt in (("do", do, (b, s, n_heads * d), qkv.dtype),
                                ("o", o, (b, s, n_heads * d), qkv.dtype),
@@ -386,13 +414,17 @@ def _launch_bwd(kernel, qkv, do, o, lse, n_heads, causal, dropout_p, seed):
            "do and o must be 16-byte aligned")
     delta = torch.empty((b, n_heads, s), dtype=torch.float32,
                         device=qkv.device)
+    dq_acc = (torch.empty((b, s, n_heads, d), dtype=torch.float32,
+                          device=qkv.device)
+              if qkv.dtype == torch.bfloat16 else None)
     dqkv = torch.empty_like(qkv)
-    fns, err_str = _kernel_fns()
-    err = fns[kernel](
+    _, _, qkv_bwd, err_str = _gen_kernel_fns()
+    err = qkv_bwd(
         qkv.data_ptr(), do.data_ptr(), o.data_ptr(), lse.data_ptr(),
         seed.data_ptr() if dropout_p else None, delta.data_ptr(),
-        dqkv.data_ptr(), b, s, n_heads, d, int(causal), int(dropout_p > 0),
-        float(np.float32(1.0 - dropout_p)),
+        None if dq_acc is None else dq_acc.data_ptr(), dqkv.data_ptr(), b,
+        s, n_heads, d, *qkv_columns(_LAYOUTS[kernel], n_heads, d),
+        int(causal), int(dropout_p > 0), float(np.float32(1.0 - dropout_p)),
         float(np.float32(1.0 / math.sqrt(d))), _DTYPE_CODES[qkv.dtype],
         qkv.device.index, torch.cuda.current_stream(qkv.device).cuda_stream)
     _raise_on(err, kernel, err_str)
@@ -414,8 +446,8 @@ def flash_attention_qkv_bwd(qkv, do, o, lse, n_heads, causal, dropout_p=0.0,
     """Launch the backward kernels: ``dqkv [B, S, 3*H*D]`` (pair-major,
     qkv's dtype) from the forward's ``qkv``, ``o``, ``lse`` and the
     cotangent ``do [B, S, H*D]`` (qkv's dtype). One call runs the
-    ``delta = rowsum(dO*O)`` pre-pass, the dk/dv pass and the dq pass;
-    it counts as one launch of the backward."""
+    general backward's passes (`_launch_bwd`) over the projection; it
+    counts as one launch of the backward."""
     return _launch_bwd(_BWD, qkv, do, o, lse, n_heads, causal, dropout_p,
                        seed)
 
@@ -658,7 +690,8 @@ def flash_bwd_reference(q, k, v, o, lse, do, causal, bias=None,
 
 
 def _gen_kernel_fns():
-    """``(fwd, bwd, error_string)`` of ``csrc/flash_attention.cu``."""
+    """``(fwd, bwd, qkv_bwd, error_string)`` of
+    ``csrc/flash_attention.cu``."""
     global _gen_fns
     if _gen_fns is None:
         lib = _build.load(_GEN_SOURCE)
@@ -671,10 +704,17 @@ def _gen_kernel_fns():
         bwd = lib.ptt_flash_bwd
         bwd.argtypes = [ctypes.c_void_p] * 13 + shape + [ctypes.c_void_p]
         bwd.restype = ctypes.c_int
+        # B, S, H, D, group, stride, q, k, v, causal, use_drop; keep,
+        # scale; dtype, device
+        qkv_bwd = lib.ptt_flash_qkv_bwd
+        qkv_bwd.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
+                            + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
+                            + [ctypes.c_void_p])
+        qkv_bwd.restype = ctypes.c_int
         err_str = lib.ptt_error_string
         err_str.argtypes = [ctypes.c_int]
         err_str.restype = ctypes.c_char_p
-        _gen_fns = (fwd, bwd, err_str)
+        _gen_fns = (fwd, bwd, qkv_bwd, err_str)
     return _gen_fns
 
 
@@ -743,7 +783,7 @@ def flash_attention_fwd(q, k, v, causal, bias=None, dropout_p=0.0, seed=None,
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
-    fwd, _, err_str = _gen_kernel_fns()
+    fwd, _, _, err_str = _gen_kernel_fns()
     err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
               None if bias is None else bias.data_ptr(),
               seed.data_ptr() if dropout_p else None, o.data_ptr(),
@@ -783,7 +823,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal, bias=None,
     dq_acc = (torch.empty(q.shape, dtype=torch.float32, device=q.device)
               if q.dtype == torch.bfloat16 else None)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    _, bwd, err_str = _gen_kernel_fns()
+    _, bwd, _, err_str = _gen_kernel_fns()
     err = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
               do.data_ptr(), lse.data_ptr(),
               None if bias is None else bias.data_ptr(),
@@ -864,8 +904,8 @@ def flash_attention(query, key, value, is_causal=False, attn_mask=None,
     return out[..., :d] if dp != d else out
 
 
-__all__ = ["mix32", "hash_keep_scale", "keep_threshold",
-           "flash_qkv_reference",
+__all__ = ["mix32", "hash_keep_scale", "keep_threshold", "qkv_drop_ids",
+           "qkv_columns", "flash_qkv_reference",
            "flash_qkv_bwd_reference", "flash_attention_qkv_fwd",
            "flash_attention_qkv_bwd", "flash_attention_qkv",
            "flash_qkv3_reference", "flash_qkv3_bwd_reference",

@@ -15,9 +15,8 @@ two splits) at W in {1, 3, 5}, the beam's tail read through it
 (`paged_tail_segment`) on bf16 and int8 pages, the qkv forward on
 warpgroup products (B1 and B5, D 64 and 128, a half-full last query
 block), the head_dim > 128 refusal on a card, the general bf16 kernels
-at the edges of their tiles, and B1's and B5's outputs bit for bit
-against a digest of the kernels before the general kernels shared their
-headers.
+at the edges of their tiles, and B1's backward against the general
+backward on the unpacked views (the kernel they share).
 """
 import pytest
 import torch
@@ -61,7 +60,8 @@ def test_kernels_match_the_plain_versions_on_a_card(dtype):
 def test_qkv3_kernels_match_the_plain_versions_on_a_card(dtype):
     """The which-major qkv3 kernels (B5) against their plain versions with
     dropout, f32 at 1e-4, bf16 at 2e-2, and against B1 on the repacked
-    projection bit for bit (same kernels, other column offsets)."""
+    projection (same kernels, other column offsets): bit for bit but
+    bf16 dq, which is held within 8 bf16 ulps."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the Hopper kernels run only on "
                     "the card")
@@ -87,7 +87,11 @@ def test_qkv3_kernels_match_the_plain_versions_on_a_card(dtype):
     o1, lse1 = pfa.flash_attention_qkv_fwd(pair, h, False, 0.1, seed)
     d1 = pfa.flash_attention_qkv_bwd(pair, do, ro, rlse, h, False, 0.1, seed)
     assert torch.equal(o, o1) and torch.equal(lse, lse1)
-    assert torch.equal(dqkv, pfa._pair_to_which(d1, h))
+    mq, mk, mv = dqkv.split(h * d, dim=-1)
+    tq, tk, tv = pfa._pair_to_which(d1, h).split(h * d, dim=-1)
+    assert torch.equal(mk, tk) and torch.equal(mv, tv)
+    # bf16 dq sums its key blocks by atomics in an order that varies
+    assert torch.equal(mq, tq) if dtype == "float32" else _ulps(mq, tq, d) <= 8
     counts = kernels.kernel_launch_counts()
     assert counts["flash_attention_qkv3_fwd"] == 1
     assert counts["flash_attention_qkv3_bwd"] == 1
@@ -433,41 +437,35 @@ def test_general_bf16_kernels_at_their_edges_on_a_card(name):
 
 
 @pytest.mark.cuda
-def test_qkv_kernels_are_bitwise_unchanged_on_a_card():
-    """B1's and B5's bf16 forward and backward, on fixed inputs, hash to
-    the digest their sources gave on an H100 (sm_90a, torch's CUDA
-    generator) before flash_common.cuh's hash, its integer keep threshold
-    and hopper.cuh's helpers were shared with the general kernels: their
-    outputs are bit for bit as they were. Run twice, they agree bit for
-    bit. This guards only that sharing of headers; B1 and B5 are held
-    against their references by the tests above, and this test is retired
-    (the digest dropped) by the change that redesigns B1's or B5's kernels,
-    whose bits are then free to move within those tolerances."""
-    import hashlib
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_qkv_backward_is_the_general_backward_on_a_card(dtype, d, causal):
+    """B1's backward on the pair-major projection and B2's
+    (`flash_attention_bwd`) on its three unpacked views, at p=0 with the
+    plain forward's o and lse: one kernel read through another column
+    rule, so dk and dv agree bit for bit, and dq too in float32; bf16 dq
+    sums its key blocks by atomics in an order that varies, so it is held
+    within 8 bf16 ulps of each element's scale (chip_smoke.py's rule).
+    S = 320 leaves the last 128-key block half full."""
+    from paddle_tpu_torch.models.gpt import unpack_qkv_pair_major
 
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the Hopper kernels run only on "
                     "the card")
-    g = torch.Generator(device="cuda").manual_seed(77)
-    h = 16
-    digest = hashlib.sha256()
-    seed = torch.tensor([11], dtype=torch.int32, device="cuda")
-    for d, s, causal in ((64, 512, False), (128, 1024, True)):
-        qkv = torch.randn((2, s, 3 * h * d), generator=g,
-                          device="cuda").bfloat16()
-        do = torch.randn((2, s, h * d), generator=g, device="cuda").bfloat16()
-        for fwd, bwd, x in (
-                (pfa.flash_attention_qkv_fwd, pfa.flash_attention_qkv_bwd,
-                 qkv),
-                (pfa.flash_attention_qkv3_fwd, pfa.flash_attention_qkv3_bwd,
-                 pfa._pair_to_which(qkv, h).contiguous())):
-            o, lse = fwd(x, h, causal, 0.1, seed)
-            dx = bwd(x, do, o, lse, h, causal, 0.1, seed)
-            o2, lse2 = fwd(x, h, causal, 0.1, seed)
-            assert torch.equal(o, o2) and torch.equal(lse, lse2)
-            assert torch.equal(dx, bwd(x, do, o, lse, h, causal, 0.1, seed))
-            for t in (o, lse, dx):
-                digest.update(t.contiguous().view(torch.uint8).cpu().numpy()
-                              .tobytes())
-    assert digest.hexdigest() == ("f194517cdf60637bac9e2ef60c9e3182f0635b947"
-                                  "abc0b5e62e3180571197934")
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(d + int(causal))
+    b, s, h = 2, 320, 4
+    qkv = torch.randn((b, s, 3 * h * d), generator=g, device="cuda").to(dt)
+    do = torch.randn((b, s, h * d), generator=g, device="cuda").to(dt)
+    o, lse = pfa.flash_qkv_reference(qkv, h, causal)
+    dqkv = pfa.flash_attention_qkv_bwd(qkv, do, o, lse, h, causal)
+    views = [t.contiguous() for t in unpack_qkv_pair_major(qkv, h, d)]
+    dq, dk, dv = pfa.flash_attention_bwd(*views, o.reshape(b, s, h, d), lse,
+                                         do.reshape(b, s, h, d), causal)
+    mq, mk, mv = unpack_qkv_pair_major(dqkv, h, d)
+    assert torch.equal(mk, dk) and torch.equal(mv, dv)
+    if dtype == "float32":
+        assert torch.equal(mq, dq)
+    else:
+        assert _ulps(mq, dq, d) <= 8
