@@ -108,7 +108,22 @@ Phases, in order; any failure exits non-zero:
    float32 teacher on the dequantized weights, then the paged Engine
    with and without weight_quant on phase 4's traffic. Per arm: prefill
    ms, decode ms per step, tokens/s, launches; a profile of (b) and (c)
-   (busy share, launches a step, top kernels); (d)'s pool bytes.
+   (busy share, launches a step, top kernels); (d)'s pool bytes;
+11. sequence-parallel phase, at GPT-1.3B's heads (H16 D128, bf16) on
+   one ring chunk of a 4-way split of 8192 tokens (S=2048): (a) B4, the
+   flash attention with a differentiable lse (`flash_attention_lse_fwd`
+   / `_bwd`), bf16 and float32, causal and full, against its plain
+   versions under a random ``do`` and a random lse cotangent; at a zero
+   (and a missing) cotangent against B2's backward (dk, dv bit for bit,
+   bf16 dq within 8 ulps); its times beside the plain versions, SDPA
+   (which takes no lse cotangent) and the bound; (b) the ring's per-rank
+   loop for all 4 ranks at S=8192 causal in this one process (the
+   transport needs a card a rank): exactly 10 B4 launches each way (4
+   diagonal and 6 earlier pairs) and no B2 launch, the output and the
+   q/k/v grads held beside B2's over the whole sequence to a float32
+   control, and their times beside B2's and SDPA's; (c) a one-rank NCCL
+   world: `ring_attention` launches B4 once each way and matches B2,
+   `sp_attention` on a one-rank mesh composes.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device":
@@ -154,7 +169,7 @@ QUANT_DTYPES = {"int8": "int8", "fp8": "float8_e4m3fn"}
 # p*keep (against a running max) and ds to bf16 where the plain version
 # rounds them against the global max, then sums them in another order.
 # Each element of o and dqkv is held to a few bf16 ulps (2^-8) of its own
-# scale (`flash_scale`), never of the tensor's largest value: a 5% error
+# scale (`flash_ulp`), never of the tensor's largest value: a 5% error
 # on any one row is about 13 such ulps and fails
 BF16_ULPS_O, BF16_ULPS_DQKV = 8, 8
 # the scale's floor, as a share of the tensor's rms: only rows that
@@ -204,6 +219,9 @@ GEN_B, GEN_PROMPT, GEN_NEW, GEN_BEAMS, GEN_SHORT = 8, 1024, 128, 4, 32
 # part, the two candidates' log-probs differ by less than BEAM_GAP
 GEN_AB_B, GEN_AB_PROMPT, GEN_AB_NEW, BEAM_GAP = 2, 128, 16, 1e-4
 GEN_PROFILE_STEPS = 8
+# sequence-parallel phase: GPT-1.3B's heads, one ring chunk of a 4-way
+# split of 8192 tokens
+SP_WAYS, SP_CHUNK = 4, (1, 2048, 16, 128)
 
 
 def check(cond, msg):
@@ -659,15 +677,22 @@ def flash_ulps(x, ref, d):
     ``d`` values at one position, which all sum the same rounded
     products) and FLASH_SCALE_FLOOR x the tensor's rms. Returns the
     largest reading and the mean ``|ref|`` (the typical value)."""
+    r = ref.float().reshape(-1, d)
+    ulps = (x.float().reshape(-1, d) - r).abs() / flash_ulp(r)
+    return ulps.max().item(), r.abs().mean().item()
+
+
+def flash_ulp(r):
+    """One bf16 ulp (2^-8) of the scale of each element of ``r`` (rows of
+    one head's ``d`` values, float32): the largest of its own ``|r|``,
+    its row's rms and FLASH_SCALE_FLOOR x the tensor's rms."""
     import torch
 
-    r = ref.float().reshape(-1, d)
     scale = torch.maximum(r.abs(),
                           r.square().mean(dim=1, keepdim=True).sqrt())
     scale = scale.clamp(min=FLASH_SCALE_FLOOR * r.square().mean().sqrt()
                         .item())
-    ulps = (x.float().reshape(-1, d) - r).abs() / (scale * 2.0 ** -8)
-    return ulps.max().item(), r.abs().mean().item()
+    return scale * 2.0 ** -8
 
 
 def flash_case(b, s, h, d, dtype, seed):
@@ -2518,6 +2543,378 @@ def gen_phase(torch, seed):
     return {"paged_tail_segment": tail_launches}
 
 
+# ------------------------------------- sequence parallel (B4 and the ring)
+def b4_compare(torch, fa, q, k, v, do, dlse, causal):
+    """B4's kernels against their plain versions on one input, as
+    `general_compare` holds B2: the backward of each gets the plain
+    forward's o and lse and the same random lse cotangent ``dlse``; lse
+    at TOL_F32; o, dq, dk, dv at TOL_F32 in float32 and at BF16_ULPS_O
+    bf16 ulps of each element's scale in bfloat16, with the
+    bf16-rounding control beside. Returns ``(max |o - ref|, max |d(q, k,
+    v) - ref|, line)``."""
+    d = q.shape[-1]
+    o, lse = fa.flash_attention_lse_fwd(q, k, v, causal)
+    ro, rlse = fa.flash_reference(q, k, v, causal)
+    grads = fa.flash_attention_lse_bwd(q, k, v, ro, rlse, do, dlse, causal)
+    rgrads = fa.flash_bwd_reference(q, k, v, ro, rlse, do, causal,
+                                    dlse=dlse)
+    torch.cuda.synchronize()
+    err_o = (o.float() - ro.float()).abs().max().item()
+    err_g = max((a.float() - r.float()).abs().max().item()
+                for a, r in zip(grads, rgrads))
+    torch.testing.assert_close(lse, rlse, **TOL_F32)
+    parts = [f"max|lse-ref| {(lse - rlse).abs().max().item():.3e}"]
+    if q.dtype == torch.float32:
+        for x, ref in zip((o, *grads), (ro, *rgrads)):
+            torch.testing.assert_close(x, ref, **TOL_F32)
+        parts.append(f"max|o-ref| {err_o:.3e}, max|d(q,k,v)-ref| "
+                     f"{err_g:.3e} (atol {TOL_F32['atol']})")
+        return err_o, err_g, "; ".join(parts)
+    f32 = [t.float() for t in (q, k, v, do)]
+    ctrl_o, _ = fa.flash_reference(*f32[:3], causal)
+    ctrl_g = fa.flash_bwd_reference(*f32[:3], ro.float(), rlse, f32[3],
+                                    causal, dlse=dlse)
+    for name, x, ref, ctrl in (("o", o, ro, ctrl_o),
+                               *zip(("dq", "dk", "dv"), grads, rgrads,
+                                    ctrl_g)):
+        ulps, typical = flash_ulps(x, ref, d)
+        ctrl_ulps, _ = flash_ulps(ctrl, ref, d)
+        reading = (f"{name} {ulps:.3f} ulps (control {ctrl_ulps:.3f}; "
+                   f"mean|ref| {typical:.3e})")
+        check(ulps <= BF16_ULPS_O, f"flash_attention_with_lse {reading} "
+              f"over the limit of {BF16_ULPS_O}")
+        parts.append(reading)
+    return err_o, err_g, "; ".join(parts)
+
+
+def b4_kernel_phase(torch):
+    """(a) B4 at one ring chunk of GPT-1.3B's heads (SP_CHUNK: B1 S2048
+    H16 D128), bf16 and float32, causal and full: o and lse, then dq, dk,
+    dv under a random ``do`` and a random lse cotangent against the plain
+    versions (`b4_compare`); with a zero cotangent B4's backward against
+    B2's (`grads_agree`: dk, dv bit for bit, bf16 dq within 8 ulps). Then
+    bf16 kernel times, forward and backward, beside the plain versions,
+    SDPA at the same shape (it takes no lse cotangent: its backward is
+    B2's work without the dlse row) and the bound. Returns the records
+    of the forward and the backward at the full (non-causal) pair, which
+    6 of the 10 pairs of phase (b)'s ring are."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    b, s, h, d = SP_CHUNK
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (True, False):
+            q, k, v, do = general_case(b, s, s, h, d, dtype,
+                                       seed=110 + int(causal))
+            g = torch.Generator(device="cuda").manual_seed(120 + int(causal))
+            dlse = torch.randn((b, h, s), generator=g, device="cuda")
+            err_o, err_g, line = b4_compare(torch, fa, q, k, v, do, dlse,
+                                            causal)
+            errs[(dtype, causal)] = (err_o, err_g)
+            ro, rlse = fa.flash_reference(q, k, v, causal)
+            zero = fa.flash_attention_lse_bwd(q, k, v, ro, rlse, do,
+                                              torch.zeros_like(rlse), causal)
+            none = fa.flash_attention_lse_bwd(q, k, v, ro, rlse, do, None,
+                                              causal)
+            b2 = fa.flash_attention_bwd(q, k, v, ro, rlse, do, causal)
+            torch.cuda.synchronize()
+            line += ("; dlse 0 against B2's backward: " + grads_agree(
+                torch, "B4 at dlse 0 against B2", zero, b2, d)
+                + "; dlse None: " + grads_agree(
+                    torch, "B4 without dlse against B2", none, b2, d))
+            print(f"  flash_attention_with_lse B={b} S={s} H={h} D={d} "
+                  f"{str(dtype)[6:]} {'causal' if causal else 'full'}, "
+                  f"random dlse: {line}  ok")
+
+    it = iter(range(10 ** 9))
+    copies = [general_case(b, s, s, h, d, torch.bfloat16, seed=130 + i)
+              for i in range(3)]
+    dlses = [torch.randn((b, h, s), device="cuda") for _ in copies]
+    heads = [[x.transpose(1, 2).detach().requires_grad_(True)
+              for x in t[:3]] + [t[3].transpose(1, 2)] for t in copies]
+    ms, plain, library, bounds = {}, {}, {}, {}
+    for causal in (True, False):
+        saved = [fa.flash_attention_lse_fwd(*t[:3], causal) for t in copies]
+
+        def fwd():
+            fa.flash_attention_lse_fwd(*copies[next(it) % 3][:3], causal)
+
+        def bwd():
+            i = next(it) % 3
+            fa.flash_attention_lse_bwd(*copies[i][:3], *saved[i],
+                                       copies[i][3], dlses[i], causal)
+
+        def lib(backward):
+            def run():
+                q, k, v, do = heads[next(it) % 3]
+                out = F.scaled_dot_product_attention(q, k, v,
+                                                     is_causal=causal)
+                if backward:
+                    out.backward(do)
+            return run
+
+        q, k, v, do = copies[0]
+        key = "causal" if causal else "full"
+        ms[key] = (time_ms(fwd, 20), time_ms(bwd, 10))
+        plain[key] = (
+            time_ms(lambda: fa.flash_reference(q, k, v, causal), 2, 1),
+            time_ms(lambda: fa.flash_bwd_reference(
+                q, k, v, *saved[0], do, causal, dlse=dlses[0]), 2, 1))
+        lib_f, lib_fb = time_ms(lib(False), 20), time_ms(lib(True), 10)
+        library[key] = (lib_f, lib_fb - lib_f)
+        pairs = b * s * (s + 1) // 2 if causal else b * s * s
+        work = general_work(b, s, s, h, d, pairs, b * s, 2, 0)
+        # the backward reads the lse cotangent too
+        work = (work[0], (work[1][0] + b * h * s * 4, work[1][1]))
+        for j, (nbytes, flops) in enumerate(work):
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+            bounds[key, j] = (max(t_bytes, t_ops) * 1e3,
+                              "bytes" if t_bytes >= t_ops else "operations")
+            print(f"  flash_attention_lse_{('fwd', 'bwd')[j]} at B={b} S={s} "
+                  f"H={h} D={d} bf16 {key}: kernel {ms[key][j]:.4f} ms, "
+                  f"plain {plain[key][j]:.4f} ms, SDPA {library[key][j]:.4f}"
+                  f" ms (no lse cotangent), bound {bounds[key, j][0]:.5f} ms "
+                  f"({bounds[key, j][1]}; {nbytes} bytes, {flops} flops)")
+    records = []
+    for j, (name, line) in enumerate((("flash_attention_lse_fwd", 767),
+                                      ("flash_attention_lse_bwd", 536))):
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/flash_attention.cu",
+            "replaces": f"paddle_tpu/kernels/flash_attention.py:{line}",
+            "max_abs_err": errs[torch.bfloat16, False][j],
+            "ms": ms["full"][j], "plain_ms": plain["full"][j],
+            "bound_ms": bounds["full", j][0],
+            "bound_by": bounds["full", j][1],
+            "library_ms": library["full"][j]})
+    return records
+
+
+def ring_loop_phase(torch):
+    """(b) The ring's per-rank loop (`_ring_loop`) for every rank of an
+    SP_WAYS-way split of S=SP_WAYS*2048 (GPT-1.3B's heads, bf16, causal)
+    in this one process, each rank fed the K/V chunks the ring would
+    deliver (no transport: that needs a card a rank), through the port's
+    `flash_chunk_attention`. Launch counts are zeroed just before the run
+    (forward and backward) and read just after: B4 launches once each way
+    per computed pair (SP_WAYS diagonal + SP_WAYS*(SP_WAYS-1)/2 earlier),
+    B2 never. The joined output and the whole q/k/v grads are held to a
+    float32 control (the plain version on float32 copies) beside B2's
+    `flash_attention` over the whole sequence: B2 itself strays far from
+    the control at the first causal rows (its delta is formed from a
+    bf16 o: about 100 ulps of dq at row 1 at this shape), and the ring
+    computes those rows with the same kernel, so each element of the
+    ring is held to BF16_ULPS_O ulps of its scale beyond B2's own
+    distance from the control (`flash_ulp`). The same ring in float32
+    (B4's float32 kernels) is held to the control at TOL_F32. Then times
+    beside B2's and SDPA's over the whole sequence and the bound of the
+    same work. Returns B4's launch counts."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.distributed import sequence_parallel as sp
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    gc.collect()                 # what the earlier phases left in cycles
+    n = SP_WAYS
+    b, s_loc, h, d = SP_CHUNK
+    s = n * s_loc
+    scale = d ** -0.5
+    q, k, v, do = general_case(b, s, s, h, d, torch.bfloat16, seed=140)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+
+    def ring(leaves):
+        qs = leaves[0].chunk(n, 1)
+        kvs = [torch.stack(p) for p in zip(leaves[1].chunk(n, 1),
+                                           leaves[2].chunk(n, 1))]
+        outs = []
+        for me in range(n):
+            step = iter(range(1, n))
+
+            def shift(kv, me=me, step=step):
+                return kvs[(me - next(step)) % n]
+
+            o, _ = sp._ring_loop(qs[me], *kvs[me], me, n, shift, True,
+                                 scale, sp.flash_chunk_attention)
+            outs.append(o)
+        return torch.cat(outs, 1)
+
+    kernels.reset_kernel_launch_counts()
+    o = ring(leaves)
+    o.backward(do)
+    torch.cuda.synchronize()
+    counts = kernels.kernel_launch_counts()
+    pairs = n + n * (n - 1) // 2
+    for name, want in (("flash_attention_lse_fwd", pairs),
+                       ("flash_attention_lse_bwd", pairs),
+                       ("flash_attention_fwd", 0),
+                       ("flash_attention_bwd", 0)):
+        check(counts[name] == want, f"the ring launched {name} "
+              f"{counts[name]} times, want {want}: {counts}")
+    ring_out = (o, *(t.grad for t in leaves))
+    b2_leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    b2 = fa.flash_attention(*b2_leaves, is_causal=True)
+    b2.backward(do)
+    b2_out = (b2, *(t.grad for t in b2_leaves))
+    f32 = [t.float() for t in (q, k, v, do)]
+    ro, rlse = fa.flash_reference(*f32[:3], True)
+    control = (ro, *fa.flash_bwd_reference(*f32[:3], ro, rlse, f32[3], True))
+    torch.cuda.synchronize()
+    parts = []
+    for name, x, y, ref in zip(("o", "dq", "dk", "dv"), ring_out, b2_out,
+                               control):
+        r = ref.reshape(-1, d)
+        ulp = flash_ulp(r)
+        mine = (x.float().reshape(-1, d) - r).abs()
+        theirs = (y.float().reshape(-1, d) - r).abs()
+        beyond = ((mine - theirs).clamp(min=0) / ulp).max().item()
+        check(beyond <= BF16_ULPS_O, f"the ring's {name} strays {beyond:.3f} "
+              f"ulps further from the float32 control than B2's (limit "
+              f"{BF16_ULPS_O})")
+        rel = [((t - r).norm() / r.norm()).item() / 2 ** -8
+               for t in (x.float().reshape(-1, d), y.float().reshape(-1, d))]
+        parts.append(f"{name} {(mine / ulp).max().item():.3f} ulps, B2 "
+                     f"{(theirs / ulp).max().item():.3f}, beyond B2's "
+                     f"{beyond:.3f}; rel. L2 {rel[0]:.3f} bf16 ulps, B2 "
+                     f"{rel[1]:.3f}")
+    print(f"  {n} ranks x B={b} S={s_loc} H={h} D={d} bf16 causal (S={s}): "
+          f"launches {counts}; against a float32 control (each element "
+          f"held to {BF16_ULPS_O} ulps beyond B2's own distance): "
+          f"{'; '.join(parts)}  ok")
+    # the same ring in float32 (B4's float32 kernels): the control's math
+    # in another order, held to TOL_F32
+    leaves32 = [t.detach().requires_grad_(True) for t in f32[:3]]
+    o32 = ring(leaves32)
+    o32.backward(f32[3])
+    torch.cuda.synchronize()
+    err32 = []
+    for name, x, ref in zip(("o", "dq", "dk", "dv"),
+                            (o32, *(t.grad for t in leaves32)), control):
+        torch.testing.assert_close(x, ref, **TOL_F32)
+        err32.append(f"{name} {(x - ref).abs().max().item():.3e}")
+    print(f"  the same ring in float32 against the control: max|diff| "
+          f"{', '.join(err32)} (atol {TOL_F32['atol']})  ok")
+    del control, ro, f32, leaves32, o32
+
+    it = iter(range(10 ** 9))
+    copies = [general_case(b, s, s, h, d, torch.bfloat16, seed=150 + i)
+              for i in range(2)]
+    ring_leaves = [[t.detach().requires_grad_(True) for t in c[:3]]
+                   for c in copies]
+    heads = [[x.transpose(1, 2).detach().requires_grad_(True)
+              for x in c[:3]] + [c[3].transpose(1, 2)] for c in copies]
+
+    def ring_fwd():
+        with torch.no_grad():
+            ring(ring_leaves[next(it) % 2])
+
+    def ring_fwd_bwd():
+        i = next(it) % 2
+        ring(ring_leaves[i]).backward(copies[i][3])
+
+    def b2_fwd_bwd(backward):
+        def run():
+            i = next(it) % 2
+            out = fa.flash_attention(*ring_leaves[i], is_causal=True)
+            if backward:
+                out.backward(copies[i][3])
+        return run
+
+    def lib(backward):
+        def run():
+            qh, kh, vh, doh = heads[next(it) % 2]
+            out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+            if backward:
+                out.backward(doh)
+        return run
+
+    with torch.no_grad():
+        ring_f = time_ms(ring_fwd, 5)
+    ring_fb = time_ms(ring_fwd_bwd, 3)
+    b2_f, b2_fb = time_ms(b2_fwd_bwd(False), 5), time_ms(b2_fwd_bwd(True), 3)
+    lib_f, lib_fb = time_ms(lib(False), 5), time_ms(lib(True), 3)
+    work = general_work(b, s, s, h, d, b * s * (s + 1) // 2, b * s, 2, 0)
+    for label, (nbytes, flops), mine, b2_ms, lib_ms in (
+            ("forward", work[0], ring_f, b2_f, lib_f),
+            ("backward", work[1], ring_fb - ring_f, b2_fb - b2_f,
+             lib_fb - lib_f)):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+        print(f"  the {n}-rank ring's {label} (every rank's loop, no "
+              f"transport): {mine:.4f} ms; B2 over S={s}: {b2_ms:.4f} ms; "
+              f"SDPA: {lib_ms:.4f} ms; bound {max(t_bytes, t_ops) * 1e3:.4f}"
+              f" ms ({'bytes' if t_bytes >= t_ops else 'operations'}; "
+              f"{nbytes} bytes, {flops} flops)")
+    return {name: counts[name] for name in ("flash_attention_lse_fwd",
+                                            "flash_attention_lse_bwd")}
+
+
+def one_rank_phase(torch):
+    """(c) A one-rank NCCL world (this process; its store on a free
+    port): `ring_attention` launches B4 once each way and matches B2's
+    `flash_attention`;
+    `sp_attention` on a one-rank mesh (no sp axis) composes plain
+    attention, as the reference does, and launches no flash kernel. o
+    and the grads are held to B2's at BF16_ULPS_O ulps; the line says
+    where they are bit for bit."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.distributed import (HybridMesh,
+                                              HybridParallelConfig,
+                                              init_parallel_env,
+                                              ring_attention, sp_attention)
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    store = dist.TCPStore("127.0.0.1", 0, is_master=True,
+                          wait_for_workers=False)
+    os.environ.update({"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                       "MASTER_ADDR": "127.0.0.1",
+                       "MASTER_PORT": str(store.port),
+                       "PADDLE_MASTER": f"127.0.0.1:{store.port}"})
+    init_parallel_env()
+    try:
+        b, s, h, d = SP_CHUNK
+        q, k, v, do = general_case(b, s, s, h, d, torch.bfloat16, seed=160)
+        mine = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        theirs = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        kernels.reset_kernel_launch_counts()
+        o = ring_attention(*mine, causal=True)
+        o.backward(do)
+        torch.cuda.synchronize()
+        counts = kernels.kernel_launch_counts()
+        check(counts["flash_attention_lse_fwd"] == 1
+              and counts["flash_attention_lse_bwd"] == 1
+              and counts["flash_attention_fwd"] == 0, f"one rank: {counts}")
+        ref = fa.flash_attention(*theirs, is_causal=True)
+        ref.backward(do)
+        parts = []
+        for name, x, y in (("o", o, ref),
+                           *zip(("dq", "dk", "dv"), (t.grad for t in mine),
+                                (t.grad for t in theirs))):
+            ulps, _ = flash_ulps(x, y, d)
+            check(ulps <= BF16_ULPS_O, f"one rank: {name} {ulps:.3f} ulps "
+                  "from B2's")
+            parts.append(f"{name} {ulps:.3f} ulps"
+                         f"{' (bitwise)' if torch.equal(x, y) else ''}")
+        mesh = HybridMesh(HybridParallelConfig())
+        kernels.reset_kernel_launch_counts()
+        with torch.no_grad():
+            composed = sp_attention(mesh, q, k, v, causal=True)
+        torch.cuda.synchronize()
+        check(not any(kernels.kernel_launch_counts().values()),
+              "sp_attention on a one-rank mesh launched a kernel")
+        ulps, _ = flash_ulps(composed, ref, d)
+        check(ulps <= BF16_ULPS_O, f"the composed sp_attention is {ulps:.3f} "
+              "ulps from B2's o")
+        print(f"  one-rank ring_attention: B4 launched once each way; "
+              f"{', '.join(parts)} from B2's; sp_attention on "
+              f"{mesh}: composed, {ulps:.3f} ulps from B2's o  ok")
+    finally:
+        dist.destroy_process_group()
+
+
 def print_build_report(name, report):
     """One source's build seconds, then for each kernel ptxas's register,
     shared-memory and spill lines, joined on one line."""
@@ -2596,6 +2993,11 @@ def main(argv=None) -> int:
     print("[10] generation phase (greedy, beam paged/gather, int8 tail "
           "pages, weight-only int8)")
     launches.update(gen_phase(torch, args.seed))
+    print("[11] sequence-parallel phase (B4, the ring's per-rank loop, one "
+          "rank)")
+    records += b4_kernel_phase(torch)
+    launches.update(ring_loop_phase(torch))
+    one_rank_phase(torch)
     for rec in records:
         rec["launches"] = launches[rec["name"]]
 

@@ -22,7 +22,8 @@ _LAUNCHES = {"paged_attention": 0, "paged_attention_int8": 0,
              "flash_attention_qkv_fwd": 0,
              "flash_attention_qkv_bwd": 0, "flash_attention_fwd": 0,
              "flash_attention_bwd": 0, "flash_attention_qkv3_fwd": 0,
-             "flash_attention_qkv3_bwd": 0, "fused_ln_fwd": 0,
+             "flash_attention_qkv3_bwd": 0, "flash_attention_lse_fwd": 0,
+             "flash_attention_lse_bwd": 0, "fused_ln_fwd": 0,
              "fused_ln_bwd": 0}
 
 
@@ -105,6 +106,11 @@ def flash_attention_enabled(query, key, attn_mask, dropout_p) -> bool:
     return query.shape[1] % 128 == 0 and key.shape[1] % 128 == 0
 
 
+# B4's entry, re-exported as the reference's package does
+# (``paddle_tpu/kernels/__init__.py:180``); imported last, since the
+# module imports the helpers above
+from .flash_attention import flash_attention_with_lse  # noqa: E402
+
 __all__ = ["kernel_launch_counts", "reset_kernel_launch_counts",
            "count_launch", "runs_plain", "flash_attention_qkv_enabled",
-           "flash_attention_enabled"]
+           "flash_attention_enabled", "flash_attention_with_lse"]

@@ -39,6 +39,13 @@
 //   (p*keep)^T dO with p*keep rounded to dO's dtype, dp = (dO v^T)*keep,
 //   ds = p*(dp - delta)*scale rounded to q's dtype, dk = ds^T q, dq = ds k.
 //   The bias gets no gradient.
+// - B4, flash attention with a differentiable lse (`_flash_lse`, :767-784:
+//   `_fwd`, then `_bwd_merged` with `has_dlse`, :575 / :536): the same
+//   forward, whose lse is an output already, and the same backward given
+//   the lse cotangent dlse [B,H,Sq] f32. The reference adds it inside ds,
+//   p*(dp - delta + dlse) (:525-527); the delta pre-pass writes delta -
+//   dlse, so every pass after it runs unchanged, and with a null dlse
+//   nothing differs from B2's backward.
 // - Dropout: the keep/scale of score (q, c) of head bh = b*H + h is the
 //   reference's interpret-mode hash (`_hash_keep_scale`, :101-116) with
 //   block ids (bh, q / bq, c / bk) at tile-relative (q % bq, c % bk), where
@@ -138,6 +145,7 @@ struct Params {
   const void* dout;     // backward: [B, Sq, H, D]
   const float* lse;     // backward: [B, H, Sq]
   float* delta;         // backward: [B, H, Sq], written by the pre-pass
+  const float* dlse;    // backward: [B, H, Sq] lse cotangent (B4) or null
   const float* bias;    // [bias_b, bias_q, Sk] or null
   const int32_t* seed;  // [1], read when use_drop
   void* out;            // forward: [B, Sq, H, D]
@@ -1255,8 +1263,8 @@ cudaError_t launch_bwd(const Params& p, cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value) {
     if ((err = launch_delta<bf16, D>(static_cast<const bf16*>(p.dout),
                                      static_cast<const bf16*>(p.o), p.delta,
-                                     p.B, p.Sq, p.H, stream, p.dq_acc)) !=
-        cudaSuccess)
+                                     p.B, p.Sq, p.H, stream, p.dq_acc,
+                                     p.dlse)) != cudaSuccess)
       return err;
     Maps maps;
     if ((err = make_maps(&maps, p, D)) != cudaSuccess) return err;
@@ -1270,7 +1278,8 @@ cudaError_t launch_bwd(const Params& p, cudaStream_t stream) {
   } else {
     if ((err = launch_delta<T, D>(static_cast<const T*>(p.dout),
                                   static_cast<const T*>(p.o), p.delta, p.B,
-                                  p.Sq, p.H, stream)) != cudaSuccess)
+                                  p.Sq, p.H, stream, nullptr, p.dlse)) !=
+        cudaSuccess)
       return err;
     const dim3 grid_k((p.Sk + kTile - 1) / kTile, p.H, p.B);
     const dim3 grid_q((p.Sq + kTile - 1) / kTile, p.H, p.B);
@@ -1364,11 +1373,14 @@ extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
 // the delta pre-pass, a dk/dv pass and a dq pass. Scratch allocated by the
 // caller: delta f32 [B, H, Sq]; dq_acc f32 [B, Sq, H, D] (required for
 // bf16, which is refused without it; may be null for f32). dq, dk and dv
-// are written in full.
+// are written in full. dlse: null, or the f32 [B, H, Sq] cotangent of the
+// forward's lse (B4, `_flash_lse`'s backward), which the delta pre-pass
+// folds in; with null every pass runs as before.
 extern "C" int ptt_flash_bwd(const void* q, const void* k, const void* v,
                              const void* o, const void* dout, const void* lse,
-                             const void* bias, const void* seed, void* delta,
-                             void* dq_acc, void* dq, void* dk, void* dv,
+                             const void* dlse, const void* bias,
+                             const void* seed, void* delta, void* dq_acc,
+                             void* dq, void* dk, void* dv,
                              int B, int Sq, int Sk, int H, int D, int bias_b,
                              int bias_q, int causal, int use_drop, float keep,
                              float scale, int bq, int bk, int dtype,
@@ -1378,6 +1390,7 @@ extern "C" int ptt_flash_bwd(const void* q, const void* k, const void* v,
   Params p = {};
   p.q = q; p.k = k; p.v = v; p.o = o; p.dout = dout;
   p.lse = static_cast<const float*>(lse);
+  p.dlse = static_cast<const float*>(dlse);
   p.delta = static_cast<float*>(delta);
   p.bias = static_cast<const float*>(bias);
   p.seed = static_cast<const int32_t*>(seed);

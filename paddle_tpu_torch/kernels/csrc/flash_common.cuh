@@ -119,12 +119,15 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 }
 // delta[b, h, s] = sum_d dO * O over o and dO [B, S, H, D], one warp per
 // (b, s, h) row; with `zero` (an f32 [B, S, H, D] accumulator, the
-// general bf16 backward's dq) the row is zeroed there too.
+// general bf16 backward's dq) the row is zeroed there too. With `dlse`
+// (f32 [B, H, S], the cotangent of an exposed lse: B4) the row's dlse is
+// subtracted: the kernels form ds = p * (dp - delta), and the reference's
+// dp - delta + dlse (`_packed_head_attn_bwd`) is dp - (delta - dlse).
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_delta_kernel(const T* __restrict__ dout, const T* __restrict__ o,
-                   float* __restrict__ delta, float* __restrict__ zero, int B,
-                   int S, int H) {
+                   float* __restrict__ delta, float* __restrict__ zero,
+                   const float* __restrict__ dlse, int B, int S, int H) {
   const int64_t row =
       (int64_t)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
   if (row >= (int64_t)B * S * H) return;
@@ -143,17 +146,20 @@ flash_delta_kernel(const T* __restrict__ dout, const T* __restrict__ o,
   for (int k = 16; k > 0; k >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, k);
   if (lane == 0) {
     const int64_t b = bs / S, s = bs % S;
-    delta[(b * H + hg) * S + s] = acc;
+    const int64_t at = (b * H + hg) * S + s;
+    delta[at] = dlse != nullptr ? acc - dlse[at] : acc;
   }
 }
 
 template <typename T, int D>
 cudaError_t launch_delta(const T* dout, const T* o, float* delta, int B, int S,
-                         int H, cudaStream_t stream, float* zero = nullptr) {
+                         int H, cudaStream_t stream, float* zero = nullptr,
+                         const float* dlse = nullptr) {
   const int64_t rows = (int64_t)B * S * H;
   const int warps = kThreads / 32;
   flash_delta_kernel<T, D><<<(unsigned)((rows + warps - 1) / warps), kThreads,
-                              0, stream>>>(dout, o, delta, zero, B, S, H);
+                              0, stream>>>(dout, o, delta, zero, dlse, B, S,
+                                           H);
   return cudaGetLastError();
 }
 

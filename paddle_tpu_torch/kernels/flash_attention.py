@@ -44,6 +44,19 @@ TPU's merged/split choice is a VMEM artifact.
   `normalize_mask_bias` (:173-200) and `pick_block` (:1211-1216) are the
   reference's mask and block rules.
 
+B4, flash attention with a differentiable lse (``_flash_lse`` :767-784:
+``_fwd`` :319, then ``_bwd_merged`` :575 with ``has_dlse``, body :536):
+B2's kernels, the lse cotangent folded into the backward's delta
+pre-pass (``csrc/flash_common.cuh``).
+
+- `flash_attention_lse_fwd` / `flash_attention_lse_bwd`: the kernel
+  wrappers, counted under their own names.
+- `flash_reference` / `flash_bwd_reference` (``dlse=``): the plain
+  versions.
+- `flash_attention_with_lse` (:787-815): ``(o, lse)``, both
+  differentiable through `_FlashLse`; the chunk kernel of the
+  sequence-parallel ring (`distributed.sequence_parallel`).
+
 The contract every kernel and plain version here shares:
 
 - Numerics of ``_packed_head_attn`` / ``_fwd_kernel``: ``s = q.k *
@@ -56,7 +69,9 @@ The contract every kernel and plain version here shares:
   (``_packed_head_attn_bwd`` :488-533): ``delta = rowsum(dO*O)``,
   ``p = exp(s - lse)``, ``dv = (p*keep)^T dO``, ``dp = (dO v^T)*keep``,
   ``ds = p*(dp - delta)*scale`` rounded to q's dtype, ``dk = ds^T q``,
-  ``dq = ds k``. A mask bias gets no gradient (:744-752).
+  ``dq = ds k``. A mask bias gets no gradient (:744-752). B4 adds the lse
+  cotangent inside ds, ``p*(dp - delta + dlse)`` (:525-527), as ``delta
+  - dlse``.
 - ``lse`` is float32 ``[B, H, S_q]`` (the TPU kernels' 8-row broadcast
   is a tiling artifact).
 - Dropout keeps an element where ``hash_keep_scale`` says so: the
@@ -663,15 +678,19 @@ def flash_reference(q, k, v, causal, bias=None, dropout_p=0.0, seed=None,
 
 def flash_bwd_reference(q, k, v, o, lse, do, causal, bias=None,
                         dropout_p=0.0, seed=None, bq=None, bk=None,
-                        scale=None):
+                        scale=None, dlse=None):
     """The plain version of `flash_attention_bwd`, in float32: ``(dq, dk,
-    dv)`` shaped and typed as ``q``, ``k``, ``v``."""
+    dv)`` shaped and typed as ``q``, ``k``, ``v``. ``dlse``: the float32
+    ``[B, H, Sq]`` cotangent of the forward's lse (B4), folded into delta
+    as the kernels fold it."""
     b, s_q, h, d = q.shape
     s_k = k.shape[1]
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     qh, kh, vh, dof, of = (t.float().transpose(1, 2)
                            for t in (q, k, v, do, o))
     delta = (dof * of).sum(dim=-1, keepdim=True)
+    if dlse is not None:
+        delta = delta - dlse.float()[..., None]
     p = torch.exp(_scores(qh, kh, scale, causal, bias) - lse[..., None])
     dp = torch.einsum("bhqd,bhkd->bhqk", dof, vh)
     pd = p
@@ -702,7 +721,7 @@ def _gen_kernel_fns():
         fwd.argtypes = [ctypes.c_void_p] * 7 + shape + [ctypes.c_void_p]
         fwd.restype = ctypes.c_int
         bwd = lib.ptt_flash_bwd
-        bwd.argtypes = [ctypes.c_void_p] * 13 + shape + [ctypes.c_void_p]
+        bwd.argtypes = [ctypes.c_void_p] * 14 + shape + [ctypes.c_void_p]
         bwd.restype = ctypes.c_int
         # B, S, H, D, group, stride, q, k, v, causal, use_drop; keep,
         # scale; dtype, device
@@ -767,18 +786,12 @@ def _shape_args(b, s_q, s_k, h, d, bias, causal, dropout_p, bq, bk, scale,
             device.index, torch.cuda.current_stream(device).cuda_stream)
 
 
-def flash_attention_fwd(q, k, v, causal, bias=None, dropout_p=0.0, seed=None,
-                        bq=None, bk=None, scale=None):
-    """Launch the forward kernel: q ``[B, Sq, H, D]``, k and v ``[B, Sk,
-    H, D]`` (CUDA, contiguous, float32 or bfloat16; D 64 or 128, any
-    lengths). ``bias``: contiguous float32 ``[1|B, 1|Sq, Sk]``;
-    ``seed``: int32 ``[1]`` on the same device when ``dropout_p > 0``;
-    ``bq``/``bk``: the reference's blocks (default: its default tiling);
-    ``scale``: default ``1/sqrt(D)``. Returns ``(o [B, Sq, H, D], lse [B,
-    H, Sq])``."""
+def _launch_general_fwd(kernel, q, k, v, causal, bias, dropout_p, seed, bq,
+                        bk, scale):
+    """One launch of B2's forward kernel, counted as ``kernel``."""
     dbq, dbk = _blocks(q.shape[1], k.shape[1])
     bq, bk = bq or dbq, bk or dbk
-    b, s_q, s_k, h, d = _check_general(_GEN_FWD, q, k, v, bias, dropout_p,
+    b, s_q, s_k, h, d = _check_general(kernel, q, k, v, bias, dropout_p,
                                        seed, bq, bk)
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     o = torch.empty_like(q)
@@ -790,31 +803,27 @@ def flash_attention_fwd(q, k, v, causal, bias=None, dropout_p=0.0, seed=None,
               lse.data_ptr(),
               *_shape_args(b, s_q, s_k, h, d, bias, causal, dropout_p, bq,
                            bk, scale, q.dtype, q.device))
-    _raise_on(err, _GEN_FWD, err_str)
-    count_launch(_GEN_FWD)
+    _raise_on(err, kernel, err_str)
+    count_launch(kernel)
     return o, lse
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, causal, bias=None,
-                        dropout_p=0.0, seed=None, bq=None, bk=None,
-                        scale=None):
-    """Launch the backward kernels: ``(dq, dk, dv)`` from the forward's
-    inputs, ``o``, ``lse`` and the cotangent ``do`` (q's shape and
-    dtype). One call counts as one launch. bfloat16: a pre-pass (``delta
-    = rowsum(dO*O)``, the float32 dq accumulator zeroed), the one-pass
-    kernel over key blocks (dk, dv, and dq added into the accumulator)
-    and a post-pass rounding dq; float32: the delta pre-pass, a dk/dv
-    pass and a dq pass."""
+def _launch_general_bwd(kernel, q, k, v, o, lse, do, causal, bias, dropout_p,
+                        seed, bq, bk, scale, dlse):
+    """One call of B2's backward kernels, counted as one launch of
+    ``kernel``."""
     dbq, dbk = _blocks(q.shape[1], k.shape[1])
     bq, bk = bq or dbq, bk or dbk
-    b, s_q, s_k, h, d = _check_general(_GEN_BWD, q, k, v, bias, dropout_p,
+    b, s_q, s_k, h, d = _check_general(kernel, q, k, v, bias, dropout_p,
                                        seed, bq, bk)
-    for name, t, shape, dt in (("do", do, q.shape, q.dtype),
-                               ("o", o, q.shape, q.dtype),
-                               ("lse", lse, (b, h, s_q), torch.float32)):
+    rows = [("do", do, q.shape, q.dtype), ("o", o, q.shape, q.dtype),
+            ("lse", lse, (b, h, s_q), torch.float32)]
+    if dlse is not None:
+        rows.append(("dlse", dlse, (b, h, s_q), torch.float32))
+    for name, t, shape, dt in rows:
         _check(t.device == q.device and tuple(t.shape) == tuple(shape)
                and t.dtype == dt and t.is_contiguous()
-               and t.data_ptr() % 16 == 0, _GEN_BWD,
+               and t.data_ptr() % 16 == 0, kernel,
                f"{name} must be contiguous 16-byte aligned {dt} "
                f"{tuple(shape)} on {q.device}, got {t.dtype} "
                f"{tuple(t.shape)} on {t.device}")
@@ -826,15 +835,45 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal, bias=None,
     _, bwd, _, err_str = _gen_kernel_fns()
     err = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
               do.data_ptr(), lse.data_ptr(),
+              None if dlse is None else dlse.data_ptr(),
               None if bias is None else bias.data_ptr(),
               seed.data_ptr() if dropout_p else None, delta.data_ptr(),
               None if dq_acc is None else dq_acc.data_ptr(),
               dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
               *_shape_args(b, s_q, s_k, h, d, bias, causal, dropout_p, bq,
                            bk, scale, q.dtype, q.device))
-    _raise_on(err, _GEN_BWD, err_str)
-    count_launch(_GEN_BWD)
+    _raise_on(err, kernel, err_str)
+    count_launch(kernel)
     return dq, dk, dv
+
+
+def flash_attention_fwd(q, k, v, causal, bias=None, dropout_p=0.0, seed=None,
+                        bq=None, bk=None, scale=None):
+    """Launch the forward kernel: q ``[B, Sq, H, D]``, k and v ``[B, Sk,
+    H, D]`` (CUDA, contiguous, float32 or bfloat16; D 64 or 128, any
+    lengths). ``bias``: contiguous float32 ``[1|B, 1|Sq, Sk]``;
+    ``seed``: int32 ``[1]`` on the same device when ``dropout_p > 0``;
+    ``bq``/``bk``: the reference's blocks (default: its default tiling);
+    ``scale``: default ``1/sqrt(D)``. Returns ``(o [B, Sq, H, D], lse [B,
+    H, Sq])``."""
+    return _launch_general_fwd(_GEN_FWD, q, k, v, causal, bias, dropout_p,
+                               seed, bq, bk, scale)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal, bias=None,
+                        dropout_p=0.0, seed=None, bq=None, bk=None,
+                        scale=None, dlse=None):
+    """Launch the backward kernels: ``(dq, dk, dv)`` from the forward's
+    inputs, ``o``, ``lse`` and the cotangent ``do`` (q's shape and
+    dtype). One call counts as one launch. bfloat16: a pre-pass (``delta
+    = rowsum(dO*O)``, the float32 dq accumulator zeroed), the one-pass
+    kernel over key blocks (dk, dv, and dq added into the accumulator)
+    and a post-pass rounding dq; float32: the delta pre-pass, a dk/dv
+    pass and a dq pass. ``dlse``: the lse cotangent (contiguous float32
+    ``[B, H, Sq]``, B4), which the pre-pass subtracts from delta; None
+    runs B2's backward as it is."""
+    return _launch_general_bwd(_GEN_BWD, q, k, v, o, lse, do, causal, bias,
+                               dropout_p, seed, bq, bk, scale, dlse)
 
 
 class _Flash(torch.autograd.Function):
@@ -904,6 +943,91 @@ def flash_attention(query, key, value, is_causal=False, attn_mask=None,
     return out[..., :d] if dp != d else out
 
 
+# ============================================ B4: (o, lse), both differentiable
+_LSE_FWD = "flash_attention_lse_fwd"
+_LSE_BWD = "flash_attention_lse_bwd"
+
+
+def flash_attention_lse_fwd(q, k, v, causal, scale=None):
+    """B4's forward: B2's forward kernel (its lse is an output already)
+    on q, k, v ``[B, S, H, D]`` (as `flash_attention_fwd` takes them, no
+    bias, no dropout), counted as B4. Returns ``(o, lse [B, H, S])``."""
+    return _launch_general_fwd(_LSE_FWD, q, k, v, causal, None, 0.0, None,
+                               None, None, scale)
+
+
+def flash_attention_lse_bwd(q, k, v, o, lse, do, dlse, causal, scale=None):
+    """B4's backward: B2's backward kernels with the lse cotangent
+    ``dlse`` (contiguous float32 ``[B, H, S]``, or None for none) folded
+    into delta, counted as B4. Returns ``(dq, dk, dv)``."""
+    return _launch_general_bwd(_LSE_BWD, q, k, v, o, lse, do, causal, None,
+                               0.0, None, None, None, scale, dlse)
+
+
+class _FlashLse(torch.autograd.Function):
+    """``custom_vjp`` of ``_flash_lse`` (:767-784): both outputs carry a
+    cotangent; the backward recomputes P from lse and adds ``p * dlse``
+    inside ds. A missing cotangent arrives as None (grads are not
+    materialised): ``do`` then counts as zeros, and a missing ``dlse``
+    runs B2's backward as it is."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        ctx.set_materialize_grads(False)
+        if runs_plain(q, _LSE_FWD):
+            o, lse = flash_reference(q, k, v, causal, scale=scale)
+        else:
+            o, lse = flash_attention_lse_fwd(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.cfg = (causal, scale)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, scale = ctx.cfg
+        do = (torch.zeros_like(o) if do is None
+              else do.to(q.dtype).contiguous())
+        if dlse is not None:
+            dlse = dlse.float().contiguous()
+        if runs_plain(q, _LSE_BWD):
+            grads = flash_bwd_reference(q, k, v, o, lse, do, causal,
+                                        scale=scale, dlse=dlse)
+        else:
+            grads = flash_attention_lse_bwd(q, k, v, o, lse, do, dlse, causal,
+                                            scale)
+        return (*grads, None, None)
+
+
+def flash_attention_with_lse(q, k, v, is_causal=False, scale=None):
+    """Flash attention that also returns the logsumexp of each query's
+    scores, both differentiable (``flash_attention_with_lse`` :787-815),
+    for callers that merge partial attentions, as the sequence-parallel
+    ring does: ``[B, S, H, D]`` in, ``(o [B, S, H, D], lse [B, H, S]
+    float32)`` out. Needs ``s_q == s_k``. ``scale``: default
+    ``1/sqrt(D)``. A CPU tensor runs the plain version at any head_dim; a
+    CUDA tensor launches B4's kernels (or the wrappers raise), a head_dim
+    below 64 (or between 64 and 128) zero-padded to 64 (128) and one above
+    128 refused (B2's remainder)."""
+    b, s, h, d = q.shape
+    if k.shape[1] != s:
+        raise ValueError("flash_attention_with_lse requires s_q == s_k "
+                         f"(got {s} vs {k.shape[1]})")
+    scale = float(1.0 / math.sqrt(d) if scale is None else scale)
+    if runs_plain(q, _LSE_FWD):
+        return _FlashLse.apply(q, k, v, bool(is_causal), scale)
+    if d > 128:
+        raise NotImplementedError(
+            f"flash_attention_with_lse with head_dim {d} > 128 on {q.device}:"
+            " the kernels take D up to 128; larger heads are B2's remainder "
+            "(ROADMAP B2)")
+    dp = 64 if d <= 64 else 128
+    qp, kp, vp = (torch.nn.functional.pad(t, (0, dp - d)) if dp != d
+                  else t.contiguous() for t in (q, k, v))
+    o, lse = _FlashLse.apply(qp, kp, vp, bool(is_causal), scale)
+    return (o[..., :d] if dp != d else o), lse
+
+
 __all__ = ["mix32", "hash_keep_scale", "keep_threshold", "qkv_drop_ids",
            "qkv_columns", "flash_qkv_reference",
            "flash_qkv_bwd_reference", "flash_attention_qkv_fwd",
@@ -913,4 +1037,6 @@ __all__ = ["mix32", "hash_keep_scale", "keep_threshold", "qkv_drop_ids",
            "flash_attention_qkv3", "packed_supported",
            "flash_attention_packed", "normalize_mask_bias", "pick_block",
            "flash_reference", "flash_bwd_reference", "flash_attention_fwd",
-           "flash_attention_bwd", "flash_attention"]
+           "flash_attention_bwd", "flash_attention",
+           "flash_attention_lse_fwd", "flash_attention_lse_bwd",
+           "flash_attention_with_lse"]

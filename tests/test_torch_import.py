@@ -44,6 +44,10 @@ MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.device",
            "paddle_tpu_torch.optimizer.optimizers",
            "paddle_tpu_torch.distributed",
            "paddle_tpu_torch.distributed.spmd",
+           "paddle_tpu_torch.distributed.topology",
+           "paddle_tpu_torch.distributed.collective",
+           "paddle_tpu_torch.distributed.spawn",
+           "paddle_tpu_torch.distributed.sequence_parallel",
            "paddle_tpu_torch.nn.common", "paddle_tpu_torch.nn.norm",
            "paddle_tpu_torch.nn.transformer", "paddle_tpu_torch.models.bert",
            "paddle_tpu_torch.kernels.fused_ln", "paddle_tpu_torch.incubate",
@@ -113,6 +117,21 @@ def test_train_step_runs_where_the_model_is():
     assert {p.dtype for p in params.values()} == {torch.bfloat16}
     assert state["slots"]["gpt.ln_f.weight"]["moment1"].dtype \
         == torch.bfloat16
+
+
+def test_distributed_entry_points_need_a_gpu_or_a_world(no_gpu):
+    """`init_parallel_env` goes to NCCL on the card unless asked for the
+    CPU (gloo), so without a GPU it raises before joining anything; a
+    mesh needs an initialised world."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import HybridMesh, init_parallel_env
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_parallel_env()
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="init_parallel_env"):
+        HybridMesh(sp=2, device_type="cpu")
 
 
 def test_engine_raises_without_device_and_gpu(no_gpu):
@@ -322,3 +341,50 @@ def test_generate_takes_every_reference_parameter(param):
     run(**{param.name: param.default})
     assert param.name in GENERATE_OTHER, f"no other value for {param.name}"
     _served_or_named(lambda: run(**{param.name: GENERATE_OTHER[param.name]}))
+
+
+#: the port's name for a reference parameter it takes under another name:
+#: a JAX mesh axis name (``shard_map``'s communicator) is a process group
+#: in `torch.distributed` (``HybridMesh.group("sp")``; None: the world)
+RENAMED = {"axis_name": "group"}
+
+
+def _sp_surfaces():
+    import importlib
+
+    from paddle_tpu import distributed as jdist
+    from paddle_tpu.distributed import sequence_parallel as jsp
+
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.distributed import sequence_parallel as psp
+
+    jfa = importlib.import_module("paddle_tpu.kernels.flash_attention")
+    return [(jfa.flash_attention_with_lse, kernels.flash_attention_with_lse),
+            (jsp.ring_attention, psp.ring_attention),
+            (jsp.ulysses_attention, psp.ulysses_attention),
+            (jsp.sp_attention, psp.sp_attention),
+            (jsp.shard_sequence, psp.shard_sequence),
+            (jdist.spawn, pdist.spawn)]
+
+
+@pytest.mark.parametrize("pair", _sp_surfaces(),
+                         ids=lambda p: p[0].__name__)
+def test_sequence_parallel_surfaces_take_every_reference_parameter(pair):
+    """B4's entry, the sequence-parallel functions and `spawn` take the
+    reference's parameters in its order, with its defaults, but where a
+    parameter is renamed (`RENAMED`); the reference's name is then
+    refused by name, and a ``**options`` catch-all stays one."""
+    ref, port = pair
+    theirs = list(inspect.signature(ref).parameters.values())
+    mine = list(inspect.signature(port).parameters.values())
+    assert [RENAMED.get(p.name, p.name) for p in theirs] == \
+        [p.name for p in mine]
+    for a, b in zip(theirs, mine):
+        assert a.kind == b.kind, a.name
+        if a.name in RENAMED:
+            assert b.default is None, b.name        # the world's group
+            with pytest.raises(TypeError, match=a.name):
+                port(*([torch.zeros((1, 8, 2, 4))] * 3), **{a.name: "sp"})
+        else:
+            assert a.default == b.default, a.name

@@ -469,3 +469,51 @@ def test_qkv_backward_is_the_general_backward_on_a_card(dtype, d, causal):
         assert torch.equal(mq, dq)
     else:
         assert _ulps(mq, dq, d) <= 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_flash_lse_kernels_match_the_plain_versions_on_a_card(dtype,
+                                                              causal):
+    """B4 (`flash_attention_with_lse`) at a head_dim it pads (48): o, lse
+    and the grads of a loss reading both (a nonzero lse cotangent)
+    against the plain versions, f32 at 1e-4, bf16 within 8 ulps of each
+    element's scale; one launch each way, counted as B4's, none as B2's;
+    with a zero lse cotangent B4's backward is B2's (dk, dv bit for
+    bit)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the Hopper kernels run only on "
+                    "the card")
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v = (torch.randn((2, 256, 3, 48), generator=g, device="cuda")
+               .to(dt).requires_grad_(True) for _ in range(3))
+    kernels.reset_kernel_launch_counts()
+    o, lse = kernels.flash_attention_with_lse(q, k, v, is_causal=causal)
+    (o.float().sin().sum() + lse.cos().sum()).backward()
+    counts = kernels.kernel_launch_counts()
+    assert counts["flash_attention_lse_fwd"] == 1
+    assert counts["flash_attention_lse_bwd"] == 1
+    assert counts["flash_attention_fwd"] == counts["flash_attention_bwd"] == 0
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    ro, rlse = pfa._FlashLse.apply(*(t.cpu() for t in leaves), causal,
+                                   48 ** -0.5)
+    (ro.float().sin().sum() + rlse.cos().sum()).backward()
+    torch.testing.assert_close(lse.cpu(), rlse, atol=1e-4, rtol=0)
+    for a, r in zip((o, q.grad, k.grad, v.grad),
+                    (ro, *(t.grad for t in leaves))):
+        if dtype == "float32":
+            torch.testing.assert_close(a.cpu(), r.cpu(), atol=1e-4, rtol=0)
+        else:
+            assert _ulps(a.cpu(), r.cpu(), 48) <= 8
+    qp, kp, vp = (torch.nn.functional.pad(t.detach(), (0, 16))
+                  for t in (q, k, v))
+    po, plse = pfa.flash_attention_lse_fwd(qp, kp, vp, causal, 48 ** -0.5)
+    do = torch.randn(po.shape, generator=g, device="cuda").to(dt)
+    zero = pfa.flash_attention_lse_bwd(qp, kp, vp, po, plse, do,
+                                       torch.zeros_like(plse), causal,
+                                       48 ** -0.5)
+    b2 = pfa.flash_attention_bwd(qp, kp, vp, po, plse, do, causal,
+                                 scale=48 ** -0.5)
+    assert torch.equal(zero[1], b2[1]) and torch.equal(zero[2], b2[2])
