@@ -41,7 +41,16 @@ Phases, in order; any failure exits non-zero:
    ``_ln_maybe_fused``, then at BERT-large's [4096, 1024] bf16 rows with
    a residual) beside the plain version's, a PyTorch library call
    computing the same function (timed here only; the port never calls
-   it) and the least time the card could take (its bound);
+   it) and the least time the card could take (its bound). Beside them
+   the head dims and page sizes that are not 64/128 and multiples of 8:
+   the paged kernel at D 80 and 16, ps 16, 4 and 3 (float and int8
+   pages, W 1 and 5, the split-walk rows at D=80, the tail read at
+   D=80), timed at gpt3-2.7b's decode shape (N=8 H=32 D=80, bf16 and
+   int8 pages at W=1, int8 at W=5); B2 at D 192, 256 and 384 (f32 and
+   bf16, the edge shapes above) and B4 at D=256 under a random lse
+   cotangent, B2 timed at Gemma-2B's attention shape (B4 S1024 H8 D256
+   bf16, causal, and key-padded with dropout 0.1) and B4 at B1 S2048
+   H8 D256;
 4. engine phase: gpt3-1.3b at full width and depth, bf16, random
    weights from ``--seed``, served by
    the paged `Engine` (8 slots, page 16, max_len 640, buckets 128/512)
@@ -123,7 +132,26 @@ Phases, in order; any failure exits non-zero:
    q/k/v grads held beside B2's over the whole sequence to a float32
    control, and their times beside B2's and SDPA's; (c) a one-rank NCCL
    world: `ring_attention` launches B4 once each way and matches B2,
-   `sp_attention` on a one-rank mesh composes.
+   `sp_attention` on a one-rank mesh composes;
+12. gpt3-2.7b serving phase (32 layers, 32 heads of 80, bf16, random
+   weights from ``--seed``): (a) phase 4's Engine and traffic on bf16
+   pages, then on int8 pages with spec_k=4: the pool's paged kernel
+   launches exactly decode (verify) steps x layers times and nothing
+   else runs, every request completes, every page returns, greedy
+   tokens agree with a float32 teacher but at a near-tie of the bf16
+   model's own measured rounding (at least 0.05); (b) `generate()`
+   beam 4, paged, b2 x prompt 128 + 32: the tail read launches (32 - 1)
+   x layers times; the gather oracle launches nothing; the two agree in
+   float32 at + 16 (identical, or parting at a log-prob gap < 1e-4);
+13. attention at Gemma-2B's widths: 18 `TransformerEncoderLayer`
+   (d_model 2048, 8 heads of 256, MLP 16384, GELU, dropout 0.1) train
+   through `SpmdTrainStep` (AdamW, bf16 params and moments) on b4 x
+   s1024 batches with a key-padding mask (lengths in [768, 1024)): the
+   bf16 loss and grads against a float32 copy whose attention composes
+   (phase 6's tolerances), then five timed steps in which B2's forward
+   and backward (at D=256, the kernels sliced over D) launch exactly
+   steps x layers times each and no other kernel runs; step ms p50,
+   tokens/s, peak memory and B2's device time a step.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device":
@@ -222,6 +250,16 @@ GEN_PROFILE_STEPS = 8
 # sequence-parallel phase: GPT-1.3B's heads, one ring chunk of a 4-way
 # split of 8192 tokens
 SP_WAYS, SP_CHUNK = 4, (1, 2048, 16, 128)
+# phase 12: gpt3-2.7b (32 heads of 80) served at phase 4's configuration
+# and traffic; its paged beam at b2 x prompt 128 + 32
+MODEL_27B, BEAM_B, BEAM_PROMPT, BEAM_NEW = "gpt3-2.7b", 2, 128, 32
+# phase 13: attention at Gemma-2B's widths (its config.json on the
+# Hugging Face Hub: hidden 2048, 8 heads of head_dim 256, MLP 16384, 18
+# layers) in the port's TransformerEncoderLayer, b4 x s1024, key padding
+# with lengths in [768, 1024), dropout 0.1
+GEMMA_WIDTH, GEMMA_HEADS, GEMMA_FFN, GEMMA_LAYERS = 2048, 8, 16384, 18
+GEMMA_B, GEMMA_S, GEMMA_MIN_LEN = 4, 1024, 768
+GEMMA_ATTN = (GEMMA_B, GEMMA_S, GEMMA_HEADS, GEMMA_WIDTH // GEMMA_HEADS)
 
 
 def check(cond, msg):
@@ -297,7 +335,7 @@ def paged_case(n, h, w, d, ps, pmax, dtype, seed, steps=None, pads=None):
     return q, pool_k, pool_v, bt, steps.contiguous(), vc.contiguous()
 
 
-def paged_work(bt, steps, vc, w, h, d, el, page_el=None):
+def paged_work(bt, steps, vc, w, h, d, el, page_el=None, ps=PAGE):
     """Bytes and flops one paged-attention call needs on this data. A
     row needs the pages that hold a readable column (``valid_cols != 0``
     and at most ``steps + w - 1``); a page of left padding alone cannot
@@ -307,7 +345,6 @@ def paged_work(bt, steps, vc, w, h, d, el, page_el=None):
     1-byte page adds its column's f32 scale), their block-table entries,
     the valid_cols read, steps, q, out and lse (q and out ``el`` bytes an
     element). Flops: q.k and p.v over the pages' columns."""
-    ps = PAGE
     n, pmax = bt.shape
     pages = cols_read = 0
     for s, v in zip(steps.tolist(), vc.cpu()):
@@ -377,7 +414,7 @@ def paged_checks(torch, pa):
               f"{err_l:.3e}  ok")
 
 
-def split_case(torch, w, dtype, seed):
+def split_case(torch, w, dtype, seed, d=128, ps=PAGE):
     """Inputs of one paged call whose rows exercise the split page walk
     (N=8, H=4, D=128, ps=16, Pmax=40: `plan_splits` cuts the table into
     4-page splits on an H100): row 0 readable only in its first split,
@@ -386,14 +423,16 @@ def split_case(torch, w, dtype, seed):
     last column (every page of every split averaged); row 4 whose last
     query alone has a readable column (its own cursor column); row 5
     whose window straddles the boundary of splits 0 and 1 (columns 62
-    to 62 + w - 1); rows 6-7 ragged with left pads."""
-    n, h, d, pmax = 8, 4, 128, 40
-    lp = pmax * PAGE
+    to 62 + w - 1); rows 6-7 ragged with left pads. Other head dims
+    ``d`` and page sizes ``ps`` keep the table at about 640 columns
+    (``640 // ps`` pages) and the same columns."""
+    n, h, pmax = 8, 4, 640 // ps
+    lp = pmax * ps
     steps = [lp - w, 0, 0, lp - w, 300, 62, 200, 450]
     pads = [0, 0, 0, 0, 0, 0, 37, 151]
-    q, pk, pv, bt, st, vc = paged_case(n, h, w, d, PAGE, pmax, dtype, seed,
+    q, pk, pv, bt, st, vc = paged_case(n, h, w, d, ps, pmax, dtype, seed,
                                        steps=steps, pads=pads)
-    vc[0, 4 * PAGE:] = 0                  # readable in split 0 alone
+    vc[0, 64:] = 0                        # readable in its first columns
     bt[2] = pk.shape[0] - 1               # parked on the sentinel page
     vc[2] = 0
     vc[3] = 0
@@ -402,16 +441,18 @@ def split_case(torch, w, dtype, seed):
     return q, pk, pv, bt, st, vc.contiguous()
 
 
-def paged_split_checks(torch, pa):
+def paged_split_checks(torch, pa, d=128, ps=PAGE, modes=(None, "int8",
+                                                           "fp8")):
     """The split page walk and its in-launch merge against the plain
-    version on `split_case`'s rows: W 1, 3 and 5; float pages (f32 q and
-    pages at TOL_F32, bf16 at TOL_BF16_OUT / TOL_BF16_LSE) and int8 and
-    fp8 pages (q f32 and bf16). Each line names the split count."""
+    version on `split_case`'s rows at head dim ``d`` and page size
+    ``ps``: W 1, 3 and 5; float pages (f32 q and pages at TOL_F32, bf16
+    at TOL_BF16_OUT / TOL_BF16_LSE) and the 1-byte ``modes`` (q f32 and
+    bf16). Each line names the split count."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for w in (1, 3, 5):
-        for mode in (None, "int8", "fp8"):
+        for mode in modes:
             for dtype in (torch.float32, torch.bfloat16):
-                args = split_case(torch, w, dtype, seed=700 + w)
+                args = split_case(torch, w, dtype, seed=700 + w, d=d, ps=ps)
                 kw = {}
                 if mode is not None:
                     args, kw = quantize_case(torch, args, mode)
@@ -426,24 +467,25 @@ def paged_split_checks(torch, pa):
                     lse, ref_lse, **(TOL_F32 if f32 else TOL_BF16_LSE))
                 check(torch.isfinite(out.float()).all().item(),
                       "non-finite out")
-                n, h, _, d = args[0].shape
-                splits, pps = pa.plan_splits(n, h, w, args[3].shape[1],
-                                             PAGE, sms)
+                n, h = args[0].shape[:2]
+                splits, pps = pa.plan_splits(n, h, w, args[3].shape[1], ps,
+                                             sms, d)
                 err_o = (out.float() - ref.float()).abs().max().item()
                 err_l = (lse - ref_lse).abs().max().item()
-                print(f"  paged split cases W={w} {mode or 'float'} pages q "
-                      f"{str(dtype)[6:]}: {splits} splits of {pps} pages; "
+                print(f"  paged split cases D={d} ps={ps} W={w} "
+                      f"{mode or 'float'} pages q {str(dtype)[6:]}: "
+                      f"{splits} splits of {pps} pages; "
                       f"max|out-ref| {err_o:.3e}  max|lse-ref| {err_l:.3e}"
                       "  ok")
 
 
-def split_plan_line(pa, n, h, w, pmax):
+def split_plan_line(pa, n, h, w, pmax, d, ps=PAGE):
     """The kernel's split count and the blocks one call launches."""
     import torch
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    splits, pps = pa.plan_splits(n, h, w, pmax, PAGE, sms)
-    blocks = n * h * -(-w // pa.query_tile(w)) * splits
+    splits, pps = pa.plan_splits(n, h, w, pmax, ps, sms, d)
+    blocks = n * h * -(-w // pa.query_tile(w, d)) * splits
     return (f"{splits} splits of {pps} pages, {blocks} blocks on {sms} "
             "SMs")
 
@@ -454,27 +496,46 @@ def kernel_phase(torch, pa):
     (a decode step) and W=5 (a k=4 verify window). Returns the records
     of the float, int8 and fp8 kernels (float at W=1, the quantized
     ones at W=5, as their main paths run them)."""
+    paged_checks(torch, pa)
+    paged_split_checks(torch, pa)
+    arms = (("bf16", 1), ("int8", 1), ("fp8", 1), ("bf16", 5), ("int8", 5),
+            ("fp8", 5))
+    timed = decode_shape_times(torch, pa, 16, 128, arms)
+    records = []
+    for pages, w in (("bf16", 1), ("int8", 5), ("fp8", 5)):
+        name = "paged_attention" + ("" if pages == "bf16" else "_" + pages)
+        records.append({"name": name, **timed[pages, w]})
+    return records
+
+
+def decode_shape_times(torch, pa, h, d, arms, ps=PAGE, pmax=None,
+                       steps=None, pads=None):
+    """The paged kernel at a serving model's decode shape (8 slots x ``h``
+    heads of ``d``, bf16 q; by default 40 pages of 16 per slot: max_len
+    640, each slot 16 tokens into decode after a prompt from PROMPT_LENS
+    in its bucket), for each ``(pages, w)`` of ``arms`` (pages "bf16",
+    "int8" or "fp8"): bf16 out against the plain version at
+    TOL_BF16_OUT_DECODE and the same inputs in float32 at TOL_F32, then
+    its time beside the plain version's, SDPA over the gathered view
+    (1-byte pages dequantized beforehand) and the bound. Returns
+    ``{(pages, w): record}`` without names."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.kernels.paged_kv import gather_pages, gather_scales
 
-    paged_checks(torch, pa)
-    paged_split_checks(torch, pa)
-    # the engine's decode shape: 8 slots x 16 heads, D=128, bf16 q, 40
-    # pages of 16 per slot (max_len 640), each slot 16 tokens into decode
-    # after a prompt from PROMPT_LENS in its bucket
-    n, h, d, pmax = SLOTS, 16, 128, MAX_LEN // PAGE
-    buckets = [min(b for b in BUCKETS if b >= p) for p in PROMPT_LENS[:n]]
-    steps = [b + 16 for b in buckets]
-    pads = [b - p for b, p in zip(buckets, PROMPT_LENS[:n])]
+    n = SLOTS if steps is None else len(steps)
+    if pmax is None:
+        pmax = MAX_LEN // ps
+        buckets = [min(b for b in BUCKETS if b >= p) for p in PROMPT_LENS[:n]]
+        steps = [b + 16 for b in buckets]
+        pads = [b - p for b, p in zip(buckets, PROMPT_LENS[:n])]
     records = {}
-    lp = pmax * PAGE
-    for pages, w in (("bf16", 1), ("int8", 1), ("fp8", 1), ("bf16", 5),
-                     ("int8", 5), ("fp8", 5)):
+    lp = pmax * ps
+    for pages, w in arms:
         quant = pages != "bf16"
         cases = []
         for i in range(4):              # 4 x 21-42 MB of pools > the L2
-            args = paged_case(n, h, w, d, PAGE, pmax, torch.bfloat16,
+            args = paged_case(n, h, w, d, ps, pmax, torch.bfloat16,
                               seed=i, steps=steps, pads=pads)
             cases.append(quantize_case(torch, args, pages) if quant
                          else (args, {}))
@@ -482,7 +543,7 @@ def kernel_phase(torch, pa):
         out, _ = pa.fused_paged_attention(*args, **kw)
         ref, _ = pa.paged_attention_reference(*args, **kw)
         # the same inputs before their rounding to bf16, in float32
-        args32 = paged_case(n, h, w, d, PAGE, pmax, torch.float32, seed=0,
+        args32 = paged_case(n, h, w, d, ps, pmax, torch.float32, seed=0,
                             steps=steps, pads=pads)
         kw32 = {}
         if quant:
@@ -525,10 +586,10 @@ def kernel_phase(torch, pa):
 
         library_ms = time_ms(library, 200)
         nbytes, flops = paged_work(*args[3:], w=w, h=h, d=d, el=2,
-                                   page_el=1 if quant else 2)
+                                   page_el=1 if quant else 2, ps=ps)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
         bound_ms = max(t_bytes, t_ops) * 1e3
-        print(f"  decode shape N={n} H={h} W={w} D={d} ps={PAGE} Pmax={pmax} "
+        print(f"  decode shape N={n} H={h} W={w} D={d} ps={ps} Pmax={pmax} "
               f"{pages} pages, bf16 q, steps {steps}, pads {pads}: bf16 "
               f"max|out-ref| {max_err:.3e} (atol "
               f"{TOL_BF16_OUT_DECODE['atol']}), float32 max|out/lse-ref| "
@@ -536,18 +597,87 @@ def kernel_phase(torch, pa):
               f"plain {plain_ms:.5f} ms, SDPA over the "
               f"{'pre-dequantized ' if quant else ''}gathered view "
               f"{library_ms:.5f} ms, bound {bound_ms:.5f} ms ({nbytes} "
-              f"bytes, {flops} flops); {split_plan_line(pa, n, h, w, pmax)}")
-        name = "paged_attention" + ("_" + pages if quant else "")
-        if w == (5 if quant else 1):
-            records[name] = {
-                "name": name, "route": "cuda",
-                "source": "paddle_tpu_torch/kernels/csrc/paged_attention.cu",
-                "replaces": "paddle_tpu/kernels/paged_attention.py:120",
-                "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms,
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": library_ms}
-    return list(records.values())
+              f"bytes, {flops} flops); "
+              f"{split_plan_line(pa, n, h, w, pmax, d, ps)}")
+        records[pages, w] = {
+            "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/paged_attention.cu",
+            "replaces": "paddle_tpu/kernels/paged_attention.py:120",
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms}
+    return records
+
+
+def paged_head_dim_checks(torch, pa):
+    """The paged kernel at head dims that are not 64 or 128 (gpt3-2.7b's
+    80, gpt-test's 16) and page sizes that are not multiples of 8, the
+    pools at the model's D: `paged_checks`' rows (ragged steps, left
+    pads, a fully masked row, a parked row) at D 80 and 16, ps 16, 4 and
+    3, W 1 and 5, float pages (f32, bf16) and int8 pages (q f32, bf16);
+    `paged_split_checks`' rows at D=80 for each page size (float and
+    int8 pages); the tail read at D=80, bf16 and int8 pages. Then its
+    time at gpt3-2.7b's decode shape (N=8, H=32, D=80, ps=16, Pmax=40):
+    W=1 on bf16 and int8 pages, W=5 on int8; and at gpt-test's heads on
+    4-column pages (N=8, H=4, D=16, ps=4, Pmax=16, bf16). Returns the
+    bf16 W=1 and the int8 W=5 arms (the two pools phase 12 serves)."""
+    cases = [(d, ps, w, dtype, mode) for d in (80, 16) for ps in (16, 4, 3)
+             for w in (1, 5) for mode in (None, "int8")
+             for dtype in (torch.float32, torch.bfloat16)]
+    for d, ps, w, dtype, mode in cases:
+        args = paged_case(6, 8, w, d, ps, 8 * 16 // ps, dtype,
+                          seed=900 + d + ps + w)
+        kw = {}
+        if mode is not None:
+            args, kw = quantize_case(torch, args, mode)
+        out, lse = pa.fused_paged_attention(*args, **kw)
+        ref, ref_lse = pa.paged_attention_reference(*args, **kw)
+        torch.cuda.synchronize()
+        f32 = dtype == torch.float32
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   **(TOL_F32 if f32 else TOL_BF16_OUT))
+        torch.testing.assert_close(lse, ref_lse,
+                                   **(TOL_F32 if f32 else TOL_BF16_LSE))
+        check(torch.isfinite(out.float()).all().item(), "non-finite out")
+        print(f"  paged_attention {mode or 'float'} pages D={d} ps={ps} q "
+              f"{str(dtype)[6:]} W={w}: max|out-ref| "
+              f"{(out.float() - ref.float()).abs().max().item():.3e}  "
+              f"max|lse-ref| {(lse - ref_lse).abs().max().item():.3e}  ok")
+    for ps in (16, 4, 3):
+        paged_split_checks(torch, pa, d=80, ps=ps, modes=(None, "int8"))
+    n, h, d, pg = 8, 32, 80, 8
+    for pages in ("bf16", "int8"):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, pk, pv, bt = tail_case(torch, n, h, d, pg, dtype, seed=5)
+            kw = {}
+            if pages == "int8":
+                (_, pk, pv, _, _, _), kw = quantize_case(
+                    torch, (None, pk, pv, None, None, None), pages)
+            out, lse = pa.paged_tail_segment(q, pk, pv, bt, 100, d, **kw)
+            ref, ref_lse = pa.paged_tail_segment(
+                q.cpu(), pk.cpu(), pv.cpu(), bt.cpu(), 100, d,
+                **{k: v.cpu() for k, v in kw.items()})
+            f32 = dtype == torch.float32
+            torch.testing.assert_close(out.float().cpu(), ref.float(),
+                                       **(TOL_F32 if f32
+                                          else TOL_BF16_OUT_TAIL))
+            torch.testing.assert_close(lse.cpu(), ref_lse,
+                                       **(TOL_F32 if f32 else TOL_BF16_LSE))
+            print(f"  paged_tail_segment N={n} H={h} D={d} Pg={pg} {pages} "
+                  f"pages q {str(dtype)[6:]}, gen column 100: max|out-ref| "
+                  f"{(out.float().cpu() - ref.float()).abs().max().item():.3e}"
+                  "  ok")
+    timed = decode_shape_times(torch, pa, 32, 80, (("bf16", 1), ("int8", 1),
+                                                   ("int8", 5)))
+    # gpt-test's heads (4 of 16) on 4-column pages: max_len 64, every
+    # slot a few tokens past a prompt of up to 40 (a toy shape: the
+    # launch sets it)
+    decode_shape_times(torch, pa, 4, 16, (("bf16", 1),), ps=4, pmax=16,
+                       steps=[44, 30, 51, 23, 40, 60, 35, 47],
+                       pads=[3, 0, 10, 5, 0, 17, 2, 8])
+    return [{"name": "paged_attention_d80", **timed["bf16", 1]},
+            {"name": "paged_attention_int8_d80", **timed["int8", 5]}]
 
 
 def tail_case(torch, n, h, d, pg, dtype, seed):
@@ -657,7 +787,7 @@ def tail_kernel_phase(torch, pa):
                   f"SDPA over the {'pre-dequantized ' if quant else ''}"
                   f"gathered tail {library_ms:.5f} ms, bound {bound_ms:.5f} "
                   f"ms ({nbytes} bytes, {flops} flops); "
-                  f"{split_plan_line(pa, n, h, 1, pg)}")
+                  f"{split_plan_line(pa, n, h, 1, pg, d)}")
             if not quant:
                 record = {
                     "name": "paged_tail_segment", "route": "cuda",
@@ -934,12 +1064,13 @@ def general_case(b, s_q, s_k, h, d, dtype, seed):
             for sh in shapes]
 
 
-def key_padding(torch, b, s, seed):
-    """BERT's batch mask: per-row lengths in [384, 512) from ``seed``
-    (`benchmarks/exp_flash_mask_dropout.py:113-114`), as the bool
-    ``[B, 1, 1, S]`` key-padding mask and the lengths."""
+def key_padding(torch, b, s, seed, min_len=BERT_MIN_LEN):
+    """A padded batch's mask: per-row lengths in [min_len, s) from
+    ``seed`` (BERT's [384, 512): `benchmarks/exp_flash_mask_dropout.py:
+    113-114`), as the bool ``[B, 1, 1, S]`` key-padding mask and the
+    lengths."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    lens = torch.randint(BERT_MIN_LEN, s, (b,), generator=g, device="cuda")
+    lens = torch.randint(min_len, s, (b,), generator=g, device="cuda")
     mask = torch.arange(s, device="cuda")[None, :] < lens[:, None]
     return mask[:, None, None, :], lens
 
@@ -1175,6 +1306,177 @@ def general_flash_phase(torch):
             "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
             "library_ms": library[key]})
     return records
+
+
+def wide_flash_phase(torch):
+    """B2 and B4 at head dims above 128 (the kernels sliced over D).
+    B2's kernels against their plain versions (`general_compare`: f32 at
+    TOL_F32, bf16 at BF16_ULPS_O ulps beside a float32 control) at D 192,
+    256 and 384, f32 and bf16, at phase 3's edge shapes: (e) Sq=128
+    Sk=384 causal, dropout 0.1; (f) S=200 key padding, dropout 0.1; (h)
+    Sq=256 Sk=320 with a full [B,Sq,Sk] bias; (i) S=200 with a fully
+    masked row. B4 at D=256 against its plain versions under a random
+    lse cotangent (`b4_compare`), causal and full, f32 and bf16. Then
+    times at Gemma-2B's attention shape (GEMMA_ATTN: B4 S1024 H8 D256
+    bf16), causal at p=0 and key-padded (lengths in [768, 1024)) at
+    p=0.1 as phase 13 trains, forward and backward, beside the plain
+    versions, SDPA (timed only) and the bound; and B4 at B1 S2048 H8
+    D256. Returns the forward's and backward's records at the key-padded
+    shape."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    seed_t = torch.tensor([FLASH_SEED], dtype=torch.int32, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(11)
+    mask_f = torch.arange(200, device="cuda")[None, :] < torch.tensor(
+        [[130], [187]], device="cuda")
+    bias_h = torch.randn((2, 256, 320), generator=g, device="cuda") * 2
+    mask_i = torch.ones((2, 1, 200, 200), dtype=torch.bool, device="cuda")
+    mask_i[1, 0, 7] = False                       # query row 7 sees nothing
+    edges = {"e": ((2, 128, 384, 2), True, None, 0.1),
+             "f": ((2, 200, 200, 2), False,
+                   fa.normalize_mask_bias(mask_f[:, None, None, :]), 0.1),
+             "h": ((2, 256, 320, 2), False, bias_h, 0.0),
+             "i": ((2, 200, 200, 2), False, fa.normalize_mask_bias(mask_i),
+                   0.0)}
+    for d in (192, 256, 384):
+        for dtype in (torch.float32, torch.bfloat16):
+            for name, (shape, causal, bias, p) in edges.items():
+                q, k, v, do = general_case(*shape, d, dtype,
+                                           seed=ord(name) + d)
+                _, _, line = general_compare(torch, fa, q, k, v, do, causal,
+                                             bias, p, seed_t)
+                print(f"  flash_attention ({name}) B,Sq,Sk,H={shape} D={d} "
+                      f"{str(dtype)[6:]} {'causal' if causal else 'full'} "
+                      f"bias {None if bias is None else tuple(bias.shape)} "
+                      f"p={p}: {line}  ok")
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (True, False):
+            q, k, v, do = general_case(1, 1024, 1024, 2, 256, dtype,
+                                       seed=140 + int(causal))
+            dlse = torch.randn((1, 2, 1024), generator=g, device="cuda")
+            _, _, line = b4_compare(torch, fa, q, k, v, do, dlse, causal)
+            print(f"  flash_attention_with_lse B=1 S=1024 H=2 D=256 "
+                  f"{str(dtype)[6:]} {'causal' if causal else 'full'}, "
+                  f"random dlse: {line}  ok")
+
+    b, s, h, d = GEMMA_ATTN
+    bf = torch.bfloat16
+    it = iter(range(10 ** 9))
+    copies = [general_case(b, s, s, h, d, bf, seed=150 + i) for i in range(3)]
+    heads = [[x.transpose(1, 2).detach().requires_grad_(True)
+              for x in t[:3]] + [t[3].transpose(1, 2)] for t in copies]
+    mask, lens = key_padding(torch, b, s, 2, GEMMA_MIN_LEN)
+    bias = fa.normalize_mask_bias(mask)
+    arms = {"causal": (True, {}, None, b * s * (s + 1) // 2, b * s, 0),
+            "key padding": (False, dict(bias=bias, dropout_p=0.1,
+                                        seed=seed_t), bias[:, None].to(bf),
+                            s * int(lens.sum()), int(lens.sum()), b * s * 4)}
+    out = {}
+    for label, (causal, kw, lib_mask, pairs, k_rows, bias_bytes) in \
+            arms.items():
+        saved = [fa.flash_attention_fwd(*t[:3], causal, **kw) for t in copies]
+
+        def fwd():
+            fa.flash_attention_fwd(*copies[next(it) % 3][:3], causal, **kw)
+
+        def bwd():
+            i = next(it) % 3
+            fa.flash_attention_bwd(*copies[i][:3], *saved[i], copies[i][3],
+                                   causal, **kw)
+
+        def lib(backward):
+            def run():
+                q, k, v, do = heads[next(it) % 3]
+                o = F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=lib_mask, is_causal=causal,
+                    dropout_p=kw.get("dropout_p", 0.0))
+                if backward:
+                    o.backward(do)
+            return run
+
+        q, k, v, do = copies[0]
+        ro, rlse = fa.flash_reference(q, k, v, causal, **kw)
+        grads = fa.flash_attention_bwd(q, k, v, ro, rlse, do, causal, **kw)
+        rgrads = fa.flash_bwd_reference(q, k, v, ro, rlse, do, causal, **kw)
+        torch.cuda.synchronize()
+        errs = ((saved[0][0].float() - ro.float()).abs().max().item(),
+                max((a.float() - r.float()).abs().max().item()
+                    for a, r in zip(grads, rgrads)))
+        ulps = [flash_ulps(x, r, d)[0] for x, r in zip(
+            (saved[0][0], *grads), (ro, *rgrads))]
+        check(max(ulps) <= BF16_ULPS_O, f"Gemma-2B's attention, {label}: "
+              f"o, dq, dk, dv {ulps} ulps over the limit of {BF16_ULPS_O}")
+        del ro, grads, rgrads
+        ms = (time_ms(fwd, 5, 1), time_ms(bwd, 3, 1))
+        plain = (time_ms(lambda: fa.flash_reference(q, k, v, causal, **kw),
+                         2, 1),
+                 time_ms(lambda: fa.flash_bwd_reference(
+                     q, k, v, *saved[0], do, causal, **kw), 2, 1))
+        lib_f, lib_fb = time_ms(lib(False), 10), time_ms(lib(True), 5)
+        library = (lib_f, lib_fb - lib_f)
+        work = general_work(b, s, s, h, d, pairs, k_rows, 2, bias_bytes)
+        for j, (nbytes, flops) in enumerate(work):
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+            bound = (max(t_bytes, t_ops) * 1e3,
+                     "bytes" if t_bytes >= t_ops else "operations")
+            print(f"  flash_attention {('fwd', 'bwd')[j]} at Gemma-2B's "
+                  f"attention B={b} S={s} H={h} D={d} bf16 {label}"
+                  f"{' p=0.1' if kw else ''}: kernel {ms[j]:.4f} ms, plain "
+                  f"{plain[j]:.4f} ms, SDPA {library[j]:.4f} ms, bound "
+                  f"{bound[0]:.5f} ms ({bound[1]}; {nbytes} bytes, {flops} "
+                  f"flops); max|{('o', 'd(q,k,v)')[j]}-plain| {errs[j]:.3e}, "
+                  f"o, dq, dk, dv {[round(u, 3) for u in ulps]} ulps")
+            out[label, j] = {
+                "route": "cuda",
+                "source": "paddle_tpu_torch/kernels/csrc/flash_attention.cu",
+                "max_abs_err": errs[j], "ms": ms[j], "plain_ms": plain[j],
+                "bound_ms": bound[0], "bound_by": bound[1],
+                "library_ms": library[j]}
+    del copies, heads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # B4 at D=256: one full pair of a ring over 8 heads of 256
+    copies = [general_case(1, 2048, 2048, 8, 256, bf, seed=160 + i)
+              for i in range(3)]
+    dlses = [torch.randn((1, 8, 2048), device="cuda") for _ in copies]
+    saved = [fa.flash_attention_lse_fwd(*t[:3], False) for t in copies]
+    q, k, v, do = copies[0]
+
+    def lse_bwd():
+        i = next(it) % 3
+        fa.flash_attention_lse_bwd(*copies[i][:3], *saved[i], copies[i][3],
+                                   dlses[i], False)
+
+    ms = (time_ms(lambda: fa.flash_attention_lse_fwd(
+              *copies[next(it) % 3][:3], False), 5, 1),
+          time_ms(lse_bwd, 3, 1))
+    plain = (time_ms(lambda: fa.flash_reference(q, k, v, False), 2, 1),
+             time_ms(lambda: fa.flash_bwd_reference(
+                 q, k, v, *saved[0], do, False, dlse=dlses[0]), 2, 1))
+    hq, hk, hv = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    lib_f = time_ms(lambda: F.scaled_dot_product_attention(hq, hk, hv), 10)
+    lib_fb = time_ms(lambda: F.scaled_dot_product_attention(
+        hq, hk, hv).backward(do.transpose(1, 2)), 5)
+    work = general_work(1, 2048, 2048, 8, 256, 2048 * 2048, 2048, 2, 0)
+    work = (work[0], (work[1][0] + 8 * 2048 * 4, work[1][1]))
+    for j, (nbytes, flops) in enumerate(work):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+        print(f"  flash_attention_lse_{('fwd', 'bwd')[j]} at B=1 S=2048 H=8 "
+              f"D=256 bf16 full: kernel {ms[j]:.4f} ms, plain {plain[j]:.4f} "
+              f"ms, SDPA {(lib_f, lib_fb - lib_f)[j]:.4f} ms (no lse "
+              f"cotangent), bound {max(t_bytes, t_ops) * 1e3:.5f} ms "
+              f"({'bytes' if t_bytes >= t_ops else 'operations'}; {nbytes} "
+              f"bytes, {flops} flops)")
+    return [{"name": "flash_attention_fwd_d256",
+             "replaces": "paddle_tpu/kernels/flash_attention.py:207",
+             **out["key padding", 0]},
+            {"name": "flash_attention_bwd_d256",
+             "replaces": "paddle_tpu/kernels/flash_attention.py:536",
+             **out["key padding", 1]}]
 
 
 # ------------------------------------------------- which-major qkv3 (B5)
@@ -1594,12 +1896,13 @@ def serve_traffic(torch, eng, prompts, sampled=()):
     return outs, s, wall, counts
 
 
-def teacher_check(torch, model, prompts, outs, state=None):
+def teacher_check(torch, model, prompts, outs, state=None, tie=TEACHER_GAP):
     """One full-sequence forward per request, with plain attention, of a
     float32 copy of the served weights (or of ``state``) on prompt +
     output: at every generated position the emitted token must be the
-    reference's argmax, or trail its top logit by less than TEACHER_GAP
-    (a bf16 near-tie)."""
+    reference's argmax, or trail its top logit by less than ``tie`` (a
+    bf16 near-tie; TEACHER_GAP unless a phase measured its model's
+    own, `bf16_tie_gap`)."""
     ref = float32_copy(torch, model, state)
     worst, near = 0.0, 0
     with torch.inference_mode():
@@ -1615,11 +1918,45 @@ def teacher_check(torch, model, prompts, outs, state=None):
             near += int((top != got).sum())
             worst = max(worst, gap.max().item())
     del ref
-    check(worst < TEACHER_GAP,
+    check(worst < tie,
           f"an emitted token trails the reference's top logit by {worst}")
     print(f"  teacher-forced check ok (float32 reference): {near} of "
           f"{sum(map(len, outs))} tokens differ from its argmax, all within "
-          f"{worst:.4f} < {TEACHER_GAP} of its top logit")
+          f"{worst:.4f} < {tie:.4f} of its top logit")
+
+
+def bf16_tie_gap(torch, model, prompts, outs, mode=None):
+    """The near-tie allowance of a teacher check for ``model``'s own bf16
+    numerics: max(TEACHER_GAP, 2e), e the largest |logit| error of the
+    bf16 model against its float32 copy, both teacher-forced through the
+    same computation with plain attention and no paged kernel on prompt +
+    output of every request (``mode``: K/V through that page dtype's
+    round trip, `quant_teacher_logits`): two logits each off by at most
+    e can swap where they lie within 2e. TEACHER_GAP is that reading for
+    gpt3-1.3b; a deeper, wider model rounds more."""
+    ref = float32_copy(torch, model)
+    err = 0.0
+    with torch.inference_mode():
+        for p, o in zip(prompts, outs):
+            logits = []
+            for m in (model, ref):
+                if mode is None:
+                    seq = torch.tensor([p + o[:-1]], device=ref.device)
+                    hidden = m.gpt.prefill(seq, m.gen_static_cache(
+                        1, seq.shape[1]))
+                    logits.append(m._logits(hidden[0, len(p) - 1:]).float())
+                else:
+                    logits.append(quant_teacher_logits(
+                        torch, m, p, o, getattr(torch, QUANT_DTYPES[mode])
+                    ).float())
+            err = max(err, (logits[0] - logits[1]).abs().max().item())
+    del ref
+    gap = max(TEACHER_GAP, 2 * err)
+    print(f"  the bf16 model's own logit error against its float32 copy "
+          f"(plain attention, {mode or 'no'} pages' round trip): {err:.4f} "
+          f"at most; near-tie allowance max({TEACHER_GAP}, 2 x {err:.4f}) "
+          f"= {gap:.4f}")
+    return gap
 
 
 def profile_decode(torch, eng, prompts, steps=8):
@@ -2080,7 +2417,7 @@ def quant_teacher_logits(torch, ref, prompt, out, dtype):
 
     def round_trip(x):
         q, sc = quantize_tokens(x, dtype)
-        return q.float() * sc[..., None]
+        return (q.float() * sc[..., None]).to(x.dtype)
 
     gpt, dev = ref.gpt, ref.device
     n_p, n_o = len(prompt), len(out)
@@ -2105,13 +2442,13 @@ def quant_teacher_logits(torch, ref, prompt, out, dtype):
     return torch.cat([first, ref._logits(gpt.ln_f(x)[0])])
 
 
-def quant_teacher(torch, model, prompts, runs, mode):
+def quant_teacher(torch, model, prompts, runs, mode, tie=TEACHER_GAP):
     """Holds every greedy request of ``runs`` (``[(label, outs,
     greedy request indices)]``) against `quant_teacher_logits` of a
     float32 copy of ``model``: each emitted token is the teacher's argmax
-    or trails its top logit by less than TEACHER_GAP. Returns the
-    teacher's logits of each request of the first run, for the spec
-    against no-spec comparison."""
+    or trails its top logit by less than ``tie`` (as `teacher_check`).
+    Returns the teacher's logits of each request of the first run, for
+    the spec against no-spec comparison."""
     from paddle_tpu_torch.models.gpt import GPTForPretraining
 
     ref = GPTForPretraining(model.config, dtype="float32")
@@ -2133,12 +2470,12 @@ def quant_teacher(torch, model, prompts, runs, mode):
                 near += int((top != got).sum())
                 worst = max(worst, gap.max().item())
                 n += len(outs[i])
-            check(worst < TEACHER_GAP, f"{label}: an emitted token trails "
+            check(worst < tie, f"{label}: an emitted token trails "
                   f"the quantized teacher's top logit by {worst}")
             print(f"  {label}: teacher-forced check ok (float32, K/V through "
                   f"the {mode} round trip; the first token against plain "
                   f"K/V): {near} of {n} greedy tokens differ from its argmax,"
-                  f" all within {worst:.4f} < {TEACHER_GAP} of its top logit")
+                  f" all within {worst:.4f} < {tie:.4f} of its top logit")
     del ref
     return first_logits
 
@@ -2915,6 +3252,304 @@ def one_rank_phase(torch):
         dist.destroy_process_group()
 
 
+# ------------------------------------------ gpt3-2.7b serving (head dim 80)
+def serve_27b_phase(torch, seed):
+    """Phase 12: gpt3-2.7b (32 layers, hidden 2560, 32 heads of 80) at
+    full width and depth, bf16, random weights from ``seed``: the paged
+    kernel at a head dim other than 64 and 128. (a) Phase 4's Engine and
+    traffic, on bf16 pages, then on int8 pages with spec_k=4 (W=5 verify
+    windows): the paged kernel of the pool launches exactly decode (or
+    verify) steps x layers times and no other kernel; every request
+    completes and every page returns; greedy tokens agree with a
+    float32 teacher (int8: through the pages' round trip) but at a
+    near-tie of this model's own bf16 rounding (`bf16_tie_gap`, measured
+    on the same sequences without the paged kernel). (b) `generate()` beam search K=4, paged (the default), at
+    b2 x prompt 128 + 32: the tail read launches exactly (32 - 1) x
+    layers times, each a bf16 paged launch, nothing else; the gather
+    oracle beside it launches nothing; paged against gather in float32
+    at + 16, identical or parting at a log-prob gap < BEAM_GAP. Returns
+    the launch counts of the bf16 and int8 runs, under the names of
+    their D=80 records."""
+    from paddle_tpu_torch.models.gpt import GPTForPretraining, gpt_config
+    from paddle_tpu_torch.serving import Engine
+
+    cfg = gpt_config(MODEL_27B)
+    layers = cfg.num_hidden_layers
+    t = time.perf_counter()
+    model = GPTForPretraining(cfg, dtype="bfloat16", seed=seed)
+    torch.cuda.synchronize()
+    print(f"  {MODEL_27B}: h={cfg.hidden_size} layers={layers} heads="
+          f"{cfg.num_attention_heads} d={cfg.head_dim} bf16, random weights "
+          f"from seed {seed} ({time.perf_counter() - t:.1f} s)")
+    kw = dict(slots=SLOTS, page_size=PAGE, max_len=MAX_LEN,
+              prefill_buckets=BUCKETS)
+    prompts = phase_prompts(torch, cfg, seed)
+    launches = {}
+    for label, mode, k in (("(a) bf16 pages", None, 0),
+                           ("(a) int8 pages, spec_k=4", "int8", SPEC_K)):
+        warm = Engine(model, kv_quant=mode, spec_k=k, **kw)
+        warm.submit(list(range(1, 30)), max_new_tokens=8).result()
+        del warm
+        outs, s, wall, counts = serve_traffic(
+            torch, Engine(model, kv_quant=mode, spec_k=k, **kw), prompts)
+        name = "paged_attention" + ("_" + mode if mode else "")
+        want = s.decode_steps * layers
+        check(counts[name] == want, f"{label}: {name} launched "
+              f"{counts[name]} times, decode steps x layers = {want}")
+        check(all(v == 0 for n, v in counts.items() if n != name),
+              f"{label}: another kernel launched: {counts}")
+        launches[name + "_d80"] = counts[name]
+        print(f"  {label}: {len(prompts)} requests in {wall:.3f} s, "
+              f"{s.prefill_steps} prefills, {s.decode_steps} decode steps, "
+              f"{s.tokens_generated} tokens; TTFT p50 "
+              f"{s.ttft_p50 * 1e3:.3f} ms, decode {s.decode_step_p50 * 1e3:.3f}"
+              f" ms/step (p50), {s.tokens_generated / wall:.1f} tokens/s; "
+              f"pool {s.kv_pool_bytes} bytes; launches {counts}: {name} = "
+              "decode steps x layers")
+        tie = bf16_tie_gap(torch, model, prompts, outs, mode)
+        if mode is None:
+            teacher_check(torch, model, prompts, outs, tie=tie)
+        else:
+            quant_teacher(torch, model, prompts,
+                          [(label, outs, range(len(prompts)))], mode, tie)
+        profile_decode(torch, Engine(model, kv_quant=mode, spec_k=k, **kw),
+                       prompts)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    ids = gen_prompts(torch, cfg, seed, BEAM_B, BEAM_PROMPT)
+    pf_ms = prefill_ms(torch, model, ids)
+    beam = dict(max_new_tokens=BEAM_NEW, decode_strategy="beam_search",
+                num_beams=GEN_BEAMS)
+    tail = (BEAM_NEW - 1) * layers
+    for label, kv, want in (
+            ("(b) beam, paged", "paged",
+             {"paged_tail_segment": tail, "paged_attention": tail}),
+            ("(b) beam, gather", "gather", {})):
+        out, wall, counts = timed_generate(torch, model, ids, beam_kv=kv,
+                                           **beam)
+        only_launched(counts, want, label)
+        check(out.shape == (BEAM_B, BEAM_NEW), f"{label}: output shape")
+        dec = (wall * 1e3 - pf_ms) / (BEAM_NEW - 1)
+        print(f"  {label} K={GEN_BEAMS} b{BEAM_B} x {BEAM_PROMPT} + "
+              f"{BEAM_NEW}: prefill {pf_ms:.3f} ms, decode {dec:.3f} "
+              f"ms/step, {BEAM_B * BEAM_NEW / wall:.1f} tokens/s of best "
+              f"beams ({wall:.3f} s); launches {counts}")
+        profile_generate(
+            torch, model, ids, label,
+            lambda m, kv=kv: model.generate(ids, beam_kv=kv, **{
+                **beam, "max_new_tokens": m}), dec)
+    ref = float32_copy(torch, model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    ab = dict(max_new_tokens=GEN_AB_NEW, decode_strategy="beam_search",
+              num_beams=GEN_BEAMS)
+    a = ref.generate(ids, beam_kv="paged", **ab)
+    b = ref.generate(ids, beam_kv="gather", **ab)
+    gaps = parting_gap(torch, ref, ids, a, b)
+    check(all(g < BEAM_GAP for _, _, g in gaps),
+          f"paged and gather beams part at a log-prob gap >= {BEAM_GAP}: "
+          f"{gaps}")
+    print(f"  (b) paged against gather in float32 (TF32 off), b{BEAM_B} x "
+          f"{BEAM_PROMPT} + {GEN_AB_NEW}, K={GEN_BEAMS}: "
+          f"{BEAM_B - len(gaps)} of {BEAM_B} rows identical; parted (row, "
+          f"column, log-prob gap < {BEAM_GAP}): {gaps}")
+    del ref, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ------------------------------------- attention at Gemma-2B's widths (B2)
+def gemma_stack(torch, dtype, seed):
+    """GEMMA_LAYERS of the port's `TransformerEncoderLayer` at Gemma-2B's
+    widths (post-LN, GELU, dropout 0.1 everywhere), weights from
+    ``seed``, on the card."""
+    from paddle_tpu_torch.nn import TransformerEncoderLayer, init_weights
+
+    class Stack(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.layers = torch.nn.ModuleList([
+                TransformerEncoderLayer(GEMMA_WIDTH, GEMMA_HEADS, GEMMA_FFN,
+                                        dropout=0.1, activation="gelu",
+                                        device="cuda",
+                                        dtype=dtype)
+                for _ in range(GEMMA_LAYERS)])
+
+        def forward(self, x, mask):
+            for layer in self.layers:
+                x = layer(x, mask)
+            return x
+
+    stack = Stack()
+    with torch.no_grad():
+        init_weights(stack, seed, 0.02)
+    return stack
+
+
+def gemma_loss_fn(model, state, batch):
+    """Mean squared error of the stack's output against the batch's
+    target, in float32."""
+    from torch.func import functional_call
+
+    out = functional_call(model, state, (batch["x"], batch["mask"]))
+    return (out.float() - batch["target"]).square().mean()
+
+
+def gemma_batch(torch, g, dtype):
+    """One b4 x s1024 batch: inputs of unit scale in ``dtype``, a float32
+    target, and the bool [B, 1, 1, S] key-padding mask of lengths in
+    [768, 1024)."""
+    lens = torch.randint(GEMMA_MIN_LEN, GEMMA_S, (GEMMA_B,), generator=g,
+                         device="cuda")
+    mask = torch.arange(GEMMA_S, device="cuda")[None] < lens[:, None]
+    shape = (GEMMA_B, GEMMA_S, GEMMA_WIDTH)
+    return {"x": torch.randn(shape, generator=g, device="cuda").to(dtype),
+            "target": torch.randn(shape, generator=g, device="cuda"),
+            "mask": mask[:, None, None, :]}
+
+
+def gemma_phase(torch, seed, card):
+    """Phase 13: a stack of GEMMA_LAYERS `TransformerEncoderLayer` at
+    Gemma-2B's attention widths (d_model 2048, 8 heads of 256, MLP
+    16384) trains through `SpmdTrainStep` with AdamW (bf16 params and
+    moments, lr 1e-4, wd 0.01) on b4 x s1024 batches with a key-padding
+    mask and dropout 0.1: every layer's attention runs B2 at D=256 (the
+    kernels sliced over D). First, on two sequences at dropout 0, the
+    bf16 loss and grads against a float32 copy whose attention is
+    composed (phase 6's tolerances); then one warm-up step and
+    TRAIN_STEPS timed steps with the launch counts zeroed just before
+    them: B2's forward and backward launch exactly steps x layers times
+    each, no other kernel, every loss finite. Prints step ms p50,
+    tokens/s, peak memory and B2's device ms a step from a profile.
+    Returns B2's launch counts under the names of its D=256 records."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.distributed import SpmdTrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = gemma_stack(torch, torch.bfloat16, seed)
+    step = SpmdTrainStep(model, gemma_loss_fn,
+                         AdamW(learning_rate=TRAIN_LR, weight_decay=TRAIN_WD))
+    params, opt_state = step.init(slot_dtype="bfloat16")
+    n_params = sum(p.numel() for p in params.values())
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    batches = [gemma_batch(torch, g, torch.bfloat16)
+               for _ in range(TRAIN_STEPS + 2)]
+    print(f"  {GEMMA_LAYERS} x TransformerEncoderLayer(d_model={GEMMA_WIDTH},"
+          f" nhead={GEMMA_HEADS}, dim_feedforward={GEMMA_FFN}): head dim "
+          f"{GEMMA_WIDTH // GEMMA_HEADS}, {n_params} parameters, bf16 params "
+          f"and AdamW moments; b{GEMMA_B} x s{GEMMA_S}, key padding with "
+          f"lengths in [{GEMMA_MIN_LEN}, {GEMMA_S}), dropout 0.1, MSE loss "
+          "against a random target")
+    gemma_reference_check(torch, step, params, batches[0], seed)
+
+    model.train()
+    loss, params, opt_state = step(params, opt_state, batches[0], 0)
+    kernels.reset_kernel_launch_counts()
+    times, losses = [], [loss.item()]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(1, TRAIN_STEPS + 1):
+        ts = time.perf_counter()
+        loss, params, opt_state = step(params, opt_state, batches[i], i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - ts)
+        losses.append(loss.item())
+    wall = time.perf_counter() - t0
+    counts = kernels.kernel_launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = TRAIN_STEPS * GEMMA_LAYERS
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    only_launched(counts, {"flash_attention_fwd": want,
+                           "flash_attention_bwd": want},
+                  "Gemma-2B widths training")
+    p50 = sorted(times)[len(times) // 2] * 1e3
+    print(f"  losses {[round(x, 5) for x in losses]} (all finite); launches "
+          f"{counts}: B2 fwd = bwd = steps x layers = {want}")
+    print(f"  {card}: {GEMMA_B * GEMMA_S * TRAIN_STEPS / wall:.1f} tokens/s "
+          f"(padding included), step {p50:.3f} ms p50 (steps "
+          f"{[round(t * 1e3, 3) for t in times]} ms), peak memory "
+          f"{peak / 2 ** 30:.3f} GiB (max_memory_allocated)")
+    it = iter(range(100))
+
+    def one():
+        nonlocal params, opt_state
+        i = next(it) % len(batches)
+        _, params, opt_state = step(params, opt_state, batches[i], 100 + i)
+
+    profile_steps(torch, one, 2, "training steps at Gemma-2B's widths", {
+        "B2 at D=256 (forward, dk/dv and dq passes, delta pre-pass)": (
+            "::fwd_wide_tc_kernel(", "::dkdv_wide_tc_kernel(",
+            "::dq_wide_tc_kernel(", "flash_delta_kernel<"),
+        "of which the backward (dk/dv and dq passes)": (
+            "::dkdv_wide_tc_kernel(", "::dq_wide_tc_kernel(")})
+    del model, step, params, opt_state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flash_attention_fwd_d256": counts["flash_attention_fwd"],
+            "flash_attention_bwd_d256": counts["flash_attention_bwd"]}
+
+
+def gemma_reference_check(torch, step, params, batch, seed):
+    """On the batch's first two sequences at dropout 0 (eval mode), the
+    bf16 stack's loss and grads (attention in B2's kernels at D=256)
+    against a float32 copy of the same weights whose attention composes
+    (``use_flash=False``): loss within REF_LOSS_RTOL, cosine at least
+    REF_GRAD_COS for layer 0's and the last layer's q_proj, v_proj and
+    linear1 weight grads."""
+    from paddle_tpu_torch.distributed import SpmdTrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+
+    two = {k: v[:2] for k, v in batch.items()}
+    last = GEMMA_LAYERS - 1
+    held = [f"layers.{i}.{m}.weight" for i, m in [(0, "self_attn.q_proj")]
+            + [(i, m) for i in (0, last)
+               for m in ("self_attn.v_proj", "linear1")]]
+    shown = f"layers.{last}.self_attn.q_proj.weight"
+    step.model.eval()
+    loss, grads = step.loss_and_grads(params, two, 0)
+    got = {n: grads[n].float() for n in held + [shown]}
+    del grads
+    with plain_kernels(torch):
+        ctrl = step.loss_and_grads(params, two, 0)[1][shown].float()
+    ref = gemma_stack(torch, torch.float32, seed)
+    for layer in ref.layers:
+        layer.self_attn.use_flash = False
+    ref.eval()
+    ref_params = dict(ref.named_parameters())
+    with torch.no_grad():
+        for n, p in ref_params.items():
+            p.copy_(params[n])
+    ref_step = SpmdTrainStep(ref, gemma_loss_fn, AdamW())
+    ref_loss, ref_grads = ref_step.loss_and_grads(
+        ref_params, {**two, "x": two["x"].float()}, 0)
+    cos = {n.split(".", 1)[1]: torch.nn.functional.cosine_similarity(
+        got[n].flatten(), ref_grads[n].float().flatten(), dim=0).item()
+        for n in held + [shown]}
+    shown_cos = cos.pop(shown.split(".", 1)[1])
+    ctrl_cos = torch.nn.functional.cosine_similarity(
+        ctrl.flatten(), ref_grads[shown].float().flatten(), dim=0).item()
+    rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+    del ref, ref_params, ref_step, ref_grads, got, ctrl
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(rel <= REF_LOSS_RTOL, f"bf16 loss {loss.item()} vs float32 "
+          f"{ref_loss.item()}: relative difference {rel}")
+    check(min(cos.values()) >= REF_GRAD_COS, f"grad cosine {cos}")
+    print(f"  float32 reference (composed attention, 2 sequences, dropout "
+          f"0): loss {loss.item():.6f} vs {ref_loss.item():.6f} (rel "
+          f"{rel:.2e} <= {REF_LOSS_RTOL}); grad cosine "
+          + ", ".join(f"{k} {c:.5f}" for k, c in cos.items())
+          + f" (>= {REF_GRAD_COS})  ok; {shown.split('.', 1)[1]} "
+          f"{shown_cos:.5f} (not held; the plain versions' control "
+          f"{ctrl_cos:.5f})")
+
+
 def print_build_report(name, report):
     """One source's build seconds, then for each kernel ptxas's register,
     shared-memory and spill lines, joined on one line."""
@@ -2972,8 +3607,9 @@ def main(argv=None) -> int:
 
     print("[3] kernel phase")
     records = [*kernel_phase(torch, pa), tail_kernel_phase(torch, pa),
+               *paged_head_dim_checks(torch, pa),
                *flash_kernel_phase(torch), *general_flash_phase(torch),
-               *qkv3_kernel_phase(torch)]
+               *wide_flash_phase(torch), *qkv3_kernel_phase(torch)]
     ln_records, launches = fused_ln_phase(torch)
     records += ln_records
     print("[4] engine phase")
@@ -2998,6 +3634,12 @@ def main(argv=None) -> int:
     records += b4_kernel_phase(torch)
     launches.update(ring_loop_phase(torch))
     one_rank_phase(torch)
+    print("[12] gpt3-2.7b serving phase (head dim 80: Engine on bf16 and "
+          "int8 pages, the paged beam)")
+    launches.update(serve_27b_phase(torch, args.seed))
+    print("[13] attention at Gemma-2B's widths (B2 at head dim 256, "
+          "training)")
+    launches.update(gemma_phase(torch, args.seed, card))
     for rec in records:
         rec["launches"] = launches[rec["name"]]
 

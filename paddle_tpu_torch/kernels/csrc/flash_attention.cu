@@ -24,8 +24,10 @@
 // What they compute, as the TPU kernels do:
 // - q [B,Sq,H,D], k and v [B,Sk,H,D], read through strides (row stride
 //   H*D, head stride D; no [B*H,S,D] transpose), or the projection
-//   above. D is 64 or 128 (the caller zero-pads a smaller D); any Sq,
-//   Sk >= 1.
+//   above. D is 64, 128 or a multiple of 64 above 128 (the caller
+//   zero-pads any other D up to the next of these, which changes neither
+//   scores nor outputs; the reference pads to a multiple of 128); any
+//   Sq, Sk >= 1.
 // - s = (q.k) * scale in f32 (scale = 1/sqrt(real D), passed in); the
 //   additive f32 bias [Bm,Sqm,Sk] is ADDED (Bm in {1,B}, Sqm in {1,Sq}:
 //   batch index b when Bm == B else 0, row q when Sqm == Sq else 0; a
@@ -101,7 +103,17 @@
 // f32 runs on FMAs (the tensor cores have no exact f32 mode) and serves
 // the agreement checks: one block per (b, h, 64-query tile) with an online
 // softmax over 64-key tiles; the backward a delta pre-pass, a dk/dv pass
-// and a dq pass, both recomputing P from lse.
+// and a dq pass, both recomputing P from lse. Heads above 128 run
+// kernels sliced over D (below): f32 on the same FMA tiles
+// (`fwd_wide_kernel`, `dkdv_wide_kernel`, `dq_wide_kernel`), bf16 on
+// mma.sync (`fwd_wide_tc_kernel`, `dkdv_wide_tc_kernel`,
+// `dq_wide_tc_kernel`), in the f32 kernels' three-pass shape: at D=256
+// one 128-key bf16 K tile alone is 64 KB, so the wgmma forward's K/V ring
+// and its 64 x 256 f32 O accumulator (128 registers a thread) do not
+// fit. They are the first right kernels for such heads, not fast ones
+// (at Gemma-2B's B4 S1024 H8 D256 causal the forward needs 17.2 GFLOP,
+// 0.0174 ms at 989 TFLOP/s; the scores are recomputed once per 128-wide
+// output slice).
 //
 // Bound on the H100, at BERT-large's training shape (B8 S512 H16 D64,
 // bf16, a [B,1,1,S] key-padding mask with lengths in [384, 512), counting
@@ -483,6 +495,667 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Params p) {
     if (r >= p.Sq) continue;
 #pragma unroll
     for (int j = 0; j < TD; ++j) dqb[r * p.ldq + tx + 16 * j] = dq[i][j];
+  }
+}
+
+// ------------------------------------------------- D > 128: D sliced
+// Heads wider than 128 (D a multiple of 64; the wrapper zero-pads a head
+// dim between to the next one, `kernel_head_dim`), with D cut two ways:
+// every product over D (the scores Q.K^T, and dO.V^T) runs over
+// 128-column chunks streamed through shared memory, and each block owns
+// one 128-column slice of its output (o; dk and dv; dq), a grid axis.
+// Blocks of the same tile recompute the scores, once per slice, and all
+// draw the same dropout ids: the ids depend on (bh, query block, key
+// block) only. Chunks of the f32 backward run in the order that leaves
+// the block's own slice of Q and dO (dk/dv pass) or of K (dq pass) in
+// shared memory for its output's product. f32 runs the f32 kernels' 64 x
+// 64 FMA tiles so; bf16 runs mma.sync (below). At D=256 one 128-key bf16
+// K tile alone is 64 KB, so the wgmma forward's K/V ring and its 64 x 256
+// f32 O accumulator (128 registers a thread) do not fit: these are the
+// first right kernels for such heads, the scores recomputed D/128 times.
+constexpr int kWS = 128;              // a chunk and an output slice
+constexpr int kLW = kWS + 1;          // padded row stride of a chunk tile
+
+// A [64, 128] f32 tile (rows `ld` elements apart in global memory) into
+// shared memory with row stride 129, 16 bytes a load; columns at or past
+// `ncols` (a multiple of 4) and rows at or past `nvalid` are zeros.
+__device__ __forceinline__ void load_chunk(float* dst, const float* src,
+                                           int64_t ld, int nvalid,
+                                           int ncols) {
+  constexpr int kPerRow = kWS / 4;
+  for (int i = threadIdx.x; i < kTile * kPerRow; i += kThreads) {
+    const int r = i / kPerRow, c = (i % kPerRow) * 4;
+    const float4 v = r < nvalid && c < ncols
+                         ? *reinterpret_cast<const float4*>(src + r * ld + c)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+    float* d = dst + r * kLW + c;
+    d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
+  }
+}
+
+// The output slice of a block: grid.x = slices x tiles, slice slowest.
+struct Slice {
+  int tile, d0, dn;                   // tile index; columns [d0, d0 + dn)
+};
+__device__ __forceinline__ Slice slice_of(int tiles, int D) {
+  const int s = blockIdx.x / tiles;
+  return {(int)blockIdx.x % tiles, s * kWS, min(kWS, D - s * kWS)};
+}
+
+__global__ void __launch_bounds__(kThreads)
+fwd_wide_kernel(const Params p, int D) {
+  constexpr int TD = kWS / 16;
+  extern __shared__ float smem[];
+  float* Qs = smem;                   // a 128-column chunk of Q
+  float* Ks = Qs + kTile * kLW;       // the same chunk of K
+  float* Vs = Ks + kTile * kLW;       // this block's slice of V
+  float* Ps = Vs + kTile * kLW;
+
+  const Head g = head(p, D);
+  const int nq = (p.Sq + kTile - 1) / kTile;
+  const Slice sl = slice_of(nq, D);
+  const int q0 = (nq - 1 - sl.tile) * kTile;   // longest rows first
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const float* qb = static_cast<const float*>(p.q) + g.q;
+  const float* kb = static_cast<const float*>(p.k) + g.k;
+  const float* vb = static_cast<const float*>(p.v) + g.v;
+  const Keep kc = keep_consts(p);
+
+  float m[kTM], l[kTM], acc[kTM][TD];
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    m[i] = kMasked;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < TD; ++j) acc[i][j] = 0.f;
+  }
+
+  const int nk = key_tiles(p, q0);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * kTile;
+    float s[kTM][4];
+#pragma unroll
+    for (int i = 0; i < kTM; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    for (int c0 = 0; c0 < D; c0 += kWS) {
+      __syncthreads();  // the previous chunks (and P, V) are consumed
+      load_chunk(Qs, qb + q0 * p.ldq + c0, p.ldq, p.Sq - q0, D - c0);
+      load_chunk(Ks, kb + k0 * p.ldk + c0, p.ldk, p.Sk - k0, D - c0);
+      __syncthreads();
+      tile_product<4, kWS, kLW, 1, 1, kLW>(s, Qs, Ks, ty, tx);
+    }
+    load_chunk(Vs, vb + k0 * p.ldk + sl.d0, p.ldk, p.Sk - k0, sl.dn);
+    const Drop dr = tile_drop(p, kc, g.b, g.h, q0, k0);
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) {
+      const int r = ty + 16 * i;
+      float mx = kMasked;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = score(s[i][j], p, g.b, q0 + r, k0 + tx + 16 * j);
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], row_max(mx));
+      const float alpha = expf(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        float pv = expf(s[i][j] - m_new);
+        sum += pv;
+        if (p.use_drop) pv = dr.kept(q0 + r, k0 + c) ? pv * kc.inv : 0.f;
+        Ps[r * kLS + c] = pv;
+      }
+      l[i] = l[i] * alpha + row_sum(sum);
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < TD; ++j) acc[i][j] *= alpha;
+    }
+    __syncthreads();
+    tile_product<TD, kTile, kLS, 1, kLW, 1>(acc, Ps, Vs, ty, tx);
+  }
+
+  float* out = static_cast<float*>(p.out) + g.o + sl.d0;
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    const int r = q0 + ty + 16 * i;
+    if (r >= p.Sq) continue;
+    const float lc = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < TD; ++j)
+      if (tx + 16 * j < sl.dn) out[r * g.ldo + tx + 16 * j] = acc[i][j] / lc;
+    if (tx == 0 && sl.d0 == 0)
+      p.lse_out[(int64_t)g.bh * p.Sq + r] = m[i] + logf(lc);
+  }
+}
+
+// The scores S = Q.K^T and dP = dO.V^T of a (64-query, 64-key) pair over
+// all of D, chunk by chunk, the chunk at `last` (a multiple of 128) last,
+// so that it stays in Qs, dOs, Ks and Vs.
+__device__ __forceinline__ void wide_scores(
+    float (&s)[kTM][4], float (&dp)[kTM][4], float* Qs, float* dOs,
+    float* Ks, float* Vs, const Params& p, const Head& g, int D, int q0,
+    int k0, int last, int ty, int tx) {
+  const float* qb = static_cast<const float*>(p.q) + g.q + q0 * p.ldq;
+  const float* dob = static_cast<const float*>(p.dout) + g.o + q0 * g.ldo;
+  const float* kb = static_cast<const float*>(p.k) + g.k + k0 * p.ldk;
+  const float* vb = static_cast<const float*>(p.v) + g.v + k0 * p.ldk;
+#pragma unroll
+  for (int i = 0; i < kTM; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+  const int ns = (D + kWS - 1) / kWS;
+  for (int t = 1; t <= ns; ++t) {
+    const int c0 = (last + t * kWS) % (ns * kWS);
+    __syncthreads();  // the previous chunks (and P, dS) are consumed
+    load_chunk(Qs, qb + c0, p.ldq, p.Sq - q0, D - c0);
+    load_chunk(dOs, dob + c0, g.ldo, p.Sq - q0, D - c0);
+    load_chunk(Ks, kb + c0, p.ldk, p.Sk - k0, D - c0);
+    load_chunk(Vs, vb + c0, p.ldk, p.Sk - k0, D - c0);
+    __syncthreads();
+    tile_product<4, kWS, kLW, 1, 1, kLW>(s, Qs, Ks, ty, tx);
+    tile_product<4, kWS, kLW, 1, 1, kLW>(dp, dOs, Vs, ty, tx);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+dkdv_wide_kernel(const Params p, int D) {
+  constexpr int TD = kWS / 16;
+  extern __shared__ float smem[];
+  float* Qs = smem;
+  float* dOs = Qs + kTile * kLW;
+  float* Ks = dOs + kTile * kLW;
+  float* Vs = Ks + kTile * kLW;
+  float* Ps = Vs + kTile * kLW;
+  float* dSs = Ps + kTile * kLS;
+
+  const Head g = head(p, D);
+  const Slice sl = slice_of((p.Sk + kTile - 1) / kTile, D);
+  const int k0 = sl.tile * kTile;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const Keep kc = keep_consts(p);
+
+  float dk[kTM][TD], dv[kTM][TD];
+#pragma unroll
+  for (int i = 0; i < kTM; ++i)
+#pragma unroll
+    for (int j = 0; j < TD; ++j) dk[i][j] = dv[i][j] = 0.f;
+
+  for (int q0 = first_query(p, k0) / kTile * kTile; q0 < p.Sq; q0 += kTile) {
+    float s[kTM][4], dp[kTM][4], lse_r[kTM], delta_r[kTM];
+#pragma unroll
+    for (int i = 0; i < kTM; ++i)
+      row_stats(p, g, q0 + ty + 16 * i, lse_r[i], delta_r[i]);
+    wide_scores(s, dp, Qs, dOs, Ks, Vs, p, g, D, q0, k0, sl.d0, ty, tx);
+    probs_and_dscores(s, dp, lse_r, delta_r, Ps, dSs, p, g, q0, k0, kc, ty,
+                      tx);
+    __syncthreads();
+    // this slice: dV += (P keep)^T dO, dK += dS^T Q
+    tile_product<TD, kTile, 1, kLS, kLW, 1>(dv, Ps, dOs, ty, tx);
+    tile_product<TD, kTile, 1, kLS, kLW, 1>(dk, dSs, Qs, ty, tx);
+  }
+
+  float* dkb = static_cast<float*>(p.dk) + g.k + sl.d0;
+  float* dvb = static_cast<float*>(p.dv) + g.v + sl.d0;
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    const int r = k0 + ty + 16 * i;
+    if (r >= p.Sk) continue;
+#pragma unroll
+    for (int j = 0; j < TD; ++j) {
+      const int c = tx + 16 * j;
+      if (c >= sl.dn) continue;
+      dkb[r * p.ldk + c] = dk[i][j];
+      dvb[r * p.ldk + c] = dv[i][j];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+dq_wide_kernel(const Params p, int D) {
+  constexpr int TD = kWS / 16;
+  extern __shared__ float smem[];
+  float* Qs = smem;
+  float* dOs = Qs + kTile * kLW;
+  float* Ks = dOs + kTile * kLW;
+  float* Vs = Ks + kTile * kLW;
+  float* dSs = Vs + kTile * kLW;
+
+  const Head g = head(p, D);
+  const int nq = (p.Sq + kTile - 1) / kTile;
+  const Slice sl = slice_of(nq, D);
+  const int q0 = (nq - 1 - sl.tile) * kTile;   // longest rows first
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const Keep kc = keep_consts(p);
+
+  float dq[kTM][TD], lse_r[kTM], delta_r[kTM];
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    row_stats(p, g, q0 + ty + 16 * i, lse_r[i], delta_r[i]);
+#pragma unroll
+    for (int j = 0; j < TD; ++j) dq[i][j] = 0.f;
+  }
+
+  const int nk = key_tiles(p, q0);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * kTile;
+    float s[kTM][4], dp[kTM][4];
+    wide_scores(s, dp, Qs, dOs, Ks, Vs, p, g, D, q0, k0, sl.d0, ty, tx);
+    probs_and_dscores(s, dp, lse_r, delta_r, nullptr, dSs, p, g, q0, k0, kc,
+                      ty, tx);
+    __syncthreads();
+    // this slice: dQ += dS K
+    tile_product<TD, kTile, kLS, 1, kLW, 1>(dq, dSs, Ks, ty, tx);
+  }
+
+  float* dqb = static_cast<float*>(p.dq) + g.q + sl.d0;
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    const int r = q0 + ty + 16 * i;
+    if (r >= p.Sq) continue;
+#pragma unroll
+    for (int j = 0; j < TD; ++j)
+      if (tx + 16 * j < sl.dn) dqb[r * p.ldq + tx + 16 * j] = dq[i][j];
+  }
+}
+
+// bf16 above 128: the same slicing on the tensor cores (mma.sync
+// m16n8k16, f32 accumulate). Each of 4 warps owns 16 rows of its block's
+// 64-row tile (query rows in the forward and the dq pass, key rows in the
+// dk/dv pass); operands come from bf16 tiles in shared memory whose
+// contraction dimension is contiguous, rows padded by 8 elements so the 8
+// rows x 4 words of a fragment load hit 32 distinct banks; an operand
+// needed with its other dimension contiguous (V for P.V, Q and dO for
+// dK and dV, K for dQ) is copied transposed. The f32 results of one
+// product become the bf16 A operand of the next in registers, which
+// rounds p*keep and ds to bf16 as the reference does.
+constexpr int kTC = 128;              // 4 warps x 16 rows
+constexpr int kCP = kWS + 8;          // padded row of a [rows][128] chunk
+constexpr int kBQ = 32;               // query rows a step of the dk/dv pass
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+// A fragment (16 x 16) of a tile stored [m][k] with row stride ld.
+__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* t, int ld,
+                                       int m0, int k0, int gi, int qi) {
+  const bf16* p = t + (m0 + gi) * ld + k0 + 2 * qi;
+  a[0] = ld32(p);
+  a[1] = ld32(p + 8 * ld);
+  a[2] = ld32(p + 8);
+  a[3] = ld32(p + 8 * ld + 8);
+}
+// B fragment (k 16 x n 8) of a tile stored [n][k] with row stride ld.
+__device__ __forceinline__ void frag_b(uint32_t (&b)[2], const bf16* t, int ld,
+                                       int n0, int k0, int gi, int qi) {
+  const bf16* p = t + (n0 + gi) * ld + k0 + 2 * qi;
+  b[0] = ld32(p);
+  b[1] = ld32(p + 8);
+}
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+// ROWS x 128 of src (rows `ld` apart) into shared [ROWS][kCP], 16 bytes a
+// load; rows at or past `nvalid` and columns at or past `ncols` (a
+// multiple of 8) are zeros.
+template <int ROWS>
+__device__ __forceinline__ void copy_chunk(bf16* dst, const bf16* src,
+                                           int64_t ld, int nvalid,
+                                           int ncols) {
+  for (int i = threadIdx.x; i < ROWS * (kWS / 8); i += kTC) {
+    const int r = i / (kWS / 8), c = (i % (kWS / 8)) * 8;
+    *reinterpret_cast<uint4*>(dst + r * kCP + c) =
+        r < nvalid && c < ncols
+            ? *reinterpret_cast<const uint4*>(src + r * ld + c)
+            : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+// The same transposed into shared [128][ROWS + 8]; a warp takes 32 rows
+// of one 8-column piece, so its stores land on consecutive halves.
+template <int ROWS>
+__device__ __forceinline__ void copy_chunk_t(bf16* dst, const bf16* src,
+                                             int64_t ld, int nvalid,
+                                             int ncols) {
+  for (int i = threadIdx.x; i < ROWS * (kWS / 8); i += kTC) {
+    const int r = i % ROWS, c = (i / ROWS) * 8;
+    const uint4 v = r < nvalid && c < ncols
+                        ? *reinterpret_cast<const uint4*>(src + r * ld + c)
+                        : make_uint4(0u, 0u, 0u, 0u);
+    const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) dst[(c + j) * (ROWS + 8) + r] = e[j];
+  }
+}
+// acc[n] += A . B^T over one 128-column chunk: A the warp's 16 rows at
+// m0 of a [rows][kCP] tile, B the N x 8 rows of another.
+template <int N>
+__device__ __forceinline__ void chunk_product(float (&acc)[N][4],
+                                              const bf16* A, const bf16* B,
+                                              int m0, int gi, int qi) {
+#pragma unroll
+  for (int kk = 0; kk < kWS / 16; ++kk) {
+    uint32_t a[4];
+    frag_a(a, A, kCP, m0, kk * 16, gi, qi);
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      uint32_t b[2];
+      frag_b(b, B, kCP, n * 8, kk * 16, gi, qi);
+      mma(acc[n], a, b);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kTC) fwd_wide_tc_kernel(const Params p,
+                                                          int D) {
+  constexpr int NO = kWS / 8;            // 8-column n-tiles of the slice
+  constexpr int LT = kTile + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);      // [64][kCP] chunk
+  bf16* Ks = Qs + kTile * kCP;                        // [64][kCP] chunk
+  bf16* Vt = Ks + kTile * kCP;                        // [128][LT] slice
+
+  const Head g = head(p, D);
+  const int nq = (p.Sq + kTile - 1) / kTile;
+  const Slice sl = slice_of(nq, D);
+  const int q0 = (nq - 1 - sl.tile) * kTile;   // longest rows first
+  const int lane = threadIdx.x & 31, gi = lane >> 2, qi = lane & 3;
+  const int r0 = (threadIdx.x >> 5) * 16;
+  const int row = q0 + r0 + gi;                 // this thread's rows: row,
+  const bf16* qb = static_cast<const bf16*>(p.q) + g.q;   // row + 8
+  const bf16* kb = static_cast<const bf16*>(p.k) + g.k;
+  const bf16* vb = static_cast<const bf16*>(p.v) + g.v;
+  const Keep kc = keep_consts(p);
+
+  float o[NO][4], m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+
+  const int nk = key_tiles(p, q0);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * kTile;
+    float s[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    for (int c0 = 0; c0 < D; c0 += kWS) {
+      __syncthreads();  // the previous chunks (and V) are consumed
+      copy_chunk<kTile>(Qs, qb + q0 * p.ldq + c0, p.ldq, p.Sq - q0, D - c0);
+      copy_chunk<kTile>(Ks, kb + k0 * p.ldk + c0, p.ldk, p.Sk - k0, D - c0);
+      __syncthreads();
+      chunk_product(s, Qs, Ks, r0, gi, qi);
+    }
+    copy_chunk_t<kTile>(Vt, vb + k0 * p.ldk + sl.d0, p.ldk, p.Sk - k0,
+                        sl.dn);
+    float mx[2] = {kMasked, kMasked};
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = score(s[n][e], p, g.b, row + 8 * (e >> 1),
+                        k0 + n * 8 + 2 * qi + (e & 1));
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+      }
+    float alpha[2], m_new[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m_new[h] = fmaxf(m[h], quad_max(mx[h]));
+      alpha[h] = expf(m[h] - m_new[h]);
+    }
+    const Drop dr = tile_drop(p, kc, g.b, g.h, q0, k0);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float pv = expf(s[n][e] - m_new[e >> 1]);
+        sum[e >> 1] += pv;
+        if (p.use_drop)
+          pv = dr.kept(row + 8 * (e >> 1), k0 + n * 8 + 2 * qi + (e & 1))
+                   ? pv * kc.inv
+                   : 0.f;
+        s[n][e] = pv;
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] = l[h] * alpha[h] + quad_sum(sum[h]);
+      m[h] = m_new[h];
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+    __syncthreads();  // V's slice is in place
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      uint32_t pa[4];
+      as_a(pa, s, kk);
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        uint32_t b[2];
+        frag_b(b, Vt, LT, n * 8, kk * 16, gi, qi);
+        mma(o[n], pa, b);
+      }
+    }
+  }
+
+  bf16* out = static_cast<bf16*>(p.out) + g.o + sl.d0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row + 8 * h;
+    if (r >= p.Sq) continue;
+    const float lc = fmaxf(l[h], 1e-30f);
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      if (n * 8 < sl.dn)
+        *reinterpret_cast<uint32_t*>(out + r * g.ldo + n * 8 + 2 * qi) =
+            pack_bf16(o[n][2 * h] / lc, o[n][2 * h + 1] / lc);
+    if (qi == 0 && sl.d0 == 0)
+      p.lse_out[(int64_t)g.bh * p.Sq + r] = m[h] + logf(lc);
+  }
+}
+
+__global__ void __launch_bounds__(kTC) dkdv_wide_tc_kernel(const Params p,
+                                                           int D) {
+  constexpr int NO = kWS / 8, NQ = kBQ / 8, LQ = kBQ + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);      // [64][kCP] chunk
+  bf16* Vs = Ks + kTile * kCP;                        // [64][kCP] chunk
+  bf16* Qs = Vs + kTile * kCP;                        // [kBQ][kCP] chunk
+  bf16* dOs = Qs + kBQ * kCP;                         // [kBQ][kCP] chunk
+  bf16* Qt = dOs + kBQ * kCP;                         // [128][LQ] slice
+  bf16* dOt = Qt + kWS * LQ;                          // [128][LQ] slice
+  float* lse_s = reinterpret_cast<float*>(dOt + kWS * LQ);
+  float* delta_s = lse_s + kBQ;
+
+  const Head g = head(p, D);
+  const Slice sl = slice_of((p.Sk + kTile - 1) / kTile, D);
+  const int k0 = sl.tile * kTile;
+  const int lane = threadIdx.x & 31, gi = lane >> 2, qi = lane & 3;
+  const int r0 = (threadIdx.x >> 5) * 16;
+  const int key = k0 + r0 + gi;                 // this thread's keys: key,
+  const bf16* qb = static_cast<const bf16*>(p.q) + g.q;   // key + 8
+  const bf16* dob = static_cast<const bf16*>(p.dout) + g.o;
+  const bf16* kb = static_cast<const bf16*>(p.k) + g.k + k0 * p.ldk;
+  const bf16* vb = static_cast<const bf16*>(p.v) + g.v + k0 * p.ldk;
+  const Keep kc = keep_consts(p);
+
+  float dk[NO][4], dv[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  for (int q0 = first_query(p, k0) / kBQ * kBQ; q0 < p.Sq; q0 += kBQ) {
+    // S^T = K Q^T and dP^T = V dO^T: rows are keys, columns queries
+    float st[NQ][4], dpt[NQ][4];
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+    for (int c0 = 0; c0 < D; c0 += kWS) {
+      __syncthreads();  // the previous chunks and slices are consumed
+      copy_chunk<kTile>(Ks, kb + c0, p.ldk, p.Sk - k0, D - c0);
+      copy_chunk<kTile>(Vs, vb + c0, p.ldk, p.Sk - k0, D - c0);
+      copy_chunk<kBQ>(Qs, qb + q0 * p.ldq + c0, p.ldq, p.Sq - q0, D - c0);
+      copy_chunk<kBQ>(dOs, dob + q0 * g.ldo + c0, g.ldo, p.Sq - q0,
+                      D - c0);
+      if (c0 == sl.d0) {
+        copy_chunk_t<kBQ>(Qt, qb + q0 * p.ldq + c0, p.ldq, p.Sq - q0,
+                          sl.dn);
+        copy_chunk_t<kBQ>(dOt, dob + q0 * g.ldo + c0, g.ldo, p.Sq - q0,
+                          sl.dn);
+      }
+      if (c0 == 0 && threadIdx.x < kBQ) {
+        float lse, delta;
+        row_stats(p, g, q0 + threadIdx.x, lse, delta);
+        lse_s[threadIdx.x] = lse;
+        delta_s[threadIdx.x] = delta;
+      }
+      __syncthreads();
+      chunk_product(st, Ks, Qs, r0, gi, qi);
+      chunk_product(dpt, Vs, dOs, r0, gi, qi);
+    }
+    const Drop dr = tile_drop(p, kc, g.b, g.h, q0, k0);
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kc_ = key + 8 * (e >> 1);
+        const int ql = n * 8 + 2 * qi + (e & 1), q = q0 + ql;
+        const float pr = expf(score(st[n][e], p, g.b, q, kc_) - lse_s[ql]);
+        const float ks =
+            !p.use_drop ? 1.f : dr.kept(q, kc_) ? kc.inv : 0.f;
+        st[n][e] = pr * ks;                                          // P*keep
+        dpt[n][e] = pr * (dpt[n][e] * ks - delta_s[ql]) * p.scale;   // dS
+      }
+    // this slice: dV += (P*keep)^T dO, dK += dS^T Q (over the queries)
+#pragma unroll
+    for (int kk = 0; kk < kBQ / 16; ++kk) {
+      uint32_t pa[4], da[4];
+      as_a(pa, st, kk);
+      as_a(da, dpt, kk);
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        uint32_t b[2];
+        frag_b(b, dOt, LQ, n * 8, kk * 16, gi, qi);
+        mma(dv[n], pa, b);
+        frag_b(b, Qt, LQ, n * 8, kk * 16, gi, qi);
+        mma(dk[n], da, b);
+      }
+    }
+  }
+
+  bf16* dkb = static_cast<bf16*>(p.dk) + g.k + sl.d0;
+  bf16* dvb = static_cast<bf16*>(p.dv) + g.v + sl.d0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = key + 8 * h;
+    if (r >= p.Sk) continue;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      if (n * 8 >= sl.dn) continue;
+      *reinterpret_cast<uint32_t*>(dkb + r * p.ldk + n * 8 + 2 * qi) =
+          pack_bf16(dk[n][2 * h], dk[n][2 * h + 1]);
+      *reinterpret_cast<uint32_t*>(dvb + r * p.ldk + n * 8 + 2 * qi) =
+          pack_bf16(dv[n][2 * h], dv[n][2 * h + 1]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kTC) dq_wide_tc_kernel(const Params p,
+                                                         int D) {
+  constexpr int NO = kWS / 8, LT = kTile + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);      // [64][kCP] chunks
+  bf16* dOs = Qs + kTile * kCP;
+  bf16* Ks = dOs + kTile * kCP;
+  bf16* Vs = Ks + kTile * kCP;
+  bf16* Kt = Vs + kTile * kCP;                        // [128][LT] slice
+
+  const Head g = head(p, D);
+  const int nq = (p.Sq + kTile - 1) / kTile;
+  const Slice sl = slice_of(nq, D);
+  const int q0 = (nq - 1 - sl.tile) * kTile;   // longest rows first
+  const int lane = threadIdx.x & 31, gi = lane >> 2, qi = lane & 3;
+  const int r0 = (threadIdx.x >> 5) * 16;
+  const int row = q0 + r0 + gi;                 // this thread's rows: row,
+  const bf16* qb = static_cast<const bf16*>(p.q) + g.q + q0 * p.ldq;
+  const bf16* dob = static_cast<const bf16*>(p.dout) + g.o + q0 * g.ldo;
+  const bf16* kb = static_cast<const bf16*>(p.k) + g.k;   // row + 8
+  const bf16* vb = static_cast<const bf16*>(p.v) + g.v;
+  const Keep kc = keep_consts(p);
+
+  float lse_r[2], delta_r[2], dq[NO][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) row_stats(p, g, row + 8 * h, lse_r[h], delta_r[h]);
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+
+  const int nk = key_tiles(p, q0);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * kTile;
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    for (int c0 = 0; c0 < D; c0 += kWS) {
+      __syncthreads();  // the previous chunks and slice are consumed
+      copy_chunk<kTile>(Qs, qb + c0, p.ldq, p.Sq - q0, D - c0);
+      copy_chunk<kTile>(dOs, dob + c0, g.ldo, p.Sq - q0, D - c0);
+      copy_chunk<kTile>(Ks, kb + k0 * p.ldk + c0, p.ldk, p.Sk - k0, D - c0);
+      copy_chunk<kTile>(Vs, vb + k0 * p.ldk + c0, p.ldk, p.Sk - k0, D - c0);
+      if (c0 == sl.d0)
+        copy_chunk_t<kTile>(Kt, kb + k0 * p.ldk + c0, p.ldk, p.Sk - k0,
+                            sl.dn);
+      __syncthreads();
+      chunk_product(s, Qs, Ks, r0, gi, qi);
+      chunk_product(dp, dOs, Vs, r0, gi, qi);
+    }
+    const Drop dr = tile_drop(p, kc, g.b, g.h, q0, k0);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = row + 8 * (e >> 1), c = k0 + n * 8 + 2 * qi + (e & 1);
+        const float pr = expf(score(s[n][e], p, g.b, r, c) - lse_r[e >> 1]);
+        const float ks = !p.use_drop ? 1.f : dr.kept(r, c) ? kc.inv : 0.f;
+        s[n][e] = pr * (dp[n][e] * ks - delta_r[e >> 1]) * p.scale;   // dS
+      }
+    // this slice: dQ += dS K (over the keys)
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      uint32_t da[4];
+      as_a(da, s, kk);
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        uint32_t b[2];
+        frag_b(b, Kt, LT, n * 8, kk * 16, gi, qi);
+        mma(dq[n], da, b);
+      }
+    }
+  }
+
+  bf16* dqb = static_cast<bf16*>(p.dq) + g.q + sl.d0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row + 8 * h;
+    if (r >= p.Sq) continue;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      if (n * 8 < sl.dn)
+        *reinterpret_cast<uint32_t*>(dqb + r * p.ldq + n * 8 + 2 * qi) =
+            pack_bf16(dq[n][2 * h], dq[n][2 * h + 1]);
   }
 }
 
@@ -1294,6 +1967,70 @@ cudaError_t launch_bwd(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// Heads above 128 (D a multiple of 64), either dtype: the sliced kernels
+// (f32 on FMAs, bf16 on mma.sync); the backward a delta pre-pass, a dk/dv
+// pass and a dq pass.
+constexpr size_t kWideFwdSmem =
+    (3 * kTile * kLW + kTile * kLS) * sizeof(float);
+constexpr size_t kWideDkdvSmem =
+    (4 * kTile * kLW + 2 * kTile * kLS) * sizeof(float);
+constexpr size_t kWideDqSmem =
+    (4 * kTile * kLW + kTile * kLS) * sizeof(float);
+
+constexpr size_t kWideTcFwdSmem =
+    (2 * kTile * kCP + kWS * (kTile + 8)) * sizeof(bf16);
+constexpr size_t kWideTcDkdvSmem =
+    (2 * kTile * kCP + 2 * kBQ * kCP + 2 * kWS * (kBQ + 8)) * sizeof(bf16) +
+    2 * kBQ * sizeof(float);
+constexpr size_t kWideTcDqSmem =
+    (4 * kTile * kCP + kWS * (kTile + 8)) * sizeof(bf16);
+
+template <typename T>
+cudaError_t launch_fwd_wide(const Params& p, int D, cudaStream_t stream) {
+  const int slices = (D + kWS - 1) / kWS;
+  const dim3 grid((p.Sq + kTile - 1) / kTile * slices, p.H, p.B);
+  cudaError_t err;
+  if constexpr (std::is_same<T, bf16>::value) {
+    auto k = fwd_wide_tc_kernel;
+    if ((err = allow_smem(k, kWideTcFwdSmem)) != cudaSuccess) return err;
+    k<<<grid, kTC, kWideTcFwdSmem, stream>>>(p, D);
+  } else {
+    auto k = fwd_wide_kernel;
+    if ((err = allow_smem(k, kWideFwdSmem)) != cudaSuccess) return err;
+    k<<<grid, kThreads, kWideFwdSmem, stream>>>(p, D);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd_wide(const Params& p, int D, cudaStream_t stream) {
+  cudaError_t err = launch_delta<T, 0>(
+      static_cast<const T*>(p.dout), static_cast<const T*>(p.o), p.delta,
+      p.B, p.Sq, p.H, stream, nullptr, p.dlse, D);
+  if (err != cudaSuccess) return err;
+  const int slices = (D + kWS - 1) / kWS;
+  const dim3 grid_k((p.Sk + kTile - 1) / kTile * slices, p.H, p.B);
+  const dim3 grid_q((p.Sq + kTile - 1) / kTile * slices, p.H, p.B);
+  if constexpr (std::is_same<T, bf16>::value) {
+    auto kv = dkdv_wide_tc_kernel;
+    auto kq = dq_wide_tc_kernel;
+    if ((err = allow_smem(kv, kWideTcDkdvSmem)) != cudaSuccess) return err;
+    if ((err = allow_smem(kq, kWideTcDqSmem)) != cudaSuccess) return err;
+    kv<<<grid_k, kTC, kWideTcDkdvSmem, stream>>>(p, D);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    kq<<<grid_q, kTC, kWideTcDqSmem, stream>>>(p, D);
+  } else {
+    auto kv = dkdv_wide_kernel;
+    auto kq = dq_wide_kernel;
+    if ((err = allow_smem(kv, kWideDkdvSmem)) != cudaSuccess) return err;
+    if ((err = allow_smem(kq, kWideDqSmem)) != cudaSuccess) return err;
+    kv<<<grid_k, kThreads, kWideDkdvSmem, stream>>>(p, D);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    kq<<<grid_q, kThreads, kWideDqSmem, stream>>>(p, D);
+  }
+  return cudaGetLastError();
+}
+
 // Fills the shape fields and checks them; false on a shape the kernels do
 // not take. The layout fields (strides, the head rule, head_ids) are set
 // before.
@@ -1311,8 +2048,9 @@ bool set_shape(Params& p, int B, int Sq, int Sk, int H, int D, int bias_b,
   const bool blocks_ok = p.head_ids || (bq > 0 && bk > 0 &&
                                         bq % kKeysW == 0 && bk % kKeysW == 0);
   const bool drop_ok = !use_drop || (p.seed != nullptr && blocks_ok);
-  return B >= 1 && H >= 1 && Sq >= 1 && Sk >= 1 && (D == 64 || D == 128) &&
-         p.group >= 1 && bias_ok && drop_ok;
+  const bool d_ok = D == 64 || D == 128 || (D > 128 && D % 64 == 0);
+  return B >= 1 && H >= 1 && Sq >= 1 && Sk >= 1 && d_ok && p.group >= 1 &&
+         bias_ok && drop_ok;
 }
 
 // The layout of separate [B, S, H, D] tensors: row stride H*D, head h at
@@ -1323,8 +2061,10 @@ void separate_heads(Params& p, int H, int D) {
   p.gstride = D;
 }
 
-// The backward's dispatch on (dtype, D); bf16 needs dq_acc.
+// The backward's dispatch on (dtype, D); bf16 at D 64 or 128 needs dq_acc.
 int launch_bwd_of(const Params& p, int D, int dtype, cudaStream_t s) {
+  if (D > 128 && dtype == 0) return (int)launch_bwd_wide<float>(p, D, s);
+  if (D > 128 && dtype == 1) return (int)launch_bwd_wide<bf16>(p, D, s);
   if (dtype == 1 && p.dq_acc == nullptr) return (int)cudaErrorInvalidValue;
   if (dtype == 0 && D == 64) return (int)launch_bwd<float, 64>(p, s);
   if (dtype == 0 && D == 128) return (int)launch_bwd<float, 128>(p, s);
@@ -1361,6 +2101,8 @@ extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
                  scale, bq, bk))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D > 128 && dtype == 0) return (int)launch_fwd_wide<float>(p, D, s);
+  if (D > 128 && dtype == 1) return (int)launch_fwd_wide<bf16>(p, D, s);
   if (dtype == 0 && D == 64) return (int)launch_fwd<float, 64>(p, s);
   if (dtype == 0 && D == 128) return (int)launch_fwd<float, 128>(p, s);
   if (dtype == 1 && D == 64) return (int)launch_fwd<bf16, 64>(p, s);
@@ -1368,12 +2110,13 @@ extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// The backward, on one stream. bf16: a pre-pass (delta, and dq_acc
-// zeroed), the one-pass kernel, a post-pass rounding dq_acc into dq. f32:
-// the delta pre-pass, a dk/dv pass and a dq pass. Scratch allocated by the
-// caller: delta f32 [B, H, Sq]; dq_acc f32 [B, Sq, H, D] (required for
-// bf16, which is refused without it; may be null for f32). dq, dk and dv
-// are written in full. dlse: null, or the f32 [B, H, Sq] cotangent of the
+// The backward, on one stream. bf16 at D 64 or 128: a pre-pass (delta,
+// and dq_acc zeroed), the one-pass kernel, a post-pass rounding dq_acc
+// into dq. f32, and either dtype above 128: the delta pre-pass, a dk/dv
+// pass and a dq pass. Scratch allocated by the caller: delta f32 [B, H,
+// Sq]; dq_acc f32 [B, Sq, H, D] (required for bf16 at D 64 or 128, which
+// is refused without it; may be null otherwise). dq, dk and dv are
+// written in full. dlse: null, or the f32 [B, H, Sq] cotangent of the
 // forward's lse (B4, `_flash_lse`'s backward), which the delta pre-pass
 // folds in; with null every pass runs as before.
 extern "C" int ptt_flash_bwd(const void* q, const void* k, const void* v,

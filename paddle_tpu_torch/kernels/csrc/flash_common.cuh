@@ -123,25 +123,28 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 // (f32 [B, H, S], the cotangent of an exposed lse: B4) the row's dlse is
 // subtracted: the kernels form ds = p * (dp - delta), and the reference's
 // dp - delta + dlse (`_packed_head_attn_bwd`) is dp - (delta - dlse).
+// D = 0: the head dim is `d_rt`, known at run time (heads above 128).
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_delta_kernel(const T* __restrict__ dout, const T* __restrict__ o,
                    float* __restrict__ delta, float* __restrict__ zero,
-                   const float* __restrict__ dlse, int B, int S, int H) {
+                   const float* __restrict__ dlse, int B, int S, int H,
+                   int d_rt) {
+  const int dd = D > 0 ? D : d_rt;
   const int64_t row =
       (int64_t)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
   if (row >= (int64_t)B * S * H) return;
   const int lane = threadIdx.x & 31;
   const int hg = (int)(row % H);
   const int64_t bs = row / H;
-  const int64_t off = bs * H * D + (int64_t)hg * D;
+  const int64_t off = bs * H * dd + (int64_t)hg * dd;
   float acc = 0.f;
 #pragma unroll
-  for (int d = lane; d < D; d += 32)
+  for (int d = lane; d < dd; d += 32)
     acc += to_f32(dout[off + d]) * to_f32(o[off + d]);
   if (zero != nullptr)
 #pragma unroll
-    for (int d = lane; d < D; d += 32) zero[off + d] = 0.f;
+    for (int d = lane; d < dd; d += 32) zero[off + d] = 0.f;
 #pragma unroll
   for (int k = 16; k > 0; k >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, k);
   if (lane == 0) {
@@ -154,12 +157,12 @@ flash_delta_kernel(const T* __restrict__ dout, const T* __restrict__ o,
 template <typename T, int D>
 cudaError_t launch_delta(const T* dout, const T* o, float* delta, int B, int S,
                          int H, cudaStream_t stream, float* zero = nullptr,
-                         const float* dlse = nullptr) {
+                         const float* dlse = nullptr, int d_rt = 0) {
   const int64_t rows = (int64_t)B * S * H;
   const int warps = kThreads / 32;
   flash_delta_kernel<T, D><<<(unsigned)((rows + warps - 1) / warps), kThreads,
                               0, stream>>>(dout, o, delta, zero, dlse, B, S,
-                                           H);
+                                           H, d_rt);
   return cudaGetLastError();
 }
 

@@ -50,16 +50,31 @@
 //   entries with them, and skips the rest: a page past the cursor or of
 //   left padding alone adds exactly nothing to a query that has a
 //   readable column. The 4 warps merge once, at the end of the split.
-// - Page loads are asynchronous: each warp streams 16-column chunks of
-//   its (page, head) slabs ([ps, D], contiguous in the pool) with 16-byte
-//   cp.async copies into its own 2-stage shared-memory ring (K, V, their
-//   scales and the chunk's valid_cols), so the next chunk is in flight
-//   while the warp computes on the current one.
-// - Scores: each lane holds D/32 of the query's and the key's
-//   coordinates; one reduce-scatter of 16 shuffles leaves every lane
-//   with the whole dot product of one of the chunk's 16 columns (two
-//   lanes a column), where 16 warp reductions would take 80. P.V
-//   broadcasts each column's weight from its lane.
+//   valid_cols is read 16 bytes a load where ps % 4 == 0 (every page's
+//   columns then start 16-byte aligned), else 4 bytes a load.
+// - Page loads are asynchronous: each warp streams chunks of C in-page
+//   columns of its (page, head) slabs ([ps, D], contiguous in the pool)
+//   with cp.async copies into its own 2-stage shared-memory ring (K, V,
+//   their scales and the chunk's valid_cols), so the next chunk is in
+//   flight while the warp computes on the current one.
+// - Any head dim up to 256 and any page size, with the pools at the
+//   model's own D (never padded or copied). The kernel is instantiated at
+//   a padded width DP (32, 64, 96, 128 or 256; the wrapper's
+//   `kernel_width`), each lane holding DP/32 coordinates; the ring's rows
+//   are DP elements apart, their columns past D zeroed once per block and
+//   never written, and the query's coordinates past D are zeros, so they
+//   add nothing to a score and are never stored. Rows are copied at the
+//   pool's real row stride in the widest pieces that divide a row's bytes
+//   (cp.async of 16, 8 or 4 bytes; byte loads otherwise). A chunk is C =
+//   16 columns (8 for f32 pages at DP 256, to fit the ring); a page of
+//   ps columns takes ceil(ps / C) chunks, the last one partial: its
+//   columns past the page get a score of -inf (not -1e30: they are not
+//   columns of the table, and must weigh 0 even in a uniform average),
+//   so p = 0 there. Where a ring byte can be read that no copy wrote
+//   (pad columns, rows past a partial chunk), the ring is zeroed once a
+//   block, so every such byte is finite and the loops test no column.
+//   valid_cols and the scales are copied 16 bytes at a time where ps %
+//   4 == 0, else 4 bytes a column.
 // - The combine stays in the same launch. Every split writes its
 //   unnormalised f32 partial (o, m, l) per query to a workspace; the last
 //   split of a (row.head, W tile) to finish, known from an atomic ticket
@@ -68,7 +83,7 @@
 //   next call. One wrapper call stays one launch.
 // - A query with no readable column: every block of the tile first scans
 //   the row's valid_cols up to the tile's first cursor (block-wide, 16
-//   bytes a load). When that query has none, every split walks all of its
+//   bytes a load where ps % 4 == 0, else 4). When that query has none, every split walks all of its
 //   pages, skipping nothing and ignoring the cursor for the walk; the
 //   masked scores then all equal -1e30, each split's partial is the plain
 //   sum of its V columns with l its column count, and the merge's weights
@@ -79,6 +94,7 @@
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -104,28 +120,82 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-// VD consecutive page elements (VD * sizeof(T) bytes, aligned to that) in
-// f32, times `scale` (1 for float pages).
+// VD consecutive ring elements in f32, times `scale` (1 for float pages):
+// one vector load where VD * sizeof(T) is a power of two up to 16 bytes
+// (the row offset is a multiple of it), else element by element.
 template <typename T, int VD>
 __device__ __forceinline__ void load_row(const T* src, float scale,
                                          float (&x)[VD]) {
-  struct alignas(VD * sizeof(T)) Vec { T e[VD]; };
-  const Vec v = *reinterpret_cast<const Vec*>(src);
+  constexpr int kBytes = VD * (int)sizeof(T);
+  if constexpr ((kBytes & (kBytes - 1)) == 0 && kBytes <= 16) {
+    struct alignas(kBytes) Vec { T e[VD]; };
+    const Vec v = *reinterpret_cast<const Vec*>(src);
 #pragma unroll
-  for (int i = 0; i < VD; ++i) x[i] = to_f32(v.e[i]) * scale;
+    for (int i = 0; i < VD; ++i) x[i] = to_f32(v.e[i]) * scale;
+  } else {
+#pragma unroll
+    for (int i = 0; i < VD; ++i) x[i] = to_f32(src[i]) * scale;
+  }
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
+  if constexpr (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+                 "l"(src), "n"(N)
+                 : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 __device__ __forceinline__ void cp_async_wait1() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Rows [0, nrows) of a K or V slab (rows of `row_bytes`, contiguous in
+// the pool) into ring rows `dst_row` bytes apart, by the warp, in
+// `unit`-byte pieces: cp.async of 16, 8 or 4 bytes, or (unit 1, rows
+// whose bytes are not a multiple of 4) plain byte copies, done before the
+// warp's next __syncwarp like the others.
+__device__ __forceinline__ void copy_rows(unsigned char* dst, int dst_row,
+                                          const unsigned char* src,
+                                          int row_bytes, int nrows, int unit,
+                                          int lane) {
+  const int per_row = row_bytes / unit, total = per_row * nrows;
+  for (int u = lane; u < total; u += 32) {
+    const int r = u / per_row, off = (u - r * per_row) * unit;
+    unsigned char* d = dst + r * dst_row + off;
+    const unsigned char* s = src + r * row_bytes + off;
+    switch (unit) {
+      case 16: cp_async<16>(d, s); break;
+      case 8: cp_async<8>(d, s); break;
+      case 4: cp_async<4>(d, s); break;
+      default: *d = *s;
+    }
+  }
+}
+
+// Does vc[c0, c1) hold a nonzero entry? 16 bytes a load with `vec` (c0 and
+// the row 16-byte aligned, c1 - c0 padded by readable memory: ps % 4 ==
+// 0), else 4.
+__device__ __forceinline__ bool any_nonzero(const int32_t* vc, int c0,
+                                            int c1, bool vec) {
+  bool any = false;
+  if (vec) {
+    for (int c = c0; c < c1; c += 4) {
+      const int4 v = __ldg(reinterpret_cast<const int4*>(vc + c));
+      any |= (v.x != 0) | ((c + 1 < c1) & (v.y != 0)) |
+             ((c + 2 < c1) & (v.z != 0)) | ((c + 3 < c1) & (v.w != 0));
+    }
+  } else {
+    for (int c = c0; c < c1; ++c) any |= __ldg(vc + c) != 0;
+  }
+  return any;
 }
 
 // v[c] holds this lane's part of column c's dot product. Afterwards v[0]
@@ -163,16 +233,17 @@ struct Params {
   float* part_o;     // [N*H*W, splits, D] unnormalised partial out
   float* part_ml;    // [N*H*W, splits, 2] partial (m, l)
   int32_t* tickets;  // [N*H*tiles], 0 between calls
-  int H, W, ps, pmax, pps;
+  int H, W, D, ps, pmax, pps;
+  int unit;          // bytes a copy of a pool row's pieces (16, 8, 4, 1)
 };
 
-// Layout of one ring stage in shared memory: K and V chunks [C][D] in the
-// page type, then (1-byte pages) their C scales each, then the chunk's C
-// valid_cols entries.
-template <typename TP, int D, int C>
+// Layout of one ring stage in shared memory: K and V chunks [C][DP] in
+// the page type, then (1-byte pages) their C scales each, then the
+// chunk's C valid_cols entries.
+template <typename TP, int DP, int C>
 struct Stage {
   static constexpr bool kQuant = sizeof(TP) == 1;
-  static constexpr int kKV = C * D * (int)sizeof(TP);
+  static constexpr int kKV = C * DP * (int)sizeof(TP);
   static constexpr int kScales = 2 * kKV;
   static constexpr int kVc = kScales + (kQuant ? 2 * C * 4 : 0);
   static constexpr int kBytes = kVc + C * 4;
@@ -183,7 +254,7 @@ struct Stage {
 // page, 32 candidates per ballot.
 struct PageWalk {
   int first, end, lim, ps, base;
-  bool all;
+  bool all, vec;
   uint32_t mask;
   int phys;                 // this lane's candidate's physical page
   const int32_t *bt, *vc;
@@ -192,17 +263,9 @@ struct PageWalk {
     const int p = first + (base + lane) * kWarps;
     bool live = p < end;
     phys = live ? __ldg(bt + p) : 0;     // in flight beside the scan
-    if (live && !all) {
-      // any readable column in [p*ps, min(p*ps + ps, lim + 1))
-      const int c0 = p * ps, c1 = min(c0 + ps, lim + 1);
-      bool any = false;
-      for (int c = c0; c < c1; c += 4) {
-        const int4 v = __ldg(reinterpret_cast<const int4*>(vc + c));
-        any |= (v.x != 0) | ((c + 1 < c1) & (v.y != 0)) |
-               ((c + 2 < c1) & (v.z != 0)) | ((c + 3 < c1) & (v.w != 0));
-      }
-      live = any;
-    }
+    // any readable column in [p*ps, min(p*ps + ps, lim + 1))
+    if (live && !all)
+      live = any_nonzero(vc, p * ps, min(p * ps + ps, lim + 1), vec);
     mask = __ballot_sync(kAll, live);
   }
   // the next live page (-1 when none), its physical page in `ph`
@@ -220,38 +283,38 @@ struct PageWalk {
 };
 
 // TQ: query/out type (float, bf16). TP: page type (TQ, int8_t or
-// __nv_fp8_e4m3; the 1-byte types read the scales). D: head dim. WT:
-// queries per block. C: columns per ring chunk (16, or 8 when ps % 16).
-template <typename TQ, typename TP, int D, int WT, int C>
+// __nv_fp8_e4m3; the 1-byte types read the scales). DP: the padded head
+// dim (a multiple of 32, >= D). WT: queries per block. C: columns per ring
+// chunk.
+template <typename TQ, typename TP, int DP, int WT, int C>
 __global__ void __launch_bounds__(kThreads)
 paged_attn_kernel(const Params a) {
-  using St = Stage<TP, D, C>;
+  using St = Stage<TP, DP, C>;
   constexpr bool kQuant = St::kQuant;
-  constexpr int VD = D / 32;             // coordinates a lane holds
+  constexpr int VD = DP / 32;            // coordinates a lane holds
   constexpr int R = 32 / C;              // lanes holding one column's score
-  constexpr int kChunk16 = St::kKV / 16;  // 16-byte copies of a K chunk
+  constexpr int kRow = DP * (int)sizeof(TP);   // a ring row's bytes
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int last_s;
 
   const int nh = blockIdx.x, tile = blockIdx.y, split = blockIdx.z;
   const int S = gridDim.z, tiles = gridDim.y;
-  const int H = a.H, W = a.W, ps = a.ps, pmax = a.pmax;
+  const int H = a.H, W = a.W, D = a.D, ps = a.ps, pmax = a.pmax;
   const int n = nh / H, h = nh % H;
   const int w0 = tile * WT, wt = min(WT, W - w0);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int lp = pmax * ps;
   const int step = a.st[n];
   const int32_t* vc = a.vc + (int64_t)n * lp;
+  const bool vec = ps % 4 == 0;
 
   // does the tile's first query have a readable column? (later queries
   // see a superset of its columns)
-  int any = 0;
   const int lim0 = min(step + w0, lp - 1);
-  for (int c = tid * 4; c <= lim0; c += kThreads * 4) {
-    const int4 v = __ldg(reinterpret_cast<const int4*>(vc + c));
-    any |= (v.x != 0) | ((c + 1 <= lim0) & (v.y != 0)) |
-           ((c + 2 <= lim0) & (v.z != 0)) | ((c + 3 <= lim0) & (v.w != 0));
-  }
+  const int per = vec ? 4 : 1;
+  int any = 0;
+  for (int c = tid * per; c <= lim0; c += kThreads * per)
+    any |= any_nonzero(vc, c, min(c + per, lim0 + 1), vec);
   const bool uniform = __syncthreads_or(any) == 0;
 
   const int p0 = split * a.pps, p1 = min(pmax, p0 + a.pps);
@@ -266,49 +329,78 @@ paged_attn_kernel(const Params a) {
     l[w] = 0.f;
 #pragma unroll
     for (int i = 0; i < VD; ++i) {
-      qv[w][i] = w < wt ? to_f32(qrow[w * D + lane * VD + i]) : 0.f;
+      const int d = lane * VD + i;
+      qv[w][i] = w < wt && d < D ? to_f32(qrow[w * D + d]) : 0.f;
       acc[w][i] = 0.f;
     }
   }
 
   unsigned char* ring = smem + warp * kStages * St::kBytes;
+  // Where a ring row can hold bytes no copy writes (the columns past D,
+  // the rows of a page's partial last chunk past the page), the ring is
+  // zeroed once: those bytes then hold zeros or an earlier chunk's
+  // finite values, which the -inf score and the zero columns of q cancel
+  // exactly, so the loops below need no per-column test
+  const int row_bytes = D * (int)sizeof(TP);
+  if (row_bytes != kRow || ps % C != 0) {
+    for (int i = lane * 16; i < kStages * St::kBytes; i += 32 * 16)
+      *reinterpret_cast<uint4*>(ring + i) = make_uint4(0u, 0u, 0u, 0u);
+    __syncwarp();  // zeroed before any copy lands
+  }
   const int64_t head_stride = (int64_t)ps * D;
   const TP* pool_k = static_cast<const TP*>(a.pk);
   const TP* pool_v = static_cast<const TP*>(a.pv);
-  const int cpp = ps / C;                // chunks a page
+  const int cpp = (ps + C - 1) / C;      // chunks a page, the last partial
   const float inv_scale = 1.f / sqrtf((float)D);
 
   auto issue = [&](int stage, int page, int phys, int chunk) {
     unsigned char* dst = ring + stage * St::kBytes;
     if (page >= 0) {
+      const int c0 = chunk * C, cols = min(C, ps - c0);
       const int64_t slab = ((int64_t)phys * H + h) * head_stride +
-                           (int64_t)chunk * C * D;
+                           (int64_t)c0 * D;
       const unsigned char* ks =
           reinterpret_cast<const unsigned char*>(pool_k + slab);
       const unsigned char* vs =
           reinterpret_cast<const unsigned char*>(pool_v + slab);
-      for (int i = lane; i < kChunk16; i += 32) {
-        cp_async16(dst + i * 16, ks + i * 16);
-        cp_async16(dst + St::kKV + i * 16, vs + i * 16);
+      if (row_bytes == kRow && cols == C) {
+        // a whole chunk at the kernel's width: one contiguous run
+#pragma unroll
+        for (int i = lane * 16; i < St::kKV; i += 32 * 16) {
+          cp_async<16>(dst + i, ks + i);
+          cp_async<16>(dst + St::kKV + i, vs + i);
+        }
+      } else {
+        copy_rows(dst, kRow, ks, row_bytes, cols, a.unit, lane);
+        copy_rows(dst + St::kKV, kRow, vs, row_bytes, cols, a.unit, lane);
       }
-      constexpr int kQ = C / 4;          // 16-byte pieces of C ints/floats
-      const int64_t sc = ((int64_t)phys * H + h) * ps + chunk * C;
-      if constexpr (kQuant) {
-        if (lane < kQ)
-          cp_async16(dst + St::kScales + lane * 16, a.ks + sc + lane * 4);
-        else if (lane < 2 * kQ)
-          cp_async16(dst + St::kScales + C * 4 + (lane - kQ) * 16,
-                     a.vs + sc + (lane - kQ) * 4);
+      // the chunk's scales and valid_cols: 16 bytes a copy where ps % 4
+      // == 0 (then every piece is 16-byte aligned and whole), else 4
+      const int64_t sc = ((int64_t)phys * H + h) * ps + c0;
+      const int32_t* vcc = vc + page * ps + c0;
+      if (vec) {
+        // lanes 4g + i copy piece i of group g: k scales, v scales, vc
+        const int piece = lane & 3, group = lane >> 2;
+        if (piece < cols / 4) {
+          if (kQuant && group < 2)
+            cp_async<16>(dst + St::kScales + group * C * 4 + piece * 16,
+                         (group == 0 ? a.ks : a.vs) + sc + piece * 4);
+          else if (group == 2)
+            cp_async<16>(dst + St::kVc + piece * 16, vcc + piece * 4);
+        }
+      } else {
+        const int c = lane % 16;
+        if (kQuant && c < cols)
+          cp_async<4>(dst + St::kScales + (lane / 16) * C * 4 + c * 4,
+                      (lane < 16 ? a.ks : a.vs) + sc + c);
+        if (lane < cols) cp_async<4>(dst + St::kVc + lane * 4, vcc + lane);
       }
-      if (lane >= 2 * kQ && lane < 3 * kQ)
-        cp_async16(dst + St::kVc + (lane - 2 * kQ) * 16,
-                   vc + page * ps + chunk * C + (lane - 2 * kQ) * 4);
     }
     cp_async_commit();
   };
 
-  PageWalk walk{split * a.pps + warp, p_end, lim, ps, 0, uniform, 0u, 0,
-                a.bt + (int64_t)n * pmax, vc};
+  PageWalk walk{split * a.pps + warp, p_end, lim, ps, 0, uniform, vec, 0u,
+                0, a.bt + (int64_t)n * pmax, vc};
   walk.scan(lane);
   int cur_page, cur_phys = 0, cur_chunk = 0;
   int nxt_page, nxt_phys = 0, nxt_chunk = 0;
@@ -331,8 +423,11 @@ paged_attn_kernel(const Params a) {
     const float* ksc = reinterpret_cast<const float*>(buf + St::kScales);
     const float* vsc = ksc + C;
     const int32_t* vc_s = reinterpret_cast<const int32_t*>(buf + St::kVc);
-    const int col = cur_page * ps + cur_chunk * C + lane / R;
-    const bool readable = vc_s[lane / R] != 0;
+    // the chunk's columns: ncols of C (fewer in a page's last chunk)
+    const int ncols = min(C, ps - cur_chunk * C);
+    const int cr = lane / R;             // this lane's column in the chunk
+    const int col = cur_page * ps + cur_chunk * C + cr;
+    const bool readable = vc_s[cr] != 0;
     float pw[WT];
 #pragma unroll
     for (int w = 0; w < WT; ++w) {
@@ -342,7 +437,7 @@ paged_attn_kernel(const Params a) {
 #pragma unroll
         for (int c = 0; c < C; ++c) {
           float kf[VD];
-          load_row<TP, VD>(k_s + c * D + lane * VD, kQuant ? ksc[c] : 1.f,
+          load_row<TP, VD>(k_s + c * DP + lane * VD, kQuant ? ksc[c] : 1.f,
                            kf);
           float s = 0.f;
 #pragma unroll
@@ -350,7 +445,10 @@ paged_attn_kernel(const Params a) {
           part[c] = s;
         }
         float sc = reduce_scatter<C>(part, lane) * inv_scale;
-        if (!(readable && col <= step + w0 + w)) sc = kMasked;
+        if (cr >= ncols)
+          sc = -INFINITY;                // past the page: not a column
+        else if (!(readable && col <= step + w0 + w))
+          sc = kMasked;
         float cmax = sc;
 #pragma unroll
         for (int o = 16; o >= R; o >>= 1)
@@ -368,7 +466,7 @@ paged_attn_kernel(const Params a) {
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       float vf[VD];
-      load_row<TP, VD>(v_s + c * D + lane * VD, kQuant ? vsc[c] : 1.f, vf);
+      load_row<TP, VD>(v_s + c * DP + lane * VD, kQuant ? vsc[c] : 1.f, vf);
 #pragma unroll
       for (int w = 0; w < WT; ++w) {
         const float pc = __shfl_sync(kAll, pw[w], c * R);
@@ -394,22 +492,24 @@ paged_attn_kernel(const Params a) {
 #pragma unroll
     for (int o = 16; o >= 1; o >>= 1) l[w] += __shfl_xor_sync(kAll, l[w], o);
   __syncthreads();
-  float* o_s = reinterpret_cast<float*>(smem);        // [kWarps][WT][D]
-  float* ml_s = o_s + kWarps * WT * D;                 // [kWarps][WT][2]
+  float* o_s = reinterpret_cast<float*>(smem);        // [kWarps][WT][DP]
+  float* ml_s = o_s + kWarps * WT * DP;                // [kWarps][WT][2]
 #pragma unroll
   for (int w = 0; w < WT; ++w) {
 #pragma unroll
     for (int i = 0; i < VD; ++i)
-      o_s[(warp * WT + w) * D + lane * VD + i] = acc[w][i];
+      o_s[(warp * WT + w) * DP + lane * VD + i] = acc[w][i];
     if (lane == 0) {
       ml_s[(warp * WT + w) * 2] = m[w];
       ml_s[(warp * WT + w) * 2 + 1] = l[w];
     }
   }
   __syncthreads();
+  // the merges walk the padded width, whose divisions are constants
   const int64_t q_base = (int64_t)nh * W + w0;
-  for (int idx = tid; idx < wt * D; idx += kThreads) {
-    const int w = idx / D, d = idx % D;
+  for (int idx = tid; idx < wt * DP; idx += kThreads) {
+    const int w = idx / DP, d = idx % DP;
+    if (d >= D) continue;
     float mx = kMasked;
 #pragma unroll
     for (int k = 0; k < kWarps; ++k) mx = fmaxf(mx, ml_s[(k * WT + w) * 2]);
@@ -417,7 +517,7 @@ paged_attn_kernel(const Params a) {
 #pragma unroll
     for (int k = 0; k < kWarps; ++k) {
       const float e = expf(ml_s[(k * WT + w) * 2] - mx);
-      o += e * o_s[(k * WT + w) * D + d];
+      o += e * o_s[(k * WT + w) * DP + d];
       lsum += e * ml_s[(k * WT + w) * 2 + 1];
     }
     const int64_t part = (q_base + w) * S + split;
@@ -436,8 +536,9 @@ paged_attn_kernel(const Params a) {
   __syncthreads();
   if (!last_s) return;
   __threadfence();
-  for (int idx = tid; idx < wt * D; idx += kThreads) {
-    const int w = idx / D, d = idx % D;
+  for (int idx = tid; idx < wt * DP; idx += kThreads) {
+    const int w = idx / DP, d = idx % DP;
+    if (d >= D) continue;
     const int64_t part = (q_base + w) * S;
     float mx = kMasked;
     for (int s = 0; s < S; ++s)
@@ -454,14 +555,14 @@ paged_attn_kernel(const Params a) {
   if (tid == 0 && S > 1) *ticket = 0;
 }
 
-template <typename TQ, typename TP, int D, int WT, int C>
+template <typename TQ, typename TP, int DP, int WT, int C>
 cudaError_t launch(const Params& a, int N, int splits, cudaStream_t stream) {
-  using St = Stage<TP, D, C>;
+  using St = Stage<TP, DP, C>;
   const dim3 grid(N * a.H, (a.W + WT - 1) / WT, splits);
   const size_t ring = (size_t)kWarps * kStages * St::kBytes;
-  const size_t merge = (size_t)kWarps * WT * (D + 2) * sizeof(float);
+  const size_t merge = (size_t)kWarps * WT * (DP + 2) * sizeof(float);
   const size_t bytes = ring > merge ? ring : merge;
-  auto k = paged_attn_kernel<TQ, TP, D, WT, C>;
+  auto k = paged_attn_kernel<TQ, TP, DP, WT, C>;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -471,32 +572,42 @@ cudaError_t launch(const Params& a, int N, int splits, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// D in {64, 128}; a window of up to 4 queries takes 4-query tiles, a
-// longer one 8-query tiles; 16-column chunks, or 8 when ps % 16 != 0
-template <typename TQ, typename TP, int D>
-cudaError_t dispatch_tile(const Params& a, int N, int S, cudaStream_t st) {
-  const bool wide = a.W > 4, c16 = a.ps % 16 == 0;
-  if (wide)
-    return c16 ? launch<TQ, TP, D, 8, 16>(a, N, S, st)
-               : launch<TQ, TP, D, 8, 8>(a, N, S, st);
-  return c16 ? launch<TQ, TP, D, 4, 16>(a, N, S, st)
-             : launch<TQ, TP, D, 4, 8>(a, N, S, st);
-}
-
-template <typename TQ, typename TP>
-cudaError_t dispatch(const Params& a, int N, int D, int S, cudaStream_t st) {
-  if (D == 64) return dispatch_tile<TQ, TP, 64>(a, N, S, st);
-  if (D == 128) return dispatch_tile<TQ, TP, 128>(a, N, S, st);
+// The instantiated (DP, WT, C): the wrapper's plan (`kernel_width`,
+// `query_tile`, `chunk_cols` in kernels/paged_attention.py): DP 32, 64,
+// 96 or 128 with 4- or 8-query tiles, or 256 with 4-query tiles; C 16,
+// or 8 where a row of the page type spans more than 512 bytes (f32 pages
+// at DP 256).
+template <typename TQ, typename TP, int DP>
+cudaError_t dispatch_tile(const Params& a, int N, int S, int wt, int c,
+                          cudaStream_t st) {
+  constexpr int kC = DP * (int)sizeof(TP) > 512 ? 8 : 16;
+  if (c != kC) return cudaErrorInvalidValue;
+  if (wt == 4) return launch<TQ, TP, DP, 4, kC>(a, N, S, st);
+  if constexpr (DP <= 128)
+    if (wt == 8) return launch<TQ, TP, DP, 8, kC>(a, N, S, st);
   return cudaErrorInvalidValue;
 }
 
+template <typename TQ, typename TP>
+cudaError_t dispatch(const Params& a, int N, int S, int dp, int wt, int c,
+                     cudaStream_t st) {
+  switch (dp) {
+    case 32: return dispatch_tile<TQ, TP, 32>(a, N, S, wt, c, st);
+    case 64: return dispatch_tile<TQ, TP, 64>(a, N, S, wt, c, st);
+    case 96: return dispatch_tile<TQ, TP, 96>(a, N, S, wt, c, st);
+    case 128: return dispatch_tile<TQ, TP, 128>(a, N, S, wt, c, st);
+    case 256: return dispatch_tile<TQ, TP, 256>(a, N, S, wt, c, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename TQ>
-cudaError_t dispatch_pages(const Params& a, int N, int D, int S, int pdtype,
-                           cudaStream_t st) {
+cudaError_t dispatch_pages(const Params& a, int N, int S, int dp, int wt,
+                           int c, int pdtype, cudaStream_t st) {
   switch (pdtype) {
-    case 0: return dispatch<TQ, TQ>(a, N, D, S, st);
-    case 1: return dispatch<TQ, int8_t>(a, N, D, S, st);
-    case 2: return dispatch<TQ, __nv_fp8_e4m3>(a, N, D, S, st);
+    case 0: return dispatch<TQ, TQ>(a, N, S, dp, wt, c, st);
+    case 1: return dispatch<TQ, int8_t>(a, N, S, dp, wt, c, st);
+    case 2: return dispatch<TQ, __nv_fp8_e4m3>(a, N, S, dp, wt, c, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -505,24 +616,25 @@ cudaError_t dispatch_pages(const Params& a, int N, int D, int S, int pdtype,
 
 // qdtype: 0 = float32, 1 = bfloat16 (q and out). pdtype: 0 = pages in q's
 // dtype (k_scale and v_scale unused, may be null), 1 = int8 pages, 2 = fp8
-// e4m3 pages (both with f32 scales [P, H, ps]). splits x pps covers the
-// table (splits = ceil(pmax / pps)). part_o: f32 [N*H*W, splits, D] and
-// part_ml: f32 [N*H*W, splits, 2] scratch; tickets: int32 [N*H*tiles]
-// (tiles = ceil(W / 4) for W <= 4, else ceil(W / 8)), all 0 before the
-// call and left 0 after it. Returns the CUDA error of the launch (0 =
-// launched). The caller checks shapes, dtypes, contiguity and alignment;
-// ps % 8 == 0, D in {64, 128}.
+// e4m3 pages (both with f32 scales [P, H, ps]). D: the head dim (1 to
+// 256; q, out and the pools at D); dp, wt, chunk: the wrapper's plan
+// (padded width, queries a block, columns a ring chunk). splits x pps
+// covers the table (splits = ceil(pmax / pps)). part_o: f32 [N*H*W,
+// splits, D] and part_ml: f32 [N*H*W, splits, 2] scratch; tickets: int32
+// [N*H*ceil(W / wt)], all 0 before the call and left 0 after it. Any
+// ps >= 1. Returns the CUDA error of the launch (0 = launched). The
+// caller checks shapes, dtypes, contiguity and 16-byte alignment.
 extern "C" int ptt_paged_attention(
     const void* q, const void* pool_k, const void* pool_v,
     const void* k_scale, const void* v_scale, const void* block_table,
     const void* steps, const void* valid_cols, void* out, void* lse,
     void* part_o, void* part_ml, void* tickets, int N, int H, int W, int D,
-    int ps, int pmax, int splits, int pps, int qdtype, int pdtype,
-    int device, void* stream) {
+    int dp, int wt, int chunk, int ps, int pmax, int splits, int pps,
+    int qdtype, int pdtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (ps % 8 != 0 || N < 1 || H < 1 || W < 1 || pmax < 1 || splits < 1 ||
-      pps < 1 || (int64_t)splits * pps < pmax ||
+  if (ps < 1 || N < 1 || H < 1 || W < 1 || D < 1 || D > dp || pmax < 1 ||
+      splits < 1 || pps < 1 || (int64_t)splits * pps < pmax ||
       (int64_t)(splits - 1) * pps >= pmax)
     return (int)cudaErrorInvalidValue;
   if (pdtype != 0 && (k_scale == nullptr || v_scale == nullptr))
@@ -543,14 +655,18 @@ extern "C" int ptt_paged_attention(
   a.tickets = static_cast<int32_t*>(tickets);
   a.H = H;
   a.W = W;
+  a.D = D;
   a.ps = ps;
   a.pmax = pmax;
   a.pps = pps;
+  const int row = D * (pdtype == 0 ? (qdtype == 0 ? 4 : 2) : 1);
+  a.unit = row % 16 == 0 ? 16 : row % 8 == 0 ? 8 : row % 4 == 0 ? 4 : 1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (qdtype == 0)
-    err = dispatch_pages<float>(a, N, D, splits, pdtype, st);
+    err = dispatch_pages<float>(a, N, splits, dp, wt, chunk, pdtype, st);
   else if (qdtype == 1)
-    err = dispatch_pages<__nv_bfloat16>(a, N, D, splits, pdtype, st);
+    err = dispatch_pages<__nv_bfloat16>(a, N, splits, dp, wt, chunk, pdtype,
+                                        st);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

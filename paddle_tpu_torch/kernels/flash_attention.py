@@ -645,6 +645,27 @@ def pick_block(limit, seq):
     return max(cand, 128)
 
 
+def kernel_head_dim(d):
+    """The head dim B2's and B4's kernels run a head dim ``d`` at: 64 or
+    128 at and below 128 (the wgmma kernels), else the next multiple of
+    64 (the kernels sliced over D). The wrappers zero-pad q, k and v to
+    it and cut the output back; zero columns change neither the scores
+    nor the outputs (the reference pads to a multiple of 128,
+    ``:1263-1267``)."""
+    if d <= 64:
+        return 64
+    if d <= 128:
+        return 128
+    return -(-d // 64) * 64
+
+
+def _pad_heads(tensors, dk):
+    """``tensors`` zero-padded along the head dim to ``dk`` (contiguous
+    as they are when already at it)."""
+    return tuple(torch.nn.functional.pad(t, (0, dk - t.shape[-1]))
+                 if t.shape[-1] != dk else t.contiguous() for t in tensors)
+
+
 def _blocks(s_q, s_k, block_q=DEFAULT_BLOCK, block_k=DEFAULT_BLOCK):
     """The reference's block sizes for these lengths (:1250-1252): the
     tiling that places B2's dropout hash."""
@@ -749,7 +770,8 @@ def _check_general(kernel, q, k, v, bias, dropout_p, seed, bq, bk):
     _check(tuple(k.shape) == (b, s_k, h, d) and v.shape == k.shape, kernel,
            f"k and v must be [{b}, S_k, {h}, {d}], got {tuple(k.shape)} "
            f"and {tuple(v.shape)}")
-    _check(d in (64, 128), kernel, f"head_dim must be 64 or 128, got {d}")
+    _check(d in (64, 128) or (d > 128 and d % 64 == 0), kernel,
+           f"head_dim must be 64, 128 or a multiple of 64 above 128, got {d}")
     _check(q.dtype in _DTYPE_CODES and k.dtype == q.dtype
            and v.dtype == q.dtype, kernel,
            f"q, k and v must share float32 or bfloat16, got {q.dtype}, "
@@ -830,7 +852,7 @@ def _launch_general_bwd(kernel, q, k, v, o, lse, do, causal, bias, dropout_p,
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     delta = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
     dq_acc = (torch.empty(q.shape, dtype=torch.float32, device=q.device)
-              if q.dtype == torch.bfloat16 else None)
+              if q.dtype == torch.bfloat16 and d <= 128 else None)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     _, bwd, _, err_str = _gen_kernel_fns()
     err = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -850,8 +872,9 @@ def _launch_general_bwd(kernel, q, k, v, o, lse, do, causal, bias, dropout_p,
 def flash_attention_fwd(q, k, v, causal, bias=None, dropout_p=0.0, seed=None,
                         bq=None, bk=None, scale=None):
     """Launch the forward kernel: q ``[B, Sq, H, D]``, k and v ``[B, Sk,
-    H, D]`` (CUDA, contiguous, float32 or bfloat16; D 64 or 128, any
-    lengths). ``bias``: contiguous float32 ``[1|B, 1|Sq, Sk]``;
+    H, D]`` (CUDA, contiguous, float32 or bfloat16; D 64, 128 or a
+    multiple of 64 above 128, any lengths). ``bias``: contiguous float32
+    ``[1|B, 1|Sq, Sk]``;
     ``seed``: int32 ``[1]`` on the same device when ``dropout_p > 0``;
     ``bq``/``bk``: the reference's blocks (default: its default tiling);
     ``scale``: default ``1/sqrt(D)``. Returns ``(o [B, Sq, H, D], lse [B,
@@ -865,11 +888,12 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal, bias=None,
                         scale=None, dlse=None):
     """Launch the backward kernels: ``(dq, dk, dv)`` from the forward's
     inputs, ``o``, ``lse`` and the cotangent ``do`` (q's shape and
-    dtype). One call counts as one launch. bfloat16: a pre-pass (``delta
-    = rowsum(dO*O)``, the float32 dq accumulator zeroed), the one-pass
-    kernel over key blocks (dk, dv, and dq added into the accumulator)
-    and a post-pass rounding dq; float32: the delta pre-pass, a dk/dv
-    pass and a dq pass. ``dlse``: the lse cotangent (contiguous float32
+    dtype). One call counts as one launch. bfloat16 at D 64 or 128: a
+    pre-pass (``delta = rowsum(dO*O)``, the float32 dq accumulator
+    zeroed), the one-pass kernel over key blocks (dk, dv, and dq added
+    into the accumulator) and a post-pass rounding dq; float32, and
+    either dtype above 128: the delta pre-pass, a dk/dv pass and a dq
+    pass. ``dlse``: the lse cotangent (contiguous float32
     ``[B, H, Sq]``, B4), which the pre-pass subtracts from delta; None
     runs B2's backward as it is."""
     return _launch_general_bwd(_GEN_BWD, q, k, v, o, lse, do, causal, bias,
@@ -918,14 +942,9 @@ def flash_attention(query, key, value, is_causal=False, attn_mask=None,
     tensor) or, when None, by a draw from ``generator`` (default: the
     current `core.random` generator). ``block_q``/``block_k`` place the
     dropout hash as the reference's blocks do. The CPU's plain version
-    takes any head_dim. On a card a head_dim below 64 (or between 64 and
-    128) is zero-padded to 64 (128) for the kernel; above 128 it raises."""
+    takes any head_dim; on a card the kernels run at `kernel_head_dim`,
+    q, k and v zero-padded to it."""
     b, s_q, h, d = query.shape
-    if d > 128 and not runs_plain(query, _GEN_FWD):
-        raise NotImplementedError(
-            f"flash_attention with head_dim {d} > 128 on {query.device}: the "
-            "kernels take D up to 128; larger heads are B2's remainder "
-            "(ROADMAP B2)")
     bq, bk = _blocks(s_q, key.shape[1], block_q, block_k)
     bias = None
     if attn_mask is not None:
@@ -935,12 +954,10 @@ def flash_attention(query, key, value, is_causal=False, attn_mask=None,
     cfg = (bool(is_causal), float(dropout_p), bq, bk, scale)
     if runs_plain(query, _GEN_FWD):
         return _Flash.apply(query, key, value, bias, seed_t, *cfg)
-    dp = 64 if d <= 64 else 128
-    q, k, v = (torch.nn.functional.pad(t, (0, dp - d)) if dp != d
-               else t.contiguous() for t in (query, key, value))
+    q, k, v = _pad_heads((query, key, value), kernel_head_dim(d))
     out = _Flash.apply(q, k, v, None if bias is None else bias.contiguous(),
                        seed_t, *cfg)
-    return out[..., :d] if dp != d else out
+    return out[..., :d] if out.shape[-1] != d else out
 
 
 # ============================================ B4: (o, lse), both differentiable
@@ -1006,9 +1023,8 @@ def flash_attention_with_lse(q, k, v, is_causal=False, scale=None):
     ring does: ``[B, S, H, D]`` in, ``(o [B, S, H, D], lse [B, H, S]
     float32)`` out. Needs ``s_q == s_k``. ``scale``: default
     ``1/sqrt(D)``. A CPU tensor runs the plain version at any head_dim; a
-    CUDA tensor launches B4's kernels (or the wrappers raise), a head_dim
-    below 64 (or between 64 and 128) zero-padded to 64 (128) and one above
-    128 refused (B2's remainder)."""
+    CUDA tensor launches B4's kernels (or the wrappers raise) at
+    `kernel_head_dim`, q, k and v zero-padded to it."""
     b, s, h, d = q.shape
     if k.shape[1] != s:
         raise ValueError("flash_attention_with_lse requires s_q == s_k "
@@ -1016,16 +1032,9 @@ def flash_attention_with_lse(q, k, v, is_causal=False, scale=None):
     scale = float(1.0 / math.sqrt(d) if scale is None else scale)
     if runs_plain(q, _LSE_FWD):
         return _FlashLse.apply(q, k, v, bool(is_causal), scale)
-    if d > 128:
-        raise NotImplementedError(
-            f"flash_attention_with_lse with head_dim {d} > 128 on {q.device}:"
-            " the kernels take D up to 128; larger heads are B2's remainder "
-            "(ROADMAP B2)")
-    dp = 64 if d <= 64 else 128
-    qp, kp, vp = (torch.nn.functional.pad(t, (0, dp - d)) if dp != d
-                  else t.contiguous() for t in (q, k, v))
+    qp, kp, vp = _pad_heads((q, k, v), kernel_head_dim(d))
     o, lse = _FlashLse.apply(qp, kp, vp, bool(is_causal), scale)
-    return (o[..., :d] if dp != d else o), lse
+    return (o[..., :d] if o.shape[-1] != d else o), lse
 
 
 __all__ = ["mix32", "hash_keep_scale", "keep_threshold", "qkv_drop_ids",
@@ -1036,6 +1045,7 @@ __all__ = ["mix32", "hash_keep_scale", "keep_threshold", "qkv_drop_ids",
            "flash_attention_qkv3_fwd", "flash_attention_qkv3_bwd",
            "flash_attention_qkv3", "packed_supported",
            "flash_attention_packed", "normalize_mask_bias", "pick_block",
+           "kernel_head_dim",
            "flash_reference", "flash_bwd_reference", "flash_attention_fwd",
            "flash_attention_bwd", "flash_attention",
            "flash_attention_lse_fwd", "flash_attention_lse_bwd",

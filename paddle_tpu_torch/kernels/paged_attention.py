@@ -33,6 +33,12 @@ reads only the pages up to the cursor that hold a readable column (the
 rest add exactly nothing) unless a query found no readable column there;
 the plain version is the masked softmax over the whole table.
 
+The kernel takes any head dim up to 256 and any page size, with the
+pools at the model's own D: `kernel_width`, `query_tile` and
+`chunk_cols` are its plan (the padded width the kernel is instantiated
+at, the queries a block takes and the columns a ring chunk holds), pure
+functions of the shapes. A head dim above 256 raises (ROADMAP C.6).
+
 The kernel splits each row's page walk across blocks (flash-decoding):
 `plan_splits` picks the split count from the shapes and the card's SM
 count alone, each split writes an f32 partial to a workspace, and the
@@ -61,7 +67,10 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _QUANT_PAGES = {torch.int8: (1, "paged_attention_int8"),
                 torch.float8_e4m3fn: (2, "paged_attention_fp8")}
 #: queries a block of the kernel takes: 4, or 8 for a window of 5 to 8
+#: at a padded width up to 128
 _TILE_SMALL, _TILE_WIDE = 4, 8
+#: the padded widths the kernel is instantiated at
+_WIDTHS = (32, 64, 96, 128, 256)
 #: the planner aims for this many blocks per SM ...
 _BLOCKS_PER_SM = 4
 #: ... and gives every split at least this many columns
@@ -71,13 +80,39 @@ _sm_counts: dict[int, int] = {}
 _ticket_bufs: dict[tuple[int, int], torch.Tensor] = {}
 
 
-def query_tile(w: int) -> int:
-    """Queries one block of the kernel takes for a window of ``w``."""
-    return _TILE_WIDE if w > _TILE_SMALL else _TILE_SMALL
+def kernel_width(d: int) -> int:
+    """The padded head dim the kernel runs a head dim ``d`` at (each of a
+    warp's 32 lanes holds ``width / 32`` coordinates; those past ``d``
+    are zeros, and the pools stay at ``d``): the least of 32, 64, 96,
+    128 and 256 that holds ``d``. Above 256 it raises (ROADMAP C.6)."""
+    for width in _WIDTHS:
+        if d <= width:
+            return width
+    raise NotImplementedError(
+        f"fused_paged_attention: head_dim {d} > 256 on a card: the kernel "
+        "takes head dims up to 256 (ROADMAP C.6)")
+
+
+def chunk_cols(width: int, page_itemsize: int) -> int:
+    """Columns of one ring chunk: 16, or 8 where a padded row of the page
+    type spans more than 512 bytes (f32 pages at width 256), so that a
+    warp's two-stage ring fits the block's shared memory. A page of
+    ``ps`` columns takes ``ceil(ps / chunk)`` chunks, its last one
+    partial."""
+    return 8 if width * page_itemsize > 512 else 16
+
+
+def query_tile(w: int, d: int) -> int:
+    """Queries one block of the kernel takes for a window of ``w`` at
+    head dim ``d``: 8 for a window of 5 or more at a padded width up to
+    128, else 4 (at width 256 eight queries' state would spill)."""
+    if w > _TILE_SMALL and kernel_width(d) <= 128:
+        return _TILE_WIDE
+    return _TILE_SMALL
 
 
 def plan_splits(n: int, h: int, w: int, pmax: int, ps: int,
-                sm_count: int) -> tuple[int, int]:
+                sm_count: int, d: int) -> tuple[int, int]:
     """``(splits, pages_per_split)`` of one kernel call, from the shapes
     and the card's SM count only (never from ``steps`` or
     ``valid_cols``: reading them would wait for the card). Split ``s``
@@ -85,7 +120,7 @@ def plan_splits(n: int, h: int, w: int, pmax: int, ps: int,
     falls in exactly one split and no split is empty. The count aims for
     ``_BLOCKS_PER_SM`` blocks on every SM, with at least
     ``_MIN_SPLIT_COLS`` columns a split."""
-    tiles = -(-w // query_tile(w))
+    tiles = -(-w // query_tile(w, d))
     want = -(-_BLOCKS_PER_SM * sm_count // (n * h * tiles))
     most = max(1, pmax // -(-_MIN_SPLIT_COLS // ps))
     pps = -(-pmax // max(1, min(want, most)))
@@ -121,7 +156,7 @@ def _kernel_fn():
     if _fn is None:
         lib = _build.load(_KERNEL)
         fn = lib.ptt_paged_attention
-        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 11 + [
+        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 14 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         err_str = lib.ptt_error_string
@@ -146,8 +181,8 @@ def fused_paged_attention(qh, pool_k, pool_v, block_table, steps,
     Takes CUDA tensors only, all contiguous and on one device; q is
     float32 or bfloat16; the pools either share q's dtype (no scales) or
     are both int8 or both float8_e4m3fn with ``k_scale``/``v_scale``
-    ``[P, H, ps]`` float32; ``D`` is 64 or 128 and ``ps % 8 == 0``.
-    Anything else raises."""
+    ``[P, H, ps]`` float32; any ``D`` up to 256 (above it raises naming
+    ROADMAP C.6) and any page size ``ps >= 1``. Anything else raises."""
     _check(qh.device.type == "cuda", f"needs CUDA tensors, got {qh.device}")
     dev = qh.device
     quant = pool_k.dtype in _QUANT_PAGES
@@ -173,8 +208,8 @@ def fused_paged_attention(qh, pool_k, pool_v, block_table, steps,
            f"pool heads/head_dim {tuple(pool_k.shape[1::2])} != q's "
            f"{(h, d)}")
     ps = pool_k.shape[2]
-    _check(d in (64, 128), f"head_dim must be 64 or 128, got {d}")
-    _check(ps % 8 == 0, f"page_size must be a multiple of 8, got {ps}")
+    width = kernel_width(d)
+    _check(ps >= 1, f"page_size must be at least 1, got {ps}")
     _check(qh.dtype in _DTYPE_CODES,
            f"q dtype must be float32 or bfloat16, got {qh.dtype}")
     _check(pool_v.dtype == pool_k.dtype,
@@ -210,21 +245,23 @@ def fused_paged_attention(qh, pool_k, pool_v, block_table, steps,
                    f"{name} must be 16-byte aligned")
     out = torch.empty_like(qh)
     lse = torch.empty((n, h, w), dtype=torch.float32, device=dev)
-    splits, pps = plan_splits(n, h, w, pmax, ps, _sm_count(dev))
+    splits, pps = plan_splits(n, h, w, pmax, ps, _sm_count(dev), d)
+    tile = query_tile(w, d)
     part_o = torch.empty((n * h * w, splits, d), dtype=torch.float32,
                          device=dev)
     part_ml = torch.empty((n * h * w, splits, 2), dtype=torch.float32,
                           device=dev)
     stream = torch.cuda.current_stream(dev)
-    tickets = _tickets(dev, stream, n * h * -(-w // query_tile(w)))
+    tickets = _tickets(dev, stream, n * h * -(-w // tile))
     fn, err_str = _kernel_fn()
     err = fn(qh.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
              k_scale.data_ptr() if quant else None,
              v_scale.data_ptr() if quant else None,
              block_table.data_ptr(), steps.data_ptr(), valid_cols.data_ptr(),
              out.data_ptr(), lse.data_ptr(), part_o.data_ptr(),
-             part_ml.data_ptr(), tickets.data_ptr(), n, h, w, d, ps, pmax,
-             splits, pps, _DTYPE_CODES[qh.dtype], page_code, dev.index,
+             part_ml.data_ptr(), tickets.data_ptr(), n, h, w, d, width, tile,
+             chunk_cols(width, pool_k.element_size()), ps, pmax, splits, pps,
+             _DTYPE_CODES[qh.dtype], page_code, dev.index,
              stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
@@ -334,7 +371,8 @@ def merge_attention_segments(o1, lse1, o2, lse2):
     return o.to(o1.dtype)
 
 
-__all__ = ["plan_splits", "query_tile", "fused_paged_attention",
+__all__ = ["kernel_width", "chunk_cols", "query_tile", "plan_splits",
+           "fused_paged_attention",
            "paged_attention_reference",
            "paged_decode_attention", "paged_tail_segment",
            "merge_attention_segments"]

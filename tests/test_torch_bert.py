@@ -274,12 +274,22 @@ def test_later_slice_arguments_raise(what, monkeypatch):
         monkeypatch.setattr(pfa, "runs_plain", lambda t, k: False)
         with pytest.raises(ValueError, match="needs CUDA tensors"):
             pfa.flash_attention_qkv3(torch.zeros((1, 128, 3 * 128)), 2)
-    elif what == "d_over_128":    # where the kernels would run (a card)
-        x = torch.zeros((1, 128, 2, 256))
-        assert F.scaled_dot_product_attention(x, x, x).shape == x.shape
+    elif what == "d_over_128":    # where the kernels run (a card): no
+        # longer refused; the launcher gets the heads at their own width
+        x = torch.randn((1, 128, 2, 256))
+        want = F.scaled_dot_product_attention(x, x, x)
+        assert want.shape == x.shape
+        seen = []
+
+        def fwd(q, k, v, *args):
+            seen.append(q.shape)
+            return pfa.flash_reference(q, k, v, *args)
+
         monkeypatch.setattr(pfa, "runs_plain", lambda t, k: False)
-        with pytest.raises(NotImplementedError, match="ROADMAP B2"):
-            F.scaled_dot_product_attention(x, x, x)
+        monkeypatch.setattr(pfa, "flash_attention_fwd", fwd)
+        got = F.scaled_dot_product_attention(x, x, x)
+        assert seen == [x.shape]
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
     elif what == "need_weights":
         with pytest.raises(NotImplementedError, match="ROADMAP A13"):
             MultiHeadAttention(64, 2, need_weights=True, device="cpu")

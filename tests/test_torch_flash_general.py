@@ -14,6 +14,7 @@ kernels themselves run only on a card: tests/test_torch_kernels_cuda.py
 and chip_smoke.py hold them against the same plain versions there.
 """
 import importlib
+import math
 
 import jax
 import jax.numpy as jnp
@@ -201,16 +202,44 @@ def test_pick_block_matches_the_reference():
 
 
 def test_head_dim_over_128_raises(monkeypatch):
-    """Heads wider than 128 raise where the kernels would run (a CUDA
-    tensor: here the dispatch rule is patched to take the kernel branch)
-    and take the plain version on a CPU tensor, as the reference
-    composes (tests/test_torch_head_dim.py holds the values)."""
-    x = torch.zeros((1, 128, 1, 192))
-    out = pfa.flash_attention(x, x, x)
-    assert out.shape == x.shape
-    monkeypatch.setattr(pfa, "runs_plain", lambda t, kernel: False)
-    with pytest.raises(NotImplementedError, match="ROADMAP B2"):
-        pfa.flash_attention(x, x, x)
+    """Heads wider than 128 no longer raise where the kernels run (a
+    CUDA tensor: here the dispatch rule is patched to take the kernel
+    branch, and the launchers record what they were given and answer
+    with the plain versions): both launches get q, k and v zero-padded
+    to `kernel_head_dim` (192 stays 192, 200 goes to 256) with the scale
+    of the real head dim, and the caller gets its own D back. A CPU
+    tensor takes the plain version (tests/test_torch_head_dim.py and
+    tests/test_torch_flash_wide_heads.py hold the values)."""
+    calls = []
+
+    def fwd(q, k, v, causal, bias, dropout_p, seed, bq, bk, scale):
+        calls.append(("fwd", q.shape, k.shape, v.shape, scale))
+        return pfa.flash_reference(q, k, v, causal, bias, dropout_p, seed,
+                                   bq, bk, scale)
+
+    def bwd(q, k, v, o, lse, do, causal, bias, dropout_p, seed, bq, bk,
+            scale):
+        calls.append(("bwd", q.shape, do.shape, scale))
+        return pfa.flash_bwd_reference(q, k, v, o, lse, do, causal, bias,
+                                       dropout_p, seed, bq, bk, scale)
+
+    for d, width in ((192, 192), (200, 256)):
+        x = torch.randn((1, 128, 1, d), requires_grad=True)
+        out = pfa.flash_attention(x, x, x)
+        assert out.shape == x.shape
+        with monkeypatch.context() as mp:
+            mp.setattr(pfa, "runs_plain", lambda t, kernel: False)
+            mp.setattr(pfa, "flash_attention_fwd", fwd)
+            mp.setattr(pfa, "flash_attention_bwd", bwd)
+            calls.clear()
+            got = pfa.flash_attention(x, x, x)
+            got.sum().backward()
+        padded = (1, 128, 1, width)
+        assert [c[0] for c in calls] == ["fwd", "bwd"]
+        assert calls[0][1:4] == (padded,) * 3 and calls[1][1:3] == (padded,) * 2
+        assert calls[0][4] == calls[1][3] == pytest.approx(1 / math.sqrt(d))
+        assert got.shape == x.shape
+        torch.testing.assert_close(got, out, atol=1e-6, rtol=0)
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():

@@ -152,8 +152,8 @@ def test_kernel_entry_counts_under_b4s_own_names():
 
 
 def test_head_dim_over_128_runs_plain_on_the_cpu():
-    """The CPU's plain version takes any head_dim (a card refuses D > 128,
-    B2's remainder: tests/test_torch_kernels_cuda.py)."""
+    """The CPU's plain version takes any head_dim (a card runs D > 128 in
+    the kernels sliced over D: tests/test_torch_kernels_cuda.py)."""
     arrays = _inputs((1, 128, 1, 160), seed=3)
     q, k, v = (torch.from_numpy(a) for a in arrays)
     o, lse = kernels.flash_attention_with_lse(q, k, v, is_causal=True)

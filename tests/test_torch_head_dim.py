@@ -2,8 +2,9 @@
 
 The port's ``nn.functional.scaled_dot_product_attention`` at D = 256
 runs the plain version of the general flash path on a CPU tensor, as the
-JAX package composes there; on a CUDA tensor the wrapper raises (ROADMAP
-B2), which tests/test_torch_kernels_cuda.py holds on a card. Output and
+JAX package composes there; on a CUDA tensor the general kernels run,
+sliced over D, which tests/test_torch_kernels_cuda.py holds on a card
+(tests/test_torch_flash_wide_heads.py holds D 192 and 384 here). Output and
 the gradients in q, k and v are held against paddle_tpu's
 ``scaled_dot_product_attention`` and ``jax.grad`` of it, on the same
 numpy-seeded float32 inputs, at atol 1e-5 (the two differ only in

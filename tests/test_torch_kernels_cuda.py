@@ -14,7 +14,9 @@ that live in one split, at cursor 0, parked, unreadable, a window across
 two splits) at W in {1, 3, 5}, the beam's tail read through it
 (`paged_tail_segment`) on bf16 and int8 pages, the qkv forward on
 warpgroup products (B1 and B5, D 64 and 128, a half-full last query
-block), the head_dim > 128 refusal on a card, the general bf16 kernels
+block), the general kernels at head dims above 128 (sliced over D, f32
+and bf16), the paged kernel at head dims 80 and 16 and page sizes 4 and
+3, the general bf16 kernels
 at the edges of their tiles, and B1's backward against the general
 backward on the unpacked views (the kernel they share).
 """
@@ -303,7 +305,7 @@ def test_paged_split_walk_matches_the_plain_version_on_a_card(pages, w):
         kw = dict(k_scale=scales[0], v_scale=scales[1])
     splits, pps = pa.plan_splits(n, h, w, pmax, ps,
                                  torch.cuda.get_device_properties(0)
-                                 .multi_processor_count)
+                                 .multi_processor_count, d)
     assert splits > 2
     lp = pmax * ps
     bt = torch.randperm(n * pmax, generator=g, device="cuda").reshape(
@@ -358,15 +360,100 @@ def test_qkv_forward_on_wgmma_matches_the_plain_version(d, causal, s):
 
 
 @pytest.mark.cuda
-def test_flash_attention_refuses_head_dim_above_128_on_a_card():
-    """A CUDA tensor with head_dim 256 raises (ROADMAP B2): no plain or
-    library fallback on the card."""
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [192, 256])
+def test_flash_attention_refuses_head_dim_above_128_on_a_card(dtype, d):
+    """Heads above 128 are no longer refused on a card: the kernels
+    sliced over D run them, forward and backward, against their plain
+    versions at a key-padded causal shape with dropout (Sq != Sk, lengths
+    not multiples of 64): f32 at 1e-4 (summation order), bf16 o, dq, dk
+    and dv within 8 bf16 ulps of each element's scale, lse at 1e-4; each
+    launch counted once. Through `flash_attention` the grads reach q, k
+    and v at their own width."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the Hopper kernels run only on "
                     "the card")
-    q = torch.zeros((1, 128, 2, 256), device="cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP B2"):
-        pfa.flash_attention(q, q, q)
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(d)
+    b, s_q, s_k, h = 2, 136, 200, 2
+    q, do = (torch.randn((b, s_q, h, d), generator=g, device="cuda").to(dt)
+             for _ in range(2))
+    k, v = (torch.randn((b, s_k, h, d), generator=g, device="cuda").to(dt)
+            for _ in range(2))
+    lens = torch.tensor([s_k, s_k - 77], device="cuda")
+    mask = torch.arange(s_k, device="cuda")[None] < lens[:, None]
+    kw = dict(bias=pfa.normalize_mask_bias(mask[:, None, None, :]),
+              dropout_p=0.1,
+              seed=torch.tensor([5], dtype=torch.int32, device="cuda"))
+    kernels.reset_kernel_launch_counts()
+    o, lse = pfa.flash_attention_fwd(q, k, v, True, **kw)
+    ro, rlse = pfa.flash_reference(q, k, v, True, **kw)
+    grads = pfa.flash_attention_bwd(q, k, v, ro, rlse, do, True, **kw)
+    rgrads = pfa.flash_bwd_reference(q, k, v, ro, rlse, do, True, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse, rlse, atol=1e-4, rtol=0)
+    for part, x, ref in zip(("o", "dq", "dk", "dv"), (o, *grads),
+                            (ro, *rgrads)):
+        if dtype == "float32":
+            torch.testing.assert_close(x, ref, atol=1e-4, rtol=0)
+        else:
+            assert _ulps(x, ref, d) <= 8, part
+    counts = kernels.kernel_launch_counts()
+    assert counts["flash_attention_fwd"] == counts["flash_attention_bwd"] == 1
+    x = q.detach().requires_grad_()
+    pfa.flash_attention(x, x, x, attn_mask=mask[:, None, None, :s_q]
+                        ).float().sum().backward()
+    assert x.grad.shape == x.shape and torch.isfinite(x.grad.float()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pages", ["bfloat16", "int8"])
+@pytest.mark.parametrize("d,ps", [(80, 4), (80, 3), (16, 4), (80, 16)])
+@pytest.mark.parametrize("w", [1, 5])
+def test_paged_kernel_at_any_head_dim_and_page_size_on_a_card(pages, d, ps,
+                                                               w):
+    """The paged kernel at head dims that are not 64 or 128 (gpt3-2.7b's
+    80, gpt-test's 16) and page sizes that are not multiples of 8 (its
+    ring chunks then end inside a page), on bf16 and int8 pools kept at
+    the model's D, against its plain version (out at 2e-2, lse at 1e-3),
+    with a row of left pads, a row with no readable column and a row
+    parked on the sentinel; one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the Hopper kernels run only on "
+                    "the card")
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.kernels import paged_kv
+
+    g = torch.Generator(device="cuda").manual_seed(d * ps + w)
+    n, h, pmax = 4, 4, 11
+    pools = [torch.randn((n * pmax + 1, h, ps, d), generator=g,
+                         device="cuda") for _ in range(2)]
+    scales = None
+    if pages == "bfloat16":
+        pools = [p.to(torch.bfloat16) for p in pools]
+    else:
+        pools, scales = zip(*(paged_kv.quantize_tokens(p, torch.int8)
+                              for p in pools))
+    bt = torch.randperm(n * pmax, generator=g, device="cuda").reshape(
+        n, pmax).to(torch.int32)
+    lp = pmax * ps
+    steps = torch.tensor([lp - w, lp // 2, 3, 0], dtype=torch.int32,
+                         device="cuda")
+    vc = torch.ones((n, lp), dtype=torch.int32, device="cuda")
+    vc[0, :ps + 1] = 0                           # left pads past a page
+    vc[1] = 0                                    # no readable column
+    bt[3], vc[3] = n * pmax, 0                   # parked on the sentinel
+    q = torch.randn((n, h, w, d), generator=g, device="cuda").to(
+        torch.bfloat16)
+    args = (q, *pools, bt, steps, vc)
+    kw = {} if scales is None else dict(k_scale=scales[0], v_scale=scales[1])
+    kernels.reset_kernel_launch_counts()
+    out, lse = pa.fused_paged_attention(*args, **kw)
+    ref, ref_lse = pa.paged_attention_reference(*args, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+    assert sum(v for k, v in kernels.kernel_launch_counts().items()
+               if k.startswith("paged")) == 1
 
 
 def _ulps(x, ref, d):

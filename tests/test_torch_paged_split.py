@@ -10,7 +10,7 @@ things of that design are plain Python and are pinned here:
 - the walk and merge rule that the CUDA code follows, written out below
   (`split_and_combine`): each split walks its live pages (or, when the
   tile's first query has no readable column in the row, all of its
-  pages), four warps take them round robin in 16-column chunks with
+  pages), four warps take them round robin in `chunk_cols`-column chunks with
   their own online softmax, the warps merge, then the splits merge with
   M = max m and weights exp(m - M). It is held against
   `paged_attention_reference` and paddle_tpu's Pallas kernel in
@@ -60,7 +60,7 @@ SHAPES = [  # (N, H, W, Pmax, ps)
 @pytest.mark.parametrize("n,h,w,pmax,ps", SHAPES)
 @pytest.mark.parametrize("sms", [1, 78, H100_SMS])
 def test_every_page_falls_in_exactly_one_split(n, h, w, pmax, ps, sms):
-    splits, pps = pa.plan_splits(n, h, w, pmax, ps, sms)
+    splits, pps = pa.plan_splits(n, h, w, pmax, ps, sms, 128)
     assert splits >= 1 and pps >= 1
     owner = [p // pps for p in range(pmax)]
     assert set(owner) == set(range(splits))           # no empty split
@@ -71,8 +71,8 @@ def test_every_page_falls_in_exactly_one_split(n, h, w, pmax, ps, sms):
 
 @pytest.mark.parametrize("n,h,w,pmax,ps", [SHAPES[0], SHAPES[1], SHAPES[2]])
 def test_engine_and_tail_shapes_fill_the_card(n, h, w, pmax, ps):
-    splits, _ = pa.plan_splits(n, h, w, pmax, ps, H100_SMS)
-    tiles = -(-w // pa.query_tile(w))
+    splits, _ = pa.plan_splits(n, h, w, pmax, ps, H100_SMS, 128)
+    tiles = -(-w // pa.query_tile(w, 128))
     assert n * h * tiles * splits >= 2 * H100_SMS
     assert splits >= 2
 
@@ -83,8 +83,8 @@ def test_planner_reads_no_tensor():
     valid_cols would wait for the card every decode step)."""
     names = {i.argval for i in dis.get_instructions(pa.plan_splits)}
     assert not names & {"torch", "item", "tolist", "cpu", "numpy"}
-    assert pa.plan_splits(8, 16, 1, 40, 16, H100_SMS) == (5, 8)
-    assert pa.plan_splits(32, 16, 1, 8, 16, H100_SMS) == (2, 4)
+    assert pa.plan_splits(8, 16, 1, 40, 16, H100_SMS, 128) == (5, 8)
+    assert pa.plan_splits(32, 16, 1, 8, 16, H100_SMS, 128) == (2, 4)
 
 
 # ------------------------------------------------------ the walk and merge
@@ -101,9 +101,9 @@ def split_and_combine(q, pool_k, pool_v, bt, steps, vc, sms=H100_SMS):
     n, h, w, d = q.shape
     ps = pool_k.shape[2]
     pmax = bt.shape[1]
-    tile = pa.query_tile(w)
-    splits, pps = pa.plan_splits(n, h, w, pmax, ps, sms)
-    chunk = 16 if ps % 16 == 0 else 8
+    tile = pa.query_tile(w, d)
+    splits, pps = pa.plan_splits(n, h, w, pmax, ps, sms, d)
+    chunk = pa.chunk_cols(pa.kernel_width(d), pool_k.element_size())
     out = torch.empty_like(q)
     lse = torch.empty((n, h, w))
     view_k = gather_pages(pool_k, bt).float()          # [N, H, L, D]
@@ -131,11 +131,13 @@ def split_and_combine(q, pool_k, pool_v, bt, steps, vc, sms=H100_SMS):
                         if not uniform and not (vc[r, c0:c1] != 0).any():
                             continue                      # a dead page
                         for c in range(p * ps, p * ps + ps, chunk):
-                            cols = torch.arange(c, c + chunk)
+                            # a page's last chunk may be partial
+                            ce = min(c + chunk, p * ps + ps)
+                            cols = torch.arange(c, ce)
                             sc = torch.einsum(
-                                "hwd,hcd->hwc", qs, view_k[r, :, c:c + chunk]
+                                "hwd,hcd->hwc", qs, view_k[r, :, c:ce]
                             ) / math.sqrt(d)
-                            ok = ((vc[r, c:c + chunk] != 0)[None, :]
+                            ok = ((vc[r, c:ce] != 0)[None, :]
                                   & (cols[None, :] <= cur[:, None]))
                             sc = sc.masked_fill(~ok[None], MASKED)
                             m_new = torch.maximum(m, sc.amax(-1))
@@ -143,8 +145,7 @@ def split_and_combine(q, pool_k, pool_v, bt, steps, vc, sms=H100_SMS):
                             pr = torch.exp(sc - m_new[..., None])
                             l = l * alpha + pr.sum(-1)
                             o = o * alpha[..., None] + torch.einsum(
-                                "hwc,hcd->hwd", pr,
-                                view_v[r, :, c:c + chunk])
+                                "hwc,hcd->hwd", pr, view_v[r, :, c:ce])
                             m = m_new
                     warps.append((m, l, o))
                 parts.append(_merge(*zip(*warps)))
@@ -220,3 +221,18 @@ def test_w3_tile_with_one_readable_query(interpret_kernel):
     np.testing.assert_allclose(
         got[1, :, 2].numpy(), gather_pages(*_t(pv, bt))[1, :, 22].numpy(),
         atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("d,ps,w", [(80, 3, 1), (80, 4, 5), (16, 5, 3),
+                                    (200, 16, 5), (16, 1, 1)])
+def test_split_and_combine_at_any_head_dim_and_page_size(d, ps, w):
+    """The walk at head dims that are not 64 or 128 and page sizes whose
+    last ring chunk is partial (its columns past the page weigh nothing,
+    even in a row with no readable column), against the plain version,
+    on the same special rows as above."""
+    args = _case(d + ps + w, w, ps=ps, d=d, pmax=7)
+    got, got_lse = split_and_combine(*_t(*args))
+    ref, ref_lse = pa.paged_attention_reference(*_t(*args))
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got_lse.numpy(), ref_lse.numpy(), atol=ATOL,
+                               rtol=1e-6)
