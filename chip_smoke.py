@@ -149,9 +149,11 @@ Phases, in order; any failure exits non-zero:
    s1024 batches with a key-padding mask (lengths in [768, 1024)): the
    bf16 loss and grads against a float32 copy whose attention composes
    (phase 6's tolerances), then five timed steps in which B2's forward
-   and backward (at D=256, the kernels sliced over D) launch exactly
-   steps x layers times each and no other kernel runs; step ms p50,
-   tokens/s, peak memory and B2's device time a step.
+   and backward (at D=256: the wgmma forward on 64-key tiles and the
+   one-pass backward on 64-key blocks) launch exactly steps x layers
+   times each and no other kernel runs; step ms p50, tokens/s, peak
+   memory and B2's device time a step from a profile, in which no kernel
+   sliced over D may appear.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device":
@@ -212,6 +214,12 @@ B2_KERNELS = ("::fwd_wg_kernel<", "::bwd_wg_kernel<", "flash_delta_kernel<",
 # B1's and B5's bf16 kernels: the qkv forward (csrc/flash_attention_qkv.cu)
 # and B2's backward
 QKV_KERNELS = ("::flash_fwd_wg_kernel<", *B2_KERNELS[1:])
+# B2's bf16 kernels at D=256 (phase 13): the wgmma forward resized, the
+# one-pass backward of 64-key blocks, its pre- and post-pass; and the
+# kernels sliced over D, which bf16 runs only above 256
+B2_D256_KERNELS = ("::fwd_wg_kernel<256>(", "::bwd_wg_wide_kernel<256>(",
+                   "flash_delta_kernel<", "::bwd_dq_round_kernel<256>(")
+SLICED_TC_KERNELS = ("_wide_tc_kernel(",)
 # the backward's times before it moved onto B2's kernel (PERF.md §6, the
 # mma.sync kernels' last readings: PR 8's final run; the fused BERT's
 # shape PR 7's), printed beside the new ones
@@ -1309,13 +1317,14 @@ def general_flash_phase(torch):
 
 
 def wide_flash_phase(torch):
-    """B2 and B4 at head dims above 128 (the kernels sliced over D).
-    B2's kernels against their plain versions (`general_compare`: f32 at
-    TOL_F32, bf16 at BF16_ULPS_O ulps beside a float32 control) at D 192,
-    256 and 384, f32 and bf16, at phase 3's edge shapes: (e) Sq=128
-    Sk=384 causal, dropout 0.1; (f) S=200 key padding, dropout 0.1; (h)
-    Sq=256 Sk=320 with a full [B,Sq,Sk] bias; (i) S=200 with a fully
-    masked row. B4 at D=256 against its plain versions under a random
+    """B2 and B4 at head dims above 128: bf16 at D 192 and 256 on the
+    wgmma kernels resized (64-key tiles and blocks), f32 and bf16 above
+    256 on the kernels sliced over D. B2's kernels against their plain
+    versions (`general_compare`: f32 at TOL_F32, bf16 at BF16_ULPS_O ulps
+    beside a float32 control) at D 192, 256 and 384, f32 and bf16, at
+    phase 3's edge shapes: (e) Sq=128 Sk=384 causal, dropout 0.1; (f)
+    S=200 key padding, dropout 0.1; (h) Sq=256 Sk=320 with a full
+    [B,Sq,Sk] bias; (i) S=200 with a fully masked row. B4 at D=256 against its plain versions under a random
     lse cotangent (`b4_compare`), causal and full, f32 and bf16. Then
     times at Gemma-2B's attention shape (GEMMA_ATTN: B4 S1024 H8 D256
     bf16), causal at p=0 and key-padded (lengths in [768, 1024)) at
@@ -1968,17 +1977,20 @@ def profile_decode(torch, eng, prompts, steps=8):
     profile_steps(torch, eng.step, steps, "full decode steps")
 
 
-def profile_steps(torch, fn, steps, what, families=None):
+def profile_steps(torch, fn, steps, what, families=None, absent=()):
     """``steps`` calls of ``fn`` under torch.profiler: prints the device's
     busy share of the wall time, the kernels that take the most of it
     and, for each of ``families`` (label -> substrings of kernel names),
-    the device time of the kernels it names. Returns ``(wall ms/step,
-    busy ms/step)``."""
+    the device time of the kernels it names; fails if a kernel whose name
+    holds one of ``absent`` ran. Returns ``(wall ms/step, busy
+    ms/step)``."""
     def run():
         for _ in range(steps):
             fn()
 
     wall_us, busy_us, per, launches, host = profile_totals(torch, run)
+    ran = [k for k in per if any(x in k for x in absent)]
+    check(not ran, f"{what}: kernels {ran} ran, none of {absent} should")
     print(f"  profile of {steps} {what}: wall "
           f"{wall_us / steps / 1e3:.3f} ms/step, device busy "
           f"{busy_us / steps / 1e3:.3f} ms/step "
@@ -3417,13 +3429,14 @@ def gemma_phase(torch, seed, card):
     16384) trains through `SpmdTrainStep` with AdamW (bf16 params and
     moments, lr 1e-4, wd 0.01) on b4 x s1024 batches with a key-padding
     mask and dropout 0.1: every layer's attention runs B2 at D=256 (the
-    kernels sliced over D). First, on two sequences at dropout 0, the
-    bf16 loss and grads against a float32 copy whose attention is
-    composed (phase 6's tolerances); then one warm-up step and
+    wgmma kernels on 64-key tiles and blocks). First, on two sequences
+    at dropout 0, the bf16 loss and grads against a float32 copy whose
+    attention is composed (phase 6's tolerances); then one warm-up step and
     TRAIN_STEPS timed steps with the launch counts zeroed just before
     them: B2's forward and backward launch exactly steps x layers times
     each, no other kernel, every loss finite. Prints step ms p50,
-    tokens/s, peak memory and B2's device ms a step from a profile.
+    tokens/s, peak memory and B2's device ms a step from a profile, in
+    which no kernel sliced over D may run.
     Returns B2's launch counts under the names of its D=256 records."""
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.distributed import SpmdTrainStep
@@ -3483,11 +3496,15 @@ def gemma_phase(torch, seed, card):
         _, params, opt_state = step(params, opt_state, batches[i], 100 + i)
 
     profile_steps(torch, one, 2, "training steps at Gemma-2B's widths", {
-        "B2 at D=256 (forward, dk/dv and dq passes, delta pre-pass)": (
-            "::fwd_wide_tc_kernel(", "::dkdv_wide_tc_kernel(",
-            "::dq_wide_tc_kernel(", "flash_delta_kernel<"),
-        "of which the backward (dk/dv and dq passes)": (
-            "::dkdv_wide_tc_kernel(", "::dq_wide_tc_kernel(")})
+        "B2 at D=256 (forward, one-pass backward, its pre- and post-pass)":
+            B2_D256_KERNELS,
+        "of which the forward (fwd_wg_kernel<256>)": B2_D256_KERNELS[:1],
+        "of which the backward (bwd_wg_wide_kernel<256>)":
+            B2_D256_KERNELS[1:2],
+        "and its pre- and post-pass": B2_D256_KERNELS[2:]},
+        absent=SLICED_TC_KERNELS)
+    print(f"    no kernel sliced over D (names holding {SLICED_TC_KERNELS}) "
+          "ran  ok")
     del model, step, params, opt_state, batches
     gc.collect()
     torch.cuda.empty_cache()

@@ -71,9 +71,9 @@
 // replaced past Sk or have p = 0 past Sq; rows past the array read 0):
 // - forward (`fwd_wg_kernel`), flash_attention_qkv.cu's template: a
 //   persistent grid of 128-query tiles, longest causal rows first; a
-//   producer warp streams 128-key K/V tiles through a 2-3 stage ring with
-//   full/empty mbarriers and stages the key-padding bias row of each tile
-//   in shared memory; two consumer warpgroups of 64 rows run S = Q.K^T
+//   producer warp streams 128-key K/V tiles (64 above D = 128) through a
+//   2-3 stage ring with full/empty mbarriers and stages the key-padding
+//   bias row of each tile in shared memory; two consumer warpgroups of 64 rows run S = Q.K^T
 //   (wgmma from shared memory), the online softmax on the accumulator
 //   fragments (m in natural units, each exponential one ex2 of (s - m) *
 //   log2(e)), and O += P.V with P in registers and V through a transposed
@@ -103,17 +103,35 @@
 // f32 runs on FMAs (the tensor cores have no exact f32 mode) and serves
 // the agreement checks: one block per (b, h, 64-query tile) with an online
 // softmax over 64-key tiles; the backward a delta pre-pass, a dk/dv pass
-// and a dq pass, both recomputing P from lse. Heads above 128 run
-// kernels sliced over D (below): f32 on the same FMA tiles
-// (`fwd_wide_kernel`, `dkdv_wide_kernel`, `dq_wide_kernel`), bf16 on
-// mma.sync (`fwd_wide_tc_kernel`, `dkdv_wide_tc_kernel`,
-// `dq_wide_tc_kernel`), in the f32 kernels' three-pass shape: at D=256
-// one 128-key bf16 K tile alone is 64 KB, so the wgmma forward's K/V ring
-// and its 64 x 256 f32 O accumulator (128 registers a thread) do not
-// fit. They are the first right kernels for such heads, not fast ones
-// (at Gemma-2B's B4 S1024 H8 D256 causal the forward needs 17.2 GFLOP,
-// 0.0174 ms at 989 TFLOP/s; the scores are recomputed once per 128-wide
-// output slice).
+// and a dq pass, both recomputing P from lse.
+//
+// Heads of 192 and 256 (Gemma-2B's 8 heads of 256), bf16: the same two
+// kernels resized, since a 128-key tile of 256 columns is 64 KB and a 64
+// x 256 f32 accumulator 128 registers a thread. The forward
+// (`fwd_wg_kernel<192|256>`) takes 64-key K/V tiles, a single Q buffer,
+// and forms O += P.V with N = D in one product; the scores are formed
+// once. The backward (`bwd_wg_wide_kernel`) owns 64 keys a block and
+// splits its two consumer groups by role (S^T, P^T and dV; dP^T, dS^T
+// and dK), each holding all D columns of its accumulator across the query
+// loop. Budgets at D = 256 (227 KB of shared memory, 64K registers): the
+// forward Q 64 KB + 2 stages x (K 32 + V 32 KB) = 192 KB, a consumer
+// thread O 128 + S 32 + P 16 registers; the backward K 32 + V 32 + 2
+// stages x (Q 32 + dO 32) + dS^T 8 + P^T 16 KB = 216 KB, a consumer
+// thread dV or dK 128 + S^T or dP^T 32 + its bf16 A operand 16 + a
+// 64-column dQ chunk 32 registers; consumers setmaxnreg 232, the
+// producer 40; ptxas: no spills. Bound at phase 13's shape (B4 S1024 H8
+// D256, key padding with lengths in [768, 1024), dropout 0.1, counting
+// the visible pairs): operations, 0.0296 ms forward (4*D flops a pair)
+// and 0.0740 ms backward (10*D) at 989 TFLOP/s. What they leave: dQ's
+// atomics come once per 64-key block (twice as often as at 128 keys), the
+// backward's groups wait on each other twice a query tile (P^T, dS^T),
+// the forward rescales its 128-register O every 64 keys, and neither
+// overlaps its softmax with its products. The kernels sliced over D
+// (below) keep f32 above 128, on the same FMA tiles (`fwd_wide_kernel`,
+// `dkdv_wide_kernel`, `dq_wide_kernel`), and bf16 above 256, on mma.sync
+// (`fwd_wide_tc_kernel`, `dkdv_wide_tc_kernel`, `dq_wide_tc_kernel`),
+// where a 64 x 384 K tile and a 192-register O do not fit the design
+// above; no model of either catalog has such heads.
 //
 // Bound on the H100, at BERT-large's training shape (B8 S512 H16 D64,
 // bf16, a [B,1,1,S] key-padding mask with lengths in [384, 512), counting
@@ -499,8 +517,9 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Params p) {
 }
 
 // ------------------------------------------------- D > 128: D sliced
-// Heads wider than 128 (D a multiple of 64; the wrapper zero-pads a head
-// dim between to the next one, `kernel_head_dim`), with D cut two ways:
+// f32 heads wider than 128 and bf16 heads wider than 256 (D a multiple of
+// 64; the wrapper zero-pads a head dim between to the next one,
+// `kernel_head_dim`), with D cut two ways:
 // every product over D (the scores Q.K^T, and dO.V^T) runs over
 // 128-column chunks streamed through shared memory, and each block owns
 // one 128-column slice of its output (o; dk and dv; dq), a grid axis.
@@ -509,10 +528,10 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Params p) {
 // block) only. Chunks of the f32 backward run in the order that leaves
 // the block's own slice of Q and dO (dk/dv pass) or of K (dq pass) in
 // shared memory for its output's product. f32 runs the f32 kernels' 64 x
-// 64 FMA tiles so; bf16 runs mma.sync (below). At D=256 one 128-key bf16
-// K tile alone is 64 KB, so the wgmma forward's K/V ring and its 64 x 256
-// f32 O accumulator (128 registers a thread) do not fit: these are the
-// first right kernels for such heads, the scores recomputed D/128 times.
+// 64 FMA tiles so; bf16 runs mma.sync (below). They are the first right
+// kernels for such heads, the scores recomputed D/128 times; bf16 at D
+// 192 and 256 runs the wgmma kernels resized instead (`fwd_wg_kernel`,
+// `bwd_wg_wide_kernel`).
 constexpr int kWS = 128;              // a chunk and an output slice
 constexpr int kLW = kWS + 1;          // padded row stride of a chunk tile
 
@@ -760,7 +779,7 @@ dq_wide_kernel(const Params p, int D) {
   }
 }
 
-// bf16 above 128: the same slicing on the tensor cores (mma.sync
+// bf16 above 256: the same slicing on the tensor cores (mma.sync
 // m16n8k16, f32 accumulate). Each of 4 warps owns 16 rows of its block's
 // 64-row tile (query rows in the forward and the dq pass, key rows in the
 // dk/dv pass); operands come from bf16 tiles in shared memory whose
@@ -1166,8 +1185,9 @@ using hopper::kBoxBytes;
 using hopper::kLog2e;
 
 constexpr int kRowsW = 64;        // query rows of a consumer warpgroup
-constexpr int kKeysW = 128;       // keys of a forward K/V tile; of a
-                                  // backward block (64 a consumer)
+constexpr int kKeysW = 128;       // keys of a forward K/V tile at D <= 128;
+                                  // of a backward block (64 a consumer)
+constexpr int kKeysN = 64;        // the same above D = 128
 constexpr int kThreadsW = 384;    // producer + 2 consumer warpgroups
 constexpr int kSlabBytes = 2 * kBoxBytes;   // 128 rows x 64 columns
 
@@ -1206,12 +1226,13 @@ __device__ __forceinline__ float full_bias(const Params& p, const float* rows,
   return __ldg(rows + (int64_t)min(q, p.Sq - 1) * p.Sk + c);
 }
 
-// 32 producer lanes stage the key-padding row's columns [k0, k0 + 128)
+// 32 producer lanes stage the key-padding row's columns [k0, k0 + kKeys)
 // (0 past Sk) in shared memory.
+template <int kKeys>
 __device__ __forceinline__ void stage_bias_row(float* dst, const float* row,
                                                int k0, int Sk, int lane) {
 #pragma unroll
-  for (int i = 0; i < kKeysW / 32; ++i) {
+  for (int i = 0; i < kKeys / 32; ++i) {
     const int col = lane + 32 * i, c = k0 + col;
     dst[col] = c < Sk ? __ldg(row + c) : 0.f;
   }
@@ -1219,21 +1240,32 @@ __device__ __forceinline__ void stage_bias_row(float* dst, const float* row,
 
 // ---------------------------------------------------------------- forward
 // Persistent grid: one block an SM walks 128-query tiles, longest causal
-// rows first. A producer warp loads each tile's Q (double-buffered) and
-// streams its 128-key K and V tiles by TMA through a ring of
-// `fwd_stages` stages, with the key-padding bias row of each; two
-// consumer warpgroups of 64 query rows compute S = Q.K^T (wgmma from
-// shared memory), the online softmax on the accumulator fragments, and
-// O += P.V (P in registers, V through a transposed descriptor).
-// Shared memory: Q [2 tiles][2 halves][D/64 boxes], then per stage K and
-// V [D/64 slabs][128 rows][64 columns], each box as the TMA writes it.
+// rows first. A producer warp loads each tile's Q (double-buffered at D <=
+// 128, single above) and streams its K and V tiles (`fwd_keys` keys) by
+// TMA through a ring of `fwd_stages` stages, with the key-padding bias
+// row of each; two consumer warpgroups of 64 query rows compute S =
+// Q.K^T (wgmma from shared memory), the online softmax on the
+// accumulator fragments, and O += P.V (P in registers, V through a
+// transposed descriptor, N = D in one product). Shared memory: Q [Q
+// buffers][2 halves][D/64 boxes], then per stage K and V [D/64
+// slabs][keys][64 columns], each box as the TMA writes it.
+template <int D>
+__host__ __device__ constexpr int fwd_keys() {
+  return D <= 128 ? kKeysW : kKeysN;
+}
+template <int D>
+__host__ __device__ constexpr int fwd_qbufs() {
+  return D <= 128 ? 2 : 1;
+}
 template <int D>
 __host__ __device__ constexpr int fwd_stages() {
-  return D == 128 ? 2 : 3;
+  return D == 128 || D == 256 ? 2 : 3;
 }
 template <int D>
 constexpr size_t fwd_wg_smem() {
-  return 1024 + (size_t)(4 + 4 * fwd_stages<D>()) * (D / kBox) * kBoxBytes;
+  return 1024 + (size_t)(2 * fwd_qbufs<D>() +
+                         2 * fwd_stages<D>() * (fwd_keys<D>() / kBox)) *
+                    (D / kBox) * kBoxBytes;
 }
 
 struct FwdTile {
@@ -1244,28 +1276,29 @@ __device__ __forceinline__ FwdTile fwd_tile(int t, int nq, int H, int B) {
   return {nq - 1 - j, r % H, r / H};
 }
 
-// Key tiles of 128 that the 128-query tile at q0 needs.
+// Key tiles of kKeys that the 128-query tile at q0 needs.
+template <int kKeys>
 __device__ __forceinline__ int fwd_key_tiles(const Params& p, int q0) {
-  const int n = (p.Sk + kKeysW - 1) / kKeysW;
+  const int n = (p.Sk + kKeys - 1) / kKeys;
   if (!p.causal) return n;
   const int last = p.off + min(q0 + 2 * kRowsW, p.Sq) - 1;
-  return last < 0 ? 0 : min(n, last / kKeysW + 1);
+  return last < 0 ? 0 : min(n, last / kKeys + 1);
 }
 
-// The forward's scores of one 128-key tile in a consumer thread's
+// The forward's scores of one key tile in a consumer thread's
 // fragments (rows row, row + 8; columns j*8 + 2qi + (e & 1)), and their
 // row maxima: kPlain s = q.k * scale; kRowBias adds the staged
 // key-padding row; kGeneral adds either bias and replaces a key past Sk
 // or past the causal diagonal by -1e30.
 constexpr int kPlain = 0, kRowBias = 1, kGeneral = 2;
-template <int kMode>
-__device__ __forceinline__ void fwd_scores(float (&sc)[kKeysW / 8][4],
+template <int kMode, int NS>
+__device__ __forceinline__ void fwd_scores(float (&sc)[NS][4],
                                            float (&mx)[2], const Params& p,
                                            const BiasRows& br,
                                            const float* bias_tile, int row,
                                            int k0, int qi) {
 #pragma unroll
-  for (int j = 0; j < kKeysW / 8; ++j)
+  for (int j = 0; j < NS; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int col = j * 8 + 2 * qi + (e & 1), ck = k0 + col;
@@ -1288,14 +1321,14 @@ __device__ __forceinline__ void fwd_scores(float (&sc)[kKeysW / 8][4],
 // The forward's p = exp(s - m) of one tile in place, summed raw into
 // `sum`, then times keep/scale with dropout (a template parameter, like
 // the score forms, so that no per-score branch remains).
-template <bool kDrop>
-__device__ __forceinline__ void fwd_probs(float (&sc)[kKeysW / 8][4],
+template <bool kDrop, int NS>
+__device__ __forceinline__ void fwd_probs(float (&sc)[NS][4],
                                           float (&sum)[2],
                                           const float (&m)[2], const Drop& dr,
                                           float inv_keep, int row, int k0,
                                           int qi) {
 #pragma unroll
-  for (int j = 0; j < kKeysW / 8; ++j)
+  for (int j = 0; j < NS; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float pv = ex2((sc[j][e] - m[e >> 1]) * kLog2e);
@@ -1314,18 +1347,21 @@ fwd_wg_kernel(const __grid_constant__ Maps maps, const Params p) {
   using namespace hopper;
   constexpr int NB = D / kBox;          // boxes across a head's columns
   constexpr int ND = D / 8;             // 8-column n-tiles of O
-  constexpr int NS = kKeysW / 8;        // 8-column n-tiles of S
+  constexpr int kKeys = fwd_keys<D>();  // keys of a K/V tile
+  constexpr int NS = kKeys / 8;         // 8-column n-tiles of S
   constexpr int kStages = fwd_stages<D>();
+  constexpr int kQBufs = fwd_qbufs<D>();
   constexpr int kTileBytes = NB * kBoxBytes;          // 64 rows x D
-  constexpr int kKVBytes = NB * kSlabBytes;           // 128 keys x D
+  constexpr int kKSlab = kKeys * 128;                 // kKeys rows x 64
+  constexpr int kKVBytes = NB * kKSlab;               // kKeys keys x D
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full_bar[kStages], empty_bar[kStages];
-  __shared__ __align__(8) uint64_t qfull_bar[2], qempty_bar[2];
-  __shared__ float bias_s[kStages][kKeysW];
+  __shared__ __align__(8) uint64_t qfull_bar[kQBufs], qempty_bar[kQBufs];
+  __shared__ float bias_s[kStages][kKeys];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  unsigned char* Qs = smem;                    // [2 tiles][2][NB]
-  unsigned char* KVs = smem + 4 * kTileBytes;  // [stage][K|V][NB slabs]
+  unsigned char* Qs = smem;                    // [kQBufs tiles][2][NB]
+  unsigned char* KVs = smem + 2 * kQBufs * kTileBytes;  // [stage][K|V][NB]
 
   const int nq = (p.Sq + 2 * kRowsW - 1) / (2 * kRowsW);
   const int tiles = nq * p.H * p.B;
@@ -1336,7 +1372,7 @@ fwd_wg_kernel(const __grid_constant__ Maps maps, const Params p) {
       mbar_init(&full_bar[s], 1 + 32);   // expect_tx + every producer lane
       mbar_init(&empty_bar[s], 2 * 4);   // one arrival a consumer warp
     }
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < kQBufs; ++i) {
       mbar_init(&qfull_bar[i], 1);
       mbar_init(&qempty_bar[i], 2 * 4);
     }
@@ -1355,11 +1391,11 @@ fwd_wg_kernel(const __grid_constant__ Maps maps, const Params p) {
         const FwdTile f = fwd_tile(t, nq, p.H, p.B);
         const BiasRows br = bias_rows(p, f.b);
         const int q0 = f.qt * 2 * kRowsW;
-        const int nk = fwd_key_tiles(p, q0);
-        const int qb = n & 1;
+        const int nk = fwd_key_tiles<kKeys>(p, q0);
+        const int qb = n % kQBufs;
         const int col = head_col(p, f.h, D);
         // the warp waits together; lane 0 issues the copies
-        mbar_wait(&qempty_bar[qb], ((n >> 1) & 1) ^ 1);
+        mbar_wait(&qempty_bar[qb], ((n / kQBufs) & 1) ^ 1);
         if (lane == 0) {
           const int active = min(2, (p.Sq - q0 + kRowsW - 1) / kRowsW);
           mbar_expect_tx(&qfull_bar[qb], active * kTileBytes);
@@ -1377,19 +1413,20 @@ fwd_wg_kernel(const __grid_constant__ Maps maps, const Params p) {
             mbar_expect_tx(&full_bar[s], 2 * kKVBytes);
             unsigned char* Ks = KVs + s * 2 * kKVBytes;
             unsigned char* Vs = Ks + kKVBytes;
-            // each 64-column slab: two 64-row boxes, one after the other
+            // each 64-column slab: kKeys / 64 boxes, one after the other
             for (int j = 0; j < NB; ++j)
-              for (int r = 0; r < 2; ++r) {
-                const int row = f.b * p.Sk + kt * kKeysW + r * kBox;
-                tma_load_2d(Ks + j * kSlabBytes + r * kBoxBytes, &maps.k,
+              for (int r = 0; r < kKeys / kBox; ++r) {
+                const int row = f.b * p.Sk + kt * kKeys + r * kBox;
+                tma_load_2d(Ks + j * kKSlab + r * kBoxBytes, &maps.k,
                             &full_bar[s], col + p.kcol + j * kBox, row);
-                tma_load_2d(Vs + j * kSlabBytes + r * kBoxBytes, &maps.v,
+                tma_load_2d(Vs + j * kKSlab + r * kBoxBytes, &maps.v,
                             &full_bar[s], col + p.vcol + j * kBox, row);
               }
           }
           __syncwarp();
           if (br.row != nullptr && !br.full)
-            stage_bias_row(bias_s[s], br.row, kt * kKeysW, p.Sk, lane);
+            stage_bias_row<kKeys>(bias_s[s], br.row, kt * kKeys, p.Sk,
+                                  lane);
           mbar_arrive(&full_bar[s]);
         }
       }
@@ -1411,12 +1448,12 @@ fwd_wg_kernel(const __grid_constant__ Maps maps, const Params p) {
     const BiasRows br = bias_rows(p, f.b);
     const int bh = f.b * p.H + f.h;
     const int q0 = f.qt * 2 * kRowsW;
-    const int nk = fwd_key_tiles(p, q0);
+    const int nk = fwd_key_tiles<kKeys>(p, q0);
     const int my_q0 = q0 + c * kRowsW;
     const bool live = my_q0 < p.Sq;
     const int my_nk = live ? nk : 0;
     const int row = my_q0 + r0 + gi;     // this thread's rows: row, row + 8
-    const int qb = n & 1;
+    const int qb = n % kQBufs;
     const unsigned char* Qc = Qs + (qb * 2 + c) * kTileBytes;
 
     float o[ND][4], m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};
@@ -1424,7 +1461,7 @@ fwd_wg_kernel(const __grid_constant__ Maps maps, const Params p) {
     for (int j = 0; j < ND; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-    if (live) mbar_wait(&qfull_bar[qb], (n >> 1) & 1);
+    if (live) mbar_wait(&qfull_bar[qb], (n / kQBufs) & 1);
 
     for (int kt = 0; kt < nk; ++kt, ++it) {
       const int s = it % kStages;
@@ -1432,18 +1469,21 @@ fwd_wg_kernel(const __grid_constant__ Maps maps, const Params p) {
       if (kt < my_nk) {
         const unsigned char* Ks = KVs + s * 2 * kKVBytes;
         const unsigned char* Vs = Ks + kKVBytes;
-        const int k0 = kt * kKeysW;
+        const int k0 = kt * kKeys;
         float sc[NS][4];
         // S = Q.K^T: 16-column steps of the head dim, 32 bytes apart
         // inside a box's swizzled 128-byte rows
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
-          const int off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
-          wgmma_ss_n128(sc, desc_sw128(Qc + off, 16, 1024),
-                        desc_sw128(Ks + (kk / 4) * kSlabBytes + (kk % 4) * 32,
-                                   16, 1024),
-                        kk > 0);
+          const uint64_t dq = desc_sw128(
+              Qc + (kk / 4) * kBoxBytes + (kk % 4) * 32, 16, 1024);
+          const uint64_t dk =
+              desc_sw128(Ks + (kk / 4) * kKSlab + (kk % 4) * 32, 16, 1024);
+          if constexpr (kKeys == 64)
+            wgmma_ss_n64<0>(sc, dq, dk, kk > 0);
+          else
+            wgmma_ss_n128(sc, dq, dk, kk > 0);
         }
         wgmma_commit();
         wgmma_wait0();
@@ -1453,8 +1493,8 @@ fwd_wg_kernel(const __grid_constant__ Maps maps, const Params p) {
         // checks, a full bias) only where a tile needs it: predicated
         // instructions still issue, and per score they cost as much as
         // the rest of the softmax
-        const bool cut = k0 + kKeysW > p.Sk ||
-                         (p.causal && p.off + my_q0 < k0 + kKeysW - 1);
+        const bool cut = k0 + kKeys > p.Sk ||
+                         (p.causal && p.off + my_q0 < k0 + kKeys - 1);
         float mx[2] = {kMasked, kMasked};
         if (cut || br.full)
           fwd_scores<kGeneral>(sc, mx, p, br, bias_s[s], row, k0, qi);
@@ -1485,19 +1525,23 @@ fwd_wg_kernel(const __grid_constant__ Maps maps, const Params p) {
         for (int j = 0; j < ND; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
-        // O += P.V: 16 keys a step, V's rows 16 x 128 bytes apart; the
-        // second 64 columns of a 128-wide head lie one slab further
+        // O += P.V: 16 keys a step, V's rows 16 x 128 bytes apart; each
+        // further 64 columns of the head lie one slab further
         uint32_t pa[NS / 2][4];
 #pragma unroll
         for (int kk = 0; kk < NS / 2; ++kk) as_a(pa[kk], sc, kk);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < NS / 2; ++kk) {
-          const uint64_t dv = desc_sw128(Vs + kk * 16 * 128, kSlabBytes, 1024);
+          const uint64_t dv = desc_sw128(Vs + kk * 16 * 128, kKSlab, 1024);
           if constexpr (D == 64)
             wgmma_rs_n64(o, pa[kk], dv);
-          else
+          else if constexpr (D == 128)
             wgmma_rs_n128(o, pa[kk], dv);
+          else if constexpr (D == 192)
+            wgmma_rs_n192(o, pa[kk], dv);
+          else
+            wgmma_rs_n256(o, pa[kk], dv);
         }
         wgmma_commit();
         wgmma_wait0();
@@ -1664,7 +1708,7 @@ bwd_wg_kernel(const __grid_constant__ Maps maps, const Params p) {
       }
       __syncwarp();
       if (br.row != nullptr && !br.full)
-        stage_bias_row(bias_s, br.row, k0, p.Sk, lane);
+        stage_bias_row<kKeysW>(bias_s, br.row, k0, p.Sk, lane);
       mbar_arrive(&kv_bar);
       const float* lse_h = p.lse + (int64_t)bh * p.Sq;
       const float* delta_h = p.delta + (int64_t)bh * p.Sq;
@@ -1867,6 +1911,310 @@ bwd_wg_kernel(const __grid_constant__ Maps maps, const Params p) {
   }
 }
 
+// --------------------------------------------- backward above D = 128
+// One pass over key blocks as `bwd_wg_kernel`, at D 192 and 256, where a
+// 128-key block's K and V (128 KB at D = 256) and two 64 x D dK, dV
+// accumulators a warpgroup (256 registers a thread) do not fit. A block
+// owns (b, h, 64 keys); its producer warp loads the block's K and V once
+// by TMA (with the key-padding bias row), then streams 64-row Q and dO
+// tiles with their lse and delta rows through a ring of
+// `bwd_wide_stages` stages. The two consumer warpgroups split the work by
+// role over the same 64 keys:
+// - group 0 forms S^T = K Q^T and P^T (one ex2, one hash a score), hands
+//   P^T to group 1 through shared memory (f32, its sign the keep bit),
+//   and adds dV += (P^T keep) dO over all D columns (A in registers);
+// - group 1 forms dP^T = V dO^T, reads P^T, forms dS^T = P^T (dP^T keep
+//   - delta) scale, writes it to shared memory (bf16, swizzled) and adds
+//   dK += dS^T Q over all D columns;
+// - after a barrier of the two, each forms 64-column chunks of dQ = dS K
+//   over the 64 keys (chunks j = group, group + 2, ...; both operands
+//   MN-major) and adds them into the f32 accumulator with red.global
+//   (float2 atomicAdd), as `bwd_wg_kernel` does: dq's sums arrive in an
+//   order that varies from run to run.
+// Shared memory (every box as the TMA writes it): K, V [D/64 boxes][64
+// keys][64 columns]; per stage Q, dO [D/64][64][64]; dS^T [64 keys][64
+// queries] bf16, swizzled the same way; P^T [8][128 threads] float4, each
+// thread's fragment. At D = 256: 64 + 2 x 64 + 8 + 16 KB = 216 KB.
+template <int D>
+__host__ __device__ constexpr int bwd_wide_stages() {
+  return D == 192 ? 3 : 2;
+}
+constexpr int kPtBytes = kKeysN * kRowsW * 4;    // P^T, f32
+template <int D>
+constexpr size_t bwd_wide_smem() {
+  return 1024 + (size_t)(2 * (D / kBox) + 2 * (D / kBox) * bwd_wide_stages<D>() +
+                         1) * kBoxBytes + kPtBytes;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsW, 1)
+bwd_wg_wide_kernel(const __grid_constant__ Maps maps, const Params p) {
+  using namespace hopper;
+  constexpr int NB = D / kBox;
+  constexpr int ND = D / 8;              // 8-column n-tiles of dK, dV
+  constexpr int kStages = bwd_wide_stages<D>();
+  constexpr int kTileBytes = NB * kBoxBytes;      // 64 rows x D
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t kv_bar, full_bar[kStages],
+      empty_bar[kStages];
+  __shared__ float lse_s[kStages][kRowsW], delta_s[kStages][kRowsW];
+  __shared__ float bias_s[kKeysN];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* Ks = smem;
+  unsigned char* Vs = Ks + kTileBytes;
+  unsigned char* ring = Vs + kTileBytes;          // [stage][Q | dO]
+  unsigned char* dSs = ring + kStages * 2 * kTileBytes;   // [64][64] bf16
+  float4* Pt = reinterpret_cast<float4*>(dSs + kBoxBytes);   // [8][128]
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * kKeysN;    // z slowest: causal's longest first
+  const int bh = b * p.H + h;
+  const int q_first = p.causal ? first_query(p, k0) / kRowsW * kRowsW : 0;
+  const BiasRows br = bias_rows(p, b);
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&kv_bar, 1 + 32);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full_bar[s], 1 + 32);   // expect_tx + every producer lane
+      mbar_init(&empty_bar[s], 2 * 4);   // one arrival a consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---------------------------------------------------------- producer
+    setmaxnreg_dec<40>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      const int col = head_col(p, h, D);
+      if (lane == 0) {
+        mbar_expect_tx(&kv_bar, 2 * kTileBytes);
+        for (int j = 0; j < NB; ++j) {
+          tma_load_2d(Ks + j * kBoxBytes, &maps.k, &kv_bar,
+                      col + p.kcol + j * kBox, b * p.Sk + k0);
+          tma_load_2d(Vs + j * kBoxBytes, &maps.v, &kv_bar,
+                      col + p.vcol + j * kBox, b * p.Sk + k0);
+        }
+      }
+      __syncwarp();
+      if (br.row != nullptr && !br.full)
+        stage_bias_row<kKeysN>(bias_s, br.row, k0, p.Sk, lane);
+      mbar_arrive(&kv_bar);
+      const float* lse_h = p.lse + (int64_t)bh * p.Sq;
+      const float* delta_h = p.delta + (int64_t)bh * p.Sq;
+      int i = 0;
+      for (int q0 = q_first; q0 < p.Sq; q0 += kRowsW, ++i) {
+        const int s = i % kStages;
+        mbar_wait(&empty_bar[s], ((i / kStages) & 1) ^ 1);
+        if (lane == 0) {
+          unsigned char* Qr = ring + s * 2 * kTileBytes;
+          mbar_expect_tx(&full_bar[s], 2 * kTileBytes);
+          for (int j = 0; j < NB; ++j) {
+            tma_load_2d(Qr + j * kBoxBytes, &maps.q, &full_bar[s],
+                        col + p.qcol + j * kBox, b * p.Sq + q0);
+            tma_load_2d(Qr + kTileBytes + j * kBoxBytes, &maps.dout,
+                        &full_bar[s], h * D + j * kBox, b * p.Sq + q0);
+          }
+        }
+        __syncwarp();
+        // rows past Sq: lse +inf and delta 0, so their p and dS are 0
+#pragma unroll
+        for (int r = lane; r < kRowsW; r += 32) {
+          const bool in = q0 + r < p.Sq;
+          lse_s[s][r] = in ? lse_h[q0 + r] : INFINITY;
+          delta_s[s][r] = in ? delta_h[q0 + r] : 0.f;
+        }
+        mbar_arrive(&full_bar[s]);
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------ consumers
+  setmaxnreg_inc<232>();
+  const int c = wg - 1;                  // 0: S^T, P^T, dV; 1: dP^T, dS^T, dK
+  const int t_in = threadIdx.x - 128 * wg;
+  const int lane = t_in & 31, gi = lane >> 2, qi = lane & 3;
+  const int r0 = (t_in >> 5) * 16;       // this warp's keys in the 64
+  const int kr = r0 + gi;                // this thread's keys: kr, kr + 8
+  const int key[2] = {k0 + kr, k0 + kr + 8};
+  const Keep kc = keep_consts(p);
+  // the first product's A operand: K (group 0) or V (group 1)
+  const unsigned char* KVc = c == 0 ? Ks : Vs;
+
+  float acc[ND][4];                      // dV (group 0) or dK (group 1)
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  mbar_wait(&kv_bar, 0);
+  float kbias[2] = {0.f, 0.f};
+  if (br.row != nullptr && !br.full) {
+    kbias[0] = bias_s[kr];
+    kbias[1] = bias_s[kr + 8];
+  }
+  const bool cut_keys = k0 + kKeysN > p.Sk;
+
+  int i = 0;
+  for (int q0 = q_first; q0 < p.Sq; q0 += kRowsW, ++i) {
+    const int s = i % kStages;
+    const unsigned char* Qr = ring + s * 2 * kTileBytes;
+    const unsigned char* dOr = Qr + kTileBytes;
+    mbar_wait(&full_bar[s], (i / kStages) & 1);
+
+    // S^T = K Q^T (group 0) or dP^T = V dO^T (group 1): rows are keys,
+    // columns queries
+    const unsigned char* Bq = c == 0 ? Qr : dOr;
+    float sc[8][4];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64<0>(
+          sc, desc_sw128(KVc + (kk / 4) * kBoxBytes + (kk % 4) * 32, 16, 1024),
+          desc_sw128(Bq + (kk / 4) * kBoxBytes + (kk % 4) * 32, 16, 1024),
+          kk > 0);
+    wgmma_commit();
+    wgmma_wait0();
+    reg_fence(sc);
+
+    uint32_t fa[4][4];                   // P^T keep or dS^T, bf16 A operand
+    if (c == 0) {
+      // P^T = exp(s - lse) and the keep bits (the general form only where
+      // the tile needs it, as in the forward)
+      const bool cut =
+          cut_keys || (p.causal && p.off + q0 < k0 + kKeysN - 1);
+      const Drop dr = tile_drop(p, kc, b, h, q0, k0);
+      const float* lse_t = lse_s[s];
+      uint32_t bits;
+      if (cut || br.full)
+        bits = p.use_drop ? bwd_probs<true, true>(sc, p, br, kbias, key,
+                                                  lse_t, dr, q0, qi)
+                          : bwd_probs<true, false>(sc, p, br, kbias, key,
+                                                   lse_t, dr, q0, qi);
+      else
+        bits = p.use_drop ? bwd_probs<false, true>(sc, p, br, kbias, key,
+                                                   lse_t, dr, q0, qi)
+                          : bwd_probs<false, false>(sc, p, br, kbias, key,
+                                                    lse_t, dr, q0, qi);
+      if (!p.use_drop) bits = ~0u;
+      // P^T to group 1, a dropped score's sign flipped (p >= 0, so -0.0
+      // still reads as dropped)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          v[e] = ((bits >> (j * 4 + e)) & 1u) ? sc[j][e] : -sc[j][e];
+        Pt[j * 128 + t_in] = make_float4(v[0], v[1], v[2], v[3]);
+      }
+      named_arrive(1, 256);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[j][e] = ((bits >> (j * 4 + e)) & 1u) ? sc[j][e] * kc.inv : 0.f;
+    } else {
+      named_barrier(1, 256);             // P^T is in place
+      const float* delta_t = delta_s[s];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 pv = Pt[j * 128 + t_in];
+        const float pt[4] = {pv.x, pv.y, pv.z, pv.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float ks = !p.use_drop ? 1.f
+                           : (__float_as_uint(pt[e]) >> 31) ? 0.f
+                                                            : kc.inv;
+          sc[j][e] = fabsf(pt[e]) *
+                     (sc[j][e] * ks - delta_t[j * 8 + 2 * qi + (e & 1)]) *
+                     p.scale;
+        }
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) as_a(fa[kk], sc, kk);
+    if (c == 1) {
+      // dS^T into shared memory ([key][query], 128-byte swizzle): the A
+      // fragment's words are the rounded pairs (j = 2kk + (w >> 1), key
+      // row kr + 8 (w & 1))
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          const int rk = kr + 8 * (w & 1), j = 2 * kk + (w >> 1);
+          *reinterpret_cast<uint32_t*>(dSs + rk * 128 + ((j ^ (rk & 7)) << 4) +
+                                       4 * qi) = fa[kk][w];
+        }
+      fence_proxy_async();
+    }
+    // dV += (P^T keep) dO (group 0), dK += dS^T Q (group 1): 16 queries a
+    // step, the B operand's rows 16 x 128 bytes apart, its D/64 boxes
+    // one box apart, N = D in one product
+    const unsigned char* Bo = c == 0 ? dOr : Qr;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t db = desc_sw128(Bo + kk * 16 * 128, kBoxBytes, 1024);
+      if constexpr (D == 192)
+        wgmma_rs_n192(acc, fa[kk], db);
+      else
+        wgmma_rs_n256(acc, fa[kk], db);
+    }
+    wgmma_commit();
+    named_barrier(2, 256);               // dS^T is in place
+    // dQ's 64-column chunks j = c, c + 2, ...: dS K over the 64 keys, A
+    // (dS) dS^T read transposed, B box j of K, MN-major
+#pragma unroll
+    for (int j = c; j < NB; j += 2) {
+      float dq[8][4];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kKeysN / 16; ++kk)
+        wgmma_ss_n64<1>(
+            dq, desc_sw128(dSs + kk * 16 * 128, kBoxBytes, 1024),
+            desc_sw128(Ks + j * kBoxBytes + kk * 16 * 128, kBoxBytes, 1024),
+            kk > 0);
+      wgmma_commit();
+      wgmma_wait0();
+      reg_fence(dq);
+      if (j == c) {
+        reg_fence(acc);
+        reg_fence(fa);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty_bar[s]);  // Q, dO, lse, delta read
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int q = q0 + r0 + gi + 8 * hh;
+        if (q >= p.Sq) continue;
+        float* dst = p.dq_acc + ((int64_t)(b * p.Sq + q) * p.H + h) * D +
+                     j * kBox + 2 * qi;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          atomicAdd(reinterpret_cast<float2*>(dst + n * 8),
+                    make_float2(dq[n][2 * hh], dq[n][2 * hh + 1]));
+      }
+    }
+  }
+
+  // dV (group 0) or dK (group 1) at k's row stride and this head's columns
+  const int64_t kv0 = (int64_t)b * p.Sk * p.ldk + head_col(p, h, D);
+  bf16* out = c == 0 ? static_cast<bf16*>(p.dv) + kv0 + p.vcol
+                     : static_cast<bf16*>(p.dk) + kv0 + p.kcol;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int kk = key[hh];
+    if (kk >= p.Sk) continue;
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+      *reinterpret_cast<uint32_t*>(out + kk * p.ldk + j * 8 + 2 * qi) =
+          pack_bf16(acc[j][2 * hh], acc[j][2 * hh + 1]);
+  }
+}
+
 // The post-pass: dq = the f32 accumulator [B, Sq, H, D] rounded to bf16,
 // at q's row stride and head columns; a block a row, 4 values a thread.
 template <int D>
@@ -1941,10 +2289,18 @@ cudaError_t launch_bwd(const Params& p, cudaStream_t stream) {
       return err;
     Maps maps;
     if ((err = make_maps(&maps, p, D)) != cudaSuccess) return err;
-    auto k = bwd_wg_kernel<D>;
-    if ((err = allow_smem(k, bwd_wg_smem<D>())) != cudaSuccess) return err;
-    const dim3 grid(p.H, p.B, (p.Sk + kKeysW - 1) / kKeysW);
-    k<<<grid, kThreadsW, bwd_wg_smem<D>(), stream>>>(maps, p);
+    if constexpr (D <= 128) {
+      auto k = bwd_wg_kernel<D>;
+      if ((err = allow_smem(k, bwd_wg_smem<D>())) != cudaSuccess) return err;
+      const dim3 grid(p.H, p.B, (p.Sk + kKeysW - 1) / kKeysW);
+      k<<<grid, kThreadsW, bwd_wg_smem<D>(), stream>>>(maps, p);
+    } else {
+      auto k = bwd_wg_wide_kernel<D>;
+      if ((err = allow_smem(k, bwd_wide_smem<D>())) != cudaSuccess)
+        return err;
+      const dim3 grid(p.H, p.B, (p.Sk + kKeysN - 1) / kKeysN);
+      k<<<grid, kThreadsW, bwd_wide_smem<D>(), stream>>>(maps, p);
+    }
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     bwd_dq_round_kernel<D>
         <<<(unsigned)((int64_t)p.B * p.Sq), kThreads, 0, stream>>>(p);
@@ -1967,9 +2323,9 @@ cudaError_t launch_bwd(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Heads above 128 (D a multiple of 64), either dtype: the sliced kernels
-// (f32 on FMAs, bf16 on mma.sync); the backward a delta pre-pass, a dk/dv
-// pass and a dq pass.
+// f32 heads above 128 and bf16 heads above 256 (D a multiple of 64): the
+// sliced kernels (f32 on FMAs, bf16 on mma.sync); the backward a delta
+// pre-pass, a dk/dv pass and a dq pass.
 constexpr size_t kWideFwdSmem =
     (3 * kTile * kLW + kTile * kLS) * sizeof(float);
 constexpr size_t kWideDkdvSmem =
@@ -2061,15 +2417,17 @@ void separate_heads(Params& p, int H, int D) {
   p.gstride = D;
 }
 
-// The backward's dispatch on (dtype, D); bf16 at D 64 or 128 needs dq_acc.
+// The backward's dispatch on (dtype, D); bf16 up to D = 256 needs dq_acc.
 int launch_bwd_of(const Params& p, int D, int dtype, cudaStream_t s) {
   if (D > 128 && dtype == 0) return (int)launch_bwd_wide<float>(p, D, s);
-  if (D > 128 && dtype == 1) return (int)launch_bwd_wide<bf16>(p, D, s);
+  if (D > 256 && dtype == 1) return (int)launch_bwd_wide<bf16>(p, D, s);
   if (dtype == 1 && p.dq_acc == nullptr) return (int)cudaErrorInvalidValue;
   if (dtype == 0 && D == 64) return (int)launch_bwd<float, 64>(p, s);
   if (dtype == 0 && D == 128) return (int)launch_bwd<float, 128>(p, s);
   if (dtype == 1 && D == 64) return (int)launch_bwd<bf16, 64>(p, s);
   if (dtype == 1 && D == 128) return (int)launch_bwd<bf16, 128>(p, s);
+  if (dtype == 1 && D == 192) return (int)launch_bwd<bf16, 192>(p, s);
+  if (dtype == 1 && D == 256) return (int)launch_bwd<bf16, 256>(p, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -2102,20 +2460,22 @@ extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D > 128 && dtype == 0) return (int)launch_fwd_wide<float>(p, D, s);
-  if (D > 128 && dtype == 1) return (int)launch_fwd_wide<bf16>(p, D, s);
+  if (D > 256 && dtype == 1) return (int)launch_fwd_wide<bf16>(p, D, s);
   if (dtype == 0 && D == 64) return (int)launch_fwd<float, 64>(p, s);
   if (dtype == 0 && D == 128) return (int)launch_fwd<float, 128>(p, s);
   if (dtype == 1 && D == 64) return (int)launch_fwd<bf16, 64>(p, s);
   if (dtype == 1 && D == 128) return (int)launch_fwd<bf16, 128>(p, s);
+  if (dtype == 1 && D == 192) return (int)launch_fwd<bf16, 192>(p, s);
+  if (dtype == 1 && D == 256) return (int)launch_fwd<bf16, 256>(p, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// The backward, on one stream. bf16 at D 64 or 128: a pre-pass (delta,
-// and dq_acc zeroed), the one-pass kernel, a post-pass rounding dq_acc
-// into dq. f32, and either dtype above 128: the delta pre-pass, a dk/dv
-// pass and a dq pass. Scratch allocated by the caller: delta f32 [B, H,
-// Sq]; dq_acc f32 [B, Sq, H, D] (required for bf16 at D 64 or 128, which
-// is refused without it; may be null otherwise). dq, dk and dv are
+// The backward, on one stream. bf16 at D 64, 128, 192 or 256: a pre-pass
+// (delta, and dq_acc zeroed), the one-pass kernel, a post-pass rounding
+// dq_acc into dq. f32 above 128 and bf16 above 256: the delta pre-pass, a
+// dk/dv pass and a dq pass. Scratch allocated by the caller: delta f32
+// [B, H, Sq]; dq_acc f32 [B, Sq, H, D] (required for bf16 up to D = 256,
+// which is refused without it; may be null otherwise). dq, dk and dv are
 // written in full. dlse: null, or the f32 [B, H, Sq] cotangent of the
 // forward's lse (B4, `_flash_lse`'s backward), which the delta pre-pass
 // folds in; with null every pass runs as before.

@@ -647,8 +647,9 @@ def pick_block(limit, seq):
 
 def kernel_head_dim(d):
     """The head dim B2's and B4's kernels run a head dim ``d`` at: 64 or
-    128 at and below 128 (the wgmma kernels), else the next multiple of
-    64 (the kernels sliced over D). The wrappers zero-pad q, k and v to
+    128 at and below 128, else the next multiple of 64 (bfloat16 runs
+    the wgmma kernels up to 256, the kernels sliced over D above; float32
+    the sliced kernels above 128). The wrappers zero-pad q, k and v to
     it and cut the output back; zero columns change neither the scores
     nor the outputs (the reference pads to a multiple of 128,
     ``:1263-1267``)."""
@@ -852,7 +853,7 @@ def _launch_general_bwd(kernel, q, k, v, o, lse, do, causal, bias, dropout_p,
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     delta = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
     dq_acc = (torch.empty(q.shape, dtype=torch.float32, device=q.device)
-              if q.dtype == torch.bfloat16 and d <= 128 else None)
+              if q.dtype == torch.bfloat16 and d <= 256 else None)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     _, bwd, _, err_str = _gen_kernel_fns()
     err = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -888,14 +889,14 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal, bias=None,
                         scale=None, dlse=None):
     """Launch the backward kernels: ``(dq, dk, dv)`` from the forward's
     inputs, ``o``, ``lse`` and the cotangent ``do`` (q's shape and
-    dtype). One call counts as one launch. bfloat16 at D 64 or 128: a
-    pre-pass (``delta = rowsum(dO*O)``, the float32 dq accumulator
-    zeroed), the one-pass kernel over key blocks (dk, dv, and dq added
-    into the accumulator) and a post-pass rounding dq; float32, and
-    either dtype above 128: the delta pre-pass, a dk/dv pass and a dq
-    pass. ``dlse``: the lse cotangent (contiguous float32
-    ``[B, H, Sq]``, B4), which the pre-pass subtracts from delta; None
-    runs B2's backward as it is."""
+    dtype). One call counts as one launch. bfloat16 at D 64, 128, 192
+    or 256: a pre-pass (``delta = rowsum(dO*O)``, the float32 dq
+    accumulator zeroed), the one-pass kernel over key blocks (dk, dv,
+    and dq added into the accumulator) and a post-pass rounding dq;
+    float32 above 128, and bfloat16 above 256: the delta pre-pass, a
+    dk/dv pass and a dq pass sliced over D. ``dlse``: the lse cotangent
+    (contiguous float32 ``[B, H, Sq]``, B4), which the pre-pass subtracts
+    from delta; None runs B2's backward as it is."""
     return _launch_general_bwd(_GEN_BWD, q, k, v, o, lse, do, causal, bias,
                                dropout_p, seed, bq, bk, scale, dlse)
 

@@ -361,15 +361,17 @@ def test_qkv_forward_on_wgmma_matches_the_plain_version(d, causal, s):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [192, 256])
-def test_flash_attention_refuses_head_dim_above_128_on_a_card(dtype, d):
-    """Heads above 128 are no longer refused on a card: the kernels
-    sliced over D run them, forward and backward, against their plain
-    versions at a key-padded causal shape with dropout (Sq != Sk, lengths
-    not multiples of 64): f32 at 1e-4 (summation order), bf16 o, dq, dk
-    and dv within 8 bf16 ulps of each element's scale, lse at 1e-4; each
-    launch counted once. Through `flash_attention` the grads reach q, k
-    and v at their own width."""
+@pytest.mark.parametrize("d", [192, 256, 384])
+def test_flash_attention_above_head_dim_128_matches_the_plain_version(dtype,
+                                                                      d):
+    """Heads above 128 on a card (bf16 at 192 and 256: the wgmma
+    kernels on 64-key tiles and blocks; bf16 at 384 and f32 at every D:
+    the kernels sliced over D), forward and backward, against their
+    plain versions at a key-padded causal shape with dropout (Sq != Sk,
+    lengths not multiples of 64): f32 at 1e-4 (summation order), bf16 o,
+    dq, dk and dv within 8 bf16 ulps of each element's scale, lse at
+    1e-4; each launch counted once. Through `flash_attention` the grads
+    reach q, k and v at their own width."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the Hopper kernels run only on "
                     "the card")
