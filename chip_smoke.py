@@ -61,7 +61,18 @@ Phases, in order; any failure exits non-zero:
    full-sequence forward with plain attention, of a float32 copy of the
    weights, agrees with each emitted token unless its logit is within
    0.05 of the reference's top one. Then a few full decode steps run
-   under torch.profiler: the device's busy share and the top kernels;
+   under torch.profiler: the device's busy share and the top kernels.
+   On graphs: every prefill and decode step is one CUDA graph replay
+   (one graph per prompt bucket, one for decode), the launch counts
+   counted through the replays, the sentinel armed around the traffic
+   (decode_traces 1, prefill_traces = buckets used, capture_s printed),
+   the profile's kernels/step and host launch calls/step (cudaLaunchKernel
+   + cuLaunchKernelEx + cudaGraphLaunch); and a graph-against-eager check
+   at 3 full decode steps: one replay and one eager run of the decode
+   step on the same staged operands from cloned pools give the same
+   float32 logits bit for bit, or the same tokens and logits within 1
+   bf16 ulp of each element's own scale (which of the two held is
+   printed);
 5. training phase: gpt3-1.3b at full width and depth trains through
    `SpmdTrainStep` (b8 x s1024 from ``--seed``, dropout 0, bf16 params
    and AdamW moments, lr 1e-4, wd 0.01). The bf16 model's loss and
@@ -101,12 +112,16 @@ Phases, in order; any failure exits non-zero:
    first token against plain K/V), unless within 0.05 of its top logit;
    the spec_k=4 streams equal the spec_k=0 ones but at such a near-tie.
    Per run: drafted and accepted tokens, TTFT, decode ms/step,
-   tokens/s, pool bytes and pages, and a profile of full steps;
+   tokens/s, pool bytes and pages, and a profile of full steps. On
+   graphs, as phase 4 (the verify window's graph at W=5), the sentinel
+   armed around each run's traffic;
 10. generation phase: gpt3-1.3b, bf16, `generate()` at the JAX
    package's decode benchmark shape (b8 x prompt 1024, dense, random
    ids from ``--seed``): (a) greedy + 128: B1's forward launches exactly
    layers times (the flash prefill) and nothing else; a float32 teacher
-   agrees with every token but at a near-tie; (b) beam search, K=4,
+   agrees with every token but at a near-tie of the bf16 model's own
+   measured rounding on these sequences (at least 0.05, as phase 12's);
+   (b) beam search, K=4,
    paged, + 128, no EOS: the tail read launches exactly (128 - 1) x
    layers times, each a bf16 paged-kernel launch, no other paged
    variant; (c) the same on the gather oracle; (b) against (c) in
@@ -117,7 +132,14 @@ Phases, in order; any failure exits non-zero:
    float32 teacher on the dequantized weights, then the paged Engine
    with and without weight_quant on phase 4's traffic. Per arm: prefill
    ms, decode ms per step, tokens/s, launches; a profile of (b) and (c)
-   (busy share, launches a step, top kernels); (d)'s pool bytes;
+   (busy share, launches a step, top kernels); (d)'s pool bytes. On
+   graphs: each decode step of (a)-(e) is one replay of its loop's
+   captured step, the prefill runs eagerly; each timed call follows a
+   warm-up call of the same arguments and must replay the decode step
+   that call built (one build, under the armed sentinel); the profiles
+   print kernels/step and host launch calls/step; a graph-against-eager
+   check of (a)'s and (b)'s decode steps at 3 generated columns holds as
+   phase 4's;
 11. sequence-parallel phase, at GPT-1.3B's heads (H16 D128, bf16) on
    one ring chunk of a 4-way split of 8192 tokens (S=2048): (a) B4, the
    flash attention with a differentiable lse (`flash_attention_lse_fwd`
@@ -142,7 +164,9 @@ Phases, in order; any failure exits non-zero:
    model's own measured rounding (at least 0.05); (b) `generate()`
    beam 4, paged, b2 x prompt 128 + 32: the tail read launches (32 - 1)
    x layers times; the gather oracle launches nothing; the two agree in
-   float32 at + 16 (identical, or parting at a log-prob gap < 1e-4);
+   float32 at + 16 (identical, or parting at a log-prob gap < 1e-4).
+   On graphs, as phases 4 and 10, the sentinel armed around the timed
+   traffic and calls;
 13. attention at Gemma-2B's widths: 18 `TransformerEncoderLayer`
    (d_model 2048, 8 heads of 256, MLP 16384, GELU, dropout 0.1) train
    through `SpmdTrainStep` (AdamW, bf16 params and moments) on b4 x
@@ -1858,8 +1882,58 @@ def engine_phase(torch, seed):
           f"{s.decode_step_p50 * 1e3:.3f} ms/step (p50), "
           f"{s.tokens_generated / wall:.1f} tokens/s")
     teacher_check(torch, model, prompts, outs)
-    profile_decode(torch, Engine(model, **kw), prompts)
+    eng = Engine(model, **kw)
+    profile_decode(torch, eng, prompts)
+    engine_graph_check(torch, eng)
     return {"paged_attention": counts["paged_attention"]}
+
+
+def graph_against_eager(torch, fn, ops, label):
+    """One replay of the captured step ``fn`` and one `run_eager` on the
+    same staged operands ``ops``, each from the same state (``fn.fixed``,
+    the caches and pools it writes, cloned before and restored after
+    each). Holds the float32 logits bit for bit, or, where cuBLAS picks
+    other kernels under capture, the same argmax tokens and every logit
+    within 1 bf16 ulp of its own scale. Returns which of the two held."""
+    with torch.inference_mode():
+        saved = [t.clone() for t in fn.fixed]
+        graph = fn(**ops)
+        for t, v in zip(fn.fixed, saved):
+            t.copy_(v)
+        eager = fn.run_eager(**ops)
+        for t, v in zip(fn.fixed, saved):
+            t.copy_(v)
+    del saved
+    if torch.equal(graph, eager):
+        return "bit for bit"
+    check(torch.equal(graph.argmax(-1), eager.argmax(-1)),
+          f"{label}: the replay's tokens differ from the eager run's")
+    scale = torch.maximum(graph.abs(), eager.abs()).clamp(min=1e-30)
+    ulp = torch.finfo(torch.bfloat16).eps * torch.exp2(
+        torch.floor(torch.log2(scale)))
+    worst = ((graph - eager).abs() / ulp).max().item()
+    check(worst <= 1.0, f"{label}: the replay's logits lie {worst:.2f} "
+          "bf16 ulps from the eager run's")
+    return "tokens identical, logits within 1 bf16 ulp"
+
+
+def engine_graph_check(torch, eng, steps=3):
+    """The graph-against-eager check on a full engine's decode step, at
+    each of ``steps`` decode steps (its pending tokens and slot state as
+    they stand), one engine step between them."""
+    held = []
+    for _ in range(steps):
+        held.append(graph_against_eager(
+            torch, eng._verify, eng._step_operands(eng._tokens[:, None]),
+            "engine decode step"))
+        eng.step()
+    print(f"  graph against eager, the engine's decode step at {steps} "
+          f"full decode steps: {held}")
+
+
+def buckets_used(prompts):
+    """The prefill buckets ``prompts`` fall in: one prefill graph each."""
+    return len({min(b for b in BUCKETS if b >= len(p)) for p in prompts})
 
 
 def phase_prompts(torch, cfg, seed):
@@ -1878,22 +1952,24 @@ def serve_traffic(torch, eng, prompts, sampled=()):
     that every request completes and every page returns; returns
     ``(outputs, stats, wall seconds, launch counts)``."""
     from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.observability import get_sentinel
 
     handles = [None] * len(prompts)
     kernels.reset_kernel_launch_counts()
     t0 = time.perf_counter()
     step = 0
-    while step <= max(SUBMIT_AT_STEP) or eng.stats().active_slots \
-            or eng.stats().queue_depth:
-        for i, at in enumerate(SUBMIT_AT_STEP):
-            if at == step:
-                kw = (dict(decode_strategy="sampling", temperature=1.0,
-                           seed=1000 + i) if i in sampled else {})
-                handles[i] = eng.submit(prompts[i], max_new_tokens=MAX_NEW,
-                                        **kw)
-        eng.step()
-        step += 1
-    torch.cuda.synchronize()
+    with get_sentinel().armed():
+        while step <= max(SUBMIT_AT_STEP) or eng.stats().active_slots \
+                or eng.stats().queue_depth:
+            for i, at in enumerate(SUBMIT_AT_STEP):
+                if at == step:
+                    kw = (dict(decode_strategy="sampling", temperature=1.0,
+                               seed=1000 + i) if i in sampled else {})
+                    handles[i] = eng.submit(prompts[i],
+                                            max_new_tokens=MAX_NEW, **kw)
+            eng.step()
+            step += 1
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernels.kernel_launch_counts()
     s = eng.stats()
@@ -1902,6 +1978,13 @@ def serve_traffic(torch, eng, prompts, sampled=()):
         len(o) == MAX_NEW for o in outs), f"not every request completed: {s}")
     check(s.kv_pages_in_use == 0 and s.kv_pages_free == s.kv_pages_total,
           f"pages did not return to the pool: {s}")
+    check(s.decode_traces == 1 and s.prefill_traces == buckets_used(prompts),
+          f"graphs: decode_traces {s.decode_traces}, prefill_traces "
+          f"{s.prefill_traces}, {buckets_used(prompts)} buckets used")
+    print(f"  graphs of {eng.metrics.engine_id} (sentinel armed): "
+          f"decode_traces {s.decode_traces}, prefill_traces "
+          f"{s.prefill_traces} (= buckets used), capture_s "
+          f"{s.capture_s:.3f}")
     return outs, s, wall, counts
 
 
@@ -1942,7 +2025,9 @@ def bf16_tie_gap(torch, model, prompts, outs, mode=None):
     output of every request (``mode``: K/V through that page dtype's
     round trip, `quant_teacher_logits`): two logits each off by at most
     e can swap where they lie within 2e. TEACHER_GAP is that reading for
-    gpt3-1.3b; a deeper, wider model rounds more."""
+    gpt3-1.3b on phase 4's prompts of at most 500 tokens; a deeper, wider
+    model, or a longer sequence (phase 10's prompts of 1024), rounds
+    more."""
     ref = float32_copy(torch, model)
     err = 0.0
     with torch.inference_mode():
@@ -1988,7 +2073,7 @@ def profile_steps(torch, fn, steps, what, families=None, absent=()):
         for _ in range(steps):
             fn()
 
-    wall_us, busy_us, per, launches, host = profile_totals(torch, run)
+    wall_us, busy_us, per, kernels, calls, host = profile_totals(torch, run)
     ran = [k for k in per if any(x in k for x in absent)]
     check(not ran, f"{what}: kernels {ran} ran, none of {absent} should")
     print(f"  profile of {steps} {what}: wall "
@@ -2003,8 +2088,9 @@ def profile_steps(torch, fn, steps, what, families=None, absent=()):
         share = 100 * t / busy_us if busy_us else 0.0
         print(f"    {label}: {t / steps / 1e3:.4f} ms/step ({share:.1f}% of "
               "device busy)")
-    print(f"    host: {launches / steps:.0f} kernel launches/step; most "
-          "self CPU time: " + ", ".join(
+    print(f"    {kernels / steps:.0f} kernels/step on the device; host: "
+          f"{calls / steps:.1f} launch calls/step ({' + '.join(HOST_LAUNCH_CALLS)}"
+          "); most self CPU time: " + ", ".join(
               f"{key} {t / steps / 1e3:.3f} ms" for key, t in host))
     return wall_us / steps / 1e3, busy_us / steps / 1e3
 
@@ -2593,21 +2679,56 @@ def only_launched(counts, want, label):
     check(got == want, f"{label}: launches {got}, expected {want}")
 
 
-def timed_generate(torch, model, ids, **kw):
-    """One `generate` call after a short warm-up at the same shapes
-    (cuBLAS handles, allocator): launch counts zeroed just before the
-    timed call and read just after. Returns ``(out, wall s, counts)``."""
-    from paddle_tpu_torch import kernels
+def last_loop(model):
+    """The generate loop ``model`` used last (its LRU's newest entry)."""
+    return next(reversed(model._generate_graphs()[0].values()))
 
-    model.generate(ids, **{**kw, "max_new_tokens": 3})
+
+def timed_generate(torch, model, ids, **kw):
+    """One `generate` call after a warm-up call with the same arguments
+    (it builds the loop and captures its decode step; cuBLAS handles,
+    allocator): the timed call only replays, under the armed sentinel,
+    launch counts zeroed just before it and read just after; the decode
+    step must have been built once. Returns ``(out, wall s, counts)``."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.observability import get_sentinel
+
+    model.generate(ids, **kw)
     torch.cuda.synchronize()
+    step = last_loop(model).decode
     kernels.reset_kernel_launch_counts()
-    t0 = time.perf_counter()
-    out = model.generate(ids, **kw)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with get_sentinel().armed():
+        t0 = time.perf_counter()
+        out = model.generate(ids, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     counts = kernels.kernel_launch_counts()
+    n = get_sentinel().trace_count(step.name)
+    check(last_loop(model).decode is step and n == 1,
+          f"{step.name}: built {n} times over two calls at one shape")
+    print(f"  {step.name}: decode_traces {n} over the warm-up and the "
+          f"timed call, capture_s {step.capture_s:.3f}")
     return out, wall, counts
+
+
+def loop_graph_check(torch, model, label, prompt_len, gen_cols):
+    """The graph-against-eager check on the decode step of the loop
+    ``model`` used last, at each generated column of ``gen_cols`` (cache
+    column ``prompt_len + j``; the paged beam's ``gen_col = j``), on the
+    tokens it staged last. A paged beam's columns must lie in its last
+    page: the loop leaves that page each beam's own, where earlier pages
+    may be shared by beams of one parent, and a write there from every
+    beam at once is a race of no loop's making."""
+    fn = last_loop(model).decode
+    cur = fn.static["cur"].clone()
+    held = []
+    for j in gen_cols:
+        ops = dict(cur=cur, step=prompt_len + j)
+        if "gen_col" in fn.static:
+            ops["gen_col"] = j
+        held.append(graph_against_eager(torch, fn, ops, label))
+    print(f"  graph against eager, {label}'s decode step at generated "
+          f"columns {list(gen_cols)}: {held}")
 
 
 def prefill_ms(torch, model, ids):
@@ -2625,10 +2746,17 @@ def prefill_ms(torch, model, ids):
     return ms
 
 
+#: the host calls that launch work on the card: a kernel, or a CUDA graph
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernelEx",
+                     "cudaGraphLaunch")
+
+
 def profile_totals(torch, fn):
     """``fn()`` under torch.profiler: ``(wall us, device busy us, {kernel:
-    device us}, kernel launches, [(host op, self CPU us)] of the four
-    host ops with the most self CPU time)``."""
+    device us}, kernels the device ran, host launch calls, [(host op,
+    self CPU us)] of the four host ops with the most self CPU time)``.
+    The host launch calls are `HOST_LAUNCH_CALLS` from the profile's CPU
+    side: a graph replay is one, however many kernels it runs."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2641,15 +2769,17 @@ def profile_totals(torch, fn):
         wall_us = (time.perf_counter() - t0) * 1e6
     per = {}
     host = []
+    kernels = 0
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
             per[e.key] = per.get(e.key, 0.0) + e.self_device_time_total
+            if not e.key.startswith(("Memcpy", "Memset")):
+                kernels += e.count
         else:
             host.append(e)
-    launches = sum(e.count for e in host
-                   if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx"))
+    calls = sum(e.count for e in host if e.key in HOST_LAUNCH_CALLS)
     top = sorted(host, key=lambda e: -e.self_cpu_time_total)[:4]
-    return (wall_us, sum(per.values()), per, launches,
+    return (wall_us, sum(per.values()), per, kernels, calls,
             [(e.key, e.self_cpu_time_total) for e in top])
 
 
@@ -2667,9 +2797,9 @@ def profile_generate(torch, model, ids, what, run, step_ms,
         with torch.inference_mode():
             model.prefill(ids, model.gen_static_cache(b, s))
 
-    run(steps + 1)                                        # warm-up
-    p_wall, p_busy, p_per, p_launch, _ = profile_totals(torch, prefill)
-    g_wall, g_busy, g_per, g_launch, _ = profile_totals(
+    run(steps + 1)                          # warm-up (captures the step)
+    p_wall, p_busy, p_per, p_kern, p_call, _ = profile_totals(torch, prefill)
+    g_wall, g_busy, g_per, g_kern, g_call, _ = profile_totals(
         torch, lambda: run(steps + 1))
     wall, busy = (g_wall - p_wall) / steps, (g_busy - p_busy) / steps
     print(f"  profile of {what}, {steps} decode steps (a generation of "
@@ -2677,8 +2807,9 @@ def profile_generate(torch, model, ids, what, run, step_ms,
           f"ms/step, device busy {busy / 1e3:.3f} ms/step "
           f"({100 * busy / wall:.1f}% of the profiled wall, "
           f"{100 * busy / 1e3 / step_ms:.1f}% of the timed step's "
-          f"{step_ms:.3f} ms), {(g_launch - p_launch) / steps:.0f} kernel "
-          "launches/step")
+          f"{step_ms:.3f} ms), {(g_kern - p_kern) / steps:.0f} kernels/step "
+          f"on the device, {(g_call - p_call) / steps:.1f} host launch "
+          "calls/step")
     per = {k: (v - p_per.get(k, 0.0)) / steps for k, v in g_per.items()}
     for key, t in sorted(per.items(), key=lambda kv: -kv[1])[:6]:
         print(f"    {t / 1e3:8.4f} ms/step {100 * t / busy:5.1f}%  {key[:90]}")
@@ -2724,7 +2855,8 @@ def gen_phase(torch, seed):
     random weights from ``seed``, b8 x prompt 1024 (dense) from the
     seed. (a) greedy, 128 new: B1's forward launches exactly ``layers``
     times (the flash prefill), nothing else; a float32 teacher agrees
-    with every token but at a near-tie. (b) beam 4, paged, 128 new, no
+    with every token but at a near-tie of the model's own measured
+    rounding (`bf16_tie_gap`). (b) beam 4, paged, 128 new, no
     EOS: the tail kernel launches (new - 1) x layers times, each one a
     bf16 paged launch, and no other paged kernel. (c) the same on the
     gather oracle: no paged launch; (b) against (c) in float32 at b2 x
@@ -2754,8 +2886,14 @@ def gen_phase(torch, seed):
           f"{pf_ms:.3f} ms, decode {dec:.3f} ms/token (a step of "
           f"{GEN_B} rows), {GEN_B * GEN_NEW / wall:.1f} tokens/s "
           f"({wall:.3f} s); launches {counts}")
-    teacher_check(torch, model, plist, out.tolist())
+    # the bf16 model's own rounding at 1024-token prompts exceeds
+    # TEACHER_GAP / 2: the allowance is measured, as phase 12's is
+    tie = bf16_tie_gap(torch, model, plist, out.tolist())
+    teacher_check(torch, model, plist, out.tolist(), tie=tie)
     greedy = out
+    loop_graph_check(torch, model, "(a) greedy", GEN_PROMPT,
+                     range(GEN_NEW - 4, GEN_NEW - 1))
+    model.clear_generate_cache()
 
     # (b) the paged beam, (c) the gather oracle
     beam = dict(max_new_tokens=GEN_NEW, decode_strategy="beam_search",
@@ -2777,11 +2915,15 @@ def gen_phase(torch, seed):
               f"{GEN_NEW}: decode {dec:.3f} ms/step, "
               f"{GEN_B * GEN_NEW / wall:.1f} tokens/s of best beams "
               f"({wall:.3f} s, prefill {pf_ms:.3f} ms); launches {counts}")
+        if kv == "paged":
+            loop_graph_check(torch, model, label, GEN_PROMPT,
+                             range(GEN_NEW - 4, GEN_NEW - 1))
         profile_generate(
             torch, model, ids, label,
             lambda m, kv=kv: model.generate(ids, beam_kv=kv, **{
                 **beam, "max_new_tokens": m}), dec)
         outs[kv] = out
+        model.clear_generate_cache()
         gc.collect()
         torch.cuda.empty_cache()
     same = [r for r in range(GEN_B) if torch.equal(outs["paged"][r],
@@ -2795,6 +2937,7 @@ def gen_phase(torch, seed):
               num_beams=GEN_BEAMS)
     a = ref.generate(ab_ids, beam_kv="paged", **ab)
     b = ref.generate(ab_ids, beam_kv="gather", **ab)
+    ref.clear_generate_cache()
     gaps = parting_gap(torch, ref, ab_ids, a, b)
     check(all(g < BEAM_GAP for _, _, g in gaps),
           f"paged and gather beams part at a log-prob gap >= {BEAM_GAP}: "
@@ -2809,20 +2952,30 @@ def gen_phase(torch, seed):
 
     # (d) the paged beam on int8 tail pages
     from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.observability import get_sentinel
+
+    tail_fns = {}
 
     def int8_tail(new):
+        if new not in tail_fns:
+            tail_fns[new] = model._build_beam_fn(
+                GEN_B, GEN_PROMPT, new, GEN_BEAMS, None, None, 0.0,
+                kv_quant="int8")
         with torch.inference_mode():
-            return model._build_beam_fn(GEN_B, GEN_PROMPT, new, GEN_BEAMS,
-                                        None, None, 0.0, kv_quant="int8")(ids)
+            return tail_fns[new](ids)
 
-    int8_tail(GEN_SHORT)                   # warm-up at the same shapes
+    int8_tail(GEN_SHORT)             # warm-up: captures the decode step
     torch.cuda.synchronize()
     kernels.reset_kernel_launch_counts()
-    t0 = time.perf_counter()
-    out = int8_tail(GEN_SHORT)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with get_sentinel().armed():
+        t0 = time.perf_counter()
+        out = int8_tail(GEN_SHORT)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     counts = kernels.kernel_launch_counts()
+    print(f"  {tail_fns[GEN_SHORT].decode.name}: decode_traces "
+          f"{get_sentinel().trace_count(tail_fns[GEN_SHORT].decode.name)}, "
+          f"capture_s {tail_fns[GEN_SHORT].decode.capture_s:.3f}")
     tail = (GEN_SHORT - 1) * layers
     only_launched(counts, {"flash_attention_qkv_fwd": layers,
                            "paged_tail_segment": tail,
@@ -2841,6 +2994,7 @@ def gen_phase(torch, seed):
           f"{GEN_SHORT} tokens; launches {counts}")
     profile_generate(torch, model, ids, "(d) beam, paged, int8 tail pages",
                      int8_tail, dec)
+    del tail_fns
 
     # (e) weight-only int8
     quant = model.serving_weights("int8")
@@ -2862,12 +3016,14 @@ def gen_phase(torch, seed):
     print(f"  (e) greedy, weight-only int8, b{GEN_B} x {GEN_PROMPT} + "
           f"{GEN_SHORT}: stored weights {stored} bytes (bf16 {full}); "
           f"{wall:.3f} s, decode {(wall * 1e3 - pf_ms) / (GEN_SHORT - 1):.3f}"
-          f" ms/token with the dequantization once a call ({dq_ms:.3f} ms); "
+          f" ms/token, each decode step dequantizing in its graph (one "
+          f"dequantization alone: {dq_ms:.3f} ms); "
           f"greedy bf16 agrees on "
           f"{sum(torch.equal(out[r], greedy[r, :GEN_SHORT]) for r in range(GEN_B))}"
           f" of {GEN_B} rows")
     teacher_check(torch, model, plist, out.tolist(), state)
     del state
+    model.clear_generate_cache()
     gc.collect()
     torch.cuda.empty_cache()
     kw = dict(slots=SLOTS, page_size=PAGE, max_len=MAX_LEN,
@@ -3351,6 +3507,7 @@ def serve_27b_phase(torch, seed):
             torch, model, ids, label,
             lambda m, kv=kv: model.generate(ids, beam_kv=kv, **{
                 **beam, "max_new_tokens": m}), dec)
+        model.clear_generate_cache()
     ref = float32_copy(torch, model)
     del model
     gc.collect()
@@ -3359,6 +3516,7 @@ def serve_27b_phase(torch, seed):
               num_beams=GEN_BEAMS)
     a = ref.generate(ids, beam_kv="paged", **ab)
     b = ref.generate(ids, beam_kv="gather", **ab)
+    ref.clear_generate_cache()
     gaps = parting_gap(torch, ref, ids, a, b)
     check(all(g < BEAM_GAP for _, _, g in gaps),
           f"paged and gather beams part at a log-prob gap >= {BEAM_GAP}: "

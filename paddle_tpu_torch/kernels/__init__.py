@@ -10,9 +10,15 @@ version of the same function. The dispatch rule is the same for all:
 
 Each wrapper adds one to its kernel's launch count where it launches the
 kernel and nowhere else, so a run can show that its main path went
-through the kernel (`kernel_launch_counts`).
+through the kernel (`kernel_launch_counts`). A CUDA graph replay runs no
+Python, so the graph's owner (`jit.capture.CapturedStep`) captures with
+its counts left as they were (`launches_uncounted`) and adds the
+capture's launches on every replay (`add_launches`): the counts keep
+meaning the launches the main path made.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -40,6 +46,49 @@ def reset_kernel_launch_counts():
 def count_launch(name: str):
     """Called by a wrapper right after its kernel launched."""
     _LAUNCHES[name] += 1
+
+
+def add_launches(delta: dict):
+    """Add a captured graph's launches, ``{kernel: n}``, on one replay."""
+    for name, n in delta.items():
+        _LAUNCHES[name] += n
+
+
+@contextlib.contextmanager
+def launches_uncounted():
+    """Launches inside leave the counts as they were: a graph's warm-up
+    and capture, whose replays count instead."""
+    saved = dict(_LAUNCHES)
+    try:
+        yield
+    finally:
+        _LAUNCHES.update(saved)
+
+
+#: while a graph is captured, the list its owner keeps alive (`hold`)
+_HELD: list | None = None
+
+
+@contextlib.contextmanager
+def held_by_capture(refs: list):
+    """Buffers a wrapper keeps across calls and a graph captured inside
+    reads (`hold`) go to ``refs``, which the graph's owner keeps for the
+    graph's life: a later, larger call may replace them in the wrapper's
+    cache, and the graph must not read freed memory."""
+    global _HELD
+    prev, _HELD = _HELD, refs
+    try:
+        yield
+    finally:
+        _HELD = prev
+
+
+def hold(t: torch.Tensor) -> torch.Tensor:
+    """A wrapper's cached buffer: kept alive by the capturing owner, if
+    a capture is under way. Returns ``t``."""
+    if _HELD is not None:
+        _HELD.append(t)
+    return t
 
 
 def runs_plain(t: torch.Tensor, kernel: str) -> bool:
@@ -112,5 +161,6 @@ def flash_attention_enabled(query, key, attn_mask, dropout_p) -> bool:
 from .flash_attention import flash_attention_with_lse  # noqa: E402
 
 __all__ = ["kernel_launch_counts", "reset_kernel_launch_counts",
-           "count_launch", "runs_plain", "flash_attention_qkv_enabled",
+           "count_launch", "add_launches", "launches_uncounted",
+           "held_by_capture", "hold", "runs_plain", "flash_attention_qkv_enabled",
            "flash_attention_enabled", "flash_attention_with_lse"]

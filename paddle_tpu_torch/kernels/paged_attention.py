@@ -57,7 +57,7 @@ import math
 
 import torch
 
-from . import _build, count_launch, runs_plain
+from . import _build, count_launch, hold, runs_plain
 from .paged_kv import gather_pages, gather_scales
 
 _KERNEL = "paged_attention"
@@ -139,13 +139,16 @@ def _tickets(dev: torch.device, stream, size: int) -> torch.Tensor:
     when made, and every launch leaves them at 0. One buffer per
     (device, stream), so launches on two streams never share a ticket; a
     larger call takes a new, larger buffer (the caching allocator keeps
-    the old one for the launches already queued on the stream)."""
+    the old one for the launches already queued on the stream). A graph
+    captured on ``stream`` holds the buffer it read (`kernels.hold`), so
+    a later, larger call cannot free it under the graph; its owner's
+    warm-up on that stream makes the buffer before the capture."""
     key = (dev.index, stream.cuda_stream)
     buf = _ticket_bufs.get(key)
     if buf is None or buf.numel() < size:
         buf = torch.zeros(max(size, 1024), dtype=torch.int32, device=dev)
         _ticket_bufs[key] = buf
-    return buf
+    return hold(buf)
 
 
 def _kernel_fn():
@@ -331,18 +334,23 @@ def paged_tail_segment(qh, pool_k, pool_v, block_table, gen_col, head_dim,
     """The beam's generated-tail read as a normalized segment
     (``paddle_tpu/kernels/paged_attention.py:308-342``): row ``n`` of
     ``qh [N, H, D]`` attends its own pages through ``block_table [N,
-    Pg]`` at gen columns ``[0, gen_col]`` (an int: every beam sits at
-    the same cursor). Returns ``(out [N, H, D] in qh's dtype, lse [N, H]
-    f32)``. It is the paged kernel at W = 1 with ``steps = gen_col`` for
-    every row and ``valid_cols`` all ones (:322-328); a CPU ``qh`` runs
-    `paged_attention_reference` at the same arguments. ``k_scale`` /
-    ``v_scale`` ride with 1-byte pools."""
+    Pg]`` at gen columns ``[0, gen_col]`` (every beam sits at the same
+    cursor: an int, or a one-element int tensor on qh's device, which a
+    captured step reads without the host). Returns ``(out [N, H, D] in
+    qh's dtype, lse [N, H] f32)``. It is the paged kernel at W = 1 with
+    ``steps = gen_col`` for every row and ``valid_cols`` all ones
+    (:322-328); a CPU ``qh`` runs `paged_attention_reference` at the
+    same arguments. ``k_scale`` / ``v_scale`` ride with 1-byte pools."""
     n, h, d = qh.shape
     if int(head_dim) != d:
         raise ValueError(f"head_dim {head_dim} != q's last dim {d}")
     lg = block_table.shape[1] * pool_k.shape[2]
     dev = qh.device
-    steps = torch.full((n,), int(gen_col), dtype=torch.int32, device=dev)
+    if torch.is_tensor(gen_col):
+        steps = gen_col.reshape(1).to(torch.int32).expand(n).contiguous()
+    else:
+        steps = torch.full((n,), int(gen_col), dtype=torch.int32,
+                           device=dev)
     valid_cols = torch.ones((n, lg), dtype=torch.int32, device=dev)
     q4 = qh[:, :, None, :]
     if runs_plain(qh, _KERNEL):

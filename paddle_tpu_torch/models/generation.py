@@ -10,23 +10,40 @@ the lane-wise probabilities of `_verify_probs_window`). The filters keep
 the reference's value-threshold semantics (tokens tying the threshold
 all survive).
 
-The reference compiles a whole generation into one XLA program; here
-`generate` is a host loop of eager steps (one CUDA graph per bucket is
-later work, ROADMAP A8.1). The EOS early exit reads one flag from the
-device a step. Random draws come from an explicit `torch.Generator` (per
-request in the engine, per call here, seeded from ``seed``); they are
-not JAX's PRNG streams, so sampled tokens match the reference in
-distribution only. Greedy and beam tokens match it token for token.
+The reference compiles a whole generation into one XLA program and
+caches 32 of them by shape (:386-417). Here `generate` is a host loop:
+the prompt pass runs once a call, eagerly; each decode step (the model
+forward to float32 logits) is one replay of a `jit.capture.CapturedStep`
+(on a card a CUDA graph, captured on the first call at its shape, into
+one graph memory pool per model), over static caches and page pools that
+the step owns. The built loops are cached on the model in an LRU of 32,
+keyed as the reference keys its programs (and by the weights' storage),
+so a second call at one shape replays without a capture. Token
+selection, the beam frontier, the gather beam's reorder and the paged
+beam's block-table reorder and copy-on-write run eagerly between
+replays. The EOS early exit reads one flag from the device a step.
+Random draws come from an explicit `torch.Generator` (per request in
+the engine, per call here, seeded from ``seed``); they are not JAX's
+PRNG streams, so sampled tokens match the reference in distribution
+only. Greedy and beam tokens match it token for token.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 
 import numpy as np
 import torch
 
 from ..core.random import current_generator
+from ..jit.capture import CapturedStep, graph_pool
 from ..kernels.paged_kv import copy_pages
+
+#: built generate loops kept per model (``generation.py:386-417``)
+GENERATE_CACHE_SIZE = 32
+#: default model names in generate's step names, in first-use order
+_model_ids = itertools.count()
 
 
 def filter_top_k(logits, k: int):
@@ -279,14 +296,13 @@ class _Beams:
         """Every beam finished (a device read; never true without EOS)."""
         return self.eos is not None and bool(self.done.all())
 
-    def select(self, logits, i):
-        """One step: ``logits [B*K, 1, V]`` of the current tokens ->
+    def select(self, l32, i):
+        """One step: float32 logits ``[B*K, V]`` of the current tokens ->
         the new frontier, output column ``i`` written. Returns the flat
         parent ``[B*K]`` of each new beam (rows of the previous step's
         ``[B*K]`` layout)."""
         b, k, v = self.scores.shape[0], self.k, self.v
-        logp = torch.log_softmax(logits[:, -1].float(), dim=-1).reshape(
-            b, k, v)
+        logp = torch.log_softmax(l32, dim=-1).reshape(b, k, v)
         logp = torch.where(self.done[:, :, None], self.onlypad, logp)
         cand = (self.scores[:, :, None] + logp).reshape(b, k * v)
         self.scores, idx = _top_k(cand, k)
@@ -416,9 +432,14 @@ class GenerationMixin:
         reference's A/B oracle; the same tokens).
         ``attention_mask [batch, seq]``: LEFT-padded prompts (zeros then
         ones per row). ``weight_quant="int8"``: weight-only int8,
-        dequantized once per call. ``stream_callback``: called with each
-        step's output column (int64 numpy ``[batch]``), not with beam
-        search. ``mesh`` and ``sharding_rule`` are ROADMAP A12."""
+        dequantized by the prompt pass and inside every decode step.
+        ``stream_callback``: called with each step's output column
+        (int64 numpy ``[batch]``), not with beam search. ``mesh`` and
+        ``sharding_rule`` are ROADMAP A12.
+
+        The loop built for these arguments (its static caches and its
+        decode step's graph) is kept on the model, the 32 most recently
+        used of them (`clear_generate_cache` drops them)."""
         if mesh is not None or sharding_rule is not None:
             raise NotImplementedError(
                 "generate(mesh=..., sharding_rule=...) comes with a later "
@@ -458,19 +479,31 @@ class GenerationMixin:
         quant = self.serving_weights(weight_quant)
         generator = (torch.Generator(device=dev).manual_seed(int(seed))
                      if seed is not None else current_generator(dev))
+        masked = amask is not None
         if beam:
-            fn = self._build_beam_fn(b, prompt_len, max_new, int(num_beams),
-                                     eos_token_id, pad, float(length_penalty),
-                                     with_mask=amask is not None,
-                                     kv_impl=str(beam_kv))
+            key = ("beam", b, prompt_len, max_new, int(num_beams),
+                   float(length_penalty), eos_token_id, pad, weight_quant,
+                   masked, str(beam_kv))
         else:
-            fn = self._build_generate_fn(
+            key = (b, prompt_len, max_new, decode_strategy, temperature,
+                   top_k, top_p, eos_token_id, pad, weight_quant, masked)
+        # the weights a built loop's graphs read: the quantized set (kept
+        # alive by the entry, so its id is not reused) and the storage of
+        # every parameter
+        key += (id(quant), tuple(p.data_ptr() for p in self.parameters()))
+        if beam:
+            fn = self._cached_generate_fn(key, lambda: self._build_beam_fn(
+                b, prompt_len, max_new, int(num_beams), eos_token_id, pad,
+                float(length_penalty), with_mask=masked,
+                kv_impl=str(beam_kv), weights=quant))
+        else:
+            fn = self._cached_generate_fn(key, lambda: self._build_generate_fn(
                 b, prompt_len, max_new, decode_strategy, temperature, top_k,
-                top_p, eos_token_id, pad, with_mask=amask is not None)
+                top_p, eos_token_id, pad, with_mask=masked, weights=quant))
         was_training = self.training
         self.eval()
         try:
-            with torch.inference_mode(), self.dequantized(quant):
+            with torch.inference_mode():
                 if beam:
                     return fn(ids, amask)
                 return fn(ids, amask, generator, stream_callback)
@@ -478,35 +511,95 @@ class GenerationMixin:
             if was_training:
                 self.train()
 
+    # -- the built loops and their cache --------------------------------
+    def _generate_graphs(self):
+        """``(LRU of built loops, graph memory pool, model name)``: what
+        `generate` keeps on the model, made on first use."""
+        own = self.__dict__.get("_generate_graphs_")
+        if own is None:
+            own = (collections.OrderedDict(), graph_pool(self.device),
+                   f"model{next(_model_ids)}")
+            object.__setattr__(self, "_generate_graphs_", own)
+        return own
+
+    def _cached_generate_fn(self, key, build):
+        """The loop built for ``key``, built on a miss; the least recently
+        used of more than `GENERATE_CACHE_SIZE` is dropped, with its
+        graphs and static buffers."""
+        cache = self._generate_graphs()[0]
+        fn = cache.get(key)
+        if fn is None:
+            fn = cache[key] = build()
+            while len(cache) > GENERATE_CACHE_SIZE:
+                cache.popitem(last=False)
+        else:
+            cache.move_to_end(key)
+        return fn
+
+    def clear_generate_cache(self):
+        """Drop every built loop of `generate` (their graphs, caches and
+        page pools): the device memory they hold returns to the caching
+        allocator."""
+        self._generate_graphs()[0].clear()
+
+    def _decode_step_fn(self, kind, tag, body, *, staged, inputs, fixed):
+        """A loop's decode step: a `CapturedStep` named
+        ``generate.{kind}[{model}][{tag}]`` in the model's graph pool,
+        reported to the recompile sentinel on each build."""
+        _, pool, model = self._generate_graphs()
+        return CapturedStep(f"generate.{kind}[{model}][{tag}]", body,
+                            self.device, staged=staged, inputs=inputs,
+                            fixed=fixed, pool=pool)
+
     def _build_generate_fn(self, b, prompt_len, max_new, decode_strategy,
                            temperature, top_k, top_p, eos_token_id, pad,
-                           with_mask=False):
+                           with_mask=False, weights=None):
         """Greedy or sampled generation (``generation.py:1098-1191``) as a
         host loop: ``run(ids, amask=None, generator=None,
-        stream_callback=None) -> [B, max_new]``. One prefill into static
-        caches of ``prompt_len + max_new`` columns, then one
-        `decode_step` a token. A finished row writes ``pad`` to the
-        output and feeds EOS (always in the vocab) to the model."""
+        stream_callback=None) -> [B, max_new]``. One prefill into the
+        loop's static caches of ``prompt_len + max_new`` columns, then a
+        token a decode step (``run.decode``, a `CapturedStep` of ``(cur
+        [B, 1], step)``, and with a mask ``pads`` and ``valid_cols``, set
+        once a call). A finished row writes ``pad`` to the output and
+        feeds EOS (always in the vocab) to the model. ``weights``: the
+        quantized weights of ``weight_quant`` (`serving_weights`),
+        dequantized by the prefill and inside every step."""
         total_len = prompt_len + max_new
         eos = eos_token_id
         fill = pad if (eos is not None and pad is not None) else 0
+        caches = self.gen_static_cache(b, total_len)
+        inputs = {"cur": ((b, 1), torch.long)}
+        if with_mask:
+            inputs.update(pads=((b,), torch.long),
+                          valid_cols=((b, total_len), torch.long))
 
-        def pick(logits, generator):
-            return sample_token(logits[:, -1].float(), generator,
-                                decode_strategy, temperature, top_k, top_p)
+        def body(cur, step, pads=None, valid_cols=None):
+            with self.dequantized(weights):
+                logits, _ = self.decode_step(cur, step, caches, pads=pads,
+                                             valid_cols=valid_cols)
+            return logits[:, -1].float()
+
+        decode = self._decode_step_fn(
+            f"decode.{decode_strategy}", f"b{b}x{prompt_len}+{max_new}"
+            f"{'m' if with_mask else ''}{'q' if weights else ''}",
+            body, staged={"step": ()}, inputs=inputs,
+            fixed=[t for pair in caches for t in pair])
+
+        def pick(l32, generator):
+            return sample_token(l32, generator, decode_strategy, temperature,
+                                top_k, top_p)
 
         def run(ids, amask=None, generator=None, stream_callback=None):
             if with_mask and amask is None:
                 raise ValueError("this generate fn was built for a masked "
                                  "batch but was called without one")
-            dec = {}
             if amask is not None:
-                dec = dict(pads=prompt_len - amask.sum(dim=1),
+                decode.set(pads=prompt_len - amask.sum(dim=1),
                            valid_cols=torch.cat(
                                [amask, amask.new_ones((b, max_new))], dim=1))
-            caches = self.gen_static_cache(b, total_len)
-            logits, _ = self.prefill(ids, caches, pad_mask=amask)
-            cur = pick(logits, generator)
+            with self.dequantized(weights):
+                logits, _ = self.prefill(ids, caches, pad_mask=amask)
+            cur = pick(logits[:, -1].float(), generator)
             done = cur == eos if eos is not None else None
             out = torch.full((b, max_new), fill, dtype=torch.long,
                              device=ids.device)
@@ -516,9 +609,8 @@ class GenerationMixin:
             for i in range(1, max_new):
                 if done is not None and bool(done.all()):
                     break
-                logits, _ = self.decode_step(cur[:, None], prompt_len + i - 1,
-                                             caches, **dec)
-                nxt = pick(logits, generator)
+                nxt = pick(decode(cur=cur[:, None], step=prompt_len + i - 1),
+                           generator)
                 if done is None:
                     out[:, i] = cur = nxt
                 else:
@@ -529,22 +621,28 @@ class GenerationMixin:
                     stream_callback(out[:, i].cpu().numpy())
             return out
 
+        run.decode = decode
         return run
 
     def _build_beam_fn(self, b, prompt_len, max_new, num_beams,
                        eos_token_id, pad, length_penalty, with_mask=False,
-                       kv_impl="paged", page_size=16, kv_quant=None):
+                       kv_impl="paged", page_size=16, kv_quant=None,
+                       weights=None):
         """Beam search (``generation.py:692-870``): ``run(ids,
         amask=None) -> [B, max_new]``. ``kv_impl="paged"`` is
         `_build_beam_fn_paged`; ``"gather"`` the exact-reorder oracle:
-        one prefill on the ``B`` prompts, the caches tiled K-fold, and
-        every step gathers the whole ``[B*K, H, S, D]`` cache by parent.
-        ``kv_quant`` (``"int8"``/``"fp8"`` tail pages) needs the paged
-        layout."""
+        one prefill on the ``B`` prompts, tiled K-fold into the loop's
+        static ``[B*K, H, S, D]`` caches, a decode step a token
+        (``run.decode``, a `CapturedStep` of ``(cur [B*K, 1], step)``),
+        and after it the whole cache gathered by parent, in place (the
+        step reads the caches at fixed addresses). ``kv_quant``
+        (``"int8"``/``"fp8"`` tail pages) needs the paged layout;
+        ``weights`` as in `_build_generate_fn`."""
         if kv_impl == "paged":
             return self._build_beam_fn_paged(
                 b, prompt_len, max_new, num_beams, eos_token_id, pad,
-                length_penalty, with_mask, int(page_size), kv_quant=kv_quant)
+                length_penalty, with_mask, int(page_size), kv_quant=kv_quant,
+                weights=weights)
         if kv_quant is not None:
             raise ValueError(
                 "kv_quant= quantizes the generated-tail PAGE pool: it needs "
@@ -554,62 +652,88 @@ class GenerationMixin:
                 f"kv_impl must be 'paged' or 'gather', got {kv_impl!r}")
         total_len = prompt_len + max_new
         k = num_beams
+        n = b * k
         eos = eos_token_id
         fill = pad if (eos is not None and pad is not None) else 0
         feed_tok = eos if eos is not None else 0
+        caches = self.gen_static_cache(n, total_len)
+        inputs = {"cur": ((n, 1), torch.long)}
+        if with_mask:
+            inputs.update(pads=((n,), torch.long),
+                          valid_cols=((n, total_len), torch.long))
+
+        def body(cur, step, pads=None, valid_cols=None):
+            with self.dequantized(weights):
+                logits, _ = self.decode_step(cur, step, caches, pads=pads,
+                                             valid_cols=valid_cols)
+            return logits[:, -1].float()
+
+        decode = self._decode_step_fn(
+            "beam_gather", f"b{b}x{prompt_len}+{max_new}k{k}"
+            f"{'m' if with_mask else ''}{'q' if weights else ''}",
+            body, staged={"step": ()}, inputs=inputs,
+            fixed=[t for pair in caches for t in pair])
 
         def run(ids, amask=None):
             if with_mask and amask is None:
                 raise ValueError("this beam fn was built for a masked batch "
                                  "but was called without one")
-            dec = {}
             if amask is not None:
                 valid_cols = torch.cat([amask, amask.new_ones((b, max_new))],
                                        dim=1)
-                dec = dict(pads=(prompt_len - amask.sum(dim=1)
+                decode.set(pads=(prompt_len - amask.sum(dim=1)
                                  ).repeat_interleave(k),
                            valid_cols=valid_cols.repeat_interleave(k, dim=0))
-            caches = self.gen_static_cache(b, total_len)
-            logits, _ = self.prefill(ids, caches, pad_mask=amask)
+            ctx = self.gen_static_cache(b, prompt_len)
+            with self.dequantized(weights):
+                logits, _ = self.prefill(ids, ctx, pad_mask=amask)
+            for (kc, vc), (pk, pv) in zip(caches, ctx):
+                kc[:, :, :prompt_len] = pk.repeat_interleave(k, dim=0)
+                vc[:, :, :prompt_len] = pv.repeat_interleave(k, dim=0)
+            del ctx
             beams = _Beams(logits[:, -1], k, max_new, eos, fill, feed_tok)
-            caches = [(kc.repeat_interleave(k, dim=0),
-                       vc.repeat_interleave(k, dim=0)) for kc, vc in caches]
             for i in range(1, max_new):
                 if beams.all_done():
                     break
-                logits, _ = self.decode_step(beams.cur.reshape(b * k, 1),
-                                             prompt_len + i - 1, caches,
-                                             **dec)
-                parent = beams.select(logits, i)
-                caches = [(kc.index_select(0, parent),
-                           vc.index_select(0, parent)) for kc, vc in caches]
+                parent = beams.select(
+                    decode(cur=beams.cur.reshape(n, 1),
+                           step=prompt_len + i - 1), i)
+                if i + 1 < max_new:
+                    for kc, vc in caches:
+                        kc.copy_(kc.index_select(0, parent))
+                        vc.copy_(vc.index_select(0, parent))
             return beams.best(length_penalty)
 
+        run.decode = decode
         return run
 
     def _build_beam_fn_paged(self, b, prompt_len, max_new, num_beams,
                              eos_token_id, pad, length_penalty,
-                             with_mask=False, page_size=16, kv_quant=None):
+                             with_mask=False, page_size=16, kv_quant=None,
+                             weights=None):
         """Paged beam search (``generation.py:872-1096``): ``run(ids,
         amask=None) -> [B, max_new]``.
 
-        The prompt K/V stays in the prefill caches ``[B, H, Sp, D]``, one
-        copy per batch row shared by its K beams and never reordered; the
-        generated K/V lives in a page pool ``[B*K*Pg, H, ps, D]`` (1-byte
-        pages with f32 scales for ``kv_quant``) through a block table
-        ``[B*K, Pg]``. Beam ``n`` owns pages ``n*Pg + g``, and a page is
-        written only while it is its owner's current partial page, so a
-        completed page is immutable and any descendant's table may point
-        at it. Each step: gather the table rows by parent; copy-on-write
-        the current partial page from the parent's into the child's own
-        slot (every read against the pool before the copy, data and scale
-        rows together, `paged_kv.copy_pages`); point the next page at the
+        The prompt K/V stays in the loop's static prefill caches ``[B,
+        H, Sp, D]``, one copy per batch row shared by its K beams and
+        never reordered; the generated K/V lives in a page pool
+        ``[B*K*Pg, H, ps, D]`` (1-byte pages with f32 scales for
+        ``kv_quant``) through a block table ``[B*K, Pg]``. Beam ``n``
+        owns pages ``n*Pg + g``, and a page is written only while it is
+        its owner's current partial page, so a completed page is
+        immutable and any descendant's table may point at it. Each step
+        is one decode step (``run.decode``, a `CapturedStep` of ``(cur
+        [B*K, 1], step, gen_col)``, and with a mask ``pads`` and
+        ``pad_mask``, set once a call), then, eagerly: the table's rows
+        gathered by parent, in place; a copy-on-write of the current
+        partial page from the parent's into the child's own slot (every
+        read against the pool before the copy, data and scale rows
+        together, `paged_kv.copy_pages`); the next page pointed at the
         child's own slot. The tail is read by the paged-attention kernel
         (`kernels.paged_attention.paged_tail_segment`)."""
         if kv_quant not in (None, "int8", "fp8"):
             raise ValueError(f"kv_quant must be None, 'int8' or 'fp8', "
                              f"got {kv_quant!r}")
-        quant = kv_quant is not None
         total_len = prompt_len + max_new
         k = num_beams
         n = b * k
@@ -622,38 +746,57 @@ class GenerationMixin:
         feed_tok = eos if eos is not None else 0
         page_dtype = {None: None, "int8": "int8",
                       "fp8": "float8_e4m3fn"}[kv_quant]
+        dev = self.device
+        # a 0-batch probe checks the whole horizon against the position
+        # table without allocating it
+        self.gen_static_cache(0, total_len)
+        ctx = self.gen_static_cache(b, prompt_len)
+        pools = self.gen_page_pool(n * pg, ps, dtype=page_dtype)
+        scales = (self.gen_page_scales(n * pg, ps) if kv_quant is not None
+                  else None)
+        own = (torch.arange(n, device=dev)[:, None] * pg
+               + torch.arange(pg, device=dev)[None, :]).to(torch.int32)
+        bt = own.clone()
+        inputs = {"cur": ((n, 1), torch.long)}
+        if with_mask:
+            inputs.update(pads=((n,), torch.long),
+                          pad_mask=((b, prompt_len), torch.long))
+
+        def body(cur, step, gen_col, pads=None, pad_mask=None):
+            with self.dequantized(weights):
+                logits = self.decode_beam_paged(
+                    cur, step, ctx, pools, bt, gen_col, pads=pads,
+                    pad_mask=pad_mask, scales=scales)
+            return logits[:, -1].float()
+
+        fixed = [t for pairs in (ctx, pools, scales or ()) for pair in pairs
+                 for t in pair] + [bt]
+        decode = self._decode_step_fn(
+            "beam_paged", f"b{b}x{prompt_len}+{max_new}k{k}ps{ps}"
+            f"{kv_quant or ''}{'m' if with_mask else ''}"
+            f"{'q' if weights else ''}", body,
+            staged={"step": (), "gen_col": ()}, inputs=inputs, fixed=fixed)
 
         def run(ids, amask=None):
             if with_mask and amask is None:
                 raise ValueError("this beam fn was built for a masked batch "
                                  "but was called without one")
-            dev = ids.device
-            dec = {}
             if amask is not None:
-                dec = dict(pads=(prompt_len - amask.sum(dim=1)
-                                 ).repeat_interleave(k),
-                           pad_mask=amask)
-            # a 0-batch probe checks the whole horizon against the
-            # position table without allocating it
-            self.gen_static_cache(0, total_len)
-            ctx = self.gen_static_cache(b, prompt_len)
-            logits, _ = self.prefill(ids, ctx, pad_mask=amask)
+                decode.set(pads=(prompt_len - amask.sum(dim=1)
+                                 ).repeat_interleave(k), pad_mask=amask)
+            with self.dequantized(weights):
+                logits, _ = self.prefill(ids, ctx, pad_mask=amask)
             beams = _Beams(logits[:, -1], k, max_new, eos, fill, feed_tok)
-            pools = self.gen_page_pool(n * pg, ps, dtype=page_dtype)
-            scales = self.gen_page_scales(n * pg, ps) if quant else None
-            own = (torch.arange(n, device=dev)[:, None] * pg
-                   + torch.arange(pg, device=dev)[None, :]).to(torch.int32)
-            bt = own.clone()
+            bt.copy_(own)
             for i in range(1, max_new):
                 if beams.all_done():
                     break
                 j = i - 1                        # the gen column written
-                logits = self.decode_beam_paged(
-                    beams.cur.reshape(n, 1), prompt_len + i - 1, ctx, pools,
-                    bt, j, scales=scales, **dec)
-                parent = beams.select(logits, i)
+                parent = beams.select(
+                    decode(cur=beams.cur.reshape(n, 1),
+                           step=prompt_len + i - 1, gen_col=j), i)
                 g, g2 = j // ps, i // ps
-                bt = bt.index_select(0, parent)
+                bt.copy_(bt.index_select(0, parent))
                 src, dst = bt[:, g].long(), own[:, g].long()
                 for li, (pk, pv) in enumerate(pools):
                     ks, vs = (None, None) if scales is None else scales[li]
@@ -664,6 +807,7 @@ class GenerationMixin:
                     bt[:, g2] = own[:, g2]
             return beams.best(length_penalty)
 
+        run.decode = decode
         return run
 
 

@@ -23,7 +23,10 @@ Counterpart: ``paddle_tpu/models/gpt.py``. Ported so far:
   (`GPTModel.decode_step`), the paged beam step with a shared prompt
   segment and per-beam tail pages (`GPTModel.decode_beam_paged`, the
   tail through `kernels.paged_attention.paged_tail_segment`), and the
-  concat-grow ``forward(caches=)``.
+  concat-grow ``forward(caches=)``. The decode steps take their cursor
+  (``step``, ``gen_col``) as an int or as an int tensor on the device,
+  and no shape depends on it, so one CUDA graph of a step serves every
+  position (`jit.capture.CapturedStep`).
 
 Two layouts are kept from the reference so that a ``paddle_tpu``
 state dict loads key for key (`models.convert`):
@@ -102,6 +105,20 @@ GPT_CONFIGS = {
 
 def gpt_config(name: str) -> GPTConfig:
     return GPT_CONFIGS[name]
+
+
+def decode_cursor(step, max_len: int, device) -> torch.Tensor:
+    """A decode step's cache column as a 0-d int64 tensor on ``device``.
+    An int is checked against ``max_len`` (ValueError past it) and made
+    with a fill, so a graph may capture it; a tensor is taken as it is,
+    unchecked: a captured step never reads the device from the host, and
+    its caller checks the cursor on the host from its loop index."""
+    if torch.is_tensor(step):
+        return step.reshape(()).long()
+    if int(step) >= max_len:
+        raise ValueError(f"decode step {int(step)} out of range for cache "
+                         f"max_len {max_len}")
+    return torch.full((), int(step), dtype=torch.long, device=device)
 
 
 def unpack_qkv_pair_major(qkv, n_heads, head_dim):
@@ -200,26 +217,29 @@ class GPTAttention(nn.Module):
         return self.out_proj(ctx)
 
     def forward_decode(self, x, k_cache, v_cache, step, valid_cols=None):
-        """One token per row at the shared cache column ``step`` (an int;
-        ``gpt.py:249-291``): its K/V are written there in place and it
-        attends columns ``[0, step]``, minus those ``valid_cols [B,
+        """One token per row at the shared cache column ``step``
+        (``gpt.py:249-291``): its K/V are written there in place
+        (``index_copy_``) and it attends the whole static cache under
+        ``arange(max_len) <= step``, minus the columns ``valid_cols [B,
         max_len]`` marks 0 (a left-padded prompt's pad columns). Composed
-        attention, as in the reference."""
-        t = int(step)
-        if t >= k_cache.shape[2]:
-            raise ValueError(f"decode step {t} out of range for cache "
-                             f"max_len {k_cache.shape[2]}")
+        attention, as in the reference. ``step`` is an int, checked
+        against max_len here, or a one-element int tensor on the device,
+        which the caller checks on the host (`decode_cursor`)."""
+        max_len = k_cache.shape[2]
+        t = decode_cursor(step, max_len, x.device).reshape(1)
         b = x.shape[0]
         q, k, v = unpack_qkv_pair_major(self.qkv_proj(x), self.num_heads,
                                         self.head_dim)     # [B, 1, H, D]
-        k_cache[:, :, t] = k[:, 0].to(k_cache.dtype)
-        v_cache[:, :, t] = v[:, 0].to(v_cache.dtype)
+        k_cache.index_copy_(2, t, k.permute(0, 2, 1, 3).to(k_cache.dtype))
+        v_cache.index_copy_(2, t, v.permute(0, 2, 1, 3).to(v_cache.dtype))
         qh = q.permute(0, 2, 1, 3)
-        valid = (None if valid_cols is None
-                 else (valid_cols[:, :t + 1] != 0)[:, None, None, :])
-        ctx = mt_attention_core(qh, k_cache[:, :, :t + 1].to(qh.dtype),
-                                v_cache[:, :, :t + 1].to(qh.dtype),
-                                self.head_dim, valid_mask=valid)
+        valid = (torch.arange(max_len, device=x.device) <= t)[
+            None, None, None, :]
+        if valid_cols is not None:
+            valid = valid & (valid_cols != 0)[:, None, None, :]
+        ctx = mt_attention_core(qh, k_cache.to(qh.dtype),
+                                v_cache.to(qh.dtype), self.head_dim,
+                                valid_mask=valid)
         return self.out_proj(ctx.reshape(b, 1, -1))
 
     def _ctx_segment(self, qh, ctx_k, ctx_v, pad_mask):
@@ -231,8 +251,8 @@ class GPTAttention(nn.Module):
         n, h, d = qh.shape
         b, sc = ctx_k.shape[0], ctx_k.shape[2]
         qb = qh.reshape(b, n // b, h, d)
-        scale = torch.tensor(float(self.head_dim), dtype=qh.dtype,
-                             device=qh.device).sqrt()
+        scale = torch.full((), float(self.head_dim), dtype=qh.dtype,
+                           device=qh.device).sqrt()
         s32 = (torch.einsum("bkhd,bhld->bkhl", qb, ctx_k.to(qh.dtype))
                / scale).float()
         if pad_mask is not None:
@@ -252,17 +272,20 @@ class GPTAttention(nn.Module):
         [B, H, Sp, D]`` is stored once per batch row and shared by its K
         beams; each beam's generated tail lives in its pages of ``pool_k
         / pool_v`` through ``block_table [N, Pg]``. The token's K/V are
-        written at gen column ``gen_col`` (an int) in place, quantized
-        when ``k_scale``/``v_scale`` ride with 1-byte pools; the tail is
-        read by `paged_tail_segment` (the Hopper kernel on a card) and
-        merged with `_ctx_segment` by `merge_attention_segments`."""
+        written at gen column ``gen_col`` (an int, or a one-element int
+        tensor on the device: `decode_cursor`) in place, quantized when
+        ``k_scale``/``v_scale`` ride with 1-byte pools; the tail is read
+        by `paged_tail_segment` (the Hopper kernel on a card) and merged
+        with `_ctx_segment` by `merge_attention_segments`."""
         n = x.shape[0]
         q, k, v = unpack_qkv_pair_major(self.qkv_proj(x), self.num_heads,
                                         self.head_dim)     # [N, 1, H, D]
         qh, kh, vh = q[:, 0], k[:, 0], v[:, 0]
-        j, ps = int(gen_col), pool_k.shape[2]
-        pages = block_table[:, j // ps]
-        offs = torch.full_like(pages, j % ps)
+        ps = pool_k.shape[2]
+        j = decode_cursor(gen_col, block_table.shape[1] * ps, x.device)
+        pages = block_table.gather(
+            1, (j // ps).reshape(1, 1).expand(n, 1))[:, 0]
+        offs = (j % ps).reshape(1).expand(n)
         if k_scale is None:
             paged_kv.write_token_pages(pool_k, pages, offs, kh)
             paged_kv.write_token_pages(pool_v, pages, offs, vh)
@@ -448,10 +471,14 @@ class GPTModel(nn.Module):
     @staticmethod
     def _decode_positions(token_ids, step, pads):
         """Position ids ``[B, 1]`` of tokens at the shared cache column
-        ``step``: ``step - pads`` clipped at 0 (left-padded rows)."""
+        ``step`` (an int or a one-element int tensor): ``step - pads``
+        clipped at 0 (left-padded rows)."""
         b = token_ids.shape[0]
-        pos = torch.full((b,), int(step), dtype=torch.long,
-                         device=token_ids.device)
+        if torch.is_tensor(step):
+            pos = step.reshape(1).long().expand(b)
+        else:
+            pos = torch.full((b,), int(step), dtype=torch.long,
+                             device=token_ids.device)
         if pads is not None:
             pos = (pos - pads.long()).clamp(min=0)
         return pos[:, None]
@@ -459,10 +486,13 @@ class GPTModel(nn.Module):
     def decode_step(self, token_ids, step, caches, pads=None,
                     valid_cols=None):
         """One token per row ``token_ids [B, 1]`` at the shared cache
-        column ``step`` (an int) over the static caches ``[B, H, max_len,
-        D]`` (written in place; ``gpt.py:1044-1063``). ``pads [B]``
-        shifts position ids of left-padded rows; ``valid_cols [B,
-        max_len]`` masks their pad columns. Returns ``[B, 1, h]``."""
+        column ``step`` over the static caches ``[B, H, max_len, D]``
+        (written in place; ``gpt.py:1044-1063``): an int, checked against
+        max_len, or a one-element int tensor on the device
+        (`decode_cursor`). ``pads [B]`` shifts position ids of left-padded
+        rows; ``valid_cols [B, max_len]`` masks their pad columns.
+        Returns ``[B, 1, h]``."""
+        step = decode_cursor(step, caches[0][0].shape[2], token_ids.device)
         x = self.embeddings(token_ids,
                             self._decode_positions(token_ids, step, pads))
         for layer, (kc, vc) in zip(self.h, caches):
@@ -477,7 +507,8 @@ class GPTModel(nn.Module):
         per-layer shared prompt K/V ``[B, H, Sp, D]``, ``pools`` the
         per-layer tail pools, ``block_table [B*K, Pg]`` the beams' page
         map (one for every layer), ``gen_col`` the gen column written
-        and ``step`` the absolute position (ints). ``pads [B*K]`` shifts
+        and ``step`` the absolute position (ints, or one-element int
+        tensors on the device). ``pads [B*K]`` shifts
         position ids; ``pad_mask [B, Sp]`` masks a left-padded prompt;
         ``scales`` the per-layer ``(k_scale, v_scale)`` of 1-byte pools.
         Pools and scales are written in place. Returns ``[B*K, 1, h]``."""
@@ -672,6 +703,7 @@ class GPTPretrainingCriterion(nn.Module):
         return loss.mean()
 
 
-__all__ = ["GPTConfig", "GPT_CONFIGS", "gpt_config", "unpack_qkv_pair_major",
+__all__ = ["GPTConfig", "GPT_CONFIGS", "gpt_config", "decode_cursor",
+           "unpack_qkv_pair_major",
            "GPTAttention", "GPTMLP", "GPTDecoderLayer", "GPTEmbeddings", "GPTModel",
            "GPTForPretraining", "GPTPretrainingCriterion"]

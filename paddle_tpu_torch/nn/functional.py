@@ -52,8 +52,9 @@ def mt_attention_core(q, keys, vals, head_dim, valid_mask=None):
     q ``[B, H, S, D]``; keys/vals ``[B, H, L, D]``; ``valid_mask``
     (bool, broadcastable to ``[B, H, S, L]``) excludes False positions.
     Returns ``[B, S, H*D]``."""
-    scale = torch.tensor(float(head_dim), dtype=q.dtype,
-                         device=q.device).sqrt()
+    # made on the device (a fill), so that a captured graph may hold it
+    scale = torch.full((), float(head_dim), dtype=q.dtype,
+                       device=q.device).sqrt()
     scores = torch.einsum("bhsd,bhld->bhsl", q, keys) / scale
     s32 = scores.float()
     if valid_mask is not None:

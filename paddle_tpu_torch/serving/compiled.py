@@ -1,58 +1,103 @@
-"""The per-step functions of the paged engine.
+"""The per-step functions of the paged engine, one captured step per
+shape bucket.
 
 Counterpart: ``paddle_tpu/serving/compiled.py`` — `build_paged_prefill_fn`
 (:247-304), `build_paged_decode_step_fn` (:355-395) and
-`build_paged_verify_step_fn` (:563-616). There each is a jitted
-executable over static shapes; here each is a plain function that runs
-eagerly (graph capture per shape bucket is later work), and a decode
-step is the verify step at one lane per slot. Each writes the
-page pools in place, and the scales beside them when ``scales`` (the
-per-layer ``(k_scale, v_scale)`` of a quantized pool) is given, and
-returns the selected tokens as a device tensor.
+`build_paged_verify_step_fn` (:563-616). There each builder returns an
+executable jitted once per shape bucket; here each returns a
+`jit.capture.CapturedStep`: on a card one CUDA graph, captured on first
+use and replayed on every later call, on the CPU the same body run
+eagerly on the same static buffers. A decode step is the verify step at
+one lane per slot.
+
+Each body writes the page pools in place, and the scales beside them
+when ``scales`` (the per-layer ``(k_scale, v_scale)`` of a quantized
+pool) is given, dequantizes weight-only int8 ``weights`` inside the step
+(as the reference's step dequantizes inside its executable, :376), and
+returns the **float32 logits**. Token selection (`models.generation.
+select_tokens` / `select_tokens_window`) runs after the replay, eagerly:
+a sampled row draws from its request's own `torch.Generator`, which one
+graph could not hold. The operands are the int32 arrays the engine
+keeps on the host, staged through one pinned buffer in one copy a step.
 """
 from __future__ import annotations
 
+from ..jit.capture import CapturedStep
 from ..kernels.paged_kv import scatter_prompt_pages, scatter_prompt_pages_q
-from ..models.generation import select_tokens, select_tokens_window
 
 
-def paged_prefill_step(model, pools, ids, amask, page_rows, page_size,
-                       samplers, top_k=0, scales=None):
-    """Prompt pass for ``ids [n, bucket]`` (left-padded; ``amask`` marks
-    the real tokens): the prompt K/V is computed in a local float ``[n,
-    H, bucket, D]`` cache, which the prompt attends, and then scattered
-    into each row's reserved pages (``page_rows [n,
-    >=pages_for(bucket)]``; ``bucket`` need not be a multiple of
-    ``page_size``), quantized on the way into a quantized pool. Returns
-    each row's first token ``[n]``."""
-    n, bucket = ids.shape
-    local = model.gen_static_cache(n, bucket)
-    logits, local = model.prefill(ids, local, pad_mask=amask)
-    tok = select_tokens(logits[:, -1].float(), samplers, top_k)
-    for i, ((pk, pv), (lk, lv)) in enumerate(zip(pools, local)):
-        if scales is None:
-            scatter_prompt_pages(pk, page_rows, lk, page_size)
-            scatter_prompt_pages(pv, page_rows, lv, page_size)
-        else:
-            ks, vs = scales[i]
-            scatter_prompt_pages_q(pk, ks, page_rows, lk, page_size)
-            scatter_prompt_pages_q(pv, vs, page_rows, lv, page_size)
-    return tok
+def _flat(pools, scales):
+    """The tensors a step writes in place: every pool, then every
+    scale."""
+    out = [t for pair in pools for t in pair]
+    if scales is not None:
+        out += [t for pair in scales for t in pair]
+    return out
 
 
-def paged_verify_step(model, pools, tokens, steps, pads, valid_cols,
-                      block_table, samplers, lanes, top_k=0, scales=None):
-    """One decode or speculative verify step for every slot, active or
-    parked: ``tokens [S, W]`` holds each slot's pending token and its
-    drafts (zero-padded; W = 1 without speculation); lane ``j`` writes at
-    column ``steps[s] + j`` and every lane is scored in one pass, the
-    paged-attention kernel at W queries per row. Returns
-    ``(tok [S, W], probs)`` from `select_tokens_window` (``lanes[s]``:
-    the lane a sampled row draws at); both stay on the device."""
-    logits = model.verify_slots_paged(tokens, steps, pools, block_table,
-                                      pads=pads, valid_cols=valid_cols,
-                                      scales=scales)
-    return select_tokens_window(logits.float(), samplers, top_k, lanes)
+def build_paged_prefill_fn(model, n, bucket, page_size, *, pools,
+                           max_pages, scales=None, weights=None,
+                           on_trace=None, pool=None, name=None):
+    """The prompt pass of ``n`` left-padded rows of ``bucket`` tokens as
+    a `CapturedStep` of ``(ids [n, bucket], amask [n, bucket], page_rows
+    [n, max_pages])``, all int32 (``amask`` marks the real tokens,
+    ``page_rows`` are the rows' block-table rows): the prompt K/V is
+    computed in a local float ``[n, H, bucket, D]`` cache, which the
+    prompt attends, and then scattered into each row's reserved pages
+    (``bucket`` need not be a multiple of ``page_size``), quantized on
+    the way into a quantized pool. Returns each row's last logits ``[n,
+    V]`` float32. ``on_trace("prefill")`` is called on each build;
+    ``pool`` is the owner's graph memory pool."""
+
+    def body(ids, amask, page_rows):
+        with model.dequantized(weights):
+            local = model.gen_static_cache(n, bucket)
+            logits, local = model.prefill(ids, local, pad_mask=amask)
+            for i, ((pk, pv), (lk, lv)) in enumerate(zip(pools, local)):
+                if scales is None:
+                    scatter_prompt_pages(pk, page_rows, lk, page_size)
+                    scatter_prompt_pages(pv, page_rows, lv, page_size)
+                else:
+                    ks, vs = scales[i]
+                    scatter_prompt_pages_q(pk, ks, page_rows, lk, page_size)
+                    scatter_prompt_pages_q(pv, vs, page_rows, lv, page_size)
+        return logits[:, -1].float()
+
+    return CapturedStep(
+        name or f"serving.prefill[b{bucket}]", body, model.device,
+        staged=dict(ids=(n, bucket), amask=(n, bucket),
+                    page_rows=(n, max_pages)),
+        fixed=_flat(pools, scales), pool=pool,
+        on_trace=None if on_trace is None else lambda: on_trace("prefill"))
 
 
-__all__ = ["paged_prefill_step", "paged_verify_step"]
+def build_paged_verify_step_fn(model, slots, w, max_pages, page_size, *,
+                               pools, scales=None, weights=None,
+                               on_trace=None, pool=None, name=None):
+    """One decode (``w = 1``) or speculative verify (``w = k + 1``) step
+    of every slot, active or parked, as a `CapturedStep` of ``(tokens
+    [slots, w], steps [slots], pads [slots], valid_cols [slots,
+    max_pages * page_size], block_table [slots, max_pages])``, all int32:
+    ``tokens`` holds each slot's pending token and its drafts
+    (zero-padded); lane ``j`` writes at column ``steps[s] + j`` and every
+    lane is scored in one pass, the paged-attention kernel at ``w``
+    queries per row. Returns the logits ``[slots, w, V]`` float32.
+    ``on_trace("decode")`` is called on each build."""
+
+    def body(tokens, steps, pads, valid_cols, block_table):
+        with model.dequantized(weights):
+            logits = model.verify_slots_paged(
+                tokens, steps, pools, block_table, pads=pads,
+                valid_cols=valid_cols, scales=scales)
+        return logits.float()
+
+    return CapturedStep(
+        name or f"serving.decode[w{w}]", body, model.device,
+        staged=dict(tokens=(slots, w), steps=(slots,), pads=(slots,),
+                    valid_cols=(slots, max_pages * page_size),
+                    block_table=(slots, max_pages)),
+        fixed=_flat(pools, scales), pool=pool,
+        on_trace=None if on_trace is None else lambda: on_trace("decode"))
+
+
+__all__ = ["build_paged_prefill_fn", "build_paged_verify_step_fn"]

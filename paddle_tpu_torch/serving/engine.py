@@ -19,7 +19,7 @@ paged engine:
   quantizes into the pages, every decode or verify write quantizes, and
   the attention kernel dequantizes;
 - ``weight_quant="int8"`` serves weight-only int8 weights, dequantized
-  once per `step` (the model's `dequantized` scope);
+  inside each prefill and decode step (the model's `dequantized` scope);
 - ``spec_k=k`` replaces the decode step by a verify step of ``k + 1``
   lanes per slot: an n-gram drafter (`speculative.NgramDrafter`,
   suffix n-grams up to ``spec_ngram`` tokens) proposes up to ``k``
@@ -33,19 +33,31 @@ paged engine:
 On a card the attention of every decode and verify step is the Hopper
 paged-attention kernel (`kernels.paged_attention`, at ``W = 1`` or ``k
 + 1`` queries per slot, reading float or 1-byte pages); on the CPU its
-plain version. Arguments of features that later slices bring raise
-`NotImplementedError` naming the feature.
+plain version. Every prefill step (one per prompt bucket) and the
+decode/verify step (one for the engine's ``W``) is a
+`jit.capture.CapturedStep` (`compiled.build_paged_prefill_fn`,
+`compiled.build_paged_verify_step_fn`): on a card one CUDA graph each,
+captured on first use into the engine's one graph memory pool and then
+only replayed; on the CPU the same body runs eagerly on the same static
+buffers. Each build is counted (``stats().prefill_traces`` and
+``decode_traces``) and reported to the recompile sentinel under the
+engine's own names (`metrics.EngineMetrics.note_trace`). Token selection
+runs after the replay, eagerly. Arguments of features that later slices
+bring raise `NotImplementedError` naming the feature.
 """
 from __future__ import annotations
 
+import functools
 import time
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..jit.capture import graph_pool
 from ..kernels import kernel_launch_counts
-from .compiled import paged_prefill_step, paged_verify_step
+from ..models.generation import select_tokens, select_tokens_window
+from .compiled import build_paged_prefill_fn, build_paged_verify_step_fn
 from .metrics import EngineMetrics
 from .paged import PagedKVCache, pages_in_budget
 from .request import (CANCELLED, DECODING, FINISHED, QUEUED, Request,
@@ -106,8 +118,9 @@ class Engine:
     ``spec_ngram``: the longest suffix n-gram the drafter matches.
     ``weight_quant="int8"``: weight-only int8 serving, the quantizer of
     `GenerationMixin.generate` (`models.generation.quantize_state_int8`,
-    cached on the model); every `step` dequantizes the weights it runs
-    on, as the reference's step executable does. ``kv_mode``: None or
+    cached on the model); every prefill and decode step dequantizes the
+    weights it runs on inside its graph, as the reference's step
+    executable does. ``kv_mode``: None or
     ``"paged"``, the one mode the port has (the reference's None picks
     slots without a paged feature: ROADMAP A8.2). ``device``: ``None``
     means ``cuda`` (raises without a GPU); it must be the model's
@@ -170,6 +183,12 @@ class Engine:
         self._slot_req: list[Request | None] = [None] * self.slots
         self._next_rid = 0
         self._fatal: BaseException | None = None
+        #: the graph memory pool of every step of this engine
+        self._graphs = graph_pool(self.device)
+        #: bucket -> its prefill step; the decode/verify step (built on
+        #: first use)
+        self._prefill_fns: dict = {}
+        self._verify = None
 
     # -- client surface --------------------------------------------------
     def submit(self, prompt_ids, max_new_tokens=32, eos_token_id=None,
@@ -254,8 +273,7 @@ class Engine:
         then one decode step over all slots. False when fully idle."""
         self._check_alive()
         try:
-            with torch.inference_mode(), \
-                    self.model.dequantized(self._qweights):
+            with torch.inference_mode():
                 did = False
                 while True:
                     req = self.scheduler.next_admission()
@@ -299,7 +317,46 @@ class Engine:
             kv_pool_bytes=self.kv.memory_bytes(),
             kv_bytes_per_token=self.kv.bytes_per_page() / self.kv.page_size,
             spec_k=self.spec_k,
+            capture_s=sum(fn.capture_s for fn in self._steps()),
             paged_attention_launches=sum(counts[k] for k in _PAGED_KERNELS))
+
+    def _steps(self):
+        """Every step this engine built so far."""
+        return [*self._prefill_fns.values(),
+                *([self._verify] if self._verify is not None else [])]
+
+    def _prefill_fn(self, bucket: int):
+        """The prefill step of ``bucket`` (built on first use)."""
+        fn = self._prefill_fns.get(bucket)
+        if fn is None:
+            tag = f"b{bucket}"
+            fn = self._prefill_fns[bucket] = build_paged_prefill_fn(
+                self.model, 1, bucket, self.kv.page_size,
+                pools=self.kv.caches, max_pages=self.kv.max_pages,
+                scales=self.kv.scales, weights=self._qweights,
+                on_trace=functools.partial(self.metrics.note_trace, tag=tag),
+                pool=self._graphs,
+                name=self.metrics.step_name("prefill", tag))
+        return fn
+
+    def _verify_fn(self):
+        """The decode (W = 1) or verify (W = spec_k + 1) step (built on
+        first use)."""
+        if self._verify is None:
+            self._verify = build_paged_verify_step_fn(
+                self.model, self.slots, self.spec_k + 1, self.kv.max_pages,
+                self.kv.page_size, pools=self.kv.caches,
+                scales=self.kv.scales, weights=self._qweights,
+                on_trace=self.metrics.note_trace, pool=self._graphs,
+                name=self.metrics.step_name("decode"))
+        return self._verify
+
+    def _step_operands(self, tokens: np.ndarray) -> dict:
+        """The verify step's operands: ``tokens [S, W]`` and the pool's
+        host-side slot state, as they stand."""
+        return dict(tokens=tokens, steps=self.kv.steps, pads=self.kv.pads,
+                    valid_cols=self.kv.valid_cols,
+                    block_table=self.kv.block_table)
 
     # -- internals -------------------------------------------------------
     def _check_alive(self):
@@ -327,15 +384,13 @@ class Engine:
     def _admit(self, req: Request):
         bucket, slot = req.bucket, req.slot
         pad = bucket - req.prompt_len
-        ids = np.zeros((1, bucket), np.int64)
+        ids = np.zeros((1, bucket), np.int32)
         ids[0, pad:] = req.prompt
         amask = np.zeros((1, bucket), np.int32)
         amask[0, pad:] = 1
-        tok = paged_prefill_step(
-            self.model, self.kv.caches, self._dev(ids), self._dev(amask),
-            self._dev(self.kv.block_table[[slot]]), self.kv.page_size,
-            [self._sampler(req)], self.top_k, scales=self.kv.scales)
-        tok = int(tok[0])
+        l32 = self._prefill_fn(bucket)(
+            ids=ids, amask=amask, page_rows=self.kv.block_table[[slot]])
+        tok = int(select_tokens(l32, [self._sampler(req)], self.top_k)[0])
         self.kv.occupy(slot, bucket, req.prompt_len)
         self._slot_req[slot] = req
         self._tokens[slot] = tok
@@ -378,11 +433,9 @@ class Engine:
                 n_draft[slot] = len(d)
                 qs[slot] = q
         samplers = [self._sampler(r) for r in self._slot_req]
-        tok, probs = paged_verify_step(
-            self.model, self.kv.caches, self._dev(toks),
-            self._dev(self.kv.steps), self._dev(self.kv.pads),
-            self._dev(self.kv.valid_cols), self._dev(self.kv.block_table),
-            samplers, n_draft.tolist(), self.top_k, scales=self.kv.scales)
+        l32 = self._verify_fn()(**self._step_operands(toks))
+        tok, probs = select_tokens_window(l32, samplers, self.top_k,
+                                          n_draft.tolist())
         out = tok.cpu().numpy()
         emits = {}
         sampled = [s for s, smp in enumerate(samplers) if smp is not None]

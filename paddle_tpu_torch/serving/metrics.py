@@ -1,16 +1,25 @@
 """Engine counters and the `EngineStats` snapshot.
 
 Counterpart: ``paddle_tpu/serving/metrics.py``, reduced to what the
-port's engine counts (the speculative counters of :95-119 and the pool
-bytes of :62-70 included). Times are host wall-clock seconds around work that
-ends in a device sync (the token reaches the host), so they measure the
-whole step, host and device.
+port's engine counts (the speculative counters of :95-119, the pool
+bytes of :62-70 and the trace counts of :309-338 included). Times are
+host wall-clock seconds around work that ends in a device sync (the
+token reaches the host), so they measure the whole step, host and
+device. A step's first call on a card captures its CUDA graph; the
+seconds that took are ``capture_s``, beside the TTFT and step times
+that include them.
 """
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass, field
 
 import numpy as np
+
+from ..observability.sentinel import get_sentinel
+
+#: default engine ids, ``engine0``, ``engine1``, ... in creation order
+_engine_ids = itertools.count()
 
 
 @dataclass(frozen=True)
@@ -53,10 +62,21 @@ class EngineStats:
     spec_drafted_sampled: int
     spec_accepted_greedy: int
     spec_accepted_sampled: int
+    #: prefill steps built: one per prompt bucket used (on a card, one
+    #: CUDA graph capture each)
+    prefill_traces: int
+    #: decode (verify) steps built: 1 for the engine's one window
+    decode_traces: int
+    #: host seconds spent capturing this engine's graphs (warm-up and
+    #: capture; 0.0 on the CPU)
+    capture_s: float
 
 
 @dataclass
 class EngineMetrics:
+    #: the engine's name in the sentinel's step names
+    engine_id: str = field(
+        default_factory=lambda: f"engine{next(_engine_ids)}")
     submitted: int = 0
     prefill_steps: int = 0
     decode_steps: int = 0
@@ -71,6 +91,31 @@ class EngineMetrics:
     #: argmax agreement, "sampled" ones by modified rejection
     spec: dict = field(default_factory=lambda: {"greedy": [0, 0],
                                                 "sampled": [0, 0]})
+    prefill_traces: int = 0
+    decode_traces: int = 0
+
+    def note_trace(self, kind: str, tag: str | None = None,
+                   count: bool = True):
+        """One build of a step (``paddle_tpu/serving/metrics.py:
+        314-338``): on a card one CUDA graph capture, on the CPU the
+        first run of a bucket's step. Counted in ``decode_traces`` for
+        ``kind == "decode"``, else in ``prefill_traces`` (not with
+        ``count=False``), and reported to the recompile sentinel as
+        ``serving.{kind}[{engine_id}]``, with ``[{tag}]`` after it where
+        a tag names one of a deliberate family (the prefill's bucket,
+        ``b{bucket}``): armed, a second build of one name raises
+        `observability.RecompileError`."""
+        if count:
+            if kind == "decode":
+                self.decode_traces += 1
+            else:
+                self.prefill_traces += 1
+        get_sentinel().note_trace(self.step_name(kind, tag))
+
+    def step_name(self, kind: str, tag: str | None = None) -> str:
+        """The sentinel's name of one of this engine's steps."""
+        name = f"serving.{kind}[{self.engine_id}]"
+        return name + f"[{tag}]" if tag else name
 
     def note_spec(self, mode: str, drafted: int, accepted: int):
         """One drafting slot's verify window."""
@@ -93,6 +138,8 @@ class EngineMetrics:
             cancelled=self.cancelled,
             tokens_generated=self.tokens_generated,
             kv_pages_exhausted=self.kv_pages_exhausted,
+            prefill_traces=self.prefill_traces,
+            decode_traces=self.decode_traces,
             ttft_p50=p50(self.ttft_s),
             decode_step_p50=p50(self.decode_step_s), **gauges)
 

@@ -53,7 +53,11 @@ MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.device",
            "paddle_tpu_torch.kernels.fused_ln", "paddle_tpu_torch.incubate",
            "paddle_tpu_torch.incubate.nn",
            "paddle_tpu_torch.incubate.nn.functional",
-           "paddle_tpu_torch.incubate.nn.layers"]
+           "paddle_tpu_torch.incubate.nn.layers",
+           "paddle_tpu_torch.observability",
+           "paddle_tpu_torch.observability.registry",
+           "paddle_tpu_torch.observability.sentinel",
+           "paddle_tpu_torch.jit", "paddle_tpu_torch.jit.capture"]
 
 
 def test_import_pulls_in_no_jax_and_no_paddle_tpu():

@@ -17,8 +17,11 @@ warpgroup products (B1 and B5, D 64 and 128, a half-full last query
 block), the general kernels at head dims above 128 (sliced over D, f32
 and bf16), the paged kernel at head dims 80 and 16 and page sizes 4 and
 3, the general bf16 kernels
-at the edges of their tiles, and B1's backward against the general
-backward on the unpacked views (the kernel they share).
+at the edges of their tiles, B1's backward against the general
+backward on the unpacked views (the kernel they share), and the paged
+Engine's captured decode step at the serving decode shape: its CUDA
+graph's replay against its eager run, bit for bit, and the launch counts
+its replays add.
 """
 import pytest
 import torch
@@ -606,3 +609,72 @@ def test_flash_lse_kernels_match_the_plain_versions_on_a_card(dtype,
     b2 = pfa.flash_attention_bwd(qp, kp, vp, po, plse, do, causal,
                                  scale=48 ** -0.5)
     assert torch.equal(zero[1], b2[1]) and torch.equal(zero[2], b2[2])
+
+
+def _decode_engine(pages):
+    """An engine at gpt3-1.3b's serving widths (hidden 2048, 16 heads of
+    128, MLP 8192, vocab 50304) cut to 2 layers, bf16, every one of its 8
+    slots holding a prompt, after one step (its graphs captured)."""
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.serving import Engine
+
+    cfg = GPTConfig(50304, 2048, 2, 16, 8192, 2048)
+    model = GPTForPretraining(cfg, dtype="bfloat16", seed=0)
+    eng = Engine(model, slots=8, page_size=16, max_len=640,
+                 prefill_buckets=(128, 512), kv_quant=pages)
+    g = torch.Generator().manual_seed(0)
+    for n in (20, 75, 130, 190, 250, 310, 370, 430):
+        eng.submit(torch.randint(1, 50304, (n,), generator=g).tolist(),
+                   max_new_tokens=16)
+    eng.step()
+    return eng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pages", [None, "int8"])
+def test_decode_step_replay_equals_its_eager_run_on_a_card(pages):
+    """The engine's captured decode step at the serving decode shape:
+    one replay and one eager run of its body on the same staged operands,
+    each from the same pools (cloned before, restored between), give the
+    same float32 logits, bit for bit, at three decode steps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: a CUDA graph is captured and "
+                    "replayed only on the card")
+    eng = _decode_engine(pages)
+    fn = eng._verify
+    assert eng.stats().decode_traces == 1
+    for _ in range(3):
+        ops = eng._step_operands(eng._tokens[:, None])
+        with torch.inference_mode():
+            saved = [t.clone() for t in fn.fixed]
+            graph = fn(**ops)
+            for t, v in zip(fn.fixed, saved):
+                t.copy_(v)
+            eager = fn.run_eager(**ops)
+            for t, v in zip(fn.fixed, saved):
+                t.copy_(v)
+        assert torch.equal(graph, eager)
+        eng.step()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pages", [None, "int8"])
+def test_launch_counts_under_replay_on_a_card(pages):
+    """Each replay of the captured decode step adds the paged kernel's
+    launches of its capture (one a layer); the warm-up and the capture
+    leave the counts as they were."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: a CUDA graph is captured and "
+                    "replayed only on the card")
+    eng = _decode_engine(pages)
+    name = "paged_attention" + ("_" + pages if pages else "")
+    assert eng._verify._delta == {name: 2}
+    kernels.reset_kernel_launch_counts()
+    before = eng.stats().decode_steps
+    for _ in range(4):
+        eng.step()
+    steps = eng.stats().decode_steps - before
+    counts = kernels.kernel_launch_counts()
+    assert steps == 4 and counts[name] == steps * 2
+    assert all(v == 0 for k, v in counts.items() if k != name)
+    assert eng.stats().decode_traces == 1
