@@ -27,10 +27,11 @@ shapes of its operands:
 - On the CPU it runs the body eagerly on the same static buffers,
   through the same copy-in and copy-out, and counts one build a bucket.
 
-Each capture (on the CPU, each build) is reported once: to the owner's
-``on_trace`` where it has one (the `Engine`'s `EngineMetrics.note_trace`,
-which names it for the sentinel), else to the sentinel under ``name``
-with the shape signature of the static buffers. There is no eager
+Each capture (on the CPU, each build) is reported once, to the owner's
+``on_trace``, which reports it to the recompile sentinel under the
+step's name and no signature (the `Engine`'s `EngineMetrics.note_trace`,
+`generate`'s loop builder): armed, any second build of one name raises,
+a rebuild after an eviction too. There is no eager
 fallback and no switch: a capture that fails raises with the step's
 name. `run_eager` runs the body once on the static buffers without a
 replay, for holding a graph against its eager run; nothing on a main
@@ -53,7 +54,6 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..observability.sentinel import _signature, get_sentinel
 
 
 #: int32 elements in 16 bytes: each staged operand starts at a multiple
@@ -80,10 +80,10 @@ class CapturedStep:
     as tensors on the device; one left out keeps its last value.
     ``fixed``: the tensors the body reads or writes in place. ``pool``:
     the owner's `graph_pool`. ``on_trace``: called with no argument on
-    each build, in place of the sentinel report."""
+    each build; it reports the build to the sentinel."""
 
-    def __init__(self, name, body, device, *, staged=None, inputs=None,
-                 fixed=(), pool=None, on_trace=None):
+    def __init__(self, name, body, device, *, pool, on_trace, staged=None,
+                 inputs=None, fixed=()):
         self.name = name
         self.body = body
         self.device = torch.device(device)
@@ -180,11 +180,7 @@ class CapturedStep:
         return self.body(**self.static).clone()
 
     def _build(self):
-        if self.on_trace is not None:
-            self.on_trace()
-        else:
-            get_sentinel().note_trace(self.name,
-                                      _signature((), self.static))
+        self.on_trace()
         if self._cuda:
             t0 = time.perf_counter()
             self._capture()

@@ -18,7 +18,11 @@ forward to float32 logits) is one replay of a `jit.capture.CapturedStep`
 one graph memory pool per model), over static caches and page pools that
 the step owns. The built loops are cached on the model in an LRU of 32,
 keyed as the reference keys its programs (and by the weights' storage),
-so a second call at one shape replays without a capture. Token
+so a second call at one shape replays without a capture. Unlike the
+reference's cache of executables, a built loop holds device memory (its
+caches, pools and, with int8 weights, its dequantized weights), so the
+cache also keeps at most `GENERATE_CACHE_BYTES` of them, the loop used
+last always kept. Token
 selection, the beam frontier, the gather beam's reorder and the paged
 beam's block-table reorder and copy-on-write run eagerly between
 replays. The EOS early exit reads one flag from the device a step.
@@ -39,9 +43,14 @@ import torch
 from ..core.random import current_generator
 from ..jit.capture import CapturedStep, graph_pool
 from ..kernels.paged_kv import copy_pages
+from ..observability.sentinel import get_sentinel
 
 #: built generate loops kept per model (``generation.py:386-417``)
 GENERATE_CACHE_SIZE = 32
+#: device bytes the built loops of one model may hold together (their
+#: static caches, page pools, step buffers and dequantized weights); the
+#: loop used last is kept whatever its size
+GENERATE_CACHE_BYTES = 8 << 30
 #: default model names in generate's step names, in first-use order
 _model_ids = itertools.count()
 
@@ -432,14 +441,19 @@ class GenerationMixin:
         reference's A/B oracle; the same tokens).
         ``attention_mask [batch, seq]``: LEFT-padded prompts (zeros then
         ones per row). ``weight_quant="int8"``: weight-only int8,
-        dequantized by the prompt pass and inside every decode step.
+        dequantized once, when the loop is built, into weights the loop
+        owns and its prompt pass and decode steps read.
         ``stream_callback``: called with each step's output column
         (int64 numpy ``[batch]``), not with beam search. ``mesh`` and
         ``sharding_rule`` are ROADMAP A12.
 
-        The loop built for these arguments (its static caches and its
-        decode step's graph) is kept on the model, the 32 most recently
-        used of them (`clear_generate_cache` drops them)."""
+        The loop built for these arguments (its static caches, its
+        decode step's graph and, with int8 weights, their dequantized
+        copy) stays on the model after the call: the most recently used
+        loops, at most `GENERATE_CACHE_SIZE` of them and at most
+        `GENERATE_CACHE_BYTES` of device memory together, the loop used
+        last kept whatever its size (`generate_cache_bytes` reads what
+        they hold, `clear_generate_cache` frees it)."""
         if mesh is not None or sharding_rule is not None:
             raise NotImplementedError(
                 "generate(mesh=..., sharding_rule=...) comes with a later "
@@ -523,18 +537,36 @@ class GenerationMixin:
         return own
 
     def _cached_generate_fn(self, key, build):
-        """The loop built for ``key``, built on a miss; the least recently
-        used of more than `GENERATE_CACHE_SIZE` is dropped, with its
-        graphs and static buffers."""
+        """The loop built for ``key``, built on a miss; then the least
+        recently used loops are dropped, with their graphs and buffers,
+        while more than `GENERATE_CACHE_SIZE` are kept or they hold more
+        than `GENERATE_CACHE_BYTES` (never the loop just used)."""
         cache = self._generate_graphs()[0]
         fn = cache.get(key)
-        if fn is None:
-            fn = cache[key] = build()
-            while len(cache) > GENERATE_CACHE_SIZE:
-                cache.popitem(last=False)
-        else:
+        if fn is not None:
             cache.move_to_end(key)
+            return fn
+        fn = cache[key] = build()
+        while len(cache) > 1 and (
+                len(cache) > GENERATE_CACHE_SIZE
+                or self.generate_cache_bytes() > GENERATE_CACHE_BYTES):
+            cache.popitem(last=False)
         return fn
+
+    def generate_cache_bytes(self) -> int:
+        """Device bytes the built loops of `generate` hold: every tensor
+        they own (caches, page pools, block tables, step buffers,
+        dequantized weights), each storage once. The graphs' memory pool
+        is not counted: it holds the steps' intermediates, which the
+        model's later captures into the same pool reuse."""
+        seen, total = set(), 0
+        for fn in self._generate_graphs()[0].values():
+            for t in fn.held:
+                st = t.untyped_storage()
+                if st.data_ptr() not in seen:
+                    seen.add(st.data_ptr())
+                    total += st.nbytes()
+        return total
 
     def clear_generate_cache(self):
         """Drop every built loop of `generate` (their graphs, caches and
@@ -545,11 +577,44 @@ class GenerationMixin:
     def _decode_step_fn(self, kind, tag, body, *, staged, inputs, fixed):
         """A loop's decode step: a `CapturedStep` named
         ``generate.{kind}[{model}][{tag}]`` in the model's graph pool,
-        reported to the recompile sentinel on each build."""
+        each build reported to the recompile sentinel under that name
+        and no signature, as the `Engine` reports its steps: armed, a
+        rebuild (after an eviction, or for new weights) raises."""
         _, pool, model = self._generate_graphs()
-        return CapturedStep(f"generate.{kind}[{model}][{tag}]", body,
-                            self.device, staged=staged, inputs=inputs,
-                            fixed=fixed, pool=pool)
+        name = f"generate.{kind}[{model}][{tag}]"
+        return CapturedStep(name, body, self.device, pool=pool,
+                            on_trace=lambda: get_sentinel().note_trace(name),
+                            staged=staged, inputs=inputs, fixed=fixed)
+
+    def _loop_weights(self, weights):
+        """The parameter values a loop built for ``weights`` runs on:
+        ``{}`` (the parameters as they are) for None, else the quantized
+        weights dequantized once into tensors the loop owns, at fixed
+        addresses its graph reads (the loop's key holds the quantized
+        set, so these never go stale)."""
+        if weights is None:
+            return {}
+        with torch.no_grad():
+            return {n: dequantize_leaf(v) for n, v in weights.items()}
+
+    @staticmethod
+    def _holds(run, decode, weights, *groups):
+        """Set ``run.decode``, ``run.weights`` (the quantized set the loop
+        was built for, kept alive: its id is in the loop's key) and
+        ``run.held``: every device tensor the loop owns (``groups`` of
+        tensors, nested per layer, or dicts of them) and its step's
+        static buffers."""
+        held = list(decode.static.values())
+        stack = list(groups)
+        while stack:
+            g = stack.pop()
+            if torch.is_tensor(g):
+                held.append(g)
+            elif isinstance(g, dict):
+                stack.extend(g.values())
+            elif g is not None:
+                stack.extend(g)
+        run.decode, run.weights, run.held = decode, weights, held
 
     def _build_generate_fn(self, b, prompt_len, max_new, decode_strategy,
                            temperature, top_k, top_p, eos_token_id, pad,
@@ -563,18 +628,20 @@ class GenerationMixin:
         once a call). A finished row writes ``pad`` to the output and
         feeds EOS (always in the vocab) to the model. ``weights``: the
         quantized weights of ``weight_quant`` (`serving_weights`),
-        dequantized by the prefill and inside every step."""
+        dequantized once into the loop's own copy (`_loop_weights`),
+        which the prefill and every step read."""
         total_len = prompt_len + max_new
         eos = eos_token_id
         fill = pad if (eos is not None and pad is not None) else 0
         caches = self.gen_static_cache(b, total_len)
+        wvals = self._loop_weights(weights)
         inputs = {"cur": ((b, 1), torch.long)}
         if with_mask:
             inputs.update(pads=((b,), torch.long),
                           valid_cols=((b, total_len), torch.long))
 
         def body(cur, step, pads=None, valid_cols=None):
-            with self.dequantized(weights):
+            with swapped_parameters(self, wvals):
                 logits, _ = self.decode_step(cur, step, caches, pads=pads,
                                              valid_cols=valid_cols)
             return logits[:, -1].float()
@@ -597,7 +664,7 @@ class GenerationMixin:
                 decode.set(pads=prompt_len - amask.sum(dim=1),
                            valid_cols=torch.cat(
                                [amask, amask.new_ones((b, max_new))], dim=1))
-            with self.dequantized(weights):
+            with swapped_parameters(self, wvals):
                 logits, _ = self.prefill(ids, caches, pad_mask=amask)
             cur = pick(logits[:, -1].float(), generator)
             done = cur == eos if eos is not None else None
@@ -621,7 +688,7 @@ class GenerationMixin:
                     stream_callback(out[:, i].cpu().numpy())
             return out
 
-        run.decode = decode
+        self._holds(run, decode, weights, caches, wvals)
         return run
 
     def _build_beam_fn(self, b, prompt_len, max_new, num_beams,
@@ -657,13 +724,14 @@ class GenerationMixin:
         fill = pad if (eos is not None and pad is not None) else 0
         feed_tok = eos if eos is not None else 0
         caches = self.gen_static_cache(n, total_len)
+        wvals = self._loop_weights(weights)
         inputs = {"cur": ((n, 1), torch.long)}
         if with_mask:
             inputs.update(pads=((n,), torch.long),
                           valid_cols=((n, total_len), torch.long))
 
         def body(cur, step, pads=None, valid_cols=None):
-            with self.dequantized(weights):
+            with swapped_parameters(self, wvals):
                 logits, _ = self.decode_step(cur, step, caches, pads=pads,
                                              valid_cols=valid_cols)
             return logits[:, -1].float()
@@ -685,7 +753,7 @@ class GenerationMixin:
                                  ).repeat_interleave(k),
                            valid_cols=valid_cols.repeat_interleave(k, dim=0))
             ctx = self.gen_static_cache(b, prompt_len)
-            with self.dequantized(weights):
+            with swapped_parameters(self, wvals):
                 logits, _ = self.prefill(ids, ctx, pad_mask=amask)
             for (kc, vc), (pk, pv) in zip(caches, ctx):
                 kc[:, :, :prompt_len] = pk.repeat_interleave(k, dim=0)
@@ -704,7 +772,7 @@ class GenerationMixin:
                         vc.copy_(vc.index_select(0, parent))
             return beams.best(length_penalty)
 
-        run.decode = decode
+        self._holds(run, decode, weights, caches, wvals)
         return run
 
     def _build_beam_fn_paged(self, b, prompt_len, max_new, num_beams,
@@ -757,13 +825,14 @@ class GenerationMixin:
         own = (torch.arange(n, device=dev)[:, None] * pg
                + torch.arange(pg, device=dev)[None, :]).to(torch.int32)
         bt = own.clone()
+        wvals = self._loop_weights(weights)
         inputs = {"cur": ((n, 1), torch.long)}
         if with_mask:
             inputs.update(pads=((n,), torch.long),
                           pad_mask=((b, prompt_len), torch.long))
 
         def body(cur, step, gen_col, pads=None, pad_mask=None):
-            with self.dequantized(weights):
+            with swapped_parameters(self, wvals):
                 logits = self.decode_beam_paged(
                     cur, step, ctx, pools, bt, gen_col, pads=pads,
                     pad_mask=pad_mask, scales=scales)
@@ -784,7 +853,7 @@ class GenerationMixin:
             if amask is not None:
                 decode.set(pads=(prompt_len - amask.sum(dim=1)
                                  ).repeat_interleave(k), pad_mask=amask)
-            with self.dequantized(weights):
+            with swapped_parameters(self, wvals):
                 logits, _ = self.prefill(ids, ctx, pad_mask=amask)
             beams = _Beams(logits[:, -1], k, max_new, eos, fill, feed_tok)
             bt.copy_(own)
@@ -807,7 +876,7 @@ class GenerationMixin:
                     bt[:, g2] = own[:, g2]
             return beams.best(length_penalty)
 
-        run.decode = decode
+        self._holds(run, decode, weights, ctx, pools, scales, own, bt, wvals)
         return run
 
 

@@ -44,6 +44,7 @@ A model is built in eval mode with parameters that do not require grad
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -119,6 +120,30 @@ def decode_cursor(step, max_len: int, device) -> torch.Tensor:
         raise ValueError(f"decode step {int(step)} out of range for cache "
                          f"max_len {max_len}")
     return torch.full((), int(step), dtype=torch.long, device=device)
+
+
+def decode_attention(q, keys, vals, head_dim, valid_mask):
+    """softmax(q K^T / sqrt(d)) V of the decode step over its whole
+    static cache: `nn.functional.mt_attention_core`, but the scores
+    leave the product in float32 (bf16 and fp16 operands: cuBLAS with a
+    float32 output on a card, the operands widened on the CPU), as the
+    port's attention kernels keep theirs, where the composition rounds
+    them to the operands' type. q ``[B, H, S, D]``, keys/vals ``[B, H,
+    L, D]``, ``valid_mask`` broadcastable to ``[B, H, S, L]``; returns
+    ``[B, S, H*D]``."""
+    b, h, s, d = q.shape
+    n = keys.shape[2]
+    q3 = q.reshape(b * h, s, d)
+    k3 = keys.reshape(b * h, n, d).transpose(1, 2)
+    if q.is_cuda and q.dtype in (torch.bfloat16, torch.float16):
+        scores = torch.bmm(q3, k3, torch.float32)
+    else:
+        scores = torch.bmm(q3.float(), k3.float())
+    s32 = scores.view(b, h, s, n) / math.sqrt(head_dim)
+    s32 = s32.masked_fill(~valid_mask, torch.finfo(torch.float32).min / 2)
+    w = torch.softmax(s32, dim=-1).to(q.dtype)
+    ctx = torch.einsum("bhsl,bhld->bhsd", w, vals)
+    return ctx.permute(0, 2, 1, 3).reshape(b, s, h * d)
 
 
 def unpack_qkv_pair_major(qkv, n_heads, head_dim):
@@ -222,7 +247,8 @@ class GPTAttention(nn.Module):
         (``index_copy_``) and it attends the whole static cache under
         ``arange(max_len) <= step``, minus the columns ``valid_cols [B,
         max_len]`` marks 0 (a left-padded prompt's pad columns). Composed
-        attention, as in the reference. ``step`` is an int, checked
+        attention, as in the reference, with float32 scores
+        (`decode_attention`). ``step`` is an int, checked
         against max_len here, or a one-element int tensor on the device,
         which the caller checks on the host (`decode_cursor`)."""
         max_len = k_cache.shape[2]
@@ -237,9 +263,8 @@ class GPTAttention(nn.Module):
             None, None, None, :]
         if valid_cols is not None:
             valid = valid & (valid_cols != 0)[:, None, None, :]
-        ctx = mt_attention_core(qh, k_cache.to(qh.dtype),
-                                v_cache.to(qh.dtype), self.head_dim,
-                                valid_mask=valid)
+        ctx = decode_attention(qh, k_cache.to(qh.dtype),
+                               v_cache.to(qh.dtype), self.head_dim, valid)
         return self.out_proj(ctx.reshape(b, 1, -1))
 
     def _ctx_segment(self, qh, ctx_k, ctx_v, pad_mask):
@@ -704,6 +729,7 @@ class GPTPretrainingCriterion(nn.Module):
 
 
 __all__ = ["GPTConfig", "GPT_CONFIGS", "gpt_config", "decode_cursor",
+           "decode_attention",
            "unpack_qkv_pair_major",
            "GPTAttention", "GPTMLP", "GPTDecoderLayer", "GPTEmbeddings", "GPTModel",
            "GPTForPretraining", "GPTPretrainingCriterion"]

@@ -36,8 +36,8 @@ def _flat(pools, scales):
 
 
 def build_paged_prefill_fn(model, n, bucket, page_size, *, pools,
-                           max_pages, scales=None, weights=None,
-                           on_trace=None, pool=None, name=None):
+                           max_pages, name, pool, on_trace, scales=None,
+                           weights=None):
     """The prompt pass of ``n`` left-padded rows of ``bucket`` tokens as
     a `CapturedStep` of ``(ids [n, bucket], amask [n, bucket], page_rows
     [n, max_pages])``, all int32 (``amask`` marks the real tokens,
@@ -46,8 +46,9 @@ def build_paged_prefill_fn(model, n, bucket, page_size, *, pools,
     prompt attends, and then scattered into each row's reserved pages
     (``bucket`` need not be a multiple of ``page_size``), quantized on
     the way into a quantized pool. Returns each row's last logits ``[n,
-    V]`` float32. ``on_trace("prefill")`` is called on each build;
-    ``pool`` is the owner's graph memory pool."""
+    V]`` float32. ``name`` is the step's name for the sentinel,
+    ``on_trace("prefill")`` is called on each build and reports it
+    there, ``pool`` is the owner's graph memory pool."""
 
     def body(ids, amask, page_rows):
         with model.dequantized(weights):
@@ -64,16 +65,16 @@ def build_paged_prefill_fn(model, n, bucket, page_size, *, pools,
         return logits[:, -1].float()
 
     return CapturedStep(
-        name or f"serving.prefill[b{bucket}]", body, model.device,
+        name, body, model.device, pool=pool,
+        on_trace=lambda: on_trace("prefill"),
         staged=dict(ids=(n, bucket), amask=(n, bucket),
                     page_rows=(n, max_pages)),
-        fixed=_flat(pools, scales), pool=pool,
-        on_trace=None if on_trace is None else lambda: on_trace("prefill"))
+        fixed=_flat(pools, scales))
 
 
 def build_paged_verify_step_fn(model, slots, w, max_pages, page_size, *,
-                               pools, scales=None, weights=None,
-                               on_trace=None, pool=None, name=None):
+                               pools, name, pool, on_trace, scales=None,
+                               weights=None):
     """One decode (``w = 1``) or speculative verify (``w = k + 1``) step
     of every slot, active or parked, as a `CapturedStep` of ``(tokens
     [slots, w], steps [slots], pads [slots], valid_cols [slots,
@@ -82,7 +83,8 @@ def build_paged_verify_step_fn(model, slots, w, max_pages, page_size, *,
     (zero-padded); lane ``j`` writes at column ``steps[s] + j`` and every
     lane is scored in one pass, the paged-attention kernel at ``w``
     queries per row. Returns the logits ``[slots, w, V]`` float32.
-    ``on_trace("decode")`` is called on each build."""
+    ``name``, ``pool`` and ``on_trace`` (called with ``"decode"``) as
+    in `build_paged_prefill_fn`."""
 
     def body(tokens, steps, pads, valid_cols, block_table):
         with model.dequantized(weights):
@@ -92,12 +94,12 @@ def build_paged_verify_step_fn(model, slots, w, max_pages, page_size, *,
         return logits.float()
 
     return CapturedStep(
-        name or f"serving.decode[w{w}]", body, model.device,
+        name, body, model.device, pool=pool,
+        on_trace=lambda: on_trace("decode"),
         staged=dict(tokens=(slots, w), steps=(slots,), pads=(slots,),
                     valid_cols=(slots, max_pages * page_size),
                     block_table=(slots, max_pages)),
-        fixed=_flat(pools, scales), pool=pool,
-        on_trace=None if on_trace is None else lambda: on_trace("decode"))
+        fixed=_flat(pools, scales))
 
 
 __all__ = ["build_paged_prefill_fn", "build_paged_verify_step_fn"]

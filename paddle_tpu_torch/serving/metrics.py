@@ -104,7 +104,12 @@ class EngineMetrics:
         ``serving.{kind}[{engine_id}]``, with ``[{tag}]`` after it where
         a tag names one of a deliberate family (the prefill's bucket,
         ``b{bucket}``): armed, a second build of one name raises
-        `observability.RecompileError`."""
+        `observability.RecompileError`. The signature is the
+        reference's: there ``count=False`` registers the rungs of its
+        adaptive verify ladder, built up front as one decode family,
+        without counting them, so that ``decode_traces == 1`` keeps
+        meaning one live decode path; the port's engine has one verify
+        width and always counts."""
         if count:
             if kind == "decode":
                 self.decode_traces += 1

@@ -124,12 +124,12 @@ def test_a_rebuilt_step_trips_the_armed_sentinel():
         h.result()
 
 
-def _step(**kw):
+def _step(on_trace=lambda: None):
     def body(a, b, x):
         return a.long().sum() + b.long().sum() + x
-    return CapturedStep("test.step", body, "cpu",
-                        staged=dict(a=(2, 3), b=()),
-                        inputs=dict(x=((4,), torch.float32)), **kw)
+    return CapturedStep("test.step", body, "cpu", pool=None,
+                        on_trace=on_trace, staged=dict(a=(2, 3), b=()),
+                        inputs=dict(x=((4,), torch.float32)))
 
 
 @pytest.mark.parametrize("b", [0, 5, -3])
@@ -177,13 +177,28 @@ def test_staged_operands_start_16_byte_aligned(slots, w):
 
 
 def test_captured_step_reports_to_the_sentinel_without_an_owner():
-    fn = CapturedStep("test.unowned[x]", lambda a: a + 1, "cpu",
-                      staged=dict(a=(3,)))
+    """A step has one way to report a build, its owner's ``on_trace``: a
+    step made without one is refused, and a build reported under a name
+    and no signature counts once a bucket, and armed, trips on a
+    rebuild."""
+    with pytest.raises(TypeError):
+        CapturedStep("test.unowned[x]", lambda a: a + 1, "cpu", pool=None,
+                     staged=dict(a=(3,)))
+
+    def make():
+        return CapturedStep(
+            "test.unowned[x]", lambda a: a + 1, "cpu", pool=None,
+            on_trace=lambda: get_sentinel().note_trace("test.unowned[x]"),
+            staged=dict(a=(3,)))
+
+    fn = make()
     before = get_sentinel().trace_count("test.unowned[x]")
     for _ in range(3):
         fn(a=np.ones(3, np.int32))
     assert get_sentinel().trace_count("test.unowned[x]") == before + 1
-    assert "int32[3]" in get_sentinel().signatures("test.unowned[x]")[-1]
+    assert get_sentinel().signatures("test.unowned[x]")[-1] is None
+    with get_sentinel().armed(), pytest.raises(RecompileError):
+        make()(a=np.ones(3, np.int32))
 
 
 def test_replays_add_the_captured_launches():

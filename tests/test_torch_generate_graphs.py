@@ -11,9 +11,12 @@ paddle_tpu's Pallas interpret mode, as ``tests/test_torch_beam.py``
 runs them) must be token-identical to the reference, also on
 weight-only int8 weights; a second call at one shape replays the loop
 built by the first (one build of its decode step, the same cache
-entry), and the cache keeps the 32 most recently used loops.
+entry), and the cache keeps the 32 most recently used loops, within its
+byte budget. int8 weights are dequantized once a loop, not a step, and
+an armed sentinel trips on a rebuilt decode step.
 """
 import importlib
+import re
 
 import numpy as np
 import pytest
@@ -25,7 +28,7 @@ from paddle_tpu.models.gpt import GPTModel as JaxGPTModel
 from paddle_tpu.models.gpt import gpt_config as jax_gpt_config
 from paddle_tpu_torch.models import GPTForPretraining, load_paddle_tpu_state_dict
 from paddle_tpu_torch.models import generation as gen
-from paddle_tpu_torch.observability import get_sentinel
+from paddle_tpu_torch.observability import RecompileError, get_sentinel
 
 jpa = importlib.import_module("paddle_tpu.kernels.paged_attention")
 
@@ -187,3 +190,84 @@ def test_a_replaced_weight_builds_a_new_loop():
     model.gpt.ln_f.weight = w
     np.testing.assert_array_equal(model.generate(ids, max_new_tokens=3), a)
     assert len(model._generate_graphs()[0]) == 2
+
+
+LOOP_KINDS = {
+    "greedy": dict(),
+    "beam paged": dict(decode_strategy="beam_search", num_beams=2),
+    "beam gather": dict(decode_strategy="beam_search", num_beams=2,
+                        beam_kv="gather"),
+}
+
+
+@pytest.mark.parametrize("kind", list(LOOP_KINDS), ids=list(LOOP_KINDS))
+def test_generate_holds_at_most_its_byte_budget(kind, monkeypatch):
+    """Calls at many prompt lengths each build a loop; the built loops
+    hold at most `GENERATE_CACHE_BYTES` together (the loop used last
+    kept), and a loop's count covers its caches."""
+    model = GPTForPretraining("gpt-test", device="cpu", seed=5)
+    cfg = model.config
+    kw = dict(LOOP_KINDS[kind], max_new_tokens=3)
+    model.generate(IDS[:1, :2], **kw)
+    one = model.generate_cache_bytes()
+    caches = (cfg.num_hidden_layers * 2 * cfg.num_attention_heads
+              * 2 * cfg.head_dim * 4)          # prompt K/V alone, float32
+    assert one >= caches
+    budget = 3 * one
+    monkeypatch.setattr(gen, "GENERATE_CACHE_BYTES", budget)
+    sizes = []
+    for plen in range(2, 12):
+        model.generate(RNG.integers(1, 255, (1, plen)), **kw)
+        loops = model._generate_graphs()[0]
+        last = next(reversed(loops.values()))
+        sizes.append(len(loops))
+        assert model.generate_cache_bytes() <= max(
+            budget, sum(t.untyped_storage().nbytes() for t in last.held))
+        assert f"x{plen}+" in last.decode.name     # the last loop is kept
+    assert max(sizes) < 10 and min(sizes[3:]) >= 1
+    model.clear_generate_cache()
+    assert model.generate_cache_bytes() == 0
+
+
+@pytest.mark.parametrize("why", ["cleared", "evicted"])
+@pytest.mark.parametrize("kind", list(LOOP_KINDS), ids=list(LOOP_KINDS))
+def test_an_armed_rebuild_of_a_generate_step_raises(kind, why,
+                                                    monkeypatch):
+    """A decode step built again at one shape (its loop dropped from the
+    cache) is a recompile: under an armed sentinel it raises."""
+    model = GPTForPretraining("gpt-test", device="cpu", seed=6)
+    kw = dict(LOOP_KINDS[kind], max_new_tokens=3)
+    ids = IDS[:1, :4]
+    model.generate(ids, **kw)
+    name = next(reversed(model._generate_graphs()[0].values())).decode.name
+    if why == "cleared":
+        model.clear_generate_cache()
+    else:
+        monkeypatch.setattr(gen, "GENERATE_CACHE_BYTES", 0)
+        model.generate(ids[:, :3], **kw)       # keeps only this loop
+    with get_sentinel().armed():
+        with pytest.raises(RecompileError, match=re.escape(name)):
+            model.generate(ids, **kw)
+    monkeypatch.setattr(gen, "GENERATE_CACHE_BYTES", 8 << 30)
+    model.generate(ids, **kw)                  # disarmed: builds, warns
+    with get_sentinel().armed():
+        model.generate(ids, **kw)              # a hit replays, no build
+
+
+@pytest.mark.parametrize("kind", list(LOOP_KINDS), ids=list(LOOP_KINDS))
+def test_int8_weights_are_dequantized_once_a_loop(kind, monkeypatch):
+    """With ``weight_quant="int8"`` a loop dequantizes the weights once,
+    when it is built, into tensors it owns; its steps and later calls
+    dequantize nothing."""
+    model = GPTForPretraining("gpt-test", device="cpu", seed=7)
+    quant = model.serving_weights("int8")
+    calls = []
+    real = gen.dequantize_leaf
+    monkeypatch.setattr(gen, "dequantize_leaf",
+                        lambda v: calls.append(1) or real(v))
+    kw = dict(LOOP_KINDS[kind], max_new_tokens=4, weight_quant="int8")
+    a = model.generate(IDS[:1, :4], **kw)
+    assert len(calls) == len(quant)
+    b = model.generate(IDS[:1, :4], **kw)
+    assert len(calls) == len(quant)
+    np.testing.assert_array_equal(a, b)
