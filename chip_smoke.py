@@ -50,7 +50,15 @@ Phases, in order; any failure exits non-zero:
    bf16, the edge shapes above) and B4 at D=256 under a random lse
    cotangent, B2 timed at Gemma-2B's attention shape (B4 S1024 H8 D256
    bf16, causal, and key-padded with dropout 0.1) and B4 at B1 S2048
-   H8 D256;
+   H8 D256; last, the multi-tensor Adam/AdamW update
+   (`kernels.multi_tensor_adam`) against its plain version on
+   gpt3-1.3b's parameter list and one step's gradients: AdamW and Adam
+   with L2 decay in bf16, bf16 params with f32 moments, f32 params with
+   f32 and bf16 moments, a global-norm clip's scale, multi_precision
+   masters (every stored element within 1 ulp, the share equal bit for
+   bit printed), a found-inf flag (nothing written, the step count
+   unchanged), and its time beside the plain version's, one
+   ``torch._fused_adamw_`` call over the same lists and the bound;
 4. engine phase: gpt3-1.3b at full width and depth, bf16, random
    weights from ``--seed``, served by
    the paged `Engine` (8 slots, page 16, max_len 640, buckets 128/512)
@@ -75,25 +83,37 @@ Phases, in order; any failure exits non-zero:
    printed);
 5. training phase: gpt3-1.3b at full width and depth trains through
    `SpmdTrainStep` (b8 x s1024 from ``--seed``, dropout 0, bf16 params
-   and AdamW moments, lr 1e-4, wd 0.01). The bf16 model's loss and
-   grads agree with a float32 copy of its weights run through the plain
-   attention branch; after one warm-up step, the launch counts are
-   zeroed and five timed steps run: both flash kernels launch exactly
-   steps x layers times, every loss is finite and the first lies within
-   0.5 of ln(vocab). It prints tokens/s, step ms p50, peak memory and
-   MFU, then two steps under torch.profiler;
+   and AdamW moments, lr 1e-4, wd 0.01), one CUDA graph a batch
+   signature. The bf16 model's loss and grads agree with a float32 copy
+   of its weights run through the plain attention branch; the first
+   call builds the step's graph (its warm-up is that call's step), then
+   the launch counts are zeroed and five timed steps replay it under the
+   armed sentinel (one build: ``xla_traces`` 1): both flash kernels
+   launch exactly steps x layers times and the update once a step,
+   every loss is finite and the first lies within 0.5 of ln(vocab). It
+   prints tokens/s, step ms p50, MFU, capture_s, the graph pool's bytes
+   and the replays' peak memory; then replays against eager steps
+   (`run_eager`) from one state and keys over 3 steps: the first loss
+   bit for bit, params and slots within twice the spread of two eager
+   runs, the replays' peak memory within 10% of the eager step's (the
+   other training phases print theirs); then
+   two steps under torch.profiler (busy share, kernels and host launch
+   calls a step, the update's device time apart);
 6. BERT phase: bert-large at full width and depth pretrains through
    `SpmdTrainStep` on padded batches (b8 x s512, per-row lengths in
    [384, 512) as a [B, 1, 1, S] key-padding mask, MLM on 15% of the real
    positions plus NSP, dropout 0.1, bf16 params and moments). On two
    sequences at dropout 0 the bf16 model (attention in the general flash
    kernels) agrees with a float32 copy whose attention is composed; then
-   one warm-up step and five timed steps in which both general flash
-   kernels launch exactly steps x layers times and no other attention
+   on graphs as phase 5 (dropout on in the graph-against-eager check),
+   five timed replays in which both general flash kernels launch
+   exactly steps x layers times, the update once a step and no other
    kernel runs, every loss is finite and the first MLM loss lies within
-   0.5 of ln(vocab). It prints tokens/s, step ms p50, peak memory and
-   MFU, then two steps under torch.profiler, with the general flash
-   kernels' device time a step;
+   0.5 of ln(vocab); the MLM parts the loss function hands out (its aux
+   values) are kept from each step and must differ. It prints tokens/s,
+   step ms p50, peak memory and MFU, then two steps under
+   torch.profiler, with the general flash kernels' and the update's
+   device time a step;
 7. BERT unmasked phase, unfused: the same run on full-length batches
    (every row 512 real tokens, no mask; BASELINE row 4), every layer's
    attention in the qkv-direct branch: the which-major qkv3 kernels
@@ -174,12 +194,19 @@ Phases, in order; any failure exits non-zero:
    through `SpmdTrainStep` (AdamW, bf16 params and moments) on b4 x
    s1024 batches with a key-padding mask (lengths in [768, 1024)): the
    bf16 loss and grads against a float32 copy whose attention composes
-   (phase 6's tolerances), then five timed steps in which B2's forward
-   and backward (at D=256: the wgmma forward on 64-key tiles and the
-   one-pass backward on 64-key blocks) launch exactly steps x layers
-   times each and no other kernel runs; step ms p50, tokens/s, peak
-   memory and B2's device time a step from a profile, in which no kernel
-   sliced over D may appear.
+   (phase 6's tolerances), then on graphs as phase 5, five timed replays
+   in which B2's forward and backward (at D=256: the wgmma forward on
+   64-key tiles and the one-pass backward on 64-key blocks) launch
+   exactly steps x layers times each, the update once a step and no
+   other kernel runs; step ms p50, tokens/s, MFU, peak memory and B2's
+   and the update's device time a step from a profile, in which no
+   kernel sliced over D may appear;
+14. the optimizer plane on graphs, gpt-test: a `LinearWarmup` into a
+   `CosineAnnealingDecay` drives a first call and five replays of one
+   graph (each staged rate the scheduler's, each update the one an eager
+   twin makes with it); `GradScaler` with an inf planted in one grad at
+   a replay leaves params, moments and the step count bit for bit,
+   halves the scale and reads ``found_inf_skips`` 1.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device":
@@ -2107,18 +2134,355 @@ def qkv_families(label):
             "and its pre- and post-pass": QKV_KERNELS[2:]}
 
 
+# ---------------------------------------------------------------- the update
+# the update's kernel by its name in a profile (csrc/multi_tensor_adam.cu)
+ADAM_FAMILY = {"the update (multi_tensor_adam: adam_kernel)":
+               ("adam_kernel<",)}
+# the Adam hyperparameters of every training phase (AdamW's defaults)
+ADAM_BETA1, ADAM_BETA2, ADAM_EPS = 0.9, 0.999, 1e-8
+# replays against eager steps: after GRAPH_CHECK_STEPS steps from one
+# state, the replays' params and slots lie within GRAPH_SPREAD times the
+# largest difference between two eager runs (the dq atomics of ROADMAP
+# C.3 make each run a sample of the same rounding noise, and a third
+# sample's largest difference exceeds the first pair's about half the
+# time); with no eager spread, bit for bit
+GRAPH_CHECK_STEPS, GRAPH_SPREAD = 3, 2.0
+# peak memory of the timed replays (live tensors plus the graph's pool)
+# against the eager step's at phase 5's shape, at most this ratio
+GRAPH_MEMORY_RATIO = 1.10
+
+
+def ulps_apart(torch, a, b):
+    """``(largest distance in ulps of a's dtype, elements equal)``
+    between two tensors of one dtype, each element's ulp taken at the
+    larger of its two magnitudes."""
+    x, y = a.float(), b.float()
+    big = torch.maximum(x.abs(), y.abs()).clamp(
+        min=torch.finfo(a.dtype).tiny)
+    ulp = torch.finfo(a.dtype).eps * torch.exp2(torch.floor(torch.log2(big)))
+    return ((x - y).abs() / ulp).max().item(), int((a == b).sum().item())
+
+
+def adam_entries(torch, mta, params, grads, pdt, gdt, sdt, master, wd):
+    """`AdamEntry`s over ``params`` / ``grads`` (name -> tensor) in the
+    given dtypes (copies), with moments as one step of Adam leaves them
+    (m = 0.1 g, v = 0.001 g^2)."""
+    out = []
+    for n, p in params.items():
+        g = grads[n]
+        out.append(mta.AdamEntry(
+            p.to(pdt, copy=True), g.to(gdt, copy=True),
+            (0.1 * g.float()).to(sdt), (1e-3 * g.float().square()).to(sdt),
+            p.float() if master else None, wd))
+    return out
+
+
+def copy_entries(torch, mta, entries):
+    return [mta.AdamEntry(*(t.clone() if isinstance(t, torch.Tensor) else t
+                            for t in e)) for e in entries]
+
+
+def adam_kernel_phase(torch, seed):
+    """`multi_tensor_adam` against its plain version (`adam_reference`) on
+    gpt3-1.3b's parameter list and one step's gradients (b8 x s1024 from
+    ``seed``), at step count 1: AdamW and Adam with L2 decay on bf16
+    params, grads and moments (the training phases' form); bf16 params
+    with float32 moments; float32 params and moments; float32 params
+    with bf16 moments; a global-norm clip's scale; multi_precision
+    (float32 masters, float32 grads and moments). Every stored element
+    (params, moments, masters) within 1 ulp of its dtype, the share
+    equal bit for bit printed. Then the optimizer's ``apply_gradients``
+    with ``found_inf`` set (nothing written, the step count unchanged)
+    and clear. Then the bf16 AdamW update timed beside the plain version,
+    the library's ``torch._fused_adamw_`` over the same lists (the same
+    function, its bias correction rounded in another way; timed only)
+    and the bound. Returns the kernel's record."""
+    from paddle_tpu_torch.distributed import SpmdTrainStep, gpt_loss_fn
+    from paddle_tpu_torch.kernels import multi_tensor_adam as mta
+    from paddle_tpu_torch.models.gpt import GPTForPretraining, gpt_config
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = gpt_config(MODEL)
+    model = GPTForPretraining(cfg, dtype="bfloat16", seed=seed)
+    model.train()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ids = torch.randint(0, cfg.vocab_size, (TRAIN_B, TRAIN_S + 1),
+                        generator=g, device="cuda")
+    step = SpmdTrainStep(model, gpt_loss_fn, AdamW())
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    _, grads = step.loss_and_grads(
+        params, {"input_ids": ids[:, :-1], "labels": ids[:, 1:]}, seed)
+    del step
+    n_el = sum(p.numel() for p in params.values())
+    print(f"  {MODEL}: {len(params)} tensors, {n_el} parameters, one step's "
+          f"gradients at b{TRAIN_B} x s{TRAIN_S}")
+    lr = torch.tensor(TRAIN_LR, device="cuda")
+    t = torch.ones((), dtype=torch.int32, device="cuda")
+    tables = mta.AdamTables()
+    bf, f32 = torch.bfloat16, torch.float32
+    clip = ClipGradByGlobalNorm(1.0).scale(grads)
+    cases = [("AdamW, bf16 params/grads/moments", bf, bf, bf, False, True,
+              None),
+             ("Adam + L2, bf16 params/grads/moments", bf, bf, bf, False,
+              False, None),
+             ("AdamW, bf16 params/grads, f32 moments", bf, bf, f32, False,
+              True, None),
+             ("AdamW, f32 params/grads/moments", f32, f32, f32, False, True,
+              None),
+             ("AdamW, f32 params/grads, bf16 moments", f32, f32, bf, False,
+              True, None),
+             ("AdamW, bf16, global-norm clip scale "
+              f"{clip.item():.4g}", bf, bf, bf, False, True, clip),
+             ("AdamW, multi_precision (f32 masters, grads, moments)", bf,
+              f32, f32, True, True, None)]
+    worst_err = 0.0
+    kw = dict(beta1=ADAM_BETA1, beta2=ADAM_BETA2, epsilon=ADAM_EPS)
+    for label, pdt, gdt, sdt, master, adamw, scale in cases:
+        kern = adam_entries(torch, mta, params, grads, pdt, gdt, sdt, master,
+                            TRAIN_WD)
+        plain = copy_entries(torch, mta, kern)
+        mta.multi_tensor_adam(kern, lr, t, adamw=adamw, clip_scale=scale,
+                              tables=tables, **kw)
+        mta.adam_reference(plain, lr, t, adamw=adamw, clip_scale=scale, **kw)
+        torch.cuda.synchronize()
+        worst, equal, total = 0.0, 0, 0
+        for a, b in zip(kern, plain):
+            for x, y in ((a.p, b.p), (a.m, b.m), (a.v, b.v),
+                         (a.master, b.master)):
+                if x is None:
+                    continue
+                u, e = ulps_apart(torch, x, y)
+                worst, equal, total = max(worst, u), equal + e, \
+                    total + x.numel()
+                if label.startswith("AdamW, bf16 params/grads/moments"):
+                    worst_err = max(worst_err, (x.float() - y.float())
+                                    .abs().max().item())
+        check(worst <= 1.0, f"multi_tensor_adam ({label}): a stored element "
+              f"lies {worst} ulps from the plain version's")
+        print(f"  {label}: within {worst:.0f} ulp (<= 1) of the plain "
+              f"version, {equal / total:.6f} of {total} stored elements "
+              "equal bit for bit  ok")
+        del kern, plain
+        torch.cuda.empty_cache()
+
+    # the skip: the optimizer's update with found_inf set, then clear
+    opt = AdamW(learning_rate=TRAIN_LR, weight_decay=TRAIN_WD)
+    live = {n: p.clone() for n, p in params.items()}
+    state = opt.init_state(live, slot_dtype=bf)
+    kept = [p.clone() for p in live.values()]
+    opt.apply_gradients(live, grads, state, found_inf=torch.ones(
+        (), dtype=torch.int32, device="cuda"))
+    torch.cuda.synchronize()
+    check(int(state["step"]) == 0 and all(
+        torch.equal(a, b) for a, b in zip(kept, live.values())) and all(
+        not s.any() for v in state["slots"].values() for s in v.values()),
+        "multi_tensor_adam with found_inf wrote or advanced the step count")
+    opt.apply_gradients(live, grads, state, found_inf=torch.zeros(
+        (), dtype=torch.int32, device="cuda"))
+    check(int(state["step"]) == 1 and not all(
+        torch.equal(a, b) for a, b in zip(kept, live.values())),
+        "multi_tensor_adam with found_inf clear did not update")
+    print("  found_inf set: params, moments and the step count unchanged; "
+          "clear: updated, step count 1  ok")
+    del opt, live, state, kept
+
+    main = adam_entries(torch, mta, params, grads, bf, bf, bf, False,
+                        TRAIN_WD)
+    run = dict(adamw=True, tables=tables, **kw)
+    ms = time_ms(lambda: mta.multi_tensor_adam(main, lr, t, **run), 10)
+    plain_ms = time_ms(lambda: mta.adam_reference(main, lr, t, adamw=True,
+                                                  **kw), 3, 1)
+    steps = [torch.zeros((), device="cuda") for _ in main]
+
+    def library():
+        torch._fused_adamw_(
+            [e.p for e in main], [e.g for e in main], [e.m for e in main],
+            [e.v for e in main], [], steps, lr=TRAIN_LR, beta1=ADAM_BETA1,
+            beta2=ADAM_BETA2, weight_decay=TRAIN_WD, eps=ADAM_EPS,
+            amsgrad=False, maximize=False)
+
+    library_ms = time_ms(library, 10)
+    nbytes = mta.update_bytes(main)
+    flops = 25 * n_el
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"  multi_tensor_adam, AdamW over {MODEL}'s {len(main)} bf16 "
+          f"tensors ({n_el} parameters, one launch): kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, library (torch._fused_adamw_) "
+          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+          f"{nbytes} bytes, {flops} flops)")
+    del main, model, params, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"name": "multi_tensor_adam", "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/multi_tensor_adam.cu",
+            "replaces": "paddle_tpu/optimizer/optimizers.py:64",
+            "max_abs_err": worst_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def train_state_tensors(params, opt_state):
+    """Every tensor of the training state, in a fixed order."""
+    out = [params[n] for n in sorted(params)]
+    stack = [opt_state]
+    while stack:
+        d = stack.pop()
+        for k in sorted(d, reverse=True):
+            if isinstance(d[k], dict):
+                stack.append(d[k])
+            else:
+                out.append(d[k])
+    return out
+
+
+def train_on_graphs(torch, step, params, opt_state, batches, label):
+    """The training phases' timed run: the first call at the batches'
+    signature builds the step's CUDA graph (its warm-up is that call's
+    step); then, with the launch counts zeroed and the sentinel armed,
+    TRAIN_STEPS timed calls replay it. Each call's aux values (the loss
+    function's) are kept and must still read their own step after the
+    next replay. Returns the run's numbers: losses, step times, wall,
+    launch counts, capture_s, the bytes the graph holds between calls
+    (its pool: reserved memory after the build less before it), the peak
+    of the replays (live tensors plus the pool) and the live bytes before
+    the build."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.observability import get_sentinel
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    reserved = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    loss, params, opt_state = step(params, opt_state, batches[0], 0)
+    first = loss.item()
+    first_s = time.perf_counter() - t0
+    auxes = [step.last_aux]
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved() - reserved
+    capture_s = step.captured(batches[0]).capture_s
+    kernels.reset_kernel_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], [first]
+    with get_sentinel().armed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(1, TRAIN_STEPS + 1):
+            ts = time.perf_counter()
+            kept = {k: v.clone() for k, v in auxes[-1].items()}
+            loss, params, opt_state = step(params, opt_state, batches[i], i)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - ts)
+            losses.append(loss.item())
+            check(all(torch.equal(kept[k], v) for k, v in auxes[-1].items()),
+                  f"{label}: a kept aux value changed at the next replay")
+            auxes.append(step.last_aux)
+        wall = time.perf_counter() - t0
+    counts = kernels.kernel_launch_counts()
+    peak = torch.cuda.max_memory_allocated() + held
+    snap = step.metrics_snapshot()
+    check(snap["xla_traces"] == 1, f"{label}: {snap['xla_traces']} builds "
+          "of the step at one batch signature, not 1")
+    check(counts["multi_tensor_adam"] == TRAIN_STEPS,
+          f"{label}: multi_tensor_adam launched "
+          f"{counts['multi_tensor_adam']} times, not once a step")
+    print(f"  first call (warm-up step, then the capture): {first_s:.3f} s, "
+          f"capture_s {capture_s:.3f}; {snap['executable']}: xla_traces "
+          f"{snap['xla_traces']} (armed sentinel), steps {snap['steps']}, "
+          f"tokens {snap['tokens']}")
+    return {"losses": losses, "times": times, "wall": wall,
+            "counts": counts, "held": held, "peak": peak, "base": base,
+            "auxes": auxes, "first_s": first_s}
+
+
+def train_graph_check(torch, step, params, opt_state, batches, run, label,
+                      memory_gate=False):
+    """Replays against eager steps (`SpmdTrainStep.run_eager`) from the
+    same state and keys, GRAPH_CHECK_STEPS steps each: the first step's
+    loss bit for bit; then params and slots within GRAPH_SPREAD times
+    the largest difference of two eager runs (bit for bit if they agree).
+    The eager step's peak memory (live tensors) is measured on the way
+    and printed beside the replays' (``run``); with ``memory_gate`` (phase
+    5's shape) the replays' may be at most GRAPH_MEMORY_RATIO of it."""
+    from paddle_tpu_torch.observability import get_sentinel
+
+    flat = train_state_tensors(params, opt_state)
+    saved = [t.clone() for t in flat]
+
+    def restore():
+        for t, v in zip(flat, saved):
+            t.copy_(v)
+
+    def steps(fn):
+        restore()
+        losses = [fn(params, opt_state, batches[i], 200 + i)[0]
+                  for i in range(GRAPH_CHECK_STEPS)]
+        torch.cuda.synchronize()
+        return losses, [t.clone() for t in flat]
+
+    def largest(a, b):
+        return max((x.float() - y.float()).abs().max().item()
+                   for x, y in zip(a, b))
+
+    with get_sentinel().armed():
+        g_loss, g_state = steps(step)
+    restore()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step.run_eager(params, opt_state, batches[0], 200)
+    torch.cuda.synchronize()
+    eager_peak = run["base"] + torch.cuda.max_memory_allocated() - before
+    e_loss, e_state = steps(step.run_eager)
+    d_ge = largest(g_state, e_state)
+    del g_state
+    _, e2_state = steps(step.run_eager)
+    d_ee = largest(e2_state, e_state)
+    restore()
+    del saved, e_state, e2_state
+    torch.cuda.empty_cache()
+    check(torch.equal(g_loss[0], e_loss[0]), f"{label}: the replay's first "
+          f"loss {g_loss[0].item()!r} differs from the eager step's "
+          f"{e_loss[0].item()!r}")
+    check(d_ge <= GRAPH_SPREAD * d_ee, f"{label}: after "
+          f"{GRAPH_CHECK_STEPS} steps the replays lie {d_ge} from the eager "
+          f"run, two eager runs {d_ee} apart")
+    ratio = run["peak"] / eager_peak
+    check(not memory_gate or ratio <= GRAPH_MEMORY_RATIO, f"{label}: the "
+          f"replays' peak memory {run['peak']} bytes is {ratio:.3f} x the "
+          f"eager step's {eager_peak}")
+    print(f"  graph against eager ({GRAPH_CHECK_STEPS} steps, keys 200-"
+          f"{199 + GRAPH_CHECK_STEPS}): first loss bit for bit "
+          f"({g_loss[0].item():.6f}); params and slots: replays vs eager "
+          f"max|diff| {d_ge:.3e}, eager vs eager {d_ee:.3e} (<= "
+          f"{GRAPH_SPREAD} x)  ok")
+    print(f"  memory: graph pool held between calls {run['held'] / 2 ** 30:.3f}"
+          f" GiB; peak over the replays (live + pool) "
+          f"{run['peak'] / 2 ** 30:.3f} GiB against the eager step's "
+          f"{eager_peak / 2 ** 30:.3f} GiB ({ratio:.3f} x"
+          + (f", <= {GRAPH_MEMORY_RATIO})  ok" if memory_gate else
+             "; held at phase 5's shape only)"))
+
+
 # ---------------------------------------------------------------- training
 def train_phase(torch, seed, card):
     """gpt3-1.3b at full width and depth trains through `SpmdTrainStep`
     on the card (bench.py's flagship configuration): b8 x s1024 of
     token ids from ``seed``, dropout 0, bf16 params and bf16 AdamW
-    moments. First the float32-reference check, then one warm-up step
-    and TRAIN_STEPS timed steps with the launch counts zeroed just
-    before them, then two steps under the profiler. Returns the flash
-    kernels' launch counts of the timed steps."""
+    moments. First the float32-reference check, then the step's graph
+    built by its first call and TRAIN_STEPS timed replays under the
+    armed sentinel with the launch counts zeroed just before them, the
+    graph against eager steps, then two steps under the profiler (the
+    update's device time apart). Returns the flash kernels' and the
+    update's launch counts of the timed steps."""
     import dataclasses
 
-    from paddle_tpu_torch import kernels
     from paddle_tpu_torch.distributed import SpmdTrainStep, gpt_loss_fn
     from paddle_tpu_torch.models.gpt import GPTForPretraining, gpt_config
     from paddle_tpu_torch.optimizer import AdamW
@@ -2126,8 +2490,7 @@ def train_phase(torch, seed, card):
     cfg = dataclasses.replace(gpt_config(MODEL), hidden_dropout_prob=0.0,
                               attention_probs_dropout_prob=0.0)
     gc.collect()                 # what the earlier phases left in cycles
-    torch.cuda.reset_peak_memory_stats()
-    before = torch.cuda.memory_allocated()
+    torch.cuda.empty_cache()
     model = GPTForPretraining(cfg, dtype="bfloat16", seed=seed)
     model.train()
     step = SpmdTrainStep(model, gpt_loss_fn,
@@ -2141,27 +2504,15 @@ def train_phase(torch, seed, card):
     print(f"  {MODEL}: {cfg.num_hidden_layers} layers, h={cfg.hidden_size}, "
           f"{cfg.num_attention_heads} heads, d={cfg.head_dim}, dropout 0; "
           f"b{TRAIN_B} x s{TRAIN_S}, bf16 params, bf16 AdamW moments, lr "
-          f"{TRAIN_LR}, wd {TRAIN_WD}")
+          f"{TRAIN_LR}, wd {TRAIN_WD}; one CUDA graph a batch signature")
     float32_reference_check(torch, step, params, batches[0], cfg, seed)
 
-    loss, params, opt_state = step(params, opt_state, batches[0], 0)
-    first = loss.item()
+    run = train_on_graphs(torch, step, params, opt_state, batches, "GPT")
+    first, losses, times, counts = (run["losses"][0], run["losses"],
+                                    run["times"], run["counts"])
     check(abs(first - math.log(cfg.vocab_size)) < 0.5,
           f"first loss {first} is not within 0.5 of ln(V) = "
           f"{math.log(cfg.vocab_size):.4f}")
-    kernels.reset_kernel_launch_counts()
-    times, losses = [], [first]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(1, TRAIN_STEPS + 1):
-        ts = time.perf_counter()
-        loss, params, opt_state = step(params, opt_state, batches[i], i)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - ts)
-        losses.append(loss.item())
-    wall = time.perf_counter() - t0
-    counts = kernels.kernel_launch_counts()
-    peak = torch.cuda.max_memory_allocated()
     want = TRAIN_STEPS * cfg.num_hidden_layers
     check(all(math.isfinite(x) for x in losses), f"losses {losses}")
     for name in ("flash_attention_qkv_fwd", "flash_attention_qkv_bwd"):
@@ -2170,7 +2521,7 @@ def train_phase(torch, seed, card):
     for name in ("paged_attention", "flash_attention_fwd",
                  "flash_attention_bwd"):
         check(counts[name] == 0, f"GPT training launched {name}: {counts}")
-    tok_s = TRAIN_B * TRAIN_S * TRAIN_STEPS / wall
+    tok_s = TRAIN_B * TRAIN_S * TRAIN_STEPS / run["wall"]
     flops_per_tok = (6 * cfg.num_params(include_embeddings=False)
                      + 12 * cfg.num_hidden_layers * cfg.hidden_size
                      * TRAIN_S)
@@ -2178,12 +2529,16 @@ def train_phase(torch, seed, card):
     p50 = sorted(times)[len(times) // 2] * 1e3
     print(f"  losses {[round(x, 4) for x in losses]} (first within 0.5 of "
           f"ln(V) = {math.log(cfg.vocab_size):.4f}, all finite)")
-    print(f"  launches {counts}: flash fwd = bwd = steps x layers = {want}")
+    print(f"  launches {counts}: flash fwd = bwd = steps x layers = {want}, "
+          "the update once a step (through the replays)")
     print(f"  {card}: {tok_s:.1f} tokens/s, step {p50:.3f} ms p50 (steps "
-          f"{[round(t * 1e3, 3) for t in times]} ms), peak memory "
-          f"{peak / 2 ** 30:.3f} GiB (max_memory_allocated; "
-          f"{before / 2 ** 30:.3f} GiB held before the phase), MFU {mfu:.4f} "
-          f"({flops_per_tok} flops/token over 989 TFLOP/s)")
+          f"{[round(t * 1e3, 3) for t in times]} ms), peak memory over the "
+          f"replays {run['peak'] / 2 ** 30:.3f} GiB (live tensors + the "
+          f"graph's pool; {run['base'] / 2 ** 30:.3f} GiB of weights, "
+          f"moments and batches), MFU {mfu:.4f} ({flops_per_tok} "
+          "flops/token over 989 TFLOP/s)")
+    train_graph_check(torch, step, params, opt_state, batches, run, "GPT",
+                      memory_gate=True)
     it = iter(range(100))
 
     def one():
@@ -2191,9 +2546,14 @@ def train_phase(torch, seed, card):
         i = next(it) % len(batches)
         _, params, opt_state = step(params, opt_state, batches[i], 100 + i)
 
-    profile_steps(torch, one, 2, "training steps", qkv_families("B1"))
+    profile_steps(torch, one, 2, "training steps",
+                  {**qkv_families("B1"), **ADAM_FAMILY})
+    del model, step, params, opt_state, batches, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
     return {k: counts[k] for k in ("flash_attention_qkv_fwd",
-                                   "flash_attention_qkv_bwd")}
+                                   "flash_attention_qkv_bwd",
+                                   "multi_tensor_adam")}
 
 
 def float32_reference_check(torch, step, params, batch, cfg, seed):
@@ -2283,11 +2643,12 @@ def bert_batch(torch, cfg, g, masked=True):
     return batch
 
 
-def bert_loss_fn(model, state, batch, parts=None):
+def bert_loss_fn(model, state, batch):
     """MLM cross-entropy (ignore_index -100) plus NSP cross-entropy of
     `BertForPretraining` run with ``state`` (and the batch's
-    attention_mask, when it has one); each part is appended to ``parts``
-    when given."""
+    attention_mask, when it has one), with the two parts as the step's
+    aux values (`SpmdTrainStep.last_aux` copies them out of each
+    replay)."""
     from torch.func import functional_call
 
     from paddle_tpu_torch.nn.functional import cross_entropy
@@ -2297,9 +2658,7 @@ def bert_loss_fn(model, state, batch, parts=None):
         {"attention_mask": batch.get("attention_mask")})
     mlm = cross_entropy(logits, batch["mlm_labels"], ignore_index=-100)
     nsp_loss = cross_entropy(nsp, batch["nsp_labels"])
-    if parts is not None:
-        parts.append((mlm.detach(), nsp_loss.detach()))
-    return mlm + nsp_loss
+    return mlm + nsp_loss, {"mlm": mlm.detach(), "nsp": nsp_loss.detach()}
 
 
 def bert_model(cfg, variant, dtype, seed):
@@ -2316,13 +2675,11 @@ def bert_phase(torch, seed, card, variant):
     attention, bf16 params and AdamW moments, lr 1e-4, wd 0.01) in one of
     BERT_VARIANTS: masked batches (lengths in [384, 512)) or full-length
     unmasked ones, unfused or fused. First the float32-reference check at
-    dropout 0, then one warm-up step and TRAIN_STEPS timed steps with the
-    launch counts zeroed just before them, then two steps under the
-    profiler. Returns the variant's kernels' launch counts of the timed
-    steps."""
-    import functools
-
-    from paddle_tpu_torch import kernels
+    dropout 0, then the step's graph built by its first call and
+    TRAIN_STEPS timed replays under the armed sentinel with the launch
+    counts zeroed just before them, the graph against eager steps
+    (dropout on), then two steps under the profiler. Returns the
+    variant's kernels' launch counts of the timed steps."""
     from paddle_tpu_torch.distributed import SpmdTrainStep
     from paddle_tpu_torch.models.bert import bert_config
     from paddle_tpu_torch.optimizer import AdamW
@@ -2331,11 +2688,8 @@ def bert_phase(torch, seed, card, variant):
     cfg = bert_config(BERT_MODEL)
     gc.collect()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    before = torch.cuda.memory_allocated()
     model = bert_model(cfg, variant, "bfloat16", seed)
-    parts = []
-    step = SpmdTrainStep(model, functools.partial(bert_loss_fn, parts=parts),
+    step = SpmdTrainStep(model, bert_loss_fn,
                          AdamW(learning_rate=TRAIN_LR, weight_decay=TRAIN_WD))
     params, opt_state = step.init(slot_dtype="bfloat16")
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -2352,54 +2706,48 @@ def bert_phase(torch, seed, card, variant):
           f"{cfg.vocab_size}, dropout {cfg.hidden_dropout_prob} hidden and "
           f"{cfg.attention_probs_dropout_prob} attention; b{BERT_B} x "
           f"s{BERT_S}, {rows}; bf16 params and AdamW moments, lr "
-          f"{TRAIN_LR}, wd {TRAIN_WD}")
+          f"{TRAIN_LR}, wd {TRAIN_WD}; one CUDA graph a batch signature")
     bert_reference_check(torch, step, params, batches[0], cfg, seed,
                          variant)
 
     model.train()
-    parts.clear()
-    loss, params, opt_state = step(params, opt_state, batches[0], 0)
-    first_mlm = parts[0][0].item()
+    run = train_on_graphs(torch, step, params, opt_state, batches,
+                          f"BERT ({variant})")
+    losses, times, counts = run["losses"], run["times"], run["counts"]
+    mlms = [a["mlm"].item() for a in run["auxes"]]
+    first_mlm = mlms[0]
     check(abs(first_mlm - math.log(cfg.vocab_size)) < 0.5,
           f"first MLM loss {first_mlm} is not within 0.5 of ln(V) = "
           f"{math.log(cfg.vocab_size):.4f}")
-    kernels.reset_kernel_launch_counts()
-    times, losses = [], [loss.item()]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(1, TRAIN_STEPS + 1):
-        ts = time.perf_counter()
-        loss, params, opt_state = step(params, opt_state, batches[i], i)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - ts)
-        losses.append(loss.item())
-    wall = time.perf_counter() - t0
-    counts = kernels.kernel_launch_counts()
-    peak = torch.cuda.max_memory_allocated()
+    check(len(set(mlms)) == len(mlms), f"the kept MLM parts {mlms} repeat: "
+          "a replay overwrote them")
     want = TRAIN_STEPS * cfg.num_hidden_layers
     check(all(math.isfinite(x) for x in losses), f"losses {losses}")
     for name in v["kernels"]:
         check(counts[name] == want, f"{name} launched {counts[name]} times, "
               f"steps x layers = {want}")
     for name, n in counts.items():
-        check(name in v["kernels"] or n == 0,
+        check(name in v["kernels"] or name == "multi_tensor_adam" or n == 0,
               f"BERT ({variant}) launched {name}: {counts}")
-    tok_s = BERT_B * BERT_S * TRAIN_STEPS / wall
+    tok_s = BERT_B * BERT_S * TRAIN_STEPS / run["wall"]
     flops_per_tok = (6 * cfg.num_params(include_embeddings=False)
                      + 12 * cfg.num_hidden_layers * cfg.hidden_size * BERT_S)
     mfu = tok_s * flops_per_tok / BF16_FLOPS_PER_S
     p50 = sorted(times)[len(times) // 2] * 1e3
-    print(f"  losses {[round(x, 4) for x in losses]} (MLM + NSP; first MLM "
-          f"{first_mlm:.4f} within 0.5 of ln(V) = "
-          f"{math.log(cfg.vocab_size):.4f}, all finite)")
+    print(f"  losses {[round(x, 4) for x in losses]} (MLM + NSP; MLM parts "
+          f"kept from each step {[round(x, 4) for x in mlms]}, the first "
+          f"within 0.5 of ln(V) = {math.log(cfg.vocab_size):.4f}; all "
+          "finite)")
     print(f"  launches {counts}: {v['label']} fwd = bwd = steps x layers = "
-          f"{want}, every other kernel 0")
+          f"{want}, the update once a step, every other kernel 0")
     print(f"  {card}: {tok_s:.1f} tokens/s"
           f"{' (padding included)' if v['masked'] else ''}, step "
           f"{p50:.3f} ms p50 (steps {[round(t * 1e3, 3) for t in times]} ms),"
-          f" peak memory {peak / 2 ** 30:.3f} GiB (max_memory_allocated; "
-          f"{before / 2 ** 30:.3f} GiB held before the phase), MFU {mfu:.4f} "
+          f" peak memory over the replays {run['peak'] / 2 ** 30:.3f} GiB "
+          f"(live tensors + the graph's pool), MFU {mfu:.4f} "
           f"({flops_per_tok} flops/token over 989 TFLOP/s)")
+    train_graph_check(torch, step, params, opt_state, batches, run,
+                      f"BERT ({variant})")
     it = iter(range(100))
 
     def one():
@@ -2412,7 +2760,10 @@ def bert_phase(torch, seed, card, variant):
                 "of which the backward's pre- and post-pass": B2_KERNELS[2:],
                 } if v["masked"] else qkv_families(v["label"])
     profile_steps(torch, one, 2, f"BERT training steps ({variant})",
-                  families)
+                  {**families, **ADAM_FAMILY})
+    del model, step, params, opt_state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
     return {k: counts[k] for k in v["kernels"]}
 
 
@@ -3615,20 +3966,20 @@ def gemma_phase(torch, seed, card):
     mask and dropout 0.1: every layer's attention runs B2 at D=256 (the
     wgmma kernels on 64-key tiles and blocks). First, on two sequences
     at dropout 0, the bf16 loss and grads against a float32 copy whose
-    attention is composed (phase 6's tolerances); then one warm-up step and
-    TRAIN_STEPS timed steps with the launch counts zeroed just before
-    them: B2's forward and backward launch exactly steps x layers times
-    each, no other kernel, every loss finite. Prints step ms p50,
-    tokens/s, peak memory and B2's device ms a step from a profile, in
-    which no kernel sliced over D may run.
+    attention is composed (phase 6's tolerances); then the step's graph
+    built by its first call and TRAIN_STEPS timed replays under the
+    armed sentinel with the launch counts zeroed just before them: B2's
+    forward and backward launch exactly steps x layers times each, the
+    update once a step, no other kernel, every loss finite; the graph
+    against eager steps. Prints step ms p50, tokens/s, MFU, peak memory
+    and B2's and the update's device ms a step from a profile, in which
+    no kernel sliced over D may run.
     Returns B2's launch counts under the names of its D=256 records."""
-    from paddle_tpu_torch import kernels
     from paddle_tpu_torch.distributed import SpmdTrainStep
     from paddle_tpu_torch.optimizer import AdamW
 
     gc.collect()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     model = gemma_stack(torch, torch.bfloat16, seed)
     step = SpmdTrainStep(model, gemma_loss_fn,
                          AdamW(learning_rate=TRAIN_LR, weight_decay=TRAIN_WD))
@@ -3646,32 +3997,29 @@ def gemma_phase(torch, seed, card):
     gemma_reference_check(torch, step, params, batches[0], seed)
 
     model.train()
-    loss, params, opt_state = step(params, opt_state, batches[0], 0)
-    kernels.reset_kernel_launch_counts()
-    times, losses = [], [loss.item()]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(1, TRAIN_STEPS + 1):
-        ts = time.perf_counter()
-        loss, params, opt_state = step(params, opt_state, batches[i], i)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - ts)
-        losses.append(loss.item())
-    wall = time.perf_counter() - t0
-    counts = kernels.kernel_launch_counts()
-    peak = torch.cuda.max_memory_allocated()
+    run = train_on_graphs(torch, step, params, opt_state, batches,
+                          "Gemma-2B widths")
+    losses, times, counts = run["losses"], run["times"], run["counts"]
     want = TRAIN_STEPS * GEMMA_LAYERS
     check(all(math.isfinite(x) for x in losses), f"losses {losses}")
     only_launched(counts, {"flash_attention_fwd": want,
-                           "flash_attention_bwd": want},
+                           "flash_attention_bwd": want,
+                           "multi_tensor_adam": TRAIN_STEPS},
                   "Gemma-2B widths training")
     p50 = sorted(times)[len(times) // 2] * 1e3
+    tok_s = GEMMA_B * GEMMA_S * TRAIN_STEPS / run["wall"]
+    flops_per_tok = 6 * n_params + 12 * GEMMA_LAYERS * GEMMA_WIDTH * GEMMA_S
+    mfu = tok_s * flops_per_tok / BF16_FLOPS_PER_S
     print(f"  losses {[round(x, 5) for x in losses]} (all finite); launches "
-          f"{counts}: B2 fwd = bwd = steps x layers = {want}")
-    print(f"  {card}: {GEMMA_B * GEMMA_S * TRAIN_STEPS / wall:.1f} tokens/s "
-          f"(padding included), step {p50:.3f} ms p50 (steps "
-          f"{[round(t * 1e3, 3) for t in times]} ms), peak memory "
-          f"{peak / 2 ** 30:.3f} GiB (max_memory_allocated)")
+          f"{counts}: B2 fwd = bwd = steps x layers = {want}, the update "
+          "once a step")
+    print(f"  {card}: {tok_s:.1f} tokens/s (padding included), step "
+          f"{p50:.3f} ms p50 (steps {[round(t * 1e3, 3) for t in times]} "
+          f"ms), peak memory over the replays {run['peak'] / 2 ** 30:.3f} "
+          f"GiB (live tensors + the graph's pool), MFU {mfu:.4f} "
+          f"({flops_per_tok} flops/token over 989 TFLOP/s)")
+    train_graph_check(torch, step, params, opt_state, batches, run,
+                      "Gemma-2B widths")
     it = iter(range(100))
 
     def one():
@@ -3685,7 +4033,7 @@ def gemma_phase(torch, seed, card):
         "of which the forward (fwd_wg_kernel<256>)": B2_D256_KERNELS[:1],
         "of which the backward (bwd_wg_wide_kernel<256>)":
             B2_D256_KERNELS[1:2],
-        "and its pre- and post-pass": B2_D256_KERNELS[2:]},
+        "and its pre- and post-pass": B2_D256_KERNELS[2:], **ADAM_FAMILY},
         absent=SLICED_TC_KERNELS)
     print(f"    no kernel sliced over D (names holding {SLICED_TC_KERNELS}) "
           "ran  ok")
@@ -3751,6 +4099,110 @@ def gemma_reference_check(torch, step, params, batch, seed):
           f"{ctrl_cos:.5f})")
 
 
+# ------------------------------------------------- the optimizer plane
+def schedule_phase(torch, seed):
+    """On gpt-test: a `LinearWarmup` into a `CosineAnnealingDecay` drives
+    five replayed steps. Each call stages the scheduler's rate (the
+    staged float32 bits equal it) and the update applies it: the params
+    equal a twin's updated eagerly with that rate (`apply_gradients(lr=)`
+    after `loss_and_grads` with the same key), within 1e-6."""
+    from paddle_tpu_torch.distributed import SpmdTrainStep, gpt_loss_fn
+    from paddle_tpu_torch.models.gpt import GPTForPretraining
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer import lr as sched_lr
+
+    sched = sched_lr.LinearWarmup(sched_lr.CosineAnnealingDecay(1e-3, 8), 3,
+                                  1e-4, 1e-3)
+    models = [GPTForPretraining("gpt-test", seed=seed) for _ in range(2)]
+    for m in models:
+        m.train()
+    step = SpmdTrainStep(models[0], gpt_loss_fn, AdamW(learning_rate=sched))
+    twin = SpmdTrainStep(models[1], gpt_loss_fn, AdamW())
+    (params, state), (tparams, tstate) = step.init(), twin.init()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rates, worst = [], 0.0
+    for i in range(6):
+        ids = torch.randint(0, 256, (2, 65), generator=g, device="cuda")
+        batch = {"input_ids": ids[:, :-1], "labels": ids[:, 1:]}
+        rate = sched.get_lr()
+        step(params, state, batch, i)
+        _, grads = twin.loss_and_grads(tparams, batch, i)
+        twin.optimizer.apply_gradients(tparams, grads, tstate, lr=rate)
+        staged = step.captured(batch).static["lr"].view(torch.float32)
+        want = torch.tensor(rate, dtype=torch.float32).item()
+        check(staged.item() == want, f"step {i}: staged "
+              f"lr {staged.item()} is not the scheduler's {rate}")
+        worst = max(worst, max((params[n].float() - tparams[n].float())
+                               .abs().max().item() for n in params))
+        rates.append(rate)
+        sched.step()
+    check(worst <= 1e-6, f"the scheduled replays' params lie {worst} from "
+          "the eager twin's")
+    check(step.metrics_snapshot()["xla_traces"] == 1, "the scheduled step "
+          "was built more than once")
+    print(f"  LinearWarmup(3) -> CosineAnnealingDecay(1e-3, 8) over a first "
+          f"call and 5 replays of one graph: rates "
+          f"{[f'{r:.3e}' for r in rates]} staged and applied (params within "
+          f"{worst:.1e} of the eager twin's)  ok")
+
+
+def scaler_phase(torch, seed):
+    """On gpt-test with `GradScaler` (AdamW, bf16 params and moments): a
+    replayed step whose loss function plants an inf in one parameter's
+    gradient leaves every param, moment and the step count bit for bit,
+    halves the scale and reads ``found_inf_skips == 1``; the next replay
+    updates again."""
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.distributed import SpmdTrainStep, gpt_loss_fn
+    from paddle_tpu_torch.models.gpt import GPTForPretraining
+    from paddle_tpu_torch.optimizer import AdamW
+
+    planted = "gpt.h.0.mlp.fc_in.bias"
+
+    def loss_fn(model, state, batch):
+        # d/d(bias) of bias.sum() * poison is poison: inf in that grad only
+        return (gpt_loss_fn(model, state, batch)
+                + state[planted].float().sum() * batch["poison"][0])
+
+    model = GPTForPretraining("gpt-test", dtype="bfloat16", seed=seed)
+    model.train()
+    step = SpmdTrainStep(model, loss_fn, AdamW(learning_rate=1e-3),
+                         scaler=GradScaler(init_loss_scaling=2.0 ** 12))
+    params, state = step.init(slot_dtype="bfloat16")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def batch(poison):
+        ids = torch.randint(0, 256, (2, 65), generator=g, device="cuda")
+        return {"input_ids": ids[:, :-1], "labels": ids[:, 1:],
+                "poison": torch.full((1,), poison, device="cuda")}
+
+    def slots():
+        return [t for n in sorted(state["slots"])
+                for t in state["slots"][n].values()]
+
+    step(params, state, batch(0.0), 0)
+    kept = {n: p.clone() for n, p in params.items()}
+    kept_slots = [t.clone() for t in slots()]
+    step(params, state, batch(float("inf")), 1)
+    snap = step.metrics_snapshot(state)
+    check(all(torch.equal(kept[n], p) for n, p in params.items())
+          and all(torch.equal(a, b) for a, b in zip(kept_slots, slots()))
+          and int(state["step"]) == 1,
+          "the step with an inf changed params, moments or the step count")
+    check(snap["loss_scale"] == 2.0 ** 11 and snap["found_inf_skips"] == 1,
+          f"after the inf: {snap}")
+    step(params, state, batch(0.0), 2)
+    check(int(state["step"]) == 2 and not all(
+        torch.equal(kept[n], p) for n, p in params.items()),
+        "the replay after the skip did not update")
+    check(step.metrics_snapshot()["xla_traces"] == 1, "the scaled step was "
+          "built more than once")
+    print(f"  GradScaler, inf planted in {planted}'s grad at a replay: "
+          f"params and bf16 moments bit for bit, step count 1, scale "
+          f"{2.0 ** 12:.0f} -> {snap['loss_scale']:.0f}, found_inf_skips "
+          f"{snap['found_inf_skips']}; the next replay updates  ok")
+
+
 def print_build_report(name, report):
     """One source's build seconds, then for each kernel ptxas's register,
     shared-memory and spill lines, joined on one line."""
@@ -3813,6 +4265,7 @@ def main(argv=None) -> int:
                *wide_flash_phase(torch), *qkv3_kernel_phase(torch)]
     ln_records, launches = fused_ln_phase(torch)
     records += ln_records
+    records.append(adam_kernel_phase(torch, args.seed))
     print("[4] engine phase")
     launches.update(engine_phase(torch, args.seed))
     print("[5] training phase")
@@ -3841,6 +4294,10 @@ def main(argv=None) -> int:
     print("[13] attention at Gemma-2B's widths (B2 at head dim 256, "
           "training)")
     launches.update(gemma_phase(torch, args.seed, card))
+    print("[14] the optimizer plane on graphs (gpt-test: an LR schedule, "
+          "GradScaler's skip)")
+    schedule_phase(torch, args.seed)
+    scaler_phase(torch, args.seed)
     for rec in records:
         rec["launches"] = launches[rec["name"]]
 

@@ -37,6 +37,17 @@ name. `run_eager` runs the body once on the static buffers without a
 replay, for holding a graph against its eager run; nothing on a main
 path calls it.
 
+A train step (`distributed.SpmdTrainStep`) is such a step too, with
+three additions: its body returns a tuple (the loss and the values its
+loss function hands out), each copied out; the generators it draws from
+are registered with the graph (``generators``), so a replay draws from
+the seed and offset a generator holds when it starts, which the owner
+sets from the step's key before each call; and its body updates weights
+and optimizer state in place, so it must run once a call
+(``warm_is_call``): the first call's warm-up IS that call, whose outputs
+it returns and whose kernel launches it counts, and the capture after it
+only records.
+
 The body must be a pure function of the static buffers and of state at
 fixed addresses (weights, caches and page pools written in place, listed
 in ``fixed``: their addresses are checked once, at capture). It must not
@@ -74,22 +85,27 @@ class CapturedStep:
     a card and replayed on every call (module docstring).
 
     ``name``: the sentinel's name of this step. ``body(**static)``
-    returns one tensor. ``staged``: ``{name: shape}``
+    returns a tensor or a tuple of tensors. ``staged``: ``{name: shape}``
     of the int32 operands given as numpy arrays or ints, all of them in
     every call. ``inputs``: ``{name: (shape, dtype)}`` of operands given
     as tensors on the device; one left out keeps its last value.
     ``fixed``: the tensors the body reads or writes in place. ``pool``:
     the owner's `graph_pool`. ``on_trace``: called with no argument on
-    each build; it reports the build to the sentinel."""
+    each build; it reports the build to the sentinel. ``generators``:
+    the non-default CUDA generators the body draws from.
+    ``warm_is_call``: the first call returns the warm-up's outputs and
+    does not replay (module docstring)."""
 
     def __init__(self, name, body, device, *, pool, on_trace, staged=None,
-                 inputs=None, fixed=()):
+                 inputs=None, fixed=(), generators=(), warm_is_call=False):
         self.name = name
         self.body = body
         self.device = torch.device(device)
         self.fixed = list(fixed)
         self.pool = pool
         self.on_trace = on_trace
+        self.generators = list(generators)
+        self.warm_is_call = warm_is_call
         #: builds of this step: 1 after the first call
         self.captures = 0
         #: host seconds of the warm-up and the capture (0.0 on the CPU)
@@ -165,27 +181,34 @@ class CapturedStep:
         """Copy the operands in, replay (building on the first call) and
         return the outputs, copied out."""
         self.set(**operands)
+        warm = None
         if not self.captures:
-            self._build()
+            warm = self._build()
         if self._graph is None:
-            return self.body(**self.static).clone()
+            return _copied(self.body(**self.static))
+        if warm is not None:
+            return warm
         self._graph.replay()
         kernels.add_launches(self._delta)
-        return self._out.clone()
+        return _copied(self._out)
 
     def run_eager(self, **operands):
         """The body once, eagerly, on the static buffers (after copying
         ``operands`` in): what a replay computes, for a check."""
         self.set(**operands)
-        return self.body(**self.static).clone()
+        return _copied(self.body(**self.static))
 
     def _build(self):
+        """Report the build and capture; the warm-up's outputs, copied,
+        when the warm-up is the call (else None)."""
         self.on_trace()
+        warm = None
         if self._cuda:
             t0 = time.perf_counter()
-            self._capture()
+            warm = self._capture()
             self.capture_s += time.perf_counter() - t0
         self.captures += 1
+        return warm
 
     def _capture(self):
         ptrs = [t.data_ptr() for t in self.fixed]
@@ -196,13 +219,16 @@ class CapturedStep:
         graph = torch.cuda.CUDAGraph()
         collecting = gc.isenabled()
         gc.disable()
+        before = kernels.kernel_launch_counts()
         try:
             with kernels.launches_uncounted(), \
                     kernels.held_by_capture(held):
                 with torch.cuda.stream(stream):
-                    self.body(**self.static)
+                    first = self.body(**self.static)
                 cur.wait_stream(stream)
                 warm = kernels.kernel_launch_counts()
+                for gen in self.generators:
+                    graph.register_generator_state(gen)
                 # thread_local: a call that is unsafe during a capture
                 # fails it only when this thread makes it (global mode
                 # also counts other threads', such as the profiler's)
@@ -226,6 +252,17 @@ class CapturedStep:
         self._delta = {k: after[k] - warm[k] for k in after
                        if after[k] != warm[k]}
         self._graph, self._out, self._held = graph, out, held
+        if not self.warm_is_call:
+            return None
+        kernels.add_launches({k: warm[k] - before[k] for k in warm})
+        return _copied(first)
+
+
+def _copied(out):
+    """A body's outputs copied out of the memory the next run reuses."""
+    if isinstance(out, tuple):
+        return tuple(t.clone() for t in out)
+    return out.clone()
 
 
 __all__ = ["CapturedStep", "graph_pool"]

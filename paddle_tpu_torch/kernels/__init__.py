@@ -30,7 +30,7 @@ _LAUNCHES = {"paged_attention": 0, "paged_attention_int8": 0,
              "flash_attention_bwd": 0, "flash_attention_qkv3_fwd": 0,
              "flash_attention_qkv3_bwd": 0, "flash_attention_lse_fwd": 0,
              "flash_attention_lse_bwd": 0, "fused_ln_fwd": 0,
-             "fused_ln_bwd": 0}
+             "fused_ln_bwd": 0, "multi_tensor_adam": 0}
 
 
 def kernel_launch_counts() -> dict:

@@ -108,7 +108,7 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     q, k, v = (t.transpose(1, 2) for t in (query, key, value))
     scores = torch.einsum("bhqd,bhkd->bhqk", q, k) * (
         1.0 / math.sqrt(query.shape[-1]))
-    neg = torch.tensor(-1e9, dtype=scores.dtype, device=scores.device)
+    neg = scores.new_full((), -1e9)      # a fill: no copy from the host
     if is_causal:
         s_q, s_k = scores.shape[-2], scores.shape[-1]
         tri = torch.ones((s_q, s_k), dtype=torch.bool,

@@ -4,11 +4,13 @@ writes.
 Counterpart: ``paddle_tpu/observability/registry.py``. There one
 thread-safe registry holds labeled counters, gauges and histograms with
 a JSON snapshot and Prometheus exposition. Here only its get-or-create
-table and the labeled `Counter` are ported, for the one family the
-sentinel bumps: ``xla_traces_total{executable=}``
-(``paddle_tpu/observability/sentinel.py:74-79``), one count per graph
-capture of a named step. The family keeps the reference's name so that
-ROADMAP A9 can port the rest of the registry without renaming it.
+table and the labeled `Counter` are ported, for the family the sentinel
+bumps, ``xla_traces_total{executable=}``
+(``paddle_tpu/observability/sentinel.py:74-79``, one count per graph
+capture of a named step), and the train step's ``train_steps_total``
+and ``train_tokens_total`` (``paddle_tpu/distributed/spmd.py:406-414``).
+The families keep the reference's names so that ROADMAP A9 can port the
+rest of the registry without renaming them.
 """
 from __future__ import annotations
 
@@ -41,6 +43,12 @@ class Counter:
         key = self._key(labels)
         with self._lock:
             self._children[key] = self._children.get(key, 0.0) + amount
+
+    def value(self, **labels) -> float:
+        """The child's count (0 before its first ``inc``)."""
+        key = self._key(labels)
+        with self._lock:
+            return self._children.get(key, 0.0)
 
     def collect(self) -> list:
         """``[(labels dict, value)]`` of every child."""

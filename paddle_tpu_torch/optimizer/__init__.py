@@ -1,5 +1,11 @@
-"""Optimizers of the port, functional form (`optimizer`, `optimizers`)."""
+"""Optimizers of the port: the base with its eager ``step()`` and its
+functional form (`optimizer`), the nine optimizers (`optimizers`) and
+the LR schedulers (`lr`)."""
+from . import lr
 from .optimizer import Optimizer
-from .optimizers import Adam, AdamW
+from .optimizers import (
+    SGD, Adadelta, Adagrad, Adam, Adamax, AdamW, Lamb, Momentum, RMSProp,
+)
 
-__all__ = ["Optimizer", "Adam", "AdamW"]
+__all__ = ["lr", "Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adamax",
+           "Adagrad", "Adadelta", "RMSProp", "Lamb"]

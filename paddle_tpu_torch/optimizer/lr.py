@@ -1,0 +1,354 @@
+"""LR schedulers, host-side Python.
+
+Counterpart: ``paddle_tpu/optimizer/lr.py`` (:12-342), this package's own
+copy: `LRScheduler` and its 16 schedulers with ``step()``, ``get_lr()``,
+``state_dict()`` and ``set_state_dict()``, and
+``ReduceOnPlateau.step(metrics)``. A scheduler runs on the host; the LR
+enters a train step as a scalar argument (`optimizer.Optimizer.get_lr`),
+which `distributed.SpmdTrainStep` stages into a device scalar on every
+call, so a captured step follows the schedule.
+"""
+from __future__ import annotations
+
+import math
+
+
+class LRScheduler:
+    def __init__(self, learning_rate=0.1, last_epoch=-1, verbose=False):
+        self.base_lr = learning_rate
+        self.last_epoch = last_epoch
+        self.last_lr = learning_rate
+        self.verbose = verbose
+        self.step()
+
+    def get_lr(self):
+        return self.last_lr
+
+    def _compute(self):
+        raise NotImplementedError
+
+    def step(self, epoch=None):
+        if epoch is None:
+            self.last_epoch += 1
+        else:
+            self.last_epoch = epoch
+        self.last_lr = self._compute()
+
+    def state_dict(self):
+        return {k: v for k, v in self.__dict__.items()
+                if isinstance(v, (int, float, bool, str, list))}
+
+    def set_state_dict(self, sd):
+        self.__dict__.update(sd)
+
+    set_dict = set_state_dict
+
+
+class NoamDecay(LRScheduler):
+    def __init__(self, d_model, warmup_steps, learning_rate=1.0, last_epoch=-1,
+                 verbose=False):
+        self.d_model = d_model
+        self.warmup_steps = warmup_steps
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def _compute(self):
+        step = max(self.last_epoch, 1)
+        return self.base_lr * (self.d_model ** -0.5) * min(
+            step ** -0.5, step * self.warmup_steps ** -1.5)
+
+
+class PiecewiseDecay(LRScheduler):
+    def __init__(self, boundaries, values, last_epoch=-1, verbose=False):
+        self.boundaries = list(boundaries)
+        self.values = list(values)
+        super().__init__(values[0], last_epoch, verbose)
+
+    def _compute(self):
+        for b, v in zip(self.boundaries, self.values):
+            if self.last_epoch < b:
+                return v
+        return self.values[len(self.boundaries)]
+
+
+class NaturalExpDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def _compute(self):
+        return self.base_lr * math.exp(-self.gamma * self.last_epoch)
+
+
+class InverseTimeDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def _compute(self):
+        return self.base_lr / (1 + self.gamma * self.last_epoch)
+
+
+class PolynomialDecay(LRScheduler):
+    def __init__(self, learning_rate, decay_steps, end_lr=0.0001, power=1.0,
+                 cycle=False, last_epoch=-1, verbose=False):
+        self.decay_steps = decay_steps
+        self.end_lr = end_lr
+        self.power = power
+        self.cycle = cycle
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def _compute(self):
+        step = self.last_epoch
+        decay_steps = self.decay_steps
+        if self.cycle:
+            cycles = math.ceil(max(step, 1) / decay_steps)
+            decay_steps = decay_steps * max(cycles, 1)
+        else:
+            step = min(step, decay_steps)
+        return (self.base_lr - self.end_lr) * \
+            (1 - step / decay_steps) ** self.power + self.end_lr
+
+
+class LinearWarmup(LRScheduler):
+    def __init__(self, learning_rate, warmup_steps, start_lr, end_lr,
+                 last_epoch=-1, verbose=False):
+        self.lr_sched = learning_rate if isinstance(learning_rate, LRScheduler) \
+            else None
+        self.peak_lr = learning_rate if not self.lr_sched else None
+        self.warmup_steps = warmup_steps
+        self.start_lr = start_lr
+        self.end_lr = end_lr
+        super().__init__(end_lr, last_epoch, verbose)
+
+    def _compute(self):
+        if self.last_epoch < self.warmup_steps:
+            return self.start_lr + (self.end_lr - self.start_lr) * \
+                self.last_epoch / self.warmup_steps
+        if self.lr_sched is not None:
+            self.lr_sched.step(self.last_epoch - self.warmup_steps)
+            return self.lr_sched.get_lr()
+        return self.peak_lr
+
+    def state_dict(self):
+        sd = super().state_dict()
+        if self.lr_sched is not None:
+            sd["lr_sched"] = self.lr_sched.state_dict()
+        return sd
+
+    def set_state_dict(self, sd):
+        inner = sd.pop("lr_sched", None)
+        super().set_state_dict(sd)
+        if inner and self.lr_sched is not None:
+            self.lr_sched.set_state_dict(inner)
+
+
+class ExponentialDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def _compute(self):
+        return self.base_lr * self.gamma ** self.last_epoch
+
+
+class MultiStepDecay(LRScheduler):
+    def __init__(self, learning_rate, milestones, gamma=0.1, last_epoch=-1,
+                 verbose=False):
+        self.milestones = list(milestones)
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def _compute(self):
+        n = sum(1 for m in self.milestones if self.last_epoch >= m)
+        return self.base_lr * self.gamma ** n
+
+
+class StepDecay(LRScheduler):
+    def __init__(self, learning_rate, step_size, gamma=0.1, last_epoch=-1,
+                 verbose=False):
+        self.step_size = step_size
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def _compute(self):
+        return self.base_lr * self.gamma ** (self.last_epoch // self.step_size)
+
+
+class LambdaDecay(LRScheduler):
+    def __init__(self, learning_rate, lr_lambda, last_epoch=-1, verbose=False):
+        self.lr_lambda = lr_lambda
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def _compute(self):
+        return self.base_lr * self.lr_lambda(self.last_epoch)
+
+    def state_dict(self):
+        sd = super().state_dict()
+        sd.pop("lr_lambda", None)
+        return sd
+
+
+class CosineAnnealingDecay(LRScheduler):
+    def __init__(self, learning_rate, T_max, eta_min=0, last_epoch=-1,
+                 verbose=False):
+        self.T_max = T_max
+        self.eta_min = eta_min
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def _compute(self):
+        return self.eta_min + (self.base_lr - self.eta_min) * \
+            (1 + math.cos(math.pi * self.last_epoch / self.T_max)) / 2
+
+
+class CosineAnnealingWarmRestarts(LRScheduler):
+    def __init__(self, learning_rate, T_0, T_mult=1, eta_min=0, last_epoch=-1,
+                 verbose=False):
+        self.T_0 = T_0
+        self.T_mult = T_mult
+        self.eta_min = eta_min
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def _compute(self):
+        t = self.last_epoch
+        t_i = self.T_0
+        while t >= t_i:
+            t -= t_i
+            t_i *= self.T_mult
+        return self.eta_min + (self.base_lr - self.eta_min) * \
+            (1 + math.cos(math.pi * t / t_i)) / 2
+
+
+class ReduceOnPlateau(LRScheduler):
+    def __init__(self, learning_rate, mode="min", factor=0.1, patience=10,
+                 threshold=1e-4, threshold_mode="rel", cooldown=0, min_lr=0,
+                 epsilon=1e-8, verbose=False):
+        self.mode = mode
+        self.factor = factor
+        self.patience = patience
+        self.threshold = threshold
+        self.threshold_mode = threshold_mode
+        self.cooldown = cooldown
+        self.min_lr = min_lr
+        self.epsilon = epsilon
+        self.best = None
+        self.num_bad_epochs = 0
+        self.cooldown_counter = 0
+        super().__init__(learning_rate, -1, verbose)
+
+    def _compute(self):
+        return self.last_lr if hasattr(self, "last_lr") else self.base_lr
+
+    def step(self, metrics=None, epoch=None):
+        if metrics is None:
+            return
+        current = float(metrics.item() if hasattr(metrics, "item") else metrics)
+        if self.best is None:
+            self.best = current
+            return
+        if self.cooldown_counter > 0:
+            self.cooldown_counter -= 1
+            self.num_bad_epochs = 0
+        better = (current < self.best - abs(self.best) * self.threshold
+                  if self.threshold_mode == "rel" else
+                  current < self.best - self.threshold) \
+            if self.mode == "min" else \
+            (current > self.best + abs(self.best) * self.threshold
+             if self.threshold_mode == "rel" else
+             current > self.best + self.threshold)
+        if better:
+            self.best = current
+            self.num_bad_epochs = 0
+        else:
+            self.num_bad_epochs += 1
+        if self.num_bad_epochs > self.patience:
+            new_lr = max(self.last_lr * self.factor, self.min_lr)
+            if self.last_lr - new_lr > self.epsilon:
+                self.last_lr = new_lr
+            self.cooldown_counter = self.cooldown
+            self.num_bad_epochs = 0
+
+
+class OneCycleLR(LRScheduler):
+    def __init__(self, max_learning_rate, total_steps, divide_factor=25.0,
+                 end_learning_rate=0.0001, phase_pct=0.3,
+                 anneal_strategy="cos", three_phase=False, last_epoch=-1,
+                 verbose=False):
+        self.max_lr = max_learning_rate
+        self.total_steps = total_steps
+        self.initial_lr = max_learning_rate / divide_factor
+        self.end_lr = end_learning_rate
+        self.phase_pct = phase_pct
+        self.anneal = anneal_strategy
+        super().__init__(self.initial_lr, last_epoch, verbose)
+
+    def _anneal_fn(self, start, end, pct):
+        if self.anneal == "cos":
+            return end + (start - end) / 2.0 * (math.cos(math.pi * pct) + 1)
+        return (end - start) * pct + start
+
+    def _compute(self):
+        step = min(self.last_epoch, self.total_steps)
+        up_steps = int(self.phase_pct * self.total_steps)
+        if step <= up_steps:
+            return self._anneal_fn(self.initial_lr, self.max_lr,
+                                   step / max(up_steps, 1))
+        return self._anneal_fn(self.max_lr, self.end_lr,
+                               (step - up_steps) / max(self.total_steps - up_steps, 1))
+
+
+class CyclicLR(LRScheduler):
+    def __init__(self, base_learning_rate, max_learning_rate, step_size_up,
+                 step_size_down=None, mode="triangular", exp_gamma=1.0,
+                 scale_fn=None, scale_mode="cycle", last_epoch=-1, verbose=False):
+        self.max_lr = max_learning_rate
+        self.step_size_up = step_size_up
+        self.step_size_down = step_size_down or step_size_up
+        self.mode = mode
+        self.exp_gamma = exp_gamma
+        super().__init__(base_learning_rate, last_epoch, verbose)
+
+    def _compute(self):
+        total = self.step_size_up + self.step_size_down
+        cycle = math.floor(1 + self.last_epoch / total)
+        x = self.last_epoch - (cycle - 1) * total
+        if x < self.step_size_up:
+            pct = x / self.step_size_up
+        else:
+            pct = 1 - (x - self.step_size_up) / self.step_size_down
+        scale = 1.0
+        if self.mode == "triangular2":
+            scale = 1 / (2 ** (cycle - 1))
+        elif self.mode == "exp_range":
+            scale = self.exp_gamma ** self.last_epoch
+        return self.base_lr + (self.max_lr - self.base_lr) * pct * scale
+
+
+class MultiplicativeDecay(LRScheduler):
+    """lr_t = lr_{t-1} * lr_lambda(t) (reference `lr.py:MultiplicativeDecay`)."""
+
+    def __init__(self, learning_rate, lr_lambda, last_epoch=-1, verbose=False):
+        self.lr_lambda = lr_lambda
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def _compute(self):
+        # O(1) recurrence off the previous value (reference semantics:
+        # lr_t = lr_{t-1} * lr_lambda(t)); recompute from scratch only on
+        # a state_dict restore / arbitrary epoch jump
+        prev = getattr(self, "_prev", None)
+        if prev is not None and prev[0] == self.last_epoch - 1 \
+                and self.last_epoch >= 1:
+            lr = prev[1] * self.lr_lambda(self.last_epoch)
+        else:
+            lr = self.base_lr
+            for e in range(1, self.last_epoch + 1):
+                lr *= self.lr_lambda(e)
+        self._prev = (self.last_epoch, lr)
+        return lr
+
+
+__all__ = ["LRScheduler", "NoamDecay", "PiecewiseDecay", "NaturalExpDecay",
+           "InverseTimeDecay", "PolynomialDecay", "LinearWarmup",
+           "ExponentialDecay", "MultiStepDecay", "StepDecay", "LambdaDecay",
+           "CosineAnnealingDecay", "CosineAnnealingWarmRestarts",
+           "ReduceOnPlateau", "OneCycleLR", "CyclicLR",
+           "MultiplicativeDecay"]

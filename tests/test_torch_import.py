@@ -42,6 +42,9 @@ MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.device",
            "paddle_tpu_torch.optimizer",
            "paddle_tpu_torch.optimizer.optimizer",
            "paddle_tpu_torch.optimizer.optimizers",
+           "paddle_tpu_torch.optimizer.lr", "paddle_tpu_torch.amp",
+           "paddle_tpu_torch.amp.grad_scaler",
+           "paddle_tpu_torch.kernels.multi_tensor_adam",
            "paddle_tpu_torch.distributed",
            "paddle_tpu_torch.distributed.spmd",
            "paddle_tpu_torch.distributed.topology",

@@ -21,7 +21,8 @@ at the edges of their tiles, B1's backward against the general
 backward on the unpacked views (the kernel they share), and the paged
 Engine's captured decode step at the serving decode shape: its CUDA
 graph's replay against its eager run, bit for bit, and the launch counts
-its replays add.
+its replays add; the multi-tensor Adam kernel against its plain version,
+and a small GPT's captured train step against its eager twin.
 """
 import pytest
 import torch
@@ -678,3 +679,97 @@ def test_launch_counts_under_replay_on_a_card(pages):
     assert steps == 4 and counts[name] == steps * 2
     assert all(v == 0 for k, v in counts.items() if k != name)
     assert eng.stats().decode_traces == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", [("bfloat16",) * 3, ("float32",) * 3,
+                                    ("bfloat16", "bfloat16", "float32")],
+                         ids=lambda d: "-".join(d))
+@pytest.mark.parametrize("adamw", [True, False], ids=["adamw", "adam_l2"])
+def test_multi_tensor_adam_matches_its_plain_version_on_a_card(dtypes,
+                                                               adamw):
+    """The multi-tensor Adam kernel against `adam_reference` over tensors
+    of awkward sizes (a partial last vector, one of 5 elements, a grad
+    that is not contiguous) with a clip scale: every stored element bit
+    for bit (both round the same
+    float32 operations once); one launch a dtype group; a found-inf flag
+    writes nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the Hopper kernels run only on "
+                    "the card")
+    from paddle_tpu_torch.kernels import multi_tensor_adam as mta
+
+    pdt, gdt, sdt = (getattr(torch, d) for d in dtypes)
+    g = torch.Generator(device="cuda").manual_seed(3)
+
+    def entries():
+        g.manual_seed(3)
+        out = []
+        for shape in ((1000, 3), (70001,), (5,)):
+            p = torch.randn(shape, generator=g, device="cuda").to(pdt)
+            grad = torch.randn(shape, generator=g, device="cuda") * 1e-2
+            if len(shape) == 2:      # a grad that is a transposed view
+                grad = grad.t().contiguous().t()
+            out.append(mta.AdamEntry(
+                p, grad.to(gdt), (0.1 * grad).to(sdt),
+                (1e-3 * grad * grad).to(sdt), None, 0.1))
+        return out
+
+    a, b = entries(), entries()
+    lr = torch.tensor(1e-3, device="cuda")
+    step = torch.tensor(4, dtype=torch.int32, device="cuda")
+    kw = dict(beta1=0.9, beta2=0.999, epsilon=1e-8, adamw=adamw,
+              clip_scale=torch.tensor(0.5, device="cuda"))
+    kernels.reset_kernel_launch_counts()
+    mta.multi_tensor_adam(a, lr, step, tables=mta.AdamTables(), **kw)
+    mta.adam_reference(b, lr, step, **kw)
+    assert kernels.kernel_launch_counts()["multi_tensor_adam"] == 1
+    for x, y in zip(a, b):
+        for s, t in zip(x[:4], y[:4]):
+            assert torch.equal(s, t)
+    c = entries()
+    mta.multi_tensor_adam(c, lr, step, tables=mta.AdamTables(),
+                          found_inf=torch.ones((), dtype=torch.int32,
+                                               device="cuda"), **kw)
+    for x, y in zip(c, entries()):
+        for s, t in zip(x[:4], y[:4]):
+            assert torch.equal(s, t)
+
+
+@pytest.mark.cuda
+def test_train_step_replay_equals_its_eager_run_on_a_card():
+    """`SpmdTrainStep` on a small GPT with dropout, bf16: its first call
+    builds one graph; replays from one state and key equal the eager
+    twin (`run_eager`) bit for bit, loss and params; each replay counts
+    the update's and the flash kernels' launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: a CUDA graph is captured and "
+                    "replayed only on the card")
+    from paddle_tpu_torch.distributed import SpmdTrainStep, gpt_loss_fn
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = GPTConfig(256, 128, 2, 2, 256, 128)
+    model = GPTForPretraining(cfg, dtype="bfloat16", seed=0)
+    model.train()
+    step = SpmdTrainStep(model, gpt_loss_fn, AdamW(learning_rate=1e-3))
+    params, state = step.init(slot_dtype="bfloat16")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    ids = torch.randint(0, 256, (4, 129), generator=g, device="cuda")
+    batch = {"input_ids": ids[:, :-1], "labels": ids[:, 1:]}
+    step(params, state, batch, 0)
+    flat = list(params.values()) + [state["step"]] + [
+        s for n in sorted(state["slots"]) for s in state["slots"][n].values()]
+    saved = [t.clone() for t in flat]
+    kernels.reset_kernel_launch_counts()
+    graph = step(params, state, batch, 7)[0]
+    counts = kernels.kernel_launch_counts()
+    after = [t.clone() for t in flat]
+    for t, v in zip(flat, saved):
+        t.copy_(v)
+    eager = step.run_eager(params, state, batch, 7)[0]
+    assert torch.equal(graph, eager)
+    assert all(torch.equal(a, t) for a, t in zip(after, flat))
+    assert counts["multi_tensor_adam"] == 1
+    assert counts["flash_attention_qkv_fwd"] == 2
+    assert step.metrics_snapshot()["xla_traces"] == 1

@@ -311,13 +311,34 @@ def test_export_round_trips_and_dropout_follows_the_key():
 
 
 @pytest.mark.parametrize("kw", [dict(mesh=object()), dict(recompute=True),
-                                dict(scaler=object()),
                                 dict(introspect=True)],
                          ids=lambda kw: next(iter(kw)))
 def test_later_slice_arguments_raise(kw):
     model = GPTForPretraining("gpt-test", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         SpmdTrainStep(model, gpt_loss_fn, AdamW(), **kw)
+
+
+def test_scaler_argument_trains():
+    """``scaler=GradScaler()`` is ported: the step carries the scaler's
+    device state, trains, and with finite grads neither skips nor
+    shrinks the scale."""
+    from paddle_tpu_torch.amp import GradScaler
+
+    model = GPTForPretraining(GPTConfig(**TEST_CFG), device="cpu", seed=2)
+    model.train()
+    step = SpmdTrainStep(model, gpt_loss_fn, AdamW(learning_rate=LR),
+                         scaler=GradScaler(init_loss_scaling=1024.0))
+    params, state = step.init()
+    before = {n: p.clone() for n, p in params.items()}
+    losses = [float(step(params, state, _torch_batch(ids), i)[0])
+              for i, ids in enumerate(_batches(TEST_CFG["vocab_size"], 2,
+                                               32, 2))]
+    assert all(np.isfinite(losses))
+    assert any(not torch.equal(before[n], p) for n, p in params.items())
+    snap = step.metrics_snapshot(state)
+    assert snap["found_inf_skips"] == 0 and snap["loss_scale"] == 1024.0
+    assert int(state["step"]) == 2 and snap["steps"] == 2
 
 
 def test_init_hands_back_the_models_own_parameters():
