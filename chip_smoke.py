@@ -61,7 +61,8 @@ Phases, in order; any failure exits non-zero:
    ``torch._fused_adamw_`` call over the same lists and the bound;
 4. engine phase: gpt3-1.3b at full width and depth, bf16, random
    weights from ``--seed``, served by
-   the paged `Engine` (8 slots, page 16, max_len 640, buckets 128/512)
+   the paged `Engine` (``kv_mode="paged"``, 8 slots, page 16, max_len
+   640, buckets 128/512)
    under staggered traffic. Launch counts are zeroed just before the run
    and read just after: paged attention must have launched exactly
    decode_steps x layers times. Every request
@@ -206,7 +207,44 @@ Phases, in order; any failure exits non-zero:
    graph (each staged rate the scheduler's, each update the one an eager
    twin makes with it); `GradScaler` with an inf planted in one grad at
    a replay leaves params, moments and the step count bit for bit,
-   halves the scale and reads ``found_inf_skips`` 1.
+   halves the scale and reads ``found_inf_skips`` 1;
+15. dense slot serving: gpt3-1.3b (bf16, random weights from
+   ``--seed``, shared by phases 15-17) served by phase 4's Engine and
+   traffic built with no ``kv_mode``, so on the dense slot caches (the
+   reference's default): no kernel of the port launches (the slot step
+   composes its attention with float32 scores, as the reference does),
+   every request completes and every slot returns, greedy tokens agree
+   with the float32 teacher but at a near-tie, one decode graph and one
+   prefill graph a bucket under the armed sentinel, ``kv_cache_bytes``
+   the slot caches' bytes; ms/step, TTFT and tokens/s beside phase 4's
+   paged ms/step, a profile of full steps and the graph-against-eager
+   check of phase 4;
+16. prefix cache: 16 requests behind 2 system prompts of 384 tokens
+   (user suffixes of 2-64 tokens, budgets of 8-32, one arrival every 3
+   steps;
+   the JAX package's ``make_shared_prefix_trace`` shape) through the
+   paged Engine with ``prefix_cache=True`` and, on the same traffic,
+   without it: ``prefix_tokens_saved`` is 384 for every request after
+   the first on its system prompt; the paged kernel launches exactly
+   decode steps x layers times, and is held against its plain version
+   on the live state where several rows map one prefix page; every page
+   and reference returns (the tree's dropped by ``evict_to(0)``);
+   greedy tokens agree with the float32 teacher but at a near-tie; TTFT
+   p50 of each arm, the hits' median time to their first token in each,
+   and the cached pages;
+17. chunked prefill and embed: 7 short prompts of 20-250 tokens (+ 64)
+   decoding when one 1536-token prompt (+ 2) arrives (the JAX package's
+   ``make_mixed_prefill_trace`` shape), max_len 2048, buckets 256/1536,
+   with ``chunk_tokens=256`` and without: the paged kernel launches
+   exactly (decode steps + mixed steps) x layers times, and is held
+   against its plain version on the mixed step's decode view, whose
+   chunking row is the sentinel page; every page returns; one decode
+   graph; the long prompt's first token is the same in both arms or a
+   teacher near-tie; the short streams' largest and p99 inter-token gap
+   while the long prompt is admitted, and the mixed steps' ms. Then
+   ``embed()`` of 64-, 300-, 1024- and 1536-token prompts in the chunked
+   engine, each vector at cosine >= 0.999 with a float32 teacher's final
+   ln_f hidden state, the pool empty after.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device":
@@ -221,6 +259,7 @@ import gc
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -324,6 +363,26 @@ MODEL_27B, BEAM_B, BEAM_PROMPT, BEAM_NEW = "gpt3-2.7b", 2, 128, 32
 GEMMA_WIDTH, GEMMA_HEADS, GEMMA_FFN, GEMMA_LAYERS = 2048, 8, 16384, 18
 GEMMA_B, GEMMA_S, GEMMA_MIN_LEN = 4, 1024, 768
 GEMMA_ATTN = (GEMMA_B, GEMMA_S, GEMMA_HEADS, GEMMA_WIDTH // GEMMA_HEADS)
+# phase 16: the JAX package's shared-prefix trace shape
+# (benchmarks/bench_serving.py:215-236): PFX_N requests behind PFX_SYS
+# system prompts of PFX_SYS_LEN tokens (24 pages of 16), user suffixes
+# of 2..PFX_SUFFIX tokens, budgets of PFX_NEW // 4..PFX_NEW
+PFX_N, PFX_SYS, PFX_SYS_LEN, PFX_SUFFIX, PFX_NEW = 16, 2, 384, 64, 32
+# one arrival every PFX_EVERY steps: at one a step the 8 slots fill by
+# step 8, and the TTFT p50 falls between requests admitted at once and
+# requests that waited in the queue
+PFX_EVERY = 3
+# phase 17: its mixed long/short trace shape (bench_serving.py:191-212):
+# MIX_SHORT prompts of MIX_SHORT_LEN tokens + MIX_SHORT_NEW decoding when
+# one MIX_LONG-token prompt + MIX_LONG_NEW arrives at step MIX_LONG_AT.
+# The long prompt's bucket is its own length: a 2048 bucket would leave
+# no column for its tokens under gpt3-1.3b's 2048 positions
+MIX_SHORT, MIX_SHORT_LEN, MIX_SHORT_NEW = 7, (20, 250), 64
+MIX_LONG, MIX_LONG_NEW, MIX_LONG_AT = 1536, 2, 4
+MIX_MAX_LEN, MIX_BUCKETS, MIX_CHUNK = 2048, (256, 1536), 256
+# embed(): prompt lengths and the cosine each vector keeps with the
+# float32 teacher's (the bf16 model's rounding over 24 layers)
+EMBED_LENS, EMBED_COS = (64, 300, 1024, 1536), 0.999
 
 
 def check(cond, msg):
@@ -1889,7 +1948,7 @@ def engine_phase(torch, seed):
     print(f"  {MODEL}: h={cfg.hidden_size} layers={cfg.num_hidden_layers} "
           f"heads={cfg.num_attention_heads} d={cfg.head_dim} bf16, random "
           f"weights from seed {seed} ({time.perf_counter() - t:.1f} s)")
-    kw = dict(slots=SLOTS, page_size=PAGE, max_len=MAX_LEN,
+    kw = dict(kv_mode="paged", slots=SLOTS, page_size=PAGE, max_len=MAX_LEN,
               prefill_buckets=BUCKETS)
     # warm-up on its own engine (cuBLAS handles, allocator), not counted
     warm = Engine(model, **kw)
@@ -1917,7 +1976,7 @@ def engine_phase(torch, seed):
     eng = Engine(model, **kw)
     profile_decode(torch, eng, prompts)
     engine_graph_check(torch, eng)
-    return {"paged_attention": counts["paged_attention"]}
+    return {"paged_attention": counts["paged_attention"]}, s.decode_step_p50
 
 
 def graph_against_eager(torch, fn, ops, label):
@@ -2008,8 +2067,12 @@ def serve_traffic(torch, eng, prompts, sampled=()):
     outs = [h.result() for h in handles]
     check(s.completed == len(prompts) and all(
         len(o) == MAX_NEW for o in outs), f"not every request completed: {s}")
-    check(s.kv_pages_in_use == 0 and s.kv_pages_free == s.kv_pages_total,
-          f"pages did not return to the pool: {s}")
+    if s.kv_mode == "paged":
+        check(s.kv_pages_in_use == 0 and s.kv_pages_free == s.kv_pages_total,
+              f"pages did not return to the pool: {s}")
+    else:
+        check(s.active_slots == 0 and s.free_slots == eng.slots,
+              f"slots did not return: {s}")
     check(s.decode_traces == 1 and s.prefill_traces == buckets_used(prompts),
           f"graphs: decode_traces {s.decode_traces}, prefill_traces "
           f"{s.prefill_traces}, {buckets_used(prompts)} buckets used")
@@ -3405,7 +3468,7 @@ def gen_phase(torch, seed):
     generate_cache_bound(torch, model)
     gc.collect()
     torch.cuda.empty_cache()
-    kw = dict(slots=SLOTS, page_size=PAGE, max_len=MAX_LEN,
+    kw = dict(kv_mode="paged", slots=SLOTS, page_size=PAGE, max_len=MAX_LEN,
               prefill_buckets=BUCKETS)
     prompts = phase_prompts(torch, cfg, seed)
     for wq in (None, "int8"):
@@ -3828,7 +3891,7 @@ def serve_27b_phase(torch, seed):
     print(f"  {MODEL_27B}: h={cfg.hidden_size} layers={layers} heads="
           f"{cfg.num_attention_heads} d={cfg.head_dim} bf16, random weights "
           f"from seed {seed} ({time.perf_counter() - t:.1f} s)")
-    kw = dict(slots=SLOTS, page_size=PAGE, max_len=MAX_LEN,
+    kw = dict(kv_mode="paged", slots=SLOTS, page_size=PAGE, max_len=MAX_LEN,
               prefill_buckets=BUCKETS)
     prompts = phase_prompts(torch, cfg, seed)
     launches = {}
@@ -4203,6 +4266,478 @@ def scaler_phase(torch, seed):
           f"{snap['found_inf_skips']}; the next replay updates  ok")
 
 
+def serve_arrivals(torch, eng, prompts, budgets, at, on_step=None):
+    """Greedy request ``i`` (``prompts[i]``, ``budgets[i]`` new tokens)
+    submitted just before step ``at[i]``; steps until every request is
+    done, under the armed sentinel, with the launch counts zeroed just
+    before and read just after. ``on_step(step)`` runs after each step
+    with its launches uncounted (a kernel held against its plain version
+    on the live state). Returns ``(outputs, stats, wall seconds, launch
+    counts, log)``; the log holds, a step, ``(host seconds at its start
+    and at its end, whether a decode-family step ran in it, tokens
+    emitted so far by each request)``, on a clock that leaves
+    ``on_step`` out."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.observability import get_sentinel
+
+    handles = [None] * len(prompts)
+    log = []
+    m = eng.metrics
+    done = m.completed
+    kernels.reset_kernel_launch_counts()
+    t0 = time.perf_counter()
+    step = 0
+    with get_sentinel().armed():
+        while step <= max(at) or not all(h._req.done for h in handles):
+            for i, a in enumerate(at):
+                if a == step:
+                    handles[i] = eng.submit(prompts[i],
+                                            max_new_tokens=budgets[i])
+            before = (m.decode_steps, m.prefill_chunk_steps)
+            start = time.perf_counter() - t0
+            eng.step()
+            log.append((start, time.perf_counter() - t0,
+                        (m.decode_steps, m.prefill_chunk_steps) != before,
+                        [len(h._req.emitted) if h else 0 for h in handles]))
+            if on_step is not None:
+                # the check's time is left out of the clock
+                t = time.perf_counter()
+                with kernels.launches_uncounted():
+                    on_step(step)
+                t0 += time.perf_counter() - t
+            step += 1
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.kernel_launch_counts()
+    outs = [h.result() for h in handles]
+    s = eng.stats()
+    check(s.completed - done == len(prompts) and all(
+        len(o) == b for o, b in zip(outs, budgets)),
+        f"not every request completed: {s}")
+    return outs, s, wall, counts, log
+
+
+def b3_live_check(torch, eng, label, block_table=None):
+    """B3 against its plain version on an engine's live state: the first
+    layer's pools, the steps and valid columns of every slot and its
+    block table (or ``block_table``, the mixed step's decode view), with
+    a random bf16 query a row. Every row is held, parked ones and the
+    sentinel row included, to TOL_BF16_OUT and the lse to TOL_BF16_LSE.
+    Returns the largest error."""
+    from paddle_tpu_torch.kernels import paged_attention as pa
+
+    kv = eng.kv
+    dev = kv.caches[0][0].device
+    bt = torch.from_numpy(kv.block_table if block_table is None
+                          else block_table).to(dev)
+    steps = torch.from_numpy(kv.steps).to(dev)
+    vc = torch.from_numpy(kv.valid_cols).to(dev)
+    pk, pv = kv.caches[0]
+    g = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn((eng.slots, pk.shape[1], 1, pk.shape[3]), generator=g,
+                    device=dev).to(pk.dtype)
+    out, lse = pa.fused_paged_attention(q, pk, pv, bt, steps, vc)
+    ref, ref_lse = pa.paged_attention_reference(q, pk, pv, bt, steps, vc)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL_BF16_OUT)
+    torch.testing.assert_close(lse, ref_lse, **TOL_BF16_LSE)
+    err = (out.float() - ref.float()).abs().max().item()
+    print(f"  B3 on the live state ({label}): max|out-ref| {err:.3e}, "
+          "ok")
+    return err
+
+
+def shared_rows(eng):
+    """``{page: rows}`` of every page two or more active rows map."""
+    rows = {}
+    for s in range(eng.slots):
+        if eng.kv.active[s]:
+            for p in set(eng.kv.block_table[s].tolist()) - {
+                    eng.kv.pool.sentinel}:
+                rows.setdefault(p, []).append(s)
+    return {p: r for p, r in rows.items() if len(r) > 1}
+
+
+def pool_whole(eng, label):
+    """After the traffic only the prefix tree holds pages, one reference
+    each; once it drops them (`evict_to(0)`) no page and no reference is
+    left."""
+    kv = eng.kv
+    cached = eng.prefix.cached_pages if eng.prefix is not None else 0
+    check(kv.slot_page_counts() == (0,) * eng.slots
+          and kv.pages_in_use == cached
+          and all(n == 1 for n in kv.pool._refcount.values()),
+          f"{label}: pages in use {kv.pages_in_use}, cached {cached}, "
+          f"refcounts {sorted(set(kv.pool._refcount.values()))}")
+    if eng.prefix is not None:
+        check(eng.prefix.evict_to(0) == cached, f"{label}: eviction short")
+    check(kv.pages_in_use == 0 and not kv.pool._refcount,
+          f"{label}: {kv.pages_in_use} pages, "
+          f"{len(kv.pool._refcount)} references left")
+    print(f"  {label}: every page and reference returned ({cached} cached "
+          "pages dropped by evict_to(0))")
+
+
+def slots_phase(torch, model, seed, paged_step):
+    """Phase 15: phase 4's Engine and traffic with no ``kv_mode``, so on
+    the dense slot caches (the reference's default): no paged kernel
+    and no other kernel launches (the slot step composes its attention
+    with float32 scores, as the reference does); every request completes
+    and every slot returns; greedy tokens agree with the float32 teacher
+    but at a bf16 near-tie; one decode graph and one prefill graph a
+    bucket under the armed sentinel; ``kv_cache_bytes`` is the slot
+    caches'; the decode graph against its eager run; a profile of full
+    steps beside phase 4's paged ms/step (``paged_step``)."""
+    from paddle_tpu_torch.serving import Engine
+
+    cfg = model.config
+    kw = dict(slots=SLOTS, max_len=MAX_LEN, prefill_buckets=BUCKETS)
+    prompts = phase_prompts(torch, cfg, seed)
+    eng = Engine(model, **kw)
+    check(eng.kv_mode == "slots", f"Engine(no kv_mode) is {eng.kv_mode}")
+    outs, s, wall, counts = serve_traffic(torch, eng, prompts)
+    check(not any(counts.values()), f"slot serving launched {counts}")
+    want = (SLOTS * cfg.num_hidden_layers * 2 * cfg.num_attention_heads
+            * MAX_LEN * cfg.head_dim * 2)
+    check(s.kv_cache_bytes == want == eng.kv.memory_bytes()
+          and s.kv_pages_total is None,
+          f"kv_cache_bytes {s.kv_cache_bytes}, the slot caches' {want}")
+    print(f"  kv_mode {s.kv_mode}: served {len(prompts)} requests in "
+          f"{wall:.3f} s, {s.prefill_steps} prefills, {s.decode_steps} "
+          f"decode steps, {s.tokens_generated} tokens; launches: none")
+    print(f"  TTFT p50 {s.ttft_p50 * 1e3:.3f} ms, decode "
+          f"{s.decode_step_p50 * 1e3:.3f} ms/step (p50; phase 4's paged "
+          f"engine in this run: {paged_step * 1e3:.3f} ms/step), "
+          f"{s.tokens_generated / wall:.1f} tokens/s, kv_cache_bytes "
+          f"{s.kv_cache_bytes}")
+    teacher_check(torch, model, prompts, outs)
+    paged, *_ = serve_traffic(torch, Engine(model, kv_mode="paged", **kw),
+                              prompts)
+    same = sum(a == b for a, b in zip(outs, paged))
+    print(f"  the paged engine's streams on the same traffic: {same} of "
+          f"{len(outs)} identical")
+    if same < len(outs):
+        teacher_check(torch, model, prompts, paged)
+    eng = Engine(model, **kw)
+    profile_decode(torch, eng, prompts)
+    engine_graph_check(torch, eng)
+
+
+def prefix_trace(torch, cfg, seed):
+    """The shared-prefix trace (``make_shared_prefix_trace``): PFX_N
+    prompts, each one of PFX_SYS system prompts of PFX_SYS_LEN tokens
+    plus a user suffix of 2..PFX_SUFFIX tokens, budgets of PFX_NEW // 4
+    ..PFX_NEW. Returns ``(prompts, budgets, system
+    prompt of each)``."""
+    g = torch.Generator().manual_seed(seed + 16)
+    sys_p = [torch.randint(1, cfg.vocab_size, (PFX_SYS_LEN,), generator=g)
+             .tolist() for _ in range(PFX_SYS)]
+    which = torch.randint(0, PFX_SYS, (PFX_N,), generator=g).tolist()
+    prompts, budgets = [], []
+    for w in which:
+        n = int(torch.randint(2, PFX_SUFFIX + 1, (1,), generator=g))
+        prompts.append(sys_p[w] + torch.randint(
+            1, cfg.vocab_size, (n,), generator=g).tolist())
+        budgets.append(int(torch.randint(PFX_NEW // 4, PFX_NEW + 1, (1,),
+                                         generator=g)))
+    return prompts, budgets, which
+
+
+def prefix_phase(torch, model, seed):
+    """Phase 16: the shared-prefix trace through ``Engine(prefix_cache=
+    True)`` and, on the same traffic, the paged engine without the
+    cache. With it: ``prefix_tokens_saved`` is 384 for every request
+    after the first on its system prompt (nothing is evicted); the tail
+    prefill graphs are one a tail bucket; B3 launches exactly decode
+    steps x layers times, over prefix pages that several rows map
+    read-only (held against its plain version on that live state); every
+    page and reference returns; greedy tokens agree with the float32
+    teacher but at a bf16 near-tie. Returns B3's launches."""
+    from paddle_tpu_torch.serving import Engine
+
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    prompts, budgets, which = prefix_trace(torch, cfg, seed)
+    at = [PFX_EVERY * i for i in range(len(prompts))]
+    hits = [i for i in range(len(prompts)) if which[i] in which[:i]]
+    kw = dict(kv_mode="paged", slots=SLOTS, page_size=PAGE, max_len=MAX_LEN,
+              prefill_buckets=BUCKETS)
+    shared = {}
+
+    def on_step(step):
+        rows = shared_rows(eng)
+        if rows and not shared:
+            shared.update(rows)
+            b3_live_check(torch, eng, f"step {step}, {len(rows)} pages "
+                          f"mapped by {max(map(len, rows.values()))} rows")
+
+    ttft, launches = {}, 0
+    for cached in (True, False):
+        eng = Engine(model, prefix_cache=cached, **kw)
+        outs, s, wall, counts, log = serve_arrivals(
+            torch, eng, prompts, budgets, at, on_step if cached else None)
+        firsts = first_token_s(log, at)
+        ttft[cached] = (s.ttft_p50,
+                        statistics.median(firsts[i] for i in hits))
+        want = s.decode_steps * layers
+        check(counts["paged_attention"] == want and sum(counts.values())
+              == want, f"prefix_cache={cached}: launches {counts}, decode "
+              f"steps x layers = {want}")
+        tails = {min(b for b in BUCKETS if b >= len(p) - PFX_SYS_LEN)
+                 for p in prompts}
+        check(s.decode_traces == 1 and s.prefill_traces == (
+            len(tails | {BUCKETS[-1]}) if cached else buckets_used(prompts)),
+            f"graphs: decode {s.decode_traces}, prefill {s.prefill_traces}")
+        if cached:
+            saved = PFX_SYS_LEN * (len(prompts) - len(set(which)))
+            check(s.prefix_evicted_pages == 0
+                  and s.prefix_tokens_saved == saved,
+                  f"prefix_tokens_saved {s.prefix_tokens_saved}, the "
+                  f"page-granular match implies {saved} (evicted "
+                  f"{s.prefix_evicted_pages})")
+            check(shared, "no prefix page was mapped by two live rows")
+            launches = counts["paged_attention"]
+            check(launches > 0, "prefix_cache=True launched no B3")
+            print(f"  prefix_cache=True: {s.prefix_hits} hits of "
+                  f"{s.prefix_lookups}, prefix_tokens_saved "
+                  f"{s.prefix_tokens_saved} (= {PFX_SYS_LEN} x "
+                  f"{len(prompts) - len(set(which))}), prefix_cached_pages "
+                  f"{s.prefix_cached_pages}, prefill_traces "
+                  f"{s.prefill_traces} (tail buckets), decode_traces 1")
+        print(f"  prefix_cache={cached}: {len(prompts)} requests in "
+              f"{wall:.3f} s, {s.decode_steps} decode steps, launches "
+              f"{counts['paged_attention']} = decode steps x layers; TTFT "
+              f"p50 {s.ttft_p50 * 1e3:.3f} ms, decode "
+              f"{s.decode_step_p50 * 1e3:.3f} ms/step (p50)")
+        pool_whole(eng, f"prefix_cache={cached}")
+        teacher_check(torch, model, prompts, outs)
+        hit_prefill_profile(torch, eng, cached)
+        del eng
+    print(f"  TTFT p50 with the cache {ttft[True][0] * 1e3:.3f} ms, without "
+          f"{ttft[False][0] * 1e3:.3f} ms; the {len(hits)} requests that hit: "
+          f"first token after {ttft[True][1] * 1e3:.3f} ms (median from "
+          f"the start of their step), without the cache "
+          f"{ttft[False][1] * 1e3:.3f} ms")
+    return launches
+
+
+def hit_prefill_profile(torch, eng, cached):
+    """Where a hit's admission goes: 4 replays of the prefill step a hit
+    runs (with the cache: the tail bucket BUCKETS[0] at column
+    PFX_SYS_LEN, PFX_SUFFIX real tokens; without: the whole prompt of
+    PFX_SYS_LEN + PFX_SUFFIX tokens in bucket BUCKETS[-1]), on a parked
+    row (its writes land on the sentinel page)."""
+    row = eng.kv.block_table[[0]]
+    n = PFX_SYS_LEN + PFX_SUFFIX
+    if cached:
+        fn, b = eng._cprefill_fns[BUCKETS[0]], BUCKETS[0]
+        ops = dict(ids=[[1] * b], tail_lens=[PFX_SUFFIX], col0=[PFX_SYS_LEN],
+                   page_rows=row)
+        what = (f"tail prefills (b{b}pfx, {PFX_SUFFIX} tokens at column "
+                f"{PFX_SYS_LEN})")
+    else:
+        fn, b = eng._prefill_fns[BUCKETS[-1]], BUCKETS[-1]
+        ops = dict(ids=[[1] * b], amask=[[0] * (b - n) + [1] * n],
+                   page_rows=row)
+        what = f"whole prefills (b{b}, {n} tokens)"
+    with torch.inference_mode():
+        profile_steps(torch, lambda: fn(**ops), 4, what)
+
+
+def first_token_s(log, at):
+    """Each request's seconds from the start of the step it was submitted
+    before to the end of the step that emitted its first token."""
+    out = []
+    for r, a in enumerate(at):
+        i = next(i for i, (*_, em) in enumerate(log) if em[r])
+        out.append(log[i][1] - log[a][0])
+    return out
+
+
+def mixed_trace(torch, cfg, seed):
+    """The mixed prefill trace (``make_mixed_prefill_trace``): MIX_SHORT
+    prompts of MIX_SHORT_LEN tokens (+ MIX_SHORT_NEW) submitted at step
+    0, then one MIX_LONG-token prompt (+ MIX_LONG_NEW) at step
+    MIX_LONG_AT. Returns ``(prompts, budgets, at)``."""
+    g = torch.Generator().manual_seed(seed + 17)
+    lo, hi = MIX_SHORT_LEN
+    prompts = [torch.randint(1, cfg.vocab_size, (int(n),), generator=g)
+               .tolist() for n in torch.randint(lo, hi + 1, (MIX_SHORT,),
+                                                 generator=g)]
+    prompts.append(torch.randint(1, cfg.vocab_size, (MIX_LONG,),
+                                 generator=g).tolist())
+    return (prompts, [MIX_SHORT_NEW] * MIX_SHORT + [MIX_LONG_NEW],
+            [0] * MIX_SHORT + [MIX_LONG_AT])
+
+
+def admission_window(log):
+    """The steps from the long prompt's (the last request's) submission
+    to the one that emits its first token."""
+    first = next(i for i, (*_, em) in enumerate(log) if em[-1])
+    return range(MIX_LONG_AT, first + 1)
+
+
+def admission_gaps(log, n_short):
+    """The short streams' inter-token gaps (seconds) that end in the
+    long prompt's `admission_window`."""
+    window = admission_window(log)
+    gaps = []
+    for r in range(n_short):
+        last = None
+        for i, (_, t, _, em) in enumerate(log):
+            if em[r] > (log[i - 1][3][r] if i else 0):
+                if last is not None and i in window:
+                    gaps.append(t - last)
+                last = t
+    return gaps
+
+
+def chunk_phase(torch, model, seed):
+    """Phase 17: the mixed trace through ``Engine(chunk_tokens=
+    MIX_CHUNK)`` and through the same engine without chunking (the long
+    prompt prefilled whole), each warmed on its own graphs first. B3
+    launches exactly (decode steps + mixed steps) x layers times, inside
+    the mixed step over a block table whose chunking row is the sentinel
+    page (held against its plain version on that view); every page
+    returns; one decode graph (the mixed step joins its family
+    uncounted); the long prompt's first token is the same in both arms
+    or both are within the bf16 near-tie of the float32 teacher. Prints
+    the short streams' largest and p99 inter-token gap while the long
+    prompt is admitted, the mixed steps and their ms. Then `embed` of
+    EMBED_LENS prompts in the chunked engine, each vector at cosine >=
+    EMBED_COS with the float32 teacher's final ln_f hidden state, and the
+    pool empty after. Returns B3's launches of the chunked arm."""
+    from paddle_tpu_torch.serving import Engine
+
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    prompts, budgets, at = mixed_trace(torch, cfg, seed)
+    kw = dict(kv_mode="paged", slots=SLOTS, page_size=PAGE,
+              max_len=MIX_MAX_LEN, prefill_buckets=MIX_BUCKETS)
+    views = []
+
+    def on_step(step):
+        if eng._chunk_req is not None and not views:
+            view = eng._chunk_fn.static["block_table"].cpu().numpy()
+            slot = eng._chunk_req.slot
+            check((view[slot] == eng.kv.pool.sentinel).all(),
+                  "the mixed step's chunking row is not the sentinel page")
+            views.append(view)
+            b3_live_check(torch, eng, f"step {step}, the mixed step's "
+                          f"decode view, row {slot} on the sentinel", view)
+
+    firsts, launches, engines = {}, 0, {}
+    for ct in (MIX_CHUNK, None):
+        eng = Engine(model, chunk_tokens=ct, **kw)
+        # its graphs first: a short and a long request to the end
+        eng.submit(prompts[0], max_new_tokens=2).result()
+        eng.submit(prompts[-1], max_new_tokens=2).result()
+        before = (eng.metrics.decode_steps, eng.metrics.prefill_chunk_steps)
+        outs, s, wall, counts, log = serve_arrivals(
+            torch, eng, prompts, budgets, at, on_step if ct else None)
+        ran = sum(r for _, _, r, _ in log)
+        chunk_steps = s.prefill_chunk_steps - before[1]
+        check(counts["paged_attention"] == ran * layers
+              and sum(counts.values()) == ran * layers,
+              f"chunk_tokens={ct}: launches {counts}, (decode steps + "
+              f"mixed steps) x layers = {ran * layers}")
+        check(s.decode_traces == 1, f"decode_traces {s.decode_traces}")
+        check(s.kv_pages_in_use == 0, f"{s.kv_pages_in_use} pages in use")
+        gaps = admission_gaps(log, MIX_SHORT)
+        steps_ms = [(log[i][1] - log[i][0]) * 1e3
+                    for i in admission_window(log)]
+        firsts[ct] = outs[-1][0]
+        if ct:
+            launches = counts["paged_attention"]
+            check(len(steps_ms) == chunk_steps == -(-MIX_LONG // ct),
+                  f"{len(steps_ms)} steps to the first token, {chunk_steps}"
+                  " mixed steps")
+        label = f"chunk_tokens={ct}"
+        print(f"  {label}: {len(prompts)} requests in {wall:.3f} s, "
+              f"{ran} decode-family steps ({chunk_steps} mixed), launches "
+              f"{counts['paged_attention']} = that x layers; decode "
+              f"{s.decode_step_p50 * 1e3:.3f} ms/step (p50)")
+        print(f"  {label}: inter-token gap of the {MIX_SHORT} short streams "
+              f"while the {MIX_LONG}-token prompt is admitted: largest "
+              f"{max(gaps) * 1e3:.3f} ms, p99 "
+              f"{torch.tensor(gaps).quantile(0.99).item() * 1e3:.3f} ms "
+              f"over {len(gaps)} gaps; "
+              f"its {len(steps_ms)} steps to its first token: "
+              f"{' '.join(f'{m:.3f}' for m in steps_ms)} ms")
+        teacher_check(torch, model, prompts, outs)
+        engines[ct] = eng
+
+        def admit_alone():
+            h = eng.submit(prompts[-1], max_new_tokens=1)
+            while not h._req.done:
+                eng.step()
+
+        profile_steps(torch, admit_alone, 1, f"admissions of the "
+                      f"{MIX_LONG}-token prompt alone ({label}: "
+                      f"{-(-MIX_LONG // ct) if ct else 1} steps)")
+    check(views, "no step ran with a prompt mid-chunk")
+    same = ("the same" if firsts[MIX_CHUNK] == firsts[None] else
+            "a near-tie: each within the teacher's gap")
+    print(f"  the long prompt's first token: {firsts[MIX_CHUNK]} chunked, "
+          f"{firsts[None]} whole ({same})")
+    eng = engines.pop(MIX_CHUNK)
+    engines.clear()
+    embed_check(torch, model, eng, seed)
+    return launches
+
+
+def embed_check(torch, model, eng, seed):
+    """`Engine.embed` on EMBED_LENS prompts against a float32 teacher's
+    final ln_f hidden state (cosine >= EMBED_COS), the pool empty
+    after."""
+    cfg = model.config
+    g = torch.Generator().manual_seed(seed + 18)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=g).tolist()
+               for n in EMBED_LENS]
+    t = time.perf_counter()
+    vecs = eng.embed(prompts)
+    dt = time.perf_counter() - t
+    ref = float32_copy(torch, model)
+    cos = []
+    with torch.inference_mode():
+        for p, v in zip(prompts, vecs):
+            ids = torch.tensor([p], device=ref.device)
+            hidden = ref.gpt.prefill(ids, ref.gen_static_cache(1, len(p)))
+            want = hidden[0, -1].float().cpu()
+            got = torch.from_numpy(v)
+            check(got.shape == want.shape and torch.isfinite(got).all(),
+                  f"embed({len(p)}): shape {tuple(got.shape)}")
+            cos.append(torch.nn.functional.cosine_similarity(
+                got, want, dim=0).item())
+    del ref
+    check(min(cos) >= EMBED_COS, f"embed cosines {cos} < {EMBED_COS}")
+    check(eng.kv.pages_in_use == 0 and eng.scheduler.free_slots == SLOTS,
+          "embed left pages or slots behind")
+    print(f"  embed of {len(prompts)} prompts {EMBED_LENS} in {dt:.3f} s "
+          f"(chunks of {eng._chunk_tokens}): cosine with the float32 "
+          f"teacher's ln_f state {', '.join(f'{c:.6f}' for c in cos)} "
+          f">= {EMBED_COS}; the pool is empty after")
+
+
+def serving_modes_phases(torch, seed, paged_step):
+    """Phases 15-17 on one gpt3-1.3b at full width and depth, bf16,
+    random weights from ``seed``. Returns B3's launches in phases 16 and
+    17."""
+    from paddle_tpu_torch.models.gpt import GPTForPretraining, gpt_config
+
+    model = GPTForPretraining(gpt_config(MODEL), dtype="bfloat16", seed=seed)
+    print("[15] dense slot serving phase (Engine with no kv_mode)")
+    slots_phase(torch, model, seed, paged_step)
+    print("[16] prefix-cache serving phase (shared system prompts)")
+    pfx = prefix_phase(torch, model, seed)
+    print("[17] chunked prefill and embed phase (a long prompt among "
+          "decoding streams)")
+    mix = chunk_phase(torch, model, seed)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return pfx, mix
+
+
 def print_build_report(name, report):
     """One source's build seconds, then for each kernel ptxas's register,
     shared-memory and spill lines, joined on one line."""
@@ -4267,7 +4802,8 @@ def main(argv=None) -> int:
     records += ln_records
     records.append(adam_kernel_phase(torch, args.seed))
     print("[4] engine phase")
-    launches.update(engine_phase(torch, args.seed))
+    counts, paged_step = engine_phase(torch, args.seed)
+    launches.update(counts)
     print("[5] training phase")
     launches.update(train_phase(torch, args.seed, card))
     print("[6] BERT phase (masked, B2)")
@@ -4298,6 +4834,9 @@ def main(argv=None) -> int:
           "GradScaler's skip)")
     schedule_phase(torch, args.seed)
     scaler_phase(torch, args.seed)
+    pfx, mix = serving_modes_phases(torch, args.seed, paged_step)
+    print(f"  (B3's launches in the kernel line are phase 4's; phase 16's "
+          f"were {pfx}, phase 17's {mix})")
     for rec in records:
         rec["launches"] = launches[rec["name"]]
 

@@ -11,12 +11,15 @@ Counterpart: ``paddle_tpu/models/gpt.py``. Ported so far:
   `nn.functional.scaled_dot_product_attention` (the general flash
   kernels where its gate takes the mask and shape, else the
   composition);
-- serving, as the paged engine runs it: the masked prompt pass
-  (`GPTModel.prefill`), the one-token-per-slot paged decode step
-  (`GPTModel.decode_slots_paged`) and the speculative verify window of
-  ``W = k + 1`` tokens per slot (`GPTModel.verify_slots_paged`), over
-  float or quantized (int8 / fp8 pages with f32 scales) pools, plus the
-  weight-tied LM head and the cache/pool/scale constructors;
+- serving, as the engine runs it: the masked prompt pass
+  (`GPTModel.prefill`), the one-token-per-slot decode step and the
+  speculative verify window of ``W = k + 1`` tokens per slot over the
+  dense slot caches (`GPTModel.decode_slots`, `GPTModel.verify_slots`)
+  and over float or quantized (int8 / fp8 pages with f32 scales) page
+  pools (`GPTModel.decode_slots_paged`, `GPTModel.verify_slots_paged`),
+  the tail prefill over a page view of the prefix cache and of chunked
+  prefill (`GPTModel.prefill_paged`), plus the weight-tied LM head and
+  the cache/pool/scale constructors;
 - generation, as `models.generation.GenerationMixin.generate` runs it:
   the prompt pass with the reference's unmasked flash branch (a pad-free
   prompt the qkv gate takes), the static-cache decode step
@@ -267,6 +270,76 @@ class GPTAttention(nn.Module):
                                v_cache.to(qh.dtype), self.head_dim, valid)
         return self.out_proj(ctx.reshape(b, 1, -1))
 
+    def forward_slots(self, x, k_cache, v_cache, steps, valid_cols=None):
+        """W tokens per slot over the dense slot caches ``[B, H, max_len,
+        D]``, ``x [B, W, h]`` (W = 1 a decode step, ``gpt.py:293-334``;
+        W = k + 1 a speculative verify window, :336-386): lane ``j`` of
+        row ``s`` writes its K/V at the row's own column ``steps[s] + j``
+        (in place, ``index_put_`` on the device indices) and attends the
+        columns up to its own, minus those ``valid_cols [B, max_len]``
+        marks 0 (a left-padded prompt's pad columns). Composed attention
+        with float32 scores (`decode_attention`), as the reference
+        composes it (its slot step runs no Pallas kernel)."""
+        b, w = x.shape[0], x.shape[1]
+        max_len = k_cache.shape[2]
+        q, k, v = unpack_qkv_pair_major(self.qkv_proj(x), self.num_heads,
+                                        self.head_dim)     # [B, W, H, D]
+        cols = (steps.long()[:, None]
+                + torch.arange(w, device=x.device)[None, :])    # [B, W]
+        rows = torch.arange(b, device=x.device)[:, None].expand(b, w)
+        k_cache[rows, :, cols] = k.to(k_cache.dtype)
+        v_cache[rows, :, cols] = v.to(v_cache.dtype)
+        valid = (torch.arange(max_len, device=x.device)[None, None, :]
+                 <= cols[:, :, None])                            # [B, W, L]
+        if valid_cols is not None:
+            valid = valid & (valid_cols != 0)[:, None, :]
+        qh = q.permute(0, 2, 1, 3)
+        ctx = decode_attention(qh, k_cache.to(qh.dtype), v_cache.to(qh.dtype),
+                               self.head_dim, valid[:, None])
+        return self.out_proj(ctx)
+
+    def forward_prefill_paged(self, x, pool_k, pool_v, block_table, col0,
+                              k_scale=None, v_scale=None):
+        """The tail prefill over the paged pool (``gpt.py:519-560``): ``x
+        [B, S, h]`` holds the uncached suffix of each prompt, right-
+        padded, token ``j`` of row ``r`` at logical column ``col0[r] +
+        j``. Its K/V go into the row's pages through the block table
+        (`paged_kv.scatter_tail_pages`, quantized at write when
+        ``k_scale``/``v_scale`` ride with 1-byte pools; columns past the
+        row's window land on the sentinel page), then every query
+        attends the gathered logical window causally: the prefix pages
+        the row maps read-only and its own tail. Composed attention, as
+        in the reference (a prefill reads the window once per
+        admission or chunk); the pad queries' outputs are never read."""
+        b, s = x.shape[0], x.shape[1]
+        q, k, v = unpack_qkv_pair_major(self.qkv_proj(x), self.num_heads,
+                                        self.head_dim)     # [B, S, H, D]
+        kh, vh = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+        if k_scale is None:
+            paged_kv.scatter_tail_pages(pool_k, block_table, col0, kh)
+            paged_kv.scatter_tail_pages(pool_v, block_table, col0, vh)
+        else:
+            paged_kv.scatter_tail_pages_q(pool_k, k_scale, block_table,
+                                          col0, kh)
+            paged_kv.scatter_tail_pages_q(pool_v, v_scale, block_table,
+                                          col0, vh)
+        lp = block_table.shape[1] * pool_k.shape[2]
+        cols = (col0.long()[:, None]
+                + torch.arange(s, device=x.device)[None, :])    # [B, S]
+        valid = (torch.arange(lp, device=x.device)[None, None, None, :]
+                 <= cols[:, None, :, None])                  # [B, 1, S, L]
+        view_k = paged_kv.gather_pages(pool_k, block_table)
+        view_v = paged_kv.gather_pages(pool_v, block_table)
+        if k_scale is not None:
+            view_k = view_k.float() * paged_kv.gather_scales(
+                k_scale, block_table)[..., None]
+            view_v = view_v.float() * paged_kv.gather_scales(
+                v_scale, block_table)[..., None]
+        qh = q.permute(0, 2, 1, 3)
+        ctx = mt_attention_core(qh, view_k.to(qh.dtype), view_v.to(qh.dtype),
+                                self.head_dim, valid_mask=valid)
+        return self.out_proj(ctx)
+
     def _ctx_segment(self, qh, ctx_k, ctx_v, pad_mask):
         """The beam's shared prompt segment as a normalized ``(out [N, H,
         D], lse [N, H])`` pair (``gpt.py:629-654``): each batch row's
@@ -401,6 +474,18 @@ class GPTDecoderLayer(nn.Module):
     def forward_decode(self, x, k_cache, v_cache, step, valid_cols=None):
         x = x + self.attn.forward_decode(self.ln_1(x), k_cache, v_cache,
                                          step, valid_cols=valid_cols)
+        return x + self.mlp(self.ln_2(x))
+
+    def forward_slots(self, x, k_cache, v_cache, steps, valid_cols=None):
+        x = x + self.attn.forward_slots(self.ln_1(x), k_cache, v_cache, steps,
+                                        valid_cols=valid_cols)
+        return x + self.mlp(self.ln_2(x))
+
+    def forward_prefill_paged(self, x, pool_k, pool_v, block_table, col0,
+                              k_scale=None, v_scale=None):
+        x = x + self.attn.forward_prefill_paged(
+            self.ln_1(x), pool_k, pool_v, block_table, col0,
+            k_scale=k_scale, v_scale=v_scale)
         return x + self.mlp(self.ln_2(x))
 
     def forward_decode_beam_paged(self, x, ctx_k, ctx_v, pool_k, pool_v,
@@ -545,6 +630,62 @@ class GPTModel(nn.Module):
             x = layer.forward_decode_beam_paged(
                 x, ck, cv, pk, pv, block_table, gen_col, pad_mask=pad_mask,
                 k_scale=ks, v_scale=vs)
+        return self.ln_f(x)
+
+    @staticmethod
+    def _window_positions(token_ids, steps, pads):
+        """Position ids ``[B, W]`` of a window at columns ``steps[s] + j``:
+        ``steps - pads`` clipped at 0, plus ``j``."""
+        pos = steps.long() if pads is None else steps.long() - pads.long()
+        return (pos.clamp(min=0)[:, None]
+                + torch.arange(token_ids.shape[1],
+                               device=token_ids.device)[None, :])
+
+    def decode_slots(self, token_ids, steps, caches, pads=None,
+                     valid_cols=None):
+        """One token per slot at per-row cache columns ``steps [B]`` over
+        the dense slot caches ``[B, H, max_len, D]`` (written in place;
+        ``gpt.py:1065-1083``): the verify window of one lane. Returns
+        ``[B, 1, h]``."""
+        return self.verify_slots(token_ids, steps, caches, pads, valid_cols)
+
+    def verify_slots(self, token_ids, steps, caches, pads=None,
+                     valid_cols=None):
+        """The speculative verify window over the dense slot caches
+        (``gpt.py:1118-1140``): ``token_ids [B, W]``, lane ``j`` at cache
+        column ``steps[s] + j`` with position id ``steps[s] - pads[s] +
+        j``, the positions W sequential `decode_slots` calls would give
+        it. ``pads [B]`` and ``valid_cols [B, max_len]`` as in
+        `decode_step`. Returns the hidden states of all W lanes ``[B, W,
+        h]``."""
+        x = self.embeddings(token_ids,
+                            self._window_positions(token_ids, steps, pads))
+        for layer, (kc, vc) in zip(self.h, caches):
+            x = layer.forward_slots(x, kc, vc, steps, valid_cols=valid_cols)
+        return self.ln_f(x)
+
+    def prefill_paged(self, input_ids, pools, block_table, col0, tail_len,
+                      scales=None):
+        """The tail prefill over the paged pool (``gpt.py:1172-1215``):
+        ``input_ids [B, S]`` the uncached prompt suffix, right-padded to
+        its bucket; ``col0 [B]`` the columns already written (the
+        page-aligned prefix match, or the chunks absorbed so far);
+        ``tail_len [B]`` the real suffix length. The layout is unpadded,
+        so position ids are the columns ``col0 + j`` (clipped into the
+        position table for the pad rows). Pools and scales are written in
+        place. Returns the ``ln_f`` hidden state of each row's last real
+        tail token ``[B, 1, h]``."""
+        b, s = input_ids.shape
+        pos = (col0.long()[:, None]
+               + torch.arange(s, device=input_ids.device)[None, :]).clamp(
+                   max=self.config.max_position_embeddings - 1)
+        x = self.embeddings(input_ids, pos)
+        for i, (layer, (pk, pv)) in enumerate(zip(self.h, pools)):
+            ks, vs = (None, None) if scales is None else scales[i]
+            x = layer.forward_prefill_paged(x, pk, pv, block_table, col0,
+                                            k_scale=ks, v_scale=vs)
+        last = (tail_len.long() - 1).clamp(min=0)
+        x = x.gather(1, last[:, None, None].expand(b, 1, x.shape[-1]))
         return self.ln_f(x)
 
     def decode_slots_paged(self, token_ids, steps, pools, block_table,
@@ -699,6 +840,28 @@ class GPTForPretraining(GenerationMixin, nn.Module):
         return self._logits(self.gpt.decode_beam_paged(
             token_ids, step, ctx_caches, pools, block_table, gen_col,
             pads=pads, pad_mask=pad_mask, scales=scales))
+
+    def decode_slots(self, token_ids, steps, caches, pads=None,
+                     valid_cols=None):
+        """Logits ``[B, 1, V]`` of one dense slot decode step (caches
+        written in place; ``gpt.py:1316-1321``)."""
+        return self._logits(self.gpt.decode_slots(
+            token_ids, steps, caches, pads=pads, valid_cols=valid_cols))
+
+    def verify_slots(self, token_ids, steps, caches, pads=None,
+                     valid_cols=None):
+        """Logits ``[B, W, V]`` of one dense slot verify window
+        (``gpt.py:1323-1330``)."""
+        return self._logits(self.gpt.verify_slots(
+            token_ids, steps, caches, pads=pads, valid_cols=valid_cols))
+
+    def prefill_paged(self, input_ids, pools, block_table, col0, tail_len,
+                      scales=None):
+        """Logits ``[B, 1, V]`` of each row's last real tail token of one
+        tail prefill (pools and scales written in place;
+        ``gpt.py:1373-1378``)."""
+        return self._logits(self.gpt.prefill_paged(
+            input_ids, pools, block_table, col0, tail_len, scales=scales))
 
     def decode_slots_paged(self, token_ids, steps, pools, block_table,
                            pads=None, valid_cols=None, scales=None):

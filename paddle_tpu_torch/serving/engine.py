@@ -1,23 +1,52 @@
-"""The continuous-batching serving engine over the paged KV pool.
+"""The continuous-batching serving engine over dense slot caches or the
+paged KV pool.
 
-Counterpart: ``paddle_tpu/serving/engine.py`` (``Engine(kv_mode="paged")``;
-submit/step semantics of :757-927, the page budget of :1429-1530,
-admission of :1536-1630, decode of :2252-2291, the speculative step of
-:2293-2552, emit/release of :2647-2717). The port has the cooperative
-paged engine:
+Counterpart: ``paddle_tpu/serving/engine.py`` (the mode choice and its
+validations of :393-450, submit/step semantics of :757-927, stats of
+:1160-1208, the page budget and prefix reservation of :1429-1535,
+admission of :1536-1700, chunked prefill and `embed` of :1731-2024,
+decode of :2252-2291, the speculative step of :2293-2552, emit/release
+of :2647-2717). The port has the cooperative engine:
 
 - `submit` queues a request and returns a `RequestHandle`;
-- `step` admits queued requests FCFS into free slots — each prompt is
-  left-padded to its bucket, prefilled alone, and scattered into the
-  slot's reserved pages — then runs ONE decode step in which every slot,
-  active or parked, rides (parked slots write to the sentinel page);
-- a request that finds the pool exhausted stays queued at the head
-  until a release returns pages; EOS or the token budget frees the slot
-  and its pages at once;
+- `step` admits queued requests FCFS into free slots (each prompt
+  prefilled alone), then runs ONE decode step in which every slot,
+  active or parked, rides; EOS or the token budget frees the slot at
+  once.
+
+``kv_mode`` picks the KV cache, as the reference does: ``"slots"`` (the
+default without a paged feature) holds one dense ``[slots, H, max_len,
+D]`` cache a layer (`kv_slots.SlotKVCache`): a prompt, left-padded to
+its bucket, is written into the slot's row, and decode attends the whole
+row, composed with float32 scores (the reference's slot step runs no
+Pallas kernel either). ``"paged"`` (the default with ``prefix_cache``,
+``chunk_tokens``, ``kv_quant`` or ``kv_pool_bytes``) holds a page pool
+(`paged.PagedKVCache`): each slot reserves its whole page budget at
+admission, a request that finds the pool exhausted stays queued at the
+head until a release returns pages, and decode attends through the
+block table (the Hopper paged-attention kernel on a card). Paged
+features:
+
 - ``kv_quant="int8"`` or ``"fp8"`` stores the pool as 1-byte pages with
   per-token f32 scales: prefill attends its float local cache and
   quantizes into the pages, every decode or verify write quantizes, and
   the attention kernel dequantizes;
+- ``prefix_cache=True`` keeps a radix tree of complete prompt pages
+  (`prefix_cache.PrefixCache`): an admission maps the pages its prompt
+  shares with an earlier one read-only, reserves only the rest, and
+  prefills only the uncached tail through the page view; the layout is
+  unpadded (column == position), and the tree's unread pages are
+  evicted, oldest first, when an allocation falls short;
+- ``chunk_tokens=n`` admits a prompt whose uncached tail is longer than
+  ``n`` in chunks of ``n`` tokens, one a step, each fused with the
+  decode step of every other slot in one mixed step; nothing behind a
+  chunking request admits until it has its slot (FCFS);
+- `embed` runs prompts through the same tail prefill and returns the
+  final ``ln_f`` hidden state of each, releasing the slot and pages
+  before it returns.
+
+Both modes:
+
 - ``weight_quant="int8"`` serves weight-only int8 weights, dequantized
   inside each prefill and decode step (the model's `dequantized` scope);
 - ``spec_k=k`` replaces the decode step by a verify step of ``k + 1``
@@ -30,20 +59,18 @@ paged engine:
   (distributed exactly as ``spec_k=0``). Every slot budgets ``k`` more
   columns (``bucket + max_new + k <= max_len``, and its pages).
 
-On a card the attention of every decode and verify step is the Hopper
-paged-attention kernel (`kernels.paged_attention`, at ``W = 1`` or ``k
-+ 1`` queries per slot, reading float or 1-byte pages); on the CPU its
-plain version. Every prefill step (one per prompt bucket) and the
-decode/verify step (one for the engine's ``W``) is a
-`jit.capture.CapturedStep` (`compiled.build_paged_prefill_fn`,
-`compiled.build_paged_verify_step_fn`): on a card one CUDA graph each,
-captured on first use into the engine's one graph memory pool and then
-only replayed; on the CPU the same body runs eagerly on the same static
+Every step is a `jit.capture.CapturedStep` (`compiled`): one a prompt
+bucket (dense or paged prefill), one a tail bucket (the prefix cache's
+tail prefill), one a chunk width (`embed`), the decode/verify step, and
+the mixed chunk step. On a card each is one CUDA graph, captured on
+first use into the engine's one graph memory pool and then only
+replayed; on the CPU the same body runs eagerly on the same static
 buffers. Each build is counted (``stats().prefill_traces`` and
-``decode_traces``) and reported to the recompile sentinel under the
-engine's own names (`metrics.EngineMetrics.note_trace`). Token selection
-runs after the replay, eagerly. Arguments of features that later slices
-bring raise `NotImplementedError` naming the feature.
+``decode_traces``; the mixed step registers in the decode family
+without counting) and reported to the recompile sentinel under the
+engine's own names (`metrics.EngineMetrics.note_trace`). Token
+selection runs after the replay, eagerly. Arguments of features that
+later slices bring raise `NotImplementedError` naming the feature.
 """
 from __future__ import annotations
 
@@ -56,10 +83,17 @@ import torch
 from ..device import resolve_device
 from ..jit.capture import graph_pool
 from ..kernels import kernel_launch_counts
+from ..kernels.paged_kv import pages_for
 from ..models.generation import select_tokens, select_tokens_window
-from .compiled import build_paged_prefill_fn, build_paged_verify_step_fn
+from .compiled import (build_cached_prefill_fn,
+                       build_chunked_prefill_decode_fn,
+                       build_embed_prefill_fn, build_paged_prefill_fn,
+                       build_paged_verify_step_fn, build_prefill_fn,
+                       build_verify_step_fn)
+from .kv_slots import SlotKVCache
 from .metrics import EngineMetrics
 from .paged import PagedKVCache, pages_in_budget
+from .prefix_cache import PrefixCache
 from .request import (CANCELLED, DECODING, FINISHED, QUEUED, Request,
                       RequestHandle, SamplingParams)
 from .scheduler import SlotScheduler
@@ -72,11 +106,9 @@ _PAGED_KERNELS = ("paged_attention", "paged_attention_int8",
 #: Engine arguments of later slices: name -> (the value that means
 #: "off", the ROADMAP queue-A feature that brings it)
 _LATER = {
-    "prefix_cache": (False, "A8 prefix cache"),
     "draft_model": (None, "A8 draft-model speculation"),
     "spec_adaptive": (False, "A8 adaptive spec_k"),
     "spec_k_max": (None, "A8 adaptive spec_k"),
-    "chunk_tokens": (None, "A8 chunked prefill"),
     "mesh": (None, "A12 distributed serving"),
     "sharding_rule": (None, "A12 distributed serving"),
     "role": ("both", "A10 disaggregated serving"),
@@ -100,13 +132,67 @@ def _later(feature: str):
         f"{feature} comes with a later slice of the port (ROADMAP queue A)")
 
 
+def _resolve_kv_mode(kv_mode, kv_quant, kv_pool_bytes, kv_pages,
+                     prefix_cache, chunk_tokens, spec_k):
+    """The engine's KV mode and the validations of ``engine.py:393-450``.
+    None picks ``"paged"`` when a paged feature is asked for, else
+    ``"slots"``. The reference's None picks paged for ``prefix_cache``
+    and ``chunk_tokens`` and refuses ``kv_quant`` and ``kv_pool_bytes``
+    without ``kv_mode="paged"``; here those two pick paged as well, as
+    they did when the port had no other mode. Given ``"slots"``, every
+    paged feature raises ValueError as in the reference."""
+    if kv_mode is None:
+        kv_mode = ("paged" if (prefix_cache or chunk_tokens is not None
+                               or kv_quant is not None
+                               or kv_pool_bytes is not None) else "slots")
+    if kv_mode not in ("slots", "paged"):
+        raise ValueError(
+            f"kv_mode must be 'slots' or 'paged', got {kv_mode!r}")
+    if prefix_cache and kv_mode != "paged":
+        raise ValueError(
+            "prefix_cache=True needs the shared page pool: pass "
+            "kv_mode='paged' (or leave kv_mode unset)")
+    if kv_quant is not None and kv_mode != "paged":
+        raise ValueError(
+            "kv_quant= quantizes the shared page pool: pass "
+            "kv_mode='paged' (or leave kv_mode unset)")
+    if kv_pool_bytes is not None:
+        if kv_mode != "paged":
+            raise ValueError("kv_pool_bytes= requires kv_mode='paged'")
+        if kv_pages is not None:
+            raise ValueError(
+                "pass kv_pages or kv_pool_bytes, not both: "
+                "kv_pool_bytes derives the page count from the byte "
+                "budget")
+    if chunk_tokens is not None:
+        if int(chunk_tokens) <= 0:
+            raise ValueError(
+                f"chunk_tokens must be > 0, got {chunk_tokens}")
+        if kv_mode != "paged":
+            raise ValueError(
+                "chunked prefill writes prompt pages incrementally into "
+                "the slot's block table: chunk_tokens= requires "
+                "kv_mode='paged' (or leave kv_mode unset)")
+        if spec_k:
+            raise ValueError(
+                "chunk_tokens= and spec_k= both reshape the decode-family "
+                "step (mixed chunk+decode vs verify window): enable one "
+                "or the other")
+    return kv_mode
+
+
 class Engine:
-    """Cooperative continuous-batching engine over a paged KV pool.
+    """Cooperative continuous-batching engine over dense slot caches or
+    a paged KV pool (module docstring).
 
     ``model``: a `models.gpt.GPTForPretraining`. ``slots``: concurrent
     sequences. ``max_len``: per-slot logical length — every request
     needs ``bucket(prompt) + max_new_tokens <= max_len``.
     ``prefill_buckets``: prompt pad lengths (default ``(max_len // 2,)``).
+    ``kv_mode``: ``"slots"``, ``"paged"`` or None, which picks paged
+    when ``prefix_cache``, ``chunk_tokens``, ``kv_quant`` or
+    ``kv_pool_bytes`` is given and slots otherwise (the reference's None
+    refuses the last two without ``"paged"``: `_resolve_kv_mode`).
     ``page_size`` / ``kv_pages``: the pool (default ``slots *
     ceil(max_len / page_size)`` pages, the dense-equivalent size).
     ``top_k``: top-k of every sampled request (0 = off). ``seed``:
@@ -114,23 +200,24 @@ class Engine:
     ``kv_quant``: None, ``"int8"`` or ``"fp8"`` (1-byte pages with f32
     scales). ``kv_pool_bytes``: size the pool by a byte budget instead
     of ``kv_pages`` (`paged.pages_in_budget`, ``engine.py:414-430``).
-    ``spec_k``: draft tokens per verify step (0 = plain decode);
-    ``spec_ngram``: the longest suffix n-gram the drafter matches.
-    ``weight_quant="int8"``: weight-only int8 serving, the quantizer of
-    `GenerationMixin.generate` (`models.generation.quantize_state_int8`,
-    cached on the model); every prefill and decode step dequantizes the
-    weights it runs on inside its graph, as the reference's step
-    executable does. ``kv_mode``: None or
-    ``"paged"``, the one mode the port has (the reference's None picks
-    slots without a paged feature: ROADMAP A8.2). ``device``: ``None``
-    means ``cuda`` (raises without a GPU); it must be the model's
-    device.
+    ``prefix_cache``: share complete prompt pages across requests.
+    ``chunk_tokens``: admit a longer uncached tail in chunks of this
+    many tokens, each in a mixed step with every slot's decode (not
+    with ``spec_k``). ``spec_k``: draft tokens per verify step (0 =
+    plain decode); ``spec_ngram``: the longest suffix n-gram the drafter
+    matches. ``weight_quant="int8"``: weight-only int8 serving, the
+    quantizer of `GenerationMixin.generate`
+    (`models.generation.quantize_state_int8`, cached on the model);
+    every step dequantizes the weights it runs on inside its graph, as
+    the reference's step executable does. ``device``: ``None`` means
+    ``cuda`` (raises without a GPU); it must be the model's device.
     """
 
     def __init__(self, model, slots=4, max_len=None, prefill_buckets=None,
                  page_size=16, kv_pages=None, top_k=0, seed=0, device=None,
                  kv_mode=None, kv_quant=None, spec_k=0, spec_ngram=3,
-                 kv_pool_bytes=None, weight_quant=None, **later):
+                 kv_pool_bytes=None, weight_quant=None, prefix_cache=False,
+                 chunk_tokens=None, **later):
         for name, value in later.items():
             if name not in _LATER:
                 raise TypeError(f"Engine() got an unexpected argument "
@@ -138,25 +225,20 @@ class Engine:
             off, feature = _LATER[name]
             if value != off:
                 raise _later(f"Engine({name}=...): {feature}")
-        if kv_mode not in (None, "paged"):
-            raise _later(f"Engine(kv_mode={kv_mode!r}): A8 dense slot "
-                         "cache")
         if max_len is None:
             raise ValueError(
                 "max_len is required: per-slot KV length "
                 "(bucket(prompt) + max_new_tokens must fit in it)")
+        if int(spec_k) < 0:
+            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
+        self.kv_mode = _resolve_kv_mode(kv_mode, kv_quant, kv_pool_bytes,
+                                        kv_pages, prefix_cache,
+                                        chunk_tokens, spec_k)
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"the model is on {model.device}, the engine "
                              f"on {self.device}: move one of them")
-        if int(spec_k) < 0:
-            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
         if kv_pool_bytes is not None:
-            if kv_pages is not None:
-                raise ValueError(
-                    "pass kv_pages or kv_pool_bytes, not both: "
-                    "kv_pool_bytes derives the page count from the byte "
-                    "budget")
             kv_pages = pages_in_budget(model, kv_pool_bytes,
                                        page_size=int(page_size),
                                        kv_quant=kv_quant)
@@ -171,24 +253,43 @@ class Engine:
         self._drafter = (NgramDrafter(max_ngram=int(spec_ngram))
                          if self.spec_k else None)
         self._vocab = int(model.config.vocab_size)
-        self.kv = PagedKVCache(model, self.slots, int(max_len),
-                               page_size=int(page_size), pages=kv_pages,
-                               kv_quant=kv_quant)
+        if self.kv_mode == "paged":
+            self.kv = PagedKVCache(model, self.slots, int(max_len),
+                                   page_size=int(page_size), pages=kv_pages,
+                                   kv_quant=kv_quant)
+        else:
+            self.kv = SlotKVCache(model, self.slots, int(max_len))
         buckets = (prefill_buckets if prefill_buckets is not None
                    else (max(1, int(max_len) // 2),))
         self.scheduler = SlotScheduler(self.slots, buckets, int(max_len),
                                        spec_cols=self.spec_k)
         self.metrics = EngineMetrics()
+        #: the radix prefix cache (None without ``prefix_cache``); pool
+        #: pressure evicts from it, counted in ``prefix_evicted_pages``
+        self.prefix = PrefixCache(self.kv) if prefix_cache else None
+        if self.prefix is not None:
+            self.kv.reclaim = self._reclaim
+        #: the chunk budget (None: prompts admit whole)
+        self._chunk_tokens = (int(chunk_tokens) if chunk_tokens is not None
+                              else None)
+        #: the one request mid-chunk: it holds its slot and its whole page
+        #: reservation but is in neither the queue nor ``_slot_req``
+        self._chunk_req: Request | None = None
+        self._chunk_t0 = 0.0
         self._tokens = np.zeros((self.slots,), np.int64)
         self._slot_req: list[Request | None] = [None] * self.slots
         self._next_rid = 0
         self._fatal: BaseException | None = None
         #: the graph memory pool of every step of this engine
         self._graphs = graph_pool(self.device)
-        #: bucket -> its prefill step; the decode/verify step (built on
-        #: first use)
+        #: the steps, each built on first use: prefill by bucket, tail
+        #: prefill by tail bucket, embed by chunk width, the decode/verify
+        #: step, the mixed chunk step
         self._prefill_fns: dict = {}
+        self._cprefill_fns: dict = {}
+        self._embed_fns: dict = {}
         self._verify = None
+        self._chunk_fn = None
 
     # -- client surface --------------------------------------------------
     def submit(self, prompt_ids, max_new_tokens=32, eos_token_id=None,
@@ -209,18 +310,19 @@ class Engine:
         self._next_rid += 1
         req = self._prepare(rid, prompt_ids, max_new_tokens, eos_token_id,
                             decode_strategy, temperature, top_k, top_p, seed)
-        bucket = self.scheduler.validate(req)
-        need = self.kv.pages_needed(bucket, req.max_new_tokens,
-                                    extra_cols=self.spec_k)
-        if need > self.kv.pages_total:
-            spec = (f" + {self.spec_k} speculative verify lanes"
-                    if self.spec_k else "")
-            raise ValueError(
-                f"request needs {need} KV pages (bucket {bucket} + "
-                f"{req.max_new_tokens} new tokens{spec} at page_size "
-                f"{self.kv.page_size}) but the pool holds "
-                f"{self.kv.pages_total} — raise kv_pages or lower "
-                "max_new_tokens")
+        req.bucket = self.scheduler.validate(req)
+        if self.kv_mode == "paged":
+            # a budget beyond the whole pool could never admit
+            need, span = self._page_budget(req)
+            if need > self.kv.pages_total:
+                spec = (f" + {self.spec_k} speculative verify lanes"
+                        if self.spec_k else "")
+                raise ValueError(
+                    f"request needs {need} KV pages ({span} + "
+                    f"{req.max_new_tokens} new tokens{spec} at page_size "
+                    f"{self.kv.page_size}) but the pool holds "
+                    f"{self.kv.pages_total} — raise kv_pages or lower "
+                    "max_new_tokens")
         req.handle = RequestHandle(self, req)
         self.scheduler.enqueue(req)
         self.metrics.submitted += 1
@@ -270,31 +372,41 @@ class Engine:
 
     def step(self) -> bool:
         """One engine iteration: admit queued requests into free slots,
-        then one decode step over all slots. False when fully idle."""
+        then one decode step over all slots (while a prompt is mid-chunk,
+        the mixed step: its next chunk and the decode step together).
+        False when fully idle."""
         self._check_alive()
         try:
             with torch.inference_mode():
                 did = False
-                while True:
+                while self._chunk_req is None:
+                    # one chunking request at a time, and nothing behind
+                    # it admits until it has its slot (FCFS)
                     req = self.scheduler.next_admission()
                     if req is None:
                         break
-                    if not self.kv.try_reserve(req.slot, req.bucket,
-                                               req.max_new_tokens,
-                                               extra_cols=self.spec_k):
+                    if self.kv_mode == "paged" and not self._reserve(req):
                         # pool exhausted: back to the queue head until a
                         # release returns pages (no neighbour is touched)
                         self.metrics.kv_pages_exhausted += 1
                         self.scheduler.requeue_admission(req)
                         break
-                    self._admit(req)
                     did = True
-                if self.kv.active.any():
+                    if (self._chunk_tokens is not None
+                            and req.prompt_len - req.prefix_len
+                            > self._chunk_tokens):
+                        self._begin_chunk(req)
+                        break
+                    self._admit(req)
+                if self._chunk_req is not None:
+                    self._chunk_step()
+                    did = True
+                elif self.kv.active.any():
                     self._decode_once()
                     did = True
                 return did
         except BaseException as exc:
-            # the pools may be half written: the engine cannot go on
+            # the caches may be half written: the engine cannot go on
             self._die(exc)
             raise
 
@@ -302,61 +414,154 @@ class Engine:
         raise _later("Engine.start() (a background step thread): A8 "
                      "background serving")
 
+    def embed(self, prompts) -> list:
+        """The final ``ln_f`` hidden state ``[hidden]`` float32 (numpy) of
+        each prompt (``engine.py:1932-2024``): an all-prefill pass through
+        the tail prefill over the slot's own pages, in chunks of
+        ``chunk_tokens`` (one graph a chunk width), else in one chunk of
+        the prompt's bucket. No token is sampled and nothing decodes;
+        the slot and its pages are released before it returns. It takes
+        a free slot outside the queue, stepping the engine while none is
+        free. Needs ``kv_mode="paged"``."""
+        self._check_alive()
+        if self.kv_mode != "paged":
+            raise RuntimeError(
+                "Engine.embed() runs through the paged prefill path: "
+                "build the engine with kv_mode='paged' (or chunk_tokens=)")
+        out = []
+        for prompt_ids in prompts:
+            ids = np.asarray(prompt_ids.cpu() if torch.is_tensor(prompt_ids)
+                             else prompt_ids)
+            if ids.ndim == 2 and ids.shape[0] == 1:
+                ids = ids[0]
+            if ids.ndim != 1 or ids.shape[0] < 1:
+                raise ValueError(
+                    f"embed prompts must be non-empty 1-D id sequences "
+                    f"(or [1, len]), got shape {ids.shape}")
+            out.append(self._embed_one(ids.astype(np.int64)))
+        return out
+
     def stats(self):
-        """`metrics.EngineStats` snapshot."""
+        """`metrics.EngineStats` snapshot; the pool's page fields only in
+        paged mode (``engine.py:1160-1208``)."""
         counts = kernel_launch_counts()
+        paged = {}
+        if self.kv_mode == "paged":
+            paged = dict(
+                kv_page_size=self.kv.page_size,
+                kv_pages_total=self.kv.pages_total,
+                kv_pages_in_use=self.kv.pages_in_use,
+                kv_pages_free=self.kv.pages_free,
+                kv_slot_pages=self.kv.slot_page_counts(),
+                kv_quant=self.kv.kv_quant,
+                kv_pool_bytes=self.kv.memory_bytes(),
+                kv_bytes_per_token=(self.kv.bytes_per_page()
+                                    / self.kv.page_size))
+            if self.prefix is not None:
+                paged["prefix_cached_pages"] = self.prefix.cached_pages
         return self.metrics.snapshot(
+            kv_mode=self.kv_mode,
             queue_depth=self.scheduler.queue_depth,
             active_slots=self.kv.occupancy,
-            kv_page_size=self.kv.page_size,
-            kv_pages_total=self.kv.pages_total,
-            kv_pages_in_use=self.kv.pages_in_use,
-            kv_pages_free=self.kv.pages_free,
-            kv_slot_pages=self.kv.slot_page_counts(),
-            kv_quant=self.kv.kv_quant,
-            kv_pool_bytes=self.kv.memory_bytes(),
-            kv_bytes_per_token=self.kv.bytes_per_page() / self.kv.page_size,
+            free_slots=self.scheduler.free_slots,
+            kv_cache_bytes=self.kv.memory_bytes(),
             spec_k=self.spec_k,
+            chunk_tokens=self._chunk_tokens or 0,
             capture_s=sum(fn.capture_s for fn in self._steps()),
-            paged_attention_launches=sum(counts[k] for k in _PAGED_KERNELS))
+            paged_attention_launches=sum(counts[k] for k in _PAGED_KERNELS),
+            **paged)
 
     def _steps(self):
         """Every step this engine built so far."""
-        return [*self._prefill_fns.values(),
-                *([self._verify] if self._verify is not None else [])]
+        return [*self._prefill_fns.values(), *self._cprefill_fns.values(),
+                *self._embed_fns.values(),
+                *(fn for fn in (self._verify, self._chunk_fn)
+                  if fn is not None)]
+
+    def _pool_kw(self, tag=None, kind="prefill", count=True):
+        """The keyword arguments every step builder takes: what the step
+        writes, its weights, its graph pool, and its name and trace
+        report under ``kind`` and ``tag``."""
+        kw = dict(weights=self._qweights, pool=self._graphs,
+                  on_trace=functools.partial(self.metrics.note_trace,
+                                             tag=tag, count=count),
+                  name=self.metrics.step_name(kind, tag))
+        if self.kv_mode == "paged":
+            kw.update(pools=self.kv.caches, scales=self.kv.scales)
+        else:
+            kw.update(caches=self.kv.caches)
+        return kw
 
     def _prefill_fn(self, bucket: int):
         """The prefill step of ``bucket`` (built on first use)."""
         fn = self._prefill_fns.get(bucket)
         if fn is None:
-            tag = f"b{bucket}"
-            fn = self._prefill_fns[bucket] = build_paged_prefill_fn(
-                self.model, 1, bucket, self.kv.page_size,
-                pools=self.kv.caches, max_pages=self.kv.max_pages,
-                scales=self.kv.scales, weights=self._qweights,
-                on_trace=functools.partial(self.metrics.note_trace, tag=tag),
-                pool=self._graphs,
-                name=self.metrics.step_name("prefill", tag))
+            kw = self._pool_kw(f"b{bucket}")
+            fn = self._prefill_fns[bucket] = (
+                build_paged_prefill_fn(self.model, 1, bucket,
+                                       self.kv.page_size,
+                                       max_pages=self.kv.max_pages, **kw)
+                if self.kv_mode == "paged"
+                else build_prefill_fn(self.model, 1, bucket, **kw))
+        return fn
+
+    def _cprefill_fn(self, tb: int):
+        """The tail prefill step of tail bucket ``tb`` (built on first
+        use; ``b{tb}pfx`` to the sentinel)."""
+        fn = self._cprefill_fns.get(tb)
+        if fn is None:
+            fn = self._cprefill_fns[tb] = build_cached_prefill_fn(
+                self.model, 1, tb, self.kv.max_pages,
+                **self._pool_kw(f"b{tb}pfx"))
+        return fn
+
+    def _embed_fn(self, width: int):
+        """The embed chunk step of ``width`` tokens (built on first use;
+        ``embed{width}`` to the sentinel)."""
+        fn = self._embed_fns.get(width)
+        if fn is None:
+            fn = self._embed_fns[width] = build_embed_prefill_fn(
+                self.model, 1, width, self.kv.max_pages,
+                **self._pool_kw(f"embed{width}"))
         return fn
 
     def _verify_fn(self):
         """The decode (W = 1) or verify (W = spec_k + 1) step (built on
         first use)."""
         if self._verify is None:
-            self._verify = build_paged_verify_step_fn(
-                self.model, self.slots, self.spec_k + 1, self.kv.max_pages,
-                self.kv.page_size, pools=self.kv.caches,
-                scales=self.kv.scales, weights=self._qweights,
-                on_trace=self.metrics.note_trace, pool=self._graphs,
-                name=self.metrics.step_name("decode"))
+            kw = self._pool_kw(kind="decode")
+            self._verify = (
+                build_paged_verify_step_fn(
+                    self.model, self.slots, self.spec_k + 1,
+                    self.kv.max_pages, self.kv.page_size, **kw)
+                if self.kv_mode == "paged"
+                else build_verify_step_fn(self.model, self.slots,
+                                          self.spec_k + 1, self.kv.max_len,
+                                          **kw))
         return self._verify
 
-    def _step_operands(self, tokens: np.ndarray) -> dict:
-        """The verify step's operands: ``tokens [S, W]`` and the pool's
-        host-side slot state, as they stand."""
-        return dict(tokens=tokens, steps=self.kv.steps, pads=self.kv.pads,
-                    valid_cols=self.kv.valid_cols,
-                    block_table=self.kv.block_table)
+    def _mixed_fn(self):
+        """The mixed chunk + decode step (built on first use; a second
+        member of the decode family, ``mix{chunk_tokens}``, not counted
+        in ``decode_traces``: ``engine.py:1780-1787``)."""
+        if self._chunk_fn is None:
+            ct = self._chunk_tokens
+            self._chunk_fn = build_chunked_prefill_decode_fn(
+                self.model, self.slots, ct, self.kv.max_pages,
+                self.kv.page_size,
+                **self._pool_kw(f"mix{ct}", kind="decode", count=False))
+        return self._chunk_fn
+
+    def _step_operands(self, tokens: np.ndarray, block_table=None) -> dict:
+        """The decode/verify step's operands: ``tokens [S, W]`` and the
+        cache's host-side slot state, as they stand (paged: the block
+        table, or ``block_table`` in its place)."""
+        ops = dict(tokens=tokens, steps=self.kv.steps, pads=self.kv.pads,
+                   valid_cols=self.kv.valid_cols)
+        if self.kv_mode == "paged":
+            ops["block_table"] = (self.kv.block_table if block_table is None
+                                  else block_table)
+        return ops
 
     # -- internals -------------------------------------------------------
     def _check_alive(self):
@@ -365,9 +570,11 @@ class Engine:
                                "build a new Engine") from self._fatal
 
     def _die(self, exc: BaseException):
-        """Fail every queued and in-flight request with the cause."""
+        """Fail every queued, chunking and in-flight request with the
+        cause."""
         self._fatal = exc
-        for req in self.scheduler.queued_requests() + tuple(self._slot_req):
+        for req in (self.scheduler.queued_requests() + tuple(self._slot_req)
+                    + (self._chunk_req,)):
             if req is not None and not req.done:
                 req.state = CANCELLED
                 req.handle._close(exc)
@@ -381,22 +588,198 @@ class Engine:
             return None
         return (req.params.temperature, req.params.top_p, req.generator)
 
+    def _page_budget(self, req: Request):
+        """``(pages, label)``: the request's whole page budget
+        (``engine.py:1429-1450``). With the prefix cache the prompt is
+        laid out unpadded, so the worst case (no match) skips the pad
+        columns; both budget the ``spec_k`` verify lanes."""
+        if self.prefix is not None:
+            return (pages_for(req.prompt_len
+                              + max(0, req.max_new_tokens - 1)
+                              + self.spec_k, self.kv.page_size),
+                    f"prompt {req.prompt_len}")
+        return (self.kv.pages_needed(req.bucket, req.max_new_tokens,
+                                     extra_cols=self.spec_k),
+                f"bucket {req.bucket}")
+
+    def _reserve(self, req: Request) -> bool:
+        """The page reservation of a popped request (``engine.py:
+        1500-1535``). With the prefix cache: match the prompt, map the
+        cached pages read-only, reserve the private rest (the pool evicts
+        from the tree on a shortfall) and pick the tail's bucket. False:
+        exhausted, with every reference taken here dropped again."""
+        if self.prefix is None:
+            return self.kv.try_reserve(req.slot, req.bucket,
+                                       req.max_new_tokens,
+                                       extra_cols=self.spec_k)
+        shared, matched = self.prefix.acquire(req.prompt)
+        need, _ = self._page_budget(req)
+        if not self.kv.try_reserve_shared(req.slot, shared, need):
+            self.kv.decref(shared)
+            return False
+        req.prefix_len = matched
+        req.tail_bucket = self.scheduler.bucket_for(req.prompt_len - matched)
+        self.metrics.note_prefix(matched)
+        return True
+
+    def _reclaim(self, n_pages: int) -> int:
+        """The pool's ``reclaim`` hook: evict from the prefix cache."""
+        freed = self.prefix.evict(n_pages)
+        self.metrics.prefix_evicted_pages += freed
+        return freed
+
     def _admit(self, req: Request):
+        """A whole prompt's admission: left-padded to its bucket and
+        prefilled into the slot's row (slots) or reserved pages (paged);
+        with the prefix cache, `_admit_prefix`."""
+        if self.prefix is not None:
+            self._admit_prefix(req)
+            return
         bucket, slot = req.bucket, req.slot
         pad = bucket - req.prompt_len
         ids = np.zeros((1, bucket), np.int32)
         ids[0, pad:] = req.prompt
         amask = np.zeros((1, bucket), np.int32)
         amask[0, pad:] = 1
-        l32 = self._prefill_fn(bucket)(
-            ids=ids, amask=amask, page_rows=self.kv.block_table[[slot]])
+        if self.kv_mode == "paged":
+            row = dict(page_rows=self.kv.block_table[[slot]])
+        else:
+            row = dict(slot_idx=np.asarray([slot], np.int32))
+        l32 = self._prefill_fn(bucket)(ids=ids, amask=amask, **row)
         tok = int(select_tokens(l32, [self._sampler(req)], self.top_k)[0])
         self.kv.occupy(slot, bucket, req.prompt_len)
+        self._finish_admission(req, tok)
+
+    def _admit_prefix(self, req: Request):
+        """The prefix-cache admission (``engine.py:1632-1700``): the
+        uncached tail, right-padded to its bucket, prefills through the
+        page view, attending the mapped prefix pages; the layout is
+        unpadded (prompt token ``i`` at column ``i``, pads 0). The
+        prompt's complete pages enter the tree before the first token is
+        emitted."""
+        slot, lc, tb = req.slot, req.prefix_len, req.tail_bucket
+        tail = req.prompt[lc:]
+        ids = np.zeros((1, tb), np.int32)
+        ids[0, :tail.shape[0]] = tail
+        l32 = self._cprefill_fn(tb)(
+            ids=ids, tail_lens=[tail.shape[0]], col0=[lc],
+            page_rows=self.kv.block_table[[slot]])
+        tok = int(select_tokens(l32, [self._sampler(req)], self.top_k)[0])
+        self.kv.occupy(slot, req.prompt_len, req.prompt_len)
+        self.prefix.insert(req.prompt, self.kv.slot_row_pages(slot))
+        self._finish_admission(req, tok)
+
+    def _finish_admission(self, req: Request, tok: int):
+        """Slot the prefilled request and emit its first token."""
+        slot = req.slot
         self._slot_req[slot] = req
         self._tokens[slot] = tok
         req.state = DECODING
         self.metrics.prefill_steps += 1
         self._emit(req, tok)
+
+    def _begin_chunk(self, req: Request):
+        """A chunked admission begins (``engine.py:1731-1760``; its pages
+        are reserved): host bookkeeping only. The prompt takes the
+        unpadded layout whether or not the prefix cache matched, so chunk
+        ``i`` lands at columns ``[chunk_pos, chunk_pos + n)`` of the
+        slot's own pages."""
+        req.chunk_pos = req.prefix_len
+        req.prefill_chunks = -(-(req.prompt_len - req.prefix_len)
+                               // self._chunk_tokens)
+        self._chunk_req = req
+        self._chunk_t0 = time.perf_counter()
+        self.metrics.set_chunk_active(True)
+
+    def _chunk_step(self):
+        """One mixed step (``engine.py:1762-1900``): the chunking
+        request's next ``chunk_tokens`` prompt tokens and a decode step
+        of every slot, in one captured step. The decode half gets a copy
+        of the block table whose chunking row points at the sentinel
+        page: the slot is reserved but not occupied (its cursor at 0),
+        so its parked lane would otherwise write on the chunk's own first
+        page. The final chunk's logits give the request's first token,
+        drawn from its generator as a whole admission draws it."""
+        req, ct = self._chunk_req, self._chunk_tokens
+        slot, pos = req.slot, req.chunk_pos
+        chunk = req.prompt[pos:pos + ct]
+        n = int(chunk.shape[0])
+        ids = np.zeros((1, ct), np.int32)
+        ids[0, :n] = chunk
+        view = self.kv.block_table.copy()
+        view[slot, :] = self.kv.pool.sentinel
+        piggyback = sum(r is not None for r in self._slot_req)
+        t0 = time.perf_counter()
+        c32, l32 = self._mixed_fn()(
+            ids=ids, tail_lens=[n], col0=[pos],
+            page_rows=self.kv.block_table[[slot]],
+            **self._step_operands(self._tokens[:, None], view))
+        samplers = [self._sampler(r) for r in self._slot_req]
+        out = select_tokens(l32[:, 0], samplers, self.top_k).cpu().numpy()
+        self.metrics.note_chunk_step()
+        if piggyback:
+            self.metrics.decode_step_s.append(time.perf_counter() - t0)
+            self.metrics.decode_steps += 1
+        for s, r in enumerate(self._slot_req):
+            if r is None:
+                continue
+            self.kv.advance(s)
+            self._tokens[s] = out[s]
+            self._emit(r, int(out[s]))
+        req.chunk_pos = pos + n
+        if req.chunk_pos < req.prompt_len:
+            return
+        tok = int(select_tokens(c32, [self._sampler(req)], self.top_k)[0])
+        self.kv.occupy(slot, req.prompt_len, req.prompt_len)
+        if self.prefix is not None:
+            self.prefix.insert(req.prompt, self.kv.slot_row_pages(slot))
+        self._chunk_req = None
+        self.metrics.set_chunk_active(False)
+        self._finish_admission(req, tok)
+
+    def _abort_chunk(self, req: Request):
+        """The chunking request is cancelled: return its slot and its
+        whole page reservation (it was never slotted, so `_release`
+        cannot) and close its handle."""
+        self._chunk_req = None
+        self.metrics.set_chunk_active(False)
+        self.kv.release(req.slot)
+        self.scheduler.release(req.slot)
+        req.slot = None
+        req.state = CANCELLED
+        req.handle._close()
+
+    def _embed_one(self, ids: np.ndarray) -> np.ndarray:
+        n = int(ids.shape[0])
+        width = self._chunk_tokens or self.scheduler.bucket_for(n)
+        while True:
+            slot = self.scheduler.take_slot()
+            if slot is not None:
+                if self.kv.try_reserve_shared(
+                        slot, [], pages_for(n, self.kv.page_size)):
+                    break
+                self.scheduler.release(slot)
+            # every slot busy or the pool exhausted: step until a release
+            if not self.step():
+                raise ValueError(
+                    f"embed({n} tokens) needs "
+                    f"{pages_for(n, self.kv.page_size)} KV pages and a "
+                    f"slot, but the idle engine's pool holds "
+                    f"{self.kv.pages_total}")
+        try:
+            with torch.inference_mode():
+                fn = self._embed_fn(width)
+                for pos in range(0, n, width):
+                    chunk = ids[pos:pos + width]
+                    cids = np.zeros((1, width), np.int32)
+                    cids[0, :chunk.shape[0]] = chunk
+                    h = fn(ids=cids, tail_lens=[chunk.shape[0]], col0=[pos],
+                           page_rows=self.kv.block_table[[slot]])
+            self.metrics.embed_prompts += 1
+            return h[0].cpu().numpy()
+        finally:
+            self.kv.release(slot)
+            self.scheduler.release(slot)
 
     def _decode_once(self):
         """One decode step over all slots, active or parked (``engine.py:
@@ -573,6 +956,7 @@ class Engine:
         return int(min(np.searchsorted(c, u * c[-1], side="right"),
                        len(c) - 1))
 
+
     def _emit(self, req: Request, tok: int):
         """Deliver one token; finish on EOS, the budget or a cancel."""
         if req.state == CANCELLED or req.cancel_requested:
@@ -604,6 +988,10 @@ class Engine:
         if req.done:
             return
         self.metrics.cancelled += 1
+        if req is self._chunk_req:
+            # mid-chunk: still QUEUED, but holding a slot and its pages
+            self._abort_chunk(req)
+            return
         if req.state == QUEUED:
             self.scheduler.drop_queued(req)
             req.state = CANCELLED

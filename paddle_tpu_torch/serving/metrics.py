@@ -2,7 +2,10 @@
 
 Counterpart: ``paddle_tpu/serving/metrics.py``, reduced to what the
 port's engine counts (the speculative counters of :95-119, the pool
-bytes of :62-70 and the trace counts of :309-338 included). Times are
+bytes of :62-70, the prefix-cache and chunked-prefill counters of
+:71-77 and :145-155 and the trace counts of :309-338 included; the
+prefix-cache and chunk families also go to the registry under the
+reference's names, :174-193 and :414-420). Times are
 host wall-clock seconds around work that ends in a device sync (the
 token reaches the host), so they measure the whole step, host and
 device. A step's first call on a card captures its CUDA graph; the
@@ -16,6 +19,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..observability.registry import get_registry
 from ..observability.sentinel import get_sentinel
 
 #: default engine ids, ``engine0``, ``engine1``, ... in creation order
@@ -24,6 +28,8 @@ _engine_ids = itertools.count()
 
 @dataclass(frozen=True)
 class EngineStats:
+    #: "slots" (dense slot caches) or "paged" (the page pool)
+    kv_mode: str
     submitted: int
     prefill_steps: int
     decode_steps: int
@@ -31,25 +37,18 @@ class EngineStats:
     cancelled: int
     queue_depth: int
     active_slots: int
+    free_slots: int
     tokens_generated: int
-    kv_page_size: int
-    kv_pages_total: int
-    kv_pages_in_use: int
-    kv_pages_free: int
+    #: the KV cache's device bytes: the slot caches, or the page pool
+    #: at its stored dtype with the sentinel page
+    kv_cache_bytes: int
     kv_pages_exhausted: int
-    kv_slot_pages: tuple
     ttft_p50: float | None
     decode_step_p50: float | None
     #: the process-wide `kernels.kernel_launch_counts` entries of the
     #: paged kernel, float and quantized pools together (launches since
     #: their last reset, by every engine), not a per-engine count
     paged_attention_launches: int
-    #: None, "int8" or "fp8": the pool's page storage
-    kv_quant: str | None
-    #: the pool's device bytes at the stored dtype, sentinel included
-    kv_pool_bytes: int
-    #: device bytes per cached token (all layers, K and V, scales)
-    kv_bytes_per_token: float
     #: the verify window's draft length (0 = speculation off)
     spec_k: int
     #: drafted tokens proposed to the verify window, greedy and sampled
@@ -62,14 +61,48 @@ class EngineStats:
     spec_drafted_sampled: int
     spec_accepted_greedy: int
     spec_accepted_sampled: int
-    #: prefill steps built: one per prompt bucket used (on a card, one
-    #: CUDA graph capture each)
+    #: prefill steps built: one per prompt bucket used (and per tail
+    #: bucket of the prefix cache, per chunk width of embed); on a card
+    #: one CUDA graph capture each
     prefill_traces: int
-    #: decode (verify) steps built: 1 for the engine's one window
+    #: decode (verify) steps built: 1 for the engine's one window (the
+    #: mixed chunk step registers in this family without counting)
     decode_traces: int
     #: host seconds spent capturing this engine's graphs (warm-up and
     #: capture; 0.0 on the CPU)
     capture_s: float
+    # -- the page pool (None in slot mode) -------------------------------
+    kv_page_size: int | None = None
+    kv_pages_total: int | None = None
+    kv_pages_in_use: int | None = None
+    kv_pages_free: int | None = None
+    kv_slot_pages: tuple | None = None
+    #: None, "int8" or "fp8": the pool's page storage
+    kv_quant: str | None = None
+    #: the pool's device bytes at the stored dtype, sentinel included
+    kv_pool_bytes: int | None = None
+    #: device bytes per cached token (all layers, K and V, scales)
+    kv_bytes_per_token: float | None = None
+    # -- the prefix cache (Engine(prefix_cache=True); zeros otherwise) ---
+    prefix_lookups: int = 0
+    prefix_hits: int = 0
+    prefix_hit_rate: float | None = None
+    #: prompt tokens whose prefill was skipped through cached pages
+    prefix_tokens_saved: int = 0
+    #: pages the radix tree holds
+    prefix_cached_pages: int = 0
+    #: cached pages dropped by eviction under pool pressure
+    prefix_evicted_pages: int = 0
+    # -- chunked prefill (Engine(chunk_tokens=); zeros otherwise) --------
+    #: mixed steps run: each absorbs one chunk of a prompt while every
+    #: live slot decodes one token
+    prefill_chunk_steps: int = 0
+    #: 1 while a prompt is mid-chunk, else 0
+    prefill_chunk_active: int = 0
+    #: the engine's chunk budget (0: chunking off)
+    chunk_tokens: int = 0
+    #: prompts served through `Engine.embed`
+    embed_prompts: int = 0
 
 
 @dataclass
@@ -93,6 +126,48 @@ class EngineMetrics:
                                                 "sampled": [0, 0]})
     prefill_traces: int = 0
     decode_traces: int = 0
+    prefix_lookups: int = 0
+    prefix_hits: int = 0
+    prefix_tokens_saved: int = 0
+    prefix_evicted_pages: int = 0
+    prefill_chunk_steps: int = 0
+    prefill_chunk_active: int = 0
+    embed_prompts: int = 0
+
+    def _family(self, kind, name, help):
+        return getattr(get_registry(), kind)(name, help,
+                                             labelnames=("engine",))
+
+    def note_prefix(self, matched: int):
+        """One prefix-cache admission that matched ``matched`` tokens
+        (counted once an admission, not once an attempt)."""
+        self.prefix_lookups += 1
+        if matched:
+            self.prefix_hits += 1
+            self.prefix_tokens_saved += int(matched)
+            self._family("counter", "serving_prefix_hits_total",
+                         "admissions that mapped at least one cached "
+                         "prefix page").inc(engine=self.engine_id)
+            self._family("counter", "serving_prefix_tokens_saved_total",
+                         "prompt tokens whose prefill was skipped via "
+                         "cached prefix pages").inc(int(matched),
+                                                    engine=self.engine_id)
+
+    def note_chunk_step(self):
+        """One mixed chunked-prefill + decode step."""
+        self.prefill_chunk_steps += 1
+        self._family("counter", "serving_prefill_chunk_steps_total",
+                     "mixed chunked-prefill + decode steps (each absorbs "
+                     "one prompt chunk while live decode slots advance)"
+                     ).inc(engine=self.engine_id)
+
+    def set_chunk_active(self, flag: bool):
+        """Whether a prompt is mid-chunk now."""
+        self.prefill_chunk_active = int(bool(flag))
+        self._family("gauge", "serving_prefill_chunk_active",
+                     "1 while a prompt is being absorbed chunk-by-chunk, "
+                     "else 0").set(self.prefill_chunk_active,
+                                   engine=self.engine_id)
 
     def note_trace(self, kind: str, tag: str | None = None,
                    count: bool = True):
@@ -103,13 +178,14 @@ class EngineMetrics:
         ``count=False``), and reported to the recompile sentinel as
         ``serving.{kind}[{engine_id}]``, with ``[{tag}]`` after it where
         a tag names one of a deliberate family (the prefill's bucket,
-        ``b{bucket}``): armed, a second build of one name raises
-        `observability.RecompileError`. The signature is the
-        reference's: there ``count=False`` registers the rungs of its
-        adaptive verify ladder, built up front as one decode family,
-        without counting them, so that ``decode_traces == 1`` keeps
-        meaning one live decode path; the port's engine has one verify
-        width and always counts."""
+        ``b{bucket}``; a prefix-cache tail bucket, ``b{bucket}pfx``; an
+        embed chunk width, ``embed{width}``; the mixed chunk step,
+        ``mix{chunk_tokens}``): armed, a second build of one name raises
+        `observability.RecompileError`. ``count=False`` registers a
+        second member of the decode family without counting it, so that
+        ``decode_traces == 1`` keeps meaning one live decode path: the
+        reference's adaptive verify rungs, and the mixed chunk step in
+        both packages (``engine.py:1780-1787``)."""
         if count:
             if kind == "decode":
                 self.decode_traces += 1
@@ -133,7 +209,15 @@ class EngineMetrics:
 
         (dg, ag), (ds, as_) = self.spec["greedy"], self.spec["sampled"]
         drafted, accepted = dg + ds, ag + as_
+        looked = self.prefix_lookups
         return EngineStats(
+            prefix_lookups=looked, prefix_hits=self.prefix_hits,
+            prefix_hit_rate=self.prefix_hits / looked if looked else None,
+            prefix_tokens_saved=self.prefix_tokens_saved,
+            prefix_evicted_pages=self.prefix_evicted_pages,
+            prefill_chunk_steps=self.prefill_chunk_steps,
+            prefill_chunk_active=self.prefill_chunk_active,
+            embed_prompts=self.embed_prompts,
             spec_draft_tokens=drafted, spec_accepted_tokens=accepted,
             spec_accept_rate=accepted / drafted if drafted else None,
             spec_drafted_greedy=dg, spec_drafted_sampled=ds,

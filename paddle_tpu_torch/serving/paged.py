@@ -1,13 +1,18 @@
 """Paged KV cache for the serving engine.
 
-Counterpart: ``paddle_tpu/serving/paged.py``, without refcounted sharing
-(the prefix cache and disaggregated handoffs are later slices).
+Counterpart: ``paddle_tpu/serving/paged.py``, without the disaggregated
+handoffs (a later slice).
 
 - `PagePool`: the physical layer. Per-layer device pools ``[pages + 1,
-  heads, page_size, head_dim]`` (from the model's ``gen_page_pool``)
-  and the free list. The last page is the SENTINEL: parked (inactive)
-  slots still ride every decode step, and their block-table rows all
-  name the sentinel, so their writes land where no tenant ever reads.
+  heads, page_size, head_dim]`` (from the model's ``gen_page_pool``),
+  the free list and a reference count per page in use: a page returns
+  to the free list only when its last reader lets go (a slot that
+  reserved it, a slot that maps it read-only from the prefix cache, the
+  prefix tree itself). An allocation that falls short first calls the
+  ``reclaim`` hook, where the prefix cache evicts. The last page is the
+  SENTINEL: parked (inactive) slots still ride every decode step, and
+  their block-table rows all name the sentinel, so their writes land
+  where no tenant ever reads.
   With ``kv_quant="int8"`` or ``"fp8"`` the pages are 1-byte (int8 or
   float8_e4m3fn) and per-layer f32 scale arrays ``[pages + 1, heads,
   page_size]`` (the model's ``gen_page_scales``) ride beside them:
@@ -20,9 +25,11 @@ Counterpart: ``paddle_tpu/serving/paged.py``, without refcounted sharing
 
 A request's whole page budget, ``ceil((bucket + max_new - 1 + k) /
 ps)`` with ``k`` the speculative verify lanes (`pages_needed`), is
-reserved at admission (`try_reserve`), so the pool can only run out at
-admission, where the request simply stays queued; `release` returns the
-pages.
+reserved at admission (`try_reserve`; with the prefix cache,
+`try_reserve_shared` maps the matched pages read-only at the front of
+the row and reserves only the rest), so the pool can only run out at
+admission, where the request simply stays queued; `release` drops the
+slot's references.
 """
 from __future__ import annotations
 
@@ -65,16 +72,50 @@ class PagePool:
         self.num_layers = len(self.caches)
         self.sentinel = self.pages_total       # parked-slot write target
         self._free = deque(range(self.pages_total))
+        #: page -> readers, for every page off the free list (the
+        #: sentinel is never counted)
+        self._refcount: dict[int, int] = {}
+        #: ``reclaim(n_pages) -> freed`` called when an allocation falls
+        #: short (the prefix cache's eviction; None without one)
+        self.reclaim = None
 
     def alloc(self, n: int):
-        """Take ``n`` pages off the free list; None (list untouched) when
-        fewer are free."""
-        if int(n) > len(self._free):
+        """Take ``n`` pages off the free list, each at one reference,
+        after asking ``reclaim`` for the shortfall; None (list untouched)
+        when still fewer are free (``paged.py:134-150``)."""
+        n = int(n)
+        if n > len(self._free) and self.reclaim is not None:
+            self.reclaim(n - len(self._free))
+        if n > len(self._free):
             return None
-        return [self._free.popleft() for _ in range(int(n))]
+        got = [self._free.popleft() for _ in range(n)]
+        for p in got:
+            self._refcount[p] = 1
+        return got
 
-    def free(self, pages):
-        self._free.extend(pages)
+    def incref(self, pages):
+        for p in pages:
+            self._refcount[p] = self._refcount.get(p, 0) + 1
+
+    def decref(self, pages):
+        """Drop one reference a page; a page whose last reader left
+        returns to the free list. Returns the freed pages."""
+        freed = []
+        for p in pages:
+            n = self._refcount.get(p, 0) - 1
+            if n < 0:
+                raise RuntimeError(f"page {p} decref'd below zero")
+            if n == 0:
+                del self._refcount[p]
+                self._free.append(p)
+                freed.append(p)
+            else:
+                self._refcount[p] = n
+        return freed
+
+    def readers(self, page: int) -> int:
+        """The page's reference count (0: free)."""
+        return self._refcount.get(page, 0)
 
     @property
     def pages_free(self) -> int:
@@ -137,6 +178,9 @@ class PagedKVCache:
         self.valid_cols = np.zeros((self.slots, self.logical_len), np.int32)
         self.active = np.zeros((self.slots,), bool)
         self._slot_pages: list[list[int]] = [[] for _ in range(self.slots)]
+        #: pages each slot maps read-only from the prefix cache (it holds
+        #: a reference on them and never writes them)
+        self._slot_shared: list[list[int]] = [[] for _ in range(self.slots)]
 
     @property
     def caches(self):
@@ -169,6 +213,25 @@ class PagedKVCache:
     def pages_in_use(self) -> int:
         return self.pool.pages_in_use
 
+    @property
+    def reclaim(self):
+        return self.pool.reclaim
+
+    @reclaim.setter
+    def reclaim(self, fn):
+        self.pool.reclaim = fn
+
+    def incref(self, pages):
+        self.pool.incref(pages)
+
+    def decref(self, pages):
+        return self.pool.decref(pages)
+
+    def readers(self, page: int) -> int:
+        """The page's reference count (0: free): the prefix cache's test
+        of whether a cached page has a slot reader."""
+        return self.pool.readers(page)
+
     def pages_needed(self, bucket_len: int, max_new_tokens: int,
                      extra_cols: int = 0) -> int:
         """Columns a request can write: the prompt ``[0, bucket)`` plus
@@ -194,6 +257,36 @@ class PagedKVCache:
         self.block_table[slot, :need] = got
         return True
 
+    def try_reserve_shared(self, slot: int, shared_pages,
+                           need_total: int) -> bool:
+        """The prefix-cache reservation (``paged.py:376-400``): map
+        ``shared_pages`` (already incref'd on this slot's behalf by the
+        matcher) read-only at the front of the slot's row and reserve
+        only the private rest of ``need_total`` pages. False (free list
+        untouched) when the pool is exhausted even after ``reclaim``:
+        the caller then decrefs the shared pages and requeues."""
+        shared = list(shared_pages)
+        need_priv = int(need_total) - len(shared)
+        if need_priv < 0:
+            raise ValueError(
+                f"matched prefix spans {len(shared)} pages but the "
+                f"request's whole budget is {need_total}")
+        priv = self.pool.alloc(need_priv)
+        if priv is None:
+            return False
+        self._slot_pages[slot] = priv
+        self._slot_shared[slot] = shared
+        self.block_table[slot] = self.pool.sentinel
+        self.block_table[slot, :len(shared)] = shared
+        self.block_table[slot, len(shared):len(shared) + need_priv] = priv
+        return True
+
+    def slot_row_pages(self, slot: int) -> list:
+        """The slot's pages in logical order, the shared prefix first:
+        logical page ``i`` lives in physical page
+        ``slot_row_pages(slot)[i]``."""
+        return self._slot_shared[slot] + self._slot_pages[slot]
+
     def occupy(self, slot: int, bucket_len: int, prompt_len: int):
         """Claim ``slot`` (pages reserved): the prompt sits right-aligned
         in ``[0, bucket)``, the next write column is ``bucket``."""
@@ -205,12 +298,17 @@ class PagedKVCache:
         self.active[slot] = True
 
     def release(self, slot: int):
-        """Free the slot's pages and park its row on the sentinel page."""
+        """Drop the slot's page references and park its row on the
+        sentinel page (``paged.py:420-436``): a page no other reader
+        holds (without the prefix cache, every one) returns to the free
+        list; one the prefix tree or a sharer still reads stays."""
         self.active[slot] = False
         self.steps[slot] = 0
         self.valid_cols[slot, :] = 0
-        self.pool.free(self._slot_pages[slot])
+        self.decref(self._slot_pages[slot])
+        self.decref(self._slot_shared[slot])
         self._slot_pages[slot] = []
+        self._slot_shared[slot] = []
         self.block_table[slot] = self.pool.sentinel
 
     def advance(self, slot: int):
@@ -225,7 +323,9 @@ class PagedKVCache:
         return int(self.active.sum())
 
     def slot_page_counts(self) -> tuple:
-        return tuple(len(p) for p in self._slot_pages)
+        """Pages mapped a slot, private and shared."""
+        return tuple(len(p) + len(s) for p, s in
+                     zip(self._slot_pages, self._slot_shared))
 
 
 __all__ = ["PagePool", "PagedKVCache", "pages_in_budget"]

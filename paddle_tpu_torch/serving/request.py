@@ -1,6 +1,7 @@
 """Request records and streaming handles for the serving engine.
 
-Counterpart: ``paddle_tpu/serving/request.py``, without deadlines,
+Counterpart: ``paddle_tpu/serving/request.py`` (the prefix-cache and
+chunked-prefill fields of :75-83 included), without deadlines,
 tracing, timelines and the background thread. A request lives through
 QUEUED -> DECODING -> (FINISHED | CANCELLED). The `RequestHandle` that
 `Engine.submit` returns is the client surface: `tokens()` streams the
@@ -59,6 +60,15 @@ class Request:
     seed: int | None = None
     #: tokens sampled so far (the sampling step index)
     counter: int = 0
+    #: prompt tokens mapped from the prefix cache at admission (a
+    #: multiple of the page size; 0 without a match)
+    prefix_len: int = 0
+    #: the prefill bucket of the uncached tail (prefix-cache admission)
+    tail_bucket: int | None = None
+    #: the next prompt column a chunked admission absorbs
+    chunk_pos: int = 0
+    #: the mixed steps a chunked admission takes
+    prefill_chunks: int = 0
     emitted: list = field(default_factory=list)
     submit_time: float = field(default_factory=time.perf_counter)
 

@@ -6,6 +6,8 @@ queued requests into free slots (bucketed prefill), then runs one decode
 step for all slots; finished slots recycle at once. Admission is FCFS:
 it pops in arrival order and stops at the first request with no free
 slot, or (paged pool exhausted) puts that request back at the head.
+The bucket of a prefix-cache admission's uncached tail is
+``bucket_for(prompt_len - prefix_len)``.
 Requests are validated at submit (prompt fits a bucket, bucket +
 max_new, plus the ``spec_k`` verify lanes every step writes past the
 cursor, fits the cache), so admission cannot fail on shape later.
@@ -78,6 +80,11 @@ class SlotScheduler:
     def release(self, slot: int):
         self._free.append(slot)
 
+    def take_slot(self):
+        """A free slot taken outside the queue (`Engine.embed`), or
+        None."""
+        return self._free.popleft() if self._free else None
+
     def requeue_admission(self, req: Request):
         """Undo `next_admission` (the page pool is exhausted): the
         request returns to the queue HEAD and its slot to the free list,
@@ -101,6 +108,10 @@ class SlotScheduler:
     @property
     def queue_depth(self) -> int:
         return len(self._queue)
+
+    @property
+    def free_slots(self) -> int:
+        return len(self._free)
 
 
 __all__ = ["SlotScheduler"]

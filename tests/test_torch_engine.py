@@ -31,7 +31,7 @@ MAX_NEW = 4
 def _both(**kw):
     """(reference engine, port engine) with the same configuration."""
     return (JaxEngine(JAX_MODEL, kv_mode="paged", **kw),
-            Engine(MODEL, device="cpu", **kw))
+            Engine(MODEL, device="cpu", kv_mode="paged", **kw))
 
 
 def _rows(seed, lens):
@@ -118,7 +118,7 @@ def test_page_size_not_dividing_bucket():
 
 def test_eos_frees_the_slot_at_once():
     rows = _rows(47, (5, 7, 3))
-    probe = Engine(MODEL, device="cpu", slots=3, max_len=16,
+    probe = Engine(MODEL, device="cpu", kv_mode="paged", slots=3, max_len=16,
                    prefill_buckets=(8,), page_size=4)
     free_run = [probe.submit(r, max_new_tokens=6).result() for r in rows]
     eos = free_run[1][2]          # row 1 ends early on its third token
@@ -136,7 +136,7 @@ def test_eos_frees_the_slot_at_once():
 
 
 def _sampled(seed, with_neighbour):
-    eng = Engine(MODEL, device="cpu", slots=2, max_len=16,
+    eng = Engine(MODEL, device="cpu", kv_mode="paged", slots=2, max_len=16,
                  prefill_buckets=(8,), page_size=4, top_k=20)
     row = _rows(53, (6,))[0]
     if with_neighbour:
@@ -169,7 +169,7 @@ def test_sampling_filters_match_reference():
 
 
 def test_requests_the_pool_can_never_hold_are_refused_at_submit():
-    eng = Engine(MODEL, device="cpu", slots=2, max_len=16,
+    eng = Engine(MODEL, device="cpu", kv_mode="paged", slots=2, max_len=16,
                  prefill_buckets=(8,), page_size=4, kv_pages=2)
     with pytest.raises(ValueError, match="KV pages"):
         eng.submit(np.arange(1, 6), max_new_tokens=8)

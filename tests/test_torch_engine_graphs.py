@@ -61,8 +61,8 @@ def runs():
     """(reference, port) results of every configuration, served once."""
     return {(q, k): (_serve(JaxEngine(JAX_MODEL, kv_mode="paged", kv_quant=q,
                                       spec_k=k, **ENGINE_KW)),
-                     _serve(Engine(MODEL, device="cpu", kv_quant=q, spec_k=k,
-                                   **ENGINE_KW)))
+                     _serve(Engine(MODEL, device="cpu", kv_mode="paged",
+                                   kv_quant=q, spec_k=k, **ENGINE_KW)))
             for q, k in CONFIGS}
 
 
@@ -84,7 +84,8 @@ def test_greedy_tokens_match_the_reference(runs, q, k):
 
 def test_engines_on_one_model_name_their_steps_apart_under_an_armed_sentinel():
     sentinel = get_sentinel()
-    engines = [Engine(MODEL, device="cpu", **ENGINE_KW) for _ in range(2)]
+    engines = [Engine(MODEL, device="cpu", kv_mode="paged", **ENGINE_KW)
+               for _ in range(2)]
     with sentinel.armed():
         outs = [_serve(eng)[0] for eng in engines]
     assert outs[0] == outs[1]
@@ -99,7 +100,7 @@ def test_engines_on_one_model_name_their_steps_apart_under_an_armed_sentinel():
 
 
 def test_a_new_bucket_registers_under_its_own_tag():
-    eng = Engine(MODEL, device="cpu", **ENGINE_KW)
+    eng = Engine(MODEL, device="cpu", kv_mode="paged", **ENGINE_KW)
     short = [r for r in ROWS if len(r) <= 4]
     with get_sentinel().armed():
         _serve(eng, short)
@@ -113,7 +114,7 @@ def test_a_new_bucket_registers_under_its_own_tag():
 
 
 def test_a_rebuilt_step_trips_the_armed_sentinel():
-    eng = Engine(MODEL, device="cpu", **ENGINE_KW)
+    eng = Engine(MODEL, device="cpu", kv_mode="paged", **ENGINE_KW)
     eng.submit(ROWS[0], max_new_tokens=2).result()
     eng._prefill_fns.clear()                 # a bucket's step built again
     with get_sentinel().armed():
@@ -167,7 +168,7 @@ def test_staged_operands_start_16_byte_aligned(slots, w):
     """The paged kernel reads ``valid_cols`` in 16-byte pieces: every
     staged operand of the verify step starts at a 16-byte offset,
     whatever the slot count and window before it."""
-    eng = Engine(MODEL, device="cpu", slots=slots, max_len=12,
+    eng = Engine(MODEL, device="cpu", kv_mode="paged", slots=slots, max_len=12,
                  prefill_buckets=(4,), page_size=4, spec_k=w - 1)
     fn = eng._verify_fn()
     base = fn.static["tokens"].data_ptr()

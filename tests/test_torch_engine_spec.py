@@ -273,7 +273,7 @@ def test_pool_bytes_and_pages_in_budget_match_reference(q):
                                       kv_quant=q)
     if q is not None:
         assert got / pages_in_budget(MODEL, budget, page_size=PS) > 3.0
-    eng = Engine(MODEL, device="cpu", kv_quant=q, **ENGINE_KW)
+    eng = Engine(MODEL, device="cpu", kv_mode="paged", kv_quant=q, **ENGINE_KW)
     ref = JaxEngine(JAX_MODEL, kv_mode="paged", kv_quant=q, **ENGINE_KW)
     assert eng.stats().kv_pool_bytes == ref.stats().kv_pool_bytes
     assert eng.stats().kv_bytes_per_token == ref.stats().kv_bytes_per_token
@@ -289,13 +289,13 @@ def test_spec_lanes_count_against_max_len_and_pages():
     with pytest.raises(ValueError, match="speculative verify lanes"):
         eng.submit(ROWS[0], max_new_tokens=MAX_NEW + 1)
     # 4 pages hold bucket 8 + 8 decode writes, not the 3 lanes past them
-    Engine(MODEL, device="cpu", kv_pages=4, **ENGINE_KW).submit(
-        ROWS[0], max_new_tokens=9)
-    small = Engine(MODEL, device="cpu", spec_k=SPEC_K, kv_pages=4,
-                   **ENGINE_KW)
+    Engine(MODEL, device="cpu", kv_mode="paged", kv_pages=4,
+           **ENGINE_KW).submit(ROWS[0], max_new_tokens=9)
+    small = Engine(MODEL, device="cpu", kv_mode="paged", spec_k=SPEC_K,
+                   kv_pages=4, **ENGINE_KW)
     with pytest.raises(ValueError, match="KV pages"):
         small.submit(ROWS[0], max_new_tokens=9)
     with pytest.raises(ValueError, match="spec_k"):
-        Engine(MODEL, device="cpu", spec_k=-1, **ENGINE_KW)
+        Engine(MODEL, device="cpu", kv_mode="paged", spec_k=-1, **ENGINE_KW)
     with pytest.raises(ValueError, match="kv_quant"):
         Engine(MODEL, device="cpu", kv_quant="int4", **ENGINE_KW)

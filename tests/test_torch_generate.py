@@ -315,8 +315,9 @@ def test_engine_weight_quant_int8_matches_reference_engine():
     for eng in (JaxEngine(JAX_MODEL, kv_mode="paged", weight_quant="int8",
                           slots=2, max_len=16, prefill_buckets=(8,),
                           page_size=4),
-                Engine(MODEL, weight_quant="int8", slots=2, max_len=16,
-                       prefill_buckets=(8,), page_size=4, device="cpu")):
+                Engine(MODEL, kv_mode="paged", weight_quant="int8", slots=2,
+                       max_len=16, prefill_buckets=(8,), page_size=4,
+                       device="cpu")):
         handles = [eng.submit(r, max_new_tokens=6) for r in rows]
         outs.append([h.result() for h in handles])
     assert outs[1] == outs[0]

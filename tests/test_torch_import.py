@@ -35,6 +35,8 @@ MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.device",
            "paddle_tpu_torch.models.generation", "paddle_tpu_torch.serving",
            "paddle_tpu_torch.serving.engine",
            "paddle_tpu_torch.serving.compiled",
+           "paddle_tpu_torch.serving.kv_slots",
+           "paddle_tpu_torch.serving.prefix_cache",
            "paddle_tpu_torch.core", "paddle_tpu_torch.core.random",
            "paddle_tpu_torch.kernels.flash_attention",
            "paddle_tpu_torch.kernels.fused_ce", "paddle_tpu_torch.nn",
@@ -172,8 +174,8 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(kv_mode="slots"), dict(prefix_cache=True),
-    dict(draft_model=lambda ctx, k: []), dict(chunk_tokens=8),
+    dict(profiler=object()), dict(engine_id="e1"),
+    dict(draft_model=lambda ctx, k: []), dict(fault_injector=object()),
     dict(spec_adaptive=True), dict(mesh=object()), dict(role="prefill"),
     dict(kv_pool=object()), dict(default_deadline_s=1.0),
     dict(max_queue=4)],

@@ -621,8 +621,8 @@ def _decode_engine(pages):
 
     cfg = GPTConfig(50304, 2048, 2, 16, 8192, 2048)
     model = GPTForPretraining(cfg, dtype="bfloat16", seed=0)
-    eng = Engine(model, slots=8, page_size=16, max_len=640,
-                 prefill_buckets=(128, 512), kv_quant=pages)
+    eng = Engine(model, kv_mode="paged", slots=8, page_size=16,
+                 max_len=640, prefill_buckets=(128, 512), kv_quant=pages)
     g = torch.Generator().manual_seed(0)
     for n in (20, 75, 130, 190, 250, 310, 370, 430):
         eng.submit(torch.randint(1, 50304, (n,), generator=g).tolist(),

@@ -172,7 +172,7 @@ def test_engine_at_head_dim_80_and_page_size_4_matches_the_reference(
     kw = dict(slots=2, max_len=16 + 6, prefill_buckets=(8, 16), page_size=4,
               kv_quant=kv_quant)
     for eng in (JaxEngine(JAX_MODEL, kv_mode="paged", **kw),
-                Engine(MODEL, device="cpu", **kw)):
+                Engine(MODEL, device="cpu", kv_mode="paged", **kw)):
         h0 = eng.submit(rows[0], max_new_tokens=6)
         eng.step()
         h1 = eng.submit(rows[1], max_new_tokens=6)
