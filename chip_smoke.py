@@ -244,7 +244,46 @@ Phases, in order; any failure exits non-zero:
    while the long prompt is admitted, and the mixed steps' ms. Then
    ``embed()`` of 64-, 300-, 1024- and 1536-token prompts in the chunked
    engine, each vector at cosine >= 0.999 with a float32 teacher's final
-   ln_f hidden state, the pool empty after.
+   ln_f hidden state, the pool empty after;
+18. the rest of the paged Engine: gpt3-1.3b (bf16, random weights from
+   ``--seed``) at phase 4's configuration and traffic. A ``spec_k=0``
+   arm gives the target's own greedy streams. (a) ``spec_k=2,
+   spec_adaptive=True, spec_k_max=8`` (rungs 1, 2, 4, 8: verify widths
+   2, 3, 5, 9) with an oracle drafter of those streams climbs to k=8
+   and ends there;
+   (b) the same ladder from k=8 with an always-wrong drafter walks down
+   to 1. In each, the first step (which builds every rung) runs before
+   the sentinel is armed and the rest under it (decode_traces 1); B3
+   launches exactly verify steps x layers on every rung, and is held
+   against its plain version on each rung's live state; streams equal
+   the spec_k=0 arm's or part at a float32-teacher near-tie; every page
+   returns; the k history, accept rate, ms/step and tokens/s are
+   printed, and a profile of (a)'s full verify steps. (c) The JAX
+   package's repetitive trace shape (10 prompts repeating a 4-token
+   motif, up to 512 tokens, budgets 16-32) through the n-gram drafter,
+   adaptive, fixed spec_k=4 and spec_k=0. (d) ``draft_model=`` a
+   gpt2-124m (random weights) greedily continuing the context, eagerly:
+   its drafting ms a step beside the rest of the step. (e) Deadlines
+   under an injected clock skew (queued expiries hold no page,
+   mid-verify ones keep their tokens), ``max_queue=2`` under refuse,
+   shed_newest and shed_closest_deadline (the documented victims), a
+   ``reserve_fail`` x3 against ``admission_retries=3``
+   (`PoolExhaustedError`), background mode (``with Engine(...) as
+   eng:``: phase 4's requests from the main thread, streamed from the
+   loop thread; the same tokens or a near-tie; stop() joins; every
+   timeline monotone with its cause; the TTFT histogram's p50 within a
+   bucket of the host's), and a ``step_error`` at a verify dispatch
+   (every handle fails, every page returns).
+
+The kernel phase (3) also holds the paged kernel at head dims above 256
+(D 320 and 512: width 512 in 2-query tiles; ps 16 and 4, f32, bf16 and
+int8 pages, W 1 and 5, the split-walk rows, the tail read), timed at 8
+slots x 2560 hidden (8 heads of 320, 5 of 512) beside its plain version,
+SDPA over the gathered view and its bound (their launches are those
+counted at width 512 on the main paths of phases 4-18, of their page
+type: no model there serves such heads), and times it on bf16 pages at
+the verify widths 2, 3, 5 and 9 of phase 18's rungs at phase 4's decode
+shape (their launches phase 18's).
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device":
@@ -322,6 +361,18 @@ SLEEP_CYCLES = 100_000_000       # about 50 ms at the H100's clock
 MODEL = "gpt3-1.3b"
 SLOTS, PAGE, MAX_LEN, BUCKETS, MAX_NEW = 8, 16, 640, (128, 512), 32
 SPEC_K = 4                       # phase 9's verify window: k + 1 = 5 lanes
+# phase 18's adaptive ladder: spec_k 2 up to 8, rungs (1, 2, 4, 8), the
+# verify widths k + 1
+SPEC_K0, SPEC_K_MAX = 2, 8
+VERIFY_WIDTHS = (2, 3, 5, 9)
+# phase 18 (c): the JAX package's repetitive trace shape
+# (benchmarks/bench_serving.py:238-255): REP_N prompts repeating a motif
+# of REP_MOTIF tokens, up to max(BUCKETS) long, arriving over REP_SPREAD
+# steps; (d): DRAFT_N requests of DRAFT_NEW tokens drafted by gpt2-124m
+REP_N, REP_MOTIF, REP_SPREAD = 10, 4, 5
+DRAFT_MODEL, DRAFT_N, DRAFT_NEW = "gpt2-124m", 4, 16
+# the paged kernel's head dims above 256 (width 512, 2-query tiles)
+WIDE_HEAD_DIMS = (320, 512)
 # training phase: the flagship configuration of bench.py:76-133
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR, TRAIN_WD = 8, 1024, 5, 1e-4, 0.01
 # the bf16 model against a float32 copy of its weights (plain attention):
@@ -622,12 +673,15 @@ def kernel_phase(torch, pa):
     paged_checks(torch, pa)
     paged_split_checks(torch, pa)
     arms = (("bf16", 1), ("int8", 1), ("fp8", 1), ("bf16", 5), ("int8", 5),
-            ("fp8", 5))
+            ("fp8", 5), *(("bf16", w) for w in VERIFY_WIDTHS if w != 5))
     timed = decode_shape_times(torch, pa, 16, 128, arms)
     records = []
     for pages, w in (("bf16", 1), ("int8", 5), ("fp8", 5)):
         name = "paged_attention" + ("" if pages == "bf16" else "_" + pages)
         records.append({"name": name, **timed[pages, w]})
+    # bf16 pages at the verify widths of phase 18's adaptive rungs
+    for w in VERIFY_WIDTHS:
+        records.append({"name": f"paged_attention_w{w}", **timed["bf16", w]})
     return records
 
 
@@ -801,6 +855,74 @@ def paged_head_dim_checks(torch, pa):
                        pads=[3, 0, 10, 5, 0, 17, 2, 8])
     return [{"name": "paged_attention_d80", **timed["bf16", 1]},
             {"name": "paged_attention_int8_d80", **timed["int8", 5]}]
+
+
+def wide_head_paged_checks(torch, pa):
+    """B3 at head dims above 256 (width 512, 2-query tiles): D 320 and
+    512, the pools at D. `paged_checks`' rows (ragged steps, left pads, a
+    fully masked row, a parked row) at ps 16 and 4, W 1 and 5, float
+    pages (f32, bf16) and int8 pages (q f32, bf16); `paged_split_checks`'
+    rows at each page size (float and int8 pages); the tail read, bf16
+    and int8 pages. Then its time at a decode shape of 8 slots x 2560
+    hidden (8 heads of 320, or 5 of 512), 40 pages of 16 a slot: bf16
+    pages at W 1 and 5, int8 at W 5. The records' launches are set in
+    `main` from the main paths' width-512 counts."""
+    for d in WIDE_HEAD_DIMS:
+        for ps in (16, 4):
+            for w in (1, 5):
+                for mode in (None, "int8"):
+                    for dtype in (torch.float32, torch.bfloat16):
+                        args = paged_case(6, 4, w, d, ps, 8 * 16 // ps,
+                                          dtype, seed=1300 + d + ps + w)
+                        kw = {}
+                        if mode is not None:
+                            args, kw = quantize_case(torch, args, mode)
+                        out, lse = pa.fused_paged_attention(*args, **kw)
+                        ref, ref_lse = pa.paged_attention_reference(*args,
+                                                                    **kw)
+                        torch.cuda.synchronize()
+                        f32 = dtype == torch.float32
+                        torch.testing.assert_close(
+                            out.float(), ref.float(),
+                            **(TOL_F32 if f32 else TOL_BF16_OUT))
+                        torch.testing.assert_close(
+                            lse, ref_lse,
+                            **(TOL_F32 if f32 else TOL_BF16_LSE))
+                        check(torch.isfinite(out.float()).all().item(),
+                              "non-finite out")
+                        err_o = (out.float() - ref.float()).abs().max()
+                        err_l = (lse - ref_lse).abs().max()
+                        print(f"  paged_attention {mode or 'float'} pages "
+                              f"D={d} ps={ps} q {str(dtype)[6:]} W={w}: "
+                              f"max|out-ref| {err_o.item():.3e}  "
+                              f"max|lse-ref| {err_l.item():.3e}  ok")
+            paged_split_checks(torch, pa, d=d, ps=ps, modes=(None, "int8"))
+        for pages in ("bf16", "int8"):
+            q, pk, pv, bt = tail_case(torch, 8, 4, d, 8, torch.bfloat16,
+                                      seed=d)
+            kw = {}
+            if pages == "int8":
+                (_, pk, pv, _, _, _), kw = quantize_case(
+                    torch, (None, pk, pv, None, None, None), pages)
+            out, lse = pa.paged_tail_segment(q, pk, pv, bt, 100, d, **kw)
+            ref, ref_lse = pa.paged_tail_segment(
+                q.cpu(), pk.cpu(), pv.cpu(), bt.cpu(), 100, d,
+                **{k: v.cpu() for k, v in kw.items()})
+            torch.testing.assert_close(out.float().cpu(), ref.float(),
+                                       **TOL_BF16_OUT_TAIL)
+            torch.testing.assert_close(lse.cpu(), ref_lse, **TOL_BF16_LSE)
+            print(f"  paged_tail_segment N=8 H=4 D={d} Pg=8 {pages} pages "
+                  f"q bfloat16, gen column 100: max|out-ref| "
+                  f"{(out.float().cpu() - ref.float()).abs().max().item():.3e}"
+                  "  ok")
+    records = []
+    for d in WIDE_HEAD_DIMS:
+        arms = (("bf16", 1), ("bf16", 5), ("int8", 5))
+        timed = decode_shape_times(torch, pa, 2560 // d, d, arms)
+        for pages, w in arms:
+            records.append({"name": f"paged_attention_{pages}_d{d}_w{w}",
+                            **timed[pages, w]})
+    return records
 
 
 def tail_case(torch, n, h, d, pg, dtype, seed):
@@ -4317,11 +4439,11 @@ def serve_arrivals(torch, eng, prompts, budgets, at, on_step=None):
     return outs, s, wall, counts, log
 
 
-def b3_live_check(torch, eng, label, block_table=None):
+def b3_live_check(torch, eng, label, block_table=None, w=1):
     """B3 against its plain version on an engine's live state: the first
     layer's pools, the steps and valid columns of every slot and its
     block table (or ``block_table``, the mixed step's decode view), with
-    a random bf16 query a row. Every row is held, parked ones and the
+    a random bf16 query window of ``w`` a row. Every row is held, parked ones and the
     sentinel row included, to TOL_BF16_OUT and the lse to TOL_BF16_LSE.
     Returns the largest error."""
     from paddle_tpu_torch.kernels import paged_attention as pa
@@ -4334,7 +4456,7 @@ def b3_live_check(torch, eng, label, block_table=None):
     vc = torch.from_numpy(kv.valid_cols).to(dev)
     pk, pv = kv.caches[0]
     g = torch.Generator(device=dev).manual_seed(7)
-    q = torch.randn((eng.slots, pk.shape[1], 1, pk.shape[3]), generator=g,
+    q = torch.randn((eng.slots, pk.shape[1], w, pk.shape[3]), generator=g,
                     device=dev).to(pk.dtype)
     out, lse = pa.fused_paged_attention(q, pk, pv, bt, steps, vc)
     ref, ref_lse = pa.paged_attention_reference(q, pk, pv, bt, steps, vc)
@@ -4738,6 +4860,448 @@ def serving_modes_phases(torch, seed, paged_step):
     return pfx, mix
 
 
+# ---------------------------------------------------- phase 18: the Engine
+def ladder_streams(torch, ref, prompts, base, other, label):
+    """``other``'s greedy streams against ``base``'s (the spec_k=0 arm):
+    equal, or parting first where the float32 teacher ``ref`` (on the
+    common prefix) puts the two tokens within TEACHER_GAP of each other;
+    the rest of such a stream is not compared. ``other`` may hold partial
+    streams (a prefix of ``base``'s is equal)."""
+    parted = []
+    with torch.inference_mode():
+        for i, (a, b) in enumerate(zip(base, other)):
+            j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                     None)
+            if j is None:
+                continue
+            seq = torch.tensor([list(prompts[i]) + list(a[:j])],
+                               device=ref.device)
+            logits = ref._logits(ref.gpt.prefill(
+                seq, ref.gen_static_cache(1, seq.shape[1]))[0, -1])
+            gap = abs(logits[a[j]] - logits[b[j]]).item()
+            check(gap < TEACHER_GAP, f"{label}: request {i} parts from "
+                  f"spec_k=0 at token {j} ({b[j]} vs {a[j]}), {gap} apart "
+                  "on the teacher")
+            parted.append((i, j, round(gap, 5)))
+    print(f"  {label} against spec_k=0: {len(base) - len(parted)} of "
+          f"{len(base)} streams equal; parted (request, token, teacher gap "
+          f"< {TEACHER_GAP}): {parted}")
+
+
+def stream_oracle(prompts, streams, vocab, wrong=False):
+    """A drafter over known streams: for the request whose prompt the
+    context starts with, the next ``k`` tokens of its stream while the
+    tokens emitted so far are that stream's (a stream the engine left at
+    a bf16 near-tie gets no more drafts: what follows is unknown);
+    ``wrong``: another token than the stream's next, ``k`` times, which
+    the target rejects."""
+    import numpy as np
+
+    rows = [np.asarray(p) for p in prompts]
+
+    def fn(ctx, k):
+        for p, s in zip(rows, streams):
+            if len(ctx) >= len(p) and np.array_equal(ctx[:len(p)], p):
+                done = len(ctx) - len(p)
+                if wrong:
+                    nxt = s[done] if done < len(s) else 0
+                    return [(nxt + 1) % (vocab - 1) + 1] * k
+                if not np.array_equal(ctx[len(p):], s[:done]):
+                    return []
+                return s[done:done + k]
+        return []
+    return fn
+
+
+def serve_rungs(torch, eng, prompts, budgets, at, label):
+    """The adaptive engine's traffic (request ``i`` submitted just before
+    step ``at[i]``). The launch counts are zeroed just before and read
+    just after; the first step (the first admissions and the first
+    verify step, which builds every rung) runs before the sentinel is
+    armed, the rest under it. Per rung: the verify steps it ran and B3's
+    launches in them (their difference in the counts around each step),
+    and B3 held against its plain version on the rung's live state after
+    its first step (launches uncounted, off the clock). Returns
+    ``(outputs, stats, wall seconds, counts, {k: [steps, launches]})``."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.observability import get_sentinel
+
+    handles = [None] * len(prompts)
+    rungs, held = {}, set()
+    kernels.reset_kernel_launch_counts()
+    t0 = time.perf_counter()
+    step = 0
+    armed = contextlib.ExitStack()
+    while step <= max(at) or not all(h._req.done for h in handles):
+        for i, a in enumerate(at):
+            if a == step:
+                handles[i] = eng.submit(prompts[i], max_new_tokens=budgets[i])
+        k, steps0 = eng._spec_k, eng.metrics.decode_steps
+        before = kernels.kernel_launch_counts()["paged_attention"]
+        eng.step()
+        if step == 0:
+            armed.enter_context(get_sentinel().armed())
+        if eng.metrics.decode_steps > steps0:
+            r = rungs.setdefault(k, [0, 0])
+            r[0] += 1
+            r[1] += kernels.kernel_launch_counts()["paged_attention"] - before
+            if k not in held and eng.kv.active.any():
+                t = time.perf_counter()
+                with kernels.launches_uncounted():
+                    b3_live_check(torch, eng, f"{label}, rung k={k}", w=k + 1)
+                held.add(k)
+                t0 += time.perf_counter() - t
+        step += 1
+    torch.cuda.synchronize()
+    armed.close()
+    wall = time.perf_counter() - t0
+    counts = kernels.kernel_launch_counts()
+    outs = [h.result() for h in handles]
+    s = eng.stats()
+    check(all(len(o) == b for o, b in zip(outs, budgets)),
+          f"{label}: not every request completed")
+    return outs, s, wall, counts, rungs
+
+
+def rung_line(torch, label, s, wall, rungs, layers, counts):
+    """Checks B3's launches (exactly verify steps x layers on every rung,
+    all of the kernel's launches on them), one decode graph and every
+    page back; prints the arm's numbers. Returns ``{k: launches}``."""
+    for k, (steps, n) in rungs.items():
+        check(n == steps * layers, f"{label}: rung k={k} launched B3 {n} "
+              f"times in {steps} verify steps, not x {layers}")
+    check(sum(n for _, n in rungs.values()) == counts["paged_attention"],
+          f"{label}: B3 launched outside the verify steps: {counts}")
+    check(s.decode_traces == 1, f"{label}: decode_traces {s.decode_traces}")
+    check(s.kv_pages_in_use == 0 and s.kv_pages_free == s.kv_pages_total,
+          f"{label}: pages did not return: {s}")
+    rate = (f"{s.spec_accept_rate:.4f}" if s.spec_accept_rate is not None
+            else "n/a")
+    print(f"  {label}: {s.decode_steps} verify steps, {s.tokens_generated} "
+          f"tokens in {wall:.3f} s ({s.tokens_generated / wall:.1f} "
+          f"tokens/s, {s.tokens_generated / max(1, s.decode_steps):.2f} "
+          f"tokens a step); accept rate {rate} ({s.spec_accepted_tokens} "
+          f"of {s.spec_draft_tokens}); {s.decode_step_p50 * 1e3:.3f} "
+          f"ms/step p50; k history {list(s.spec_k_history)}; decode_traces "
+          f"{s.decode_traces} (sentinel armed after the first step), "
+          f"capture_s {s.capture_s:.3f}")
+    print(f"    B3 by rung (k: verify steps, launches = steps x {layers}): "
+          f"{ {k: tuple(v) for k, v in sorted(rungs.items())} }")
+    return {k: n for k, (_, n) in rungs.items()}
+
+
+def repetitive_trace(seed, vocab):
+    """The JAX package's repetitive trace shape (``benchmarks/
+    bench_serving.py:238-255``): REP_N prompts that repeat a motif of
+    REP_MOTIF tokens, REP_MOTIF + 1 to max(BUCKETS) tokens long, budgets
+    of MAX_NEW // 2 to MAX_NEW; arrivals at steps 0 to REP_SPREAD."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 18)
+    prompts, budgets = [], []
+    for _ in range(REP_N):
+        plen = int(rng.integers(REP_MOTIF + 1, max(BUCKETS) + 1))
+        motif = rng.integers(1, vocab, (REP_MOTIF,))
+        prompts.append(np.tile(motif, -(-plen // REP_MOTIF))[:plen].tolist())
+        budgets.append(int(rng.integers(MAX_NEW // 2, MAX_NEW + 1)))
+    at = sorted(int(a) for a in rng.integers(0, REP_SPREAD + 1, REP_N))
+    return prompts, budgets, at
+
+
+def draft_model_fn(torch, dm, timer):
+    """``draft_model=``: gpt2-124m (``dm``, bf16) greedily continuing the
+    context by ``k`` tokens, eagerly (a full forward a token: no graph,
+    nothing for the sentinel), its seconds added to ``timer``."""
+    def fn(ctx, k):
+        t = time.perf_counter()
+        ids = torch.tensor([list(ctx)], device=dm.device)
+        out = []
+        for _ in range(k):
+            hidden = dm.gpt.prefill(ids, dm.gen_static_cache(1, ids.shape[1]))
+            tok = dm._logits(hidden[0, -1]).argmax(-1)
+            out.append(int(tok))
+            ids = torch.cat([ids, tok.view(1, 1)], dim=1)
+        timer[0] += time.perf_counter() - t
+        timer[1] += 1
+        return out
+    return fn
+
+
+def a86_phase(torch, model, prompts, base, ref):
+    """Phase 18 (e): deadlines under an injected clock skew, bounded
+    admission's three policies, the retry budget, background mode with
+    timelines and histograms, and a step error at a verify dispatch."""
+    import numpy as np
+
+    from paddle_tpu_torch.serving import (DeadlineExceededError, Engine,
+                                          FaultInjector, OverloadedError,
+                                          PoolExhaustedError)
+    from paddle_tpu_torch.serving.timeline import PHASES, cause_of
+
+    kw = dict(kv_mode="paged", slots=SLOTS, page_size=PAGE, max_len=MAX_LEN,
+              prefill_buckets=BUCKETS)
+    # deadlines: 8 requests decode, 2 wait; from decode step 2 the clock
+    # runs 1e6 s ahead, so the next step's sweep fails all ten
+    inj = FaultInjector().add("clock_skew", skew_s=1e6, at_step=2)
+    eng = Engine(model, spec_k=2, fault_injector=inj, **kw)
+    hs = [eng.submit(p, max_new_tokens=MAX_NEW, deadline_s=600.0)
+          for p in prompts]
+    while eng.step():
+        pass
+    for h in hs:
+        try:
+            h.result()
+            check(False, "a request outlived its skewed deadline")
+        except DeadlineExceededError:
+            pass
+    queued = [i for i, h in enumerate(hs) if not h.partial]
+    check(len(queued) == len(prompts) - SLOTS
+          and all(hs[i]._req.slot is None for i in queued),
+          f"queued expiries {queued}")
+    check(all(h.timeline.phases()[-2] == ("queued" if i in queued
+                                          else "decode")
+              for i, h in enumerate(hs)), "deadline timelines")
+    ladder_streams(torch, ref, prompts, base, [h.partial for h in hs],
+                   "deadline partials")
+    s = eng.stats()
+    check(s.deadline_exceeded == len(prompts) and s.kv_pages_in_use == 0,
+          f"deadlines: {s}")
+    print(f"  deadlines (clock skew from decode step 2, spec_k=2): "
+          f"{len(queued)} expired queued with no page reserved, "
+          f"{len(prompts) - len(queued)} mid-verify keeping "
+          f"{[len(h.partial) for h in hs if h.partial]} tokens; every "
+          f"page back ({s.kv_pages_free} of {s.kv_pages_total} free)")
+    del eng
+    # max_queue=2: eight slots busy, two queued, an eleventh arrives
+    short = dict(max_new_tokens=4)
+    for policy in ("refuse", "shed_newest", "shed_closest_deadline"):
+        eng = Engine(model, max_queue=2, shed_policy=policy, **kw)
+        for i in range(0, SLOTS, 2):        # two a step: the queue holds 2
+            for p in prompts[i:i + 2]:
+                eng.submit(p, max_new_tokens=MAX_NEW, deadline_s=600.0)
+            eng.step()
+        check(eng.stats().active_slots == SLOTS, "the slots are not full")
+        q = [eng.submit(prompts[8], deadline_s=30.0, **short),
+             eng.submit(prompts[9], deadline_s=600.0, **short)]
+        victim = None
+        try:
+            late = eng.submit(prompts[0], deadline_s=300.0, **short)
+        except OverloadedError:
+            check(policy == "refuse", f"{policy} raised at submit")
+            victim = "the newcomer, refused at submit"
+        else:
+            dead = [h for h in (*q, late) if h.done()]
+            want = late if policy == "shed_newest" else q[0]
+            check(dead == [want], f"{policy}: shed {dead}")
+            try:
+                want.result()
+                check(False, f"{policy}: the victim finished")
+            except OverloadedError:
+                pass
+            victim = ("the newcomer" if want is late
+                      else "the queued request nearest its deadline (30 s)")
+        while eng.step():
+            pass
+        s = eng.stats()
+        check(s.shed == 1 and s.kv_pages_in_use == 0
+              and s.completed == len(prompts), f"{policy}: {s}")
+        print(f"  max_queue=2 shed_policy={policy}: the victim is {victim}; "
+              f"{s.completed} completed, every page back")
+        del eng
+    # the retry budget
+    inj = FaultInjector().add("reserve_fail", times=3)
+    eng = Engine(model, fault_injector=inj, admission_retries=3, **kw)
+    h = eng.submit(prompts[0], max_new_tokens=4)
+    try:
+        h.result()
+        check(False, "the reservation did not fail")
+    except PoolExhaustedError as exc:
+        print(f"  reserve_fail x3, admission_retries=3: {exc}")
+    check(eng.alive and eng.kv.pages_in_use == 0
+          and eng.stats().kv_pages_exhausted == 3, "retries")
+    del eng
+    # background mode: phase 4's ten requests from the main thread, on
+    # graphs captured on the main thread (one request a prompt bucket,
+    # served cooperatively first) and replayed from the loop thread
+    eng = Engine(model, **kw)
+    for p in (prompts[0], prompts[-1]):
+        eng.submit(p, max_new_tokens=2).result()
+    t0 = time.perf_counter()
+    with eng:
+        hs = [eng.submit(p, max_new_tokens=MAX_NEW) for p in prompts]
+        outs = [list(h.tokens(timeout=120.0)) for h in hs]
+        check(eng.running and eng._thread.name.startswith("serving-engine"),
+              "the loop thread")
+    wall = time.perf_counter() - t0
+    check(not eng.running and eng._thread is None, "stop() did not join")
+    s = eng.stats()
+    check(s.decode_traces == 1 and s.prefill_traces == 2
+          and s.completed == len(prompts) + 2
+          and s.kv_pages_in_use == 0, f"background: {s}")
+    ladder_streams(torch, ref, prompts, base, outs, "background mode")
+    rows = eng.timelines.snapshot()["recent"]
+    check(len(rows) == len(prompts) + 2, "the timeline ring")
+    for h in hs:
+        d = h.timeline.as_dict(h._req)
+        offs = [p["t_s"] for p in d["phases"]]
+        check(offs == sorted(offs) and [p["phase"] for p in d["phases"]]
+              == ["submitted", "queued", "admitted", "prefill", "decode",
+                  "terminal"] and all(p["phase"] in PHASES
+                                      for p in d["phases"])
+              and d["terminal"] == cause_of(h.state, h._error) == "done",
+              f"timeline {d}")
+    from paddle_tpu_torch.observability import get_registry
+    hist = get_registry().get("serving_ttft_seconds")
+    host = float(np.median(eng.metrics.ttft_s))
+    edges = (0.0,) + hist.edges
+    i = next((i for i, e in enumerate(hist.edges) if host <= e),
+             len(hist.edges))
+    lo, hi = edges[max(0, i - 1)], edges[min(len(edges) - 1, i + 1)]
+    check(lo <= s.ttft_hist_p50 <= hi, f"TTFT histogram p50 "
+          f"{s.ttft_hist_p50} vs host {host} (bucket [{lo}, {hi}])")
+    print(f"  background mode (with Engine(...) as eng): {len(prompts)} "
+          f"requests from the main thread in {wall:.3f} s, streamed from "
+          f"the loop thread, which replays graphs the main thread "
+          f"captured; stop() joined; decode_traces "
+          f"{s.decode_traces}; every timeline monotone, cause done; TTFT "
+          f"p50 host {host * 1e3:.3f} ms, histogram {s.ttft_hist_p50 * 1e3:.3f} "
+          f"ms (buckets {lo}..{hi} s), p99 {s.ttft_p99 * 1e3:.3f} ms")
+    del eng
+    # a step error at the second verify dispatch
+    inj = FaultInjector().add("step_error", at_step=1, phase="decode")
+    eng = Engine(model, spec_k=2, fault_injector=inj, **kw)
+    hs = [eng.submit(p, max_new_tokens=MAX_NEW) for p in prompts]
+    failed = 0
+    for h in hs:
+        try:
+            h.result()
+        except RuntimeError:
+            failed += 1
+    check(failed == len(prompts) and not eng.alive
+          and eng.kv.pages_in_use == 0
+          and eng.kv.pages_free == eng.kv.pages_total, "step_error")
+    print(f"  step_error at verify dispatch 1: all {failed} handles failed "
+          f"({hs[0]._error!r}), every page back, the engine refuses work")
+    del eng
+
+
+def engine_rest_phase(torch, seed, base_ms):
+    """Phase 18 (module docstring). Returns B3's launches by verify
+    width, ``{"paged_attention_w{k + 1}": n}``, from (a) and (b)."""
+    from paddle_tpu_torch.models.gpt import GPTForPretraining, gpt_config
+    from paddle_tpu_torch.serving import Engine
+
+    cfg = gpt_config(MODEL)
+    layers = cfg.num_hidden_layers
+    model = GPTForPretraining(cfg, dtype="bfloat16", seed=seed)
+    kw = dict(kv_mode="paged", slots=SLOTS, page_size=PAGE, max_len=MAX_LEN,
+              prefill_buckets=BUCKETS)
+    prompts = phase_prompts(torch, cfg, seed)
+    budgets = [MAX_NEW] * len(prompts)
+    warm = Engine(model, spec_k=SPEC_K0, spec_adaptive=True,
+                  spec_k_max=SPEC_K_MAX, **kw)
+    warm.submit(prompts[0], max_new_tokens=12).result()
+    del warm
+    base, s0, wall0, _ = serve_traffic(torch, Engine(model, **kw), prompts)
+    print(f"  spec_k=0: {s0.decode_steps} decode steps, "
+          f"{s0.decode_step_p50 * 1e3:.3f} ms/step p50, "
+          f"{s0.tokens_generated / wall0:.1f} tokens/s (phase 4: "
+          f"{base_ms * 1e3:.3f} ms/step)")
+    ref = float32_copy(torch, model)
+    launches = {}
+
+    def adaptive(label, k0, drafter):
+        eng = Engine(model, spec_k=k0, spec_adaptive=True,
+                     spec_k_max=SPEC_K_MAX, draft_model=drafter, **kw)
+        outs, s, wall, counts, rungs = serve_rungs(
+            torch, eng, prompts, budgets, SUBMIT_AT_STEP, label)
+        for k, n in rung_line(torch, label, s, wall, rungs, layers,
+                              counts).items():
+            name = f"paged_attention_w{k + 1}"
+            launches[name] = launches.get(name, 0) + n
+        ladder_streams(torch, ref, prompts, base, outs, label)
+        return eng, s
+
+    eng, s = adaptive("(a) grow, the oracle", SPEC_K0,
+                      stream_oracle(prompts, base, cfg.vocab_size))
+    check(s.spec_k == SPEC_K_MAX,
+          f"(a) ended at k={s.spec_k}: {s.spec_k_history}")
+    del eng
+    eng = Engine(model, spec_k=SPEC_K0, spec_adaptive=True,
+                 spec_k_max=SPEC_K_MAX,
+                 draft_model=stream_oracle(prompts, base, cfg.vocab_size),
+                 **kw)
+    for p in prompts[:SLOTS]:
+        eng.submit(p, max_new_tokens=MAX_NEW)
+    eng.step()                  # admits every slot, builds every rung
+    profile_steps(torch, eng.step, 3, "verify steps of (a) (every slot "
+                  "active, the oracle; k 4, 8, 8)")
+    del eng
+    eng, s = adaptive("(b) shrink, the anti-oracle", SPEC_K_MAX,
+                      stream_oracle(prompts, base, cfg.vocab_size,
+                                    wrong=True))
+    check(s.spec_k == 1 and s.spec_accepted_tokens == 0,
+          f"(b) ended at k={s.spec_k}")
+    del eng
+    # (c) the n-gram drafter on repetitive prompts, three arms
+    rp, rb, rat = repetitive_trace(seed, cfg.vocab_size)
+    rep = {}
+    for label, ekw in (("spec_k=0", {}), ("fixed spec_k=4", dict(spec_k=4)),
+                       ("adaptive spec_k=2..8", dict(
+                           spec_k=SPEC_K0, spec_adaptive=True,
+                           spec_k_max=SPEC_K_MAX))):
+        eng = Engine(model, **ekw, **kw)
+        outs, s, wall, counts, _ = serve_arrivals(torch, eng, rp, rb, rat)
+        check(s.decode_traces == 1 and s.kv_pages_in_use == 0
+              and counts["paged_attention"] == s.decode_steps * layers,
+              f"(c) {label}: {s}, {counts}")
+        rate = (f"{s.spec_accept_rate:.4f}"
+                if s.spec_accept_rate is not None else "n/a")
+        print(f"  (c) repetitive trace ({REP_N} prompts, motif {REP_MOTIF}, "
+              f"{min(map(len, rp))}-{max(map(len, rp))} tokens, budgets "
+              f"{min(rb)}-{max(rb)}), {label}: {s.decode_steps} steps, "
+              f"accept rate {rate}, {s.decode_step_p50 * 1e3:.3f} ms/step "
+              f"p50, {s.tokens_generated / wall:.1f} tokens/s, "
+              f"{s.tokens_generated / max(1, s.decode_steps):.2f} tokens a "
+              f"step, k history {list(s.spec_k_history)}")
+        rep[label] = outs
+        del eng
+    for label in ("fixed spec_k=4", "adaptive spec_k=2..8"):
+        ladder_streams(torch, ref, rp, rep["spec_k=0"], rep[label],
+                       f"(c) {label}")
+    # (d) a draft model on the card: gpt2-124m, eager
+    dm = GPTForPretraining(DRAFT_MODEL, dtype="bfloat16", seed=seed + 1)
+    timer = [0.0, 0]
+    eng = Engine(model, spec_k=SPEC_K, draft_model=draft_model_fn(
+        torch, dm, timer), **kw)
+    n = DRAFT_N
+    outs, s, wall, counts, _ = serve_arrivals(
+        torch, eng, prompts[:n], [DRAFT_NEW] * n, SUBMIT_AT_STEP[:n])
+    check(s.decode_traces == 1 and s.kv_pages_in_use == 0
+          and counts["paged_attention"] == s.decode_steps * layers,
+          f"(d): {s}, {counts}")
+    ladder_streams(torch, ref, prompts[:n], [b[:DRAFT_NEW] for b in base[:n]],
+                   outs, "(d) draft model")
+    draft_ms = timer[0] / max(1, s.decode_steps) * 1e3
+    step_ms = statistics.mean(eng.metrics.decode_step_s) * 1e3
+    print(f"  (d) draft_model= {DRAFT_MODEL} (bf16, random weights from seed "
+          f"{seed + 1}, eager forwards): {n} requests x {DRAFT_NEW}, "
+          f"{s.decode_steps} verify steps (k={SPEC_K}); drafting "
+          f"{draft_ms:.3f} ms a step ({timer[1]} drafter calls) beside "
+          f"{step_ms - draft_ms:.3f} ms of the rest of the step (mean "
+          f"{step_ms:.3f} ms with drafting); accept "
+          f"rate {s.spec_accept_rate or 0.0:.4f} (random weights: two "
+          "unrelated models agree near chance); launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    del eng, dm
+    # (e) A8.6
+    a86_phase(torch, model, prompts, base, ref)
+    del ref, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def print_build_report(name, report):
     """One source's build seconds, then for each kernel ptxas's register,
     shared-memory and spill lines, joined on one line."""
@@ -4760,6 +5324,32 @@ def print_build_report(name, report):
                 shown = kernel
             print(f"    {shown}: {ln.split(':', 1)[1].strip()}; {spill}")
             kernel = None
+
+
+@contextlib.contextmanager
+def launches_tallied(names):
+    """Inside, the launches counted under ``names`` over every phase:
+    each phase sets the counts to 0 before it drives its path, so they
+    are added up before each reset and once at the end. Starts from 0;
+    yields the running sums."""
+    from paddle_tpu_torch import kernels
+
+    total = dict.fromkeys(names, 0)
+    reset = kernels.reset_kernel_launch_counts
+
+    def add_then_reset():
+        counts = kernels.kernel_launch_counts()
+        for name in names:
+            total[name] += counts[name]
+        reset()
+
+    reset()
+    kernels.reset_kernel_launch_counts = add_then_reset
+    try:
+        yield total
+    finally:
+        kernels.reset_kernel_launch_counts = reset
+        add_then_reset()
 
 
 def main(argv=None) -> int:
@@ -4795,48 +5385,64 @@ def main(argv=None) -> int:
 
     print("[3] kernel phase")
     records = [*kernel_phase(torch, pa), tail_kernel_phase(torch, pa),
-               *paged_head_dim_checks(torch, pa),
+               *paged_head_dim_checks(torch, pa)]
+    wide = wide_head_paged_checks(torch, pa)
+    records += [*wide,
                *flash_kernel_phase(torch), *general_flash_phase(torch),
                *wide_flash_phase(torch), *qkv3_kernel_phase(torch)]
     ln_records, launches = fused_ln_phase(torch)
     records += ln_records
     records.append(adam_kernel_phase(torch, args.seed))
-    print("[4] engine phase")
-    counts, paged_step = engine_phase(torch, args.seed)
-    launches.update(counts)
-    print("[5] training phase")
-    launches.update(train_phase(torch, args.seed, card))
-    print("[6] BERT phase (masked, B2)")
-    launches.update(bert_phase(torch, args.seed, card, "masked"))
-    print("[7] BERT unmasked phase, unfused layers (B5)")
-    launches.update(bert_phase(torch, args.seed, card, "unfused"))
-    print("[8] BERT unmasked phase, fused layers (B1)")
-    fused = bert_phase(torch, args.seed, card, "fused")
-    print(f"  (B1's launches in the kernel line are GPT training's; the "
-          f"fused BERT's were {fused})")
-    print("[9] quantized speculative serving phase (int8/fp8 pages, k=4)")
-    launches.update(spec_phase(torch, args.seed))
-    print("[10] generation phase (greedy, beam paged/gather, int8 tail "
-          "pages, weight-only int8)")
-    launches.update(gen_phase(torch, args.seed))
-    print("[11] sequence-parallel phase (B4, the ring's per-rank loop, one "
-          "rank)")
-    records += b4_kernel_phase(torch)
-    launches.update(ring_loop_phase(torch))
-    one_rank_phase(torch)
-    print("[12] gpt3-2.7b serving phase (head dim 80: Engine on bf16 and "
-          "int8 pages, the paged beam)")
-    launches.update(serve_27b_phase(torch, args.seed))
-    print("[13] attention at Gemma-2B's widths (B2 at head dim 256, "
-          "training)")
-    launches.update(gemma_phase(torch, args.seed, card))
-    print("[14] the optimizer plane on graphs (gpt-test: an LR schedule, "
-          "GradScaler's skip)")
-    schedule_phase(torch, args.seed)
-    scaler_phase(torch, args.seed)
-    pfx, mix = serving_modes_phases(torch, args.seed, paged_step)
-    print(f"  (B3's launches in the kernel line are phase 4's; phase 16's "
-          f"were {pfx}, phase 17's {mix})")
+    # the C.6 rows' launches: every width-512 launch of their page type
+    # on the main paths (no model there has heads above 256)
+    counter = {"bf16": "paged_attention_wide",
+               "int8": "paged_attention_int8_wide"}
+    wide_names = {rec["name"]: counter[rec["name"].split("_")[2]]
+                  for rec in wide}
+    with launches_tallied(set(wide_names.values())) as wide_seen:
+        print("[4] engine phase")
+        counts, paged_step = engine_phase(torch, args.seed)
+        launches.update(counts)
+        print("[5] training phase")
+        launches.update(train_phase(torch, args.seed, card))
+        print("[6] BERT phase (masked, B2)")
+        launches.update(bert_phase(torch, args.seed, card, "masked"))
+        print("[7] BERT unmasked phase, unfused layers (B5)")
+        launches.update(bert_phase(torch, args.seed, card, "unfused"))
+        print("[8] BERT unmasked phase, fused layers (B1)")
+        fused = bert_phase(torch, args.seed, card, "fused")
+        print(f"  (B1's launches in the kernel line are GPT training's; "
+              f"the fused BERT's were {fused})")
+        print("[9] quantized speculative serving phase (int8/fp8 pages, "
+              "k=4)")
+        launches.update(spec_phase(torch, args.seed))
+        print("[10] generation phase (greedy, beam paged/gather, int8 tail "
+              "pages, weight-only int8)")
+        launches.update(gen_phase(torch, args.seed))
+        print("[11] sequence-parallel phase (B4, the ring's per-rank loop, "
+              "one rank)")
+        records += b4_kernel_phase(torch)
+        launches.update(ring_loop_phase(torch))
+        one_rank_phase(torch)
+        print("[12] gpt3-2.7b serving phase (head dim 80: Engine on bf16 "
+              "and int8 pages, the paged beam)")
+        launches.update(serve_27b_phase(torch, args.seed))
+        print("[13] attention at Gemma-2B's widths (B2 at head dim 256, "
+              "training)")
+        launches.update(gemma_phase(torch, args.seed, card))
+        print("[14] the optimizer plane on graphs (gpt-test: an LR "
+              "schedule, GradScaler's skip)")
+        schedule_phase(torch, args.seed)
+        scaler_phase(torch, args.seed)
+        pfx, mix = serving_modes_phases(torch, args.seed, paged_step)
+        print(f"  (B3's launches in the kernel line are phase 4's; phase "
+              f"16's were {pfx}, phase 17's {mix})")
+        print("[18] the rest of the paged Engine (gpt3-1.3b, bf16 pages: "
+              "adaptive spec_k on W = 2, 3, 5, 9, draft_model=, deadlines, "
+              "bounded admission, background mode)")
+        launches.update(engine_rest_phase(torch, args.seed, paged_step))
+    print(f"  width-512 launches of B3 over phases 4-18: {wide_seen}")
+    launches.update({name: wide_seen[c] for name, c in wide_names.items()})
     for rec in records:
         rec["launches"] = launches[rec["name"]]
 

@@ -35,7 +35,10 @@ a rebuild after an eviction too. There is no eager
 fallback and no switch: a capture that fails raises with the step's
 name. `run_eager` runs the body once on the static buffers without a
 replay, for holding a graph against its eager run; nothing on a main
-path calls it.
+path calls it. `build` builds a step ahead of its first call (on a card
+the warm-up and the capture, no replay; on the CPU only the build's
+report): the adaptive engine's verify rungs, built together at its
+first speculative decode.
 
 A train step (`distributed.SpmdTrainStep`) is such a step too, with
 three additions: its body returns a tuple (the loss and the values its
@@ -191,6 +194,15 @@ class CapturedStep:
         self._graph.replay()
         kernels.add_launches(self._delta)
         return _copied(self._out)
+
+    def build(self, **operands):
+        """Build the step on ``operands`` without running it as a call:
+        on a card the warm-up (its launches not counted) and the capture,
+        with no replay; on the CPU only the build's report. A step
+        already built is left as it is."""
+        self.set(**operands)
+        if not self.captures:
+            self._build()
 
     def run_eager(self, **operands):
         """The body once, eagerly, on the static buffers (after copying

@@ -24,7 +24,9 @@ import torch
 
 #: launches per kernel since the last `reset_kernel_launch_counts`
 _LAUNCHES = {"paged_attention": 0, "paged_attention_int8": 0,
-             "paged_attention_fp8": 0, "paged_tail_segment": 0,
+             "paged_attention_fp8": 0, "paged_attention_wide": 0,
+             "paged_attention_int8_wide": 0, "paged_attention_fp8_wide": 0,
+             "paged_tail_segment": 0,
              "flash_attention_qkv_fwd": 0,
              "flash_attention_qkv_bwd": 0, "flash_attention_fwd": 0,
              "flash_attention_bwd": 0, "flash_attention_qkv3_fwd": 0,

@@ -57,17 +57,19 @@
 //   with cp.async copies into its own 2-stage shared-memory ring (K, V,
 //   their scales and the chunk's valid_cols), so the next chunk is in
 //   flight while the warp computes on the current one.
-// - Any head dim up to 256 and any page size, with the pools at the
+// - Any head dim up to 512 and any page size, with the pools at the
 //   model's own D (never padded or copied). The kernel is instantiated at
-//   a padded width DP (32, 64, 96, 128 or 256; the wrapper's
+//   a padded width DP (32, 64, 96, 128, 256 or 512; the wrapper's
 //   `kernel_width`), each lane holding DP/32 coordinates; the ring's rows
 //   are DP elements apart, their columns past D zeroed once per block and
 //   never written, and the query's coordinates past D are zeros, so they
 //   add nothing to a score and are never stored. Rows are copied at the
 //   pool's real row stride in the widest pieces that divide a row's bytes
 //   (cp.async of 16, 8 or 4 bytes; byte loads otherwise). A chunk is C =
-//   16 columns (8 for f32 pages at DP 256, to fit the ring); a page of
-//   ps columns takes ceil(ps / C) chunks, the last one partial: its
+//   16 columns, 8 where a padded row of the page type spans more than 512
+//   bytes and 4 above 1024 (f32 pages at DP 512), so that the ring fits
+//   the block; a page of ps columns takes ceil(ps / C) chunks, the last
+//   one partial: its
 //   columns past the page get a score of -inf (not -1e30: they are not
 //   columns of the table, and must weigh 0 even in a uniform average),
 //   so p = 0 there. Where a ring byte can be read that no copy wrote
@@ -91,6 +93,16 @@
 //   table, as the TPU kernel gives. The mask itself is unchanged, so a
 //   later query of the same tile that does have readable columns gets its
 //   masked softmax (its masked columns weigh exp(-1e30 - m) = 0).
+// - Head dims above 256 (DP 512) take 2-query tiles. A lane then holds 16
+//   coordinates a query, and the state of a query (its coordinates and
+//   its accumulator) is 32 registers a lane: 2 queries hold as much as 4
+//   do at DP 256 and 8 at DP 128, so the tile stays in registers without
+//   spilling. Splitting D across the two warps of a pair would keep the
+//   4-query tile instead, but it needs a cross-warp reduction of every
+//   column's score (a shared-memory exchange and a barrier per chunk) in
+//   a walk whose warps otherwise never wait for one another; a window of
+//   W queries just takes ceil(W / 2) tiles, each reading the pages again,
+//   which costs bandwidth only at W > 2 on heads no served model has.
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
@@ -122,7 +134,8 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
 
 // VD consecutive ring elements in f32, times `scale` (1 for float pages):
 // one vector load where VD * sizeof(T) is a power of two up to 16 bytes
-// (the row offset is a multiple of it), else element by element.
+// (the row offset is a multiple of it), 16-byte loads where it is a
+// larger multiple of 16, else element by element.
 template <typename T, int VD>
 __device__ __forceinline__ void load_row(const T* src, float scale,
                                          float (&x)[VD]) {
@@ -132,6 +145,15 @@ __device__ __forceinline__ void load_row(const T* src, float scale,
     const Vec v = *reinterpret_cast<const Vec*>(src);
 #pragma unroll
     for (int i = 0; i < VD; ++i) x[i] = to_f32(v.e[i]) * scale;
+  } else if constexpr (kBytes % 16 == 0) {
+    constexpr int E = 16 / (int)sizeof(T);
+    struct alignas(16) Vec { T e[E]; };
+#pragma unroll
+    for (int j = 0; j < VD / E; ++j) {
+      const Vec v = reinterpret_cast<const Vec*>(src)[j];
+#pragma unroll
+      for (int i = 0; i < E; ++i) x[j * E + i] = to_f32(v.e[i]) * scale;
+    }
   } else {
 #pragma unroll
     for (int i = 0; i < VD; ++i) x[i] = to_f32(src[i]) * scale;
@@ -574,17 +596,22 @@ cudaError_t launch(const Params& a, int N, int splits, cudaStream_t stream) {
 
 // The instantiated (DP, WT, C): the wrapper's plan (`kernel_width`,
 // `query_tile`, `chunk_cols` in kernels/paged_attention.py): DP 32, 64,
-// 96 or 128 with 4- or 8-query tiles, or 256 with 4-query tiles; C 16,
-// or 8 where a row of the page type spans more than 512 bytes (f32 pages
-// at DP 256).
+// 96 or 128 with 4- or 8-query tiles, 256 with 4-query tiles, or 512 with
+// 2-query tiles; C 16, 8 where a row of the page type spans more than 512
+// bytes, 4 where it spans more than 1024 (f32 pages at DP 512).
 template <typename TQ, typename TP, int DP>
 cudaError_t dispatch_tile(const Params& a, int N, int S, int wt, int c,
                           cudaStream_t st) {
-  constexpr int kC = DP * (int)sizeof(TP) > 512 ? 8 : 16;
+  constexpr int kRowBytes = DP * (int)sizeof(TP);
+  constexpr int kC = kRowBytes > 1024 ? 4 : kRowBytes > 512 ? 8 : 16;
   if (c != kC) return cudaErrorInvalidValue;
-  if (wt == 4) return launch<TQ, TP, DP, 4, kC>(a, N, S, st);
-  if constexpr (DP <= 128)
-    if (wt == 8) return launch<TQ, TP, DP, 8, kC>(a, N, S, st);
+  if constexpr (DP > 256) {
+    if (wt == 2) return launch<TQ, TP, DP, 2, kC>(a, N, S, st);
+  } else {
+    if (wt == 4) return launch<TQ, TP, DP, 4, kC>(a, N, S, st);
+    if constexpr (DP <= 128)
+      if (wt == 8) return launch<TQ, TP, DP, 8, kC>(a, N, S, st);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -597,6 +624,7 @@ cudaError_t dispatch(const Params& a, int N, int S, int dp, int wt, int c,
     case 96: return dispatch_tile<TQ, TP, 96>(a, N, S, wt, c, st);
     case 128: return dispatch_tile<TQ, TP, 128>(a, N, S, wt, c, st);
     case 256: return dispatch_tile<TQ, TP, 256>(a, N, S, wt, c, st);
+    case 512: return dispatch_tile<TQ, TP, 512>(a, N, S, wt, c, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -617,7 +645,7 @@ cudaError_t dispatch_pages(const Params& a, int N, int S, int dp, int wt,
 // qdtype: 0 = float32, 1 = bfloat16 (q and out). pdtype: 0 = pages in q's
 // dtype (k_scale and v_scale unused, may be null), 1 = int8 pages, 2 = fp8
 // e4m3 pages (both with f32 scales [P, H, ps]). D: the head dim (1 to
-// 256; q, out and the pools at D); dp, wt, chunk: the wrapper's plan
+// 512; q, out and the pools at D); dp, wt, chunk: the wrapper's plan
 // (padded width, queries a block, columns a ring chunk). splits x pps
 // covers the table (splits = ceil(pmax / pps)). part_o: f32 [N*H*W,
 // splits, D] and part_ml: f32 [N*H*W, splits, 2] scratch; tickets: int32

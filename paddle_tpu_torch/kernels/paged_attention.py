@@ -33,11 +33,12 @@ reads only the pages up to the cursor that hold a readable column (the
 rest add exactly nothing) unless a query found no readable column there;
 the plain version is the masked softmax over the whole table.
 
-The kernel takes any head dim up to 256 and any page size, with the
+The kernel takes any head dim up to 512 and any page size, with the
 pools at the model's own D: `kernel_width`, `query_tile` and
 `chunk_cols` are its plan (the padded width the kernel is instantiated
 at, the queries a block takes and the columns a ring chunk holds), pure
-functions of the shapes. A head dim above 256 raises (ROADMAP C.6).
+functions of the shapes. Heads above 256 run at width 512 in 2-query
+tiles; a head dim above 512 raises.
 
 The kernel splits each row's page walk across blocks (flash-decoding):
 `plan_splits` picks the split count from the shapes and the card's SM
@@ -48,7 +49,9 @@ int32 buffer that the kernel leaves at 0 (`_tickets`).
 
 Launch counts: ``paged_attention`` for float pools,
 ``paged_attention_int8`` and ``paged_attention_fp8`` for quantized ones;
-a launch through `paged_tail_segment` also counts ``paged_tail_segment``.
+a launch at width 512 also counts the same name with ``_wide`` appended,
+and a launch through `paged_tail_segment` also counts
+``paged_tail_segment``.
 """
 from __future__ import annotations
 
@@ -66,11 +69,11 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: quantized page dtype -> (the C entry's page code, launch-count name)
 _QUANT_PAGES = {torch.int8: (1, "paged_attention_int8"),
                 torch.float8_e4m3fn: (2, "paged_attention_fp8")}
-#: queries a block of the kernel takes: 4, or 8 for a window of 5 to 8
-#: at a padded width up to 128
-_TILE_SMALL, _TILE_WIDE = 4, 8
+#: queries a block of the kernel takes: 4, 8 for a window of 5 or more
+#: at a padded width up to 128, 2 at width 512
+_TILE_NARROW, _TILE_SMALL, _TILE_WIDE = 2, 4, 8
 #: the padded widths the kernel is instantiated at
-_WIDTHS = (32, 64, 96, 128, 256)
+_WIDTHS = (32, 64, 96, 128, 256, 512)
 #: the planner aims for this many blocks per SM ...
 _BLOCKS_PER_SM = 4
 #: ... and gives every split at least this many columns
@@ -84,29 +87,35 @@ def kernel_width(d: int) -> int:
     """The padded head dim the kernel runs a head dim ``d`` at (each of a
     warp's 32 lanes holds ``width / 32`` coordinates; those past ``d``
     are zeros, and the pools stay at ``d``): the least of 32, 64, 96,
-    128 and 256 that holds ``d``. Above 256 it raises (ROADMAP C.6)."""
+    128, 256 and 512 that holds ``d``. Above 512 it raises."""
     for width in _WIDTHS:
         if d <= width:
             return width
     raise NotImplementedError(
-        f"fused_paged_attention: head_dim {d} > 256 on a card: the kernel "
-        "takes head dims up to 256 (ROADMAP C.6)")
+        f"fused_paged_attention: head_dim {d} > 512 on a card: the kernel "
+        "is instantiated at head dims up to 512")
 
 
 def chunk_cols(width: int, page_itemsize: int) -> int:
-    """Columns of one ring chunk: 16, or 8 where a padded row of the page
-    type spans more than 512 bytes (f32 pages at width 256), so that a
-    warp's two-stage ring fits the block's shared memory. A page of
-    ``ps`` columns takes ``ceil(ps / chunk)`` chunks, its last one
-    partial."""
-    return 8 if width * page_itemsize > 512 else 16
+    """Columns of one ring chunk: 16, 8 where a padded row of the page
+    type spans more than 512 bytes (f32 pages at width 256, bf16 at 512)
+    and 4 where it spans more than 1024 (f32 at 512), so that a warp's
+    two-stage ring fits the block's shared memory. A page of ``ps``
+    columns takes ``ceil(ps / chunk)`` chunks, its last one partial."""
+    row = width * page_itemsize
+    return 4 if row > 1024 else 8 if row > 512 else 16
 
 
 def query_tile(w: int, d: int) -> int:
     """Queries one block of the kernel takes for a window of ``w`` at
     head dim ``d``: 8 for a window of 5 or more at a padded width up to
-    128, else 4 (at width 256 eight queries' state would spill)."""
-    if w > _TILE_SMALL and kernel_width(d) <= 128:
+    128, 2 at width 512, else 4 (a lane holds ``width / 32`` coordinates
+    of a query, so more queries' state at the wider widths would
+    spill)."""
+    width = kernel_width(d)
+    if width > 256:
+        return _TILE_NARROW
+    if w > _TILE_SMALL and width <= 128:
         return _TILE_WIDE
     return _TILE_SMALL
 
@@ -184,8 +193,8 @@ def fused_paged_attention(qh, pool_k, pool_v, block_table, steps,
     Takes CUDA tensors only, all contiguous and on one device; q is
     float32 or bfloat16; the pools either share q's dtype (no scales) or
     are both int8 or both float8_e4m3fn with ``k_scale``/``v_scale``
-    ``[P, H, ps]`` float32; any ``D`` up to 256 (above it raises naming
-    ROADMAP C.6) and any page size ``ps >= 1``. Anything else raises."""
+    ``[P, H, ps]`` float32; any ``D`` up to 512 and any page size
+    ``ps >= 1``. Anything else raises."""
     _check(qh.device.type == "cuda", f"needs CUDA tensors, got {qh.device}")
     dev = qh.device
     quant = pool_k.dtype in _QUANT_PAGES
@@ -270,6 +279,8 @@ def fused_paged_attention(qh, pool_k, pool_v, block_table, steps,
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err} ({err_str(err).decode()})")
     count_launch(counter)
+    if width == 512:
+        count_launch(f"{counter}_wide")
     return out, lse
 
 

@@ -15,11 +15,22 @@ and the serving engine's prefix-cache and chunked-prefill families
 ``serving_prefill_chunk_active``, ``paddle_tpu/serving/metrics.py:
 174-193, 414-420``), each labeled by engine. The families keep the
 reference's names so that ROADMAP A9 can port the rest of the registry
-without renaming them.
+without renaming them. The fixed-bucket `Histogram` and its
+`bucket_quantile` (``registry.py:153-257``) carry the serving engine's
+latency and size distributions (prefill, decode step, queue wait, TTFT,
+accepted drafts, chunk tokens and piggyback share,
+``paddle_tpu/serving/metrics.py:245-310``).
 """
 from __future__ import annotations
 
 import threading
+
+#: default latency bucket edges (seconds), the reference's: sub-ms decode
+#: steps on small models through multi-second prefills
+DEFAULT_LATENCY_BUCKETS = (
+    0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+    0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
+)
 
 
 class Counter:
@@ -74,9 +85,105 @@ class Gauge(Counter):
             self._children[key] = float(value)
 
 
+def bucket_quantile(edges, cum_buckets, q):
+    """The ``q``-quantile (``q`` in [0, 1]) estimated from cumulative
+    bucket counts (``registry.py:162-191``): ``cum_buckets`` has
+    ``len(edges) + 1`` entries, the +Inf bucket last. Linear
+    interpolation inside the bucket that holds the rank, the first bucket
+    from 0; a rank in the +Inf bucket clamps to the top finite edge.
+    None when the histogram is empty."""
+    if not 0.0 <= q <= 1.0:
+        raise ValueError(f"q must be in [0, 1], got {q}")
+    total = cum_buckets[-1]
+    if total == 0:
+        return None
+    rank = q * total
+    i = next(i for i, c in enumerate(cum_buckets) if c >= rank)
+    if i == len(edges):
+        return float(edges[-1])
+    lo = float(edges[i - 1]) if i > 0 else 0.0
+    hi = float(edges[i])
+    prev = cum_buckets[i - 1] if i > 0 else 0
+    in_bucket = cum_buckets[i] - prev
+    if in_bucket == 0:
+        return hi
+    return lo + (hi - lo) * (rank - prev) / in_bucket
+
+
+class Histogram:
+    """A fixed-bucket histogram in Prometheus's cumulative form, one
+    child per label-value tuple (``registry.py:194-257``): an
+    observation is an add to the first bucket whose edge holds it (or
+    the +Inf bucket), to the sum and to the count; `quantile` estimates
+    from the buckets through `bucket_quantile`, to within a bucket's
+    width."""
+
+    kind = "histogram"
+
+    def __init__(self, name, help="", labelnames=(), buckets=None):
+        self.name = name
+        self.help = help
+        self.labelnames = tuple(labelnames)
+        edges = tuple(float(e) for e in (buckets or DEFAULT_LATENCY_BUCKETS))
+        if list(edges) != sorted(edges) or len(set(edges)) != len(edges):
+            raise ValueError(f"bucket edges must be strictly sorted: {edges}")
+        self.edges = edges
+        self._children: dict[tuple, list] = {}
+        self._lock = threading.Lock()
+
+    _key = Counter._key
+
+    def observe(self, value, **labels):
+        value = float(value)
+        key = self._key(labels)
+        i = next((i for i, e in enumerate(self.edges) if value <= e),
+                 len(self.edges))
+        with self._lock:
+            c = self._children.get(key)
+            if c is None:
+                # bucket counts, then the sum and the count
+                c = self._children[key] = [0] * (len(self.edges) + 1) + [
+                    0.0, 0]
+            c[i] += 1
+            c[-2] += value
+            c[-1] += 1
+
+    def child(self, **labels):
+        """``(cumulative bucket counts, sum, count)`` of one child."""
+        key = self._key(labels)
+        with self._lock:
+            c = self._children.get(key)
+            if c is None:
+                return [0] * (len(self.edges) + 1), 0.0, 0
+            cum, acc = [], 0
+            for n in c[:-2]:
+                acc += n
+                cum.append(acc)
+            return cum, c[-2], c[-1]
+
+    def quantile(self, q, **labels):
+        """The bucket-estimated ``q``-quantile of one child; None while
+        it is empty."""
+        cum, _, _ = self.child(**labels)
+        return bucket_quantile(self.edges, cum, q)
+
+    def collect(self) -> list:
+        """``[(labels dict, {"buckets", "sum", "count"})]`` of every
+        child."""
+        with self._lock:
+            keys = list(self._children)
+        out = []
+        for k in keys:
+            labels = dict(zip(self.labelnames, k))
+            cum, total, count = self.child(**labels)
+            out.append((labels, {"buckets": cum, "sum": total,
+                                 "count": count}))
+        return out
+
+
 class MetricsRegistry:
     """Thread-safe name -> metric table with get-or-create constructors
-    (``registry.py:258-300``); counters and gauges."""
+    (``registry.py:258-300``); counters, gauges and histograms."""
 
     def __init__(self):
         self._metrics: dict[str, Counter] = {}
@@ -88,11 +195,22 @@ class MetricsRegistry:
     def gauge(self, name, help="", labelnames=()) -> Gauge:
         return self._get_or_create(Gauge, name, help, labelnames)
 
-    def _get_or_create(self, cls, name, help, labelnames):
+    def histogram(self, name, help="", labelnames=(),
+                  buckets=None) -> Histogram:
+        m = self._get_or_create(Histogram, name, help, labelnames,
+                                buckets=buckets)
+        if buckets is not None and tuple(float(e)
+                                         for e in buckets) != m.edges:
+            raise ValueError(
+                f"metric {name!r} already registered with bucket edges "
+                f"{m.edges}, conflicting with requested {tuple(buckets)}")
+        return m
+
+    def _get_or_create(self, cls, name, help, labelnames, **kw):
         with self._lock:
             m = self._metrics.get(name)
             if m is None:
-                m = self._metrics[name] = cls(name, help, labelnames)
+                m = self._metrics[name] = cls(name, help, labelnames, **kw)
             elif type(m) is not cls or m.labelnames != tuple(labelnames):
                 raise ValueError(f"metric {name!r} already registered as a "
                                  f"{m.kind} with labels {m.labelnames}")
@@ -111,4 +229,5 @@ def get_registry() -> MetricsRegistry:
     return _default_registry
 
 
-__all__ = ["Counter", "Gauge", "MetricsRegistry", "get_registry"]
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
+           "DEFAULT_LATENCY_BUCKETS", "bucket_quantile", "get_registry"]

@@ -2,17 +2,22 @@
 paged KV pool.
 
 Counterpart: ``paddle_tpu/serving/engine.py`` (the mode choice and its
-validations of :393-450, submit/step semantics of :757-927, stats of
-:1160-1208, the page budget and prefix reservation of :1429-1535,
-admission of :1536-1700, chunked prefill and `embed` of :1731-2024,
-decode of :2252-2291, the speculative step of :2293-2552, emit/release
-of :2647-2717). The port has the cooperative engine:
+validations of :222-540, submit/step semantics and background mode of
+:757-1160, the deadline, shed and feasibility admission of :1249-1450,
+stats of :1160-1208, the page budget, retries and prefix reservation of
+:1429-1535, admission of :1536-1700, chunked prefill and `embed` of
+:1731-2024, decode of :2252-2291, the speculative step and its adaptive
+rungs of :2293-2646, emit/release of :2647-2717). The engine:
 
 - `submit` queues a request and returns a `RequestHandle`;
-- `step` admits queued requests FCFS into free slots (each prompt
-  prefilled alone), then runs ONE decode step in which every slot,
-  active or parked, rides; EOS or the token budget frees the slot at
-  once.
+- `step` fails expired requests first, then admits queued requests FCFS
+  into free slots (each prompt prefilled alone), then runs ONE decode
+  step in which every slot, active or parked, rides; EOS or the token
+  budget frees the slot at once;
+- cooperatively, each waiting handle steps the engine itself; after
+  `start` (or ``with Engine(...) as eng:``) a daemon thread steps it,
+  and handles wait on their own streams. One re-entrant lock
+  serializes `step` with `submit`, `cancel`, `stats` and `embed`.
 
 ``kv_mode`` picks the KV cache, as the reference does: ``"slots"`` (the
 default without a paged feature) holds one dense ``[slots, H, max_len,
@@ -23,9 +28,9 @@ Pallas kernel either). ``"paged"`` (the default with ``prefix_cache``,
 ``chunk_tokens``, ``kv_quant`` or ``kv_pool_bytes``) holds a page pool
 (`paged.PagedKVCache`): each slot reserves its whole page budget at
 admission, a request that finds the pool exhausted stays queued at the
-head until a release returns pages, and decode attends through the
-block table (the Hopper paged-attention kernel on a card). Paged
-features:
+head until a release returns pages (or its ``admission_retries`` run
+out: `PoolExhaustedError`), and decode attends through the block table
+(the Hopper paged-attention kernel on a card). Paged features:
 
 - ``kv_quant="int8"`` or ``"fp8"`` stores the pool as 1-byte pages with
   per-token f32 scales: prefill attends its float local cache and
@@ -50,31 +55,66 @@ Both modes:
 - ``weight_quant="int8"`` serves weight-only int8 weights, dequantized
   inside each prefill and decode step (the model's `dequantized` scope);
 - ``spec_k=k`` replaces the decode step by a verify step of ``k + 1``
-  lanes per slot: an n-gram drafter (`speculative.NgramDrafter`,
-  suffix n-grams up to ``spec_ngram`` tokens) proposes up to ``k``
-  tokens per slot on the host, one pass scores them all, and the
+  lanes per slot: a drafter proposes up to ``k`` tokens per slot on the
+  host (the n-gram drafter `speculative.NgramDrafter`, or
+  ``draft_model=``: an object with ``draft(context, k)`` or a callable,
+  `speculative.CallableDrafter`), one pass scores them all, and the
   longest accepted prefix plus one token of the target's own is
   emitted. Greedy requests accept by argmax agreement (token-identical
   to ``spec_k=0``); sampled ones by modified rejection sampling
-  (distributed exactly as ``spec_k=0``). Every slot budgets ``k`` more
-  columns (``bucket + max_new + k <= max_len``, and its pages).
+  (distributed exactly as ``spec_k=0``). ``spec_adaptive=True`` (or an
+  `speculative.AdaptiveSpecK`) moves ``k`` between steps, off the live
+  accept history, across the rungs of `speculative.spec_k_ladder` up to
+  ``spec_k_max``: every rung's verify step is built at the first
+  speculative decode, and every slot budgets ``spec_k_max`` more
+  columns (``bucket + max_new + spec_k_max <= max_len``, and its pages)
+  whatever the current ``k``, so a grow never outruns a reservation;
+- ``default_deadline_s`` / ``submit(deadline_s=)`` bound a request's
+  lifetime: past it the request fails with `DeadlineExceededError` at
+  the next step, queued (no page reserved), decoding (slot and pages
+  released, tokens kept on ``handle.partial``) or mid-chunk. The
+  deadline clock is ``perf_counter`` plus a fault injector's skew, read
+  on the host only;
+- ``max_queue`` bounds the queue: ``shed_policy="refuse"`` raises
+  `OverloadedError` from `submit`, ``"shed_newest"`` fails the newcomer
+  and ``"shed_closest_deadline"`` the request nearest its deadline;
+  ``"infeasible"`` also refuses at submit a request whose deadline the
+  measured phase times price as unreachable (no-op until each phase
+  histogram holds 8 observations);
+- ``engine_id`` names the engine in its registry labels and step names;
+  ``fault_injector`` (`faults.FaultInjector`) fires ``step_hang`` and
+  ``step_error`` at dispatches, ``reserve_fail`` at reservations and
+  ``clock_skew`` on the deadline clock;
+- every request carries a `timeline.Timeline`, closed with its typed
+  cause; ``engine.timelines`` (`timeline.TimelineRing`) keeps the
+  terminated ones. `close` fails every queued and in-flight request with
+  `errors.EngineClosedError` and returns every page.
 
 Every step is a `jit.capture.CapturedStep` (`compiled`): one a prompt
 bucket (dense or paged prefill), one a tail bucket (the prefix cache's
-tail prefill), one a chunk width (`embed`), the decode/verify step, and
-the mixed chunk step. On a card each is one CUDA graph, captured on
-first use into the engine's one graph memory pool and then only
-replayed; on the CPU the same body runs eagerly on the same static
-buffers. Each build is counted (``stats().prefill_traces`` and
-``decode_traces``; the mixed step registers in the decode family
+tail prefill), one a chunk width (`embed`), the decode/verify step (one
+a rung when adaptive), and the mixed chunk step. On a card each is one
+CUDA graph, captured on first use into the engine's one graph memory
+pool and then only replayed; on the CPU the same body runs eagerly on
+the same static buffers. Each build is counted (``stats().
+prefill_traces`` and ``decode_traces``; the mixed step and the adaptive
+rungs other than the starting one register in the decode family
 without counting) and reported to the recompile sentinel under the
 engine's own names (`metrics.EngineMetrics.note_trace`). Token
-selection runs after the replay, eagerly. Arguments of features that
-later slices bring raise `NotImplementedError` naming the feature.
+selection runs after the replay, eagerly.
+
+Arguments of features that later slices bring raise
+`NotImplementedError` naming the ROADMAP item: ``profiler``,
+``observability_port``, ``flight_recorder`` and ``slo`` (A9, with the
+reference's tracing calls), ``role`` and ``kv_pool`` (A10: the cluster,
+its handoff, requeue and watchdog hooks), ``mesh`` and ``sharding_rule``
+(A12), ``dtype`` (A2).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
+import threading
 import time
 
 import numpy as np
@@ -90,6 +130,9 @@ from .compiled import (build_cached_prefill_fn,
                        build_embed_prefill_fn, build_paged_prefill_fn,
                        build_paged_verify_step_fn, build_prefill_fn,
                        build_verify_step_fn)
+from .errors import (DeadlineExceededError, EngineClosedError,
+                     InfeasibleDeadlineError, OverloadedError,
+                     PoolExhaustedError)
 from .kv_slots import SlotKVCache
 from .metrics import EngineMetrics
 from .paged import PagedKVCache, pages_in_budget
@@ -97,7 +140,10 @@ from .prefix_cache import PrefixCache
 from .request import (CANCELLED, DECODING, FINISHED, QUEUED, Request,
                       RequestHandle, SamplingParams)
 from .scheduler import SlotScheduler
-from .speculative import NgramDrafter, longest_accept, normalize_draft
+from .speculative import (AdaptiveSpecK, CallableDrafter, NgramDrafter,
+                          longest_accept, normalize_draft, spec_k_ladder)
+from .timeline import (PHASE_ADMITTED, PHASE_DECODE, PHASE_PREFILL,
+                       TimelineRing)
 
 #: the launch-count names of the paged kernel (float, int8, fp8 pools)
 _PAGED_KERNELS = ("paged_attention", "paged_attention_int8",
@@ -106,25 +152,24 @@ _PAGED_KERNELS = ("paged_attention", "paged_attention_int8",
 #: Engine arguments of later slices: name -> (the value that means
 #: "off", the ROADMAP queue-A feature that brings it)
 _LATER = {
-    "draft_model": (None, "A8 draft-model speculation"),
-    "spec_adaptive": (False, "A8 adaptive spec_k"),
-    "spec_k_max": (None, "A8 adaptive spec_k"),
     "mesh": (None, "A12 distributed serving"),
     "sharding_rule": (None, "A12 distributed serving"),
     "role": ("both", "A10 disaggregated serving"),
     "kv_pool": (None, "A10 disaggregated serving"),
-    "engine_id": (None, "A10 serving fleet (replica identity)"),
-    "fault_injector": (None, "A10 serving fleet (fault injection)"),
-    "default_deadline_s": (None, "A8.6 deadlines and bounded admission"),
-    "max_queue": (None, "A8.6 deadlines and bounded admission"),
-    "shed_policy": ("refuse", "A8.6 deadlines and bounded admission"),
-    "admission_retries": (64, "A8.6 deadlines and bounded admission"),
     "profiler": (None, "A9 observability (profiler)"),
     "observability_port": (None, "A9 observability (server endpoints)"),
     "flight_recorder": (None, "A9 observability (flight recorder)"),
     "slo": (None, "A9 observability (SLO tracking)"),
     "dtype": (None, "A2 scaffold (serving dtype)"),
 }
+#: the shed policies of bounded admission
+_SHED_POLICIES = ("refuse", "shed_newest", "shed_closest_deadline",
+                  "infeasible")
+#: feasibility admission prices service at this quantile of the phase
+#: histograms, once each holds this many observations
+#: (``paddle_tpu/serving/control.py:69-78``)
+FEASIBILITY_QUANTILE = 0.5
+FEASIBILITY_MIN_SAMPLES = 8
 
 
 def _later(feature: str):
@@ -204,20 +249,32 @@ class Engine:
     ``chunk_tokens``: admit a longer uncached tail in chunks of this
     many tokens, each in a mixed step with every slot's decode (not
     with ``spec_k``). ``spec_k``: draft tokens per verify step (0 =
-    plain decode); ``spec_ngram``: the longest suffix n-gram the drafter
-    matches. ``weight_quant="int8"``: weight-only int8 serving, the
-    quantizer of `GenerationMixin.generate`
+    plain decode); ``spec_ngram``: the longest suffix n-gram the n-gram
+    drafter matches; ``draft_model``: another drafter (``.draft(context,
+    k)`` or a callable ``fn(context, k)``); ``spec_adaptive``: True or
+    an `AdaptiveSpecK` moving ``k`` between steps; ``spec_k_max``: the
+    largest ``k`` (default ``spec_k``; adaptive: at least the top rung),
+    which every admission budgets. ``weight_quant="int8"``: weight-only
+    int8 serving, the quantizer of `GenerationMixin.generate`
     (`models.generation.quantize_state_int8`, cached on the model);
     every step dequantizes the weights it runs on inside its graph, as
-    the reference's step executable does. ``device``: ``None`` means
-    ``cuda`` (raises without a GPU); it must be the model's device.
+    the reference's step executable does. ``engine_id``: the engine's
+    name (default ``engine<n>``). ``default_deadline_s``: every
+    request's deadline unless `submit` gives one. ``max_queue`` /
+    ``shed_policy``: bounded admission. ``admission_retries``: failed
+    page reservations before `PoolExhaustedError`. ``fault_injector``:
+    a `faults.FaultInjector`. ``device``: ``None`` means ``cuda``
+    (raises without a GPU); it must be the model's device.
     """
 
     def __init__(self, model, slots=4, max_len=None, prefill_buckets=None,
                  page_size=16, kv_pages=None, top_k=0, seed=0, device=None,
                  kv_mode=None, kv_quant=None, spec_k=0, spec_ngram=3,
                  kv_pool_bytes=None, weight_quant=None, prefix_cache=False,
-                 chunk_tokens=None, **later):
+                 chunk_tokens=None, draft_model=None, spec_adaptive=False,
+                 spec_k_max=None, engine_id=None, default_deadline_s=None,
+                 max_queue=None, shed_policy="refuse", admission_retries=64,
+                 fault_injector=None, **later):
         for name, value in later.items():
             if name not in _LATER:
                 raise TypeError(f"Engine() got an unexpected argument "
@@ -231,6 +288,14 @@ class Engine:
                 "(bucket(prompt) + max_new_tokens must fit in it)")
         if int(spec_k) < 0:
             raise ValueError(f"spec_k must be >= 0, got {spec_k}")
+        if shed_policy not in _SHED_POLICIES:
+            raise ValueError(
+                f"shed_policy must be 'refuse', 'shed_newest', "
+                f"'shed_closest_deadline' or 'infeasible', "
+                f"got {shed_policy!r}")
+        if default_deadline_s is not None and default_deadline_s <= 0:
+            raise ValueError(
+                f"default_deadline_s must be > 0, got {default_deadline_s}")
         self.kv_mode = _resolve_kv_mode(kv_mode, kv_quant, kv_pool_bytes,
                                         kv_pages, prefix_cache,
                                         chunk_tokens, spec_k)
@@ -248,10 +313,8 @@ class Engine:
         self.slots = int(slots)
         self.top_k = int(top_k)
         self._seed = int(seed)
-        #: verify lanes past the pending token (0 = plain decode)
-        self.spec_k = int(spec_k)
-        self._drafter = (NgramDrafter(max_ngram=int(spec_ngram))
-                         if self.spec_k else None)
+        self._init_spec(int(spec_k), int(spec_ngram), draft_model,
+                        spec_adaptive, spec_k_max)
         self._vocab = int(model.config.vocab_size)
         if self.kv_mode == "paged":
             self.kv = PagedKVCache(model, self.slots, int(max_len),
@@ -262,8 +325,11 @@ class Engine:
         buckets = (prefill_buckets if prefill_buckets is not None
                    else (max(1, int(max_len) // 2),))
         self.scheduler = SlotScheduler(self.slots, buckets, int(max_len),
-                                       spec_cols=self.spec_k)
-        self.metrics = EngineMetrics()
+                                       spec_cols=self._spec_k_max)
+        self.metrics = (EngineMetrics(engine_id=str(engine_id))
+                        if engine_id is not None else EngineMetrics())
+        if self._spec_k:
+            self.metrics.note_spec_k(self._spec_k)
         #: the radix prefix cache (None without ``prefix_cache``); pool
         #: pressure evicts from it, counted in ``prefix_evicted_pages``
         self.prefix = PrefixCache(self.kv) if prefix_cache else None
@@ -276,22 +342,118 @@ class Engine:
         #: reservation but is in neither the queue nor ``_slot_req``
         self._chunk_req: Request | None = None
         self._chunk_t0 = 0.0
+        #: the request `step` popped for admission and has not slotted
+        #: yet (in neither the queue nor a slot: the shutdown sweep
+        #: covers it)
+        self._admitting: Request | None = None
+        # -- deadlines and bounded admission ---------------------------
+        self._default_deadline_s = (float(default_deadline_s)
+                                    if default_deadline_s is not None
+                                    else None)
+        self._max_queue = int(max_queue) if max_queue is not None else None
+        self._shed_policy = shed_policy
+        self._admission_retries = int(admission_retries)
+        #: `faults.FaultInjector` or None (one ``is None`` check a hook)
+        self._faults = fault_injector
+        #: moving average of an admission's seconds (the queue delay
+        #: estimate)
+        self._ewma_admit_s = None
+        #: the terminated requests' timelines
+        self.timelines = TimelineRing()
         self._tokens = np.zeros((self.slots,), np.int64)
         self._slot_req: list[Request | None] = [None] * self.slots
         self._next_rid = 0
         self._fatal: BaseException | None = None
+        self._closed = False
+        self._lock = threading.RLock()
+        self._thread: threading.Thread | None = None
+        self._running = False
         #: the graph memory pool of every step of this engine
         self._graphs = graph_pool(self.device)
         #: the steps, each built on first use: prefill by bucket, tail
         #: prefill by tail bucket, embed by chunk width, the decode/verify
-        #: step, the mixed chunk step
+        #: step of each k (``_verify``: the current one), the mixed chunk
+        #: step
         self._prefill_fns: dict = {}
         self._cprefill_fns: dict = {}
         self._embed_fns: dict = {}
+        self._verify_fns: dict = {}
         self._verify = None
         self._chunk_fn = None
 
+    def _init_spec(self, spec_k, spec_ngram, draft_model, spec_adaptive,
+                   spec_k_max):
+        """The drafter, the k ceiling and the adaptive controller
+        (``engine.py:344-404``)."""
+        #: verify lanes past the pending token (0 = plain decode); an
+        #: adaptive engine moves it between steps
+        self._spec_k = spec_k
+        if not spec_k:
+            self._drafter = None
+        elif draft_model is None:
+            self._drafter = NgramDrafter(max_ngram=spec_ngram)
+        elif hasattr(draft_model, "draft"):
+            self._drafter = draft_model
+        else:
+            self._drafter = CallableDrafter(draft_model)
+        #: the k every admission budgets for: spec_k, or the top rung
+        self._spec_k_max = (int(spec_k_max) if spec_k_max is not None
+                            else spec_k)
+        if self._spec_k_max < spec_k:
+            raise ValueError(f"spec_k_max must be >= spec_k, got "
+                             f"{self._spec_k_max} < {spec_k}")
+        if spec_k_max is not None and not spec_k:
+            raise ValueError("spec_k_max requires spec_k > 0")
+        #: the accept-driven k controller (None: k is fixed)
+        self._spec_ctrl = None
+        if spec_adaptive:
+            if not spec_k:
+                raise ValueError(
+                    "spec_adaptive needs spec_k > 0 (the starting k)")
+            self._spec_ctrl = (
+                spec_adaptive if isinstance(spec_adaptive, AdaptiveSpecK)
+                else AdaptiveSpecK(spec_k_ladder(spec_k, self._spec_k_max),
+                                   k0=spec_k))
+            if spec_k not in self._spec_ctrl.rungs:
+                raise ValueError(
+                    f"spec_k={spec_k} not in the controller's rungs "
+                    f"{self._spec_ctrl.rungs}")
+            self._spec_k_max = max(self._spec_k_max,
+                                   max(self._spec_ctrl.rungs))
+        #: (decode step, new k) of every rung move
+        self._spec_k_history: list = []
+
     # -- client surface --------------------------------------------------
+    @property
+    def engine_id(self) -> str:
+        """The engine's name: the ``engine=`` label of its registry
+        families and the bracket of its step names."""
+        return self.metrics.engine_id
+
+    @property
+    def alive(self) -> bool:
+        """False once the engine died on a step failure or was closed."""
+        return self._fatal is None
+
+    @property
+    def running(self) -> bool:
+        """True while the background loop (`start`) steps the engine."""
+        return self._running
+
+    @property
+    def saturated(self) -> bool:
+        """True while bounded admission would shed or refuse a request
+        arriving now (always False without ``max_queue``)."""
+        return (self._max_queue is not None
+                and self.scheduler.queue_depth >= self._max_queue)
+
+    @property
+    def est_queue_delay_s(self) -> float:
+        """The submit-to-admission delay of a request arriving now: the
+        queue depth times the moving average of an admission's seconds
+        (``engine.py:594-600``)."""
+        return self.scheduler.queue_depth * (self._ewma_admit_s or 0.0)
+
     def submit(self, prompt_ids, max_new_tokens=32, eos_token_id=None,
                decode_strategy="greedy_search", temperature=1.0,
                top_k=None, top_p=None, seed=None,
@@ -301,35 +463,52 @@ class Engine:
         (temperature 0 means greedy; ``top_k`` of a sampled request must
         equal the engine's). A sampled request draws from its own
         generator, seeded by ``seed`` (default: the engine seed and the
-        request id), so it reproduces whatever shares its batch."""
-        self._check_alive()
-        if deadline_s is not None:
-            raise _later("submit(deadline_s=...): A8 deadlines and "
-                         "bounded admission")
-        rid = self._next_rid
-        self._next_rid += 1
-        req = self._prepare(rid, prompt_ids, max_new_tokens, eos_token_id,
-                            decode_strategy, temperature, top_k, top_p, seed)
-        req.bucket = self.scheduler.validate(req)
-        if self.kv_mode == "paged":
-            # a budget beyond the whole pool could never admit
-            need, span = self._page_budget(req)
-            if need > self.kv.pages_total:
-                spec = (f" + {self.spec_k} speculative verify lanes"
-                        if self.spec_k else "")
-                raise ValueError(
-                    f"request needs {need} KV pages ({span} + "
-                    f"{req.max_new_tokens} new tokens{spec} at page_size "
-                    f"{self.kv.page_size}) but the pool holds "
-                    f"{self.kv.pages_total} — raise kv_pages or lower "
-                    "max_new_tokens")
-        req.handle = RequestHandle(self, req)
-        self.scheduler.enqueue(req)
-        self.metrics.submitted += 1
-        return req.handle
+        request id), so it reproduces whatever shares its batch.
+
+        ``deadline_s`` (default: the engine's ``default_deadline_s``;
+        ``float("inf")`` opts one request out of it) bounds the
+        request's lifetime: past it the request fails with
+        `DeadlineExceededError` at the engine's next step. With
+        ``max_queue`` set and the queue full, ``shed_policy="refuse"``
+        (and ``"infeasible"``) raises `OverloadedError` here; the shed
+        policies return a handle that may already be failed with it."""
+        with self._lock:
+            self._check_alive()
+            rid = self._next_rid
+            self._next_rid += 1
+            req = self._prepare(rid, prompt_ids, max_new_tokens,
+                                eos_token_id, decode_strategy, temperature,
+                                top_k, top_p, seed,
+                                deadline_s if deadline_s is not None
+                                else self._default_deadline_s)
+            req.bucket = self.scheduler.validate(req)
+            if self.kv_mode == "paged":
+                # a budget beyond the whole pool could never admit
+                need, span = self._page_budget(req)
+                if need > self.kv.pages_total:
+                    spec = (f" + {self._spec_k_max} speculative verify "
+                            "lanes" if self._spec_k else "")
+                    raise ValueError(
+                        f"request needs {need} KV pages ({span} + "
+                        f"{req.max_new_tokens} new tokens{spec} at "
+                        f"page_size {self.kv.page_size}) but the pool "
+                        f"holds {self.kv.pages_total} — raise kv_pages or "
+                        "lower max_new_tokens")
+            req.handle = RequestHandle(self, req)
+            if self._shed_policy == "infeasible":
+                # a doomed deadline is refused whatever the queue holds
+                self._check_feasible(req)
+            if self.saturated:
+                self._shed_admission(req)
+                if req.done:
+                    return req.handle
+            self.scheduler.enqueue(req)
+            self.metrics.submitted += 1
+            return req.handle
 
     def _prepare(self, rid, prompt_ids, max_new_tokens, eos_token_id,
-                 decode_strategy, temperature, top_k, top_p, seed):
+                 decode_strategy, temperature, top_k, top_p, seed,
+                 deadline_s):
         if decode_strategy == "beam_search":
             raise NotImplementedError(
                 "the continuous-batching engine serves greedy_search and "
@@ -364,6 +543,12 @@ class Engine:
                                 top_p)
         req = Request(rid, ids.astype(np.int64), int(max_new_tokens),
                       eos_token_id, params)
+        if deadline_s is not None:
+            if deadline_s <= 0:
+                raise ValueError(f"deadline_s must be > 0, got {deadline_s}")
+            req.deadline_s = float(deadline_s)
+            # the sweep compares the (possibly skewed) `_now` with it
+            req.deadline_t = req.submit_time + req.deadline_s
         if not params.greedy:
             s = int(seed) if seed is not None else self._seed * 1_000_003 + rid
             req.seed = s
@@ -371,24 +556,36 @@ class Engine:
         return req
 
     def step(self) -> bool:
-        """One engine iteration: admit queued requests into free slots,
-        then one decode step over all slots (while a prompt is mid-chunk,
-        the mixed step: its next chunk and the decode step together).
-        False when fully idle."""
+        """One engine iteration: fail expired requests, admit queued
+        requests into free slots, then one decode step over all slots
+        (while a prompt is mid-chunk, the mixed step: its next chunk and
+        the decode step together). False when fully idle. A failure
+        kills the engine: every handle fails with the cause and every
+        page returns."""
         self._check_alive()
         try:
-            with torch.inference_mode():
-                did = False
+            with self._lock, torch.inference_mode():
+                self._check_alive()
+                # first: an expired queued request fails before it
+                # reserves pages, an expired slot frees its pages for
+                # this step's admissions
+                did = self._sweep_deadlines()
                 while self._chunk_req is None:
                     # one chunking request at a time, and nothing behind
                     # it admits until it has its slot (FCFS)
                     req = self.scheduler.next_admission()
                     if req is None:
                         break
-                    if self.kv_mode == "paged" and not self._reserve(req):
+                    self._admitting = req
+                    if self.kv_mode == "paged" and not self._admission_ok(
+                            req):
+                        self._admitting = None
+                        if req.done:
+                            # its retries ran out: failed typed
+                            did = True
+                            continue
                         # pool exhausted: back to the queue head until a
                         # release returns pages (no neighbour is touched)
-                        self.metrics.kv_pages_exhausted += 1
                         self.scheduler.requeue_admission(req)
                         break
                     did = True
@@ -396,8 +593,10 @@ class Engine:
                             and req.prompt_len - req.prefix_len
                             > self._chunk_tokens):
                         self._begin_chunk(req)
+                        self._admitting = None
                         break
                     self._admit(req)
+                    self._admitting = None
                 if self._chunk_req is not None:
                     self._chunk_step()
                     did = True
@@ -410,9 +609,68 @@ class Engine:
             self._die(exc)
             raise
 
+    def run_until_idle(self):
+        """Step until the engine is idle."""
+        while self.step():
+            pass
+
+    # -- background mode -------------------------------------------------
     def start(self):
-        raise _later("Engine.start() (a background step thread): A8 "
-                     "background serving")
+        """Step the engine on a daemon thread (handles then wait on their
+        streams instead of stepping it). Returns the engine."""
+        with self._lock:
+            self._check_alive()
+            if self._running:
+                return self
+            self._running = True
+            self._thread = threading.Thread(
+                target=self._loop, daemon=True,
+                name=f"serving-engine[{self.engine_id}]")
+            self._thread.start()
+        return self
+
+    def stop(self):
+        """Stop the background loop and join its thread (the engine stays
+        usable cooperatively)."""
+        self._running = False
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def __enter__(self):
+        return self.start()
+
+    def __exit__(self, *exc):
+        self.stop()
+
+    def _loop(self):
+        # a new thread's current CUDA device is 0: make the engine's
+        # current, and replay on this thread's stream of it
+        dev = (torch.cuda.device(self.device) if self.device.type == "cuda"
+               else contextlib.nullcontext())
+        with dev:
+            while self._running:
+                try:
+                    if not self.step():
+                        time.sleep(0.001)
+                except Exception:
+                    # step() already failed every handle (`_die`)
+                    return
+
+    def close(self):
+        """Idempotent shutdown: stop the background loop, fail every
+        queued and in-flight request with `EngineClosedError` and return
+        its slot and pages; later calls are refused."""
+        with self._lock:
+            if self._closed:
+                return
+            self._closed = True
+        self.stop()
+        with self._lock:
+            if self._fatal is None:
+                self._shutdown_sweep(EngineClosedError(
+                    f"engine {self.engine_id} was closed while the request "
+                    "was queued or in flight"))
 
     def embed(self, prompts) -> list:
         """The final ``ln_f`` hidden state ``[hidden]`` float32 (numpy) of
@@ -438,45 +696,49 @@ class Engine:
                 raise ValueError(
                     f"embed prompts must be non-empty 1-D id sequences "
                     f"(or [1, len]), got shape {ids.shape}")
-            out.append(self._embed_one(ids.astype(np.int64)))
+            with self._lock:
+                out.append(self._embed_one(ids.astype(np.int64)))
         return out
 
     def stats(self):
         """`metrics.EngineStats` snapshot; the pool's page fields only in
         paged mode (``engine.py:1160-1208``)."""
-        counts = kernel_launch_counts()
-        paged = {}
-        if self.kv_mode == "paged":
-            paged = dict(
-                kv_page_size=self.kv.page_size,
-                kv_pages_total=self.kv.pages_total,
-                kv_pages_in_use=self.kv.pages_in_use,
-                kv_pages_free=self.kv.pages_free,
-                kv_slot_pages=self.kv.slot_page_counts(),
-                kv_quant=self.kv.kv_quant,
-                kv_pool_bytes=self.kv.memory_bytes(),
-                kv_bytes_per_token=(self.kv.bytes_per_page()
-                                    / self.kv.page_size))
-            if self.prefix is not None:
-                paged["prefix_cached_pages"] = self.prefix.cached_pages
-        return self.metrics.snapshot(
-            kv_mode=self.kv_mode,
-            queue_depth=self.scheduler.queue_depth,
-            active_slots=self.kv.occupancy,
-            free_slots=self.scheduler.free_slots,
-            kv_cache_bytes=self.kv.memory_bytes(),
-            spec_k=self.spec_k,
-            chunk_tokens=self._chunk_tokens or 0,
-            capture_s=sum(fn.capture_s for fn in self._steps()),
-            paged_attention_launches=sum(counts[k] for k in _PAGED_KERNELS),
-            **paged)
+        with self._lock:
+            counts = kernel_launch_counts()
+            paged = {}
+            if self.kv_mode == "paged":
+                paged = dict(
+                    kv_page_size=self.kv.page_size,
+                    kv_pages_total=self.kv.pages_total,
+                    kv_pages_in_use=self.kv.pages_in_use,
+                    kv_pages_free=self.kv.pages_free,
+                    kv_slot_pages=self.kv.slot_page_counts(),
+                    kv_quant=self.kv.kv_quant,
+                    kv_pool_bytes=self.kv.memory_bytes(),
+                    kv_bytes_per_token=(self.kv.bytes_per_page()
+                                        / self.kv.page_size))
+                if self.prefix is not None:
+                    paged["prefix_cached_pages"] = self.prefix.cached_pages
+            return self.metrics.snapshot(
+                kv_mode=self.kv_mode,
+                queue_depth=self.scheduler.queue_depth,
+                active_slots=self.kv.occupancy,
+                free_slots=self.scheduler.free_slots,
+                kv_cache_bytes=self.kv.memory_bytes(),
+                spec_k=self._spec_k,
+                spec_k_history=tuple(self._spec_k_history),
+                est_queue_delay_s=self.est_queue_delay_s,
+                chunk_tokens=self._chunk_tokens or 0,
+                capture_s=sum(fn.capture_s for fn in self._steps()),
+                paged_attention_launches=sum(counts[k]
+                                             for k in _PAGED_KERNELS),
+                **paged)
 
     def _steps(self):
         """Every step this engine built so far."""
         return [*self._prefill_fns.values(), *self._cprefill_fns.values(),
-                *self._embed_fns.values(),
-                *(fn for fn in (self._verify, self._chunk_fn)
-                  if fn is not None)]
+                *self._embed_fns.values(), *self._verify_fns.values(),
+                *((self._chunk_fn,) if self._chunk_fn is not None else ())]
 
     def _pool_kw(self, tag=None, kind="prefill", count=True):
         """The keyword arguments every step builder takes: what the step
@@ -526,19 +788,65 @@ class Engine:
         return fn
 
     def _verify_fn(self):
-        """The decode (W = 1) or verify (W = spec_k + 1) step (built on
-        first use)."""
+        """The current decode (W = 1) or verify (W = k + 1) step; the
+        first call builds the family (`_build_verify_fns`)."""
         if self._verify is None:
-            kw = self._pool_kw(kind="decode")
-            self._verify = (
-                build_paged_verify_step_fn(
-                    self.model, self.slots, self.spec_k + 1,
-                    self.kv.max_pages, self.kv.page_size, **kw)
-                if self.kv_mode == "paged"
-                else build_verify_step_fn(self.model, self.slots,
-                                          self.spec_k + 1, self.kv.max_len,
-                                          **kw))
+            self._build_verify_fns()
         return self._verify
+
+    def _build_verify_fns(self):
+        """Build the verify steps at the first decode (``engine.py:
+        2552-2595``): one for a fixed k, or every rung of an adaptive
+        ladder, each rung but the current one run once here on parked
+        operands (`_prewarm_verify`) so that a later k move replays a
+        step already built. Only the starting rung counts in
+        ``decode_traces``; the others register with the sentinel under
+        ``k{k}`` without counting, so ``decode_traces == 1`` keeps
+        meaning one live decode path."""
+        rungs = (self._spec_ctrl.rungs if self._spec_ctrl is not None
+                 else (self._spec_k,))
+        for k in rungs:
+            if self._spec_ctrl is None:
+                kw = self._pool_kw(kind="decode")
+            else:
+                kw = self._pool_kw(f"k{k}", kind="decode",
+                                   count=k == self._spec_k)
+            self._verify_fns[k] = (
+                build_paged_verify_step_fn(
+                    self.model, self.slots, k + 1, self.kv.max_pages,
+                    self.kv.page_size, **kw)
+                if self.kv_mode == "paged"
+                else build_verify_step_fn(self.model, self.slots, k + 1,
+                                          self.kv.max_len, **kw))
+        for k in rungs:
+            if k != self._spec_k:
+                self._prewarm_verify(k)
+        self._verify = self._verify_fns[self._spec_k]
+
+    def _prewarm_verify(self, k: int):
+        """Build one rung that is not the current k on parked operands:
+        an all-zero window behind each slot's pending token (``engine.py:
+        2596-2629``; `CapturedStep.build`: on a card its warm-up runs the
+        body once, uncounted, and no replay follows). Safe beside live
+        slots: lane 0 writes the pending token's own K/V at its cursor,
+        and the other lanes write above every cursor, on the slot's
+        reserved pages (budgeted for ``spec_k_max``) or the sentinel page,
+        where nothing is read before a real window overwrites it, the
+        invariant rollback rests on. Not a step: no step count, fault
+        hook, timing or launch count."""
+        toks = np.zeros((self.slots, k + 1), np.int64)
+        toks[:, 0] = self._tokens
+        self._verify_fns[k].build(**self._step_operands(toks))
+
+    def _set_spec_k(self, k: int):
+        """Move to rung ``k`` between steps (``engine.py:2631-2646``): the
+        current step becomes that rung's; the admission budget stays at
+        ``spec_k_max``."""
+        self._spec_k = int(k)
+        self._verify = self._verify_fns[self._spec_k]
+        self._spec_k_history.append((self.metrics.decode_steps,
+                                     self._spec_k))
+        self.metrics.note_spec_k(self._spec_k)
 
     def _mixed_fn(self):
         """The mixed chunk + decode step (built on first use; a second
@@ -566,18 +874,230 @@ class Engine:
     # -- internals -------------------------------------------------------
     def _check_alive(self):
         if self._fatal is not None:
+            if isinstance(self._fatal, EngineClosedError):
+                raise RuntimeError(
+                    f"engine {self.engine_id} is closed") from self._fatal
             raise RuntimeError("the serving engine died on a step failure; "
                                "build a new Engine") from self._fatal
 
     def _die(self, exc: BaseException):
-        """Fail every queued, chunking and in-flight request with the
-        cause."""
+        """A step failed: record the death, fail every request with the
+        cause and return every page (`_shutdown_sweep`)."""
+        with self._lock:
+            if self._fatal is None:
+                self._shutdown_sweep(exc)
+
+    def _shutdown_sweep(self, exc: BaseException):
+        """The teardown of `_die` and `close` (``engine.py:1070-1143``;
+        lock held): fail the queued, admitting, chunking and slotted
+        requests with ``exc`` and release every slot and page they hold
+        (page accounting is host-side, so it holds after any failure)."""
+        self._running = False
         self._fatal = exc
-        for req in (self.scheduler.queued_requests() + tuple(self._slot_req)
-                    + (self._chunk_req,)):
-            if req is not None and not req.done:
+        queued = [r for r in self.scheduler.queued_requests() if not r.done]
+        for req in queued:
+            self.scheduler.remove(req)
+        for held in (self._admitting, self._chunk_req):
+            if held is None:
+                continue
+            if held.slot is not None:
+                self.kv.release(held.slot)
+                self.scheduler.release(held.slot)
+                held.slot = None
+            if not held.done:
+                queued.insert(0, held)
+        self._admitting = None
+        if self._chunk_req is not None:
+            self._chunk_req = None
+            self.metrics.set_chunk_active(False)
+        for req in queued:
+            req.state = CANCELLED
+            req.handle._close(exc)
+        for slot, req in enumerate(self._slot_req):
+            if req is None:
+                continue
+            self._slot_req[slot] = None
+            self.kv.release(slot)
+            self.scheduler.release(slot)
+            if not req.done:
                 req.state = CANCELLED
                 req.handle._close(exc)
+
+    def _fault(self, phase: str, index: int):
+        """The fault injector's dispatch hook (``step_hang``,
+        ``step_error``), just before a step's dispatch."""
+        if self._faults is not None:
+            self._faults.on_dispatch(self, phase, index)
+
+    def _now(self) -> float:
+        """The deadline clock: perf_counter plus any injected skew."""
+        t = time.perf_counter()
+        if self._faults is not None:
+            t += self._faults.skew(self)
+        return t
+
+    def _sweep_deadlines(self) -> bool:
+        """Fail every expired request (``engine.py:1256-1289``): queued
+        ones before any page is reserved, decoding ones with their slot
+        and pages released (the tokens so far stay on the handle), the
+        mid-chunk one through `_abort_chunk`. True when any expired."""
+        did = False
+        now = self._now()
+
+        def expired(r):
+            return (r is not None and r.deadline_t is not None
+                    and now > r.deadline_t and not r.done)
+
+        for req in self.scheduler.queued_requests():
+            if expired(req):
+                self.scheduler.remove(req)
+                self._expire(req, "queued")
+                did = True
+        for req in list(self._slot_req):
+            if expired(req):
+                self._expire(req, "decoding")
+                did = True
+        creq = self._chunk_req
+        if expired(creq):
+            self.metrics.note_deadline_exceeded()
+            self._abort_chunk(creq, DeadlineExceededError(
+                f"request {creq.rid} missed its {creq.deadline_s:.3f}s "
+                "deadline mid-chunked-prefill (no tokens emitted)"))
+            did = True
+        return did
+
+    def _expire(self, req: Request, where: str):
+        """The typed deadline failure of a queued or decoding request."""
+        req.state = CANCELLED
+        self.metrics.note_deadline_exceeded()
+        detail = ("while queued (no tokens emitted)" if where == "queued"
+                  else f"mid-decode ({len(req.emitted)} tokens emitted, "
+                       "readable on handle.partial)")
+        self._release(req, DeadlineExceededError(
+            f"request {req.rid} missed its {req.deadline_s:.3f}s deadline "
+            f"{detail}"))
+
+    def _feasibility_estimate(self, max_new_tokens: int,
+                              prompt_tokens: int | None = None):
+        """``(seconds, detail)`` to serve a request arriving now
+        (``paddle_tpu/serving/control.py:187-238``): the queue delay
+        estimate, the backlog's service waves and the request's own
+        prefill (on a chunking engine a chunk step per ``chunk_tokens``
+        of its ``prompt_tokens``) and ``max_new_tokens`` decode steps,
+        priced at the `FEASIBILITY_QUANTILE` of this engine's phase
+        histograms. ``(None, detail)`` until each holds
+        `FEASIBILITY_MIN_SAMPLES` observations."""
+        prefill_q, n_prefill = self.metrics.quantile("h_prefill",
+                                                     FEASIBILITY_QUANTILE)
+        decode_q, n_decode = self.metrics.quantile("h_decode",
+                                                   FEASIBILITY_QUANTILE)
+        detail = dict(est_queue_delay_s=self.est_queue_delay_s,
+                      prefill_s=prefill_q, decode_step_s=decode_q,
+                      quantile=FEASIBILITY_QUANTILE,
+                      samples=(n_prefill, n_decode))
+        if (prefill_q is None or decode_q is None
+                or min(n_prefill, n_decode) < FEASIBILITY_MIN_SAMPLES):
+            return None, detail
+        if self._chunk_tokens and prompt_tokens:
+            detail["prefill_chunks"] = max(
+                1, -(-int(prompt_tokens) // self._chunk_tokens))
+            detail["prefill_s"] = prefill_q * detail["prefill_chunks"]
+        per_req = detail["prefill_s"] + max_new_tokens * decode_q
+        detail["backlog_s"] = (self.scheduler.queue_depth
+                               / max(1, self.slots) * per_req)
+        return (detail["est_queue_delay_s"] + detail["backlog_s"]
+                + per_req), detail
+
+    def _check_feasible(self, req: Request):
+        """``shed_policy="infeasible"`` (``engine.py:1305-1361``): refuse
+        at submit, typed, a request whose finite deadline the estimate
+        already exceeds."""
+        if req.deadline_t is None or req.deadline_t == float("inf"):
+            return
+        est, detail = self._feasibility_estimate(req.max_new_tokens,
+                                                 req.prompt_len)
+        if est is None:
+            return
+        remaining = req.deadline_t - self._now()
+        if est <= remaining:
+            return
+        self.metrics.note_shed("infeasible")
+        exc = InfeasibleDeadlineError(
+            f"request {req.rid} cannot meet its deadline on engine "
+            f"{self.engine_id}: estimated {est:.3f}s (queue "
+            f"{detail['est_queue_delay_s']:.3f}s + prefill "
+            f"{detail['prefill_s']:.3f}s + {req.max_new_tokens} x decode "
+            f"{detail['decode_step_s']:.4f}s) vs {remaining:.3f}s remaining "
+            "— relax deadline_s or lower max_new_tokens")
+        req.state = CANCELLED
+        req.handle._close(exc)
+        raise exc
+
+    def _shed_admission(self, incoming: Request):
+        """The queue is full (``engine.py:1363-1427``): ``refuse`` (and
+        ``infeasible``) raises `OverloadedError` from submit;
+        ``shed_newest`` fails the incoming request; ``shed_closest_
+        deadline`` fails whichever of the queued and incoming requests
+        is nearest its deadline (the incoming one when none has a
+        deadline). The victim's handle closes with the error."""
+        policy = self._shed_policy
+        if policy in ("refuse", "infeasible"):
+            self.metrics.note_shed("refuse")
+            exc = OverloadedError(
+                f"engine {self.engine_id} queue is full ({self._max_queue} "
+                f"deep; shed_policy={policy!r}): retry with backoff or "
+                "raise max_queue")
+            incoming.state = CANCELLED
+            incoming.handle._close(exc)
+            raise exc
+        victim = incoming
+        if policy == "shed_closest_deadline":
+            cands = [r for r in self.scheduler.queued_requests()
+                     if r.deadline_t is not None and not r.done]
+            if incoming.deadline_t is not None:
+                cands.append(incoming)
+            if cands:
+                victim = min(cands, key=lambda r: r.deadline_t)
+        self.metrics.note_shed(policy)
+        victim.state = CANCELLED
+        if victim is not incoming:
+            self.scheduler.remove(victim)
+        victim.handle._close(OverloadedError(
+            f"request {victim.rid} shed by engine {self.engine_id} (queue "
+            f"full at {self._max_queue}, policy {policy!r})"))
+
+    def _admission_ok(self, req: Request) -> bool:
+        """The paged admission gate of a popped request (``engine.py:
+        1451-1484``): its reservation and the retry budget. False: back
+        to the queue (the pool is still exhausted or the backoff has
+        not passed), unless the budget ran out and the request was
+        failed typed (``req.done``, its slot returned)."""
+        if (req.retry_free_seen is not None
+                and self.kv.pages_free == req.retry_free_seen
+                and time.perf_counter() < req.retry_after_t):
+            # nothing was released and the backoff has not passed
+            return False
+        if self._reserve(req):
+            return True
+        self.metrics.kv_pages_exhausted += 1
+        req.exhaustion_retries += 1
+        if req.exhaustion_retries >= self._admission_retries:
+            self.scheduler.release(req.slot)
+            req.slot = None
+            need, _ = self._page_budget(req)
+            req.state = CANCELLED
+            req.handle._close(PoolExhaustedError(
+                f"request {req.rid} needed {need} KV pages but the pool "
+                f"holds {self.kv.pages_total} ({self.kv.pages_free} free "
+                f"right now) and all {req.exhaustion_retries} admission "
+                "retries found it exhausted — raise kv_pages, lower "
+                "max_new_tokens, or raise Engine(admission_retries=)"))
+            return False
+        req.retry_free_seen = self.kv.pages_free
+        # capped exponential: 4 ms, 8 ms, ... 0.5 s; a release ends it
+        req.retry_after_t = time.perf_counter() + min(
+            0.5, 0.002 * (1 << min(req.exhaustion_retries, 8)))
+        return False
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -592,14 +1112,15 @@ class Engine:
         """``(pages, label)``: the request's whole page budget
         (``engine.py:1429-1450``). With the prefix cache the prompt is
         laid out unpadded, so the worst case (no match) skips the pad
-        columns; both budget the ``spec_k`` verify lanes."""
+        columns; both budget the ``spec_k_max`` verify lanes (an adaptive
+        engine's top rung, whatever the current k)."""
         if self.prefix is not None:
             return (pages_for(req.prompt_len
                               + max(0, req.max_new_tokens - 1)
-                              + self.spec_k, self.kv.page_size),
+                              + self._spec_k_max, self.kv.page_size),
                     f"prompt {req.prompt_len}")
         return (self.kv.pages_needed(req.bucket, req.max_new_tokens,
-                                     extra_cols=self.spec_k),
+                                     extra_cols=self._spec_k_max),
                 f"bucket {req.bucket}")
 
     def _reserve(self, req: Request) -> bool:
@@ -607,11 +1128,15 @@ class Engine:
         1500-1535``). With the prefix cache: match the prompt, map the
         cached pages read-only, reserve the private rest (the pool evicts
         from the tree on a shortfall) and pick the tail's bucket. False:
-        exhausted, with every reference taken here dropped again."""
+        exhausted (or a ``reserve_fail`` fault), with every reference
+        taken here dropped again."""
+        if self._faults is not None and self._faults.fail_reserve(self,
+                                                                  req):
+            return False
         if self.prefix is None:
             return self.kv.try_reserve(req.slot, req.bucket,
                                        req.max_new_tokens,
-                                       extra_cols=self.spec_k)
+                                       extra_cols=self._spec_k_max)
         shared, matched = self.prefix.acquire(req.prompt)
         need, _ = self._page_budget(req)
         if not self.kv.try_reserve_shared(req.slot, shared, need):
@@ -632,6 +1157,10 @@ class Engine:
         """A whole prompt's admission: left-padded to its bucket and
         prefilled into the slot's row (slots) or reserved pages (paged);
         with the prefix cache, `_admit_prefix`."""
+        self.metrics.observe("h_queue_wait",
+                             time.perf_counter() - req.submit_time)
+        req.timeline.mark(PHASE_ADMITTED, slot=req.slot,
+                          engine=self.engine_id)
         if self.prefix is not None:
             self._admit_prefix(req)
             return
@@ -645,10 +1174,14 @@ class Engine:
             row = dict(page_rows=self.kv.block_table[[slot]])
         else:
             row = dict(slot_idx=np.asarray([slot], np.int32))
-        l32 = self._prefill_fn(bucket)(ids=ids, amask=amask, **row)
+        fn = self._prefill_fn(bucket)
+        t0 = time.perf_counter()
+        req.timeline.mark(PHASE_PREFILL, bucket=bucket)
+        self._fault("prefill", self.metrics.prefill_steps)
+        l32 = fn(ids=ids, amask=amask, **row)
         tok = int(select_tokens(l32, [self._sampler(req)], self.top_k)[0])
         self.kv.occupy(slot, bucket, req.prompt_len)
-        self._finish_admission(req, tok)
+        self._finish_admission(req, tok, time.perf_counter() - t0)
 
     def _admit_prefix(self, req: Request):
         """The prefix-cache admission (``engine.py:1632-1700``): the
@@ -661,21 +1194,32 @@ class Engine:
         tail = req.prompt[lc:]
         ids = np.zeros((1, tb), np.int32)
         ids[0, :tail.shape[0]] = tail
-        l32 = self._cprefill_fn(tb)(
-            ids=ids, tail_lens=[tail.shape[0]], col0=[lc],
-            page_rows=self.kv.block_table[[slot]])
+        fn = self._cprefill_fn(tb)
+        t0 = time.perf_counter()
+        req.timeline.mark(PHASE_PREFILL, bucket=tb, cached_prefix=lc)
+        self._fault("prefill", self.metrics.prefill_steps)
+        l32 = fn(ids=ids, tail_lens=[tail.shape[0]], col0=[lc],
+                 page_rows=self.kv.block_table[[slot]])
         tok = int(select_tokens(l32, [self._sampler(req)], self.top_k)[0])
         self.kv.occupy(slot, req.prompt_len, req.prompt_len)
         self.prefix.insert(req.prompt, self.kv.slot_row_pages(slot))
-        self._finish_admission(req, tok)
+        self._finish_admission(req, tok, time.perf_counter() - t0)
 
-    def _finish_admission(self, req: Request, tok: int):
-        """Slot the prefilled request and emit its first token."""
+    def _finish_admission(self, req: Request, tok: int, dt: float,
+                          chunked: bool = False):
+        """Slot the prefilled request and emit its first token. ``dt``:
+        the admission's seconds (a chunked one's whole chunk phase, its
+        chunks already observed one by one)."""
+        e = self._ewma_admit_s
+        self._ewma_admit_s = dt if e is None else 0.7 * e + 0.3 * dt
         slot = req.slot
         self._slot_req[slot] = req
         self._tokens[slot] = tok
         req.state = DECODING
+        req.timeline.mark(PHASE_DECODE, engine=self.engine_id)
         self.metrics.prefill_steps += 1
+        if not chunked:
+            self.metrics.observe("h_prefill", dt)
         self._emit(req, tok)
 
     def _begin_chunk(self, req: Request):
@@ -684,9 +1228,17 @@ class Engine:
         unpadded layout whether or not the prefix cache matched, so chunk
         ``i`` lands at columns ``[chunk_pos, chunk_pos + n)`` of the
         slot's own pages."""
+        self.metrics.observe("h_queue_wait",
+                             time.perf_counter() - req.submit_time)
         req.chunk_pos = req.prefix_len
         req.prefill_chunks = -(-(req.prompt_len - req.prefix_len)
                                // self._chunk_tokens)
+        req.timeline.mark(PHASE_ADMITTED, slot=req.slot,
+                          engine=self.engine_id)
+        # one prefill mark for the whole chunked phase
+        req.timeline.mark(PHASE_PREFILL, bucket=self._chunk_tokens,
+                          cached_prefix=req.prefix_len,
+                          prefill_chunks=req.prefill_chunks)
         self._chunk_req = req
         self._chunk_t0 = time.perf_counter()
         self.metrics.set_chunk_active(True)
@@ -709,16 +1261,21 @@ class Engine:
         view = self.kv.block_table.copy()
         view[slot, :] = self.kv.pool.sentinel
         piggyback = sum(r is not None for r in self._slot_req)
+        fn = self._mixed_fn()
         t0 = time.perf_counter()
-        c32, l32 = self._mixed_fn()(
-            ids=ids, tail_lens=[n], col0=[pos],
-            page_rows=self.kv.block_table[[slot]],
-            **self._step_operands(self._tokens[:, None], view))
+        self._fault("decode", self.metrics.decode_steps)
+        c32, l32 = fn(ids=ids, tail_lens=[n], col0=[pos],
+                      page_rows=self.kv.block_table[[slot]],
+                      **self._step_operands(self._tokens[:, None], view))
         samplers = [self._sampler(r) for r in self._slot_req]
         out = select_tokens(l32[:, 0], samplers, self.top_k).cpu().numpy()
-        self.metrics.note_chunk_step()
+        dt = time.perf_counter() - t0
+        self.metrics.note_chunk_step(n, piggyback, self.slots)
+        # each chunk prices the feasibility estimate's prefill waves
+        self.metrics.observe("h_prefill", dt)
         if piggyback:
-            self.metrics.decode_step_s.append(time.perf_counter() - t0)
+            self.metrics.decode_step_s.append(dt)
+            self.metrics.observe("h_decode", dt)
             self.metrics.decode_steps += 1
         for s, r in enumerate(self._slot_req):
             if r is None:
@@ -735,19 +1292,21 @@ class Engine:
             self.prefix.insert(req.prompt, self.kv.slot_row_pages(slot))
         self._chunk_req = None
         self.metrics.set_chunk_active(False)
-        self._finish_admission(req, tok)
+        self._finish_admission(req, tok, time.perf_counter() - self._chunk_t0,
+                               chunked=True)
 
-    def _abort_chunk(self, req: Request):
-        """The chunking request is cancelled: return its slot and its
-        whole page reservation (it was never slotted, so `_release`
-        cannot) and close its handle."""
+    def _abort_chunk(self, req: Request, error=None):
+        """The chunking request is cancelled (``error`` None) or expired:
+        return its slot and its whole page reservation (it was never
+        slotted, so `_release` cannot) and close its handle."""
         self._chunk_req = None
         self.metrics.set_chunk_active(False)
-        self.kv.release(req.slot)
-        self.scheduler.release(req.slot)
-        req.slot = None
+        if req.slot is not None:
+            self.kv.release(req.slot)
+            self.scheduler.release(req.slot)
+            req.slot = None
         req.state = CANCELLED
-        req.handle._close()
+        req.handle._close(error)
 
     def _embed_one(self, ids: np.ndarray) -> np.ndarray:
         n = int(ids.shape[0])
@@ -796,9 +1355,11 @@ class Engine:
         ``[S, W, V]`` probabilities stay on the device; only ``[S, W]``
         operands and the rows of rejected lanes come to the host.
         ``decode_step_s`` times the step from drafting to the accept
-        decisions."""
+        decisions. An adaptive engine feeds each drafting slot's window
+        to its controller and moves k after the step (`_set_spec_k`)."""
         t0 = time.perf_counter()
-        w = self.spec_k + 1
+        fn = self._verify_fn()
+        w = self._spec_k + 1
         toks = np.zeros((self.slots, w), np.int64)
         toks[:, 0] = self._tokens
         n_draft = np.zeros((self.slots,), np.int64)
@@ -807,7 +1368,8 @@ class Engine:
             if req is None:
                 continue
             # never draft past the request's token budget
-            kd = min(self.spec_k, req.max_new_tokens - len(req.emitted) - 1)
+            kd = min(self._spec_k,
+                     req.max_new_tokens - len(req.emitted) - 1)
             if kd <= 0:
                 continue
             d, q = self._draft_for(req, kd)
@@ -816,7 +1378,8 @@ class Engine:
                 n_draft[slot] = len(d)
                 qs[slot] = q
         samplers = [self._sampler(r) for r in self._slot_req]
-        l32 = self._verify_fn()(**self._step_operands(toks))
+        self._fault("decode", self.metrics.decode_steps)
+        l32 = fn(**self._step_operands(toks))
         tok, probs = select_tokens_window(l32, samplers, self.top_k,
                                           n_draft.tolist())
         out = tok.cpu().numpy()
@@ -826,7 +1389,9 @@ class Engine:
         if drafting:
             emits = self._accept_sampled(sampled, drafting, toks, n_draft,
                                          qs, out, probs)
-        self.metrics.decode_step_s.append(time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        self.metrics.decode_step_s.append(dt)
+        self.metrics.observe("h_decode", dt)
         self.metrics.decode_steps += 1
         for slot, req in enumerate(self._slot_req):
             if req is None:
@@ -840,25 +1405,34 @@ class Engine:
             if nd:
                 self.metrics.note_spec(
                     "greedy" if req.params.greedy else "sampled", nd, acc)
+                if self._spec_ctrl is not None:
+                    self._spec_ctrl.observe(nd, acc)
             for t in emit:
                 self.kv.advance(slot)
                 self._tokens[slot] = t
                 self._emit(req, t)
                 if req.done or self._slot_req[slot] is not req:
                     break           # EOS, budget or cancel inside the window
+        if self._spec_ctrl is not None:
+            k = self._spec_ctrl.decide()
+            if k != self._spec_k:
+                self._set_spec_k(k)
 
     def _draft_for(self, req: Request, kd: int):
         """One slot's proposal -> ``(tokens [m <= kd], q)``. A greedy
-        request takes the drafter's most recent continuation (argmax
-        acceptance needs no q); a sampled one its `draft_with_q`
-        proposal, sampled with a generator seeded by the request's
-        (seed, counter), so drafts reproduce per request."""
+        request takes the drafter's ``draft`` (argmax acceptance needs no
+        q); a sampled one its ``draft_with_q`` proposal where it has one
+        (the n-gram drafter), sampled with a generator seeded by the
+        request's (seed, counter), so drafts reproduce per request, else
+        ``draft``, whose tokens are scored as a point mass unless it
+        returns ``(tokens, q)``."""
         ctx = np.concatenate([req.prompt, np.asarray(req.emitted, np.int64)])
-        if req.params.greedy:
-            out = self._drafter.draft(ctx, kd)
+        dr = self._drafter
+        if not req.params.greedy and hasattr(dr, "draft_with_q"):
+            out = dr.draft_with_q(ctx, kd, self._vocab,
+                                  seed=self._spec_seed(req, 0))
         else:
-            out = self._drafter.draft_with_q(ctx, kd, self._vocab,
-                                             seed=self._spec_seed(req, 0))
+            out = dr.draft(ctx, kd)
         return normalize_draft(out, kd)
 
     @staticmethod
@@ -963,11 +1537,15 @@ class Engine:
             req.state = CANCELLED
             self._release(req)
             return
-        if not req.emitted:
-            self.metrics.ttft_s.append(time.perf_counter() - req.submit_time)
+        if req.first_token_time is None:
+            req.first_token_time = time.perf_counter()
+            ttft = req.first_token_time - req.submit_time
+            self.metrics.ttft_s.append(ttft)
+            self.metrics.observe("h_ttft", ttft)
         req.emitted.append(tok)
         req.counter += 1
         self.metrics.tokens_generated += 1
+        req.handle._emit(tok)
         hit_eos = (req.eos_token_id is not None
                    and tok == int(req.eos_token_id))
         if hit_eos or len(req.emitted) >= req.max_new_tokens:
@@ -975,30 +1553,34 @@ class Engine:
             self.metrics.completed += 1
             self._release(req)
 
-    def _release(self, req: Request):
+    def _release(self, req: Request, error: BaseException | None = None):
+        """Free the request's slot and pages and close its handle (with
+        ``error``, typed, when it failed)."""
+        req.finish_time = time.perf_counter()
         slot = req.slot
         if slot is not None and self._slot_req[slot] is req:
             self._slot_req[slot] = None
             self.kv.release(slot)
             self.scheduler.release(slot)
-        req.handle._close()
+        req.handle._close(error)
 
     def _cancel(self, req: Request):
         req.cancel_requested = True
-        if req.done:
-            return
-        self.metrics.cancelled += 1
-        if req is self._chunk_req:
-            # mid-chunk: still QUEUED, but holding a slot and its pages
-            self._abort_chunk(req)
-            return
-        if req.state == QUEUED:
-            self.scheduler.drop_queued(req)
+        with self._lock:
+            if req.done:
+                return
+            self.metrics.cancelled += 1
+            if req is self._chunk_req:
+                # mid-chunk: still QUEUED, but holding a slot and its pages
+                self._abort_chunk(req)
+                return
+            if req.state == QUEUED:
+                self.scheduler.drop_queued(req)
+                req.state = CANCELLED
+                req.handle._close()
+                return
             req.state = CANCELLED
-            req.handle._close()
-            return
-        req.state = CANCELLED
-        self._release(req)
+            self._release(req)
 
 
-__all__ = ["Engine"]
+__all__ = ["Engine", "EngineClosedError"]

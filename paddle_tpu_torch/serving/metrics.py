@@ -1,16 +1,26 @@
-"""Engine counters and the `EngineStats` snapshot.
+"""Engine counters, histograms and the `EngineStats` snapshot.
 
 Counterpart: ``paddle_tpu/serving/metrics.py``, reduced to what the
-port's engine counts (the speculative counters of :95-119, the pool
+port's engine counts: the speculative counters of :95-119, the pool
 bytes of :62-70, the prefix-cache and chunked-prefill counters of
-:71-77 and :145-155 and the trace counts of :309-338 included; the
-prefix-cache and chunk families also go to the registry under the
-reference's names, :174-193 and :414-420). Times are
-host wall-clock seconds around work that ends in a device sync (the
-token reaches the host), so they measure the whole step, host and
-device. A step's first call on a card captures its CUDA graph; the
-seconds that took are ``capture_s``, beside the TTFT and step times
-that include them.
+:71-77 and :145-155, the deadline and shed counters of :81-88, the
+``spec_k`` gauge and its history of :107-117, and the trace counts of
+:309-338. The latency and size distributions go to the registry's
+fixed-bucket histograms under the reference's names (:245-310):
+``serving_prefill_seconds``, ``serving_decode_step_seconds``,
+``serving_queue_wait_seconds``, ``serving_ttft_seconds``,
+``serving_spec_accept_tokens``, ``serving_prefill_chunk_tokens`` and
+``serving_prefill_chunk_piggyback_ratio``, each labeled by engine, and
+so do the prefix-cache, chunk, shed and deadline counters and the
+``serving_spec_k`` and ``serving_queue_depth`` gauges (:414-500).
+`EngineStats` keeps its exact p50s from the host's own lists of TTFTs
+and decode-step times beside the histograms' TTFT p50 and p99
+(`observability.bucket_quantile`, to within a bucket). Times are host
+wall-clock seconds around work that ends in a device sync (the token
+reaches the host), so they measure the whole step, host and device. A
+step's first call on a card captures its CUDA graph; the seconds that
+took are ``capture_s``, beside the TTFT and step times that include
+them.
 """
 from __future__ import annotations
 
@@ -103,6 +113,47 @@ class EngineStats:
     chunk_tokens: int = 0
     #: prompts served through `Engine.embed`
     embed_prompts: int = 0
+    # -- deadlines, bounded admission, adaptive k, histograms -------------
+    #: the engine's id (the ``engine=`` label of its registry families)
+    engine_id: str = ""
+    #: requests failed with `DeadlineExceededError` (queued, decoding or
+    #: mid-chunk)
+    deadline_exceeded: int = 0
+    #: requests refused or shed by bounded admission
+    shed: int = 0
+    #: queue depth x the moving average of an admission's cost: the
+    #: delay a request arriving now would wait for its slot
+    est_queue_delay_s: float = 0.0
+    #: every (decode step, new k) move of the adaptive controller
+    spec_k_history: tuple = ()
+    #: the TTFT histogram's p50 and p99 (`bucket_quantile`; None before
+    #: the first token)
+    ttft_hist_p50: float | None = None
+    ttft_p99: float | None = None
+
+
+#: the histograms of an engine: attribute -> (name, help, bucket edges
+#: or None for the latency default), ``paddle_tpu/serving/metrics.py:
+#: 245-288``
+_HISTOGRAMS = {
+    "h_prefill": ("serving_prefill_seconds", "prefill latency", None),
+    "h_decode": ("serving_decode_step_seconds",
+                 "iteration-level decode step latency", None),
+    "h_queue_wait": ("serving_queue_wait_seconds",
+                     "submit -> slot admission wait", None),
+    "h_ttft": ("serving_ttft_seconds", "submit -> first token", None),
+    "h_spec_accept": ("serving_spec_accept_tokens",
+                      "drafted tokens accepted per verify window",
+                      (0, 1, 2, 3, 4, 6, 8, 12, 16)),
+    "h_chunk_tokens": ("serving_prefill_chunk_tokens",
+                       "real prompt tokens absorbed per mixed chunk step",
+                       (16, 32, 64, 128, 256, 512, 1024, 2048)),
+    "h_chunk_piggyback": ("serving_prefill_chunk_piggyback_ratio",
+                          "fraction of decode slots advancing inside each "
+                          "mixed chunk step",
+                          (0.0, 0.125, 0.25, 0.375, 0.5, 0.625, 0.75,
+                           0.875, 1.0)),
+}
 
 
 @dataclass
@@ -133,6 +184,9 @@ class EngineMetrics:
     prefill_chunk_steps: int = 0
     prefill_chunk_active: int = 0
     embed_prompts: int = 0
+    #: deadline expiries, and requests refused or shed at admission
+    deadline_exceeded: int = 0
+    shed: int = 0
 
     def _family(self, kind, name, help):
         return getattr(get_registry(), kind)(name, help,
@@ -153,13 +207,59 @@ class EngineMetrics:
                          "cached prefix pages").inc(int(matched),
                                                     engine=self.engine_id)
 
-    def note_chunk_step(self):
-        """One mixed chunked-prefill + decode step."""
+    def note_chunk_step(self, real_tokens: int, piggyback: int,
+                        slots: int):
+        """One mixed chunked-prefill + decode step that absorbed
+        ``real_tokens`` prompt tokens while ``piggyback`` of the
+        ``slots`` decoded."""
         self.prefill_chunk_steps += 1
         self._family("counter", "serving_prefill_chunk_steps_total",
                      "mixed chunked-prefill + decode steps (each absorbs "
                      "one prompt chunk while live decode slots advance)"
                      ).inc(engine=self.engine_id)
+        self.observe("h_chunk_tokens", real_tokens)
+        self.observe("h_chunk_piggyback", piggyback / max(1, slots))
+
+    def histogram(self, attr: str):
+        """The registry histogram ``attr`` of `_HISTOGRAMS`."""
+        name, help, buckets = _HISTOGRAMS[attr]
+        return get_registry().histogram(name, help, labelnames=("engine",),
+                                        buckets=buckets)
+
+    def observe(self, attr: str, value):
+        """One observation into this engine's child of ``attr``."""
+        self.histogram(attr).observe(value, engine=self.engine_id)
+
+    def quantile(self, attr: str, q: float):
+        """``(bucket-estimated q-quantile or None, observations)`` of this
+        engine's child of ``attr``."""
+        h = self.histogram(attr)
+        _, _, count = h.child(engine=self.engine_id)
+        return h.quantile(q, engine=self.engine_id), count
+
+    def note_deadline_exceeded(self):
+        self.deadline_exceeded += 1
+        self._family("counter", "serving_deadline_exceeded_total",
+                     "requests failed with DeadlineExceededError (expired "
+                     "in queue or mid-decode)").inc(engine=self.engine_id)
+
+    def note_shed(self, policy: str):
+        """One request refused or shed by bounded admission under
+        ``policy`` (``refuse``, ``shed_newest``, ``shed_closest_deadline``
+        or ``infeasible``)."""
+        self.shed += 1
+        get_registry().counter(
+            "serving_shed_total",
+            "requests refused or shed by bounded admission",
+            labelnames=("engine", "policy")).inc(engine=self.engine_id,
+                                                 policy=policy)
+
+    def note_spec_k(self, k: int):
+        """Publish the engine's current draft length."""
+        self._family("gauge", "serving_spec_k",
+                     "current speculative draft length k (adaptive engines "
+                     "step it between decode steps; fixed engines pin it)"
+                     ).set(int(k), engine=self.engine_id)
 
     def set_chunk_active(self, flag: bool):
         """Whether a prompt is mid-chunk now."""
@@ -202,10 +302,15 @@ class EngineMetrics:
         """One drafting slot's verify window."""
         self.spec[mode][0] += int(drafted)
         self.spec[mode][1] += int(accepted)
+        self.observe("h_spec_accept", accepted)
 
     def snapshot(self, **gauges) -> EngineStats:
         def p50(xs):
             return float(np.median(xs)) if xs else None
+
+        self._family("gauge", "serving_queue_depth",
+                     "requests waiting for a slot").set(
+                         gauges["queue_depth"], engine=self.engine_id)
 
         (dg, ag), (ds, as_) = self.spec["greedy"], self.spec["sampled"]
         drafted, accepted = dg + ds, ag + as_
@@ -230,7 +335,11 @@ class EngineMetrics:
             prefill_traces=self.prefill_traces,
             decode_traces=self.decode_traces,
             ttft_p50=p50(self.ttft_s),
-            decode_step_p50=p50(self.decode_step_s), **gauges)
+            decode_step_p50=p50(self.decode_step_s),
+            engine_id=self.engine_id,
+            deadline_exceeded=self.deadline_exceeded, shed=self.shed,
+            ttft_hist_p50=self.quantile("h_ttft", 0.5)[0],
+            ttft_p99=self.quantile("h_ttft", 0.99)[0], **gauges)
 
 
 __all__ = ["EngineStats", "EngineMetrics"]

@@ -1,16 +1,23 @@
 """Request records and streaming handles for the serving engine.
 
 Counterpart: ``paddle_tpu/serving/request.py`` (the prefix-cache and
-chunked-prefill fields of :75-83 included), without deadlines,
-tracing, timelines and the background thread. A request lives through
-QUEUED -> DECODING -> (FINISHED | CANCELLED). The `RequestHandle` that
-`Engine.submit` returns is the client surface: `tokens()` streams the
-generated ids, `result()` returns the whole continuation, `cancel()`
-frees the request's slot and pages. The engine is cooperative: a handle
-that waits for a token drives ``engine.step()`` itself.
+chunked-prefill fields of :75-83, the deadline fields of :84-98, the
+timeline of :115-119 and both waiting modes of :263-345), without the
+distributed trace context (ROADMAP A9). A request lives through QUEUED
+-> DECODING -> (FINISHED | CANCELLED); its `timeline.Timeline` records
+where the time went. The `RequestHandle` that `Engine.submit` returns
+is the client surface: `tokens()` streams the generated ids,
+`result()` returns the whole continuation, `cancel()` frees the
+request's slot and pages. Handles are thread-safe: the engine streams
+tokens into the handle's queue, and a handle that waits for one blocks
+on that queue (with a bounded wait) while its engine runs a background
+loop (`Engine.start`), or steps the engine itself while it does not
+(the cooperative mode).
 """
 from __future__ import annotations
 
+import queue
+import threading
 import time
 from dataclasses import dataclass, field
 
@@ -21,6 +28,8 @@ QUEUED = "queued"
 DECODING = "decoding"
 FINISHED = "finished"
 CANCELLED = "cancelled"
+
+_SENTINEL = object()
 
 
 @dataclass(frozen=True)
@@ -69,8 +78,28 @@ class Request:
     chunk_pos: int = 0
     #: the mixed steps a chunked admission takes
     prefill_chunks: int = 0
+    #: the deadline (`submit(deadline_s=)` or the engine's default):
+    #: ``deadline_s`` the client's budget, ``deadline_t`` the
+    #: perf_counter instant it expires (None: no deadline)
+    deadline_s: float | None = None
+    deadline_t: float | None = None
+    #: the paged admission's retry state: failed reservations so far,
+    #: the pool's free count at the last one (a retry before it changes
+    #: is pointless) and the earliest instant of the next attempt
+    exhaustion_retries: int = 0
+    retry_free_seen: int | None = None
+    retry_after_t: float = 0.0
     emitted: list = field(default_factory=list)
     submit_time: float = field(default_factory=time.perf_counter)
+    first_token_time: float | None = None
+    finish_time: float | None = None
+    #: the phase `timeline.Timeline`, started at submit
+    timeline: "object" = None
+
+    def __post_init__(self):
+        if self.timeline is None:
+            from .timeline import Timeline
+            self.timeline = Timeline(t0=self.submit_time)
 
     @property
     def prompt_len(self) -> int:
@@ -87,52 +116,116 @@ class RequestHandle:
     def __init__(self, engine, request: Request):
         self._engine = engine
         self._req = request
-        self._closed = False
+        self._q: queue.Queue = queue.Queue()
+        self._done = threading.Event()
         self._error: BaseException | None = None
+        #: the first closer wins, atomically: a raced second close never
+        #: overwrites the cause the first one wrote
+        self._close_once = threading.Lock()
+        self._closed = False
 
     # -- engine side ---------------------------------------------------
+    def _emit(self, token: int):
+        self._q.put(int(token))
+
     def _close(self, error: BaseException | None = None):
-        """First close wins: a later close cannot overwrite the cause."""
-        if not self._closed:
+        """First close wins; it alone closes the timeline with its typed
+        cause and records it in the engine's `TimelineRing`."""
+        with self._close_once:
+            first = not self._closed
             self._closed = True
-            self._error = error
+            if first:
+                self._error = error
+        if first:
+            self._finalize(error)
+        self._q.put(_SENTINEL)
+        self._done.set()
+
+    def _finalize(self, error):
+        from .timeline import cause_of
+
+        req = self._req
+        if req.timeline.close(cause_of(req.state, error), error):
+            ring = getattr(self._engine, "timelines", None)
+            if ring is not None:
+                ring.record(req)
 
     # -- client side ---------------------------------------------------
+    @property
+    def state(self) -> str:
+        return self._req.state
+
+    @property
+    def timeline(self):
+        """The request's phase `timeline.Timeline`, readable at any time;
+        closed with a typed cause when the request ends."""
+        return self._req.timeline
+
+    def done(self) -> bool:
+        """True once the request finished, failed or was cancelled (its
+        tokens may still wait in the stream: `tokens` drains them)."""
+        return self._done.is_set()
+
     def cancel(self):
         """Stop generating: a queued request is dropped, an active one
         frees its slot and pages at once."""
         self._engine._cancel(self._req)
 
     def tokens(self, timeout=None):
-        """Iterate the generated ids as the engine emits them, stepping
-        the engine while the next one is not there yet (the reference's
-        cooperative mode, ``paddle_tpu/serving/request.py:263-312``).
+        """Iterate the generated ids as the engine emits them. While the
+        engine runs its background loop the iterator waits on the
+        handle's stream, 50 ms at a time; otherwise it steps the engine
+        itself (the cooperative mode).
 
         ``timeout`` (seconds) bounds the wait for the NEXT token: when
         neither a token nor a terminal state has come within it, checked
-        between engine steps, the iterator raises `TimeoutError`. The
-        request keeps its place; a later `tokens` or `result` call picks
-        the stream up again."""
-        i = 0
+        between waits, the iterator raises `TimeoutError`. The request
+        keeps its place; a later `tokens` or `result` call picks the
+        stream up again."""
         last_progress = time.monotonic()
         while True:
-            while i < len(self._req.emitted):
-                last_progress = time.monotonic()
-                yield self._req.emitted[i]
-                i += 1
-            if self._closed:
+            try:
+                item = self._q.get_nowait()
+            except queue.Empty:
+                if self._done.is_set():
+                    # emitted and closed between the read and this check:
+                    # drain, do not drop
+                    while True:
+                        try:
+                            item = self._q.get_nowait()
+                        except queue.Empty:
+                            self._raise_if_failed()
+                            return
+                        if item is _SENTINEL:
+                            self._raise_if_failed()
+                            return
+                        yield item
+                if (timeout is not None
+                        and time.monotonic() - last_progress > timeout):
+                    raise TimeoutError(
+                        f"request {self._req.rid}: no token or terminal "
+                        f"state within {timeout}s "
+                        f"({len(self._req.emitted)} tokens so far)")
+                if self._engine.running:
+                    try:
+                        item = self._q.get(timeout=0.05)
+                    except queue.Empty:
+                        continue
+                else:
+                    if (not self._engine.step() and self._q.empty()
+                            and not self._done.is_set()):
+                        if self._req.state != QUEUED:
+                            raise RuntimeError(
+                                f"request {self._req.rid} is unfinished "
+                                "but the engine has no work")
+                        # queued behind an admission retry's backoff
+                        time.sleep(0.001)
+                    continue
+            if item is _SENTINEL:
                 self._raise_if_failed()
                 return
-            if (timeout is not None
-                    and time.monotonic() - last_progress > timeout):
-                raise TimeoutError(
-                    f"request {self._req.rid}: no token or terminal state "
-                    f"within {timeout}s ({len(self._req.emitted)} tokens "
-                    "so far)")
-            if not self._engine.step():
-                raise RuntimeError(
-                    f"request {self._req.rid} is unfinished but the engine "
-                    "has no work")
+            last_progress = time.monotonic()
+            yield item
 
     def _raise_if_failed(self):
         if self._error is None:
@@ -154,8 +247,16 @@ class RequestHandle:
 
     @property
     def partial(self) -> list:
-        """Tokens emitted so far."""
+        """Tokens emitted so far: the readable remainder of a request
+        that missed its deadline mid-decode."""
         return list(self._req.emitted)
+
+    @property
+    def ttft(self) -> float | None:
+        """Seconds from submit to the first token (None before it)."""
+        if self._req.first_token_time is None:
+            return None
+        return self._req.first_token_time - self._req.submit_time
 
 
 __all__ = ["SamplingParams", "Request", "RequestHandle",

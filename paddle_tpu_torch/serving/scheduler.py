@@ -1,7 +1,9 @@
 """Iteration-level (continuous) scheduler: queue -> free slots.
 
-Counterpart: ``paddle_tpu/serving/scheduler.py``, without the timeline
-marks. Every engine iteration first admits
+Counterpart: ``paddle_tpu/serving/scheduler.py``: the queue's timeline
+marks (a request's ``queued`` phase begins here, and a requeue re-enters
+it), the queue depth, and `remove` of a shed or expired queued request.
+Every engine iteration first admits
 queued requests into free slots (bucketed prefill), then runs one decode
 step for all slots; finished slots recycle at once. Admission is FCFS:
 it pops in arrival order and stops at the first request with no free
@@ -17,6 +19,7 @@ from __future__ import annotations
 from collections import deque
 
 from .request import CANCELLED, QUEUED, Request
+from .timeline import PHASE_QUEUED
 
 
 class SlotScheduler:
@@ -60,6 +63,7 @@ class SlotScheduler:
 
     def enqueue(self, req: Request):
         req.bucket = self.validate(req)
+        req.timeline.mark(PHASE_QUEUED)
         self._queue.append(req)
 
     # -- iteration side -------------------------------------------------
@@ -92,11 +96,22 @@ class SlotScheduler:
         if req.slot is not None:
             self._free.appendleft(req.slot)
             req.slot = None
+        # a bounce on the exhausted pool shows as another queued visit
+        req.timeline.mark(PHASE_QUEUED, requeue=True)
         self._queue.appendleft(req)
 
     def drop_queued(self, req: Request) -> bool:
         """Remove a still-queued request (cancelled before admission)."""
         if req.state == QUEUED and req in self._queue:
+            self._queue.remove(req)
+            return True
+        return False
+
+    def remove(self, req: Request) -> bool:
+        """Remove ``req`` from the queue whatever its state: the shed and
+        deadline paths, which mark the request terminal before or after
+        pulling it."""
+        if req in self._queue:
             self._queue.remove(req)
             return True
         return False

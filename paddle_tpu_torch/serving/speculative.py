@@ -1,7 +1,7 @@
 """Self-speculative drafting for the engine's verify window.
 
-Counterpart: ``paddle_tpu/serving/speculative.py:61-278`` (host-only
-numpy, kept here as the port's own copy): the n-gram drafter, the
+Counterpart: ``paddle_tpu/serving/speculative.py`` (host-only numpy,
+kept here as the port's own copy): the n-gram drafter, the
 ``(tokens, q)`` draft protocol and the greedy accept rule.
 
 Speculative decoding (Leviathan et al. 2023; Chen et al. 2023): a cheap
@@ -17,10 +17,14 @@ distributed exactly as plain sampled decode when the drafts really are
 samples from the reported ``q``. `NgramDrafter.draft_with_q` samples
 them from a floor-smoothed empirical proposal for that reason.
 
-A second draft model (``Engine(draft_model=...)``) and the adaptive
-``k`` controller come with later slices (ROADMAP A8).
+Any drafter rides the same verify window: `CallableDrafter` wraps a
+bare ``fn(context, k)`` (``Engine(draft_model=...)``, :208-228), and
+`AdaptiveSpecK` moves ``k`` between steps across the rungs of
+`spec_k_ladder` (:280-371), each a verify step built up front.
 """
 from __future__ import annotations
+
+import collections
 
 import numpy as np
 from numpy.lib.stride_tricks import sliding_window_view
@@ -140,6 +144,28 @@ class NgramDrafter:
         return np.asarray(toks, np.int32), np.stack(rows)
 
 
+class CallableDrafter:
+    """Adapter: a bare ``fn(context, k) -> token sequence`` as a
+    drafter. The hook `Engine(draft_model=...)` wraps callables here,
+    so a second (small) model's greedy continuation — or a test's
+    oracle — rides the same verify lane as the n-gram drafter. An
+    ``fn`` returning ``(tokens, q)`` passes its proposal probabilities
+    through untouched (the engine normalizes both forms with
+    `normalize_draft`)."""
+
+    def __init__(self, fn):
+        self._fn = fn
+
+    def draft(self, context, k: int):
+        out = self._fn(context, int(k))
+        if isinstance(out, tuple):
+            return out
+        out = np.asarray(out)
+        if out.ndim != 1:
+            out = out.reshape(-1)
+        return out[:int(k)].astype(np.int32)
+
+
 def normalize_draft(out, k: int):
     """Any drafter return value -> ``(tokens [m <= k] int32, q)``.
 
@@ -177,4 +203,95 @@ def longest_accept(drafts: np.ndarray, verified: np.ndarray,
     return acc
 
 
-__all__ = ["NgramDrafter", "normalize_draft", "longest_accept"]
+def spec_k_ladder(k0: int, k_max: int) -> tuple:
+    """The default adaptive rung set: a halving ladder from ``k_max``
+    down to 1, plus the starting ``k0`` — e.g. ``(1, 2, 4, 8)`` for
+    ``k_max=8``. Every rung is a pre-warmed verify executable, so the
+    set stays small (log₂ ``k_max`` buckets) while still spanning
+    "acceptance collapsed, stop wasting lanes" to "acceptance presses
+    k, draft deeper"."""
+    k0, k_max = int(k0), int(k_max)
+    if not 1 <= k0 <= k_max:
+        raise ValueError(f"need 1 <= k0 <= k_max, got {k0}..{k_max}")
+    rungs = {k0}
+    k = k_max
+    while k >= 1:
+        rungs.add(k)
+        k //= 2
+    return tuple(sorted(rungs))
+
+
+class AdaptiveSpecK:
+    """Accept-driven spec_k controller.
+
+    The engine feeds `observe` one ``(drafted, accepted)`` pair per
+    drafting slot per verify window — the same observations the
+    ``serving_spec_accept_tokens`` histogram records — and calls
+    `decide` BETWEEN steps (k never moves mid-step; every rung is a
+    pre-warmed executable so a transition is a host-side function-handle
+    swap, no recompile). Policy, over a sliding window of the last
+    ``window`` observations once ``min_obs`` have arrived:
+
+    - **grow** to the next rung when the windowed mean accept length
+      presses the current k (``mean(accepted) >= grow_frac * k`` —
+      drafts are being exhausted, deeper lanes would still accept);
+    - **shrink** to the previous rung when acceptance collapses
+      (``accepted/drafted <= shrink_frac`` — most lanes are wasted
+      verify columns and drafting cost).
+
+    The history clears on every change so each rung is judged on its
+    own evidence (deterministic off the observe sequence — scripted
+    histories replay exactly in tests). `history` logs transitions as
+    ``(observation_index, new_k)`` for the bench trajectory artifact.
+    """
+
+    def __init__(self, rungs, k0: int | None = None, window: int = 16,
+                 min_obs: int = 4, grow_frac: float = 0.8,
+                 shrink_frac: float = 0.3):
+        self.rungs = tuple(sorted({int(r) for r in rungs}))
+        if not self.rungs or self.rungs[0] < 1:
+            raise ValueError(f"rungs must be >= 1, got {rungs}")
+        self.k = int(k0) if k0 is not None else self.rungs[-1]
+        if self.k not in self.rungs:
+            raise ValueError(f"k0={self.k} not in rungs {self.rungs}")
+        self.window = int(window)
+        self.min_obs = int(min_obs)
+        self.grow_frac = float(grow_frac)
+        self.shrink_frac = float(shrink_frac)
+        if not 1 <= self.min_obs <= self.window:
+            raise ValueError(
+                f"need 1 <= min_obs <= window, got "
+                f"{min_obs}..{window}")
+        self._hist: collections.deque = collections.deque(
+            maxlen=self.window)
+        self._seen = 0
+        #: (observation_index, new_k) transition log
+        self.history: list = []
+
+    def observe(self, drafted: int, accepted: int) -> None:
+        self._seen += 1
+        self._hist.append((int(drafted), int(accepted)))
+
+    def decide(self) -> int:
+        """-> the k for the NEXT step (may equal the current one)."""
+        if len(self._hist) < self.min_obs:
+            return self.k
+        drafted = sum(d for d, _ in self._hist)
+        accepted = sum(a for _, a in self._hist)
+        mean_acc = accepted / len(self._hist)
+        rate = (accepted / drafted) if drafted else 0.0
+        i = self.rungs.index(self.k)
+        new = self.k
+        if mean_acc >= self.grow_frac * self.k and i + 1 < len(self.rungs):
+            new = self.rungs[i + 1]
+        elif rate <= self.shrink_frac and i > 0:
+            new = self.rungs[i - 1]
+        if new != self.k:
+            self.k = new
+            self._hist.clear()
+            self.history.append((self._seen, new))
+        return self.k
+
+
+__all__ = ["NgramDrafter", "CallableDrafter", "longest_accept",
+           "normalize_draft", "spec_k_ladder", "AdaptiveSpecK"]

@@ -1,6 +1,6 @@
 """The port's chunked prefill (``Engine(chunk_tokens=n)``) and
 `Engine.embed` against paddle_tpu's, after ``tests/test_chunked_prefill.
-py:67-383`` (its two deadline cases wait for ROADMAP A8.6).
+py:67-383``.
 
 Both engines serve ``gpt-test`` in float32 on the same numpy-seeded
 weights: a long prompt admits in chunks, each in one mixed step with
@@ -15,12 +15,14 @@ writes equal a whole one's. FCFS holds behind a chunking request, and a
 cancel mid-chunk returns its slot and pages. `embed` returns the
 reference's vectors within float32 tolerance and leaves the pool empty.
 """
+import time
+
 import numpy as np
 import pytest
 
 from paddle_tpu.serving import Engine as JaxEngine
 from paddle_tpu_torch.observability import get_registry, get_sentinel
-from paddle_tpu_torch.serving import Engine
+from paddle_tpu_torch.serving import DeadlineExceededError, Engine
 
 import _torch_serving as ts
 
@@ -248,6 +250,52 @@ def test_cancel_mid_chunk_returns_slot_and_pages():
     assert eng.submit(SHORT, max_new_tokens=MAX_NEW).result() \
         == _whole([SHORT])[0]
     ts.assert_pool_whole(eng)
+
+
+def test_deadline_mid_chunk_fails_typed():
+    """A deadline that passes while the prompt is mid-chunk fails the
+    request typed at the next step's sweep and returns its slot and its
+    whole reservation."""
+    e = _engine(chunk_tokens=5, slots=1)
+    h = e.submit(LONG, max_new_tokens=MAX_NEW, deadline_s=0.20)
+    e.step()
+    assert e._chunk_req is not None
+    time.sleep(0.25)
+    e.step()                                   # the sweep fires
+    with pytest.raises(DeadlineExceededError, match="mid-chunked-prefill"):
+        h.result()
+    assert e._chunk_req is None and e.scheduler.free_slots == 1
+    ts.assert_pool_whole(e)
+    assert e.stats().deadline_exceeded == 1
+    assert h.timeline.terminal_cause == "deadline"
+    e.close()
+
+
+def test_feasibility_prices_chunked_service_waves():
+    """A chunking engine observes the prefill histogram once a chunk, so
+    the feasibility estimate scales its prefill term by the arrival's
+    chunk count: on the same observations the port's estimate and its
+    parts equal the reference's `control.feasibility_estimate`."""
+    from paddle_tpu.serving.control import feasibility_estimate
+
+    ref, e = JaxEngine(JAX_MODEL, chunk_tokens=5, **_kw()), _engine(
+        chunk_tokens=5)
+    for _ in range(8):
+        ref.metrics.observe_prefill(0.05)
+        ref.metrics.observe_decode_step(0.01)
+        e.metrics.observe("h_prefill", 0.05)
+        e.metrics.observe("h_decode", 0.01)
+    for n in (len(LONG), 3):
+        want, dw = feasibility_estimate(ref, MAX_NEW, prompt_tokens=n)
+        got, dg = e._feasibility_estimate(MAX_NEW, prompt_tokens=n)
+        assert got == pytest.approx(want)
+        for k in ("prefill_chunks", "prefill_s", "decode_step_s",
+                  "backlog_s"):
+            assert dg[k] == pytest.approx(dw[k]), k
+    assert e._feasibility_estimate(MAX_NEW, len(LONG))[1][
+        "prefill_chunks"] == -(-len(LONG) // 5)
+    ref.close()
+    e.close()
 
 
 @pytest.mark.parametrize("kw,match", [

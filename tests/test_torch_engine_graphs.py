@@ -121,8 +121,12 @@ def test_a_rebuilt_step_trips_the_armed_sentinel():
         h = eng.submit(ROWS[2], max_new_tokens=2)
         with pytest.raises(RecompileError, match="serving.prefill"):
             eng.step()
-    with pytest.raises(RuntimeError, match="died"):
+    # the request popped for that admission fails with the cause, and
+    # the engine refuses more work
+    with pytest.raises(RuntimeError, match="failed while request"):
         h.result()
+    with pytest.raises(RuntimeError, match="died"):
+        eng.step()
 
 
 def _step(on_trace=lambda: None):

@@ -21,7 +21,7 @@ import torch
 from paddle_tpu_torch.device import resolve_device, resolve_dtype
 from paddle_tpu_torch.kernels.paged_attention import fused_paged_attention
 from paddle_tpu_torch.models.gpt import GPTForPretraining
-from paddle_tpu_torch.serving import Engine
+from paddle_tpu_torch.serving import Engine, FaultInjector
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "paddle_tpu_torch")
@@ -62,7 +62,12 @@ MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.device",
            "paddle_tpu_torch.observability",
            "paddle_tpu_torch.observability.registry",
            "paddle_tpu_torch.observability.sentinel",
-           "paddle_tpu_torch.jit", "paddle_tpu_torch.jit.capture"]
+           "paddle_tpu_torch.jit", "paddle_tpu_torch.jit.capture",
+           "paddle_tpu_torch.serving.timeline",
+           "paddle_tpu_torch.serving.faults",
+           "paddle_tpu_torch.serving.speculative",
+           "paddle_tpu_torch.serving.request",
+           "paddle_tpu_torch.serving.errors"]
 
 
 def test_import_pulls_in_no_jax_and_no_paddle_tpu():
@@ -174,11 +179,10 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(profiler=object()), dict(engine_id="e1"),
-    dict(draft_model=lambda ctx, k: []), dict(fault_injector=object()),
-    dict(spec_adaptive=True), dict(mesh=object()), dict(role="prefill"),
-    dict(kv_pool=object()), dict(default_deadline_s=1.0),
-    dict(max_queue=4)],
+    dict(profiler=object()), dict(sharding_rule=object()),
+    dict(observability_port=0), dict(flight_recorder=object()),
+    dict(slo=object()), dict(dtype="float32"), dict(mesh=object()),
+    dict(role="prefill"), dict(kv_pool=object())],
     ids=lambda kw: next(iter(kw)))
 def test_engine_later_slice_arguments_raise(kw):
     model = GPTForPretraining("gpt-test", device="cpu")
@@ -189,10 +193,6 @@ def test_engine_later_slice_arguments_raise(kw):
 def test_engine_later_slice_calls_raise():
     model = GPTForPretraining("gpt-test", device="cpu")
     eng = Engine(model, slots=2, max_len=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        eng.start()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        eng.submit(np.arange(1, 4), deadline_s=1.0)
     with pytest.raises(NotImplementedError, match="beam search"):
         eng.submit(np.arange(1, 4), decode_strategy="beam_search")
     with pytest.raises(TypeError, match="unexpected argument"):
@@ -236,10 +236,14 @@ ENGINE_OTHER = dict(
     profiler=object(), seed=3, kv_mode="slots", page_size=8, kv_pages=20,
     prefix_cache=True, engine_id="e1", role="prefill", kv_pool=object(),
     default_deadline_s=1.0, max_queue=4, shed_policy="shed_newest",
-    admission_retries=3, fault_injector=object(), spec_k=2, spec_ngram=2,
+    admission_retries=3, fault_injector=FaultInjector(), spec_k=2,
+    spec_ngram=2,
     draft_model=lambda ctx, k: [], spec_adaptive=True, spec_k_max=4,
     observability_port=0, flight_recorder=object(), kv_quant="int8",
     kv_pool_bytes=1 << 20, slo=object(), chunk_tokens=8)
+#: what a parameter's other value needs beside it (the reference refuses
+#: adaptive speculation and a k ceiling without a starting k)
+ENGINE_WITH = dict(spec_adaptive=dict(spec_k=2), spec_k_max=dict(spec_k=2))
 
 
 def _jax_engine_params():
@@ -260,7 +264,8 @@ def test_engine_takes_every_reference_parameter(param):
     if param.name != "max_len":          # None: required in both packages
         serve(**{param.name: param.default})
     assert param.name in ENGINE_OTHER, f"no other value for {param.name}"
-    _served_or_named(lambda: serve(**{param.name: ENGINE_OTHER[param.name]}))
+    _served_or_named(lambda: serve(**{param.name: ENGINE_OTHER[param.name]},
+                                   **ENGINE_WITH.get(param.name, {})))
 
 
 def test_engine_kv_pool_bytes_matches_reference_pages_in_budget():

@@ -16,7 +16,8 @@ two splits) at W in {1, 3, 5}, the beam's tail read through it
 warpgroup products (B1 and B5, D 64 and 128, a half-full last query
 block), the general kernels at head dims above 128 (sliced over D, f32
 and bf16), the paged kernel at head dims 80 and 16 and page sizes 4 and
-3, the general bf16 kernels
+3, and at 320 and 512 (width 512) and at the verify widths 2, 3, 5 and
+9, the general bf16 kernels
 at the edges of their tiles, B1's backward against the general
 backward on the unpacked views (the kernel they share), and the paged
 Engine's captured decode step at the serving decode shape: its CUDA
@@ -460,6 +461,67 @@ def test_paged_kernel_at_any_head_dim_and_page_size_on_a_card(pages, d, ps,
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
     assert sum(v for k, v in kernels.kernel_launch_counts().items()
                if k.startswith("paged")) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pages", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("d,ps", [(320, 16), (320, 4), (512, 16), (512, 4),
+                                  (128, 16)])
+@pytest.mark.parametrize("w", [1, 2, 3, 5, 9])
+def test_paged_kernel_above_head_dim_256_and_at_every_rung_on_a_card(
+        pages, d, ps, w):
+    """The paged kernel at head dims above 256 (width 512, 2-query tiles,
+    ring chunks of 4, 8 or 16 columns by the page type) and, at D=128,
+    at every verify width of an adaptive ladder up to k = 8 (W 2, 3, 5
+    and 9: a 9-query window takes two 8-query tiles, the second holding
+    one query), on f32, bf16 and int8 pools kept at the model's D,
+    against its plain version (f32 out and lse at 1e-4; bf16 and int8
+    out at 2e-2, lse at 1e-3), with a row of left pads, a row with no
+    readable column and a row parked on the sentinel; one launch, which
+    at width 512 also counts under its ``_wide`` name."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the Hopper kernels run only on "
+                    "the card")
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.kernels import paged_kv
+
+    g = torch.Generator(device="cuda").manual_seed(d * ps + w)
+    n, h, pmax = 4, 2, 64 // ps
+    pools = [torch.randn((n * pmax + 1, h, ps, d), generator=g,
+                         device="cuda") for _ in range(2)]
+    scales = None
+    qdt = torch.float32 if pages == "float32" else torch.bfloat16
+    if pages == "int8":
+        pools, scales = zip(*(paged_kv.quantize_tokens(p, torch.int8)
+                              for p in pools))
+    else:
+        pools = [p.to(qdt) for p in pools]
+    bt = torch.randperm(n * pmax, generator=g, device="cuda").reshape(
+        n, pmax).to(torch.int32)
+    lp = pmax * ps
+    steps = torch.tensor([lp - w, lp // 2, 3, 0], dtype=torch.int32,
+                         device="cuda")
+    vc = torch.ones((n, lp), dtype=torch.int32, device="cuda")
+    vc[0, :ps + 1] = 0                           # left pads past a page
+    vc[1] = 0                                    # no readable column
+    bt[3], vc[3] = n * pmax, 0                   # parked on the sentinel
+    q = torch.randn((n, h, w, d), generator=g, device="cuda").to(qdt)
+    args = (q, *pools, bt, steps, vc)
+    kw = {} if scales is None else dict(k_scale=scales[0], v_scale=scales[1])
+    kernels.reset_kernel_launch_counts()
+    out, lse = pa.fused_paged_attention(*args, **kw)
+    ref, ref_lse = pa.paged_attention_reference(*args, **kw)
+    if pages == "float32":
+        torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+        torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+    else:
+        torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                                   rtol=2e-2)
+        torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+    name = "paged_attention_int8" if pages == "int8" else "paged_attention"
+    want = {name: 1, f"{name}_wide": 1} if d > 256 else {name: 1}
+    assert {k: v for k, v in kernels.kernel_launch_counts().items()
+            if v} == want
 
 
 def _ulps(x, ref, d):

@@ -1,22 +1,24 @@
 """The paged-attention path at head dims other than 64 and 128 and at
 page sizes that are not multiples of 8, on the CPU.
 
-The Hopper kernel (csrc/paged_attention.cu) takes any head dim up to 256
-and any page size, with the pools at the model's own D. What of that is
-plain Python is pinned here:
+The Hopper kernel (csrc/paged_attention.cu) takes any head dim up to 512
+(above 256 at width 512 in 2-query tiles) and any page size, with the
+pools at the model's own D. What of that is plain Python is pinned here:
 
 - the kernel's plan (`kernel_width`, `chunk_cols`, `query_tile`,
   `plan_splits`) for every D from 1 to 256 and every page size from 1 to
   64: the padded width holds D in whole 32-lane coordinates, the ring
   chunks of a page cover its columns exactly (the last one partial), and
-  the split plan covers the table;
+  the split plan covers the table; at D 320 and 512 the same, in
+  2-query tiles;
 - the plain version and `paged_decode_attention` against paddle_tpu's
   `paged_decode_attention` (which routes these shapes to its gather
-  oracle) on numpy-seeded float32 inputs, D in {16, 80, 200}, ps in {3,
-  4, 16}, float and int8 pages, W 1 and 5, at atol 1e-5;
+  oracle) on numpy-seeded float32 inputs, D in {16, 80, 200, 320}, ps
+  in {3, 4, 16}, float and int8 pages, W 1 and 5, at atol 1e-5;
 - the port's `Engine` against paddle_tpu's ``Engine(kv_mode="paged")``
-  on a 2-layer GPT with 2 heads of 80 and 4-column pages: identical
-  greedy tokens and page accounting.
+  on a 2-layer GPT with 2 heads of 80 and 4-column pages, and on a
+  1-layer GPT with 2 heads of 320: identical greedy tokens and page
+  accounting.
 
 The kernel itself runs only on a card: tests/test_torch_kernels_cuda.py
 and chip_smoke.py hold it against the same plain version there.
@@ -37,6 +39,8 @@ from paddle_tpu_torch.kernels import paged_kv
 from paddle_tpu_torch.models import GPTForPretraining, load_paddle_tpu_state_dict
 from paddle_tpu_torch.models.gpt import GPTConfig
 from paddle_tpu_torch.serving import Engine
+
+import _torch_serving as ts
 
 ATOL = 1e-5
 H100_SMS = 132
@@ -61,8 +65,18 @@ def test_kernel_width_holds_every_head_dim_up_to_256():
 
 
 def test_head_dims_above_256_name_roadmap_c6():
-    with pytest.raises(NotImplementedError, match="ROADMAP C.6"):
-        pa.kernel_width(257)
+    """C.6, closed: heads of 257 to 512 run at width 512 in 2-query
+    tiles (chunks of 16, 8 or 4 columns by the page type's row bytes, the
+    rings within the block's shared memory); above 512 it raises."""
+    for d in (257, 320, 384, 511, 512):
+        assert pa.kernel_width(d) == 512
+        for w in (1, 2, 5, 9):
+            assert pa.query_tile(w, d) == 2
+    for itemsize, chunk in ((4, 4), (2, 8), (1, 16)):
+        assert pa.chunk_cols(512, itemsize) == chunk
+        assert 4 * 2 * 2 * chunk * 512 * itemsize <= 132 * 1024
+    with pytest.raises(NotImplementedError, match="up to 512"):
+        pa.kernel_width(513)
 
 
 def test_ring_chunks_cover_every_page_size():
@@ -80,6 +94,27 @@ def test_ring_chunks_cover_every_page_size():
         for d in (16, 80, 200):
             for w in (1, 5):
                 splits, pps = pa.plan_splits(8, 32, w, 41, ps, H100_SMS, d)
+                assert splits * pps >= 41 > (splits - 1) * pps
+
+
+def test_plan_covers_the_table_at_head_dims_320_and_512():
+    """Above 256 the plan is width 512, 2-query tiles, ring chunks of the
+    page type's row bytes; the split plan covers the table at every page
+    size and window, and the combine's tickets count one a 2-query
+    tile."""
+    for d in (320, 512):
+        width = pa.kernel_width(d)
+        assert width == 512 and width % 32 == 0 and width >= d
+        for ps in (1, 3, 4, 16, 64):
+            for itemsize in (4, 2, 1):
+                chunk = pa.chunk_cols(width, itemsize)
+                n = -(-ps // chunk)
+                cols = [c for i in range(n)
+                        for c in range(i * chunk, min((i + 1) * chunk, ps))]
+                assert cols == list(range(ps))
+            for w in (1, 2, 5, 9):
+                assert pa.query_tile(w, d) == 2
+                splits, pps = pa.plan_splits(8, 5, w, 41, ps, H100_SMS, d)
                 assert splits * pps >= 41 > (splits - 1) * pps
 
 
@@ -107,7 +142,7 @@ def _quantized(pool):
     return q.numpy(), s.numpy()
 
 
-@pytest.mark.parametrize("d", [16, 80, 200])
+@pytest.mark.parametrize("d", [16, 80, 200, 320])
 @pytest.mark.parametrize("ps", [3, 4, 16])
 @pytest.mark.parametrize("w", [1, 5])
 @pytest.mark.parametrize("pages", ["float32", "int8"])
@@ -180,6 +215,44 @@ def test_engine_at_head_dim_80_and_page_size_4_matches_the_reference(
         outs.append([h.result() for h in (h0, h1, h2)])
         stats.append(eng.stats())
     assert outs[1] == outs[0]
+    for s in stats:
+        assert s.completed == 3
+        assert s.kv_pages_in_use == 0 and s.kv_pages_free == s.kv_pages_total
+    assert (stats[1].decode_steps, stats[1].prefill_steps) == (
+        stats[0].decode_steps, stats[0].prefill_steps)
+
+
+# ---------------------------------------------------- the Engine at D = 320
+# 1 layer, 2 heads of 320 (above the kernel's old 256 limit), vocab 256,
+# weights numpy-seeded at std 0.3 so that greedy streams vary
+_CFG_320 = dict(vocab_size=256, hidden_size=640, num_hidden_layers=1,
+                num_attention_heads=2, intermediate_size=1280,
+                max_position_embeddings=64, use_flash_attention=False)
+_JAX_320 = JaxGPT(JaxGPTModel(JaxGPTConfig(**_CFG_320)))
+_JAX_320.eval()
+_ARRAYS_320 = ts.seeded_arrays(_JAX_320, 320)
+_JAX_320.set_state_dict(_ARRAYS_320)
+_MODEL_320 = load_paddle_tpu_state_dict(
+    GPTForPretraining(GPTConfig(**_CFG_320), device="cpu"), _ARRAYS_320)
+
+
+@pytest.mark.parametrize("spec_k", [0, 2])
+def test_engine_at_head_dim_320_matches_the_reference(spec_k):
+    rng = np.random.default_rng(43)
+    rows = [rng.integers(1, 255, (n,)).astype("int64") for n in (7, 3, 12)]
+    outs, stats = [], []
+    kw = dict(slots=2, max_len=16 + 6 + spec_k, prefill_buckets=(8, 16),
+              page_size=4, spec_k=spec_k)
+    for eng in (JaxEngine(_JAX_320, kv_mode="paged", **kw),
+                Engine(_MODEL_320, device="cpu", kv_mode="paged", **kw)):
+        h0 = eng.submit(rows[0], max_new_tokens=6)
+        eng.step()
+        h1 = eng.submit(rows[1], max_new_tokens=6)
+        h2 = eng.submit(rows[2], max_new_tokens=6)
+        outs.append([list(h.result()) for h in (h0, h1, h2)])
+        stats.append(eng.stats())
+    assert outs[1] == outs[0]
+    assert len({t for o in outs[1] for t in o}) > 3
     for s in stats:
         assert s.completed == 3
         assert s.kv_pages_in_use == 0 and s.kv_pages_free == s.kv_pages_total
