@@ -95,9 +95,13 @@ Phases, in order; any failure exits non-zero:
    prints tokens/s, step ms p50, MFU, capture_s, the graph pool's bytes
    and the replays' peak memory; then replays against eager steps
    (`run_eager`) from one state and keys over 3 steps: the first loss
-   bit for bit, params and slots within twice the spread of two eager
-   runs, the replays' peak memory within 10% of the eager step's (the
-   other training phases print theirs); then
+   bit for bit, each tensor of params and slots within the larger of
+   twice its spread over 5 eager runs and 4 ulps of its dtype at its
+   largest magnitude (the key biases' params, whose true gradient is
+   zero, left out), the same replays with their second update
+   skipped outside that bound (the negative control), the replays' peak
+   memory within 10% of the eager step's (the other training phases
+   print theirs); then
    two steps under torch.profiler (busy share, kernels and host launch
    calls a step, the update's device time apart);
 6. BERT phase: bert-large at full width and depth pretrains through
@@ -273,7 +277,30 @@ Phases, in order; any failure exits non-zero:
    loop thread; the same tokens or a near-tie; stop() joins; every
    timeline monotone with its cause; the TTFT histogram's p50 within a
    bucket of the host's), and a ``step_error`` at a verify dispatch
-   (every handle fails, every page returns).
+   (every handle fails, every page returns);
+19. the training plane: gpt3-1.3b's widths at 8 of its 24 layers (bf16
+   params and AdamW moments, b8 x s1024 from ``--seed``, a step-indexed
+   batch source) through `framework.ResilientTrainLoop` around phase 5's
+   `SpmdTrainStep`, its checkpoints in ``_plane_ckpt/`` under the
+   checkout (removed after). (a) 8 steps with async commits every 4, the
+   launch counts zeroed just before and read just after (B1's forward and
+   backward steps x layers, the update once a step), beside five runs
+   with no checkpoint from the same state: step ms p50 of each, the
+   snapshot's copy to pinned host memory (ms, bytes),
+   ``train_checkpoint_write_seconds``; (b) a crash right after the
+   commit at step 4, the live state zeroed, and a fresh loop on the same
+   step resuming from it: every tensor the crashed state's bit for bit,
+   the first resumed loss the crashed state's eager step bit for bit,
+   the final state within the C.7 bound of (a)'s (the spread of the five
+   runs from (a)'s), the later losses within the larger of twice their
+   spread and 1e-4 of the loss, no new build, the restore's
+   seconds; (c) a NaN loss rolled back with its data window skipped, a
+   NaN planted in one layer's weight named by ``last_anomaly`` through
+   ``introspect=True``, a torn and a corrupt checkpoint each passed over
+   by the restore, and ``request_preemption()``'s emergency snapshot;
+   (d) ``introspect=True`` against False: the first loss bit for bit,
+   one build each, step ms of both. B1's and the update's launches in
+   the kernels line are this phase's.
 
 The kernel phase (3) also holds the paged kernel at head dims above 256
 (D 320 and 512: width 512 in 2-query tiles; ps 16 and 4, f32, bf16 and
@@ -298,6 +325,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -434,6 +462,23 @@ MIX_MAX_LEN, MIX_BUCKETS, MIX_CHUNK = 2048, (256, 1536), 256
 # embed(): prompt lengths and the cosine each vector keeps with the
 # float32 teacher's (the bf16 model's rounding over 24 layers)
 EMBED_LENS, EMBED_COS = (64, 300, 1024, 1536), 0.999
+# phase 19, the training plane: gpt3-1.3b's widths cut to PLANE_LAYERS
+# layers (each snapshot crosses host memory and the disk), PLANE_STEPS
+# steps, a commit every PLANE_INTERVAL, the crash at PLANE_CRASH_AT (right
+# after a commit); checkpoints in PLANE_DIR under the checkout, removed
+# after the phase. The C.7 bound of the resumed run's final state takes
+# its spread from PLANE_SPREAD_RUNS runs with no checkpoint beside (a).
+# Its losses, each a reduction over the whole state's noise, lie within
+# the larger of GRAPH_SPREAD times those runs' loss spread and
+# PLANE_LOSS_RTOL of the loss: on an H100 the dq atomics moved the later
+# losses of two runs from one state by up to 1.27e-4 at 11.2 (1.1e-5 of
+# it), while all five spread runs agreed bit for bit in some calls; the
+# floor is ten times that reading and a tenth of the bf16 model's own
+# error against float32 (REF_LOSS_RTOL). A resume fed the next batch
+# must lie outside that bound (the control)
+PLANE_LAYERS, PLANE_STEPS, PLANE_INTERVAL, PLANE_CRASH_AT = 8, 8, 4, 4
+PLANE_SPREAD_RUNS, PLANE_LOSS_RTOL = 5, 1e-4
+PLANE_DIR = "_plane_ckpt"
 
 
 def check(cond, msg):
@@ -2326,12 +2371,36 @@ ADAM_FAMILY = {"the update (multi_tensor_adam: adam_kernel)":
 # the Adam hyperparameters of every training phase (AdamW's defaults)
 ADAM_BETA1, ADAM_BETA2, ADAM_EPS = 0.9, 0.999, 1e-8
 # replays against eager steps: after GRAPH_CHECK_STEPS steps from one
-# state, the replays' params and slots lie within GRAPH_SPREAD times the
-# largest difference between two eager runs (the dq atomics of ROADMAP
-# C.3 make each run a sample of the same rounding noise, and a third
-# sample's largest difference exceeds the first pair's about half the
-# time); with no eager spread, bit for bit
+# state, each tensor of the replays' state lies within the larger of two
+# bounds of its own: GRAPH_SPREAD times its largest distance between
+# GRAPH_EAGER_RUNS eager runs (each run against the first), and a floor.
+# A slot's distance is its largest elementwise gap, its floor
+# GRAPH_FLOOR_ULPS ulps of its dtype at its largest magnitude. A param's
+# distance is that of its update: |p_replay - p_eager| / |p_eager -
+# p_start| (two-norms), its floor GRAPH_PARAM_REL. The dq atomics
+# (ROADMAP C.3) make every run a sample of one rounding noise, and
+# replays part from eager runs more than eager runs part from each
+# other. On an H100: at gpt3-1.3b's step two eager runs often agree bit
+# for bit while the replays lie 1.5e-11 to 4.7e-10 away, in the second
+# moments, and the update of a top layer's qkv weight up to 6.7% from
+# the eager one's (its q and k thirds: a small true gradient); at
+# Gemma-2B's widths (phase 13) the updates of the top layers' q and k
+# weights part by 5-11.5% between any two runs, so the spread sets
+# their bound, and with 2 eager runs in place of 5 the gate failed 4 of
+# 6 reps (the moments of the q and k biases too). The params' floor is
+# about twice the largest of those readings; a doubled learning rate
+# puts a param's update 1.87-2.29 away. A param's elementwise
+# gap says nothing of its update: lr 1e-4 moves a bf16 weight of 0.02
+# by about one ulp, so a floor in ulps at the largest magnitude passed
+# a replay that wrote no param or doubled the learning rate, while
+# either puts the relative distance of the update near 1. The key
+# projections' biases are left out of the params' comparison
+# (`key_bias_masks`): their true gradient is exactly zero, so Adam moves
+# them about lr either way on round-off.
+# Two controls must fail the bound: the replays with their second update
+# skipped (on the slots) and at twice the learning rate (on the params).
 GRAPH_CHECK_STEPS, GRAPH_SPREAD = 3, 2.0
+GRAPH_EAGER_RUNS, GRAPH_FLOOR_ULPS, GRAPH_PARAM_REL = 5, 4, 0.25
 # peak memory of the timed replays (live tensors plus the graph's pool)
 # against the eager step's at phase 5's shape, at most this ratio
 GRAPH_MEMORY_RATIO = 1.10
@@ -2511,20 +2580,6 @@ def adam_kernel_phase(torch, seed):
             "library_ms": library_ms}
 
 
-def train_state_tensors(params, opt_state):
-    """Every tensor of the training state, in a fixed order."""
-    out = [params[n] for n in sorted(params)]
-    stack = [opt_state]
-    while stack:
-        d = stack.pop()
-        for k in sorted(d, reverse=True):
-            if isinstance(d[k], dict):
-                stack.append(d[k])
-            else:
-                out.append(d[k])
-    return out
-
-
 def train_on_graphs(torch, step, params, opt_state, batches, label):
     """The training phases' timed run: the first call at the batches'
     signature builds the step's CUDA graph (its warm-up is that call's
@@ -2586,34 +2641,138 @@ def train_on_graphs(torch, step, params, opt_state, batches, label):
             "auxes": auxes, "first_s": first_s}
 
 
-def train_graph_check(torch, step, params, opt_state, batches, run, label,
-                      memory_gate=False):
-    """Replays against eager steps (`SpmdTrainStep.run_eager`) from the
-    same state and keys, GRAPH_CHECK_STEPS steps each: the first step's
-    loss bit for bit; then params and slots within GRAPH_SPREAD times
-    the largest difference of two eager runs (bit for bit if they agree).
-    The eager step's peak memory (live tensors) is measured on the way
-    and printed beside the replays' (``run``); with ``memory_gate`` (phase
-    5's shape) the replays' may be at most GRAPH_MEMORY_RATIO of it."""
+def state_gaps(torch, a, b, masks=None, start=None):
+    """Per tensor of two states, the distance of ``a``'s from ``b``'s,
+    the elements of its mask (`key_bias_masks`) left out: for a tensor
+    with a ``start`` (a param) the two-norm of a - b over that of
+    b - start, how far a's update lies from b's relative to b's; for
+    the others (slots) the largest elementwise gap."""
+    gaps = []
+    for i, (x, y) in enumerate(zip(a, b)):
+        m = masks[i] if masks else None
+        s = start[i] if start else None
+        d = x.float() - y.float()
+        if s is None:
+            gaps.append((d.masked_fill(m, 0) if m is not None else d)
+                        .abs().max())
+            continue
+        u = y.float() - s.float()
+        if m is not None:
+            d, u = d.masked_fill(m, 0), u.masked_fill(m, 0)
+        nd, nu = torch.linalg.vector_norm(d), torch.linalg.vector_norm(u)
+        gaps.append(torch.where(nd == 0, 0.0, nd / nu))
+    return torch.stack(gaps).tolist()
+
+
+def param_starts(names, state):
+    """Per tensor of a training state, its own value where it is a param
+    (the start its update is measured from, `state_gaps`), else None."""
+    return [t if n.startswith("param/") else None
+            for n, t in zip(names, state)]
+
+
+def key_bias_masks(torch, step, items):
+    """Per ``(name, tensor)`` of a training state, a bool mask of the
+    elements whose true gradient is exactly zero, or None: the params of
+    the key projections' biases (``k_proj.bias``, the k third of the
+    fused layers' ``qkv_bias`` and of GPT's pair-major
+    ``qkv_proj.bias``), since a shift of every score of a softmax row by
+    q.b_k leaves it as it is. Their gradients are round-off, which Adam
+    turns into steps of about lr either way, so two runs' values of them
+    say nothing of the step (the parity tests compare them as grads);
+    their slots stay in the comparison."""
+    from paddle_tpu_torch.models.gpt import unpack_qkv_pair_major
+
+    out = []
+    for name, t in items:
+        pname = name[len("param/"):] if name.startswith("param/") else ""
+        mask = None
+        if pname.endswith("k_proj.bias"):
+            mask = torch.ones_like(t, dtype=torch.bool)
+        elif pname.endswith("qkv_bias"):                 # [3, H, D]
+            mask = torch.zeros_like(t, dtype=torch.bool)
+            mask[1] = True
+        elif pname.endswith("qkv_proj.bias"):            # pair-major [3HD]
+            att = step.model.get_submodule(pname.rsplit(".", 2)[0])
+            idx = torch.arange(t.numel(), device=t.device).reshape(1, 1, -1)
+            _, k, _ = unpack_qkv_pair_major(idx, att.num_heads, att.head_dim)
+            mask = torch.zeros(t.numel(), dtype=torch.bool, device=t.device)
+            mask[k.reshape(-1)] = True
+        out.append(mask)
+    return out
+
+
+def state_floor(torch, state, start):
+    """Per tensor, the floor of its C.7 bound: GRAPH_PARAM_REL for a
+    param (a tensor with a ``start``), else GRAPH_FLOOR_ULPS ulps of its
+    dtype at its largest magnitude (0 for an integer tensor: it must
+    match exactly)."""
+    out = []
+    for t, s in zip(state, start):
+        if s is not None:
+            out.append(GRAPH_PARAM_REL)
+        elif not t.is_floating_point():
+            out.append(0.0)
+        else:
+            fi = torch.finfo(t.dtype)
+            big = max(t.float().abs().max().item(), fi.tiny)
+            out.append(GRAPH_FLOOR_ULPS * fi.eps
+                       * 2.0 ** math.floor(math.log2(big)))
+    return out
+
+
+def state_bound(spread, floor):
+    """The C.7 bound, tensor by tensor: the larger of GRAPH_SPREAD times
+    the runs' own spread and the floor."""
+    return [max(GRAPH_SPREAD * s, f) for s, f in zip(spread, floor)]
+
+
+def worst_against(names, gaps, bound):
+    """``(name, gap, bound, gap / bound)`` of the tensor nearest its
+    bound (or furthest past it); gaps of 0 against a bound of 0 pass."""
+    best = None
+    for n, g, b in zip(names, gaps, bound):
+        r = g / b if b > 0 else (math.inf if g > 0 else 0.0)
+        if best is None or r > best[3]:
+            best = (n, g, b, r)
+    return best
+
+
+def train_graph_gate(torch, step, params, opt_state, batches, run):
+    """The readings of the replay-against-eager gate (`train_graph_check`)
+    and its two controls: from one saved state and keys 200..,
+    GRAPH_CHECK_STEPS replays, GRAPH_EAGER_RUNS eager runs
+    (`SpmdTrainStep.run_eager`), the replays with their second update
+    skipped and the replays at twice the learning rate. Returns the first
+    losses (replay, eager), each tensor's distance of the replays from
+    the first eager run (`state_gaps`), the eager spread after each
+    further eager run (``spreads``, the last the gate's), the floor, the
+    bound, the worst param and the worst slot of the replays, the worst
+    slot of the first control and the worst param of the second, and
+    the eager step's peak memory (live tensors). Leaves the saved state
+    in place."""
     from paddle_tpu_torch.observability import get_sentinel
 
-    flat = train_state_tensors(params, opt_state)
+    items = step.state_items(params, opt_state)
+    names = [n for n, _ in items]
+    flat = [t for _, t in items]
+    masks = key_bias_masks(torch, step, items)
     saved = [t.clone() for t in flat]
+    start = param_starts(names, saved)
 
     def restore():
         for t, v in zip(flat, saved):
             t.copy_(v)
 
-    def steps(fn):
+    def steps(fn, skip=None):
         restore()
         losses = [fn(params, opt_state, batches[i], 200 + i)[0]
-                  for i in range(GRAPH_CHECK_STEPS)]
+                  for i in range(GRAPH_CHECK_STEPS) if i != skip]
         torch.cuda.synchronize()
         return losses, [t.clone() for t in flat]
 
-    def largest(a, b):
-        return max((x.float() - y.float()).abs().max().item()
-                   for x, y in zip(a, b))
+    def gaps_of(state, ref):
+        return state_gaps(torch, state, ref, masks, start)
 
     with get_sentinel().armed():
         g_loss, g_state = steps(step)
@@ -2625,32 +2784,105 @@ def train_graph_check(torch, step, params, opt_state, batches, run, label,
     torch.cuda.synchronize()
     eager_peak = run["base"] + torch.cuda.max_memory_allocated() - before
     e_loss, e_state = steps(step.run_eager)
-    d_ge = largest(g_state, e_state)
+    gaps = gaps_of(g_state, e_state)
     del g_state
-    _, e2_state = steps(step.run_eager)
-    d_ee = largest(e2_state, e_state)
+    spreads, spread = [], [0.0] * len(flat)
+    for _ in range(GRAPH_EAGER_RUNS - 1):
+        _, other = steps(step.run_eager)
+        spread = [max(a, b) for a, b in zip(spread, gaps_of(other, e_state))]
+        spreads.append(spread)
+        del other
+    with get_sentinel().armed():
+        _, other = steps(step, skip=1)
+        skip_gaps = gaps_of(other, e_state)
+        del other
+        lr = step.optimizer.get_lr()
+        step.optimizer.set_lr(2 * lr)
+        try:
+            _, other = steps(step)
+        finally:
+            step.optimizer.set_lr(lr)
+        lr_gaps = gaps_of(other, e_state)
+        del other
+    floor = state_floor(torch, e_state, start)
+    bound = state_bound(spread, floor)
     restore()
-    del saved, e_state, e2_state
+    del saved, e_state, start
     torch.cuda.empty_cache()
-    check(torch.equal(g_loss[0], e_loss[0]), f"{label}: the replay's first "
-          f"loss {g_loss[0].item()!r} differs from the eager step's "
-          f"{e_loss[0].item()!r}")
-    check(d_ge <= GRAPH_SPREAD * d_ee, f"{label}: after "
-          f"{GRAPH_CHECK_STEPS} steps the replays lie {d_ge} from the eager "
-          f"run, two eager runs {d_ee} apart")
-    ratio = run["peak"] / eager_peak
-    check(not memory_gate or ratio <= GRAPH_MEMORY_RATIO, f"{label}: the "
-          f"replays' peak memory {run['peak']} bytes is {ratio:.3f} x the "
-          f"eager step's {eager_peak}")
+    pi = [i for i, n in enumerate(names) if n.startswith("param/")]
+    # the slots' worst is read on the float tensors alone: the step
+    # count, an integer that must match exactly, would catch a skipped
+    # update anyway
+    si = [i for i, t in enumerate(flat)
+          if t.is_floating_point() and i not in pi]
+
+    def worst(idx, g, bd=bound):
+        return worst_against([names[i] for i in idx], [g[i] for i in idx],
+                             [bd[i] for i in idx])
+
+    return {"g_loss": g_loss[0], "e_loss": e_loss[0], "names": names,
+            "gaps": gaps, "spreads": spreads, "floor": floor,
+            "bound": bound, "params": pi, "slots": si, "worst_of": worst,
+            "worst": worst(pi, gaps), "worst_slot": worst(si, gaps),
+            "control": worst(si, skip_gaps), "control_lr": worst(pi, lr_gaps),
+            "masked": sum(int(m.sum()) for m in masks if m is not None),
+            "eager_peak": eager_peak}
+
+
+def train_graph_check(torch, step, params, opt_state, batches, run, label,
+                      memory_gate=False):
+    """Replays against eager steps from the same state and keys
+    (`train_graph_gate`): the first step's loss bit for bit; then every
+    tensor of params and slots within its C.7 bound (the larger of
+    GRAPH_SPREAD times its eager spread and its floor), and the two
+    controls (the replays with one update skipped, read on the slots,
+    and at twice the learning rate, read on the params) outside it. The
+    eager step's peak memory is printed beside the replays' (``run``);
+    with ``memory_gate`` (phase 5's shape) the replays' may be at most
+    GRAPH_MEMORY_RATIO of it."""
+    r = train_graph_gate(torch, step, params, opt_state, batches, run)
+    check(torch.equal(r["g_loss"], r["e_loss"]), f"{label}: the replay's "
+          f"first loss {r['g_loss'].item()!r} differs from the eager "
+          f"step's {r['e_loss'].item()!r}")
+    for key, what in (("worst", "param update"), ("worst_slot", "slot")):
+        name, gap, bound, ratio = r[key]
+        check(ratio <= 1.0, f"{label}: after {GRAPH_CHECK_STEPS} steps the "
+              f"replays' {what} {name} lies {gap} from the eager run's, "
+              f"beyond its bound {bound}")
+    for key, what in (("control", "the second update skipped"),
+                      ("control_lr", "twice the learning rate")):
+        name, gap, bound, ratio = r[key]
+        check(ratio > 1.0, f"{label}: the control ({what}) passed the gate:"
+              f" its worst tensor {name} lies {gap} within its bound {bound}")
+    eager_peak = r["eager_peak"]
+    ratio_mem = run["peak"] / eager_peak
+    check(not memory_gate or ratio_mem <= GRAPH_MEMORY_RATIO, f"{label}: "
+          f"the replays' peak memory {run['peak']} bytes is {ratio_mem:.3f} "
+          f"x the eager step's {eager_peak}")
+    floored = sum(f >= GRAPH_SPREAD * s for s, f in zip(r["spreads"][-1],
+                                                        r["floor"]))
+
+    def reading(key):
+        name, gap, bound, ratio = r[key]
+        return f"{name} {gap:.3e} of {bound:.3e} ({ratio:.3f})"
+
     print(f"  graph against eager ({GRAPH_CHECK_STEPS} steps, keys 200-"
           f"{199 + GRAPH_CHECK_STEPS}): first loss bit for bit "
-          f"({g_loss[0].item():.6f}); params and slots: replays vs eager "
-          f"max|diff| {d_ge:.3e}, eager vs eager {d_ee:.3e} (<= "
-          f"{GRAPH_SPREAD} x)  ok")
+          f"({r['g_loss'].item():.6f}); tensor by tensor within max("
+          f"{GRAPH_SPREAD} x the spread of {GRAPH_EAGER_RUNS} eager runs, "
+          f"a floor of {GRAPH_PARAM_REL} of the update for params and "
+          f"{GRAPH_FLOOR_ULPS} ulps at the largest magnitude for slots): "
+          f"worst param {reading('worst')}, worst slot "
+          f"{reading('worst_slot')}; {sum(g > 0 for g in r['gaps'])} of "
+          f"{len(r['gaps'])} tensors apart, the floor the bound of "
+          f"{floored}; {r['masked']} key-bias param elements left out  ok")
+    print(f"  controls: the second update skipped, worst slot "
+          f"{reading('control')}; twice the learning rate, worst param "
+          f"{reading('control_lr')}  both caught")
     print(f"  memory: graph pool held between calls {run['held'] / 2 ** 30:.3f}"
           f" GiB; peak over the replays (live + pool) "
           f"{run['peak'] / 2 ** 30:.3f} GiB against the eager step's "
-          f"{eager_peak / 2 ** 30:.3f} GiB ({ratio:.3f} x"
+          f"{eager_peak / 2 ** 30:.3f} GiB ({ratio_mem:.3f} x"
           + (f", <= {GRAPH_MEMORY_RATIO})  ok" if memory_gate else
              "; held at phase 5's shape only)"))
 
@@ -4388,6 +4620,351 @@ def scaler_phase(torch, seed):
           f"{snap['found_inf_skips']}; the next replay updates  ok")
 
 
+# ------------------------------------------------------ the training plane
+class PlaneData:
+    """Phase 19's step-indexed batches: ``batch_at(i)`` draws b8 x s1024
+    token ids on the card from a generator seeded with ``(seed, i)``, so
+    every index gives the same batch in every run and process."""
+
+    def __init__(self, torch, vocab, seed):
+        self.torch, self.vocab, self.seed = torch, vocab, seed
+
+    def batch_at(self, i):
+        torch = self.torch
+        g = torch.Generator(device="cuda").manual_seed(
+            self.seed * 1_000_003 + int(i))
+        t = torch.randint(0, self.vocab, (TRAIN_B, TRAIN_S + 1),
+                          generator=g, device="cuda")
+        return {"input_ids": t[:, :-1], "labels": t[:, 1:]}
+
+
+def state_of(torch, items):
+    """Device copies of a training state's tensors."""
+    return [t.clone() for _, t in items]
+
+
+def set_state(items, values):
+    for (_, t), v in zip(items, values):
+        t.copy_(v)
+
+
+def p50_ms(seconds):
+    return statistics.median(seconds) * 1e3
+
+
+def plane_phase(torch, seed, card, root):
+    """The training plane on the card (phase 19): gpt3-1.3b's widths at
+    PLANE_LAYERS layers (bf16 params and AdamW moments, b8 x s1024)
+    through `ResilientTrainLoop` around phase 5's `SpmdTrainStep`, its
+    checkpoints under ``root``. (a) PLANE_STEPS steps with async commits
+    every PLANE_INTERVAL steps, the launch counts zeroed just before and
+    read just after, beside PLANE_SPREAD_RUNS runs with no checkpoint
+    from the same state (their step ms, and the spread of the losses and
+    the final state that the C.7 bound takes); (b) a crash right after a
+    commit, the state wiped, and a fresh loop on the same step resuming:
+    the restored state the crashed one bit for bit, its first loss the
+    crashed state's eager step bit for bit, the rest and the final state
+    within the C.7 bound of (a)'s, no new build; (c) a poisoned loss
+    rolled back with its window skipped, a NaN param named by layer
+    through ``introspect=True``, a torn and a corrupt checkpoint each
+    passed over by the restore, a preemption's emergency snapshot; (d)
+    ``introspect=True`` against False: the first loss bit for bit, one
+    build each, step ms of both, and a profile of two steps of each.
+    Returns the launch counts of (a)."""
+    import dataclasses
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.distributed import SpmdTrainStep, gpt_loss_fn
+    from paddle_tpu_torch.framework import (InjectedCrash,
+                                            ResilientTrainLoop,
+                                            TrainFaultInjector,
+                                            register_train_metrics)
+    from paddle_tpu_torch.models.gpt import GPTForPretraining, gpt_config
+    from paddle_tpu_torch.observability import get_sentinel
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = dataclasses.replace(gpt_config(MODEL), hidden_dropout_prob=0.0,
+                              attention_probs_dropout_prob=0.0,
+                              num_hidden_layers=PLANE_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = GPTForPretraining(cfg, dtype="bfloat16", seed=seed)
+    model.train()
+
+    def make(introspect=False):
+        return SpmdTrainStep(model, gpt_loss_fn, AdamW(
+            learning_rate=TRAIN_LR, weight_decay=TRAIN_WD),
+            introspect=introspect)
+
+    step = make()
+    params, opt_state = step.init(slot_dtype="bfloat16")
+    items = step.state_items(params, opt_state)
+    names = [n for n, _ in items]
+    masks = key_bias_masks(torch, step, items)
+    nbytes = sum(t.numel() * t.element_size() for _, t in items)
+    data = PlaneData(torch, cfg.vocab_size, seed)
+    init = state_of(torch, items)
+    m = register_train_metrics()
+    print(f"  {MODEL}'s widths at {PLANE_LAYERS} of "
+          f"{gpt_config(MODEL).num_hidden_layers} layers (the depth cut: "
+          f"every snapshot goes through host memory and the disk), "
+          f"b{TRAIN_B} x s{TRAIN_S}, bf16 params and AdamW moments; "
+          f"{len(items)} state tensors, {nbytes} bytes a snapshot; "
+          f"checkpoints under {root}")
+    step(params, opt_state, data.batch_at(0), 0)     # builds the graph
+    torch.cuda.synchronize()
+    set_state(items, init)
+
+    def run(tag, **kw):
+        set_state(items, init)
+        d = os.path.join(root, tag)
+        loop = ResilientTrainLoop(step, data, params, opt_state,
+                                  directory=d, seed=seed, **kw)
+        return loop, loop.run(PLANE_STEPS)
+
+    # (a) the uninterrupted runs
+    kernels.reset_kernel_launch_counts()
+    with get_sentinel().armed():
+        loop_a, res_a = run("a", checkpoint_interval=PLANE_INTERVAL)
+    torch.cuda.synchronize()
+    counts = kernels.kernel_launch_counts()
+    want = PLANE_STEPS * PLANE_LAYERS
+    for name in ("flash_attention_qkv_fwd", "flash_attention_qkv_bwd"):
+        check(counts[name] == want, f"phase 19 (a): {name} launched "
+              f"{counts[name]} times, steps x layers = {want}")
+    check(counts["multi_tensor_adam"] == PLANE_STEPS, "phase 19 (a): "
+          f"multi_tensor_adam launched {counts['multi_tensor_adam']} times")
+    check(res_a.steps_run == PLANE_STEPS and
+          res_a.last_committed_step == PLANE_STEPS and all(
+              math.isfinite(x) for x in res_a.losses),
+          f"phase 19 (a): {res_a}")
+    s_a = state_of(torch, items)
+    t0 = time.perf_counter()
+    flat = step.host_state(params, opt_state)
+    d2h_s = time.perf_counter() - t0
+    del flat
+    writes = m["write_seconds"].child(loop=loop_a.loop_id)
+    start = param_starts(names, init)
+    spread = [0.0] * len(items)
+    loss_spread = 0.0
+    plain = []
+    for r in range(PLANE_SPREAD_RUNS):
+        with get_sentinel().armed():
+            _, res = run(f"a{r}", checkpoint_interval=0)
+        plain.append(res)
+        spread = [max(x, y) for x, y in zip(spread, state_gaps(
+            torch, state_of(torch, items), s_a, masks, start))]
+        loss_spread = max(loss_spread, max(
+            abs(x - y) for x, y in zip(res.losses, res_a.losses)))
+    bound = state_bound(spread, state_floor(torch, s_a, start))
+    loss_bound = max(GRAPH_SPREAD * loss_spread,
+                     PLANE_LOSS_RTOL * max(abs(x) for x in res_a.losses))
+    counts = {k: counts[k] for k in ("flash_attention_qkv_fwd",
+                                     "flash_attention_qkv_bwd",
+                                     "multi_tensor_adam")}
+    print(f"  (a) {PLANE_STEPS} steps, async commits every "
+          f"{PLANE_INTERVAL}: launches {counts} (flash fwd = bwd = steps x "
+          f"layers = {want}, the update once a step); losses "
+          f"{[round(x, 4) for x in res_a.losses]}")
+    snap_steps = [round(t * 1e3, 1) for t in
+                  res_a.step_seconds[PLANE_INTERVAL - 1::PLANE_INTERVAL]]
+    print(f"  {card}: step ms p50 {p50_ms(res_a.step_seconds):.3f} with "
+          f"checkpoints (the snapshot steps {snap_steps} ms) against "
+          f"{[round(p50_ms(r.step_seconds), 3) for r in plain]} with none; "
+          f"snapshot to host {d2h_s * 1e3:.1f} ms for {nbytes} bytes "
+          f"({nbytes / d2h_s / 1e9:.2f} GB/s); train_checkpoint_write_"
+          f"seconds mean {writes[1] / max(writes[2], 1):.3f} s over "
+          f"{writes[2]} commits (step 0's blocking); data wait p50 "
+          f"{p50_ms(res_a.data_wait_seconds):.3f} ms")
+
+    # (b) crash right after a commit, wipe, resume on the same step
+    inj = TrainFaultInjector().add("crash_at_step", at_step=PLANE_CRASH_AT)
+    set_state(items, init)
+    loop_b = ResilientTrainLoop(step, data, params, opt_state,
+                                directory=os.path.join(root, "b"),
+                                seed=seed, fault_injector=inj,
+                                checkpoint_interval=PLANE_INTERVAL)
+    try:
+        loop_b.run(PLANE_STEPS)
+        check(False, "phase 19 (b): the injected crash did not fire")
+    except InjectedCrash:
+        pass
+    loop_b._manager.wait()
+    cursor = loop_b._data_cursor
+    check(cursor == PLANE_CRASH_AT, f"phase 19 (b): the crashed loop's data "
+          f"cursor is {cursor}, not {PLANE_CRASH_AT}")
+    crashed = state_of(torch, items)
+    key = loop_b.step_key(PLANE_CRASH_AT)
+    eager = step.run_eager(params, opt_state, data.batch_at(PLANE_CRASH_AT),
+                           key)[0].item()
+    # the control: a resume fed the next batch, its first loss against
+    # (a)'s on the right one, must lie outside the losses' bound
+    set_state(items, crashed)
+    wrong = abs(step.run_eager(params, opt_state,
+                               data.batch_at(PLANE_CRASH_AT + 1), key)[0]
+                .item() - res_a.losses_by_step[PLANE_CRASH_AT])
+    check(wrong > loss_bound, f"phase 19 (b): the control (the next "
+          f"batch) lies {wrong} from (a)'s loss, within {loss_bound}")
+    for _, t in items:
+        t.zero_()
+    builds = get_sentinel().trace_count(step.exec_name)
+    with get_sentinel().armed():
+        loop_r = ResilientTrainLoop(step, data, params, opt_state,
+                                    directory=os.path.join(root, "b"),
+                                    seed=seed,
+                                    checkpoint_interval=PLANE_INTERVAL)
+        check(loop_r.resumed_from == PLANE_CRASH_AT, "phase 19 (b): resumed "
+              f"from {loop_r.resumed_from}, not {PLANE_CRASH_AT}")
+        same = [torch.equal(a, b) for a, b in zip(state_of(torch, items),
+                                                  crashed)]
+        check(all(same), "phase 19 (b): restored tensors differ from the "
+              f"crashed state: {[n for n, s in zip(names, same) if not s]}")
+        res_r = loop_r.run(PLANE_STEPS)
+    check(get_sentinel().trace_count(step.exec_name) == builds,
+          "phase 19 (b): resuming built the step again")
+    first = res_r.losses_by_step[PLANE_CRASH_AT]
+    check(first == eager, f"phase 19 (b): the first resumed loss {first!r} "
+          f"is not the crashed state's eager step {eager!r}")
+    rest = [abs(res_r.losses_by_step[s] - res_a.losses_by_step[s])
+            for s in range(PLANE_CRASH_AT + 1, PLANE_STEPS)]
+    check(max(rest) <= loss_bound, f"phase 19 (b): resumed losses lie "
+          f"{max(rest)} from (a)'s, beyond {loss_bound}")
+    worst = worst_against(names, state_gaps(torch, state_of(torch, items),
+                                            s_a, masks, start), bound)
+    check(worst[3] <= 1.0, f"phase 19 (b): the resumed final state's "
+          f"{worst[0]} lies {worst[1]} from (a)'s, beyond {worst[2]}")
+    print(f"  (b) crash at step {PLANE_CRASH_AT}, right after its commit; "
+          f"the state wiped; a fresh loop on the same step resumed_from "
+          f"{loop_r.resumed_from} at data cursor {cursor}, restore "
+          f"{loop_r.restore_seconds:.3f} s; every tensor the crashed "
+          f"state's bit for bit; first loss {first!r} = the eager step's; "
+          f"later losses within {max(rest):.3e} of (a)'s (bound "
+          f"{loss_bound:.3e}; a resume fed the next batch lies {wrong:.3e} "
+          f"from it); final state's worst {worst[0]} {worst[1]:.3e} "
+          f"of {worst[2]:.3e}; builds {builds} -> "
+          f"{get_sentinel().trace_count(step.exec_name)}  ok")
+    del crashed
+
+    # (d) introspect=True against False (a's runs)
+    istep = make(introspect=True)
+    iparams, iopt = istep.init(slot_dtype="bfloat16")
+    iitems = istep.state_items(iparams, iopt)
+    set_state(iitems, init)
+    with get_sentinel().armed():
+        ires = ResilientTrainLoop(
+            istep, data, iparams, iopt, directory=os.path.join(root, "d"),
+            seed=seed, checkpoint_interval=0).run(PLANE_STEPS)
+    check(ires.losses[0] == res_a.losses[0], "phase 19 (d): introspect's "
+          f"first loss {ires.losses[0]!r} is not {res_a.losses[0]!r}")
+    check(get_sentinel().trace_count(istep.exec_name) == 1 and
+          get_sentinel().trace_count(step.exec_name) == builds,
+          "phase 19 (d): more than one build a step")
+    row = istep.last_telemetry_row
+    check(all(math.isfinite(t["grad_norm"]) and t["nonfinite"] == 0
+              for t in row["layers"].values()), f"phase 19 (d): {row}")
+    print(f"  (d) introspect=True: first loss {ires.losses[0]!r} bit for "
+          f"bit introspect=False's; one build each; step ms p50 "
+          f"{p50_ms(ires.step_seconds[1:]):.3f} against "
+          f"{[round(p50_ms(r.step_seconds), 3) for r in plain]}; "
+          f"{len(row['layers'])} layer rows, global grad norm "
+          f"{row['global_grad_norm']:.4f}  ok")
+    for what, st, p_, o_ in (("training steps", step, params, opt_state),
+                             ("introspecting steps", istep, iparams, iopt)):
+        profile_steps(torch, lambda: st(p_, o_, data.batch_at(0), 0), 2,
+                      f"{what} at {PLANE_LAYERS} layers",
+                      {**qkv_families("B1"), **ADAM_FAMILY})
+
+    # (c) faults
+    set_state(items, init)
+    inj = TrainFaultInjector().add("nan_loss_at_step", at_step=2)
+    loop = ResilientTrainLoop(step, data, params, opt_state,
+                              directory=os.path.join(root, "c1"), seed=seed,
+                              checkpoint_interval=2, fault_injector=inj)
+    res = loop.run(4)
+    check(res.anomalies == 1 and res.rollbacks == 1 and
+          sorted(loop._skipped) == [2] and res.steps_run == 4 and all(
+              math.isfinite(x) for x in res.losses),
+          f"phase 19 (c) poisoned loss: {res}, skipped {loop._skipped}")
+    print(f"  (c) NaN loss at step 2: rolled back to step 2's checkpoint "
+          f"(restore {loop.restore_seconds:.3f} s), data index 2 skipped, "
+          f"4 steps finite  ok")
+    shutil.rmtree(os.path.join(root, "c1"), ignore_errors=True)
+
+    poison = f"gpt.h.{PLANE_LAYERS // 2}.mlp.fc_in.weight"
+    set_state(iitems, init)
+    inj = TrainFaultInjector().add("nan_param_at_step", at_step=2,
+                                   param=poison)
+    loop = ResilientTrainLoop(istep, data, iparams, iopt,
+                              directory=os.path.join(root, "c2"), seed=seed,
+                              checkpoint_interval=2, fault_injector=inj)
+    res = loop.run(4)
+    rec = loop.last_anomaly
+    layer = f"gpt.h.{PLANE_LAYERS // 2}"
+    check(res.rollbacks == 1 and rec is not None and rec["layer"] == layer
+          and rec["attribution"]["reason"] == "param_nonfinite",
+          f"phase 19 (c) NaN param: {res}, last_anomaly {rec}")
+    print(f"  (c) NaN in {poison} at step 2, introspect=True: last_anomaly "
+          f"names {rec['layer']} ({rec['attribution']['reason']}), rolled "
+          "back  ok")
+    shutil.rmtree(os.path.join(root, "c2"), ignore_errors=True)
+    del istep, iparams, iopt, iitems
+
+    for fault in ("torn_checkpoint_write", "corrupt_shard"):
+        set_state(items, init)
+        d = os.path.join(root, fault)
+        inj = (TrainFaultInjector().add(fault, at_step=4)
+               .add("crash_at_step", at_step=4))
+        loop = ResilientTrainLoop(step, data, params, opt_state,
+                                  directory=d, seed=seed,
+                                  checkpoint_interval=2, fault_injector=inj)
+        try:
+            loop.run(6)
+            check(False, f"phase 19 (c) {fault}: the crash did not fire")
+        except InjectedCrash:
+            pass
+        loop._manager.wait()
+        before = m["discarded"].value(loop=f"{fault}-r")
+        again = ResilientTrainLoop(step, data, params, opt_state,
+                                   directory=d, seed=seed,
+                                   checkpoint_interval=2,
+                                   loop_id=f"{fault}-r")
+        discarded = m["discarded"].value(loop=f"{fault}-r") - before
+        check(again.resumed_from == 2 and discarded == (
+            fault == "corrupt_shard"), f"phase 19 (c) {fault}: resumed from "
+            f"{again.resumed_from}, {discarded} discarded")
+        print(f"  (c) {fault} at step 4, then a crash: restore_latest "
+              f"passed over step 4 ({int(discarded)} discarded by its CRC) "
+              f"and resumed from step 2  ok")
+        shutil.rmtree(d, ignore_errors=True)
+
+    set_state(items, init)
+
+    class Notice(PlaneData):
+        def batch_at(self, i):
+            if i == 2:
+                holder.request_preemption()
+            return super().batch_at(i)
+
+    d = os.path.join(root, "pre")
+    holder = ResilientTrainLoop(step, Notice(torch, cfg.vocab_size, seed),
+                                params, opt_state, directory=d, seed=seed,
+                                checkpoint_interval=100)
+    res = holder.run(PLANE_STEPS)
+    resumed = ResilientTrainLoop(step, data, params, opt_state,
+                                 directory=d, seed=seed,
+                                 checkpoint_interval=100).resumed_from
+    check(res.preempted and res.steps_run == 3 and
+          res.last_committed_step == 3 and resumed == 3,
+          f"phase 19 (c) preemption: {res}, resumed from {resumed}")
+    print("  (c) request_preemption() during step 2: the loop committed an "
+          "emergency snapshot at step 3 and returned preempted; a fresh "
+          "loop resumed from 3  ok")
+    del model, step, params, opt_state, init, s_a
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def serve_arrivals(torch, eng, prompts, budgets, at, on_step=None):
     """Greedy request ``i`` (``prompts[i]``, ``budgets[i]`` new tokens)
     submitted just before step ``at[i]``; steps until every request is
@@ -5441,6 +6018,21 @@ def main(argv=None) -> int:
               "adaptive spec_k on W = 2, 3, 5, 9, draft_model=, deadlines, "
               "bounded admission, background mode)")
         launches.update(engine_rest_phase(torch, args.seed, paged_step))
+        print("[19] the training plane (gpt3-1.3b's widths: "
+              "ResilientTrainLoop around phase 5's step, async checkpoints, "
+              "crash and resume, rollbacks, introspection)")
+        phase5 = {k: launches[k] for k in ("flash_attention_qkv_fwd",
+                                           "flash_attention_qkv_bwd",
+                                           "multi_tensor_adam")}
+        root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            PLANE_DIR)
+        shutil.rmtree(root, ignore_errors=True)
+        try:
+            launches.update(plane_phase(torch, args.seed, card, root))
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        print(f"  (B1's and the update's launches in the kernel line are "
+              f"phase 19's; phase 5's were {phase5})")
     print(f"  width-512 launches of B3 over phases 4-18: {wide_seen}")
     launches.update({name: wide_seen[c] for name, c in wide_names.items()})
     for rec in records:

@@ -10,6 +10,7 @@ JAX threads a key; the port threads a `torch.Generator`:
   ``key`` (`step_generator`).
 - Outside any scope, draws come from the port's own default generator
   for the device, seeded with 0 (never from torch's global one).
+- `fold_in(seed, step)` gives the training loop's key of a step.
 - `flash_seed` draws the int32 seed of the flash kernels' in-kernel
   dropout hash, masked to 31 bits as ``_seed_arr`` does. It stays on the
   device: the kernels read it from there, so drawing it costs no
@@ -28,12 +29,29 @@ import torch
 _local = threading.local()
 _DEFAULTS: dict = {}
 _DEFAULTS_LOCK = threading.Lock()
+_MASK64 = (1 << 64) - 1
 
 
 def _guards() -> list:
     if not hasattr(_local, "guards"):
         _local.guards = []
     return _local.guards
+
+
+def fold_in(seed, data) -> int:
+    """A 63-bit step key from ``(seed, data)``: the counterpart of
+    ``jax.random.fold_in(PRNGKey(seed), data)`` that the reference's
+    training loop keys each step with. Two rounds of splitmix64, so
+    neighbouring seeds and steps give unrelated keys; the same pair gives
+    the same key in every process (a resumed run draws what the
+    uninterrupted run drew)."""
+    x = int(seed) & _MASK64
+    for v in (0x243F6A8885A308D3, int(data) & _MASK64):
+        x = (x + v + 0x9E3779B97F4A7C15) & _MASK64
+        x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+        x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+        x ^= x >> 31
+    return x & 0x7FFF_FFFF_FFFF_FFFF
 
 
 def step_generator(key, device) -> torch.Generator:
@@ -75,4 +93,5 @@ def flash_seed(generator: torch.Generator) -> torch.Tensor:
     return (raw & 0x7FFFFFFF).to(torch.int32)
 
 
-__all__ = ["step_generator", "rng_guard", "current_generator", "flash_seed"]
+__all__ = ["fold_in", "step_generator", "rng_guard", "current_generator",
+           "flash_seed"]

@@ -55,9 +55,28 @@ call to return), and with ``opt_state`` the scaler's ``found_inf_skips``
 and ``loss_scale`` (one small read from the device); ``memory``,
 ``cost`` and ``mfu`` are None (XLA's analyses; ROADMAP A9).
 
+``introspect=True`` (:326-387, :687-735): the per-layer reductions of
+`observability.train_introspection.grad_telemetry` (grad-norm²,
+param-norm², update magnitude², non-finite count a layer, and the global
+grad-norm²) run inside the step's one graph, on the unscaled grads, as
+extra static outputs; a float32 copy of the params taken before the
+in-place update gives the update's magnitude (that copy lives in the
+graph's pool). Each call folds them on the host
+(one small read from the device) into the ``train_layer_*`` gauges,
+`last_telemetry_row` and a ring of the last ``introspect_last_k`` rows
+(`telemetry_ring`). The reductions only read: the loss is bit for bit
+the ``introspect=False`` loss, and the step is still one build a batch
+signature.
+
+`host_state` / `load_host_state` (:742-798) move the whole training
+state (``param/<name>`` and ``opt/<path>`` leaves) to the host and back
+for `framework.CheckpointManager`: the snapshot is a blocking copy into
+pinned host memory (the next replay rewrites the params in place), the
+restore copies INTO the live tensors, so the captured graph's addresses
+hold and a resume or rollback replays without a new build.
+
 What this slice leaves out raises `NotImplementedError` naming its
-ROADMAP item: a device mesh and recompute (A12), in-step introspection
-(A11).
+ROADMAP item: a device mesh and recompute (A12).
 """
 from __future__ import annotations
 
@@ -73,6 +92,8 @@ from ..device import resolve_dtype
 from ..jit.capture import CapturedStep, graph_pool
 from ..nn.functional import cross_entropy
 from ..observability import get_registry, get_sentinel
+from ..observability import tracing as _tracing
+from ..observability import train_introspection as _introspect
 
 _uids = itertools.count()
 
@@ -87,15 +108,18 @@ def scaler_state(scaler, device) -> dict:
             "good": zero(), "bad": zero(), "skipped": zero()}
 
 
-def make_scaler_step(forward_backward, opt, scaler):
+def make_scaler_step(forward_backward, opt, scaler, telemetry=None):
     """The train step with dynamic loss scaling (``GradScaler``'s
     semantics, :183-300): the loss scaled, the grads unscaled in float32,
     a non-finite grad anywhere skips the whole update (params, slots and
     the step count stay) through the optimizer's ``found_inf``, and the
     scale shrinks or grows. Every decision is a device ``torch.where``;
     nothing is read on the host. ``forward_backward(params, batch,
-    scale)`` returns ``(scaled loss, grads, aux)``. Returns ``step(params,
-    opt_state, batch, lr) -> (loss, aux)``, updating in place."""
+    scale)`` returns ``(scaled loss, grads, aux)``. ``telemetry(params,
+    grads, update)``: the in-step reductions around the update
+    (`SpmdTrainStep._telemetry`), given the unscaled float32 grads, as
+    the reference gives them. Returns ``step(params, opt_state, batch,
+    lr) -> (loss, aux, telemetry or None)``, updating in place."""
     incr_n = int(scaler._incr_every_n_steps)
     decr_n = int(scaler._decr_every_n_nan_or_inf)
     incr_r = float(scaler._incr_ratio)
@@ -110,9 +134,17 @@ def make_scaler_step(forward_backward, opt, scaler):
         finite = torch.stack([torch.isfinite(g).all()
                               for g in grads.values()]).all()
         found = (~finite).to(torch.int32)
-        opt.apply_gradients(params, grads, {"step": opt_state["step"],
-                                            "slots": opt_state["slots"]},
-                            lr=lr, found_inf=found)
+
+        def update():
+            opt.apply_gradients(params, grads, {"step": opt_state["step"],
+                                                "slots": opt_state["slots"]},
+                                lr=lr, found_inf=found)
+
+        telem = None
+        if telemetry is None:
+            update()
+        else:
+            telem = telemetry(params, grads, update)
         zero = torch.zeros_like(sc["good"])
         good = torch.where(finite, sc["good"] + 1, zero)
         bad = torch.where(finite, zero, sc["bad"] + 1)
@@ -124,7 +156,7 @@ def make_scaler_step(forward_backward, opt, scaler):
         sc["good"].copy_(torch.where(inc, zero, good))
         sc["bad"].copy_(torch.where(dec, zero, bad))
         sc["skipped"].add_(found)
-        return loss, aux
+        return loss, aux, telem
 
     return step
 
@@ -136,9 +168,20 @@ def _leaves(tree) -> list:
     return [tree] if isinstance(tree, torch.Tensor) else []
 
 
+def _paths(tree, prefix="") -> list:
+    """``(path, tensor)`` of a nested dict's tensors in sorted key order,
+    the path its keys joined by ``/`` (the reference's ``_path_str`` of
+    a flattened pytree, :738-740)."""
+    if isinstance(tree, dict):
+        return [pt for k in sorted(tree)
+                for pt in _paths(tree[k], f"{prefix}{k}/")]
+    return [(prefix[:-1], tree)] if isinstance(tree, torch.Tensor) else []
+
+
 class SpmdTrainStep:
     def __init__(self, model, loss_fn, optimizer, mesh=None, amp=None,
-                 recompute=False, scaler=None, introspect=False):
+                 recompute=False, scaler=None, introspect=False,
+                 introspect_last_k=64):
         if mesh is not None:
             raise NotImplementedError(
                 "a device mesh (data/tensor parallel training) is a later "
@@ -147,9 +190,6 @@ class SpmdTrainStep:
             raise NotImplementedError(
                 "recompute (activation checkpointing) is a later slice "
                 "(ROADMAP A12)")
-        if introspect:
-            raise NotImplementedError(
-                "in-step introspection is a later slice (ROADMAP A11)")
         self.model = model
         self.optimizer = optimizer
         self.scaler = scaler
@@ -167,6 +207,21 @@ class SpmdTrainStep:
         #: copies of the loss function's aux tensors from the last call
         self.last_aux = None
         self._step_seconds = 0.0
+        #: in-step per-layer telemetry (module docstring)
+        self.introspect = bool(introspect)
+        self._layer_groups = (_introspect.group_layers(self._names)
+                              if self.introspect else None)
+        self.telemetry_ring = (_introspect.TelemetryRing(introspect_last_k)
+                               if self.introspect else None)
+        #: the newest folded per-step row (None until the first call)
+        self.last_telemetry_row = None
+        self._introspect_metrics = (
+            _introspect.register_introspection_metrics()
+            if self.introspect else None)
+        self._introspect_calls = 0
+        #: the step index the next row carries, when a wrapping loop
+        #: (`ResilientTrainLoop`) sets it; else the call's ordinal
+        self.introspect_step_hint = None
         r = get_registry()
         self._c_steps = r.counter("train_steps_total", "train step calls",
                                   labelnames=("executable",))
@@ -227,27 +282,55 @@ class SpmdTrainStep:
             loss, grads, _ = self._forward_backward(params, batch)
         return loss, grads
 
+    def _telemetry(self, params, grads, update):
+        """Run ``update()`` (in place) between a float32 copy of the params
+        and the per-layer reductions; returns them packed as two tensors:
+        float64 ``[4, layers]`` (grad², param², update², non-finite
+        count; exact for float32 sums and counts below 2^53) and the
+        float32 global grad²."""
+        before = {n: p.to(torch.float32, copy=True)
+                  for n, p in params.items()
+                  if p.is_floating_point() and n in grads}
+        update()
+        t = _introspect.grad_telemetry(self._layer_groups, before, grads,
+                                       params)
+        rows = [torch.stack([t["layers"][layer][q].double()
+                             for layer in self._layer_groups])
+                for q in ("grad_sq", "param_sq", "update_sq", "nonfinite")]
+        return torch.stack(rows), t["grad_sq_global"]
+
     def _body(self, params, opt_state, consts):
         """The step over the static buffers: ``lr`` (float32 bits in an
-        int32 buffer) and the batch's tensors; returns the loss and the
-        aux tensors in `_aux_keys` order."""
+        int32 buffer) and the batch's tensors; returns the loss, the aux
+        tensors in `_aux_keys` order and, with introspection, the packed
+        telemetry (`_telemetry`)."""
+        telemetry = self._telemetry if self.introspect else None
         scaled = (None if self.scaler is None else
                   make_scaler_step(self._forward_backward, self.optimizer,
-                                   self.scaler))
+                                   self.scaler, telemetry))
 
         def body(lr, **tensors):
             lr = lr.view(torch.float32).reshape(())
             batch = {**consts, **tensors}
+            telem = None
             with torch.enable_grad(), _random.rng_guard(self._gen):
                 if scaled is not None:
-                    loss, aux = scaled(params, opt_state, batch, lr)
+                    loss, aux, telem = scaled(params, opt_state, batch, lr)
                 else:
                     loss, grads, aux = self._forward_backward(params, batch)
-                    self.optimizer.apply_gradients(params, grads, opt_state,
-                                                   lr=lr)
+
+                    def update():
+                        self.optimizer.apply_gradients(params, grads,
+                                                       opt_state, lr=lr)
+
+                    if telemetry is None:
+                        update()
+                    else:
+                        telem = telemetry(params, grads, update)
             aux = aux or {}
             self._aux_keys = sorted(aux)
-            return (loss, *(aux[k].detach() for k in self._aux_keys))
+            return (loss, *(aux[k].detach() for k in self._aux_keys),
+                    *(telem or ()))
 
         return body
 
@@ -299,8 +382,10 @@ class SpmdTrainStep:
             entry = self._steps[sig] = (
                 self._build(params, opt_state, batch, note), bound)
         self._seed(key)
-        loss, *aux = entry[0](**self._operands(batch))
-        self.last_aux = dict(zip(self._aux_keys, aux))
+        with _tracing.span("train.step", stage="dispatch",
+                           executable=self.exec_name):
+            loss, *rest = entry[0](**self._operands(batch))
+        self._outputs(rest)
         self._step_seconds += time.perf_counter() - t0
         self._c_steps.inc(executable=self.exec_name)
         tokens = self._tokens(batch)
@@ -314,9 +399,111 @@ class SpmdTrainStep:
         computes, for a check. Nothing on a main path calls it."""
         step = self._steps[self._dispatch_sig(batch)][0]
         self._seed(key)
-        loss, *aux = step.run_eager(**self._operands(batch))
-        self.last_aux = dict(zip(self._aux_keys, aux))
+        loss, *rest = step.run_eager(**self._operands(batch))
+        self._outputs(rest)
         return loss, params, opt_state
+
+    def _outputs(self, rest):
+        """Keep a call's aux copies and fold its telemetry."""
+        n = len(self._aux_keys)
+        self.last_aux = dict(zip(self._aux_keys, rest[:n]))
+        if self.introspect:
+            self._fold_telemetry(*rest[n:])
+
+    def _fold_telemetry(self, packed, global_sq):
+        """One small read of the in-step reductions -> the gauges, the
+        bounded ring and `last_telemetry_row` (:710-735)."""
+        idx = (self.introspect_step_hint
+               if self.introspect_step_hint is not None
+               else self._introspect_calls)
+        rows = packed.cpu().tolist()
+        host = {"layers": {
+            layer: {"grad_sq": rows[0][i], "param_sq": rows[1][i],
+                    "update_sq": rows[2][i], "nonfinite": rows[3][i]}
+            for i, layer in enumerate(self._layer_groups)},
+            "grad_sq_global": float(global_sq)}
+        row = _introspect.fold_telemetry(host, idx)
+        self._introspect_calls += 1
+        m = self._introspect_metrics
+        name = self.exec_name
+        for layer, t in row["layers"].items():
+            m["layer_grad_norm"].set(t["grad_norm"], executable=name,
+                                     layer=layer)
+            m["layer_param_norm"].set(t["param_norm"], executable=name,
+                                      layer=layer)
+            m["update_ratio"].set(t["update_ratio"], executable=name,
+                                  layer=layer)
+            m["layer_nonfinite"].set(t["nonfinite"], executable=name,
+                                     layer=layer)
+        m["global_grad_norm"].set(row["global_grad_norm"], executable=name)
+        self.telemetry_ring.add(row)
+        self.last_telemetry_row = row
+        return row
+
+    # -- the training state to the host and back ---------------------------
+    @staticmethod
+    def state_items(params, opt_state) -> list:
+        """``(key, tensor)`` of the whole training state: ``param/<name>``
+        in the params' order, then ``opt/<path>`` (``step``,
+        ``slots/<name>/<slot>``, ``scaler/<field>``) in sorted key
+        order."""
+        return ([(f"param/{n}", v) for n, v in params.items()]
+                + [(f"opt/{p}", v) for p, v in _paths(opt_state)])
+
+    def host_state(self, params, opt_state) -> dict:
+        """The training state as one name -> host tensor dict (keys of
+        `state_items`): the snapshot a `framework.CheckpointManager`
+        commits in the background. On a card each leaf is copied into
+        pinned host memory and the call waits for the copies: the next
+        replay rewrites params and slots in place, so the snapshot must
+        be whole before it runs. On the CPU, clones."""
+        out = {}
+        cuda = False
+        for k, v in self.state_items(params, opt_state):
+            if v.is_cuda:
+                cuda = True
+                h = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                h.copy_(v, non_blocking=True)
+            else:
+                h = v.detach().clone()
+            out[k] = h
+        if cuda:
+            torch.cuda.current_stream().synchronize()
+        return out
+
+    def load_host_state(self, flat, params, opt_state):
+        """Inverse of `host_state`: copy a restored flat dict (host
+        tensors or numpy arrays) INTO the live ``params`` and
+        ``opt_state`` tensors, which keeps the addresses the captured
+        graphs bind, and return them. A missing leaf, or one of another
+        shape or dtype, raises `framework.checkpoint.
+        CheckpointCorruptError`: a restore matches the step's layout
+        exactly or fails typed, never trains on garbage."""
+        from ..framework.checkpoint import CheckpointCorruptError
+
+        items = self.state_items(params, opt_state)
+        for key, live in items:
+            if key not in flat:
+                raise CheckpointCorruptError(
+                    f"checkpoint missing leaf {key!r}")
+            a = flat[key]
+            if not isinstance(a, torch.Tensor):
+                a = torch.from_numpy(np.ascontiguousarray(a))
+            if tuple(a.shape) != tuple(live.shape):
+                raise CheckpointCorruptError(
+                    f"restored leaf {key!r} shape {tuple(a.shape)} != live "
+                    f"{tuple(live.shape)}")
+            if a.dtype != live.dtype:
+                raise CheckpointCorruptError(
+                    f"restored leaf {key!r} dtype {a.dtype} != live "
+                    f"{live.dtype}")
+        with torch.no_grad():
+            for key, live in items:
+                a = flat[key]
+                if not isinstance(a, torch.Tensor):
+                    a = torch.from_numpy(np.ascontiguousarray(a))
+                live.copy_(a)
+        return params, opt_state
 
     def _seed(self, key):
         self._gen.manual_seed(int(key) & 0x7FFF_FFFF_FFFF_FFFF)
@@ -351,6 +538,12 @@ class SpmdTrainStep:
                "tokens": int(self._c_tokens.value(executable=name)),
                "step_seconds_sum": self._step_seconds,
                "memory": None, "cost": None, "mfu": None}
+        if self.introspect:
+            out["introspection"] = {
+                "enabled": True,
+                "last": self.last_telemetry_row,
+                "ring_len": len(self.telemetry_ring),
+            }
         if opt_state is not None and "scaler" in opt_state:
             sc = opt_state["scaler"]
             out["found_inf_skips"] = int(sc["skipped"])

@@ -220,6 +220,12 @@ class MetricsRegistry:
         with self._lock:
             return self._metrics.get(name)
 
+    def collect(self, name) -> list:
+        """``get(name).collect()``, a metric not registered yet reading
+        as the empty list (``registry.py:297-306``)."""
+        m = self.get(name)
+        return m.collect() if m is not None else []
+
 
 #: the process-wide default registry
 _default_registry = MetricsRegistry()

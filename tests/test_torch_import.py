@@ -67,7 +67,14 @@ MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.device",
            "paddle_tpu_torch.serving.faults",
            "paddle_tpu_torch.serving.speculative",
            "paddle_tpu_torch.serving.request",
-           "paddle_tpu_torch.serving.errors"]
+           "paddle_tpu_torch.serving.errors",
+           "paddle_tpu_torch.framework", "paddle_tpu_torch.framework.io",
+           "paddle_tpu_torch.framework.checkpoint",
+           "paddle_tpu_torch.framework.train_faults",
+           "paddle_tpu_torch.framework.train_loop",
+           "paddle_tpu_torch.observability.tracing",
+           "paddle_tpu_torch.observability.train_introspection",
+           "paddle_tpu_torch.observability.threads"]
 
 
 def test_import_pulls_in_no_jax_and_no_paddle_tpu():
@@ -81,6 +88,55 @@ def test_import_pulls_in_no_jax_and_no_paddle_tpu():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+BLOCKED = ("jax", "jaxlib", "paddle_tpu", "ml_dtypes", "orbax")
+
+
+def test_framework_works_with_jax_ml_dtypes_and_orbax_blocked(tmp_path):
+    """With jax, paddle_tpu, ml_dtypes and orbax unimportable, the
+    framework imports, reads a bfloat16 file paddle_tpu.save wrote (its
+    pickle names ml_dtypes.bfloat16), writes one, and checkpoints."""
+    import jax.numpy as jnp
+    import ml_dtypes
+
+    from paddle_tpu.core.tensor import Parameter as JParameter
+    from paddle_tpu.framework import io as jio
+
+    a = np.arange(6, dtype=np.float32).reshape(2, 3) / 7
+    jio.save({"w": JParameter(jnp.asarray(a.astype(ml_dtypes.bfloat16)))},
+             str(tmp_path / "ref.pd"))
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        f"        if name.split('.')[0] in {BLOCKED!r}:\n"
+        "            raise ImportError('blocked ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import torch\n"
+        "from paddle_tpu_torch import framework as fw\n"
+        "from paddle_tpu_torch.framework import checkpoint as ck\n"
+        f"d = {str(tmp_path)!r}\n"
+        "w = fw.load(d + '/ref.pd')['w']\n"
+        "assert w.dtype == torch.bfloat16, w.dtype\n"
+        "fw.save({'w': w}, d + '/port.pd')\n"
+        "assert torch.equal(fw.load(d + '/port.pd')['w'], w)\n"
+        "m = ck.CheckpointManager(d + '/ckpt')\n"
+        "m.save(1, {'w': w}, {'step': 1}, block=True)\n"
+        "assert torch.equal(m.restore_latest()[1]['w'], w)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{BLOCKED!r})\n"
+        "print(w.float().tolist(), bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    want = a.astype(ml_dtypes.bfloat16).astype(np.float32).tolist()
+    assert res.stdout.startswith(repr(want))
+    back = jio.load(str(tmp_path / "port.pd"), return_numpy=True)["w"]
+    assert back.dtype == ml_dtypes.bfloat16
+    np.testing.assert_array_equal(back.astype(np.float32), want)
 
 
 def _sources():

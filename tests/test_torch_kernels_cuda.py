@@ -835,3 +835,47 @@ def test_train_step_replay_equals_its_eager_run_on_a_card():
     assert counts["multi_tensor_adam"] == 1
     assert counts["flash_attention_qkv_fwd"] == 2
     assert step.metrics_snapshot()["xla_traces"] == 1
+
+
+@pytest.mark.cuda
+def test_introspecting_train_step_and_its_snapshot_on_a_card():
+    """`SpmdTrainStep(introspect=True)` on a small GPT, bf16: one graph,
+    its first loss bit for bit the introspect-off step's, finite rows for
+    every layer; `host_state` then `load_host_state` after two more
+    replays brings back every tensor bit for bit, and the next replay
+    (no new build) equals the one that followed the snapshot."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: a CUDA graph is captured and "
+                    "replayed only on the card")
+    from paddle_tpu_torch.distributed import SpmdTrainStep, gpt_loss_fn
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = GPTConfig(256, 128, 2, 2, 256, 128, hidden_dropout_prob=0.0,
+                    attention_probs_dropout_prob=0.0)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    ids = torch.randint(0, 256, (4, 129), generator=g, device="cuda")
+    batch = {"input_ids": ids[:, :-1], "labels": ids[:, 1:]}
+    first = {}
+    for flag in (False, True):
+        model = GPTForPretraining(cfg, dtype="bfloat16", seed=0)
+        model.train()
+        step = SpmdTrainStep(model, gpt_loss_fn, AdamW(learning_rate=1e-3),
+                             introspect=flag)
+        params, state = step.init(slot_dtype="bfloat16")
+        first[flag] = step(params, state, batch, 0)[0]
+    assert torch.equal(first[True], first[False])
+    row = step.last_telemetry_row
+    assert set(row["layers"]) == {"gpt.embeddings", "gpt.h.0", "gpt.h.1",
+                                  "gpt.ln_f"}
+    assert all(t["nonfinite"] == 0 and t["grad_norm"] > 0
+               for t in row["layers"].values())
+    snap = step.host_state(params, state)
+    assert all(v.is_pinned() for v in snap.values())
+    after = step(params, state, batch, 1)[0]
+    step(params, state, batch, 2)
+    step.load_host_state(snap, params, state)
+    for k, live in step.state_items(params, state):
+        assert torch.equal(live.cpu(), snap[k]), k
+    assert torch.equal(step(params, state, batch, 1)[0], after)
+    assert step.metrics_snapshot()["xla_traces"] == 1

@@ -310,13 +310,22 @@ def test_export_round_trips_and_dropout_follows_the_key():
     assert e1 == e2
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(recompute=True),
-                                dict(introspect=True)],
+@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(recompute=True)],
                          ids=lambda kw: next(iter(kw)))
 def test_later_slice_arguments_raise(kw):
     model = GPTForPretraining("gpt-test", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         SpmdTrainStep(model, gpt_loss_fn, AdamW(), **kw)
+
+
+def test_introspect_argument_is_ported():
+    """``introspect=True`` (A11) builds: the step carries its telemetry
+    ring (tests/test_torch_train_introspection.py holds it against the
+    reference)."""
+    model = GPTForPretraining("gpt-test", device="cpu")
+    step = SpmdTrainStep(model, gpt_loss_fn, AdamW(), introspect=True,
+                         introspect_last_k=3)
+    assert step.introspect and len(step.telemetry_ring) == 0
 
 
 def test_scaler_argument_trains():

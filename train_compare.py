@@ -13,54 +13,87 @@ runs the tree's own `chip_smoke` training phases (GPT, the three BERT
 runs, Gemma-2B's widths) with their gates and prints. Without a CUDA
 device it raises.
 
-    python3 train_compare.py --gate-reps N
+    python3 train_compare.py --gate-reps N [--phase 5|13]
 
-builds phase 5's GPT run once (gpt3-1.3b, seed 0, its graph and timed
-replays) and then runs the tree's own replay-against-eager gate
-(`chip_smoke.train_graph_check`) N times on it, printing each outcome
-and the count that failed: how often the gate fails on one tree.
+runs the tree's own training phase 5 (gpt3-1.3b) or 13 (Gemma-2B's
+widths) with its replay-against-eager gate run N times in place of once,
+printing each outcome and the count that failed: how often the gate
+fails on one tree. Where the tree's `chip_smoke` has the per-tensor gate
+(`train_graph_gate`), each rep prints the worst param and the worst slot
+against their bounds, the outcome with the spread of 2 eager runs beside
+the tree's count, and its two controls (the replays with one update
+skipped, and at twice the learning rate), which must fail the gate; an
+older tree runs its own `train_graph_check`.
 """
 import argparse
-import dataclasses
 import os
 import sys
 
 import torch
 
 
-def gate_reps(cs, reps):
-    """Phase 5's graph-against-eager gate ``reps`` times on one run."""
-    from paddle_tpu_torch.distributed import SpmdTrainStep, gpt_loss_fn
-    from paddle_tpu_torch.models.gpt import GPTForPretraining, gpt_config
-    from paddle_tpu_torch.optimizer import AdamW
+def gate_reps(cs, reps, phase, card):
+    """The replay-against-eager gate ``reps`` times on one run of phase
+    5 (GPT) or 13 (Gemma-2B's widths): the tree's phase runs with its
+    ``train_graph_check`` replaced by the reps."""
+    counts = {"failed": 0, "failed_2": 0, "caught": 0, "caught_lr": 0}
+    per_tensor = hasattr(cs, "train_graph_gate")
+    check = cs.train_graph_check
 
-    cfg = dataclasses.replace(gpt_config(cs.MODEL), hidden_dropout_prob=0.0,
-                              attention_probs_dropout_prob=0.0)
-    model = GPTForPretraining(cfg, dtype="bfloat16", seed=0)
-    model.train()
-    step = SpmdTrainStep(model, gpt_loss_fn, AdamW(
-        learning_rate=cs.TRAIN_LR, weight_decay=cs.TRAIN_WD))
-    params, opt_state = step.init(slot_dtype="bfloat16")
-    g = torch.Generator(device="cuda").manual_seed(0)
-    tokens = [torch.randint(0, cfg.vocab_size, (cs.TRAIN_B, cs.TRAIN_S + 1),
-                            generator=g, device="cuda")
-              for _ in range(cs.TRAIN_STEPS + 3)]
-    batches = [{"input_ids": t[:, :-1], "labels": t[:, 1:]} for t in tokens]
-    run = cs.train_on_graphs(torch, step, params, opt_state, batches, "GPT")
-    failed = 0
-    for i in range(reps):
-        try:
-            cs.train_graph_check(torch, step, params, opt_state, batches,
-                                 run, "GPT", memory_gate=True)
-        except RuntimeError as e:
-            failed += 1
-            print(f"  rep {i}: FAILED {e}", flush=True)
-    print(f"gate reps: {failed} of {reps} failed", flush=True)
+    def reps_instead(torch, step, params, opt_state, batches, run, label,
+                     memory_gate=False):
+        for i in range(reps):
+            if not per_tensor:
+                try:
+                    check(torch, step, params, opt_state, batches, run,
+                          label, memory_gate=memory_gate)
+                except RuntimeError as e:
+                    counts["failed"] += 1
+                    print(f"  rep {i}: FAILED {e}", flush=True)
+                continue
+            r = cs.train_graph_gate(torch, step, params, opt_state, batches,
+                                    run)
+            first = (torch.equal(r["g_loss"], r["e_loss"]) and (
+                not memory_gate or run["peak"] / r["eager_peak"]
+                <= cs.GRAPH_MEMORY_RATIO))
+            bound_2 = cs.state_bound(r["spreads"][0], r["floor"])
+            worst_2 = max(r["worst_of"](idx, r["gaps"], bound_2)[3]
+                          for idx in (r["params"], r["slots"]))
+            ok = first and max(r["worst"][3], r["worst_slot"][3]) <= 1.0
+            ok_2 = first and worst_2 <= 1.0
+            counts["failed"] += not ok
+            counts["failed_2"] += not ok_2
+            counts["caught"] += r["control"][3] > 1.0
+            counts["caught_lr"] += r["control_lr"][3] > 1.0
+
+            def reading(key):
+                name, gap, bound, ratio = r[key]
+                return f"{name} {gap:.3e} of {bound:.3e} ({ratio:.3f})"
+
+            print(f"  rep {i}: gate {'ok' if ok else 'FAILED'} "
+                  f"({cs.GRAPH_EAGER_RUNS} eager runs), "
+                  f"{'ok' if ok_2 else 'FAILED'} (2 eager runs, worst "
+                  f"{worst_2:.3f}): worst param {reading('worst')}, worst "
+                  f"slot {reading('worst_slot')}; control, the second "
+                  f"update skipped: {reading('control')}; control, twice "
+                  f"the learning rate: {reading('control_lr')}", flush=True)
+
+    cs.train_graph_check = reps_instead
+    if phase == 5:
+        cs.train_phase(torch, 0, card)
+    else:
+        cs.gemma_phase(torch, 0, card)
+    print(f"gate reps, phase {phase}: {counts['failed']} of {reps} failed"
+          + (f" ({counts['failed_2']} with 2 eager runs); controls caught "
+             f"{counts['caught']} (update skipped) and {counts['caught_lr']}"
+             f" (twice the learning rate) of {reps}" if per_tensor else
+             " (the tree's own gate, no control)"), flush=True)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--gate-reps", type=int, default=0)
+    ap.add_argument("--phase", type=int, choices=(5, 13), default=5)
     args = ap.parse_args()
     sys.path.insert(0, os.getcwd())
     import chip_smoke as cs
@@ -74,7 +107,7 @@ def main():
     card = cs.nvidia_smi_line()
     print("tree at", os.getcwd(), ";", card, flush=True)
     if args.gate_reps:
-        gate_reps(cs, args.gate_reps)
+        gate_reps(cs, args.gate_reps, args.phase, card)
         return
     model = GPTForPretraining(gpt_config("gpt3-1.3b"), dtype="bfloat16",
                               seed=0)
