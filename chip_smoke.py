@@ -301,6 +301,52 @@ Phases, in order; any failure exits non-zero:
    (d) ``introspect=True`` against False: the first loss bit for bit,
    one build each, step ms of both. B1's and the update's launches in
    the kernels line are this phase's.
+20. ViT-L/16 (`models.vit`: 24 layers, width 1024, 16 heads of 64, MLP
+   4096, 224 px, patch 16: 197 tokens; bf16, random weights from
+   ``--seed``), b32: (a) the eval forward's logits against a float32
+   copy (cosine >= 0.999), no kernel launched, images/s; (b) training
+   through `SpmdTrainStep` as one graph (AdamW lr 1e-4 wd 0.05,
+   cross-entropy over 1000 classes; benchmarks/bench_vit.py's
+   operating point): the bf16 loss and grads against the float32 copy,
+   five timed replays under the armed sentinel in which no flash kernel
+   launches (neither gate takes 197 tokens, as in the reference) and the
+   update once a step, the first loss within 0.5 of ln 1000, images/s,
+   step ms p50 and MFU by bench_vit.py:77-83's FLOP count, the
+   replay-against-eager gate with both its controls, a profile; then,
+   not a gate, B2 at ViT's attention shape (B32 S197 H16 D64, forward
+   and backward) beside SDPA and the composition the gate picks;
+21. the encoder-decoder `nn.Transformer` at its defaults (d_model 512, 8
+   heads of 64, 6+6 layers, FFN 2048, ReLU, post-LN: the base model of
+   Vaswani et al. 2017), bf16, b32, 256 source and 128 target random
+   embeddings, ``tgt_mask = generate_square_subsequent_mask(128)``:
+   the output against a float32 composed copy at dropout 0 and the bf16
+   loss and grads (a grad whose bf16 control, the plain versions, lies
+   below 0.999, behind ReLU flips, held to that control less 1e-3), no
+   NaN; training through `SpmdTrainStep` as one graph at
+   dropout 0.1 (MSE against a random target): in five timed replays B5
+   (the encoder's self-attention) launches steps x 6 times each way, B2
+   steps x 12 (the decoder's causal self-attention under the -inf bias
+   and its cross-attention at Sq=128 Sk=256) and the update once a step;
+   then incremental decode with `TransformerDecoder.gen_cache` (a
+   `Cache` and a `StaticCache` a layer) over 128 steps from the
+   encoder's memory, each step's row against the full causal forward's
+   within 3 x the bf16 model's own error against the float32 copy (the
+   float32 copy's within 1e-4), ms a step. B2's and B5's launches in the
+   kernels line add this phase's to phases 6 and 7's;
+22. `incubate.nn.FusedMultiTransformer` at gpt3-1.3b's widths (2048 wide,
+   16 heads of 128, FFN 8192, 24 layers, GELU), bf16, eagerly: 8
+   prompts of 128 random embeddings prefilled into ``gen_cache(8,
+   640)``, 32 decode steps with ``time_step``, and a ``pre_caches`` arm;
+   every row against the no-cache forward's under a causal mask within
+   3 x the bf16 model's own error against float32; prefill ms, decode
+   ms a step;
+23. the MoE layer on one card (`incubate.distributed.models.moe`):
+   d_model 2048, 8 stacked experts of 8192, `GShardGate` top-2 at
+   capacity factor 1.25, b8 x s1024 tokens (capacity 320): forward and
+   backward against a float32 copy (cosine >= 0.999 for the output and
+   the grads), the dispatch equal on every token whose gate margins
+   exceed 2^-8, listed experts equal to the stacked ones within 2 bf16
+   ulps of the output's scale, forward and forward+backward ms.
 
 The kernel phase (3) also holds the paged kernel at head dims above 256
 (D 320 and 512: width 512 in 2-query tiles; ps 16 and 4, f32, bf16 and
@@ -312,10 +358,10 @@ type: no model there serves such heads), and times it on bf16 pages at
 the verify widths 2, 3, 5 and 9 of phase 18's rungs at phase 4's decode
 shape (their launches phase 18's).
 
-The last lines are a ``{"kernels": [...]}`` JSON line, the card's
-``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device":
-{...}}``. Without a visible CUDA device the script prints no result
-and exits 1.
+The last lines are a ``{"kernels": [...]}`` JSON line, the whole run's
+wall seconds, the card's ``nvidia-smi`` name/power-limit line, and
+``{"ok": true, "device": {...}}``. Without a visible CUDA device the
+script prints no result and exits 1.
 """
 from __future__ import annotations
 
@@ -479,6 +525,33 @@ EMBED_LENS, EMBED_COS = (64, 300, 1024, 1536), 0.999
 PLANE_LAYERS, PLANE_STEPS, PLANE_INTERVAL, PLANE_CRASH_AT = 8, 8, 4, 4
 PLANE_SPREAD_RUNS, PLANE_LOSS_RTOL = 5, 1e-4
 PLANE_DIR = "_plane_ckpt"
+# phase 20: ViT-L/16 at benchmarks/bench_vit.py's operating point (b32,
+# AdamW lr 1e-4 wd 0.05); its attention shape, where B2 is measured
+VIT_MODEL, VIT_B, VIT_WD = "vit-l-16", 32, 0.05
+VIT_ATTN = (32, 197, 16, 64)
+# phase 21: nn.Transformer's defaults (Vaswani et al. 2017, base) on b32
+# batches of 256 source and 128 target embeddings, dropout 0.1; the
+# float32 copy's incremental decode against its full forward (summation
+# order only)
+TR_B, TR_SRC, TR_TGT, TR_D, TR_LAYERS, TR_DROPOUT = 32, 256, 128, 512, 6, 0.1
+TR_F32_DECODE = 1e-4
+# phases 21-22: an incremental row against the full forward's, in bf16,
+# within this many times the bf16 model's own error against float32
+DECODE_OWN_ERRS = 3
+# phases 20-21's float32 check: a grad whose bf16 control (the plain
+# versions; a ReLU input that bf16 moves across 0 flips its grad) already
+# lies below REF_GRAD_COS is held to that control's cosine less this
+GRAD_COS_SLACK = 1e-3
+# phase 22: FusedMultiTransformer at gpt3-1.3b's widths; 8 prompts of 128
+# into a 640-column cache, 32 decode steps; the pre_caches arm carves out
+# the first 32 tokens
+FMT_WIDTH, FMT_HEADS, FMT_FFN, FMT_LAYERS = 2048, 16, 8192, 24
+FMT_B, FMT_PROMPT, FMT_NEW, FMT_MAX_LEN, FMT_PRE = 8, 128, 32, 640, 32
+# phase 23: the MoE layer at gpt3-1.3b's width, 8 experts of 8192,
+# GShardGate top-2 at capacity factor 1.25, b8 x s1024 tokens; a token's
+# dispatch is held where its gates' margins exceed one bf16 rounding
+MOE_D, MOE_E, MOE_H, MOE_CF, MOE_B, MOE_S = 2048, 8, 8192, 1.25, 8, 1024
+MOE_TIE = 2.0 ** -8
 
 
 def check(cond, msg):
@@ -1435,16 +1508,27 @@ def general_flash_phase(torch):
     masked row, f32; then the bf16 kernels' edges: (e) Sq=128 Sk=384
     causal, dropout; (f) S=200 key padding, dropout; (g) S=320 D128
     causal, dropout; (h) Sq=256 Sk=320 with a full [B,Sq,Sk] bias; (i)
-    (d)'s fully masked row in bf16, D128, no dropout. Then the forward
-    and backward at (a) and at (b) timed beside the plain versions, SDPA
-    (timed only; the port never calls it) and the bound. Returns the
-    forward's and backward's records at (a)."""
+    (d)'s fully masked row in bf16, D128, no dropout; then phase 21's two
+    shapes at B32 H8 D64, in bf16 and f32, dropout 0 and 0.1: (j) the
+    decoder's self-attention, Sq=Sk=128 under
+    `Transformer.generate_square_subsequent_mask(128)` as the additive
+    bias (-inf above the diagonal); (k) its cross-attention, Sq=128
+    Sk=256, no mask. Then the forward and backward at (a) and at (b)
+    timed beside the plain versions, SDPA (timed only; the port never
+    calls it) and the bound. Returns the forward's and backward's records
+    at (a)."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.nn import Transformer
 
     seed_t = torch.tensor([FLASH_SEED], dtype=torch.int32, device="cuda")
     bf = torch.bfloat16
+    # phase 21's causal bias, from the layer that makes it there
+    bias_j = fa.normalize_mask_bias(Transformer(
+        64, 1, 1, 1, 64, device="cuda").generate_square_subsequent_mask(
+            TR_TGT))
+    check(bool(torch.isneginf(bias_j).any()), "the causal bias holds no -inf")
     mask_a, lens = key_padding(torch, BERT_B, BERT_S, 1)
     bias_a = fa.normalize_mask_bias(mask_a)
     g = torch.Generator(device="cuda").manual_seed(3)
@@ -1472,9 +1556,19 @@ def general_flash_phase(torch):
         "i": ((2, 200, 200, 3, 128, bf), False,
               fa.normalize_mask_bias(mask_d), 0.0),
     }
+    # phase 21's shapes: (j) the decoder's self-attention under the -inf
+    # causal bias, (k) its cross-attention
+    for dtype in (bf, torch.float32):
+        for p in (0.0, 0.1):
+            tag = f"{str(dtype)[6:]}, p={p}"
+            cases[f"j {tag}"] = ((TR_B, TR_TGT, TR_TGT, 8, 64, dtype), False,
+                                 bias_j, p)
+            cases[f"k {tag}"] = ((TR_B, TR_TGT, TR_SRC, 8, 64, dtype), False,
+                                 None, p)
     errs = {}
-    for name, (shape, causal, bias, p) in cases.items():
-        q, k, v, do = general_case(*shape, seed=ord(name))
+    for i, (name, (shape, causal, bias, p)) in enumerate(cases.items()):
+        q, k, v, do = general_case(
+            *shape, seed=ord(name) if len(name) == 1 else 1000 + i)
         err_o, err_g, line = general_compare(torch, fa, q, k, v, do, causal,
                                              bias, p, seed_t)
         errs[name] = (err_o, err_g)
@@ -1806,8 +1900,9 @@ def qkv3_kernel_phase(torch):
     """B5 (rows 8-9) against its plain versions on the card: f32 and
     bf16, D 64 and 128, causal and full, dropout 0 and 0.1, at B2 S256 H4,
     with B1's tolerances (`flash_compare`), and against B1's kernels on
-    the repacked (pair-major) projection (`qkv3_against_qkv`). Then at
-    BERT-large's shape (B8 S512 H16 D64 bf16, full, dropout 0.1):
+    the repacked (pair-major) projection (`qkv3_against_qkv`); at phase
+    21's encoder self-attention (B32 S256 H8 D64 bf16, full, dropout 0
+    and 0.1) against its plain versions. Then at BERT-large's shape (B8 S512 H16 D64 bf16, full, dropout 0.1):
     agreement, time beside the plain versions, SDPA on the unpacked [B,
     H, S, D] tensors with dropout 0.1 (timed only; the port never calls
     it) and the bound; and B1 at the same shape (the fused BERT's):
@@ -1839,6 +1934,12 @@ def qkv3_kernel_phase(torch):
                     print(f"  flash_attention_qkv3 D={d} {str(dtype)[6:]} "
                           f"{'causal' if causal else 'full'} p={p}: {line}; "
                           f"{line1}  ok")
+    for p in (0.0, 0.1):
+        qkv, do = flash_case(TR_B, TR_SRC, 8, 64, torch.bfloat16,
+                             seed=500 + int(10 * p))
+        _, line, _ = flash_compare(torch, three, qkv, do, 8, False, p, seed_t)
+        print(f"  flash_attention_qkv3 at the Transformer encoder's shape "
+              f"B{TR_B} S{TR_SRC} H8 D64 bf16 full p={p}: {line}  ok")
 
     b, s, h, d = BERT_B, BERT_S, 16, 64
     bf, p = torch.bfloat16, 0.1
@@ -2922,7 +3023,15 @@ def train_phase(torch, seed, card):
           f"{cfg.num_attention_heads} heads, d={cfg.head_dim}, dropout 0; "
           f"b{TRAIN_B} x s{TRAIN_S}, bf16 params, bf16 AdamW moments, lr "
           f"{TRAIN_LR}, wd {TRAIN_WD}; one CUDA graph a batch signature")
-    float32_reference_check(torch, step, params, batches[0], cfg, seed)
+    last = cfg.num_hidden_layers - 1
+    ref = GPTForPretraining(dataclasses.replace(
+        cfg, use_flash_attention=False), dtype="float32", seed=seed)
+    float32_copy_check(
+        torch, step, params, {k: v[:2] for k, v in batches[0].items()}, ref,
+        gpt_loss_fn, [f"gpt.h.{i}.{m}.weight" for i in (0, last)
+                      for m in ("attn.qkv_proj", "mlp.fc_in")], "GPT")
+    del ref
+    model.train()
 
     run = train_on_graphs(torch, step, params, opt_state, batches, "GPT")
     first, losses, times, counts = (run["losses"][0], run["losses"],
@@ -2971,50 +3080,6 @@ def train_phase(torch, seed, card):
     return {k: counts[k] for k in ("flash_attention_qkv_fwd",
                                    "flash_attention_qkv_bwd",
                                    "multi_tensor_adam")}
-
-
-def float32_reference_check(torch, step, params, batch, cfg, seed):
-    """On the batch's first two sequences, the bf16 model's loss and
-    grads against a float32 copy of the same weights run through the
-    plain (composed) attention branch: loss within REF_LOSS_RTOL, and
-    cosine similarity at least REF_GRAD_COS for the qkv_proj and fc_in
-    weight grads of the first and last layer."""
-    import dataclasses
-
-    from paddle_tpu_torch.distributed import SpmdTrainStep, gpt_loss_fn
-    from paddle_tpu_torch.models.gpt import GPTForPretraining
-    from paddle_tpu_torch.optimizer import AdamW
-
-    two = {k: v[:2] for k, v in batch.items()}
-    last = cfg.num_hidden_layers - 1
-    names = [f"gpt.h.{i}.{m}.weight" for i in (0, last)
-             for m in ("attn.qkv_proj", "mlp.fc_in")]
-    loss, grads = step.loss_and_grads(params, two, 0)
-    grads = {n: grads[n].float() for n in names}
-    ref = GPTForPretraining(dataclasses.replace(cfg, use_flash_attention=False),
-                            dtype="float32", seed=seed)
-    ref.train()
-    ref_params = dict(ref.named_parameters())
-    with torch.no_grad():
-        for n, p in ref_params.items():
-            p.copy_(params[n])
-    ref_step = SpmdTrainStep(ref, gpt_loss_fn, AdamW())
-    ref_loss, ref_grads = ref_step.loss_and_grads(ref_params, two, 0)
-    ref_grads = {n: ref_grads[n] for n in names}
-    rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
-    cos = {n: torch.nn.functional.cosine_similarity(
-        grads[n].flatten(), ref_grads[n].flatten(), dim=0).item()
-        for n in names}
-    del ref, ref_params, ref_step, ref_grads, grads
-    torch.cuda.empty_cache()
-    check(rel <= REF_LOSS_RTOL, f"bf16 loss {loss.item()} vs float32 "
-          f"{ref_loss.item()}: relative difference {rel}")
-    check(min(cos.values()) >= REF_GRAD_COS, f"grad cosine {cos}")
-    print(f"  float32 reference (plain attention, 2 sequences): loss "
-          f"{loss.item():.5f} vs {ref_loss.item():.5f} (rel {rel:.2e} <= "
-          f"{REF_LOSS_RTOL}); grad cosine "
-          + ", ".join(f"{n[6:-7]} {c:.5f}" for n, c in cos.items())
-          + f" (>= {REF_GRAD_COS})  ok")
 
 
 # ---------------------------------------------------------------- BERT
@@ -3124,8 +3189,15 @@ def bert_phase(torch, seed, card, variant):
           f"{cfg.attention_probs_dropout_prob} attention; b{BERT_B} x "
           f"s{BERT_S}, {rows}; bf16 params and AdamW moments, lr "
           f"{TRAIN_LR}, wd {TRAIN_WD}; one CUDA graph a batch signature")
-    bert_reference_check(torch, step, params, batches[0], cfg, seed,
-                         variant)
+    held, shown = bert_grads_held(cfg, variant)
+    ref = bert_model(cfg, variant, "float32", seed)
+    for layer in ref.bert.encoder_layers:
+        attn = layer.fused_attn if v["fuse"] else layer.self_attn
+        attn.use_flash = False
+    float32_copy_check(torch, step, params,
+                       {k: x[:2] for k, x in batches[0].items()}, ref,
+                       bert_loss_fn, held, f"BERT ({variant})", shown)
+    del ref
 
     model.train()
     run = train_on_graphs(torch, step, params, opt_state, batches,
@@ -3190,7 +3262,13 @@ def bert_grads_held(cfg, variant):
     one it prints. Unfused: layer 0's q_proj, v_proj and linear1 of
     layers 0 and 23; shown: layer 23's q_proj. Fused: the q and v slices
     of layer 0's qkv_weight, the v slice and ffn.linear1_weight of layer
-    23; shown: layer 23's q slice."""
+    23; shown: layer 23's q slice.
+
+    Layer 23's q grad is printed, not held: it passes only through
+    ``ds = p*(dp - delta)``, and at random init the deep layers' values
+    share a large common part, so ``dp - delta`` cancels and amplifies
+    the bf16 rounding of O inside the reference's ``delta =
+    rowsum(dO*O)``."""
     last = cfg.num_hidden_layers - 1
     name = "bert.encoder_layers.{}.{}".format
     if not BERT_VARIANTS[variant]["fuse"]:
@@ -3206,70 +3284,6 @@ def bert_grads_held(cfg, variant):
             (f"{last}.v", name(last, qkv), 2),
             (f"{last}.ffn.linear1", name(last, "ffn.linear1_weight"), None)]
     return held, (f"{last}.q", name(last, qkv), 0)
-
-
-def bert_reference_check(torch, step, params, batch, cfg, seed, variant):
-    """On the batch's first two sequences at dropout 0 (eval mode), the
-    bf16 model's loss and grads (attention in the variant's kernels)
-    against a float32 copy of the same weights whose attention runs the
-    composition (``use_flash=False``): loss within REF_LOSS_RTOL; cosine
-    at least REF_GRAD_COS for the grads `bert_grads_held` names.
-
-    Layer 23's q grad is printed, not held: it passes only through
-    ``ds = p*(dp - delta)``, and at random init the deep layers' values
-    share a large common part, so ``dp - delta`` cancels and amplifies
-    the bf16 rounding of O inside the reference's ``delta =
-    rowsum(dO*O)``. Beside the kernels' reading stands a control, the
-    same bf16 model through the plain versions (the reference's own
-    rounding points)."""
-    from paddle_tpu_torch.distributed import SpmdTrainStep
-    from paddle_tpu_torch.optimizer import AdamW
-
-    two = {k: v[:2] for k, v in batch.items()}
-    held, shown = bert_grads_held(cfg, variant)
-
-    def pick(grads, entry):
-        g = grads[entry[1]]
-        return (g if entry[2] is None else g[entry[2]]).float()
-
-    step.model.eval()
-    loss, grads = step.loss_and_grads(params, two, 0)
-    got = {e[0]: pick(grads, e) for e in held + [shown]}
-    del grads
-    with plain_kernels(torch):
-        ctrl = pick(step.loss_and_grads(params, two, 0)[1], shown)
-    ref = bert_model(cfg, variant, "float32", seed)
-    for layer in ref.bert.encoder_layers:
-        attn = layer.fused_attn if BERT_VARIANTS[variant]["fuse"] \
-            else layer.self_attn
-        attn.use_flash = False
-    ref_params = dict(ref.named_parameters())
-    with torch.no_grad():
-        for n, p in ref_params.items():
-            p.copy_(params[n])
-    ref_step = SpmdTrainStep(ref, bert_loss_fn, AdamW())
-    ref_loss, ref_grads = ref_step.loss_and_grads(ref_params, two, 0)
-    want = {e[0]: pick(ref_grads, e) for e in held + [shown]}
-
-    def cosine(a, label):
-        return torch.nn.functional.cosine_similarity(
-            a.flatten(), want[label].flatten(), dim=0).item()
-
-    rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
-    cos = {e[0]: cosine(got[e[0]], e[0]) for e in held}
-    shown_cos, ctrl_cos = cosine(got[shown[0]], shown[0]), cosine(ctrl,
-                                                                 shown[0])
-    del ref, ref_params, ref_step, ref_grads, got, want, ctrl
-    torch.cuda.empty_cache()
-    check(rel <= REF_LOSS_RTOL, f"bf16 loss {loss.item()} vs float32 "
-          f"{ref_loss.item()}: relative difference {rel}")
-    check(min(cos.values()) >= REF_GRAD_COS, f"grad cosine {cos}")
-    print(f"  float32 reference (composed attention, 2 sequences, dropout "
-          f"0): loss {loss.item():.5f} vs {ref_loss.item():.5f} (rel "
-          f"{rel:.2e} <= {REF_LOSS_RTOL}); grad cosine "
-          + ", ".join(f"{k} {c:.5f}" for k, c in cos.items())
-          + f" (>= {REF_GRAD_COS})  ok; {shown[0]} {shown_cos:.5f} "
-          f"(not held; the plain versions' control {ctrl_cos:.5f})")
 
 
 # ------------------------------------------- quantized speculative serving
@@ -4411,7 +4425,18 @@ def gemma_phase(torch, seed, card):
           f"and AdamW moments; b{GEMMA_B} x s{GEMMA_S}, key padding with "
           f"lengths in [{GEMMA_MIN_LEN}, {GEMMA_S}), dropout 0.1, MSE loss "
           "against a random target")
-    gemma_reference_check(torch, step, params, batches[0], seed)
+    last = GEMMA_LAYERS - 1
+    ref = gemma_stack(torch, torch.float32, seed)
+    for layer in ref.layers:
+        layer.self_attn.use_flash = False
+    float32_copy_check(
+        torch, step, params, {k: v[:2] for k, v in batches[0].items()}, ref,
+        gemma_loss_fn, [f"layers.{i}.{m}.weight" for i, m in
+                        [(0, "self_attn.q_proj")] + [
+                            (i, m) for i in (0, last)
+                            for m in ("self_attn.v_proj", "linear1")]],
+        "Gemma-2B widths", f"layers.{last}.self_attn.q_proj.weight")
+    del ref
 
     model.train()
     run = train_on_graphs(torch, step, params, opt_state, batches,
@@ -4459,61 +4484,6 @@ def gemma_phase(torch, seed, card):
     torch.cuda.empty_cache()
     return {"flash_attention_fwd_d256": counts["flash_attention_fwd"],
             "flash_attention_bwd_d256": counts["flash_attention_bwd"]}
-
-
-def gemma_reference_check(torch, step, params, batch, seed):
-    """On the batch's first two sequences at dropout 0 (eval mode), the
-    bf16 stack's loss and grads (attention in B2's kernels at D=256)
-    against a float32 copy of the same weights whose attention composes
-    (``use_flash=False``): loss within REF_LOSS_RTOL, cosine at least
-    REF_GRAD_COS for layer 0's and the last layer's q_proj, v_proj and
-    linear1 weight grads."""
-    from paddle_tpu_torch.distributed import SpmdTrainStep
-    from paddle_tpu_torch.optimizer import AdamW
-
-    two = {k: v[:2] for k, v in batch.items()}
-    last = GEMMA_LAYERS - 1
-    held = [f"layers.{i}.{m}.weight" for i, m in [(0, "self_attn.q_proj")]
-            + [(i, m) for i in (0, last)
-               for m in ("self_attn.v_proj", "linear1")]]
-    shown = f"layers.{last}.self_attn.q_proj.weight"
-    step.model.eval()
-    loss, grads = step.loss_and_grads(params, two, 0)
-    got = {n: grads[n].float() for n in held + [shown]}
-    del grads
-    with plain_kernels(torch):
-        ctrl = step.loss_and_grads(params, two, 0)[1][shown].float()
-    ref = gemma_stack(torch, torch.float32, seed)
-    for layer in ref.layers:
-        layer.self_attn.use_flash = False
-    ref.eval()
-    ref_params = dict(ref.named_parameters())
-    with torch.no_grad():
-        for n, p in ref_params.items():
-            p.copy_(params[n])
-    ref_step = SpmdTrainStep(ref, gemma_loss_fn, AdamW())
-    ref_loss, ref_grads = ref_step.loss_and_grads(
-        ref_params, {**two, "x": two["x"].float()}, 0)
-    cos = {n.split(".", 1)[1]: torch.nn.functional.cosine_similarity(
-        got[n].flatten(), ref_grads[n].float().flatten(), dim=0).item()
-        for n in held + [shown]}
-    shown_cos = cos.pop(shown.split(".", 1)[1])
-    ctrl_cos = torch.nn.functional.cosine_similarity(
-        ctrl.flatten(), ref_grads[shown].float().flatten(), dim=0).item()
-    rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
-    del ref, ref_params, ref_step, ref_grads, got, ctrl
-    gc.collect()
-    torch.cuda.empty_cache()
-    check(rel <= REF_LOSS_RTOL, f"bf16 loss {loss.item()} vs float32 "
-          f"{ref_loss.item()}: relative difference {rel}")
-    check(min(cos.values()) >= REF_GRAD_COS, f"grad cosine {cos}")
-    print(f"  float32 reference (composed attention, 2 sequences, dropout "
-          f"0): loss {loss.item():.6f} vs {ref_loss.item():.6f} (rel "
-          f"{rel:.2e} <= {REF_LOSS_RTOL}); grad cosine "
-          + ", ".join(f"{k} {c:.5f}" for k, c in cos.items())
-          + f" (>= {REF_GRAD_COS})  ok; {shown.split('.', 1)[1]} "
-          f"{shown_cos:.5f} (not held; the plain versions' control "
-          f"{ctrl_cos:.5f})")
 
 
 # ------------------------------------------------- the optimizer plane
@@ -5879,6 +5849,703 @@ def engine_rest_phase(torch, seed, base_ms):
     return launches
 
 
+# ------------------------------------------------ A13: ViT, decoder, MoE
+def float32_copy_check(torch, step, params, batch, ref, loss_fn, held,
+                       label, shown=None, relax=False):
+    """At dropout 0 (eval mode), the bf16 model's loss and grads on
+    ``batch`` against ``ref``, a float32 copy of the model whose attention
+    composes, given ``params`` first: every bf16 grad finite, the loss
+    within REF_LOSS_RTOL, and cosine at least REF_GRAD_COS for each grad
+    in ``held`` (a name, or ``(label, name, index into the first dim or
+    None)``); ``shown`` is read and printed, not held. Beside each stands
+    a control, the same bf16 model through the plain versions of the
+    kernels (the reference's rounding points). With ``relax``, a held grad
+    whose control lies below REF_GRAD_COS is held to the control's cosine
+    less GRAD_COS_SLACK instead: bf16 moves some ReLU inputs across 0, and
+    the grads behind such a flip differ from float32's by more than
+    rounding, kernels or not. Leaves both models in eval mode."""
+    from paddle_tpu_torch.distributed import SpmdTrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+
+    entries = [e if isinstance(e, tuple) else (e, e, None) for e in held]
+    read = entries + ([shown if isinstance(shown, tuple)
+                       else (shown, shown, None)] if shown else [])
+
+    def pick(grads):
+        return {lab: (grads[n] if i is None else grads[n][i]).float()
+                for lab, n, i in read}
+
+    step.model.eval()
+    loss, grads = step.loss_and_grads(params, batch, 0)
+    bad = [n for n, g in grads.items() if not torch.isfinite(g).all()]
+    got = pick(grads)
+    del grads
+    with plain_kernels(torch):
+        ctrl_grads = pick(step.loss_and_grads(params, batch, 0)[1])
+    ref.eval()
+    ref_params = dict(ref.named_parameters())
+    with torch.no_grad():
+        for n, p in ref_params.items():
+            p.copy_(params[n])
+    fbatch = {k: v.float() if v.is_floating_point() else v
+              for k, v in batch.items()}
+    ref_loss, ref_grads = SpmdTrainStep(ref, loss_fn, AdamW()).loss_and_grads(
+        ref_params, fbatch, 0)
+    want = pick(ref_grads)
+    del ref_params, ref_grads
+
+    def cosines(grads):
+        return {k: torch.nn.functional.cosine_similarity(
+            g.flatten(), want[k].flatten(), dim=0).item()
+            for k, g in grads.items()}
+
+    cos, ctrl = cosines(got), cosines(ctrl_grads)
+    bound = {lab: min(REF_GRAD_COS, ctrl[lab] - GRAD_COS_SLACK) if relax
+             else REF_GRAD_COS for lab, _, _ in entries}
+    rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+    del got, ctrl_grads, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(not bad, f"{label}: non-finite bf16 grads {bad[:4]}")
+    check(rel <= REF_LOSS_RTOL, f"{label}: bf16 loss {loss.item()} vs "
+          f"float32 {ref_loss.item()}: relative difference {rel}")
+    check(all(cos[k] >= b for k, b in bound.items()),
+          f"{label}: grad cosine {cos} below {bound}")
+    print(f"  float32 copy (composed attention, dropout 0, "
+          f"{len(next(iter(batch.values())))} sequences): loss "
+          f"{loss.item():.6f} vs {ref_loss.item():.6f} (rel {rel:.2e} <= "
+          f"{REF_LOSS_RTOL}); every bf16 grad finite; grad cosine "
+          + ", ".join(f"{k} {cos[k]:.5f} (plain versions {ctrl[k]:.5f})"
+                      for k in bound)
+          + f" (>= {REF_GRAD_COS}"
+          + (f", or the plain versions' less {GRAD_COS_SLACK}" if relax
+             else "") + ")  ok"
+          + (f"; {read[-1][0]} {cos[read[-1][0]]:.5f} (not held; plain "
+             f"versions {ctrl[read[-1][0]]:.5f})" if shown else ""))
+
+
+def f32_twin(torch, model, make):
+    """``make()`` (the float32 model) with ``model``'s weights, every
+    attention composed (``use_flash`` off), in eval mode."""
+    ref = make()
+    with torch.no_grad():
+        for (n, p), (_, q) in zip(ref.named_parameters(),
+                                  model.named_parameters()):
+            p.copy_(q)
+    for mod in ref.modules():
+        if hasattr(mod, "use_flash"):
+            mod.use_flash = False
+    return ref.eval()
+
+
+def vit_loss_fn(model, state, batch):
+    """Mean cross-entropy of the classifier's logits (float32 inside)."""
+    from torch.func import functional_call
+
+    from paddle_tpu_torch.nn.functional import cross_entropy
+
+    logits = functional_call(model, state, (batch["images"],))
+    return cross_entropy(logits, batch["labels"])
+
+
+def vit_b2_measurement(torch, card):
+    """Not a gate: B2 at ViT-L/16's attention shape (B32 S197 H16 D64 bf16,
+    no mask) forward and backward, beside SDPA and the composition the
+    gate picks at 197 (`nn.functional.scaled_dot_product_attention` with
+    ``use_flash=False``, its backward through autograd), with the
+    kernel's largest error against SDPA's output."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.nn import functional as pF
+
+    b, s, h, d = VIT_ATTN
+    cases = [general_case(b, s, s, h, d, torch.bfloat16, seed=40 + i)
+             for i in range(3)]
+    it = iter(range(10 ** 9))
+    saved = [fa.flash_attention_fwd(*c[:3], False) for c in cases]
+
+    def fwd():
+        fa.flash_attention_fwd(*cases[next(it) % 3][:3], False)
+
+    def bwd():
+        i = next(it) % 3
+        fa.flash_attention_bwd(*cases[i][:3], *saved[i], cases[i][3], False)
+
+    heads = [[x.transpose(1, 2).detach().requires_grad_(True)
+              for x in c[:3]] + [c[3].transpose(1, 2)] for c in cases]
+    comp = [[x.detach().requires_grad_(True) for x in c[:3]] + [c[3]]
+            for c in cases]
+
+    def lib(backward):
+        def run():
+            q, k, v, do = heads[next(it) % 3]
+            out = F.scaled_dot_product_attention(q, k, v)
+            if backward:
+                out.backward(do)
+        return run
+
+    def composed(backward):
+        def run():
+            q, k, v, do = comp[next(it) % 3]
+            out = pF.scaled_dot_product_attention(q, k, v, use_flash=False)
+            if backward:
+                out.backward(do)
+        return run
+
+    ms = {"B2": (time_ms(fwd, 20), time_ms(bwd, 10)),
+          "SDPA": (time_ms(lib(False), 20), time_ms(lib(True), 10)),
+          "composed": (time_ms(composed(False), 10),
+                       time_ms(composed(True), 5))}
+    q, k, v, _ = heads[0]
+    want = F.scaled_dot_product_attention(q, k, v).transpose(1, 2)
+    err = (saved[0][0].float() - want.float()).abs().max().item()
+    print(f"  B2 at ViT's attention shape B{b} S{s} H{h} D{d} bf16, no mask "
+          f"(not a gate; {card}): fwd / bwd ms: " + "; ".join(
+              f"{k} {f:.4f} / {fb - f if k != 'B2' else fb:.4f}"
+              for k, (f, fb) in ms.items())
+          + f" (SDPA and composed bwd = fwd+bwd - fwd); B2's output within "
+          f"{err:.3e} of SDPA's")
+    return ms
+
+
+def vit_phase(torch, seed, card):
+    """Phase 20: ViT-L/16 (24 layers, width 1024, 16 heads of 64, MLP 4096,
+    224 px, patch 16: 197 tokens), bf16, random weights from ``seed``.
+    (a) The eval forward of b32 images: its logits at cosine >=
+    REF_GRAD_COS with a float32 copy's, no kernel launched, images/s.
+    (b) Training through `SpmdTrainStep` as one graph (AdamW lr 1e-4 wd
+    0.05, cross-entropy over 1000 classes; benchmarks/bench_vit.py's
+    operating point): the float32-copy check, TRAIN_STEPS timed
+    replays under the armed sentinel in which no flash kernel launches
+    (the gate composes at 197) and the update once a step, the first loss
+    within 0.5 of ln 1000, images/s, step ms p50 and MFU by bench_vit.py's
+    FLOP count; the replay-against-eager gate with its controls; a
+    profile; then B2 at ViT's attention shape (`vit_b2_measurement`)."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.distributed import SpmdTrainStep
+    from paddle_tpu_torch.models.vit import VisionTransformer, vit_config
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = vit_config(VIT_MODEL)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = VisionTransformer(cfg, dtype="bfloat16", seed=seed)
+    ref = f32_twin(torch, model, lambda: VisionTransformer(
+        cfg, dtype="float32", seed=seed))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (VIT_B, cfg.in_channels, cfg.image_size, cfg.image_size)
+    batches = [{"images": torch.randn(shape, generator=g, device="cuda").to(
+                    torch.bfloat16),
+                "labels": torch.randint(0, cfg.num_classes, (VIT_B,),
+                                        generator=g, device="cuda")}
+               for _ in range(TRAIN_STEPS + 2)]
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  {VIT_MODEL}: {cfg.num_layers} layers, width "
+          f"{cfg.hidden_size}, {cfg.num_heads} heads of "
+          f"{cfg.hidden_size // cfg.num_heads}, MLP {cfg.mlp_dim}, "
+          f"{cfg.image_size} px, patch {cfg.patch_size}: {cfg.seq_len} "
+          f"tokens; {n_params} parameters; b{VIT_B}, bf16")
+    images = batches[0]["images"]
+    with torch.no_grad():
+        kernels.reset_kernel_launch_counts()
+        logits = model(images).float()
+        only_launched(kernels.kernel_launch_counts(), {}, "ViT eval")
+        want = ref(images.float())
+        cos = torch.nn.functional.cosine_similarity(
+            logits.flatten(), want.flatten(), dim=0).item()
+        check(torch.isfinite(logits).all() and cos >= REF_GRAD_COS,
+              f"ViT eval logits: cosine {cos} with the float32 copy's")
+        fwd_ms = time_ms(lambda: model(images), 5, 2)
+    print(f"  (a) eval forward: logits {tuple(logits.shape)} at cosine "
+          f"{cos:.6f} with the float32 copy's (>= {REF_GRAD_COS}); no "
+          f"kernel launched; {fwd_ms:.3f} ms a batch of {VIT_B}, "
+          f"{VIT_B / fwd_ms * 1e3:.1f} images/s ({card})  ok")
+
+    step = SpmdTrainStep(model, vit_loss_fn,
+                         AdamW(learning_rate=TRAIN_LR, weight_decay=VIT_WD))
+    params, opt_state = step.init(slot_dtype="bfloat16")
+    last = cfg.num_layers - 1
+    held = ["patch_embed.proj.weight", "blocks.0.self_attn.v_proj.weight",
+            "blocks.0.linear1.weight", f"blocks.{last}.self_attn.v_proj"
+            ".weight", f"blocks.{last}.linear1.weight", "head.weight"]
+    two = {k: v[:2] for k, v in batches[0].items()}
+    float32_copy_check(torch, step, params, two, ref, vit_loss_fn, held,
+                       "ViT-L/16", relax=True)
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    model.train()
+    run = train_on_graphs(torch, step, params, opt_state, batches,
+                          "ViT-L/16")
+    losses, times, counts = run["losses"], run["times"], run["counts"]
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(abs(losses[0] - math.log(cfg.num_classes)) < 0.5,
+          f"first loss {losses[0]} is not within 0.5 of "
+          f"ln({cfg.num_classes})")
+    only_launched(counts, {"multi_tensor_adam": TRAIN_STEPS},
+                  "ViT-L/16 training")
+    p50 = sorted(times)[len(times) // 2] * 1e3
+    img_s = VIT_B * TRAIN_STEPS / run["wall"]
+    flops_per_img = (6 * n_params + 12 * cfg.num_layers * cfg.hidden_size
+                     * cfg.seq_len) * cfg.seq_len
+    mfu = img_s * flops_per_img / BF16_FLOPS_PER_S
+    print(f"  (b) losses {[round(x, 4) for x in losses]} (the first within "
+          f"0.5 of ln({cfg.num_classes}) = "
+          f"{math.log(cfg.num_classes):.4f}); launches "
+          f"{ {k: v for k, v in counts.items() if v} }: no flash kernel (the "
+          f"gate composes at {cfg.seq_len}), the update once a step")
+    print(f"  {card}: {img_s:.1f} images/s, step {p50:.3f} ms p50 (steps "
+          f"{[round(t * 1e3, 3) for t in times]} ms), peak memory over the "
+          f"replays {run['peak'] / 2 ** 30:.3f} GiB, MFU {mfu:.4f} "
+          f"({flops_per_img} flops/image, bench_vit.py:77-83, over 989 "
+          "TFLOP/s)")
+    train_graph_check(torch, step, params, opt_state, batches, run,
+                      "ViT-L/16")
+    it = iter(range(100))
+
+    def one():
+        nonlocal params, opt_state
+        i = next(it) % len(batches)
+        _, params, opt_state = step(params, opt_state, batches[i], 100 + i)
+
+    profile_steps(torch, one, 2, "ViT-L/16 training steps", ADAM_FAMILY)
+    del model, step, params, opt_state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    vit_b2_measurement(torch, card)
+
+
+def transformer_model(torch, dtype, seed):
+    """`nn.Transformer` at its defaults (the base model of Vaswani et al.
+    2017), weights from ``seed`` (`nn.init_weights`, std 0.02)."""
+    from paddle_tpu_torch.nn import Transformer, init_weights
+
+    model = Transformer(dropout=TR_DROPOUT, device="cuda", dtype=dtype)
+    with torch.no_grad():
+        init_weights(model, seed, 0.02)
+    model.requires_grad_(False)
+    return model
+
+
+def transformer_loss_fn(model, state, batch):
+    """Mean squared error of the decoder's output against the batch's
+    target, in float32."""
+    from torch.func import functional_call
+
+    out = functional_call(model, state, (batch["src"], batch["tgt"]),
+                          {"tgt_mask": batch["tgt_mask"]})
+    return (out.float() - batch["target"]).square().mean()
+
+
+def transformer_phase(torch, seed, card):
+    """Phase 21: the encoder-decoder `nn.Transformer` at its defaults
+    (d_model 512, 8 heads of 64, 6+6 layers, FFN 2048, ReLU, post-LN),
+    bf16, weights from ``seed``, on b32 batches of 256 source and 128
+    target embeddings with ``generate_square_subsequent_mask(128)``. The
+    float32 composed copy at dropout 0 (output cosine, loss, grads, no
+    NaN); training through `SpmdTrainStep` as one graph at dropout 0.1
+    (MSE against a random target), TRAIN_STEPS replays under the armed
+    sentinel in which B5 launches steps x 6 times each way (the encoder's
+    self-attention), B2 steps x 12 (the decoder's causal self-attention
+    under the -inf bias and its cross-attention at Sq=128 Sk=256) and the
+    update once a step, every loss finite; then incremental decode with
+    `TransformerDecoder.gen_cache` over 128 steps against the full causal
+    forward, row by row, within DECODE_OWN_ERRS times the bf16 model's own
+    error against the float32 copy (the float32 copy's steps within
+    TR_F32_DECODE of its full forward). Returns the B2 and B5 launch
+    counts."""
+    from paddle_tpu_torch.distributed import SpmdTrainStep
+    from paddle_tpu_torch.nn import functional as pF
+    from paddle_tpu_torch.optimizer import AdamW
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = transformer_model(torch, torch.bfloat16, seed)
+    mask = model.generate_square_subsequent_mask(TR_TGT)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def batch():
+        return {"src": torch.randn((TR_B, TR_SRC, TR_D), generator=g,
+                                   device="cuda").to(torch.bfloat16),
+                "tgt": torch.randn((TR_B, TR_TGT, TR_D), generator=g,
+                                   device="cuda").to(torch.bfloat16),
+                "target": torch.randn((TR_B, TR_TGT, TR_D), generator=g,
+                                      device="cuda"),
+                "tgt_mask": mask}
+
+    batches = [batch() for _ in range(TRAIN_STEPS + 2)]
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  nn.Transformer() defaults: d_model {TR_D}, 8 heads of 64, 6+6 "
+          f"layers, FFN 2048, ReLU, post-LN, dropout {TR_DROPOUT}; "
+          f"{n_params} parameters, bf16; b{TR_B}, src {TR_SRC}, tgt "
+          f"{TR_TGT} tokens, tgt_mask generate_square_subsequent_mask("
+          f"{TR_TGT}) (-inf above the diagonal)")
+    ref = f32_twin(torch, model, lambda: transformer_model(
+        torch, torch.float32, seed))
+    two = {k: (v[:2] if k != "tgt_mask" else v)
+           for k, v in batches[0].items()}
+    model.eval()
+    with torch.no_grad():
+        out = model(two["src"], two["tgt"], tgt_mask=mask).float()
+        want = ref(two["src"].float(), two["tgt"].float(), tgt_mask=mask)
+    cos = torch.nn.functional.cosine_similarity(out.flatten(),
+                                                want.flatten(), dim=0).item()
+    check(torch.isfinite(out).all() and cos >= REF_GRAD_COS,
+          f"Transformer output cosine {cos} against the float32 copy")
+    print(f"  float32 copy: output cosine {cos:.6f} (>= {REF_GRAD_COS}), no "
+          "NaN  ok")
+    step = SpmdTrainStep(model, transformer_loss_fn,
+                         AdamW(learning_rate=TRAIN_LR, weight_decay=TRAIN_WD))
+    params, opt_state = step.init(slot_dtype="bfloat16")
+    held = ["encoder.layers.0.self_attn.v_proj.weight",
+            "encoder.layers.5.linear1.weight",
+            "decoder.layers.0.self_attn.v_proj.weight",
+            "decoder.layers.0.cross_attn.v_proj.weight",
+            "decoder.layers.5.cross_attn.k_proj.weight",
+            "decoder.layers.5.linear1.weight"]
+    float32_copy_check(torch, step, params, two, ref, transformer_loss_fn,
+                       held, "Transformer", relax=True)
+    model.train()
+    kinds = {"self": 0, "cross": 0}
+    real = pF.flash_attention
+
+    def counted(q, k, v, **kw):
+        """B2's entry as sdpa calls it, its calls sorted by kind while
+        the step is built (a replay runs no Python)"""
+        mask = kw.get("attn_mask")
+        if mask is not None and tuple(mask.shape) == (TR_TGT, TR_TGT):
+            kinds["self"] += 1
+        elif mask is None and (q.shape[1], k.shape[1]) == (TR_TGT, TR_SRC):
+            kinds["cross"] += 1
+        return real(q, k, v, **kw)
+
+    pF.flash_attention = counted
+    try:
+        run = train_on_graphs(torch, step, params, opt_state, batches,
+                              "Transformer")
+    finally:
+        pF.flash_attention = real
+    check(kinds["self"] == kinds["cross"] and kinds["self"] > 0
+          and kinds["self"] % TR_LAYERS == 0,
+          f"Transformer: B2 calls while the step was built {kinds}: not "
+          f"{TR_LAYERS} causal self-attentions under the [{TR_TGT}, "
+          f"{TR_TGT}] bias and {TR_LAYERS} cross-attentions a pass")
+    losses, times, counts = run["losses"], run["times"], run["counts"]
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    n = TRAIN_STEPS * TR_LAYERS
+    want_counts = {"flash_attention_qkv3_fwd": n,
+                   "flash_attention_qkv3_bwd": n,
+                   "flash_attention_fwd": 2 * n, "flash_attention_bwd": 2 * n,
+                   "multi_tensor_adam": TRAIN_STEPS}
+    only_launched(counts, want_counts, "Transformer training")
+    p50 = sorted(times)[len(times) // 2] * 1e3
+    tok_s = TR_B * (TR_SRC + TR_TGT) * TRAIN_STEPS / run["wall"]
+    print(f"  losses {[round(x, 5) for x in losses]} (all finite); launches "
+          f"{ {k: v for k, v in counts.items() if v} }: B5 = steps x 6 "
+          "each way, B2 = steps x 12 each way, the update once a step; B2's "
+          f"calls while the step was built {kinds}: per pass 6 causal "
+          f"self-attentions under the [{TR_TGT}, {TR_TGT}] -inf bias and 6 "
+          f"cross-attentions at Sq={TR_TGT} Sk={TR_SRC}")
+    print(f"  {card}: step {p50:.3f} ms p50 (steps "
+          f"{[round(t * 1e3, 3) for t in times]} ms), {tok_s:.1f} tokens/s "
+          f"(src + tgt), peak memory over the replays "
+          f"{run['peak'] / 2 ** 30:.3f} GiB")
+    del step, params, opt_state
+    model.eval()
+    tr_decode_check(torch, model, ref, batches[1], mask, card)
+    del model, ref, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: counts[k] for k in want_counts if k != "multi_tensor_adam"}
+
+
+def tr_decode_check(torch, model, ref, batch, mask, card):
+    """Incremental decode from the encoder's memory: per decoder layer a
+    `Cache` (self-attention) and a `StaticCache` (the memory's keys and
+    values), one target token a step over TR_TGT steps; each step's row
+    against the full causal forward's, in bf16 and in ``ref``, the
+    float32 copy, given ``model``'s weights first. Prints ms a step."""
+    def decode(m, src, tgt):
+        with torch.no_grad():
+            memory = m.encoder(src)
+            full = m.decoder(tgt, memory, tgt_mask=mask).float()
+            cache = m.decoder.gen_cache(memory)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rows = []
+            for i in range(TR_TGT):
+                row, cache = m.decoder(tgt[:, i:i + 1], memory, cache=cache)
+                rows.append(row)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / TR_TGT
+        return full, torch.cat(rows, 1).float(), ms
+
+    with torch.no_grad():                 # the trained weights
+        for p, q in zip(ref.parameters(), model.parameters()):
+            p.copy_(q)
+    src, tgt = batch["src"], batch["tgt"]
+    full, inc, ms = decode(model, src, tgt)
+    full32, inc32, _ = decode(ref, src.float(), tgt.float())
+    own = (full - full32).abs().max().item()
+    err = (inc - full).abs().amax(dim=(0, 2))           # a step's worst
+    err32 = (inc32 - full32).abs().max().item()
+    tol = DECODE_OWN_ERRS * own
+    check(torch.isfinite(inc).all() and err.max().item() <= tol,
+          f"incremental decode: worst step {err.argmax().item()} lies "
+          f"{err.max().item()} from the full forward's row, beyond "
+          f"{DECODE_OWN_ERRS} x the bf16 model's own error {own}")
+    check(err32 <= TR_F32_DECODE, f"float32 incremental decode lies {err32} "
+          "from its full forward")
+    print(f"  incremental decode (gen_cache: a Cache and a StaticCache a "
+          f"layer, {TR_TGT} steps from the encoder's memory): every step's "
+          f"row within {err.max().item():.3e} of the full causal forward's "
+          f"(<= {tol:.3e}, {DECODE_OWN_ERRS} x the bf16 model's own error "
+          "against float32)"
+          f"; float32 copy {err32:.2e} (<= {TR_F32_DECODE}); {ms:.3f} ms a "
+          f"step ({card})  ok")
+
+
+def fmt_phase(torch, seed, card):
+    """Phase 22: `incubate.nn.FusedMultiTransformer` at gpt3-1.3b's widths
+    (2048 wide, 16 heads of 128, FFN 8192, 24 layers, GELU), bf16,
+    weights from ``seed``, eagerly: 8 prompts of 128 random embeddings
+    prefilled into ``gen_cache(8, 640)``, then 32 decode steps with
+    ``time_step``; every row (the prefill's and each step's) against the
+    no-cache forward's over all 160 tokens under a causal additive mask,
+    within DECODE_OWN_ERRS times the bf16 model's own error against a
+    float32 copy; a
+    ``pre_caches`` arm (32 tokens prefilled alone, carved out, the other
+    96 prefilled against them) against the one-shot prefill. No kernel of
+    the port launches (the reference composes this attention). Prints
+    prefill ms and decode ms a step."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
+    from paddle_tpu_torch.nn import init_weights
+
+    def stack(dtype):
+        m = FusedMultiTransformer(FMT_WIDTH, FMT_HEADS, FMT_FFN,
+                                  num_layers=FMT_LAYERS, device="cuda",
+                                  dtype=dtype)
+        with torch.no_grad():
+            init_weights(m, seed, 0.02)
+        return m.requires_grad_(False).eval()
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = stack(torch.bfloat16)
+    total = FMT_PROMPT + FMT_NEW
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((FMT_B, total, FMT_WIDTH), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    causal = torch.full((total, total), -1e9, device="cuda").triu(1)[None,
+                                                                    None]
+    print(f"  FusedMultiTransformer({FMT_WIDTH}, {FMT_HEADS}, {FMT_FFN}, "
+          f"num_layers={FMT_LAYERS}), GELU, bf16; {FMT_B} prompts of "
+          f"{FMT_PROMPT} random embeddings into gen_cache({FMT_B}, "
+          f"{FMT_MAX_LEN}), then {FMT_NEW} decode steps")
+    kernels.reset_kernel_launch_counts()
+    with torch.no_grad():
+        full = model(x, attn_mask=causal).float()
+        ref = stack(torch.float32)
+        for p, q in zip(ref.parameters(), model.parameters()):
+            p.copy_(q)
+        full32 = ref(x.float(), attn_mask=causal)
+        del ref
+        torch.cuda.empty_cache()
+        own = (full - full32).abs().max().item()
+        tol = DECODE_OWN_ERRS * own
+        caches = model.gen_cache(FMT_B, FMT_MAX_LEN)
+        prefill_s = []
+        for _ in range(3):       # each call rewrites the same columns
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pre, caches = model(x[:, :FMT_PROMPT], caches=caches)
+            torch.cuda.synchronize()
+            prefill_s.append(time.perf_counter() - t0)
+        prefill_ms = statistics.median(prefill_s) * 1e3
+        rows, step_s = [], []
+        for t in range(FMT_PROMPT, total):
+            ts = torch.full((1,), t, dtype=torch.int32, device="cuda")
+            t0 = time.perf_counter()
+            row, caches = model(x[:, t:t + 1], caches=caches, time_step=ts)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            rows.append(row.float())
+        step_err = (torch.cat(rows, 1) - full[:, FMT_PROMPT:]).abs().amax(
+            dim=(0, 2))
+        pre_err = (pre.float() - full[:, :FMT_PROMPT]).abs().max().item()
+        # the pre_caches arm: FMT_PRE tokens alone, carved out, the rest
+        # of the prompt against them
+        part = model.gen_cache(FMT_B, FMT_MAX_LEN)
+        _, part = model(x[:, :FMT_PRE], caches=part)
+        carved = [c[:, :, :, :FMT_PRE] for c in part]
+        rest, _ = model(x[:, FMT_PRE:FMT_PROMPT],
+                        caches=model.gen_cache(FMT_B, FMT_MAX_LEN),
+                        pre_caches=carved)
+        pc_err = (rest.float() - pre[:, FMT_PRE:].float()).abs().max().item()
+    counts = kernels.kernel_launch_counts()
+    only_launched(counts, {}, "FusedMultiTransformer")
+    check(all(torch.isfinite(r).all() for r in rows), "non-finite rows")
+    check(pre_err <= tol and step_err.max().item() <= tol and pc_err <= tol,
+          f"FusedMultiTransformer: prefill rows {pre_err}, worst decode "
+          f"step {step_err.argmax().item()} at {step_err.max().item()}, "
+          f"pre_caches arm {pc_err}: beyond {DECODE_OWN_ERRS} x the bf16 "
+          f"model's own error {own}")
+    step_ms = statistics.median(step_s) * 1e3
+    print(f"  prefill rows within {pre_err:.3e}, each of the {FMT_NEW} "
+          f"decode steps' rows within {step_err.max().item():.3e} of the "
+          f"no-cache forward's last row, the pre_caches arm ({FMT_PRE} "
+          f"tokens carved out) within {pc_err:.3e} of the one-shot "
+          f"prefill (all <= {tol:.3e}, {DECODE_OWN_ERRS} x the bf16 model's "
+          "own error against float32); no kernel launched  ok")
+    print(f"  {card}: prefill {prefill_ms:.3f} ms p50 of 3 ({FMT_B} x "
+          f"{FMT_PROMPT}; {[round(t * 1e3, 3) for t in prefill_s]}), "
+          f"decode {step_ms:.3f} ms a step p50 (eager, {FMT_B} rows, cache "
+          f"{FMT_MAX_LEN})")
+    del model, caches, part, carved, full, full32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def one_expert(torch, stacked, i):
+    """Expert ``i`` of an `ExpertFFN` as a module of its own, the
+    reference's listed form: ``[g, c, m] -> [g, c, m]`` through the same
+    `stacked_expert_ffn` on its slice."""
+    from paddle_tpu_torch.distributed import moe
+
+    class Expert(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            for n in ("w1", "b1", "w2", "b2"):
+                setattr(self, n, torch.nn.Parameter(
+                    getattr(stacked, n)[i:i + 1].detach().clone(),
+                    requires_grad=False))
+
+        def forward(self, x):
+            return moe.stacked_expert_ffn(x[None], self.w1, self.b1, self.w2,
+                                          self.b2)[0]
+
+    return Expert()
+
+
+def moe_phase(torch, seed, card):
+    """Phase 23: `MoELayer` in place of a dense FFN at gpt3-1.3b's width:
+    d_model 2048, 8 experts of 8192 (stacked, `ExpertFFN`), `GShardGate`
+    top-2 at capacity factor 1.25, on b8 x s1024 tokens (capacity 320),
+    bf16, weights from ``seed``. Forward and backward (loss mean(y^2) +
+    0.01 aux) against a float32 copy: the dispatch equal on every token
+    whose gates' margins (first to second, second to third) exceed
+    MOE_TIE, output and grads (input, gate, w1, w2) at cosine >=
+    REF_GRAD_COS, every grad finite; the same layer with listed experts
+    equal to the stacked one within 2 bf16 ulps of the output's scale;
+    no kernel of the port launches. Prints forward and forward+backward
+    ms."""
+    from torch.func import functional_call
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.distributed import moe
+    from paddle_tpu_torch.incubate.distributed.models.moe import (
+        ExpertFFN, GShardGate, MoELayer)
+    from paddle_tpu_torch.nn import init_weights
+
+    def layer(dtype):
+        kw = dict(device="cuda", dtype=dtype)
+        m = MoELayer(MOE_D, experts=ExpertFFN(MOE_E, MOE_D, MOE_H, **kw),
+                     gate=GShardGate(MOE_D, MOE_E, topk=2,
+                                     capacity=(MOE_CF, 2 * MOE_CF), **kw))
+        with torch.no_grad():
+            init_weights(m, seed, 0.02)
+        return m.requires_grad_(False)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, ref = layer(torch.bfloat16), layer(torch.float32)
+    with torch.no_grad():
+        for p, q in zip(ref.parameters(), model.parameters()):
+            p.copy_(q)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((MOE_B, MOE_S, MOE_D), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    cap = max(1, int(MOE_CF * 2 * MOE_S / MOE_E))
+    print(f"  MoELayer(d_model {MOE_D}): {MOE_E} experts of {MOE_H} "
+          f"(ExpertFFN, tanh GELU), GShardGate top-2, capacity factor "
+          f"{MOE_CF}; b{MOE_B} x s{MOE_S} tokens, capacity {cap} a group; "
+          "bf16")
+
+    def run(m, xv):
+        ps = {n: p.detach().requires_grad_(True)
+              for n, p in m.named_parameters()}
+        xr = xv.detach().requires_grad_(True)
+        y = functional_call(m, ps, (xr,))
+        loss = y.float().square().mean() + 0.01 * m.gate.loss
+        loss.backward()
+        return y.detach(), {"x": xr.grad, **{n: p.grad
+                                             for n, p in ps.items()}}
+
+    kernels.reset_kernel_launch_counts()
+    y, grads = run(model, x)
+    only_launched(kernels.kernel_launch_counts(), {}, "MoE")
+    y32, grads32 = run(ref, x.float())
+    # the dispatch: recomputed from each layer's gate logits
+    with torch.no_grad():
+        def gating(m, xv):
+            logits = torch.einsum("gsm,me->gse", xv.float(),
+                                  m.gate.weight.float())
+            c, d, _ = moe.top_k_gating(logits, k=2, capacity_factor=MOE_CF)
+            gates = torch.softmax(logits, -1).sort(-1, descending=True)[0]
+            return d, gates
+
+        d16, gates = gating(model, x)
+        d32, _ = gating(ref, x.float())
+        clear = ((gates[..., 0] - gates[..., 1] > MOE_TIE)
+                 & (gates[..., 1] - gates[..., 2] > MOE_TIE))
+        differ = (d16 != d32).any(-1).any(-1)
+        bad = int((differ & clear).sum())
+        near = int((~clear).sum())
+    check(bad == 0, f"MoE dispatch differs on {bad} tokens clear of ties")
+
+    def cos(a, b):
+        return torch.nn.functional.cosine_similarity(
+            a.float().flatten(), b.float().flatten(), dim=0).item()
+
+    held = {"y": cos(y, y32), "dx": cos(grads["x"], grads32["x"]),
+            **{n: cos(grads[n], grads32[n])
+               for n in ("gate.weight", "experts.w1", "experts.w2")}}
+    finite = all(torch.isfinite(v).all() for v in grads.values())
+    check(finite and min(held.values()) >= REF_GRAD_COS,
+          f"MoE against float32: cosine {held}, grads finite {finite}")
+    listed = MoELayer(MOE_D, experts=[one_expert(torch, model.experts, i)
+                                      for i in range(MOE_E)],
+                      gate=model.gate)
+    with torch.no_grad():
+        stacked_y, listed_y = model(x), listed(x)
+    gap = (listed_y.float() - stacked_y.float()).abs().max().item()
+    bound = 2 * 2.0 ** -8 * stacked_y.float().abs().max().item()
+    check(gap <= bound, f"MoE listed experts lie {gap} from the stacked "
+          f"ones (bound {bound})")
+
+    def fwd():
+        with torch.no_grad():
+            model(x)
+
+    def fwd_bwd():
+        run(model, x)
+
+    ms = (time_ms(fwd, 5, 2), time_ms(fwd_bwd, 3, 1))
+    print(f"  dispatch equal on every token clear of ties ({near} of "
+          f"{MOE_B * MOE_S} within {MOE_TIE} of one); against float32: "
+          "cosine " + ", ".join(f"{k} {v:.6f}" for k, v in held.items())
+          + f" (>= {REF_GRAD_COS}), every grad finite; listed experts "
+          f"within {gap:.3e} of the stacked ones (<= {bound:.3e}); no "
+          "kernel launched  ok")
+    print(f"  {card}: forward {ms[0]:.3f} ms, forward+backward {ms[1]:.3f} "
+          "ms (device time)")
+    del model, ref, listed, grads, grads32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def print_build_report(name, report):
     """One source's build seconds, then for each kernel ptxas's register,
     shared-memory and spill lines, joined on one line."""
@@ -5934,6 +6601,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
+    t_run = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -6033,12 +6701,30 @@ def main(argv=None) -> int:
             shutil.rmtree(root, ignore_errors=True)
         print(f"  (B1's and the update's launches in the kernel line are "
               f"phase 19's; phase 5's were {phase5})")
+        print("[20] ViT-L/16 (224 px, patch 16: 197 tokens; eval forward, "
+              "training on a graph, B2 measured at its attention shape)")
+        vit_phase(torch, args.seed, card)
+        print("[21] the encoder-decoder Transformer (nn.Transformer's "
+              "defaults: B5 in the encoder, B2 under the causal -inf mask "
+              "and across; incremental decode)")
+        phase21 = transformer_phase(torch, args.seed, card)
+        for name, n in phase21.items():
+            launches[name] += n
+        print(f"  (B2's and B5's launches in the kernel line add phase 21's "
+              f"{phase21} to phases 6 and 7's)")
+        print("[22] FusedMultiTransformer at gpt3-1.3b's widths (CacheKV "
+              "prefill, pre_caches, decode with time_step)")
+        fmt_phase(torch, args.seed, card)
+        print("[23] the MoE layer on one card (gpt3-1.3b's width, 8 experts, "
+              "GShardGate top-2)")
+        moe_phase(torch, args.seed, card)
     print(f"  width-512 launches of B3 over phases 4-18: {wide_seen}")
     launches.update({name: wide_seen[c] for name, c in wide_names.items()})
     for rec in records:
         rec["launches"] = launches[rec["name"]]
 
     print(json.dumps({"kernels": records}))
+    print(f"whole run: {time.perf_counter() - t_run:.1f} s wall")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

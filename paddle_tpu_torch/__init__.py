@@ -3,12 +3,15 @@
 `paddle_tpu` (JAX, TPU) is the reference this package is held against.
 The port grows slice by slice. It serves GPT through the paged
 continuous-batching `serving.Engine`, trains GPT and pretrains BERT
-(masked or not, unfused or through the fused layers of `incubate.nn`)
-through `distributed.SpmdTrainStep`; attention runs in kernels written by
-hand for Hopper (`kernels/csrc/`: paged decode attention, the qkv flash
-kernels on the pair-major and the which-major projection, the general
-[B,S,H,D] flash kernels), and so does the fused (residual +) LayerNorm
-of `incubate.nn.functional._ln_maybe_fused`.
+(masked or not, unfused or through the fused layers of `incubate.nn`),
+ViT and the encoder-decoder `nn.Transformer` through
+`distributed.SpmdTrainStep`, decodes with `nn.Transformer`'s caches and
+`incubate.nn.FusedMultiTransformer`'s CacheKV, and runs the MoE layer
+(`incubate.distributed.models.moe`) on one card; attention runs in
+kernels written by hand for Hopper (`kernels/csrc/`: paged decode
+attention, the qkv flash kernels on the pair-major and the which-major
+projection, the general [B,S,H,D] flash kernels), and so does the fused
+(residual +) LayerNorm of `incubate.nn.functional._ln_maybe_fused`.
 
 Nothing here imports ``jax`` or ``paddle_tpu``. Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"`` (see `device`).

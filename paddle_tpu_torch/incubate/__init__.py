@@ -1,10 +1,10 @@
 """`paddle.incubate` of the port: the fused transformer layers and
-functionals (`incubate.nn`).
+functionals (`incubate.nn`) and the MoE layer on one card
+(`incubate.distributed.models.moe`).
 
-Counterpart: ``paddle_tpu/incubate/``. Only ``incubate.nn``'s training
-layers are ported; the MoE layers, the LookAhead/ModelAverage optimizers,
-the graph and segment ops and ``FusedMultiTransformer`` (serving) are
-later slices (ROADMAP A13, A14)."""
-from . import nn
+Counterpart: ``paddle_tpu/incubate/``. The LookAhead/ModelAverage
+optimizers and the graph and segment ops are later slices (ROADMAP
+A14)."""
+from . import distributed, nn
 
-__all__ = ["nn"]
+__all__ = ["distributed", "nn"]

@@ -11,6 +11,11 @@ reference, and train only through weight decay.
 Parameters start uninitialised (matrices) or at their constants (biases
 zero, LayerNorm scales one); `nn.init_weights` draws the matrices, by
 the names each layer lists in ``_init_normal``.
+
+`FusedMultiTransformer` keeps one ``nn.ParameterList`` a weight kind
+(``qkv_weights.0``, ``ln_scales.0`` ...), the reference's names; it is
+pre-LN only, and ``nranks > 1`` (heads and FFN split over a ring of
+ranks) is a later slice (ROADMAP A12).
 """
 from __future__ import annotations
 
@@ -34,7 +39,9 @@ def _param(shape, fill, device, dtype):
 class FusedMultiHeadAttention(nn.Module):
     """Self-attention block of `functional.fused_multi_head_attention`
     (``layers.py:17-65``). ``use_flash`` (True) lets attention take the
-    flash branches; False composes it."""
+    flash branches; False composes it. ``need_weights`` is taken and
+    ignored, as in the reference; ``cache``: the functional's
+    ``cache_kv``."""
 
     _init_normal = ("qkv_weight", "linear_weight")
 
@@ -43,8 +50,6 @@ class FusedMultiHeadAttention(nn.Module):
                  normalize_before=False, need_weights=False, epsilon=1e-5,
                  *, device=None, dtype=None):
         super().__init__()
-        if need_weights:
-            raise IF._later("FusedMultiHeadAttention(need_weights=True)")
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} is not a multiple of "
                              f"num_heads {num_heads}")
@@ -155,12 +160,86 @@ class FusedTransformerEncoderLayer(nn.Module):
 
 
 class FusedMultiTransformer(nn.Module):
-    """The reference's pre-LN serving stack with CacheKV decoding
-    (``layers.py:138-241``): a later slice."""
+    """N stacked pre-LN transformer blocks in one module, the serving
+    stack with CacheKV decoding (``layers.py:138-241``):
+    ``forward(src, attn_mask, caches, pre_caches, time_step)`` is
+    `functional.fused_multi_transformer` over the layer's weights;
+    `gen_cache` makes its caches. ``trans_qkvw``: qkv weights ``[3, H, D,
+    M]`` (True) or ``[M, 3, H, D]``."""
 
-    def __init__(self, *args, **kwargs):
+    def __init__(self, embed_dim, num_heads, dim_feedforward,
+                 dropout_rate=0.0, activation="gelu", normalize_before=True,
+                 epsilon=1e-5, num_layers=-1, nranks=1, trans_qkvw=True,
+                 ring_id=-1, name=None, *, device=None, dtype=None):
         super().__init__()
-        raise IF._later("FusedMultiTransformer")
+        if not normalize_before:
+            raise ValueError("FusedMultiTransformer is pre-LN only")
+        if embed_dim % num_heads:
+            raise ValueError(f"embed_dim {embed_dim} is not a multiple of "
+                             f"num_heads {num_heads}")
+        if nranks and nranks > 1:
+            raise NotImplementedError(
+                f"FusedMultiTransformer(nranks={nranks}): heads and FFN "
+                "split over a ring of ranks are a later slice (ROADMAP A12)")
+        num_layers = 1 if num_layers < 0 else num_layers
+        self.embed_dim = embed_dim
+        self.num_heads = num_heads
+        self.head_dim = embed_dim // num_heads
+        self.num_layers = num_layers
+        self.dropout_rate = dropout_rate
+        self.activation = activation
+        self.normalize_before = normalize_before
+        self._epsilon = epsilon
+        self._trans_qkvw = trans_qkvw
+        self.name = name
+        kw = dict(device=device, dtype=dtype)
+
+        def plist(shape, fill=None):
+            return nn.ParameterList([_param(shape, fill, **kw)
+                                     for _ in range(num_layers)])
+
+        m, h, d, f = embed_dim, num_heads, self.head_dim, dim_feedforward
+        self.ln_scales = plist((m,), 1.0)
+        self.ln_biases = plist((m,), 0.0)
+        self.qkv_weights = plist((3, h, d, m) if trans_qkvw else (m, 3, h, d))
+        self.qkv_biases = plist((3, h, d), 0.0)
+        self.linear_weights = plist((h * d, m))
+        self.linear_biases = plist((m,), 0.0)
+        self.ffn_ln_scales = plist((m,), 1.0)
+        self.ffn_ln_biases = plist((m,), 0.0)
+        self.ffn1_weights = plist((m, f))
+        self.ffn1_biases = plist((f,), 0.0)
+        self.ffn2_weights = plist((f, m))
+        self.ffn2_biases = plist((m,), 0.0)
+        self._init_normal = tuple(
+            f"{kind}.{i}" for kind in ("qkv_weights", "linear_weights",
+                                       "ffn1_weights", "ffn2_weights")
+            for i in range(num_layers))
+
+    def gen_cache(self, batch_size, max_seq_len, dtype=None):
+        """One zeroed CacheKV buffer a layer, ``[2, batch, num_heads,
+        max_seq_len, head_dim]``, in ``dtype`` (default the weights')
+        on the weights' device."""
+        w = self.qkv_weights[0]
+        return [torch.zeros((2, batch_size, self.num_heads, max_seq_len,
+                             self.head_dim), dtype=dtype or w.dtype,
+                            device=w.device)
+                for _ in range(self.num_layers)]
+
+    def forward(self, src, attn_mask=None, caches=None, pre_caches=None,
+                time_step=None):
+        return IF.fused_multi_transformer(
+            src, list(self.ln_scales), list(self.ln_biases),
+            list(self.qkv_weights), list(self.qkv_biases),
+            list(self.linear_weights), list(self.linear_biases),
+            list(self.ffn_ln_scales), list(self.ffn_ln_biases),
+            list(self.ffn1_weights), list(self.ffn1_biases),
+            list(self.ffn2_weights), list(self.ffn2_biases),
+            pre_layer_norm=self.normalize_before, epsilon=self._epsilon,
+            cache_kvs=caches, pre_caches=pre_caches, time_step=time_step,
+            attn_mask=attn_mask, dropout_rate=self.dropout_rate,
+            activation=self.activation, training=self.training,
+            trans_qkvw=self._trans_qkvw)
 
 
 class FusedBiasDropoutResidualLayerNorm(nn.Module):

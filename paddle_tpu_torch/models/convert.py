@@ -1,4 +1,6 @@
-"""Move GPT and BERT weights between ``paddle_tpu`` and the port.
+"""Move weights between ``paddle_tpu`` and the port: GPT, BERT, ViT,
+the encoder-decoder `nn.Transformer`, `incubate.nn.FusedMultiTransformer`
+and `incubate.distributed.models.moe.MoELayer`.
 
 `load_paddle_tpu_state_dict` loads a ``paddle_tpu`` state dict into the
 port's model; `export_paddle_tpu_state_dict` is its inverse (the port's
@@ -6,10 +8,14 @@ parameters as numpy arrays under the reference's names).
 
 The port keeps ``paddle_tpu``'s parameter names and layouts (``Linear``
 weights stay ``[in, out]``, GPT's qkv columns stay pair-major, the fused
-BERT layers keep ``qkv_weight [3, H, D, M]`` and ``ffn._ln1_scale``), so the
-conversion is a checked copy: every parameter of the model must be in
-the state dict with its exact shape, and nothing else may be, apart
-from GPT's per-layer ``qkv_layout`` markers. A tied parameter (BERT's
+BERT layers keep ``qkv_weight [3, H, D, M]`` and ``ffn._ln1_scale``, ViT's
+patch embedding its OIHW conv weight, `FusedMultiTransformer` one list a
+weight kind, ``qkv_weights.0`` ..., and `MoELayer` ``gate.weight [M, E]``
+with stacked experts ``experts.w1 [E, M, F]`` or listed ones
+``experts.0.*``), so the conversion is a checked copy: every parameter
+of the model must be in the state dict with its exact shape, and
+nothing else may be, apart from GPT's per-layer ``qkv_layout``
+markers. A tied parameter (BERT's
 MLM decoder is its word embedding) is one tensor, listed once under its
 first name in both packages, and is copied once.
 
@@ -32,9 +38,8 @@ def _gpt_layers(names) -> set:
 
 def load_paddle_tpu_state_dict(model, arrays: dict):
     """Copy ``arrays`` (``paddle_tpu`` ``state_dict()`` as numpy arrays,
-    keyed by name) into ``model`` (a `GPTForPretraining` or a BERT
-    model), cast to the model's dtype on the model's device. Returns
-    ``model``."""
+    keyed by name) into ``model`` (any of the families above), cast to
+    the model's dtype on the model's device. Returns ``model``."""
     arrays = dict(arrays)
     params = dict(model.named_parameters())
     for i in sorted(_gpt_layers(params)):

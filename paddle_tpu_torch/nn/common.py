@@ -47,17 +47,18 @@ def init_weights(model, seed, std):
     """The models' random init, from a generator seeded with ``seed`` on
     the model's device: weights of every `Linear` and `Embedding` normal
     ``(0, std)``, their biases zero, LayerNorm scales one and shifts
-    zero. A layer that holds raw parameters (the fused layers) lists its
-    matrices in ``_init_normal``; they are drawn by the same rule, and
-    its biases and LayerNorm scales keep the zeros and ones they were
-    built with."""
+    zero. A layer that holds raw parameters (the fused layers, the
+    convolutions) lists its matrices in ``_init_normal`` (paths below
+    it, as ``qkv_weights.0``); they are drawn by the same rule, and its
+    biases and LayerNorm scales keep the zeros and ones they were built
+    with."""
     dev = next(model.parameters()).device
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     for mod in model.modules():
         if isinstance(mod, (Linear, Embedding)):
             mod.weight.normal_(0.0, std, generator=gen)
         for name in getattr(mod, "_init_normal", ()):
-            getattr(mod, name).normal_(0.0, std, generator=gen)
+            mod.get_parameter(name).normal_(0.0, std, generator=gen)
         if isinstance(mod, Linear):
             mod.bias.zero_()
         elif isinstance(mod, LayerNorm):

@@ -25,8 +25,9 @@ port runs its plain versions on the CPU. Checked:
   (about 1e-9) is what Adam normalises into steps of about lr; their
   grads are held at 1e-6 of 0 instead;
 - the state-dict round trip with the tied embedding, and the arguments
-  of later slices raising by name (a CUDA tensor in the qkv3 entry goes
-  to the kernel wrapper, never to the plain version).
+  that earlier slices refused (the fused layers' cache, ``need_weights``,
+  MHA's cache: served since the decoder slice; a CUDA tensor in the qkv3
+  entry goes to the kernel wrapper, never to the plain version).
 """
 import importlib
 
@@ -56,7 +57,7 @@ from paddle_tpu_torch.models import (BertConfig, BertForPretraining,
                                      BertForSequenceClassification,
                                      BertModel, export_paddle_tpu_state_dict,
                                      load_paddle_tpu_state_dict)
-from paddle_tpu_torch.nn import MultiHeadAttention
+from paddle_tpu_torch.nn import MultiHeadAttention, init_weights
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.optimizer import AdamW
 
@@ -265,11 +266,14 @@ def test_sequence_classification_head_shapes():
 @pytest.mark.parametrize("what", ["fuse", "qkv3_cuda", "d_over_128",
                                   "need_weights", "cache"])
 def test_later_slice_arguments_raise(what, monkeypatch):
-    if what == "fuse":            # the fused BERT's serving cache
+    if what == "fuse":            # the fused BERT's serving cache: served
         layer = BertModel(BertConfig(**QKV3_CFG), fuse=True,
                           device="cpu").encoder_layers[0]
-        with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-            layer(torch.zeros((1, 128, 128)), cache=object())
+        x = torch.randn((1, 128, 128))
+        empty = torch.zeros((2, 1, 0, 2, 64))     # [2, B, L, H, D]
+        with torch.no_grad():
+            torch.testing.assert_close(layer(x, cache=empty), layer(x),
+                                       atol=1e-5, rtol=0)
     elif what == "qkv3_cuda":     # a CUDA tensor goes to the B5 wrapper
         monkeypatch.setattr(pfa, "runs_plain", lambda t, k: False)
         with pytest.raises(ValueError, match="needs CUDA tensors"):
@@ -290,10 +294,14 @@ def test_later_slice_arguments_raise(what, monkeypatch):
         got = F.scaled_dot_product_attention(x, x, x)
         assert seen == [x.shape]
         torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
-    elif what == "need_weights":
-        with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-            MultiHeadAttention(64, 2, need_weights=True, device="cpu")
-    else:
+    elif what == "need_weights":    # served: (out, None), as the reference
+        mha = MultiHeadAttention(64, 2, need_weights=True, device="cpu")
+        init_weights(mha, 0, 0.02)
+        out, weights = mha(torch.zeros((1, 4, 64)))
+        assert out.shape == (1, 4, 64) and weights is None
+    else:                           # served: the cache grows by the step
         mha = MultiHeadAttention(64, 2, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-            mha(torch.zeros((1, 4, 64)), cache=object())
+        init_weights(mha, 0, 0.02)
+        x = torch.randn((1, 4, 64))
+        out, cache = mha(x, cache=mha.gen_cache(x))
+        assert out.shape == (1, 4, 64) and cache.k.shape == (1, 4, 2, 32)

@@ -25,7 +25,8 @@ plain versions on the CPU. Checked:
   zero gradient and only AdamW's decay moves them, to the same values;
 - the fused state-dict round trip, key for key with the reference's;
 - the other fused functionals and layers against the reference's at
-  atol 1e-5; the fused layers' init; the serving pieces raising by name.
+  atol 1e-5; the fused layers' init; the serving pieces, refused by
+  earlier slices, now served (and nranks > 1 refused by name).
 """
 import importlib
 
@@ -61,6 +62,7 @@ from paddle_tpu_torch.models import (BertConfig, BertForPretraining,
                                      BertModel, export_paddle_tpu_state_dict,
                                      load_paddle_tpu_state_dict)
 from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.nn import init_weights
 from paddle_tpu_torch.optimizer import AdamW
 
 jfa = importlib.import_module("paddle_tpu.kernels.flash_attention")
@@ -361,13 +363,34 @@ def test_downscale_in_infer_dropout_raises_by_name():
                                   "functional_multi_transformer",
                                   "need_weights"])
 def test_serving_pieces_raise_by_name(what):
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        if what == "cache_kv":
-            layer = FusedTransformerEncoderLayer(64, 2, 128, device="cpu")
-            layer(torch.zeros((1, 4, 64)), cache=object())
-        elif what == "multi_transformer":
-            FusedMultiTransformer(64, 2, 128)
-        elif what == "functional_multi_transformer":
-            IF.fused_multi_transformer(torch.zeros((1, 4, 64)))
-        else:
-            FusedMultiHeadAttention(64, 2, need_weights=True, device="cpu")
+    """The serving pieces this slice refused are served since the decoder
+    slice (tests/test_torch_fused_mt.py holds them against the
+    reference); what stays refused names its queue item."""
+    if what == "cache_kv":
+        layer = FusedTransformerEncoderLayer(64, 2, 128, device="cpu")
+        init_weights(layer, 0, 0.02)
+        layer.eval()
+        x = torch.randn((1, 4, 64))
+        with torch.no_grad():
+            torch.testing.assert_close(
+                layer(x, cache=torch.zeros((2, 1, 0, 2, 32))), layer(x),
+                atol=1e-5, rtol=0)
+    elif what == "multi_transformer":
+        stack = FusedMultiTransformer(64, 2, 128, device="cpu")
+        assert stack.num_layers == 1
+        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+            FusedMultiTransformer(64, 2, 128, nranks=2, device="cpu")
+    elif what == "functional_multi_transformer":
+        stack = FusedMultiTransformer(64, 2, 128, num_layers=2,
+                                      device="cpu")
+        init_weights(stack, 0, 0.02)
+        x = torch.randn((1, 4, 64))
+        lists = [list(p) for p in stack.children()]
+        with torch.no_grad():
+            torch.testing.assert_close(IF.fused_multi_transformer(x, *lists),
+                                       stack(x))
+    else:
+        attn = FusedMultiHeadAttention(64, 2, need_weights=True,
+                                       device="cpu")
+        init_weights(attn, 0, 0.02)
+        assert attn(torch.zeros((1, 4, 64))).shape == (1, 4, 64)

@@ -74,7 +74,14 @@ MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.device",
            "paddle_tpu_torch.framework.train_loop",
            "paddle_tpu_torch.observability.tracing",
            "paddle_tpu_torch.observability.train_introspection",
-           "paddle_tpu_torch.observability.threads"]
+           "paddle_tpu_torch.observability.threads",
+           "paddle_tpu_torch.nn.conv", "paddle_tpu_torch.models.vit",
+           "paddle_tpu_torch.distributed.moe",
+           "paddle_tpu_torch.incubate.distributed",
+           "paddle_tpu_torch.incubate.distributed.models",
+           "paddle_tpu_torch.incubate.distributed.models.moe",
+           "paddle_tpu_torch.incubate.distributed.models.moe.gate",
+           "paddle_tpu_torch.incubate.distributed.models.moe.moe_layer"]
 
 
 def test_import_pulls_in_no_jax_and_no_paddle_tpu():
