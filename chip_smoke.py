@@ -55,8 +55,9 @@ Phases, in order; any failure exits non-zero:
    gpt3-1.3b's parameter list and one step's gradients: AdamW and Adam
    with L2 decay in bf16, bf16 params with f32 moments, f32 params with
    f32 and bf16 moments, a global-norm clip's scale, multi_precision
-   masters (every stored element within 1 ulp, the share equal bit for
-   bit printed), a found-inf flag (nothing written, the step count
+   masters, and the bf16 and multi_precision forms with mixed per-entry
+   rate scales (`ParamAttr`'s ``learning_rate``; every stored element
+   within 1 ulp, the share equal bit for bit printed), a found-inf flag (nothing written, the step count
    unchanged), and its time beside the plain version's, one
    ``torch._fused_adamw_`` call over the same lists and the bound;
 4. engine phase: gpt3-1.3b at full width and depth, bf16, random
@@ -346,7 +347,26 @@ Phases, in order; any failure exits non-zero:
    backward against a float32 copy (cosine >= 0.999 for the output and
    the grads), the dispatch equal on every token whose gate margins
    exceed 2^-8, listed experts equal to the stacked ones within 2 bf16
-   ulps of the output's scale, forward and forward+backward ms.
+   ulps of the output's scale, forward and forward+backward ms;
+24. A5's layer base: `nn.Transformer()` at its defaults (phase 21's
+   model) built on the card from the reference's initializers and
+   attrs, no `init_weights` (weights ``ParamAttr(XavierNormal(),
+   learning_rate=0.5, regularizer=L2Decay(1e-4))``, biases
+   ``ParamAttr(need_clip=False)``): every fresh weight's mean and std
+   within 6 sampling sigmas of XavierNormal's, biases 0, LayerNorm
+   scales 1; encoder layer 0's first LayerNorm ``trainable=False``;
+   ``astype("bfloat16")``; the float32 copy's loss and grads at dropout 0
+   (as phase 21); 5 eager steps of ``AdamW(parameters=...,
+   multi_precision=True, grad_clip=ClipGradByGlobalNorm(1.0))`` on phase
+   21's batch shape with ``loss.backward(); opt.step();
+   opt.clear_grad()`` at dropout 0.1, in which B5 launches 6 times each
+   way a step, B2 12 and the update once (the rate scales in its
+   entries), every loss finite, the frozen LayerNorm bit for bit; the
+   eager step's ms p50; then ``state_dict`` through `framework.save` /
+   ``load`` onto the card into a twin built under `LazyGuard` and
+   ``initialize()``d on the card: bit for bit, its eval forward the
+   model's bit for bit. B2's and B5's launches in the kernels line add
+   this phase's.
 
 The kernel phase (3) also holds the paged kernel at head dims above 256
 (D 320 and 512: width 512 in 2-query tiles; ps 16 and 4, f32, bf16 and
@@ -535,6 +555,25 @@ VIT_ATTN = (32, 197, 16, 64)
 # order only)
 TR_B, TR_SRC, TR_TGT, TR_D, TR_LAYERS, TR_DROPOUT = 32, 256, 128, 512, 6, 0.1
 TR_F32_DECODE = 1e-4
+# phase 24: the layer base's Transformer: its weights' rate scale and
+# L2Decay, LB_STEPS eager steps, a fresh weight's mean and std within
+# LB_SIGMAS sampling sigmas of XavierNormal's
+LB_RATE, LB_L2, LB_STEPS, LB_SIGMAS = 0.5, 1e-4, 5, 6.0
+# phase 21: the grads the float32 check holds. Phase 24 (XavierNormal
+# weights, std 0.044 against phase 21's 0.02) holds the last layer's
+# cross-attention value projection in place of its key projection and
+# shows that one: its bf16 grad stood at cosine 0.925-0.969 against
+# float32 through the plain versions in two card runs, rounding-bound
+# with or without the kernels
+TR_HELD = ("encoder.layers.0.self_attn.v_proj.weight",
+           "encoder.layers.5.linear1.weight",
+           "decoder.layers.0.self_attn.v_proj.weight",
+           "decoder.layers.0.cross_attn.v_proj.weight",
+           "decoder.layers.5.cross_attn.k_proj.weight",
+           "decoder.layers.5.linear1.weight")
+LB_HELD = (*TR_HELD[:4], "decoder.layers.5.cross_attn.v_proj.weight",
+           TR_HELD[5])
+LB_SHOWN = TR_HELD[4]
 # phases 21-22: an incremental row against the full forward's, in bf16,
 # within this many times the bf16 model's own error against float32
 DECODE_OWN_ERRS = 3
@@ -2471,6 +2510,9 @@ ADAM_FAMILY = {"the update (multi_tensor_adam: adam_kernel)":
                ("adam_kernel<",)}
 # the Adam hyperparameters of every training phase (AdamW's defaults)
 ADAM_BETA1, ADAM_BETA2, ADAM_EPS = 0.9, 0.999, 1e-8
+# the rate scales the kernel phase's mixed-rate cases give its entries
+# in turn (phase 24's weights take 0.5)
+ADAM_RATES = (0.5, 1.0, 2.0, 0.1)
 # replays against eager steps: after GRAPH_CHECK_STEPS steps from one
 # state, each tensor of the replays' state lies within the larger of two
 # bounds of its own: GRAPH_SPREAD times its largest distance between
@@ -2518,17 +2560,19 @@ def ulps_apart(torch, a, b):
     return ((x - y).abs() / ulp).max().item(), int((a == b).sum().item())
 
 
-def adam_entries(torch, mta, params, grads, pdt, gdt, sdt, master, wd):
+def adam_entries(torch, mta, params, grads, pdt, gdt, sdt, master, wd,
+                 rates=(1.0,)):
     """`AdamEntry`s over ``params`` / ``grads`` (name -> tensor) in the
     given dtypes (copies), with moments as one step of Adam leaves them
-    (m = 0.1 g, v = 0.001 g^2)."""
+    (m = 0.1 g, v = 0.001 g^2); the i-th entry's rate scale is
+    ``rates[i % len(rates)]``."""
     out = []
-    for n, p in params.items():
+    for i, (n, p) in enumerate(params.items()):
         g = grads[n]
         out.append(mta.AdamEntry(
             p.to(pdt, copy=True), g.to(gdt, copy=True),
             (0.1 * g.float()).to(sdt), (1e-3 * g.float().square()).to(sdt),
-            p.float() if master else None, wd))
+            p.float() if master else None, wd, rates[i % len(rates)]))
     return out
 
 
@@ -2544,9 +2588,11 @@ def adam_kernel_phase(torch, seed):
     params, grads and moments (the training phases' form); bf16 params
     with float32 moments; float32 params and moments; float32 params
     with bf16 moments; a global-norm clip's scale; multi_precision
-    (float32 masters, float32 grads and moments). Every stored element
-    (params, moments, masters) within 1 ulp of its dtype, the share
-    equal bit for bit printed. Then the optimizer's ``apply_gradients``
+    (float32 masters, float32 grads and moments); and the bf16 and the
+    multi_precision forms with mixed rate scales (`ParamAttr`'s
+    ``learning_rate``: ADAM_RATES in turn over the entries, one launch).
+    Every stored element (params, moments, masters) within 1 ulp of its
+    dtype, the share equal bit for bit printed. Then the optimizer's ``apply_gradients``
     with ``found_inf`` set (nothing written, the step count unchanged)
     and clear. Then the bf16 AdamW update timed beside the plain version,
     the library's ``torch._fused_adamw_`` over the same lists (the same
@@ -2579,6 +2625,7 @@ def adam_kernel_phase(torch, seed):
     tables = mta.AdamTables()
     bf, f32 = torch.bfloat16, torch.float32
     clip = ClipGradByGlobalNorm(1.0).scale(grads)
+    mixed = f"mixed rate scales {ADAM_RATES}"
     cases = [("AdamW, bf16 params/grads/moments", bf, bf, bf, False, True,
               None),
              ("Adam + L2, bf16 params/grads/moments", bf, bf, bf, False,
@@ -2592,12 +2639,16 @@ def adam_kernel_phase(torch, seed):
              ("AdamW, bf16, global-norm clip scale "
               f"{clip.item():.4g}", bf, bf, bf, False, True, clip),
              ("AdamW, multi_precision (f32 masters, grads, moments)", bf,
-              f32, f32, True, True, None)]
+              f32, f32, True, True, None),
+             (f"AdamW, bf16 params/grads/moments, {mixed}", bf, bf, bf,
+              False, True, None, ADAM_RATES),
+             (f"AdamW, multi_precision, {mixed}", bf, f32, f32, True, True,
+              None, ADAM_RATES)]
     worst_err = 0.0
     kw = dict(beta1=ADAM_BETA1, beta2=ADAM_BETA2, epsilon=ADAM_EPS)
-    for label, pdt, gdt, sdt, master, adamw, scale in cases:
+    for label, pdt, gdt, sdt, master, adamw, scale, *rates in cases:
         kern = adam_entries(torch, mta, params, grads, pdt, gdt, sdt, master,
-                            TRAIN_WD)
+                            TRAIN_WD, *rates)
         plain = copy_entries(torch, mta, kern)
         mta.multi_tensor_adam(kern, lr, t, adamw=adamw, clip_scale=scale,
                               tables=tables, **kw)
@@ -6198,14 +6249,8 @@ def transformer_phase(torch, seed, card):
     step = SpmdTrainStep(model, transformer_loss_fn,
                          AdamW(learning_rate=TRAIN_LR, weight_decay=TRAIN_WD))
     params, opt_state = step.init(slot_dtype="bfloat16")
-    held = ["encoder.layers.0.self_attn.v_proj.weight",
-            "encoder.layers.5.linear1.weight",
-            "decoder.layers.0.self_attn.v_proj.weight",
-            "decoder.layers.0.cross_attn.v_proj.weight",
-            "decoder.layers.5.cross_attn.k_proj.weight",
-            "decoder.layers.5.linear1.weight"]
     float32_copy_check(torch, step, params, two, ref, transformer_loss_fn,
-                       held, "Transformer", relax=True)
+                       TR_HELD, "Transformer", relax=True)
     model.train()
     kinds = {"self": 0, "cross": 0}
     real = pF.flash_attention
@@ -6546,6 +6591,218 @@ def moe_phase(torch, seed, card):
     torch.cuda.empty_cache()
 
 
+def layer_base_model():
+    """Phase 24's model: `nn.Transformer()` at its defaults built on the
+    card from the reference's initializers, no `init_weights`: every
+    projection weight ``ParamAttr(XavierNormal(), learning_rate=0.5,
+    regularizer=L2Decay(1e-4))``, every projection bias
+    ``ParamAttr(need_clip=False)``, the LayerNorms at their defaults."""
+    from paddle_tpu_torch import ParamAttr
+    from paddle_tpu_torch.nn import Transformer
+    from paddle_tpu_torch.nn.initializer import XavierNormal
+    from paddle_tpu_torch.regularizer import L2Decay
+
+    return Transformer(
+        dropout=TR_DROPOUT, weight_attr=ParamAttr(
+            initializer=XavierNormal(), learning_rate=LB_RATE,
+            regularizer=L2Decay(LB_L2)),
+        bias_attr=ParamAttr(need_clip=False))
+
+
+def initializer_check(torch, model, label):
+    """Every fresh parameter of ``model`` by the reference's rule: each
+    projection weight XavierNormal (mean within LB_SIGMAS sampling sigmas
+    of 0, std within LB_SIGMAS of sqrt(2 / (fan_in + fan_out))), every
+    bias and LayerNorm shift zero, every LayerNorm scale one, all on the
+    card and finite. Returns the worst |z| of the std."""
+    from paddle_tpu_torch.nn.initializer import _fan_in_out
+
+    worst = 0.0
+    for n, p in model.named_parameters():
+        v = p.detach().float()
+        check(v.is_cuda and torch.isfinite(v).all(),
+              f"{label}: {n} not finite on the card")
+        if v.dim() == 2:
+            fi, fo = _fan_in_out(tuple(v.shape))
+            std = math.sqrt(2.0 / (fi + fo))
+            z_mean = v.mean().item() / (std / math.sqrt(v.numel()))
+            z_std = (v.std().item() - std) / (std / math.sqrt(2 * v.numel()))
+            check(abs(z_mean) <= LB_SIGMAS and abs(z_std) <= LB_SIGMAS,
+                  f"{label}: {n} mean z {z_mean:.2f}, std z {z_std:.2f} "
+                  f"against XavierNormal's std {std:.5f}")
+            worst = max(worst, abs(z_std))
+        else:
+            want = 1.0 if "norm" in n and n.endswith("weight") else 0.0
+            check(bool((v == want).all()), f"{label}: {n} is not all "
+                  f"{want}")
+    return worst
+
+
+def layer_base_phase(torch, seed, card):
+    """Phase 24: A5's layer base on the card. `nn.Transformer()` at its
+    defaults (phase 21's model) built from the reference's initializers
+    (`layer_base_model`, no `init_weights`; drawn from a generator
+    seeded with ``seed``): every fresh weight checked
+    against its initializer (`initializer_check`) and its attrs read
+    back; one LayerNorm (encoder layer 0's first) set ``trainable=False``;
+    the model cast with ``astype("bfloat16")``. A float32 copy agrees on
+    loss and grads at dropout 0 (`float32_copy_check`, as phase 21, on
+    LB_HELD's grads, LB_SHOWN's shown). Then
+    LB_STEPS eager steps of ``AdamW(parameters=model.parameters(),
+    multi_precision=True, grad_clip=ClipGradByGlobalNorm(1.0))`` on phase
+    21's batches (``loss.backward(); opt.step(); opt.clear_grad()``,
+    dropout 0.1): with the launch counts zeroed just before and read
+    just after, B5 launches 6 times each way a step, B2 12 times and the
+    update once (one group: bf16 params with float32 masters, the rate
+    scales in the entries); every loss finite; the frozen LayerNorm bit
+    for bit. Then ``state_dict`` through `framework.io.save` / ``load``
+    onto the card into a twin built under `LazyGuard` (on ``meta``) and
+    ``initialize()``d on the card (checked as above), cast and
+    ``set_state_dict``: every entry bit for bit, the twin's eval forward
+    the model's bit for bit. Prints the eager step's ms beside the card
+    and a profile of two more steps. Returns the B2 and B5 launch
+    counts."""
+    import tempfile
+
+    from paddle_tpu_torch import LazyGuard, framework, kernels
+    from paddle_tpu_torch.core.random import rng_guard, step_generator
+    from paddle_tpu_torch.distributed import SpmdTrainStep
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with rng_guard(step_generator(seed, "cuda")):
+        model = layer_base_model()
+    worst = initializer_check(torch, model, "fresh Transformer")
+    w = model.get_parameter("decoder.layers.5.linear1.weight")
+    b = model.get_parameter("encoder.layers.0.self_attn.q_proj.bias")
+    check(w.optimize_attr == {"learning_rate": LB_RATE}
+          and w.regularizer._coeff == LB_L2 and w.need_clip
+          and not b.need_clip and b.optimize_attr["learning_rate"] == 1.0,
+          "ParamAttr's learning_rate, regularizer and need_clip not on "
+          "the parameters")
+    frozen = model.encoder.layers[0].norm1
+    for p in frozen.parameters():
+        p.trainable = False
+    model.astype("bfloat16")
+    check(all(p.dtype == torch.bfloat16 for p in model.parameters()),
+          "astype('bfloat16') left a float parameter")
+    frozen_start = [p.detach().clone() for p in frozen.parameters()]
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  nn.Transformer() defaults from the reference's initializers "
+          f"(no init_weights): weights XavierNormal, learning_rate "
+          f"{LB_RATE}, L2Decay({LB_L2}); biases need_clip=False; {n_params} "
+          f"parameters, every fresh weight's std within {worst:.2f} "
+          f"sampling sigmas of XavierNormal's (<= {LB_SIGMAS}), biases 0, "
+          "LayerNorm scales 1; encoder.layers.0.norm1 trainable=False; "
+          "astype('bfloat16')  ok")
+
+    mask = model.generate_square_subsequent_mask(TR_TGT)
+    g = torch.Generator(device="cuda").manual_seed(seed + 24)
+
+    def batch():
+        return {"src": torch.randn((TR_B, TR_SRC, TR_D), generator=g,
+                                   device="cuda").to(torch.bfloat16),
+                "tgt": torch.randn((TR_B, TR_TGT, TR_D), generator=g,
+                                   device="cuda").to(torch.bfloat16),
+                "target": torch.randn((TR_B, TR_TGT, TR_D), generator=g,
+                                      device="cuda"),
+                "tgt_mask": mask}
+
+    batches = [batch() for _ in range(LB_STEPS)]
+    ref = f32_twin(torch, model, lambda: transformer_model(
+        torch, torch.float32, seed))
+    two = {k: (v[:2] if k != "tgt_mask" else v)
+           for k, v in batches[0].items()}
+    float32_copy_check(
+        torch, SpmdTrainStep(model, transformer_loss_fn, AdamW()),
+        {n: p.detach() for n, p in model.named_parameters()}, two, ref,
+        transformer_loss_fn, LB_HELD, "Transformer (layer base)",
+        shown=LB_SHOWN, relax=True)
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters(),
+                multi_precision=True, grad_clip=ClipGradByGlobalNorm(1.0))
+    model.train()
+    def eager_step(bt):
+        out = model(bt["src"], bt["tgt"], tgt_mask=mask)
+        loss = (out.float() - bt["target"]).square().mean()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    losses, times = [], []
+    torch.cuda.synchronize()
+    kernels.reset_kernel_launch_counts()
+    for bt in batches:
+        t0 = time.perf_counter()
+        loss = eager_step(bt)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    counts = kernels.kernel_launch_counts()
+    n = LB_STEPS * TR_LAYERS
+    want_counts = {"flash_attention_qkv3_fwd": n,
+                   "flash_attention_qkv3_bwd": n,
+                   "flash_attention_fwd": 2 * n, "flash_attention_bwd": 2 * n,
+                   "multi_tensor_adam": LB_STEPS}
+    only_launched(counts, want_counts, "eager Transformer training")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(all(torch.equal(a, p.detach()) for a, p in
+              zip(frozen_start, frozen.parameters())),
+          "the frozen LayerNorm moved")
+    p50 = statistics.median(times[1:]) * 1e3
+    print(f"  {LB_STEPS} eager steps (AdamW multi_precision, global-norm "
+          f"clip 1.0, lr {TRAIN_LR} x the rate scales): losses "
+          f"{[round(x, 5) for x in losses]} (all finite); launches "
+          f"{ {k: v for k, v in counts.items() if v} }: B5 = steps x 6 "
+          "each way, B2 = steps x 12 each way, the update once a step; "
+          "the frozen LayerNorm bit for bit  ok")
+    print(f"  {card}: eager step {p50:.3f} ms p50 of steps 2-{LB_STEPS} "
+          f"(steps {[round(t * 1e3, 3) for t in times]} ms)")
+    profile_steps(torch, lambda: eager_step(batches[0]), 2,
+                  "eager Transformer steps", families=ADAM_FAMILY)
+
+    sd = model.state_dict()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "transformer.pdparams")
+        framework.save(sd, path)
+        loaded = framework.load(path, device="cuda")
+    with LazyGuard():
+        twin = layer_base_model()
+    check(all(p.is_meta for p in twin.parameters()),
+          "a parameter built under LazyGuard holds memory")
+    with rng_guard(step_generator(seed + 1, "cuda")):
+        for p in twin.parameters():
+            p.initialize()
+    initializer_check(torch, twin, "LazyGuard twin")
+    twin.astype("bfloat16")
+    missing, unexpected = twin.set_state_dict(loaded)
+    got = twin.state_dict()
+    check(not missing and not unexpected and list(got) == list(sd)
+          and all(torch.equal(got[k], v) for k, v in sd.items()),
+          f"state_dict round trip: missing {missing}, unexpected "
+          f"{unexpected}, or an entry not bit for bit")
+    model.eval()
+    twin.eval()
+    with torch.no_grad():
+        a = model(two["src"], two["tgt"], tgt_mask=mask)
+        b = twin(two["src"], two["tgt"], tgt_mask=mask)
+    check(torch.equal(a, b), "the twin's forward is not the model's")
+    print(f"  state_dict ({len(sd)} entries) -> framework.save/load onto the "
+          "card -> set_state_dict of a twin built under LazyGuard (meta) "
+          "and initialize()d on the card (its draws checked): bit for bit, "
+          "the eval forward too  ok")
+    del model, twin, opt, sd, loaded, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: counts[k] for k in want_counts if k != "multi_tensor_adam"}
+
+
 def print_build_report(name, report):
     """One source's build seconds, then for each kernel ptxas's register,
     shared-memory and spill lines, joined on one line."""
@@ -6718,6 +6975,14 @@ def main(argv=None) -> int:
         print("[23] the MoE layer on one card (gpt3-1.3b's width, 8 experts, "
               "GShardGate top-2)")
         moe_phase(torch, args.seed, card)
+        print("[24] A5's layer base (nn.Transformer() from the reference's "
+              "initializers and ParamAttr, eager AdamW steps, state_dict "
+              "through save/load into a LazyGuard twin)")
+        phase24 = layer_base_phase(torch, args.seed, card)
+        for name, n in phase24.items():
+            launches[name] += n
+        print(f"  (B2's and B5's launches in the kernel line add phase 24's "
+              f"{phase24})")
     print(f"  width-512 launches of B3 over phases 4-18: {wide_seen}")
     launches.update({name: wide_seen[c] for name, c in wide_names.items()})
     for rec in records:

@@ -13,9 +13,18 @@ attention, the qkv flash kernels on the pair-major and the which-major
 projection, the general [B,S,H,D] flash kernels), and so does the fused
 (residual +) LayerNorm of `incubate.nn.functional._ln_maybe_fused`.
 
+Layers derive from `nn.Layer` (a ``torch.nn.Module`` with the
+reference's construction, traversal and state-dict rules) and draw their
+parameters when built (`ParamAttr`, `nn.initializer`); `LazyGuard`
+defers the draw, `regularizer` gives a parameter its weight decay.
+
 Nothing here imports ``jax`` or ``paddle_tpu``. Entry points run on
 ``cuda`` unless the caller passes ``device="cpu"`` (see `device`).
 """
+from . import regularizer
 from .device import DTYPES, resolve_device, resolve_dtype
+from .framework.param_attr import ParamAttr, create_parameter
+from .nn.layer import LazyGuard
 
-__all__ = ["DTYPES", "resolve_device", "resolve_dtype"]
+__all__ = ["DTYPES", "resolve_device", "resolve_dtype", "ParamAttr",
+           "create_parameter", "LazyGuard", "regularizer"]

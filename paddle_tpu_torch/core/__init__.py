@@ -1,4 +1,5 @@
-"""Core pieces of the port (random state, `random`)."""
+"""Core pieces of the port: random state (`random`) and `Parameter`."""
 from . import random
+from .parameter import Parameter
 
-__all__ = ["random"]
+__all__ = ["random", "Parameter"]

@@ -23,9 +23,9 @@ Two things need care, since the port imports neither ``paddle_tpu`` nor
   them with ``torch.Tensor.view(dtype)``.
 
 `load` returns ``torch.Tensor``s on ``device`` (the CPU by default, as
-``torch.load``), an ``nn.Parameter`` where ``is_parameter`` is set (a
-torch tensor has no name: a payload's ``name`` is dropped on load and
-written as None); with
+``torch.load``), a `core.Parameter` with the payload's ``name`` where
+``is_parameter`` is set (a plain tensor has no name: its payload's is
+None); with
 ``return_numpy=True`` numpy arrays, a bfloat16 or float8 one as float32
 (numpy has no such dtype; the values are exact).
 """
@@ -36,6 +36,8 @@ import pickle
 
 import numpy as np
 import torch
+
+from ..core.parameter import Parameter
 
 #: where the reference keeps its payload class; the stream names it
 _PAYLOAD_GLOBAL = ("paddle_tpu.framework.io", "_TensorPayload")
@@ -237,7 +239,9 @@ def _pack(obj):
         t = obj.detach().cpu()
         array = (_MlArray(t) if t.dtype in _ML_DTYPES
                  else t.contiguous().numpy())
-        return _TensorPayload(array, not obj.requires_grad, None,
+        return _TensorPayload(array, not obj.requires_grad,
+                              getattr(obj, "name", None)
+                              if isinstance(obj, Parameter) else None,
                               isinstance(obj, torch.nn.Parameter))
     if isinstance(obj, dict):
         return {k: _pack(v) for k, v in obj.items()}
@@ -253,7 +257,7 @@ def _unpack(obj, return_numpy, device):
             return _as_numpy(obj.array)
         t = _as_tensor(obj.array).to(device)
         if obj.is_parameter:
-            t = torch.nn.Parameter(t, requires_grad=t.is_floating_point())
+            t = Parameter(t, t.is_floating_point(), name=obj.name)
         elif t.is_floating_point():
             t.requires_grad_(not obj.stop_gradient)
         return t
@@ -280,8 +284,8 @@ def save(obj, path, protocol=4, **kwargs):
 
 
 def load(path, return_numpy=False, device="cpu", **kwargs):
-    """Read a file of either package's `save`: tensors on ``device`` (an
-    ``nn.Parameter`` where the file says so), or numpy arrays with
+    """Read a file of either package's `save`: tensors on ``device`` (a
+    `core.Parameter` where the file says so), or numpy arrays with
     ``return_numpy``."""
     with open(path, "rb") as f:
         obj = _Unpickler(f).load()

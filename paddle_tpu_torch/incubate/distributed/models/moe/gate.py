@@ -2,20 +2,21 @@
 `distributed.moe.top_k_gating`'s dense combine and dispatch tensors.
 
 Counterpart: ``paddle_tpu/incubate/distributed/models/moe/gate.py``. The
-gate's weight is ``[d_model, num_expert * world_size]``, uninitialised
-until `nn.init_weights` draws it; the logits are formed in float32
+gate's weight is ``[d_model, num_expert * world_size]``, drawn
+XavierUniform when the gate is built (`nn.init_weights` draws it again
+from a seed); the logits are formed in float32
 whatever the tokens' dtype. ``gating`` keeps the load-balancing loss of
 its last call in ``loss``.
 """
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from .....distributed import moe as moe_core
+from .....nn.layer import Layer
 
 
-class NaiveGate(nn.Module):
+class NaiveGate(Layer):
     """Linear gate, top-k (``topk``), capacity ``capacity_factor``."""
 
     top_k = 2
@@ -23,13 +24,12 @@ class NaiveGate(nn.Module):
 
     def __init__(self, d_model, num_expert, world_size=1, topk=2,
                  capacity_factor=1.25, *, device=None, dtype=None):
-        super().__init__()
+        super().__init__(dtype=dtype, device=device)
         self.d_model = d_model
         self.num_expert = num_expert * world_size
         self.top_k = topk
         self.capacity_factor = capacity_factor
-        self.weight = nn.Parameter(torch.empty(d_model, self.num_expert,
-                                               device=device, dtype=dtype))
+        self.weight = self.create_parameter([d_model, self.num_expert])
         self.loss = None
 
     def gating(self, x):

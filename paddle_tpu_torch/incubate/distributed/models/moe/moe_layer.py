@@ -11,35 +11,34 @@ and computes every expert locally all the same.
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from .....distributed import moe as moe_core
 from .....nn import functional as F
+from .....nn.container import LayerList
+from .....nn.layer import Layer
 from .gate import GShardGate, NaiveGate, SwitchGate
 
 #: the experts' activations: ``jax.nn.gelu`` (tanh by default) and relu
 _ACTIVATIONS = {"gelu": moe_core.gelu_tanh, "relu": F.relu}
 
 
-class ExpertFFN(nn.Module):
+class ExpertFFN(Layer):
     """``num_expert`` FFNs stacked: w1 ``[E, d_model, d_hidden]``, b1
     ``[E, d_hidden]``, w2 ``[E, d_hidden, d_model]``, b2 ``[E,
-    d_model]``; ``forward(dispatched [E, g, c, m]) -> [E, g, c, m]``."""
+    d_model]`` (XavierUniform weights with the reference's 3-D fans,
+    zero biases); ``forward(dispatched [E, g, c, m]) -> [E, g, c, m]``."""
 
     _init_normal = ("w1", "w2")
 
     def __init__(self, num_expert, d_model, d_hidden, activation="gelu", *,
                  device=None, dtype=None):
-        super().__init__()
+        super().__init__(dtype=dtype, device=device)
         self.num_expert = num_expert
         self.activation = activation
-        kw = dict(device=device, dtype=dtype)
-        self.w1 = nn.Parameter(torch.empty(num_expert, d_model, d_hidden,
-                                           **kw))
-        self.b1 = nn.Parameter(torch.zeros(num_expert, d_hidden, **kw))
-        self.w2 = nn.Parameter(torch.empty(num_expert, d_hidden, d_model,
-                                           **kw))
-        self.b2 = nn.Parameter(torch.zeros(num_expert, d_model, **kw))
+        self.w1 = self.create_parameter([num_expert, d_model, d_hidden])
+        self.b1 = self.create_parameter([num_expert, d_hidden], is_bias=True)
+        self.w2 = self.create_parameter([num_expert, d_hidden, d_model])
+        self.b2 = self.create_parameter([num_expert, d_model], is_bias=True)
 
     def forward(self, dispatched):
         return moe_core.stacked_expert_ffn(dispatched, self.w1, self.b1,
@@ -47,7 +46,7 @@ class ExpertFFN(nn.Module):
                                            _ACTIVATIONS[self.activation])
 
 
-class MoELayer(nn.Module):
+class MoELayer(Layer):
     """``forward(x [B, S, M] or [S, M]) -> same shape``; the load-balancing
     loss of the call is ``gate.loss``. ``gate``: a gate module, a dict
     (``{"type": "naive" | "gshard" | "switch", "top_k": k}``) or None (a
@@ -58,7 +57,7 @@ class MoELayer(nn.Module):
     def __init__(self, d_model, experts=None, gate=None, moe_group=None,
                  mp_group=None, recompute_interval=0, top_k=2,
                  num_expert=None, d_hidden=None, *, device=None, dtype=None):
-        super().__init__()
+        super().__init__(dtype=dtype, device=device)
         if moe_group is not None or mp_group is not None:
             raise NotImplementedError(
                 "MoELayer(moe_group=, mp_group=): experts spread over a "
@@ -81,7 +80,7 @@ class MoELayer(nn.Module):
                                  "and d_hidden")
             experts = ExpertFFN(num_expert, d_model, d_hidden, **kw)
         if isinstance(experts, (list, tuple)):
-            experts = nn.ModuleList(experts)
+            experts = LayerList(experts)
         self.experts = experts
 
     @property

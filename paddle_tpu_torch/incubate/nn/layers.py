@@ -8,11 +8,14 @@ state dict loads key for key (`models.convert`). A post-LN layer
 ``pre_ln_bias``, ``_ln1_scale`` or ``_ln1_bias``; they exist, as in the
 reference, and train only through weight decay.
 
-Parameters start uninitialised (matrices) or at their constants (biases
-zero, LayerNorm scales one); `nn.init_weights` draws the matrices, by
-the names each layer lists in ``_init_normal``.
+Parameters are drawn when the layers are built, each through
+`nn.Layer.create_parameter` with the reference's attr arguments
+(``qkv_weight_attr`` ...; a list a layer for `FusedMultiTransformer`)
+and defaults: matrices XavierUniform, biases zeros, LayerNorm scales
+one. `nn.init_weights` draws the matrices again from a seed, by the
+names each layer lists in ``_init_normal``.
 
-`FusedMultiTransformer` keeps one ``nn.ParameterList`` a weight kind
+`FusedMultiTransformer` keeps one `nn.ParameterList` a weight kind
 (``qkv_weights.0``, ``ln_scales.0`` ...), the reference's names; it is
 pre-LN only, and ``nranks > 1`` (heads and FFN split over a ring of
 ranks) is a later slice (ROADMAP A12).
@@ -20,23 +23,15 @@ ranks) is a later slice (ROADMAP A12).
 from __future__ import annotations
 
 import torch
-from torch import nn
 
-from ...nn.layer import Dropout
+from ...nn.container import ParameterList
+from ...nn.initializer import Constant
+from ...nn.layer import Dropout, Layer
 from ...nn.norm import LayerNorm
 from . import functional as IF
 
 
-def _param(shape, fill, device, dtype):
-    """A parameter of ``shape``: uninitialised (``fill`` None) or
-    constant."""
-    t = torch.empty(shape, device=device, dtype=dtype)
-    if fill is not None:
-        t.fill_(fill)
-    return nn.Parameter(t)
-
-
-class FusedMultiHeadAttention(nn.Module):
+class FusedMultiHeadAttention(Layer):
     """Self-attention block of `functional.fused_multi_head_attention`
     (``layers.py:17-65``). ``use_flash`` (True) lets attention take the
     flash branches; False composes it. ``need_weights`` is taken and
@@ -47,9 +42,13 @@ class FusedMultiHeadAttention(nn.Module):
 
     def __init__(self, embed_dim, num_heads, dropout_rate=0.5,
                  attn_dropout_rate=0.5, kdim=None, vdim=None,
-                 normalize_before=False, need_weights=False, epsilon=1e-5,
-                 *, device=None, dtype=None):
-        super().__init__()
+                 normalize_before=False, need_weights=False,
+                 qkv_weight_attr=None, qkv_bias_attr=None,
+                 linear_weight_attr=None, linear_bias_attr=None,
+                 pre_ln_scale_attr=None, pre_ln_bias_attr=None,
+                 ln_scale_attr=None, ln_bias_attr=None, epsilon=1e-5, *,
+                 device=None, dtype=None):
+        super().__init__(dtype=dtype, device=device)
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} is not a multiple of "
                              f"num_heads {num_heads}")
@@ -61,16 +60,23 @@ class FusedMultiHeadAttention(nn.Module):
         self.attn_dropout_rate = attn_dropout_rate
         self._epsilon = epsilon
         self.use_flash = True
-        kw = dict(device=device, dtype=dtype)
-        self.qkv_weight = _param((3, num_heads, self.head_dim, embed_dim),
-                                 None, **kw)
-        self.qkv_bias = _param((3, num_heads, self.head_dim), 0.0, **kw)
-        self.linear_weight = _param((embed_dim, embed_dim), None, **kw)
-        self.linear_bias = _param((embed_dim,), 0.0, **kw)
-        self.pre_ln_scale = _param((embed_dim,), 1.0, **kw)
-        self.pre_ln_bias = _param((embed_dim,), 0.0, **kw)
-        self.ln_scale = _param((embed_dim,), 1.0, **kw)
-        self.ln_bias = _param((embed_dim,), 0.0, **kw)
+        ones = Constant(1.0)
+        self.qkv_weight = self.create_parameter(
+            [3, num_heads, self.head_dim, embed_dim], attr=qkv_weight_attr)
+        self.qkv_bias = self.create_parameter(
+            [3, num_heads, self.head_dim], attr=qkv_bias_attr, is_bias=True)
+        self.linear_weight = self.create_parameter(
+            [embed_dim, embed_dim], attr=linear_weight_attr)
+        self.linear_bias = self.create_parameter(
+            [embed_dim], attr=linear_bias_attr, is_bias=True)
+        self.pre_ln_scale = self.create_parameter(
+            [embed_dim], attr=pre_ln_scale_attr, default_initializer=ones)
+        self.pre_ln_bias = self.create_parameter(
+            [embed_dim], attr=pre_ln_bias_attr, is_bias=True)
+        self.ln_scale = self.create_parameter(
+            [embed_dim], attr=ln_scale_attr, default_initializer=ones)
+        self.ln_bias = self.create_parameter(
+            [embed_dim], attr=ln_bias_attr, is_bias=True)
 
     def forward(self, query, key=None, value=None, attn_mask=None,
                 cache=None):
@@ -87,7 +93,7 @@ class FusedMultiHeadAttention(nn.Module):
             num_heads=self.num_heads, use_flash=self.use_flash)
 
 
-class FusedFeedForward(nn.Module):
+class FusedFeedForward(Layer):
     """Feed-forward block of `functional.fused_feedforward`
     (``layers.py:68-112``); ``act_dropout_rate`` defaults to
     ``dropout_rate``."""
@@ -96,8 +102,12 @@ class FusedFeedForward(nn.Module):
 
     def __init__(self, d_model, dim_feedforward, dropout_rate=0.1,
                  epsilon=1e-5, activation="relu", act_dropout_rate=None,
-                 normalize_before=False, *, device=None, dtype=None):
-        super().__init__()
+                 normalize_before=False, linear1_weight_attr=None,
+                 linear1_bias_attr=None, linear2_weight_attr=None,
+                 linear2_bias_attr=None, ln1_scale_attr=None,
+                 ln1_bias_attr=None, ln2_scale_attr=None, ln2_bias_attr=None,
+                 *, device=None, dtype=None):
+        super().__init__(dtype=dtype, device=device)
         self._d_model = d_model
         self._dropout_rate = dropout_rate
         self._act_dropout_rate = (dropout_rate if act_dropout_rate is None
@@ -105,15 +115,23 @@ class FusedFeedForward(nn.Module):
         self._act_method = activation
         self._normalize_before = normalize_before
         self._epsilon = epsilon
-        kw = dict(device=device, dtype=dtype)
-        self.linear1_weight = _param((d_model, dim_feedforward), None, **kw)
-        self.linear1_bias = _param((dim_feedforward,), 0.0, **kw)
-        self.linear2_weight = _param((dim_feedforward, d_model), None, **kw)
-        self.linear2_bias = _param((d_model,), 0.0, **kw)
-        self._ln1_scale = _param((d_model,), 1.0, **kw)
-        self._ln1_bias = _param((d_model,), 0.0, **kw)
-        self._ln2_scale = _param((d_model,), 1.0, **kw)
-        self._ln2_bias = _param((d_model,), 0.0, **kw)
+        ones = Constant(1.0)
+        self.linear1_weight = self.create_parameter(
+            [d_model, dim_feedforward], attr=linear1_weight_attr)
+        self.linear1_bias = self.create_parameter(
+            [dim_feedforward], attr=linear1_bias_attr, is_bias=True)
+        self.linear2_weight = self.create_parameter(
+            [dim_feedforward, d_model], attr=linear2_weight_attr)
+        self.linear2_bias = self.create_parameter(
+            [d_model], attr=linear2_bias_attr, is_bias=True)
+        self._ln1_scale = self.create_parameter(
+            [d_model], attr=ln1_scale_attr, default_initializer=ones)
+        self._ln1_bias = self.create_parameter(
+            [d_model], attr=ln1_bias_attr, is_bias=True)
+        self._ln2_scale = self.create_parameter(
+            [d_model], attr=ln2_scale_attr, default_initializer=ones)
+        self._ln2_bias = self.create_parameter(
+            [d_model], attr=ln2_bias_attr, is_bias=True)
 
     def forward(self, src, cache=None):
         """``cache`` is ignored, as in the reference."""
@@ -129,7 +147,7 @@ class FusedFeedForward(nn.Module):
             pre_layer_norm=self._normalize_before, training=self.training)
 
 
-class FusedTransformerEncoderLayer(nn.Module):
+class FusedTransformerEncoderLayer(Layer):
     """`FusedMultiHeadAttention` then `FusedFeedForward`
     (``layers.py:115-135``). ``attn_dropout_rate`` and
     ``act_dropout_rate`` default to ``dropout_rate``: unlike BERT's
@@ -139,7 +157,7 @@ class FusedTransformerEncoderLayer(nn.Module):
                  activation="relu", attn_dropout_rate=None,
                  act_dropout_rate=None, normalize_before=False, *,
                  device=None, dtype=None):
-        super().__init__()
+        super().__init__(dtype=dtype, device=device)
         attn_dropout_rate = (dropout_rate if attn_dropout_rate is None
                              else attn_dropout_rate)
         act_dropout_rate = (dropout_rate if act_dropout_rate is None
@@ -159,7 +177,7 @@ class FusedTransformerEncoderLayer(nn.Module):
                                         cache=cache))
 
 
-class FusedMultiTransformer(nn.Module):
+class FusedMultiTransformer(Layer):
     """N stacked pre-LN transformer blocks in one module, the serving
     stack with CacheKV decoding (``layers.py:138-241``):
     ``forward(src, attn_mask, caches, pre_caches, time_step)`` is
@@ -169,9 +187,15 @@ class FusedMultiTransformer(nn.Module):
 
     def __init__(self, embed_dim, num_heads, dim_feedforward,
                  dropout_rate=0.0, activation="gelu", normalize_before=True,
+                 ln_scale_attrs=None, ln_bias_attrs=None,
+                 qkv_weight_attrs=None, qkv_bias_attrs=None,
+                 linear_weight_attrs=None, linear_bias_attrs=None,
+                 ffn_ln_scale_attrs=None, ffn_ln_bias_attrs=None,
+                 ffn1_weight_attrs=None, ffn1_bias_attrs=None,
+                 ffn2_weight_attrs=None, ffn2_bias_attrs=None,
                  epsilon=1e-5, num_layers=-1, nranks=1, trans_qkvw=True,
                  ring_id=-1, name=None, *, device=None, dtype=None):
-        super().__init__()
+        super().__init__(dtype=dtype, device=device)
         if not normalize_before:
             raise ValueError("FusedMultiTransformer is pre-LN only")
         if embed_dim % num_heads:
@@ -181,7 +205,10 @@ class FusedMultiTransformer(nn.Module):
             raise NotImplementedError(
                 f"FusedMultiTransformer(nranks={nranks}): heads and FFN "
                 "split over a ring of ranks are a later slice (ROADMAP A12)")
-        num_layers = 1 if num_layers < 0 else num_layers
+        if num_layers < 0:
+            num_layers = (len(qkv_weight_attrs)
+                          if isinstance(qkv_weight_attrs, (list, tuple))
+                          else 1)
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
@@ -192,25 +219,28 @@ class FusedMultiTransformer(nn.Module):
         self._epsilon = epsilon
         self._trans_qkvw = trans_qkvw
         self.name = name
-        kw = dict(device=device, dtype=dtype)
 
-        def plist(shape, fill=None):
-            return nn.ParameterList([_param(shape, fill, **kw)
-                                     for _ in range(num_layers)])
+        def plist(shape, attrs, is_bias=False, ones=False):
+            return ParameterList([self.create_parameter(
+                shape, attr=attrs[i] if isinstance(attrs, (list, tuple))
+                else attrs, is_bias=is_bias,
+                default_initializer=Constant(1.0) if ones else None)
+                for i in range(num_layers)])
 
         m, h, d, f = embed_dim, num_heads, self.head_dim, dim_feedforward
-        self.ln_scales = plist((m,), 1.0)
-        self.ln_biases = plist((m,), 0.0)
-        self.qkv_weights = plist((3, h, d, m) if trans_qkvw else (m, 3, h, d))
-        self.qkv_biases = plist((3, h, d), 0.0)
-        self.linear_weights = plist((h * d, m))
-        self.linear_biases = plist((m,), 0.0)
-        self.ffn_ln_scales = plist((m,), 1.0)
-        self.ffn_ln_biases = plist((m,), 0.0)
-        self.ffn1_weights = plist((m, f))
-        self.ffn1_biases = plist((f,), 0.0)
-        self.ffn2_weights = plist((f, m))
-        self.ffn2_biases = plist((m,), 0.0)
+        self.ln_scales = plist([m], ln_scale_attrs, ones=True)
+        self.ln_biases = plist([m], ln_bias_attrs, is_bias=True)
+        self.qkv_weights = plist([3, h, d, m] if trans_qkvw else [m, 3, h, d],
+                                 qkv_weight_attrs)
+        self.qkv_biases = plist([3, h, d], qkv_bias_attrs, is_bias=True)
+        self.linear_weights = plist([h * d, m], linear_weight_attrs)
+        self.linear_biases = plist([m], linear_bias_attrs, is_bias=True)
+        self.ffn_ln_scales = plist([m], ffn_ln_scale_attrs, ones=True)
+        self.ffn_ln_biases = plist([m], ffn_ln_bias_attrs, is_bias=True)
+        self.ffn1_weights = plist([m, f], ffn1_weight_attrs)
+        self.ffn1_biases = plist([f], ffn1_bias_attrs, is_bias=True)
+        self.ffn2_weights = plist([f, m], ffn2_weight_attrs)
+        self.ffn2_biases = plist([m], ffn2_bias_attrs, is_bias=True)
         self._init_normal = tuple(
             f"{kind}.{i}" for kind in ("qkv_weights", "linear_weights",
                                        "ffn1_weights", "ffn2_weights")
@@ -242,16 +272,19 @@ class FusedMultiTransformer(nn.Module):
             trans_qkvw=self._trans_qkvw)
 
 
-class FusedBiasDropoutResidualLayerNorm(nn.Module):
+class FusedBiasDropoutResidualLayerNorm(Layer):
     """``layer_norm(residual + dropout(x + bias))`` (``layers.py:
     244-261``)."""
 
-    def __init__(self, embed_dim, dropout_rate=0.5, epsilon=1e-5, *,
-                 device=None, dtype=None):
-        super().__init__()
-        self.linear_bias = _param((embed_dim,), 0.0, device, dtype)
+    def __init__(self, embed_dim, dropout_rate=0.5, weight_attr=None,
+                 bias_attr=None, epsilon=1e-5, name=None, *, device=None,
+                 dtype=None):
+        super().__init__(dtype=dtype, device=device)
+        self.linear_bias = self.create_parameter([embed_dim], attr=bias_attr,
+                                                 is_bias=True)
         self.dropout = Dropout(dropout_rate)
-        self.ln = LayerNorm(embed_dim, epsilon=epsilon, device=device,
+        self.ln = LayerNorm(embed_dim, epsilon=epsilon,
+                            weight_attr=weight_attr, device=device,
                             dtype=dtype)
 
     def forward(self, x, residual):

@@ -20,6 +20,9 @@
 //   m^ = m / (1 - b1^t), v^ = v / (1 - b2^t) with t = step + 1 and the
 //   powers in float32; upd = m^ / (sqrt(v^) + eps);
 // - AdamW: p = p * (1 - lr*wd) (decoupled decay), then p = p - lr*upd;
+// - lr is the entry's: the device lr times the entry's rate scale
+//   (`ParamAttr(learning_rate=)`, optimizer.py:154), one float32
+//   product, exactly lr where the scale is 1;
 // - each result rounded once to its storage dtype; a master is updated
 //   in float32 and its param written as the master rounded.
 // lr, the step count and the optional found-inf flag and clip scale are
@@ -27,10 +30,10 @@
 // each call. On found-inf a block writes nothing; the caller advances the
 // step count by the same flag (`optimizer.Optimizer.apply_gradients`).
 //
-// Design: the wrapper writes a table of 64-byte entries {p, g, m, v,
-// master, numel, first chunk, wd | aligned} to the device (`write_rows`,
-// the rows passed as kernel arguments) once for a list of tensors and
-// again only when an address changes. The tensors are cut
+// Design: the wrapper writes a table of 72-byte entries {p, g, m, v,
+// master, numel, first chunk, wd, rate scale, aligned} to the device
+// (`write_rows`, the rows passed as kernel arguments) once for a list of
+// tensors and again only when an address changes. The tensors are cut
 // into chunks of kChunk elements; block b walks chunks b, b + grid, ...,
 // finds each chunk's tensor by a binary search over the entries' first
 // chunks, and its threads move 8 elements at a time with 16-byte vector
@@ -58,7 +61,7 @@ constexpr int kVec = 8;                      // elements a thread moves
 constexpr long long kChunk = 65536;          // elements a chunk
 constexpr int kBlocksPerSm = 8;
 
-struct Entry {                               // one int64 [8] table row
+struct Entry {                               // one int64 [9] table row
   void* p;
   const void* g;
   void* m;
@@ -67,9 +70,10 @@ struct Entry {                               // one int64 [8] table row
   long long numel;
   long long first_chunk;                     // chunks of earlier entries
   float wd;
-  int aligned;                               // every pointer 16-byte aligned
+  float lr_scale;                            // the entry's lr = lr * this
+  long long aligned;                         // every pointer 16-byte aligned
 };
-static_assert(sizeof(Entry) == 64, "the wrapper writes 64-byte entries");
+static_assert(sizeof(Entry) == 72, "the wrapper writes 72-byte entries");
 
 struct Args {
   const Entry* table;
@@ -166,7 +170,7 @@ __global__ void __launch_bounds__(kThreads)
     adam_kernel(const Args a) {
   if (a.found_inf != nullptr && *a.found_inf != 0) return;
   Scalars s;
-  s.lr = *a.lr;
+  const float lr = *a.lr;
   const float t = static_cast<float>(*a.step + 1);
   s.bc1 = __fsub_rn(1.f, powf(a.b1, t));
   s.bc2 = __fsub_rn(1.f, powf(a.b2, t));
@@ -180,6 +184,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     const Entry e = a.table[lo];
     s.wd = e.wd;
+    s.lr = __fmul_rn(lr, e.lr_scale);
     s.decay = __fsub_rn(1.f, __fmul_rn(s.lr, e.wd));
     P* p = static_cast<P*>(e.p);
     const G* g = static_cast<const G*>(e.g);
@@ -249,7 +254,7 @@ int dispatch_slots(const Args& a, int s_code, int master,
                 : launch<P, G, bf16, false>(a, stream);
 }
 
-constexpr int kRowsPerWrite = 56;            // 3.5 KB of kernel argument
+constexpr int kRowsPerWrite = 48;            // 3.4 KB of kernel argument
 
 struct Rows {
   Entry row[kRowsPerWrite];

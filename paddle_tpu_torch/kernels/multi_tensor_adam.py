@@ -25,7 +25,10 @@ step count ``step`` int32 (the count before this update; ``t = step +
 1``), and optionally ``found_inf`` int32 (nonzero: nothing is written)
 and ``clip_scale`` float32 (each grad multiplied by it and rounded to
 its dtype first, as `nn.ClipGradByGlobalNorm` does). The caller advances
-the step count.
+the step count. Each entry also carries its weight decay and its rate
+scale (`ParamAttr`'s ``learning_rate``; the entry's rate is ``lr``
+times the scale in float32), both in its table row, so one launch still
+updates a group of mixed rates.
 """
 from __future__ import annotations
 
@@ -42,19 +45,22 @@ _SOURCE = "multi_tensor_adam"
 _NAME = "multi_tensor_adam"
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 _CHUNK = 65536                   # elements a chunk (csrc kChunk)
+_ROW = 9                         # int64 a table row (csrc Entry)
 _TABLES_KEPT = 4
 _fns = None
 
 
 class AdamEntry(NamedTuple):
     """One tensor's operands: param, grad, the two moments, the float32
-    master of a bf16 param (or None) and its weight decay."""
+    master of a bf16 param (or None), its weight decay and the scale of
+    its learning rate."""
     p: torch.Tensor
     g: torch.Tensor
     m: torch.Tensor
     v: torch.Tensor
     master: Optional[torch.Tensor]
     wd: float
+    lr_scale: float = 1.0
 
 
 # ----------------------------------------------------------- plain version
@@ -86,6 +92,7 @@ def adam_reference(entries, lr, step, *, beta1, beta2, epsilon, adamw,
     bc2 = 1 - torch.pow(beta2, t)
     skip = None if found_inf is None else found_inf != 0
     for e in entries:
+        lr_e = lr if e.lr_scale == 1.0 else lr * float(np.float32(e.lr_scale))
         g = e.g
         if clip_scale is not None:
             g = (g.float() * clip_scale).to(g.dtype)
@@ -98,8 +105,8 @@ def adam_reference(entries, lr, step, *, beta1, beta2, epsilon, adamw,
         v = beta2 * e.v.float() + (1 - beta2) * g32.square()
         upd = (m / bc1) / (torch.sqrt(v / bc2) + epsilon)
         if adamw and e.wd:
-            p32 = p32 * (1 - lr * e.wd)
-        p32 = p32 - lr * upd
+            p32 = p32 * (1 - lr_e * e.wd)
+        p32 = p32 - lr_e * upd
         if e.master is not None:
             _put(e.master, p32, skip)
         _put(e.p, p32, skip)
@@ -166,9 +173,9 @@ def _scalar(t, dtype, dev, name):
 
 
 class _Table:
-    """One device table of entries, written by the kernels of
-    ``ptt_mta_upload`` (the rows go as their arguments, so the host rows
-    are free once launched)."""
+    """One device table of entries (`_ROW` int64 a row), written by the
+    kernels of ``ptt_mta_upload`` (the rows go as their arguments, so the
+    host rows are free once launched)."""
 
     def __init__(self, rows, device):
         self.n = len(rows)
@@ -187,7 +194,7 @@ class AdamTables:
         self._tables: collections.OrderedDict = collections.OrderedDict()
 
     def get(self, entries, device) -> _Table:
-        rows = np.zeros((len(entries), 8), np.int64)
+        rows = np.zeros((len(entries), _ROW), np.int64)
         first = 0
         for i, e in enumerate(entries):
             ptrs = [e.p.data_ptr(), e.g.data_ptr(), e.m.data_ptr(),
@@ -198,9 +205,9 @@ class AdamTables:
             rows[i, 5] = numel
             rows[i, 6] = first
             first += -(-numel // _CHUNK)
-            aligned = int(all(q % 16 == 0 for q in ptrs))
-            wd = int(np.array([e.wd], np.float32).view(np.uint32)[0])
-            rows[i, 7] = wd | (aligned << 32)
+            rows[i, 7] = np.array([e.wd, e.lr_scale], np.float32).view(
+                np.int64)[0]
+            rows[i, 8] = int(all(q % 16 == 0 for q in ptrs))
         key = rows.tobytes()
         table = self._tables.get(key)
         if table is None:

@@ -28,6 +28,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device, resolve_dtype
+from ..framework.param_attr import create_parameter
 from ..nn import (Dropout, LayerNorm, Linear, TransformerEncoderLayer,
                   init_weights)
 from ..nn.conv import Conv2D
@@ -100,10 +101,8 @@ class VisionTransformer(nn.Module):
         self.config = cfg
         self.patch_embed = PatchEmbed(cfg, **kw)
         n = self.patch_embed.num_patches
-        self.cls_token = nn.Parameter(torch.empty(1, 1, cfg.hidden_size,
-                                                  **kw))
-        self.pos_embed = nn.Parameter(torch.empty(1, n + 1, cfg.hidden_size,
-                                                  **kw))
+        self.cls_token = create_parameter([1, 1, cfg.hidden_size], **kw)
+        self.pos_embed = create_parameter([1, n + 1, cfg.hidden_size], **kw)
         self.pos_drop = Dropout(cfg.dropout)
         self.blocks = nn.ModuleList([TransformerEncoderLayer(
             cfg.hidden_size, cfg.num_heads, cfg.mlp_dim, dropout=cfg.dropout,

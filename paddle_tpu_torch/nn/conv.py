@@ -3,8 +3,10 @@
 Counterpart: ``paddle_tpu/nn/conv.py``. Weights are OIHW (``[out,
 in/groups, *k]``); the transposes hold ``[in, out/groups, *k]``; the bias
 is ``[out]``. The forward is `nn.functional`'s conv of the same name.
-The weight starts uninitialised and the bias at zero; `nn.init_weights`
-draws the weight (it is listed in ``_init_normal``).
+The weight is drawn XavierUniform (OIHW fans) and the bias zeros when
+the layer is built, unless ``weight_attr``/``bias_attr`` say otherwise
+(``bias_attr=False``: no bias); `nn.init_weights` draws the weight
+again (it is listed in ``_init_normal``).
 
 ``padding_mode``: the reference takes it and pads with zeros whatever it
 says; the port takes ``"zeros"`` and refuses the others rather than pad
@@ -12,20 +14,18 @@ otherwise than asked (ROADMAP C.3).
 """
 from __future__ import annotations
 
-import torch
-from torch import nn
-
 from . import functional as F
+from .layer import Layer
 
 
-class _ConvNd(nn.Module):
+class _ConvNd(Layer):
     _init_normal = ("weight",)
 
     def __init__(self, in_channels, out_channels, kernel_size, n, transposed,
                  stride=1, padding=0, output_padding=0, dilation=1, groups=1,
-                 padding_mode="zeros", data_format="NCHW", *, device=None,
-                 dtype=None):
-        super().__init__()
+                 padding_mode="zeros", weight_attr=None, bias_attr=None,
+                 data_format="NCHW", *, device=None, dtype=None):
+        super().__init__(dtype=dtype, device=device)
         if padding_mode != "zeros":
             raise ValueError(f"padding_mode {padding_mode!r}: only 'zeros' "
                              "is taken (the reference pads with zeros "
@@ -43,9 +43,9 @@ class _ConvNd(nn.Module):
             shape = (in_channels, out_channels // groups) + self._kernel_size
         else:
             shape = (out_channels, in_channels // groups) + self._kernel_size
-        kw = dict(device=device, dtype=dtype)
-        self.weight = nn.Parameter(torch.empty(shape, **kw))
-        self.bias = nn.Parameter(torch.zeros(out_channels, **kw))
+        self.weight = self.create_parameter(shape, attr=weight_attr)
+        self.bias = self.create_parameter([out_channels], attr=bias_attr,
+                                          is_bias=True)
 
     def extra_repr(self):
         return (f"{self._in_channels}, {self._out_channels}, "
@@ -55,10 +55,12 @@ class _ConvNd(nn.Module):
 class Conv1D(_ConvNd):
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
                  padding=0, dilation=1, groups=1, padding_mode="zeros",
-                 data_format="NCL", *, device=None, dtype=None):
+                 weight_attr=None, bias_attr=None, data_format="NCL", *,
+                 device=None, dtype=None):
         super().__init__(in_channels, out_channels, kernel_size, 1, False,
                          stride, padding, 0, dilation, groups, padding_mode,
-                         data_format, device=device, dtype=dtype)
+                         weight_attr, bias_attr, data_format, device=device,
+                         dtype=dtype)
 
     def forward(self, x):
         return F.conv1d(x, self.weight, self.bias, self._stride,
@@ -69,10 +71,12 @@ class Conv1D(_ConvNd):
 class Conv2D(_ConvNd):
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
                  padding=0, dilation=1, groups=1, padding_mode="zeros",
-                 data_format="NCHW", *, device=None, dtype=None):
+                 weight_attr=None, bias_attr=None, data_format="NCHW", *,
+                 device=None, dtype=None):
         super().__init__(in_channels, out_channels, kernel_size, 2, False,
                          stride, padding, 0, dilation, groups, padding_mode,
-                         data_format, device=device, dtype=dtype)
+                         weight_attr, bias_attr, data_format, device=device,
+                         dtype=dtype)
 
     def forward(self, x):
         return F.conv2d(x, self.weight, self.bias, self._stride,
@@ -83,10 +87,12 @@ class Conv2D(_ConvNd):
 class Conv3D(_ConvNd):
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
                  padding=0, dilation=1, groups=1, padding_mode="zeros",
-                 data_format="NCDHW", *, device=None, dtype=None):
+                 weight_attr=None, bias_attr=None, data_format="NCDHW", *,
+                 device=None, dtype=None):
         super().__init__(in_channels, out_channels, kernel_size, 3, False,
                          stride, padding, 0, dilation, groups, padding_mode,
-                         data_format, device=device, dtype=dtype)
+                         weight_attr, bias_attr, data_format, device=device,
+                         dtype=dtype)
 
     def forward(self, x):
         return F.conv3d(x, self.weight, self.bias, self._stride,
@@ -97,10 +103,12 @@ class Conv3D(_ConvNd):
 class Conv1DTranspose(_ConvNd):
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
                  padding=0, output_padding=0, groups=1, dilation=1,
-                 data_format="NCL", *, device=None, dtype=None):
+                 weight_attr=None, bias_attr=None, data_format="NCL", *,
+                 device=None, dtype=None):
         super().__init__(in_channels, out_channels, kernel_size, 1, True,
                          stride, padding, output_padding, dilation, groups,
-                         "zeros", data_format, device=device, dtype=dtype)
+                         "zeros", weight_attr, bias_attr, data_format,
+                         device=device, dtype=dtype)
 
     def forward(self, x, output_size=None):
         return F.conv1d_transpose(x, self.weight, self.bias, self._stride,
@@ -112,10 +120,12 @@ class Conv1DTranspose(_ConvNd):
 class Conv2DTranspose(_ConvNd):
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
                  padding=0, output_padding=0, dilation=1, groups=1,
-                 data_format="NCHW", *, device=None, dtype=None):
+                 weight_attr=None, bias_attr=None, data_format="NCHW", *,
+                 device=None, dtype=None):
         super().__init__(in_channels, out_channels, kernel_size, 2, True,
                          stride, padding, output_padding, dilation, groups,
-                         "zeros", data_format, device=device, dtype=dtype)
+                         "zeros", weight_attr, bias_attr, data_format,
+                         device=device, dtype=dtype)
 
     def forward(self, x, output_size=None):
         return F.conv2d_transpose(x, self.weight, self.bias, self._stride,
@@ -127,10 +137,12 @@ class Conv2DTranspose(_ConvNd):
 class Conv3DTranspose(_ConvNd):
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
                  padding=0, output_padding=0, dilation=1, groups=1,
-                 data_format="NCDHW", *, device=None, dtype=None):
+                 weight_attr=None, bias_attr=None, data_format="NCDHW", *,
+                 device=None, dtype=None):
         super().__init__(in_channels, out_channels, kernel_size, 3, True,
                          stride, padding, output_padding, dilation, groups,
-                         "zeros", data_format, device=device, dtype=dtype)
+                         "zeros", weight_attr, bias_attr, data_format,
+                         device=device, dtype=dtype)
 
     def forward(self, x, output_size=None):
         return F.conv3d_transpose(x, self.weight, self.bias, self._stride,

@@ -29,9 +29,14 @@ takes the key projection's dtype and device (the reference's is float32
 whatever the model's: on a bfloat16 model it would promote the
 attention to float32).
 
-Parameters start uninitialised, as every layer's of the port;
-`nn.init_weights` draws them. The stacks deep-copy their layer, as the
-reference does.
+Every projection takes the reference's ``weight_attr`` and
+``bias_attr`` (`ParamAttr`; ``bias_attr=False``: no biases, and the
+qkv-direct branch then adds none, :133-134); the LayerNorms keep their
+defaults. Parameters are drawn when the layers are built
+(XavierUniform weights, zero biases, unit LayerNorm scales);
+`nn.init_weights` draws the models' from a seed. The stacks deep-copy
+their layer, as the reference does, so every copy starts from the same
+weights.
 """
 from __future__ import annotations
 
@@ -39,16 +44,16 @@ import collections
 import copy
 
 import torch
-from torch import nn
 
 from ..kernels.flash_attention import flash_attention_qkv3, packed_supported
 from . import functional as F
 from .common import Linear
-from .layer import Dropout
+from .container import LayerList
+from .layer import Dropout, Layer
 from .norm import LayerNorm
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(Layer):
     """Multi-head attention with separate q/k/v/out projections (``W [in,
     out]``). ``use_flash`` (True, as the reference's sdpa default) lets
     attention take the flash branches; False runs the composition."""
@@ -57,8 +62,9 @@ class MultiHeadAttention(nn.Module):
     StaticCache = collections.namedtuple("StaticCache", ["k", "v"])
 
     def __init__(self, embed_dim, num_heads, dropout=0.0, kdim=None,
-                 vdim=None, need_weights=False, *, device=None, dtype=None):
-        super().__init__()
+                 vdim=None, need_weights=False, weight_attr=None,
+                 bias_attr=None, *, device=None, dtype=None):
+        super().__init__(dtype=dtype, device=device)
         self.embed_dim = embed_dim
         self.kdim = kdim or embed_dim
         self.vdim = vdim or embed_dim
@@ -71,10 +77,11 @@ class MultiHeadAttention(nn.Module):
         self.need_weights = need_weights
         self.use_flash = True
         kw = dict(device=device, dtype=dtype)
-        self.q_proj = Linear(embed_dim, embed_dim, **kw)
-        self.k_proj = Linear(self.kdim, embed_dim, **kw)
-        self.v_proj = Linear(self.vdim, embed_dim, **kw)
-        self.out_proj = Linear(embed_dim, embed_dim, **kw)
+        attrs = (weight_attr, bias_attr)
+        self.q_proj = Linear(embed_dim, embed_dim, *attrs, **kw)
+        self.k_proj = Linear(self.kdim, embed_dim, *attrs, **kw)
+        self.v_proj = Linear(self.vdim, embed_dim, *attrs, **kw)
+        self.out_proj = Linear(embed_dim, embed_dim, *attrs, **kw)
 
     def _heads(self, x):
         return x.reshape(x.shape[0], x.shape[1], self.num_heads,
@@ -147,7 +154,9 @@ class MultiHeadAttention(nn.Module):
             p = self.dropout if self.training else 0.0
             projs = (self.q_proj, self.k_proj, self.v_proj)
             w = torch.cat([m.weight for m in projs], dim=1)    # [h, 3h]
-            qkv = query @ w + torch.cat([m.bias for m in projs])
+            qkv = query @ w
+            if all(m.bias is not None for m in projs):
+                qkv = qkv + torch.cat([m.bias for m in projs])
             out = flash_attention_qkv3(qkv, self.num_heads, is_causal=False,
                                        dropout_p=p)
             return self.out_proj(out)
@@ -166,25 +175,27 @@ class MultiHeadAttention(nn.Module):
         return outs[0] if len(outs) == 1 else tuple(outs)
 
 
-class TransformerEncoderLayer(nn.Module):
+class TransformerEncoderLayer(Layer):
     """Post-LN (``normalize_before=False``) or pre-LN encoder block:
     self-attention and a two-layer feed-forward, each with dropout and a
     residual. ``attn_dropout``/``act_dropout`` default to ``dropout``."""
 
     def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
-                 normalize_before=False, layer_norm_eps=1e-5, *, device=None,
-                 dtype=None):
-        super().__init__()
+                 normalize_before=False, weight_attr=None, bias_attr=None,
+                 layer_norm_eps=1e-5, *, device=None, dtype=None):
+        super().__init__(dtype=dtype, device=device)
         attn_dropout = dropout if attn_dropout is None else attn_dropout
         act_dropout = dropout if act_dropout is None else act_dropout
         kw = dict(device=device, dtype=dtype)
+        attrs = (weight_attr, bias_attr)
         self.normalize_before = normalize_before
-        self.self_attn = MultiHeadAttention(d_model, nhead,
-                                            dropout=attn_dropout, **kw)
-        self.linear1 = Linear(d_model, dim_feedforward, **kw)
+        self.self_attn = MultiHeadAttention(
+            d_model, nhead, dropout=attn_dropout, weight_attr=weight_attr,
+            bias_attr=bias_attr, **kw)
+        self.linear1 = Linear(d_model, dim_feedforward, *attrs, **kw)
         self.dropout = Dropout(act_dropout)
-        self.linear2 = Linear(dim_feedforward, d_model, **kw)
+        self.linear2 = Linear(dim_feedforward, d_model, *attrs, **kw)
         self.norm1 = LayerNorm(d_model, epsilon=layer_norm_eps, **kw)
         self.norm2 = LayerNorm(d_model, epsilon=layer_norm_eps, **kw)
         self.dropout1 = Dropout(dropout)
@@ -220,11 +231,11 @@ class TransformerEncoderLayer(nn.Module):
 
 def _clones(layer, num_layers):
     """``layer`` and ``num_layers - 1`` deep copies of it (:205-207)."""
-    return nn.ModuleList([layer if i == 0 else copy.deepcopy(layer)
-                          for i in range(num_layers)])
+    return LayerList([layer if i == 0 else copy.deepcopy(layer)
+                      for i in range(num_layers)])
 
 
-class TransformerEncoder(nn.Module):
+class TransformerEncoder(Layer):
     """``num_layers`` copies of ``encoder_layer``, then ``norm`` if
     given."""
 
@@ -252,7 +263,7 @@ class TransformerEncoder(nn.Module):
         return [layer.gen_cache(src) for layer in self.layers]
 
 
-class TransformerDecoderLayer(nn.Module):
+class TransformerDecoderLayer(Layer):
     """Self-attention (``tgt_mask``), cross-attention over ``memory``
     (``memory_mask``) and a two-layer feed-forward, each with dropout and
     a residual, post-LN or pre-LN. ``attn_dropout``/``act_dropout``
@@ -260,20 +271,23 @@ class TransformerDecoderLayer(nn.Module):
 
     def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
-                 normalize_before=False, layer_norm_eps=1e-5, *, device=None,
-                 dtype=None):
-        super().__init__()
+                 normalize_before=False, weight_attr=None, bias_attr=None,
+                 layer_norm_eps=1e-5, *, device=None, dtype=None):
+        super().__init__(dtype=dtype, device=device)
         attn_dropout = dropout if attn_dropout is None else attn_dropout
         act_dropout = dropout if act_dropout is None else act_dropout
         kw = dict(device=device, dtype=dtype)
+        attrs = (weight_attr, bias_attr)
         self.normalize_before = normalize_before
-        self.self_attn = MultiHeadAttention(d_model, nhead,
-                                            dropout=attn_dropout, **kw)
-        self.cross_attn = MultiHeadAttention(d_model, nhead,
-                                             dropout=attn_dropout, **kw)
-        self.linear1 = Linear(d_model, dim_feedforward, **kw)
+        self.self_attn = MultiHeadAttention(
+            d_model, nhead, dropout=attn_dropout, weight_attr=weight_attr,
+            bias_attr=bias_attr, **kw)
+        self.cross_attn = MultiHeadAttention(
+            d_model, nhead, dropout=attn_dropout, weight_attr=weight_attr,
+            bias_attr=bias_attr, **kw)
+        self.linear1 = Linear(d_model, dim_feedforward, *attrs, **kw)
         self.dropout = Dropout(act_dropout)
-        self.linear2 = Linear(dim_feedforward, d_model, **kw)
+        self.linear2 = Linear(dim_feedforward, d_model, *attrs, **kw)
         self.norm1 = LayerNorm(d_model, epsilon=layer_norm_eps, **kw)
         self.norm2 = LayerNorm(d_model, epsilon=layer_norm_eps, **kw)
         self.norm3 = LayerNorm(d_model, epsilon=layer_norm_eps, **kw)
@@ -328,7 +342,7 @@ class TransformerDecoderLayer(nn.Module):
         return incremental_cache, static_cache
 
 
-class TransformerDecoder(nn.Module):
+class TransformerDecoder(Layer):
     """``num_layers`` copies of ``decoder_layer``, then ``norm`` if
     given."""
 
@@ -363,7 +377,7 @@ class TransformerDecoder(nn.Module):
         return cache
 
 
-class Transformer(nn.Module):
+class Transformer(Layer):
     """The encoder-decoder Transformer (Vaswani et al. 2017; the defaults
     are its base model): ``forward(src, tgt, src_mask, tgt_mask,
     memory_mask)`` runs the encoder over ``src`` and the decoder over
@@ -373,16 +387,18 @@ class Transformer(nn.Module):
     def __init__(self, d_model=512, nhead=8, num_encoder_layers=6,
                  num_decoder_layers=6, dim_feedforward=2048, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
-                 normalize_before=False, custom_encoder=None,
-                 custom_decoder=None, *, device=None, dtype=None):
-        super().__init__()
+                 normalize_before=False, weight_attr=None, bias_attr=None,
+                 custom_encoder=None, custom_decoder=None, *, device=None,
+                 dtype=None):
+        super().__init__(dtype=dtype, device=device)
         kw = dict(device=device, dtype=dtype)
         if custom_encoder is not None:
             self.encoder = custom_encoder
         else:
             encoder_layer = TransformerEncoderLayer(
                 d_model, nhead, dim_feedforward, dropout, activation,
-                attn_dropout, act_dropout, normalize_before, **kw)
+                attn_dropout, act_dropout, normalize_before, weight_attr,
+                bias_attr, **kw)
             encoder_norm = (LayerNorm(d_model, **kw) if normalize_before
                             else None)
             self.encoder = TransformerEncoder(encoder_layer,
@@ -393,7 +409,8 @@ class Transformer(nn.Module):
         else:
             decoder_layer = TransformerDecoderLayer(
                 d_model, nhead, dim_feedforward, dropout, activation,
-                attn_dropout, act_dropout, normalize_before, **kw)
+                attn_dropout, act_dropout, normalize_before, weight_attr,
+                bias_attr, **kw)
             decoder_norm = (LayerNorm(d_model, **kw) if normalize_before
                             else None)
             self.decoder = TransformerDecoder(decoder_layer,
@@ -411,7 +428,7 @@ class Transformer(nn.Module):
     def generate_square_subsequent_mask(self, length):
         """The causal mask ``[length, length]``, float32 on the model's
         device: 0 on and below the diagonal, -inf above it."""
-        dev = next(self.parameters()).device
+        dev = next(iter(self.parameters())).device
         keep = torch.ones((length, length), dtype=torch.bool,
                           device=dev).tril()
         zero = torch.zeros((), dtype=torch.float32, device=dev)

@@ -7,8 +7,12 @@ bf16 are cast up before the rule and the results cast back):
 
 - the eager ``step()`` (:135-173) over ``parameters=`` (torch
   parameters, ``(name, param)`` pairs, or groups ``{"params": [...]}``
-  flattened as in :34-40) reads ``p.grad``, clips the ``(param, grad)``
-  pairs, and updates each parameter and its slots in place; with
+  flattened as in :34-40) reads ``p.grad`` of the trainable parameters,
+  clips the ``(param, grad)`` pairs (a ``need_clip = False`` parameter's
+  grad passes through), and updates each parameter and its slots in
+  place, at the learning rate times the parameter's
+  ``optimize_attr["learning_rate"]`` (:154; `ParamAttr`'s) and with its
+  regularizer's coefficient as its weight decay (:175-178); with
   ``multi_precision`` a bf16 parameter keeps a float32 master that the
   rule updates (:102-103, :157-163); `clear_grad`, `minimize`,
   `state_dict` / `set_state_dict` with the reference's keys
@@ -47,12 +51,14 @@ from .lr import LRScheduler
 
 class _Item(NamedTuple):
     """One parameter's update: its param, grad and slots, the float32
-    master it updates instead of ``p`` (or None) and its weight decay."""
+    master it updates instead of ``p`` (or None), its weight decay and
+    the scale of the learning rate."""
     p: torch.Tensor
     g: torch.Tensor
     slots: dict
     master: Optional[torch.Tensor]
     wd: float
+    lr_scale: float = 1.0
 
 
 def _store(dst, new, skip):
@@ -159,8 +165,9 @@ class Optimizer:
             slots_in = {n: (s.float() if s.dtype in (torch.bfloat16,
                                                      torch.float16) else s)
                         for n, s in it.slots.items()}
+            lr_p = lr if it.lr_scale == 1.0 else lr * it.lr_scale
             new_p, new_slots = self._update_rule(
-                p_in, g, slots_in, lr, {"weight_decay": it.wd, "step": t})
+                p_in, g, slots_in, lr_p, {"weight_decay": it.wd, "step": t})
             if it.master is not None:
                 _store(it.master, new_p, skip)
             _store(it.p, new_p, skip)
@@ -189,6 +196,11 @@ class Optimizer:
                                                      torch.float16):
                 self._master_weights[pid] = p.detach().float()
         return self._accumulators[pid]
+
+    @staticmethod
+    def _lr_scale(p):
+        attr = getattr(p, "optimize_attr", None)
+        return float(attr.get("learning_rate", 1.0)) if attr else 1.0
 
     def _effective_wd(self, p):
         reg = getattr(p, "regularizer", None)
@@ -221,7 +233,8 @@ class Optimizer:
         dev = pairs[0][0].device
         step = self._eager_step_tensor(dev)
         items = [_Item(p, g, self._ensure_slots(p),
-                       self._master_weights.get(id(p)), self._effective_wd(p))
+                       self._master_weights.get(id(p)), self._effective_wd(p),
+                       self._lr_scale(p))
                  for p, g in pairs]
         self._update(items, self._lr_tensor(None, dev), step, None)
         step.add_(1)

@@ -74,7 +74,7 @@ class Adam(Optimizer):
     def _update(self, items, lr, step, found_inf, clip_scale=None):
         multi_tensor_adam(
             [AdamEntry(it.p, it.g, it.slots["moment1"], it.slots["moment2"],
-                       it.master, it.wd) for it in items],
+                       it.master, it.wd, it.lr_scale) for it in items],
             lr, step, beta1=self._beta1, beta2=self._beta2,
             epsilon=self._epsilon, adamw=self._adamw, found_inf=found_inf,
             clip_scale=clip_scale, tables=self._tables)

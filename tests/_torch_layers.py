@@ -1,9 +1,14 @@
 """Shared helpers of the layer parity tests (tests/test_torch_conv.py,
 test_torch_vit.py, test_torch_transformer_decoder.py,
-test_torch_fused_mt.py, test_torch_moe.py): a paddle_tpu layer's weights
-as numpy, its loss and gradients through ``jax.value_and_grad`` over its
-parameters, the port's through ``torch.autograd``, and the bound both are
-held to. Imports jax: CPU tests only."""
+test_torch_fused_mt.py, test_torch_moe.py, test_torch_layer_base.py,
+test_torch_initializer.py, test_torch_param_attr.py): a paddle_tpu
+layer's weights as numpy, its loss and gradients through
+``jax.value_and_grad`` over its parameters, the port's through
+``torch.autograd``, the bound both are held to, and a scope that puts
+back both packages' default random state. Imports jax: CPU tests
+only."""
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -11,9 +16,11 @@ import torch
 from torch.func import functional_call
 
 from paddle_tpu.core import autograd as jautograd
+from paddle_tpu.core import random as jrandom
 from paddle_tpu.core.tensor import Tensor as JTensor
 from paddle_tpu.jit.api import functional_call as jfunctional_call
 
+from paddle_tpu_torch.core import random as prandom
 from paddle_tpu_torch.models import load_paddle_tpu_state_dict
 
 
@@ -96,3 +103,23 @@ def grads_close(got, want, rel, zero_atol=1e-6):
 
 def t(x):
     return torch.from_numpy(np.array(x))
+
+
+@contextlib.contextmanager
+def rng_state_kept():
+    """Inside, draws may advance either package's default generators;
+    on exit each is put back (a default the port made inside is
+    dropped)."""
+    jstate = jrandom.get_rng_state()
+    with prandom._DEFAULTS_LOCK:
+        pstate = {k: g.get_state() for k, g in prandom._DEFAULTS.items()}
+    try:
+        yield
+    finally:
+        jrandom.set_rng_state(jstate)
+        with prandom._DEFAULTS_LOCK:
+            for k in list(prandom._DEFAULTS):
+                if k in pstate:
+                    prandom._DEFAULTS[k].set_state(pstate[k])
+                else:
+                    del prandom._DEFAULTS[k]

@@ -25,7 +25,7 @@ from paddle_tpu_torch.optimizer import AdamW
 
 
 def _linear(seed, n_in=4, n_out=3):
-    lin = Linear(n_in, n_out)
+    lin = Linear(n_in, n_out, device="cpu")
     rng = np.random.default_rng(seed)
     with torch.no_grad():
         lin.weight.copy_(torch.from_numpy(

@@ -81,7 +81,11 @@ MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.device",
            "paddle_tpu_torch.incubate.distributed.models",
            "paddle_tpu_torch.incubate.distributed.models.moe",
            "paddle_tpu_torch.incubate.distributed.models.moe.gate",
-           "paddle_tpu_torch.incubate.distributed.models.moe.moe_layer"]
+           "paddle_tpu_torch.incubate.distributed.models.moe.moe_layer",
+           "paddle_tpu_torch.core.parameter",
+           "paddle_tpu_torch.framework.param_attr",
+           "paddle_tpu_torch.nn.initializer",
+           "paddle_tpu_torch.nn.container", "paddle_tpu_torch.regularizer"]
 
 
 def test_import_pulls_in_no_jax_and_no_paddle_tpu():

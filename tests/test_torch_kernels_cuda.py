@@ -752,8 +752,9 @@ def test_multi_tensor_adam_matches_its_plain_version_on_a_card(dtypes,
                                                                adamw):
     """The multi-tensor Adam kernel against `adam_reference` over tensors
     of awkward sizes (a partial last vector, one of 5 elements, a grad
-    that is not contiguous) with a clip scale: every stored element bit
-    for bit (both round the same
+    that is not contiguous) with a clip scale and a rate scale in each
+    entry (0.5, 1, 2): every stored element bit for bit (both round the
+    same
     float32 operations once); one launch a dtype group; a found-inf flag
     writes nothing."""
     if not torch.cuda.is_available():
@@ -767,14 +768,16 @@ def test_multi_tensor_adam_matches_its_plain_version_on_a_card(dtypes,
     def entries():
         g.manual_seed(3)
         out = []
-        for shape in ((1000, 3), (70001,), (5,)):
+        for shape, rate in (((1000, 3), 0.5), ((70001,), 1.0),
+                            ((5,), 2.0)):
             p = torch.randn(shape, generator=g, device="cuda").to(pdt)
             grad = torch.randn(shape, generator=g, device="cuda") * 1e-2
             if len(shape) == 2:      # a grad that is a transposed view
                 grad = grad.t().contiguous().t()
+            # the moments contiguous, as the kernel takes them
             out.append(mta.AdamEntry(
-                p, grad.to(gdt), (0.1 * grad).to(sdt),
-                (1e-3 * grad * grad).to(sdt), None, 0.1))
+                p, grad.to(gdt), (0.1 * grad).to(sdt).contiguous(),
+                (1e-3 * grad * grad).to(sdt).contiguous(), None, 0.1, rate))
         return out
 
     a, b = entries(), entries()

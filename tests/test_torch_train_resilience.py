@@ -59,8 +59,8 @@ class _JMLP(paddle.nn.Layer):
 class _MLP(torch.nn.Module):
     def __init__(self):
         super().__init__()
-        self.fc1 = Linear(8, 16)
-        self.fc2 = Linear(16, 1)
+        self.fc1 = Linear(8, 16, device="cpu")
+        self.fc2 = Linear(16, 1, device="cpu")
 
     def forward(self, x):
         return self.fc2(torch.relu(self.fc1(x)))
