@@ -366,7 +366,27 @@ Phases, in order; any failure exits non-zero:
    ``load`` onto the card into a twin built under `LazyGuard` and
    ``initialize()``d on the card: bit for bit, its eval forward the
    model's bit for bit. B2's and B5's launches in the kernels line add
-   this phase's.
+   this phase's;
+25. A5 slice 2: (a) the reference's ``resnet50()`` at its defaults
+   (1000 classes, 224 px, NCHW, float32, TF32 off) built on the card
+   from its default initializers, trained eagerly for 6 steps on b32
+   random batches with `nn.CrossEntropyLoss` and ``Momentum(0.01,
+   0.9)``: a float64 copy holds the eval-mode pass (loss, logits, every
+   grad at cosine >= 0.9999 and within 1e-4 of each tensor's largest
+   |value|) and the first step's train-mode pass (loss, logits and every
+   running statistic the same; every grad at cosine >= 0.999 and 5%
+   relative L2 error: a train-mode batch norm's backward magnifies
+   float32 rounding), bn1's running statistics are ``0.9 * init + 0.1 *
+   (batch mean, biased batch variance)`` of its input, its eval output
+   the formula on them; step ms p50, images/s, peak memory and a profile
+   of one step; ``state_dict`` through `framework.save`/``load`` into a
+   `LazyGuard` twin initialized on the card, bit for bit. (b) phase 24's
+   `nn.Transformer()` and batch shape with ``activation="gelu"``, bf16:
+   the float32 copy as phase 24, then one eager step with `nn.MSELoss`,
+   6 B5 and 12 B2 launches each way (they add to the kernels line). (c)
+   every activation, loss, norm, pooling and common layer and the vision
+   functions on the card against a ``.to("cpu")`` copy: outputs, grads
+   and buffers within 1e-5 of their scale.
 
 The kernel phase (3) also holds the paged kernel at head dims above 256
 (D 320 and 512: width 512 in 2-query tiles; ps 16 and 4, f32, bf16 and
@@ -586,6 +606,38 @@ GRAD_COS_SLACK = 1e-3
 # the first 32 tokens
 FMT_WIDTH, FMT_HEADS, FMT_FFN, FMT_LAYERS = 2048, 16, 8192, 24
 FMT_B, FMT_PROMPT, FMT_NEW, FMT_MAX_LEN, FMT_PRE = 8, 128, 32, 640, 32
+# phase 25a: the reference's resnet50() at its defaults (1000 classes,
+# 224 px, NCHW, float32, TF32 off) on b32 batches, trained eagerly with
+# examples/train_vision.py's Momentum(0.01, 0.9) and CrossEntropyLoss
+RN_B, RN_HW, RN_CLASSES, RN_STEPS = 32, 224, 1000, 6
+RN_LR, RN_MOMENTUM = 0.01, 0.9
+# its float64 copy (the same weights and batch): the loss within
+# RN_LOSS_RTOL; the logits, the eval-mode grads and the running statistics
+# after a step at cosine >= RN_COS and within RN_MAX_ERR of each tensor's
+# largest |value|. The train-mode grads at cosine >= RN_TRAIN_COS and
+# relative L2 error <= RN_TRAIN_L2: a train-mode batch norm's backward
+# projects the mean and the normalised input out of the gradient that
+# reaches it, most of which lies along them at initialisation, and so
+# magnifies its float32 rounding (ResNet-50 on the CPU, b2-b8 at 64-112
+# px, float32 against float64: cosine 0.9995-0.9997 and 1.7-3.2% L2
+# error in the worst tensor, every tensor within 1.1e-6 in eval mode)
+RN_LOSS_RTOL, RN_COS, RN_MAX_ERR = 1e-4, 0.9999, 1e-4
+RN_TRAIN_COS, RN_TRAIN_L2 = 0.999, 0.05
+# the eval-mode grads' largest element error: cuDNN's float32 weight
+# gradients stood at 2.65e-3 of layer4.1.conv3.weight's largest |value|
+# on one H100 at seed 0 (cosine 0.999998; 1.3e-6 for the same model on
+# the CPU at b8 x 64 px): held at 1e-2
+RN_GRAD_MAX_ERR = 1e-2
+# bn1's running statistics and its eval output against their formulas,
+# computed in float64 from its input: within RN_BN_TOL of the largest
+# |value|
+RN_BN_TOL = 1e-5
+# phase 25c: each layer of A5 slice 2 on the card against its copy on the
+# CPU, float32: outputs and buffers within SWEEP_REL of their largest
+# |value|, grads within SWEEP_GRAD_REL (backward passes subtract nearly
+# equal sums: softmax's g - sum(g * y), a batch norm's projections; the
+# softmax input grad stood 4.4e-5 from the CPU's on one H100 at seed 0)
+SWEEP_REL, SWEEP_GRAD_REL = 1e-5, 1e-4
 # phase 23: the MoE layer at gpt3-1.3b's width, 8 experts of 8192,
 # GShardGate top-2 at capacity factor 1.25, b8 x s1024 tokens; a token's
 # dispatch is held where its gates' margins exceed one bf16 rounding
@@ -6803,6 +6855,553 @@ def layer_base_phase(torch, seed, card):
     return {k: counts[k] for k in want_counts if k != "multi_tensor_adam"}
 
 
+# ------------------------------------------------ A5 slice 2: ResNet-50
+def tensor_agreement(torch, got, want):
+    """``(cosine, max error / largest |want|, relative L2 error)`` of
+    ``got`` against ``want``, in float64."""
+    a, b = got.detach().double().flatten(), want.detach().double().flatten()
+    scale = b.abs().max().clamp(min=1e-30)
+    return (torch.nn.functional.cosine_similarity(a, b, dim=0).item(),
+            ((a - b).abs().max() / scale).item(),
+            ((a - b).norm() / b.norm().clamp(min=1e-30)).item())
+
+
+def worst_agreement(torch, got, want):
+    """Over name -> tensor dicts: the least cosine, the largest max error
+    and the largest relative L2 error, each with its tensor's name."""
+    rows = {n: tensor_agreement(torch, got[n], want[n]) for n in want}
+    cos = min((v[0], n) for n, v in rows.items())
+    err = max((v[1], n) for n, v in rows.items())
+    l2 = max((v[2], n) for n, v in rows.items())
+    return cos, err, l2
+
+
+def resnet_pass(torch, model, images, labels, train, f64=False):
+    """One forward and backward of ``model`` in train (or eval) mode:
+    ``(loss, logits, grads by name)``, the grads left on the parameters
+    (a train-mode pass is then a step's). The float32 model's loss is
+    `nn.CrossEntropyLoss`; the float64 copy's the same mean
+    cross-entropy in float64 (the fused path keeps float32 statistics)."""
+    from paddle_tpu_torch import nn
+
+    model.train(train)
+    model.zero_grad(set_to_none=True)
+    logits = model(images)
+    if f64:
+        loss = -torch.log_softmax(logits, -1).gather(
+            1, labels[:, None]).mean()
+    else:
+        loss = nn.CrossEntropyLoss()(logits, labels)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    return loss.detach(), logits.detach(), grads
+
+
+def resnet_f64_check(torch, model, twin, images, labels, train):
+    """The float32 ``model`` against its float64 ``twin`` on one batch
+    (train or eval mode): the loss, the logits, every grad and, in train
+    mode, every running statistic the pass leaves (RN_* bounds), printed
+    before they are checked. Returns the float32 pass."""
+    loss, logits, grads = resnet_pass(torch, model, images, labels, train)
+    loss64, logits64, grads64 = resnet_pass(
+        torch, twin, images.double(), labels, train, f64=True)
+    rel = abs(loss.item() - loss64.item()) / abs(loss64.item())
+    lcos, lerr, _ = tensor_agreement(torch, logits, logits64)
+    (gcos, gn), (gerr, en), (gl2, ln) = worst_agreement(torch, grads,
+                                                        grads64)
+    mode = "train" if train else "eval"
+    line = (f"  float64 copy, {mode} mode: loss {loss.item():.7f} vs "
+            f"{loss64.item():.7f} (rel {rel:.2e}; <= {RN_LOSS_RTOL}); logits "
+            f"cosine {lcos:.7f}, max error {lerr:.2e} (<= {RN_MAX_ERR}); "
+            f"every grad: least cosine {gcos:.7f} ({gn}), largest max error "
+            f"{gerr:.2e} ({en}), largest relative L2 error {gl2:.2e} ({ln})")
+    if train:
+        (bcos, bn), (berr, bn2), _ = worst_agreement(
+            torch, dict(model.named_buffers()), dict(twin.named_buffers()))
+        print(line + f" (held: cosine >= {RN_TRAIN_COS}, relative L2 <= "
+              f"{RN_TRAIN_L2}; a train-mode batch norm magnifies float32 "
+              f"rounding); every _mean and _variance after the step: least "
+              f"cosine {bcos:.7f} ({bn}), largest max error {berr:.2e} "
+              f"({bn2}; <= {RN_MAX_ERR})")
+    else:
+        print(line + f" (held: cosine >= {RN_COS}, max error <= "
+              f"{RN_GRAD_MAX_ERR})")
+    check(math.isfinite(loss.item()) and rel <= RN_LOSS_RTOL,
+          f"ResNet-50 {mode}: loss {loss.item()} against float64 "
+          f"{loss64.item()} (rel {rel})")
+    check(lcos >= RN_COS and lerr <= RN_MAX_ERR,
+          f"ResNet-50 {mode}: logits cosine {lcos}, max error {lerr}")
+    if train:
+        check(gcos >= RN_TRAIN_COS and gl2 <= RN_TRAIN_L2,
+              f"ResNet-50 train: grad {gn} cosine {gcos}, {ln} relative "
+              f"L2 error {gl2}")
+        check(bcos >= RN_COS and berr <= RN_MAX_ERR,
+              f"ResNet-50 running statistics after a step: {bn} cosine "
+              f"{bcos}, {bn2} max error {berr}")
+    else:
+        check(gcos >= RN_COS and gerr <= RN_GRAD_MAX_ERR,
+              f"ResNet-50 eval: grad {gn} cosine {gcos}, {en} max error "
+              f"{gerr}")
+    print("  ok")
+    return loss, logits, grads
+
+
+def bn_formula(torch, x, mean, var, weight, bias, eps):
+    """A batch norm's output by its formula, in float64."""
+    shape = (1, -1, 1, 1)
+    return ((x.double() - mean.double().reshape(shape))
+            / (var.double().reshape(shape) + eps).sqrt()
+            * weight.double().reshape(shape) + bias.double().reshape(shape))
+
+
+def within_scale(torch, got, want, tol):
+    err = (got.double() - want.double()).abs().max()
+    return (err / want.double().abs().max()).item() <= tol, \
+        (err / want.double().abs().max()).item()
+
+
+def resnet_phase(torch, seed, card):
+    """Phase 25a: the reference's `resnet50()` at its defaults (1000
+    classes, 224 px, NCHW, float32 with TF32 off) built on the card from
+    the reference's default initializers (no `init_weights`), drawn from
+    a generator seeded with ``seed``, trained eagerly as a user's loop
+    does: `nn.CrossEntropyLoss`, ``Momentum(learning_rate=0.01,
+    momentum=0.9)``, ``loss.backward(); opt.step(); opt.clear_grad()``,
+    RN_STEPS steps on random b32 images and labels from ``seed``. Before
+    the first step a float64 copy (the same weights) holds the eval-mode
+    pass on the first batch; the first step's own pass is held against
+    the copy's train-mode pass, the running statistics it leaves too, and
+    bn1's against ``0.9 * init + 0.1 * (batch mean, biased batch var)``
+    of its input. Prints the step's ms p50 over steps 2-RN_STEPS,
+    images/s, the peak memory and a profile of one step. Then in eval
+    mode bn1's output is its formula on ``_mean``/``_variance`` and
+    differs from the train-mode formula's; the state dict goes through
+    `framework.save`/``load`` into a `LazyGuard` twin ``initialize()``d
+    on the card: its state dict and eval forward bit for bit."""
+    import copy
+    import tempfile
+
+    from paddle_tpu_torch import LazyGuard, framework, nn, vision
+    from paddle_tpu_torch.core.random import rng_guard, step_generator
+    from paddle_tpu_torch.optimizer import Momentum
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with rng_guard(step_generator(seed, "cuda")):
+        model = vision.resnet50()
+    check(model.fc.weight.shape == (2048, RN_CLASSES)
+          and all(p.is_cuda and p.dtype == torch.float32
+                  for p in model.parameters())
+          and model.bn1._mean.is_cuda, "resnet50() not built float32 on "
+          "the card")
+    n_params = sum(p.numel() for p in model.parameters())
+    g = torch.Generator(device="cuda").manual_seed(seed + 25)
+    batches = [(torch.randn((RN_B, 3, RN_HW, RN_HW), generator=g,
+                            device="cuda"),
+                torch.randint(0, RN_CLASSES, (RN_B,), generator=g,
+                              device="cuda")) for _ in range(RN_STEPS)]
+    print(f"  resnet50(): {n_params} parameters, 53 batch norms, drawn from "
+          f"the reference's initializers; b{RN_B} x 3 x {RN_HW} x {RN_HW} "
+          f"float32 images, {RN_CLASSES} classes")
+
+    twin = copy.deepcopy(model).double()
+    resnet_f64_check(torch, model, twin, *batches[0], train=False)
+    model.zero_grad(set_to_none=True)
+    opt = Momentum(learning_rate=RN_LR, momentum=RN_MOMENTUM,
+                   parameters=model.parameters())
+    loss_fn = nn.CrossEntropyLoss()
+
+    seen = {}
+    hook = model.bn1.register_forward_pre_hook(
+        lambda mod, args: seen.__setitem__("x", args[0].detach().clone()))
+    init = (model.bn1._mean.clone(), model.bn1._variance.clone())
+    # step 1: its pass held against the float64 copy's, then the update
+    loss = resnet_f64_check(torch, model, twin, *batches[0], train=True)[0]
+    hook.remove()
+    del twin
+    opt.step()
+    opt.clear_grad()
+    losses = [loss.item()]
+    var, mean = torch.var_mean(seen["x"].double(), dim=(0, 2, 3),
+                               correction=0)
+    ok_m, err_m = within_scale(torch, model.bn1._mean,
+                               0.9 * init[0].double() + 0.1 * mean,
+                               RN_BN_TOL)
+    ok_v, err_v = within_scale(torch, model.bn1._variance,
+                               0.9 * init[1].double() + 0.1 * var,
+                               RN_BN_TOL)
+    check(ok_m and ok_v, f"bn1's running statistics off the reference's "
+          f"convention: max errors {err_m}, {err_v}")
+    print(f"  bn1 after the step: _mean, _variance = 0.9 x init + 0.1 x "
+          f"(batch mean, biased batch variance) of its input, computed in "
+          f"float64 on the card: max errors {err_m:.2e}, {err_v:.2e} (<= "
+          f"{RN_BN_TOL})  ok")
+
+    def step(images, labels):
+        out = loss_fn(model(images), labels)
+        out.backward()
+        opt.step()
+        opt.clear_grad()
+        return out
+
+    times = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for images, labels in batches[1:]:
+        t0 = time.perf_counter()
+        out = step(images, labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(out.item())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    p50 = statistics.median(times) * 1e3
+    print(f"  {RN_STEPS} eager steps (Momentum {RN_LR}, {RN_MOMENTUM}; "
+          f"nn.CrossEntropyLoss): losses {[round(x, 5) for x in losses]} "
+          "(all finite)  ok")
+    print(f"  {card}: eager step {p50:.3f} ms p50 of steps 2-{RN_STEPS} "
+          f"(steps {[round(t * 1e3, 3) for t in times]} ms), "
+          f"{RN_B / p50 * 1e3:.1f} images/s, peak {peak:.3f} GiB")
+    profile_steps(torch, lambda: step(*batches[0]), 1,
+                  "eager ResNet-50 step")
+
+    model.eval()
+    seen = {}
+    hook = model.bn1.register_forward_hook(
+        lambda mod, args, out: seen.update(x=args[0].detach(),
+                                           y=out.detach()))
+    with torch.no_grad():
+        want = model(batches[1][0])
+    hook.remove()
+    bn1 = model.bn1
+    formula = bn_formula(torch, seen["x"], bn1._mean, bn1._variance,
+                         bn1.weight, bn1.bias, bn1._epsilon)
+    ok, err = within_scale(torch, seen["y"], formula, RN_BN_TOL)
+    var, mean = torch.var_mean(seen["x"].double(), dim=(0, 2, 3),
+                               correction=0)
+    trained = bn_formula(torch, seen["x"], mean, var, bn1.weight, bn1.bias,
+                         bn1._epsilon)
+    _, apart = within_scale(torch, seen["y"], trained, 0.0)
+    check(ok and apart > 1e-2, f"eval bn1: max error {err} against its "
+          f"running-statistics formula; {apart} from the batch's")
+    print(f"  eval mode: bn1's output is its formula on _mean/_variance "
+          f"(max error {err:.2e} <= {RN_BN_TOL}) and lies {apart:.3f} of "
+          "its scale from the train-mode (batch statistics) one  ok")
+
+    sd = model.state_dict()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "resnet50.pdparams")
+        framework.save(sd, path)
+        loaded = framework.load(path, device="cuda")
+    with LazyGuard():
+        lazy = vision.resnet50()
+    check(all(p.is_meta for p in lazy.parameters()),
+          "a parameter built under LazyGuard holds memory")
+    with rng_guard(step_generator(seed + 1, "cuda")):
+        for p in lazy.parameters():
+            p.initialize()
+    check(all(p.is_cuda for p in lazy.parameters()),
+          "LazyGuard twin not initialized on the card")
+    missing, unexpected = lazy.set_state_dict(loaded)
+    got = lazy.state_dict()
+    check(not missing and not unexpected and list(got) == list(sd)
+          and all(torch.equal(got[k], v) for k, v in sd.items()),
+          f"state_dict round trip: missing {missing}, unexpected "
+          f"{unexpected}, or an entry not bit for bit")
+    lazy.eval()
+    with torch.no_grad():
+        check(torch.equal(lazy(batches[1][0]), want),
+              "the twin's eval forward is not the model's")
+    print(f"  state_dict ({len(sd)} entries, 106 of them batch-norm buffers) "
+          "-> framework.save/load onto the card -> set_state_dict of a twin "
+          "built under LazyGuard and initialize()d on the card: bit for "
+          "bit, the eval forward too  ok")
+    del model, lazy, opt, sd, loaded, batches, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def gelu_mse_loss_fn(model, state, batch):
+    """`nn.MSELoss` of the decoder's output (in float32) against the
+    batch's target."""
+    from torch.func import functional_call
+
+    from paddle_tpu_torch.nn import MSELoss
+
+    out = functional_call(model, state, (batch["src"], batch["tgt"]),
+                          {"tgt_mask": batch["tgt_mask"]})
+    return MSELoss()(out.float(), batch["target"])
+
+
+def gelu_transformer_phase(torch, seed, card):
+    """Phase 25b: phase 24's `nn.Transformer()` and batch shape built with
+    ``activation="gelu"`` (the layers look it up in
+    `nn.functional.activation`) from its default initializers, bf16: the
+    float32 copy's loss and grads (`float32_copy_check`, phase 24's
+    bounds and held grads), then one eager step with `nn.MSELoss` and
+    ``AdamW(multi_precision=True)``, in which B5 launches 6 times each way
+    and B2 12. Returns the B2 and B5 launch counts."""
+    from paddle_tpu_torch import kernels, nn
+    from paddle_tpu_torch.core.random import rng_guard, step_generator
+    from paddle_tpu_torch.distributed import SpmdTrainStep
+    from paddle_tpu_torch.nn.functional import activation
+    from paddle_tpu_torch.optimizer import AdamW
+
+    def build(dtype=None):
+        return nn.Transformer(dropout=TR_DROPOUT, activation="gelu",
+                              device="cuda", dtype=dtype)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with rng_guard(step_generator(seed + 1, "cuda")):
+        model = build()
+    check(all(layer.activation is activation.gelu for layer in
+              (*model.encoder.layers, *model.decoder.layers)),
+          "activation='gelu' did not resolve to nn.functional.activation")
+    model.astype("bfloat16")
+    mask = model.generate_square_subsequent_mask(TR_TGT)
+    g = torch.Generator(device="cuda").manual_seed(seed + 26)
+    batch = {"src": torch.randn((TR_B, TR_SRC, TR_D), generator=g,
+                                device="cuda").to(torch.bfloat16),
+             "tgt": torch.randn((TR_B, TR_TGT, TR_D), generator=g,
+                                device="cuda").to(torch.bfloat16),
+             "target": torch.randn((TR_B, TR_TGT, TR_D), generator=g,
+                                   device="cuda"),
+             "tgt_mask": mask}
+    ref = f32_twin(torch, model, lambda: build(torch.float32))
+    two = {k: (v[:2] if k != "tgt_mask" else v) for k, v in batch.items()}
+    float32_copy_check(
+        torch, SpmdTrainStep(model, gelu_mse_loss_fn, AdamW()),
+        {n: p.detach() for n, p in model.named_parameters()}, two, ref,
+        gelu_mse_loss_fn, LB_HELD, "Transformer (GELU, MSELoss)",
+        shown=LB_SHOWN, relax=True)
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    opt = AdamW(learning_rate=TRAIN_LR, parameters=model.parameters(),
+                multi_precision=True)
+    model.train()
+    torch.cuda.synchronize()
+    kernels.reset_kernel_launch_counts()
+    t0 = time.perf_counter()
+    out = model(batch["src"], batch["tgt"], tgt_mask=mask)
+    loss = nn.MSELoss()(out.float(), batch["target"])
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = kernels.kernel_launch_counts()
+    want = {"flash_attention_qkv3_fwd": TR_LAYERS,
+            "flash_attention_qkv3_bwd": TR_LAYERS,
+            "flash_attention_fwd": 2 * TR_LAYERS,
+            "flash_attention_bwd": 2 * TR_LAYERS, "multi_tensor_adam": 1}
+    only_launched(counts, want, "eager GELU Transformer step")
+    check(math.isfinite(loss.item()), f"loss {loss.item()}")
+    print(f"  one eager step (nn.MSELoss, AdamW multi_precision, dropout "
+          f"{TR_DROPOUT}): loss {loss.item():.5f} (finite); launches "
+          f"{ {k: v for k, v in counts.items() if v} }: B5 6 each way, B2 "
+          f"12 each way, the update once  ok")
+    print(f"  {card}: the step {ms:.3f} ms (one step, its first)")
+    del model, opt, batch, out, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: counts[k] for k in want if k != "multi_tensor_adam"}
+
+
+def sweep_cases(torch, nn, F, rand):
+    """Phase 25c's cases: ``(label, make, inputs)``; ``make()`` builds the
+    layer (or a function of the inputs) on the card."""
+    x4, x3, x5 = rand(3, 6, 8, 10), rand(3, 6, 9), rand(2, 6, 4, 5, 6)
+    nhwc = rand(3, 8, 10, 6)
+    two = (rand(5, 7), rand(5, 7))
+    probs = torch.softmax(rand(5, 7), -1)
+    labels = torch.randint(0, 7, (5,), device="cuda")
+    signs = torch.where(rand(5) > 0, 1.0, -1.0)
+    cuda = dict(device="cuda")
+    acts = [(name, lambda n=name: getattr(nn, n)(), [x4]) for name in
+            ("ReLU", "ReLU6", "GELU", "SiLU", "Swish", "Sigmoid", "Tanh",
+             "Softmax", "LogSoftmax", "LeakyReLU", "ELU", "SELU", "CELU",
+             "Hardshrink", "Hardsigmoid", "Hardswish", "Hardtanh",
+             "Softplus", "Softshrink", "Softsign", "Mish", "Tanhshrink",
+             "ThresholdedReLU", "LogSigmoid", "GLU")]
+    acts += [("Maxout", lambda: nn.Maxout(2), [x4]),
+             ("RReLU (eval slope)", lambda: nn.RReLU(0.1, 0.3, False), [x4]),
+             ("PReLU", lambda: nn.PReLU(6, **cuda), [x4])]
+    losses = [
+        ("CrossEntropyLoss", lambda: nn.CrossEntropyLoss(
+            label_smoothing=0.1), [two[0], labels]),
+        ("MSELoss", nn.MSELoss, list(two)), ("L1Loss", nn.L1Loss, list(two)),
+        ("NLLLoss", nn.NLLLoss, [torch.log(probs), labels]),
+        ("BCELoss", nn.BCELoss, [probs, torch.sigmoid(two[1])]),
+        ("BCEWithLogitsLoss", nn.BCEWithLogitsLoss,
+         [two[0], torch.sigmoid(two[1])]),
+        ("SmoothL1Loss", lambda: nn.SmoothL1Loss(delta=0.5), list(two)),
+        ("KLDivLoss", nn.KLDivLoss, [torch.log(probs),
+                                     torch.softmax(two[1], -1)]),
+        ("MarginRankingLoss", nn.MarginRankingLoss,
+         [two[0][:, 0], two[1][:, 0], signs]),
+        ("HingeEmbeddingLoss", nn.HingeEmbeddingLoss,
+         [two[0], torch.where(two[1] > 0, 1.0, -1.0)]),
+        ("CosineEmbeddingLoss", nn.CosineEmbeddingLoss, [*two, signs]),
+        ("TripletMarginLoss", nn.TripletMarginLoss, [*two, rand(5, 7)])]
+    norms = [
+        ("BatchNorm1D", lambda: nn.BatchNorm1D(6, **cuda), [x3]),
+        ("BatchNorm2D", lambda: nn.BatchNorm2D(6, **cuda), [x4]),
+        ("BatchNorm2D NHWC", lambda: nn.BatchNorm2D(
+            6, data_format="NHWC", **cuda), [nhwc]),
+        ("BatchNorm3D", lambda: nn.BatchNorm3D(6, **cuda), [x5]),
+        ("BatchNorm", lambda: nn.BatchNorm(6, **cuda), [x4]),
+        ("SyncBatchNorm", lambda: nn.SyncBatchNorm(6, **cuda), [x4]),
+        ("GroupNorm", lambda: nn.GroupNorm(3, 6, **cuda), [x4]),
+        ("InstanceNorm1D", lambda: nn.InstanceNorm1D(6, **cuda), [x3]),
+        ("InstanceNorm2D", lambda: nn.InstanceNorm2D(6, **cuda), [x4]),
+        ("InstanceNorm3D", lambda: nn.InstanceNorm3D(6, **cuda), [x5]),
+        ("LayerNorm", lambda: nn.LayerNorm([8, 10], **cuda), [x4]),
+        ("RMSNorm", lambda: nn.RMSNorm(10, **cuda), [x4]),
+        ("LocalResponseNorm", lambda: nn.LocalResponseNorm(3), [x4]),
+        ("SpectralNorm", lambda: nn.SpectralNorm([6, 4, 3], power_iters=2,
+                                                 **cuda), [rand(6, 4, 3)])]
+    pools = [
+        ("MaxPool1D", lambda: nn.MaxPool1D(3, 2, 1, ceil_mode=True), [x3]),
+        ("MaxPool2D", lambda: nn.MaxPool2D(3, 2, 1), [x4]),
+        ("MaxPool2D NHWC", lambda: nn.MaxPool2D(
+            3, 2, "SAME", data_format="NHWC"), [nhwc]),
+        ("MaxPool3D", lambda: nn.MaxPool3D(2, 1, 1), [x5]),
+        ("AvgPool1D", lambda: nn.AvgPool1D(3, 2, 1), [x3]),
+        ("AvgPool2D", lambda: nn.AvgPool2D(3, 2, 1, ceil_mode=True), [x4]),
+        ("AvgPool2D inclusive", lambda: nn.AvgPool2D(
+            3, 2, 1, exclusive=False), [x4]),
+        ("AvgPool3D", lambda: nn.AvgPool3D(2, 2), [x5]),
+        ("AdaptiveAvgPool1D", lambda: nn.AdaptiveAvgPool1D(4), [x3]),
+        ("AdaptiveAvgPool2D", lambda: nn.AdaptiveAvgPool2D((3, 4)), [x4]),
+        ("AdaptiveAvgPool3D", lambda: nn.AdaptiveAvgPool3D(2), [x5]),
+        ("AdaptiveMaxPool1D", lambda: nn.AdaptiveMaxPool1D(4), [x3]),
+        ("AdaptiveMaxPool2D", lambda: nn.AdaptiveMaxPool2D((3, 4)), [x4]),
+        ("AdaptiveMaxPool3D", lambda: nn.AdaptiveMaxPool3D(2), [x5])]
+    common = [
+        ("Identity", nn.Identity, [x4]), ("Flatten", nn.Flatten, [x4]),
+        ("Dropout (eval)", lambda: nn.Dropout(0.3).eval(), [x4]),
+        ("Dropout2D (eval)", lambda: nn.Dropout2D(0.3).eval(), [x4]),
+        ("Dropout3D (eval)", lambda: nn.Dropout3D(0.3).eval(), [x5]),
+        ("AlphaDropout (eval)", lambda: nn.AlphaDropout(0.3).eval(), [x4]),
+        ("Upsample bicubic", lambda: nn.Upsample(
+            scale_factor=2, mode="bicubic"), [x4]),
+        ("Upsample area (down)", lambda: nn.Upsample(
+            size=[3, 4], mode="area"), [x4]),
+        ("UpsamplingBilinear2D", lambda: nn.UpsamplingBilinear2D(
+            [11, 7]), [x4]),
+        ("UpsamplingNearest2D", lambda: nn.UpsamplingNearest2D(
+            scale_factor=2), [x4]),
+        ("Pad1D", lambda: nn.Pad1D([2, 1], mode="reflect"), [x3]),
+        ("Pad2D", lambda: nn.Pad2D([1, 2, 0, 1], mode="circular"), [x4]),
+        ("Pad3D", lambda: nn.Pad3D([1, 0, 0, 1, 2, 0], mode="replicate"),
+         [x5]),
+        ("ZeroPad2D", lambda: nn.ZeroPad2D([1, 1, 2, 0]), [x4]),
+        ("PixelShuffle", lambda: nn.PixelShuffle(2), [rand(2, 8, 3, 4)]),
+        ("PixelUnshuffle", lambda: nn.PixelUnshuffle(2), [x4]),
+        ("ChannelShuffle", lambda: nn.ChannelShuffle(3), [x4]),
+        ("Bilinear", lambda: nn.Bilinear(7, 7, 4, **cuda), list(two)),
+        ("CosineSimilarity", nn.CosineSimilarity, [x4, rand(*x4.shape)]),
+        ("Unfold", lambda: nn.Unfold([3, 2], 2, 1), [x4])]
+    theta = torch.eye(2, 3, device="cuda")[None] + 0.2 * rand(3, 2, 3)
+    grid = F.affine_grid(theta, [3, 6, 5, 7], align_corners=False)
+    fns = [
+        ("affine_grid", lambda: lambda t: F.affine_grid(t, [3, 6, 5, 7]),
+         [theta]),
+        ("grid_sample", lambda: lambda a, b: F.grid_sample(
+            a, b, padding_mode="reflection", align_corners=False),
+         [x4, grid * 1.2]),
+        ("fold", lambda: lambda c: F.fold(c, [8, 10], 3, paddings=1),
+         [F.unfold(x4, 3, paddings=1)]),
+        ("temporal_shift", lambda: lambda a: F.temporal_shift(a, 3),
+         [rand(6, 8, 4, 5)]),
+        ("max_pool2d mask", lambda: lambda a: F.max_pool2d(
+            a, 3, 2, 1, return_mask=True)[1], [x4]),
+        ("interpolate nearest", lambda: lambda a: F.interpolate(
+            a, size=[5, 13]), [x4])]
+    return acts + losses + norms + pools + common + fns
+
+
+def layer_sweep_phase(torch, seed):
+    """Phase 25c: each layer of A5 slice 2 (the activations, losses,
+    norms, pooling and common layers) and the vision functions, at a
+    small shape on the card in float32, against a ``.to("cpu")`` copy of
+    the same layer on the same values: the output, the grads of the
+    inputs and of the parameters (the loss ``sum(out * r)``) and the
+    buffers after the pass, each within SWEEP_REL of its largest |value|
+    (integer outputs exactly)."""
+    import copy
+
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.core.random import rng_guard, step_generator
+    from paddle_tpu_torch.nn import functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 27)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    errors, n_cases = [], 0
+    with rng_guard(step_generator(seed + 2, "cuda")):
+        cases = sweep_cases(torch, nn, F, rand)
+    for label, make, inputs in cases:
+        with rng_guard(step_generator(seed + 3, "cuda")):
+            layer = make()
+        cpu = (copy.deepcopy(layer).to("cpu")
+               if isinstance(layer, torch.nn.Module) else layer)
+        sides = []
+        for mod, dev in ((layer, "cuda"), (cpu, "cpu")):
+            xs = [t.detach().to(dev).requires_grad_(t.is_floating_point())
+                  for t in inputs]
+            out = mod(*xs)
+            grads = {}
+            if out.is_floating_point():
+                r = torch.linspace(-1.0, 1.0, out.numel(), device=dev
+                                   ).reshape(out.shape)
+                (out * r).sum().backward()
+                grads = {f"input {i}": t.grad for i, t in enumerate(xs)
+                         if t.grad is not None}
+                if isinstance(mod, torch.nn.Module):
+                    grads.update((n, p.grad) for n, p in
+                                 mod.named_parameters() if p.grad is not None)
+            bufs = (dict(mod.named_buffers())
+                    if isinstance(mod, torch.nn.Module) else {})
+            sides.append((out.detach(), grads, bufs))
+        (out, grads, bufs), (cout, cgrads, cbufs) = sides
+        n_cases += 1
+        check(out.is_cuda and out.dtype == cout.dtype
+              and out.shape == cout.shape and sorted(grads) == sorted(cgrads),
+              f"{label}: {out.device} {out.dtype} {tuple(out.shape)}, grads "
+              f"{sorted(grads)} against the CPU's {cout.dtype} "
+              f"{tuple(cout.shape)}, {sorted(cgrads)}")
+        if not out.is_floating_point():
+            check(torch.equal(out.cpu(), cout), f"{label}: integer output "
+                  "differs from the CPU's")
+            continue
+        pairs = ([("output", out, cout, SWEEP_REL)]
+                 + [(f"grad of {n}", grads[n], cgrads[n], SWEEP_GRAD_REL)
+                    for n in grads]
+                 + [(f"buffer {n}", bufs[n], cbufs[n], SWEEP_REL)
+                    for n in bufs])
+        for what, a, b, tol in pairs:
+            scale = b.abs().max().clamp(min=1e-30)
+            errors.append((((a.cpu() - b).abs().max() / scale).item(), tol,
+                           f"{label} {what}"))
+    over = [e for e in errors if e[0] > e[1]]
+    worst = sorted(errors, reverse=True)
+    print(f"  {n_cases} layers and functions on the card against their CPU "
+          f"copies ({len(errors)} outputs, grads of inputs and parameters, "
+          f"buffers), largest errors of their scale: " + ", ".join(
+              f"{name} {err:.2e}" for err, _, name in worst[:4])
+          + f" (outputs and buffers <= {SWEEP_REL}, grads <= "
+          f"{SWEEP_GRAD_REL})")
+    check(not over, "beyond their bounds: " + ", ".join(
+        f"{name} {err:.2e} > {tol}" for err, tol, name in over))
+    print("  ok")
+
+
 def print_build_report(name, report):
     """One source's build seconds, then for each kernel ptxas's register,
     shared-memory and spill lines, joined on one line."""
@@ -6983,6 +7582,23 @@ def main(argv=None) -> int:
             launches[name] += n
         print(f"  (B2's and B5's launches in the kernel line add phase 24's "
               f"{phase24})")
+        print("[25] A5 slice 2 (activations, losses, norms, pooling, vision "
+              "functions, common layers): ResNet-50 trained eagerly at full "
+              "width, nn.Transformer() with activation='gelu' and "
+              "nn.MSELoss() through B5 and B2, a layer sweep against the "
+              "CPU")
+        print(f"[25a] ResNet-50 (1000 classes, 224 px, b32, float32) on "
+              f"{card}")
+        resnet_phase(torch, args.seed, card)
+        print(f"[25b] nn.Transformer(activation='gelu'), nn.MSELoss on "
+              f"{card}")
+        phase25 = gelu_transformer_phase(torch, args.seed, card)
+        for name, n in phase25.items():
+            launches[name] += n
+        print(f"  (B2's and B5's launches in the kernel line add phase 25's "
+              f"{phase25})")
+        print(f"[25c] the layer sweep, card against CPU, on {card}")
+        layer_sweep_phase(torch, args.seed)
     print(f"  width-512 launches of B3 over phases 4-18: {wide_seen}")
     launches.update({name: wide_seen[c] for name, c in wide_names.items()})
     for rec in records:

@@ -6,8 +6,10 @@ continuous-batching `serving.Engine`, trains GPT and pretrains BERT
 (masked or not, unfused or through the fused layers of `incubate.nn`),
 ViT and the encoder-decoder `nn.Transformer` through
 `distributed.SpmdTrainStep`, decodes with `nn.Transformer`'s caches and
-`incubate.nn.FusedMultiTransformer`'s CacheKV, and runs the MoE layer
-(`incubate.distributed.models.moe`) on one card; attention runs in
+`incubate.nn.FusedMultiTransformer`'s CacheKV, runs the MoE layer
+(`incubate.distributed.models.moe`) on one card, and builds and trains
+the reference's ResNet family (`vision.models`) from `nn`'s
+convolutions, batch norms, activations, pooling and losses; attention runs in
 kernels written by hand for Hopper (`kernels/csrc/`: paged decode
 attention, the qkv flash kernels on the pair-major and the which-major
 projection, the general [B,S,H,D] flash kernels), and so does the fused

@@ -3,7 +3,8 @@ conversion of weights to and from paddle_tpu (`convert`), token selection
 (`generation`)."""
 from .bert import (BERT_CONFIGS, BertConfig, BertForPretraining,
                    BertForSequenceClassification, BertModel, bert_config)
-from .convert import export_paddle_tpu_state_dict, load_paddle_tpu_state_dict
+from .convert import (export_paddle_tpu_state_dict, load_layer_state_dict,
+                      load_paddle_tpu_state_dict)
 from .gpt import (GPT_CONFIGS, GPTConfig, GPTForPretraining,
                   GPTPretrainingCriterion, gpt_config)
 from .vit import (VIT_CONFIGS, ViTConfig, VisionTransformer, vit_b_16,
@@ -15,4 +16,5 @@ __all__ = ["BertConfig", "BERT_CONFIGS", "BertForPretraining",
            "GPTPretrainingCriterion", "gpt_config",
            "ViTConfig", "VIT_CONFIGS", "VisionTransformer", "vit_config",
            "vit_b_16", "vit_l_16",
-           "export_paddle_tpu_state_dict", "load_paddle_tpu_state_dict"]
+           "export_paddle_tpu_state_dict", "load_layer_state_dict",
+           "load_paddle_tpu_state_dict"]

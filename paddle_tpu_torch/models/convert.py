@@ -5,6 +5,10 @@ and `incubate.distributed.models.moe.MoELayer`.
 `load_paddle_tpu_state_dict` loads a ``paddle_tpu`` state dict into the
 port's model; `export_paddle_tpu_state_dict` is its inverse (the port's
 parameters as numpy arrays under the reference's names).
+`load_layer_state_dict` loads any reference `Layer`'s state dict,
+parameters and persistable buffers (a batch norm's ``_mean`` and
+``_variance``, a spectral norm's ``weight_u``/``weight_v``), into the
+port's layer of the same structure (ResNet, the layers of `nn`).
 
 The port keeps ``paddle_tpu``'s parameter names and layouts (``Linear``
 weights stay ``[in, out]``, GPT's qkv columns stay pair-major, the fused
@@ -91,4 +95,29 @@ def export_paddle_tpu_state_dict(model_or_params) -> dict:
     return out
 
 
-__all__ = ["load_paddle_tpu_state_dict", "export_paddle_tpu_state_dict"]
+def load_layer_state_dict(layer, arrays: dict):
+    """Copy ``arrays`` (a reference `Layer`'s ``state_dict()`` as numpy
+    arrays, keyed by name) into ``layer``'s parameters and persistable
+    buffers, each cast to its own dtype on its own device, by name: every
+    entry of ``layer.state_dict()`` must be there with its exact shape
+    and nothing else may be (the convolutions' OIHW and `Linear`'s ``[in,
+    out]`` are the reference's layouts). Returns ``layer``."""
+    own = layer.state_dict(keep_vars=True)
+    missing = sorted(set(own) - set(arrays))
+    unexpected = sorted(set(arrays) - set(own))
+    if missing or unexpected:
+        raise ValueError(f"state dict does not match the layer: missing "
+                         f"{missing}, unexpected {unexpected}")
+    with torch.no_grad():
+        for name, target in own.items():
+            a = np.asarray(arrays[name])
+            if tuple(a.shape) != tuple(target.shape):
+                raise ValueError(f"{name}: shape {tuple(a.shape)} != layer "
+                                 f"{tuple(target.shape)}")
+            target.copy_(torch.from_numpy(np.array(a)).to(
+                device=target.device, dtype=target.dtype))
+    return layer
+
+
+__all__ = ["load_paddle_tpu_state_dict", "export_paddle_tpu_state_dict",
+           "load_layer_state_dict"]

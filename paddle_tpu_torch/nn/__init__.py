@@ -1,31 +1,58 @@
 """Neural-network pieces of the port: the layer base (`Layer`,
 `LazyGuard`), the containers (`Sequential`, `LayerList`, `LayerDict`,
-`ParameterList`), the initializers (`initializer`), `functional`, the
-layers with paddle_tpu's layouts and default initializers (`Linear`,
-`Embedding`, `LayerNorm`, `Dropout`, the convolutions), the transformer
-layers (`MultiHeadAttention` with its caches, the encoder and decoder
-layers and stacks, `Transformer`) and gradient clipping (`clip`)."""
+`ParameterList`), the initializers (`initializer`), `functional` (the
+reference's package layout), the activation and loss layers, the
+normalisations (`LayerNorm`, the batch, group, instance, RMS,
+local-response and spectral norms), pooling, the common layers
+(`Linear`, `Embedding`, `Identity`, `Flatten`, the dropouts, padding,
+upsampling, shuffling, `Bilinear`, ...) with paddle_tpu's layouts and
+default initializers, the convolutions, the transformer layers
+(`MultiHeadAttention` with its caches, the encoder and decoder layers
+and stacks, `Transformer`) and gradient clipping (`clip`)."""
 from . import functional, initializer
+from .activation import (CELU, ELU, GELU, GLU, Hardshrink, Hardsigmoid,
+                         Hardswish, Hardtanh, LeakyReLU, LogSigmoid,
+                         LogSoftmax, Maxout, Mish, PReLU, ReLU, ReLU6, RReLU,
+                         SELU, Sigmoid, SiLU, Softmax, Softplus, Softshrink,
+                         Softsign, Swish, Tanh, Tanhshrink, ThresholdedReLU)
 from .clip import (
     ClipGradBase, ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
     clip_grad_norm_,
 )
-from .common import Embedding, Linear, init_weights
+from .common import (AlphaDropout, Bilinear, ChannelShuffle,
+                     CosineSimilarity, Dropout2D, Dropout3D, Embedding,
+                     Flatten, Identity, Linear, Pad1D, Pad2D, Pad3D,
+                     PixelShuffle, PixelUnshuffle, Unfold, Upsample,
+                     UpsamplingBilinear2D, UpsamplingNearest2D, ZeroPad2D,
+                     init_weights)
 from .container import LayerDict, LayerList, ParameterList, Sequential
 from .conv import (Conv1D, Conv1DTranspose, Conv2D, Conv2DTranspose, Conv3D,
                    Conv3DTranspose)
 from .layer import Dropout, HookRemoveHelper, Layer, LazyGuard
-from .norm import LayerNorm
+from .loss import (BCELoss, BCEWithLogitsLoss, CosineEmbeddingLoss,
+                   CrossEntropyLoss, HingeEmbeddingLoss, KLDivLoss, L1Loss,
+                   MarginRankingLoss, MSELoss, NLLLoss, SmoothL1Loss,
+                   TripletMarginLoss)
+from .norm import (BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D,
+                   GroupNorm, InstanceNorm1D, InstanceNorm2D, InstanceNorm3D,
+                   LayerNorm, LocalResponseNorm, RMSNorm, SpectralNorm,
+                   SyncBatchNorm)
+from .pooling import (AdaptiveAvgPool1D, AdaptiveAvgPool2D,
+                      AdaptiveAvgPool3D, AdaptiveMaxPool1D,
+                      AdaptiveMaxPool2D, AdaptiveMaxPool3D, AvgPool1D,
+                      AvgPool2D, AvgPool3D, MaxPool1D, MaxPool2D, MaxPool3D)
 from .transformer import (MultiHeadAttention, Transformer, TransformerDecoder,
                           TransformerDecoderLayer, TransformerEncoder,
                           TransformerEncoderLayer)
+from . import activation, common, loss, norm, pooling
 
 __all__ = ["functional", "initializer", "ClipGradBase",
            "ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue",
            "clip_grad_norm_", "Conv1D", "Conv1DTranspose", "Conv2D",
            "Conv2DTranspose", "Conv3D", "Conv3DTranspose", "Dropout",
-           "Embedding", "HookRemoveHelper", "Layer", "LayerDict",
-           "LayerList", "LayerNorm", "LazyGuard", "Linear",
-           "MultiHeadAttention", "ParameterList", "Sequential",
+           "HookRemoveHelper", "Layer", "LayerDict", "LayerList",
+           "LazyGuard", "MultiHeadAttention", "ParameterList", "Sequential",
            "Transformer", "TransformerDecoder", "TransformerDecoderLayer",
-           "TransformerEncoder", "TransformerEncoderLayer", "init_weights"]
+           "TransformerEncoder", "TransformerEncoderLayer",
+           *activation.__all__, *common.__all__, *loss.__all__,
+           *norm.__all__, *pooling.__all__]

@@ -1,16 +1,31 @@
-"""`Linear` and `Embedding` with paddle_tpu's parameter layouts and
-defaults (``paddle_tpu/nn/common.py:25-67``), so that a ``paddle_tpu``
-state dict loads key for key (`models.convert`). Their parameters are
-drawn when they are built (`nn.Layer.create_parameter`); the models then
-draw theirs again from a seed (`init_weights`). `Dropout` lives in
-`nn.layer`."""
+"""The common layers (``paddle_tpu/nn/common.py``).
+
+`Linear` and `Embedding` keep paddle_tpu's parameter layouts and
+defaults (:25-67), so that a ``paddle_tpu`` state dict loads key for key
+(`models.convert`). Their parameters are drawn when they are built
+(`nn.Layer.create_parameter`); the models then draw theirs again from a
+seed (`init_weights`). `Bilinear`'s weight ``[out, in1, in2]`` is drawn
+XavierUniform, its bias ``[out]`` zeros. The others hold no parameter:
+`Identity`, `Flatten`, the dropouts (`Dropout` lives in `nn.layer`),
+the upsampling, padding and shuffling layers, `CosineSimilarity` and
+`Unfold`, each calling its `nn.functional` function with the
+reference's arguments."""
 from __future__ import annotations
 
 import torch
 
+from . import functional as F
 from .initializer import Normal, XavierUniform
 from .layer import Layer
 from .norm import LayerNorm
+
+
+class Identity(Layer):
+    def __init__(self, *args, **kwargs):
+        super().__init__()
+
+    def forward(self, x):
+        return x
 
 
 class Linear(Layer):
@@ -31,8 +46,7 @@ class Linear(Layer):
                                           is_bias=True)
 
     def forward(self, x):
-        y = x @ self.weight
-        return y if self.bias is None else y + self.bias
+        return F.linear(x, self.weight, self.bias)
 
 
 @torch.no_grad()
@@ -68,14 +82,187 @@ class Embedding(Layer):
                 _zero_row(self.weight, self._padding_idx)
 
     def forward(self, ids):
-        ids = ids.long()
-        out = torch.nn.functional.embedding(ids, self.weight)
-        if self._padding_idx is not None:
-            out = out.masked_fill((ids == self._padding_idx)[..., None], 0.0)
-        return out
+        return F.embedding(ids, self.weight, padding_idx=self._padding_idx)
 
     def extra_repr(self):
         return f"{self._num_embeddings}, {self._embedding_dim}"
+
+
+class Dropout2D(Layer):
+    def __init__(self, p=0.5, data_format="NCHW", name=None):
+        super().__init__()
+        self.p = p
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.dropout2d(x, p=self.p, training=self.training,
+                           data_format=self.data_format)
+
+
+class Dropout3D(Layer):
+    def __init__(self, p=0.5, data_format="NCDHW", name=None):
+        super().__init__()
+        self.p = p
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.dropout3d(x, p=self.p, training=self.training,
+                           data_format=self.data_format)
+
+
+class AlphaDropout(Layer):
+    def __init__(self, p=0.5, name=None):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        return F.alpha_dropout(x, p=self.p, training=self.training)
+
+
+class Flatten(Layer):
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self.start_axis = start_axis
+        self.stop_axis = stop_axis
+
+    def forward(self, x):
+        return torch.flatten(x, self.start_axis, self.stop_axis)
+
+
+class Upsample(Layer):
+    def __init__(self, size=None, scale_factor=None, mode="nearest",
+                 align_corners=False, align_mode=0, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self.size = size
+        self.scale_factor = scale_factor
+        self.mode = mode
+        self.align_corners = align_corners
+        self.align_mode = align_mode
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.interpolate(x, self.size, self.scale_factor, self.mode,
+                             self.align_corners, self.align_mode,
+                             self.data_format)
+
+
+class UpsamplingBilinear2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "bilinear", True, 0,
+                         data_format)
+
+
+class UpsamplingNearest2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "nearest", False, 0,
+                         data_format)
+
+
+class _PadNd(Layer):
+    def __init__(self, padding, mode, value, data_format):
+        super().__init__()
+        self.padding = padding
+        self.mode = mode
+        self.value = value
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pad(x, self.padding, mode=self.mode, value=self.value,
+                     data_format=self.data_format)
+
+
+class Pad1D(_PadNd):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCL", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class Pad2D(_PadNd):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCHW", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class Pad3D(_PadNd):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCDHW", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class ZeroPad2D(Pad2D):
+    def __init__(self, padding, data_format="NCHW", name=None):
+        super().__init__(padding, "constant", 0.0, data_format)
+
+
+class PixelShuffle(Layer):
+    def __init__(self, upscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.upscale_factor = upscale_factor
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pixel_shuffle(x, self.upscale_factor, self.data_format)
+
+
+class PixelUnshuffle(Layer):
+    def __init__(self, downscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.downscale_factor = downscale_factor
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pixel_unshuffle(x, self.downscale_factor, self.data_format)
+
+
+class ChannelShuffle(Layer):
+    def __init__(self, groups, data_format="NCHW", name=None):
+        super().__init__()
+        self.groups = groups
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.channel_shuffle(x, self.groups, self.data_format)
+
+
+class Bilinear(Layer):
+    def __init__(self, in1_features, in2_features, out_features,
+                 weight_attr=None, bias_attr=None, name=None, *,
+                 device=None, dtype=None):
+        super().__init__(dtype=dtype, device=device)
+        self.weight = self.create_parameter(
+            [out_features, in1_features, in2_features], attr=weight_attr)
+        self.bias = self.create_parameter([out_features], attr=bias_attr,
+                                          is_bias=True)
+
+    def forward(self, x1, x2):
+        return F.bilinear(x1, x2, self.weight, self.bias)
+
+
+class CosineSimilarity(Layer):
+    def __init__(self, axis=1, eps=1e-8):
+        super().__init__()
+        self.axis = axis
+        self.eps = eps
+
+    def forward(self, x1, x2):
+        return F.cosine_similarity(x1, x2, axis=self.axis, eps=self.eps)
+
+
+class Unfold(Layer):
+    def __init__(self, kernel_sizes, strides=1, paddings=0, dilations=1,
+                 name=None):
+        super().__init__()
+        self.kernel_sizes = kernel_sizes
+        self.strides = strides
+        self.paddings = paddings
+        self.dilations = dilations
+
+    def forward(self, x):
+        return F.unfold(x, self.kernel_sizes, self.strides, self.paddings,
+                        self.dilations)
 
 
 @torch.no_grad()
@@ -103,4 +290,8 @@ def init_weights(model, seed, std):
                 mod.bias.zero_()
 
 
-__all__ = ["Linear", "Embedding", "init_weights"]
+__all__ = ["Identity", "Linear", "Embedding", "Dropout2D", "Dropout3D",
+           "AlphaDropout", "Flatten", "Upsample", "UpsamplingBilinear2D",
+           "UpsamplingNearest2D", "Pad1D", "Pad2D", "Pad3D", "ZeroPad2D",
+           "PixelShuffle", "PixelUnshuffle", "ChannelShuffle", "Bilinear",
+           "CosineSimilarity", "Unfold", "init_weights"]

@@ -15,6 +15,7 @@ otherwise than asked (ROADMAP C.3).
 from __future__ import annotations
 
 from . import functional as F
+from .functional.conv import _tuple
 from .layer import Layer
 
 
@@ -32,7 +33,7 @@ class _ConvNd(Layer):
                              "whatever the mode)")
         self._in_channels = in_channels
         self._out_channels = out_channels
-        self._kernel_size = F._tuple(kernel_size, n)
+        self._kernel_size = _tuple(kernel_size, n)
         self._stride = stride
         self._padding = padding
         self._output_padding = output_padding

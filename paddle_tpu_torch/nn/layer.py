@@ -250,15 +250,19 @@ class Layer(nn.Module):
 
 
 class Dropout(Layer):
-    """Dropout with the reference's ``upscale_in_train`` (random bits
+    """Dropout with the reference's ``axis`` and ``mode`` (random bits
     from the current `core.random` generator)."""
 
-    def __init__(self, p=0.5):
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train",
+                 name=None):
         super().__init__()
         self.p = float(p)
+        self.axis = axis
+        self.mode = mode
 
     def forward(self, x):
-        return F.dropout(x, self.p, training=self.training)
+        return F.dropout(x, self.p, axis=self.axis, training=self.training,
+                         mode=self.mode)
 
     def extra_repr(self):
         return f"p={self.p}"

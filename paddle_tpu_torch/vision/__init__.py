@@ -1,0 +1,11 @@
+"""Vision (``paddle_tpu/vision``): the ResNet family of `models`. The
+reference's other models, its datasets and its transforms are ROADMAP
+A14."""
+from . import models
+from .models import (BasicBlock, BottleneckBlock, ResNet, resnet18,
+                     resnet34, resnet50, resnet101, resnet152,
+                     resnext50_32x4d, resnext50_64x4d, resnext101_32x4d,
+                     resnext101_64x4d, resnext152_32x4d, resnext152_64x4d,
+                     wide_resnet50_2, wide_resnet101_2)
+
+__all__ = ["models", *models.__all__]

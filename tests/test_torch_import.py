@@ -85,7 +85,18 @@ MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.device",
            "paddle_tpu_torch.core.parameter",
            "paddle_tpu_torch.framework.param_attr",
            "paddle_tpu_torch.nn.initializer",
-           "paddle_tpu_torch.nn.container", "paddle_tpu_torch.regularizer"]
+           "paddle_tpu_torch.nn.container", "paddle_tpu_torch.regularizer",
+           "paddle_tpu_torch.nn.functional.activation",
+           "paddle_tpu_torch.nn.functional.common",
+           "paddle_tpu_torch.nn.functional.conv",
+           "paddle_tpu_torch.nn.functional.loss",
+           "paddle_tpu_torch.nn.functional.norm",
+           "paddle_tpu_torch.nn.functional.pooling",
+           "paddle_tpu_torch.nn.functional.vision",
+           "paddle_tpu_torch.nn.activation", "paddle_tpu_torch.nn.loss",
+           "paddle_tpu_torch.nn.pooling", "paddle_tpu_torch.vision",
+           "paddle_tpu_torch.vision.models",
+           "paddle_tpu_torch.vision.models.resnet"]
 
 
 def test_import_pulls_in_no_jax_and_no_paddle_tpu():
