@@ -387,6 +387,28 @@ Phases, in order; any failure exits non-zero:
    every activation, loss, norm, pooling and common layer and the vision
    functions on the card against a ``.to("cpu")`` copy: outputs, grads
    and buffers within 1e-5 of their scale.
+26. A5 slice 3: (a) the "large" LSTM language model of Zaremba et al.
+   2014 (vocabulary 10000, 2 x LSTM 1500, dropout 0.65, U(-0.04, 0.04)
+   through `ParamAttr`, 66.0M parameters, float32) built on the card and
+   trained eagerly for 10 steps of b20 x 35 token ids from the seed with
+   ``SGD(1.0)`` and ``ClipGradByGlobalNorm(10)``, the state carried:
+   with dropout off its loss and grads against a float64 copy whose LSTM
+   runs the cells' formulas step by step and against its CPU copy; step
+   ms p50, words/s, peak memory, a profile of one step, and the cost of
+   the stack's separate weight tensors against ``torch.nn.LSTM`` on one
+   flattened chunk. (b) `nn.Transformer()` at its defaults with a 37000
+   vocabulary beam-searched (`BeamSearchDecoder`, `dynamic_decode`:
+   beam 4, 64 steps, the decoder's caches, one query a step) from b8 x
+   256 source ids: exactly 6 B5 forward launches (the encoder) and
+   nothing else; the encoder's ms, ms a decode step, kernels and host
+   launch calls a step; a float64 copy's ids, lengths and log-probs,
+   rows that part held to the copy's 0.05 near-tie band. B5's launches
+   in the kernels line add this phase's. (c) each new layer and function
+   on the card against its CPU copy, as 25c: the stacks with
+   ``sequence_length`` (the packed fused route), `RNN` and `BiRNN` over
+   each cell, ``ctc_loss``, ``hsigmoid_loss``, ``max_unpool2d``,
+   ``weight_norm``, ``spectral_norm`` and the quant layers (STE grads,
+   running scales).
 
 The kernel phase (3) also holds the paged kernel at head dims above 256
 (D 320 and 512: width 512 in 2-query tiles; ps 16 and 4, f32, bf16 and
@@ -638,6 +660,31 @@ RN_BN_TOL = 1e-5
 # equal sums: softmax's g - sum(g * y), a batch norm's projections; the
 # softmax input grad stood 4.4e-5 from the CPU's on one H100 at seed 0)
 SWEEP_REL, SWEEP_GRAD_REL = 1e-5, 1e-4
+# phase 26a: the "large" LSTM language model of Zaremba, Sutskever and
+# Vinyals 2014 (arXiv:1409.2329 section 4.1; TensorFlow's ptb_word_lm.py
+# LargeConfig, PaddlePaddle/models' ptb_lm "large"): vocabulary 10000,
+# 2 layers of 1500, dropout 0.65, every parameter U(-0.04, 0.04), batch
+# 20 x 35 steps unrolled, SGD at 1.0 with a global-norm clip at 10,
+# float32; PTB_STEPS eager steps on token ids from the seed
+PTB_VOCAB, PTB_HIDDEN, PTB_LAYERS, PTB_DROPOUT, PTB_INIT = (10000, 1500, 2,
+                                                            0.65, 0.04)
+PTB_B, PTB_T, PTB_LR, PTB_CLIP, PTB_STEPS = 20, 35, 1.0, 10.0, 10
+# its float64 copy (the cells' formulas step by step) and its CPU copy,
+# dropout off: the loss within PTB_LOSS_RTOL, every grad at relative L2
+# error <= PTB_GRAD_L2 (float32 sums over 35 steps and 1500-wide rows)
+PTB_LOSS_RTOL, PTB_GRAD_L2 = 1e-5, 1e-4
+# phase 26b: nn.Transformer() beam-searched with dynamic_decode: the
+# shared WMT14 En-De vocabulary of Vaswani et al. 2017 (section 5.1),
+# b8 x 256-token sources, beam 4, 64 steps; float32 against a float64
+# copy. Until a row's selections part, both decodes see the same tokens:
+# there its logits are held within BS_LOGIT_ATOL of the copy's (one H100
+# read 1.069e-06 at seed 0, the logits within 0.74 of 0). The
+# log-probs and the copy's score gap where a row parts are held to what
+# that logit error can explain: a step moves a log-softmax value by at
+# most 2x the step's logit error, plus float32 rounding (one ulp of the
+# running total and BS_LSM_ROUND for the log-softmax itself)
+BS_VOCAB, BS_B, BS_SRC, BS_BEAMS, BS_STEPS = 37000, 8, 256, 4, 64
+BS_START, BS_END, BS_LOGIT_ATOL, BS_LSM_ROUND = 0, 1, 5e-6, 2.0 ** -17
 # phase 23: the MoE layer at gpt3-1.3b's width, 8 experts of 8192,
 # GShardGate top-2 at capacity factor 1.25, b8 x s1024 tokens; a token's
 # dispatch is held where its gates' margins exceed one bf16 rounding
@@ -1993,12 +2040,14 @@ def qkv3_kernel_phase(torch):
     with B1's tolerances (`flash_compare`), and against B1's kernels on
     the repacked (pair-major) projection (`qkv3_against_qkv`); at phase
     21's encoder self-attention (B32 S256 H8 D64 bf16, full, dropout 0
-    and 0.1) against its plain versions. Then at BERT-large's shape (B8 S512 H16 D64 bf16, full, dropout 0.1):
-    agreement, time beside the plain versions, SDPA on the unpacked [B,
-    H, S, D] tensors with dropout 0.1 (timed only; the port never calls
-    it) and the bound; and B1 at the same shape (the fused BERT's):
-    against its plain versions and against B5, timed. Returns the
-    forward's and the backward's records."""
+    and 0.1) and at phase 26b's (B8 S256 H8 D64 f32, full, dropout 0)
+    against its plain versions. Then at BERT-large's shape (B8 S512 H16
+    D64 bf16, full, dropout 0.1): agreement, time beside the plain
+    versions, SDPA on the unpacked [B, H, S, D] tensors with dropout 0.1
+    (timed only; the port never calls it) and the bound; and B1 at the
+    same shape (the fused BERT's): against its plain versions and
+    against B5, timed. Returns the forward's and the backward's
+    records."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.kernels import flash_attention as fa
@@ -2031,6 +2080,12 @@ def qkv3_kernel_phase(torch):
         _, line, _ = flash_compare(torch, three, qkv, do, 8, False, p, seed_t)
         print(f"  flash_attention_qkv3 at the Transformer encoder's shape "
               f"B{TR_B} S{TR_SRC} H8 D64 bf16 full p={p}: {line}  ok")
+    # phase 26b's encoder: float32, no dropout (a beam search runs the
+    # forward alone; the backward is held too)
+    qkv, do = flash_case(BS_B, BS_SRC, 8, 64, torch.float32, seed=520)
+    _, line, _ = flash_compare(torch, three, qkv, do, 8, False, 0.0, seed_t)
+    print(f"  flash_attention_qkv3 at the beam search encoder's shape "
+          f"B{BS_B} S{BS_SRC} H8 D64 f32 full p=0.0: {line}  ok")
 
     b, s, h, d = BERT_B, BERT_S, 16, 64
     bf, p = torch.bfloat16, 0.1
@@ -7324,14 +7379,15 @@ def sweep_cases(torch, nn, F, rand):
     return acts + losses + norms + pools + common + fns
 
 
-def layer_sweep_phase(torch, seed):
-    """Phase 25c: each layer of A5 slice 2 (the activations, losses,
-    norms, pooling and common layers) and the vision functions, at a
-    small shape on the card in float32, against a ``.to("cpu")`` copy of
-    the same layer on the same values: the output, the grads of the
-    inputs and of the parameters (the loss ``sum(out * r)``) and the
-    buffers after the pass, each within SWEEP_REL of its largest |value|
-    (integer outputs exactly)."""
+def layer_sweep_phase(torch, seed, cases=sweep_cases):
+    """Phase 25c (``cases``: `sweep_cases`; 26c: `sweep_cases_26`): each
+    layer of A5 slice 2 (the activations, losses, norms, pooling and
+    common layers) and the vision functions, at a small shape on the
+    card in float32, against a ``.to("cpu")`` copy of the same layer on
+    the same values: the output, the grads of the inputs and of the
+    parameters (the loss ``sum(out * r)``) and the buffers after the
+    pass, each within SWEEP_REL of its largest |value| (integer outputs
+    exactly)."""
     import copy
 
     from paddle_tpu_torch import nn
@@ -7345,7 +7401,7 @@ def layer_sweep_phase(torch, seed):
 
     errors, n_cases = [], 0
     with rng_guard(step_generator(seed + 2, "cuda")):
-        cases = sweep_cases(torch, nn, F, rand)
+        cases = cases(torch, nn, F, rand)
     for label, make, inputs in cases:
         with rng_guard(step_generator(seed + 3, "cuda")):
             layer = make()
@@ -7380,11 +7436,14 @@ def layer_sweep_phase(torch, seed):
             check(torch.equal(out.cpu(), cout), f"{label}: integer output "
                   "differs from the CPU's")
             continue
+        check(all(torch.equal(bufs[n].cpu(), cbufs[n]) for n in bufs
+                  if not bufs[n].is_floating_point()),
+              f"{label}: an integer buffer differs from the CPU's")
         pairs = ([("output", out, cout, SWEEP_REL)]
                  + [(f"grad of {n}", grads[n], cgrads[n], SWEEP_GRAD_REL)
                     for n in grads]
                  + [(f"buffer {n}", bufs[n], cbufs[n], SWEEP_REL)
-                    for n in bufs])
+                    for n in bufs if bufs[n].is_floating_point()])
         for what, a, b, tol in pairs:
             scale = b.abs().max().clamp(min=1e-30)
             errors.append((((a.cpu() - b).abs().max() / scale).item(), tol,
@@ -7400,6 +7459,629 @@ def layer_sweep_phase(torch, seed):
     check(not over, "beyond their bounds: " + ", ".join(
         f"{name} {err:.2e} > {tol}" for err, tol, name in over))
     print("  ok")
+
+
+# --------------------------------------- A5 slice 3: RNNs, beam search
+def zaremba_lm(pkg, vocab=PTB_VOCAB, hidden=PTB_HIDDEN, layers=PTB_LAYERS,
+               dropout=PTB_DROPOUT, init=PTB_INIT, **kw):
+    """Phase 26a's model built from ``pkg`` (`paddle_tpu_torch`, or a
+    package with the same API): ``Embedding(vocab, hidden)``, dropout,
+    ``LSTM(hidden, hidden, layers, dropout)``, dropout, ``Linear(hidden,
+    vocab)``, every parameter ``U(-init, init)`` through `ParamAttr`;
+    ``forward(ids, state) -> (logits, state)``. ``kw`` goes to each
+    layer with parameters (``device=``)."""
+    nn = pkg.nn
+
+    def attr():
+        return pkg.ParamAttr(initializer=nn.initializer.Uniform(-init, init))
+
+    class ZarembaLM(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embedding = nn.Embedding(vocab, hidden, weight_attr=attr(),
+                                          **kw)
+            self.lstm = nn.LSTM(hidden, hidden, num_layers=layers,
+                                dropout=dropout, weight_ih_attr=attr(),
+                                weight_hh_attr=attr(), bias_ih_attr=attr(),
+                                bias_hh_attr=attr(), **kw)
+            self.dropout = nn.Dropout(dropout)
+            self.out = nn.Linear(hidden, vocab, weight_attr=attr(),
+                                 bias_attr=attr(), **kw)
+
+        def forward(self, ids, state=None):
+            x = self.dropout(self.embedding(ids))
+            y, state = self.lstm(x, state)
+            return self.out(self.dropout(y)), state
+
+    return ZarembaLM()
+
+
+def ptb_loss(F, logits, target):
+    """The sequences' summed cross-entropy averaged over the batch (the
+    loss of ptb_word_lm.py and of ptb_lm), ``F`` the package's
+    ``nn.functional``."""
+    return F.cross_entropy(logits.reshape([-1, logits.shape[-1]]),
+                           target.reshape([-1]), reduction="sum") \
+        / target.shape[0]
+
+
+def cell_stack(torch, lstm):
+    """``lstm``'s weights (an `nn.LSTM`) as `nn.RNN` over one
+    `nn.LSTMCell` a layer: the cells' formulas step by step, on the same
+    device and dtype."""
+    from paddle_tpu_torch import nn
+
+    class CellStack(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.rnns = nn.LayerList()
+            for n in range(lstm.num_layers):
+                cell = nn.LSTMCell(lstm.input_size if n == 0
+                                   else lstm.hidden_size, lstm.hidden_size,
+                                   device=lstm.weight_ih_l0.device)
+                cell.to(lstm.weight_ih_l0.dtype)
+                with torch.no_grad():
+                    for w in ("weight_ih", "weight_hh", "bias_ih",
+                              "bias_hh"):
+                        getattr(cell, w).copy_(getattr(lstm, f"{w}_l{n}"))
+                self.rnns.append(nn.RNN(cell))
+
+        def forward(self, x, state):
+            hs, cs = [], []
+            for n, rnn in enumerate(self.rnns):
+                x, (h, c) = rnn(x, (state[0][n], state[1][n]))
+                hs.append(h)
+                cs.append(c)
+            return x, (torch.stack(hs), torch.stack(cs))
+
+    return CellStack()
+
+
+def ptb_pass(torch, model, ids, target, state):
+    """One eval-mode (dropout off) forward and backward: ``(loss, grads
+    by name)``."""
+    from paddle_tpu_torch.nn import functional as F
+
+    model.eval()
+    model.zero_grad(set_to_none=True)
+    logits, _ = model(ids, state)
+    loss = ptb_loss(F, logits, target)
+    loss.backward()
+    return loss.detach(), {n: p.grad.detach().clone()
+                           for n, p in model.named_parameters()}
+
+
+def ptb_train_route(torch, model, ids, target, state):
+    """One training-mode forward and backward with every `F.dropout` the
+    identity: the LSTM (dropout > 0, training) then takes the route the
+    timed steps take, one fused call a layer with the port's dropout
+    between, which the eval-mode passes (one fused call over both
+    layers) do not. Checks that it did; returns ``(loss, grads by
+    name)``."""
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.nn import rnn
+
+    layers, fused, dropout = [], rnn._RNNBase._fused, F.dropout
+
+    def counted(self, *args):
+        layers.append(args[3])                    # layers in the call
+        return fused(self, *args)
+
+    rnn._RNNBase._fused = counted
+    F.dropout = lambda x, *args, **kw: x
+    try:
+        model.train()
+        model.zero_grad(set_to_none=True)
+        logits, _ = model(ids, state)
+        loss = ptb_loss(F, logits, target)
+        loss.backward()
+    finally:
+        rnn._RNNBase._fused = fused
+        F.dropout = dropout
+    check(layers == [1] * PTB_LAYERS, f"the training-mode pass made fused "
+          f"calls over {layers} layers, not one a layer")
+    return loss.detach(), {n: p.grad.detach().clone()
+                           for n, p in model.named_parameters()}
+
+
+def ptb_held(torch, label, loss, grads, want_loss, want_grads):
+    """``loss`` and ``grads`` against another pass's: PTB_LOSS_RTOL,
+    PTB_GRAD_L2 (printed before they are checked)."""
+    rel = abs(loss.item() - want_loss.item()) / abs(want_loss.item())
+    (gcos, gn), _, (gl2, ln) = worst_agreement(
+        torch, {n: g.cpu() for n, g in grads.items()},
+        {n: g.cpu() for n, g in want_grads.items()})
+    print(f"  {label}: loss {loss.item():.7f} vs {want_loss.item():.7f} "
+          f"(rel {rel:.2e}; <= {PTB_LOSS_RTOL}); every grad: least cosine "
+          f"{gcos:.8f} ({gn}), largest relative L2 error {gl2:.2e} ({ln}; "
+          f"<= {PTB_GRAD_L2})")
+    check(math.isfinite(loss.item()) and rel <= PTB_LOSS_RTOL
+          and gl2 <= PTB_GRAD_L2, f"{label}: loss rel {rel}, grad {ln} "
+          f"relative L2 {gl2}")
+    print("  ok")
+
+
+def lstm_copy_cost(torch, model, x, state):
+    """Device ms of the stack's forward and backward at the model's shape
+    with its separate weight tensors (cuDNN copies them into one buffer
+    each call) against ``torch.nn.LSTM`` holding the same weights in one
+    flattened chunk, dropout off."""
+    lstm = model.lstm
+    flat = torch.nn.LSTM(PTB_HIDDEN, PTB_HIDDEN, PTB_LAYERS,
+                         batch_first=True, device="cuda")
+    with torch.no_grad():
+        for n, p in flat.named_parameters():
+            p.copy_(getattr(lstm, n))
+    x = x.detach().requires_grad_(True)
+    lstm.eval()
+
+    def ours():
+        lstm(x, state)[0].sum().backward()
+
+    def theirs():
+        flat(x, state)[0].sum().backward()
+
+    ms = [time_ms(fn, 10) for fn in (ours, theirs, theirs, ours)]
+    model.zero_grad(set_to_none=True)
+    return ms
+
+
+def ptb_phase(torch, seed, card):
+    """Phase 26a: the Zaremba large LSTM language model (`zaremba_lm`,
+    66.0M parameters) built on the card from its `ParamAttr`s (drawn from
+    a generator seeded with ``seed``), float32 with TF32 off, trained
+    eagerly as the reference's loop does (``loss.backward(); opt.step();
+    opt.clear_grad()``, ``SGD(1.0)`` with ``ClipGradByGlobalNorm(10)``)
+    for PTB_STEPS steps of b20 x 35 token ids from the seed, the LSTM
+    state carried (detached) from batch to batch. Before the first step,
+    with dropout off, its loss and grads against a float64 copy of its
+    weights whose LSTM runs the cells' formulas step by step
+    (`cell_stack`) in eval mode and in training mode (`ptb_train_route`:
+    the route the steps take), and against its copy on the CPU. Prints
+    the step's ms p50 over steps 2-PTB_STEPS, words/s, peak memory, a
+    profile of one step and the cost of the stack's separate weight
+    tensors."""
+    import copy
+
+    import paddle_tpu_torch
+    from paddle_tpu_torch.core.random import rng_guard, step_generator
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import SGD
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with rng_guard(step_generator(seed, "cuda")):
+        model = zaremba_lm(paddle_tpu_torch, PTB_VOCAB, PTB_HIDDEN,
+                           PTB_LAYERS, PTB_DROPOUT, PTB_INIT)
+    n_params = sum(p.numel() for p in model.parameters())
+    worst = max(p.detach().abs().max().item() for p in model.parameters())
+    check(all(p.is_cuda and p.dtype == torch.float32
+              for p in model.parameters()) and worst <= PTB_INIT,
+          f"the model is not float32 on the card within U(-{PTB_INIT}, "
+          f"{PTB_INIT}): largest |value| {worst}")
+    g = torch.Generator(device="cuda").manual_seed(seed + 28)
+    stream = torch.randint(0, PTB_VOCAB, (PTB_B, PTB_STEPS * PTB_T + 1),
+                           generator=g, device="cuda")
+    batches = [(stream[:, i * PTB_T:(i + 1) * PTB_T],
+                stream[:, i * PTB_T + 1:(i + 1) * PTB_T + 1])
+               for i in range(PTB_STEPS)]
+    zeros = torch.zeros((PTB_LAYERS, PTB_B, PTB_HIDDEN), device="cuda")
+    print(f"  zaremba_lm(): vocabulary {PTB_VOCAB}, {PTB_LAYERS} x LSTM "
+          f"{PTB_HIDDEN}, dropout {PTB_DROPOUT}, U(-{PTB_INIT}, {PTB_INIT}) "
+          f"through ParamAttr; {n_params} parameters, float32; b{PTB_B} x "
+          f"{PTB_T} token ids from the seed, the state carried")
+
+    ids, target = batches[0]
+    loss, grads = ptb_pass(torch, model, ids, target, (zeros, zeros))
+    twin = copy.deepcopy(model).double()
+    twin.lstm = cell_stack(torch, twin.lstm)
+    loss64, grads64 = ptb_pass(torch, twin, ids, target,
+                               (zeros.double(), zeros.double()))
+    # the cells' names as the stack's: lstm.rnns.{n}.cell.{w} -> {w}_l{n}
+    grads64 = {(f"lstm.{n.split('.')[4]}_l{n.split('.')[2]}"
+                if n.startswith("lstm.rnns.") else n): v
+               for n, v in grads64.items()}
+    ptb_held(torch, "float64 copy (the cells step by step), dropout off",
+             loss, grads, loss64, grads64)
+    loss_t, grads_t = ptb_train_route(torch, model, ids, target,
+                                      (zeros, zeros))
+    ptb_held(torch, "training mode, every dropout the identity (one fused "
+             "call a layer, the timed steps' route), against the float64 "
+             "copy", loss_t, grads_t, loss64, grads64)
+    del twin, grads64, grads_t
+    cpu = copy.deepcopy(model).to("cpu")
+    loss_c, grads_c = ptb_pass(torch, cpu, ids.cpu(), target.cpu(),
+                               (zeros.cpu(), zeros.cpu()))
+    ptb_held(torch, "its copy on the CPU, one step's pass", loss, grads,
+             loss_c, grads_c)
+    del cpu, grads_c, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model.train()
+    model.zero_grad(set_to_none=True)
+    opt = SGD(learning_rate=PTB_LR, parameters=model.parameters(),
+              grad_clip=ClipGradByGlobalNorm(PTB_CLIP))
+    state = (zeros, zeros)
+
+    def step(ids, target, state):
+        logits, state = model(ids, state)
+        out = ptb_loss(F, logits, target)
+        out.backward()
+        opt.step()
+        opt.clear_grad()
+        return out, tuple(s.detach() for s in state)
+
+    losses, times = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with rng_guard(step_generator(seed + 3, "cuda")):
+        for ids, target in batches:
+            t0 = time.perf_counter()
+            out, state = step(ids, target, state)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(out.item())
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(all(math.isfinite(x) for x in losses)
+              and abs(losses[0] / PTB_T - math.log(PTB_VOCAB)) < 0.5,
+              f"losses {losses}: not finite, or the first not near "
+              f"{PTB_T} x ln({PTB_VOCAB})")
+        p50 = statistics.median(times[1:]) * 1e3
+        print(f"  {PTB_STEPS} eager steps (SGD {PTB_LR}, global-norm clip "
+              f"{PTB_CLIP}, dropout {PTB_DROPOUT}): losses a sequence "
+              f"{[round(x, 4) for x in losses]} (all finite, the first "
+              f"within 0.5 x {PTB_T} of {PTB_T} x ln({PTB_VOCAB}))  ok")
+        print(f"  {card}: eager step {p50:.3f} ms p50 of steps "
+              f"2-{PTB_STEPS} (steps {[round(t * 1e3, 3) for t in times]} "
+              f"ms), {PTB_B * PTB_T / p50 * 1e3:.1f} words/s, peak "
+              f"{peak:.3f} GiB")
+        profile_steps(torch, lambda: step(*batches[0], state), 1,
+                      "eager LSTM LM step")
+    x = model.embedding(batches[0][0]).detach()
+    ms = lstm_copy_cost(torch, model, x, (zeros, zeros))
+    print(f"  {card}: the LSTM stack's forward + backward (dropout off) "
+          f"with its separate weight tensors {ms[0]:.3f} / {ms[3]:.3f} ms "
+          f"against torch.nn.LSTM on one flattened chunk {ms[1]:.3f} / "
+          f"{ms[2]:.3f} ms (device time, turns ours, theirs, theirs, ours)")
+    del model, opt, batches, stream
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def beam_model(torch, seed):
+    """Phase 26b's model: `nn.Transformer()` at its defaults (d_model 512,
+    8 heads, 6 + 6 layers, FFN 2048) with ``Embedding(BS_VOCAB, 512)``
+    and ``Linear(512, BS_VOCAB)``, drawn on the card by their
+    initializers from a generator seeded with ``seed``, float32, in eval
+    mode."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.core.random import rng_guard, step_generator
+
+    with rng_guard(step_generator(seed + 4, "cuda")):
+        parts = (nn.Transformer(), nn.Embedding(BS_VOCAB, TR_D),
+                 nn.Linear(TR_D, BS_VOCAB))
+    for p in parts:
+        p.eval()
+    return parts
+
+
+def beam_search(torch, parts, src, record=None):
+    """Encode ``src`` (token ids) with the model's encoder and
+    beam-search from its memory: `nn.dynamic_decode` over a
+    `BeamSearchDecoder` whose cell is the model's `TransformerDecoder`
+    with its caches (`gen_cache`), one query a step. ``record`` (a list)
+    gets each step's entry time and logits. Returns ``(ids, log_probs,
+    lengths)``."""
+    from paddle_tpu_torch import nn
+
+    model, emb, out = parts
+
+    def cell(x, states):
+        memory, cache = states
+        y, cache = model.decoder(x[:, None, :], memory, cache=cache)
+        return y[:, 0], (memory, cache)
+
+    decoder = nn.BeamSearchDecoder(cell, BS_START, BS_END, BS_BEAMS,
+                                   embedding_fn=emb, output_fn=out)
+    if record is not None:
+        step = decoder.step
+
+        def recorded(inputs, states):
+            t = time.perf_counter()
+            logits, states = step(inputs, states)
+            record.append((t, logits))
+            return logits, states
+
+        decoder.step = recorded
+    with torch.no_grad():
+        memory = model.encoder(emb(src))
+        return nn.dynamic_decode(
+            decoder, inits=(memory, model.decoder.gen_cache(memory)),
+            max_step_num=BS_STEPS, return_length=True)
+
+
+def beam_replay(torch, logits_steps):
+    """`nn.dynamic_decode`'s selections replayed from each step's logits
+    (`decode.beam_search_step`, as it runs them: the log-softmax and the
+    totals in float32): ``[(flat indices [B, k], totals [B, k*V],
+    log-probs [B, k])]``, one a step."""
+    from paddle_tpu_torch.nn.decode import beam_search_step
+
+    log_probs = torch.full((BS_B, BS_BEAMS), -1e9, device="cuda")
+    log_probs[:, 0] = 0.0
+    finished = torch.zeros((BS_B, BS_BEAMS), dtype=torch.bool,
+                           device="cuda")
+    lengths = torch.zeros((BS_B, BS_BEAMS), dtype=torch.int32,
+                          device="cuda")
+    steps = []
+    for logits in logits_steps:
+        log_probs, finished, lengths, parent, token, totals = \
+            beam_search_step(logits, log_probs, finished, lengths, BS_END)
+        steps.append((parent * logits.shape[-1] + token, totals, log_probs))
+    return steps
+
+
+def beam_partings(torch, a, b):
+    """Where each row's selections first part between the replays ``a``
+    and ``b`` (`beam_replay`): ``{row: (step, gap)}``, the gap the largest
+    difference of ``b``'s scores between the candidates the two took at
+    one position there."""
+    parted = {}
+    for row in range(BS_B):
+        for t, ((ia, _, _), (ib, tb, _)) in enumerate(zip(a, b)):
+            if not torch.equal(ia[row], ib[row]):
+                diff = ia[row] != ib[row]
+                gap = (tb[row][ia[row][diff]] - tb[row][ib[row][diff]])
+                parted[row] = (t, gap.abs().max().item())
+                break
+    return parted
+
+
+def f32_ulp(x):
+    """The spacing of float32 values at ``|x|`` (``x`` != 0)."""
+    return 2.0 ** (math.frexp(abs(x))[1] - 24)
+
+
+def beam_slack(torch, logits, logits64, replay, shared):
+    """Per row, what a float32 decode's totals may stray from its float64
+    copy's over the steps ``0..shared[row]``, on which both decoded the
+    same tokens: each step 2x the largest |logit| error of the row's
+    beams there (a log-softmax value moves by at most twice that), one
+    float32 ulp of the row's largest live total after the step (the
+    running sum's rounding) and BS_LSM_ROUND (the log-softmax's).
+    Returns ``(slack by row, largest logit error by row)``."""
+    slack, errs = {}, {}
+    for row, last in shared.items():
+        total, worst = 0.0, 0.0
+        rows = slice(row * BS_BEAMS, (row + 1) * BS_BEAMS)
+        for t in range(last + 1):
+            err = (logits[t][rows].double()
+                   - logits64[t][rows].double()).abs().max().item()
+            lp = replay[t][2][row]
+            live = lp[lp > -1e8].abs().max().item()
+            total += 2 * err + f32_ulp(live) + BS_LSM_ROUND
+            worst = max(worst, err)
+        slack[row], errs[row] = total, worst
+    return slack, errs
+
+
+def beam_phase(torch, seed, card):
+    """Phase 26b: `nn.Transformer()` at its defaults (`beam_model`)
+    beam-searched with `nn.dynamic_decode` (`beam_search`: beam 4, 64
+    steps) from a b8 x 256-token source with no mask, so that the
+    encoder's self-attention takes B5: with the launch counts zeroed
+    just before and read just after, B5's forward launches exactly 6
+    times (once a layer) and nothing else launches (a decode step's
+    attention is one query, which no kernel takes). Prints the encoder's
+    ms, ms a decode step p50, the whole decode's ms and a profile's
+    kernels and host launch calls a step. A float64 copy of the same
+    weights (attention composed) decodes the same source: each row's
+    ids and lengths equal, its log-probs within `beam_slack`, unless the
+    copy's scores at the step where the two part lie within what the
+    logit errors can explain (`beam_slack`); the logits on the steps
+    each row shares with the copy within BS_LOGIT_ATOL. Returns the B5
+    launch count."""
+    import copy
+
+    from paddle_tpu_torch import kernels
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts = beam_model(torch, seed)
+    n_params = sum(p.numel() for m in parts for p in m.parameters())
+    g = torch.Generator(device="cuda").manual_seed(seed + 29)
+    src = torch.randint(0, BS_VOCAB, (BS_B, BS_SRC), generator=g,
+                        device="cuda")
+    print(f"  nn.Transformer() defaults + Embedding({BS_VOCAB}, {TR_D}) + "
+          f"Linear({TR_D}, {BS_VOCAB}): {n_params} parameters, float32; "
+          f"b{BS_B} x {BS_SRC} source ids, beam {BS_BEAMS}, "
+          f"max_step_num {BS_STEPS}, start {BS_START}, end {BS_END}")
+    beam_search(torch, parts, src[:, :128])          # warm-up
+    enc = []
+    with torch.no_grad():
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            parts[0].encoder(parts[1](src))
+            torch.cuda.synchronize()
+            enc.append((time.perf_counter() - t0) * 1e3)
+
+    record = []
+    torch.cuda.synchronize()
+    kernels.reset_kernel_launch_counts()
+    t0 = time.perf_counter()
+    ids, logp, lengths = beam_search(torch, parts, src, record)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = kernels.kernel_launch_counts()
+    want = {"flash_attention_qkv3_fwd": TR_LAYERS}
+    only_launched(counts, want, "nn.Transformer() beam search")
+    steps = len(record)
+    check(ids.shape == (BS_B, steps, BS_BEAMS) and steps == BS_STEPS
+          and torch.isfinite(logp).all(), f"ids {tuple(ids.shape)}, "
+          f"{steps} steps, log-probs finite {torch.isfinite(logp).all()}")
+    step_ms = statistics.median(
+        (b[0] - a[0]) * 1e3 for a, b in zip(record, record[1:]))
+    print(f"  launches { {k: v for k, v in counts.items() if v} }: "
+          f"B5's forward once a layer of the encoder; no B2 (a decode "
+          f"step's self- and cross-attention have one query, which "
+          f"composes) and no backward  ok")
+    print(f"  {card}: encoder {statistics.median(enc):.3f} ms p50 of 3 "
+          f"(b{BS_B} x {BS_SRC}); a decode step {step_ms:.3f} ms p50 of "
+          f"{steps - 1}; the whole beam search {wall:.1f} ms (encoder, "
+          f"{steps} steps, gather_tree)")
+    wall_us, busy_us, _, n_kern, calls, _ = profile_totals(
+        torch, lambda: beam_search(torch, parts, src))
+    print(f"  profile of one beam search: wall {wall_us / 1e3:.3f} ms, "
+          f"device busy {busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}"
+          f"%), {n_kern / steps:.0f} kernels and {calls / steps:.1f} host "
+          f"launch calls a step (the encoder's shared over the steps)")
+
+    twin = copy.deepcopy(parts)
+    for m in twin:
+        m.double()
+        for mod in m.modules():
+            if hasattr(mod, "use_flash"):
+                mod.use_flash = False
+    record64 = []
+    ids64, logp64, lengths64 = beam_search(torch, twin, src, record64)
+    del twin
+    logits, logits64 = [r[1] for r in record], [r[1] for r in record64]
+    rep32, rep64 = beam_replay(torch, logits), beam_replay(torch, logits64)
+    check(torch.equal(rep32[-1][2], logp), "the replayed selections are "
+          "not the decode's")
+    parted = beam_partings(torch, rep32, rep64)
+    n_shared = min(len(rep32), len(rep64))
+    slack, errs = beam_slack(torch, logits, logits64, rep32, {
+        r: parted[r][0] if r in parted else n_shared - 1
+        for r in range(BS_B)})
+    same = [r for r in range(BS_B) if r not in parted]
+    for r in same:
+        check(torch.equal(ids[r], ids64[r])
+              and torch.equal(lengths[r], lengths64[r]),
+              f"row {r}: no selection parted, yet its ids or lengths "
+              "differ")
+    lp_err = {r: (logp[r].double() - logp64[r].double()).abs().max().item()
+              for r in same}
+    scale = max(x.abs().max().item() for x in logits)
+    held = ", ".join(f"{r}: {lp_err[r]:.2e} <= {slack[r]:.2e}"
+                     for r in same)
+    gaps = ", ".join(f"{r}: step {t}, {g:.2e} <= {2 * slack[r]:.2e}"
+                     for r, (t, g) in parted.items())
+    print(f"  float64 copy (attention composed): logits on each row's "
+          f"shared steps within {max(errs.values()):.3e} (<= "
+          f"{BS_LOGIT_ATOL}; largest |logit| {scale:.4f}); {len(same)} of "
+          f"{BS_B} rows equal in ids and lengths, log-prob error against "
+          f"its slack (row: error <= slack): {held or 'none'}; rows parted "
+          f"(row: step, the copy's score gap <= 2 x slack): "
+          f"{gaps or 'none'}")
+    check(max(errs.values()) <= BS_LOGIT_ATOL
+          and all(lp_err[r] <= slack[r] for r in same)
+          and all(g <= 2 * slack[r] for r, (_, g) in parted.items()),
+          f"beam search against its float64 copy: logit errors {errs}, "
+          f"log-prob errors {lp_err}, partings {parted}, slack {slack}")
+    print("  ok")
+    del parts, record, record64
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: counts[k] for k in want}
+
+
+def sweep_cases_26(torch, nn, F, rand):
+    """Phase 26c's cases (A5 slice 3), as `sweep_cases`: the recurrent
+    layers (the stacks with ``sequence_length`` through the packed fused
+    route, `RNN` and `BiRNN` over each cell), the extra functions and
+    layers, ``weight_norm`` and ``spectral_norm``, and the quant layers
+    (forward, STE grads, running scales in their buffers)."""
+    from paddle_tpu_torch.nn import quant, utils
+
+    class Flat(nn.Layer):
+        """``call(inner, *inputs)``'s tensors flattened into one."""
+
+        def __init__(self, inner, call):
+            super().__init__()
+            self.inner, self._call = inner, call
+
+        def forward(self, *xs):
+            def leaves(o):
+                if isinstance(o, (tuple, list)):
+                    return [v for i in o for v in leaves(i)]
+                return [o.reshape(-1)]
+            return torch.cat(leaves(self._call(self.inner, *xs)))
+
+    cuda = dict(device="cuda")
+    x, lens = rand(3, 7, 6), torch.tensor([7, 2, 5], device="cuda")
+    seq = lambda m, a, n: m(a, sequence_length=n)         # noqa: E731
+    plain = lambda m, *a: m(*a)                           # noqa: E731
+    x4 = rand(2, 6, 8, 10)
+    pooled, mask = F.max_pool2d(x4, 2, 2, return_mask=True)
+    labels = torch.randint(1, 5, (3, 4), device="cuda")
+    ctc = [rand(12, 3, 5), labels, torch.tensor([12, 9, 10], device="cuda"),
+           torch.tensor([4, 2, 1], device="cuda")]
+    y5 = torch.randint(0, 7, (5,), device="cuda")
+    two = (rand(5, 7), rand(5, 7))
+    cells = {"LSTMCell": nn.LSTMCell, "GRUCell": nn.GRUCell,
+             "SimpleRNNCell": nn.SimpleRNNCell}
+    rnns = [
+        ("GRU bidirect, sequence_length", lambda: Flat(nn.GRU(
+            6, 5, 2, "bidirect", **cuda), seq), [x, lens]),
+        ("LSTM bidirect, sequence_length", lambda: Flat(nn.LSTM(
+            6, 5, 2, "bidirect", **cuda), seq), [x, lens]),
+        ("SimpleRNN relu, time_major", lambda: Flat(nn.SimpleRNN(
+            6, 5, 2, time_major=True, activation="relu", **cuda), plain),
+         [x.transpose(0, 1).contiguous()])]
+    rnns += [(f"RNN({c}), sequence_length", lambda c=c: Flat(nn.RNN(
+        cells[c](6, 5, **cuda)), seq), [x, lens]) for c in cells]
+    rnns += [(f"BiRNN({c}), sequence_length", lambda c=c: Flat(nn.BiRNN(
+        cells[c](6, 5, **cuda), cells[c](6, 5, **cuda)), seq), [x, lens])
+        for c in cells]
+    extra = [
+        ("ctc_loss (mean)", lambda: F.ctc_loss, ctc),
+        ("CTCLoss (sum, norm_by_times)", lambda: Flat(nn.CTCLoss(
+            reduction="sum"), lambda m, *a: m(*a, norm_by_times=True)), ctc),
+        ("HSigmoidLoss", lambda: nn.HSigmoidLoss(7, 6, **cuda),
+         [two[0], y5 % 6]),
+        ("max_unpool2d", lambda: lambda a, m: F.max_unpool2d(a, m, 2, 2),
+         [pooled, mask]),
+        ("MaxUnPool2D", lambda: nn.MaxUnPool2D(2), [pooled, mask]),
+        ("pairwise_distance", lambda: F.pairwise_distance, list(two)),
+        ("multi_margin_loss", lambda: F.multi_margin_loss, [two[0], y5]),
+        ("margin_cross_entropy", lambda: F.margin_cross_entropy,
+         [torch.tanh(two[0]), y5]),
+        ("sigmoid_focal_loss", lambda: F.sigmoid_focal_loss,
+         [two[0], (two[1] > 0).float()]),
+        ("npair_loss", lambda: F.npair_loss, [*two, y5 % 3]),
+        ("TripletMarginWithDistanceLoss (swap)", lambda:
+         nn.TripletMarginWithDistanceLoss(swap=True), [*two, rand(5, 7)]),
+        ("diag_embed", lambda: lambda a: F.diag_embed(a, 1), [rand(3, 4)]),
+        ("Softmax2D", nn.Softmax2D, [x4]),
+        ("gather_tree", lambda: F.gather_tree,
+         [torch.randint(0, 9, (6, 2, 3), device="cuda"),
+          torch.randint(0, 3, (6, 2, 3), device="cuda")])]
+    norms = [
+        ("weight_norm(Linear)", lambda: utils.weight_norm(nn.Linear(
+            7, 4, **cuda)), [two[0]]),
+        ("weight_norm(Conv2D, dim=None)", lambda: utils.weight_norm(
+            nn.Conv2D(6, 4, 3, **cuda), dim=None), [x4]),
+        ("spectral_norm(Linear)", lambda: utils.spectral_norm(nn.Linear(
+            7, 4, **cuda), n_power_iterations=3), [two[0]])]
+    quants = [
+        ("QuantedLinear (train: scale updates)", lambda: quant.QuantizedLinear(
+            nn.Linear(7, 4, **cuda)), [two[0]]),
+        ("QuantedConv2D", lambda: quant.QuantizedConv2D(nn.Conv2D(
+            6, 4, 3, **cuda)), [x4]),
+        ("FakeQuantChannelWiseAbsMax", lambda:
+         quant.FakeQuantChannelWiseAbsMax(quant_axis=1), [x4]),
+        ("QuantizedColumnParallelLinear", lambda:
+         quant.QuantizedColumnParallelLinear(nn.Linear(7, 4, **cuda)),
+         [two[0]]),
+        ("MovingAverageAbsMaxScale", lambda: quant.MovingAverageAbsMaxScale(
+            **cuda), [two[0]]),
+        ("fake_quant (scale 0.8: STE zero outside)", lambda:
+         lambda a: quant.fake_quant(a, 0.8), [two[0]])]
+    return rnns + extra + norms + quants
 
 
 def print_build_report(name, report):
@@ -7599,6 +8281,23 @@ def main(argv=None) -> int:
               f"{phase25})")
         print(f"[25c] the layer sweep, card against CPU, on {card}")
         layer_sweep_phase(torch, args.seed)
+        print("[26] A5 slice 3 (the RNNs, BeamSearchDecoder/dynamic_decode, "
+              "the extra layers and functions, nn.utils, nn.quant): the "
+              "Zaremba large LSTM trained eagerly, nn.Transformer() "
+              "beam-searched, a layer sweep against the CPU")
+        print(f"[26a] the Zaremba large LSTM LM (b{PTB_B} x {PTB_T}, float32) "
+              f"on {card}")
+        ptb_phase(torch, args.seed, card)
+        print(f"[26b] nn.Transformer() beam search (b{BS_B} x {BS_SRC}, beam "
+              f"{BS_BEAMS}, {BS_STEPS} steps, float32) on {card}")
+        phase26 = beam_phase(torch, args.seed, card)
+        for name, n in phase26.items():
+            launches[name] += n
+        print(f"  (B5's launches in the kernel line add phase 26's "
+              f"{phase26})")
+        print(f"[26c] the layer sweep of A5 slice 3, card against CPU, on "
+              f"{card}")
+        layer_sweep_phase(torch, args.seed, sweep_cases_26)
     print(f"  width-512 launches of B3 over phases 4-18: {wide_seen}")
     launches.update({name: wide_seen[c] for name, c in wide_names.items()})
     for rec in records:

@@ -8,7 +8,11 @@ local-response and spectral norms), pooling, the common layers
 upsampling, shuffling, `Bilinear`, ...) with paddle_tpu's layouts and
 default initializers, the convolutions, the transformer layers
 (`MultiHeadAttention` with its caches, the encoder and decoder layers
-and stacks, `Transformer`) and gradient clipping (`clip`)."""
+and stacks, `Transformer`), gradient clipping (`clip`), the recurrent
+layers (`rnn`: the cells, `RNN`, `BiRNN`, `SimpleRNN`, `LSTM`, `GRU`),
+beam search (`BeamSearchDecoder`, `dynamic_decode`), the long tail of
+layers (`extra_layers`), `utils` (weight and spectral norm, parameter
+vectors) and `quant` (fake-quant layers and quantized wrappers)."""
 from . import functional, initializer
 from .activation import (CELU, ELU, GELU, GLU, Hardshrink, Hardsigmoid,
                          Hardswish, Hardtanh, LeakyReLU, LogSigmoid,
@@ -44,7 +48,16 @@ from .pooling import (AdaptiveAvgPool1D, AdaptiveAvgPool2D,
 from .transformer import (MultiHeadAttention, Transformer, TransformerDecoder,
                           TransformerDecoderLayer, TransformerEncoder,
                           TransformerEncoderLayer)
-from . import activation, common, loss, norm, pooling
+from .rnn import (BiRNN, GRU, GRUCell, LSTM, LSTMCell, RNN, RNNCellBase,
+                  SimpleRNN, SimpleRNNCell)
+from .extra_layers import (CTCLoss, Fold, HSigmoidLoss, MaxUnPool1D,
+                           MaxUnPool2D, MaxUnPool3D, MultiLabelSoftMarginLoss,
+                           MultiMarginLoss, PairwiseDistance, Silu,
+                           SoftMarginLoss, Softmax2D,
+                           TripletMarginWithDistanceLoss)
+from .decode import BeamSearchDecoder, dynamic_decode
+from . import (activation, common, extra_layers, loss, norm, pooling, quant,
+               rnn, utils)
 
 __all__ = ["functional", "initializer", "ClipGradBase",
            "ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue",
@@ -54,5 +67,6 @@ __all__ = ["functional", "initializer", "ClipGradBase",
            "LazyGuard", "MultiHeadAttention", "ParameterList", "Sequential",
            "Transformer", "TransformerDecoder", "TransformerDecoderLayer",
            "TransformerEncoder", "TransformerEncoderLayer",
-           *activation.__all__, *common.__all__, *loss.__all__,
+           "BeamSearchDecoder", "dynamic_decode", "utils", "quant",
+           *rnn.__all__, *extra_layers.__all__, *activation.__all__, *common.__all__, *loss.__all__,
            *norm.__all__, *pooling.__all__]

@@ -1,8 +1,8 @@
 """`nn.functional`, in the reference's package layout
 (``paddle_tpu/nn/functional/__init__.py``): `activation`, `common`,
-`conv`, `loss`, `norm`, `pooling` and `vision`, each the torch
-counterpart of the reference module of that name, and of `extra` only
-`max_pool_with_mask` (in `pooling`, which calls it). Every name is
+`conv`, `loss`, `norm`, `pooling`, `vision` and `extra`, each the torch
+counterpart of the reference module of that name (`extra`'s
+`max_pool_with_mask` lives in `pooling`, which calls it). Every name is
 importable from here, and so are the kernel entries the functions
 call: ``flash_attention`` (B2's, which `scaled_dot_product_attention`
 reads from here when called), ``flash_attention_enabled`` (its gate)
@@ -40,7 +40,15 @@ from .pooling import (adaptive_avg_pool1d, adaptive_avg_pool2d,
                       avg_pool2d, avg_pool3d, max_pool1d, max_pool2d,
                       max_pool3d, max_pool_with_mask)
 from .vision import affine_grid, fold, grid_sample, temporal_shift
-from . import activation, common, conv, loss, norm, pooling, vision
+from .extra import (class_center_sample, ctc_loss, diag_embed, elu_,
+                    gather_tree, hsigmoid_loss, margin_cross_entropy,
+                    max_unpool1d, max_unpool2d, max_unpool3d,
+                    multi_label_soft_margin_loss, multi_margin_loss,
+                    npair_loss, pairwise_distance, sigmoid_focal_loss,
+                    soft_margin_loss, softmax_, sparse_attention, tanh_,
+                    triplet_margin_with_distance_loss, zeropad2d)
+from . import activation, common, conv, extra, loss, norm, pooling, vision
 
 __all__ = [*activation.__all__, *common.__all__, *conv.__all__,
-           *loss.__all__, *norm.__all__, *pooling.__all__, *vision.__all__]
+           *loss.__all__, *norm.__all__, *pooling.__all__, *vision.__all__,
+           *extra.__all__]

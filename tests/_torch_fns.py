@@ -1,11 +1,14 @@
-"""Shared helpers of the functional parity tests (tests/test_torch_
-activation.py, test_torch_loss.py, test_torch_norm.py,
-test_torch_pooling.py, test_torch_vision_fns.py, test_torch_resnet.py):
+"""Shared helpers of the functional and layer parity tests (tests/
+test_torch_activation.py, test_torch_loss.py, test_torch_norm.py,
+test_torch_pooling.py, test_torch_vision_fns.py, test_torch_resnet.py,
+test_torch_rnn.py, test_torch_nn_extra.py, test_torch_nn_utils_quant.py):
 a reference function's output and its inputs' grads through ``jax.vjp``,
 the port's through ``torch.autograd``, both with the loss ``sum(y * r)``
-for one random ``r``; a reference layer's weights carried into the
-port's twin; and a scope that puts back both packages' random state and
-global initializers. Imports jax: CPU tests only."""
+for one random ``r``; one pass of a reference layer and of its twin,
+outputs that are trees flattened to their leaves (`ref_layer_step`,
+`port_layer_step`, `step_held`); a reference layer's weights carried
+into the port's twin; and a scope that puts back both packages' random
+state and global initializers. Imports jax: CPU tests only."""
 import contextlib
 
 import jax
@@ -100,12 +103,68 @@ def both(jfn, pfn, arrays, diff, rel, jit=True, **kw):
          ref_vjp(jfn, arrays, diff, jit=jit, **kw), rel, pfn.__name__)
 
 
-def ref_layer_step(jlayer, loss_of, x, train=True):
+def _jwrap(v):
+    """Numpy arrays in a tree of arguments as reference Tensors."""
+    if isinstance(v, np.ndarray):
+        return JTensor(jnp.asarray(v))
+    if isinstance(v, dict):
+        return {k: _jwrap(x) for k, x in v.items()}
+    if isinstance(v, (tuple, list)):
+        return type(v)(_jwrap(x) for x in v)
+    return v
+
+
+def _pwrap(v):
+    """Numpy arrays in a tree of arguments as torch tensors."""
+    if isinstance(v, np.ndarray):
+        return torch.from_numpy(np.array(v))
+    if isinstance(v, dict):
+        return {k: _pwrap(x) for k, x in v.items()}
+    if isinstance(v, (tuple, list)):
+        return type(v)(_pwrap(x) for x in v)
+    return v
+
+
+def jleaves(out):
+    """The jax values of a tree of reference Tensors, in order."""
+    if isinstance(out, (tuple, list)):
+        return [v for o in out for v in jleaves(o)]
+    return [] if out is None else [out._value]
+
+
+def pleaves(out):
+    """The tensors of a tree of the port's outputs, in order."""
+    if isinstance(out, (tuple, list)):
+        return [v for o in out for v in pleaves(o)]
+    return [] if out is None else [out]
+
+
+def _inputs(x):
+    """``{name: array}`` of a step's differentiated inputs: ``"x"`` for
+    one array, ``"input i"`` for each of a list."""
+    if isinstance(x, (list, tuple)):
+        return {f"input {i}": a for i, a in enumerate(x)}
+    return {"x": x}
+
+
+def _leaf_loss(leaves, wrap):
+    """``sum_i sum(leaf_i * r_i)``, one random ``r_i`` a leaf
+    (`_cotangent`, seeds 99, 100, ...), ``wrap`` making ``r_i`` the
+    leaf's kind of array."""
+    return sum((v * wrap(_cotangent(tuple(v.shape), 99 + i))).sum()
+               for i, v in enumerate(leaves))
+
+
+def ref_layer_step(jlayer, loss_of, x, train=True, kw=None):
     """``(loss, out, grads, buffers)`` of one pass of the reference layer
-    in train (or eval) mode: ``loss_of(out)`` (a jax function of the raw
-    output) under one jitted ``jax.value_and_grad`` over ``x`` (grads key
-    ``"x"``) and the parameters (their names), the buffers fed in and the
-    values the pass leaves in them read out. The layer is evaluated under
+    in train (or eval) mode, ``jlayer(*x, **kw)``: ``loss_of(out)`` (a
+    jax function of the raw output; None: `_leaf_loss` of the output's
+    leaves) under one jitted ``jax.value_and_grad`` over ``x`` (one
+    array, grads key ``"x"``, or a list, keys ``"input i"``) and the
+    parameters (their names), the buffers fed in and the values the pass
+    leaves in them read out; ``kw`` (a tree of arrays and other
+    arguments) enters as constants. ``out`` is the output as numpy, or
+    its leaves' list when it is a tree. The layer is evaluated under
     ``jax.ensure_compile_time_eval``, so that constants it makes stay
     constants (a max pool's -inf start, traced, has no reverse mode). Its
     own values stay as they were."""
@@ -113,6 +172,8 @@ def ref_layer_step(jlayer, loss_of, x, train=True):
     sd = jlayer.state_dict()
     pnames = [n for n, _ in jlayer.named_parameters()]
     bnames = [n for n in sd if n not in set(pnames)]
+    xs = _inputs(x)
+    jkw = _jwrap(kw or {})
 
     def f(diff, bufs):
         saved = {n: sd[n]._value for n in sd}
@@ -122,36 +183,73 @@ def ref_layer_step(jlayer, loss_of, x, train=True):
             for n in bnames:
                 sd[n]._value = bufs[n]
             with jautograd.no_grad(), jax.ensure_compile_time_eval():
-                out = jlayer(JTensor(diff["x"]))._value
+                out = jlayer(*[JTensor(diff[n]) for n in xs], **jkw)
             new = {n: sd[n]._value for n in bnames}
         finally:
             for n, v in saved.items():
                 sd[n]._value = v
-        return loss_of(out), (out, new)
+        raw = out._value if isinstance(out, JTensor) else jleaves(out)
+        loss = (loss_of(raw) if loss_of is not None
+                else _leaf_loss(jleaves(out), jnp.asarray))
+        return loss, (raw, new)
 
     diff = {n: sd[n]._value for n in pnames}
-    diff["x"] = jnp.asarray(x)
+    diff.update((n, jnp.asarray(a)) for n, a in xs.items())
     (loss, (out, new)), grads = jax.jit(jax.value_and_grad(f, has_aux=True))(
         diff, {n: sd[n]._value for n in bnames})
-    return (np.asarray(loss), np.asarray(out),
+    out = ([np.asarray(v) for v in out] if isinstance(out, list)
+           else np.asarray(out))
+    return (np.asarray(loss), out,
             {n: np.asarray(g) for n, g in grads.items()},
             {n: np.asarray(v) for n, v in new.items()})
 
 
-def port_layer_step(layer, loss_of, x, train=True):
+def port_layer_step(layer, loss_of, x, train=True, kw=None):
     """The port's ``(loss, out, grads, buffers)`` as `ref_layer_step`
     gives the reference's; the layer's buffers are updated as its pass
-    updates them."""
+    updates them. A parameter the pass does not reach has the grad
+    None (`step_held` then wants the reference's to be zero)."""
     layer.train(train)
-    layer.zero_grad()
-    xt = torch.tensor(x, requires_grad=True)
-    out = layer(xt)
-    loss = loss_of(out)
+    layer.zero_grad(set_to_none=True)
+    ts = {n: torch.tensor(a, requires_grad=True)
+          for n, a in _inputs(x).items()}
+    out = layer(*ts.values(), **_pwrap(kw or {}))
+    tree = not isinstance(out, torch.Tensor)
+    loss = (loss_of(out) if loss_of is not None
+            else _leaf_loss(pleaves(out), torch.from_numpy))
     loss.backward()
-    grads = {n: p.grad.numpy() for n, p in layer.named_parameters()}
-    grads["x"] = xt.grad.numpy()
+    grads = {n: None if p.grad is None else p.grad.numpy()
+             for n, p in layer.named_parameters()}
+    grads.update((n, t.grad.numpy()) for n, t in ts.items())
     bufs = {n: b.numpy().copy() for n, b in layer.named_buffers()}
-    return loss.detach().numpy(), out.detach().numpy(), grads, bufs
+    out = ([v.detach().numpy() for v in pleaves(out)] if tree
+           else out.detach().numpy())
+    return loss.detach().numpy(), out, grads, bufs
+
+
+def step_held(got, want, rel, what="", names=None):
+    """Two layer steps' (`port_layer_step`'s and `ref_layer_step`'s)
+    outputs and grads within ``rel`` of each tensor's largest |value|
+    (`_torch_layers.close_to_scale`); a grad the port has as None must
+    be zero in the reference. ``names`` (the port layer) keeps only the
+    reference's grads of its parameters and the inputs."""
+    (_, gout, gg, _), (_, wout, wg, _) = got, want
+    gl = gout if isinstance(gout, list) else [gout]
+    wl = wout if isinstance(wout, list) else [wout]
+    assert len(gl) == len(wl), (what, len(gl), len(wl))
+    for i, (a, b) in enumerate(zip(gl, wl)):
+        assert a.shape == b.shape, (what, i, a.shape, b.shape)
+        tl.close_to_scale(a, b, rel, f"{what} output leaf {i}")
+    if names is not None:
+        keep = dict(names.named_parameters())
+        wg = {n: g for n, g in wg.items()
+              if n in keep or n == "x" or n.startswith("input ")}
+    assert sorted(gg) == sorted(wg), (what, sorted(gg), sorted(wg))
+    for name in wg:
+        if gg[name] is None:
+            assert not np.any(wg[name]), (what, name, "no grad in the port")
+        else:
+            tl.close_to_scale(gg[name], wg[name], rel, f"{what} grad {name}")
 
 
 def twin(jlayer, make):

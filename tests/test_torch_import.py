@@ -96,7 +96,15 @@ MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.device",
            "paddle_tpu_torch.nn.activation", "paddle_tpu_torch.nn.loss",
            "paddle_tpu_torch.nn.pooling", "paddle_tpu_torch.vision",
            "paddle_tpu_torch.vision.models",
-           "paddle_tpu_torch.vision.models.resnet"]
+           "paddle_tpu_torch.vision.models.resnet",
+           "paddle_tpu_torch.nn.rnn", "paddle_tpu_torch.nn.decode",
+           "paddle_tpu_torch.nn.extra_layers", "paddle_tpu_torch.nn.utils",
+           "paddle_tpu_torch.nn.functional.extra",
+           "paddle_tpu_torch.nn.quant",
+           "paddle_tpu_torch.nn.quant.quant_layers",
+           "paddle_tpu_torch.nn.quant.functional_layers",
+           "paddle_tpu_torch.quantization",
+           "paddle_tpu_torch.quantization.layers"]
 
 
 def test_import_pulls_in_no_jax_and_no_paddle_tpu():
