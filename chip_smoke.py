@@ -409,6 +409,23 @@ Phases, in order; any failure exits non-zero:
    each cell, ``ctc_loss``, ``hsigmoid_loss``, ``max_unpool2d``,
    ``weight_norm``, ``spectral_norm`` and the quant layers (STE grads,
    running scales).
+27. A2 and A3: (a) the float16 forms of B2 (B8 S512 H16 D64, key
+   padding, dropout 0.1), B5 (the same shape, full), B1 (B8 S1024 H16
+   D128 causal), B4 (B1 S2048 H16 D128, a random lse cotangent) and P1
+   (gpt3-1.3b's 292 tensors: float16 params and grads with float32
+   moments and masters, and float16 throughout) against their plain
+   versions, 8 float16 ulps of each element's scale beside a float32
+   control (P1 within 1 ulp), each timed beside its bf16 form at the
+   same shape, SDPA in float16 (P1: ``torch._fused_adamw_`` on the
+   masters) and its bound. (b) phase 26b's model in train mode (dropout
+   0.1) trained eagerly on b32 x (256 + 128) ids with ``AdamW(0.9,
+   0.98, 1e-9)`` under `amp.auto_cast`: O1 float16 with a
+   ``GradScaler(2**15)``, O2 float16 through `amp.decorate` with the
+   scaler, O1 bfloat16 without one; each run's float32 check on
+   TR_HELD's grads (phases 20-25's rule), the hook's casts of one step
+   by op, B2 (float16 or bf16) and B5 (float32 under O1, float16 under
+   O2) launches, no composed attention, step ms p50 of steps 2-6,
+   tokens/s, peak memory, the loss scale, skipped steps and a profile.
 
 The kernel phase (3) also holds the paged kernel at head dims above 256
 (D 320 and 512: width 512 in 2-query tiles; ps 16 and 4, f32, bf16 and
@@ -428,7 +445,9 @@ script prints no result and exits 1.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
+import copy
 import gc
 import json
 import math
@@ -1302,28 +1321,38 @@ def tail_kernel_phase(torch, pa):
     return record
 
 
+def ulp_unit(dtype):
+    """One ulp of a value of scale 1 in a 16-bit ``dtype``, as these
+    checks count it: 2^-8 in bfloat16 (7 stored mantissa bits), 2^-11 in
+    float16 (10)."""
+    return 2.0 ** -11 if str(dtype) == "torch.float16" else 2.0 ** -8
+
+
 def flash_ulps(x, ref, d):
-    """``|x - ref|`` of each element in bf16 ulps (2^-8) of its scale:
-    the largest of its own ``|ref|``, the rms of its row (one head's
-    ``d`` values at one position, which all sum the same rounded
-    products) and FLASH_SCALE_FLOOR x the tensor's rms. Returns the
-    largest reading and the mean ``|ref|`` (the typical value)."""
+    """``|x - ref|`` of each element in ulps of ``ref``'s 16-bit dtype
+    (`ulp_unit`: bf16 2^-8, fp16 2^-11) of its scale: the largest of its
+    own ``|ref|``, the rms of its row (one head's ``d`` values at one
+    position, which all sum the same rounded products) and
+    FLASH_SCALE_FLOOR x the tensor's rms. Returns the largest reading and
+    the mean ``|ref|`` (the typical value)."""
     r = ref.float().reshape(-1, d)
-    ulps = (x.float().reshape(-1, d) - r).abs() / flash_ulp(r)
+    ulps = (x.float().reshape(-1, d) - r).abs() / flash_ulp(
+        r, ulp_unit(ref.dtype))
     return ulps.max().item(), r.abs().mean().item()
 
 
-def flash_ulp(r):
-    """One bf16 ulp (2^-8) of the scale of each element of ``r`` (rows of
-    one head's ``d`` values, float32): the largest of its own ``|r|``,
-    its row's rms and FLASH_SCALE_FLOOR x the tensor's rms."""
+def flash_ulp(r, unit=2.0 ** -8):
+    """One ulp (``unit``, default bf16's 2^-8) of the scale of each
+    element of ``r`` (rows of one head's ``d`` values, float32): the
+    largest of its own ``|r|``, its row's rms and FLASH_SCALE_FLOOR x the
+    tensor's rms."""
     import torch
 
     scale = torch.maximum(r.abs(),
                           r.square().mean(dim=1, keepdim=True).sqrt())
     scale = scale.clamp(min=FLASH_SCALE_FLOOR * r.square().mean().sqrt()
                         .item())
-    return scale * 2.0 ** -8
+    return scale * unit
 
 
 def flash_case(b, s, h, d, dtype, seed):
@@ -1385,7 +1414,8 @@ def flash_compare(torch, fns, qkv, do, h, causal, p, seed_t):
         ulps, typical = flash_ulps(x, ref, d)
         ctrl_ulps, _ = flash_ulps(ctrl, ref, d)
         reading = (f"{name}: max|diff| {err[name]:.3e}, {ulps:.3f} ulps of "
-                   f"its scale (limit {limit}; bf16 rounding control "
+                   f"its scale (limit {limit}; {str(qkv.dtype)[6:]} "
+                   f"rounding control "
                    f"{ctrl_ulps:.3f}; mean|ref| {typical:.3e})")
         check(ulps <= limit, f"flash {reading}")
         parts.append(reading)
@@ -8084,11 +8114,553 @@ def sweep_cases_26(torch, nn, F, rand):
     return rnns + extra + norms + quants
 
 
+# ----------------------------------- phase 27: A2 and A3, float16 and AMP
+def half_times(torch, copies, fwd, bwd, iters=(20, 10)):
+    """``(fwd ms, bwd ms)`` of a kernel pair over three input copies
+    (past the L2): ``fwd(c)`` returns what ``bwd(c, saved)`` takes."""
+    it = iter(range(10 ** 9))
+    saved = [fwd(c) for c in copies]
+
+    def back():
+        i = next(it) % 3
+        bwd(copies[i], saved[i])
+
+    return (time_ms(lambda: fwd(copies[next(it) % 3]), iters[0]),
+            time_ms(back, iters[1]))
+
+
+def sdpa_times(torch, heads, **kw):
+    """``(fwd ms, bwd ms)`` of SDPA over three copies of ``[q, k, v, do]``
+    head-major (q, k, v leaves that require grad); the backward is the
+    forward+backward less the forward."""
+    import torch.nn.functional as F
+
+    it = iter(range(10 ** 9))
+
+    def run(backward):
+        def go():
+            q, k, v, do = heads[next(it) % 3]
+            out = F.scaled_dot_product_attention(q, k, v, **kw)
+            if backward:
+                out.backward(do)
+        return go
+
+    f = time_ms(run(False), 20)
+    return f, time_ms(run(True), 10) - f
+
+
+def work_record(name, src, line, err, ms, plain, lib, work, label):
+    """A kernel line record from its times and ``work`` = (bytes, flops)
+    at 989 TFLOP/s (bf16 and fp16 tensor cores) and 3.35 TB/s; prints
+    the reading."""
+    nbytes, flops = work
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"  {name} at {label}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+          f"library {lib:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}; "
+          f"{nbytes} bytes, {flops} flops)")
+    return {"name": name, "route": "cuda",
+            "source": f"paddle_tpu_torch/kernels/csrc/{src}.cu",
+            "replaces": f"paddle_tpu/kernels/flash_attention.py:{line}",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib}
+
+
+def fp16_kernel_phase(torch, seed):
+    """Phase 27a: the float16 forms of B2, B5, B1, B4 and P1 against their
+    plain versions on the card at the shapes of PERF.md §6 (B2 also at
+    head dims 192, 256 and 384, and B2 and B5 at phase 27b's own shapes,
+    dropout 0 and 0.1, untimed), each 16-bit
+    output held to 8 float16 ulps (2^-11) of each element's scale
+    (`flash_ulps`, as bf16 is held to 8 bf16 ulps) beside a float32
+    control, lse to TOL_F32; P1 within 1 ulp of each stored dtype. Each
+    timed behind a sleep beside its bf16 form at the same shape, its
+    plain version, SDPA in float16 (P1: ``torch._fused_adamw_`` on the
+    float32 masters) and its bound. Returns the float16 records."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import multi_tensor_adam as mta
+    from paddle_tpu_torch.models.gpt import GPTForPretraining, gpt_config
+    from paddle_tpu_torch.nn import Transformer
+
+    f16, bf = torch.float16, torch.bfloat16
+    seed_t = torch.tensor([FLASH_SEED], dtype=torch.int32, device="cuda")
+    records = []
+
+    # (a) B2, rows 2-3: BERT-large's B8 S512 H16 D64, key padding, p=0.1
+    b, s, h, d = BERT_B, BERT_S, 16, 64
+    mask, lens = key_padding(torch, b, s, 1)
+    bias = fa.normalize_mask_bias(mask)
+    kw = dict(bias=bias, dropout_p=0.1, seed=seed_t)
+    copies = {dt: [general_case(b, s, s, h, d, dt, seed=270 + i)
+                   for i in range(3)] for dt in (f16, bf)}
+    err_o, err_g, line = general_compare(torch, fa, *copies[f16][0], False,
+                                         bias, 0.1, seed_t)
+    print(f"  flash_attention (B2) B{b} S{s} H{h} D{d} float16 key padding "
+          f"p=0.1: {line}  ok")
+    times = {dt: half_times(
+        torch, copies[dt], lambda c: fa.flash_attention_fwd(
+            *c[:3], False, **kw),
+        lambda c, sv: fa.flash_attention_bwd(*c[:3], *sv, c[3], False, **kw))
+        for dt in (f16, bf)}
+    q, k, v, do = copies[f16][0]
+    ro, rlse = fa.flash_reference(q, k, v, False, **kw)
+    plain = (time_ms(lambda: fa.flash_reference(q, k, v, False, **kw), 3, 1),
+             time_ms(lambda: fa.flash_bwd_reference(q, k, v, ro, rlse, do,
+                                                    False, **kw), 3, 1))
+    heads = [[x.transpose(1, 2).detach().requires_grad_(True)
+              for x in c[:3]] + [c[3].transpose(1, 2)] for c in copies[f16]]
+    lib = sdpa_times(torch, heads, attn_mask=bias[:, None].to(f16),
+                     dropout_p=0.1)
+    k_rows = int(lens.sum().item())
+    work = general_work(b, s, s, h, d, s * k_rows, k_rows, 2, b * s * 4)
+    label = f"B{b} S{s} H{h} D{d} key padding p=0.1"
+    for j, (name, ln) in enumerate((("flash_attention_fwd_f16", 207),
+                                    ("flash_attention_bwd_f16", 536))):
+        records.append(work_record(name, "flash_attention", ln,
+                                   (err_o, err_g)[j], times[f16][j],
+                                   plain[j], lib[j], work[j],
+                                   label + " fp16"))
+        print(f"    bf16 at the same shape {times[bf][j]:.4f} ms: fp16 / "
+              f"bf16 {times[f16][j] / times[bf][j]:.3f}")
+    del copies, heads
+
+    # B2 at head dims above 128 in float16 (the wgmma kernels on 64-key
+    # tiles at 192 and 256, mma.sync sliced over D at 384), wide_flash_
+    # phase's edge shape (e): Sq=128 Sk=384 causal, dropout 0.1
+    for d in (192, 256, 384):
+        q, k, v, do = general_case(2, 128, 384, 2, d, f16, seed=300 + d)
+        line = general_compare(torch, fa, q, k, v, do, True, None, 0.1,
+                               seed_t)[2]
+        print(f"  flash_attention (B2) B2 Sq128 Sk384 H2 D{d} float16 causal "
+              f"p=0.1: {line}  ok")
+
+    # phase 27b's own attention shapes at B32 H8 D64, dropout 0 (its
+    # float32 check) and 0.1 (its steps), as general_flash_phase's (j)
+    # and (k) and qkv3_kernel_phase hold bf16 and f32 there: B2 in the
+    # decoder's self-attention (Sq=Sk=128 under the causal -inf bias) and
+    # its cross-attention (Sq=128 Sk=256), B5 in the encoder's
+    # self-attention (S=256, full; float16 under O2)
+    bias_j = fa.normalize_mask_bias(Transformer(
+        64, 1, 1, 1, 64, device="cuda").generate_square_subsequent_mask(
+            TR_TGT))
+    three = qkv_fns(fa, "which")
+    for p in (0.0, 0.1):
+        for name, s_k, bias in (("self-attention", TR_TGT, bias_j),
+                                ("cross-attention", TR_SRC, None)):
+            q, k, v, do = general_case(TR_B, TR_TGT, s_k, 8, 64, f16,
+                                       seed=310 + s_k + int(10 * p))
+            line = general_compare(torch, fa, q, k, v, do, False, bias, p,
+                                   seed_t)[2]
+            print(f"  flash_attention (B2) at 27b's decoder {name} B{TR_B} "
+                  f"Sq{TR_TGT} Sk{s_k} H8 D64 float16 p={p}: {line}  ok")
+        qkv, do = flash_case(TR_B, TR_SRC, 8, 64, f16, seed=330 + int(10 * p))
+        line = flash_compare(torch, three, qkv, do, 8, False, p, seed_t)[1]
+        print(f"  flash_attention_qkv3 (B5) at 27b's encoder self-attention "
+              f"B{TR_B} S{TR_SRC} H8 D64 float16 full p={p}: {line}  ok")
+    del q, k, v, do, qkv
+
+    # (b) B5, rows 8-9, and (c) B1, rows 6-7: the which-major projection
+    # at the fused BERT's B8 S512 H16 D64 full p=0.1; the pair-major one
+    # at GPT's B8 S1024 H16 D128 causal p=0
+    for layout, (b, s, h, d), causal, p, names, lines in (
+            ("which", (BERT_B, BERT_S, 16, 64), False, 0.1,
+             ("flash_attention_qkv3_fwd_f16", "flash_attention_qkv3_bwd_f16"),
+             (1018, 1044)),
+            ("pair", (TRAIN_B, TRAIN_S, 16, 128), True, 0.0,
+             ("flash_attention_qkv_fwd_f16", "flash_attention_qkv_bwd_f16"),
+             (849, 876))):
+        fns = qkv_fns(fa, layout)
+        sd = seed_t if p else None
+        copies = {dt: [flash_case(b, s, h, d, dt, seed=280 + i)
+                       for i in range(3)] for dt in (f16, bf)}
+        err, line, _ = flash_compare(torch, fns, *copies[f16][0], h, causal,
+                                     p, sd)
+        label = (f"B{b} S{s} H{h} D{d} {'causal' if causal else 'full'} "
+                 f"p={p}")
+        print(f"  {names[0][:-8]} ({'B5' if layout == 'which' else 'B1'}) "
+              f"{label} float16: {line}  ok")
+        times = {dt: half_times(
+            torch, copies[dt], lambda c: fns[0](c[0], h, causal, p, sd),
+            lambda c, sv: fns[2](c[0], c[1], *sv, h, causal, p, sd))
+            for dt in (f16, bf)}
+        qkv, do = copies[f16][0]
+        ro, rlse = fns[1](qkv, h, causal, p, sd)
+        plain = (time_ms(lambda: fns[1](qkv, h, causal, p, sd), 3, 1),
+                 time_ms(lambda: fns[3](qkv, do, ro, rlse, h, causal, p, sd),
+                         3, 1))
+        if layout == "which":
+            split = [c[0].reshape(b, s, 3, h, d).permute(2, 0, 3, 1, 4)
+                     for c in copies[f16]]
+        else:
+            split = [c[0].reshape(b, s, h // 2, 3, 2, d).permute(
+                3, 0, 2, 4, 1, 5).reshape(3, b, h, s, d)
+                for c in copies[f16]]
+        heads = [[t.contiguous().requires_grad_(True) for t in sp]
+                 + [c[1].reshape(b, s, h, d).transpose(1, 2).contiguous()]
+                 for sp, c in zip(split, copies[f16])]
+        lib = sdpa_times(torch, heads, dropout_p=p, is_causal=causal)
+        work = qkv_work(b, s, h, d, 2)
+        if causal:
+            work = tuple((nb, fl // 2) for nb, fl in work)
+        for j in range(2):
+            records.append(work_record(
+                names[j], "flash_attention_qkv" if j == 0 else
+                "flash_attention", lines[j], err["o" if j == 0 else "dqkv"],
+                times[f16][j], plain[j], lib[j], work[j], label + " fp16"))
+            print(f"    bf16 at the same shape {times[bf][j]:.4f} ms: fp16 "
+                  f"/ bf16 {times[f16][j] / times[bf][j]:.3f}")
+        del copies, heads, split
+
+    # (d) B4, row 12: one ring chunk (B1 S2048 H16 D128), full, a random
+    # lse cotangent
+    b, s, h, d = SP_CHUNK
+    copies = {dt: [general_case(b, s, s, h, d, dt, seed=290 + i)
+                   for i in range(3)] for dt in (f16, bf)}
+    g = torch.Generator(device="cuda").manual_seed(seed + 27)
+    dlses = [torch.randn((b, h, s), generator=g, device="cuda")
+             for _ in range(3)]
+    err_o, err_g, line = b4_compare(torch, fa, *copies[f16][0], dlses[0],
+                                    False)
+    print(f"  flash_attention_with_lse (B4) B{b} S{s} H{h} D{d} float16 full, "
+          f"random dlse: {line}  ok")
+    times = {dt: half_times(
+        torch, [c + [dl] for c, dl in zip(copies[dt], dlses)],
+        lambda c: fa.flash_attention_lse_fwd(*c[:3], False),
+        lambda c, sv: fa.flash_attention_lse_bwd(*c[:3], *sv, c[3], c[4],
+                                                 False))
+        for dt in (f16, bf)}
+    q, k, v, do = copies[f16][0]
+    ro, rlse = fa.flash_reference(q, k, v, False)
+    plain = (time_ms(lambda: fa.flash_reference(q, k, v, False), 2, 1),
+             time_ms(lambda: fa.flash_bwd_reference(
+                 q, k, v, ro, rlse, do, False, dlse=dlses[0]), 2, 1))
+    heads = [[x.transpose(1, 2).detach().requires_grad_(True)
+              for x in c[:3]] + [c[3].transpose(1, 2)] for c in copies[f16]]
+    lib = sdpa_times(torch, heads)
+    work = general_work(b, s, s, h, d, b * s * s, b * s, 2, 0)
+    work = (work[0], (work[1][0] + b * h * s * 4, work[1][1]))
+    for j, name in enumerate(("flash_attention_lse_fwd_f16",
+                              "flash_attention_lse_bwd_f16")):
+        records.append(work_record(
+            name, "flash_attention", (767, 536)[j], (err_o, err_g)[j],
+            times[f16][j], plain[j], lib[j], work[j],
+            f"B{b} S{s} H{h} D{d} full fp16 (SDPA: no lse cotangent)"))
+        print(f"    bf16 at the same shape {times[bf][j]:.4f} ms: fp16 / bf16 "
+              f"{times[f16][j] / times[bf][j]:.3f}")
+    del copies, heads
+
+    # (e) P1 over gpt3-1.3b's parameter list: the eager O2 form (float16
+    # params and grads, float32 moments and masters) against the plain
+    # version; then float16 and bf16 params, grads and moments (P1's row
+    # form) timed in one call, and the O2 form beside
+    # torch._fused_adamw_ on the masters
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = GPTForPretraining(gpt_config(MODEL), dtype="bfloat16", seed=seed)
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    del model
+    g = torch.Generator(device="cuda").manual_seed(seed + 270)
+    grads = {n: 1e-2 * torch.randn(p.shape, generator=g, device="cuda")
+             for n, p in params.items()}
+    n_el = sum(p.numel() for p in params.values())
+    lr = torch.tensor(TRAIN_LR, device="cuda")
+    t = torch.ones((), dtype=torch.int32, device="cuda")
+    tables = mta.AdamTables()
+    run = dict(beta1=ADAM_BETA1, beta2=ADAM_BETA2, epsilon=ADAM_EPS,
+               adamw=True)
+    forms = {"O2 (fp16 params and grads, f32 moments and masters)":
+             (f16, f16, torch.float32, True),
+             "fp16 params/grads/moments": (f16, f16, f16, False),
+             "bf16 params/grads/moments": (bf, bf, bf, False)}
+    ms, worst_err = {}, 0.0
+    for label, (pdt, gdt, sdt, master) in forms.items():
+        kern = adam_entries(torch, mta, params, grads, pdt, gdt, sdt, master,
+                            TRAIN_WD)
+        if pdt == f16:
+            plain_e = copy_entries(torch, mta, kern)
+            mta.multi_tensor_adam(kern, lr, t, tables=tables, **run)
+            mta.adam_reference(plain_e, lr, t, **run)
+            torch.cuda.synchronize()
+            worst = 0.0
+            for a, b_ in zip(kern, plain_e):
+                for x, y in ((a.p, b_.p), (a.m, b_.m), (a.v, b_.v),
+                             (a.master, b_.master)):
+                    if x is not None:
+                        worst = max(worst, ulps_apart(torch, x, y)[0])
+                        if master:
+                            worst_err = max(worst_err, (
+                                x.float() - y.float()).abs().max().item())
+            check(worst <= 1.0, f"multi_tensor_adam ({label}): {worst} ulps "
+                  "from the plain version")
+            print(f"  multi_tensor_adam, AdamW, {label}, {len(kern)} tensors: "
+                  f"within {worst:.0f} ulp (<= 1) of the plain version  ok")
+            if master:
+                plain_ms = time_ms(lambda: mta.adam_reference(
+                    plain_e, lr, t, **run), 3, 1)
+            del plain_e
+        ms[label] = time_ms(lambda: mta.multi_tensor_adam(
+            kern, lr, t, tables=tables, **run), 10)
+        if master:
+            o2, o2_bytes = kern, mta.update_bytes(kern)
+        else:
+            del kern
+    steps = [torch.zeros((), device="cuda") for _ in o2]
+    g32 = [e.g.float() for e in o2]
+
+    def library():
+        torch._fused_adamw_(
+            [e.master for e in o2], g32, [e.m for e in o2],
+            [e.v for e in o2], [], steps, lr=TRAIN_LR, beta1=ADAM_BETA1,
+            beta2=ADAM_BETA2, weight_decay=TRAIN_WD, eps=ADAM_EPS,
+            amsgrad=False, maximize=False)
+
+    library_ms = time_ms(library, 10)
+    o2_label, f16_label, bf_label = forms
+    print(f"  multi_tensor_adam over {MODEL}'s {len(o2)} tensors ({n_el} "
+          "parameters, one launch each): " + ", ".join(
+              f"{k} {v:.4f} ms" for k, v in ms.items())
+          + f"; fp16 / bf16 (same bytes) {ms[f16_label] / ms[bf_label]:.3f}")
+    t_bytes = o2_bytes / HBM_BYTES_PER_S
+    t_ops = 25 * n_el / F32_FLOPS_PER_S
+    print(f"  multi_tensor_adam_f16 ({o2_label}): kernel {ms[o2_label]:.4f} "
+          f"ms, plain {plain_ms:.4f} ms, library (torch._fused_adamw_ on the "
+          f"f32 masters) {library_ms:.4f} ms, bound "
+          f"{max(t_bytes, t_ops) * 1e3:.4f} ms ({o2_bytes} bytes)")
+    records.append({
+        "name": "multi_tensor_adam_f16", "route": "cuda",
+        "source": "paddle_tpu_torch/kernels/csrc/multi_tensor_adam.cu",
+        "replaces": "paddle_tpu/optimizer/optimizers.py:64",
+        "max_abs_err": worst_err, "ms": ms[o2_label], "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library_ms})
+    del o2, g32, params, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return records
+
+
+# phase 27b: phase 26b's model trained eagerly under amp.auto_cast, 6
+# steps a run (p50 of steps 2-6), the loss scale of the float16 runs;
+# (label, level, dtype, loss scale or None)
+AMP_STEPS, AMP_SCALE, AMP_CHECK_B = 6, 2.0 ** 15, 4
+AMP_RUNS = (("O1 float16", "O1", "float16", AMP_SCALE),
+            ("O2 float16", "O2", "float16", AMP_SCALE),
+            ("O1 bfloat16", "O1", "bfloat16", None))
+
+
+def amp_forward(torch, parts, batch):
+    """Phase 27b's loss: the Transformer on the embedded source and
+    target ids under the causal mask, the head's logits, their mean
+    cross-entropy against the labels."""
+    from paddle_tpu_torch.nn import functional as F
+
+    model, emb, head = parts
+    out = model(emb(batch["src"]), emb(batch["tgt"]),
+                tgt_mask=batch["mask"])
+    logits = head(out)
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           batch["labels"].reshape(-1))
+
+
+def amp_check(torch, parts, batch, level, dtype, scale, label):
+    """The float32 check of one AMP run at dropout 0 on the first
+    AMP_CHECK_B sequences: the loss within REF_LOSS_RTOL of a float32
+    copy's (composed attention, no AMP), and each of TR_HELD's grads at
+    cosine >= REF_GRAD_COS or its plain-versions control's cosine less
+    GRAD_COS_SLACK (the rule of phases 20-25); the loss scaled and the
+    grads unscaled as the run's steps do."""
+    from paddle_tpu_torch import amp
+
+    small = {k: (v[:AMP_CHECK_B] if k != "mask" else v)
+             for k, v in batch.items()}
+    for p in parts:
+        p.eval()
+
+    def grads(use_amp):
+        for p in parts:
+            p.zero_grad(set_to_none=True)
+        with amp.auto_cast(enable=use_amp, level=level, dtype=dtype):
+            loss = amp_forward(torch, parts, small)
+        (loss * (scale or 1.0)).backward()
+        got = {n: p.grad.float() / (scale or 1.0)
+               for n, p in parts[0].named_parameters() if n in TR_HELD}
+        for p in parts:
+            p.zero_grad(set_to_none=True)
+        return loss.item(), got
+
+    loss, got = grads(True)
+    with plain_kernels(torch):
+        _, ctrl = grads(True)
+    twins = [f32_twin(torch, p, lambda p=p: copy.deepcopy(p).float())
+             for p in parts]
+    ref_loss = amp_forward(torch, twins, small)
+    ref_loss.backward()
+    ref = {n: p.grad for n, p in twins[0].named_parameters() if n in TR_HELD}
+    ref_loss = ref_loss.item()
+    del twins
+
+    def cos(a, b):
+        return torch.nn.functional.cosine_similarity(
+            a.flatten(), b.flatten(), dim=0).item()
+
+    c = {n: cos(got[n], ref[n]) for n in TR_HELD}
+    cc = {n: cos(ctrl[n], ref[n]) for n in TR_HELD}
+    bound = {n: min(REF_GRAD_COS, cc[n] - GRAD_COS_SLACK) for n in TR_HELD}
+    rel = abs(loss - ref_loss) / abs(ref_loss)
+    check(all(math.isfinite(g.sum().item()) for g in got.values()),
+          f"{label}: a non-finite grad")
+    check(rel <= REF_LOSS_RTOL, f"{label}: loss {loss} against float32 "
+          f"{ref_loss}: relative difference {rel}")
+    check(all(c[n] >= bound[n] for n in TR_HELD),
+          f"{label}: grad cosines {c} below {bound}")
+    print(f"  {label}: float32 copy (composed attention, dropout 0, "
+          f"{AMP_CHECK_B} sequences): loss {loss:.6f} vs {ref_loss:.6f} "
+          f"(rel {rel:.2e} <= {REF_LOSS_RTOL}); grad cosine "
+          + ", ".join(f"{n} {c[n]:.5f} (plain versions {cc[n]:.5f})"
+                      for n in TR_HELD)
+          + f" (>= {REF_GRAD_COS}, or the plain versions' less "
+          f"{GRAD_COS_SLACK})  ok")
+    for p in parts:
+        p.train()
+
+
+def amp_phase(torch, seed, card):
+    """Phase 27b: phase 26b's model (`nn.Transformer()`, ``Embedding(
+    37000, 512)``, ``Linear(512, 37000)``, drawn from ``seed``) trained
+    eagerly in train mode (dropout 0.1) on b32 x (256 + 128) ids with
+    ``AdamW(beta1=0.9, beta2=0.98, epsilon=1e-9)``, three runs of
+    AMP_STEPS steps as a user writes them: O1 float16 with a
+    ``GradScaler(init_loss_scaling=2**15)``, O2 float16 through
+    `amp.decorate` (float16 parameters, float32 masters) with the scaler,
+    O1 bfloat16 without one. Each run: the float32 check (`amp_check`);
+    the hook's casts of the first step by op name (no ``sdpa``: no
+    composed attention at these gated shapes); with the launch counts
+    zeroed just before the steps and read just after, B2 12 and B5 6
+    launches each way a step in the dtype the flow gives them (B5 float32
+    under O1: the float32 biases promote the projection back) and the
+    update once a kept step; step ms p50 of steps 2-6, tokens/s, peak
+    GiB, the loss scale and the skipped steps, and a profile of two
+    steps. Returns the launch counts of the three runs, added."""
+    from paddle_tpu_torch import amp, kernels
+    from paddle_tpu_torch.amp.auto_cast import amp_dtype_for_op
+    from paddle_tpu_torch.core import dispatch
+    from paddle_tpu_torch.optimizer import AdamW
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 27)
+
+    def ids(n, s):
+        return torch.randint(0, BS_VOCAB, (n, s), generator=g,
+                             device="cuda")
+
+    total = collections.Counter()
+    for label, level, dtype, scale in AMP_RUNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        parts = beam_model(torch, seed)
+        mask = parts[0].generate_square_subsequent_mask(TR_TGT)
+        batches = [{"src": ids(TR_B, TR_SRC), "tgt": ids(TR_B, TR_TGT),
+                    "labels": ids(TR_B, TR_TGT), "mask": mask}
+                   for _ in range(AMP_STEPS)]
+        params = [p for part in parts for p in part.parameters()]
+        opt = AdamW(learning_rate=TRAIN_LR, parameters=params, beta1=0.9,
+                    beta2=0.98, epsilon=1e-9)
+        if level == "O2":
+            amp.decorate(list(parts), opt, level="O2", dtype=dtype)
+            check(all(p.dtype == getattr(torch, dtype) for p in params)
+                  and opt._multi_precision, f"{label}: decorate left a "
+                  "parameter or the optimizer as it was")
+        amp_check(torch, parts, batches[0], level, dtype, scale, label)
+        scaler = (amp.GradScaler(init_loss_scaling=scale) if scale
+                  else None)
+        for p in parts:
+            p.train()
+        casts = collections.Counter()
+
+        def step(bt, record=False):
+            with amp.auto_cast(level=level, dtype=dtype):
+                if record:
+                    def rec(op):
+                        dt = amp_dtype_for_op(op)
+                        if dt is not None:
+                            casts[op, str(dt)[6:]] += 1
+                        return dt
+                    dispatch.set_amp_hook(rec)
+                try:
+                    loss = amp_forward(torch, parts, bt)
+                finally:
+                    dispatch.set_amp_hook(amp_dtype_for_op)
+            if scaler is None:
+                loss.backward()
+                opt.step()
+            else:
+                scaler.scale(loss).backward()
+                scaler.step(opt)
+            opt.clear_grad()
+            return loss
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_kernel_launch_counts()
+        times, losses, scales = [], [], []
+        for i, bt in enumerate(batches):
+            t0 = time.perf_counter()
+            loss = step(bt, record=i == 0)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(loss.item())
+            scales.append(scaler.get_loss_scaling() if scaler else None)
+        counts = kernels.kernel_launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        skipped = sum(1 for a, b in zip([scale] + scales, scales)
+                      if a and b and b < a)
+        n = AMP_STEPS * TR_LAYERS
+        b2 = "flash_attention_{}" + ("_f16" if dtype == "float16" else "")
+        b5 = "flash_attention_qkv3_{}" + (
+            "_f16" if level == "O2" and dtype == "float16" else "")
+        upd = "multi_tensor_adam" + ("_f16" if level == "O2"
+                                     and dtype == "float16" else "")
+        want = {b2.format("fwd"): 2 * n, b2.format("bwd"): 2 * n,
+                b5.format("fwd"): n, b5.format("bwd"): n}
+        if AMP_STEPS - skipped:
+            want[upd] = AMP_STEPS - skipped
+        only_launched(counts, want, f"{label} eager AMP training")
+        check(casts[("sdpa", dtype)] == 0 and casts[("linear", dtype)] > 0
+              and all(math.isfinite(x) for x in losses),
+              f"{label}: casts {dict(casts)}, losses {losses}")
+        p50 = statistics.median(times[1:]) * 1e3
+        tokens = TR_B * (TR_SRC + TR_TGT)
+        print(f"  {label}: {AMP_STEPS} eager steps, losses "
+              f"{[round(x, 5) for x in losses]}; loss scale "
+              f"{scales if scaler else 'none (bf16)'}, skipped steps "
+              f"{skipped}; launches {want} (B2 {2 * TR_LAYERS} and B5 "
+              f"{TR_LAYERS} each way a step in the dtypes named, no "
+              "composed attention)  ok")
+        print(f"    the hook's casts of one step, by op: "
+              f"{dict(sorted(casts.items()))}")
+        print(f"  {card}: {label} eager step {p50:.3f} ms p50 of steps "
+              f"2-{AMP_STEPS} (steps {[round(t * 1e3, 3) for t in times]} "
+              f"ms), {tokens / (p50 / 1e3):.1f} tokens/s, peak "
+              f"{peak:.3f} GiB")
+        profile_steps(torch, lambda: step(batches[0]), 2,
+                      f"{label} eager AMP steps", families=ADAM_FAMILY)
+        total.update(counts)
+        del parts, opt, batches, params, scaler
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(total)
+
+
 def print_build_report(name, report):
     """One source's build seconds, then for each kernel ptxas's register,
     shared-memory and spill lines, joined on one line."""
+    from paddle_tpu_torch.kernels import _build
+
+    src, flags = _build.source_and_flags(name)
     lines = report.splitlines()
-    print(f"  {name}.cu: {lines[0] if lines else 'not built here'}")
+    print(f"  {' '.join([src + '.cu', *flags])}: "
+          f"{lines[0] if lines else 'not built here'}")
     kernel = None
     for ln in lines[1:]:
         if "Compiling entry function" in ln:
@@ -8140,6 +8712,11 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     t_run = time.perf_counter()
+
+    def say(line):
+        """A phase's heading, with the seconds since the start."""
+        print(f"{line} (at {time.perf_counter() - t_run:.1f} s)")
+
     import torch
 
     if not torch.cuda.is_available():
@@ -8150,9 +8727,9 @@ def main(argv=None) -> int:
     from paddle_tpu_torch.kernels import paged_attention as pa
 
     card = nvidia_smi_line()
-    print(f"[1] card: {card} | torch {torch.__version__} | CUDA "
-          f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} x "
-          f"{torch.cuda.device_count()}")
+    say(f"[1] card: {card} | torch {torch.__version__} | CUDA "
+        f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} x "
+        f"{torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("    TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
@@ -8160,13 +8737,13 @@ def main(argv=None) -> int:
 
     t = time.perf_counter()
     _build.build_all()
-    print(f"[2] built {_build.sources()} for sm_90a in "
-          f"{time.perf_counter() - t:.1f} s (one nvcc a source, in "
-          "parallel)")
+    say(f"[2] built {_build.sources()} for sm_90a in "
+        f"{time.perf_counter() - t:.1f} s (one nvcc a source, in "
+        "parallel)")
     for name in _build.sources():
         print_build_report(name, _build.build_report(name))
 
-    print("[3] kernel phase")
+    say("[3] kernel phase")
     records = [*kernel_phase(torch, pa), tail_kernel_phase(torch, pa),
                *paged_head_dim_checks(torch, pa)]
     wide = wide_head_paged_checks(torch, pa)
@@ -8183,50 +8760,50 @@ def main(argv=None) -> int:
     wide_names = {rec["name"]: counter[rec["name"].split("_")[2]]
                   for rec in wide}
     with launches_tallied(set(wide_names.values())) as wide_seen:
-        print("[4] engine phase")
+        say("[4] engine phase")
         counts, paged_step = engine_phase(torch, args.seed)
         launches.update(counts)
-        print("[5] training phase")
+        say("[5] training phase")
         launches.update(train_phase(torch, args.seed, card))
-        print("[6] BERT phase (masked, B2)")
+        say("[6] BERT phase (masked, B2)")
         launches.update(bert_phase(torch, args.seed, card, "masked"))
-        print("[7] BERT unmasked phase, unfused layers (B5)")
+        say("[7] BERT unmasked phase, unfused layers (B5)")
         launches.update(bert_phase(torch, args.seed, card, "unfused"))
-        print("[8] BERT unmasked phase, fused layers (B1)")
+        say("[8] BERT unmasked phase, fused layers (B1)")
         fused = bert_phase(torch, args.seed, card, "fused")
         print(f"  (B1's launches in the kernel line are GPT training's; "
               f"the fused BERT's were {fused})")
-        print("[9] quantized speculative serving phase (int8/fp8 pages, "
-              "k=4)")
+        say("[9] quantized speculative serving phase (int8/fp8 pages, "
+            "k=4)")
         launches.update(spec_phase(torch, args.seed))
-        print("[10] generation phase (greedy, beam paged/gather, int8 tail "
-              "pages, weight-only int8)")
+        say("[10] generation phase (greedy, beam paged/gather, int8 tail "
+            "pages, weight-only int8)")
         launches.update(gen_phase(torch, args.seed))
-        print("[11] sequence-parallel phase (B4, the ring's per-rank loop, "
-              "one rank)")
+        say("[11] sequence-parallel phase (B4, the ring's per-rank loop, "
+            "one rank)")
         records += b4_kernel_phase(torch)
         launches.update(ring_loop_phase(torch))
         one_rank_phase(torch)
-        print("[12] gpt3-2.7b serving phase (head dim 80: Engine on bf16 "
-              "and int8 pages, the paged beam)")
+        say("[12] gpt3-2.7b serving phase (head dim 80: Engine on bf16 "
+            "and int8 pages, the paged beam)")
         launches.update(serve_27b_phase(torch, args.seed))
-        print("[13] attention at Gemma-2B's widths (B2 at head dim 256, "
-              "training)")
+        say("[13] attention at Gemma-2B's widths (B2 at head dim 256, "
+            "training)")
         launches.update(gemma_phase(torch, args.seed, card))
-        print("[14] the optimizer plane on graphs (gpt-test: an LR "
-              "schedule, GradScaler's skip)")
+        say("[14] the optimizer plane on graphs (gpt-test: an LR "
+            "schedule, GradScaler's skip)")
         schedule_phase(torch, args.seed)
         scaler_phase(torch, args.seed)
         pfx, mix = serving_modes_phases(torch, args.seed, paged_step)
         print(f"  (B3's launches in the kernel line are phase 4's; phase "
               f"16's were {pfx}, phase 17's {mix})")
-        print("[18] the rest of the paged Engine (gpt3-1.3b, bf16 pages: "
-              "adaptive spec_k on W = 2, 3, 5, 9, draft_model=, deadlines, "
-              "bounded admission, background mode)")
+        say("[18] the rest of the paged Engine (gpt3-1.3b, bf16 pages: "
+            "adaptive spec_k on W = 2, 3, 5, 9, draft_model=, deadlines, "
+            "bounded admission, background mode)")
         launches.update(engine_rest_phase(torch, args.seed, paged_step))
-        print("[19] the training plane (gpt3-1.3b's widths: "
-              "ResilientTrainLoop around phase 5's step, async checkpoints, "
-              "crash and resume, rollbacks, introspection)")
+        say("[19] the training plane (gpt3-1.3b's widths: "
+            "ResilientTrainLoop around phase 5's step, async checkpoints, "
+            "crash and resume, rollbacks, introspection)")
         phase5 = {k: launches[k] for k in ("flash_attention_qkv_fwd",
                                            "flash_attention_qkv_bwd",
                                            "multi_tensor_adam")}
@@ -8239,69 +8816,85 @@ def main(argv=None) -> int:
             shutil.rmtree(root, ignore_errors=True)
         print(f"  (B1's and the update's launches in the kernel line are "
               f"phase 19's; phase 5's were {phase5})")
-        print("[20] ViT-L/16 (224 px, patch 16: 197 tokens; eval forward, "
-              "training on a graph, B2 measured at its attention shape)")
+        say("[20] ViT-L/16 (224 px, patch 16: 197 tokens; eval forward, "
+            "training on a graph, B2 measured at its attention shape)")
         vit_phase(torch, args.seed, card)
-        print("[21] the encoder-decoder Transformer (nn.Transformer's "
-              "defaults: B5 in the encoder, B2 under the causal -inf mask "
-              "and across; incremental decode)")
+        say("[21] the encoder-decoder Transformer (nn.Transformer's "
+            "defaults: B5 in the encoder, B2 under the causal -inf mask "
+            "and across; incremental decode)")
         phase21 = transformer_phase(torch, args.seed, card)
         for name, n in phase21.items():
             launches[name] += n
         print(f"  (B2's and B5's launches in the kernel line add phase 21's "
               f"{phase21} to phases 6 and 7's)")
-        print("[22] FusedMultiTransformer at gpt3-1.3b's widths (CacheKV "
-              "prefill, pre_caches, decode with time_step)")
+        say("[22] FusedMultiTransformer at gpt3-1.3b's widths (CacheKV "
+            "prefill, pre_caches, decode with time_step)")
         fmt_phase(torch, args.seed, card)
-        print("[23] the MoE layer on one card (gpt3-1.3b's width, 8 experts, "
-              "GShardGate top-2)")
+        say("[23] the MoE layer on one card (gpt3-1.3b's width, 8 experts, "
+            "GShardGate top-2)")
         moe_phase(torch, args.seed, card)
-        print("[24] A5's layer base (nn.Transformer() from the reference's "
-              "initializers and ParamAttr, eager AdamW steps, state_dict "
-              "through save/load into a LazyGuard twin)")
+        say("[24] A5's layer base (nn.Transformer() from the reference's "
+            "initializers and ParamAttr, eager AdamW steps, state_dict "
+            "through save/load into a LazyGuard twin)")
         phase24 = layer_base_phase(torch, args.seed, card)
         for name, n in phase24.items():
             launches[name] += n
         print(f"  (B2's and B5's launches in the kernel line add phase 24's "
               f"{phase24})")
-        print("[25] A5 slice 2 (activations, losses, norms, pooling, vision "
-              "functions, common layers): ResNet-50 trained eagerly at full "
-              "width, nn.Transformer() with activation='gelu' and "
-              "nn.MSELoss() through B5 and B2, a layer sweep against the "
-              "CPU")
-        print(f"[25a] ResNet-50 (1000 classes, 224 px, b32, float32) on "
-              f"{card}")
+        say("[25] A5 slice 2 (activations, losses, norms, pooling, vision "
+            "functions, common layers): ResNet-50 trained eagerly at full "
+            "width, nn.Transformer() with activation='gelu' and "
+            "nn.MSELoss() through B5 and B2, a layer sweep against the "
+            "CPU")
+        say(f"[25a] ResNet-50 (1000 classes, 224 px, b32, float32) on "
+            f"{card}")
         resnet_phase(torch, args.seed, card)
-        print(f"[25b] nn.Transformer(activation='gelu'), nn.MSELoss on "
-              f"{card}")
+        say(f"[25b] nn.Transformer(activation='gelu'), nn.MSELoss on "
+            f"{card}")
         phase25 = gelu_transformer_phase(torch, args.seed, card)
         for name, n in phase25.items():
             launches[name] += n
         print(f"  (B2's and B5's launches in the kernel line add phase 25's "
               f"{phase25})")
-        print(f"[25c] the layer sweep, card against CPU, on {card}")
+        say(f"[25c] the layer sweep, card against CPU, on {card}")
         layer_sweep_phase(torch, args.seed)
-        print("[26] A5 slice 3 (the RNNs, BeamSearchDecoder/dynamic_decode, "
-              "the extra layers and functions, nn.utils, nn.quant): the "
-              "Zaremba large LSTM trained eagerly, nn.Transformer() "
-              "beam-searched, a layer sweep against the CPU")
-        print(f"[26a] the Zaremba large LSTM LM (b{PTB_B} x {PTB_T}, float32) "
-              f"on {card}")
+        say("[26] A5 slice 3 (the RNNs, BeamSearchDecoder/dynamic_decode, "
+            "the extra layers and functions, nn.utils, nn.quant): the "
+            "Zaremba large LSTM trained eagerly, nn.Transformer() "
+            "beam-searched, a layer sweep against the CPU")
+        say(f"[26a] the Zaremba large LSTM LM (b{PTB_B} x {PTB_T}, float32) "
+            f"on {card}")
         ptb_phase(torch, args.seed, card)
-        print(f"[26b] nn.Transformer() beam search (b{BS_B} x {BS_SRC}, beam "
-              f"{BS_BEAMS}, {BS_STEPS} steps, float32) on {card}")
+        say(f"[26b] nn.Transformer() beam search (b{BS_B} x {BS_SRC}, beam "
+            f"{BS_BEAMS}, {BS_STEPS} steps, float32) on {card}")
         phase26 = beam_phase(torch, args.seed, card)
         for name, n in phase26.items():
             launches[name] += n
         print(f"  (B5's launches in the kernel line add phase 26's "
               f"{phase26})")
-        print(f"[26c] the layer sweep of A5 slice 3, card against CPU, on "
-              f"{card}")
+        say(f"[26c] the layer sweep of A5 slice 3, card against CPU, on "
+            f"{card}")
         layer_sweep_phase(torch, args.seed, sweep_cases_26)
+        say("[27] A2 and A3 (dtypes with float16, places, Tensor, "
+            "autograd, the dispatch hook, amp.auto_cast O1/O2): the "
+            "float16 kernels, nn.Transformer() trained eagerly under AMP")
+        say(f"[27a] the float16 forms of B2, B5, B1, B4 and P1 against "
+            f"their plain versions on {card}")
+        records += fp16_kernel_phase(torch, args.seed)
+        say(f"[27b] nn.Transformer() + Embedding(37000, 512) + Linear(512, "
+            f"37000), b{TR_B} x ({TR_SRC} + {TR_TGT}), dropout 0.1, eager "
+            f"AdamW under amp.auto_cast (O1 fp16 + GradScaler, O2 fp16 "
+            f"through decorate + GradScaler, O1 bf16) on {card}")
+        phase27 = amp_phase(torch, args.seed, card)
+        for name, n in phase27.items():
+            launches[name] = launches.get(name, 0) + n
+        print(f"  (the float16 rows' launches in the kernel line are phase "
+              f"27b's; B2's, B5's and the update's add its other launches: "
+              f"{ {k: v for k, v in phase27.items() if v} })")
     print(f"  width-512 launches of B3 over phases 4-18: {wide_seen}")
     launches.update({name: wide_seen[c] for name, c in wide_names.items()})
     for rec in records:
-        rec["launches"] = launches[rec["name"]]
+        rec["launches"] = launches.get(rec["name"], 0)
 
     print(json.dumps({"kernels": records}))
     print(f"whole run: {time.perf_counter() - t_run:.1f} s wall")

@@ -5,8 +5,8 @@ Counterpart: ``paddle_tpu/core/tensor.py:213-244`` (``Parameter``). A
 ``functional_call`` takes it as a parameter, carrying:
 
 - ``name`` (the `ParamAttr`'s, or None);
-- ``trainable``, which is ``requires_grad`` (``stop_gradient`` its
-  negation);
+- ``trainable``, which is ``requires_grad`` (``stop_gradient``, its
+  negation, is the Tensor surface's: `core.tensor`);
 - ``optimize_attr`` (``{"learning_rate": scale}``: the eager optimizer
   step multiplies its rate by it), ``regularizer`` (its ``_coeff`` is
   the parameter's weight decay) and ``need_clip`` (False: gradient
@@ -66,14 +66,6 @@ class Parameter(nn.Parameter):
     @trainable.setter
     def trainable(self, value):
         self.requires_grad_(bool(value))
-
-    @property
-    def stop_gradient(self):
-        return not self.requires_grad
-
-    @stop_gradient.setter
-    def stop_gradient(self, value):
-        self.requires_grad_(not value)
 
     def initialize(self):
         """Draw the initializer recorded under `nn.LazyGuard` (the

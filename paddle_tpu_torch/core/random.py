@@ -10,6 +10,13 @@ JAX threads a key; the port threads a `torch.Generator`:
   ``key`` (`step_generator`).
 - Outside any scope, draws come from the port's own default generator
   for the device, seeded with 0 (never from torch's global one).
+  `default_generator` is the reference's ``Generator`` over those
+  per-device generators (``paddle_tpu/core/random.py:23-117``):
+  `seed(s)` reseeds every one, made or still to be made, with ``s``;
+  `get_rng_state` is their states by device (a copy), which
+  `set_rng_state` puts back, so the same draws come again. The
+  reference's top-level ``get_cuda_rng_state`` / ``set_cuda_rng_state``
+  are aliases of these (``paddle_tpu/__init__.py:88-92``).
 - `fold_in(seed, step)` gives the training loop's key of a step.
 - `flash_seed` draws the int32 seed of the flash kernels' in-kernel
   dropout hash, masked to 31 bits as ``_seed_arr`` does. It stays on the
@@ -30,6 +37,7 @@ _local = threading.local()
 _DEFAULTS: dict = {}
 _DEFAULTS_LOCK = threading.Lock()
 _MASK64 = (1 << 64) - 1
+_MASK63 = 0x7FFF_FFFF_FFFF_FFFF
 
 
 def _guards() -> list:
@@ -57,7 +65,71 @@ def fold_in(seed, data) -> int:
 def step_generator(key, device) -> torch.Generator:
     """A fresh generator on ``device`` seeded from an int ``key``."""
     return torch.Generator(device=torch.device(device)).manual_seed(
-        int(key) & 0x7FFF_FFFF_FFFF_FFFF)
+        int(key) & _MASK63)
+
+
+class Generator:
+    """A seed and one `torch.Generator` a device, each made when first
+    drawn from, seeded with the seed."""
+
+    def __init__(self, seed: int = 0, *, _gens=None, _lock=None):
+        self._seed = int(seed)
+        self._gens = {} if _gens is None else _gens
+        self._lock = threading.Lock() if _lock is None else _lock
+
+    def manual_seed(self, seed: int):
+        """Reseed every device's generator with ``seed``; returns self."""
+        with self._lock:
+            self._seed = int(seed)
+            for gen in self._gens.values():
+                gen.manual_seed(self._seed & _MASK63)
+        return self
+
+    @property
+    def initial_seed(self) -> int:
+        return self._seed
+
+    def device_generator(self, device) -> torch.Generator:
+        """This generator's `torch.Generator` on ``device``."""
+        key = str(torch.device(device))
+        with self._lock:
+            gen = self._gens.get(key)
+            if gen is None:
+                gen = self._gens[key] = step_generator(self._seed, device)
+        return gen
+
+    def get_state(self) -> dict:
+        """``{device: state}`` of every generator made so far (copies)."""
+        with self._lock:
+            return {k: g.get_state() for k, g in self._gens.items()}
+
+    def set_state(self, state: dict):
+        """Put back states from `get_state` (a device not made yet is
+        made first)."""
+        for key, st in state.items():
+            self.device_generator(key).set_state(st)
+
+
+_DEFAULT = Generator(0, _gens=_DEFAULTS, _lock=_DEFAULTS_LOCK)
+
+
+def default_generator() -> Generator:
+    """The generator draws come from outside any `rng_guard`."""
+    return _DEFAULT
+
+
+def seed(s: int) -> Generator:
+    """Reseed the default generators (every device) with ``s``."""
+    return _DEFAULT.manual_seed(s)
+
+
+def get_rng_state() -> dict:
+    """The default generators' states by device."""
+    return _DEFAULT.get_state()
+
+
+def set_rng_state(state: dict):
+    _DEFAULT.set_state(state)
 
 
 @contextlib.contextmanager
@@ -79,11 +151,7 @@ def current_generator(device) -> torch.Generator:
     guards = _guards()
     if guards and guards[-1].device.type == device.type:
         return guards[-1]
-    with _DEFAULTS_LOCK:
-        gen = _DEFAULTS.get(str(device))
-        if gen is None:
-            gen = _DEFAULTS[str(device)] = step_generator(0, device)
-    return gen
+    return _DEFAULT.device_generator(device)
 
 
 def flash_seed(generator: torch.Generator) -> torch.Tensor:
@@ -94,4 +162,5 @@ def flash_seed(generator: torch.Generator) -> torch.Tensor:
 
 
 __all__ = ["fold_in", "step_generator", "rng_guard", "current_generator",
-           "flash_seed"]
+           "flash_seed", "Generator", "default_generator", "seed",
+           "get_rng_state", "set_rng_state"]

@@ -12,6 +12,11 @@ anew and an unchanged one loads the library already built. The
 compiler's output (ptxas's registers, shared memory and spills of every
 kernel) and the build's seconds are kept beside the library as
 ``lib<name>-<hash>.so.log``; `build_report` reads them.
+A variant (`VARIANTS`) is a source built again with its own defines
+into a library of its own name: the ``_f16`` flash libraries are the
+flash sources built with ``-DPTT_F16``, their tensor-core kernels on
+float16 (``csrc/flash_common.cuh``). `SOURCE_FLAGS` adds flags to
+every library of one source.
 `build_all` starts one ``nvcc`` per source, all at once, and waits for
 all of them. A build or load failure raises; nothing falls back.
 """
@@ -31,13 +36,36 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+#: library name -> (source, extra nvcc flags)
+VARIANTS = {
+    "flash_attention_f16": ("flash_attention", ["-DPTT_F16"]),
+    "flash_attention_qkv_f16": ("flash_attention_qkv", ["-DPTT_F16"]),
+}
+
+#: source -> nvcc flags of every library built from it. The paged
+#: source instantiates 60 kernels (q's 2 dtypes x 3 page types x 10
+#: widths and tiles) and alone took 140-190 s on one core, where the
+#: others take about 30: ``--split-compile=0`` optimizes its device code
+#: in parallel on every core.
+SOURCE_FLAGS = {
+    "paged_attention": ["--split-compile=0"],
+}
+
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
 def sources() -> list[str]:
-    """Names of every kernel source (``csrc/<name>.cu``)."""
-    return sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith(".cu"))
+    """Names of every library: each kernel source (``csrc/<name>.cu``)
+    and each variant."""
+    return sorted([f[:-3] for f in os.listdir(CSRC) if f.endswith(".cu")]
+                  + list(VARIANTS))
+
+
+def source_and_flags(name: str):
+    """``(source, extra nvcc flags)`` of library ``name``."""
+    source, flags = VARIANTS.get(name, (name, []))
+    return source, SOURCE_FLAGS.get(source, []) + flags
 
 
 def _nvcc() -> str:
@@ -54,9 +82,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    files = [name + ".cu"] + sorted(f for f in os.listdir(CSRC)
-                                    if f.endswith(".cuh"))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    source, flags = source_and_flags(name)
+    files = [source + ".cu"] + sorted(f for f in os.listdir(CSRC)
+                                      if f.endswith(".cuh"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + flags).encode())
     for f in files:
         with open(os.path.join(CSRC, f), "rb") as fh:
             h.update(fh.read())
@@ -71,7 +100,9 @@ def _start(name: str):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")]
+    source, flags = source_and_flags(name)
+    cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", tmp,
+           os.path.join(CSRC, source + ".cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out, time.perf_counter()
@@ -82,7 +113,7 @@ def _finish(name: str, job):
     log, _ = proc.communicate()
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on csrc/{name}.cu "
+        raise RuntimeError(f"nvcc failed on {name} "
                            f"(exit {proc.returncode}):\n{log}")
     with open(out + ".log", "w") as fh:
         fh.write(f"build seconds {seconds:.1f}\n{log}")
@@ -90,7 +121,7 @@ def _finish(name: str, job):
 
 
 def build_report(name: str) -> str:
-    """The build's seconds and ptxas's lines for ``csrc/<name>.cu`` as
+    """The build's seconds and ptxas's lines for library ``name`` as
     built (empty when it has not been built here)."""
     path = _lib_path(name) + ".log"
     if not os.path.exists(path):
@@ -110,8 +141,8 @@ def build_all(names=None):
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, building it first if
-    needed."""
+    """The loaded library ``name`` (a source or a variant), building it
+    first if needed."""
     with _lock:
         lib = _loaded.get(name)
         if lib is not None:
@@ -124,5 +155,6 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build_all", "build_report",
-           "load", "sources"]
+__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "SOURCE_FLAGS", "VARIANTS",
+           "build_all", "build_report", "load", "source_and_flags",
+           "sources"]

@@ -152,7 +152,6 @@
 // for its own products, the backward's one block an SM, dQ's atomics and
 // its pre- and post-pass, and key tiles that are wholly padding still
 // computed (ROADMAP B2).
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -793,29 +792,29 @@ constexpr int kTC = 128;              // 4 warps x 16 rows
 constexpr int kCP = kWS + 8;          // padded row of a [rows][128] chunk
 constexpr int kBQ = 32;               // query rows a step of the dk/dv pass
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+__device__ __forceinline__ uint32_t ld32(const e16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 // A fragment (16 x 16) of a tile stored [m][k] with row stride ld.
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* t, int ld,
+__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const e16* t, int ld,
                                        int m0, int k0, int gi, int qi) {
-  const bf16* p = t + (m0 + gi) * ld + k0 + 2 * qi;
+  const e16* p = t + (m0 + gi) * ld + k0 + 2 * qi;
   a[0] = ld32(p);
   a[1] = ld32(p + 8 * ld);
   a[2] = ld32(p + 8);
   a[3] = ld32(p + 8 * ld + 8);
 }
 // B fragment (k 16 x n 8) of a tile stored [n][k] with row stride ld.
-__device__ __forceinline__ void frag_b(uint32_t (&b)[2], const bf16* t, int ld,
+__device__ __forceinline__ void frag_b(uint32_t (&b)[2], const e16* t, int ld,
                                        int n0, int k0, int gi, int qi) {
-  const bf16* p = t + (n0 + gi) * ld + k0 + 2 * qi;
+  const e16* p = t + (n0 + gi) * ld + k0 + 2 * qi;
   b[0] = ld32(p);
   b[1] = ld32(p + 8);
 }
 __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
                                     const uint32_t (&b)[2]) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "mma.sync.aligned.m16n8k16.row.col.f32" PTT_AB ".f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
@@ -824,7 +823,7 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
 // load; rows at or past `nvalid` and columns at or past `ncols` (a
 // multiple of 8) are zeros.
 template <int ROWS>
-__device__ __forceinline__ void copy_chunk(bf16* dst, const bf16* src,
+__device__ __forceinline__ void copy_chunk(e16* dst, const e16* src,
                                            int64_t ld, int nvalid,
                                            int ncols) {
   for (int i = threadIdx.x; i < ROWS * (kWS / 8); i += kTC) {
@@ -838,7 +837,7 @@ __device__ __forceinline__ void copy_chunk(bf16* dst, const bf16* src,
 // The same transposed into shared [128][ROWS + 8]; a warp takes 32 rows
 // of one 8-column piece, so its stores land on consecutive halves.
 template <int ROWS>
-__device__ __forceinline__ void copy_chunk_t(bf16* dst, const bf16* src,
+__device__ __forceinline__ void copy_chunk_t(e16* dst, const e16* src,
                                              int64_t ld, int nvalid,
                                              int ncols) {
   for (int i = threadIdx.x; i < ROWS * (kWS / 8); i += kTC) {
@@ -846,7 +845,7 @@ __device__ __forceinline__ void copy_chunk_t(bf16* dst, const bf16* src,
     const uint4 v = r < nvalid && c < ncols
                         ? *reinterpret_cast<const uint4*>(src + r * ld + c)
                         : make_uint4(0u, 0u, 0u, 0u);
-    const bf16* e = reinterpret_cast<const bf16*>(&v);
+    const e16* e = reinterpret_cast<const e16*>(&v);
 #pragma unroll
     for (int j = 0; j < 8; ++j) dst[(c + j) * (ROWS + 8) + r] = e[j];
   }
@@ -855,7 +854,7 @@ __device__ __forceinline__ void copy_chunk_t(bf16* dst, const bf16* src,
 // m0 of a [rows][kCP] tile, B the N x 8 rows of another.
 template <int N>
 __device__ __forceinline__ void chunk_product(float (&acc)[N][4],
-                                              const bf16* A, const bf16* B,
+                                              const e16* A, const e16* B,
                                               int m0, int gi, int qi) {
 #pragma unroll
   for (int kk = 0; kk < kWS / 16; ++kk) {
@@ -875,9 +874,9 @@ __global__ void __launch_bounds__(kTC) fwd_wide_tc_kernel(const Params p,
   constexpr int NO = kWS / 8;            // 8-column n-tiles of the slice
   constexpr int LT = kTile + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);      // [64][kCP] chunk
-  bf16* Ks = Qs + kTile * kCP;                        // [64][kCP] chunk
-  bf16* Vt = Ks + kTile * kCP;                        // [128][LT] slice
+  e16* Qs = reinterpret_cast<e16*>(smem_raw);      // [64][kCP] chunk
+  e16* Ks = Qs + kTile * kCP;                        // [64][kCP] chunk
+  e16* Vt = Ks + kTile * kCP;                        // [128][LT] slice
 
   const Head g = head(p, D);
   const int nq = (p.Sq + kTile - 1) / kTile;
@@ -886,9 +885,9 @@ __global__ void __launch_bounds__(kTC) fwd_wide_tc_kernel(const Params p,
   const int lane = threadIdx.x & 31, gi = lane >> 2, qi = lane & 3;
   const int r0 = (threadIdx.x >> 5) * 16;
   const int row = q0 + r0 + gi;                 // this thread's rows: row,
-  const bf16* qb = static_cast<const bf16*>(p.q) + g.q;   // row + 8
-  const bf16* kb = static_cast<const bf16*>(p.k) + g.k;
-  const bf16* vb = static_cast<const bf16*>(p.v) + g.v;
+  const e16* qb = static_cast<const e16*>(p.q) + g.q;   // row + 8
+  const e16* kb = static_cast<const e16*>(p.k) + g.k;
+  const e16* vb = static_cast<const e16*>(p.v) + g.v;
   const Keep kc = keep_consts(p);
 
   float o[NO][4], m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};
@@ -965,7 +964,7 @@ __global__ void __launch_bounds__(kTC) fwd_wide_tc_kernel(const Params p,
     }
   }
 
-  bf16* out = static_cast<bf16*>(p.out) + g.o + sl.d0;
+  e16* out = static_cast<e16*>(p.out) + g.o + sl.d0;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = row + 8 * h;
@@ -975,7 +974,7 @@ __global__ void __launch_bounds__(kTC) fwd_wide_tc_kernel(const Params p,
     for (int n = 0; n < NO; ++n)
       if (n * 8 < sl.dn)
         *reinterpret_cast<uint32_t*>(out + r * g.ldo + n * 8 + 2 * qi) =
-            pack_bf16(o[n][2 * h] / lc, o[n][2 * h + 1] / lc);
+            pack16(o[n][2 * h] / lc, o[n][2 * h + 1] / lc);
     if (qi == 0 && sl.d0 == 0)
       p.lse_out[(int64_t)g.bh * p.Sq + r] = m[h] + logf(lc);
   }
@@ -985,12 +984,12 @@ __global__ void __launch_bounds__(kTC) dkdv_wide_tc_kernel(const Params p,
                                                            int D) {
   constexpr int NO = kWS / 8, NQ = kBQ / 8, LQ = kBQ + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);      // [64][kCP] chunk
-  bf16* Vs = Ks + kTile * kCP;                        // [64][kCP] chunk
-  bf16* Qs = Vs + kTile * kCP;                        // [kBQ][kCP] chunk
-  bf16* dOs = Qs + kBQ * kCP;                         // [kBQ][kCP] chunk
-  bf16* Qt = dOs + kBQ * kCP;                         // [128][LQ] slice
-  bf16* dOt = Qt + kWS * LQ;                          // [128][LQ] slice
+  e16* Ks = reinterpret_cast<e16*>(smem_raw);      // [64][kCP] chunk
+  e16* Vs = Ks + kTile * kCP;                        // [64][kCP] chunk
+  e16* Qs = Vs + kTile * kCP;                        // [kBQ][kCP] chunk
+  e16* dOs = Qs + kBQ * kCP;                         // [kBQ][kCP] chunk
+  e16* Qt = dOs + kBQ * kCP;                         // [128][LQ] slice
+  e16* dOt = Qt + kWS * LQ;                          // [128][LQ] slice
   float* lse_s = reinterpret_cast<float*>(dOt + kWS * LQ);
   float* delta_s = lse_s + kBQ;
 
@@ -1000,10 +999,10 @@ __global__ void __launch_bounds__(kTC) dkdv_wide_tc_kernel(const Params p,
   const int lane = threadIdx.x & 31, gi = lane >> 2, qi = lane & 3;
   const int r0 = (threadIdx.x >> 5) * 16;
   const int key = k0 + r0 + gi;                 // this thread's keys: key,
-  const bf16* qb = static_cast<const bf16*>(p.q) + g.q;   // key + 8
-  const bf16* dob = static_cast<const bf16*>(p.dout) + g.o;
-  const bf16* kb = static_cast<const bf16*>(p.k) + g.k + k0 * p.ldk;
-  const bf16* vb = static_cast<const bf16*>(p.v) + g.v + k0 * p.ldk;
+  const e16* qb = static_cast<const e16*>(p.q) + g.q;   // key + 8
+  const e16* dob = static_cast<const e16*>(p.dout) + g.o;
+  const e16* kb = static_cast<const e16*>(p.k) + g.k + k0 * p.ldk;
+  const e16* vb = static_cast<const e16*>(p.v) + g.v + k0 * p.ldk;
   const Keep kc = keep_consts(p);
 
   float dk[NO][4], dv[NO][4];
@@ -1072,8 +1071,8 @@ __global__ void __launch_bounds__(kTC) dkdv_wide_tc_kernel(const Params p,
     }
   }
 
-  bf16* dkb = static_cast<bf16*>(p.dk) + g.k + sl.d0;
-  bf16* dvb = static_cast<bf16*>(p.dv) + g.v + sl.d0;
+  e16* dkb = static_cast<e16*>(p.dk) + g.k + sl.d0;
+  e16* dvb = static_cast<e16*>(p.dv) + g.v + sl.d0;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = key + 8 * h;
@@ -1082,9 +1081,9 @@ __global__ void __launch_bounds__(kTC) dkdv_wide_tc_kernel(const Params p,
     for (int n = 0; n < NO; ++n) {
       if (n * 8 >= sl.dn) continue;
       *reinterpret_cast<uint32_t*>(dkb + r * p.ldk + n * 8 + 2 * qi) =
-          pack_bf16(dk[n][2 * h], dk[n][2 * h + 1]);
+          pack16(dk[n][2 * h], dk[n][2 * h + 1]);
       *reinterpret_cast<uint32_t*>(dvb + r * p.ldk + n * 8 + 2 * qi) =
-          pack_bf16(dv[n][2 * h], dv[n][2 * h + 1]);
+          pack16(dv[n][2 * h], dv[n][2 * h + 1]);
     }
   }
 }
@@ -1093,11 +1092,11 @@ __global__ void __launch_bounds__(kTC) dq_wide_tc_kernel(const Params p,
                                                          int D) {
   constexpr int NO = kWS / 8, LT = kTile + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);      // [64][kCP] chunks
-  bf16* dOs = Qs + kTile * kCP;
-  bf16* Ks = dOs + kTile * kCP;
-  bf16* Vs = Ks + kTile * kCP;
-  bf16* Kt = Vs + kTile * kCP;                        // [128][LT] slice
+  e16* Qs = reinterpret_cast<e16*>(smem_raw);      // [64][kCP] chunks
+  e16* dOs = Qs + kTile * kCP;
+  e16* Ks = dOs + kTile * kCP;
+  e16* Vs = Ks + kTile * kCP;
+  e16* Kt = Vs + kTile * kCP;                        // [128][LT] slice
 
   const Head g = head(p, D);
   const int nq = (p.Sq + kTile - 1) / kTile;
@@ -1106,10 +1105,10 @@ __global__ void __launch_bounds__(kTC) dq_wide_tc_kernel(const Params p,
   const int lane = threadIdx.x & 31, gi = lane >> 2, qi = lane & 3;
   const int r0 = (threadIdx.x >> 5) * 16;
   const int row = q0 + r0 + gi;                 // this thread's rows: row,
-  const bf16* qb = static_cast<const bf16*>(p.q) + g.q + q0 * p.ldq;
-  const bf16* dob = static_cast<const bf16*>(p.dout) + g.o + q0 * g.ldo;
-  const bf16* kb = static_cast<const bf16*>(p.k) + g.k;   // row + 8
-  const bf16* vb = static_cast<const bf16*>(p.v) + g.v;
+  const e16* qb = static_cast<const e16*>(p.q) + g.q + q0 * p.ldq;
+  const e16* dob = static_cast<const e16*>(p.dout) + g.o + q0 * g.ldo;
+  const e16* kb = static_cast<const e16*>(p.k) + g.k;   // row + 8
+  const e16* vb = static_cast<const e16*>(p.v) + g.v;
   const Keep kc = keep_consts(p);
 
   float lse_r[2], delta_r[2], dq[NO][4];
@@ -1165,7 +1164,7 @@ __global__ void __launch_bounds__(kTC) dq_wide_tc_kernel(const Params p,
     }
   }
 
-  bf16* dqb = static_cast<bf16*>(p.dq) + g.q + sl.d0;
+  e16* dqb = static_cast<e16*>(p.dq) + g.q + sl.d0;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = row + 8 * h;
@@ -1174,7 +1173,7 @@ __global__ void __launch_bounds__(kTC) dq_wide_tc_kernel(const Params p,
     for (int n = 0; n < NO; ++n)
       if (n * 8 < sl.dn)
         *reinterpret_cast<uint32_t*>(dqb + r * p.ldq + n * 8 + 2 * qi) =
-            pack_bf16(dq[n][2 * h], dq[n][2 * h + 1]);
+            pack16(dq[n][2 * h], dq[n][2 * h + 1]);
   }
 }
 
@@ -1555,7 +1554,7 @@ fwd_wg_kernel(const __grid_constant__ Maps maps, const Params p) {
     if (lane == 0) mbar_arrive(&qempty_bar[qb]);
     if (!live) continue;
 
-    bf16* out = static_cast<bf16*>(p.out) + (int64_t)f.b * p.Sq * ld +
+    e16* out = static_cast<e16*>(p.out) + (int64_t)f.b * p.Sq * ld +
                 (int64_t)f.h * D;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -1565,7 +1564,7 @@ fwd_wg_kernel(const __grid_constant__ Maps maps, const Params p) {
 #pragma unroll
       for (int j = 0; j < ND; ++j)
         *reinterpret_cast<uint32_t*>(out + r * ld + j * 8 + 2 * qi) =
-            pack_bf16(o[j][2 * h] / lc, o[j][2 * h + 1] / lc);
+            pack16(o[j][2 * h] / lc, o[j][2 * h + 1] / lc);
       if (qi == 0) p.lse_out[(int64_t)bh * p.Sq + r] = m[h] + logf(lc);
     }
   }
@@ -1895,8 +1894,8 @@ bwd_wg_kernel(const __grid_constant__ Maps maps, const Params p) {
 
   // dK and dV at k's row stride and this head's columns
   const int64_t kv0 = (int64_t)b * p.Sk * p.ldk + head_col(p, h, D);
-  bf16* dkb = static_cast<bf16*>(p.dk) + kv0 + p.kcol;
-  bf16* dvb = static_cast<bf16*>(p.dv) + kv0 + p.vcol;
+  e16* dkb = static_cast<e16*>(p.dk) + kv0 + p.kcol;
+  e16* dvb = static_cast<e16*>(p.dv) + kv0 + p.vcol;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int kc = key[hh];
@@ -1904,9 +1903,9 @@ bwd_wg_kernel(const __grid_constant__ Maps maps, const Params p) {
 #pragma unroll
     for (int j = 0; j < ND; ++j) {
       *reinterpret_cast<uint32_t*>(dkb + kc * p.ldk + j * 8 + 2 * qi) =
-          pack_bf16(dk[j][2 * hh], dk[j][2 * hh + 1]);
+          pack16(dk[j][2 * hh], dk[j][2 * hh + 1]);
       *reinterpret_cast<uint32_t*>(dvb + kc * p.ldk + j * 8 + 2 * qi) =
-          pack_bf16(dv[j][2 * hh], dv[j][2 * hh + 1]);
+          pack16(dv[j][2 * hh], dv[j][2 * hh + 1]);
     }
   }
 }
@@ -2202,8 +2201,8 @@ bwd_wg_wide_kernel(const __grid_constant__ Maps maps, const Params p) {
 
   // dV (group 0) or dK (group 1) at k's row stride and this head's columns
   const int64_t kv0 = (int64_t)b * p.Sk * p.ldk + head_col(p, h, D);
-  bf16* out = c == 0 ? static_cast<bf16*>(p.dv) + kv0 + p.vcol
-                     : static_cast<bf16*>(p.dk) + kv0 + p.kcol;
+  e16* out = c == 0 ? static_cast<e16*>(p.dv) + kv0 + p.vcol
+                     : static_cast<e16*>(p.dk) + kv0 + p.kcol;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int kk = key[hh];
@@ -2211,7 +2210,7 @@ bwd_wg_wide_kernel(const __grid_constant__ Maps maps, const Params p) {
 #pragma unroll
     for (int j = 0; j < ND; ++j)
       *reinterpret_cast<uint32_t*>(out + kk * p.ldk + j * 8 + 2 * qi) =
-          pack_bf16(acc[j][2 * hh], acc[j][2 * hh + 1]);
+          pack16(acc[j][2 * hh], acc[j][2 * hh + 1]);
   }
 }
 
@@ -2223,12 +2222,12 @@ bwd_dq_round_kernel(const Params p) {
   const int64_t row = blockIdx.x;            // b * Sq + q
   const float4* acc =
       reinterpret_cast<const float4*>(p.dq_acc + row * p.H * D);
-  bf16* dq = static_cast<bf16*>(p.dq) + row * p.ldq + p.qcol;
+  e16* dq = static_cast<e16*>(p.dq) + row * p.ldq + p.qcol;
   for (int i = threadIdx.x; i < p.H * (D / 4); i += kThreads) {
     const int h = i / (D / 4), c = (i % (D / 4)) * 4;
     const float4 v = acc[i];
     *reinterpret_cast<uint2*>(dq + head_col(p, h, D) + c) =
-        make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+        make_uint2(pack16(v.x, v.y), pack16(v.z, v.w));
   }
 }
 
@@ -2257,7 +2256,7 @@ cudaError_t make_maps(Maps* m, const Params& p, int D) {
 template <typename T, int D>
 cudaError_t launch_fwd(const Params& p, cudaStream_t stream) {
   cudaError_t err;
-  if constexpr (std::is_same<T, bf16>::value) {
+  if constexpr (std::is_same<T, e16>::value) {
     Maps maps;
     if ((err = make_maps(&maps, p, D)) != cudaSuccess) return err;
     auto k = fwd_wg_kernel<D>;
@@ -2281,9 +2280,9 @@ cudaError_t launch_fwd(const Params& p, cudaStream_t stream) {
 template <typename T, int D>
 cudaError_t launch_bwd(const Params& p, cudaStream_t stream) {
   cudaError_t err;
-  if constexpr (std::is_same<T, bf16>::value) {
-    if ((err = launch_delta<bf16, D>(static_cast<const bf16*>(p.dout),
-                                     static_cast<const bf16*>(p.o), p.delta,
+  if constexpr (std::is_same<T, e16>::value) {
+    if ((err = launch_delta<e16, D>(static_cast<const e16*>(p.dout),
+                                     static_cast<const e16*>(p.o), p.delta,
                                      p.B, p.Sq, p.H, stream, p.dq_acc,
                                      p.dlse)) != cudaSuccess)
       return err;
@@ -2334,19 +2333,19 @@ constexpr size_t kWideDqSmem =
     (4 * kTile * kLW + kTile * kLS) * sizeof(float);
 
 constexpr size_t kWideTcFwdSmem =
-    (2 * kTile * kCP + kWS * (kTile + 8)) * sizeof(bf16);
+    (2 * kTile * kCP + kWS * (kTile + 8)) * sizeof(e16);
 constexpr size_t kWideTcDkdvSmem =
-    (2 * kTile * kCP + 2 * kBQ * kCP + 2 * kWS * (kBQ + 8)) * sizeof(bf16) +
+    (2 * kTile * kCP + 2 * kBQ * kCP + 2 * kWS * (kBQ + 8)) * sizeof(e16) +
     2 * kBQ * sizeof(float);
 constexpr size_t kWideTcDqSmem =
-    (4 * kTile * kCP + kWS * (kTile + 8)) * sizeof(bf16);
+    (4 * kTile * kCP + kWS * (kTile + 8)) * sizeof(e16);
 
 template <typename T>
 cudaError_t launch_fwd_wide(const Params& p, int D, cudaStream_t stream) {
   const int slices = (D + kWS - 1) / kWS;
   const dim3 grid((p.Sq + kTile - 1) / kTile * slices, p.H, p.B);
   cudaError_t err;
-  if constexpr (std::is_same<T, bf16>::value) {
+  if constexpr (std::is_same<T, e16>::value) {
     auto k = fwd_wide_tc_kernel;
     if ((err = allow_smem(k, kWideTcFwdSmem)) != cudaSuccess) return err;
     k<<<grid, kTC, kWideTcFwdSmem, stream>>>(p, D);
@@ -2367,7 +2366,7 @@ cudaError_t launch_bwd_wide(const Params& p, int D, cudaStream_t stream) {
   const int slices = (D + kWS - 1) / kWS;
   const dim3 grid_k((p.Sk + kTile - 1) / kTile * slices, p.H, p.B);
   const dim3 grid_q((p.Sq + kTile - 1) / kTile * slices, p.H, p.B);
-  if constexpr (std::is_same<T, bf16>::value) {
+  if constexpr (std::is_same<T, e16>::value) {
     auto kv = dkdv_wide_tc_kernel;
     auto kq = dq_wide_tc_kernel;
     if ((err = allow_smem(kv, kWideTcDkdvSmem)) != cudaSuccess) return err;
@@ -2418,22 +2417,28 @@ void separate_heads(Params& p, int H, int D) {
 }
 
 // The backward's dispatch on (dtype, D); bf16 up to D = 256 needs dq_acc.
+// A -DPTT_F16 build takes float16 only (code 2); the default build float32
+// (code 0) and bfloat16 (code 1).
 int launch_bwd_of(const Params& p, int D, int dtype, cudaStream_t s) {
+#ifndef PTT_F16
   if (D > 128 && dtype == 0) return (int)launch_bwd_wide<float>(p, D, s);
-  if (D > 256 && dtype == 1) return (int)launch_bwd_wide<bf16>(p, D, s);
-  if (dtype == 1 && p.dq_acc == nullptr) return (int)cudaErrorInvalidValue;
   if (dtype == 0 && D == 64) return (int)launch_bwd<float, 64>(p, s);
   if (dtype == 0 && D == 128) return (int)launch_bwd<float, 128>(p, s);
-  if (dtype == 1 && D == 64) return (int)launch_bwd<bf16, 64>(p, s);
-  if (dtype == 1 && D == 128) return (int)launch_bwd<bf16, 128>(p, s);
-  if (dtype == 1 && D == 192) return (int)launch_bwd<bf16, 192>(p, s);
-  if (dtype == 1 && D == 256) return (int)launch_bwd<bf16, 256>(p, s);
+#endif
+  if (dtype != kCode16) return (int)cudaErrorInvalidValue;
+  if (D > 256) return (int)launch_bwd_wide<e16>(p, D, s);
+  if (p.dq_acc == nullptr) return (int)cudaErrorInvalidValue;
+  if (D == 64) return (int)launch_bwd<e16, 64>(p, s);
+  if (D == 128) return (int)launch_bwd<e16, 128>(p, s);
+  if (D == 192) return (int)launch_bwd<e16, 192>(p, s);
+  if (D == 256) return (int)launch_bwd<e16, 256>(p, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, o share it). bias: f32
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 in a -DPTT_F16 build
+// (q, k, v, o share it). bias: f32
 // [bias_b, bias_q, Sk] or null. seed: an int32 on the device, read only
 // when use_drop != 0; bq and bk: the reference's block sizes, which place
 // the dropout hash. keep = 1 - dropout_p and scale = 1/sqrt(D), both
@@ -2459,14 +2464,17 @@ extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
                  scale, bq, bk))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#ifndef PTT_F16
   if (D > 128 && dtype == 0) return (int)launch_fwd_wide<float>(p, D, s);
-  if (D > 256 && dtype == 1) return (int)launch_fwd_wide<bf16>(p, D, s);
   if (dtype == 0 && D == 64) return (int)launch_fwd<float, 64>(p, s);
   if (dtype == 0 && D == 128) return (int)launch_fwd<float, 128>(p, s);
-  if (dtype == 1 && D == 64) return (int)launch_fwd<bf16, 64>(p, s);
-  if (dtype == 1 && D == 128) return (int)launch_fwd<bf16, 128>(p, s);
-  if (dtype == 1 && D == 192) return (int)launch_fwd<bf16, 192>(p, s);
-  if (dtype == 1 && D == 256) return (int)launch_fwd<bf16, 256>(p, s);
+#endif
+  if (dtype != kCode16) return (int)cudaErrorInvalidValue;
+  if (D > 256) return (int)launch_fwd_wide<e16>(p, D, s);
+  if (D == 64) return (int)launch_fwd<e16, 64>(p, s);
+  if (D == 128) return (int)launch_fwd<e16, 128>(p, s);
+  if (D == 192) return (int)launch_fwd<e16, 192>(p, s);
+  if (D == 256) return (int)launch_fwd<e16, 256>(p, s);
   return (int)cudaErrorInvalidValue;
 }
 

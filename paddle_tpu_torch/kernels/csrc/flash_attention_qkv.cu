@@ -76,7 +76,6 @@
 // GFLOP (0.0087 ms), so it is bound by its bytes. Each tile row of one
 // head is 128 bytes (D=64 bf16) at a 6 KB row stride, read as 64-column
 // TMA boxes, as B1's pair-major rows are: the layout costs nothing more.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -269,7 +268,7 @@ __device__ __forceinline__ FwdTile fwd_tile(int t, int nq, int H, int B) {
 template <int D, int L>
 __global__ void __launch_bounds__(kThreadsW, 1)
 flash_fwd_wg_kernel(const __grid_constant__ CUtensorMap qkv_map,
-                    const int32_t* __restrict__ seed, bf16* __restrict__ out,
+                    const int32_t* __restrict__ seed, e16* __restrict__ out,
                     float* __restrict__ lse, int B, int S, int H, int causal,
                     int use_drop, float keep, float scale) {
   using namespace hopper;
@@ -483,11 +482,11 @@ flash_fwd_wg_kernel(const __grid_constant__ CUtensorMap qkv_map,
     for (int h = 0; h < 2; ++h) {
       const int row = my_q0 + r0 + gi + 8 * h;
       const float lc = fmaxf(l[h], 1e-30f);
-      bf16* orow = out + ((int64_t)g.b * S + row) * g.ld + (int64_t)g.hg * D;
+      e16* orow = out + ((int64_t)g.b * S + row) * g.ld + (int64_t)g.hg * D;
 #pragma unroll
       for (int j = 0; j < ND; ++j)
         *reinterpret_cast<uint32_t*>(orow + j * 8 + 2 * qi) =
-            pack_bf16(o[j][2 * h] / lc, o[j][2 * h + 1] / lc);
+            pack16(o[j][2 * h] / lc, o[j][2 * h + 1] / lc);
       if (qi == 0)
         lse[((int64_t)g.b * H + g.hg) * S + row] = m[h] * kLn2 + logf(lc);
     }
@@ -511,7 +510,7 @@ cudaError_t launch_fwd(const void* qkv, const void* seed, void* out, void* lse,
   const int32_t* sd = static_cast<const int32_t*>(seed);
   float* l = static_cast<float*>(lse);
   cudaError_t err;
-  if constexpr (std::is_same<T, bf16>::value) {
+  if constexpr (std::is_same<T, e16>::value) {
     CUtensorMap map;
     if ((err = qkv_tensor_map(&map, qkv, B, S, H, D)) != cudaSuccess)
       return err;
@@ -524,7 +523,7 @@ cudaError_t launch_fwd(const void* qkv, const void* seed, void* out, void* lse,
       return err;
     const int tiles = (S + 2 * kRowsW - 1) / (2 * kRowsW) * H * B;
     k<<<min(tiles, sms), kThreadsW, fwd_wg_smem<D>(), stream>>>(
-        map, sd, static_cast<bf16*>(out), l, B, S, H, causal, use_drop, keep,
+        map, sd, static_cast<e16*>(out), l, B, S, H, causal, use_drop, keep,
         scale);
   } else {
     auto k = flash_fwd_kernel<D, L>;
@@ -551,17 +550,20 @@ int fwd_entry(const void* qkv, const void* seed, void* out, void* lse, int B,
   if (!valid_shape(B, S, H, D) || (use_drop && seed == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // a -DPTT_F16 build takes float16 only (code 2)
+#ifndef PTT_F16
   if (dtype == 0 && D == 64)
-    err = launch_fwd<float, 64, L>(qkv, seed, out, lse, B, S, H, causal,
-                                   use_drop, keep, scale, s);
-  else if (dtype == 0 && D == 128)
-    err = launch_fwd<float, 128, L>(qkv, seed, out, lse, B, S, H, causal,
-                                    use_drop, keep, scale, s);
-  else if (dtype == 1 && D == 64)
-    err = launch_fwd<bf16, 64, L>(qkv, seed, out, lse, B, S, H, causal,
+    return (int)launch_fwd<float, 64, L>(qkv, seed, out, lse, B, S, H,
+                                         causal, use_drop, keep, scale, s);
+  if (dtype == 0 && D == 128)
+    return (int)launch_fwd<float, 128, L>(qkv, seed, out, lse, B, S, H,
+                                          causal, use_drop, keep, scale, s);
+#endif
+  if (dtype == kCode16 && D == 64)
+    err = launch_fwd<e16, 64, L>(qkv, seed, out, lse, B, S, H, causal,
                                   use_drop, keep, scale, s);
-  else if (dtype == 1 && D == 128)
-    err = launch_fwd<bf16, 128, L>(qkv, seed, out, lse, B, S, H, causal,
+  else if (dtype == kCode16 && D == 128)
+    err = launch_fwd<e16, 128, L>(qkv, seed, out, lse, B, S, H, causal,
                                    use_drop, keep, scale, s);
   else
     err = cudaErrorInvalidValue;
@@ -570,7 +572,8 @@ int fwd_entry(const void* qkv, const void* seed, void* out, void* lse, int B,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (qkv, o and dqkv share it). seed: an
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 in a -DPTT_F16 build
+// (qkv, o and dqkv share it). seed: an
 // int32 on the device, read only when use_drop != 0. keep = 1 - dropout_p
 // and scale = 1/sqrt(D), both rounded to f32 by the caller. Returns the
 // CUDA error of the launch (0 = launched). The caller checks shapes,

@@ -1,10 +1,18 @@
 // Pieces shared by the flash attention kernels (flash_attention_qkv.cu and
 // flash_attention.cu): the reference's dropout hash (and its integer keep
-// threshold), the f32 FMA tile product, the bf16 fragment helpers and the
-// delta pre-pass.
+// threshold), the f32 FMA tile product, the 16-bit fragment helpers and
+// the delta pre-pass.
+//
+// The 16-bit element type. A source builds its tensor-core kernels for
+// bfloat16; built with -DPTT_F16 (the `_f16` libraries of
+// kernels/_build.py) the same kernels take float16: `e16`, the pair
+// packing, the products' operand type (`PTT_AB`, hopper.cuh), the TMA
+// data type and the dtype code a C entry takes (`kCode16`: 1 bfloat16,
+// 2 float16) follow it. Accumulation is float32 in both.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -117,6 +125,7 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 // delta[b, h, s] = sum_d dO * O over o and dO [B, S, H, D], one warp per
 // (b, s, h) row; with `zero` (an f32 [B, S, H, D] accumulator, the
 // general bf16 backward's dq) the row is zeroed there too. With `dlse`
@@ -166,27 +175,38 @@ cudaError_t launch_delta(const T* dout, const T* o, float* delta, int B, int S,
   return cudaGetLastError();
 }
 
-// ------------------------------------------------- bf16: the fragments
+// ---------------------------------------------- 16-bit: the fragments
 // The warpgroup products' accumulator holds each warp's 16 rows in the
 // mma.sync m16n8 C layout (row gi or gi + 8, columns 2qi and 2qi + 1 of
 // each 8-column n-tile), and their register A operand is the mma.sync A
-// fragment: the f32 results of one product become the bf16 A operand of
-// the next in registers (P for P.V, dS^T for dK).
-using bf16 = __nv_bfloat16;
+// fragment: the f32 results of one product become the 16-bit A operand
+// of the next in registers (P for P.V, dS^T for dK).
+#ifdef PTT_F16
+using e16 = __half;
+constexpr int kCode16 = 2;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+__device__ __forceinline__ uint32_t pack16(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+#else
+using e16 = __nv_bfloat16;
+constexpr int kCode16 = 1;
+
+__device__ __forceinline__ uint32_t pack16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
+#endif
 // The A fragment of columns [16k, 16k + 16) of a 16-row f32 result held as
-// C fragments c[n] (n-tiles of 8 columns), rounded to bf16.
+// C fragments c[n] (n-tiles of 8 columns), rounded to e16.
 template <int N>
 __device__ __forceinline__ void as_a(uint32_t (&a)[4], const float (&c)[N][4],
                                      int k) {
-  a[0] = pack_bf16(c[2 * k][0], c[2 * k][1]);
-  a[1] = pack_bf16(c[2 * k][2], c[2 * k][3]);
-  a[2] = pack_bf16(c[2 * k + 1][0], c[2 * k + 1][1]);
-  a[3] = pack_bf16(c[2 * k + 1][2], c[2 * k + 1][3]);
+  a[0] = pack16(c[2 * k][0], c[2 * k][1]);
+  a[1] = pack16(c[2 * k][2], c[2 * k][3]);
+  a[2] = pack16(c[2 * k + 1][0], c[2 * k + 1][1]);
+  a[3] = pack16(c[2 * k + 1][2], c[2 * k + 1][3]);
 }
 // Reductions over the 4 threads that share a fragment row.
 __device__ __forceinline__ float quad_max(float x) {

@@ -48,6 +48,7 @@
 // (slower than their approximations), and a chunk's tensor found anew for
 // every chunk.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -56,6 +57,7 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 constexpr int kThreads = 256;
 constexpr int kVec = 8;                      // elements a thread moves
 constexpr long long kChunk = 65536;          // elements a chunk
@@ -89,6 +91,7 @@ struct Args {
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(f16 x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
@@ -97,6 +100,10 @@ __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ bf16 from_f<bf16>(float x) {
   return __float2bfloat16_rn(x);
+}
+template <>
+__device__ __forceinline__ f16 from_f<f16>(float x) {
+  return __float2half_rn(x);
 }
 
 // x rounded through T and back
@@ -122,6 +129,16 @@ __device__ __forceinline__ void load8(const bf16* p, float (&v)[kVec]) {
     v[2 * i + 1] = f.y;
   }
 }
+__device__ __forceinline__ void load8(const f16* p, float (&v)[kVec]) {
+  const uint4 x = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
 __device__ __forceinline__ void store8(float* p, const float (&v)[kVec]) {
   reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
   reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
@@ -132,6 +149,16 @@ __device__ __forceinline__ void store8(bf16* p, const float (&v)[kVec]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    w[i] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  *reinterpret_cast<uint4*>(p) = x;
+}
+__device__ __forceinline__ void store8(f16* p, const float (&v)[kVec]) {
+  uint4 x;
+  uint32_t* w = reinterpret_cast<uint32_t*>(&x);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __half2 h = __floats2half2_rn(v[2 * i], v[2 * i + 1]);
     w[i] = *reinterpret_cast<const uint32_t*>(&h);
   }
   *reinterpret_cast<uint4*>(p) = x;
@@ -243,15 +270,16 @@ int launch(const Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// dtype codes: 0 float32, 1 bfloat16
-template <typename P, typename G>
+// dtype codes: 0 float32, 1 bfloat16, 2 float16. S16 is the 16-bit slot
+// type (bfloat16, or float16 beside float16 params and grads).
+template <typename P, typename G, typename S16 = bf16>
 int dispatch_slots(const Args& a, int s_code, int master,
                    cudaStream_t stream) {
   if (s_code == 0)
     return master ? launch<P, G, float, true>(a, stream)
                   : launch<P, G, float, false>(a, stream);
-  return master ? launch<P, G, bf16, true>(a, stream)
-                : launch<P, G, bf16, false>(a, stream);
+  return master ? launch<P, G, S16, true>(a, stream)
+                : launch<P, G, S16, false>(a, stream);
 }
 
 constexpr int kRowsPerWrite = 48;            // 3.4 KB of kernel argument
@@ -274,8 +302,12 @@ extern "C" int ptt_multi_tensor_adam(
     const void* found_inf, const void* clip, float b1, float b2, float omb1,
     float omb2, float eps, int adamw, void* stream) {
   if (n <= 0 || chunks <= 0) return 0;
-  if (p_code < 0 || p_code > 1 || g_code < 0 || g_code > 1 || s_code < 0 ||
-      s_code > 1 || (master && p_code != 1))
+  // float32 and bfloat16 mix freely; float16 params take float32 or
+  // float16 grads and slots; a master goes with a 16-bit param
+  const bool f16_group = p_code == 2 || g_code == 2 || s_code == 2;
+  if (p_code < 0 || p_code > 2 || g_code < 0 || g_code > 2 || s_code < 0 ||
+      s_code > 2 || (master && p_code == 0) ||
+      (f16_group && (p_code != 2 || g_code == 1 || s_code == 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.table = static_cast<const Entry*>(table);
@@ -292,6 +324,10 @@ extern "C" int ptt_multi_tensor_adam(
   a.eps = eps;
   a.adamw = adamw;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p_code == 2)
+    return g_code == 0
+               ? dispatch_slots<f16, float, f16>(a, s_code, master, s)
+               : dispatch_slots<f16, f16, f16>(a, s_code, master, s);
   if (p_code == 0)
     return g_code == 0 ? dispatch_slots<float, float>(a, s_code, 0, s)
                        : dispatch_slots<float, bf16>(a, s_code, 0, s);

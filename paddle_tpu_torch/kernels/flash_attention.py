@@ -74,6 +74,15 @@ The contract every kernel and plain version here shares:
   - dlse``.
 - ``lse`` is float32 ``[B, H, S_q]`` (the TPU kernels' 8-row broadcast
   is a tiling artifact).
+- Dtypes: float32, bfloat16 and float16, as the reference's kernels
+  take any; a 16-bit dtype accumulates in float32. float16 runs in the
+  ``_f16`` libraries (the same sources built with ``-DPTT_F16``,
+  `_build.VARIANTS`; dtype code 2) and its launches count under
+  ``<kernel>_f16`` (`counted_name`).
+- AMP: the entries are the reference's gray ops (``flash_attention``,
+  ``flash_attention_qkv``, ``flash_attention_qkv3``): they compute in
+  their inputs' dtype unless a custom list of `amp.auto_cast` names
+  them (`core.dispatch.amp_cast`).
 - Dropout keeps an element where ``hash_keep_scale`` says so: the
   reference's interpret-mode hash (:90-116), bit for bit. B1 and B5
   hash (seed, `qkv_drop_ids`) over the whole sequence; B2 hashes (seed,
@@ -91,6 +100,7 @@ import torch
 
 from . import _build, count_launch, runs_plain
 from ..core import random as _random
+from ..core.dispatch import amp_cast
 
 _SOURCE = "flash_attention_qkv"
 _FWD = "flash_attention_qkv_fwd"
@@ -98,9 +108,22 @@ _BWD = "flash_attention_qkv_bwd"
 _FWD3 = "flash_attention_qkv3_fwd"
 _BWD3 = "flash_attention_qkv3_bwd"
 _MASKED = -1e30
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the C entries' dtype codes; float16 runs in the ``_f16`` libraries (the
+#: same sources built with ``-DPTT_F16``, `_build.VARIANTS`)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _M32 = 0xFFFFFFFF
-_fns = None
+_fns: dict = {}
+
+
+def _library(source, dtype):
+    """The library holding ``source``'s kernels for ``dtype``."""
+    return source + "_f16" if dtype == torch.float16 else source
+
+
+def counted_name(kernel, dtype):
+    """The launch count a launch of ``kernel`` on ``dtype`` adds to:
+    float16 launches count under ``<kernel>_f16``."""
+    return kernel + "_f16" if dtype == torch.float16 else kernel
 
 
 # ------------------------------------------------------------- dropout hash
@@ -334,12 +357,13 @@ def qkv_columns(layout, n_heads, d):
     return 1, d, 0, n_heads * d, 2 * n_heads * d
 
 
-def _kernel_fns():
-    """``({kernel: C entry}, error_string)`` of the qkv forwards, the
-    argument types declared (pointers and the stream as ``c_void_p``)."""
-    global _fns
-    if _fns is None:
-        lib = _build.load(_SOURCE)
+def _kernel_fns(dtype):
+    """``({kernel: C entry}, error_string)`` of the qkv forwards for
+    ``dtype``, the argument types declared (pointers and the stream as
+    ``c_void_p``)."""
+    name = _library(_SOURCE, dtype)
+    if name not in _fns:
+        lib = _build.load(name)
         shape = [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
         fns = {}
         for kernel, entry in _ENTRIES.items():
@@ -350,8 +374,8 @@ def _kernel_fns():
         err_str = lib.ptt_error_string
         err_str.argtypes = [ctypes.c_int]
         err_str.restype = ctypes.c_char_p
-        _fns = (fns, err_str)
-    return _fns
+        _fns[name] = (fns, err_str)
+    return _fns[name]
 
 
 def _check(cond, kernel, msg):
@@ -375,7 +399,7 @@ def _check_qkv(kernel, qkv, n_heads, dropout_p, seed):
     _check(s % 64 == 0 and s > 0, kernel,
            f"seq_len must be a positive multiple of 64, got {s}")
     _check(qkv.dtype in _DTYPE_CODES, kernel,
-           f"dtype must be float32 or bfloat16, got {qkv.dtype}")
+           f"dtype must be float32, bfloat16 or float16, got {qkv.dtype}")
     _check(qkv.is_contiguous() and qkv.data_ptr() % 16 == 0, kernel,
            "qkv must be contiguous and 16-byte aligned")
     _check(0.0 <= dropout_p < 1.0, kernel,
@@ -399,7 +423,7 @@ def _launch_fwd(kernel, qkv, n_heads, causal, dropout_p, seed):
     o = torch.empty((b, s, n_heads * d), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((b, n_heads, s), dtype=torch.float32,
                       device=qkv.device)
-    fns, err_str = _kernel_fns()
+    fns, err_str = _kernel_fns(qkv.dtype)
     err = fns[kernel](
         qkv.data_ptr(), seed.data_ptr() if dropout_p else None, o.data_ptr(),
         lse.data_ptr(), b, s, n_heads, d, int(causal), int(dropout_p > 0),
@@ -407,15 +431,15 @@ def _launch_fwd(kernel, qkv, n_heads, causal, dropout_p, seed):
         float(np.float32(1.0 / math.sqrt(d))), _DTYPE_CODES[qkv.dtype],
         qkv.device.index, torch.cuda.current_stream(qkv.device).cuda_stream)
     _raise_on(err, kernel, err_str)
-    count_launch(kernel)
+    count_launch(counted_name(kernel, qkv.dtype))
     return o, lse
 
 
 def _launch_bwd(kernel, qkv, do, o, lse, n_heads, causal, dropout_p, seed):
     """One backward launch of ``kernel`` (`_BWD` or `_BWD3`): B2's
     backward (``ptt_flash_qkv_bwd``) over the projection as it lies, its
-    columns from `qkv_columns`. bfloat16: the delta pre-pass (the
-    float32 dq accumulator zeroed), the one-pass kernel and the dq
+    columns from `qkv_columns`. bfloat16 and float16: the delta pre-pass
+    (the float32 dq accumulator zeroed), the one-pass kernel and the dq
     post-pass; float32: delta, then dk/dv, then dq."""
     b, s, d = _check_qkv(kernel, qkv, n_heads, dropout_p, seed)
     for name, t, shape, dt in (("do", do, (b, s, n_heads * d), qkv.dtype),
@@ -431,9 +455,9 @@ def _launch_bwd(kernel, qkv, do, o, lse, n_heads, causal, dropout_p, seed):
                         device=qkv.device)
     dq_acc = (torch.empty((b, s, n_heads, d), dtype=torch.float32,
                           device=qkv.device)
-              if qkv.dtype == torch.bfloat16 else None)
+              if qkv.dtype != torch.float32 else None)
     dqkv = torch.empty_like(qkv)
-    _, _, qkv_bwd, err_str = _gen_kernel_fns()
+    _, _, qkv_bwd, err_str = _gen_kernel_fns(qkv.dtype)
     err = qkv_bwd(
         qkv.data_ptr(), do.data_ptr(), o.data_ptr(), lse.data_ptr(),
         seed.data_ptr() if dropout_p else None, delta.data_ptr(),
@@ -443,13 +467,14 @@ def _launch_bwd(kernel, qkv, do, o, lse, n_heads, causal, dropout_p, seed):
         float(np.float32(1.0 / math.sqrt(d))), _DTYPE_CODES[qkv.dtype],
         qkv.device.index, torch.cuda.current_stream(qkv.device).cuda_stream)
     _raise_on(err, kernel, err_str)
-    count_launch(kernel)
+    count_launch(counted_name(kernel, qkv.dtype))
     return dqkv
 
 
 def flash_attention_qkv_fwd(qkv, n_heads, causal, dropout_p=0.0, seed=None):
     """Launch the forward kernel on the pair-major ``qkv [B, S, 3*H*D]``
-    (CUDA, contiguous, float32 or bfloat16; D 64 or 128, H even, S a
+    (CUDA, contiguous, float32, bfloat16 or float16; D 64 or 128, H
+    even, S a
     multiple of 64). ``seed``: int32 ``[1]`` tensor on the same device,
     needed when ``dropout_p > 0``. Returns ``(o [B, S, H*D], lse [B, H,
     S])``."""
@@ -555,6 +580,9 @@ def _seed_tensor(seed, generator, device, dropout_p):
 
 def _apply_qkv(fn, kernel, qkv, n_heads, is_causal, dropout_p, seed,
                generator):
+    # AMP: the reference's gray ops ``flash_attention_qkv`` and
+    # ``flash_attention_qkv3`` (:1008, :1180): cast only on a custom list
+    (qkv,) = amp_cast(kernel[:-4], qkv)
     seed_t = _seed_tensor(seed, generator, qkv.device, dropout_p)
     if not runs_plain(qkv, kernel):
         qkv = qkv.contiguous()
@@ -607,7 +635,7 @@ _GEN_SOURCE = "flash_attention"
 _GEN_FWD = "flash_attention_fwd"
 _GEN_BWD = "flash_attention_bwd"
 DEFAULT_BLOCK = 1024        # the reference's DEFAULT_BLOCK_Q/K (:39-40)
-_gen_fns = None
+_gen_fns: dict = {}
 
 
 def normalize_mask_bias(mask):
@@ -730,12 +758,12 @@ def flash_bwd_reference(q, k, v, o, lse, do, causal, bias=None,
                  for t, ref in ((dq, q), (dk, k), (dv, v)))
 
 
-def _gen_kernel_fns():
+def _gen_kernel_fns(dtype):
     """``(fwd, bwd, qkv_bwd, error_string)`` of
-    ``csrc/flash_attention.cu``."""
-    global _gen_fns
-    if _gen_fns is None:
-        lib = _build.load(_GEN_SOURCE)
+    ``csrc/flash_attention.cu``'s library for ``dtype``."""
+    name = _library(_GEN_SOURCE, dtype)
+    if name not in _gen_fns:
+        lib = _build.load(name)
         # B, Sq, Sk, H, D, bias_b, bias_q, causal, use_drop; keep, scale;
         # bq, bk, dtype, device
         shape = [ctypes.c_int] * 9 + [ctypes.c_float] * 2 + [ctypes.c_int] * 4
@@ -755,8 +783,8 @@ def _gen_kernel_fns():
         err_str = lib.ptt_error_string
         err_str.argtypes = [ctypes.c_int]
         err_str.restype = ctypes.c_char_p
-        _gen_fns = (fwd, bwd, qkv_bwd, err_str)
-    return _gen_fns
+        _gen_fns[name] = (fwd, bwd, qkv_bwd, err_str)
+    return _gen_fns[name]
 
 
 def _check_general(kernel, q, k, v, bias, dropout_p, seed, bq, bk):
@@ -775,7 +803,8 @@ def _check_general(kernel, q, k, v, bias, dropout_p, seed, bq, bk):
            f"head_dim must be 64, 128 or a multiple of 64 above 128, got {d}")
     _check(q.dtype in _DTYPE_CODES and k.dtype == q.dtype
            and v.dtype == q.dtype, kernel,
-           f"q, k and v must share float32 or bfloat16, got {q.dtype}, "
+           f"q, k and v must share float32, bfloat16 or float16, got "
+           f"{q.dtype}, "
            f"{k.dtype}, {v.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check(t.device == q.device and t.is_contiguous()
@@ -819,7 +848,7 @@ def _launch_general_fwd(kernel, q, k, v, causal, bias, dropout_p, seed, bq,
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
-    fwd, _, _, err_str = _gen_kernel_fns()
+    fwd, _, _, err_str = _gen_kernel_fns(q.dtype)
     err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
               None if bias is None else bias.data_ptr(),
               seed.data_ptr() if dropout_p else None, o.data_ptr(),
@@ -827,7 +856,7 @@ def _launch_general_fwd(kernel, q, k, v, causal, bias, dropout_p, seed, bq,
               *_shape_args(b, s_q, s_k, h, d, bias, causal, dropout_p, bq,
                            bk, scale, q.dtype, q.device))
     _raise_on(err, kernel, err_str)
-    count_launch(kernel)
+    count_launch(counted_name(kernel, q.dtype))
     return o, lse
 
 
@@ -853,9 +882,9 @@ def _launch_general_bwd(kernel, q, k, v, o, lse, do, causal, bias, dropout_p,
     scale = 1.0 / math.sqrt(d) if scale is None else scale
     delta = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
     dq_acc = (torch.empty(q.shape, dtype=torch.float32, device=q.device)
-              if q.dtype == torch.bfloat16 and d <= 256 else None)
+              if q.dtype != torch.float32 and d <= 256 else None)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    _, bwd, _, err_str = _gen_kernel_fns()
+    _, bwd, _, err_str = _gen_kernel_fns(q.dtype)
     err = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
               do.data_ptr(), lse.data_ptr(),
               None if dlse is None else dlse.data_ptr(),
@@ -866,14 +895,14 @@ def _launch_general_bwd(kernel, q, k, v, o, lse, do, causal, bias, dropout_p,
               *_shape_args(b, s_q, s_k, h, d, bias, causal, dropout_p, bq,
                            bk, scale, q.dtype, q.device))
     _raise_on(err, kernel, err_str)
-    count_launch(kernel)
+    count_launch(counted_name(kernel, q.dtype))
     return dq, dk, dv
 
 
 def flash_attention_fwd(q, k, v, causal, bias=None, dropout_p=0.0, seed=None,
                         bq=None, bk=None, scale=None):
     """Launch the forward kernel: q ``[B, Sq, H, D]``, k and v ``[B, Sk,
-    H, D]`` (CUDA, contiguous, float32 or bfloat16; D 64, 128 or a
+    H, D]`` (CUDA, contiguous, float32, bfloat16 or float16; D 64, 128 or a
     multiple of 64 above 128, any lengths). ``bias``: contiguous float32
     ``[1|B, 1|Sq, Sk]``;
     ``seed``: int32 ``[1]`` on the same device when ``dropout_p > 0``;
@@ -889,11 +918,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal, bias=None,
                         scale=None, dlse=None):
     """Launch the backward kernels: ``(dq, dk, dv)`` from the forward's
     inputs, ``o``, ``lse`` and the cotangent ``do`` (q's shape and
-    dtype). One call counts as one launch. bfloat16 at D 64, 128, 192
-    or 256: a pre-pass (``delta = rowsum(dO*O)``, the float32 dq
+    dtype). One call counts as one launch. bfloat16 and float16 at D 64,
+    128, 192 or 256: a pre-pass (``delta = rowsum(dO*O)``, the float32 dq
     accumulator zeroed), the one-pass kernel over key blocks (dk, dv,
     and dq added into the accumulator) and a post-pass rounding dq;
-    float32 above 128, and bfloat16 above 256: the delta pre-pass, a
+    float32 above 128, and 16-bit above 256: the delta pre-pass, a
     dk/dv pass and a dq pass sliced over D. ``dlse``: the lse cotangent
     (contiguous float32 ``[B, H, Sq]``, B4), which the pre-pass subtracts
     from delta; None runs B2's backward as it is."""
@@ -945,6 +974,8 @@ def flash_attention(query, key, value, is_causal=False, attn_mask=None,
     dropout hash as the reference's blocks do. The CPU's plain version
     takes any head_dim; on a card the kernels run at `kernel_head_dim`,
     q, k and v zero-padded to it."""
+    # AMP: the reference's gray op ``flash_attention`` (:1286)
+    query, key, value = amp_cast("flash_attention", query, key, value)
     b, s_q, h, d = query.shape
     bq, bk = _blocks(s_q, key.shape[1], block_q, block_k)
     bias = None

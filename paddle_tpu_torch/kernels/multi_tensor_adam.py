@@ -10,7 +10,8 @@ note gives the math and the bound).
 
 - `multi_tensor_adam`: the update of a list of `AdamEntry` in place. CPU
   tensors take the plain version; CUDA tensors launch the kernel, one
-  launch a group (each counts once as ``multi_tensor_adam``), or the
+  launch a group (each counts once as ``multi_tensor_adam``, a float16
+  group as ``multi_tensor_adam_f16``), or the
   wrapper raises. Params, moments and masters must be contiguous; a
   grad that is not is copied first.
 - `adam_reference`: the plain version, the per-parameter rule in torch
@@ -43,7 +44,8 @@ from . import _build, count_launch, hold, runs_plain
 
 _SOURCE = "multi_tensor_adam"
 _NAME = "multi_tensor_adam"
-_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_HALF = (torch.bfloat16, torch.float16)
 _CHUNK = 65536                   # elements a chunk (csrc kChunk)
 _ROW = 9                         # int64 a table row (csrc Entry)
 _TABLES_KEPT = 4
@@ -52,8 +54,8 @@ _fns = None
 
 class AdamEntry(NamedTuple):
     """One tensor's operands: param, grad, the two moments, the float32
-    master of a bf16 param (or None), its weight decay and the scale of
-    its learning rate."""
+    master of a bfloat16 or float16 param (or None), its weight decay and
+    the scale of its learning rate."""
     p: torch.Tensor
     g: torch.Tensor
     m: torch.Tensor
@@ -153,17 +155,26 @@ def _check_entry(e, dev):
     for name in ("p", "g", "m", "v"):
         t = getattr(e, name)
         _check(t.device == dev and t.is_contiguous()
-               and t.dtype in _CODES, f"{name} must be a contiguous float32 "
-               f"or bfloat16 tensor on {dev}, got {t.dtype} on {t.device}")
+               and t.dtype in _CODES, f"{name} must be a contiguous float32, "
+               f"bfloat16 or float16 tensor on {dev}, got {t.dtype} on "
+               f"{t.device}")
         _check(t.numel() == e.p.numel(), f"{name} has {t.numel()} elements, "
                f"the param {e.p.numel()}")
     _check(e.m.dtype == e.v.dtype, "both moments must share a dtype")
+    if torch.float16 in (e.p.dtype, e.g.dtype, e.m.dtype):
+        _check(e.p.dtype == torch.float16
+               and e.g.dtype in (torch.float32, torch.float16)
+               and e.m.dtype in (torch.float32, torch.float16),
+               "a float16 group has float16 params and float32 or float16 "
+               f"grads and moments, got {e.p.dtype}, {e.g.dtype}, "
+               f"{e.m.dtype}")
     if e.master is not None:
-        _check(e.p.dtype == torch.bfloat16 and e.master.device == dev
+        _check(e.p.dtype in _HALF and e.master.device == dev
                and e.master.dtype == torch.float32
                and e.master.is_contiguous()
                and e.master.numel() == e.p.numel(),
-               "a master is a contiguous float32 copy of a bfloat16 param")
+               "a master is a contiguous float32 copy of a bfloat16 or "
+               "float16 param")
 
 
 def _scalar(t, dtype, dev, name):
@@ -262,7 +273,7 @@ def multi_tensor_adam(entries, lr, step, *, beta1, beta2, epsilon, adamw,
                    _CODES[gd], _CODES[sd], int(master), *ptrs, *consts,
                    int(adamw), stream)
         _raise_on(err, "launch")
-        count_launch(_NAME)
+        count_launch(_NAME + "_f16" if pd == torch.float16 else _NAME)
 
 
 def update_bytes(entries) -> int:

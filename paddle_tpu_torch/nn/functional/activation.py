@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from ...core import random as _random
+from ...core.dispatch import amp_cast
 from .common import _torch_dtype
 
 _F = torch.nn.functional
@@ -58,12 +59,14 @@ def tanh(x, name=None):
 
 
 def softmax(x, axis=-1, dtype=None, name=None):
+    (x,) = amp_cast("softmax", x)
     if dtype is not None:
         x = x.to(_torch_dtype(dtype))
     return torch.softmax(x, dim=axis)
 
 
 def log_softmax(x, axis=-1, dtype=None, name=None):
+    (x,) = amp_cast("log_softmax", x)
     if dtype is not None:
         x = x.to(_torch_dtype(dtype))
     return torch.log_softmax(x, dim=axis)

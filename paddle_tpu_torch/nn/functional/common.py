@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from ...core import random as _random
+from ...core.dispatch import amp_cast
 from ...kernels import flash_attention_enabled
 from .conv import _tuple
 
@@ -95,7 +96,9 @@ def mt_attention_core(q, keys, vals, head_dim, extra_logits=None,
 
 
 def linear(x, weight, bias=None, name=None):
-    """``x @ W (+ b)`` with ``W [in, out]``."""
+    """``x @ W (+ b)`` with ``W [in, out]`` (AMP: ``linear``, casting
+    x, W and b)."""
+    x, weight, bias = amp_cast("linear", x, weight, bias)
     y = x @ weight
     return y if bias is None else y + bias
 
@@ -353,8 +356,9 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     Sq, H, D]``. ``attn_mask``: bool (True = attend) or additive,
     broadcastable to ``[B, H, Sq, Sk]``. The causal mask is bottom-right
     aligned. Dropout applies only when ``training``. With ``use_flash``
-    and what the flash gate takes, the flash kernels run; otherwise the
-    composition."""
+    and what the flash gate takes, the flash kernels run (AMP: the gray
+    op ``flash_attention``, in the dtype its inputs have); otherwise the
+    composition (AMP: ``sdpa``, casting q, k and v, not the mask)."""
     # B2's entry is read from the package when called, so that a caller
     # that wraps ``nn.functional.flash_attention`` (to count its calls)
     # is the one that runs
@@ -365,6 +369,7 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         return flash(query, key, value, is_causal=is_causal,
                      attn_mask=attn_mask, dropout_p=eff_p,
                      generator=generator)
+    query, key, value = amp_cast("sdpa", query, key, value)
     q, k, v = (t.transpose(1, 2) for t in (query, key, value))
     scores = torch.einsum("bhqd,bhkd->bhqk", q, k) * (
         1.0 / math.sqrt(query.shape[-1]))

@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from ...core.dispatch import amp_cast
+
 
 def _tuple(v, n):
     return (v,) * n if isinstance(v, int) else tuple(v)
@@ -85,6 +87,7 @@ _CONV_T = {1: torch.nn.functional.conv_transpose1d,
 
 def _conv_nd(x, weight, bias, stride, padding, dilation, groups, n,
              channel_last):
+    x, weight, bias = amp_cast(f"conv{n}d", x, weight, bias)
     strides, dil = _tuple(stride, n), _tuple(dilation, n)
     pad = _padding(padding, n)
     if channel_last:
@@ -123,6 +126,7 @@ def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
 
 def _conv_transpose_nd(x, weight, bias, stride, padding, output_padding,
                        dilation, groups, n, channel_last):
+    x, weight, bias = amp_cast(f"conv{n}d_transpose", x, weight, bias)
     strides, dil = _tuple(stride, n), _tuple(dilation, n)
     pad, opad = _padding(padding, n), _tuple(output_padding, n)
     if channel_last:

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from ...core.dispatch import amp_cast
 from ...kernels.fused_ce import softmax_ce_logits
 from .activation import softmax as _softmax
 from .common import _at_least_f32
@@ -43,7 +44,9 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
     and no smoothing take the fused path (`kernels.fused_ce`), as in the
     reference (``loss.py:55-63``); ``ignore_index`` rows count zero and
     leave the mean's denominator. Only the unfused branches cast the
-    input to float32; the fused one keeps it in its own dtype."""
+    input to float32; the fused one keeps it in its own dtype. AMP:
+    ``cross_entropy`` casts the input only."""
+    (input,) = amp_cast("cross_entropy", input)
     axis = axis % input.dim()
 
     def logp():
@@ -108,6 +111,7 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
 
 def nll_loss(input, label, weight=None, ignore_index=-100, reduction="mean",
              name=None):
+    (input,) = amp_cast("nll_loss", input)
     x = _at_least_f32(input)
     ids = label.long()
     valid = ids != ignore_index
@@ -139,6 +143,7 @@ def smooth_l1_loss(input, label, reduction="mean", delta=1.0, name=None):
 
 def binary_cross_entropy(input, label, weight=None, reduction="mean",
                          name=None):
+    input, label = amp_cast("bce", input, label)
     p = torch.clamp(_at_least_f32(input), 1e-12, 1.0 - 1e-7)
     loss = -(label * torch.log(p) + (1 - label) * torch.log1p(-p))
     if weight is not None:
@@ -149,6 +154,7 @@ def binary_cross_entropy(input, label, weight=None, reduction="mean",
 def binary_cross_entropy_with_logits(logit, label, weight=None,
                                      reduction="mean", pos_weight=None,
                                      name=None):
+    logit, label = amp_cast("bce_logits", logit, label)
     z, y = _at_least_f32(logit), _at_least_f32(label)
     softplus_negabs = torch.log1p(torch.exp(-z.abs()))
     if pos_weight is not None:

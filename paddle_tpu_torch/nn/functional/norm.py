@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from ...core.dispatch import amp_cast
 from .common import _at_least_f32
 
 
@@ -33,6 +34,7 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
     cast back to x's dtype; ``weight``/``bias`` may be None."""
     if isinstance(normalized_shape, int):
         normalized_shape = (normalized_shape,)
+    x, weight, bias = amp_cast("layer_norm", x, weight, bias)
     return torch.nn.functional.layer_norm(
         x.float(), tuple(normalized_shape),
         None if weight is None else weight.float(),
@@ -40,6 +42,7 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
 
 
 def rms_norm(x, weight=None, epsilon=1e-6, name=None):
+    x, weight = amp_cast("rms_norm", x, weight)
     v = _at_least_f32(x)
     out = v * torch.rsqrt(v.square().mean(dim=-1, keepdim=True) + epsilon)
     if weight is not None:
@@ -60,6 +63,13 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                data_format="NCHW", use_global_stats=None, name=None):
     use_stats = (not training) if use_global_stats is None \
         else use_global_stats
+    # AMP: ``batch_norm`` casts the running statistics too where they are
+    # read, not where the batch's update writes them
+    if use_stats:
+        x, running_mean, running_var, weight, bias = amp_cast(
+            "batch_norm", x, running_mean, running_var, weight, bias)
+    else:
+        x, weight, bias = amp_cast("batch_norm", x, weight, bias)
     ch_axis = 1 if data_format.startswith("NC") else x.dim() - 1
     v = _at_least_f32(x).movedim(ch_axis, 1)
     w = None if weight is None else weight.to(v.dtype)
@@ -87,6 +97,7 @@ def instance_norm(x, running_mean=None, running_var=None, weight=None,
     """Each sample's channel normalised over its spatial dims (the
     running statistics and ``use_input_stats`` are taken and unused, as
     in the reference)."""
+    x, weight, bias = amp_cast("instance_norm", x, weight, bias)
     ch_axis = 1 if data_format.startswith("NC") else x.dim() - 1
     spatial = [d for d in range(1, x.dim()) if d != ch_axis]
     v = _at_least_f32(x)
@@ -99,6 +110,7 @@ def instance_norm(x, running_mean=None, running_var=None, weight=None,
 
 def group_norm(x, num_groups, epsilon=1e-05, weight=None, bias=None,
                data_format="NCHW", name=None):
+    x, weight, bias = amp_cast("group_norm", x, weight, bias)
     v = _at_least_f32(x)
     n = x.shape[0]
     shape = [1] * x.dim()

@@ -45,6 +45,7 @@ import copy
 
 import torch
 
+from ..core.dispatch import amp_cast
 from ..kernels.flash_attention import flash_attention_qkv3, packed_supported
 from . import functional as F
 from .common import Linear
@@ -154,7 +155,10 @@ class MultiHeadAttention(Layer):
             p = self.dropout if self.training else 0.0
             projs = (self.q_proj, self.k_proj, self.v_proj)
             w = torch.cat([m.weight for m in projs], dim=1)    # [h, 3h]
-            qkv = query @ w
+            # the reference's white-list ``matmul``, then a gray add of
+            # the biases as they are: under O1 float32 biases promote qkv
+            # back to float32 (:132-135)
+            qkv = torch.matmul(*amp_cast("matmul", query, w))
             if all(m.bias is not None for m in projs):
                 qkv = qkv + torch.cat([m.bias for m in projs])
             out = flash_attention_qkv3(qkv, self.num_heads, is_causal=False,

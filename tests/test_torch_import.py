@@ -104,7 +104,25 @@ MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.device",
            "paddle_tpu_torch.nn.quant.quant_layers",
            "paddle_tpu_torch.nn.quant.functional_layers",
            "paddle_tpu_torch.quantization",
-           "paddle_tpu_torch.quantization.layers"]
+           "paddle_tpu_torch.quantization.layers",
+           "paddle_tpu_torch.core.dtype", "paddle_tpu_torch.core.place",
+           "paddle_tpu_torch.core.tensor", "paddle_tpu_torch.core.autograd",
+           "paddle_tpu_torch.core.dispatch",
+           "paddle_tpu_torch.amp.auto_cast", "paddle_tpu_torch.autograd",
+           "paddle_tpu_torch.testing", "paddle_tpu_torch.testing.optest"]
+
+#: the reference's top-level names of A2 and A3 (``paddle_tpu/__init__.py
+#: :78-106``): dtypes, places, seeds and generator states, grad mode,
+#: `grad`, `Tensor`, `Parameter`, `autograd`, `amp`
+CORE_NAMES = ["enable_grad", "is_grad_enabled", "no_grad", "set_grad_enabled",
+              "bfloat16", "bool_", "complex64", "complex128", "float16",
+              "float32", "float64", "int8", "int16", "int32", "int64",
+              "uint8", "CPUPlace", "CUDAPinnedPlace", "CUDAPlace",
+              "NPUPlace", "Place", "TPUPlace", "device_count", "get_device",
+              "is_compiled_with_cuda", "is_compiled_with_tpu", "set_device",
+              "get_rng_state", "seed", "set_rng_state", "get_cuda_rng_state",
+              "set_cuda_rng_state", "Parameter", "Tensor", "ParamAttr",
+              "grad", "autograd", "amp", "bool", "dtype"]
 
 
 def test_import_pulls_in_no_jax_and_no_paddle_tpu():
@@ -118,6 +136,20 @@ def test_import_pulls_in_no_jax_and_no_paddle_tpu():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_the_core_top_level_names_are_the_references():
+    import paddle_tpu
+    import paddle_tpu_torch
+
+    for name in CORE_NAMES:
+        assert hasattr(paddle_tpu, name), name
+        assert hasattr(paddle_tpu_torch, name), name
+    assert paddle_tpu_torch.Tensor is torch.Tensor
+    assert paddle_tpu_torch.float16 is torch.float16
+    assert paddle_tpu_torch.autograd.PyLayer.__name__ == \
+        paddle_tpu.autograd.PyLayer.__name__
+    assert paddle_tpu_torch.amp.auto_cast.__name__ == "auto_cast"
 
 
 BLOCKED = ("jax", "jaxlib", "paddle_tpu", "ml_dtypes", "orbax")
@@ -250,8 +282,9 @@ def test_engine_refuses_a_device_other_than_the_models():
 def test_dtype_names():
     assert resolve_dtype("bfloat16") is torch.bfloat16
     assert resolve_dtype(torch.float32) is torch.float32
+    assert resolve_dtype("float16") is torch.float16
     with pytest.raises(ValueError):
-        resolve_dtype("float16")
+        resolve_dtype("float8_e4m3fn")
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():

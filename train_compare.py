@@ -24,10 +24,22 @@ against their bounds, the outcome with the spread of 2 eager runs beside
 the tree's count, and its two controls (the replays with one update
 skipped, and at twice the learning rate), which must fail the gate; an
 older tree runs its own `train_graph_check`.
+
+    python3 train_compare.py --eager-steps N
+
+times N eager steps, after 3 warm-up steps, of phase 24's
+`nn.Transformer()` (the tree's `chip_smoke.layer_base_model`, cast to
+bfloat16, b32 x (256 + 128), `AdamW(multi_precision=True)` with a
+global-norm clip; `loss.backward(); opt.step(); opt.clear_grad()`) and
+prints their median and quartiles: a host-bound eager step, for holding
+two trees' Python paths against each other (run the trees in
+alternation, one process each).
 """
 import argparse
 import os
+import statistics
 import sys
+import time
 
 import torch
 
@@ -90,9 +102,44 @@ def gate_reps(cs, reps, phase, card):
              " (the tree's own gate, no control)"), flush=True)
 
 
+def eager_steps(cs, steps):
+    """`--eager-steps`: phase 24's eager Transformer step, timed."""
+    from paddle_tpu_torch.core.random import rng_guard, step_generator
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    with rng_guard(step_generator(0, "cuda")):
+        model = cs.layer_base_model()
+    model.astype("bfloat16")
+    model.train()
+    mask = model.generate_square_subsequent_mask(cs.TR_TGT)
+    g = torch.Generator(device="cuda").manual_seed(24)
+    src, tgt, target = (torch.randn((cs.TR_B, s, cs.TR_D), generator=g,
+                                    device="cuda")
+                        for s in (cs.TR_SRC, cs.TR_TGT, cs.TR_TGT))
+    src, tgt = src.to(torch.bfloat16), tgt.to(torch.bfloat16)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                multi_precision=True, grad_clip=ClipGradByGlobalNorm(1.0))
+    times = []
+    for _ in range(steps + 3):
+        t0 = time.perf_counter()
+        out = model(src, tgt, tgt_mask=mask)
+        (out.float() - target).square().mean().backward()
+        opt.step()
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    t = sorted(times[3:])
+    q = statistics.quantiles(t, n=4)
+    print(f"eager Transformer step (phase 24's model), {steps} steps: p50 "
+          f"{statistics.median(t):.3f} ms, quartiles {q[0]:.3f} / "
+          f"{q[2]:.3f} ms, min {t[0]:.3f} ms", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--gate-reps", type=int, default=0)
+    ap.add_argument("--eager-steps", type=int, default=0)
     ap.add_argument("--phase", type=int, choices=(5, 13), default=5)
     args = ap.parse_args()
     sys.path.insert(0, os.getcwd())
@@ -106,6 +153,10 @@ def main():
     _build.build_all(["flash_attention", "flash_attention_qkv"])
     card = cs.nvidia_smi_line()
     print("tree at", os.getcwd(), ";", card, flush=True)
+    if args.eager_steps:
+        _build.build_all(["multi_tensor_adam"])
+        eager_steps(cs, args.eager_steps)
+        return
     if args.gate_reps:
         gate_reps(cs, args.gate_reps, args.phase, card)
         return
