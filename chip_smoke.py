@@ -426,6 +426,23 @@ Phases, in order; any failure exits non-zero:
    by op, B2 (float16 or bf16) and B5 (float32 under O1, float16 under
    O2) launches, no composed attention, step ms p50 of steps 2-6,
    tokens/s, peak memory, the loss scale, skipped steps and a profile.
+28. A4, the op namespace: (a) every function of ``ops`` (with
+   ``linalg``'s), ``fft`` and ``signal`` on CUDA tensors from the seed
+   against the same call on CPU copies, tolerances by family
+   (`NS_TOL`), the decompositions by their invariants, the random ops
+   by shape, dtype and device; the float ops of `NS_LOW` also in float16
+   and bfloat16 against the CPU's float32 on the same rounded inputs;
+   the counts, the card's total time, the functions that synchronise
+   with the host inside the call, and any failure by name. (b)
+   gpt3-1.3b (phase 5's model and b8 x s1024 shape, dropout 0, float32
+   parameters) trained eagerly under ``amp.auto_cast(level="O1",
+   dtype="float16")`` with ``GradScaler(2**15)`` and AdamW on a repeated
+   batch: float16 logits (the LM head through ``ops.matmul``), step 0's
+   loss within 0.5% of a float32 forward's, B1's float16 kernels exactly
+   steps x layers times each way, the update once a kept step, a
+   falling loss; step ms p50, tokens/s, MFU, peak memory and a profile
+   (busy share, kernels and host launch calls a step). B1's float16
+   launches in the kernels line are this phase's.
 
 The kernel phase (3) also holds the paged kernel at head dims above 256
 (D 320 and 512: width 512 in 2-query tiles; ps 16 and 4, f32, bf16 and
@@ -8652,6 +8669,750 @@ def amp_phase(torch, seed, card):
     return dict(total)
 
 
+# ---------------------------------------------------------------- phase 28
+# 28a: every function of the op namespace (ops.__all__, linalg, fft,
+# signal) on CUDA tensors made from a seed, against the same call on CPU
+# copies. Tolerances by family, (rtol, atol) of float32 outputs; "exact"
+# families (integers, bools, index and layout ops) equal; the
+# decompositions by their invariants (their factors are fixed only up to
+# signs); the random ops by shape, dtype, device and range. The float ops
+# of NS_LOW run again in float16 and bfloat16 (the reference's jnp takes
+# both): the card's output against the CPU's on the same rounded inputs
+# upcast to float32, within NS_LOW_ULPS of the 16-bit dtype at each
+# element's scale (its own magnitude or the output's rms): an op composed
+# of several 16-bit steps (``lerp``, ``stanh``) rounds at each.
+NS_TOL = {"float": (1e-5, 1e-6), "special": (1e-4, 1e-6),
+          "reduce": (1e-4, 1e-5), "linalg": (1e-3, 1e-4),
+          "fft": (1e-4, 1e-4)}
+NS_LOW_ULPS = {"float": 6, "special": 8, "reduce": 16}
+NS_UNARY = ("abs", "acos", "asin", "atan", "acosh", "asinh", "atanh",
+            "ceil", "floor", "cos", "cosh", "sin", "sinh", "tan", "tanh",
+            "exp", "expm1", "log", "log2", "log10", "log1p", "sqrt",
+            "rsqrt", "square", "sign", "round", "trunc", "reciprocal", "neg",
+            "erf", "erfinv", "sigmoid", "lgamma", "digamma", "angle", "conj",
+            "deg2rad", "rad2deg", "frac", "i0", "i0e", "i1", "i1e", "isnan",
+            "isinf", "isfinite", "real", "imag", "logit", "sgn", "stanh")
+# the unary ops' input ranges (others: normal draws)
+NS_DOMAIN = {"acos": (-0.9, 0.9), "asin": (-0.9, 0.9), "atanh": (-0.9, 0.9),
+             "erfinv": (-0.9, 0.9), "acosh": (1.1, 3.0), "log": (0.1, 3.0),
+             "log2": (0.1, 3.0), "log10": (0.1, 3.0), "log1p": (-0.5, 3.0),
+             "sqrt": (0.1, 3.0), "rsqrt": (0.1, 3.0),
+             "reciprocal": (0.5, 3.0), "lgamma": (0.2, 4.0),
+             "digamma": (0.2, 4.0), "logit": (0.05, 0.95),
+             "tan": (-1.2, 1.2)}
+NS_SPECIAL = {"erfinv", "lgamma", "digamma", "i0", "i0e", "i1", "i1e",
+              "tan", "acosh", "atanh", "logit"}
+NS_BINARY = ("add", "subtract", "multiply", "divide", "floor_divide", "mod",
+             "remainder", "floor_mod", "pow", "maximum", "minimum", "fmax",
+             "fmin", "atan2", "logaddexp", "copysign", "nextafter", "hypot",
+             "heaviside", "kron", "ldexp", "outer")
+NS_INT_BINARY = ("gcd", "lcm", "bitwise_and", "bitwise_or", "bitwise_xor",
+                 "bitwise_left_shift", "bitwise_right_shift")
+NS_LOGIC = ("equal", "not_equal", "less_than", "less_equal",
+            "greater_than", "greater_equal", "logical_and", "logical_or",
+            "logical_xor")
+NS_REDUCE = ("sum", "nansum", "mean", "nanmean", "prod", "max", "min",
+             "amax", "amin", "logsumexp", "all", "any", "count_nonzero",
+             "std", "var", "median", "nanmedian")
+# the float ops also run in float16 and bfloat16 on the card
+NS_LOW = (set(NS_UNARY) - {"angle", "conj", "real", "imag", "i0", "i0e", "i1",
+                           "i1e", "erfinv", "lgamma", "digamma", "isnan",
+                           "isinf", "isfinite", "sgn", "frac"}
+          | {"add", "subtract", "multiply", "divide", "maximum", "minimum",
+             "pow", "atan2", "hypot", "sum", "mean", "max", "min",
+             "logsumexp", "prod", "cumsum", "matmul", "mm", "bmm", "mv",
+             "einsum", "addmm", "clip", "scale", "lerp", "where",
+             "concat", "stack", "transpose", "reshape", "gather",
+             "index_select", "norm", "dist", "renorm", "sort", "topk"})
+
+
+class _Sp:
+    """A special argument of a case, made by `_materialize`: ``spd`` a
+    16 x 16 symmetric positive definite matrix, ``chol`` its lower
+    Cholesky factor, ``lu`` the two outputs of ``lu_factor`` of a 16 x 16
+    matrix, ``hann`` a 128-point Hann window plus 0.1."""
+
+    def __init__(self, what):
+        self.what = what
+
+
+class _Arr:
+    """A tensor argument of a case: ``kind`` f (normal, or uniform in
+    ``lo, hi``), i (ints in ``lo, hi``), b (bools), c (complex64)."""
+
+    def __init__(self, kind, shape, lo=None, hi=None, sort=None):
+        self.kind, self.shape, self.lo, self.hi = kind, shape, lo, hi
+        self.sort = sort
+
+    def numpy(self, np, rng):
+        if self.kind == "f":
+            a = (rng.uniform(self.lo, self.hi, self.shape)
+                 if self.lo is not None else rng.standard_normal(self.shape))
+            a = a.astype("float32")
+        elif self.kind == "i":
+            a = rng.integers(-9 if self.lo is None else self.lo,
+                             10 if self.hi is None else self.hi, self.shape)
+        elif self.kind == "b":
+            a = rng.random(self.shape) < 0.5
+        else:
+            a = (rng.standard_normal(self.shape)
+                 + 1j * rng.standard_normal(self.shape)).astype("complex64")
+        return np.sort(a, self.sort) if self.sort is not None else a
+
+
+def _f(*shape, lo=None, hi=None, sort=None):
+    return _Arr("f", shape, lo, hi, sort)
+
+
+def _i(*shape, lo=None, hi=None):
+    return _Arr("i", shape, lo, hi)
+
+
+def namespace_cases():
+    """``(module, name, args, kwargs, family)`` of every function of the
+    namespace: ``args`` hold `_Arr` specs (made tensors on each device)
+    and plain values."""
+    f34, f234 = _f(32, 48), _f(4, 32, 48)
+    spd, chol = _Sp("spd"), _Sp("chol")
+    cases = []
+
+    def add(name, args, kw=None, family="float", mod="ops"):
+        cases.append((mod, name, args, kw or {}, family))
+
+    for n in NS_UNARY:
+        lo, hi = NS_DOMAIN.get(n, (None, None))
+        add(n, [_f(32, 48, lo=lo, hi=hi)],
+            family="special" if n in NS_SPECIAL else "float")
+    add("bitwise_not", [_i(32, 48)], family="exact")
+    add("logical_not", [_Arr("b", (32, 48))], family="exact")
+    for n in NS_BINARY:
+        a = _f(32, 48, lo=0.5, hi=2.0) if n == "pow" else f34
+        b = _f(32, 48, lo=0.3, hi=2.0) if n in (
+            "divide", "floor_divide", "mod", "remainder", "floor_mod") \
+            else _f(32, 48)
+        if n in ("kron", "outer"):
+            a, b = _f(6, 8), _f(5, 7)
+        add(n, [a, b])
+    add("inner", [_f(32, 48), _f(24, 48)], family="reduce")
+    for n in NS_INT_BINARY:
+        add(n, [_i(32, 48, lo=0, hi=50), _i(32, 48, lo=0, hi=5)],
+            family="exact")
+    for n in ("add", "floor_divide", "mod", "multiply"):
+        add(n, [_i(32, 48), _i(32, 48, lo=1, hi=9)], family="exact")
+    for n in NS_LOGIC:
+        args = [_Arr("b", (32, 48))] * 2 if n.startswith("logical") \
+            else [_i(32, 48, lo=0, hi=3), _i(32, 48, lo=0, hi=3)]
+        add(n, args, family="exact")
+    for n in NS_REDUCE:
+        x = _f(4, 32, 48, lo=0.5, hi=1.5) if n == "prod" else f234
+        fam = "exact" if n in ("all", "any", "count_nonzero") else "reduce"
+        add(n, [x], {"axis": 1}, family=fam)
+        add(n, [x], {}, family=fam)
+    add("sum", [_i(4, 32, 48)], {"axis": 2}, family="exact")
+    for n in ("quantile", "nanquantile"):
+        add(n, [f34], {"q": [0.1, 0.5, 0.9], "axis": 1}, family="reduce")
+    for n in ("cumsum", "logcumsumexp"):
+        add(n, [f34], {"axis": 1}, family="reduce")
+    add("cumprod", [_f(32, 48, lo=0.9, hi=1.1)], {"dim": 1},
+        family="reduce")
+    for n in ("cummax", "cummin"):
+        add(n, [_i(32, 48)], {"axis": 1}, family="exact")
+    add("scale", [f34], {"scale": 2.0, "bias": 0.5})
+    add("increment", [f34], {"value": 2.0})
+    add("clip", [f34], {"min": -0.5, "max": 0.5})
+    add("multiplex", [[f34, f34], _i(32, 1, lo=0, hi=2)], family="exact")
+    add("addmm", [_f(32, 40), _f(32, 48), _f(48, 40)], family="reduce")
+    add("lerp", [f34, f34, _f(32, 48, lo=0, hi=1)])
+    add("nan_to_num", [f34])
+    add("trace", [_f(48, 48)], family="reduce")
+    add("isclose", [f34, f34], family="exact")
+    add("allclose", [f34, f34], family="exact")
+    add("equal_all", [f34, f34], family="exact")
+    add("isreal", [_Arr("c", (8, 8))], family="exact")
+    add("where", [_Arr("b", (32, 48)), f34, f34])
+    add("trapezoid", [f34], family="reduce")
+    add("add_n", [[f34, f34, f34]])
+    add("frexp", [f34])
+    for n in ("is_floating_point", "is_integer", "is_complex", "is_tensor",
+              "is_empty"):
+        add(n, [f34], family="exact")
+    add("while_loop", [_Sp("loop")], family="exact")
+    # creation
+    for n, args, kw in (("zeros", [[8, 16]], {}), ("ones", [[8, 16]], {}),
+                        ("full", [[8, 16], 1.5], {}), ("empty", [[8]], {}),
+                        ("arange", [0, 64, 3], {}),
+                        ("linspace", [0.0, 1.0, 33], {}),
+                        ("logspace", [0.0, 2.0, 17], {}),
+                        ("eye", [16, 24], {}), ("tril_indices", [16], {}),
+                        ("triu_indices", [16, 24, 2], {}),
+                        ("to_tensor", [[[1.5, 2.0], [3.0, 4.0]]], {}),
+                        ("as_tensor", [[1, 2, 3]], {}),
+                        ("check_shape", [[2, 3]], {})):
+        add(n, args, kw, family="create")
+    for n in ("zeros_like", "ones_like", "empty_like", "clone", "numel",
+              "assign"):
+        add(n, [f34], family="exact")
+    add("full_like", [f34, 2.5], family="exact")
+    add("diag", [_f(48)], {"offset": 1, "padding_value": 9.0},
+        family="exact")
+    add("diagflat", [_f(6, 8)], family="exact")
+    add("diag_embed", [_f(4, 8)], {"dim1": 0, "dim2": 2}, family="exact")
+    add("meshgrid", [_f(8), _f(9)], family="exact")
+    add("tril", [f34], {"diagonal": 1}, family="exact")
+    add("triu", [f34], {"diagonal": -1}, family="exact")
+    add("complex", [f34, f34], family="exact")
+    add("polar", [_f(32, 48, lo=0, hi=2), f34])
+    for n, args, kw in (("rand", [[64, 64]], {}), ("randn", [[64, 64]], {}),
+                        ("standard_normal", [[64, 64]], {}),
+                        ("randint", [0, 10, [64, 64]], {}),
+                        ("randperm", [64], {}),
+                        ("uniform", [[64, 64]], {"min": 2.0, "max": 4.0}),
+                        ("normal", [1.0, 2.0, [64, 64]], {})):
+        add(n, args, kw, family="random")
+    for n, args in (("randint_like", [_i(64, 64), 10]),
+                    ("bernoulli", [_f(64, 64, lo=0, hi=1)]),
+                    ("poisson", [_f(64, 64, lo=0, hi=4)]),
+                    ("multinomial", [_f(4, 16, lo=0.1, hi=1), 8])):
+        add(n, args, family="random")
+    add("create_parameter", [[16, 8]], family="random")
+    # manipulation
+    for n, args, kw in (
+            ("reshape", [f234, [8, 16, 48]], {}),
+            ("reshape_", [f234, [8, 16, 48]], {}),
+            ("transpose", [f234, [2, 0, 1]], {}), ("t", [f34], {}),
+            ("moveaxis", [f234, 0, 2], {}), ("swapaxes", [f234, 0, 2], {}),
+            ("squeeze", [_f(4, 1, 48)], {}), ("unsqueeze", [f34, [0, -1]], {}),
+            ("flatten", [f234], {"start_axis": 1}),
+            ("concat", [[f34, f34]], {"axis": 1}),
+            ("stack", [[f34, f34]], {"axis": -1}),
+            ("split", [f34, 3], {"axis": 1}),
+            ("split", [f34, [10, -1]], {"axis": 1}),
+            ("chunk", [f34, 4], {}), ("unbind", [_f(3, 8)], {}),
+            ("unstack", [_f(3, 8)], {}), ("tile", [_f(3, 8), [2, 2]], {}),
+            ("expand", [_f(32, 1), [2, 32, 48]], {}),
+            ("broadcast_to", [_f(1, 48), [32, 48]], {}),
+            ("expand_as", [_f(1, 48), f34], {}),
+            ("view_as", [_f(1, 48), f34], {}),
+            ("broadcast_tensors", [[_f(1, 48), _f(32, 1)]], {}),
+            ("broadcast_shape", [[2, 1, 3], [4, 1]], {}),
+            ("flip", [f34, [0, 1]], {}), ("rot90", [f34], {}),
+            ("roll", [f34, 5], {"axis": 1}), ("cast", [f34, "int32"], {}),
+            ("slice", [f234, [1, 2], [2, 8], [20, 40]], {}),
+            ("strided_slice", [f34, [1], [40], [2], [-3]], {}),
+            ("crop", [f34, [8, 8]], {"offsets": [2, 3]}),
+            ("pad", [_f(2, 3, 16, 16), [1, 2, 3, 0]], {"mode": "reflect"}),
+            ("pad", [_f(2, 3, 16, 16), [1, 2, 3, 0]], {}),
+            ("gather", [f34, _i(10, lo=0, hi=32)], {}),
+            ("gather_nd", [f234, _i(5, 2, lo=0, hi=4)], {}),
+            ("scatter", [f34, _i(5, lo=0, hi=32), _f(5, 48)],
+             {"overwrite": False}),
+            ("scatter_", [f34, _i(5, lo=0, hi=32), _f(5, 48)],
+             {"overwrite": False}),
+            ("scatter_nd_add", [f34, _i(6, 1, lo=0, hi=32), _f(6, 48)], {}),
+            ("scatter_nd", [_i(6, 1, lo=0, hi=32), _f(6, 48), [32, 48]], {}),
+            ("index_select", [f34, _i(7, lo=0, hi=48)], {"axis": 1}),
+            ("index_sample", [f34, _i(32, 5, lo=0, hi=48)], {}),
+            ("index_add", [f34, _i(6, lo=0, hi=32), 0, _f(6, 48)], {}),
+            ("index_add_", [f34, _i(6, lo=0, hi=32), 0, _f(6, 48)], {}),
+            ("index_put", [f34, (_i(6, lo=0, hi=32), _i(6, lo=0, hi=48)),
+                           _f(6)], {"accumulate": True}),
+            ("take_along_axis", [f34, _i(32, 3, lo=0, hi=48), 1], {}),
+            ("put_along_axis", [f34, _i(32, 3, lo=0, hi=48), _f(32, 3), 1],
+             {"reduce": "add"}),
+            ("masked_select", [f34, _Arr("b", (32, 48))], {}),
+            ("masked_fill", [f34, _Arr("b", (32, 48)), -1.0], {}),
+            ("repeat_interleave", [f34, 2], {"axis": 1}),
+            ("as_complex", [_f(8, 8, 2)], {}),
+            ("as_real", [_Arr("c", (8, 8))], {}),
+            ("view", [f234, [128, 48]], {}), ("view", [f34, "int32"], {}),
+            ("atleast_1d", [f34], {}), ("atleast_2d", [_f(8)], {}),
+            ("atleast_3d", [f34], {}),
+            ("diagonal", [f234], {"axis1": 1, "axis2": 2}),
+            ("argmax", [f34], {"axis": 1}), ("argmin", [f34], {}),
+            ("argsort", [_i(32, 48)], {"descending": True}),
+            ("sort", [f34], {"axis": 0}), ("topk", [f34, 5], {}),
+            ("kthvalue", [f34, 3], {}), ("mode", [_i(32, 48)], {}),
+            ("nonzero", [_Arr("b", (32, 48))], {}),
+            ("searchsorted", [_f(64, sort=0), f34], {}),
+            ("bucketize", [f34, _f(64, sort=0)], {}),
+            ("unique", [_i(32, 48)], {"return_index": True,
+                                      "return_inverse": True,
+                                      "return_counts": True}),
+            ("unique_consecutive", [_i(64, lo=0, hi=3)],
+             {"return_inverse": True, "return_counts": True}),
+            ("histogram", [_f(4096)], {"bins": 16, "min": -3, "max": 3}),
+            ("bincount", [_i(256, lo=0, hi=30)], {}),
+            ("diff", [f34], {"n": 2}),
+            ("unflatten", [f234, 2, [6, 8]], {}),
+            ("vander", [_f(8)], {}),
+            ("as_strided", [f34, [16, 8], [48, 2]], {}),
+            ("take", [f34, _i(6, 6, lo=-100, hi=100)], {"mode": "wrap"}),
+            ("vsplit", [f34, 4], {}), ("reverse", [f34, [1]], {}),
+            ("shard_index", [_i(32, 1, lo=0, hi=40)],
+             {"index_num": 40, "nshards": 4, "shard_id": 2}),
+            ("tolist", [_i(4, 4)], {}), ("shape", [f234], {}),
+            ("rank", [f234], {})):
+        add(n, args, kw, family="exact")
+    add("renorm", [f234, 2.0, 1, 5.0], family="reduce")
+    # linear algebra
+    for n, args, kw, fam in (
+            ("matmul", [_f(4, 32, 48), _f(40, 48)], {"transpose_y": True},
+             "reduce"),
+            ("mm", [f34, _f(48, 40)], {}, "reduce"),
+            ("bmm", [f234, _f(4, 48, 40)], {}, "reduce"),
+            ("mv", [f34, _f(48)], {}, "reduce"),
+            ("dot", [f34, f34], {}, "reduce"),
+            ("cross", [_f(32, 3), _f(32, 3)], {}, "float"),
+            ("norm", [f34], {}, "reduce"),
+            ("norm", [f34], {"p": 2, "axis": 1}, "reduce"),
+            ("norm", [f234], {"p": "nuc", "axis": [1, 2]}, "linalg"),
+            ("dist", [f34, f34], {"p": 3}, "reduce"),
+            ("cdist", [_f(16, 8), _f(24, 8)], {}, "reduce"),
+            ("det", [spd], {}, "linalg"),
+            ("slogdet", [spd], {}, "linalg"),
+            ("inv", [spd], {}, "linalg"),
+            ("pinv", [_f(48, 32)], {}, "linalg"),
+            ("eigvalsh", [spd], {}, "linalg"),
+            ("cholesky", [spd], {}, "linalg"),
+            ("cholesky_solve", [_f(16, 4), chol], {}, "linalg"),
+            ("solve", [spd, _f(16, 4)], {}, "linalg"),
+            ("triangular_solve", [chol, _f(16, 4)], {"upper": False},
+             "linalg"),
+            ("lstsq", [_f(48, 32), _f(48, 4)], {}, "linalg"),
+            ("matrix_power", [spd], {"n": -2}, "linalg"),
+            ("matrix_rank", [_f(48, 32)], {}, "exact"),
+            ("multi_dot", [[_f(8, 16), _f(16, 24), _f(24, 4)]], {},
+             "reduce"),
+            ("cond", [spd], {}, "linalg"),
+            ("cov", [_f(8, 64)], {}, "reduce"),
+            ("corrcoef", [_f(8, 64)], {}, "reduce"),
+            ("einsum", ["bij,bkj->bik", f234, f234], {}, "reduce"),
+            ("tensordot", [f234, _f(48, 8)], {"axes": 1}, "reduce"),
+            ("householder_product", [_f(32, 8), _f(8, lo=0.5, hi=1.5)], {},
+             "linalg"),
+            ("svd", [_f(48, 32)], {}, "svd"), ("qr", [_f(48, 32)], {}, "qr"),
+            ("eigh", [spd], {}, "eigh"), ("eig", [_f(16, 16)], {}, "eig"),
+            ("eigvals", [_f(16, 16)], {}, "eig"),
+            ("lu", [_f(32, 32)], {}, "lu"),
+            ("lu_unpack", [_Sp("lu")], {}, "linalg")):
+        add(n, args, kw, fam)
+    for n in ("fft", "ifft", "hfft"):
+        add(n, [_Arr("c", (16, 64))], {"norm": "ortho"}, "fft", "fft")
+    for n in ("rfft", "ihfft"):
+        add(n, [_f(16, 64)], {}, "fft", "fft")
+    add("irfft", [_Arr("c", (16, 33))], {}, "fft", "fft")
+    for n in ("fftn", "ifftn", "fft2", "ifft2", "hfft2", "hfftn"):
+        add(n, [_Arr("c", (4, 16, 32))], {}, "fft", "fft")
+    for n in ("rfftn", "rfft2", "ihfft2", "ihfftn"):
+        add(n, [_f(4, 16, 32)], {}, "fft", "fft")
+    for n in ("irfftn", "irfft2"):
+        add(n, [_Arr("c", (4, 16, 17))], {}, "fft", "fft")
+    for n in ("fftshift", "ifftshift"):
+        add(n, [_f(16, 64)], {}, "exact", "fft")
+    for n in ("fftfreq", "rfftfreq"):
+        add(n, [64], {"d": 0.5}, "create", "fft")
+    add("frame", [_f(2, 512), 64, 32], {}, "exact", "signal")
+    add("overlap_add", [_f(2, 64, 15), 32], {}, "reduce", "signal")
+    add("stft", [_f(2, 1024), 128], {}, "fft", "signal")
+    add("istft", [_Arr("c", (2, 65, 33)), 128], {"window": _Sp("hann")},
+        "fft", "signal")
+    return cases
+
+
+def _materialize(a, torch, np, rng, device, dtype, upcast=False):
+    """A case's argument on ``device``: `_Arr` specs drawn from ``rng``
+    (float ones rounded to ``dtype``, then with ``upcast`` made float32
+    again), specials built, lists and tuples walked, the rest as it
+    is."""
+    if isinstance(a, _Arr):
+        t = torch.from_numpy(a.numpy(np, rng))
+        if t.is_floating_point():
+            t = t.to(dtype)
+            if upcast:
+                t = t.float()
+        return t.to(device)
+    if isinstance(a, _Sp):
+        if a.what in ("spd", "chol"):
+            m = torch.from_numpy(rng.standard_normal((16, 16)).astype(
+                "float32"))
+            t = m @ m.T / 16 + torch.eye(16)
+            if a.what == "chol":
+                t = torch.linalg.cholesky(t)
+            return t.to(device)
+        if a.what == "lu":
+            m = torch.from_numpy(rng.standard_normal((16, 16)).astype(
+                "float32"))
+            return tuple(x.to(device) for x in torch.linalg.lu_factor(m))
+        if a.what == "hann":
+            return torch.from_numpy((np.hanning(128) + 0.1).astype(
+                "float32")).to(device)
+        return a
+    if isinstance(a, (list, tuple)):
+        return type(a)(_materialize(x, torch, np, rng, device, dtype,
+                                    upcast) for x in a)
+    return a
+
+
+def _ns_args(torch, case, device, dtype, seed, upcast=False):
+    """``(args, kwargs)`` of ``case`` with its tensors on ``device``."""
+    import numpy as np
+
+    _, name, args, kw, _ = case
+    rng = np.random.default_rng(seed)
+    a = [_materialize(x, torch, np, rng, device, dtype, upcast)
+         for x in args]
+    k = {n: _materialize(v, torch, np, rng, device, dtype, upcast)
+         for n, v in kw.items()}
+    return (list(a[0]) if name == "lu_unpack" else a), k
+
+
+def _ns_call(torch, mods, case, device, a, k):
+    """One call of ``case`` on the arguments ``a``, ``k`` (the expected
+    device set to ``device``, for the creation ops)."""
+    from paddle_tpu_torch import device as pdev
+
+    mod, name = case[:2]
+    saved = pdev.expected_device()
+    pdev.set_expected_device(torch.device(device))
+    try:
+        if name == "while_loop":
+            import paddle_tpu_torch as pt
+            return pt.ops.while_loop(
+                lambda i, s: i < 5, lambda i, s: [i + 1, s * 2.0],
+                [pt.to_tensor(0), pt.to_tensor(1.5)])
+        return getattr(mods[mod], name)(*a, **k)
+    finally:
+        pdev.set_expected_device(saved)
+
+
+def _leaves(out):
+    if isinstance(out, (list, tuple)):
+        return [x for o in out for x in _leaves(o)]
+    return [out]
+
+
+def _close(torch, got, want, rtol, atol):
+    """``got`` (any device) against ``want`` (CPU): shapes and dtypes
+    equal, values within ``rtol``/``atol``; returns the largest gap."""
+    check(tuple(got.shape) == tuple(want.shape) and got.dtype == want.dtype,
+          f"shape/dtype {tuple(got.shape)} {got.dtype} against "
+          f"{tuple(want.shape)} {want.dtype}")
+    g = got.detach().cpu()
+    w = want.detach()
+    if not (w.is_floating_point() or w.is_complex()):
+        check(torch.equal(g, w), "values differ")
+        return 0.0
+    check(torch.allclose(g, w, rtol=rtol, atol=atol, equal_nan=True),
+          f"values differ by {(g - w).abs().max().item():.3e}")
+    return (g - w).abs().nan_to_num().max().item() if g.numel() else 0.0
+
+
+def _ns_agree(torch, family, got, want):
+    """The card's output ``got`` against the CPU's ``want`` by the case's
+    family (see NS_TOL); returns the largest gap."""
+    if family in ("svd", "qr", "eigh", "eig", "lu"):
+        return _ns_invariants(torch, family, got, want)
+    gl, wl = _leaves(got), _leaves(want)
+    check(len(gl) == len(wl), f"{len(gl)} outputs against {len(wl)}")
+    worst = 0.0
+    for g, w in zip(gl, wl):
+        if not isinstance(w, torch.Tensor):
+            check(g == w, f"{g!r} against {w!r}")
+            continue
+        if family == "random":
+            on = "cuda" if torch.cuda.is_available() else "cpu"
+            check(tuple(g.shape) == tuple(w.shape) and g.dtype == w.dtype
+                  and g.device.type == on, "random draw's shape, dtype "
+                  "or device")
+            check(bool(torch.isfinite(g.float()).all()), "non-finite draw")
+            continue
+        rtol, atol = NS_TOL.get(family, (1e-6, 1e-6))
+        if family == "fft":
+            atol *= max(w.abs().max().item(), 1.0)
+        worst = max(worst, _close(torch, g, w, rtol, atol))
+    return worst
+
+
+def _ns_invariants(torch, family, got, want):
+    """Factors fixed up to signs: their values (singular values,
+    eigenvalues) and what they rebuild, on the card."""
+    rtol, atol = NS_TOL["linalg"]
+    if family == "svd":
+        u, s, v = got
+        rebuilt = (u * s) @ v.mH
+        x = want[0] * want[1] @ want[2].mH
+        return max(_close(torch, s, want[1], rtol, atol),
+                   _close(torch, rebuilt, x, rtol, atol))
+    if family == "qr":
+        q, r = got
+        return max(_close(torch, q @ r, want[0] @ want[1], rtol, atol),
+                   _close(torch, r.abs(), want[1].abs(), rtol, atol))
+    if family == "eigh":
+        w, q = got
+        return max(_close(torch, w, want[0], rtol, atol),
+                   _close(torch, (q * w) @ q.mT, (want[1] * want[0])
+                          @ want[1].mT, rtol, atol))
+
+    def ordered(e):
+        e = e.detach().cpu()
+        key = e.real * 1e3 + e.imag
+        return e[torch.argsort(key)]
+
+    if family == "eig" and isinstance(got, tuple):
+        w, v = got
+        a = (v * w) @ torch.linalg.inv(v)
+        a_cpu = (want[1] * want[0]) @ torch.linalg.inv(want[1])
+        return max(_close(torch, ordered(w), ordered(want[0]), rtol, atol),
+                   _close(torch, a, a_cpu, rtol, atol))
+    if family == "eig":
+        return _close(torch, ordered(got), ordered(want), rtol, atol)
+    lu_mat, piv = got                           # "lu"
+    check(piv.dtype == torch.int32 and int(piv.min()) >= 1,
+          "pivots not 1-based int32")
+    p, l, u = torch.lu_unpack(lu_mat, piv)
+    pc, lc, uc = torch.lu_unpack(*want)
+    return _close(torch, p @ l @ u, pc @ lc @ uc, rtol, atol)
+
+
+def _ns_low_agree(torch, family, got, want, dtype):
+    """A 16-bit card output against the float32 CPU output on the same
+    rounded inputs: within NS_LOW_ULPS of ``dtype`` at each element's
+    scale (its magnitude, or the output's rms), or equal for the exact
+    family."""
+    gl, wl = _leaves(got), _leaves(want)
+    worst = 0.0
+    for g, w in zip(gl, wl):
+        g = g.detach().cpu()
+        if not g.is_floating_point():
+            check(torch.equal(g, w.to(g.dtype)), "values differ")
+            continue
+        check(g.dtype == dtype, f"dtype {g.dtype}, not {dtype}")
+        if family == "exact":
+            check(torch.equal(g.float(), w.float()), "values differ")
+            continue
+        unit = torch.finfo(dtype).eps / 2
+        w = w.float()
+        scale = torch.maximum(w.abs(), w.pow(2).mean().sqrt())
+        ulps = ((g.float() - w).abs() / (scale * unit)).nan_to_num()
+        worst = max(worst, ulps.max().item())
+        check(worst <= NS_LOW_ULPS[family], f"{worst:.1f} ulps of {dtype}")
+    return worst
+
+
+def namespace_phase(torch, seed, dev="cuda"):
+    """Phase 28a: every case of `namespace_cases` on ``dev`` against the
+    CPU; the NS_LOW float ops again in float16 and bfloat16. Prints the
+    counts, the largest gap by family, the card's total time, the
+    functions that synchronise with the host inside the call (a read
+    back of a count, a host check, a host solver) and the names of any
+    that failed with the reason; fails if one did, or if a name of
+    `ops`, `linalg`, `fft` or `signal` has no case."""
+    import warnings
+
+    import paddle_tpu_torch as pt
+
+    mods = {"ops": pt.ops, "fft": pt.fft, "signal": pt.signal}
+    cases = namespace_cases()
+    have = collections.defaultdict(set)
+    for mod, name, *_ in cases:
+        have[mod].add(name)
+    lacking = sorted({*(set(pt.ops.__all__) - have["ops"]),
+                      *(set(pt.linalg.__all__) - have["ops"]),
+                      *(set(pt.fft.__all__) - have["fft"]),
+                      *(set(pt.signal.__all__) - have["signal"])})
+    check(not lacking, f"namespace functions with no case: {lacking}")
+    failed, gaps, synced = [], collections.defaultdict(float), {}
+    runs, card_s = 0, 0.0
+    for idx, case in enumerate(cases):
+        mod, name, _, _, family = case
+        dtypes = [torch.float32]
+        if mod == "ops" and name in NS_LOW and family in (
+                "float", "special", "reduce", "exact"):
+            dtypes += [torch.float16, torch.bfloat16]
+        for dt in dtypes:
+            label = f"{mod}.{name}[{idx}] {str(dt)[6:]}"
+            try:
+                # the CPU's float32 call, on the 16-bit runs' inputs
+                # rounded to the 16-bit dtype
+                want = _ns_call(torch, mods, case, "cpu", *_ns_args(
+                    torch, case, "cpu", dt, seed * 1000 + idx, upcast=True))
+                a, k = _ns_args(torch, case, dev, dt, seed * 1000 + idx)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                with warnings.catch_warnings(record=True) as seen:
+                    warnings.simplefilter("always")
+                    if dev == "cuda":
+                        torch.cuda.set_sync_debug_mode("warn")
+                    t0 = time.perf_counter()
+                    try:
+                        got = _ns_call(torch, mods, case, dev, a, k)
+                    finally:
+                        if dev == "cuda":
+                            torch.cuda.set_sync_debug_mode(0)
+                            torch.cuda.synchronize()
+                    card_s += time.perf_counter() - t0
+                # torch's sync debug warning (not its one-time notice that
+                # the mode is a prototype)
+                n_sync = sum("called a synchronizing CUDA operation"
+                             in str(w.message) for w in seen)
+                if n_sync and dt == torch.float32:
+                    synced[f"{mod}.{name}"] = n_sync
+                if dt == torch.float32:
+                    gap = _ns_agree(torch, family, got, want)
+                else:
+                    gap = _ns_low_agree(torch, family, got, want, dt)
+                gaps[f"{family} {str(dt)[6:]}"] = max(
+                    gaps[f"{family} {str(dt)[6:]}"], gap)
+                runs += 1
+            except Exception as e:           # noqa: BLE001 (listed, then fail)
+                failed.append(f"{label}: {type(e).__name__}: {e}"[:300])
+    n_names = len(set(pt.ops.__all__) | set(pt.fft.__all__)
+                  | set(pt.signal.__all__))
+    print(f"  {len(cases)} cases over {n_names} functions (ops "
+          f"{len(pt.ops.__all__)} incl. linalg's {len(pt.linalg.__all__)}, "
+          f"fft {len(pt.fft.__all__)}, signal {len(pt.signal.__all__)}); "
+          f"{runs} runs agreed on {dev} (float32; float16 and bfloat16 "
+          f"for {len(NS_LOW)} float ops), {len(failed)} failed; the "
+          f"card's calls {card_s:.3f} s in all")
+    print("    largest gap by family and dtype (float32: absolute; 16-bit: "
+          "ulps at scale): " + ", ".join(
+              f"{k} {v:.3g}" for k, v in sorted(gaps.items())))
+    print(f"    functions that synchronise with the host inside the call "
+          f"({len(synced)}): " + ", ".join(
+              f"{k} x{v}" for k, v in sorted(synced.items())))
+    for line in failed:
+        print(f"    FAILED {line}")
+    check(not failed, f"{len(failed)} namespace runs failed on {dev}")
+    return synced
+
+
+# 28b: gpt3-1.3b (the model and shape of phase 5) trained eagerly as a
+# user writes it under amp.auto_cast O1 float16 with a GradScaler
+# (Megatron-LM's --fp16; Brown et al. 2020's GPT-3 XL widths): float32
+# parameters and AdamW moments, dropout 0, one repeated batch of b8 x
+# s1024 ids. GPT28_WARM steps, then GPT28_STEPS timed ones; step 0's
+# loss within GPT28_LOSS_RTOL of a float32 no_grad forward of the batch
+GPT28_B, GPT28_S, GPT28_WARM, GPT28_STEPS = 8, 1024, 2, 6
+GPT28_LR, GPT28_SCALE, GPT28_LOSS_RTOL = 1e-4, 2.0 ** 15, 5e-3
+# the device memory a run may peak at before the batch is cut to b4
+GPT28_PEAK_LIMIT = 70 * 2 ** 30
+
+
+def gpt_amp_phase(torch, seed, card):
+    """Phase 28b: `GPTForPretraining("gpt3-1.3b")` drawn from ``seed``,
+    trained eagerly with ``amp.auto_cast(level="O1", dtype="float16")``,
+    ``amp.GradScaler`` and the port's AdamW. Checks: the logits are
+    float16 (the repaired head); step 0's loss is within GPT28_LOSS_RTOL
+    of the float32 forward's; B1's float16 forward and backward launch
+    exactly steps x layers times each over the timed steps and the
+    update (P1) once a kept step; the loss falls over the steps. Prints
+    step ms p50, tokens/s, MFU, peak memory and a profile of two steps
+    (busy share, kernels and host launch calls a step). Returns the
+    timed steps' launch counts."""
+    import dataclasses
+
+    from paddle_tpu_torch import amp, kernels
+    from paddle_tpu_torch.models.gpt import (GPTForPretraining,
+                                             GPTPretrainingCriterion,
+                                             gpt_config)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = dataclasses.replace(gpt_config(MODEL), hidden_dropout_prob=0.0,
+                              attention_probs_dropout_prob=0.0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = GPTForPretraining(cfg, seed=seed)
+    model.requires_grad_(True)
+    model.train()
+    params = list(model.parameters())
+    opt = AdamW(learning_rate=GPT28_LR, parameters=params,
+                weight_decay=TRAIN_WD)
+    scaler = amp.GradScaler(init_loss_scaling=GPT28_SCALE)
+    crit = GPTPretrainingCriterion()
+    g = torch.Generator(device="cuda").manual_seed(seed + 28)
+    ids = torch.randint(0, cfg.vocab_size, (GPT28_B, GPT28_S + 1),
+                        generator=g, device="cuda")
+    x, y = ids[:, :-1], ids[:, 1:]
+    print(f"  {MODEL}: {cfg.num_hidden_layers} layers, h={cfg.hidden_size}, "
+          f"{cfg.num_attention_heads} heads, d={cfg.head_dim}, vocab "
+          f"{cfg.vocab_size}, dropout 0; b{GPT28_B} x s{GPT28_S}, one "
+          f"repeated batch; float32 params, AdamW lr {GPT28_LR} wd "
+          f"{TRAIN_WD}, GradScaler({GPT28_SCALE:g}), auto_cast O1 float16, "
+          "eager")
+    with torch.no_grad():
+        ref = crit(model(x), y).item()
+    dtypes = []
+
+    def step():
+        with amp.auto_cast(level="O1", dtype="float16"):
+            logits = model(x)
+            loss = crit(logits, y)
+        dtypes.append(logits.dtype)
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        opt.clear_grad()
+        return loss
+
+    losses, times, scales = [], [], []
+    for i in range(GPT28_WARM + GPT28_STEPS):
+        if i == GPT28_WARM:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_kernel_launch_counts()
+        t0 = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        scales.append(scaler.get_loss_scaling())
+    counts = kernels.kernel_launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    rel = abs(losses[0] - ref) / abs(ref)
+    check(all(d == torch.float16 for d in dtypes),
+          f"logits {set(dtypes)}: the LM head does not cast under O1")
+    check(rel <= GPT28_LOSS_RTOL, f"step 0's loss {losses[0]} against the "
+          f"float32 forward's {ref}: relative {rel:.2e}")
+    check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    check(losses[-1] < losses[0] - 0.1, f"the loss did not fall: {losses}")
+    timed_scales = [GPT28_SCALE] + scales
+    skipped = sum(1 for a, b in zip(timed_scales[GPT28_WARM:],
+                                    scales[GPT28_WARM:]) if b < a)
+    want = {"flash_attention_qkv_fwd_f16": GPT28_STEPS
+            * cfg.num_hidden_layers,
+            "flash_attention_qkv_bwd_f16": GPT28_STEPS
+            * cfg.num_hidden_layers}
+    if GPT28_STEPS - skipped:
+        want["multi_tensor_adam"] = GPT28_STEPS - skipped
+    only_launched(counts, want, "gpt3-1.3b eager O1 float16 training")
+    p50 = statistics.median(times[GPT28_WARM:]) * 1e3
+    tok_s = GPT28_B * GPT28_S / (p50 / 1e3)
+    flops_per_tok = (6 * cfg.num_params(include_embeddings=False)
+                     + 12 * cfg.num_hidden_layers * cfg.hidden_size
+                     * GPT28_S)
+    mfu = tok_s * flops_per_tok / BF16_FLOPS_PER_S
+    print(f"  float16 logits in every step; step 0's loss {losses[0]:.6f} "
+          f"against the float32 forward's {ref:.6f} (rel {rel:.2e} <= "
+          f"{GPT28_LOSS_RTOL}); losses {[round(v, 4) for v in losses]} "
+          f"(falling); loss scale {scales}, {skipped} timed steps skipped")
+    print(f"  launches over the {GPT28_STEPS} timed steps: {want} (B1 "
+          f"float16 fwd = bwd = steps x layers, the update once a kept "
+          "step)  ok")
+    print(f"  {card}: eager O1 float16 step {p50:.3f} ms p50 of the "
+          f"{GPT28_STEPS} timed steps (steps "
+          f"{[round(t * 1e3, 3) for t in times]} ms, the first "
+          f"{GPT28_WARM} warm-up), {tok_s:.1f} tokens/s, MFU {mfu:.4f} "
+          f"({flops_per_tok} flops/token over 989 TFLOP/s), peak "
+          f"{peak / 2 ** 30:.3f} GiB")
+    check(peak <= GPT28_PEAK_LIMIT, f"peak {peak / 2 ** 30:.3f} GiB over "
+          f"{GPT28_PEAK_LIMIT / 2 ** 30:.0f}: cut the batch to b4")
+    profile_steps(torch, step, 2, "eager O1 float16 GPT steps",
+                  {**qkv_families("B1"), **ADAM_FAMILY})
+    del model, opt, scaler, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: counts[k] for k in want}
+
+
 def print_build_report(name, report):
     """One source's build seconds, then for each kernel ptxas's register,
     shared-memory and spill lines, joined on one line."""
@@ -8891,6 +9652,18 @@ def main(argv=None) -> int:
         print(f"  (the float16 rows' launches in the kernel line are phase "
               f"27b's; B2's, B5's and the update's add its other launches: "
               f"{ {k: v for k, v in phase27.items() if v} })")
+        say("[28] A4 (the op namespace: ops, linalg, fft, signal) and the "
+            "models' white-list matmuls under amp.auto_cast")
+        say(f"[28a] every namespace function on the card against the CPU "
+            f"(float32; float16 and bfloat16 for the float ops) on {card}")
+        namespace_phase(torch, args.seed)
+        say(f"[28b] gpt3-1.3b trained eagerly under amp.auto_cast O1 "
+            f"float16 + GradScaler, b{GPT28_B} x s{GPT28_S} on {card}")
+        phase28 = gpt_amp_phase(torch, args.seed, card)
+        for name, n in phase28.items():
+            launches[name] = launches.get(name, 0) + n
+        print(f"  (B1's float16 launches in the kernel line are phase 28b's; "
+              f"the update's add its {phase28.get('multi_tensor_adam', 0)})")
     print(f"  width-512 launches of B3 over phases 4-18: {wide_seen}")
     launches.update({name: wide_seen[c] for name, c in wide_names.items()})
     for rec in records:

@@ -35,6 +35,11 @@ attention core runs the port's kernels under the reference's conditions:
 - `fused_feedforward`, `fused_bias_dropout_residual_layer_norm`,
   `fused_matmul_bias` and `fused_linear` are plain compositions, as the
   reference leaves them to XLA.
+
+Every product the reference computes with ``ops.matmul`` (the
+projections of `fused_multi_head_attention` and `fused_feedforward`,
+`fused_matmul_bias`) is the port's `ops.matmul`, so it casts under
+`amp.auto_cast` as the reference's does.
 """
 from __future__ import annotations
 
@@ -42,6 +47,7 @@ import torch
 
 from ...kernels import fused_ln as _fl
 from ...kernels.flash_attention import flash_attention_qkv, packed_supported
+from ... import ops
 from ...nn import functional as F
 
 
@@ -106,12 +112,12 @@ def fused_multi_head_attention(x, qkv_weight, linear_weight,
     if (use_flash and cache_kv is None and attn_mask is None
             and 0.0 <= attn_p < 1.0 and s % 128 == 0
             and packed_supported(s, s, h, d)):
-        qkv = x @ _pair_major_weight(qkv_weight)               # [B,S,3HD]
+        qkv = ops.matmul(x, _pair_major_weight(qkv_weight))    # [B,S,3HD]
         if qkv_bias is not None:
             qkv = qkv + _pair_major_bias(qkv_bias)
         ctx = flash_attention_qkv(qkv, h, is_causal=False, dropout_p=attn_p)
     else:
-        qkv = x @ qkv_weight.reshape(3 * h * d, m).T
+        qkv = ops.matmul(x, qkv_weight.reshape(3 * h * d, m).T)
         if qkv_bias is not None:
             qkv = qkv + qkv_bias.reshape(3 * h * d)
         qkv = qkv.reshape(b, s, 3, h, d)
@@ -122,7 +128,7 @@ def fused_multi_head_attention(x, qkv_weight, linear_weight,
         ctx = F.scaled_dot_product_attention(
             qkv[:, :, 0], k, v, attn_mask=attn_mask, dropout_p=attn_p,
             training=training, use_flash=use_flash)
-    out = ctx.reshape(b, s, h * d) @ linear_weight
+    out = ops.matmul(ctx.reshape(b, s, h * d), linear_weight)
     if linear_bias is not None:
         out = out + linear_bias
     if training and dropout_rate > 0:
@@ -146,13 +152,13 @@ def fused_feedforward(x, linear1_weight, linear2_weight, linear1_bias=None,
     residual = x
     if pre_layer_norm:
         x = F.layer_norm(x, x.shape[-1:], ln1_scale, ln1_bias, ln1_epsilon)
-    h = x @ linear1_weight
+    h = ops.matmul(x, linear1_weight)
     if linear1_bias is not None:
         h = h + linear1_bias
     h = getattr(F, activation)(h)
     if training and dropout1_rate > 0:
         h = F.dropout(h, dropout1_rate, training=True)
-    out = h @ linear2_weight
+    out = ops.matmul(h, linear2_weight)
     if linear2_bias is not None:
         out = out + linear2_bias
     if training and dropout2_rate > 0:
@@ -167,9 +173,8 @@ def fused_feedforward(x, linear1_weight, linear2_weight, linear1_bias=None,
 def fused_matmul_bias(x, y, bias=None, transpose_x=False, transpose_y=False,
                       name=None):
     """``x @ y + bias``, either operand transposed over its last two
-    dims."""
-    out = (x.transpose(-1, -2) if transpose_x else x) @ (
-        y.transpose(-1, -2) if transpose_y else y)
+    dims (the product is `ops.matmul`, cast under AMP)."""
+    out = ops.matmul(x, y, transpose_x=transpose_x, transpose_y=transpose_y)
     return out if bias is None else out + bias
 
 

@@ -35,6 +35,7 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from .. import ops
 from ..device import resolve_device, resolve_dtype
 from ..incubate.nn import FusedTransformerEncoderLayer
 from ..nn import (Dropout, Embedding, LayerNorm, Linear,
@@ -190,7 +191,8 @@ class BertPretrainingHeads(nn.Module):
 
     def forward(self, sequence_output, pooled_output):
         h = self.layer_norm(self.activation(self.transform(sequence_output)))
-        logits = torch.matmul(h, self.decoder_weight.T) + self.decoder_bias
+        logits = ops.matmul(h, self.decoder_weight,
+                            transpose_y=True) + self.decoder_bias
         return logits, self.seq_relationship(pooled_output)
 
 

@@ -54,6 +54,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import ops
 from ..device import PAGE_DTYPES, resolve_device, resolve_dtype
 from ..kernels import flash_attention_qkv_enabled, paged_kv
 from ..kernels.flash_attention import flash_attention_qkv
@@ -761,8 +762,9 @@ class GPTForPretraining(GenerationMixin, nn.Module):
 
     def _logits(self, hidden):
         """The weight-tied LM head, the only logits projection
-        (``gpt.py:1266-1270``)."""
-        return hidden @ self.gpt.embeddings.word_embeddings.weight.T
+        (``gpt.py:1266-1270``): `ops.matmul`, cast under AMP."""
+        return ops.matmul(hidden, self.gpt.embeddings.word_embeddings.weight,
+                          transpose_y=True)
 
     def forward(self, input_ids, position_ids=None, attn_mask=None,
                 caches=None):
@@ -887,8 +889,8 @@ class GPTPretrainingCriterion(nn.Module):
         loss = cross_entropy(logits, labels, reduction="none")
         if loss_mask is not None:
             mask = loss_mask.reshape(loss.shape).to(loss.dtype)
-            return (loss * mask).sum() / mask.sum().clamp(min=1.0)
-        return loss.mean()
+            return ops.sum(loss * mask) / ops.clip(ops.sum(mask), min=1.0)
+        return ops.mean(loss)
 
 
 __all__ = ["GPTConfig", "GPT_CONFIGS", "gpt_config", "decode_cursor",

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import ops
 from ..device import resolve_device
 from ..nn import functional as F
 from ..nn.layer import Layer
@@ -104,9 +105,11 @@ class QuantedLinear(Layer):
             linear, weight_bits, activation_bits, moving_rate)
 
     def forward(self, x):
+        """The fake-quantized product as the reference's: `ops.matmul`
+        (cast under AMP), then the bias in its own dtype."""
         x = self.act_quanter(x)
-        return F.linear(x, self.weight_quanter(self.inner.weight),
-                        self.inner.bias)
+        out = ops.matmul(x, self.weight_quanter(self.inner.weight))
+        return out if self.inner.bias is None else out + self.inner.bias
 
 
 class QuantedConv2D(Layer):

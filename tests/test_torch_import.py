@@ -109,7 +109,12 @@ MODULES = ["paddle_tpu_torch", "paddle_tpu_torch.device",
            "paddle_tpu_torch.core.tensor", "paddle_tpu_torch.core.autograd",
            "paddle_tpu_torch.core.dispatch",
            "paddle_tpu_torch.amp.auto_cast", "paddle_tpu_torch.autograd",
-           "paddle_tpu_torch.testing", "paddle_tpu_torch.testing.optest"]
+           "paddle_tpu_torch.testing", "paddle_tpu_torch.testing.optest",
+           "paddle_tpu_torch.ops", "paddle_tpu_torch.ops.creation",
+           "paddle_tpu_torch.ops.math", "paddle_tpu_torch.ops.manip",
+           "paddle_tpu_torch.ops.linalg", "paddle_tpu_torch.ops.methods",
+           "paddle_tpu_torch.linalg", "paddle_tpu_torch.fft",
+           "paddle_tpu_torch.signal"]
 
 #: the reference's top-level names of A2 and A3 (``paddle_tpu/__init__.py
 #: :78-106``): dtypes, places, seeds and generator states, grad mode,
