@@ -1338,6 +1338,170 @@ def tail_kernel_phase(torch, pa):
     return record
 
 
+#: phase 3's B3 rows beyond a float pool of q's own dtype, as (q dtype,
+#: page dtype): float16 on both sides, float pages of a dtype other than
+#: q's, float16 q over 1-byte pages
+PAGED_DTYPE_PAIRS = (("float16", "float16"), ("bfloat16", "float32"),
+                     ("bfloat16", "float16"), ("float16", "bfloat16"),
+                     ("float16", "float32"), ("float32", "bfloat16"),
+                     ("float32", "float16"), ("float16", "int8"),
+                     ("float16", "fp8"))
+SHORT_DTYPES = {"float32": "f32", "bfloat16": "bf16", "float16": "f16",
+                "int8": "int8", "fp8": "fp8"}
+
+
+def dtype_case(torch, args, q_dt, pages):
+    """A float32 paged case (`paged_case`, `split_case`) with q cast to
+    ``q_dt`` and the pools to ``pages`` (a float dtype name, or "int8" /
+    "fp8": quantized as the engine writes them). Returns ``(args,
+    kwargs)``."""
+    if pages in QUANT_DTYPES:
+        args, kw = quantize_case(torch, args, pages)
+    else:
+        dt = getattr(torch, pages)
+        args, kw = (args[0], args[1].to(dt), args[2].to(dt), *args[3:]), {}
+    return (args[0].to(q_dt), *args[1:]), kw
+
+
+def paged_dtype_held(torch, out, ref, lse, ref_lse, d):
+    """The kernel's ``(out, lse)`` against the plain version's: a 16-bit
+    out within 8 ulps of its dtype at each element's scale
+    (`flash_ulps`, as phase 27a holds float16), a float32 out and lse
+    at TOL_F32 (both widen the same page values to f32). Returns the
+    largest |out - ref| and the reading (ulps or abs)."""
+    check(torch.isfinite(out.float()).all().item(), "non-finite out")
+    torch.testing.assert_close(lse, ref_lse, **TOL_F32)
+    err = (out.float() - ref.float()).abs().max().item()
+    if out.dtype == torch.float32:
+        torch.testing.assert_close(out, ref, **TOL_F32)
+        return err, f"max|out-ref| {err:.3e}"
+    ulps, _ = flash_ulps(out, ref, d)
+    check(ulps <= 8, f"paged out {ulps:.2f} ulps from the plain version")
+    return err, (f"max|out-ref| {err:.3e} ({ulps:.2f} "
+                 f"{str(out.dtype)[6:]} ulps)")
+
+
+def paged_dtype_phase(torch, pa):
+    """B3 at the query-page pairs of PAGED_DTYPE_PAIRS, against
+    its plain version: `paged_case`'s ragged rows (a fully masked row, a
+    parked one) at D 128 and 80, page sizes 16 and 4, W 1 and 5;
+    `split_case`'s split-walk rows at W 1 and 5; the beam tail read on
+    float16 pages; then at the engine's decode shape (N8 H16 D128 ps16
+    Pmax40, as `decode_shape_times`) the kernel's time beside the plain
+    version's, SDPA over the gathered view in q's dtype (1-byte pages
+    dequantized beforehand) and the bound, W 1 and 5. Returns one record
+    a pair and width, named ``paged_attention_<q>_<pages>_w<W>``."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels.paged_kv import gather_pages, gather_scales
+
+    for q_name, pages in PAGED_DTYPE_PAIRS:
+        q_dt = getattr(torch, q_name)
+        label = f"q {SHORT_DTYPES[q_name]} {SHORT_DTYPES[pages]} pages"
+        for d, ps in ((128, 16), (80, 4)):
+            for w in (1, 5):
+                args, kw = dtype_case(torch, paged_case(
+                    6, 8, w, d, ps, 8, torch.float32, seed=900 + d + w + ps),
+                    q_dt, pages)
+                out, lse = pa.fused_paged_attention(*args, **kw)
+                ref, ref_lse = pa.paged_attention_reference(*args, **kw)
+                torch.cuda.synchronize()
+                line = paged_dtype_held(torch, out, ref, lse, ref_lse, d)[1]
+                print(f"  paged_attention {label} D={d} ps={ps} W={w}: "
+                      f"{line}  ok")
+        for w in (1, 5):
+            args, kw = dtype_case(torch, split_case(torch, w, torch.float32,
+                                                    seed=950 + w), q_dt, pages)
+            out, lse = pa.fused_paged_attention(*args, **kw)
+            ref, ref_lse = pa.paged_attention_reference(*args, **kw)
+            torch.cuda.synchronize()
+            line = paged_dtype_held(torch, out, ref, lse, ref_lse, 128)[1]
+            print(f"  paged split cases {label} W={w}: "
+                  f"{split_plan_line(pa, 8, 4, w, 40, 128)}; {line}  ok")
+
+    # the beam tail read on float16 pages under float16 queries
+    n, h, d, pg = GEN_B * GEN_BEAMS, 16, 128, 8
+    for j in (127, 40):
+        args = tail_case(torch, n, h, d, pg, torch.float16, seed=5)
+        out, lse = pa.paged_tail_segment(*args, j, d)
+        ref, ref_lse = pa.paged_tail_segment(*(a.cpu() for a in args), j, d)
+        torch.cuda.synchronize()
+        line = paged_dtype_held(torch, out.cpu(), ref, lse.cpu(), ref_lse,
+                                d)[1]
+        print(f"  paged_tail_segment N={n} H={h} D={d} Pg={pg} f16 q and "
+              f"pages, gen column {j}: {line}  ok")
+
+    n, h, d = SLOTS, 16, 128
+    pmax = MAX_LEN // PAGE
+    buckets = [min(b for b in BUCKETS if b >= p) for p in PROMPT_LENS[:n]]
+    steps = [b + 16 for b in buckets]
+    pads = [b - p for b, p in zip(buckets, PROMPT_LENS[:n])]
+    lp = pmax * PAGE
+    records = []
+    for q_name, pages in PAGED_DTYPE_PAIRS:
+        q_dt = getattr(torch, q_name)
+        quant = pages in QUANT_DTYPES
+        for w in (1, 5):
+            cases = [dtype_case(torch, paged_case(
+                n, h, w, d, PAGE, pmax, torch.float32, seed=i, steps=steps,
+                pads=pads), q_dt, pages) for i in range(4)]
+            args, kw = cases[0]
+            out, lse = pa.fused_paged_attention(*args, **kw)
+            ref, ref_lse = pa.paged_attention_reference(*args, **kw)
+            torch.cuda.synchronize()
+            max_err, line = paged_dtype_held(torch, out, ref, lse, ref_lse, d)
+            it = iter(range(10 ** 9))
+
+            def kernel():
+                a, k = cases[next(it) % 4]
+                pa.fused_paged_attention(*a, **k)
+
+            ms = time_ms(kernel, 200)
+            plain_ms = time_ms(
+                lambda: pa.paged_attention_reference(*args, **kw), 5, 1)
+            dense = []
+            for (q, pk, pv, bt, st, vc), k in cases:
+                cols = torch.arange(lp, device="cuda")
+                cur = st.long()[:, None] + torch.arange(w, device="cuda")
+                mask = ((cols[None, None, :] <= cur[:, :, None])
+                        & (vc != 0)[:, None, :])[:, None]
+                vk, vv = gather_pages(pk, bt), gather_pages(pv, bt)
+                if quant:
+                    vk = vk.float() * gather_scales(k["k_scale"],
+                                                    bt)[..., None]
+                    vv = vv.float() * gather_scales(k["v_scale"],
+                                                    bt)[..., None]
+                dense.append((q, vk.to(q.dtype), vv.to(q.dtype), mask))
+
+            def library():
+                q, k, v, m = dense[next(it) % 4]
+                F.scaled_dot_product_attention(q, k, v, attn_mask=m)
+
+            library_ms = time_ms(library, 200)
+            page_el = 1 if quant else getattr(torch, pages).itemsize
+            nbytes, flops = paged_work(*args[3:], w=w, h=h, d=d,
+                                       el=q_dt.itemsize, page_el=page_el)
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+            bound_ms = max(t_bytes, t_ops) * 1e3
+            name = (f"paged_attention_{SHORT_DTYPES[q_name]}_"
+                    f"{SHORT_DTYPES[pages]}_w{w}")
+            print(f"  {name}: decode shape N={n} H={h} W={w} D={d} ps={PAGE} "
+                  f"Pmax={pmax}: {line}; kernel {ms:.5f} ms, plain "
+                  f"{plain_ms:.5f} ms, SDPA over the "
+                  f"{'pre-dequantized ' if quant else ''}gathered view in "
+                  f"{q_name} {library_ms:.5f} ms, bound {bound_ms:.5f} ms "
+                  f"({nbytes} bytes, {flops} flops)")
+            records.append({
+                "name": name, "route": "cuda",
+                "source": "paddle_tpu_torch/kernels/csrc/paged_attention.cu",
+                "replaces": "paddle_tpu/kernels/paged_attention.py:120",
+                "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": library_ms})
+    return records
+
+
 def ulp_unit(dtype):
     """One ulp of a value of scale 1 in a 16-bit ``dtype``, as these
     checks count it: 2^-8 in bfloat16 (7 stored mantissa bits), 2^-11 in
@@ -2276,26 +2440,30 @@ def ln_work(n, m, el, residual):
 
 
 def fused_ln_phase(torch):
-    """B6 (rows 10-11) through its entry, ``incubate.nn.functional.
-    _ln_maybe_fused``, on the card: f32 and bf16, with and without a
-    residual, y, dx, d(residual), dg and db against the same entry run
-    through the plain versions (TOL_F32 / TOL_LN_SUMS in float32,
-    TOL_BF16_OUT in bfloat16, where both round the same float32 math to
-    bf16). No layer calls the entry (nor in the reference), so its
-    launches are those of these calls. Then the kernels at BERT-large's
-    rows ([8*512, 1024] bf16 with a residual) beside the plain versions,
-    the library's two calls ``x + r`` then ``F.layer_norm`` (timed only)
-    and the bound. Returns the forward's and the backward's records."""
-    import torch.nn.functional as F
-
+    """B6 (rows 10-11; 10h-11h in float16) through its entry,
+    ``incubate.nn.functional._ln_maybe_fused``, on the card: f32, bf16
+    and f16, with and without a residual, y, dx, d(residual), dg and db
+    against the same entry run through the plain versions (TOL_F32 /
+    TOL_LN_SUMS in float32, TOL_BF16_OUT in bfloat16, where both round the
+    same float32 math to bf16; float16 within 8 of its ulps at each
+    element's scale, `flash_ulps`). No layer calls the entry (nor in the
+    reference), so its launches are those of these calls. Then the
+    kernels at BERT-large's rows ([8*512, 1024] with a residual) in bf16
+    and f16 beside the plain versions, the library's two calls ``x + r``
+    then ``F.layer_norm`` (timed only) and the bound. Returns the
+    forward's and the backward's records of both dtypes and the
+    launches."""
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.incubate.nn import functional as IF
-    from paddle_tpu_torch.kernels import fused_ln as fl
 
     eps = 1e-5
-    worst = {"fwd": 0.0, "bwd": 0.0}
-    launched = {"fused_ln_fwd": 0, "fused_ln_bwd": 0}
-    for dtype in (torch.float32, torch.bfloat16):
+    worst = {}
+    launched = {"fused_ln_fwd": 0, "fused_ln_bwd": 0, "fused_ln_fwd_f16": 0,
+                "fused_ln_bwd_f16": 0}
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        f16 = dtype == torch.float16
+        names_of = {k: k + ("_f16" if f16 else "") for k in ("fused_ln_fwd",
+                                                             "fused_ln_bwd")}
         for residual in (True, False):
             case = ln_case(torch, 512, 1024, dtype, 7 + residual, residual)
             outs = []
@@ -2312,7 +2480,7 @@ def fused_ln_phase(torch):
                     torch.cuda.synchronize()
                     after = kernels.kernel_launch_counts()
                 if not plain:
-                    for k in launched:
+                    for k in names_of.values():
                         launched[k] += after[k] - before[k]
                         check(after[k] - before[k] == 1,
                               f"_ln_maybe_fused launched {k} "
@@ -2322,22 +2490,45 @@ def fused_ln_phase(torch):
                                                                     "db"]
             parts = []
             for name, a, ref in zip(names, *outs):
+                key = names_of["fused_ln_fwd" if name == "y"
+                               else "fused_ln_bwd"]
+                e = (a.float() - ref.float()).abs().max().item()
+                worst[key] = max(worst.get(key, 0.0), e)
+                if f16:
+                    ulps, _ = flash_ulps(a, ref, a.shape[-1])
+                    check(ulps <= 8, f"fused_ln f16 {name} {ulps:.2f} ulps "
+                          "from the plain version")
+                    parts.append(f"{name} {e:.3e} ({ulps:.2f} ulps)")
+                    continue
                 if dtype == torch.bfloat16:
                     tol = TOL_BF16_OUT
                 else:
                     tol = TOL_LN_SUMS if name in ("dg", "db") else TOL_F32
                 torch.testing.assert_close(a.float(), ref.float(), **tol)
-                e = (a.float() - ref.float()).abs().max().item()
-                key = "fwd" if name == "y" else "bwd"
-                worst[key] = max(worst[key], e)
                 parts.append(f"{name} {e:.3e}")
             print(f"  _ln_maybe_fused [512, 1024] {str(dtype)[6:]} "
                   f"{'with' if residual else 'without'} residual: max|diff| "
                   + ", ".join(parts) + "  ok")
+    records = []
+    for dtype in (torch.bfloat16, torch.float16):
+        records += ln_times(torch, dtype, eps, worst)
+    print(f"  launches through the entry {launched} (no main path runs it)")
+    return records, launched
 
-    n, m, bf = BERT_B * BERT_S, 1024, torch.bfloat16
+
+def ln_times(torch, dtype, eps, worst):
+    """B6 at BERT-large's rows ([8*512, 1024] with a residual) in
+    ``dtype``: the kernels' times beside the plain versions', the
+    library's two calls and the bound; the records of the forward and
+    the backward (float16 named with ``_f16``)."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import fused_ln as fl
+
+    n, m = BERT_B * BERT_S, 1024
+    suffix = "_f16" if dtype == torch.float16 else ""
     # four copies of 17 MB of x and residual (+ dy): past the 50 MB L2
-    copies = [ln_case(torch, n, m, bf, 20 + i, True) for i in range(4)]
+    copies = [ln_case(torch, n, m, dtype, 20 + i, True) for i in range(4)]
     w32, b32 = copies[0][2].float(), copies[0][3].float()
     saved = [fl.fused_ln_fwd(c[0], c[1], w32, b32, eps) for c in copies]
     it = iter(range(10 ** 9))
@@ -2378,9 +2569,9 @@ def fused_ln_phase(torch):
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
         bound_ms = max(t_bytes, t_ops) * 1e3
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
-        name = f"fused_ln_{key}"
-        print(f"  {name} at [{n}, {m}] bf16 with residual: kernel "
-              f"{ms[key]:.4f} ms, plain {plain[key]:.4f} ms, library "
+        name = f"fused_ln_{key}{suffix}"
+        print(f"  {name} at [{n}, {m}] {str(dtype)[6:]} with residual: "
+              f"kernel {ms[key]:.4f} ms, plain {plain[key]:.4f} ms, library "
               f"(x + r then F.layer_norm, two calls) {library[key]:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by}; {nbytes} bytes, "
               f"{flops} flops)")
@@ -2388,13 +2579,12 @@ def fused_ln_phase(torch):
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/kernels/csrc/fused_ln.cu",
             "replaces": f"paddle_tpu/kernels/fused_ln.py:{line_no}",
-            "max_abs_err": worst[key], "ms": ms[key], "plain_ms": plain[key],
+            "max_abs_err": worst[name], "ms": ms[key], "plain_ms": plain[key],
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library[key]})
-    print(f"  library forward+backward {lib_fb:.4f} ms, forward "
-          f"{lib_f:.4f} ms (its backward alone: the difference); launches "
-          f"through the entry {launched} (no main path runs it)")
-    return records, launched
+    print(f"  {str(dtype)[6:]} library forward+backward {lib_fb:.4f} ms, "
+          f"forward {lib_f:.4f} ms (its backward alone: the difference)")
+    return records
 
 
 # ---------------------------------------------------------------- engine
@@ -9413,6 +9603,321 @@ def gpt_amp_phase(torch, seed, card):
     return {k: counts[k] for k in want}
 
 
+# ------------------------------------------------------------- phase 29
+def paged_launch_check(counts, name, s, layers, label, cross=False):
+    """The paged kernel launched under ``name`` exactly decode steps x
+    layers times (each decode or verify step one launch a layer), as
+    ``paged_attention_cross`` too when ``cross``, and no other kernel."""
+    want = s.decode_steps * layers
+    check(counts[name] == want, f"{label}: {name} launched {counts[name]} "
+          f"times, decode_steps x layers = {want}")
+    allowed = {name, "paged_attention_cross"} if cross else {name}
+    check(counts.get("paged_attention_cross", 0) == (want if cross else 0),
+          f"{label}: paged_attention_cross launched "
+          f"{counts.get('paged_attention_cross', 0)} times")
+    others = {k: v for k, v in counts.items() if v and k not in allowed}
+    check(not others, f"{label}: other kernels launched: {others}")
+    return counts[name]
+
+
+def serve_line(label, s, wall):
+    print(f"  {label}: {s.decode_steps} decode steps, {s.tokens_generated} "
+          f"tokens in {wall:.3f} s; decode {s.decode_step_p50 * 1e3:.3f} "
+          f"ms/step p50, TTFT p50 {s.ttft_p50 * 1e3:.3f} ms, "
+          f"{s.tokens_generated / wall:.1f} tokens/s")
+
+
+def fp16_serving_phase(torch, seed, card):
+    """Phase 29a: gpt3-1.3b at full width and depth in float16 (random
+    weights from ``seed``) served by ``Engine(kv_mode="paged")`` on
+    float16 pages, phase 4's configuration and traffic, with the tracing
+    buffer off and no sink (the unarmed engine of 29c); then again with
+    ``spec_k=4`` (W=5). Checks: every stream against a float32 teacher
+    (the 0.05 near-tie rule), B3's float16 launches exactly decode steps
+    x layers, one decode graph each under the armed sentinel. Prints
+    ms/step p50, TTFT p50, tokens/s and a profile's busy share. Returns
+    ``(model, prompts, outputs, stats, wall, launches by record name)``."""
+    from paddle_tpu_torch.models.gpt import GPTForPretraining, gpt_config
+    from paddle_tpu_torch.observability import tracing
+    from paddle_tpu_torch.serving import Engine
+
+    cfg = gpt_config(MODEL)
+    model = GPTForPretraining(cfg, dtype="float16", seed=seed)
+    torch.cuda.synchronize()
+    layers = cfg.num_hidden_layers
+    kw = dict(kv_mode="paged", slots=SLOTS, page_size=PAGE, max_len=MAX_LEN,
+              prefill_buckets=BUCKETS)
+    warm = Engine(model, **kw)
+    warm.submit(list(range(1, 30)), max_new_tokens=2).result()
+    del warm
+    prompts = phase_prompts(torch, cfg, seed)
+    saved = tracing.buffer_enabled()
+    tracing.set_buffer_enabled(False)
+    try:
+        check(not tracing.active(), "a tracing sink is attached")
+        eng = Engine(model, **kw)
+        check(all(k.dtype == v.dtype == torch.float16
+                  for k, v in eng.kv.caches), "pages are not float16")
+        outs, s, wall, counts = serve_traffic(torch, eng, prompts)
+        del eng
+    finally:
+        tracing.set_buffer_enabled(saved)
+    n1 = paged_launch_check(counts, "paged_attention_f16", s, layers,
+                            "29a")
+    serve_line(f"{MODEL} float16, float16 pages, spec_k 0 (tracing off)",
+               s, wall)
+    teacher_check(torch, model, prompts, outs)
+    outs5, s5, wall5, counts5 = serve_traffic(
+        torch, Engine(model, spec_k=SPEC_K, **kw), prompts)
+    n5 = paged_launch_check(counts5, "paged_attention_f16", s5, layers,
+                            "29a spec_k=4")
+    serve_line(f"{MODEL} float16, float16 pages, spec_k {SPEC_K} (W=5, "
+               f"accept rate {s5.spec_accept_rate:.3f})", s5, wall5)
+    teacher_check(torch, model, prompts, outs5)
+    profile_decode(torch, Engine(model, **kw), prompts)
+    return model, prompts, outs, s, wall, {
+        "paged_attention_f16_f16_w1": n1, "paged_attention_f16_f16_w5": n5}
+
+
+def dtype_engine_phase(torch, seed, card):
+    """Phase 29b: phase 4's bf16 gpt3-1.3b served by
+    ``Engine(kv_mode="paged", dtype="float32")`` and then
+    ``dtype="float16"``: B3 reads float32 or float16 pages under bf16
+    queries (cross-dtype launches counted). Checks: the streams against
+    the float32 teacher; the pool holds the asked dtype; ``stats()``
+    reports its bytes at that dtype (pages + sentinel, layers, K and V,
+    heads, page size, head dim, the dtype's bytes) and `pages_in_budget`
+    at the stored dtype gives the pool's page count back from those
+    bytes. Returns the launches by record name."""
+    from paddle_tpu_torch.models.gpt import GPTForPretraining, gpt_config
+    from paddle_tpu_torch.serving import Engine
+    from paddle_tpu_torch.serving.paged import pages_in_budget
+
+    cfg = gpt_config(MODEL)
+    model = GPTForPretraining(cfg, dtype="bfloat16", seed=seed)
+    layers = cfg.num_hidden_layers
+    kw = dict(kv_mode="paged", slots=SLOTS, page_size=PAGE, max_len=MAX_LEN,
+              prefill_buckets=BUCKETS)
+    prompts = phase_prompts(torch, cfg, seed)
+    launched = {}
+    for dtype, short in (("float32", "f32"), ("float16", "f16")):
+        eng = Engine(model, dtype=dtype, **kw)
+        dt = getattr(torch, dtype)
+        check(all(k.dtype == v.dtype == dt for k, v in eng.kv.caches),
+              f"pages are not {dtype}")
+        outs, s, wall, counts = serve_traffic(torch, eng, prompts)
+        launched[f"paged_attention_bf16_{short}_w1"] = paged_launch_check(
+            counts, "paged_attention", s, layers, f"29b dtype={dtype}",
+            cross=True)
+        serve_line(f"{MODEL} bf16, {dtype} pages (Engine(dtype="
+                   f"{dtype!r}))", s, wall)
+        teacher_check(torch, model, prompts, outs)
+        per_page = (layers * 2 * cfg.num_attention_heads * PAGE
+                    * cfg.head_dim * dt.itemsize)
+        check(s.kv_pool_bytes == (s.kv_pages_total + 1) * per_page,
+              f"kv_pool_bytes {s.kv_pool_bytes} != (pages + 1) x "
+              f"{per_page}")
+        back = pages_in_budget(model, s.kv_pool_bytes, page_size=PAGE,
+                               dtype=dtype)
+        check(back == s.kv_pages_total,
+              f"pages_in_budget({s.kv_pool_bytes}) = {back}, the pool "
+              f"holds {s.kv_pages_total}")
+        print(f"  pool at {dtype}: {s.kv_pages_total} pages + the sentinel "
+              f"= {s.kv_pool_bytes} bytes ({per_page} a page, "
+              f"{s.kv_bytes_per_token:.0f} a token); pages_in_budget "
+              f"gives {back} pages back from those bytes")
+        del eng
+    del model
+    torch.cuda.empty_cache()
+    return launched
+
+
+def prometheus_lines(text):
+    """The sample lines of a Prometheus text exposition; raises on a
+    malformed one."""
+    import re
+
+    pat = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{.*\})? \S+$')
+    samples = 0
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        check(pat.match(line) is not None,
+              f"malformed exposition line: {line!r}")
+        samples += 1
+    return samples
+
+
+def http_get(url):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=10.0) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def analytic_decode_products(cfg, slots, w):
+    """An analytic count of the products of one decode step of ``slots``
+    rows of ``w`` queries: 2 x ((4 h^2 + 2 h I) a layer + h V) a query
+    (qkv and the projection, the MLP's two of width I, the LM head)."""
+    h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    return 2.0 * slots * w * ((4 * h * h + 2 * h * i)
+                              * cfg.num_hidden_layers + h * v)
+
+
+def armed_engine_phase(torch, seed, card, model, prompts, base_outs, base_s,
+                       base_wall):
+    """Phase 29c: 29a's float16 engine armed with every A9 argument
+    (``slo=SLO(...)``, ``flight_recorder=True``, ``observability_port=0``,
+    a ``profiler=`` callback) and tracing on (the span buffer, the
+    recorder's ring). Checks: its greedy streams equal 29a's unarmed ones
+    token for token; every endpoint answers over 127.0.0.1 and
+    ``/metrics`` parses as Prometheus text; three steps under
+    `profiler.Profiler` on the GPU target give a device trace and the
+    engine's host spans. Prints decode_flops_per_token beside an analytic
+    count and the armed ms/step beside the unarmed one. Then a small
+    engine with a fault injector dies on a step and leaves exactly one
+    postmortem in a temporary directory (removed after), and a clean
+    ``close()`` leaves none."""
+    import tempfile
+
+    from paddle_tpu_torch import profiler as pprof
+    from paddle_tpu_torch.models.gpt import GPTForPretraining
+    from paddle_tpu_torch.observability import SLO, FlightRecorder, tracing
+    from paddle_tpu_torch.serving import Engine, FaultInjector
+
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    kw = dict(kv_mode="paged", slots=SLOTS, page_size=PAGE, max_len=MAX_LEN,
+              prefill_buckets=BUCKETS)
+    events = []
+    eng = Engine(model, slo=SLO(ttft_p99_s=5.0, itl_p99_s=1.0,
+                                e2e_p99_s=30.0),
+                 flight_recorder=True, observability_port=0,
+                 profiler=lambda ev, info: events.append(ev), **kw)
+    check(tracing.active(), "tracing is off in the armed run")
+    try:
+        outs, s, wall, counts = serve_traffic(torch, eng, prompts)
+        paged_launch_check(counts, "paged_attention_f16", s, layers, "29c")
+        check(outs == base_outs, "the armed engine's streams differ from "
+              "the unarmed engine's")
+        print(f"  armed streams equal the unarmed ones token for token "
+              f"({sum(map(len, outs))} tokens); profiler callback events "
+              f"{dict(collections.Counter(events))}")
+        serve_line("armed (SLO, flight recorder, endpoint, profiler "
+                   "callback, tracing on)", s, wall)
+        print(f"  decode ms/step p50: armed {s.decode_step_p50 * 1e3:.3f}, "
+              f"unarmed {base_s.decode_step_p50 * 1e3:.3f} (29a); wall "
+              f"{wall:.3f} against {base_wall:.3f} s")
+        check(s.slo_attained + s.slo_violated == len(prompts),
+              f"the SLO scored {s.slo_attained + s.slo_violated} of "
+              f"{len(prompts)} requests")
+        print(f"  SLO: attained {s.slo_attained}, violated "
+              f"{s.slo_violated}, attainment {s.slo_attainment}, burn "
+              f"{s.slo_burn_rate}, goodput {s.goodput_per_s:.3f}/s")
+        # the decode step's operators counted once (every slot parked:
+        # the step the engine runs on idle rows, its K/V on the sentinel
+        # page; B3 is a ctypes launch the counter cannot see) against
+        # the analytic products and the engine's closed form
+        from paddle_tpu_torch import kernels
+        from paddle_tpu_torch.observability import costs
+
+        check(not eng.kv.active.any(), "29c: a slot is still active")
+        with torch.inference_mode(), kernels.launches_uncounted():
+            _, counted = costs.count_flops(
+                eng._verify.run_eager,
+                **eng._step_operands(eng._tokens[:, None]))
+        mm = analytic_decode_products(cfg, SLOTS, 1)
+        products = costs.gpt_decode_flops(cfg, 1, [0] * SLOTS)
+        check(abs(counted / mm - 1) < 0.02 and products == mm,
+              f"counted decode-step operations {counted:.4e} against the "
+              f"analytic products {mm:.4e} (closed form {products:.4e})")
+        print(f"  decode step: counted {counted:.6e} operations "
+              f"(FlopCounterMode over one eager run), analytic products "
+              f"{mm:.6e} (ratio {counted / mm:.5f}); B3's 4 H W L D a "
+              f"row and layer at the engine's columns "
+              f"{s.decode_exec_flops - products:.6e}; decode_exec_flops "
+              f"{s.decode_exec_flops:.6e}, decode_flops_per_token "
+              f"{s.decode_flops_per_token:.6e} (analytic products a token "
+              f"at full slots {mm / SLOTS:.6e})")
+        url = eng.obs_server.url
+        check(url.startswith("http://127.0.0.1:"), f"endpoint at {url}")
+        for path in ("/metrics", "/healthz", "/readyz", "/stats", "/trace",
+                     "/slo", "/requests", "/train"):
+            code, body = http_get(url + path)
+            check(code == 200, f"{path} answered {code}")
+            if path == "/metrics":
+                n = prometheus_lines(body)
+                check("serving_tokens_emitted_total" in body
+                      and "serving_slo_attained_total" in body,
+                      "/metrics lacks the serving families")
+            else:
+                json.loads(body)
+        print(f"  endpoint {url}: /metrics ({n} samples, parsed), "
+              "/healthz, /readyz, /stats, /trace, /slo, /requests, /train "
+              "all 200")
+        prof = pprof.Profiler(targets=[pprof.ProfilerTarget.CPU,
+                                       pprof.ProfilerTarget.GPU])
+        for p in prompts[:SLOTS]:
+            eng.submit(p, max_new_tokens=MAX_NEW)
+        eng.step()
+        with prof:
+            for _ in range(3):
+                eng.step()
+            torch.cuda.synchronize()
+        dev_us = sum(e.self_device_time_total for e in
+                     prof.device_profile.key_averages())
+        host = collections.Counter(e["name"] for e in prof._events)
+        check(dev_us > 0, "the profiler's device trace holds no device time")
+        check(host["serving.decode"] == 3,
+              f"the profiler's host spans: {dict(host)}")
+        print(f"  profiler.Profiler (CPU + GPU targets) over 3 steps: "
+              f"device time {dev_us / 1e3:.3f} ms, host spans "
+              f"{dict(host)}")
+        eng.run_until_idle()
+    finally:
+        eng.close()
+    check(eng._flight.dumps == [], "close() wrote a postmortem")
+
+    small = GPTForPretraining("gpt-test", dtype="float16", seed=seed)
+    tmp = tempfile.mkdtemp(prefix="flight-")
+    try:
+        rec = FlightRecorder(dump_dir=tmp)
+        sk = dict(slots=2, max_len=24, prefill_buckets=(8,),
+                  kv_mode="paged", page_size=4, flight_recorder=rec)
+        dying = Engine(small, fault_injector=FaultInjector().add(
+            "step_error", at_step=2), **sk)
+        h = dying.submit(list(range(1, 7)), max_new_tokens=6)
+        try:
+            h.result()
+            died = None
+        except RuntimeError as exc:
+            died = exc
+        check(died is not None and not dying.alive,
+              "the injected step fault did not kill the engine")
+        files = sorted(os.listdir(tmp))
+        check(len(files) == 1, f"postmortems after the death: {files}")
+        art = json.load(open(os.path.join(tmp, files[0])))
+        check(art["reason"] == "InjectedFault"
+              and art["engine_id"] == dying.engine_id,
+              f"postmortem: {art['reason']} {art['engine_id']}")
+        clean = Engine(small, **sk)
+        clean.submit(list(range(1, 7)), max_new_tokens=3).result()
+        clean.close()
+        check(len(os.listdir(tmp)) == 1, "close() wrote a postmortem")
+        rec.detach()
+        print(f"  a step fault killed {dying.engine_id}: one postmortem "
+              f"({art['schema']}, {len(art['events'])} events, in-flight "
+              f"{art['in_flight_request_ids']}); a clean close() wrote "
+              "none")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not os.path.exists(tmp), "the postmortem directory remains")
+
+
 def print_build_report(name, report):
     """One source's build seconds, then for each kernel ptxas's register,
     shared-memory and spill lines, joined on one line."""
@@ -9506,6 +10011,7 @@ def main(argv=None) -> int:
 
     say("[3] kernel phase")
     records = [*kernel_phase(torch, pa), tail_kernel_phase(torch, pa),
+               *paged_dtype_phase(torch, pa),
                *paged_head_dim_checks(torch, pa)]
     wide = wide_head_paged_checks(torch, pa)
     records += [*wide,
@@ -9664,6 +10170,24 @@ def main(argv=None) -> int:
             launches[name] = launches.get(name, 0) + n
         print(f"  (B1's float16 launches in the kernel line are phase 28b's; "
               f"the update's add its {phase28.get('multi_tensor_adam', 0)})")
+        say("[29] the Engine's single-card arguments: float16 and "
+            "cross-dtype KV pages (Engine(dtype=)), the A9 plane (slo, "
+            "flight_recorder, observability_port, profiler)")
+        say(f"[29a] {MODEL} in float16 on float16 pages, spec_k 0 and "
+            f"{SPEC_K}, on {card}")
+        model16, prompts16, outs16, s16, wall16, phase29 = \
+            fp16_serving_phase(torch, args.seed, card)
+        say(f"[29b] {MODEL} in bf16 on float32 and float16 pages "
+            f"(Engine(dtype=)) on {card}")
+        phase29.update(dtype_engine_phase(torch, args.seed, card))
+        say(f"[29c] 29a's engine armed (slo, flight_recorder, "
+            f"observability_port=0, profiler, tracing on) on {card}")
+        armed_engine_phase(torch, args.seed, card, model16, prompts16,
+                           outs16, s16, wall16)
+        del model16
+        launches.update(phase29)
+        print(f"  (B3's float16 and cross-dtype launches in the kernel line "
+              f"are phase 29's: {phase29})")
     print(f"  width-512 launches of B3 over phases 4-18: {wide_seen}")
     launches.update({name: wide_seen[c] for name, c in wide_names.items()})
     for rec in records:

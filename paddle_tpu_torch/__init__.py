@@ -178,7 +178,7 @@ def finfo(dtype):
 _LAZY_SUBMODULES = ("nn", "optimizer", "jit", "distributed", "vision",
                     "incubate", "framework", "device", "regularizer",
                     "quantization", "serving", "observability", "models",
-                    "kernels", "testing", "core", "ops")
+                    "kernels", "testing", "core", "ops", "profiler")
 
 
 def __getattr__(name):

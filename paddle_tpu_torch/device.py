@@ -21,12 +21,13 @@ DTYPES = {
     "float16": torch.float16,
 }
 
-#: dtypes a KV page pool may store: float32 and bfloat16 (B3 takes no
-#: float16 pages yet, ROADMAP A2) plus the 1-byte quantized pages of
+#: dtypes a KV page pool may store: the three float dtypes (B3 reads any
+#: of them under any query dtype) plus the 1-byte quantized pages of
 #: ``Engine(kv_quant="int8" | "fp8")``, which ride with f32 scales
 PAGE_DTYPES = {
     "float32": torch.float32,
     "bfloat16": torch.bfloat16,
+    "float16": torch.float16,
     "int8": torch.int8,
     "float8_e4m3fn": torch.float8_e4m3fn,
 }

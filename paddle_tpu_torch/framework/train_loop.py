@@ -48,9 +48,13 @@ Metrics (the reference's names): ``train_checkpoint_write_seconds``,
 ``train_checkpoints_committed/discarded_total``,
 ``train_anomaly_total{kind}``, ``train_resumes_total``,
 ``train_rollbacks_total``, ``train_last_committed_step``.
-``flight_recorder=`` and ``observability_port=`` raise
-`NotImplementedError`: the flight recorder and the scrape endpoint are
-ROADMAP A9 (`train_snapshot` gives the ``/train`` view as a dict).
+``flight_recorder=`` (True, or an `observability.FlightRecorder`)
+dumps one postmortem (`FlightRecorder.dump_train_death`) when the loop
+dies (an injected crash, the anomaly budget spent, a step error) and
+re-raises; a run that ends normally writes none. ``observability_port=``
+starts an `observability.ObservabilityServer` on 127.0.0.1 with the
+loop attached as a ``/train`` source (`train_snapshot`; port 0 picks a
+free port); ``loop.observability.stop()`` stops it.
 """
 from __future__ import annotations
 
@@ -160,13 +164,6 @@ class ResilientTrainLoop:
                  init_kwargs=None, fault_injector=None, flight_recorder=None,
                  handle_sigterm=False, loop_id=None,
                  observability_port=None):
-        if flight_recorder is not None:
-            raise NotImplementedError(
-                "the flight recorder is a later slice (ROADMAP A9)")
-        if observability_port is not None:
-            raise NotImplementedError(
-                "the observability endpoint is a later slice (ROADMAP A9); "
-                "train_snapshot() gives the /train view")
         self.step = step
         self._data = data
         self.loop_id = loop_id or f"train{next(_loop_uids)}"
@@ -197,6 +194,12 @@ class ResilientTrainLoop:
         # handler installed around run() only (and restored after), so a
         # finished loop never swallows the process's SIGTERM
         self._handle_sigterm = bool(handle_sigterm)
+
+        self._own_flight = flight_recorder is True
+        if self._own_flight:
+            from ..observability.flight_recorder import FlightRecorder
+            flight_recorder = FlightRecorder()
+        self._flight = flight_recorder or None
 
         if params is None:
             params, opt_state = step.init(**(init_kwargs or {}))
@@ -234,6 +237,14 @@ class ResilientTrainLoop:
                 # step-0 snapshot, committed synchronously: rollback and
                 # crash-at-step-0 recovery always have a target
                 self._snapshot(block=True)
+
+        #: the loop's scrape surface (``observability_port=``): it serves
+        #: `train_snapshot` on ``/train``
+        self.observability = None
+        if observability_port is not None:
+            from ..observability.server import start_observability_server
+            self.observability = start_observability_server(
+                port=observability_port, sources=(self,))
 
     # -- state plumbing --------------------------------------------------
     def _on_sigterm(self, signum, frame):
@@ -302,7 +313,7 @@ class ResilientTrainLoop:
         """Train until ``num_steps`` TOTAL optimizer steps completed
         (absolute — a resumed loop runs only the remainder). Raises the
         fault that killed it (`InjectedCrash`, `TrainAnomalyError`,
-        any step error)."""
+        any step error), after the flight recorder's postmortem."""
         res = TrainRunResult(resumed_from=self.resumed_from)
         prev_sigterm = None
         if self._handle_sigterm:
@@ -310,9 +321,15 @@ class ResilientTrainLoop:
                 prev_sigterm = signal.signal(signal.SIGTERM, self._on_sigterm)
             except ValueError:
                 pass  # not the main thread: request_preemption() still works
+        if self._flight is not None:
+            self._flight.attach()
         self._running = True
         try:
             self._run(int(num_steps), res)
+        except Exception as e:
+            if self._flight is not None:
+                self._flight.dump_train_death(self, e)
+            raise
         finally:
             self._running = False
             res.rollbacks = self._rollbacks
@@ -322,6 +339,10 @@ class ResilientTrainLoop:
                     signal.signal(signal.SIGTERM, prev_sigterm)
                 except (ValueError, TypeError):
                     pass  # best-effort handler restore; the run is over
+            if self._flight is not None and self._own_flight:
+                # a recorder this loop built leaves the tracing sinks; a
+                # shared one stays attached for its owner
+                self._flight.detach()
         return res
 
     def _run(self, num_steps, res):

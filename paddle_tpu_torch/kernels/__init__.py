@@ -34,13 +34,19 @@ _LAUNCHES = {"paged_attention": 0, "paged_attention_int8": 0,
              "flash_attention_lse_bwd": 0, "fused_ln_fwd": 0,
              "fused_ln_bwd": 0, "multi_tensor_adam": 0}
 #: float16 launches count apart, under ``<kernel>_f16``
-#: (`flash_attention.counted_name`; the Adam kernel's float16 groups)
+#: (`flash_attention.counted_name`; the Adam kernel's float16 groups;
+#: the paged kernel under float16 queries, ``_wide`` after the suffix)
 _LAUNCHES.update({name + "_f16": 0 for name in (
     "flash_attention_qkv_fwd", "flash_attention_qkv_bwd",
     "flash_attention_fwd", "flash_attention_bwd",
     "flash_attention_qkv3_fwd", "flash_attention_qkv3_bwd",
     "flash_attention_lse_fwd", "flash_attention_lse_bwd",
-    "multi_tensor_adam")})
+    "multi_tensor_adam", "paged_attention", "paged_attention_int8",
+    "paged_attention_fp8", "fused_ln_fwd", "fused_ln_bwd")})
+_LAUNCHES.update({name + "_f16_wide": 0 for name in (
+    "paged_attention", "paged_attention_int8", "paged_attention_fp8")})
+#: paged launches on float pages of a dtype other than q's
+_LAUNCHES["paged_attention_cross"] = 0
 
 
 def kernel_launch_counts() -> dict:

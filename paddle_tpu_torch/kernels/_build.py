@@ -15,10 +15,14 @@ kernel) and the build's seconds are kept beside the library as
 A variant (`VARIANTS`) is a source built again with its own defines
 into a library of its own name: the ``_f16`` flash libraries are the
 flash sources built with ``-DPTT_F16``, their tensor-core kernels on
-float16 (``csrc/flash_common.cuh``). `SOURCE_FLAGS` adds flags to
-every library of one source.
-`build_all` starts one ``nvcc`` per source, all at once, and waits for
-all of them. A build or load failure raises; nothing falls back.
+float16 (``csrc/flash_common.cuh``); the paged source is built once a
+query dtype (``paged_attention`` float32, ``paged_attention_bf16``,
+``paged_attention_f16``), each against every page type. `SOURCE_FLAGS`
+adds flags to every library of one source.
+`build_all` starts one ``nvcc`` per library, all at once, and waits for
+all of them, timing each to its own exit (the compiler writes to a file
+beside the library, so no pipe can fill and hold it). A build or load
+failure raises; nothing falls back.
 """
 from __future__ import annotations
 
@@ -40,13 +44,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 VARIANTS = {
     "flash_attention_f16": ("flash_attention", ["-DPTT_F16"]),
     "flash_attention_qkv_f16": ("flash_attention_qkv", ["-DPTT_F16"]),
+    "paged_attention_bf16": ("paged_attention", ["-DPTT_Q_BF16"]),
+    "paged_attention_f16": ("paged_attention", ["-DPTT_Q_F16"]),
 }
 
-#: source -> nvcc flags of every library built from it. The paged
-#: source instantiates 60 kernels (q's 2 dtypes x 3 page types x 10
-#: widths and tiles) and alone took 140-190 s on one core, where the
-#: others take about 30: ``--split-compile=0`` optimizes its device code
-#: in parallel on every core.
+#: source -> nvcc flags of every library built from it. Each paged
+#: library instantiates 50 kernels (5 page types x 10 widths and tiles);
+#: one library of 60 took 140-190 s on one core, where the others take
+#: about 30: ``--split-compile=0`` optimizes its device code in parallel
+#: on every core.
 SOURCE_FLAGS = {
     "paged_attention": ["--split-compile=0"],
 }
@@ -103,15 +109,20 @@ def _start(name: str):
     source, flags = source_and_flags(name)
     cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", tmp,
            os.path.join(CSRC, source + ".cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+    with open(tmp + ".out", "w") as fh:
+        proc = subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT)
     return proc, tmp, out, time.perf_counter()
 
 
 def _finish(name: str, job):
+    """Wait for one ``nvcc``: its seconds from start to exit and its
+    output go to the library's log; the library takes its place."""
     proc, tmp, out, t0 = job
-    log, _ = proc.communicate()
+    proc.wait()
     seconds = time.perf_counter() - t0
+    with open(tmp + ".out") as fh:
+        log = fh.read()
+    os.remove(tmp + ".out")
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {name} "
                            f"(exit {proc.returncode}):\n{log}")
@@ -134,10 +145,21 @@ def build_all(names=None):
     """Build every named source (default: all) in parallel."""
     names = sources() if names is None else list(names)
     with _lock:
-        jobs = {n: _start(n) for n in names}
-        for n, job in jobs.items():
-            if job is not None:
-                _finish(n, job)
+        jobs = {n: job for n in names if (job := _start(n)) is not None}
+        try:
+            while jobs:
+                done = [n for n, job in jobs.items()
+                        if job[0].poll() is not None]
+                for n in done:
+                    _finish(n, jobs.pop(n))
+                if jobs and not done:
+                    time.sleep(0.05)
+        except BaseException:
+            # a failed build stops the others it started
+            for proc, *_ in jobs.values():
+                proc.kill()
+                proc.wait()
+            raise
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -18,7 +18,7 @@
 //
 // Design: the forward and the dx pass give each row one warp (8 rows per
 // block of 256 threads); lane l owns the 4-column groups 4l + 128k, read
-// as one 16-byte (f32) or 8-byte (bf16) load, and the row sums are warp
+// as one 16-byte (f32) or 8-byte (bf16, f16) load, and the row sums are warp
 // shuffles. A row is read again for each pass (three times in the
 // forward, twice in the dx pass) rather than held, so any M works; the
 // re-reads hit the L1 and L2 (a row is 2 KB at M=1024 bf16). The dg/db
@@ -34,12 +34,14 @@
 // and recomputes a; the re-reads of a row within a pass go through the
 // caches; the dg/db pass walks its rows one after another in each thread.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 constexpr int kThreads = 256;                // 8 warps, one row each
 constexpr int kRowsPerBlock = kThreads / 32;
 constexpr int kPartRows = 32;                // rows of one dg/db partial
@@ -62,6 +64,15 @@ __device__ __forceinline__ void load4(const bf16* p, float (&v)[4]) {
   v[2] = hi.x;
   v[3] = hi.y;
 }
+__device__ __forceinline__ void load4(const f16* p, float (&v)[4]) {
+  const uint2 x = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __half22float2(*reinterpret_cast<const __half2*>(&x.x));
+  const float2 hi = __half22float2(*reinterpret_cast<const __half2*>(&x.y));
+  v[0] = lo.x;
+  v[1] = lo.y;
+  v[2] = hi.x;
+  v[3] = hi.y;
+}
 __device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
@@ -73,8 +84,17 @@ __device__ __forceinline__ void store4(bf16* p, const float (&v)[4]) {
   x.y = *reinterpret_cast<uint32_t*>(&hi);
   *reinterpret_cast<uint2*>(p) = x;
 }
+__device__ __forceinline__ void store4(f16* p, const float (&v)[4]) {
+  __half2 lo = __floats2half2_rn(v[0], v[1]);
+  __half2 hi = __floats2half2_rn(v[2], v[3]);
+  uint2 x;
+  x.x = *reinterpret_cast<uint32_t*>(&lo);
+  x.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = x;
+}
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(f16 x) { return __half2float(x); }
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -239,7 +259,8 @@ bool valid_shape(int N, int M) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, residual, y, dy and dx share it);
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (x, residual, y, dy and
+// dx share it; the statistics and every sum are f32 whatever it is);
 // g, b, mean, rstd and the partials are f32. r (the residual) may be null.
 // The backward's partials are f32 [N / 32, M]. Returns the CUDA error of
 // the launch (0 = launched). The caller checks shapes, dtypes, contiguity
@@ -256,6 +277,8 @@ extern "C" int ptt_ln_fwd(const void* x, const void* r, const void* g,
     err = launch_fwd<float>(x, r, g, b, y, mean, rstd, N, M, eps, s);
   else if (dtype == 1)
     err = launch_fwd<bf16>(x, r, g, b, y, mean, rstd, N, M, eps, s);
+  else if (dtype == 2)
+    err = launch_fwd<f16>(x, r, g, b, y, mean, rstd, N, M, eps, s);
   else
     err = cudaErrorInvalidValue;
   return (int)err;
@@ -275,6 +298,9 @@ extern "C" int ptt_ln_bwd(const void* x, const void* r, const void* g,
   else if (dtype == 1)
     err = launch_bwd<bf16>(x, r, g, mean, rstd, dy, dx, dg_part, db_part, N,
                            M, s);
+  else if (dtype == 2)
+    err = launch_bwd<f16>(x, r, g, mean, rstd, dy, dx, dg_part, db_part, N,
+                          M, s);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

@@ -3,13 +3,24 @@
 //
 // Replaces the TPU kernel paddle_tpu/kernels/paged_attention.py:120
 // `_paged_attn_kernel` (launched by `fused_paged_attention`, :179), in both
-// of its forms: float pools (f32 or bf16) and quantized pools of 1-byte
-// pages with per-(page, head, in-page column) f32 scales, dequantized in
-// the kernel (the TPU kernel's `quantized=True` body, :143-147). Pages are
-// int8, as in the TPU kernel, or fp8 e4m3 (`__nv_fp8_e4m3`), which the
-// reference sends to its gather oracle only because Mosaic lacked 1-byte
-// float tiles; both dequantize the same way, `float(page) * scale` in f32.
-// Queries and out are f32 or bf16.
+// of its forms: float pools (f32, bf16 or f16) and quantized pools of
+// 1-byte pages with per-(page, head, in-page column) f32 scales,
+// dequantized in the kernel (the TPU kernel's `quantized=True` body,
+// :143-147). Pages are int8, as in the TPU kernel, or fp8 e4m3
+// (`__nv_fp8_e4m3`), which the reference sends to its gather oracle only
+// because Mosaic lacked 1-byte float tiles; both dequantize the same way,
+// `float(page) * scale` in f32. Queries and out are f32, bf16 or f16.
+//
+// The page type is independent of the query type, as in the TPU kernel,
+// which reads each page in its own dtype and widens it to f32 (:140-150):
+// a float pool may hold f32, bf16 or f16 under any of the three query
+// types (`Engine(dtype=)` stores the KV in a dtype other than the
+// model's). The page type alone sets the ring's row bytes, its chunk and
+// the width of the row copies; q is read once a block, widened to f32,
+// and out is rounded once to q's type. One library is built per query
+// type (PTT_Q_BF16 / PTT_Q_F16 select bf16 / f16; neither: f32), each
+// instantiating its query type against the five page types, so the three
+// build in parallel (kernels/_build.py's variants).
 //
 // What it computes, exactly as the TPU kernel does: window queries
 // q [N,H,W,D] against the page pools [P,H,ps,D] through the block table
@@ -104,6 +115,7 @@
 //   W queries just takes ceil(W / 2) tiles, each reading the pages again,
 //   which costs bandwidth only at W > 2 on heads no served model has.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -121,6 +133,7 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_f32(int8_t x) {
   return static_cast<float>(x);
 }
@@ -130,6 +143,9 @@ __device__ __forceinline__ float to_f32(__nv_fp8_e4m3 x) {
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
+}
+__device__ __forceinline__ void store(__half* p, float x) {
+  *p = __float2half(x);
 }
 
 // VD consecutive ring elements in f32, times `scale` (1 for float pages):
@@ -304,8 +320,9 @@ struct PageWalk {
   }
 };
 
-// TQ: query/out type (float, bf16). TP: page type (TQ, int8_t or
-// __nv_fp8_e4m3; the 1-byte types read the scales). DP: the padded head
+// TQ: query/out type (float, bf16, f16). TP: page type (float, bf16,
+// f16, int8_t or __nv_fp8_e4m3, whatever TQ is; the 1-byte types read the
+// scales). DP: the padded head
 // dim (a multiple of 32, >= D). WT: queries per block. C: columns per ring
 // chunk.
 template <typename TQ, typename TP, int DP, int WT, int C>
@@ -633,22 +650,48 @@ template <typename TQ>
 cudaError_t dispatch_pages(const Params& a, int N, int S, int dp, int wt,
                            int c, int pdtype, cudaStream_t st) {
   switch (pdtype) {
-    case 0: return dispatch<TQ, TQ>(a, N, S, dp, wt, c, st);
     case 1: return dispatch<TQ, int8_t>(a, N, S, dp, wt, c, st);
     case 2: return dispatch<TQ, __nv_fp8_e4m3>(a, N, S, dp, wt, c, st);
+    case 3: return dispatch<TQ, float>(a, N, S, dp, wt, c, st);
+    case 4: return dispatch<TQ, __nv_bfloat16>(a, N, S, dp, wt, c, st);
+    case 5: return dispatch<TQ, __half>(a, N, S, dp, wt, c, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// bytes of one page element by page code
+int page_bytes(int pdtype) {
+  switch (pdtype) {
+    case 1: case 2: return 1;
+    case 3: return 4;
+    case 4: case 5: return 2;
+    default: return 0;
+  }
+}
+
+#if defined(PTT_Q_F16)
+using QType = __half;
+constexpr int kQDtype = 2;
+#elif defined(PTT_Q_BF16)
+using QType = __nv_bfloat16;
+constexpr int kQDtype = 1;
+#else
+using QType = float;
+constexpr int kQDtype = 0;
+#endif
+
 }  // namespace
 
-// qdtype: 0 = float32, 1 = bfloat16 (q and out). pdtype: 0 = pages in q's
-// dtype (k_scale and v_scale unused, may be null), 1 = int8 pages, 2 = fp8
-// e4m3 pages (both with f32 scales [P, H, ps]). D: the head dim (1 to
-// 512; q, out and the pools at D); dp, wt, chunk: the wrapper's plan
-// (padded width, queries a block, columns a ring chunk). splits x pps
-// covers the table (splits = ceil(pmax / pps)). part_o: f32 [N*H*W,
-// splits, D] and part_ml: f32 [N*H*W, splits, 2] scratch; tickets: int32
+// qdtype: 0 = float32, 1 = bfloat16, 2 = float16 (q and out); it must be
+// the query type this library was built for (anything else returns
+// cudaErrorInvalidValue). pdtype: the page type, independent of q: 1 =
+// int8, 2 = fp8 e4m3 (both with f32 scales [P, H, ps]), 3 = float32, 4 =
+// bfloat16, 5 = float16 (k_scale and v_scale unused, may be null). D: the
+// head dim (1 to 512; q, out and the pools at D); dp, wt, chunk: the
+// wrapper's plan (padded width, queries a block, columns a ring chunk, the
+// last from the page type's row bytes). splits x pps covers the table
+// (splits = ceil(pmax / pps)). part_o: f32 [N*H*W, splits, D] and
+// part_ml: f32 [N*H*W, splits, 2] scratch; tickets: int32
 // [N*H*ceil(W / wt)], all 0 before the call and left 0 after it. Any
 // ps >= 1. Returns the CUDA error of the launch (0 = launched). The
 // caller checks shapes, dtypes, contiguity and 16-byte alignment.
@@ -661,11 +704,12 @@ extern "C" int ptt_paged_attention(
     int qdtype, int pdtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (ps < 1 || N < 1 || H < 1 || W < 1 || D < 1 || D > dp || pmax < 1 ||
-      splits < 1 || pps < 1 || (int64_t)splits * pps < pmax ||
-      (int64_t)(splits - 1) * pps >= pmax)
+  const int elem = page_bytes(pdtype);
+  if (qdtype != kQDtype || elem == 0 || ps < 1 || N < 1 || H < 1 ||
+      W < 1 || D < 1 || D > dp || pmax < 1 || splits < 1 || pps < 1 ||
+      (int64_t)splits * pps < pmax || (int64_t)(splits - 1) * pps >= pmax)
     return (int)cudaErrorInvalidValue;
-  if (pdtype != 0 && (k_scale == nullptr || v_scale == nullptr))
+  if (elem == 1 && (k_scale == nullptr || v_scale == nullptr))
     return (int)cudaErrorInvalidValue;
   Params a;
   a.q = q;
@@ -687,17 +731,11 @@ extern "C" int ptt_paged_attention(
   a.ps = ps;
   a.pmax = pmax;
   a.pps = pps;
-  const int row = D * (pdtype == 0 ? (qdtype == 0 ? 4 : 2) : 1);
+  // the copies' width follows the page element's own size, never q's
+  const int row = D * elem;
   a.unit = row % 16 == 0 ? 16 : row % 8 == 0 ? 8 : row % 4 == 0 ? 4 : 1;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (qdtype == 0)
-    err = dispatch_pages<float>(a, N, splits, dp, wt, chunk, pdtype, st);
-  else if (qdtype == 1)
-    err = dispatch_pages<__nv_bfloat16>(a, N, splits, dp, wt, chunk, pdtype,
-                                        st);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+  return (int)dispatch_pages<QType>(a, N, splits, dp, wt, chunk, pdtype,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* ptt_error_string(int code) {

@@ -36,7 +36,7 @@ from . import _build, count_launch, runs_plain
 _SOURCE = "fused_ln"
 _FWD = "fused_ln_fwd"
 _BWD = "fused_ln_bwd"
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _PART_ROWS = 32              # rows of one dg/db partial (csrc kPartRows)
 _fns = None
 
@@ -119,7 +119,7 @@ def _check_rows(kernel, x, residual, vectors, rows=()):
     _check(supported(x.shape, m), kernel,
            f"N and M must be multiples of 128, got {n} x {m}")
     _check(x.dtype in _DTYPE_CODES, kernel,
-           f"dtype must be float32 or bfloat16, got {x.dtype}")
+           f"dtype must be float32, bfloat16 or float16, got {x.dtype}")
     named = [("x", x)] + ([] if residual is None else
                           [("residual", residual)]) + list(rows)
     for name, t in named:
@@ -148,10 +148,17 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _counted(kernel, x):
+    """The launch-count name: float16 launches count apart, under
+    ``<kernel>_f16``, as the flash kernels' do."""
+    return kernel + "_f16" if x.dtype == torch.float16 else kernel
+
+
 def fused_ln_fwd(x, residual, weight, bias, eps):
     """Launch the forward kernel on ``x [N, M]`` (CUDA, contiguous,
-    float32 or bfloat16; N and M multiples of 128) and ``residual`` (x's
-    shape and dtype, or None); ``weight`` and ``bias`` float32 ``[M]``.
+    float32, bfloat16 or float16; N and M multiples of 128) and
+    ``residual`` (x's shape and dtype, or None); ``weight`` and ``bias``
+    float32 ``[M]``.
     Returns ``(y [N, M], mean [N], rstd [N])``."""
     n, m = _check_rows(_FWD, x, residual, (weight, bias))
     y = torch.empty_like(x)
@@ -163,7 +170,7 @@ def fused_ln_fwd(x, residual, weight, bias, eps):
               rstd.data_ptr(), n, m, float(eps), _DTYPE_CODES[x.dtype],
               x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, _FWD, err_str)
-    count_launch(_FWD)
+    count_launch(_counted(_FWD, x))
     return y, mean, rstd
 
 
@@ -188,7 +195,7 @@ def fused_ln_bwd(x, residual, weight, mean, rstd, dy):
               _DTYPE_CODES[x.dtype], x.device.index,
               torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, _BWD, err_str)
-    count_launch(_BWD)
+    count_launch(_counted(_BWD, x))
     return dx, dg_part.sum(dim=0), db_part.sum(dim=0)
 
 

@@ -4,10 +4,14 @@ version.
 Counterpart: ``paddle_tpu/kernels/paged_attention.py``. The TPU kernel
 there, ``_paged_attn_kernel`` (:120, launched by ``fused_paged_attention``
 :179), is replaced by the hand-written CUDA kernel in
-``csrc/paged_attention.cu``, in both of its forms: float pools, and
+``csrc/paged_attention.cu``, in both of its forms: float pools (float32,
+bfloat16 or float16 pages, whatever q's dtype among the three), and
 quantized pools of 1-byte pages (int8 or fp8 e4m3) with per-(page, head,
-in-page column) f32 scales ``[P, H, ps]``, dequantized in the kernel. The
-source's header note says how it works and what bounds it.
+in-page column) f32 scales ``[P, H, ps]``, dequantized in the kernel. As
+in the TPU kernel (:140-150), every page is read in its own dtype and
+widened to f32; the output is rounded once to q's dtype. The source is
+built once a query dtype (`_LIBS`). The source's header note says how it
+works and what bounds it.
 
 - `fused_paged_attention`: the kernel wrapper (CUDA tensors only).
 - `paged_attention_reference`: the plain PyTorch version, computing the
@@ -48,10 +52,12 @@ same launch, found with an atomic ticket in a per-(device, stream)
 int32 buffer that the kernel leaves at 0 (`_tickets`).
 
 Launch counts: ``paged_attention`` for float pools,
-``paged_attention_int8`` and ``paged_attention_fp8`` for quantized ones;
-a launch at width 512 also counts the same name with ``_wide`` appended,
-and a launch through `paged_tail_segment` also counts
-``paged_tail_segment``.
+``paged_attention_int8`` and ``paged_attention_fp8`` for quantized ones,
+each with ``_f16`` appended when q is float16 (the flash kernels' rule);
+a launch at width 512 also counts its name with ``_wide`` appended, a
+launch on float pages of a dtype other than q's also counts
+``paged_attention_cross``, and a launch through `paged_tail_segment`
+also counts ``paged_tail_segment``.
 """
 from __future__ import annotations
 
@@ -65,10 +71,15 @@ from .paged_kv import gather_pages, gather_scales
 
 _KERNEL = "paged_attention"
 _MASKED = -1e30
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: quantized page dtype -> (the C entry's page code, launch-count name)
+#: q dtype -> (the C entry's query code, the library built for it)
+_Q_DTYPES = {torch.float32: (0, "paged_attention"),
+             torch.bfloat16: (1, "paged_attention_bf16"),
+             torch.float16: (2, "paged_attention_f16")}
+#: page dtype -> (the C entry's page code, launch-count name)
 _QUANT_PAGES = {torch.int8: (1, "paged_attention_int8"),
                 torch.float8_e4m3fn: (2, "paged_attention_fp8")}
+_FLOAT_PAGES = {torch.float32: (3, _KERNEL), torch.bfloat16: (4, _KERNEL),
+                torch.float16: (5, _KERNEL)}
 #: queries a block of the kernel takes: 4, 8 for a window of 5 or more
 #: at a padded width up to 128, 2 at width 512
 _TILE_NARROW, _TILE_SMALL, _TILE_WIDE = 2, 4, 8
@@ -78,7 +89,7 @@ _WIDTHS = (32, 64, 96, 128, 256, 512)
 _BLOCKS_PER_SM = 4
 #: ... and gives every split at least this many columns
 _MIN_SPLIT_COLS = 64
-_fn = None
+_fns: dict = {}
 _sm_counts: dict[int, int] = {}
 _ticket_bufs: dict[tuple[int, int], torch.Tensor] = {}
 
@@ -160,13 +171,13 @@ def _tickets(dev: torch.device, stream, size: int) -> torch.Tensor:
     return hold(buf)
 
 
-def _kernel_fn():
-    """``(launch, error_string)``: the C entry points, with their argument
-    types declared (pointers and the stream as ``c_void_p``, so ctypes
-    does not cut them to 32 bits)."""
-    global _fn
-    if _fn is None:
-        lib = _build.load(_KERNEL)
+def _kernel_fn(lib_name: str):
+    """``(launch, error_string)``: the C entry points of library
+    ``lib_name``, with their argument types declared (pointers and the
+    stream as ``c_void_p``, so ctypes does not cut them to 32 bits)."""
+    fns = _fns.get(lib_name)
+    if fns is None:
+        lib = _build.load(lib_name)
         fn = lib.ptt_paged_attention
         fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 14 + [
             ctypes.c_void_p]
@@ -174,8 +185,8 @@ def _kernel_fn():
         err_str = lib.ptt_error_string
         err_str.argtypes = [ctypes.c_int]
         err_str.restype = ctypes.c_char_p
-        _fn = (fn, err_str)
-    return _fn
+        fns = _fns[lib_name] = (fn, err_str)
+    return fns
 
 
 def _check(cond: bool, msg: str):
@@ -191,10 +202,11 @@ def fused_paged_attention(qh, pool_k, pool_v, block_table, steps,
     ``(out [N, H, W, D] in qh's dtype, lse [N, H, W] f32)``.
 
     Takes CUDA tensors only, all contiguous and on one device; q is
-    float32 or bfloat16; the pools either share q's dtype (no scales) or
-    are both int8 or both float8_e4m3fn with ``k_scale``/``v_scale``
-    ``[P, H, ps]`` float32; any ``D`` up to 512 and any page size
-    ``ps >= 1``. Anything else raises."""
+    float32, bfloat16 or float16; the pools are float32, bfloat16 or
+    float16 pages (no scales), whatever q's dtype, or both int8 or both
+    float8_e4m3fn with ``k_scale``/``v_scale`` ``[P, H, ps]`` float32;
+    any ``D`` up to 512 and any page size ``ps >= 1``. Anything else
+    raises."""
     _check(qh.device.type == "cuda", f"needs CUDA tensors, got {qh.device}")
     dev = qh.device
     quant = pool_k.dtype in _QUANT_PAGES
@@ -222,8 +234,8 @@ def fused_paged_attention(qh, pool_k, pool_v, block_table, steps,
     ps = pool_k.shape[2]
     width = kernel_width(d)
     _check(ps >= 1, f"page_size must be at least 1, got {ps}")
-    _check(qh.dtype in _DTYPE_CODES,
-           f"q dtype must be float32 or bfloat16, got {qh.dtype}")
+    _check(qh.dtype in _Q_DTYPES,
+           f"q dtype must be float32, bfloat16 or float16, got {qh.dtype}")
     _check(pool_v.dtype == pool_k.dtype,
            f"pools differ in dtype: {pool_k.dtype}/{pool_v.dtype}")
     if quant:
@@ -236,10 +248,10 @@ def fused_paged_attention(qh, pool_k, pool_v, block_table, steps,
                    f"{tuple(pool_k.shape[:3])}, got {sc.dtype} "
                    f"{tuple(sc.shape)}")
     else:
-        _check(pool_k.dtype == qh.dtype,
-               f"pools must have q's dtype {qh.dtype} or be int8 / "
+        _check(pool_k.dtype in _FLOAT_PAGES,
+               f"pools must be float32, bfloat16 or float16, or int8 / "
                f"float8_e4m3fn with scales, got {pool_k.dtype}")
-        page_code, counter = 0, _KERNEL
+        page_code, counter = _FLOAT_PAGES[pool_k.dtype]
     _check(block_table.dim() == 2 and block_table.shape[0] == n
            and block_table.dtype == torch.int32,
            "block_table must be int32 [N, Pmax]")
@@ -265,7 +277,8 @@ def fused_paged_attention(qh, pool_k, pool_v, block_table, steps,
                           device=dev)
     stream = torch.cuda.current_stream(dev)
     tickets = _tickets(dev, stream, n * h * -(-w // tile))
-    fn, err_str = _kernel_fn()
+    q_code, lib_name = _Q_DTYPES[qh.dtype]
+    fn, err_str = _kernel_fn(lib_name)
     err = fn(qh.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
              k_scale.data_ptr() if quant else None,
              v_scale.data_ptr() if quant else None,
@@ -273,14 +286,18 @@ def fused_paged_attention(qh, pool_k, pool_v, block_table, steps,
              out.data_ptr(), lse.data_ptr(), part_o.data_ptr(),
              part_ml.data_ptr(), tickets.data_ptr(), n, h, w, d, width, tile,
              chunk_cols(width, pool_k.element_size()), ps, pmax, splits, pps,
-             _DTYPE_CODES[qh.dtype], page_code, dev.index,
+             q_code, page_code, dev.index,
              stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
                            f"error {err} ({err_str(err).decode()})")
+    if qh.dtype == torch.float16:
+        counter += "_f16"
     count_launch(counter)
     if width == 512:
         count_launch(f"{counter}_wide")
+    if not quant and pool_k.dtype != qh.dtype:
+        count_launch("paged_attention_cross")
     return out, lse
 
 

@@ -35,6 +35,17 @@ import numpy as np
 import torch
 
 
+def _tensor(a) -> torch.Tensor:
+    """A numpy array as a CPU tensor of its own dtype: float16 and
+    float32 as they are, and the ``ml_dtypes`` bfloat16 the reference's
+    bfloat16 parameters export as (numpy has no bfloat16 of its own) by
+    its bits, without importing ``ml_dtypes``."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def _gpt_layers(names) -> set:
     """Indices of the GPT decoder layers among parameter names."""
     return {int(n.split(".")[2]) for n in names if n.startswith("gpt.h.")}
@@ -42,8 +53,10 @@ def _gpt_layers(names) -> set:
 
 def load_paddle_tpu_state_dict(model, arrays: dict):
     """Copy ``arrays`` (``paddle_tpu`` ``state_dict()`` as numpy arrays,
-    keyed by name) into ``model`` (any of the families above), cast to
-    the model's dtype on the model's device. Returns ``model``."""
+    keyed by name: float32, float16 or ``ml_dtypes`` bfloat16) into
+    ``model`` (any of the families above), cast to the model's dtype on
+    the model's device, so a float32 reference model loads into a
+    float16 or bfloat16 port model and back. Returns ``model``."""
     arrays = dict(arrays)
     params = dict(model.named_parameters())
     for i in sorted(_gpt_layers(params)):
@@ -69,8 +82,7 @@ def load_paddle_tpu_state_dict(model, arrays: dict):
             if tuple(a.shape) != tuple(p.shape):
                 raise ValueError(f"{name}: shape {tuple(a.shape)} != model "
                                  f"{tuple(p.shape)}")
-            p.copy_(torch.from_numpy(np.array(a)).to(device=p.device,
-                                                      dtype=p.dtype))
+            p.copy_(_tensor(a).to(device=p.device, dtype=p.dtype))
     return model
 
 
@@ -114,8 +126,8 @@ def load_layer_state_dict(layer, arrays: dict):
             if tuple(a.shape) != tuple(target.shape):
                 raise ValueError(f"{name}: shape {tuple(a.shape)} != layer "
                                  f"{tuple(target.shape)}")
-            target.copy_(torch.from_numpy(np.array(a)).to(
-                device=target.device, dtype=target.dtype))
+            target.copy_(_tensor(a).to(device=target.device,
+                                       dtype=target.dtype))
     return layer
 
 

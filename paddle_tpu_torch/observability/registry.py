@@ -1,29 +1,25 @@
-"""The port's metrics registry, reduced to what the recompile sentinel,
-the train step and the serving engine write.
+"""The port's metrics registry: labeled counters, gauges and histograms
+in one thread-safe table, with its JSON view and Prometheus text.
 
-Counterpart: ``paddle_tpu/observability/registry.py``. There one
-thread-safe registry holds labeled counters, gauges and histograms with
-a JSON snapshot and Prometheus exposition. Here only its get-or-create
-table and the labeled `Counter` are ported, for the family the sentinel
-bumps, ``xla_traces_total{executable=}``
-(``paddle_tpu/observability/sentinel.py:74-79``, one count per graph
-capture of a named step), and the train step's ``train_steps_total``
-and ``train_tokens_total`` (``paddle_tpu/distributed/spmd.py:406-414``),
-and the serving engine's prefix-cache and chunked-prefill families
-(``serving_prefix_hits_total``, ``serving_prefix_tokens_saved_total``,
-``serving_prefill_chunk_steps_total`` and the gauge
-``serving_prefill_chunk_active``, ``paddle_tpu/serving/metrics.py:
-174-193, 414-420``), each labeled by engine. The families keep the
-reference's names so that ROADMAP A9 can port the rest of the registry
-without renaming them. The fixed-bucket `Histogram` and its
-`bucket_quantile` (``registry.py:153-257``) carry the serving engine's
-latency and size distributions (prefill, decode step, queue wait, TTFT,
-accepted drafts, chunk tokens and piggyback share,
-``paddle_tpu/serving/metrics.py:245-310``).
+Counterpart: ``paddle_tpu/observability/registry.py``. One registry
+holds every family the port writes: the recompile sentinel's
+``xla_traces_total{executable=}`` (one count per graph capture of a
+named step), the train step's and the serving engine's families, the
+SLO tracker's, the flight recorder's and the process sampler's, each
+under the reference's name, so a dashboard built for one package reads
+the other. `MetricsRegistry.snapshot` is the JSON-able view
+(``registry.py:316``) and `MetricsRegistry.to_prometheus` the text
+exposition format 0.0.4 (``registry.py:340``) the ``/metrics`` endpoint
+serves. The fixed-bucket `Histogram` and its `bucket_quantile`
+(``registry.py:153-257``) carry the latency and size distributions.
+Dependency-free: importing it touches no device.
 """
 from __future__ import annotations
 
+import json
+import math
 import threading
+import weakref
 
 #: default latency bucket edges (seconds), the reference's: sub-ms decode
 #: steps on small models through multi-second prefills
@@ -66,6 +62,25 @@ class Counter:
         with self._lock:
             return self._children.get(key, 0.0)
 
+    def reset(self, value=0, **labels):
+        """Rewind one child to ``value`` (``registry.py:109-117``): an
+        explicit reset, which scrape tooling reads as a process reset."""
+        key = self._key(labels)
+        with self._lock:
+            self._children[key] = float(value)
+
+    def clear(self):
+        """Drop every child."""
+        with self._lock:
+            self._children.clear()
+
+    def remove(self, **labels):
+        """Drop one labeled child: the series leaves the exposition until
+        something sets it again (``registry.py:75-83``)."""
+        key = self._key(labels)
+        with self._lock:
+            self._children.pop(key, None)
+
     def collect(self) -> list:
         """``[(labels dict, value)]`` of every child."""
         with self._lock:
@@ -83,6 +98,15 @@ class Gauge(Counter):
         key = self._key(labels)
         with self._lock:
             self._children[key] = float(value)
+
+    def inc(self, amount=1, **labels):
+        """Add ``amount`` (either sign) to the child."""
+        key = self._key(labels)
+        with self._lock:
+            self._children[key] = self._children.get(key, 0.0) + amount
+
+    def dec(self, amount=1, **labels):
+        self.inc(-amount, **labels)
 
 
 def bucket_quantile(edges, cum_buckets, q):
@@ -132,6 +156,8 @@ class Histogram:
         self._lock = threading.Lock()
 
     _key = Counter._key
+    clear = Counter.clear
+    remove = Counter.remove
 
     def observe(self, value, **labels):
         value = float(value)
@@ -188,6 +214,31 @@ class MetricsRegistry:
     def __init__(self):
         self._metrics: dict[str, Counter] = {}
         self._lock = threading.Lock()
+        #: weak references to the bound methods `add_collector` took
+        self._collectors: list = []
+
+    def add_collector(self, method):
+        """Call the bound ``method`` before every read (`collect`,
+        `snapshot`, `to_prometheus`), so an owner that keeps its counts
+        in plain fields publishes them when they are read rather than
+        as they move. Held weakly: a collected owner drops out."""
+        with self._lock:
+            self._collectors.append(weakref.WeakMethod(method))
+
+    def _run_collectors(self):
+        with self._lock:
+            refs = list(self._collectors)
+        dead = False
+        for ref in refs:
+            fn = ref()
+            if fn is None:
+                dead = True
+            else:
+                fn()
+        if dead:
+            with self._lock:
+                self._collectors = [r for r in self._collectors
+                                    if r() is not None]
 
     def counter(self, name, help="", labelnames=()) -> Counter:
         return self._get_or_create(Counter, name, help, labelnames)
@@ -223,8 +274,95 @@ class MetricsRegistry:
     def collect(self, name) -> list:
         """``get(name).collect()``, a metric not registered yet reading
         as the empty list (``registry.py:297-306``)."""
+        self._run_collectors()
         m = self.get(name)
         return m.collect() if m is not None else []
+
+    def unregister(self, name):
+        with self._lock:
+            self._metrics.pop(name, None)
+
+    def reset(self):
+        """Drop every metric and collector (test isolation only)."""
+        with self._lock:
+            self._metrics.clear()
+            self._collectors.clear()
+
+    def snapshot(self) -> dict:
+        """Every metric as one JSON-able dict (``registry.py:316-338``):
+        ``{name: {"type", "help", "labelnames", "values": [{"labels",
+        "value"} or {"labels", "buckets", "sum", "count"}]}}``, with a
+        histogram's ``edges``."""
+        self._run_collectors()
+        with self._lock:
+            metrics = list(self._metrics.values())
+        out = {}
+        for m in metrics:
+            entry = {"type": m.kind, "help": m.help,
+                     "labelnames": list(m.labelnames), "values": []}
+            if isinstance(m, Histogram):
+                entry["edges"] = list(m.edges)
+                for labels, agg in m.collect():
+                    entry["values"].append({"labels": labels, **agg})
+            else:
+                for labels, v in m.collect():
+                    entry["values"].append({"labels": labels, "value": v})
+            out[m.name] = entry
+        return out
+
+    def to_json(self, **dump_kw) -> str:
+        return json.dumps(self.snapshot(), **dump_kw)
+
+    def to_prometheus(self) -> str:
+        """Prometheus text exposition format 0.0.4 of the whole registry
+        (``registry.py:340-365``): a counter under its ``_total`` name as
+        written, a histogram as ``_bucket{le=}``, ``_sum`` and
+        ``_count`` series."""
+        lines = []
+        self._run_collectors()
+        with self._lock:
+            metrics = sorted(self._metrics.values(), key=lambda m: m.name)
+        for m in metrics:
+            if m.help:
+                lines.append(f"# HELP {m.name} {m.help}")
+            lines.append(f"# TYPE {m.name} {m.kind}")
+            if isinstance(m, Histogram):
+                for labels, agg in m.collect():
+                    for le, n in zip(list(m.edges) + [math.inf],
+                                     agg["buckets"]):
+                        lines.append(_series(
+                            f"{m.name}_bucket",
+                            {**labels, "le": _fmt_value(le)}, n))
+                    lines.append(_series(f"{m.name}_sum", labels,
+                                         agg["sum"]))
+                    lines.append(_series(f"{m.name}_count", labels,
+                                         agg["count"]))
+            else:
+                for labels, v in m.collect():
+                    lines.append(_series(m.name, labels, v))
+        return "\n".join(lines) + ("\n" if lines else "")
+
+
+def _fmt_value(v):
+    if v != v:
+        return "NaN"
+    if v in (math.inf, -math.inf):
+        return "+Inf" if v > 0 else "-Inf"
+    if float(v).is_integer():
+        return str(int(v))
+    return repr(float(v))
+
+
+def _escape(v):
+    return (str(v).replace("\\", r"\\").replace('"', r'\"')
+            .replace("\n", r"\n"))
+
+
+def _series(name, labels, value):
+    if labels:
+        body = ",".join(f'{k}="{_escape(v)}"' for k, v in labels.items())
+        return f"{name}{{{body}}} {_fmt_value(value)}"
+    return f"{name} {_fmt_value(value)}"
 
 
 #: the process-wide default registry

@@ -215,6 +215,10 @@ class Span:
     def end(self):
         if self._begin_ns is None:
             return
+        if not (_buffer_enabled[0] or _sinks):
+            # nothing consumes the event: build none
+            self._begin_ns = None
+            return
         end_ns = time.perf_counter_ns()
         evt = {"name": self.name, "ph": "X", "cat": self.cat,
                "ts": self._begin_ns / 1000.0,
@@ -240,6 +244,8 @@ def span(name, **args):
 
 def instant(name, **args):
     """Zero-duration marker (``ph: i``)."""
+    if not (_buffer_enabled[0] or _sinks):
+        return
     evt = _base(name, "i", "host")
     evt["s"] = "t"  # thread-scoped instant
     if args:
@@ -252,6 +258,8 @@ def instant(name, **args):
 def async_begin(name, aid, cat="request", **args):
     """Open an async span keyed by ``aid`` (the request id): the trace
     viewer groups/nests b/n/e events sharing (cat, id)."""
+    if not (_buffer_enabled[0] or _sinks):
+        return
     evt = _base(name, "b", cat)
     evt["id"] = str(aid)
     evt["args"] = {"request_id": aid, **args}
@@ -268,10 +276,14 @@ def async_instant_evt(name, aid, cat="request", **args) -> dict:
 
 
 def async_instant(name, aid, cat="request", **args):
+    if not (_buffer_enabled[0] or _sinks):
+        return
     emit_event(async_instant_evt(name, aid, cat, **args))
 
 
 def async_end(name, aid, cat="request", **args):
+    if not (_buffer_enabled[0] or _sinks):
+        return
     evt = _base(name, "e", cat)
     evt["id"] = str(aid)
     evt["args"] = {"request_id": aid, **args}

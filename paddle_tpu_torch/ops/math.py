@@ -101,6 +101,9 @@ def _outer(a, b):
 
 
 def _heaviside(a, b):
+    """``jnp.heaviside``: a float result, integers included (the
+    reference's float64 under x64 is float32 here, C.3)."""
+    a = _floaty(a)
     return torch.heaviside(a, b.to(a.dtype))
 
 
@@ -191,6 +194,9 @@ def increment(x, value=1.0, name=None):
 
 
 def clip(x, min=None, max=None, name=None):
+    """``jnp.clip``: with neither bound, ``x`` itself."""
+    if min is None and max is None:
+        return x
     return torch.clamp(x, min, max)
 
 
@@ -341,19 +347,35 @@ def var(x, axis=None, unbiased=True, keepdim=False, name=None):
 
 
 def _flat_axis(v, axis):
+    """``(view, dim)``: the reduction over ``axis`` as one over ``dim``
+    of ``view``. None flattens every axis; a list or tuple of axes is
+    moved last and flattened into one (``jnp.median(axis=(0, 2))``)."""
     if axis is None:
         return v.reshape(-1), 0
-    return v, _norm_axis(axis)
+    ax = _norm_axis(axis)
+    if not isinstance(ax, tuple):
+        return v, ax
+    axes = sorted({a % v.ndim for a in ax})
+    if len(axes) == 1:
+        return v, axes[0]
+    rest = [d for d in range(v.ndim) if d not in axes]
+    v = v.permute(*rest, *axes).reshape(*(v.shape[d] for d in rest), -1)
+    return v, len(rest)
 
 
-def _keep(out, v, axis, keepdim):
-    """The reference's ``keepdims`` shape for a one-axis (or all-axes)
-    reduction computed without it."""
+def _keep(out, x, axis, keepdim, lead=0):
+    """The reference's ``keepdims`` shape of a reduction of ``x`` over
+    ``axis`` (None: all; an int; several) computed without it; ``lead``
+    dims of ``out`` come before ``x``'s (a quantile's ``q`` axis)."""
     if not keepdim:
         return out
     if axis is None:
-        return out.reshape((1,) * v.ndim)
-    return out.unsqueeze(_norm_axis(axis) % v.ndim)
+        return out.reshape(out.shape[:lead] + (1,) * x.ndim)
+    ax = _norm_axis(axis)
+    for a in sorted({a % x.ndim for a in (ax if isinstance(ax, tuple)
+                                          else (ax,))}):
+        out = out.unsqueeze(lead + a)
+    return out
 
 
 def median(x, axis=None, keepdim=False, name=None):
@@ -379,13 +401,7 @@ def _quantile(fn, x, q, axis, keepdim, interpolation):
     qt = q if isinstance(q, (int, float)) else torch.as_tensor(
         q, dtype=v.dtype, device=v.device)
     out = fn(v, qt, dim=ax, interpolation=interpolation)
-    if keepdim:
-        lead = out.ndim - (v.ndim - 1)
-        if axis is None:
-            out = out.reshape(out.shape[:lead] + (1,) * x.ndim)
-        else:
-            out = out.unsqueeze(lead + _norm_axis(axis) % x.ndim)
-    return out
+    return _keep(out, x, axis, keepdim, lead=out.ndim - (v.ndim - 1))
 
 
 def quantile(x, q, axis=None, keepdim=False, interpolation="linear",

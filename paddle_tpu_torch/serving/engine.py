@@ -103,12 +103,41 @@ without counting) and reported to the recompile sentinel under the
 engine's own names (`metrics.EngineMetrics.note_trace`). Token
 selection runs after the replay, eagerly.
 
+``dtype`` stores the KV cache (the page pool or the slot caches) in a
+float dtype other than the model's (``engine.py:226``, :614-620): the
+steps write K/V cast to it, and the paged kernel reads each page in its
+own dtype, widened to f32 (B3's float pages under any query dtype).
+
+Observability (A9, the reference's telemetry rounds): the engine emits
+the reference's trace spans (``serving.prefill``, ``serving.decode``)
+and request-lifecycle async events (``request``, ``slot.admission``,
+``slot.decode_token``, ``spec.verify``, ``slot.eviction``,
+``deadline.exceeded``, ``shed``, ``prefix.hit``,
+``kv_pages.exhausted_requeue``, ``kv_pages.exhausted_fail``) under the
+same names and stages, at the same points; with the span buffer off and
+no sink attached (`observability.tracing.active()` false) the spans and
+events build nothing. ``profiler``: a callable ``(event, info)`` fired
+after each prefill, chunk and decode step. ``slo``: an
+`observability.SLO`; every terminated request is scored once
+(`observability.SLOTracker`, the ``serving_slo_*`` family, ``stats()``'s
+``slo_*`` and ``goodput_per_s``); only then are token times kept.
+``flight_recorder``: True or an `observability.FlightRecorder`; a real
+death dumps one postmortem, a clean `close` none.
+``observability_port``: start an `observability.ObservabilityServer` on
+127.0.0.1 at that port (0 picks a free one), this engine attached,
+stopped by `close`. ``stats()``'s ``decode_exec_flops`` is one decode
+step's operations in closed form as the engine stands
+(`observability.costs.gpt_decode_flops`: the products, plus the
+attention's 4 N H W L D a layer, L the columns the step reads), and
+``decode_flops_per_token`` that times the decode steps over the tokens
+they emitted, the reference's account; nothing is counted on the step's
+path. The engine's counters reach the registry's ``serving_*_total``
+families when the registry is read (`metrics.EngineMetrics.publish`).
+
 Arguments of features that later slices bring raise
-`NotImplementedError` naming the ROADMAP item: ``profiler``,
-``observability_port``, ``flight_recorder`` and ``slo`` (A9, with the
-reference's tracing calls), ``role`` and ``kv_pool`` (A10: the cluster,
-its handoff, requeue and watchdog hooks), ``mesh`` and ``sharding_rule``
-(A12), ``dtype`` (A2).
+`NotImplementedError` naming the ROADMAP item: ``role`` and ``kv_pool``
+(A10: the cluster, its handoff, requeue and watchdog hooks), ``mesh``
+and ``sharding_rule`` (A12).
 """
 from __future__ import annotations
 
@@ -122,6 +151,9 @@ import torch
 
 from ..device import resolve_device
 from ..jit.capture import graph_pool
+from ..observability import costs as _costs
+from ..observability import tracing as _tracing
+from ..observability.slo import SLOTracker
 from ..kernels import kernel_launch_counts
 from ..kernels.paged_kv import pages_for
 from ..models.generation import select_tokens, select_tokens_window
@@ -145,9 +177,11 @@ from .speculative import (AdaptiveSpecK, CallableDrafter, NgramDrafter,
 from .timeline import (PHASE_ADMITTED, PHASE_DECODE, PHASE_PREFILL,
                        TimelineRing)
 
-#: the launch-count names of the paged kernel (float, int8, fp8 pools)
+#: the launch-count names of the paged kernel (float, int8, fp8 pools;
+#: float16 queries apart)
 _PAGED_KERNELS = ("paged_attention", "paged_attention_int8",
-                  "paged_attention_fp8")
+                  "paged_attention_fp8", "paged_attention_f16",
+                  "paged_attention_int8_f16", "paged_attention_fp8_f16")
 
 #: Engine arguments of later slices: name -> (the value that means
 #: "off", the ROADMAP queue-A feature that brings it)
@@ -156,12 +190,9 @@ _LATER = {
     "sharding_rule": (None, "A12 distributed serving"),
     "role": ("both", "A10 disaggregated serving"),
     "kv_pool": (None, "A10 disaggregated serving"),
-    "profiler": (None, "A9 observability (profiler)"),
-    "observability_port": (None, "A9 observability (server endpoints)"),
-    "flight_recorder": (None, "A9 observability (flight recorder)"),
-    "slo": (None, "A9 observability (SLO tracking)"),
-    "dtype": (None, "A2 scaffold (serving dtype)"),
 }
+#: the decode step's span when nothing consumes spans (reusable)
+_NO_SPAN = contextlib.nullcontext()
 #: the shed policies of bounded admission
 _SHED_POLICIES = ("refuse", "shed_newest", "shed_closest_deadline",
                   "infeasible")
@@ -264,7 +295,10 @@ class Engine:
     ``shed_policy``: bounded admission. ``admission_retries``: failed
     page reservations before `PoolExhaustedError`. ``fault_injector``:
     a `faults.FaultInjector`. ``device``: ``None`` means ``cuda``
-    (raises without a GPU); it must be the model's device.
+    (raises without a GPU); it must be the model's device. ``dtype``:
+    the KV cache's float dtype (default the model's; a quantized pool's
+    pages stay 1-byte). ``profiler``, ``slo``, ``flight_recorder`` and
+    ``observability_port``: the module docstring's observability.
     """
 
     def __init__(self, model, slots=4, max_len=None, prefill_buckets=None,
@@ -274,7 +308,8 @@ class Engine:
                  chunk_tokens=None, draft_model=None, spec_adaptive=False,
                  spec_k_max=None, engine_id=None, default_deadline_s=None,
                  max_queue=None, shed_policy="refuse", admission_retries=64,
-                 fault_injector=None, **later):
+                 fault_injector=None, dtype=None, profiler=None, slo=None,
+                 flight_recorder=None, observability_port=None, **later):
         for name, value in later.items():
             if name not in _LATER:
                 raise TypeError(f"Engine() got an unexpected argument "
@@ -306,7 +341,7 @@ class Engine:
         if kv_pool_bytes is not None:
             kv_pages = pages_in_budget(model, kv_pool_bytes,
                                        page_size=int(page_size),
-                                       kv_quant=kv_quant)
+                                       dtype=dtype, kv_quant=kv_quant)
         #: the quantized weights of ``weight_quant`` (None: as they are)
         self._qweights = model.serving_weights(weight_quant)
         self.model = model.eval()
@@ -319,9 +354,10 @@ class Engine:
         if self.kv_mode == "paged":
             self.kv = PagedKVCache(model, self.slots, int(max_len),
                                    page_size=int(page_size), pages=kv_pages,
-                                   kv_quant=kv_quant)
+                                   dtype=dtype, kv_quant=kv_quant)
         else:
-            self.kv = SlotKVCache(model, self.slots, int(max_len))
+            self.kv = SlotKVCache(model, self.slots, int(max_len),
+                                  dtype=dtype)
         buckets = (prefill_buckets if prefill_buckets is not None
                    else (max(1, int(max_len) // 2),))
         self.scheduler = SlotScheduler(self.slots, buckets, int(max_len),
@@ -360,6 +396,18 @@ class Engine:
         self._ewma_admit_s = None
         #: the terminated requests' timelines
         self.timelines = TimelineRing()
+        #: the SLO evaluation of every terminated request (None: no SLO)
+        self.slo = (SLOTracker(slo, source_id=self.engine_id)
+                    if slo is not None else None)
+        #: ``profiler(event, info)`` after each prefill, chunk and decode
+        self._profiler = profiler
+        #: the dispatch heartbeat: the monotonic start of the step in
+        #: flight (None between steps) and the end of the last one that
+        #: returned (a postmortem's last good heartbeat)
+        self._hb_busy_since = None
+        self._hb_last_done = None
+        #: the serving role (``"both"``: the disaggregated roles are A10)
+        self.role = "both"
         self._tokens = np.zeros((self.slots,), np.int64)
         self._slot_req: list[Request | None] = [None] * self.slots
         self._next_rid = 0
@@ -380,6 +428,23 @@ class Engine:
         self._verify_fns: dict = {}
         self._verify = None
         self._chunk_fn = None
+        own_flight = flight_recorder is True
+        if own_flight:
+            from ..observability.flight_recorder import FlightRecorder
+            flight_recorder = FlightRecorder()
+        #: the crash flight recorder (None: none); a recorder this engine
+        #: built is detached from the tracing sinks when it shuts down
+        self._flight = flight_recorder or None
+        self._flight_owned = own_flight
+        if self._flight is not None:
+            self._flight.attach()
+        #: the engine's own `ObservabilityServer` (observability_port=),
+        #: stopped by `close`
+        self.obs_server = None
+        if observability_port is not None:
+            from ..observability.server import start_observability_server
+            self.obs_server = start_observability_server(
+                port=observability_port).attach(self)
 
     def _init_spec(self, spec_k, spec_ngram, draft_model, spec_adaptive,
                    spec_k_max):
@@ -434,6 +499,19 @@ class Engine:
     def alive(self) -> bool:
         """False once the engine died on a step failure or was closed."""
         return self._fatal is None
+
+    @property
+    def slo_burn_rate(self) -> float:
+        """The SLO tracker's largest burn rate (0.0 without an SLO): the
+        signal a load-aware router steers by (``engine.py:742-747``)."""
+        return self.slo.burn_rate() if self.slo is not None else 0.0
+
+    def heartbeat(self):
+        """The monotonic start of the step in flight, None between
+        steps: ``time.monotonic() - heartbeat()`` past a threshold is a
+        wedged step (the endpoint's ``/healthz``). Read without the
+        lock."""
+        return self._hb_busy_since
 
     @property
     def running(self) -> bool:
@@ -503,7 +581,12 @@ class Engine:
                 if req.done:
                     return req.handle
             self.scheduler.enqueue(req)
+            req.trace = _tracing.TraceContext.new(self.engine_id, req.rid)
             self.metrics.submitted += 1
+            _tracing.async_begin("request", req.aid, request_id=req.rid,
+                                 hop=req.hop, prompt_len=req.prompt_len,
+                                 max_new_tokens=req.max_new_tokens,
+                                 replica=self.engine_id)
             return req.handle
 
     def _prepare(self, rid, prompt_ids, max_new_tokens, eos_token_id,
@@ -563,6 +646,10 @@ class Engine:
         kills the engine: every handle fails with the cause and every
         page returns."""
         self._check_alive()
+        if self._flight is not None:
+            # the black box's periodic registry snapshot (rate-limited
+            # inside: one monotonic read a step)
+            self._flight.maybe_snapshot()
         try:
             with self._lock, torch.inference_mode():
                 self._check_alive()
@@ -666,6 +753,8 @@ class Engine:
                 return
             self._closed = True
         self.stop()
+        if self.obs_server is not None:
+            self.obs_server.stop()
         with self._lock:
             if self._fatal is None:
                 self._shutdown_sweep(EngineClosedError(
@@ -719,6 +808,19 @@ class Engine:
                                         / self.kv.page_size))
                 if self.prefix is not None:
                     paged["prefix_cached_pages"] = self.prefix.cached_pages
+            slo_kw = {}
+            if self.slo is not None:
+                snap = self.slo.snapshot()
+                slo_kw = dict(slo_attained=snap["attained_total"],
+                              slo_violated=snap["violated_total"],
+                              slo_attainment=snap["attainment"],
+                              slo_burn_rate=snap["burn_rate"],
+                              goodput_per_s=snap["goodput_per_s"])
+            # the decode step's cost on the registry under its step name
+            # (``executable_flops{executable=}``; None before the first)
+            exec_flops = (self._decode_step_flops()
+                          if self._verify is not None else None)
+            _costs.record_executable_costs(self._decode_name(), exec_flops)
             return self.metrics.snapshot(
                 kv_mode=self.kv_mode,
                 queue_depth=self.scheduler.queue_depth,
@@ -732,7 +834,33 @@ class Engine:
                 capture_s=sum(fn.capture_s for fn in self._steps()),
                 paged_attention_launches=sum(counts[k]
                                              for k in _PAGED_KERNELS),
-                **paged)
+                decode_exec_flops=exec_flops,
+                **slo_kw, **paged)
+
+    def _decode_step_flops(self) -> float:
+        """One decode/verify step's operations as the engine stands, where
+        the reference reads its executable's ``cost_analysis()``
+        (`costs.gpt_decode_flops`): the model's products at the current
+        window W, plus the attention's ``4 H W L D`` a row and a layer,
+        ``L`` the columns the step reads (paged: an active row's cursor
+        plus the window, a parked row's whole table, as the kernel's
+        uniform fallback reads it; slots: the whole row). Read when
+        asked, never on the step's path."""
+        w = self._spec_k + 1
+        if self.kv_mode == "paged":
+            lp = self.kv.logical_len
+            cols = np.where(self.kv.active,
+                            np.minimum(self.kv.steps + w, lp), lp)
+        else:
+            cols = np.full((self.slots,), self.kv.max_len)
+        return _costs.gpt_decode_flops(self.model.config, w, cols)
+
+    def _decode_name(self) -> str:
+        """The current decode/verify step's name (`metrics.step_name`):
+        its cost entry's key."""
+        if self._spec_ctrl is None:
+            return self.metrics.step_name("decode")
+        return self.metrics.step_name("decode", f"k{self._spec_k}")
 
     def _steps(self):
         """Every step this engine built so far."""
@@ -894,6 +1022,14 @@ class Engine:
         (page accounting is host-side, so it holds after any failure)."""
         self._running = False
         self._fatal = exc
+        if self._flight is not None:
+            if not isinstance(exc, EngineClosedError):
+                # a real death dumps its postmortem before the sweep
+                # closes the in-flight state it records; close() writes
+                # nothing. Never raises.
+                self._flight.dump_engine_death(self, exc)
+            if self._flight_owned:
+                self._flight.detach()
         queued = [r for r in self.scheduler.queued_requests() if not r.done]
         for req in queued:
             self.scheduler.remove(req)
@@ -913,6 +1049,7 @@ class Engine:
         for req in queued:
             req.state = CANCELLED
             req.handle._close(exc)
+            self._end_span(req)
         for slot, req in enumerate(self._slot_req):
             if req is None:
                 continue
@@ -922,12 +1059,37 @@ class Engine:
             if not req.done:
                 req.state = CANCELLED
                 req.handle._close(exc)
+                self._end_span(req)
+
+    def _end_span(self, req: Request):
+        """Close the request's lifecycle span (opened at submit)."""
+        _tracing.async_end("request", req.aid, request_id=req.rid,
+                           hop=req.hop, state=req.state,
+                           tokens=len(req.emitted))
+
+    def _profile(self, event, **info):
+        if self._profiler is not None:
+            self._profiler(event, info)
 
     def _fault(self, phase: str, index: int):
         """The fault injector's dispatch hook (``step_hang``,
         ``step_error``), just before a step's dispatch."""
         if self._faults is not None:
             self._faults.on_dispatch(self, phase, index)
+
+    @contextlib.contextmanager
+    def _dispatch(self, phase: str, index: int):
+        """One step's dispatch region: the heartbeat busy for all of it
+        (a wedged step shows a stale stamp), the fault injector's hook
+        first; a dispatch that returned stamps the last good heartbeat
+        (``engine.py:1586-1626``)."""
+        self._hb_busy_since = time.monotonic()
+        try:
+            self._fault(phase, index)
+            yield
+        finally:
+            self._hb_busy_since = None
+        self._hb_last_done = time.monotonic()
 
     def _now(self) -> float:
         """The deadline clock: perf_counter plus any injected skew."""
@@ -960,6 +1122,10 @@ class Engine:
         creq = self._chunk_req
         if expired(creq):
             self.metrics.note_deadline_exceeded()
+            _tracing.async_instant("deadline.exceeded", creq.aid,
+                                   request_id=creq.rid, hop=creq.hop,
+                                   where="chunking", tokens=0,
+                                   replica=self.engine_id)
             self._abort_chunk(creq, DeadlineExceededError(
                 f"request {creq.rid} missed its {creq.deadline_s:.3f}s "
                 "deadline mid-chunked-prefill (no tokens emitted)"))
@@ -970,6 +1136,10 @@ class Engine:
         """The typed deadline failure of a queued or decoding request."""
         req.state = CANCELLED
         self.metrics.note_deadline_exceeded()
+        _tracing.async_instant("deadline.exceeded", req.aid,
+                               request_id=req.rid, hop=req.hop, where=where,
+                               tokens=len(req.emitted),
+                               replica=self.engine_id)
         detail = ("while queued (no tokens emitted)" if where == "queued"
                   else f"mid-decode ({len(req.emitted)} tokens emitted, "
                        "readable on handle.partial)")
@@ -1022,6 +1192,9 @@ class Engine:
         if est <= remaining:
             return
         self.metrics.note_shed("infeasible")
+        _tracing.async_instant("shed", req.aid, request_id=req.rid,
+                               hop=req.hop, policy="infeasible",
+                               replica=self.engine_id)
         exc = InfeasibleDeadlineError(
             f"request {req.rid} cannot meet its deadline on engine "
             f"{self.engine_id}: estimated {est:.3f}s (queue "
@@ -1043,6 +1216,9 @@ class Engine:
         policy = self._shed_policy
         if policy in ("refuse", "infeasible"):
             self.metrics.note_shed("refuse")
+            _tracing.async_instant("shed", incoming.aid,
+                                   request_id=incoming.rid, hop=incoming.hop,
+                                   policy="refuse", replica=self.engine_id)
             exc = OverloadedError(
                 f"engine {self.engine_id} queue is full ({self._max_queue} "
                 f"deep; shed_policy={policy!r}): retry with backoff or "
@@ -1059,12 +1235,19 @@ class Engine:
             if cands:
                 victim = min(cands, key=lambda r: r.deadline_t)
         self.metrics.note_shed(policy)
+        _tracing.async_instant("shed", victim.aid, request_id=victim.rid,
+                               hop=victim.hop, policy=policy,
+                               replica=self.engine_id)
         victim.state = CANCELLED
         if victim is not incoming:
             self.scheduler.remove(victim)
         victim.handle._close(OverloadedError(
             f"request {victim.rid} shed by engine {self.engine_id} (queue "
             f"full at {self._max_queue}, policy {policy!r})"))
+        if victim is not incoming:
+            # the incoming request's span never opened (it opens once
+            # the request is queued)
+            self._end_span(victim)
 
     def _admission_ok(self, req: Request) -> bool:
         """The paged admission gate of a popped request (``engine.py:
@@ -1080,12 +1263,20 @@ class Engine:
         if self._reserve(req):
             return True
         self.metrics.kv_pages_exhausted += 1
+        _tracing.async_instant("kv_pages.exhausted_requeue", req.aid,
+                               request_id=req.rid, hop=req.hop,
+                               pages_free=self.kv.pages_free)
         req.exhaustion_retries += 1
         if req.exhaustion_retries >= self._admission_retries:
             self.scheduler.release(req.slot)
             req.slot = None
             need, _ = self._page_budget(req)
             req.state = CANCELLED
+            _tracing.async_instant("kv_pages.exhausted_fail", req.aid,
+                                   request_id=req.rid, hop=req.hop,
+                                   retries=req.exhaustion_retries,
+                                   replica=self.engine_id)
+            self._end_span(req)
             req.handle._close(PoolExhaustedError(
                 f"request {req.rid} needed {need} KV pages but the pool "
                 f"holds {self.kv.pages_total} ({self.kv.pages_free} free "
@@ -1145,6 +1336,10 @@ class Engine:
         req.prefix_len = matched
         req.tail_bucket = self.scheduler.bucket_for(req.prompt_len - matched)
         self.metrics.note_prefix(matched)
+        if matched:
+            _tracing.async_instant("prefix.hit", req.aid, request_id=req.rid,
+                                   hop=req.hop, matched=matched,
+                                   pages=len(shared))
         return True
 
     def _reclaim(self, n_pages: int) -> int:
@@ -1157,10 +1352,14 @@ class Engine:
         """A whole prompt's admission: left-padded to its bucket and
         prefilled into the slot's row (slots) or reserved pages (paged);
         with the prefix cache, `_admit_prefix`."""
-        self.metrics.observe("h_queue_wait",
-                             time.perf_counter() - req.submit_time)
+        queue_wait = time.perf_counter() - req.submit_time
+        self.metrics.observe("h_queue_wait", queue_wait)
         req.timeline.mark(PHASE_ADMITTED, slot=req.slot,
                           engine=self.engine_id)
+        _tracing.async_instant("slot.admission", req.aid, request_id=req.rid,
+                               hop=req.hop, slot=req.slot, bucket=req.bucket,
+                               queue_wait_s=round(queue_wait, 6),
+                               replica=self.engine_id, stage=self.role)
         if self.prefix is not None:
             self._admit_prefix(req)
             return
@@ -1177,9 +1376,13 @@ class Engine:
         fn = self._prefill_fn(bucket)
         t0 = time.perf_counter()
         req.timeline.mark(PHASE_PREFILL, bucket=bucket)
-        self._fault("prefill", self.metrics.prefill_steps)
-        l32 = fn(ids=ids, amask=amask, **row)
-        tok = int(select_tokens(l32, [self._sampler(req)], self.top_k)[0])
+        with _tracing.request_scope(req.rid, req.trace.trace_id), \
+                _tracing.span("serving.prefill", slot=slot, bucket=bucket,
+                              replica=self.engine_id, stage="prefill"), \
+                self._dispatch("prefill", self.metrics.prefill_steps):
+            l32 = fn(ids=ids, amask=amask, **row)
+            tok = int(select_tokens(l32, [self._sampler(req)],
+                                    self.top_k)[0])
         self.kv.occupy(slot, bucket, req.prompt_len)
         self._finish_admission(req, tok, time.perf_counter() - t0)
 
@@ -1197,10 +1400,15 @@ class Engine:
         fn = self._cprefill_fn(tb)
         t0 = time.perf_counter()
         req.timeline.mark(PHASE_PREFILL, bucket=tb, cached_prefix=lc)
-        self._fault("prefill", self.metrics.prefill_steps)
-        l32 = fn(ids=ids, tail_lens=[tail.shape[0]], col0=[lc],
-                 page_rows=self.kv.block_table[[slot]])
-        tok = int(select_tokens(l32, [self._sampler(req)], self.top_k)[0])
+        with _tracing.request_scope(req.rid, req.trace.trace_id), \
+                _tracing.span("serving.prefill", slot=slot, bucket=tb,
+                              cached_prefix=lc, replica=self.engine_id,
+                              stage="prefill"), \
+                self._dispatch("prefill", self.metrics.prefill_steps):
+            l32 = fn(ids=ids, tail_lens=[tail.shape[0]], col0=[lc],
+                     page_rows=self.kv.block_table[[slot]])
+            tok = int(select_tokens(l32, [self._sampler(req)],
+                                    self.top_k)[0])
         self.kv.occupy(slot, req.prompt_len, req.prompt_len)
         self.prefix.insert(req.prompt, self.kv.slot_row_pages(slot))
         self._finish_admission(req, tok, time.perf_counter() - t0)
@@ -1221,6 +1429,9 @@ class Engine:
         if not chunked:
             self.metrics.observe("h_prefill", dt)
         self._emit(req, tok)
+        self._profile("prefill", request_id=req.rid,
+                      bucket=(self._chunk_tokens if chunked else req.bucket),
+                      slot=slot, duration_s=dt, occupancy=self.kv.occupancy)
 
     def _begin_chunk(self, req: Request):
         """A chunked admission begins (``engine.py:1731-1760``; its pages
@@ -1228,13 +1439,19 @@ class Engine:
         unpadded layout whether or not the prefix cache matched, so chunk
         ``i`` lands at columns ``[chunk_pos, chunk_pos + n)`` of the
         slot's own pages."""
-        self.metrics.observe("h_queue_wait",
-                             time.perf_counter() - req.submit_time)
+        queue_wait = time.perf_counter() - req.submit_time
+        self.metrics.observe("h_queue_wait", queue_wait)
         req.chunk_pos = req.prefix_len
         req.prefill_chunks = -(-(req.prompt_len - req.prefix_len)
                                // self._chunk_tokens)
         req.timeline.mark(PHASE_ADMITTED, slot=req.slot,
                           engine=self.engine_id)
+        _tracing.async_instant("slot.admission", req.aid, request_id=req.rid,
+                               hop=req.hop, slot=req.slot,
+                               bucket=self._chunk_tokens,
+                               queue_wait_s=round(queue_wait, 6),
+                               chunks=req.prefill_chunks,
+                               replica=self.engine_id, stage=self.role)
         # one prefill mark for the whole chunked phase
         req.timeline.mark(PHASE_PREFILL, bucket=self._chunk_tokens,
                           cached_prefix=req.prefix_len,
@@ -1263,12 +1480,18 @@ class Engine:
         piggyback = sum(r is not None for r in self._slot_req)
         fn = self._mixed_fn()
         t0 = time.perf_counter()
-        self._fault("decode", self.metrics.decode_steps)
-        c32, l32 = fn(ids=ids, tail_lens=[n], col0=[pos],
-                      page_rows=self.kv.block_table[[slot]],
-                      **self._step_operands(self._tokens[:, None], view))
-        samplers = [self._sampler(r) for r in self._slot_req]
-        out = select_tokens(l32[:, 0], samplers, self.top_k).cpu().numpy()
+        with _tracing.request_scope(req.rid, req.trace.trace_id), \
+                _tracing.span("serving.decode", slot=slot,
+                              chunk=int(pos // ct), chunk_len=n,
+                              active=piggyback, replica=self.engine_id,
+                              stage="decode"), \
+                self._dispatch("decode", self.metrics.decode_steps):
+            c32, l32 = fn(ids=ids, tail_lens=[n], col0=[pos],
+                          page_rows=self.kv.block_table[[slot]],
+                          **self._step_operands(self._tokens[:, None], view))
+            samplers = [self._sampler(r) for r in self._slot_req]
+            out = select_tokens(l32[:, 0], samplers,
+                                self.top_k).cpu().numpy()
         dt = time.perf_counter() - t0
         self.metrics.note_chunk_step(n, piggyback, self.slots)
         # each chunk prices the feasibility estimate's prefill waves
@@ -1277,14 +1500,25 @@ class Engine:
             self.metrics.decode_step_s.append(dt)
             self.metrics.observe("h_decode", dt)
             self.metrics.decode_steps += 1
+        # no sink attached: the per-token events build nothing
+        tok_evts = [] if _tracing.active() else None
         for s, r in enumerate(self._slot_req):
             if r is None:
                 continue
             self.kv.advance(s)
             self._tokens[s] = out[s]
+            if tok_evts is not None:
+                tok_evts.append(_tracing.async_instant_evt(
+                    "slot.decode_token", r.aid, request_id=r.rid,
+                    hop=r.hop, slot=s, step=r.counter))
             self._emit(r, int(out[s]))
+        if tok_evts:
+            _tracing.emit_events(tok_evts)
         req.chunk_pos = pos + n
-        if req.chunk_pos < req.prompt_len:
+        final = req.chunk_pos >= req.prompt_len
+        self._profile("chunk", request_id=req.rid, slot=slot, tokens=n,
+                      piggyback=piggyback, duration_s=dt, final=final)
+        if not final:
             return
         tok = int(select_tokens(c32, [self._sampler(req)], self.top_k)[0])
         self.kv.occupy(slot, req.prompt_len, req.prompt_len)
@@ -1307,6 +1541,7 @@ class Engine:
             req.slot = None
         req.state = CANCELLED
         req.handle._close(error)
+        self._end_span(req)
 
     def _embed_one(self, ids: np.ndarray) -> np.ndarray:
         n = int(ids.shape[0])
@@ -1378,11 +1613,23 @@ class Engine:
                 n_draft[slot] = len(d)
                 qs[slot] = q
         samplers = [self._sampler(r) for r in self._slot_req]
-        self._fault("decode", self.metrics.decode_steps)
-        l32 = fn(**self._step_operands(toks))
-        tok, probs = select_tokens_window(l32, samplers, self.top_k,
-                                          n_draft.tolist())
-        out = tok.cpu().numpy()
+        # the span only when something consumes it; the heartbeat inline
+        # (`_dispatch`'s, without its generator on the step's path)
+        span = (_tracing.span("serving.decode",
+                              active=int(self.kv.occupancy),
+                              replica=self.engine_id, stage="decode")
+                if _tracing.active() else _NO_SPAN)
+        self._hb_busy_since = time.monotonic()
+        try:
+            with span:
+                self._fault("decode", self.metrics.decode_steps)
+                l32 = fn(**self._step_operands(toks))
+                tok, probs = select_tokens_window(l32, samplers, self.top_k,
+                                                  n_draft.tolist())
+                out = tok.cpu().numpy()
+        finally:
+            self._hb_busy_since = None
+        self._hb_last_done = time.monotonic()
         emits = {}
         sampled = [s for s, smp in enumerate(samplers) if smp is not None]
         drafting = [j for j, s in enumerate(sampled) if n_draft[s]]
@@ -1393,9 +1640,13 @@ class Engine:
         self.metrics.decode_step_s.append(dt)
         self.metrics.observe("h_decode", dt)
         self.metrics.decode_steps += 1
+        # no sink attached: the per-token events build nothing
+        tok_evts = [] if _tracing.active() else None
+        n_active = n_tokens = 0
         for slot, req in enumerate(self._slot_req):
             if req is None:
                 continue
+            n_active += 1
             nd = int(n_draft[slot])
             if slot in emits:
                 acc, emit = emits[slot]
@@ -1403,16 +1654,31 @@ class Engine:
                 acc = longest_accept(toks[slot], out[slot], nd)
                 emit = [int(out[slot, j]) for j in range(acc + 1)]
             if nd:
-                self.metrics.note_spec(
-                    "greedy" if req.params.greedy else "sampled", nd, acc)
+                mode = "greedy" if req.params.greedy else "sampled"
+                self.metrics.note_spec(mode, nd, acc)
                 if self._spec_ctrl is not None:
                     self._spec_ctrl.observe(nd, acc)
+                if tok_evts is not None:
+                    tok_evts.append(_tracing.async_instant_evt(
+                        "spec.verify", req.aid, request_id=req.rid,
+                        hop=req.hop, slot=slot, drafted=nd, accepted=acc,
+                        mode=mode, replica=self.engine_id))
             for t in emit:
                 self.kv.advance(slot)
                 self._tokens[slot] = t
+                n_tokens += 1
+                if tok_evts is not None:
+                    tok_evts.append(_tracing.async_instant_evt(
+                        "slot.decode_token", req.aid, request_id=req.rid,
+                        hop=req.hop, slot=slot, step=req.counter))
                 self._emit(req, t)
                 if req.done or self._slot_req[slot] is not req:
                     break           # EOS, budget or cancel inside the window
+        if tok_evts:
+            _tracing.emit_events(tok_evts)
+        if self._profiler is not None:
+            self._profiler("decode", dict(active=n_active, duration_s=dt,
+                                          tokens=n_tokens))
         if self._spec_ctrl is not None:
             k = self._spec_ctrl.decide()
             if k != self._spec_k:
@@ -1537,6 +1803,9 @@ class Engine:
             req.state = CANCELLED
             self._release(req)
             return
+        if self.slo is not None:
+            # the SLO's inter-token gaps read these (no SLO: no reader)
+            req.token_times.append(time.perf_counter())
         if req.first_token_time is None:
             req.first_token_time = time.perf_counter()
             ttft = req.first_token_time - req.submit_time
@@ -1559,9 +1828,14 @@ class Engine:
         req.finish_time = time.perf_counter()
         slot = req.slot
         if slot is not None and self._slot_req[slot] is req:
+            _tracing.async_instant("slot.eviction", req.aid,
+                                   request_id=req.rid, hop=req.hop,
+                                   slot=slot, tokens=len(req.emitted),
+                                   replica=self.engine_id)
             self._slot_req[slot] = None
             self.kv.release(slot)
             self.scheduler.release(slot)
+        self._end_span(req)
         req.handle._close(error)
 
     def _cancel(self, req: Request):
@@ -1577,6 +1851,7 @@ class Engine:
             if req.state == QUEUED:
                 self.scheduler.drop_queued(req)
                 req.state = CANCELLED
+                self._end_span(req)
                 req.handle._close()
                 return
             req.state = CANCELLED

@@ -19,12 +19,14 @@ class SlotKVCache:
     """The per-layer slot caches plus the per-slot host state the steps
     read (``steps``, ``pads``, ``valid_cols``, ``active``)."""
 
-    def __init__(self, model, slots: int, max_len: int):
+    def __init__(self, model, slots: int, max_len: int, dtype=None):
         self.slots = int(slots)
         self.max_len = int(max_len)
         # gen_static_cache checks max_len against the position table and
-        # takes the weight dtype, as generate() does
-        self.caches = model.gen_static_cache(self.slots, self.max_len)
+        # takes the weight dtype, as generate() does, unless ``dtype``
+        # names another (``Engine(dtype=)``, ``kv_slots.py:32-38``)
+        self.caches = model.gen_static_cache(self.slots, self.max_len,
+                                             dtype=dtype)
         self.num_layers = len(self.caches)
         self.steps = np.zeros((self.slots,), np.int32)     # next write col
         self.pads = np.zeros((self.slots,), np.int32)      # left-pad count

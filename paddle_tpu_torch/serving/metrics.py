@@ -130,6 +130,27 @@ class EngineStats:
     #: the first token)
     ttft_hist_p50: float | None = None
     ttft_p99: float | None = None
+    # -- costs (``metrics.py:121-128``; None before the first decode) ----
+    #: one decode step's operations as the engine stands: the model's
+    #: products plus the attention's columns (`Engine._decode_step_flops`)
+    decode_exec_flops: float | None = None
+    #: ``decode_exec_flops`` times the decode steps over the tokens they
+    #: emitted (the prefill's first token rides free); speculation
+    #: lowers it
+    decode_flops_per_token: float | None = None
+    # -- the SLO plane (``Engine(slo=SLO(...))``; zeros or None
+    # otherwise, ``metrics.py:129-146``) ----------------------------------
+    #: terminated requests meeting every objective
+    slo_attained: int = 0
+    #: terminated requests that missed one, or failed typed
+    slo_violated: int = 0
+    #: attained / (attained + violated) since construction (None before
+    #: the first)
+    slo_attainment: float | None = None
+    #: the largest error-budget burn rate over the tracker's windows
+    slo_burn_rate: float | None = None
+    #: attained requests a second over the tracker's window
+    goodput_per_s: float = 0.0
 
 
 #: the histograms of an engine: attribute -> (name, help, bucket edges
@@ -153,6 +174,39 @@ _HISTOGRAMS = {
                           "mixed chunk step",
                           (0.0, 0.125, 0.25, 0.375, 0.5, 0.625, 0.75,
                            0.875, 1.0)),
+}
+
+
+#: plain counter attributes of `EngineMetrics` published as the
+#: reference's registry families (``paddle_tpu/serving/metrics.py:
+#: 161-196``), labeled by engine: attribute -> (name, help). The
+#: prefix-cache, chunk, deadline and shed families are published where
+#: they are counted (`note_prefix`, `note_chunk_step`, ...).
+_COUNTERS = {
+    "submitted": ("serving_requests_submitted_total",
+                  "requests accepted by Engine.submit()"),
+    "completed": ("serving_requests_completed_total",
+                  "requests that finished (EOS or token budget)"),
+    "cancelled": ("serving_requests_cancelled_total",
+                  "requests cancelled by the client"),
+    "prefill_steps": ("serving_prefill_steps_total",
+                      "prefill executions (one admitted request each)"),
+    "decode_steps": ("serving_decode_steps_total",
+                     "iteration-level decode steps (all slots ride each "
+                     "one)"),
+    "tokens_generated": ("serving_tokens_emitted_total",
+                         "generated tokens delivered to request handles"),
+    "kv_pages_exhausted": ("serving_kv_pages_exhausted_total",
+                           "admissions deferred because the paged KV pool "
+                           "had no free pages"),
+    "prefix_lookups": ("serving_prefix_lookups_total",
+                       "prefix-cache matches attempted at admission"),
+    "prefix_evicted_pages": ("serving_prefix_evicted_pages_total",
+                             "cached prefix pages dropped by LRU eviction "
+                             "under pool pressure"),
+    "embed_prompts": ("serving_embed_prompts_total",
+                      "encoder-only prompts embedded through "
+                      "Engine.embed()"),
 }
 
 
@@ -187,6 +241,20 @@ class EngineMetrics:
     #: deadline expiries, and requests refused or shed at admission
     deadline_exceeded: int = 0
     shed: int = 0
+
+    def __post_init__(self):
+        # the `_COUNTERS` families are published from the fields when
+        # the registry is read (`publish`), never on the counting path
+        get_registry().add_collector(self.publish)
+
+    def publish(self):
+        """Set this engine's children of the `_COUNTERS` families to the
+        fields' values (``Counter.reset``: a count only moves up, a
+        rewind reads as a process reset). The registry calls it before
+        every `snapshot` / `to_prometheus`."""
+        for attr, fam in _COUNTERS.items():
+            self._family("counter", *fam).reset(getattr(self, attr),
+                                                engine=self.engine_id)
 
     def _family(self, kind, name, help):
         return getattr(get_registry(), kind)(name, help,
@@ -308,6 +376,20 @@ class EngineMetrics:
         def p50(xs):
             return float(np.median(xs)) if xs else None
 
+        self.publish()
+        # the reference's account: one step's operations times the
+        # decode steps over every emitted token (each admission's first
+        # rides free)
+        toks = self.tokens_generated
+        per_token = None
+        if gauges.get("decode_exec_flops") and toks > 0:
+            per_token = (gauges["decode_exec_flops"] * self.decode_steps
+                         / toks)
+            self._family("gauge", "serving_decode_flops_per_token",
+                         "decode steps' operations / tokens they emitted "
+                         "— falls as speculation raises tokens per weight "
+                         "read").set(per_token, engine=self.engine_id)
+
         self._family("gauge", "serving_queue_depth",
                      "requests waiting for a slot").set(
                          gauges["queue_depth"], engine=self.engine_id)
@@ -339,7 +421,8 @@ class EngineMetrics:
             engine_id=self.engine_id,
             deadline_exceeded=self.deadline_exceeded, shed=self.shed,
             ttft_hist_p50=self.quantile("h_ttft", 0.5)[0],
-            ttft_p99=self.quantile("h_ttft", 0.99)[0], **gauges)
+            ttft_p99=self.quantile("h_ttft", 0.99)[0],
+            decode_flops_per_token=per_token, **gauges)
 
 
 __all__ = ["EngineStats", "EngineMetrics"]

@@ -48,7 +48,8 @@ class PagePool:
     """Per-layer device page pools (and scales on a quantized pool) plus
     the host free list."""
 
-    def __init__(self, model, pages: int, page_size: int, kv_quant=None):
+    def __init__(self, model, pages: int, page_size: int, dtype=None,
+                 kv_quant=None):
         self.page_size = int(page_size)
         if self.page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
@@ -58,12 +59,13 @@ class PagePool:
         if kv_quant not in (None, *_QUANT_PAGE_DTYPES):
             raise ValueError(f"kv_quant must be None, 'int8' or 'fp8', "
                              f"got {kv_quant!r}")
-        #: None (pages in the model dtype), "int8" or "fp8"
+        #: None (float pages: the model dtype, or ``dtype``), "int8" or
+        #: "fp8" (1-byte pages, whatever ``dtype`` is; ``paged.py:90-110``)
         self.kv_quant = kv_quant
         #: per-layer (k_pool, v_pool), written in place by the steps
         self.caches = model.gen_page_pool(
             self.pages_total + 1, self.page_size,
-            dtype=_QUANT_PAGE_DTYPES.get(kv_quant))
+            dtype=_QUANT_PAGE_DTYPES.get(kv_quant, dtype))
         #: per-layer (k_scale, v_scale) [pages + 1, H, ps] f32 of a
         #: quantized pool, written beside the pages; None otherwise
         self.scales = (model.gen_page_scales(self.pages_total + 1,
@@ -143,14 +145,16 @@ class PagePool:
 
 
 def pages_in_budget(model, byte_budget: int, page_size: int = 16,
-                    kv_quant=None) -> int:
+                    dtype=None, kv_quant=None) -> int:
     """Pool pages (the sentinel not counted) that fit ``byte_budget``
-    device bytes in the given storage mode: the inverse of
+    device bytes at the stored dtype (``dtype``, default the model's, or
+    the 1-byte pages of ``kv_quant``): the inverse of
     `PagePool.bytes_per_page`, read off a one-page probe pool (so the
-    model's ``gen_page_pool`` owns the layout). At one budget,
-    ``kv_quant="int8"`` or ``"fp8"`` gives about ``dtype_bytes / (1 + 4 /
-    head_dim)`` times the pages."""
-    probe = PagePool(model, 1, int(page_size), kv_quant=kv_quant)
+    model's ``gen_page_pool`` owns the layout; ``paged.py:498-511``). At
+    one budget, ``kv_quant="int8"`` or ``"fp8"`` gives about
+    ``dtype_bytes / (1 + 4 / head_dim)`` times the pages."""
+    probe = PagePool(model, 1, int(page_size), dtype=dtype,
+                     kv_quant=kv_quant)
     return max(1, int(byte_budget) // probe.bytes_per_page() - 1)
 
 
@@ -158,7 +162,7 @@ class PagedKVCache:
     """Per-engine view over a `PagePool` plus host-side slot state."""
 
     def __init__(self, model, slots: int, max_len: int, page_size: int = 16,
-                 pages: int | None = None, kv_quant=None):
+                 pages: int | None = None, dtype=None, kv_quant=None):
         self.slots = int(slots)
         self.max_len = int(max_len)
         self.max_pages = pages_for(self.max_len, int(page_size))
@@ -167,7 +171,7 @@ class PagedKVCache:
         model.gen_static_cache(0, self.max_len)
         self.pool = PagePool(
             model, self.slots * self.max_pages if pages is None else pages,
-            page_size, kv_quant=kv_quant)
+            page_size, dtype=dtype, kv_quant=kv_quant)
         self.page_size = self.pool.page_size
         self.logical_len = self.max_pages * self.page_size
         sentinel = self.pool.sentinel

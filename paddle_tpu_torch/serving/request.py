@@ -90,16 +90,33 @@ class Request:
     retry_free_seen: int | None = None
     retry_after_t: float = 0.0
     emitted: list = field(default_factory=list)
+    #: the perf_counter instant of each emitted token (the SLO's
+    #: inter-token latency)
+    token_times: list = field(default_factory=list)
     submit_time: float = field(default_factory=time.perf_counter)
     first_token_time: float | None = None
     finish_time: float | None = None
     #: the phase `timeline.Timeline`, started at submit
     timeline: "object" = None
+    #: the distributed trace context (`observability.tracing.
+    #: TraceContext`), minted by the engine at submit
+    trace: "object" = None
 
     def __post_init__(self):
         if self.timeline is None:
             from .timeline import Timeline
             self.timeline = Timeline(t0=self.submit_time)
+
+    @property
+    def aid(self):
+        """The id of the request's async trace lane: its trace id once
+        minted, else the rid (``request.py:134-138``)."""
+        return self.trace.trace_id if self.trace is not None else self.rid
+
+    @property
+    def hop(self) -> int:
+        """The trace hop (0: the engine the request was submitted to)."""
+        return self.trace.hop if self.trace is not None else 0
 
     @property
     def prompt_len(self) -> int:
@@ -142,13 +159,32 @@ class RequestHandle:
         self._done.set()
 
     def _finalize(self, error):
+        """The terminal funnel (``request.py:194-233``): the timeline's
+        typed close, the engine's SLO observation and its ring's record,
+        once. It never raises: a failure here is counted on
+        ``serving_timeline_finalize_failures_total``, so an accounting
+        fault cannot mask the close path (a death's sweep runs
+        through it)."""
         from .timeline import cause_of
 
-        req = self._req
-        if req.timeline.close(cause_of(req.state, error), error):
+        try:
+            req = self._req
+            cause = cause_of(req.state, error)
+            if not req.timeline.close(cause, error):
+                return
+            tracker = getattr(self._engine, "slo", None)
+            if tracker is not None:
+                tracker.observe(req, cause)
             ring = getattr(self._engine, "timelines", None)
             if ring is not None:
                 ring.record(req)
+        except Exception:  # noqa: BLE001 - counted, see the docstring
+            from ..observability import get_registry
+            get_registry().counter(
+                "serving_timeline_finalize_failures_total",
+                "request terminal-accounting (timeline close / SLO "
+                "observe / exemplar record) failures swallowed by the "
+                "handle close path").inc()
 
     # -- client side ---------------------------------------------------
     @property

@@ -114,7 +114,9 @@ def test_promote_types_for_every_pair():
 def test_float16_in_the_dtype_map():
     assert pdevice.resolve_dtype("float16") is torch.float16
     assert "float16" in pdevice.DTYPES
-    assert "float16" not in pdevice.PAGE_DTYPES      # B3 waits (ROADMAP A2)
+    # B3 reads float16 pages (ROADMAP A2 closed)
+    assert pdevice.resolve_dtype("float16",
+                                 pdevice.PAGE_DTYPES) is torch.float16
     lin = pnn.Linear(4, 3, device="cpu").to(dtype="float16")
     assert all(p.dtype == torch.float16 for p in lin.parameters())
     assert pt.resolve_dtype(torch.float16) is torch.float16

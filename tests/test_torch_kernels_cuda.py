@@ -8,8 +8,10 @@ cuda`` (``--noconftest``: tests/conftest.py sets up jax for the parity
 tests). chip_smoke.py holds every kernel at the main paths' shapes; these
 are quick checks at small shapes: the general kernels at a padded,
 masked, causal shape with dropout, the qkv3 kernels with dropout, the
-LayerNorm kernels with and without a residual, the paged kernel on
-bf16, int8 and fp8 pools at W in {1, 4, 5}, its split page walk (rows
+LayerNorm kernels with and without a residual (and in float16), the
+paged kernel on bf16, int8 and fp8 pools at W in {1, 4, 5} and at every
+query-page dtype pair beyond q's own (float16 on both sides, float pages of
+another dtype than q's, float16 q over 1-byte pages), its split page walk (rows
 that live in one split, at cursor 0, parked, unreadable, a window across
 two splits) at W in {1, 3, 5}, the beam's tail read through it
 (`paged_tail_segment`) on bf16 and int8 pages, the qkv forward on
@@ -210,6 +212,114 @@ def test_paged_kernel_matches_the_plain_version_on_a_card(pages, w):
     counts = kernels.kernel_launch_counts()
     assert counts[name] == 1
     assert sum(v for k, v in counts.items() if k.startswith("paged")) == 1
+
+
+#: query and page dtypes beyond a float pool of q's own: float16 on
+#: both sides, float pages of a dtype other than q's, float16 q over
+#: 1-byte pages
+DTYPE_PAIRS = [("float16", "float16"), ("bfloat16", "float32"),
+               ("bfloat16", "float16"), ("float16", "bfloat16"),
+               ("float16", "float32"), ("float32", "bfloat16"),
+               ("float32", "float16"), ("float16", "int8"),
+               ("float16", "fp8")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dt, pages", DTYPE_PAIRS,
+                         ids=[f"{q}-{p}" for q, p in DTYPE_PAIRS])
+@pytest.mark.parametrize("w", [1, 5])
+def test_paged_kernel_across_query_and_page_dtypes_on_a_card(q_dt, pages,
+                                                             w):
+    """The paged kernel with each page dtype under each query dtype
+    (each page widened to f32, out rounded once to q's dtype) against
+    its plain version: a 16-bit out within 8 ulps of its dtype at each
+    element's scale, a float32 one and the lse at 1e-4; the launch
+    counted under its name (``_f16`` for float16 q) and, on float pages
+    of another dtype than q's, under ``paged_attention_cross``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the Hopper kernels run only on "
+                    "the card")
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    from paddle_tpu_torch.kernels import paged_kv
+
+    g = torch.Generator(device="cuda").manual_seed(10 + w)
+    n, h, d, ps, pmax = 4, 4, 128, 16, 6
+    pools = [torch.randn((n * pmax + 1, h, ps, d), generator=g,
+                         device="cuda") for _ in range(2)]
+    kw, quant = {}, pages in ("int8", "fp8")
+    if quant:
+        dt = torch.int8 if pages == "int8" else torch.float8_e4m3fn
+        pools, scales = zip(*(paged_kv.quantize_tokens(p, dt) for p in pools))
+        kw = dict(k_scale=scales[0], v_scale=scales[1])
+    else:
+        pools = [p.to(getattr(torch, pages)) for p in pools]
+    bt = torch.randperm(n * pmax, generator=g, device="cuda").reshape(
+        n, pmax).to(torch.int32)
+    steps = torch.tensor([40, 70, 3, 0], dtype=torch.int32, device="cuda")
+    vc = torch.ones((n, pmax * ps), dtype=torch.int32, device="cuda")
+    vc[0, :20] = 0
+    vc[1] = 0
+    bt[3], vc[3] = n * pmax, 0
+    q = torch.randn((n, h, w, d), generator=g, device="cuda").to(
+        getattr(torch, q_dt))
+    kernels.reset_kernel_launch_counts()
+    out, lse = pa.fused_paged_attention(q, *pools, bt, steps, vc, **kw)
+    ref, ref_lse = pa.paged_attention_reference(q, *pools, bt, steps, vc,
+                                                **kw)
+    assert out.dtype == q.dtype
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+    if q_dt == "float32":
+        torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    else:
+        unit = 2.0 ** -11 if q_dt == "float16" else 2.0 ** -8
+        r = ref.float().reshape(-1, d)
+        scale = torch.maximum(r.abs(), r.square().mean(1, keepdim=True)
+                              .sqrt()).clamp(min=r.square().mean().sqrt()
+                                             .item() / 64)
+        ulps = ((out.float().reshape(-1, d) - r).abs() / (scale * unit))
+        assert ulps.max().item() <= 8
+    name = "paged_attention" + (f"_{pages}" if quant else "") + (
+        "_f16" if q_dt == "float16" else "")
+    counts = kernels.kernel_launch_counts()
+    assert counts[name] == 1
+    assert counts["paged_attention_cross"] == int(not quant and pages != q_dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residual", [True, False])
+def test_fused_ln_float16_kernels_on_a_card(residual):
+    """B6 in float16 (dtype code 2) against its plain versions: y and dx
+    within 8 float16 ulps of each element's scale, the statistics at
+    1e-4, dg and db (float32 sums) at 1e-3 relative; the launches counted
+    under ``fused_ln_fwd_f16`` / ``fused_ln_bwd_f16``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the Hopper kernels run only on "
+                    "the card")
+    from paddle_tpu_torch.kernels import fused_ln as pfl
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x, r, dy = (torch.randn((256, 384), generator=g, device="cuda")
+                .to(torch.float16) for _ in range(3))
+    w, b = (torch.randn(384, generator=g, device="cuda") for _ in range(2))
+    r = r if residual else None
+    kernels.reset_kernel_launch_counts()
+    y, mean, rstd = pfl.fused_ln_fwd(x, r, w, b, 1e-5)
+    ry, rmean, rrstd = pfl.fused_ln_reference(x, r, w, b, 1e-5)
+    dx, dg, db = pfl.fused_ln_bwd(x, r, w, rmean, rrstd, dy)
+    rdx, rdg, rdb = pfl.fused_ln_bwd_reference(x, r, w, rmean, rrstd, dy)
+    for a, ref in ((y, ry), (dx, rdx)):
+        assert a.dtype == torch.float16
+        rf = ref.float()
+        scale = torch.maximum(rf.abs(), rf.square().mean(1, keepdim=True)
+                              .sqrt())
+        assert ((a.float() - rf).abs() / (scale * 2.0 ** -11)).max() <= 8
+    for a, ref in ((mean, rmean), (rstd, rrstd)):
+        torch.testing.assert_close(a, ref, atol=1e-4, rtol=0)
+    for a, ref in ((dg, rdg), (db, rdb)):
+        torch.testing.assert_close(a, ref, atol=1e-3, rtol=1e-3)
+    counts = kernels.kernel_launch_counts()
+    assert counts["fused_ln_fwd_f16"] == counts["fused_ln_bwd_f16"] == 1
+    assert counts["fused_ln_fwd"] == counts["fused_ln_bwd"] == 0
 
 
 @pytest.mark.cuda

@@ -370,3 +370,42 @@ def test_every_function_of_the_module_has_a_case():
     names = set(_collect(jmath))
     assert not names - covered, sorted(names - covered)
     assert all(hasattr(pt.ops.math, n) for n in names)
+
+
+@pytest.mark.parametrize("axis", [[0, 2], (1, 2)])
+@pytest.mark.parametrize("keepdim", [False, True])
+@pytest.mark.parametrize("name", ["median", "nanmedian", "quantile",
+                                  "nanquantile"])
+def test_reductions_over_several_axes(name, axis, keepdim):
+    """``axis`` a list or tuple: the reference reduces over every named
+    axis at once (``jnp.median(axis=(0, 2))``), the port moves them last
+    and flattens them (C.10)."""
+    x = rand((3, 4, 5), 40)
+    if name.startswith("nan"):
+        x[1, 2, 3] = np.nan
+    kw = {"axis": axis, "keepdim": keepdim}
+    if "quantile" in name:
+        for q in (0.3, [0.25, 0.75]):
+            check(name, [x], {"q": q, **kw})
+    else:
+        check(name, [x], kw)
+
+
+def test_clip_without_bounds_returns_x():
+    """``jnp.clip(v, None, None)`` is ``v`` (C.10): float and int."""
+    for x in (rand((3, 4), 41), rand((3, 4), 41, "int32")):
+        check("clip", [x])
+        check("clip", [x], {"min": None, "max": None})
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+def test_heaviside_of_integers_is_float32(dtype):
+    """``jnp.heaviside`` of integers is a float: int32 [2, -3, 4, 0, 5]
+    with [3, -1, 2, -2, 0] gives float32 [1, 0, 1, -2, 1] (C.10). Of
+    int64 the reference's x64 mode gives float64, the port float32
+    (C.3), so that case holds values and the port's dtype."""
+    a = np.array([2, -3, 4, 0, 5], dtype)
+    b = np.array([3, -1, 2, -2, 0], dtype)
+    _, p = check("heaviside", [a, b], dtypes=dtype == "int32")
+    assert p.dtype == torch.float32
+    np.testing.assert_array_equal(p.numpy(), [1, 0, 1, -2, 1])

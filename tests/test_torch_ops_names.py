@@ -26,7 +26,7 @@ LATER = {
     "enable_static": "A14", "disable_static": "A14", "summary": "A14",
     "flops": "A14", "get_flags": "A14", "set_flags": "A14", "jit": "A14",
     "static": "A14", "io": "A14", "metric": "A14", "hapi": "A14",
-    "profiler": "A9", "distribution": "A14", "sparse": "A14",
+    "distribution": "A14", "sparse": "A14",
     "text": "A14", "onnx": "A14", "callbacks": "A14", "inference": "A14",
     "audio": "A14", "geometric": "A14", "cost_model": "A14", "hub": "A14",
     "utils": "A14", "Model": "A14", "DataParallel": "A12",

@@ -276,15 +276,36 @@ def test_anomaly_rolls_back_and_skips_the_window_like_the_reference(
 
 
 def test_budget_exhaustion_is_typed(tmp_path):
+    """An exhausted anomaly budget raises typed; with a flight recorder
+    (ROADMAP A9) the death leaves exactly one train-death
+    postmortem naming the loop and its fatal anomaly, and the loop's
+    ``observability_port=`` endpoint serves it on ``/train``."""
+    import json
+    import urllib.request
+
+    from paddle_tpu_torch.observability import FlightRecorder
+
     inj = TrainFaultInjector().add("nan_loss_at_step", times=10)
-    loop = _loop(tmp_path, "t-budget", fault_injector=inj, max_rollbacks=2)
-    with pytest.raises(TrainAnomalyError, match="budget"):
-        loop.run(6)
-    assert loop.last_anomaly["action"] == "fatal"
-    with pytest.raises(NotImplementedError, match="A9"):
-        _loop(tmp_path / "fr", "t-fr", flight_recorder=True)
-    with pytest.raises(NotImplementedError, match="A9"):
-        _loop(tmp_path / "op", "t-op", observability_port=0)
+    rec = FlightRecorder(dump_dir=str(tmp_path / "flight"))
+    loop = _loop(tmp_path / "ck", "t-budget", fault_injector=inj,
+                 max_rollbacks=2, flight_recorder=rec, observability_port=0)
+    try:
+        with pytest.raises(TrainAnomalyError, match="budget"):
+            loop.run(6)
+        assert loop.last_anomaly["action"] == "fatal"
+        assert len(rec.dumps) == 1
+        with open(rec.dumps[0]) as f:
+            art = json.load(f)
+        assert art["kind"] == "train_death" and art["loop_id"] == "t-budget"
+        assert art["reason"] == "TrainAnomalyError"
+        assert art["anomaly_attribution"]["action"] == "fatal"
+        with urllib.request.urlopen(loop.observability.url + "/train",
+                                    timeout=10) as r:
+            rows = json.load(r)["sources"]
+        assert [r["id"] for r in rows] == ["t-budget"]
+    finally:
+        loop.observability.stop()
+        rec.detach()
 
 
 def test_loss_spike_detector(tmp_path):

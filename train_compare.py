@@ -34,6 +34,21 @@ global-norm clip; `loss.backward(); opt.step(); opt.clear_grad()`) and
 prints their median and quartiles: a host-bound eager step, for holding
 two trees' Python paths against each other (run the trees in
 alternation, one process each).
+
+    python3 train_compare.py --serve-runs N
+
+serves phase 4's traffic (`chip_smoke.serve_traffic`: gpt3-1.3b bf16 on
+the paged Engine, 8 slots, pages of 16, 10 requests of 20-500 tokens +
+32) N times with the trace span buffer on (the default) and N times
+with it off, alternating, a fresh engine each, and prints each run's
+decode ms/step p50 and the medians: the serving step's host work, for
+holding two trees against each other the same way. Then, with the
+buffer off, it splits the decode step of a full engine (every slot
+active, SPLIT_STEPS steps): the host time from the step's entry to the
+graph's launch, the graph's device time (CUDA events around the
+replay), the rest of the step after the launch, and the whole
+``step()`` call, p50 each; and profiles 8 full decode steps
+(`chip_smoke.profile_decode`: wall, device busy, the top kernels).
 """
 import argparse
 import os
@@ -136,10 +151,95 @@ def eager_steps(cs, steps):
           f"{q[2]:.3f} ms, min {t[0]:.3f} ms", flush=True)
 
 
+def serve_runs(cs, runs):
+    """`--serve-runs`: phase 4's traffic, the span buffer on and off."""
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.models.gpt import GPTForPretraining, gpt_config
+    from paddle_tpu_torch.observability import tracing
+    from paddle_tpu_torch.serving import Engine
+
+    _build.build_all([n for n in _build.sources()
+                      if n.startswith("paged_attention")])
+    cfg = gpt_config(cs.MODEL)
+    model = GPTForPretraining(cfg, dtype="bfloat16", seed=0)
+    kw = dict(kv_mode="paged", slots=cs.SLOTS, page_size=cs.PAGE,
+              max_len=cs.MAX_LEN, prefill_buckets=cs.BUCKETS)
+    Engine(model, **kw).submit(list(range(1, 30)), max_new_tokens=2).result()
+    prompts = cs.phase_prompts(torch, cfg, 0)
+    res = {"buffer on": [], "buffer off": []}
+    try:
+        for _ in range(runs):
+            for mode in res:
+                tracing.set_buffer_enabled(mode == "buffer on")
+                _, s, _, _ = cs.serve_traffic(torch, Engine(model, **kw),
+                                              prompts)
+                res[mode].append(s.decode_step_p50 * 1e3)
+    finally:
+        tracing.set_buffer_enabled(True)
+    for mode, ms in res.items():
+        print(f"phase 4's traffic, span {mode}: decode ms/step p50 of "
+              f"{runs} runs {[round(m, 3) for m in ms]}, median "
+              f"{statistics.median(ms):.3f}", flush=True)
+    tracing.set_buffer_enabled(False)
+    try:
+        decode_split(cs, Engine(model, **kw), prompts)
+        cs.profile_decode(torch, Engine(model, **kw), prompts)
+    finally:
+        tracing.set_buffer_enabled(True)
+
+
+#: decode steps of a full engine that `decode_split` times
+SPLIT_STEPS = 24
+
+
+def decode_split(cs, eng, prompts):
+    """A full engine's decode step in parts (see the module docstring):
+    the engine's own `_decode_once` and its step's graph are wrapped on
+    this engine alone, the same way in any tree."""
+    for p in prompts[:cs.SLOTS]:
+        eng.submit(p, max_new_tokens=cs.MAX_NEW)
+    eng.step()                      # admits every slot, one decode
+    fn = eng._verify_fn()
+    graph, marks = fn._graph, {}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    class Timed:
+        def replay(self):
+            marks["launch"] = time.perf_counter()
+            ev[0].record()
+            graph.replay()
+            ev[1].record()
+
+    decode = eng._decode_once
+
+    def timed_decode():
+        marks["entry"] = time.perf_counter()
+        decode()
+        marks["exit"] = time.perf_counter()
+
+    fn._graph, eng._decode_once = Timed(), timed_decode
+    parts = {"entry to launch": [], "graph (device)": [],
+             "launch to exit": [], "step() call": []}
+    for _ in range(SPLIT_STEPS):
+        t0 = time.perf_counter()
+        eng.step()
+        t1 = time.perf_counter()
+        parts["entry to launch"].append(marks["launch"] - marks["entry"])
+        parts["graph (device)"].append(ev[0].elapsed_time(ev[1]) / 1e3)
+        parts["launch to exit"].append(marks["exit"] - marks["launch"])
+        parts["step() call"].append(t1 - t0)
+    check_active = eng.stats().active_slots
+    print(f"full decode step in parts, {SPLIT_STEPS} steps, "
+          f"{check_active} slots still active after, ms p50: "
+          + ", ".join(f"{k} {statistics.median(v) * 1e3:.4f}"
+                      for k, v in parts.items()), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--gate-reps", type=int, default=0)
     ap.add_argument("--eager-steps", type=int, default=0)
+    ap.add_argument("--serve-runs", type=int, default=0)
     ap.add_argument("--phase", type=int, choices=(5, 13), default=5)
     args = ap.parse_args()
     sys.path.insert(0, os.getcwd())
@@ -150,9 +250,12 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    _build.build_all(["flash_attention", "flash_attention_qkv"])
     card = cs.nvidia_smi_line()
     print("tree at", os.getcwd(), ";", card, flush=True)
+    if args.serve_runs:
+        serve_runs(cs, args.serve_runs)
+        return
+    _build.build_all(["flash_attention", "flash_attention_qkv"])
     if args.eager_steps:
         _build.build_all(["multi_tensor_adam"])
         eager_steps(cs, args.eager_steps)
